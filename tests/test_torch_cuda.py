@@ -1,0 +1,138 @@
+"""The CUDA kernels of vch_tpu_torch against their plain PyTorch versions,
+and the wrappers' routing and input checks.
+
+This file imports neither JAX nor vch_tpu, so it also runs on a machine
+with a card and no JAX: `python -m pytest --noconftest tests/test_torch_cuda.py`.
+Tests that need the card are marked `cuda` and skip without one.
+
+Tolerances on the card: phi 1e-5 absolute, and Newton totals within one
+solve per member (float32 sums in another order: a step that converges
+right at the tolerance may take one more iteration); r 2e-3 relative, the
+float32 noise floor of the adjoint on small grids (chip_smoke.py records
+it at larger ones).
+"""
+import numpy as np
+import pytest
+import torch
+
+from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
+from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+from vch_tpu_torch.models.forward2d import ForwardSolver2D
+from vch_tpu_torch.ops import march as km
+from vch_tpu_torch.ops.potential import init_phi_random_2d
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (python chip_smoke.py)")
+    return torch.device("cuda")
+
+
+def _problem(device, n=17, B=3, T=0.05, seed=0):
+    cfg = ForwardSolverConfig2D(Nx=n - 1, Ny=n - 1, T=T, dtype="float32",
+                                newton_tol=2e-4)
+    fwd = ForwardSolver2D(cfg, device=device)
+    adj = AdjointSolver2D(cfg, device=device)
+    rng = np.random.default_rng(seed)
+    phi0 = np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP, seed=42 + i)
+                     for i in range(B)])
+    u = 0.1 * rng.standard_normal((B, fwd.M + 1, n, n))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return fwd, adj, f32(phi0), f32(u), f32
+
+
+def _march_args(fwd, phi0, u):
+    return (fwd.dts, phi0, u, fwd.Lx, fwd.LyT, fwd.Vx_inv, fwd.Vy_inv_T,
+            fwd.Vx, fwd.VyT, fwd.lam, fwd.wts)
+
+
+_KW = dict(tau=0.05, c1=0.75, c2=1.0, kappa=1e-4, gamma=10.0,
+           delta_sep=DELTA_SEP, area=1.0, newton_tol=2e-4, newton_rtol=1e-5,
+           newton_max_iter=500, n_trips=3, stagnation_exit=True)
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    fwd, adj, phi0, u, f32 = _problem(torch.device("cpu"), B=2)
+    before = (km.march_fused_2d.launches, km.adjoint_fused_2d.launches)
+    hist, ns, bad = fwd.march_fused_batch(u, phi0)
+    r = adj.adjoint_fused_batch(hist, f32([1.0, 2.0]), f32([3.0, 4.0]),
+                                torch.zeros_like(hist), torch.zeros_like(phi0))
+    assert (km.march_fused_2d.launches, km.adjoint_fused_2d.launches) == before
+    ref = km.march_fused_2d_plain(*_march_args(fwd, phi0, u), **_KW)
+    assert torch.equal(hist, ref[0]) and torch.equal(ns, ref[1])
+    assert r.shape == hist.shape and bool(torch.isfinite(r).all())
+
+
+def test_wrappers_reject_other_devices():
+    fwd, adj, phi0, u, _ = _problem(torch.device("cpu"), B=1)
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        km.march_fused_2d(*[meta(t) for t in _march_args(fwd, phi0, u)],
+                          **_KW)
+
+
+@pytest.mark.cuda
+def test_march_kernel_matches_plain(cuda):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, B=4, T=0.1)
+    args = _march_args(fwd, phi0, u)
+    before = km.march_fused_2d.launches
+    kh, kns, kbad = km.march_fused_2d(*args, **_KW)
+    assert km.march_fused_2d.launches == before + 1
+    ph, pns, pbad = km.march_fused_2d_plain(*args, **_KW)
+    torch.cuda.synchronize()
+    assert (kh - ph).abs().max().item() <= 1e-5
+    assert torch.equal(kh[:, 0], phi0)
+    assert torch.equal(kbad, pbad) and (kbad == -1).all()
+    assert (kns - pns).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+def test_march_kernel_sanitizer_flags_nonfinite_member(cuda):
+    fwd, _, phi0, u, _ = _problem(cuda, B=3)
+    phi0[1, 3, 3] = float("nan")
+    kw = dict(_KW, newton_max_iter=3)
+    _, _, kbad = km.march_fused_2d(*_march_args(fwd, phi0, u), **kw)
+    _, _, pbad = km.march_fused_2d_plain(*_march_args(fwd, phi0, u), **kw)
+    assert kbad.tolist() == [-1, 0, -1] == pbad.tolist()
+
+
+@pytest.mark.cuda
+def test_adjoint_kernel_matches_plain(cuda):
+    fwd, adj, phi0, u, f32 = _problem(cuda, n=33, B=3, T=0.1)
+    hist, _, _ = fwd.march_fused_batch(u, phi0)
+    rng = np.random.default_rng(3)
+    phiQ = f32(0.3 * rng.standard_normal(tuple(hist.shape)))
+    phiT = f32(0.7 * rng.standard_normal(tuple(phi0.shape)))
+    b1, b2 = f32([5.0, 0.3, 1.0]), f32([10.0, 13.0, 2.0])
+    before = km.adjoint_fused_2d.launches
+    kr = adj.adjoint_fused_batch(hist, b1, b2, phiQ, phiT)
+    assert km.adjoint_fused_2d.launches == before + 1
+    adj.sweep = km.adjoint_fused_2d_plain
+    pr = adj.adjoint_fused_batch(hist, b1, b2, phiQ, phiT)
+    torch.cuda.synchronize()
+    assert (kr[:, -1] == 0).all()
+    rel = (kr - pr).abs().max().item() / pr.abs().max().item()
+    assert rel <= 2e-3, rel
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(cuda):
+    fwd, _, phi0, u, _ = _problem(cuda, B=2)
+    args = list(_march_args(fwd, phi0, u))
+    with pytest.raises(TypeError, match="float32"):
+        km.march_fused_2d(*[a.double() for a in args], **_KW)
+    bad_u = args[:]
+    bad_u[2] = u.transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous"):
+        km.march_fused_2d(*bad_u, **_KW)
+    bad_shape = args[:]
+    bad_shape[2] = u[:, :-1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        km.march_fused_2d(*bad_shape, **_KW)
+    bad_dev = args[:]
+    bad_dev[3] = args[3].cpu()
+    with pytest.raises(ValueError, match="expected"):
+        km.march_fused_2d(*bad_dev, **_KW)

@@ -1,0 +1,21 @@
+"""vch_tpu_torch — the viscous Cahn–Hilliard sparse-control engine on
+PyTorch and CUDA (NVIDIA Hopper).
+
+A port of `vch_tpu` (JAX on a TPU), which stays beside it as the reference.
+This package imports torch, numpy and the standard library only: never
+`jax`, `vch_tpu` or `pydantic`, so it runs on a machine that has none of
+them. The batched 2D PGD path (`parallel.batch.BatchedProblem2D`) runs the
+forward march and the adjoint sweep as hand-written CUDA kernels on CUDA
+tensors (`ops.march`), and their plain PyTorch versions on CPU tensors.
+"""
+import torch as _torch
+
+# Full float32 products everywhere. The adjoint step operator reaches
+# condition ~1e6, and reduced-precision products (TF32 keeps ~10 mantissa
+# bits) turn its Krylov solve into NaNs — the counterpart of the
+# jax_default_matmul_precision='highest' pin in vch_tpu/__init__.py. Both
+# flags are set explicitly: cuDNN's TF32 default is on.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,149 @@
+"""Solver and optimizer configuration, as plain dataclasses.
+
+Same field names and defaults as `vch_tpu/config.py` (ForwardSolverConfig2D,
+OptimizationConfig) and `vch_tpu/control/pgd.py` (PGDSettings), so a config
+dumped by `vch_tpu` (`model_dump()` or its JSON) loads here through
+`from_dict`. Validation is by hand: c2 > c1, u_max > u_min, dtype in
+{float32, float64}, and positivity where vch_tpu's fields demand it.
+
+Fields accepted for interchangeability but NOT honored yet by the port:
+  fused_march_block        — the member-blocked kernels are not ported; the
+                             port always runs one member per CTA;
+  fused_solve_precision,   — the kernels compute every product in full
+  adjoint_solve_precision,   float32 FMA (vch_tpu's 'highest');
+  forward_matmul_precision
+  use_pallas, pallas_variant — TPU kernel routing; the port routes by the
+                             tensors' device instead;
+  krylov_tol, krylov_max_iter — the adaptive-Krylov scan path is not ported;
+  linsolve_1d              — 1D is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+# |phi| <= 1 - DELTA_SEP (vch_tpu/config.py:22)
+DELTA_SEP = 1e-2
+
+
+def _known(cls, d: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+@dataclass
+class ForwardSolverConfig2D:
+    """2D forward-solve parameters (vch_tpu/config.py:25-105)."""
+
+    Nx: int = 128
+    Ny: int = 128
+    Lx: float = 1.0
+    Ly: float = 1.0
+    T: float = 1.0
+    dt_initial: float = 1e-2
+    tau: float = 0.05
+    gamma: float = 10.0
+    c1: float = 0.75
+    c2: float = 1.0
+    kappa: float = 0.01 ** 2
+    dtype: str = "float64"
+    newton_tol: float = 1e-6
+    newton_rtol: float = 1e-5
+    newton_max_iter: int = 500
+    krylov_tol: float = 1e-9
+    krylov_max_iter: int = 200
+    krylov_fixed_iters: int = 4
+    fused_krylov_fixed_iters: Optional[int] = 3
+    adjoint_krylov_fixed_iters: Optional[int] = 5
+    linsolve_1d: str = "auto"
+    # accepted, not honored (see the module docstring)
+    fused_solve_precision: Optional[str] = "bf16x3"
+    fused_march_block: Optional[int] = None
+    adjoint_solve_precision: Optional[str] = None
+    pallas_variant: str = "spectral"
+    use_pallas: Optional[bool] = None
+    forward_matmul_precision: Optional[str] = None
+
+    def __post_init__(self):
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError("dtype must be 'float32' or 'float64'")
+        if self.c2 <= self.c1:
+            raise ValueError(f"c2 ({self.c2}) must be greater than c1 "
+                             f"({self.c1})")
+        for name in ("Nx", "Ny"):
+            if getattr(self, name) <= 10:
+                raise ValueError(f"{name} must be > 10")
+        for name in ("Lx", "Ly", "T", "dt_initial", "gamma", "newton_tol",
+                     "newton_max_iter", "krylov_tol", "krylov_max_iter",
+                     "krylov_fixed_iters"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be > 0")
+        for name in ("fused_krylov_fixed_iters", "adjoint_krylov_fixed_iters"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be > 0 or None")
+        if self.kappa < 0 or self.newton_rtol < 0:
+            raise ValueError("kappa and newton_rtol must be >= 0")
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ForwardSolverConfig2D":
+        """Build from vch_tpu's `model_dump()` / JSON; unknown keys are
+        dropped."""
+        return cls(**_known(cls, d))
+
+
+@dataclass
+class OptimizationConfig:
+    """PGD loop parameters (vch_tpu/config.py:122-154)."""
+
+    b1: float = 0.3
+    b2: float = 13.0
+    b3: float = 0.0019
+    kappa_sparsity: float = 9e-5
+    alpha_max: float = 100.0
+    max_iter: int = 1000
+    u_min: float = -1.0
+    u_max: float = 1.0
+
+    def __post_init__(self):
+        if self.u_max <= self.u_min:
+            raise ValueError("u_max must be strictly greater than u_min.")
+        for name in ("b1", "b2", "b3", "kappa_sparsity"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        if self.alpha_max <= 0 or self.max_iter <= 10:
+            raise ValueError("alpha_max must be > 0 and max_iter > 10")
+
+    @classmethod
+    def defaults_2d(cls, **over) -> "OptimizationConfig":
+        base = dict(b1=5.0, b2=10.0, b3=1e-4, kappa_sparsity=1e-4,
+                    alpha_max=50.0, max_iter=500)
+        base.update(over)
+        return cls(**base)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "OptimizationConfig":
+        return cls(**_known(cls, d))
+
+
+@dataclass
+class PGDSettings:
+    """Line-search / heuristic constants (vch_tpu/control/pgd.py:42-67)."""
+
+    ls_max_trials: int = 5
+    ls_beta: float = 0.8
+    ls_alpha_factor: float = 1.0
+    plateau_length: int = 10
+    plateau_tolerance: float = 1e-7
+    plateau_boost: float = 2.0
+    conv_tol: float = 1e-5
+    conv_min_iter: int = 10
+    advisor_start_iter: int = 100
+    keep_failed_step: bool = True
+
+    @classmethod
+    def defaults_2d(cls) -> "PGDSettings":
+        return cls(ls_max_trials=10, ls_alpha_factor=0.8, plateau_length=5,
+                   plateau_tolerance=1e-5, plateau_boost=1.5,
+                   conv_min_iter=20)

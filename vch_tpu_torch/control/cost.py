@@ -1,0 +1,36 @@
+"""Discrete cost J = J1 + J2 + J3 + J4 by nested trapezoid quadrature
+(vch_tpu/control/cost.py:41-65): space y then x, then time.
+
+J = (b1/2)||phi-phi_Q||^2_Q + (b2/2)||phi(T)-phi_Omega||^2
+  + (b3/2)||u||^2_Q + kappa_spar ||u||_{L1(Q)}
+
+Fields carry any leading batch axes; b1..kappa_spar broadcast against them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _trapz(y, x, dim):
+    return torch.trapezoid(y, x=x, dim=dim)
+
+
+def cost_breakdown_2d(phi_hist, u, phi_Q_target, phi_T_target, x, y, t_hist,
+                      b1, b2, b3, kappa_spar):
+    """(J1, J2, J3, J4) for 2D histories [..., M+1, Nx+1, Ny+1]."""
+    def sp(a):
+        return _trapz(_trapz(a, y, -1), x, -1)
+
+    J1 = (b1 / 2.0) * _trapz(sp((phi_hist - phi_Q_target) ** 2), t_hist, -1)
+    J2 = (b2 / 2.0) * sp((phi_hist[..., -1, :, :] - phi_T_target) ** 2)
+    J3 = (b3 / 2.0) * _trapz(sp(u ** 2), t_hist, -1)
+    J4 = kappa_spar * _trapz(sp(torch.abs(u)), t_hist, -1)
+    return J1, J2, J3, J4
+
+
+def calculate_cost_2d(phi_hist, u, phi_Q_target, phi_T_target, x, y, t_hist,
+                      b1, b2, b3, kappa_spar):
+    J1, J2, J3, J4 = cost_breakdown_2d(phi_hist, u, phi_Q_target,
+                                       phi_T_target, x, y, t_hist,
+                                       b1, b2, b3, kappa_spar)
+    return J1 + J2 + J3 + J4

@@ -1,0 +1,28 @@
+"""2D terminal target phi_T and tracking path phi_Q (host numpy; the same
+construction as vch_tpu/control/targets.py:35-51).
+
+choice_t=1: 0.7 sin(2 pi x/Lx) cos(pi y/Ly); otherwise a centred circle of
+radius Lx/3.5. choice_q=1: linear time ramp phi(0) -> phi_T; otherwise zeros.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def build_targets_2d(x, y, t_hist, phi_initial, Lx, Ly, T,
+                     choice_t: int = 1, choice_q: int = 1):
+    """Return (phi_T_target (Nx+1, Ny+1), phi_Q_target (M+1, Nx+1, Ny+1))."""
+    xx, yy = np.meshgrid(x, y, indexing="ij")
+    if choice_t == 1:
+        phi_T = 0.7 * np.sin(2.0 * np.pi * xx / Lx) * np.cos(np.pi * yy / Ly)
+    else:
+        radius_sq = (Lx / 3.5) ** 2
+        phi_T = -np.ones_like(xx)
+        phi_T[(xx - Lx / 2) ** 2 + (yy - Ly / 2) ** 2 < radius_sq] = 1.0
+
+    if choice_q == 1:
+        tp = (t_hist / T)[:, None, None]
+        phi_Q = (1.0 - tp) * phi_initial + tp * phi_T
+    else:
+        phi_Q = np.zeros((len(t_hist), len(x), len(y)))
+    return phi_T, phi_Q

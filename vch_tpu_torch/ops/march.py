@@ -1,0 +1,481 @@
+"""The two kernels of the batched 2D PGD path: the whole forward march and
+the whole adjoint sweep (counterpart of vch_tpu/ops/pallas_march.py).
+
+`march_fused_2d` / `adjoint_fused_2d` route by the tensors' device: on CUDA
+tensors they launch the hand-written kernels of `csrc/march2d.cu` and
+`csrc/adjoint2d.cu` (float32 only; anything else raises), on CPU tensors
+they run the plain PyTorch versions `march_fused_2d_plain` /
+`adjoint_fused_2d_plain` of this module. There is no fallback from one to
+the other. Each wrapper counts its kernel launches in `.launches`.
+
+The plain versions walk each member's time loop in Python with that
+member's own Newton / Armijo / Krylov trip counts, statement for statement
+as the Pallas kernel bodies (`_march_kernel_factory`, pallas_march.py:79-390;
+`_adjoint_kernel_factory`, :567-748) compute them, so they are the oracle
+for both the JAX reference (tests) and the CUDA kernels (chip_smoke.py).
+Scalar arithmetic stays in the field dtype (0-d tensors); Python control
+flow reads the CTA-uniform predicates the kernels branch on.
+
+One exactness-preserving change to the fixed-trip BiCGStab: the Pallas body
+masks a trip whose residual is at the noise floor or non-finite, and such a
+trip repeats identically until the trip budget ends, so both the plain
+versions and the kernels leave the loop there instead.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
+from vch_tpu_torch.ops.potential import fpp_log, regularized_log
+
+EPS_DIV = 1e-30
+_ARMIJO_ETA = 1e-4
+_ARMIJO_MAX = 12
+_FPP_EPS = 1e-8
+
+
+def _eps_mach(dtype) -> float:
+    # pallas_march.py:421 — the noise-floor freeze is (50 eps)^2 ||b||^2
+    return 2.2e-16 if dtype == torch.float64 else 1.2e-7
+
+
+def _dot(a, b):
+    return torch.sum(a * b)
+
+
+def _bicgstab_fixed(apply_A, prec, r0, x0, best_x0, floor2, n_trips):
+    """Fixed-trip BiCGStab with best-iterate return and the noise-floor
+    freeze (pallas_march.py:228-256 and :698-724). `prec` is the spectral
+    right preconditioner of the forward Schur solve (identity for the
+    split-preconditioned adjoint, whose operator is already conditioned)."""
+    one = torch.ones((), dtype=r0.dtype, device=r0.device)
+    x, r = x0, r0
+    p = v = torch.zeros_like(r0)
+    rho = alpha = omega = one
+    best_x, best_r2 = best_x0, _dot(r0, r0)
+    for _ in range(n_trips):
+        if not bool(_dot(r, r) > floor2):
+            break
+        rho_new = _dot(r0, r)
+        beta = (rho_new / (rho + EPS_DIV)) * (alpha / (omega + EPS_DIV))
+        p = r + beta * (p - omega * v)
+        phat = prec(p)
+        v = apply_A(phat)
+        alpha_n = rho_new / (_dot(r0, v) + EPS_DIV)
+        s = r - alpha_n * v
+        shat = prec(s)
+        t = apply_A(shat)
+        omega_n = _dot(t, s) / (_dot(t, t) + EPS_DIV)
+        x = x + alpha_n * phat + omega_n * shat
+        r = s - omega_n * t
+        r2_n = _dot(r, r)
+        if not bool(torch.isfinite(r2_n)):
+            break
+        rho, alpha, omega = rho_new, alpha_n, omega_n
+        if bool(r2_n < best_r2):
+            best_x, best_r2 = x, r2_n
+    return best_x
+
+
+# --------------------------------------------------------------------------
+# forward march
+
+
+def _march_member(dts, phi0, u, ops, k):
+    """One member's whole march; returns (frames list, nsolve, first_bad)."""
+    Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts = ops
+    mm = torch.matmul
+    tau, c1, c2, kappa, gamma = k["tau"], k["c1"], k["c2"], k["kappa"], k["gamma"]
+    delta_sep = k["delta_sep"]
+    lo, hi = -1.0 + delta_sep, 1.0 - delta_sep
+    dsep2 = 1.0 - delta_sep * delta_sep
+    eps_mach = _eps_mach(phi0.dtype)
+
+    def to_s(v):
+        return mm(mm(Vxi, v), VyiT)
+
+    def from_s(vh):
+        return mm(mm(Vx, vh), VyT)
+
+    def lap(v):
+        return apply_laplacian_2d(Lx, LyT, v)
+
+    def f_log(phi):
+        return regularized_log(phi, delta_sep)
+
+    phi_old = phi0
+    w_old = torch.zeros_like(phi0)
+    mu_old = -kappa * lap(phi0) + c1 * f_log(phi0) - 2.0 * c2 * phi0
+    m0 = torch.sum(wts * phi0)
+    frames, nsolve, first_bad = [phi0], 0, -1
+
+    for step in range(dts.shape[0]):
+        dt = dts[step]
+        inv_dt = 1.0 / dt
+        tau_dt = tau * inv_dt
+        gamma_dt = gamma * inv_dt
+        w_new = (((gamma_dt - 0.5) * w_old + 0.5 * (u[step + 1] + u[step]))
+                 / (gamma_dt + 0.5))
+        lap_mu_old = lap(mu_old)
+        lap_phi_old = lap(phi_old)
+        mu_init = (-kappa * lap_phi_old + c1 * f_log(phi_old)
+                   - 2.0 * c2 * phi_old - w_new)
+        f_ccv = -2.0 * c2 * phi_old
+        w_avg = 0.5 * (w_new + w_old)
+
+        def resid(phi, mu):
+            lap_mu = lap(mu)
+            lap_phi = lap(phi)
+            Rmu = (phi - phi_old) * inv_dt - 0.5 * (lap_mu + lap_mu_old)
+            Rphi = (tau * inv_dt * (phi - phi_old)
+                    - 0.5 * kappa * (lap_phi + lap_phi_old)
+                    + c1 * f_log(phi) + f_ccv
+                    - 0.5 * (mu + mu_old) - w_avg)
+            norm = torch.sqrt(torch.sum(Rphi * Rphi) + torch.sum(Rmu * Rmu))
+            return norm, Rphi, Rmu
+
+        def schur_solve(phi, Rphi, Rmu):
+            phi_sq = torch.clamp(phi * phi, 0.0, dsep2)
+            d = 2.0 * c1 / (1.0 - phi_sq)
+            dbar = torch.mean(d)
+            poly = inv_dt - tau_dt * lam + 0.5 * kappa * lam * lam
+            denom = poly - dbar * lam
+
+            def apply_S(yh):
+                return poly * yh - lam * mm(mm(Vxi, d * mm(mm(Vx, yh), VyT)),
+                                            VyiT)
+
+            bvec = to_s(lap(Rphi) - Rmu)
+            floor2 = ((50.0 * eps_mach) ** 2
+                      * torch.clamp(_dot(bvec, bvec), min=EPS_DIV))
+            z = torch.zeros_like(bvec)
+            best_x = _bicgstab_fixed(apply_S, lambda v: v / denom, bvec, z, z,
+                                     floor2, k["n_trips"])
+            dphi = from_s(best_x)
+            Kpp_dphi = -(0.5 * kappa) * lap(dphi) + (tau_dt + d) * dphi
+            dmu = 2.0 * (Kpp_dphi + Rphi)
+            return dphi, dmu
+
+        def step_ceiling(phi, dphi):
+            inf = torch.full_like(phi, math.inf)
+            ratio_pos = torch.where(dphi > 0, (hi - phi) / dphi, inf)
+            ratio_neg = torch.where(dphi < 0, (lo - phi) / dphi, inf)
+            amax = torch.clamp(torch.minimum(0.9 * torch.min(ratio_pos),
+                                             0.9 * torch.min(ratio_neg)),
+                               max=2.0)
+            if not bool(torch.isfinite(amax)) or bool(amax <= 0):
+                amax = torch.ones_like(amax)
+            return torch.clamp(amax, max=1.0)
+
+        def armijo(phi, mu, dphi, dmu, norm_R, Rphi, Rmu):
+            # accept / best-trial fallback / unchanged; every exit hands the
+            # residual of the returned iterate to the next Newton iteration
+            alpha = step_ceiling(phi, dphi)
+            best, best_norm = None, math.inf
+            for _ in range(_ARMIJO_MAX):
+                phi_t = phi + alpha * dphi
+                mu_t = mu + alpha * dmu
+                norm_t, Rp_t, Rm_t = resid(phi_t, mu_t)
+                trial = (phi_t, mu_t, norm_t, Rp_t, Rm_t)
+                if bool(norm_t < best_norm):
+                    best, best_norm = trial, norm_t
+                if bool(norm_t <= (1.0 - _ARMIJO_ETA * alpha) * norm_R):
+                    return trial
+                alpha = alpha * 0.5
+            if best is not None and bool(best_norm < norm_R):
+                return best
+            return phi, mu, norm_R, Rphi, Rmu
+
+        # Newton: this member's own trip count (pallas_march.py:322-360)
+        phi, mu = phi_old, mu_init
+        norm0 = prev_norm = None
+        carried = None
+        it = 0
+        while it < k["newton_max_iter"]:
+            if it == 0:
+                norm_R, Rphi, Rmu = resid(phi, mu)
+                norm0 = norm_R
+            else:
+                norm_R, Rphi, Rmu = carried
+            conv = bool(norm_R < k["newton_tol"])
+            if k["newton_rtol"] > 0:
+                conv = conv or bool(norm_R < k["newton_rtol"] * norm0)
+            if k["stagnation_exit"] and it > 0:
+                conv = conv or bool(norm_R >= prev_norm)
+            if conv:
+                break
+            dphi, dmu = schur_solve(phi, Rphi, Rmu)
+            phi, mu, nR, Rp, Rm = armijo(phi, mu, dphi, dmu, norm_R, Rphi,
+                                         Rmu)
+            carried = (nR, Rp, Rm)
+            prev_norm = norm_R
+            nsolve += 1
+            it += 1
+
+        # clip + interior mass correction + sanitizer (pallas_march.py:362-388)
+        phi_c = torch.clamp(phi, lo, hi)
+        mass_error = torch.sum(wts * phi_c) - m0
+        interior = torch.abs(phi_c) < (1.0 - delta_sep - 5e-3)
+        Wint = torch.sum(torch.where(interior, wts, torch.zeros_like(wts)))
+        if bool(torch.abs(mass_error) > 1e-16):
+            if bool(Wint > 0):
+                phi_c = torch.where(interior, phi_c - mass_error / Wint, phi_c)
+            else:
+                phi_c = torch.clamp(phi_c - mass_error / k["area"], lo, hi)
+        if not bool(torch.isfinite(mass_error)) and first_bad < 0:
+            first_bad = step
+        frames.append(phi_c)
+        phi_old, mu_old, w_old = phi_c, mu, w_new
+    return frames, nsolve, first_bad
+
+
+def march_fused_2d_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
+                         lam, wts, **k):
+    """Plain PyTorch version of the forward-march kernel (any device,
+    float32 or float64). Arguments as `march_fused_2d`."""
+    ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
+    hist, ns, bad = [], [], []
+    for b in range(phi0.shape[0]):
+        frames, nsolve, first_bad = _march_member(dts, phi0[b], u[b], ops, k)
+        hist.append(torch.stack(frames))
+        ns.append(nsolve)
+        bad.append(first_bad)
+    mk = lambda v: torch.tensor(v, dtype=torch.int32, device=phi0.device)
+    return torch.stack(hist), mk(ns), mk(bad)
+
+
+def _fwd_consts(k):
+    """Kernel constants, each formed in double precision the way the Pallas
+    kernel forms it from Python floats, then rounded to float32."""
+    ds = k["delta_sep"]
+    log_eps = max(1e-8, 0.5 * ds)
+    vals = [k["tau"], k["c1"], 2.0 * k["c1"], 2.0 * k["c2"], -k["kappa"],
+            0.5 * k["kappa"], k["gamma"], -1.0 + log_eps, 1.0 - log_eps,
+            -1.0 + ds, 1.0 - ds, 1.0 - ds * ds, 1.0 - ds - 5e-3, k["area"],
+            k["newton_tol"], k["newton_rtol"],
+            (50.0 * _eps_mach(torch.float32)) ** 2]
+    return (ctypes.c_float * len(vals))(*vals), len(vals)
+
+
+def _check_cuda(names, tensors, dev):
+    for name, t in zip(names, tensors):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _shape(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.vch_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
+                   wts, *, tau: float, c1: float, c2: float, kappa: float,
+                   gamma: float, delta_sep: float, area: float,
+                   newton_tol: float, newton_rtol: float,
+                   newton_max_iter: int, n_trips: int,
+                   stagnation_exit: bool = True):
+    """The whole batched 2D forward march.
+
+    Args:
+      dts (M,), phi0 (B, n, m), u (B, M+1, n, m); Lx (n, n), LyT (m, m)
+      (Ly transposed); Vx_inv, Vy_inv_T, Vx, VyT: cosine transforms;
+      lam (n, m) eigenvalue grid; wts (n, m) quadrature weights * hx * hy;
+      area = Lx * Ly (uniform mass-fix fallback).
+    Returns phi_hist (B, M+1, n, m) with phi0 prepended, nsolve (B,) int32
+    Newton linear solves per member, first_bad (B,) int32 first step whose
+    mass defect was non-finite (-1: none).
+    """
+    k = dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
+             delta_sep=delta_sep, area=area, newton_tol=newton_tol,
+             newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
+             n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
+    args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
+    if phi0.device.type == "cpu":
+        return march_fused_2d_plain(*args, **k)
+    if phi0.device.type != "cuda":
+        raise ValueError(f"march_fused_2d: unsupported device {phi0.device}")
+    names = ("dts", "phi0", "u", "Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx",
+             "VyT", "lam", "wts")
+    _check_cuda(names, args, phi0.device)
+    B, n, m = phi0.shape
+    M = dts.shape[0]
+    for name, t, shape in (("dts", dts, (M,)), ("u", u, (B, M + 1, n, m)),
+                           ("Lx", Lx, (n, n)), ("LyT", LyT, (m, m)),
+                           ("Vx_inv", Vx_inv, (n, n)), ("Vx", Vx, (n, n)),
+                           ("Vy_inv_T", Vy_inv_T, (m, m)), ("VyT", VyT, (m, m)),
+                           ("lam", lam, (n, m)), ("wts", wts, (n, m))):
+        _shape(name, t, shape)
+    from vch_tpu_torch.ops import _build
+    lib = _build.load()
+    dev = phi0.device
+    hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
+    nsolve = torch.empty((B,), dtype=torch.int32, device=dev)
+    first_bad = torch.empty((B,), dtype=torch.int32, device=dev)
+    work = torch.empty((B, lib.vch_workspace_fields(0), n, m),
+                       dtype=torch.float32, device=dev)
+    consts, nc = _fwd_consts(k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_march_fused_2d(
+        *[t.data_ptr() for t in args], hist.data_ptr(), nsolve.data_ptr(),
+        first_bad.data_ptr(), work.data_ptr(), B, M, n, m, consts, nc,
+        k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
+        stream)
+    march_fused_2d.launches += 1
+    _raise_on(lib, err, "march_fused_2d")
+    return hist, nsolve, first_bad
+
+
+march_fused_2d.launches = 0
+
+
+# --------------------------------------------------------------------------
+# adjoint sweep
+
+
+def _adjoint_member(dts, hist, phiQ, phiT, b1, b2, ops, k):
+    """One member's reverse (p, q, r) sweep; returns r (M+1, n, m)."""
+    Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
+    mm = torch.matmul
+    tau, gamma, c1, c2 = k["tau"], k["gamma"], k["c1"], k["c2"]
+    eps_mach = _eps_mach(hist.dtype)
+    M = dts.shape[0]
+
+    def to_s(v):
+        return mm(mm(Vxi, v), VyiT)
+
+    def from_s(vh):
+        return mm(mm(Vx, vh), VyT)
+
+    def lap(v):
+        return apply_laplacian_2d(Lx, LyT, v)
+
+    def fpp(phi):
+        return fpp_log(phi, c1, c2, _FPP_EPS)
+
+    # terminal: (I - tau L) p_T = b2 (phi(T) - phi_Omega), exact in the
+    # cosine basis; q_T = -L p_T; r_T = 0
+    rhs_T = b2 * (hist[M] - phiT)
+    p_next = from_s(to_s(rhs_T) / (1.0 - tau * lam))
+    q_next = -lap(p_next)
+    r_next = torch.zeros_like(p_next)
+    r_out = [None] * M + [r_next]
+
+    for n in range(M - 1, -1, -1):
+        dt = dts[n]
+        half_dt = 0.5 * dt
+        phi_n, phi_np1 = hist[n], hist[n + 1]
+        src_sum = (phi_n - phiQ[n]) + (phi_np1 - phiQ[n + 1])
+        fpp_n = fpp(phi_n)
+        fpp_np1 = fpp(phi_np1)
+        fbar = torch.mean(fpp_n)
+
+        w1 = lap(p_next)
+        Bp = p_next - tau * w1 - half_dt * lap(w1) + half_dt * fpp_np1 * w1
+        rhs = Bp + half_dt * b1 * src_sum
+
+        poly = 1.0 - tau * lam + half_dt * lam * lam
+        denom = poly - half_dt * fbar * lam
+        isd = torch.rsqrt(torch.abs(denom))
+
+        def apply_At(yh):
+            z = isd * yh
+            w = to_s(fpp_n * from_s(lam * z))
+            return isd * (poly * z - half_dt * w)
+
+        bt = isd * to_s(rhs)
+        y0 = to_s(p_next) / isd
+        r0 = bt - apply_At(y0)
+        floor2 = ((50.0 * eps_mach) ** 2
+                  * torch.clamp(_dot(bt, bt), min=EPS_DIV))
+        best = _bicgstab_fixed(apply_At, lambda v: v, r0, y0, y0, floor2,
+                               k["n_trips"])
+        p_n = from_s(isd * best)
+        q_n = -lap(p_n)
+        den = gamma + half_dt
+        r_n = ((gamma - half_dt) / den * r_next
+               + half_dt / den * (q_n + q_next))
+        if not bool(dt <= 1e-14):   # dt <= 1e-14 copies the next level
+            p_next, q_next, r_next = p_n, q_n, r_n
+        r_out[n] = r_next
+    return torch.stack(r_out)
+
+
+def adjoint_fused_2d_plain(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
+                           Vx_inv, Vy_inv_T, Vx, VyT, lam, **k):
+    """Plain PyTorch version of the adjoint-sweep kernel. Arguments as
+    `adjoint_fused_2d`."""
+    ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam)
+    return torch.stack([
+        _adjoint_member(dts, phi_hist[b], phi_Q[b], phi_T[b], b1[b], b2[b],
+                        ops, k)
+        for b in range(phi_T.shape[0])])
+
+
+def _adj_consts(k):
+    vals = [k["tau"], k["gamma"], 2.0 * k["c1"], 2.0 * k["c2"],
+            -1.0 + _FPP_EPS, 1.0 - _FPP_EPS,
+            (50.0 * _eps_mach(torch.float32)) ** 2]
+    return (ctypes.c_float * len(vals))(*vals), len(vals)
+
+
+def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
+                     Vy_inv_T, Vx, VyT, lam, *, tau: float, gamma: float,
+                     c1: float, c2: float, n_trips: int):
+    """The whole batched 2D adjoint sweep.
+
+    Args: dts (M,); phi_hist, phi_Q (B, M+1, n, m); phi_T (B, n, m) terminal
+    targets; b1, b2 (B,) weights; operators as `march_fused_2d`.
+    Returns r (B, M+1, n, m), with r_T = 0 in the last frame.
+    """
+    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
+            Vx, VyT, lam)
+    if phi_T.device.type == "cpu":
+        return adjoint_fused_2d_plain(*args, **k)
+    if phi_T.device.type != "cuda":
+        raise ValueError(f"adjoint_fused_2d: unsupported device {phi_T.device}")
+    names = ("dts", "phi_hist", "phi_Q", "phi_T", "b1", "b2", "Lx", "LyT",
+             "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam")
+    _check_cuda(names, args, phi_T.device)
+    B, n, m = phi_T.shape
+    M = dts.shape[0]
+    for name, t, shape in (("phi_hist", phi_hist, (B, M + 1, n, m)),
+                           ("phi_Q", phi_Q, (B, M + 1, n, m)),
+                           ("b1", b1, (B,)), ("b2", b2, (B,)),
+                           ("Lx", Lx, (n, n)), ("LyT", LyT, (m, m)),
+                           ("Vx_inv", Vx_inv, (n, n)), ("Vx", Vx, (n, n)),
+                           ("Vy_inv_T", Vy_inv_T, (m, m)), ("VyT", VyT, (m, m)),
+                           ("lam", lam, (n, m))):
+        _shape(name, t, shape)
+    from vch_tpu_torch.ops import _build
+    lib = _build.load()
+    dev = phi_T.device
+    r = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
+    work = torch.empty((B, lib.vch_workspace_fields(1), n, m),
+                       dtype=torch.float32, device=dev)
+    consts, nc = _adj_consts(k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_adjoint_fused_2d(
+        *[t.data_ptr() for t in args], r.data_ptr(), work.data_ptr(),
+        B, M, n, m, consts, nc, k["n_trips"], stream)
+    adjoint_fused_2d.launches += 1
+    _raise_on(lib, err, "adjoint_fused_2d")
+    return r
+
+
+adjoint_fused_2d.launches = 0

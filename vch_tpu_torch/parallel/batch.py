@@ -1,0 +1,320 @@
+"""Batched PGD over 2D scenario sweeps (vch_tpu/parallel/batch.py).
+
+Each member of the scenario batch has its own initial condition, targets and
+cost weights (b1, b2, b3, kappa_spar). One PGD iteration runs the whole-batch
+adjoint sweep for r, then a host-driven masked optimistic/backtracking line
+search: every trial is prox -> whole-batch forward march -> cost, and once
+few members are still searching they are gathered into the smallest
+power-of-two bucket (>= 8) that holds them, padded with non-searching rows
+whose results are discarded (their Newton solves are still counted, as in
+vch_tpu). Plateau detection, alpha growth and convergence freezing follow
+vch_tpu/parallel/batch.py:922-984.
+
+Not ported (single device, eager PyTorch): the device mesh and
+`shard_fused`, the speculative search, chunked execution, checkpoint/resume
+and `prewarm` (eager PyTorch compiles nothing per bucket shape).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from vch_tpu_torch.config import (ForwardSolverConfig2D, OptimizationConfig,
+                                  PGDSettings)
+from vch_tpu_torch.control.cost import calculate_cost_2d
+from vch_tpu_torch.control.prox import calculate_gradient, proximal_step
+from vch_tpu_torch.control.targets import build_targets_2d
+from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+from vch_tpu_torch.models.forward2d import ForwardSolver2D
+
+Array = Union[np.ndarray, torch.Tensor]
+
+
+@dataclass
+class ScenarioBatch:
+    """Per-scenario inputs, leading batch axis B (numpy or tensors)."""
+
+    phi0: Array          # (B, Nx+1, Ny+1)
+    phi_T: Array         # (B, Nx+1, Ny+1)
+    phi_Q: Array         # (B, M+1, Nx+1, Ny+1)
+    b1: Array            # (B,)
+    b2: Array
+    b3: Array
+    kappa_spar: Array
+    u_min: float = -1.0
+    u_max: float = 1.0
+
+    @property
+    def batch(self) -> int:
+        return self.phi0.shape[0]
+
+
+def sweep_2d(fwd_config: ForwardSolverConfig2D,
+             opt_config: Optional[OptimizationConfig] = None,
+             b3_values=None, kappa_values=None,
+             choice_t: int = 1, choice_q: int = 1) -> ScenarioBatch:
+    """(b3, kappa_spar) grid sweep with the default IC and targets, as
+    numpy arrays (vch_tpu/parallel/batch.py:131-162)."""
+    opt = opt_config or OptimizationConfig.defaults_2d()
+    solver = ForwardSolver2D(fwd_config)
+    phi0 = solver.default_initial_phi()
+    phi_T, phi_Q = build_targets_2d(solver.x, solver.y, solver.t_hist, phi0,
+                                    float(fwd_config.Lx), float(fwd_config.Ly),
+                                    float(fwd_config.T),
+                                    choice_t=choice_t, choice_q=choice_q)
+    b3s = np.asarray(b3_values if b3_values is not None else [opt.b3])
+    kss = np.asarray(kappa_values if kappa_values is not None
+                     else [opt.kappa_sparsity])
+    g_b3, g_ks = np.meshgrid(b3s, kss, indexing="ij")
+    B = g_b3.size
+    rep = lambda a: np.broadcast_to(a, (B,) + a.shape).copy()
+    return ScenarioBatch(
+        phi0=rep(phi0), phi_T=rep(phi_T), phi_Q=rep(phi_Q),
+        b1=np.full(B, opt.b1), b2=np.full(B, opt.b2),
+        b3=g_b3.ravel(), kappa_spar=g_ks.ravel(),
+        u_min=opt.u_min, u_max=opt.u_max)
+
+
+def straggler_bucket(n_search: int, B: int) -> Optional[int]:
+    """Smallest power-of-two sub-batch >= 8 holding n_search members, or
+    None when it would not be smaller than the batch."""
+    sb = 8
+    while sb < n_search:
+        sb *= 2
+    return sb if sb < B else None
+
+
+def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class BatchedProblem2D:
+    """Batched 2D PGD on one device."""
+
+    def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
+                 settings: Optional[PGDSettings] = None,
+                 alpha_max: float = 50.0, device=None):
+        self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
+        self.device = torch.device(device if device is not None else "cpu")
+        self.solver = ForwardSolver2D(cfg, device=self.device)
+        self.adj = AdjointSolver2D(cfg, device=self.device)
+        self.dtype = self.solver.dtype
+        self.s = settings or PGDSettings.defaults_2d()
+        self.alpha_max = alpha_max
+        self.straggler_rounds = 0
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                         device=self.device)
+        self._x = as_t(self.solver.x)
+        self._y = as_t(self.solver.y)
+        self._t = as_t(self.solver.t_hist)
+        self._control_shape = (self.solver.M + 1, cfg.Nx + 1, cfg.Ny + 1)
+
+    # ---- whole-batch pieces ----
+    def _cost(self, phi, u, phi_Q, phi_T, b1, b2, b3, ks):
+        return calculate_cost_2d(phi, u, phi_Q, phi_T, self._x, self._y,
+                                 self._t, b1, b2, b3, ks)
+
+    def _trial(self, u, r, alpha, phi0, phi_Q, phi_T, b1, b2, b3, ks):
+        """prox -> forward march -> cost for a (sub-)batch; returns
+        (u_t, phi_t, cost, newton_solves (int))."""
+        grad = calculate_gradient(r, u, _bcast(b3, u))
+        u_t = proximal_step(u, grad, _bcast(alpha, u), _bcast(ks, u),
+                            self.u_min, self.u_max)
+        phi_t, nsolve, _bad = self.solver.march_fused_batch(u_t, phi0)
+        c_t = self._cost(phi_t, u_t, phi_Q, phi_T, b1, b2, b3, ks)
+        return u_t, phi_t, c_t, int(nsolve.sum())
+
+    @staticmethod
+    def _change(u1, u):
+        dims = tuple(range(1, u.ndim))
+        num = torch.sqrt(torch.sum((u1 - u) ** 2, dim=dims))
+        den = torch.sqrt(torch.sum(u ** 2, dim=dims)) + 1e-9
+        return num / den
+
+    def _search(self, u, cost_np, alpha_prev_np, r, phi0, phi_Q, phi_T,
+                b1, b2, b3, ks):
+        """Masked host-driven optimistic + backtracking search
+        (vch_tpu/parallel/batch.py:401-546): alpha_prev first, then
+        alpha_prev * ls_alpha_factor * ls_beta^(j-1); a member that fails
+        every trial keeps its last (worse) iterate, alpha already times
+        beta."""
+        s = self.s
+        B = cost_np.shape[0]
+        max_trials = 1 + s.ls_max_trials
+        searching = np.ones(B, dtype=bool)
+        alpha_try = alpha_prev_np.copy()
+        n_trials = np.zeros(B, dtype=int)
+        opt_ok = np.zeros(B, dtype=bool)
+        res = None
+        res_alpha = alpha_prev_np.copy()
+        solves = 0
+        phase = {"optimistic": 0.0, "backtracking": 0.0}
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                         device=self.device)
+        for j in range(max_trials):
+            t_j = time.perf_counter()
+            n_search = int(searching.sum())
+            last = j == max_trials - 1
+            nxt = np.where(j == 0, alpha_prev_np * s.ls_alpha_factor,
+                           alpha_try * s.ls_beta)
+            sb_j = straggler_bucket(n_search, B)
+            if sb_j is not None and j > 0 and res is not None:
+                self.straggler_rounds += 1
+                # searching members + non-searching padding rows, whose
+                # writes are masked off below
+                idx = np.concatenate([
+                    np.nonzero(searching)[0],
+                    np.nonzero(~searching)[0][: sb_j - n_search]])
+                it = torch.as_tensor(idx, device=self.device)
+                g = lambda a: a.index_select(0, it)
+                u_t, phi_t, c_t, ns = self._trial(
+                    g(u), g(r), as_t(alpha_try[idx]), g(phi0), g(phi_Q),
+                    g(phi_T), g(b1), g(b2), g(b3), g(ks))
+                solves += ns
+                c_sub = c_t.cpu().numpy()
+                ok = np.zeros(B, dtype=bool)
+                ok[idx] = c_sub < cost_np[idx]
+                take = searching & (ok | last)
+                tk = torch.as_tensor(take[idx], device=self.device)
+                res = tuple(
+                    full.index_copy(0, it, torch.where(_bcast(tk, sub), sub,
+                                                       full.index_select(0, it)))
+                    for full, sub in zip(res, (u_t, phi_t, c_t)))
+            else:
+                u_t, phi_t, c_t, ns = self._trial(
+                    u, r, as_t(alpha_try), phi0, phi_Q, phi_T, b1, b2, b3, ks)
+                solves += ns
+                c_np = c_t.cpu().numpy()
+                ok = c_np < cost_np
+                take = searching & (ok | last)
+                if res is None:
+                    res = (u_t, phi_t, c_t)
+                else:
+                    tk = torch.as_tensor(take, device=self.device)
+                    res = tuple(torch.where(_bcast(tk, new), new, old)
+                                for new, old in zip((u_t, phi_t, c_t), res))
+            res_alpha = np.where(take, np.where(ok, alpha_try, nxt), res_alpha)
+            n_trials = np.where(searching, j + 1, n_trials)
+            if j == 0:
+                opt_ok = ok.copy()
+            phase["optimistic" if j == 0 else "backtracking"] += (
+                time.perf_counter() - t_j)
+            searching = searching & ~ok
+            if not searching.any():
+                break
+            alpha_try = np.where(searching, nxt, alpha_try)
+        u1, phi1, c1 = res
+        return (u1, phi1, c1.cpu().numpy(), res_alpha, n_trials, opt_ok,
+                solves, phase)
+
+    def run(self, scenarios: ScenarioBatch, max_iter: int,
+            verbose: bool = True):
+        """Vectorized PGD over the batch (vch_tpu/parallel/batch.py:819-1006).
+
+        Returns a dict: u, r, phi (tensors on the problem's device),
+        cost_history (max_iter+1, B), alpha, converged, iterations,
+        newton_solves (forward Newton linear solves, padding rows
+        included), timers (backward / optimistic / backtracking split),
+        advisor_alpha and ls_trials."""
+        dev = self.device
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=dev)
+        B = scenarios.batch
+        phi0, phi_T, phi_Q = (as_t(scenarios.phi0), as_t(scenarios.phi_T),
+                              as_t(scenarios.phi_Q))
+        b1, b2 = as_t(scenarios.b1), as_t(scenarios.b2)
+        b3, ks = as_t(scenarios.b3), as_t(scenarios.kappa_spar)
+        self.u_min, self.u_max = scenarios.u_min, scenarios.u_max
+
+        timers = {"total_optimization": 0.0, "backward_total": 0.0,
+                  "line_search_total": 0.0, "optimistic_eval_total": 0.0,
+                  "backtracking_total": 0.0}
+        t_run0 = time.perf_counter()
+        u = torch.zeros((B,) + self._control_shape, dtype=self.dtype,
+                        device=dev)
+        phi, ns0, _bad = self.solver.march_fused_batch(u, phi0)
+        newton_solves = int(ns0.sum())
+        cost = self._cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks)
+        cost_hist = [cost.cpu().numpy()]
+        alpha = np.full((B,), self.alpha_max)
+        plateau = np.zeros(B, dtype=int)
+        converged = np.zeros(B, dtype=bool)
+        iters_to_converge = np.full(B, max_iter, dtype=int)
+        s = self.s
+        advisor_sum = np.zeros(B)
+        advisor_cnt = np.zeros(B, dtype=int)
+        ls_trials = np.zeros(B, dtype=int)
+        r = None
+
+        for k in range(max_iter):
+            t0 = time.perf_counter()
+            r = self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+            _sync(dev)
+            timers["backward_total"] += time.perf_counter() - t0
+            alpha_prev = alpha.copy()
+            u_prev = u
+            u, phi, c_np, a_np, n_trials, opt_ok, solves, phase = self._search(
+                u, cost_hist[-1], alpha, r, phi0, phi_Q, phi_T,
+                b1, b2, b3, ks)
+            timers["line_search_total"] += phase["backtracking"]
+            timers["optimistic_eval_total"] += phase["optimistic"]
+            timers["backtracking_total"] += phase["backtracking"]
+            newton_solves += solves
+            ls_trials += np.asarray(n_trials, dtype=int)
+            ch_np = self._change(u, u_prev).cpu().numpy()
+
+            if k >= s.advisor_start_iter:
+                advisor_sum += np.where(opt_ok, alpha_prev, 0.0)
+                advisor_cnt += opt_ok.astype(int)
+
+            flat = np.abs(c_np - cost_hist[-1]) < s.plateau_tolerance
+            plateau = np.where(flat, plateau + 1, 0)
+            boost = plateau >= s.plateau_length
+            a_next = np.where(boost, a_np * s.plateau_boost, a_np * 1.2)
+            plateau = np.where(boost, 0, plateau)
+            alpha = np.minimum(self.alpha_max, a_next)
+
+            newly = (~converged) & (ch_np < s.conv_tol) & (k > s.conv_min_iter)
+            iters_to_converge[newly] = k + 1
+            converged |= newly
+            cost_hist.append(c_np)
+            if verbose:
+                print(f"iter {k+1:4d} | mean cost {c_np.mean():.6f} | "
+                      f"converged {converged.sum()}/{B} | "
+                      f"max trials {int(np.asarray(n_trials).max())}")
+            if converged.all():
+                break
+
+        if r is None:
+            r = self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+        _sync(dev)
+        timers["total_optimization"] = time.perf_counter() - t_run0
+        advisor_alpha = np.where(advisor_cnt > 0,
+                                 advisor_sum / np.maximum(advisor_cnt, 1),
+                                 np.nan)
+        return {
+            "u": u, "r": r, "phi": phi,
+            "cost_history": np.stack(cost_hist), "alpha": np.asarray(alpha),
+            "converged": converged, "iterations": iters_to_converge,
+            "newton_solves": newton_solves, "timers": timers,
+            "advisor_alpha": advisor_alpha, "ls_trials": ls_trials,
+        }
+
+
+def tile_batch(sc: ScenarioBatch, B: int) -> ScenarioBatch:
+    """Repeat a sweep's members to exactly B (bench.py:112-118)."""
+    reps = -(-B // sc.batch)
+    tile = lambda a: np.concatenate([np.asarray(a)] * reps, axis=0)[:B]
+    return dataclasses.replace(
+        sc, phi0=tile(sc.phi0), phi_T=tile(sc.phi_T), phi_Q=tile(sc.phi_Q),
+        b1=tile(sc.b1), b2=tile(sc.b2), b3=tile(sc.b3),
+        kappa_spar=tile(sc.kappa_spar))

@@ -1,0 +1,51 @@
+"""Carry state across from the JAX package.
+
+vch_tpu's arrays arrive as numpy (or anything `np.asarray` takes) and leave
+as the port's tensors on a chosen device, so a test can run both packages
+on the same operator matrices, scenarios and configs. Nothing here imports
+vch_tpu: the inputs are plain mappings and duck-typed objects.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from vch_tpu_torch.config import ForwardSolverConfig2D
+from vch_tpu_torch.ops.linsolve import SpectralOp2D
+from vch_tpu_torch.parallel.batch import ScenarioBatch
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def spectral_op_from_numpy(d: Mapping, dtype=torch.float64,
+                           device=None) -> SpectralOp2D:
+    """A SpectralOp2D from a mapping with keys Lx, Ly, Vx, Vy, Vx_inv,
+    Vy_inv, lam (e.g. `op._asdict()` of vch_tpu's SpectralOp2D)."""
+    return SpectralOp2D(*[_t(d[name], dtype, device)
+                          for name in SpectralOp2D._fields])
+
+
+def scenario_batch_from_numpy(sc, dtype=torch.float64,
+                              device=None) -> ScenarioBatch:
+    """The port's ScenarioBatch, as tensors, from any object with vch_tpu's
+    ScenarioBatch attributes (phi0, phi_T, phi_Q, b1, b2, b3, kappa_spar,
+    u_min, u_max). Procedural targets (phi_Q None) are not supported."""
+    if sc.phi_Q is None:
+        raise ValueError("scenario batches with procedural phi_Q are not "
+                         "supported by the port yet")
+    conv = lambda a: _t(a, dtype, device)
+    return ScenarioBatch(
+        phi0=conv(sc.phi0), phi_T=conv(sc.phi_T), phi_Q=conv(sc.phi_Q),
+        b1=conv(sc.b1), b2=conv(sc.b2), b3=conv(sc.b3),
+        kappa_spar=conv(sc.kappa_spar), u_min=float(sc.u_min),
+        u_max=float(sc.u_max))
+
+
+def config_from_vch_tpu(d: Mapping) -> ForwardSolverConfig2D:
+    """The port's ForwardSolverConfig2D from vch_tpu's
+    `ForwardSolverConfig2D.model_dump()` (or its JSON, loaded)."""
+    return ForwardSolverConfig2D.from_dict(dict(d))
