@@ -4,18 +4,43 @@
     python chip_smoke.py
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
-  0 device  — the card's name and power limit; no card is an error (never
-              falls back to the CPU);
-  1 build   — nvcc builds both kernels from vch_tpu_torch/csrc for sm_90a;
-  2 kernels — each CUDA kernel against its plain PyTorch version on the same
-              inputs on the card, at n = 65 and n = 129 (both odd edges) and
-              at the main path's smallest line-search bucket at config 4
-              (n = 129, M = 100, B = 8), with kernel and plain times;
-  3 slice   — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep,
-              kernel path against plain path, 3 PGD iterations;
-  4 config 4 — the main path: 128x128, T = 1 (M = 100), B = 128, float32,
-              one warm-up iteration, then 3 timed PGD iterations with the
-              kernel launch counters reset just before.
+  0 device   — the card's name and power limit; no card is an error (never
+               falls back to the CPU);
+  1 build    — nvcc builds every kernel from vch_tpu_torch/csrc for sm_90a;
+  2 kernels  — the per-member march and adjoint kernels against their plain
+               PyTorch versions on the same inputs on the card, at n = 65 and
+               n = 129 (both odd edges) and at config 4's smallest
+               line-search bucket (n = 129, M = 100, B = 8), with kernel and
+               plain times;
+  2b kernels — the member-blocked kernels (8 members per CTA) against their
+               plain versions and against the per-member kernels at n = 65,
+               B = 8, and at bench.py's headline shape n = 65, B = 512,
+               M = 100 (plain on the first 8 members there); the segment
+               kernels chained over two segments, K = 5 at n = 65, B = 4,
+               and K = 10 at phase 6's grid n = 257, B = 2, each launch
+               against its plain version and the chain against the whole
+               march and sweep;
+  3 slice    — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep
+               with one member per CTA, kernel path against plain path,
+               3 PGD iterations;
+  3b slices  — the same sweep with the blocked kernels (B = 16, 8 per CTA),
+               and LowMemBatchedProblem2D with K = 4, each kernel path
+               against its plain path, and the low-memory kernel path
+               against the full-memory one;
+  4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
+               one warm-up iteration, then 3 timed PGD iterations with the
+               kernel launch counters reset just before (per-member kernels);
+  5 headline — bench.py's configuration: 64x64, T = 1, B = 512, float32,
+               one warm-up, then 3 timed PGD iterations (blocked kernels);
+  6 low mem  — config 5's grid: 256x256, T = 1, B = 32, K = 10, procedural
+               ramp targets, routed by make_batched_problem_2d under the
+               largest device-memory limit its full-memory estimate does
+               not fit; one warm-up and one timed iteration (segment
+               kernels), whose peak must stay within that limit;
+  7 memory   — peak device memory of the full-memory problem at config 4's
+               grid, B = 64 and 128 at T = 1 and B = 128 at T = 0.1, over S
+               (one trajectory-shaped array) and over the estimate
+               make_batched_problem_2d routes by, which it must not exceed.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -56,11 +81,25 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_case(torch, n, B, T, device, seed=0, reps=3):
-    """Phase 2 at one shape: each kernel against its plain version on the
-    same float32 inputs, and both against the plain version in float64 (the
-    float32 noise floor the comparison has to be read against). Returns a
-    dict of the measured numbers."""
+def _host_ms(torch, fn):
+    """Host-clock ms of one synchronized call (the plain versions, whose
+    Python loops make host time the honest measure); returns (ms, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _rel(a, b, ref):
+    return ((a.double() - b.double()).abs().max().item()
+            / max(ref.double().abs().max().item(), 1e-300))
+
+
+def _problem_inputs(torch, n, B, T, device, seed=0):
+    """Solvers in float32 and float64 (the float64 ones on the plain
+    versions, taking the float32 Newton exits) and seeded inputs, as tensors
+    of both dtypes."""
     from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
     from vch_tpu_torch.control.targets import build_targets_2d
     from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
@@ -74,10 +113,8 @@ def kernel_case(torch, n, B, T, device, seed=0, reps=3):
                                     newton_tol=2e-4)
         solvers[dt] = (ForwardSolver2D(cfg, device=device),
                        AdjointSolver2D(cfg, device=device))
-    (fwd, adj), (fwd64, adj64) = solvers["float32"], solvers["float64"]
-    # the float64 reference takes the float32 Newton exits, so it differs
-    # from the float32 runs by arithmetic alone
-    fwd64.march, adj64.sweep = km.march_fused_2d_plain, km.adjoint_fused_2d_plain
+    (fwd, _), (fwd64, adj64) = solvers["float32"], solvers["float64"]
+    fwd64.entries = adj64.entries = km.PLAIN
     fwd64.rtol, fwd64.stagnation = fwd.rtol, fwd.stagnation
     M = fwd.M
     rng = np.random.default_rng(seed)
@@ -93,21 +130,29 @@ def kernel_case(torch, n, B, T, device, seed=0, reps=3):
     as_dev = lambda dtype: {k: torch.as_tensor(np.ascontiguousarray(v),
                                                dtype=dtype, device=device)
                             for k, v in host.items()}
-    x, x64 = as_dev(torch.float32), as_dev(torch.float64)
-    sync = ((lambda: torch.cuda.synchronize(device)) if device.type == "cuda"
-            else (lambda: None))
-    rel = lambda a, b, ref: ((a.double() - b.double()).abs().max().item()
-                             / max(ref.abs().max().item(), 1e-300))
+    return solvers, as_dev(torch.float32), as_dev(torch.float64)
+
+
+def kernel_case(torch, n, B, T, device, seed=0, reps=3):
+    """Phase 2 at one shape: each per-member kernel against its plain
+    version on the same float32 inputs, and both against the plain version
+    in float64 (the float32 noise floor the comparison has to be read
+    against). Returns a dict of the measured numbers."""
+    from vch_tpu_torch.ops import march as km
+
+    solvers, x, x64 = _problem_inputs(torch, n, B, T, device, seed)
+    (fwd, adj), (fwd64, adj64) = solvers["float32"], solvers["float64"]
+    if fwd.config.resolved_fused_block() and B % 8 == 0:
+        raise RuntimeError(f"n={n} B={B} would take the blocked kernels")
+    M = fwd.M
 
     # forward march
-    fwd.march = km.march_fused_2d
+    fwd.entries = km.KERNELS
     kh, kns, kbad = fwd.march_fused_batch(x["u"], x["phi0"])
-    sync()
-    fwd.march = km.march_fused_2d_plain
-    t0 = time.perf_counter()
-    ph, pns, pbad = fwd.march_fused_batch(x["u"], x["phi0"])
-    sync()
-    march_plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    fwd.entries = km.PLAIN
+    march_plain_ms, (ph, pns, pbad) = _host_ms(
+        torch, lambda: fwd.march_fused_batch(x["u"], x["phi0"]))
     h64, _, _ = fwd64.march_fused_batch(x64["u"], x64["phi0"])
     if not torch.isfinite(kh).all():
         raise RuntimeError(f"n={n}: non-finite kernel phi")
@@ -116,14 +161,12 @@ def kernel_case(torch, n, B, T, device, seed=0, reps=3):
 
     # adjoint sweep, all on the plain float32 history
     args = lambda v, hist: (hist, v["b1"], v["b2"], v["phiQ"], v["phiT"])
-    adj.sweep = km.adjoint_fused_2d
+    adj.entries = km.KERNELS
     kr = adj.adjoint_fused_batch(*args(x, ph))
-    sync()
-    adj.sweep = km.adjoint_fused_2d_plain
-    t0 = time.perf_counter()
-    pr = adj.adjoint_fused_batch(*args(x, ph))
-    sync()
-    adjoint_plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    adj.entries = km.PLAIN
+    adjoint_plain_ms, pr = _host_ms(
+        torch, lambda: adj.adjoint_fused_batch(*args(x, ph)))
     r64 = adj64.adjoint_fused_batch(*args(x64, ph.double()))
     if not torch.isfinite(kr).all():
         raise RuntimeError(f"n={n}: non-finite kernel r")
@@ -135,18 +178,16 @@ def kernel_case(torch, n, B, T, device, seed=0, reps=3):
                newton_kernel=kns.cpu().tolist(),
                newton_plain=pns.cpu().tolist(),
                max_abs_dr=(kr - pr).abs().max().item(),
-               rel_dr=rel(kr, pr, pr),
-               rel_r_kernel_vs_f64=rel(kr, r64, r64),
-               rel_r_plain_vs_f64=rel(pr, r64, r64))
-    fwd.march = km.march_fused_2d
-    adj.sweep = km.adjoint_fused_2d
-    if device.type == "cuda":
-        out["march_ms"] = _time_ms(
-            torch, lambda: fwd.march_fused_batch(x["u"], x["phi0"]), reps)
-        out["adjoint_ms"] = _time_ms(
-            torch, lambda: adj.adjoint_fused_batch(*args(x, ph)), reps)
-        out["march_plain_ms"] = march_plain_ms
-        out["adjoint_plain_ms"] = adjoint_plain_ms
+               rel_dr=_rel(kr, pr, pr),
+               rel_r_kernel_vs_f64=_rel(kr, r64, r64),
+               rel_r_plain_vs_f64=_rel(pr, r64, r64))
+    fwd.entries = adj.entries = km.KERNELS
+    out["march_ms"] = _time_ms(
+        torch, lambda: fwd.march_fused_batch(x["u"], x["phi0"]), reps)
+    out["adjoint_ms"] = _time_ms(
+        torch, lambda: adj.adjoint_fused_batch(*args(x, ph)), reps)
+    out["march_plain_ms"] = march_plain_ms
+    out["adjoint_plain_ms"] = adjoint_plain_ms
     return out
 
 
@@ -177,81 +218,437 @@ def check_kernel_case(c, short: bool):
         fails.append(f"max|dphi| {c['max_abs_dphi']} > 1e-5")
     if not short and c["dphi_kernel_vs_f64"] > 2 * c["dphi_plain_vs_f64"] + 1e-6:
         fails.append("march kernel farther from float64 than plain f32")
-    if c["rel_r_kernel_vs_f64"] > 2 * c["rel_r_plain_vs_f64"] + 1e-6:
-        fails.append("adjoint kernel farther from float64 than plain f32")
-    if c["rel_dr"] > 5e-3:
-        fails.append(f"adjoint kernel vs plain rel {c['rel_dr']} > 5e-3")
+    fails += _adjoint_gate(c)
     if fails:
         raise RuntimeError(f"n={c['n']} B={c['B']} M={c['M']}: "
                            + "; ".join(fails))
 
 
-def slice_case(torch, device, n=32, T=0.1, iters=3):
-    """Phase 3: the batched PGD slice, kernel path vs plain path."""
+def _adjoint_gate(c):
+    """The float64-referenced adjoint gate of check_kernel_case. Where the
+    case also ran the plain sweep on the CPU (rel_r_plain_cpu_vs_f64), the
+    kernel is held to twice the farther of the two plain float32 sweeps:
+    at n = 65 one plain sweep's distance from float64 is not a stable
+    reference (on the H100 the card's plain sweep read 1.07e-4 where
+    the kernel read 1.9-2.6e-4, and ROADMAP records 2.1e-4 between any two
+    float32 sweeps at n = 65)."""
+    fails = []
+    ref = max(c["rel_r_plain_vs_f64"], c.get("rel_r_plain_cpu_vs_f64", 0.0))
+    if c["rel_r_kernel_vs_f64"] > 2 * ref + 1e-6:
+        fails.append("adjoint kernel farther from float64 than plain f32")
+    if c["rel_dr"] > 5e-3:
+        fails.append(f"adjoint kernel vs plain rel {c['rel_dr']} > 5e-3")
+    return fails
+
+
+def _plain_on_cpu(solver, method, *args):
+    """The plain version of `solver.method` on the CPU, on copies of args:
+    a second float32 implementation (CPU library sums) for the adjoint
+    gate's reference spread."""
+    cpu = type(solver)(solver.config, device="cpu")
+    return getattr(cpu, method)(*[a.cpu() for a in args])
+
+
+def blocked_case(torch, n, B, T, device, plain_members, reps=3):
+    """Phase 2b: the blocked kernels (the solvers' route at B % 8 == 0)
+    against the per-member kernels on all B members, and against the plain
+    versions in float32 and float64 on the first plain_members members.
+    The blocked and the per-member kernels run in turns (per-member,
+    blocked, blocked, per-member) for their CUDA-event times."""
+    from vch_tpu_torch.ops import march as km
+
+    solvers, x, x64 = _problem_inputs(torch, n, B, T, device)
+    (fwd, adj), (fwd64, adj64) = solvers["float32"], solvers["float64"]
+    bb = fwd.config.resolved_fused_block()
+    if bb != 8 or B % bb:
+        raise RuntimeError(f"n={n} B={B}: expected the blocked route, "
+                           f"block {bb}")
+    M = fwd.M
+    fargs = (fwd.dts, x["phi0"], x["u"]) + fwd._ops()
+    bh, bns, bbad = fwd.march_fused_batch(x["u"], x["phi0"])     # blocked
+    kh, kns, kbad = km.march_fused_2d(*fargs, **fwd._march_kw())
+    torch.cuda.synchronize()
+    aargs = lambda v, hist: (hist, v["b1"], v["b2"], v["phiQ"], v["phiT"])
+    br = adj.adjoint_fused_batch(*aargs(x, kh))                 # blocked
+    kr = km.adjoint_fused_2d(adj.dts, kh, x["phiQ"], x["phiT"], x["b1"],
+                             x["b2"], *adj._ops(), **adj._kw())
+    torch.cuda.synchronize()
+
+    P = plain_members
+    sub = lambda v: {k: t[:P].contiguous() for k, t in v.items()}
+    xs, x64s = sub(x), sub(x64)
+    fwd.entries = adj.entries = km.PLAIN
+    march_plain_ms, (ph, pns, pbad) = _host_ms(
+        torch, lambda: fwd.march_fused_batch(xs["u"], xs["phi0"]))
+    adjoint_plain_ms, pr = _host_ms(
+        torch, lambda: adj.adjoint_fused_batch(*aargs(xs, ph)))
+    fwd.entries = adj.entries = km.KERNELS
+    h64, _, _ = fwd64.march_fused_batch(x64s["u"], x64s["phi0"])
+    r64 = adj64.adjoint_fused_batch(*aargs(x64s, ph.double()))
+    # the blocked sweep on the plain history of the first members
+    brs = adj.adjoint_fused_batch(*aargs(xs, ph))
+    pr_cpu = _plain_on_cpu(adj, "adjoint_fused_batch", *aargs(xs, ph))
+    torch.cuda.synchronize()
+    if not (torch.isfinite(bh).all() and torch.isfinite(br).all()):
+        raise RuntimeError(f"n={n} B={B}: non-finite blocked output")
+
+    out = dict(n=n, B=B, M=M, block=bb, plain_members=P,
+               blocked_equals_per_member=bool(
+                   torch.equal(bh, kh) and torch.equal(bns, kns)
+                   and torch.equal(bbad, kbad) and torch.equal(br, kr)),
+               max_abs_dphi=(bh[:P] - ph).abs().max().item(),
+               dphi_kernel_vs_f64=(bh[:P].double() - h64).abs().max().item(),
+               dphi_plain_vs_f64=(ph.double() - h64).abs().max().item(),
+               newton_blocked=bns[:P].cpu().tolist(),
+               newton_plain=pns.cpu().tolist(),
+               newton_blocked_total=int(bns.sum()),
+               newton_per_member_total=int(kns.sum()),
+               first_bad_equal=bool(torch.equal(bbad[:P], pbad)),
+               max_abs_dr=(brs - pr).abs().max().item(),
+               rel_dr=_rel(brs, pr, pr),
+               rel_r_kernel_vs_f64=_rel(brs, r64, r64),
+               rel_r_plain_vs_f64=_rel(pr, r64, r64),
+               rel_r_plain_cpu_vs_f64=_rel(pr_cpu, r64.cpu(), r64),
+               march_plain_ms=march_plain_ms,
+               adjoint_plain_ms=adjoint_plain_ms)
+    blocked_m = lambda: fwd.march_fused_batch(x["u"], x["phi0"])
+    member_m = lambda: km.march_fused_2d(*fargs, **fwd._march_kw())
+    blocked_a = lambda: adj.adjoint_fused_batch(*aargs(x, kh))
+    member_a = lambda: km.adjoint_fused_2d(
+        adj.dts, kh, x["phiQ"], x["phiT"], x["b1"], x["b2"], *adj._ops(),
+        **adj._kw())
+    for name, fn in (("per_member", member_m), ("blocked", blocked_m),
+                     ("blocked", blocked_m), ("per_member", member_m)):
+        out.setdefault(f"march_{name}_ms", []).append(_time_ms(torch, fn,
+                                                               reps))
+    for name, fn in (("per_member", member_a), ("blocked", blocked_a),
+                     ("blocked", blocked_a), ("per_member", member_a)):
+        out.setdefault(f"adjoint_{name}_ms", []).append(_time_ms(torch, fn,
+                                                                 reps))
+    return out
+
+
+def check_blocked_case(c, short: bool):
+    """Phase 2b gates for the blocked kernels: bit-equal to the per-member
+    kernels on every member (their arithmetic per member does not depend on
+    the members per CTA), per-member Newton counts equal to the plain
+    version's, max|dphi| <= 1e-5 against the plain version on the short
+    shape (the float64-referenced gate of phase 2 on the 100-step shape),
+    and the phase-2 adjoint gate."""
+    fails = []
+    if not c["blocked_equals_per_member"]:
+        fails.append("blocked differs from the per-member kernels")
+    if c["newton_blocked"] != c["newton_plain"]:
+        fails.append(f"Newton counts {c['newton_blocked']} vs plain "
+                     f"{c['newton_plain']}")
+    if not c["first_bad_equal"]:
+        fails.append("first_bad differs from plain")
+    if short and c["max_abs_dphi"] > 1e-5:
+        fails.append(f"max|dphi| {c['max_abs_dphi']} > 1e-5")
+    if not short and c["dphi_kernel_vs_f64"] > 2 * c["dphi_plain_vs_f64"] + 1e-6:
+        fails.append("blocked march farther from float64 than plain f32")
+    fails += _adjoint_gate(c)
+    if fails:
+        raise RuntimeError(f"blocked n={c['n']} B={c['B']} M={c['M']}: "
+                           + "; ".join(fails))
+
+
+def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
+    """Phase 2b: the segment kernels chained over M / K segments, as the
+    low-memory path chains them, against the whole march and sweep kernels;
+    each segment launch against its plain version on the same inputs, in
+    float32 on the card and in float64 (and, for the sweep, in float32 on
+    the CPU: the spread of two float32 implementations)."""
+    from vch_tpu_torch.ops import march as km
+
+    solvers, x, x64 = _problem_inputs(torch, n, B, T, device)
+    (fwd, adj), (fwd64, adj64) = solvers["float32"], solvers["float64"]
+    M = fwd.M
+    if M % K or B % 8 == 0:
+        raise RuntimeError("segment case: M must divide by K, and B must "
+                           "take the per-member whole kernels")
+    f64 = lambda args: [a.double() for a in args]
+    dist = lambda a, b: (a.double() - b.double()).abs().max().item()
+    wh, wns, _ = fwd.march_fused_batch(x["u"], x["phi0"])
+    fwd.entries = km.PLAIN
+    ph, _, _ = fwd.march_fused_batch(x["u"], x["phi0"])
+    fwd.entries = km.KERNELS
+    h64, _, _ = fwd64.march_fused_batch(x64["u"], x64["phi0"])
+    phi = x["phi0"]
+    w = torch.zeros_like(phi)
+    mu = fwd.initialize_mu(phi, w)
+    m0 = torch.sum(fwd.wts * phi, dim=(-2, -1))
+    frames, ns, ns_plain = [], torch.zeros_like(wns), torch.zeros_like(wns)
+    err_march, seg_ms, seg_plain_ms = 0.0, [], []
+    mk64, mp64 = [0.0] * 4, [0.0] * 4     # (hist, phi, mu, w) vs float64
+    for start in range(0, M, K):
+        u_seg = x["u"][:, start:start + K + 1].contiguous()
+        sargs = (fwd.dts[start:start + K], phi, mu, w, m0, u_seg)
+        ks = km.march_fused_2d_segment(*sargs, *fwd._ops(), **fwd._march_kw())
+        ms, ps = _host_ms(torch, lambda: km.march_fused_2d_segment_plain(
+            *sargs, *fwd._ops(), **fwd._march_kw()))
+        ps64 = km.march_fused_2d_segment_plain(*f64(sargs), *fwd64._ops(),
+                                               **fwd64._march_kw())
+        seg_plain_ms.append(ms)
+        seg_ms.append(_time_ms(torch, lambda: km.march_fused_2d_segment(
+            *sargs, *fwd._ops(), **fwd._march_kw()), reps))
+        err_march = max([err_march] + [dist(a, b)
+                                       for a, b in zip(ks[:4], ps[:4])])
+        for i in range(4):
+            mk64[i] = max(mk64[i], dist(ks[i], ps64[i]))
+            mp64[i] = max(mp64[i], dist(ps[i], ps64[i]))
+        frames.append(ks[0])
+        phi, mu, w = ks[1], ks[2], ks[3]
+        ns += ks[4]
+        ns_plain += ps[4]
+    hist = torch.cat([x["phi0"][:, None]] + frames, dim=1)
+
+    # the sweep: terminal solve, then the segments in reverse
+    p, q, r = adj.terminal(wh[:, M], x["phiT"], x["b2"])
+    parts, err_adj, rel_adj, aseg_ms, aseg_plain_ms = [], 0.0, 0.0, [], []
+    ak64 = ap64 = apc64 = 0.0             # segment r vs float64, relative
+    for start in reversed(range(0, M, K)):
+        sl = slice(start, start + K + 1)
+        aargs = (adj.dts[start:start + K], wh[:, sl].contiguous(),
+                 x["phiQ"][:, sl].contiguous(), p, q, r, x["b1"])
+        kseg = km.adjoint_fused_2d_segment(*aargs, *adj._ops(), **adj._kw())
+        ms, pseg = _host_ms(torch, lambda: km.adjoint_fused_2d_segment_plain(
+            *aargs, *adj._ops(), **adj._kw()))
+        pseg64 = km.adjoint_fused_2d_segment_plain(*f64(aargs), *adj64._ops(),
+                                                   **adj64._kw())
+        pseg_cpu = km.adjoint_fused_2d_segment_plain(
+            *[a.cpu() for a in aargs + adj._ops()], **adj._kw())
+        aseg_plain_ms.append(ms)
+        aseg_ms.append(_time_ms(torch, lambda: km.adjoint_fused_2d_segment(
+            *aargs, *adj._ops(), **adj._kw()), reps))
+        err_adj = max(err_adj, dist(kseg[0], pseg[0]))
+        rel_adj = max([rel_adj] + [_rel(a, b, b) for a, b in zip(kseg, pseg)])
+        ak64 = max(ak64, _rel(kseg[0], pseg64[0], pseg64[0]))
+        ap64 = max(ap64, _rel(pseg[0], pseg64[0], pseg64[0]))
+        apc64 = max(apc64, _rel(pseg_cpu[0], pseg64[0].cpu(), pseg64[0]))
+        parts.insert(0, kseg[0])
+        p, q, r = kseg[1], kseg[2], kseg[3]
+    wr = adj.adjoint_fused_batch(wh, x["b1"], x["b2"], x["phiQ"], x["phiT"])
+    rseg = torch.cat(parts + [torch.zeros_like(wr[:, :1])], dim=1)
+    adj.entries = km.PLAIN
+    pr = adj.adjoint_fused_batch(wh, x["b1"], x["b2"], x["phiQ"], x["phiT"])
+    r64 = adj64.adjoint_fused_batch(wh.double(), x64["b1"], x64["b2"],
+                                    x64["phiQ"], x64["phiT"])
+    pr_cpu = _plain_on_cpu(adj, "adjoint_fused_batch", wh, x["b1"],
+                           x["b2"], x["phiQ"], x["phiT"])
+    adj.entries = km.KERNELS
+    torch.cuda.synchronize()
+    return dict(n=n, B=B, M=M, K=K,
+                max_abs_dphi_chain_vs_whole=dist(hist, wh),
+                dphi_chain_vs_f64=dist(hist, h64),
+                dphi_plain_vs_f64=dist(ph, h64),
+                newton_chain=ns.cpu().tolist(), newton_whole=wns.cpu().tolist(),
+                newton_plain=ns_plain.cpu().tolist(),
+                max_abs_err_march=err_march,
+                seg_march_kernel_vs_f64=mk64, seg_march_plain_vs_f64=mp64,
+                max_abs_err_adjoint=err_adj, rel_err_adjoint=rel_adj,
+                seg_r_kernel_vs_f64=ak64, seg_r_plain_vs_f64=ap64,
+                seg_r_plain_cpu_vs_f64=apc64,
+                rel_dr=_rel(rseg, wr, wr),
+                rel_r_plain_vs_plain_cpu=_rel(pr.cpu(), pr_cpu, pr),
+                rel_r_kernel_vs_f64=_rel(rseg, r64, r64),
+                rel_r_plain_vs_f64=_rel(pr, r64, r64),
+                rel_r_plain_cpu_vs_f64=_rel(pr_cpu, r64.cpu(), r64),
+                march_ms=float(np.mean(seg_ms)),
+                march_plain_ms=float(np.mean(seg_plain_ms)),
+                adjoint_ms=float(np.mean(aseg_ms)),
+                adjoint_plain_ms=float(np.mean(aseg_plain_ms)))
+
+
+def check_segment_case(c, short: bool):
+    """Phase 2b gates of the segment chain. Newton counts of the chain equal
+    the whole march's and the plain segments', member for member.
+
+    - Short case (n = 65): the chain reproduces the whole march's history
+      within 1e-5 (mu at t = 0 is formed outside the kernel: roundoff, not
+      bit equality); each segment launch is within 1e-5 of its plain
+      version (phi, mu, w) and within 2e-3 of |out|max for (r, p, q, r_f),
+      the bound of the card tests; the chained sweep passes the phase-2
+      adjoint gate against the whole sweep.
+    - Phase 6's grid (n = 257): any two float32 implementations drift apart
+      there by more than 1e-5 (the Laplacian's entries grow as n^2, so its
+      products cancel more), so every comparison is the float64-referenced
+      one of phase 2's 100-step shape: each segment output and the chained
+      history no farther from float64 than 2x the plain float32 version's
+      distance, each segment's r and the chained sweep no farther than 2x
+      the farther plain float32 sweep (card or CPU); the chained sweep is
+      within 5e-3 of the whole sweep, or within 2x the distance between
+      the two plain float32 sweeps where that is larger.
+    """
+    fails = []
+    tag = f"n={c['n']} B={c['B']} K={c['K']}"
+    if c["newton_chain"] != c["newton_whole"]:
+        fails.append(f"Newton counts {c['newton_chain']} vs whole "
+                     f"{c['newton_whole']}")
+    if c["newton_chain"] != c["newton_plain"]:
+        fails.append(f"Newton counts {c['newton_chain']} vs plain "
+                     f"{c['newton_plain']}")
+    if short:
+        if c["max_abs_dphi_chain_vs_whole"] > 1e-5:
+            fails.append(f"chain vs whole max|dphi| "
+                         f"{c['max_abs_dphi_chain_vs_whole']} > 1e-5")
+        if c["max_abs_err_march"] > 1e-5:
+            fails.append(f"segment march vs plain {c['max_abs_err_march']}")
+        if c["rel_err_adjoint"] > 2e-3:
+            fails.append(f"segment adjoint vs plain rel "
+                         f"{c['rel_err_adjoint']}")
+        fails += _adjoint_gate(c)
+    else:
+        if c["dphi_chain_vs_f64"] > 2 * c["dphi_plain_vs_f64"] + 1e-6:
+            fails.append("chained history farther from float64 than the "
+                         "plain float32 march")
+        for i, out in enumerate(("hist", "phi_f", "mu_f", "w_f")):
+            if (c["seg_march_kernel_vs_f64"][i]
+                    > 2 * c["seg_march_plain_vs_f64"][i] + 1e-6):
+                fails.append(f"segment march {out} farther from float64 "
+                             "than plain float32")
+        if c["seg_r_kernel_vs_f64"] > 2 * max(
+                c["seg_r_plain_vs_f64"], c["seg_r_plain_cpu_vs_f64"]) + 1e-6:
+            fails.append("segment sweep farther from float64 than plain f32")
+        ref = max(c["rel_r_plain_vs_f64"], c["rel_r_plain_cpu_vs_f64"])
+        if c["rel_r_kernel_vs_f64"] > 2 * ref + 1e-6:
+            fails.append("chained sweep farther from float64 than plain f32")
+        ceiling = max(5e-3, 2 * c["rel_r_plain_vs_plain_cpu"])
+        if c["rel_dr"] > ceiling:
+            fails.append(f"chained vs whole sweep rel {c['rel_dr']} > "
+                         f"{ceiling}")
+    if fails:
+        raise RuntimeError(f"segment chain {tag}: " + "; ".join(fails))
+
+
+def _slice_sweep(cfg, materialize=True):
+    from vch_tpu_torch.parallel.batch import sweep_2d
+    return sweep_2d(cfg, b3_values=np.logspace(-6, 0, 4),
+                    kappa_values=np.logspace(-6, -1, 4),
+                    materialize_phi_Q=materialize)
+
+
+def slice_case(torch, device, n=32, T=0.1, iters=3, block=0, lowmem_K=None):
+    """Phases 3 and 3b: the batched PGD slice, kernel path vs plain path,
+    with one member per CTA (block=0), the blocked kernels (block=8), or
+    the low-memory problem (lowmem_K)."""
     from vch_tpu_torch.config import ForwardSolverConfig2D
     from vch_tpu_torch.ops import march as km
-    from vch_tpu_torch.parallel.batch import BatchedProblem2D, sweep_2d
+    from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
+                                              LowMemBatchedProblem2D)
 
     cfg = ForwardSolverConfig2D(Nx=n, Ny=n, T=T, dtype="float32",
-                                newton_tol=2e-4)
-    sc = sweep_2d(cfg, b3_values=np.logspace(-6, 0, 4),
-                  kappa_values=np.logspace(-6, -1, 4))
+                                newton_tol=2e-4, fused_march_block=block)
+    sc = _slice_sweep(cfg)
     runs = {}
     for path in ("kernel", "plain"):
-        prob = BatchedProblem2D(cfg, device=device)
+        prob = (LowMemBatchedProblem2D(cfg, K=lowmem_K, device=device)
+                if lowmem_K else BatchedProblem2D(cfg, device=device))
         if path == "plain":
-            prob.solver.march = km.march_fused_2d_plain
-            prob.adj.sweep = km.adjoint_fused_2d_plain
+            prob.solver.entries = prob.adj.entries = km.PLAIN
+        km.reset_launches()
         t0 = time.perf_counter()
         out = prob.run(sc, max_iter=iters, verbose=False)
-        runs[path] = (out, prob.straggler_rounds, time.perf_counter() - t0)
-    (ko, ks, kt), (po, ps, pt) = runs["kernel"], runs["plain"]
+        runs[path] = (out, prob.straggler_rounds, time.perf_counter() - t0,
+                      km.launch_counts())
+    (ko, ks, kt, kl), (po, ps, pt, _) = runs["kernel"], runs["plain"]
     c0, c1 = po["cost_history"], ko["cost_history"]
-    rel = float((np.abs(c1 - c0) / np.abs(c0)).max())
-    return dict(rel_cost=rel, straggler_rounds_kernel=ks,
-                straggler_rounds_plain=ps, newton_kernel=ko["newton_solves"],
+    return dict(block=block, lowmem_K=lowmem_K,
+                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+                straggler_rounds_kernel=ks, straggler_rounds_plain=ps,
+                newton_kernel=ko["newton_solves"],
                 newton_plain=po["newton_solves"], kernel_s=kt, plain_s=pt,
+                launches=kl, cost_history=c1.tolist(),
                 finite=bool(np.isfinite(c1).all()))
 
 
-def config4(torch, device, n=128, B=128, T=1.0, iters=3):
-    """Phase 4: the main path at config 4 (bench.py's sweep, tiled to B)."""
-    from vch_tpu_torch.config import ForwardSolverConfig2D
-    from vch_tpu_torch.ops import march as km
-    from vch_tpu_torch.parallel.batch import (BatchedProblem2D, sweep_2d,
-                                              tile_batch)
-
-    cfg = ForwardSolverConfig2D(Nx=n, Ny=n, T=T, dtype="float32",
-                                newton_tol=2e-4)
+def _bench_sweep(cfg, B, materialize=True):
+    """bench.py's (b3, kappa) linspace sweep tiled to B (bench.py:108-118)."""
+    from vch_tpu_torch.parallel.batch import sweep_2d, tile_batch
     sc = sweep_2d(cfg, b3_values=np.linspace(5e-5, 2e-4, max(1, B // 4)),
-                  kappa_values=np.linspace(5e-5, 2e-4, 4)[: max(1, min(4, B))])
-    sc = tile_batch(sc, B)
-    prob = BatchedProblem2D(cfg, device=device)
+                  kappa_values=np.linspace(5e-5, 2e-4, 4)[: max(1, min(4, B))],
+                  materialize_phi_Q=materialize)
+    return tile_batch(sc, B)
+
+
+def pgd_run(torch, device, prob, sc, iters):
+    """A main path: one warm-up PGD iteration, then `iters` timed ones with
+    every kernel launch count reset to 0 just before and read just after."""
+    from vch_tpu_torch.ops import march as km
+
     t0 = time.perf_counter()
     prob.run(sc, max_iter=1, verbose=False)             # warm-up
     warm_s = time.perf_counter() - t0
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.reset_peak_memory_stats(device)
     prob.straggler_rounds = 0
-    km.march_fused_2d.launches = 0                      # the main path's run
-    km.adjoint_fused_2d.launches = 0
+    km.reset_launches()                                 # the main path's run
     t0 = time.perf_counter()
     out = prob.run(sc, max_iter=iters, verbose=False)
     elapsed = time.perf_counter() - t0
-    launches = {"march_fused_2d": km.march_fused_2d.launches,
-                "adjoint_fused_2d": km.adjoint_fused_2d.launches}
+    launches = km.launch_counts()
+    B = sc.batch
     ch = out["cost_history"]
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else None)
-    return dict(B=B, n=n, M=prob.solver.M, iters=iters, elapsed_s=elapsed,
+    return dict(B=B, n=prob.solver.config.Nx, M=prob.solver.M, iters=iters,
+                problem=type(prob).__name__, elapsed_s=elapsed,
                 warmup_s=warm_s, scenario_iters_per_s=B * iters / elapsed,
                 newton_solves=out["newton_solves"],
                 newton_solves_per_s=out["newton_solves"] / elapsed,
                 timers=out["timers"], straggler_rounds=prob.straggler_rounds,
-                peak_bytes=peak, launches=launches,
+                peak_bytes=torch.cuda.max_memory_allocated(device),
+                launches=launches,
                 mean_cost_before=float(ch[0].mean()),
                 mean_cost_after=float(ch[-1].mean()),
                 finite=bool(np.isfinite(ch).all()))
+
+
+def check_main_path(res, launched, idle):
+    """Finite, falling mean cost; every kernel of the path launched, and
+    the kernels of the other paths not."""
+    fails = [f"{k} never launched" for k in launched
+             if res["launches"][k] <= 0]
+    fails += [f"{k} launched {res['launches'][k]} times" for k in idle
+              if res["launches"][k] != 0]
+    if not res["finite"] or not res["mean_cost_after"] < res["mean_cost_before"]:
+        fails.append("did not descend")
+    if fails:
+        raise RuntimeError(f"{res['problem']} n={res['n']} B={res['B']}: "
+                           + "; ".join(fails) + f" | {res}")
+
+
+def _config(n, T=1.0, **kw):
+    from vch_tpu_torch.config import ForwardSolverConfig2D
+    return ForwardSolverConfig2D(Nx=n, Ny=n, T=T, dtype="float32",
+                                 newton_tol=2e-4, **kw)
+
+
+def _traj_bytes(cfg, B, M):
+    """S: one trajectory-shaped float32 array B (M+1) (Nx+1) (Ny+1)."""
+    return B * (M + 1) * (cfg.Nx + 1) * (cfg.Ny + 1) * 4
+
+
+def peak_multiple(torch, device, cases=((64, 1.0), (128, 1.0), (128, 0.1)),
+                  iters=2):
+    """Phase 7: peak device memory of BatchedProblem2D.run at config 4's
+    grid, for (B, T) cases, over S and over the chooser's estimate."""
+    from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
+                                              full_memory_estimate_bytes)
+    out = []
+    for B, T in cases:
+        cfg = _config(128, T=T)
+        prob = BatchedProblem2D(cfg, device=device)
+        sc = _bench_sweep(cfg, B)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        prob.run(sc, max_iter=iters, verbose=False)
+        peak = torch.cuda.max_memory_allocated(device)
+        S = _traj_bytes(cfg, B, prob.solver.M)
+        est = full_memory_estimate_bytes(cfg, B)
+        out.append(dict(B=B, M=prob.solver.M, iters=iters, peak_bytes=peak,
+                        S_bytes=S, peak_over_S=peak / S, estimate_bytes=est,
+                        peak_over_estimate=peak / est))
+        del prob
+    return out
 
 
 def main():
@@ -262,7 +659,15 @@ def main():
                          "the CPU")
     import vch_tpu_torch  # noqa: F401  (also pins TF32 off)
     from vch_tpu_torch.ops import _build
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
+                                              FULL_MEMORY_PEAK_PER_S,
+                                              MARCH_WORKSPACE_FIELDS,
+                                              LowMemBatchedProblem2D,
+                                              full_memory_estimate_bytes,
+                                              make_batched_problem_2d)
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = _smi()
@@ -270,7 +675,7 @@ def main():
             f"{torch.version.cuda} | nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     regs = [ln.strip() for ln in _build.ptxas_log.splitlines()
             if "registers" in ln or "spill" in ln]
     how = (f"nvcc {_build.build_seconds:.1f} s" if _build.build_seconds
@@ -287,32 +692,125 @@ def main():
         check_kernel_case(c, short=i < 2)
     long = cases[2]
 
-    sl = slice_case(torch, device)
+    blk8 = blocked_case(torch, 65, 8, 0.1, device, plain_members=8)
+    _log("2b", json.dumps(blk8))
+    blk512 = blocked_case(torch, 65, 512, 1.0, device, plain_members=8,
+                          reps=1)
+    _log("2b", json.dumps(blk512))
+    seg = segment_case(torch, device)
+    _log("2b", json.dumps(seg))
+    seg257 = segment_case(torch, device, n=257, B=2, K=10, T=0.2, reps=1)
+    _log("2b", json.dumps(seg257))
+    check_blocked_case(blk8, short=True)
+    check_blocked_case(blk512, short=False)
+    check_segment_case(seg, short=True)
+    check_segment_case(seg257, short=False)
+
+    sl = slice_case(torch, device, block=0)
     _log(3, json.dumps(sl))
-    if not sl["finite"] or sl["rel_cost"] > 2e-4:
-        raise RuntimeError(f"slice kernel vs plain path: {sl}")
+    sl_blk = slice_case(torch, device, block=8)
+    _log("3b", json.dumps(sl_blk))
+    sl_low = slice_case(torch, device, block=8, lowmem_K=4)
+    low_vs_full = float((np.abs(np.asarray(sl_low["cost_history"])
+                                - np.asarray(sl_blk["cost_history"]))
+                         / np.abs(np.asarray(sl_blk["cost_history"]))).max())
+    _log("3b", json.dumps(dict(sl_low, rel_cost_vs_full_memory=low_vs_full)))
+    for s, used in ((sl, "march_fused_2d"), (sl_blk, "march_fused_2d_blocked"),
+                    (sl_low, "march_fused_2d_segment")):
+        if not s["finite"] or s["rel_cost"] > 2e-4 or s["launches"][used] <= 0:
+            raise RuntimeError(f"slice kernel vs plain path: {s}")
+    if low_vs_full > 2e-4:
+        raise RuntimeError(f"low-memory vs full-memory slice: {low_vs_full}")
 
-    c4 = config4(torch, device)
+    per_member = ("march_fused_2d", "adjoint_fused_2d")
+    blocked = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked")
+    segment = ("march_fused_2d_segment", "adjoint_fused_2d_segment")
+
+    cfg4 = _config(128)
+    c4 = pgd_run(torch, device, BatchedProblem2D(cfg4, device=device),
+                 _bench_sweep(cfg4, 128), iters=3)
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
-    if min(c4["launches"].values()) <= 0:
-        raise RuntimeError(f"a kernel of the path never launched: {c4}")
-    if not c4["finite"] or not c4["mean_cost_after"] < c4["mean_cost_before"]:
-        raise RuntimeError(f"config 4 did not descend: {c4}")
+    check_main_path(c4, per_member, blocked + segment)
 
+    cfg64 = _config(64)
+    prob5 = make_batched_problem_2d(cfg64, batch=512, device=device)
+    if type(prob5) is not BatchedProblem2D:
+        raise RuntimeError(f"64x64 B=512 routed to {type(prob5).__name__}")
+    c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3)
+    _log(5, json.dumps(c5) + f" | {name} | {smi}")
+    check_main_path(c5, blocked, per_member + segment)
+
+    # the largest limit under which the full-memory estimate does not fit
+    # (est6 > 0.75 limit): the low-memory arm must run within it
+    cfg256 = _config(256)
+    est6 = full_memory_estimate_bytes(cfg256, 32, materialized_phi_Q=False)
+    limit6 = int(0.99 * est6 / 0.75)
+    route6 = lambda limit: make_batched_problem_2d(
+        cfg256, batch=32, materialized_phi_Q=False, hbm_limit_bytes=limit,
+        K=10, device=device)
+    if type(route6(int(est6 / 0.75) + 1)) is not BatchedProblem2D:
+        raise RuntimeError("256x256 B=32 stays on low memory above its "
+                           "full-memory estimate")
+    prob6 = route6(limit6)
+    if not isinstance(prob6, LowMemBatchedProblem2D):
+        raise RuntimeError(f"256x256 B=32 routed to {type(prob6).__name__}")
+    c6 = pgd_run(torch, device, prob6,
+                 _bench_sweep(cfg256, 32, materialize=False), iters=1)
+    S6 = _traj_bytes(cfg256, 32, prob6.solver.M)
+    c6.update(K=prob6.pipe.K, segments=prob6.pipe.S,
+              full_memory_estimate_bytes=est6, limit_bytes=limit6,
+              peak_over_S=c6["peak_bytes"] / S6)
+    _log(6, json.dumps(c6) + f" | {name} | {smi}")
+    check_main_path(c6, segment, per_member + blocked)
+    if c6["peak_bytes"] > limit6:
+        raise RuntimeError(f"low-memory peak {c6['peak_bytes']} B exceeds "
+                           f"the limit it was routed under, {limit6} B")
+    del prob5, prob6
+
+    if lib.vch_workspace_fields(0) != MARCH_WORKSPACE_FIELDS:
+        raise RuntimeError("MARCH_WORKSPACE_FIELDS differs from the march "
+                           "kernel's workspace")
+    mem = peak_multiple(torch, device)
+    _log(7, json.dumps(dict(peaks=mem, constant=FULL_MEMORY_PEAK_PER_S,
+                            workspace_fields=MARCH_WORKSPACE_FIELDS))
+         + f" | {name} | {smi}")
+    over = [m for m in mem if m["peak_over_estimate"] > 1.0]
+    if over:
+        raise RuntimeError(f"measured peak above the chooser's estimate: "
+                           f"{over}")
+
+    def entry(fn, source, replaces, launches, err, ms, plain_ms):
+        return {"name": fn, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    mean = lambda v: float(np.mean(v))
+    march_cu = "vch_tpu_torch/csrc/march2d.cu"
+    adj_cu = "vch_tpu_torch/csrc/adjoint2d.cu"
+    pm = "vch_tpu/ops/pallas_march.py"
     kernels = [
-        {"name": "march_fused_2d", "route": "cuda",
-         "source": "vch_tpu_torch/csrc/march2d.cu",
-         "replaces": "vch_tpu/ops/pallas_march.py:393",
-         "launches": c4["launches"]["march_fused_2d"],
-         "max_abs_err": long["max_abs_dphi"], "ms": long["march_ms"],
-         "plain_ms": long["march_plain_ms"]},
-        {"name": "adjoint_fused_2d", "route": "cuda",
-         "source": "vch_tpu_torch/csrc/adjoint2d.cu",
-         "replaces": "vch_tpu/ops/pallas_march.py:751",
-         "launches": c4["launches"]["adjoint_fused_2d"],
-         "max_abs_err": long["max_abs_dr"], "ms": long["adjoint_ms"],
-         "plain_ms": long["adjoint_plain_ms"]},
+        entry("march_fused_2d", march_cu, f"{pm}:393",
+              c4["launches"]["march_fused_2d"], long["max_abs_dphi"],
+              long["march_ms"], long["march_plain_ms"]),
+        entry("adjoint_fused_2d", adj_cu, f"{pm}:751",
+              c4["launches"]["adjoint_fused_2d"], long["max_abs_dr"],
+              long["adjoint_ms"], long["adjoint_plain_ms"]),
+        entry("march_fused_2d_blocked", march_cu, f"{pm}:1649",
+              c5["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
+              mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"]),
+        entry("adjoint_fused_2d_blocked", adj_cu, f"{pm}:1905",
+              c5["launches"]["adjoint_fused_2d_blocked"], blk8["max_abs_dr"],
+              mean(blk8["adjoint_blocked_ms"]), blk8["adjoint_plain_ms"]),
+        entry("march_fused_2d_segment", march_cu, f"{pm}:479",
+              c6["launches"]["march_fused_2d_segment"],
+              seg257["max_abs_err_march"], seg257["march_ms"],
+              seg257["march_plain_ms"]),
+        entry("adjoint_fused_2d_segment", adj_cu, f"{pm}:819",
+              c6["launches"]["adjoint_fused_2d_segment"],
+              seg257["max_abs_err_adjoint"], seg257["adjoint_ms"],
+              seg257["adjoint_plain_ms"]),
     ]
+    _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

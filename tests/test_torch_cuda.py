@@ -9,7 +9,9 @@ Tolerances on the card: phi 1e-5 absolute, and Newton totals within one
 solve per member (float32 sums in another order: a step that converges
 right at the tolerance may take one more iteration); r 2e-3 relative, the
 float32 noise floor of the adjoint on small grids (chip_smoke.py records
-it at larger ones).
+it at larger ones). The member-blocked kernels compute each member with the
+same arithmetic as the per-member kernels, so those two agree exactly, as
+do the two one-member marches.
 """
 import numpy as np
 import pytest
@@ -110,7 +112,7 @@ def test_adjoint_kernel_matches_plain(cuda):
     before = km.adjoint_fused_2d.launches
     kr = adj.adjoint_fused_batch(hist, b1, b2, phiQ, phiT)
     assert km.adjoint_fused_2d.launches == before + 1
-    adj.sweep = km.adjoint_fused_2d_plain
+    adj.entries = km.PLAIN
     pr = adj.adjoint_fused_batch(hist, b1, b2, phiQ, phiT)
     torch.cuda.synchronize()
     assert (kr[:, -1] == 0).all()
@@ -136,3 +138,81 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     bad_dev[3] = args[3].cpu()
     with pytest.raises(ValueError, match="expected"):
         km.march_fused_2d(*bad_dev, **_KW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_b", [8])
+def test_blocked_kernels_equal_the_per_member_kernels(cuda, block_b):
+    fwd, adj, phi0, u, f32 = _problem(cuda, n=33, B=8, T=0.05)
+    args = _march_args(fwd, phi0, u)
+    before = km.march_fused_2d_blocked.launches
+    bh, bns, bbad = km.march_fused_2d_blocked(*args, block_b=block_b, **_KW)
+    assert km.march_fused_2d_blocked.launches == before + 1
+    kh, kns, kbad = km.march_fused_2d(*args, **_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(bh, kh) and torch.equal(bns, kns)
+    assert torch.equal(bbad, kbad)
+    b1, b2 = f32(np.linspace(0.3, 5.0, 8)), f32(np.linspace(13.0, 10.0, 8))
+    phiT = 0.1 * phi0
+    aargs = (adj.dts, kh, torch.zeros_like(kh), phiT, b1, b2) + adj._ops()
+    br = km.adjoint_fused_2d_blocked(*aargs, block_b=block_b, **adj._kw())
+    kr = km.adjoint_fused_2d(*aargs, **adj._kw())
+    torch.cuda.synchronize()
+    assert torch.equal(br, kr)
+
+
+@pytest.mark.cuda
+def test_lean_one_member_march_equals_the_held_one(cuda):
+    """A launch with more CTAs than SMs takes the lean one-member march
+    (field pointers formed at use); it computes what the other does."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    fwd, _, phi0, u, _ = _problem(cuda, B=sms + 4, T=0.03)
+    lean = km.march_fused_2d(*_march_args(fwd, phi0, u), **_KW)
+    held = km.march_fused_2d(*_march_args(fwd, phi0[:4], u[:4].contiguous()),
+                             **_KW)
+    torch.cuda.synchronize()
+    for a, b in zip(lean, held):
+        assert torch.equal(a[:4], b)
+
+
+@pytest.mark.cuda
+def test_segment_kernels_match_plain(cuda):
+    fwd, adj, phi0, u, f32 = _problem(cuda, n=33, B=3, T=0.05)
+    K = 3
+    w = torch.zeros_like(phi0)
+    mu = fwd.initialize_mu(phi0, w)
+    m0 = torch.sum(fwd.wts * phi0, dim=(-2, -1))
+    sargs = (fwd.dts[:K], phi0, mu, w, m0, u[:, :K + 1].contiguous()) + \
+        fwd._ops()
+    before = km.march_fused_2d_segment.launches
+    ks = km.march_fused_2d_segment(*sargs, **_KW)
+    assert km.march_fused_2d_segment.launches == before + 1
+    ps = km.march_fused_2d_segment_plain(*sargs, **_KW)
+    torch.cuda.synchronize()
+    assert ks[0].shape == (3, K, 33, 33)
+    for a, b in zip(ks[:4], ps[:4]):
+        assert (a - b).abs().max().item() <= 1e-5
+    assert (ks[4] - ps[4]).abs().max().item() <= 1
+    hist = torch.cat([phi0[:, None], ks[0]], dim=1)
+    b1, b2 = f32([5.0, 0.3, 1.0]), f32([10.0, 13.0, 2.0])
+    p, q, r = adj.terminal(hist[:, K], 0.1 * phi0, b2)
+    aargs = (adj.dts[:K], hist, torch.zeros_like(hist), p, q, r, b1) + \
+        adj._ops()
+    before = km.adjoint_fused_2d_segment.launches
+    kr = km.adjoint_fused_2d_segment(*aargs, **adj._kw())
+    assert km.adjoint_fused_2d_segment.launches == before + 1
+    pr = km.adjoint_fused_2d_segment_plain(*aargs, **adj._kw())
+    torch.cuda.synchronize()
+    for a, b in zip(kr, pr):
+        assert (a - b).abs().max().item() <= 2e-3 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_blocked_wrappers_reject_unbuilt_and_indivisible_blocks(cuda):
+    fwd, _, phi0, u, _ = _problem(cuda, B=6)
+    args = _march_args(fwd, phi0, u)
+    for block_b in (2, 3):
+        with pytest.raises(ValueError, match="built for block_b"):
+            km.march_fused_2d_blocked(*args, block_b=block_b, **_KW)
+    with pytest.raises(ValueError, match="B % block_b"):
+        km.march_fused_2d_blocked(*args, block_b=4, **_KW)

@@ -6,9 +6,13 @@ dumped by `vch_tpu` (`model_dump()` or its JSON) loads here through
 `from_dict`. Validation is by hand: c2 > c1, u_max > u_min, dtype in
 {float32, float64}, and positivity where vch_tpu's fields demand it.
 
+`fused_march_block` is honored as vch_tpu honors it: `resolved_fused_block()`
+gives the members per CTA of the blocked kernels (8 on grids of up to 96
+points by default), and the solvers take the blocked kernels when the batch
+divides by it. The CUDA kernels are built for 8 members per CTA (and 1);
+another explicit block runs on CPU tensors and raises on CUDA tensors.
+
 Fields accepted for interchangeability but NOT honored yet by the port:
-  fused_march_block        — the member-blocked kernels are not ported; the
-                             port always runs one member per CTA;
   fused_solve_precision,   — the kernels compute every product in full
   adjoint_solve_precision,   float32 FMA (vch_tpu's 'highest');
   forward_matmul_precision
@@ -57,9 +61,9 @@ class ForwardSolverConfig2D:
     fused_krylov_fixed_iters: Optional[int] = 3
     adjoint_krylov_fixed_iters: Optional[int] = 5
     linsolve_1d: str = "auto"
+    fused_march_block: Optional[int] = None
     # accepted, not honored (see the module docstring)
     fused_solve_precision: Optional[str] = "bf16x3"
-    fused_march_block: Optional[int] = None
     adjoint_solve_precision: Optional[str] = None
     pallas_variant: str = "spectral"
     use_pallas: Optional[bool] = None
@@ -85,6 +89,17 @@ class ForwardSolverConfig2D:
                 raise ValueError(f"{name} must be > 0 or None")
         if self.kappa < 0 or self.newton_rtol < 0:
             raise ValueError("kappa and newton_rtol must be >= 0")
+        if self.fused_march_block is not None and self.fused_march_block < 0:
+            raise ValueError("fused_march_block must be >= 0 or None")
+
+    def resolved_fused_block(self) -> int:
+        """Members per CTA of the member-blocked kernels (0: one member per
+        CTA), vch_tpu/config.py:107-115: None gives 8 on grids of up to 96
+        points and 0 above; an explicit value passes through."""
+        bb = self.fused_march_block
+        if bb is None:
+            return 8 if max(self.Nx, self.Ny) <= 96 else 0
+        return bb
 
     @classmethod
     def from_dict(cls, d: dict) -> "ForwardSolverConfig2D":

@@ -1,12 +1,12 @@
-"""The two kernels of the batched 2D PGD path: the whole forward march and
-the whole adjoint sweep (counterpart of vch_tpu/ops/pallas_march.py).
+"""The kernels of the batched 2D PGD paths: the whole forward march and the
+whole adjoint sweep, their member-blocked forms and their K-step segment
+forms (counterpart of vch_tpu/ops/pallas_march.py).
 
-`march_fused_2d` / `adjoint_fused_2d` route by the tensors' device: on CUDA
-tensors they launch the hand-written kernels of `csrc/march2d.cu` and
-`csrc/adjoint2d.cu` (float32 only; anything else raises), on CPU tensors
-they run the plain PyTorch versions `march_fused_2d_plain` /
-`adjoint_fused_2d_plain` of this module. There is no fallback from one to
-the other. Each wrapper counts its kernel launches in `.launches`.
+Each wrapper routes by the tensors' device: on CUDA tensors it launches the
+hand-written kernels of `csrc/march2d.cu` and `csrc/adjoint2d.cu` (float32
+only; anything else raises), on CPU tensors it runs its plain PyTorch
+version `<name>_plain` of this module. There is no fallback from one to the
+other. Each wrapper counts its kernel launches in `.launches`.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -14,7 +14,10 @@ as the Pallas kernel bodies (`_march_kernel_factory`, pallas_march.py:79-390;
 `_adjoint_kernel_factory`, :567-748) compute them, so they are the oracle
 for both the JAX reference (tests) and the CUDA kernels (chip_smoke.py).
 Scalar arithmetic stays in the field dtype (0-d tensors); Python control
-flow reads the CTA-uniform predicates the kernels branch on.
+flow reads the CTA-uniform predicates the kernels branch on. The blocked
+plain versions run the per-member ones: the blocked TPU kernels compute each
+member exactly as the per-member kernels do (masked lockstep,
+pallas_march.py:1292-1296), which the tests hold against them.
 
 One exactness-preserving change to the fixed-trip BiCGStab: the Pallas body
 masks a trip whose residual is at the noise floor or non-finite, and such a
@@ -25,9 +28,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
+from vch_tpu_torch.ops import _build
 from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
 from vch_tpu_torch.ops.potential import fpp_log, regularized_log
 
@@ -84,8 +89,11 @@ def _bicgstab_fixed(apply_A, prec, r0, x0, best_x0, floor2, n_trips):
 # forward march
 
 
-def _march_member(dts, phi0, u, ops, k):
-    """One member's whole march; returns (frames list, nsolve, first_bad)."""
+def _march_member(dts, phi0, u, ops, k, carry=None):
+    """One member's march over len(dts) steps. `carry` is the segment
+    carry (mu0, w0, m0); None starts from phi0 (w0 = 0, mu0 from phi0, m0
+    its mass). Returns (post-step frames, nsolve, first_bad, (phi, mu, w)
+    after the last step)."""
     Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts = ops
     mm = torch.matmul
     tau, c1, c2, kappa, gamma = k["tau"], k["c1"], k["c2"], k["kappa"], k["gamma"]
@@ -107,10 +115,13 @@ def _march_member(dts, phi0, u, ops, k):
         return regularized_log(phi, delta_sep)
 
     phi_old = phi0
-    w_old = torch.zeros_like(phi0)
-    mu_old = -kappa * lap(phi0) + c1 * f_log(phi0) - 2.0 * c2 * phi0
-    m0 = torch.sum(wts * phi0)
-    frames, nsolve, first_bad = [phi0], 0, -1
+    if carry is None:
+        w_old = torch.zeros_like(phi0)
+        mu_old = -kappa * lap(phi0) + c1 * f_log(phi0) - 2.0 * c2 * phi0
+        m0 = torch.sum(wts * phi0)
+    else:
+        mu_old, w_old, m0 = carry
+    frames, nsolve, first_bad = [], 0, -1
 
     for step in range(dts.shape[0]):
         dt = dts[step]
@@ -229,7 +240,11 @@ def _march_member(dts, phi0, u, ops, k):
             first_bad = step
         frames.append(phi_c)
         phi_old, mu_old, w_old = phi_c, mu, w_new
-    return frames, nsolve, first_bad
+    return frames, nsolve, first_bad, (phi_old, mu_old, w_old)
+
+
+def _int32(values, device):
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def march_fused_2d_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
@@ -239,12 +254,45 @@ def march_fused_2d_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
     ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     hist, ns, bad = [], [], []
     for b in range(phi0.shape[0]):
-        frames, nsolve, first_bad = _march_member(dts, phi0[b], u[b], ops, k)
-        hist.append(torch.stack(frames))
+        frames, nsolve, first_bad, _ = _march_member(dts, phi0[b], u[b], ops,
+                                                     k)
+        hist.append(torch.stack([phi0[b]] + frames))
         ns.append(nsolve)
         bad.append(first_bad)
-    mk = lambda v: torch.tensor(v, dtype=torch.int32, device=phi0.device)
-    return torch.stack(hist), mk(ns), mk(bad)
+    return torch.stack(hist), _int32(ns, phi0.device), _int32(bad, phi0.device)
+
+
+def _check_block(B: int, block_b: int):
+    if block_b <= 0 or B % block_b:
+        raise ValueError(f"the member-blocked kernels need B % block_b == 0 "
+                         f"(B={B}, block_b={block_b})")
+
+
+def march_fused_2d_blocked_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx,
+                                 VyT, lam, wts, *, block_b: int, **k):
+    """Plain PyTorch version of the member-blocked march: per member, the
+    same computation as `march_fused_2d_plain`."""
+    _check_block(phi0.shape[0], block_b)
+    return march_fused_2d_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx,
+                                VyT, lam, wts, **k)
+
+
+def march_fused_2d_segment_plain(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
+                                 Vy_inv_T, Vx, VyT, lam, wts, **k):
+    """Plain PyTorch version of the segment march. Arguments as
+    `march_fused_2d_segment`."""
+    ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
+    hist, fin, ns, bad = [], [], [], []
+    for b in range(phi0.shape[0]):
+        frames, nsolve, first_bad, last = _march_member(
+            dts, phi0[b], u[b], ops, k, carry=(mu0[b], w0[b], m0[b]))
+        hist.append(torch.stack(frames))
+        fin.append(last)
+        ns.append(nsolve)
+        bad.append(first_bad)
+    phi_f, mu_f, w_f = (torch.stack([f[i] for f in fin]) for i in range(3))
+    return (torch.stack(hist), phi_f, mu_f, w_f, _int32(ns, phi0.device),
+            _int32(bad, phi0.device))
 
 
 def _fwd_consts(k):
@@ -260,8 +308,20 @@ def _fwd_consts(k):
     return (ctypes.c_float * len(vals))(*vals), len(vals)
 
 
-def _check_cuda(names, tensors, dev):
-    for name, t in zip(names, tensors):
+def _on_cuda(name, t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def _check_cuda(named, dev):
+    """Every (name, tensor, shape) of a launch: on `dev`, float32,
+    contiguous, of the expected shape."""
+    for name, t, shape in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != torch.float32:
@@ -269,12 +329,16 @@ def _check_cuda(names, tensors, dev):
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
 
 
-def _shape(name, t, shape):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
+def _op_shapes(n, m, with_wts=True):
+    names = ("Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam", "wts")
+    shapes = ((n, n), (m, m), (n, n), (m, m), (n, n), (m, m), (n, m), (n, m))
+    k = 8 if with_wts else 7
+    return names[:k], shapes[:k]
 
 
 def _raise_on(lib, err, what):
@@ -283,44 +347,23 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
-                   wts, *, tau: float, c1: float, c2: float, kappa: float,
-                   gamma: float, delta_sep: float, area: float,
-                   newton_tol: float, newton_rtol: float,
-                   newton_max_iter: int, n_trips: int,
-                   stagnation_exit: bool = True):
-    """The whole batched 2D forward march.
+def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
+              newton_rtol, newton_max_iter, n_trips, stagnation_exit):
+    return dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
+                delta_sep=delta_sep, area=area, newton_tol=newton_tol,
+                newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
+                n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
 
-    Args:
-      dts (M,), phi0 (B, n, m), u (B, M+1, n, m); Lx (n, n), LyT (m, m)
-      (Ly transposed); Vx_inv, Vy_inv_T, Vx, VyT: cosine transforms;
-      lam (n, m) eigenvalue grid; wts (n, m) quadrature weights * hx * hy;
-      area = Lx * Ly (uniform mass-fix fallback).
-    Returns phi_hist (B, M+1, n, m) with phi0 prepended, nsolve (B,) int32
-    Newton linear solves per member, first_bad (B,) int32 first step whose
-    mass defect was non-finite (-1: none).
-    """
-    k = dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
-             delta_sep=delta_sep, area=area, newton_tol=newton_tol,
-             newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
-             n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
-    args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
-    if phi0.device.type == "cpu":
-        return march_fused_2d_plain(*args, **k)
-    if phi0.device.type != "cuda":
-        raise ValueError(f"march_fused_2d: unsupported device {phi0.device}")
-    names = ("dts", "phi0", "u", "Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx",
-             "VyT", "lam", "wts")
-    _check_cuda(names, args, phi0.device)
+
+def _launch_march(wrapper, args, k, block_b):
+    """Check and launch the whole (block_b = 1) or blocked march kernel."""
+    dts, phi0, u, *ops = args
     B, n, m = phi0.shape
     M = dts.shape[0]
-    for name, t, shape in (("dts", dts, (M,)), ("u", u, (B, M + 1, n, m)),
-                           ("Lx", Lx, (n, n)), ("LyT", LyT, (m, m)),
-                           ("Vx_inv", Vx_inv, (n, n)), ("Vx", Vx, (n, n)),
-                           ("Vy_inv_T", Vy_inv_T, (m, m)), ("VyT", VyT, (m, m)),
-                           ("lam", lam, (n, m)), ("wts", wts, (n, m))):
-        _shape(name, t, shape)
-    from vch_tpu_torch.ops import _build
+    names, shapes = _op_shapes(n, m)
+    _check_cuda([("dts", dts, (M,)), ("phi0", phi0, (B, n, m)),
+                 ("u", u, (B, M + 1, n, m))]
+                + list(zip(names, ops, shapes)), phi0.device)
     lib = _build.load()
     dev = phi0.device
     hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
@@ -334,21 +377,136 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
         *[t.data_ptr() for t in args], hist.data_ptr(), nsolve.data_ptr(),
         first_bad.data_ptr(), work.data_ptr(), B, M, n, m, consts, nc,
         k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
-        stream)
-    march_fused_2d.launches += 1
-    _raise_on(lib, err, "march_fused_2d")
+        block_b, stream)
+    wrapper.launches += 1
+    _raise_on(lib, err, wrapper.__name__)
     return hist, nsolve, first_bad
 
 
+def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
+                   wts, *, tau: float, c1: float, c2: float, kappa: float,
+                   gamma: float, delta_sep: float, area: float,
+                   newton_tol: float, newton_rtol: float,
+                   newton_max_iter: int, n_trips: int,
+                   stagnation_exit: bool = True):
+    """The whole batched 2D forward march, one member per CTA.
+
+    Args:
+      dts (M,), phi0 (B, n, m), u (B, M+1, n, m); Lx (n, n), LyT (m, m)
+      (Ly transposed); Vx_inv, Vy_inv_T, Vx, VyT: cosine transforms;
+      lam (n, m) eigenvalue grid; wts (n, m) quadrature weights * hx * hy;
+      area = Lx * Ly (uniform mass-fix fallback).
+    Returns phi_hist (B, M+1, n, m) with phi0 prepended, nsolve (B,) int32
+    Newton linear solves per member, first_bad (B,) int32 first step whose
+    mass defect was non-finite (-1: none).
+    """
+    k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
+                  newton_rtol, newton_max_iter, n_trips, stagnation_exit)
+    args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
+    if not _on_cuda("march_fused_2d", phi0):
+        return march_fused_2d_plain(*args, **k)
+    return _launch_march(march_fused_2d, args, k, 1)
+
+
 march_fused_2d.launches = 0
+
+
+def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
+                           lam, wts, *, tau: float, c1: float, c2: float,
+                           kappa: float, gamma: float, delta_sep: float,
+                           area: float, newton_tol: float,
+                           newton_rtol: float, newton_max_iter: int,
+                           n_trips: int, stagnation_exit: bool = True,
+                           block_b: int = 8):
+    """The member-blocked march: block_b members per CTA in masked lockstep
+    (pallas_march.py:1649). Same contract as `march_fused_2d`; B must divide
+    by block_b, and the CUDA kernel is built for block_b in
+    _build.MEMBER_BLOCKS."""
+    k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
+                  newton_rtol, newton_max_iter, n_trips, stagnation_exit)
+    args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
+    if not _on_cuda("march_fused_2d_blocked", phi0):
+        return march_fused_2d_blocked_plain(*args, block_b=block_b, **k)
+    _check_block(phi0.shape[0], block_b)
+    if block_b not in _build.MEMBER_BLOCKS:
+        raise ValueError(f"the CUDA blocked march is built for block_b in "
+                         f"{_build.MEMBER_BLOCKS}, got {block_b}")
+    return _launch_march(march_fused_2d_blocked, args, k, block_b)
+
+
+march_fused_2d_blocked.launches = 0
+
+
+def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
+                           Vy_inv_T, Vx, VyT, lam, wts, *, tau: float,
+                           c1: float, c2: float, kappa: float, gamma: float,
+                           delta_sep: float, area: float, newton_tol: float,
+                           newton_rtol: float, newton_max_iter: int,
+                           n_trips: int, stagnation_exit: bool = True):
+    """One K-step segment of the march with the (phi, mu, w) state carried
+    explicitly (pallas_march.py:479): mu0, w0 are the segment-start values
+    and m0 (B,) the GLOBAL initial mass that the mass correction targets.
+
+    Args: dts (K,), phi0, mu0, w0 (B, n, m), m0 (B,), u (B, K+1, n, m);
+    operators as `march_fused_2d`.
+    Returns (hist (B, K, n, m), the K post-step states without phi0;
+    phi_f, mu_f, w_f (B, n, m); nsolve (B,); first_bad (B,)).
+    """
+    k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
+                  newton_rtol, newton_max_iter, n_trips, stagnation_exit)
+    args = (dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
+            lam, wts)
+    if not _on_cuda("march_fused_2d_segment", phi0):
+        return march_fused_2d_segment_plain(*args, **k)
+    B, n, m = phi0.shape
+    K = dts.shape[0]
+    names, shapes = _op_shapes(n, m)
+    _check_cuda([("dts", dts, (K,)), ("phi0", phi0, (B, n, m)),
+                 ("mu0", mu0, (B, n, m)), ("w0", w0, (B, n, m)),
+                 ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
+                + list(zip(names, args[6:], shapes)), phi0.device)
+    lib = _build.load()
+    dev = phi0.device
+    out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    hist = out((B, K, n, m))
+    phi_f, mu_f, w_f = out((B, n, m)), out((B, n, m)), out((B, n, m))
+    nsolve = torch.empty((B,), dtype=torch.int32, device=dev)
+    first_bad = torch.empty((B,), dtype=torch.int32, device=dev)
+    work = out((B, lib.vch_workspace_fields(0), n, m))
+    consts, nc = _fwd_consts(k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_march_fused_2d_segment(
+        *[t.data_ptr() for t in args], hist.data_ptr(), phi_f.data_ptr(),
+        mu_f.data_ptr(), w_f.data_ptr(), nsolve.data_ptr(),
+        first_bad.data_ptr(), work.data_ptr(), B, K, n, m, consts, nc,
+        k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
+        stream)
+    march_fused_2d_segment.launches += 1
+    _raise_on(lib, err, "march_fused_2d_segment")
+    return hist, phi_f, mu_f, w_f, nsolve, first_bad
+
+
+march_fused_2d_segment.launches = 0
 
 
 # --------------------------------------------------------------------------
 # adjoint sweep
 
 
-def _adjoint_member(dts, hist, phiQ, phiT, b1, b2, ops, k):
-    """One member's reverse (p, q, r) sweep; returns r (M+1, n, m)."""
+def _adjoint_terminal(phi_T_state, phi_T_target, b2, ops, tau):
+    """(I - tau L) p_T = b2 (phi(T) - phi_Omega), exact in the cosine basis;
+    q_T = -L p_T; r_T = 0."""
+    Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
+    mm = torch.matmul
+    rhs_T = b2 * (phi_T_state - phi_T_target)
+    p = mm(mm(Vx, mm(mm(Vxi, rhs_T), VyiT) / (1.0 - tau * lam)), VyT)
+    return p, -apply_laplacian_2d(Lx, LyT, p), torch.zeros_like(p)
+
+
+def _adjoint_member(dts, hist, phiQ, b1, carry, ops, k):
+    """One member's reverse (p, q, r) sweep over len(dts) steps from the
+    carry (p, q, r) at the last level of hist. Returns (r at the first
+    len(dts) levels, in forward order; (p, q, r) at the first level)."""
     Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
     mm = torch.matmul
     tau, gamma, c1, c2 = k["tau"], k["gamma"], k["c1"], k["c2"]
@@ -367,13 +525,8 @@ def _adjoint_member(dts, hist, phiQ, phiT, b1, b2, ops, k):
     def fpp(phi):
         return fpp_log(phi, c1, c2, _FPP_EPS)
 
-    # terminal: (I - tau L) p_T = b2 (phi(T) - phi_Omega), exact in the
-    # cosine basis; q_T = -L p_T; r_T = 0
-    rhs_T = b2 * (hist[M] - phiT)
-    p_next = from_s(to_s(rhs_T) / (1.0 - tau * lam))
-    q_next = -lap(p_next)
-    r_next = torch.zeros_like(p_next)
-    r_out = [None] * M + [r_next]
+    p_next, q_next, r_next = carry
+    r_out = [None] * M
 
     for n in range(M - 1, -1, -1):
         dt = dts[n]
@@ -412,7 +565,7 @@ def _adjoint_member(dts, hist, phiQ, phiT, b1, b2, ops, k):
         if not bool(dt <= 1e-14):   # dt <= 1e-14 copies the next level
             p_next, q_next, r_next = p_n, q_n, r_n
         r_out[n] = r_next
-    return torch.stack(r_out)
+    return r_out, (p_next, q_next, r_next)
 
 
 def adjoint_fused_2d_plain(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
@@ -420,10 +573,41 @@ def adjoint_fused_2d_plain(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
     """Plain PyTorch version of the adjoint-sweep kernel. Arguments as
     `adjoint_fused_2d`."""
     ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam)
-    return torch.stack([
-        _adjoint_member(dts, phi_hist[b], phi_Q[b], phi_T[b], b1[b], b2[b],
-                        ops, k)
-        for b in range(phi_T.shape[0])])
+    M = dts.shape[0]
+    rs = []
+    for b in range(phi_T.shape[0]):
+        carry = _adjoint_terminal(phi_hist[b, M], phi_T[b], b2[b], ops,
+                                  k["tau"])
+        r_out, _ = _adjoint_member(dts, phi_hist[b], phi_Q[b], b1[b], carry,
+                                   ops, k)
+        rs.append(torch.stack(r_out + [carry[2]]))
+    return torch.stack(rs)
+
+
+def adjoint_fused_2d_blocked_plain(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx,
+                                   LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, *,
+                                   block_b: int, **k):
+    """Plain PyTorch version of the member-blocked sweep: per member, the
+    same computation as `adjoint_fused_2d_plain`."""
+    _check_block(phi_T.shape[0], block_b)
+    return adjoint_fused_2d_plain(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx,
+                                  LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, **k)
+
+
+def adjoint_fused_2d_segment_plain(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1,
+                                   Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
+                                   **k):
+    """Plain PyTorch version of the segment sweep. Arguments as
+    `adjoint_fused_2d_segment`."""
+    ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam)
+    rs, fin = [], []
+    for b in range(p0.shape[0]):
+        r_out, last = _adjoint_member(dts, phi_seg[b], phi_Q_seg[b], b1[b],
+                                      (p0[b], q0[b], r0[b]), ops, k)
+        rs.append(torch.stack(r_out))
+        fin.append(last)
+    p_f, q_f, r_f = (torch.stack([f[i] for f in fin]) for i in range(3))
+    return torch.stack(rs), p_f, q_f, r_f
 
 
 def _adj_consts(k):
@@ -433,36 +617,17 @@ def _adj_consts(k):
     return (ctypes.c_float * len(vals))(*vals), len(vals)
 
 
-def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
-                     Vy_inv_T, Vx, VyT, lam, *, tau: float, gamma: float,
-                     c1: float, c2: float, n_trips: int):
-    """The whole batched 2D adjoint sweep.
-
-    Args: dts (M,); phi_hist, phi_Q (B, M+1, n, m); phi_T (B, n, m) terminal
-    targets; b1, b2 (B,) weights; operators as `march_fused_2d`.
-    Returns r (B, M+1, n, m), with r_T = 0 in the last frame.
-    """
-    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
-    args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
-            Vx, VyT, lam)
-    if phi_T.device.type == "cpu":
-        return adjoint_fused_2d_plain(*args, **k)
-    if phi_T.device.type != "cuda":
-        raise ValueError(f"adjoint_fused_2d: unsupported device {phi_T.device}")
-    names = ("dts", "phi_hist", "phi_Q", "phi_T", "b1", "b2", "Lx", "LyT",
-             "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam")
-    _check_cuda(names, args, phi_T.device)
+def _launch_adjoint(wrapper, args, k, block_b):
+    """Check and launch the whole (block_b = 1) or blocked sweep kernel."""
+    dts, phi_hist, phi_Q, phi_T, b1, b2, *ops = args
     B, n, m = phi_T.shape
     M = dts.shape[0]
-    for name, t, shape in (("phi_hist", phi_hist, (B, M + 1, n, m)),
-                           ("phi_Q", phi_Q, (B, M + 1, n, m)),
-                           ("b1", b1, (B,)), ("b2", b2, (B,)),
-                           ("Lx", Lx, (n, n)), ("LyT", LyT, (m, m)),
-                           ("Vx_inv", Vx_inv, (n, n)), ("Vx", Vx, (n, n)),
-                           ("Vy_inv_T", Vy_inv_T, (m, m)), ("VyT", VyT, (m, m)),
-                           ("lam", lam, (n, m))):
-        _shape(name, t, shape)
-    from vch_tpu_torch.ops import _build
+    names, shapes = _op_shapes(n, m, with_wts=False)
+    _check_cuda([("dts", dts, (M,)), ("phi_hist", phi_hist, (B, M + 1, n, m)),
+                 ("phi_Q", phi_Q, (B, M + 1, n, m)),
+                 ("phi_T", phi_T, (B, n, m)), ("b1", b1, (B,)),
+                 ("b2", b2, (B,))]
+                + list(zip(names, ops, shapes)), phi_T.device)
     lib = _build.load()
     dev = phi_T.device
     r = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
@@ -472,10 +637,128 @@ def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vch_adjoint_fused_2d(
         *[t.data_ptr() for t in args], r.data_ptr(), work.data_ptr(),
-        B, M, n, m, consts, nc, k["n_trips"], stream)
-    adjoint_fused_2d.launches += 1
-    _raise_on(lib, err, "adjoint_fused_2d")
+        B, M, n, m, consts, nc, k["n_trips"], block_b, stream)
+    wrapper.launches += 1
+    _raise_on(lib, err, wrapper.__name__)
     return r
 
 
+def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
+                     Vy_inv_T, Vx, VyT, lam, *, tau: float, gamma: float,
+                     c1: float, c2: float, n_trips: int):
+    """The whole batched 2D adjoint sweep, one member per CTA.
+
+    Args: dts (M,); phi_hist, phi_Q (B, M+1, n, m); phi_T (B, n, m) terminal
+    targets; b1, b2 (B,) weights; operators as `march_fused_2d`.
+    Returns r (B, M+1, n, m), with r_T = 0 in the last frame.
+    """
+    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
+            Vx, VyT, lam)
+    if not _on_cuda("adjoint_fused_2d", phi_T):
+        return adjoint_fused_2d_plain(*args, **k)
+    return _launch_adjoint(adjoint_fused_2d, args, k, 1)
+
+
 adjoint_fused_2d.launches = 0
+
+
+def adjoint_fused_2d_blocked(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
+                             Vx_inv, Vy_inv_T, Vx, VyT, lam, *, tau: float,
+                             gamma: float, c1: float, c2: float,
+                             n_trips: int, block_b: int = 8):
+    """The member-blocked sweep: block_b members per CTA
+    (pallas_march.py:1905). Same contract as `adjoint_fused_2d`; B must
+    divide by block_b, and the CUDA kernel is built for block_b in
+    _build.MEMBER_BLOCKS."""
+    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
+            Vx, VyT, lam)
+    if not _on_cuda("adjoint_fused_2d_blocked", phi_T):
+        return adjoint_fused_2d_blocked_plain(*args, block_b=block_b, **k)
+    _check_block(phi_T.shape[0], block_b)
+    if block_b not in _build.MEMBER_BLOCKS:
+        raise ValueError(f"the CUDA blocked sweep is built for block_b in "
+                         f"{_build.MEMBER_BLOCKS}, got {block_b}")
+    return _launch_adjoint(adjoint_fused_2d_blocked, args, k, block_b)
+
+
+adjoint_fused_2d_blocked.launches = 0
+
+
+def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
+                             LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, *,
+                             tau: float, gamma: float, c1: float, c2: float,
+                             n_trips: int):
+    """One K-step segment of the sweep with the (p, q, r) carry explicit
+    (pallas_march.py:819): p0, q0, r0 are the adjoint state at the segment's
+    LAST level, phi_seg / phi_Q_seg (B, K+1, n, m) its state and target
+    frames.
+
+    Returns (r (B, K, n, m), the segment's first K levels in forward order;
+    p_f, q_f, r_f (B, n, m) at its first level).
+    """
+    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    args = (dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx, LyT, Vx_inv,
+            Vy_inv_T, Vx, VyT, lam)
+    if not _on_cuda("adjoint_fused_2d_segment", p0):
+        return adjoint_fused_2d_segment_plain(*args, **k)
+    B, n, m = p0.shape
+    K = dts.shape[0]
+    names, shapes = _op_shapes(n, m, with_wts=False)
+    _check_cuda([("dts", dts, (K,)), ("phi_seg", phi_seg, (B, K + 1, n, m)),
+                 ("phi_Q_seg", phi_Q_seg, (B, K + 1, n, m)),
+                 ("p0", p0, (B, n, m)), ("q0", q0, (B, n, m)),
+                 ("r0", r0, (B, n, m)), ("b1", b1, (B,))]
+                + list(zip(names, args[7:], shapes)), p0.device)
+    lib = _build.load()
+    dev = p0.device
+    out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    r = out((B, K, n, m))
+    p_f, q_f, r_f = out((B, n, m)), out((B, n, m)), out((B, n, m))
+    work = out((B, lib.vch_workspace_fields(1), n, m))
+    consts, nc = _adj_consts(k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_adjoint_fused_2d_segment(
+        *[t.data_ptr() for t in args], r.data_ptr(), p_f.data_ptr(),
+        q_f.data_ptr(), r_f.data_ptr(), work.data_ptr(), B, K, n, m, consts,
+        nc, k["n_trips"], stream)
+    adjoint_fused_2d_segment.launches += 1
+    _raise_on(lib, err, "adjoint_fused_2d_segment")
+    return r, p_f, q_f, r_f
+
+
+adjoint_fused_2d_segment.launches = 0
+
+
+class Entries(NamedTuple):
+    """The six entry points a solver calls. KERNELS routes by device (the
+    CUDA kernels on CUDA tensors); PLAIN runs the plain versions on any
+    device, which chip_smoke.py uses to hold the kernel path against the
+    plain path on the card."""
+
+    march: Callable
+    march_blocked: Callable
+    march_segment: Callable
+    adjoint: Callable
+    adjoint_blocked: Callable
+    adjoint_segment: Callable
+
+
+KERNELS = Entries(march_fused_2d, march_fused_2d_blocked,
+                  march_fused_2d_segment, adjoint_fused_2d,
+                  adjoint_fused_2d_blocked, adjoint_fused_2d_segment)
+PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
+                march_fused_2d_segment_plain, adjoint_fused_2d_plain,
+                adjoint_fused_2d_blocked_plain, adjoint_fused_2d_segment_plain)
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch count, by name."""
+    return {fn.__name__: fn.launches for fn in KERNELS}

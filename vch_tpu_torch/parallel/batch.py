@@ -10,9 +10,15 @@ whose results are discarded (their Newton solves are still counted, as in
 vch_tpu). Plateau detection, alpha growth and convergence freezing follow
 vch_tpu/parallel/batch.py:922-984.
 
+Two problems share that PGD loop (`_BatchedPGDBase`): `BatchedProblem2D`
+keeps each member's whole trajectory, `LowMemBatchedProblem2D` keeps K-step
+segment checkpoints and recomputes each segment in the adjoint.
+`make_batched_problem_2d` picks one by the estimated peak device memory.
+
 Not ported (single device, eager PyTorch): the device mesh and
-`shard_fused`, the speculative search, chunked execution, checkpoint/resume
-and `prewarm` (eager PyTorch compiles nothing per bucket shape).
+`shard_fused`, the combined (scenarios, grid) mesh problem, the speculative
+search, chunked execution, checkpoint/resume and `prewarm` (eager PyTorch
+compiles nothing per bucket shape).
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from vch_tpu_torch.control.prox import calculate_gradient, proximal_step
 from vch_tpu_torch.control.targets import build_targets_2d
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
+from vch_tpu_torch.models.lowmem import FusedLowMemBatch2D, LowMemPipeline2D
+from vch_tpu_torch.models.timegrid import build_dt_schedule
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -41,13 +49,17 @@ class ScenarioBatch:
 
     phi0: Array          # (B, Nx+1, Ny+1)
     phi_T: Array         # (B, Nx+1, Ny+1)
-    phi_Q: Array         # (B, M+1, Nx+1, Ny+1)
+    phi_Q: Optional[Array]   # (B, M+1, Nx+1, Ny+1), or None: procedural
     b1: Array            # (B,)
     b2: Array
     b3: Array
     kappa_spar: Array
     u_min: float = -1.0
     u_max: float = 1.0
+    # the procedural tracking target when phi_Q is None: "ramp" (the time
+    # ramp phi0 -> phi_T, choice_q=1) or "zeros" (choice_q=2), synthesized
+    # per segment by the low-memory problem instead of stored
+    phi_Q_mode: Optional[str] = None
 
     @property
     def batch(self) -> int:
@@ -57,9 +69,12 @@ class ScenarioBatch:
 def sweep_2d(fwd_config: ForwardSolverConfig2D,
              opt_config: Optional[OptimizationConfig] = None,
              b3_values=None, kappa_values=None,
-             choice_t: int = 1, choice_q: int = 1) -> ScenarioBatch:
+             choice_t: int = 1, choice_q: int = 1,
+             materialize_phi_Q: bool = True) -> ScenarioBatch:
     """(b3, kappa_spar) grid sweep with the default IC and targets, as
-    numpy arrays (vch_tpu/parallel/batch.py:131-162)."""
+    numpy arrays (vch_tpu/parallel/batch.py:131-162). With
+    materialize_phi_Q=False no tracking-target frames are stored: phi_Q is
+    None and phi_Q_mode names its closed form."""
     opt = opt_config or OptimizationConfig.defaults_2d()
     solver = ForwardSolver2D(fwd_config)
     phi0 = solver.default_initial_phi()
@@ -74,10 +89,13 @@ def sweep_2d(fwd_config: ForwardSolverConfig2D,
     B = g_b3.size
     rep = lambda a: np.broadcast_to(a, (B,) + a.shape).copy()
     return ScenarioBatch(
-        phi0=rep(phi0), phi_T=rep(phi_T), phi_Q=rep(phi_Q),
+        phi0=rep(phi0), phi_T=rep(phi_T),
+        phi_Q=rep(phi_Q) if materialize_phi_Q else None,
         b1=np.full(B, opt.b1), b2=np.full(B, opt.b2),
         b3=g_b3.ravel(), kappa_spar=g_ks.ravel(),
-        u_min=opt.u_min, u_max=opt.u_max)
+        u_min=opt.u_min, u_max=opt.u_max,
+        phi_Q_mode=None if materialize_phi_Q
+        else ("ramp" if choice_q == 1 else "zeros"))
 
 
 def straggler_bucket(n_search: int, B: int) -> Optional[int]:
@@ -93,36 +111,47 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
+def _tmap(fn, *trees):
+    """fn over matching tensors of None, a tensor, or a NamedTuple of
+    tensors (the low-memory problem's state)."""
+    if trees[0] is None:
+        return None
+    if isinstance(trees[0], tuple):
+        return type(trees[0])(*[fn(*ts) for ts in zip(*trees)])
+    return fn(*trees)
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-class BatchedProblem2D:
-    """Batched 2D PGD on one device."""
+class _BatchedPGDBase:
+    """The batched PGD loop on one device: `run`, the masked `_search`
+    and the bucket ladder (vch_tpu/parallel/batch.py:_BatchedPGDBase).
+    A subclass sets `solver` (a ForwardSolver2D) before calling __init__
+    and supplies the hooks
+      _forward_stats(u, phi0, phi_Q, phi_T) -> (phi, newton_solves (B,)),
+      _adjoint(phi, u, b1, b2, phi_Q, phi_T) -> r (B, M+1, ...),
+      _cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks) -> (B,),
+    where phi is whatever the subclass's forward keeps per member: a tensor
+    or a NamedTuple of tensors, each with a leading batch axis."""
 
-    def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
-                 settings: Optional[PGDSettings] = None,
-                 alpha_max: float = 50.0, device=None):
-        self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
-        self.device = torch.device(device if device is not None else "cpu")
-        self.solver = ForwardSolver2D(cfg, device=self.device)
-        self.adj = AdjointSolver2D(cfg, device=self.device)
+    def __init__(self, settings: Optional[PGDSettings], alpha_max: float):
+        cfg = self.solver.config
+        self.device = self.solver.dts.device
         self.dtype = self.solver.dtype
         self.s = settings or PGDSettings.defaults_2d()
         self.alpha_max = alpha_max
         self.straggler_rounds = 0
-        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
-                                         device=self.device)
-        self._x = as_t(self.solver.x)
-        self._y = as_t(self.solver.y)
-        self._t = as_t(self.solver.t_hist)
         self._control_shape = (self.solver.M + 1, cfg.Nx + 1, cfg.Ny + 1)
 
-    # ---- whole-batch pieces ----
-    def _cost(self, phi, u, phi_Q, phi_T, b1, b2, b3, ks):
-        return calculate_cost_2d(phi, u, phi_Q, phi_T, self._x, self._y,
-                                 self._t, b1, b2, b3, ks)
+    def _set_phi_Q_mode(self, mode: Optional[str]):
+        """Procedural tracking targets (ScenarioBatch.phi_Q None) need a
+        problem that synthesizes them; this one needs phi_Q stored."""
+        raise ValueError(
+            "ScenarioBatch.phi_Q=None (procedural targets) is supported by "
+            "LowMemBatchedProblem2D only; pass a materialized phi_Q here")
 
     def _trial(self, u, r, alpha, phi0, phi_Q, phi_T, b1, b2, b3, ks):
         """prox -> forward march -> cost for a (sub-)batch; returns
@@ -130,7 +159,7 @@ class BatchedProblem2D:
         grad = calculate_gradient(r, u, _bcast(b3, u))
         u_t = proximal_step(u, grad, _bcast(alpha, u), _bcast(ks, u),
                             self.u_min, self.u_max)
-        phi_t, nsolve, _bad = self.solver.march_fused_batch(u_t, phi0)
+        phi_t, nsolve = self._forward_stats(u_t, phi0, phi_Q, phi_T)
         c_t = self._cost(phi_t, u_t, phi_Q, phi_T, b1, b2, b3, ks)
         return u_t, phi_t, c_t, int(nsolve.sum())
 
@@ -176,7 +205,7 @@ class BatchedProblem2D:
                     np.nonzero(searching)[0],
                     np.nonzero(~searching)[0][: sb_j - n_search]])
                 it = torch.as_tensor(idx, device=self.device)
-                g = lambda a: a.index_select(0, it)
+                g = lambda a: _tmap(lambda x: x.index_select(0, it), a)
                 u_t, phi_t, c_t, ns = self._trial(
                     g(u), g(r), as_t(alpha_try[idx]), g(phi0), g(phi_Q),
                     g(phi_T), g(b1), g(b2), g(b3), g(ks))
@@ -186,10 +215,11 @@ class BatchedProblem2D:
                 ok[idx] = c_sub < cost_np[idx]
                 take = searching & (ok | last)
                 tk = torch.as_tensor(take[idx], device=self.device)
-                res = tuple(
-                    full.index_copy(0, it, torch.where(_bcast(tk, sub), sub,
-                                                       full.index_select(0, it)))
-                    for full, sub in zip(res, (u_t, phi_t, c_t)))
+                put = lambda full, sub: full.index_copy(
+                    0, it, torch.where(_bcast(tk, sub), sub,
+                                       full.index_select(0, it)))
+                res = tuple(_tmap(put, full, sub)
+                            for full, sub in zip(res, (u_t, phi_t, c_t)))
             else:
                 u_t, phi_t, c_t, ns = self._trial(
                     u, r, as_t(alpha_try), phi0, phi_Q, phi_T, b1, b2, b3, ks)
@@ -201,7 +231,9 @@ class BatchedProblem2D:
                     res = (u_t, phi_t, c_t)
                 else:
                     tk = torch.as_tensor(take, device=self.device)
-                    res = tuple(torch.where(_bcast(tk, new), new, old)
+                    pick = lambda new, old: torch.where(_bcast(tk, new), new,
+                                                        old)
+                    res = tuple(_tmap(pick, new, old)
                                 for new, old in zip((u_t, phi_t, c_t), res))
             res_alpha = np.where(take, np.where(ok, alpha_try, nxt), res_alpha)
             n_trials = np.where(searching, j + 1, n_trials)
@@ -221,16 +253,20 @@ class BatchedProblem2D:
             verbose: bool = True):
         """Vectorized PGD over the batch (vch_tpu/parallel/batch.py:819-1006).
 
-        Returns a dict: u, r, phi (tensors on the problem's device),
-        cost_history (max_iter+1, B), alpha, converged, iterations,
-        newton_solves (forward Newton linear solves, padding rows
-        included), timers (backward / optimistic / backtracking split),
-        advisor_alpha and ls_trials."""
+        Returns a dict: u, r, phi (on the problem's device; phi is what
+        the problem keeps per member), cost_history (max_iter+1, B), alpha,
+        converged, iterations, newton_solves (forward Newton linear solves,
+        padding rows included), timers (backward / optimistic /
+        backtracking split), advisor_alpha and ls_trials."""
         dev = self.device
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=dev)
         B = scenarios.batch
-        phi0, phi_T, phi_Q = (as_t(scenarios.phi0), as_t(scenarios.phi_T),
-                              as_t(scenarios.phi_Q))
+        phi0, phi_T = as_t(scenarios.phi0), as_t(scenarios.phi_T)
+        if scenarios.phi_Q is None:
+            self._set_phi_Q_mode(scenarios.phi_Q_mode)
+            phi_Q = None
+        else:
+            phi_Q = as_t(scenarios.phi_Q)
         b1, b2 = as_t(scenarios.b1), as_t(scenarios.b2)
         b3, ks = as_t(scenarios.b3), as_t(scenarios.kappa_spar)
         self.u_min, self.u_max = scenarios.u_min, scenarios.u_max
@@ -241,7 +277,7 @@ class BatchedProblem2D:
         t_run0 = time.perf_counter()
         u = torch.zeros((B,) + self._control_shape, dtype=self.dtype,
                         device=dev)
-        phi, ns0, _bad = self.solver.march_fused_batch(u, phi0)
+        phi, ns0 = self._forward_stats(u, phi0, phi_Q, phi_T)
         newton_solves = int(ns0.sum())
         cost = self._cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks)
         cost_hist = [cost.cpu().numpy()]
@@ -257,7 +293,7 @@ class BatchedProblem2D:
 
         for k in range(max_iter):
             t0 = time.perf_counter()
-            r = self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+            r = self._adjoint(phi, u, b1, b2, phi_Q, phi_T)
             _sync(dev)
             timers["backward_total"] += time.perf_counter() - t0
             alpha_prev = alpha.copy()
@@ -295,7 +331,7 @@ class BatchedProblem2D:
                 break
 
         if r is None:
-            r = self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+            r = self._adjoint(phi, u, b1, b2, phi_Q, phi_T)
         _sync(dev)
         timers["total_optimization"] = time.perf_counter() - t_run0
         advisor_alpha = np.where(advisor_cnt > 0,
@@ -310,10 +346,117 @@ class BatchedProblem2D:
         }
 
 
+class BatchedProblem2D(_BatchedPGDBase):
+    """Batched 2D PGD on one device, keeping each member's trajectory."""
+
+    def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
+                 settings: Optional[PGDSettings] = None,
+                 alpha_max: float = 50.0, device=None):
+        self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
+        device = torch.device(device if device is not None else "cpu")
+        self.solver = ForwardSolver2D(cfg, device=device)
+        self.adj = AdjointSolver2D(cfg, device=device)
+        super().__init__(settings, alpha_max)
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
+        self._x = as_t(self.solver.x)
+        self._y = as_t(self.solver.y)
+        self._t = as_t(self.solver.t_hist)
+
+    def _forward_stats(self, u, phi0, phi_Q, phi_T):
+        phi, nsolve, _bad = self.solver.march_fused_batch(u, phi0)
+        return phi, nsolve
+
+    def _adjoint(self, phi, u, b1, b2, phi_Q, phi_T):
+        return self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+
+    def _cost(self, phi, u, phi_Q, phi_T, b1, b2, b3, ks):
+        return calculate_cost_2d(phi, u, phi_Q, phi_T, self._x, self._y,
+                                 self._t, b1, b2, b3, ks)
+
+
+class LowMemBatchedProblem2D(_BatchedPGDBase):
+    """Batched 2D PGD that never keeps a trajectory
+    (vch_tpu/parallel/batch.py:1290-1374): the "phi" slot of the PGD loop
+    holds a models.lowmem.LowMemState (the K-step segment checkpoints, the
+    final state and the J1 accumulator), trials are costed from the
+    accumulator, and the adjoint recomputes each segment from its
+    checkpoint. Every segment is one segment-kernel launch."""
+
+    def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
+                 K: int = 10, settings: Optional[PGDSettings] = None,
+                 alpha_max: float = 50.0, device=None):
+        self.fwd_config = fwd_config or ForwardSolverConfig2D()
+        device = torch.device(device if device is not None else "cpu")
+        self.pipe = LowMemPipeline2D(self.fwd_config, K=K, device=device)
+        self.solver, self.adj = self.pipe.solver, self.pipe.adjoint
+        self._fused = FusedLowMemBatch2D(self.pipe)
+        super().__init__(settings, alpha_max)
+
+    def _set_phi_Q_mode(self, mode: Optional[str]):
+        if mode not in ("ramp", "zeros"):
+            raise ValueError(f"phi_Q=None requires phi_Q_mode in "
+                             f"('ramp', 'zeros'); got {mode!r}")
+        self.pipe.core.phi_Q_mode = mode
+
+    def _forward_stats(self, u, phi0, phi_Q, phi_T):
+        return self._fused.forward(u, phi0, phi_Q, phi_T)
+
+    def _adjoint(self, state, u, b1, b2, phi_Q, phi_T):
+        return self._fused.adjoint_r(state, u, phi_Q, b1, b2, phi_T)
+
+    def _cost(self, state, u, phi_Q, phi_T, b1, b2, b3, ks):
+        return self.pipe.core.cost(state, u, phi_T, b1, b2, b3, ks)
+
+
+# Peak device memory of BatchedProblem2D.run: FULL_MEMORY_PEAK_PER_S
+# trajectory-shaped arrays S = B (M+1) (Nx+1) (Ny+1) x bytes with phi_Q
+# stored (one S less without), plus the march kernel's workspace of
+# MARCH_WORKSPACE_FIELDS (Nx+1, Ny+1) fields per member, which does not grow
+# with M (csrc/common.cuh FWD_FIELDS). Measured on an H100 80GB at config 4
+# (chip_smoke.py phase 7; PERF.md section 6): 14.10 S at B = 64 and 14.06 S
+# at B = 128 with M = 100, i.e. 13.77 S besides the workspace's 0.33 S;
+# rounded up.
+FULL_MEMORY_PEAK_PER_S = 13.8
+MARCH_WORKSPACE_FIELDS = 33
+
+
+def full_memory_estimate_bytes(cfg: ForwardSolverConfig2D, batch: int,
+                               materialized_phi_Q: bool = True) -> int:
+    """Estimated peak device memory of BatchedProblem2D.run."""
+    M = len(build_dt_schedule(cfg.T, cfg.dt_initial))
+    field = batch * (cfg.Nx + 1) * (cfg.Ny + 1) * (
+        8 if cfg.dtype == "float64" else 4)
+    per_s = FULL_MEMORY_PEAK_PER_S - (0 if materialized_phi_Q else 1)
+    return int(per_s * (M + 1) * field + MARCH_WORKSPACE_FIELDS * field)
+
+
+def make_batched_problem_2d(fwd_config: Optional[ForwardSolverConfig2D] = None,
+                            batch: int = 1, materialized_phi_Q: bool = True,
+                            hbm_limit_bytes: Optional[int] = None,
+                            safety: float = 0.75, K: int = 10, device=None,
+                            **kwargs):
+    """The full-memory or the segment-checkpointed batched 2D problem, by
+    estimated peak device memory (vch_tpu/parallel/batch.py:1185-1287,
+    single-device arms): LowMemBatchedProblem2D when the full-memory
+    estimate (full_memory_estimate_bytes) exceeds safety * limit, else BatchedProblem2D. The limit is
+    hbm_limit_bytes if given, else the total memory of the CUDA device, or
+    16 GiB for a CPU device."""
+    cfg = fwd_config or ForwardSolverConfig2D()
+    device = torch.device(device if device is not None else "cpu")
+    est = full_memory_estimate_bytes(cfg, batch, materialized_phi_Q)
+    if hbm_limit_bytes is None:
+        hbm_limit_bytes = (torch.cuda.get_device_properties(device).total_memory
+                           if device.type == "cuda" else 16 * 2**30)
+    if est > safety * hbm_limit_bytes:
+        return LowMemBatchedProblem2D(cfg, K=K, device=device, **kwargs)
+    return BatchedProblem2D(cfg, device=device, **kwargs)
+
+
 def tile_batch(sc: ScenarioBatch, B: int) -> ScenarioBatch:
     """Repeat a sweep's members to exactly B (bench.py:112-118)."""
     reps = -(-B // sc.batch)
-    tile = lambda a: np.concatenate([np.asarray(a)] * reps, axis=0)[:B]
+    tile = lambda a: (None if a is None else
+                      np.concatenate([np.asarray(a)] * reps, axis=0)[:B])
     return dataclasses.replace(
         sc, phi0=tile(sc.phi0), phi_T=tile(sc.phi_T), phi_Q=tile(sc.phi_Q),
         b1=tile(sc.b1), b2=tile(sc.b2), b3=tile(sc.b3),

@@ -33,16 +33,16 @@ def scenario_batch_from_numpy(sc, dtype=torch.float64,
                               device=None) -> ScenarioBatch:
     """The port's ScenarioBatch, as tensors, from any object with vch_tpu's
     ScenarioBatch attributes (phi0, phi_T, phi_Q, b1, b2, b3, kappa_spar,
-    u_min, u_max). Procedural targets (phi_Q None) are not supported."""
-    if sc.phi_Q is None:
-        raise ValueError("scenario batches with procedural phi_Q are not "
-                         "supported by the port yet")
+    u_min, u_max, and phi_Q_mode when phi_Q is None)."""
     conv = lambda a: _t(a, dtype, device)
+    procedural = sc.phi_Q is None
     return ScenarioBatch(
-        phi0=conv(sc.phi0), phi_T=conv(sc.phi_T), phi_Q=conv(sc.phi_Q),
+        phi0=conv(sc.phi0), phi_T=conv(sc.phi_T),
+        phi_Q=None if procedural else conv(sc.phi_Q),
         b1=conv(sc.b1), b2=conv(sc.b2), b3=conv(sc.b3),
         kappa_spar=conv(sc.kappa_spar), u_min=float(sc.u_min),
-        u_max=float(sc.u_max))
+        u_max=float(sc.u_max),
+        phi_Q_mode=sc.phi_Q_mode if procedural else None)
 
 
 def config_from_vch_tpu(d: Mapping) -> ForwardSolverConfig2D:
