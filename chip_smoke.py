@@ -20,6 +20,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                and K = 10 at phase 6's grid n = 257, B = 2, each launch
                against its plain version and the chain against the whole
                march and sweep;
+  2c kernels — the four per-solve kernels (spectral and raw Schur and
+               adjoint solves) against their plain versions on inputs from a
+               real step at n = 65, 129 and 257, one solve and a batch of 4,
+               gated against float64, with kernel and plain CUDA-event times;
   3 slice    — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep
                with one member per CTA, kernel path against plain path,
                3 PGD iterations;
@@ -27,6 +31,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                and LowMemBatchedProblem2D with K = 4, each kernel path
                against its plain path, and the low-memory kernel path
                against the full-memory one;
+  3c control — ControlProblem2D at 32x32, T = 0.25 (the golden config's
+               grid), float32, 3 PGD iterations, kernel path against plain
+               path, once with each pallas_variant;
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
                one warm-up iteration, then 3 timed PGD iterations with the
                kernel launch counters reset just before (per-member kernels);
@@ -40,7 +47,11 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   7 memory   — peak device memory of the full-memory problem at config 4's
                grid, B = 64 and 128 at T = 1 and B = 128 at T = 0.1, over S
                (one trajectory-shaped array) and over the estimate
-               make_batched_problem_2d routes by, which it must not exceed.
+               make_batched_problem_2d routes by, which it must not exceed;
+  8 config 3 — this slice's main path: BASELINE config 3 (64x64, T = 1,
+               M = 100, float32) through ControlProblem2D: constructor,
+               one warm-up and 3 timed PGD iterations, verify_sparsity and
+               second_order_check, launches counted in each window.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -521,6 +532,342 @@ def check_segment_case(c, short: bool):
         raise RuntimeError(f"segment chain {tag}: " + "; ".join(fails))
 
 
+SOLVE_KERNELS = ("bicgstab_schur_spectral", "bicgstab_schur",
+                 "bicgstab_adjoint_spectral", "bicgstab_adjoint")
+
+
+def _solve_call(name, ops, fields, scal, fn, n_iter=None):
+    """One call of a per-solve kernel entry (wrapper or plain version) on
+    the arguments of _solve_args; n_iter defaults to the solver's trips
+    (krylov_fixed_iters 4 for the Schur solves, adjoint_krylov_fixed_iters
+    5 for the adjoint ones)."""
+    kind = "schur" if "schur" in name else "adjoint"
+    mats = ((ops.Vx_inv, ops.Vy_inv_T, ops.Vx, ops.VyT, ops.lam)
+            if "spectral" in name
+            else (ops.Lx, ops.LyT, ops.Vx_inv, ops.Vy_inv_T, ops.Vx, ops.VyT))
+    vals, trips = scal[kind]
+    return fn(*mats, *fields[kind], *vals,
+              n_iter=trips if n_iter is None else n_iter)
+
+
+def _solve_args(torch, device, n, B, seed=0):
+    """The per-solve kernels' arguments from a real step: B members
+    marched two steps (T = 0.02) from seeded ICs under a seeded control by
+    the march kernel; from the float32 history, formed in float64, the Schur
+    solve of a Newton iteration of the last step (its residual at phi_M
+    with mu from the energy gradient) and the adjoint solve of the sweep's
+    last step (the terminal p as rhs source and warm start). Returns the
+    operators and fields in float32 and float64 and the scalars; B = None
+    gives one (n, n) solve (member 0)."""
+    from vch_tpu_torch.config import DELTA_SEP
+    from vch_tpu_torch.models.forward2d import (mu_residual_2d,
+                                                phi_residual_2d)
+    from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
+    from vch_tpu_torch.ops.potential import fpp_log
+
+    solvers, x, x64 = _problem_inputs(torch, n, B or 1, 0.02, device, seed)
+    (fwd, _), (fwd64, adj64) = solvers["float32"], solvers["float64"]
+    hist, _, _ = fwd.march_fused_batch(x["u"], x["phi0"])
+    h = hist.double()
+    cfg, ops, M = fwd64.config, fwd64.op, fwd64.M
+    dt = float(fwd64.dts[-1])
+    lap = lambda v: apply_laplacian_2d(ops.Lx, ops.LyT, v)
+    mean = lambda v: v.mean(dim=(-2, -1), keepdim=True)
+    zero = torch.zeros_like(h[:, M])
+    phi, phi_old = h[:, M], h[:, M - 1]
+    mu, mu_old = fwd64.initialize_mu(phi, zero), fwd64.initialize_mu(
+        phi_old, zero)
+    Rphi = phi_residual_2d(ops, phi, phi_old, mu, mu_old, zero, zero, dt,
+                           cfg.tau, cfg.c1, cfg.c2, cfg.kappa, DELTA_SEP)
+    Rmu = mu_residual_2d(ops, phi, phi_old, mu, mu_old, dt)
+    d = 2.0 * cfg.c1 / (1.0 - torch.clamp(phi * phi, 0.0,
+                                          1.0 - DELTA_SEP ** 2))
+    denom = (1.0 / dt + 0.5 * cfg.kappa * ops.lam ** 2
+             - (cfg.tau / dt + mean(d)) * ops.lam)
+    p, _, _ = adj64.terminal(phi, x64["phiT"], x64["b2"])
+    half = 0.5 * dt
+    fpp_n, fpp_np1 = (fpp_log(v, cfg.c1, cfg.c2) for v in (phi_old, phi))
+    w1 = lap(p)
+    src = (phi_old - x64["phiQ"][:, M - 1]) + (phi - x64["phiQ"][:, M])
+    rhs_a = (p - cfg.tau * w1 - half * lap(w1) + half * fpp_np1 * w1
+             + half * x64["b1"].reshape(-1, 1, 1) * src)
+    dena = (1.0 - cfg.tau * ops.lam + half * ops.lam ** 2
+            - half * mean(fpp_n) * ops.lam)
+    f64 = dict(schur=(denom, d, lap(Rphi) - Rmu),
+               adjoint=(torch.rsqrt(torch.abs(dena)), fpp_n, rhs_a, p))
+    pick = (lambda t: t.contiguous()) if B else (lambda t: t[0].contiguous())
+    f64 = {k: tuple(pick(t) for t in v) for k, v in f64.items()}
+    f32 = {k: tuple(t.float() for t in v) for k, v in f64.items()}
+    scal = dict(schur=((1.0 / dt, cfg.tau / dt, 0.5 * cfg.kappa),
+                       cfg.krylov_fixed_iters),
+                adjoint=((cfg.tau, half), cfg.adjoint_krylov_fixed_iters))
+    return fwd.op, fwd64.op, f32, f64, scal
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the FP32 peak and
+    bytes over the memory rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _solve_work(name, n, B, trips):
+    """(FLOPs, bytes) of one launch of a per-solve kernel on B members of
+    an (n, n) grid running `trips` trips each: 2 n^3 FLOP per dense product
+    (the elementwise work is left out), each input read and each output
+    written once."""
+    P = 2.0 * n ** 3
+    products = {"bicgstab_schur_spectral": 4 + 8 * trips,
+                "bicgstab_schur": 16 * trips,
+                "bicgstab_adjoint_spectral": 10 + 8 * trips,
+                "bicgstab_adjoint": 24 + 24 * trips}[name]
+    fields = 3 if "schur" in name else 4             # per member, in
+    mats = 5 if "spectral" in name else 6            # shared, (n, n)
+    nbytes = 4 * n * n * (B * (fields + 1) + mats)
+    return P * products * B, nbytes
+
+
+def _march_work(n, B, M, newton, n_trips, segment=False):
+    """(FLOPs, bytes) of a march launch over M steps: per step 8 products
+    (two Laplacians of the old level, the first residual), per Newton
+    iteration 8 + 8 n_trips (the Schur solve) + 4 (one Armijo trial's
+    residual, the fewest there can be); Krylov trips counted in full (a
+    freeze is not observed from outside the kernel). Bytes in: u, phi0
+    (segment: and the mu, w carry), dts, the eight operator fields; out:
+    the history (segment: and the final phi, mu, w)."""
+    P = 2.0 * n ** 3
+    flops = P * (B * M * 8 + newton * (12 + 8 * n_trips))
+    fields = B * ((M + 1) + 3 + M + 3 if segment else 2 * (M + 1) + 1)
+    return flops, 4 * (n * n * (fields + 8) + M + 3 * B)
+
+
+def _adjoint_work(n, B, M, n_trips, segment=False):
+    """(FLOPs, bytes) of a sweep launch over M steps: per step 16 + 8
+    n_trips products (the rhs's two Laplacians, the rhs and warm-start
+    transforms, r0's apply, the trips, p's synthesis and q's Laplacian),
+    plus the terminal solve's 6 (whole sweep); trips in full. Bytes in: the
+    history and phi_Q, phi_T (segment: the p, q, r carry), b1, b2, dts, the
+    seven operator fields; out: r (segment: and the carry)."""
+    P = 2.0 * n ** 3
+    flops = P * B * (M * (16 + 8 * n_trips) + (0 if segment else 6))
+    fields = B * (2 * (M + 1) + 3 + M + 3 if segment
+                  else 2 * (M + 1) + 1 + M + 1)
+    return flops, 4 * (n * n * (fields + 7) + M + 2 * B)
+
+
+def solve_case(torch, device, n, B, reps=20):
+    """Phase 2c at one shape: each per-solve kernel against its plain
+    version on the same float32 inputs from a real step, both against the
+    plain version in float64; CUDA-event ms of the kernel and of the plain
+    version; for one (n, n) solve also the trips the kernel runs on these
+    inputs (ops.solve_kernels.solve_trips)."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
+    out = dict(n=n, B=B or 1, batched=B is not None)
+    for name in SOLVE_KERNELS:
+        wrapper, plain = getattr(sk, name), getattr(sk, name + "_plain")
+        k = _solve_call(name, ops32, f32, scal, wrapper)
+        p = _solve_call(name, ops32, f32, scal, plain)
+        p64 = _solve_call(name, ops64, f64, scal, plain)
+        torch.cuda.synchronize()
+        c = dict(finite=bool(torch.isfinite(k).all()),
+                 max_abs_err=(k - p).abs().max().item(),
+                 rel_kernel_vs_plain=_rel(k, p, p),
+                 rel_kernel_vs_f64=_rel(k, p64, p64),
+                 rel_plain_vs_f64=_rel(p, p64, p64),
+                 ms=_time_ms(torch, lambda: _solve_call(
+                     name, ops32, f32, scal, wrapper), reps),
+                 plain_ms=_time_ms(torch, lambda: _solve_call(
+                     name, ops32, f32, scal, plain), reps))
+        if B is None:
+            c["trips"] = int(_solve_call(
+                name, ops32, f32, scal,
+                lambda *a, n_iter: sk.solve_trips(name, *a, n_iter=n_iter)))
+        out[name] = c
+    return out
+
+
+def check_solve_case(c):
+    """Phase 2c gates, the float64-referenced pattern of phase 2b: each
+    kernel's float32 result no farther from the float64 plain version than
+    twice the plain float32 version is, plus 1e-5 (about a hundred float32
+    ulps, so that a plain result that happens to sit very close to float64
+    does not fail a kernel summing in another order), and finite."""
+    fails = []
+    for name in SOLVE_KERNELS:
+        k = c[name]
+        if not k["finite"]:
+            fails.append(f"{name}: non-finite output")
+        if k["rel_kernel_vs_f64"] > 2 * k["rel_plain_vs_f64"] + 1e-5:
+            fails.append(f"{name}: {k['rel_kernel_vs_f64']} from float64, "
+                         f"plain float32 {k['rel_plain_vs_f64']}")
+    if fails:
+        raise RuntimeError(f"solve kernels n={c['n']} B={c['B']}: "
+                           + "; ".join(fails))
+
+
+def _control_problem(device, cfg):
+    from vch_tpu_torch.config import OptimizationConfig
+    from vch_tpu_torch.control.problems import ControlProblem2D
+    return ControlProblem2D(cfg, OptimizationConfig.defaults_2d(),
+                            device=device)
+
+
+def control_slice(torch, device, variant, n=32, T=0.25, iters=3):
+    """Phase 3c: ControlProblem2D at the golden config's grid and horizon in
+    float32, kernel path against plain path, for one pallas_variant. The
+    kernel run counts launches from its constructor on (the baseline march
+    is where the Schur kernel runs); the plain run swaps the solvers'
+    entries to the plain versions and redoes the baseline on them."""
+    from vch_tpu_torch.ops import march as km
+
+    cfg = _config(n, T=T, pallas_variant=variant)
+    runs = {}
+    for path in ("kernel", "plain"):
+        km.reset_launches()
+        prob = _control_problem(device, cfg)
+        if path == "plain":
+            prob.solver.entries = prob.adjoint.entries = km.PLAIN
+            prob.phi_hist0 = prob.solver.simulate(initial_phi=prob.phi0)[0]
+            prob.newton_solves = prob.solver.last_stats.newton_solves
+            km.reset_launches()
+        t0 = time.perf_counter()
+        res = prob.optimize(max_iter=iters, verbose=False)
+        runs[path] = (res, prob.newton_solves, time.perf_counter() - t0,
+                      km.launch_counts())
+    (kr, kn, kt, kl), (pr, pn, pt, pl) = runs["kernel"], runs["plain"]
+    c0, c1 = np.asarray(pr.cost_history), np.asarray(kr.cost_history)
+    return dict(variant=variant, n=n, M=prob.solver.M, iters=iters,
+                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+                cost_history=c1.tolist(), newton_kernel=kn, newton_plain=pn,
+                ls_trials_kernel=kr.ls_trials_per_iter,
+                ls_trials_plain=pr.ls_trials_per_iter,
+                kernel_s=kt, plain_s=pt, launches=kl, plain_launches=pl,
+                finite=bool(np.isfinite(c1).all()))
+
+
+def check_control_slice(c):
+    """Phase 3c gates: costs finite, the kernel path's cost history within
+    2e-4 relative of the plain path's (float32 sums in another order),
+    Newton solves within 1%, the variant's per-solve kernels and the march
+    kernel launched on the kernel path, nothing launched on the plain
+    path."""
+    schur, adj = (("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
+                  if c["variant"] == "spectral"
+                  else ("bicgstab_schur", "bicgstab_adjoint"))
+    fails = [f"{k} never launched" for k in (schur, adj, "march_fused_2d")
+             if c["launches"][k] <= 0]
+    fails += [f"plain path launched {k}"
+              for k, v in c["plain_launches"].items() if v]
+    if not c["finite"] or c["rel_cost"] > 2e-4:
+        fails.append(f"cost history vs plain {c['rel_cost']}")
+    if abs(c["newton_kernel"] - c["newton_plain"]) > 0.01 * c["newton_plain"]:
+        fails.append(f"Newton solves {c['newton_kernel']} vs "
+                     f"{c['newton_plain']}")
+    if fails:
+        raise RuntimeError(f"control slice {c['variant']}: " + "; ".join(fails)
+                           + f" | {c}")
+
+
+def config3_run(torch, device, iters=3):
+    """Phase 8, the slice's main path: BASELINE config 3 (64x64, T = 1,
+    M = 100, float32, newton_tol 2e-4, the 2D optimizer defaults) through
+    ControlProblem2D on the card: the constructor (baseline march, the
+    per-step marcher on the spectral Schur kernel), one warm-up PGD
+    iteration, then `iters` timed ones, then the reference program's closing
+    checks (verify_sparsity, second_order_check with 5 directions); every
+    launch count reset to 0 before each of the four and read after it."""
+    from vch_tpu_torch.ops import march as km
+
+    cfg = _config(64)
+    windows = {}
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        km.reset_launches()
+        n0 = prob.newton_solves if name != "constructor" else 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        windows[name] = dict(s=time.perf_counter() - t0,
+                             launches=km.launch_counts())
+        return out, n0
+
+    prob = None
+    prob, _ = window("constructor", lambda: _control_problem(device, cfg))
+    windows["constructor"]["newton_solves"] = prob.newton_solves
+    window("warmup", lambda: prob.optimize(max_iter=1, verbose=False))
+    torch.cuda.reset_peak_memory_stats(device)
+    res, n0 = window("timed", lambda: prob.optimize(max_iter=iters,
+                                                    verbose=False))
+    windows["timed"]["newton_solves"] = prob.newton_solves - n0
+    peak = torch.cuda.max_memory_allocated(device)
+    (sparsity, d2), _ = window("checks", lambda: (
+        prob.verify_sparsity(res, verbose=False),
+        prob.second_order_check(res, num_directions=5)))
+    ch = np.asarray(res.cost_history)
+    t = windows["timed"]
+    return dict(n=prob.solver.config.Nx, M=prob.solver.M, iters=iters,
+                pgd_iters_per_s=iters / t["s"], elapsed_s=t["s"],
+                constructor_s=windows["constructor"]["s"],
+                warmup_s=windows["warmup"]["s"],
+                timers={k: v for k, v in res.timers.items()},
+                ls_trials=res.ls_trials_per_iter,
+                newton_solves=t["newton_solves"],
+                constructor_newton_solves=windows["constructor"][
+                    "newton_solves"],
+                cost_history=ch.tolist(), peak_bytes=peak,
+                sparsity={k: (float(v) if isinstance(v, (float, np.floating))
+                              else v) for k, v in sparsity.items()},
+                second_order=[float(v) for v in d2],
+                checks_s=windows["checks"]["s"],
+                launches={k: v["launches"] for k, v in windows.items()},
+                entries_are_kernels=(prob.solver.entries is km.KERNELS
+                                     and prob.adjoint.entries is km.KERNELS),
+                finite=bool(np.isfinite(ch).all()))
+
+
+def check_config3(c):
+    """Phase 8 gates: finite costs that fall; every Newton solve of the
+    baseline march launched the spectral Schur kernel; every step of every
+    sweep the spectral adjoint kernel (M per iteration); every line-search
+    trial the one-member march at B = 1, and the coercivity probe one march
+    over its 5 directions; nothing else launched, and the solvers on the
+    kernel entries (so no plain version ran: on CUDA tensors a kernel entry
+    launches or raises)."""
+    L = c["launches"]
+    expect = {
+        "constructor": {"bicgstab_schur_spectral":
+                        c["constructor_newton_solves"]},
+        "timed": {"bicgstab_adjoint_spectral": c["M"] * c["iters"],
+                  "march_fused_2d": sum(c["ls_trials"])},
+        "checks": {"march_fused_2d": 1},
+    }
+    fails = []
+    for window, want in expect.items():
+        for k, v in L[window].items():
+            if v != want.get(k, 0):
+                fails.append(f"{window}: {k} launched {v}, expected "
+                             f"{want.get(k, 0)}")
+    if not c["entries_are_kernels"]:
+        fails.append("solver entries are not the kernels")
+    ch = c["cost_history"]
+    if not c["finite"] or not ch[-1] < ch[0]:
+        fails.append("did not descend")
+    if not np.isfinite(c["second_order"]).all():
+        fails.append("non-finite second-order estimates")
+    if fails:
+        raise RuntimeError("config 3: " + "; ".join(fails) + f" | {c}")
+
+
 def _slice_sweep(cfg, materialize=True):
     from vch_tpu_torch.parallel.batch import sweep_2d
     return sweep_2d(cfg, b3_values=np.logspace(-6, 0, 4),
@@ -706,6 +1053,14 @@ def main():
     check_segment_case(seg, short=True)
     check_segment_case(seg257, short=False)
 
+    solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
+              for n in (65, 129, 257) for B in (None, 4)]
+    for c in solves:
+        _log("2c", json.dumps(c))
+    for c in solves:
+        check_solve_case(c)
+    s65 = solves[0]
+
     sl = slice_case(torch, device, block=0)
     _log(3, json.dumps(sl))
     sl_blk = slice_case(torch, device, block=8)
@@ -721,6 +1076,11 @@ def main():
             raise RuntimeError(f"slice kernel vs plain path: {s}")
     if low_vs_full > 2e-4:
         raise RuntimeError(f"low-memory vs full-memory slice: {low_vs_full}")
+    ctl = {v: control_slice(torch, device, v) for v in ("spectral", "raw")}
+    for c in ctl.values():
+        _log("3c", json.dumps(c))
+    for c in ctl.values():
+        check_control_slice(c)
 
     per_member = ("march_fused_2d", "adjoint_fused_2d")
     blocked = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked")
@@ -779,37 +1139,80 @@ def main():
         raise RuntimeError(f"measured peak above the chooser's estimate: "
                            f"{over}")
 
-    def entry(fn, source, replaces, launches, err, ms, plain_ms):
+    c3 = config3_run(torch, device)
+    _log(8, json.dumps(c3) + f" | {name} | {smi}")
+    check_config3(c3)
+
+    def entry(fn, source, replaces, launches, err, ms, plain_ms, work):
+        bound_ms, bound_by = _bound(*work)
+        # library_ms: no single PyTorch call computes a whole march, sweep
+        # or fixed-trip BiCGStab solve
         return {"name": fn, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
 
     mean = lambda v: float(np.mean(v))
     march_cu = "vch_tpu_torch/csrc/march2d.cu"
     adj_cu = "vch_tpu_torch/csrc/adjoint2d.cu"
+    solve_cu = "vch_tpu_torch/csrc/solve2d.cu"
     pm = "vch_tpu/ops/pallas_march.py"
+    pk = "vch_tpu/ops/pallas_kernels.py"
+    seg_newton = sum(seg257["newton_chain"]) / (seg257["M"] // seg257["K"])
+    trips_fwd = _config(64).fused_krylov_fixed_iters
+    trips_adj = _config(64).adjoint_krylov_fixed_iters
     kernels = [
         entry("march_fused_2d", march_cu, f"{pm}:393",
               c4["launches"]["march_fused_2d"], long["max_abs_dphi"],
-              long["march_ms"], long["march_plain_ms"]),
+              long["march_ms"], long["march_plain_ms"],
+              _march_work(long["n"], long["B"], long["M"],
+                          sum(long["newton_kernel"]), trips_fwd)),
         entry("adjoint_fused_2d", adj_cu, f"{pm}:751",
               c4["launches"]["adjoint_fused_2d"], long["max_abs_dr"],
-              long["adjoint_ms"], long["adjoint_plain_ms"]),
+              long["adjoint_ms"], long["adjoint_plain_ms"],
+              _adjoint_work(long["n"], long["B"], long["M"], trips_adj)),
         entry("march_fused_2d_blocked", march_cu, f"{pm}:1649",
               c5["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
-              mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"]),
+              mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"],
+              _march_work(blk8["n"], blk8["B"], blk8["M"],
+                          blk8["newton_blocked_total"], trips_fwd)),
         entry("adjoint_fused_2d_blocked", adj_cu, f"{pm}:1905",
               c5["launches"]["adjoint_fused_2d_blocked"], blk8["max_abs_dr"],
-              mean(blk8["adjoint_blocked_ms"]), blk8["adjoint_plain_ms"]),
+              mean(blk8["adjoint_blocked_ms"]), blk8["adjoint_plain_ms"],
+              _adjoint_work(blk8["n"], blk8["B"], blk8["M"], trips_adj)),
         entry("march_fused_2d_segment", march_cu, f"{pm}:479",
               c6["launches"]["march_fused_2d_segment"],
               seg257["max_abs_err_march"], seg257["march_ms"],
-              seg257["march_plain_ms"]),
+              seg257["march_plain_ms"],
+              _march_work(seg257["n"], seg257["B"], seg257["K"], seg_newton,
+                          trips_fwd, segment=True)),
         entry("adjoint_fused_2d_segment", adj_cu, f"{pm}:819",
               c6["launches"]["adjoint_fused_2d_segment"],
               seg257["max_abs_err_adjoint"], seg257["adjoint_ms"],
-              seg257["adjoint_plain_ms"]),
+              seg257["adjoint_plain_ms"],
+              _adjoint_work(seg257["n"], seg257["B"], seg257["K"], trips_adj,
+                            segment=True)),
     ]
+    # the per-solve kernels at config 3's shape (n = 65, one solve), their
+    # launches on their paths: the Schur solves of config 3's constructor,
+    # the adjoint solves of its timed run, the raw ones in phase 3c
+    L8 = c3["launches"]
+    solve_launches = {
+        "bicgstab_schur_spectral":
+            L8["constructor"]["bicgstab_schur_spectral"],
+        "bicgstab_adjoint_spectral":
+            L8["timed"]["bicgstab_adjoint_spectral"],
+        "bicgstab_schur": ctl["raw"]["launches"]["bicgstab_schur"],
+        "bicgstab_adjoint": ctl["raw"]["launches"]["bicgstab_adjoint"]}
+    lines = {"bicgstab_schur_spectral": 691, "bicgstab_schur": 233,
+             "bicgstab_adjoint_spectral": 798, "bicgstab_adjoint": 581}
+    for k in SOLVE_KERNELS:
+        c = s65[k]
+        kernels.append(entry(k, solve_cu, f"{pk}:{lines[k]}",
+                             solve_launches[k], c["max_abs_err"], c["ms"],
+                             c["plain_ms"],
+                             _solve_work(k, s65["n"], 1, c["trips"])))
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

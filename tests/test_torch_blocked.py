@@ -187,7 +187,8 @@ def test_solvers_route_blocked_only_when_the_batch_divides(batch, expect):
         interpret=True))
 
     spy = _Spy()
-    fwd, adj = ForwardSolver2D(cfg), AdjointSolver2D(cfg)
+    fwd = ForwardSolver2D(cfg, device="cpu")
+    adj = AdjointSolver2D(cfg, device="cpu")
     fwd.entries = adj.entries = spy.entries()
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
     th, tns, _ = fwd.march_fused_batch(t(u), t(phi0))
@@ -235,7 +236,8 @@ def test_segment_march_chain_matches_pallas_segment(name):
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=_t_dt(name))
     jops, tops = _jax_ops(op_np, name, wts), _torch_ops(op_np, name, wts)
     # the carry at t = 0 as the low-memory forward builds it
-    fwd = ForwardSolver2D(ForwardSolverConfig2D(Nx=N, Ny=N, T=T, dtype=name))
+    fwd = ForwardSolver2D(ForwardSolverConfig2D(Nx=N, Ny=N, T=T, dtype=name),
+                          device="cpu")
     tphi = t(phi0)
     tmu = fwd.initialize_mu(tphi, torch.zeros_like(tphi))
     tw = torch.zeros_like(tphi)
@@ -268,7 +270,8 @@ def test_segment_adjoint_chain_matches_pallas_segment(name):
     j = lambda a: jnp.asarray(a, _np_dt(name))
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=_t_dt(name))
     jops, tops = _jax_ops(op_np, name), _torch_ops(op_np, name)
-    adj = AdjointSolver2D(ForwardSolverConfig2D(Nx=N, Ny=N, T=T, dtype=name))
+    adj = AdjointSolver2D(ForwardSolverConfig2D(Nx=N, Ny=N, T=T, dtype=name),
+                          device="cpu")
     p, q, r = adj.terminal(t(hist[:, M]), t(phi_T), t(b2))
     jp, jq, jr_ = j(p.numpy()), j(q.numpy()), j(r.numpy())
     parts = []

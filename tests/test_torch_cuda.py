@@ -216,3 +216,92 @@ def test_blocked_wrappers_reject_unbuilt_and_indivisible_blocks(cuda):
             km.march_fused_2d_blocked(*args, block_b=block_b, **_KW)
     with pytest.raises(ValueError, match="B % block_b"):
         km.march_fused_2d_blocked(*args, block_b=4, **_KW)
+
+
+def _solve_inputs(device, dtype, n=65, B=4, seed=0):
+    """A Newton state and an adjoint step of B members on an (n, n) grid
+    (as tests/test_torch_solve.py builds them): the operators, the Schur
+    solve's (denom, d, rhs) and the adjoint solve's (isd, fpp, rhs, x0),
+    (n, n) fields when B is None."""
+    from vch_tpu_torch.ops.linsolve import make_spectral_op_2d, ops_2d
+    h = 1.0 / (n - 1)
+    ops = ops_2d(make_spectral_op_2d(n - 1, n - 1, h, h, dtype=dtype,
+                                     device=device))
+    rng = np.random.default_rng(seed)
+    lam = ops.lam.cpu().double().numpy()
+    sh = (B or 1, n, n)
+    dt, tau, c1, c2, kappa = 1e-2, 0.05, 0.75, 1.0, 1e-4
+    phi = np.clip(0.5 * rng.standard_normal(sh), -0.95, 0.95)
+    d = 2 * c1 / (1 - np.clip(phi * phi, 0, 1 - 1e-4))
+    denom = (1 / dt + 0.5 * kappa * lam ** 2
+             - (tau / dt + d.mean(axis=(1, 2), keepdims=True)) * lam)
+    fpp = 2 * c1 / (1 - phi * phi) - 2 * c2
+    dena = (1 - tau * lam + 0.5 * dt * lam ** 2
+            - 0.5 * dt * fpp.mean(axis=(1, 2), keepdims=True) * lam)
+    t = lambda a: torch.as_tensor(a if B else a[0], dtype=dtype,
+                                  device=device).contiguous()
+    fields = dict(schur=(t(denom), t(d), t(rng.standard_normal(sh))),
+                  adjoint=(t(1 / np.sqrt(np.abs(dena))), t(fpp),
+                           t(rng.standard_normal(sh)),
+                           t(rng.standard_normal(sh))))
+    scal = dict(schur=((1 / dt, tau / dt, 0.5 * kappa), 4),
+                adjoint=((tau, 0.5 * dt), 5))
+    return ops, fields, scal
+
+
+def _solve_call(name, ops, fields, scal, fn):
+    spectral = (ops.Vx_inv, ops.Vy_inv_T, ops.Vx, ops.VyT, ops.lam)
+    raw = (ops.Lx, ops.LyT, ops.Vx_inv, ops.Vy_inv_T, ops.Vx, ops.VyT)
+    kind = "schur" if "schur" in name else "adjoint"
+    vals, n_iter = scal[kind]
+    return fn(*(spectral if "spectral" in name else raw), *fields[kind],
+              *vals, n_iter=n_iter)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [None, 4])
+@pytest.mark.parametrize("name", ["bicgstab_schur_spectral", "bicgstab_schur",
+                                  "bicgstab_adjoint_spectral",
+                                  "bicgstab_adjoint"])
+def test_solve_kernel_matches_plain(cuda, name, B):
+    """Each per-solve kernel at n = 65, one (n, n) solve and a batch of
+    four, against its plain version on the same float32 inputs on the card:
+    within 2x the plain version's distance from the float64 plain version
+    (plus 1e-6); and within 1e-4 of the plain version relative to its
+    largest entry for the Schur solves, 2e-3 for the spectral adjoint solve
+    (the adjoint bound of the tests above: on these random inputs two
+    float32 adjoint solves differ by 1-2e-4 at n = 65). On them the raw
+    adjoint solve's float32 result is 0.3-0.6 from float64 (the
+    condition-1e6 operator applied in the raw basis; measured on the CPU),
+    so it has the float64-referenced gate only."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    ops, fields, scal = _solve_inputs(cuda, torch.float32, B=B)
+    ops64, fields64, _ = _solve_inputs(cuda, torch.float64, B=B)
+    wrapper, plain = getattr(sk, name), getattr(sk, name + "_plain")
+    before = wrapper.launches
+    out = _solve_call(name, ops, fields, scal, wrapper)
+    assert wrapper.launches == before + 1
+    ref = _solve_call(name, ops, fields, scal, plain)
+    ref64 = _solve_call(name, ops64, fields64, scal, plain)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    dist = lambda a, b: ((a.double() - b.double()).abs().max()
+                         / b.double().abs().max()).item()
+    assert dist(out, ref64) <= 2 * dist(ref, ref64) + 1e-6
+    if name != "bicgstab_adjoint":
+        assert dist(out, ref) <= (1e-4 if "schur" in name else 2e-3)
+
+
+@pytest.mark.cuda
+def test_solve_kernels_reject_what_they_do_not_take(cuda):
+    from vch_tpu_torch.ops import solve_kernels as sk
+    ops, fields, scal = _solve_inputs(cuda, torch.float32, n=33, B=2)
+    bad = dict(fields, schur=(fields["schur"][0].double(),)
+               + fields["schur"][1:])
+    with pytest.raises(TypeError, match="float32"):
+        _solve_call("bicgstab_schur_spectral", ops, bad, scal,
+                    sk.bicgstab_schur_spectral)
+    bad = dict(fields, adjoint=fields["adjoint"][:3]
+               + (fields["adjoint"][3][:1],))
+    with pytest.raises(ValueError, match="shape"):
+        _solve_call("bicgstab_adjoint", ops, bad, scal, sk.bicgstab_adjoint)

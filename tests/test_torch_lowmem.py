@@ -74,7 +74,8 @@ def test_fused_lowmem_forward_and_adjoint_match_vch_tpu(mode):
     jst, jns = jfb.forward(f(u), f(jsc.phi0), f(jsc.phi_Q), f(jsc.phi_T))
     jr = jfb.adjoint_r(jst, f(u), f(jsc.phi_Q), f(b1), f(b2), f(jsc.phi_T))
 
-    pipe = LowMemPipeline2D(config_from_vch_tpu(jcfg.model_dump()), K=K)
+    pipe = LowMemPipeline2D(config_from_vch_tpu(jcfg.model_dump()), K=K,
+                            device="cpu")
     if mode != "stored":
         pipe.core.phi_Q_mode = mode
     fb = FusedLowMemBatch2D(pipe)
@@ -104,7 +105,8 @@ def lowmem_runs():
                               materialize_phi_Q=False)
     jout = JaxLowMem2D(jcfg, K=K, fused_march=True).run(mk(), max_iter=3,
                                                         verbose=False)
-    prob = LowMemBatchedProblem2D(config_from_vch_tpu(jcfg.model_dump()), K=K)
+    prob = LowMemBatchedProblem2D(config_from_vch_tpu(jcfg.model_dump()), K=K,
+                                  device="cpu")
     out = prob.run(scenario_batch_from_numpy(mk(), dtype=torch.float32),
                    max_iter=3, verbose=False)
     return jout, prob, out
@@ -132,8 +134,10 @@ def test_lowmem_run_matches_full_memory_run():
     the full-memory problem: the same forward march, cut into segments."""
     cfg = config_from_vch_tpu(_jax_cfg().model_dump())
     sc = sweep_2d(cfg, b3_values=B3, kappa_values=KS)
-    full = BatchedProblem2D(cfg).run(sc, max_iter=2, verbose=False)
-    low = LowMemBatchedProblem2D(cfg, K=K).run(sc, max_iter=2, verbose=False)
+    full = BatchedProblem2D(cfg, device="cpu").run(sc, max_iter=2,
+                                                   verbose=False)
+    low = LowMemBatchedProblem2D(cfg, K=K, device="cpu").run(
+        sc, max_iter=2, verbose=False)
     np.testing.assert_allclose(low["cost_history"], full["cost_history"],
                                rtol=1e-5)
     assert low["newton_solves"] == full["newton_solves"]
@@ -156,9 +160,10 @@ def test_full_memory_problem_refuses_procedural_targets():
     cfg = config_from_vch_tpu(_jax_cfg().model_dump())
     sc = sweep_2d(cfg, b3_values=[1e-4], materialize_phi_Q=False)
     with pytest.raises(ValueError, match="LowMemBatchedProblem2D"):
-        BatchedProblem2D(cfg).run(sc, max_iter=1, verbose=False)
+        BatchedProblem2D(cfg, device="cpu").run(sc, max_iter=1,
+                                                verbose=False)
     with pytest.raises(ValueError, match="phi_Q_mode"):
-        LowMemBatchedProblem2D(cfg, K=K).run(
+        LowMemBatchedProblem2D(cfg, K=K, device="cpu").run(
             dataclasses.replace(sc, phi_Q_mode="bogus"), max_iter=1,
             verbose=False)
 
@@ -177,12 +182,13 @@ def test_chooser_routes_by_estimated_peak(materialized):
     assert full_memory_estimate_bytes(cfg, Bn, materialized) == est
     pick = lambda limit: make_batched_problem_2d(
         cfg, batch=Bn, materialized_phi_Q=materialized, hbm_limit_bytes=limit,
-        K=K)
+        K=K, device="cpu")
     assert type(pick(100 * est)) is BatchedProblem2D
     assert type(pick(est)) is LowMemBatchedProblem2D   # est > 0.75 * est
     assert type(pick(int(est / 0.75) + 1)) is BatchedProblem2D
     low = pick(est)
     assert low.pipe.K == K and low.pipe.S == 5
     # a CPU problem with no limit given uses 16 GiB
-    assert type(make_batched_problem_2d(cfg, batch=Bn)) is BatchedProblem2D
+    assert type(make_batched_problem_2d(cfg, batch=Bn, device="cpu")) \
+        is BatchedProblem2D
     assert FULL_MEMORY_PEAK_PER_S > 8      # not vch_tpu's TPU multiple

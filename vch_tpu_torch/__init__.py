@@ -4,9 +4,12 @@ PyTorch and CUDA (NVIDIA Hopper).
 A port of `vch_tpu` (JAX on a TPU), which stays beside it as the reference.
 This package imports torch, numpy and the standard library only: never
 `jax`, `vch_tpu` or `pydantic`, so it runs on a machine that has none of
-them. The batched 2D PGD path (`parallel.batch.BatchedProblem2D`) runs the
-forward march and the adjoint sweep as hand-written CUDA kernels on CUDA
-tensors (`ops.march`), and their plain PyTorch versions on CPU tensors.
+them. The batched 2D PGD paths (`parallel.batch`) run the forward march and
+the adjoint sweep, and the single-scenario problem (`control.problems.
+ControlProblem2D`) its per-solve Krylov solves, as hand-written CUDA kernels
+on CUDA tensors (`ops.march`, `ops.solve_kernels`), and their plain PyTorch
+versions on CPU tensors. Entry points run on the CUDA card unless given
+another device (`device.resolve_device`).
 """
 import torch as _torch
 

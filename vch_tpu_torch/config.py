@@ -12,13 +12,20 @@ points by default), and the solvers take the blocked kernels when the batch
 divides by it. The CUDA kernels are built for 8 members per CTA (and 1);
 another explicit block runs on CPU tensors and raises on CUDA tensors.
 
-Fields accepted for interchangeability but NOT honored yet by the port:
+The routing knobs of the per-step marcher and sweep are honored too:
+`use_pallas` (None: on for the float32 fixed-trip path on a CUDA device, on
+a grid vch_tpu's VMEM rule keeps on its kernel,
+ops.solve_kernels.per_solve_kernels_fit; off elsewhere), `pallas_variant`
+("spectral", or anything else for the raw-basis per-solve kernels, as
+in vch_tpu), and `krylov_tol`, `krylov_max_iter` (the adaptive float64
+Krylov solves).
+
+Fields accepted for interchangeability but NOT honored by the port:
   fused_solve_precision,   — the kernels compute every product in full
-  adjoint_solve_precision,   float32 FMA (vch_tpu's 'highest');
-  forward_matmul_precision
-  use_pallas, pallas_variant — TPU kernel routing; the port routes by the
-                             tensors' device instead;
-  krylov_tol, krylov_max_iter — the adaptive-Krylov scan path is not ported;
+  adjoint_solve_precision,   float32 FMA (vch_tpu's 'highest'), and the
+  forward_matmul_precision   plain versions compute in full float32 too
+                             (vch_tpu's float32 per-step march runs at
+                             matmul precision 'high');
   linsolve_1d              — 1D is not ported.
 """
 from __future__ import annotations
@@ -62,11 +69,11 @@ class ForwardSolverConfig2D:
     adjoint_krylov_fixed_iters: Optional[int] = 5
     linsolve_1d: str = "auto"
     fused_march_block: Optional[int] = None
+    pallas_variant: str = "spectral"
+    use_pallas: Optional[bool] = None
     # accepted, not honored (see the module docstring)
     fused_solve_precision: Optional[str] = "bf16x3"
     adjoint_solve_precision: Optional[str] = None
-    pallas_variant: str = "spectral"
-    use_pallas: Optional[bool] = None
     forward_matmul_precision: Optional[str] = None
 
     def __post_init__(self):

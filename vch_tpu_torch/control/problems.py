@@ -1,0 +1,164 @@
+"""The single-scenario 2D control problem (vch_tpu/control/problems.py:
+26-160): the reference program GD2_configured.py as an object,
+with the uncontrolled baseline trajectory, the targets, and the forward,
+adjoint and cost callables handed to ProximalGradientLoop.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vch_tpu_torch.config import (ForwardSolverConfig2D, OptimizationConfig,
+                                  PGDSettings)
+from vch_tpu_torch.control.cost import calculate_cost_2d
+from vch_tpu_torch.control.diagnostics import (
+    approximate_second_order_condition, verify_sparsity_condition)
+from vch_tpu_torch.control.pgd import PGDResult, ProximalGradientLoop
+from vch_tpu_torch.control.targets import build_targets_2d
+from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+from vch_tpu_torch.models.forward2d import ForwardSolver2D
+
+
+class ControlProblem2D:
+    """Sparse optimal control of the 2D vCH system (ref: GD2_configured.py)
+    on one device (device=None: the CUDA card).
+
+    The baseline trajectory comes from the per-step marcher. Each
+    line-search trial's forward solve runs, as vch_tpu routes it on the TPU
+    (problems.py:74-82), as the whole-march kernel at B = 1 on a CUDA device
+    when the float32 fixed-trip path fits its rule, else the per-step
+    marcher; the gradient is the per-step adjoint sweep's r.
+    `newton_solves` counts the forward Newton linear solves of every march
+    the problem ran. gradient_mode "exact" (implicit differentiation,
+    models/adjoint_exact2d.py) is not ported.
+    """
+
+    def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
+                 opt_config: Optional[OptimizationConfig] = None,
+                 choice_t: int = 1, choice_q: int = 1,
+                 initial_phi: Optional[np.ndarray] = None,
+                 gradient_mode: str = "reference", device=None):
+        if gradient_mode == "exact":
+            raise NotImplementedError(
+                "gradient_mode='exact' (implicit differentiation through the "
+                "march) is not ported; ROADMAP queue A5")
+        if gradient_mode != "reference":
+            raise ValueError(f"gradient_mode must be 'reference', got "
+                             f"{gradient_mode!r}")
+        device = resolve_device(device)
+        self.gradient_mode = gradient_mode
+        self.fwd_config = fwd_config or ForwardSolverConfig2D()
+        self.opt_config = opt_config or OptimizationConfig.defaults_2d()
+        self.device = device
+        self.solver = ForwardSolver2D(self.fwd_config, device=device)
+        self.adjoint = AdjointSolver2D(self.fwd_config, device=device)
+        self.dtype = dtype = self.solver.dtype
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                         device=device)
+        self.phi0 = (self.solver.default_initial_phi() if initial_phi is None
+                     else np.asarray(initial_phi, np.float64))
+        self._phi0_dev = as_t(self.phi0)
+
+        phi_hist, (x, y), t_hist = self.solver.simulate(initial_phi=self.phi0)
+        self.newton_solves = self.solver.last_stats.newton_solves
+        self.phi_hist0 = phi_hist
+        self.x, self.y, self.t_hist = x, y, t_hist
+        self._dts = as_t(np.diff(t_hist))
+        cfg = self.fwd_config
+        # the ramp starts from phi0 as the solver holds it (float32 rounded
+        # in a float32 problem), as vch_tpu builds it
+        phi_T, phi_Q = build_targets_2d(
+            x, y, t_hist, phi_hist[0].cpu().numpy(), float(cfg.Lx),
+            float(cfg.Ly), float(cfg.T), choice_t=choice_t,
+            choice_q=choice_q)
+        self.phi_T_target = as_t(phi_T)
+        self.phi_Q_target = as_t(phi_Q)
+        self._x, self._y, self._t = as_t(x), as_t(y), as_t(t_hist)
+        self._fused = (device.type == "cuda"
+                       and self.solver.fused_march_available())
+        self.loop = ProximalGradientLoop(
+            self._forward, self._adjoint_r, self._cost, self.opt_config,
+            settings=PGDSettings.defaults_2d(),
+            error_norms=self.error_norms)
+
+    def _forward_batch(self, u):
+        """Trajectories of the controls u (D, M+1, Nx+1, Ny+1) from phi0."""
+        if self._fused:
+            phi0 = self._phi0_dev.expand(u.shape[0], -1, -1).contiguous()
+            phi, ns, _ = self.solver.march_fused_batch(u.contiguous(), phi0)
+            self.newton_solves += int(ns.sum())
+            return phi
+        out = []
+        for u_i in u:
+            phi, stats = self.solver._march_impl(u_i, self._phi0_dev)
+            self.newton_solves += stats.newton_solves
+            out.append(phi)
+        return torch.stack(out)
+
+    def _forward(self, u):
+        return self._forward_batch(u[None])[0]
+
+    def _adjoint_r(self, phi_hist):
+        opt = self.opt_config
+        _, _, r = self.adjoint._run_impl(phi_hist, self._dts, opt.b1, opt.b2,
+                                         self.phi_Q_target, self.phi_T_target)
+        return r
+
+    def _cost(self, phi_hist, u):
+        opt = self.opt_config
+        return calculate_cost_2d(phi_hist, u, self.phi_Q_target,
+                                 self.phi_T_target, self._x, self._y, self._t,
+                                 opt.b1, opt.b2, opt.b3, opt.kappa_sparsity)
+
+    def error_norms(self, phi_hist):
+        """(relative tracking error over space-time, relative terminal
+        error) of a trajectory."""
+        x, y, t = self._x, self._y, self._t
+
+        def sp(a):
+            return torch.trapezoid(torch.trapezoid(a, x=y, dim=-1), x=x,
+                                   dim=-1)
+
+        def l2_xt(A):
+            return torch.sqrt(torch.trapezoid(sp(A ** 2), x=t, dim=-1))
+
+        xh, yh, th = self.x, self.y, self.t_hist
+        rms_scale = float(np.sqrt(max((xh[-1] - xh[0]) * (yh[-1] - yh[0]),
+                                      1e-30) * max(th[-1] - th[0], 1e-30)))
+        numQ = l2_xt(phi_hist - self.phi_Q_target)
+        denQ = l2_xt(self.phi_Q_target)
+        denQ = torch.where(denQ < 1e-9 * rms_scale,
+                           torch.full_like(denQ, rms_scale), denQ)
+        rel_track = numQ / (denQ + 1e-12)
+        numT = torch.sqrt(sp((phi_hist[..., -1, :, :]
+                              - self.phi_T_target) ** 2))
+        denT = torch.sqrt(sp(self.phi_T_target ** 2)) + 1e-12
+        return rel_track, numT / denT
+
+    def initial_control(self):
+        return torch.zeros_like(self.phi_hist0)
+
+    def optimize(self, max_iter: Optional[int] = None,
+                 verbose: bool = True) -> PGDResult:
+        return self.loop.run(self.initial_control(), self.phi_hist0,
+                             max_iter=max_iter, verbose=verbose)
+
+    def verify_sparsity(self, result, verbose: bool = True):
+        return verify_sparsity_condition(result.u_optimal, result.r_optimal,
+                                         self.opt_config.kappa_sparsity,
+                                         verbose=verbose)
+
+    def second_order_check(self, result, num_directions: int = 5,
+                           epsilon: float = 1e-4, seed: int = 42):
+        """Batched FD coercivity probe (2D cone: bound activity only,
+        ref second_order_conditions_2d.py:35-88)."""
+        opt = self.opt_config
+        return approximate_second_order_condition(
+            self._forward_batch, self._cost, result.u_optimal,
+            result.r_optimal, result.phi_final, opt.b3, opt.kappa_sparsity,
+            opt.u_min, opt.u_max, num_directions=num_directions,
+            epsilon=epsilon, seed=seed, handle_kink=False, dtype=self.dtype,
+            device=self.device)

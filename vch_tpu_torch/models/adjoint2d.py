@@ -4,56 +4,179 @@
     B(phi_np1) = I - tau L - (dt/2) L^2 + (dt/2) diag(f''(phi_np1)) L
     terminal: (I - tau L) p_T = b2 (phi_T - phi_Omega);  q = -L p;  r_T = 0.
 
-`AdjointSolver2D.adjoint_fused_batch` runs the whole sweep through
-`ops.march` with `adjoint_krylov_fixed_iters` trips (5 by default;
-vch_tpu/models/adjoint2d.py:48-50): the member-blocked kernel when the batch
-divides by `config.resolved_fused_block()`, else one member per CTA
-(adjoint2d.py:184-195). `adjoint_segment` runs a K-step segment from an
-explicit (p, q, r) carry for the low-memory path, and `terminal` the
-terminal solve it starts from.
+`AdjointSolver2D.run` / `_run_impl` is the per-step sweep of one member
+(vch_tpu/models/adjoint2d.py:66-161, :205): the exact terminal solve, then a
+Python loop over the steps in reverse, each with the forward-ordered
+operators (A at n, B at n+1), the split-preconditioned solve of A p_n = rhs
+warm started from p_{n+1}, q_n = -L p_n and the r recursion; dt <= 1e-14
+copies the next level. The solve routes as vch_tpu's (:114-142): with
+`use_pallas` on (by default: float32 on a CUDA device on a grid vch_tpu
+keeps on its kernel), the per-solve adjoint kernel of `self.entries`
+(spectral, or raw for pallas_variant "raw"); else the composed fixed-trip
+`bicgstab_split_fixed` in float32 and the adaptive `bicgstab_split` in
+float64.
+
+`adjoint_fused_batch` runs the whole batched sweep through `ops.march` with
+`adjoint_krylov_fixed_iters` trips (5 by default; adjoint2d.py:48-50): the
+member-blocked kernel when the batch divides by
+`config.resolved_fused_block()`, else one member per CTA (adjoint2d.py:
+184-195). `adjoint_segment` runs a K-step segment from an explicit (p, q, r)
+carry for the low-memory path, and `terminal` the terminal solve it starts
+from.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from vch_tpu_torch.config import ForwardSolverConfig2D
+from vch_tpu_torch.device import resolve_device
 from vch_tpu_torch.models.forward2d import torch_dtype
 from vch_tpu_torch.models.timegrid import build_dt_schedule
 from vch_tpu_torch.ops import march as km
 from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
-from vch_tpu_torch.ops.linsolve import make_spectral_op_2d
+from vch_tpu_torch.ops.linsolve import (Ops2D, bicgstab_split,
+                                        bicgstab_split_fixed,
+                                        make_spectral_op_2d, ops_2d)
+from vch_tpu_torch.ops.potential import fpp_log
+from vch_tpu_torch.ops.solve_kernels import per_solve_kernels_fit
 
 
 class AdjointSolver2D(nn.Module):
-    """Batched backward sweep producing the gradient channel r."""
+    """Backward sweep producing (p, q, r), on one device (device=None: the
+    CUDA card)."""
 
     def __init__(self, config: Optional[ForwardSolverConfig2D] = None,
                  device=None):
         super().__init__()
+        device = resolve_device(device)
         self.config = cfg = config or ForwardSolverConfig2D()
         self.dtype = torch_dtype(cfg.dtype)
         hx, hy = cfg.Lx / cfg.Nx, cfg.Ly / cfg.Ny
-        op = make_spectral_op_2d(cfg.Nx, cfg.Ny, hx, hy, dtype=self.dtype,
-                                 device=device)
-        for name, t in (("Lx", op.Lx), ("LyT", op.Ly.T.contiguous()),
-                        ("Vx_inv", op.Vx_inv),
-                        ("Vy_inv_T", op.Vy_inv.T.contiguous()),
-                        ("Vx", op.Vx), ("VyT", op.Vy.T.contiguous()),
-                        ("lam", op.lam),
-                        ("dts", torch.as_tensor(
-                            build_dt_schedule(cfg.T, cfg.dt_initial),
-                            dtype=self.dtype, device=device))):
+        op = ops_2d(make_spectral_op_2d(cfg.Nx, cfg.Ny, hx, hy,
+                                        dtype=self.dtype, device=device))
+        for name, t in zip(op._fields, op):
             self.register_buffer(name, t)
+        self.register_buffer("dts", torch.as_tensor(
+            build_dt_schedule(cfg.T, cfg.dt_initial), dtype=self.dtype,
+            device=device))
         self.n_trips = cfg.adjoint_krylov_fixed_iters or cfg.krylov_fixed_iters
+        # the per-step sweep's solve (adjoint2d.py:46-63): adaptive in
+        # float64, fixed-trip in float32, on the per-solve kernel by the
+        # auto rule of ForwardSolver2D
+        f64 = self.dtype == torch.float64
+        self.krylov_tol = cfg.krylov_tol if f64 else max(cfg.krylov_tol, 1e-6)
+        self._krylov_fixed = None if f64 else self.n_trips
+        self._use_pallas = (cfg.use_pallas if cfg.use_pallas is not None
+                            else (self._krylov_fixed is not None
+                                  and device.type == "cuda"
+                                  and per_solve_kernels_fit(cfg.Nx + 1,
+                                                            cfg.Ny + 1)))
+        self._pallas_variant = cfg.pallas_variant
         # the kernel entry points (km.PLAIN in chip_smoke.py's plain-path run)
         self.entries = km.KERNELS
 
+    @property
+    def op(self) -> Ops2D:
+        return Ops2D(self.Lx, self.LyT, self.Vx_inv, self.Vy_inv_T, self.Vx,
+                     self.VyT, self.lam)
+
     def _ops(self):
-        return (self.Lx, self.LyT, self.Vx_inv, self.Vy_inv_T, self.Vx,
-                self.VyT, self.lam)
+        return tuple(self.op)
+
+    def _run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+        """The sweep of one member: phi_hist, phi_Q (M+1, Nx+1, Ny+1),
+        dts (M,), phi_T_target (Nx+1, Ny+1), b1 and b2 numbers. Returns
+        (p, q, r), each (M+1, Nx+1, Ny+1), with r_T = 0 last
+        (vch_tpu/models/adjoint2d.py:66-161)."""
+        cfg = self.config
+        op = self.op
+        tau, gamma, c1, c2 = cfg.tau, cfg.gamma, cfg.c1, cfg.c2
+        mm = torch.matmul
+        lap = lambda v: apply_laplacian_2d(op.Lx, op.LyT, v)
+        to_s = lambda v: mm(mm(op.Vx_inv, v), op.Vy_inv_T)
+        from_s = lambda vh: mm(mm(op.Vx, vh), op.VyT)
+
+        # terminal: (I - tau L) p_T = b2 (phi_T - phi_Omega), exact in the
+        # cosine basis; q_T = -L p_T; r_T = 0
+        rhs_T = b2 * (phi_hist[-1] - phi_T_target)
+        p_T = from_s(to_s(rhs_T) / (1.0 - tau * op.lam))
+        q_T = -lap(p_T)
+        r_T = torch.zeros_like(p_T)
+        src_all = phi_hist - phi_Q
+        dts_host = dts.cpu().numpy()
+        p_next, q_next, r_next = p_T, q_T, r_T
+        ps, qs, rs = [p_T], [q_T], [r_T]
+        for n in range(dts.shape[0] - 1, -1, -1):
+            dt = dts[n]
+            phi_n, phi_np1 = phi_hist[n], phi_hist[n + 1]
+            fpp_n = fpp_log(phi_n, c1, c2)
+            fpp_np1 = fpp_log(phi_np1, c1, c2)
+            fbar = torch.mean(fpp_n)
+            # rhs = B(phi_{n+1}) p_{n+1} + src
+            w1 = lap(p_next)
+            Bp = (p_next - tau * w1 - 0.5 * dt * lap(w1)
+                  + 0.5 * dt * fpp_np1 * w1)
+            rhs = Bp + 0.5 * dt * b1 * (src_all[n] + src_all[n + 1])
+
+            def apply_A(v):
+                w = lap(v)
+                return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
+
+            denom = (1.0 - tau * op.lam + 0.5 * dt * op.lam ** 2
+                     - 0.5 * dt * fbar * op.lam)
+            isd = torch.rsqrt(torch.abs(denom))
+            if self._use_pallas and self._krylov_fixed is not None:
+                solve = (self.entries.adjoint_spectral
+                         if self._pallas_variant == "spectral"
+                         else self.entries.adjoint_raw)
+                mats = ((op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, op.lam)
+                        if self._pallas_variant == "spectral"
+                        else (op.Lx, op.LyT, op.Vx_inv, op.Vy_inv_T, op.Vx,
+                              op.VyT))
+                p_n = solve(*mats, isd, fpp_n, rhs, p_next, tau, 0.5 * dt,
+                            n_iter=self._krylov_fixed)
+            elif self._krylov_fixed is not None:
+                p_n = bicgstab_split_fixed(
+                    apply_A, rhs, lambda v: from_s(to_s(v) * isd),
+                    lambda v: from_s(to_s(v) / isd),
+                    n_iter=self._krylov_fixed, x0=p_next)
+            else:
+                p_n = bicgstab_split(
+                    apply_A, rhs, lambda v: from_s(to_s(v) * isd),
+                    lambda v: from_s(to_s(v) / isd), tol=self.krylov_tol,
+                    max_iter=cfg.krylov_max_iter, x0=p_next)
+            q_n = -lap(p_n)
+            den = gamma + 0.5 * dt
+            r_n = ((gamma - 0.5 * dt) / den * r_next
+                   + 0.5 * dt / den * (q_n + q_next))
+            if not dts_host[n] <= 1e-14:        # else copy the next level
+                p_next, q_next, r_next = p_n, q_n, r_n
+            ps.append(p_next)
+            qs.append(q_next)
+            rs.append(r_next)
+        rev = lambda fs: torch.stack(fs[::-1])
+        return rev(ps), rev(qs), rev(rs)
+
+    def run(self, phi_hist, t_hist, b1: float, b2: float, phi_Q=None,
+            phi_T_target=None):
+        """(p, q, r) of the trajectory phi_hist (M+1, Nx+1, Ny+1) on the
+        time stamps t_hist, with tracking target phi_Q (default 0) and
+        terminal target phi_T_target (default 0)
+        (vch_tpu/models/adjoint2d.py:205)."""
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                         device=self.dts.device)
+        phi_hist = as_t(phi_hist)
+        dts = as_t(np.diff(np.asarray(t_hist, dtype=np.float64)))
+        phi_Q = (torch.zeros_like(phi_hist) if phi_Q is None
+                 else as_t(phi_Q))
+        phi_T_target = (torch.zeros_like(phi_hist[-1]) if phi_T_target is None
+                        else as_t(phi_T_target))
+        return self._run_impl(phi_hist, dts, float(b1), float(b2), phi_Q,
+                              phi_T_target)
 
     def _kw(self):
         cfg = self.config

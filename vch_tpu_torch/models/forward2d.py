@@ -1,18 +1,36 @@
-"""Batched 2D viscous Cahn–Hilliard forward solver (vch_tpu/models/forward2d.py).
+"""2D viscous Cahn–Hilliard forward solver (vch_tpu/models/forward2d.py).
 
 `ForwardSolver2D` holds the operator matrices as buffers on one device and
-runs the whole batched march through `ops.march`: the member-blocked kernel
-when the batch divides by `config.resolved_fused_block()`, else the
-one-member-per-CTA kernel (vch_tpu/models/forward2d.py:338-353), and K-step
-segments for the low-memory path; each is the CUDA kernel for CUDA tensors
-and its plain PyTorch version for CPU tensors. Trip counts and Newton exits
-resolve as vch_tpu's do (forward2d.py:180-194, :337): the fused Krylov trip
-count is `fused_krylov_fixed_iters` (falling back to `krylov_fixed_iters`),
-`newton_rtol` is 0 in float64, and the stagnation exit is on only in
-float32.
+marches in two ways:
+
+  - the per-step marcher (`simulate`, `_march_impl`): one member, a Python
+    loop over the time steps, each a Newton loop (`newton_2d`) whose linear
+    solve is `ops.linsolve.newton_schur_solve_2d`, with the interior-only
+    mass correction and the non-finite sanitizer. The loops read their
+    predicates on the host (one sync per Newton iteration and per Armijo
+    trial), as `_search` does. Float64 takes the adaptive Krylov solve;
+    float32 the fixed-trip one, through the per-solve Schur kernel when
+    `use_pallas` resolves on (by default: float32 on a CUDA device on a grid
+    whose solve vch_tpu's rule keeps on its kernel, ops.solve_kernels);
+  - the whole batched march in one kernel launch (`march_fused_batch`,
+    `march_segment`) through `ops.march`: the member-blocked kernel when the
+    batch divides by `config.resolved_fused_block()`, else one member per CTA
+    (vch_tpu/models/forward2d.py:322-367), K-step segments for the
+    low-memory path.
+
+Every kernel entry goes through `self.entries` (ops.march.KERNELS: the CUDA
+kernels on CUDA tensors, the plain versions on CPU tensors; ops.march.PLAIN
+runs the plain versions on any device). Trip counts and Newton exits resolve
+as vch_tpu's do (forward2d.py:178-194, :337): float32 clamps the Krylov
+tolerance to 1e-6, `newton_rtol` is 0 in float64, the stagnation exit is on
+only in float32, the per-step marcher takes `krylov_fixed_iters` and the
+fused march `fused_krylov_fixed_iters`. vch_tpu's float32 march runs its
+products at matmul precision "high"; the port computes every product in full
+float32 (`forward_matmul_precision` is accepted, not honored).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -20,47 +38,167 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
+from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.models.forward1d import MarchStats, solve_w
 from vch_tpu_torch.models.timegrid import build_dt_schedule, t_history
 from vch_tpu_torch.ops import march as km
 from vch_tpu_torch.ops.grids import grid_2d
 from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
-from vch_tpu_torch.ops.linsolve import make_spectral_op_2d
-from vch_tpu_torch.ops.potential import f_prime, init_phi_random_2d
+from vch_tpu_torch.ops.linsolve import (Ops2D, make_spectral_op_2d,
+                                        newton_schur_solve_2d, ops_2d)
+from vch_tpu_torch.ops.potential import (f_prime, free_energy_2d,
+                                         init_phi_random_2d, regularized_log)
+from vch_tpu_torch.ops.solve_kernels import per_solve_kernels_fit
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return torch.float64 if name == "float64" else torch.float32
 
 
+def mu_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, dt):
+    return ((phi_new - phi_old) / dt
+            - 0.5 * apply_laplacian_2d(ops.Lx, ops.LyT, mu_new + mu_old))
+
+
+def phi_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, w_new, w_old,
+                    dt, tau, c1, c2, kappa, delta_sep):
+    lap_avg = 0.5 * apply_laplacian_2d(ops.Lx, ops.LyT, phi_new + phi_old)
+    f_cvx = c1 * regularized_log(phi_new, delta_sep)
+    f_ccv = -2.0 * c2 * phi_old
+    return (tau * (phi_new - phi_old) / dt - kappa * lap_avg
+            + f_cvx + f_ccv - 0.5 * (mu_new + mu_old) - 0.5 * (w_new + w_old))
+
+
+def _step_ceiling_2d(phi, dphi, delta_sep):
+    """Largest Armijo start keeping phi + alpha dphi inside the bounds: 0.9
+    of the per-sign minima, capped at 2, 1 when that is not finite or not
+    positive, then at most 1 (vch_tpu/models/forward2d.py:51)."""
+    big = torch.full_like(phi, math.inf)
+    ratio_pos = torch.where(dphi > 0, (1.0 - delta_sep - phi) / dphi, big)
+    ratio_neg = torch.where(dphi < 0, (-1.0 + delta_sep - phi) / dphi, big)
+    amax = torch.clamp(torch.minimum(0.9 * torch.min(ratio_pos),
+                                     0.9 * torch.min(ratio_neg)), max=2.0)
+    bad = ~torch.isfinite(amax) | (amax <= 0)
+    amax = torch.where(bad, torch.ones_like(amax), amax)
+    return torch.clamp(amax, max=1.0)
+
+
+def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
+              delta_sep, tol, max_iter, krylov_tol, krylov_max_iter,
+              mu_init, record_history: bool = False, rtol: float = 0.0,
+              stagnation_exit: bool = False,
+              krylov_fixed: Optional[int] = None, use_pallas: bool = False,
+              pallas_variant: str = "spectral", entries=km.KERNELS):
+    """Newton with the best-trial-fallback Armijo (at most 12 trials) for
+    one step of one member (vch_tpu/models/forward2d.py:65). Exits on the
+    absolute tolerance, on rtol times the first residual (rtol > 0), or, with
+    stagnation_exit, on a residual that did not fall. Returns (phi, mu,
+    newton_solves) and, with record_history, the residual norms as a list of
+    floats after them."""
+    eta = 1e-4
+
+    def resid(phi, mu):
+        Rphi = phi_residual_2d(ops, phi, phi_old, mu, mu_old, w_new, w_old,
+                               dt, tau, c1, c2, kappa, delta_sep)
+        Rmu = mu_residual_2d(ops, phi, phi_old, mu, mu_old, dt)
+        norm = torch.sqrt(torch.sum(Rphi * Rphi) + torch.sum(Rmu * Rmu))
+        return norm, Rphi, Rmu
+
+    def armijo(phi, mu, dphi, dmu, norm_R):
+        alpha = _step_ceiling_2d(phi, dphi, delta_sep)
+        best_norm = math.inf
+        best = (phi, mu)
+        for _ in range(12):
+            phi_t = phi + alpha * dphi
+            mu_t = mu + alpha * dmu
+            norm_t, _, _ = resid(phi_t, mu_t)
+            if bool(norm_t < best_norm):
+                best_norm, best = norm_t, (phi_t, mu_t)
+            if bool(norm_t <= (1.0 - eta * alpha) * norm_R):
+                return phi_t, mu_t
+            alpha = alpha * 0.5
+        # no trial accepted: the best trial if it improved on norm_R
+        if bool(best_norm < norm_R):
+            return best
+        return phi, mu
+
+    phi, mu = phi_old, mu_init
+    norm0 = prev_norm = None
+    hist = []
+    nsolve = 0
+    for k in range(max_iter):
+        norm_R, Rphi, Rmu = resid(phi, mu)
+        if record_history:
+            hist.append(float(norm_R))
+        if k == 0:
+            norm0 = norm_R
+        converged = norm_R < tol
+        if rtol > 0:
+            converged = converged | (norm_R < rtol * norm0)
+        if stagnation_exit and k > 0:
+            converged = converged | (norm_R >= prev_norm)
+        if bool(converged):
+            break
+        dphi, dmu = newton_schur_solve_2d(
+            ops, phi, Rphi, Rmu, dt, tau, c1, kappa, delta_sep,
+            tol=krylov_tol, max_iter=krylov_max_iter,
+            fixed_iters=krylov_fixed, use_pallas=use_pallas,
+            pallas_variant=pallas_variant, entries=entries)
+        phi, mu = armijo(phi, mu, dphi, dmu, norm_R)
+        prev_norm = norm_R
+        nsolve += 1
+    if record_history:
+        return phi, mu, nsolve, hist
+    return phi, mu, nsolve
+
+
 class ForwardSolver2D(nn.Module):
-    """Batched forward march on a (Nx+1)x(Ny+1) grid."""
+    """Forward march on a (Nx+1)x(Ny+1) grid on one device (device=None:
+    the CUDA card)."""
 
     def __init__(self, config: Optional[ForwardSolverConfig2D] = None,
                  device=None):
         super().__init__()
+        device = resolve_device(device)
         self.config = cfg = config or ForwardSolverConfig2D()
         self.dtype = torch_dtype(cfg.dtype)
-        (self.x, self.y), (self.hx, self.hy), wts_h = grid_2d(
+        (self.x, self.y), (self.hx, self.hy), self._wts_h = grid_2d(
             cfg.Nx, cfg.Ny, cfg.Lx, cfg.Ly)
         self.dts_np = build_dt_schedule(cfg.T, cfg.dt_initial)
         self.t_hist = t_history(self.dts_np, cfg.T)
         self.M = len(self.dts_np)
-        op = make_spectral_op_2d(cfg.Nx, cfg.Ny, self.hx, self.hy,
-                                 dtype=self.dtype, device=device)
+        op = ops_2d(make_spectral_op_2d(cfg.Nx, cfg.Ny, self.hx, self.hy,
+                                        dtype=self.dtype, device=device))
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
-        for name, t in (("Lx", op.Lx), ("LyT", op.Ly.T.contiguous()),
-                        ("Vx_inv", op.Vx_inv),
-                        ("Vy_inv_T", op.Vy_inv.T.contiguous()),
-                        ("Vx", op.Vx), ("VyT", op.Vy.T.contiguous()),
-                        ("lam", op.lam), ("wts", as_t(wts_h)),
-                        ("dts", as_t(self.dts_np))):
+        for name, t in zip(op._fields, op):
             self.register_buffer(name, t)
-        self.rtol = 0.0 if self.dtype == torch.float64 else cfg.newton_rtol
-        self.stagnation = self.dtype != torch.float64
+        self.register_buffer("wts", as_t(self._wts_h))
+        self.register_buffer("dts", as_t(self.dts_np))
+        f64 = self.dtype == torch.float64
+        self.rtol = 0.0 if f64 else cfg.newton_rtol
+        self.stagnation = not f64
         self.n_trips = cfg.fused_krylov_fixed_iters or cfg.krylov_fixed_iters
+        # the per-step marcher's Krylov solve: adaptive in float64 (the
+        # tolerance clamped to what float32 resolves otherwise), fixed-trip
+        # in float32, on the per-solve kernel by vch_tpu's auto rule with
+        # "the TPU" read as "a CUDA device" (forward2d.py:198-210)
+        self.krylov_tol = cfg.krylov_tol if f64 else max(cfg.krylov_tol, 1e-6)
+        self._krylov_fixed = None if f64 else cfg.krylov_fixed_iters
+        self._use_pallas = (cfg.use_pallas if cfg.use_pallas is not None
+                            else (self._krylov_fixed is not None
+                                  and device.type == "cuda"
+                                  and per_solve_kernels_fit(cfg.Nx + 1,
+                                                            cfg.Ny + 1)))
+        self._pallas_variant = cfg.pallas_variant
         # the kernel entry points; chip_smoke.py sets km.PLAIN here to hold
         # the kernel path against the plain path on the card
         self.entries = km.KERNELS
+        self.last_stats = None
+
+    @property
+    def op(self) -> Ops2D:
+        return Ops2D(self.Lx, self.LyT, self.Vx_inv, self.Vy_inv_T, self.Vx,
+                     self.VyT, self.lam)
 
     def default_initial_phi(self) -> np.ndarray:
         """Seed-42 Gaussian IC with interior mass fix (amp 0.1)."""
@@ -76,8 +214,123 @@ class ForwardSolver2D(nn.Module):
                 - w)
 
     def _ops(self):
-        return (self.Lx, self.LyT, self.Vx_inv, self.Vy_inv_T, self.Vx,
-                self.VyT, self.lam, self.wts)
+        return tuple(self.op) + (self.wts,)
+
+    def _newton_kw(self):
+        cfg = self.config
+        return dict(tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
+                    delta_sep=DELTA_SEP, tol=cfg.newton_tol,
+                    max_iter=cfg.newton_max_iter, krylov_tol=self.krylov_tol,
+                    krylov_max_iter=cfg.krylov_max_iter, rtol=self.rtol,
+                    stagnation_exit=self.stagnation,
+                    krylov_fixed=self._krylov_fixed,
+                    use_pallas=self._use_pallas,
+                    pallas_variant=self._pallas_variant, entries=self.entries)
+
+    def _simulate_body(self, u, phi0):
+        """The per-step march of one member: u (M+1, Nx+1, Ny+1), phi0
+        (Nx+1, Ny+1) on this solver's device. Returns (phi_hist (M+1, ...),
+        MarchStats) (vch_tpu/models/forward2d.py:236-286)."""
+        cfg = self.config
+        ops = self.op
+        lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
+        wts = self.wts
+        w = torch.zeros_like(phi0)
+        phi = phi0
+        mu = self.initialize_mu(phi0, w)
+        m0 = torch.sum(wts * phi0)
+        frames, bad, nsolve = [phi0], [], 0
+        kw = self._newton_kw()
+        for n in range(self.M):
+            dt = self.dts[n]
+            w_new = solve_w(w, dt, cfg.gamma, u[n], u[n + 1])
+            mu_init = self.initialize_mu(phi, w_new)
+            phi_new, mu_new, k = newton_2d(ops, phi, mu, w, w_new, dt,
+                                           mu_init=mu_init, **kw)
+            phi_c = torch.clamp(phi_new, lo, hi)
+            # interior-only mass correction, uniform fallback
+            mass_error = torch.sum(wts * phi_c) - m0
+            bad.append(~torch.isfinite(mass_error))
+            interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
+            Wint = torch.sum(torch.where(interior, wts, torch.zeros_like(wts)))
+            corrected = torch.where(interior, phi_c - mass_error / Wint, phi_c)
+            fallback = torch.clamp(phi_c - mass_error / (cfg.Lx * cfg.Ly),
+                                   lo, hi)
+            phi_c = torch.where(torch.abs(mass_error) > 1e-16,
+                                torch.where(Wint > 0, corrected, fallback),
+                                phi_c)
+            frames.append(phi_c)
+            phi, mu, w = phi_c, mu_new, w_new
+            nsolve += k
+        flags = torch.stack(bad).cpu().numpy()
+        first_bad = int(np.argmax(flags)) if flags.any() else -1
+        return torch.stack(frames), MarchStats(nsolve, first_bad)
+
+    def _march_impl(self, u, phi0):
+        return self._simulate_body(u, phi0)
+
+    def _simulate_impl(self, u, phi0):
+        """The trajectory only."""
+        return self._march_impl(u, phi0)[0]
+
+    def simulate(self, control: Optional[np.ndarray] = None,
+                 initial_phi: Optional[np.ndarray] = None):
+        """The per-step march from initial_phi (default: the seed-42 IC)
+        under control (M+1, Nx+1, Ny+1) (default: zero); returns (phi_hist,
+        (x, y), t_hist) and keeps the counters in `last_stats`. Raises on a
+        non-finite mass defect (vch_tpu/models/forward2d.py:288)."""
+        cfg = self.config
+        shape = (self.M + 1, cfg.Nx + 1, cfg.Ny + 1)
+        phi0 = (self.default_initial_phi() if initial_phi is None
+                else np.asarray(initial_phi, np.float64))
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                         device=self.dts.device)
+        if control is None:
+            u = torch.zeros(shape, dtype=self.dtype, device=self.dts.device)
+        else:
+            u = as_t(control)
+            if tuple(u.shape) != shape:
+                raise ValueError(f"control must be (M+1, Nx+1, Ny+1) = "
+                                 f"{shape}; got {tuple(u.shape)}")
+        phi_hist, stats = self._march_impl(u, as_t(phi0))
+        self.last_stats = stats
+        if stats.first_bad_step >= 0:
+            raise RuntimeError(
+                f"Non-finite mass defect at time step {stats.first_bad_step}"
+                " — solution diverged (see Forward_solver.py:166-172 "
+                "semantics).")
+        return phi_hist, (self.x, self.y), self.t_hist
+
+    def energy_history(self, phi_hist, w_hist=None, eps=None):
+        """Free energy of every frame (vch_tpu/models/forward2d.py:369)."""
+        cfg = self.config
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                         device=self.dts.device)
+        return free_energy_2d(as_t(phi_hist), cfg.kappa, cfg.c1, cfg.c2,
+                              self.hx, self.hy,
+                              w=None if w_hist is None else as_t(w_hist),
+                              eps=0.5 * DELTA_SEP if eps is None else eps)
+
+    def newton_residual_history(self, phi_old, mu_old, w_old, w_new, dt):
+        """One Newton solve of a step from the given state; returns (phi,
+        mu, [residual norm per iteration])
+        (vch_tpu/models/forward2d.py:381)."""
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                         device=self.dts.device)
+        phi_old, w_new = as_t(phi_old), as_t(w_new)
+        mu_init = self.initialize_mu(phi_old, w_new)
+        phi, mu, _, hist = newton_2d(
+            self.op, phi_old, as_t(mu_old), as_t(w_old), w_new, dt,
+            mu_init=mu_init, record_history=True, **self._newton_kw())
+        return phi, mu, hist
+
+    def fused_march_available(self) -> bool:
+        """Whether the whole-march kernel can carry the batched forward
+        solve: vch_tpu's rule (the float32 fixed-trip path with the solve
+        on its kernel, forward2d.py:315)."""
+        return (self._krylov_fixed is not None
+                and per_solve_kernels_fit(self.config.Nx + 1,
+                                          self.config.Ny + 1))
 
     def _march_kw(self):
         cfg = self.config

@@ -106,7 +106,8 @@ class _LowMemCore:
 
 class LowMemPipeline2D:
     """The solvers and the segment schedule of the 2D low-memory path on
-    one device (vch_tpu/models/lowmem.py:458-475)."""
+    one device, device=None being the CUDA card
+    (vch_tpu/models/lowmem.py:458-475)."""
 
     def __init__(self, config: Optional[ForwardSolverConfig2D] = None,
                  K: int = 10, device=None):

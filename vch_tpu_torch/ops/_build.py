@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels of the port.
+"""Build and load the CUDA kernels of the port, and the checks every
+kernel wrapper makes before a launch.
 
-`nvcc` compiles each of `vch_tpu_torch/csrc/*.cu` for sm_90a once per
-members-per-CTA instantiation (`-DVCH_BB=1` and `8`: one member per CTA,
-and the block that `resolved_fused_block()` picks), all at once in
-parallel, and links the objects into one shared library with a plain C
-interface, at first use, into `vch_tpu_torch/_build/` (listed in
+`nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
+members-per-CTA instantiation it is built for (`SOURCES`: the fused march
+and sweep with `-DVCH_BB=1` and `8`, one member per CTA and the block that
+`resolved_fused_block()` picks; the per-solve kernels with `-DVCH_BB=1`),
+all at once in parallel, and links the objects into one shared library with
+a plain C interface, at first use, into `vch_tpu_torch/_build/` (listed in
 .gitignore); `ctypes` loads it. The library's file name carries a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
 one is reused. Nothing here runs at import: `load()` is called by the kernel
@@ -21,11 +23,15 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("march2d.cu", "adjoint2d.cu")
-MEMBER_BLOCKS = (1, 8)   # the VCH_BB objects of each source
+MEMBER_BLOCKS = (1, 8)   # the members-per-CTA the fused kernels are built for
+# each source and the VCH_BB objects it is compiled into
+SOURCES = {"march2d.cu": MEMBER_BLOCKS, "adjoint2d.cu": MEMBER_BLOCKS,
+           "solve2d.cu": (1,)}
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,8 +59,8 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(repr(MEMBER_BLOCKS).encode())
-    for name in SOURCES + HEADERS:
+    h.update(repr(SOURCES).encode())
+    for name in tuple(SOURCES) + HEADERS:
         h.update(name.encode())
         h.update((SRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -72,7 +78,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         jobs = [(src, bb, os.path.join(tmpdir, f"{Path(src).stem}_{bb}.o"))
-                for src in SOURCES for bb in MEMBER_BLOCKS]
+                for src, blocks in SOURCES.items() for bb in blocks]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DVCH_BB={bb}", "-c",
                                    "-o", obj, str(SRC_DIR / src)],
                                   stdout=subprocess.PIPE,
@@ -126,10 +132,49 @@ def load():
     lib.vch_adjoint_fused_2d_segment.argtypes = ([_P] * 14 + [_P] * 5
                                                  + [_I] * 4 + [_FP, _I]
                                                  + [_I] + [_P])
+    # variant scal Lx LyT Vxi VyiT Vx VyT lam f1 f2 rhs x0 | out work |
+    # B n m n_iter floor_fac | stream
+    lib.vch_bicgstab_2d.argtypes = ([_I] + [_P] * 12 + [_P] * 2 + [_I] * 4
+                                    + [ctypes.c_float, _P])
+    lib.vch_solve_workspace_fields.argtypes = []
+    lib.vch_solve_workspace_fields.restype = _I
     for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_segment,
-               lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment):
+               lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
+               lib.vch_bicgstab_2d):
         fn.restype = _I
     lib.vch_error_string.argtypes = [_I]
     lib.vch_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def on_cuda(name, t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def check_cuda(named, dev):
+    """Every (name, tensor, shape) of a launch: on `dev`, float32,
+    contiguous, of the expected shape."""
+    for name, t, shape in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+
+
+def raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.vch_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

@@ -1,20 +1,32 @@
-"""Cosine-basis operator tensors for the 2D Newton and adjoint solves
-(vch_tpu/ops/linsolve.py:46-78).
+"""Cosine-basis operators and the Krylov solvers of the 2D Newton and adjoint
+systems (vch_tpu/ops/linsolve.py).
 
 On the uniform Neumann grid the Laplacian is exactly diagonal in the cosine
 basis, so the constant-coefficient part of every implicit operator is a
 pointwise divide between the analysis transform Vx^{-1} v Vy^{-T} and the
 synthesis transform Vx vhat Vy^T. The matrices are built in float64 numpy
 and cast once to the solver dtype on the solver's device.
+
+Newton system (exact Schur elimination of dmu):
+    S dphi = L Rphi - Rmu,   S = (1/dt) I + (kappa/2) L^2 - (tau/dt) L - L D,
+    dmu = 2 (Kpp dphi + Rphi),  Kpp = -(kappa/2) L + (tau/dt + D) I,
+with D = diag(2 c1 / (1 - phi^2)). The BiCGStab solvers below are the
+composed ones vch_tpu runs when its fused kernels are off: `bicgstab`
+(adaptive: float64, host-checked residual), `bicgstab_fixed` (fixed trip
+count with the noise-floor freeze, non-finite rejection and best-iterate
+return), and their split-preconditioned forms for the adjoint. They take
+fields with any leading batch axes when `dot_fn` reduces per member; the
+masked updates are then what `jax.vmap` of the vch_tpu solver computes.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from vch_tpu_torch.ops.laplacian import (laplacian_matrix_neumann,
+from vch_tpu_torch.ops.laplacian import (apply_laplacian_2d,
+                                         laplacian_matrix_neumann,
                                          neumann_eigendecomposition)
 
 
@@ -30,6 +42,19 @@ class SpectralOp2D(NamedTuple):
     lam: torch.Tensor     # (Nx+1, Ny+1) eigenvalue grid lam_x[i] + lam_y[j]
 
 
+class Ops2D(NamedTuple):
+    """The operators as the solvers and kernels take them: the y-direction
+    matrices transposed, every one contiguous."""
+
+    Lx: torch.Tensor
+    LyT: torch.Tensor
+    Vx_inv: torch.Tensor
+    Vy_inv_T: torch.Tensor
+    Vx: torch.Tensor
+    VyT: torch.Tensor
+    lam: torch.Tensor
+
+
 def make_spectral_op_2d(Nx: int, Ny: int, hx: float, hy: float,
                         dtype=torch.float64, device=None) -> SpectralOp2D:
     Lx = laplacian_matrix_neumann(Nx, hx)
@@ -43,6 +68,12 @@ def make_spectral_op_2d(Nx: int, Ny: int, hx: float, hy: float,
                         as_t(Vx_inv), as_t(Vy_inv), as_t(lam))
 
 
+def ops_2d(op: SpectralOp2D) -> Ops2D:
+    c = lambda t: t.T.contiguous()
+    return Ops2D(op.Lx, c(op.Ly), op.Vx_inv, c(op.Vy_inv), op.Vx, c(op.Vy),
+                 op.lam)
+
+
 def to_spectral(op: SpectralOp2D, v: torch.Tensor) -> torch.Tensor:
     """Analysis transform: vhat = Vx^{-1} v Vy^{-T}."""
     return torch.matmul(torch.matmul(op.Vx_inv, v), op.Vy_inv.T)
@@ -51,3 +82,205 @@ def to_spectral(op: SpectralOp2D, v: torch.Tensor) -> torch.Tensor:
 def from_spectral(op: SpectralOp2D, vhat: torch.Tensor) -> torch.Tensor:
     """Synthesis transform: v = Vx vhat Vy^T."""
     return torch.matmul(torch.matmul(op.Vx, vhat), op.Vy.T)
+
+
+def _full_dot(a, c):
+    return torch.sum(a * c)
+
+
+def member_dot(a, c):
+    """Inner product over the last two axes, kept as (..., 1, 1): one value
+    per member of a batch of fields."""
+    return torch.sum(a * c, dim=(-2, -1), keepdim=True)
+
+
+def _eps_div(dtype) -> float:
+    return 1e-300 if dtype == torch.float64 else 1e-30
+
+
+def _eps_mach(dtype) -> float:
+    return 2.2e-16 if dtype == torch.float64 else 1.2e-7
+
+
+def bicgstab(apply_A: Callable, b: torch.Tensor, apply_M: Callable,
+             tol: float, max_iter: int, x0: Optional[torch.Tensor] = None,
+             dot_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Right-preconditioned BiCGStab to ||r|| <= tol ||b|| or max_iter trips
+    (vch_tpu/ops/linsolve.py:88). The loop test runs on the host, one sync
+    per trip. With a per-member dot_fn, members that reach the tolerance
+    freeze while the others go on, as vmap of vch_tpu's while_loop does."""
+    dot = dot_fn or _full_dot
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - apply_A(x)
+    rhat = r
+    atol2 = (tol * torch.clamp(torch.sqrt(dot(b, b)), min=1e-300)) ** 2
+    eps_div = _eps_div(b.dtype)
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    rr = dot(r, r)
+    for _ in range(max_iter):
+        active = rr > atol2
+        if not bool(active.any()):
+            break
+        rho_new = dot(rhat, r)
+        beta = (rho_new / (rho + eps_div)) * (alpha / (omega + eps_div))
+        p_n = r + beta * (p - omega * v)
+        phat = apply_M(p_n)
+        v_n = apply_A(phat)
+        alpha_n = rho_new / (dot(rhat, v_n) + eps_div)
+        s = r - alpha_n * v_n
+        shat = apply_M(s)
+        t = apply_A(shat)
+        omega_n = dot(t, s) / (dot(t, t) + eps_div)
+        x_n = x + alpha_n * phat + omega_n * shat
+        r_n = s - omega_n * t
+        rr_n = dot(r_n, r_n)
+        sel = lambda new, old: torch.where(active, new, old)
+        x, r, p, v = sel(x_n, x), sel(r_n, r), sel(p_n, p), sel(v_n, v)
+        rho, alpha = sel(rho_new, rho), sel(alpha_n, alpha)
+        omega, rr = sel(omega_n, omega), sel(rr_n, rr)
+    return x
+
+
+def bicgstab_fixed(apply_A: Callable, b: torch.Tensor, apply_M: Callable,
+                   n_iter: int, x0: Optional[torch.Tensor] = None,
+                   dot_fn: Optional[Callable] = None,
+                   eps_div: Optional[float] = None) -> torch.Tensor:
+    """Fixed-trip BiCGStab without host syncs (vch_tpu/ops/linsolve.py:161):
+    a trip whose residual is at the noise floor (50 eps)^2 max(||b||^2,
+    eps_div) or whose new residual is not finite changes nothing, and the
+    best iterate is returned. eps_div defaults to vch_tpu's per-dtype value;
+    the per-solve kernels' plain versions pass the Pallas kernels' 1e-30."""
+    return bicgstab_fixed_trips(apply_A, b, apply_M, n_iter, x0, dot_fn,
+                                eps_div)[0]
+
+
+def bicgstab_fixed_trips(apply_A: Callable, b: torch.Tensor,
+                         apply_M: Callable, n_iter: int,
+                         x0: Optional[torch.Tensor] = None,
+                         dot_fn: Optional[Callable] = None,
+                         eps_div: Optional[float] = None):
+    """bicgstab_fixed, also returning the trips run, one count per dot_fn
+    value, by a solver that leaves the loop at a frozen trip or after a
+    rejected one, as the CUDA kernels do: such a trip repeats unchanged
+    until the trip budget ends."""
+    dot = dot_fn or _full_dot
+    eps_div = _eps_div(b.dtype) if eps_div is None else eps_div
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - apply_A(x)
+    rhat = r
+    floor2 = (50.0 * _eps_mach(b.dtype)) ** 2 * torch.clamp(dot(b, b),
+                                                            min=eps_div)
+    p = v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    best_x, best_r2 = x, dot(r, r)
+    running = torch.ones_like(best_r2, dtype=torch.bool)
+    trips = torch.zeros_like(best_r2, dtype=torch.int32)
+    for _ in range(n_iter):
+        active = dot(r, r) > floor2
+        running = running & active
+        trips = trips + running.to(torch.int32)
+        rho_new = dot(rhat, r)
+        beta = (rho_new / (rho + eps_div)) * (alpha / (omega + eps_div))
+        p_n = r + beta * (p - omega * v)
+        phat = apply_M(p_n)
+        v_n = apply_A(phat)
+        alpha_n = rho_new / (dot(rhat, v_n) + eps_div)
+        s = r - alpha_n * v_n
+        shat = apply_M(s)
+        t = apply_A(shat)
+        omega_n = dot(t, s) / (dot(t, t) + eps_div)
+        x_n = x + alpha_n * phat + omega_n * shat
+        r_n = s - omega_n * t
+        r2_n = dot(r_n, r_n)
+        ok = active & torch.isfinite(r2_n)
+        running = running & ok
+        better = ok & (r2_n < best_r2)
+        best_x = torch.where(better, x_n, best_x)
+        best_r2 = torch.where(better, r2_n, best_r2)
+        sel = lambda new, old: torch.where(ok, new, old)
+        x, r, p, v = sel(x_n, x), sel(r_n, r), sel(p_n, p), sel(v_n, v)
+        rho, alpha, omega = sel(rho_new, rho), sel(alpha_n, alpha), \
+            sel(omega_n, omega)
+    return best_x, trips
+
+
+def bicgstab_split(apply_A: Callable, b: torch.Tensor, apply_Phalf: Callable,
+                   apply_Phalf_inv: Callable, tol: float, max_iter: int,
+                   x0: Optional[torch.Tensor] = None,
+                   dot_fn: Optional[Callable] = None) -> torch.Tensor:
+    """BiCGStab on the split-preconditioned system P^-1/2 A P^-1/2
+    (vch_tpu/ops/linsolve.py:223): the raw adjoint operator has condition
+    ~1e6, and conditioning it before Krylov sees it keeps float32 iterates
+    O(1). apply_Phalf ~ P^{-1/2}, apply_Phalf_inv ~ P^{1/2} (for the warm
+    start). Solves A x = b; returns x = P^{-1/2} y."""
+    bt = apply_Phalf(b)
+    y0 = None if x0 is None else apply_Phalf_inv(x0)
+    apply_At = lambda v: apply_Phalf(apply_A(apply_Phalf(v)))
+    y = bicgstab(apply_At, bt, lambda v: v, tol=tol, max_iter=max_iter,
+                 x0=y0, dot_fn=dot_fn)
+    return apply_Phalf(y)
+
+
+def bicgstab_split_fixed(apply_A: Callable, b: torch.Tensor,
+                         apply_Phalf: Callable, apply_Phalf_inv: Callable,
+                         n_iter: int, x0: Optional[torch.Tensor] = None,
+                         dot_fn: Optional[Callable] = None,
+                         eps_div: Optional[float] = None) -> torch.Tensor:
+    """Fixed-trip form of bicgstab_split (vch_tpu/ops/linsolve.py:253)."""
+    bt = apply_Phalf(b)
+    y0 = None if x0 is None else apply_Phalf_inv(x0)
+    apply_At = lambda v: apply_Phalf(apply_A(apply_Phalf(v)))
+    y = bicgstab_fixed(apply_At, bt, lambda v: v, n_iter=n_iter, x0=y0,
+                       dot_fn=dot_fn, eps_div=eps_div)
+    return apply_Phalf(y)
+
+
+def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
+                          c1: float, kappa: float, delta_sep: float,
+                          tol: float = 1e-9, max_iter: int = 200,
+                          fixed_iters: Optional[int] = None,
+                          use_pallas: bool = False,
+                          pallas_variant: str = "spectral", entries=None):
+    """The 2D Newton step (dphi, dmu) by the exact Schur solve
+    (vch_tpu/ops/linsolve.py:361), with the reference's Jacobian clip
+    phi^2 <= 1 - delta_sep^2. Routing as vch_tpu's (:395-422): with
+    use_pallas and fixed_iters, one per-solve kernel entry of `entries`
+    (`schur_spectral` or, for pallas_variant "raw", `schur_raw`; an
+    ops.march.Entries), which launches the CUDA kernel on CUDA tensors and
+    runs its plain version on CPU tensors; else the composed fixed-trip or
+    adaptive BiCGStab with the cosine-diagonal preconditioner (d replaced
+    by its mean)."""
+    Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
+    mm = torch.matmul
+    phi_sq = torch.clamp(phi * phi, 0.0, 1.0 - delta_sep * delta_sep)
+    d = 2.0 * c1 / (1.0 - phi_sq)
+    dbar = torch.mean(d)
+    lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
+
+    def apply_S(v):
+        u = (tau / dt + d) * v - 0.5 * kappa * lap(v)
+        return (1.0 / dt) * v - lap(u)
+
+    denom = (1.0 / dt) + 0.5 * kappa * lam ** 2 - (tau / dt + dbar) * lam
+
+    def apply_M(v):
+        return mm(mm(Vx, mm(mm(Vxi, v), VyiT) / denom), VyT)
+
+    rhs = lap(Rphi) - Rmu
+    if use_pallas and fixed_iters is not None:
+        if pallas_variant == "spectral":
+            dphi = entries.schur_spectral(
+                Vxi, VyiT, Vx, VyT, lam, denom, d, rhs, 1.0 / dt, tau / dt,
+                0.5 * kappa, n_iter=fixed_iters)
+        else:
+            dphi = entries.schur_raw(
+                Lx, LyT, Vxi, VyiT, Vx, VyT, denom, d, rhs, 1.0 / dt,
+                tau / dt, 0.5 * kappa, n_iter=fixed_iters)
+    elif fixed_iters is not None:
+        dphi = bicgstab_fixed(apply_S, rhs, apply_M, n_iter=fixed_iters)
+    else:
+        dphi = bicgstab(apply_S, rhs, apply_M, tol=tol, max_iter=max_iter)
+    Kpp_dphi = -(0.5 * kappa) * lap(dphi) + (tau / dt + d) * dphi
+    dmu = 2.0 * (Kpp_dphi + Rphi)
+    return dphi, dmu

@@ -1,6 +1,8 @@
 """The kernels of the batched 2D PGD paths: the whole forward march and the
 whole adjoint sweep, their member-blocked forms and their K-step segment
-forms (counterpart of vch_tpu/ops/pallas_march.py).
+forms (counterpart of vch_tpu/ops/pallas_march.py); and `Entries`, the
+table of every kernel entry point a solver calls, per-solve kernels of
+ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
 hand-written kernels of `csrc/march2d.cu` and `csrc/adjoint2d.cu` (float32
@@ -33,6 +35,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from vch_tpu_torch.ops import _build
+from vch_tpu_torch.ops import solve_kernels as sk
 from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
 from vch_tpu_torch.ops.potential import fpp_log, regularized_log
 
@@ -308,43 +311,11 @@ def _fwd_consts(k):
     return (ctypes.c_float * len(vals))(*vals), len(vals)
 
 
-def _on_cuda(name, t) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
-    the plain version); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return True
-
-
-def _check_cuda(named, dev):
-    """Every (name, tensor, shape) of a launch: on `dev`, float32,
-    contiguous, of the expected shape."""
-    for name, t, shape in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{tuple(shape)}")
-
-
 def _op_shapes(n, m, with_wts=True):
     names = ("Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam", "wts")
     shapes = ((n, n), (m, m), (n, n), (m, m), (n, n), (m, m), (n, m), (n, m))
     k = 8 if with_wts else 7
     return names[:k], shapes[:k]
-
-
-def _raise_on(lib, err, what):
-    if err != 0:
-        msg = lib.vch_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
@@ -361,9 +332,9 @@ def _launch_march(wrapper, args, k, block_b):
     B, n, m = phi0.shape
     M = dts.shape[0]
     names, shapes = _op_shapes(n, m)
-    _check_cuda([("dts", dts, (M,)), ("phi0", phi0, (B, n, m)),
-                 ("u", u, (B, M + 1, n, m))]
-                + list(zip(names, ops, shapes)), phi0.device)
+    _build.check_cuda([("dts", dts, (M,)), ("phi0", phi0, (B, n, m)),
+                       ("u", u, (B, M + 1, n, m))]
+                      + list(zip(names, ops, shapes)), phi0.device)
     lib = _build.load()
     dev = phi0.device
     hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
@@ -379,7 +350,7 @@ def _launch_march(wrapper, args, k, block_b):
         k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
         block_b, stream)
     wrapper.launches += 1
-    _raise_on(lib, err, wrapper.__name__)
+    _build.raise_on(lib, err, wrapper.__name__)
     return hist, nsolve, first_bad
 
 
@@ -403,7 +374,7 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
-    if not _on_cuda("march_fused_2d", phi0):
+    if not _build.on_cuda("march_fused_2d", phi0):
         return march_fused_2d_plain(*args, **k)
     return _launch_march(march_fused_2d, args, k, 1)
 
@@ -425,7 +396,7 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
-    if not _on_cuda("march_fused_2d_blocked", phi0):
+    if not _build.on_cuda("march_fused_2d_blocked", phi0):
         return march_fused_2d_blocked_plain(*args, block_b=block_b, **k)
     _check_block(phi0.shape[0], block_b)
     if block_b not in _build.MEMBER_BLOCKS:
@@ -456,15 +427,15 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
             lam, wts)
-    if not _on_cuda("march_fused_2d_segment", phi0):
+    if not _build.on_cuda("march_fused_2d_segment", phi0):
         return march_fused_2d_segment_plain(*args, **k)
     B, n, m = phi0.shape
     K = dts.shape[0]
     names, shapes = _op_shapes(n, m)
-    _check_cuda([("dts", dts, (K,)), ("phi0", phi0, (B, n, m)),
-                 ("mu0", mu0, (B, n, m)), ("w0", w0, (B, n, m)),
-                 ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
-                + list(zip(names, args[6:], shapes)), phi0.device)
+    _build.check_cuda([("dts", dts, (K,)), ("phi0", phi0, (B, n, m)),
+                       ("mu0", mu0, (B, n, m)), ("w0", w0, (B, n, m)),
+                       ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
+                      + list(zip(names, args[6:], shapes)), phi0.device)
     lib = _build.load()
     dev = phi0.device
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -482,7 +453,7 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
         k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
         stream)
     march_fused_2d_segment.launches += 1
-    _raise_on(lib, err, "march_fused_2d_segment")
+    _build.raise_on(lib, err, "march_fused_2d_segment")
     return hist, phi_f, mu_f, w_f, nsolve, first_bad
 
 
@@ -623,11 +594,12 @@ def _launch_adjoint(wrapper, args, k, block_b):
     B, n, m = phi_T.shape
     M = dts.shape[0]
     names, shapes = _op_shapes(n, m, with_wts=False)
-    _check_cuda([("dts", dts, (M,)), ("phi_hist", phi_hist, (B, M + 1, n, m)),
-                 ("phi_Q", phi_Q, (B, M + 1, n, m)),
-                 ("phi_T", phi_T, (B, n, m)), ("b1", b1, (B,)),
-                 ("b2", b2, (B,))]
-                + list(zip(names, ops, shapes)), phi_T.device)
+    _build.check_cuda([("dts", dts, (M,)),
+                       ("phi_hist", phi_hist, (B, M + 1, n, m)),
+                       ("phi_Q", phi_Q, (B, M + 1, n, m)),
+                       ("phi_T", phi_T, (B, n, m)), ("b1", b1, (B,)),
+                       ("b2", b2, (B,))]
+                      + list(zip(names, ops, shapes)), phi_T.device)
     lib = _build.load()
     dev = phi_T.device
     r = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
@@ -639,7 +611,7 @@ def _launch_adjoint(wrapper, args, k, block_b):
         *[t.data_ptr() for t in args], r.data_ptr(), work.data_ptr(),
         B, M, n, m, consts, nc, k["n_trips"], block_b, stream)
     wrapper.launches += 1
-    _raise_on(lib, err, wrapper.__name__)
+    _build.raise_on(lib, err, wrapper.__name__)
     return r
 
 
@@ -655,7 +627,7 @@ def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
     k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
     args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
             Vx, VyT, lam)
-    if not _on_cuda("adjoint_fused_2d", phi_T):
+    if not _build.on_cuda("adjoint_fused_2d", phi_T):
         return adjoint_fused_2d_plain(*args, **k)
     return _launch_adjoint(adjoint_fused_2d, args, k, 1)
 
@@ -674,7 +646,7 @@ def adjoint_fused_2d_blocked(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
     k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
     args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
             Vx, VyT, lam)
-    if not _on_cuda("adjoint_fused_2d_blocked", phi_T):
+    if not _build.on_cuda("adjoint_fused_2d_blocked", phi_T):
         return adjoint_fused_2d_blocked_plain(*args, block_b=block_b, **k)
     _check_block(phi_T.shape[0], block_b)
     if block_b not in _build.MEMBER_BLOCKS:
@@ -701,16 +673,17 @@ def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
     k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
     args = (dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx, LyT, Vx_inv,
             Vy_inv_T, Vx, VyT, lam)
-    if not _on_cuda("adjoint_fused_2d_segment", p0):
+    if not _build.on_cuda("adjoint_fused_2d_segment", p0):
         return adjoint_fused_2d_segment_plain(*args, **k)
     B, n, m = p0.shape
     K = dts.shape[0]
     names, shapes = _op_shapes(n, m, with_wts=False)
-    _check_cuda([("dts", dts, (K,)), ("phi_seg", phi_seg, (B, K + 1, n, m)),
-                 ("phi_Q_seg", phi_Q_seg, (B, K + 1, n, m)),
-                 ("p0", p0, (B, n, m)), ("q0", q0, (B, n, m)),
-                 ("r0", r0, (B, n, m)), ("b1", b1, (B,))]
-                + list(zip(names, args[7:], shapes)), p0.device)
+    _build.check_cuda([("dts", dts, (K,)),
+                       ("phi_seg", phi_seg, (B, K + 1, n, m)),
+                       ("phi_Q_seg", phi_Q_seg, (B, K + 1, n, m)),
+                       ("p0", p0, (B, n, m)), ("q0", q0, (B, n, m)),
+                       ("r0", r0, (B, n, m)), ("b1", b1, (B,))]
+                      + list(zip(names, args[7:], shapes)), p0.device)
     lib = _build.load()
     dev = p0.device
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -724,7 +697,7 @@ def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
         q_f.data_ptr(), r_f.data_ptr(), work.data_ptr(), B, K, n, m, consts,
         nc, k["n_trips"], stream)
     adjoint_fused_2d_segment.launches += 1
-    _raise_on(lib, err, "adjoint_fused_2d_segment")
+    _build.raise_on(lib, err, "adjoint_fused_2d_segment")
     return r, p_f, q_f, r_f
 
 
@@ -732,10 +705,11 @@ adjoint_fused_2d_segment.launches = 0
 
 
 class Entries(NamedTuple):
-    """The six entry points a solver calls. KERNELS routes by device (the
-    CUDA kernels on CUDA tensors); PLAIN runs the plain versions on any
-    device, which chip_smoke.py uses to hold the kernel path against the
-    plain path on the card."""
+    """The entry points a solver calls: the six whole-march and whole-sweep
+    kernels and the four per-solve kernels of ops.solve_kernels. KERNELS
+    routes by device (the CUDA kernels on CUDA tensors); PLAIN runs the
+    plain versions on any device, which chip_smoke.py uses to hold the
+    kernel path against the plain path on the card."""
 
     march: Callable
     march_blocked: Callable
@@ -743,14 +717,23 @@ class Entries(NamedTuple):
     adjoint: Callable
     adjoint_blocked: Callable
     adjoint_segment: Callable
+    schur_spectral: Callable
+    adjoint_spectral: Callable
+    schur_raw: Callable
+    adjoint_raw: Callable
 
 
 KERNELS = Entries(march_fused_2d, march_fused_2d_blocked,
                   march_fused_2d_segment, adjoint_fused_2d,
-                  adjoint_fused_2d_blocked, adjoint_fused_2d_segment)
+                  adjoint_fused_2d_blocked, adjoint_fused_2d_segment,
+                  sk.bicgstab_schur_spectral, sk.bicgstab_adjoint_spectral,
+                  sk.bicgstab_schur, sk.bicgstab_adjoint)
 PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 march_fused_2d_segment_plain, adjoint_fused_2d_plain,
-                adjoint_fused_2d_blocked_plain, adjoint_fused_2d_segment_plain)
+                adjoint_fused_2d_blocked_plain, adjoint_fused_2d_segment_plain,
+                sk.bicgstab_schur_spectral_plain,
+                sk.bicgstab_adjoint_spectral_plain, sk.bicgstab_schur_plain,
+                sk.bicgstab_adjoint_plain)
 
 
 def reset_launches():

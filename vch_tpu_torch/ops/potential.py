@@ -1,5 +1,5 @@
-"""Flory–Huggins potential terms and the seeded random initial condition
-(vch_tpu/ops/potential.py).
+"""Flory–Huggins potential terms, the 2D free energy and the seeded random
+initial condition (vch_tpu/ops/potential.py).
 
 The initial condition is built host-side with numpy's default_rng so it is
 bit-identical to vch_tpu's (and to the reference solver's).
@@ -30,6 +30,29 @@ def fpp_log(phi: torch.Tensor, c1: float, c2: float,
     """f''(phi) = 2 c1/(1-phi^2) - 2 c2, phi clipped into (-1+eps, 1-eps)."""
     ph = torch.clamp(phi, -1.0 + eps, 1.0 - eps)
     return 2.0 * c1 / (1.0 - ph * ph) - 2.0 * c2
+
+
+def free_energy_2d(phi: torch.Tensor, kappa: float, c1: float, c2: float,
+                   hx: float, hy: float, w: torch.Tensor | None = None,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """2D free energy of phi[..., Nx+1, Ny+1] with forward-difference
+    gradient terms (vch_tpu/ops/potential.py:61): axis -2 is x (spacing
+    hx), -1 is y (hy); w adds the control coupling -hx hy sum(wts w phi)."""
+    Nx1, Ny1 = phi.shape[-2], phi.shape[-1]
+    wts = torch.as_tensor(np.outer(trapz_weights(Nx1), trapz_weights(Ny1)),
+                          dtype=phi.dtype, device=phi.device)
+    dphi_x = torch.diff(phi, dim=-2)
+    dphi_y = torch.diff(phi, dim=-1)
+    E_grad = ((kappa / (2.0 * hx)) * torch.sum(dphi_x ** 2, dim=(-2, -1)) * hy
+              + (kappa / (2.0 * hy)) * torch.sum(dphi_y ** 2, dim=(-2, -1))
+              * hx)
+    phi_s = torch.clamp(phi, -1.0 + eps, 1.0 - eps)
+    psi = (c1 * ((1.0 + phi_s) * torch.log(1.0 + phi_s)
+                 + (1.0 - phi_s) * torch.log(1.0 - phi_s)) - c2 * phi_s ** 2)
+    E = E_grad + hx * hy * torch.sum(wts * psi, dim=(-2, -1))
+    if w is not None:
+        E = E - hx * hy * torch.sum(wts * w * phi, dim=(-2, -1))
+    return E
 
 
 def init_phi_random_2d(Nx: int, Ny: int, delta_sep: float, amp: float = 0.1,

@@ -1,0 +1,292 @@
+"""The per-solve kernels of the 2D scan path: one whole fixed-trip BiCGStab
+solve per launch (counterpart of vch_tpu/ops/pallas_kernels.py).
+
+  bicgstab_schur_spectral   the Newton Schur solve S dphi = rhs in the
+                            cosine basis (pallas_kernels.py:691): the
+                            preconditioner is a pointwise divide, 8
+                            products per trip;
+  bicgstab_adjoint_spectral the split-preconditioned adjoint step solve
+                            A(phi_n) p = rhs in the cosine basis, warm
+                            started from x0 (:798), 8 products per trip;
+  bicgstab_schur            the Schur solve in the raw basis (:233), 16
+                            products per trip (pallas_variant "raw");
+  bicgstab_adjoint          the adjoint solve in the raw basis (:581), 24
+                            products per trip.
+
+Each takes its per-member fields as (n, m) or with a leading batch axis
+(B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
+Each wrapper routes by the tensors' device: on CUDA tensors it launches the
+hand-written kernel of `csrc/solve2d.cu` (float32, one CTA per member; a
+failed build or launch raises), on CPU tensors it runs its plain PyTorch
+version `<name>_plain` of this module, which computes what the Pallas
+kernel body computes (fixed trip count, noise-floor freeze, non-finite
+rejection, best iterate; eps_div 1e-30 in both dtypes, as the kernels) in
+float32 or float64 without host syncs. Each wrapper counts its launches in
+`.launches`.
+"""
+from __future__ import annotations
+
+import torch
+
+from vch_tpu_torch.ops import _build
+from vch_tpu_torch.ops.linsolve import bicgstab_fixed_trips, member_dot
+from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
+
+_EPS_DIV = 1e-30
+# (50 eps_f32)^2: the noise-floor freeze factor of the float32 kernels
+_FLOOR_F32 = (50.0 * 1.2e-7) ** 2
+# variant numbers of vch_bicgstab_2d
+_SCHUR_SPECTRAL, _SCHUR_RAW, _ADJOINT_SPECTRAL, _ADJOINT_RAW = range(4)
+
+
+def per_solve_kernels_fit(n: int, m: int, dtype_bytes: int = 4,
+                          vmem_limit: int = 100 * 2**20) -> bool:
+    """Whether vch_tpu's auto rule takes the per-solve kernels on an
+    (n, m) grid: its VMEM model of the whole solve (48 field buffers after
+    (8, 128) tiling pads, against 95% of the 100 MB scoped limit;
+    vch_tpu/ops/pallas_kernels.py:34 kernel_vmem_fits). The CUDA kernels
+    have no such limit; the port keeps the rule so that a config takes the
+    same Krylov path in both packages."""
+    pad = lambda a, k: -(-a // k) * k
+    field = pad(n, 8) * pad(m, 128) * dtype_bytes
+    return 48 * field <= int(0.95 * vmem_limit)
+
+
+def _transforms(Vx_inv, Vy_inv_T, Vx, VyT):
+    mm = torch.matmul
+    return (lambda v: mm(mm(Vx_inv, v), Vy_inv_T),
+            lambda vh: mm(mm(Vx, vh), VyT))
+
+
+# Each solve as the system its Krylov loop iterates on: (apply_A, b,
+# apply_M, x0, finish), the solution being finish(best iterate).
+
+def _schur_spectral_system(Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs,
+                           inv_dt, tau_dt, half_kappa):
+    to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
+    poly = inv_dt - tau_dt * lam + half_kappa * lam * lam
+    apply_S = lambda yh: poly * yh - lam * to_s(d * from_s(yh))
+    return apply_S, to_s(rhs), lambda yh: yh / denom, None, from_s
+
+
+def _adjoint_spectral_system(Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom,
+                             fpp, rhs, x0, tau, half_dt):
+    to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
+    isd = inv_sqrt_denom
+    poly = 1.0 - tau * lam + half_dt * lam * lam
+
+    def apply_At(yh):
+        z = isd * yh
+        w = to_s(fpp * from_s(lam * z))
+        return isd * (poly * z - half_dt * w)
+
+    return (apply_At, isd * to_s(rhs), lambda v: v, to_s(x0) / isd,
+            lambda y: from_s(isd * y))
+
+
+def _schur_system(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
+                  tau_dt, half_kappa):
+    to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
+    lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
+
+    def apply_S(v):
+        u = (tau_dt + d) * v - half_kappa * lap(v)
+        return inv_dt * v - lap(u)
+
+    return (apply_S, rhs, lambda v: from_s(to_s(v) / denom), None,
+            lambda x: x)
+
+
+def _adjoint_system(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
+                    rhs, x0, tau, half_dt):
+    # vch_tpu's bicgstab_split_fixed: P^-1/2 A P^-1/2 on P^-1/2 rhs
+    to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
+    lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
+    isd = inv_sqrt_denom
+    phalf = lambda v: from_s(to_s(v) * isd)
+
+    def apply_At(v):
+        z = phalf(v)
+        w = lap(z)
+        return phalf(z - tau * w + half_dt * (lap(w) - fpp * w))
+
+    return (apply_At, phalf(rhs), lambda v: v, from_s(to_s(x0) / isd),
+            phalf)
+
+
+_SYSTEMS = {"bicgstab_schur_spectral": _schur_spectral_system,
+            "bicgstab_adjoint_spectral": _adjoint_spectral_system,
+            "bicgstab_schur": _schur_system,
+            "bicgstab_adjoint": _adjoint_system}
+
+
+def _solve(name, args, n_iter):
+    apply_A, b, apply_M, x0, finish = _SYSTEMS[name](*args)
+    best, trips = bicgstab_fixed_trips(apply_A, b, apply_M, n_iter, x0=x0,
+                                       dot_fn=member_dot, eps_div=_EPS_DIV)
+    return finish(best), trips
+
+
+def solve_trips(name: str, *args, n_iter: int) -> torch.Tensor:
+    """The trips each member of the solve `name` (a wrapper's name, with its
+    arguments) runs in the CUDA kernel, which leaves the loop at a frozen
+    or rejected trip; counted on the plain version's arithmetic, so a count
+    at the float32 noise floor may differ by one from the kernel's."""
+    return _solve(name, args, n_iter)[1]
+
+
+def bicgstab_schur_spectral_plain(Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d,
+                                  rhs, inv_dt, tau_dt, half_kappa,
+                                  n_iter: int):
+    """Plain PyTorch version of `bicgstab_schur_spectral`."""
+    return _solve("bicgstab_schur_spectral",
+                  (Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs, inv_dt,
+                   tau_dt, half_kappa), n_iter)[0]
+
+
+def bicgstab_adjoint_spectral_plain(Vx_inv, Vy_inv_T, Vx, VyT, lam,
+                                    inv_sqrt_denom, fpp, rhs, x0, tau,
+                                    half_dt, n_iter: int):
+    """Plain PyTorch version of `bicgstab_adjoint_spectral`."""
+    return _solve("bicgstab_adjoint_spectral",
+                  (Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom, fpp, rhs,
+                   x0, tau, half_dt), n_iter)[0]
+
+
+def bicgstab_schur_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
+                         inv_dt, tau_dt, half_kappa, n_iter: int):
+    """Plain PyTorch version of `bicgstab_schur`."""
+    return _solve("bicgstab_schur",
+                  (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
+                   tau_dt, half_kappa), n_iter)[0]
+
+
+def bicgstab_adjoint_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
+                           inv_sqrt_denom, fpp, rhs, x0, tau, half_dt,
+                           n_iter: int):
+    """Plain PyTorch version of `bicgstab_adjoint`."""
+    return _solve("bicgstab_adjoint",
+                  (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
+                   rhs, x0, tau, half_dt), n_iter)[0]
+
+
+def _launch(wrapper, variant, scalars, mats, fields, n_iter):
+    """Check and launch one batch of solves: `mats` the seven operator slots
+    (Lx, LyT, Vxi, VyiT, Vx, VyT, lam; None where the variant takes none),
+    `fields` the four per-member slots (f1, f2, rhs, x0; x0 None for the
+    Schur solves), each (n, m) or (B, n, m)."""
+    rhs = fields[2]
+    n, m = rhs.shape[-2:]
+    B = rhs.shape[0] if rhs.dim() == 3 else 1
+    dev = rhs.device
+    shapes = ((n, n), (m, m), (n, n), (m, m), (n, n), (m, m), (n, m))
+    names = ("Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam")
+    fnames = ("f1", "f2", "rhs", "x0")
+    _build.check_cuda(
+        [(nm, t, s) for nm, t, s in zip(names, mats, shapes) if t is not None]
+        + [(nm, t, tuple(rhs.shape)) for nm, t in zip(fnames, fields)
+           if t is not None], dev)
+    if rhs.dim() not in (2, 3) or B < 1:
+        raise ValueError(f"rhs must be (n, m) or (B, n, m), got "
+                         f"{tuple(rhs.shape)}")
+    lib = _build.load()
+    scal = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=dev).reshape(())
+                        for v in scalars])
+    out = torch.empty_like(rhs)
+    work = torch.empty((B, lib.vch_solve_workspace_fields(), n, m),
+                       dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_bicgstab_2d(variant, scal.data_ptr(),
+                              *[ptr(t) for t in mats],
+                              *[ptr(t) for t in fields], out.data_ptr(),
+                              work.data_ptr(), B, n, m, int(n_iter),
+                              _FLOOR_F32, stream)
+    wrapper.launches += 1
+    _build.raise_on(lib, err, wrapper.__name__)
+    return out
+
+
+def bicgstab_schur_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs,
+                            inv_dt, tau_dt, half_kappa, n_iter: int):
+    """One fixed-trip Newton Schur solve S dphi = rhs per member in the
+    cosine basis, x0 = 0 (vch_tpu/ops/pallas_kernels.py:691).
+
+    Args: Vx_inv, Vx (n, n); Vy_inv_T, VyT (m, m); lam (n, m) eigenvalue
+    grid; denom (the preconditioner symbol), d (the Jacobian diagonal) and
+    rhs (n, m) or (B, n, m); inv_dt, tau_dt, half_kappa scalars (numbers
+    or 0-d tensors). Returns dphi shaped as rhs. The residual is measured in
+    the spectral metric, so the Krylov path differs from the raw-basis
+    solve's; the Newton tolerance gates the result either way.
+    """
+    args = (Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs, inv_dt, tau_dt,
+            half_kappa)
+    if not _build.on_cuda("bicgstab_schur_spectral", rhs):
+        return bicgstab_schur_spectral_plain(*args, n_iter=n_iter)
+    return _launch(bicgstab_schur_spectral, _SCHUR_SPECTRAL,
+                   (inv_dt, tau_dt, half_kappa),
+                   (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
+                   (denom, d, rhs, None), n_iter)
+
+
+bicgstab_schur_spectral.launches = 0
+
+
+def bicgstab_adjoint_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom,
+                              fpp, rhs, x0, tau, half_dt, n_iter: int):
+    """One fixed-trip split-preconditioned adjoint step solve A(phi_n) p =
+    rhs per member in the cosine basis, warm started from x0
+    (vch_tpu/ops/pallas_kernels.py:798).
+
+    Args: operators as `bicgstab_schur_spectral`; inv_sqrt_denom
+    1/sqrt|denom| on the eigenvalue grid, fpp f''(phi_n), rhs and x0, each
+    (n, m) or (B, n, m); tau, half_dt scalars. Returns p shaped as rhs.
+    """
+    args = (Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom, fpp, rhs, x0, tau,
+            half_dt)
+    if not _build.on_cuda("bicgstab_adjoint_spectral", rhs):
+        return bicgstab_adjoint_spectral_plain(*args, n_iter=n_iter)
+    return _launch(bicgstab_adjoint_spectral, _ADJOINT_SPECTRAL,
+                   (tau, half_dt),
+                   (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
+                   (inv_sqrt_denom, fpp, rhs, x0), n_iter)
+
+
+bicgstab_adjoint_spectral.launches = 0
+
+
+def bicgstab_schur(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
+                   tau_dt, half_kappa, n_iter: int):
+    """`bicgstab_schur_spectral` in the raw basis, with the preconditioner
+    applied through the transforms (vch_tpu/ops/pallas_kernels.py:233):
+    the iteration of vch_tpu's composed bicgstab_fixed. Lx (n, n) and LyT
+    (m, m) are the Laplacian factors."""
+    args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
+            half_kappa)
+    if not _build.on_cuda("bicgstab_schur", rhs):
+        return bicgstab_schur_plain(*args, n_iter=n_iter)
+    return _launch(bicgstab_schur, _SCHUR_RAW, (inv_dt, tau_dt, half_kappa),
+                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                   (denom, d, rhs, None), n_iter)
+
+
+bicgstab_schur.launches = 0
+
+
+def bicgstab_adjoint(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
+                     rhs, x0, tau, half_dt, n_iter: int):
+    """`bicgstab_adjoint_spectral` in the raw basis: the split
+    preconditioner P^-1/2 v = from_s(isd to_s(v)) wraps the raw operator
+    (vch_tpu/ops/pallas_kernels.py:581), the iteration of vch_tpu's
+    composed bicgstab_split_fixed."""
+    args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp, rhs, x0,
+            tau, half_dt)
+    if not _build.on_cuda("bicgstab_adjoint", rhs):
+        return bicgstab_adjoint_plain(*args, n_iter=n_iter)
+    return _launch(bicgstab_adjoint, _ADJOINT_RAW, (tau, half_dt),
+                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                   (inv_sqrt_denom, fpp, rhs, x0), n_iter)
+
+
+bicgstab_adjoint.launches = 0

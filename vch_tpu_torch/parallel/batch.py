@@ -35,6 +35,7 @@ from vch_tpu_torch.config import (ForwardSolverConfig2D, OptimizationConfig,
 from vch_tpu_torch.control.cost import calculate_cost_2d
 from vch_tpu_torch.control.prox import calculate_gradient, proximal_step
 from vch_tpu_torch.control.targets import build_targets_2d
+from vch_tpu_torch.device import resolve_device
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 from vch_tpu_torch.models.lowmem import FusedLowMemBatch2D, LowMemPipeline2D
@@ -76,7 +77,7 @@ def sweep_2d(fwd_config: ForwardSolverConfig2D,
     materialize_phi_Q=False no tracking-target frames are stored: phi_Q is
     None and phi_Q_mode names its closed form."""
     opt = opt_config or OptimizationConfig.defaults_2d()
-    solver = ForwardSolver2D(fwd_config)
+    solver = ForwardSolver2D(fwd_config, device="cpu")   # host grids and IC
     phi0 = solver.default_initial_phi()
     phi_T, phi_Q = build_targets_2d(solver.x, solver.y, solver.t_hist, phi0,
                                     float(fwd_config.Lx), float(fwd_config.Ly),
@@ -347,13 +348,14 @@ class _BatchedPGDBase:
 
 
 class BatchedProblem2D(_BatchedPGDBase):
-    """Batched 2D PGD on one device, keeping each member's trajectory."""
+    """Batched 2D PGD on one device (device=None: the CUDA card), keeping
+    each member's trajectory."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
                  settings: Optional[PGDSettings] = None,
                  alpha_max: float = 50.0, device=None):
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
-        device = torch.device(device if device is not None else "cpu")
+        device = resolve_device(device)
         self.solver = ForwardSolver2D(cfg, device=device)
         self.adj = AdjointSolver2D(cfg, device=device)
         super().__init__(settings, alpha_max)
@@ -386,7 +388,7 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
                  K: int = 10, settings: Optional[PGDSettings] = None,
                  alpha_max: float = 50.0, device=None):
         self.fwd_config = fwd_config or ForwardSolverConfig2D()
-        device = torch.device(device if device is not None else "cpu")
+        device = resolve_device(device)
         self.pipe = LowMemPipeline2D(self.fwd_config, K=K, device=device)
         self.solver, self.adj = self.pipe.solver, self.pipe.adjoint
         self._fused = FusedLowMemBatch2D(self.pipe)
@@ -438,11 +440,12 @@ def make_batched_problem_2d(fwd_config: Optional[ForwardSolverConfig2D] = None,
     """The full-memory or the segment-checkpointed batched 2D problem, by
     estimated peak device memory (vch_tpu/parallel/batch.py:1185-1287,
     single-device arms): LowMemBatchedProblem2D when the full-memory
-    estimate (full_memory_estimate_bytes) exceeds safety * limit, else BatchedProblem2D. The limit is
+    estimate (full_memory_estimate_bytes) exceeds safety * limit, else
+    BatchedProblem2D, on `device` (None: the CUDA card). The limit is
     hbm_limit_bytes if given, else the total memory of the CUDA device, or
     16 GiB for a CPU device."""
     cfg = fwd_config or ForwardSolverConfig2D()
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     est = full_memory_estimate_bytes(cfg, batch, materialized_phi_Q)
     if hbm_limit_bytes is None:
         hbm_limit_bytes = (torch.cuda.get_device_properties(device).total_memory

@@ -45,7 +45,17 @@ def scenario_batch_from_numpy(sc, dtype=torch.float64,
         phi_Q_mode=sc.phi_Q_mode if procedural else None)
 
 
+def control_arrays_from_vch_tpu(prob) -> dict:
+    """phi0, phi_T_target, phi_Q_target and the baseline phi_hist0 of a
+    vch_tpu ControlProblem2D (any object with those attributes), as float64
+    numpy arrays."""
+    return {name: np.array(getattr(prob, name), dtype=np.float64)
+            for name in ("phi0", "phi_T_target", "phi_Q_target", "phi_hist0")}
+
+
 def config_from_vch_tpu(d: Mapping) -> ForwardSolverConfig2D:
     """The port's ForwardSolverConfig2D from vch_tpu's
-    `ForwardSolverConfig2D.model_dump()` (or its JSON, loaded)."""
+    `ForwardSolverConfig2D.model_dump()` (or its JSON, loaded), the routing
+    knobs use_pallas, pallas_variant, krylov_tol and krylov_max_iter
+    included."""
     return ForwardSolverConfig2D.from_dict(dict(d))
