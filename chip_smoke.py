@@ -24,6 +24,18 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
                gated against float64, with kernel and plain CUDA-event times;
+  2d kernels — the fused 1D march against its plain version in float32 and
+               both against the plain version in float64, at n = 129 and
+               n = 513, B = 8, 5-step and 100-step marches, and at B = 134
+               and 270 (two and four members per CTA, the last CTA not
+               full); every members-per-CTA grouping bit-equal; the kernel's
+               time at config 2's full shape (n = 513, B = 256, M = 500);
+  2e kernels — the three operator applies (Schur, adjoint, spectral solve)
+               against their plain versions on fields from a real step at
+               n = 65, 129 and 257, one field and a batch of 4, and the raw
+               Schur solve on a batch of 8 (the counterpart of the TPU's
+               member-tiled solve), gated against float64; beside each
+               apply the time of the same function as torch.matmul calls;
   3 slice    — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep
                with one member per CTA, kernel path against plain path,
                3 PGD iterations;
@@ -34,6 +46,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   3c control — ControlProblem2D at 32x32, T = 0.25 (the golden config's
                grid), float32, 3 PGD iterations, kernel path against plain
                path, once with each pallas_variant;
+  3d slice   — BatchedProblem1D at N = 64 on a heterogeneous B = 16 sweep,
+               kernel path against plain path, 3 PGD iterations;
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
                one warm-up iteration, then 3 timed PGD iterations with the
                kernel launch counters reset just before (per-member kernels);
@@ -48,10 +62,22 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                grid, B = 64 and 128 at T = 1 and B = 128 at T = 0.1, over S
                (one trajectory-shaped array) and over the estimate
                make_batched_problem_2d routes by, which it must not exceed;
-  8 config 3 — this slice's main path: BASELINE config 3 (64x64, T = 1,
-               M = 100, float32) through ControlProblem2D: constructor,
-               one warm-up and 3 timed PGD iterations, verify_sparsity and
-               second_order_check, launches counted in each window.
+  8 config 3 — a main path: BASELINE config 3 (64x64, T = 1, M = 100,
+               float32) through ControlProblem2D: constructor, one warm-up
+               and 3 timed PGD iterations, verify_sparsity and
+               second_order_check, launches counted in each window;
+  9 config 2 — a main path: BASELINE config 2 at full width (1D, N = 512,
+               T = 1, dt = 2e-3: M = 500, the 32 x 8 (b3, kappa) sweep:
+               B = 256, float32) through BatchedProblem1D: one warm-up, then
+               3 timed PGD iterations (the fused 1D march; the adjoint is the
+               batched per-step sweep, which has no kernel);
+  10 config 1 — BASELINE config 1 (1D, N = 128, M = 100, one scenario,
+               float32) through ControlProblem1D: constructor, one warm-up
+               and 3 timed PGD iterations, verify_sparsity; it launches no
+               kernel, as in vch_tpu;
+  9p profile — config 2 once more, one PGD iteration under torch.profiler,
+               after every timed phase: the device's busy share and the
+               kernels with the most device time.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -76,6 +102,48 @@ def _smi():
             else "nvidia-smi: no output"
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def _ptxas_summary(log):
+    """ptxas's registers and spill stores of every kernel, by object:
+    `[source VCH_BB=n] 128r/0s ...`, in the order ptxas lists them."""
+    out, spill = [], "?"
+    for ln in log.splitlines():
+        if ln.startswith("["):
+            out.append(ln.strip())
+        elif "spill stores" in ln:
+            spill = ln.split("bytes stack frame,")[1].split("bytes spill "
+                                                            "stores")[0].strip()
+        elif "registers" in ln:
+            out.append(ln.split("Used")[1].split("registers")[0].strip()
+                       + f"r/{spill}s")
+    return " ".join(out)
+
+
+def device_share(torch, fn):
+    """One call of fn under torch.profiler: host wall seconds, the summed
+    device time of its kernels and copies, their ratio (the device's busy
+    share; the rest is idle while the host prepares the next launch), and the
+    five kernels with the most device time. A profiler that records no
+    device time gives None where a number would be."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    rows = [(e.key, dev_us(e) / 1e6) for e in prof.key_averages()
+            if dev_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(t for _, t in rows)
+    if not rows:
+        return dict(wall_s=wall, device_s=None, busy_share=None, top=[])
+    return dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
+                top=[(k[:60], t) for k, t in rows[:5]])
 
 
 def _time_ms(torch, fn, reps):
@@ -714,6 +782,420 @@ def check_solve_case(c):
                            + "; ".join(fails))
 
 
+def _problem_inputs_1d(torch, N, B, T, dt, device, seed=0):
+    """1D solvers in float32 and float64 (the float64 one on the plain
+    version, taking the float32 path's Newton exits and Krylov trips) and
+    seeded inputs as tensors of both dtypes."""
+    from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig1D
+    from vch_tpu_torch.models.forward1d import ForwardSolver1D
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops.potential import init_phi_random_1d
+
+    fwd, fwd64 = (ForwardSolver1D(ForwardSolverConfig1D(
+        N=N, T=T, dt_initial=dt, dtype=name, newton_tol=2e-4,
+        linsolve_1d="spectral"), device=device)
+        for name in ("float32", "float64"))
+    fwd64.entries = km.PLAIN
+    fwd64._rtol, fwd64._stagnation = fwd._rtol, fwd._stagnation
+    fwd64._krylov_fixed = fwd._krylov_fixed
+    rng = np.random.default_rng(seed)
+    host = dict(
+        phi0=np.stack([init_phi_random_1d(N, DELTA_SEP, amp=0.01, seed=42 + i)
+                       for i in range(B)]),
+        u=0.05 * rng.standard_normal((B, fwd.M + 1, N + 1)))
+    as_dev = lambda dtype: {k: torch.as_tensor(v, dtype=dtype, device=device)
+                            for k, v in host.items()}
+    return fwd, fwd64, as_dev(torch.float32), as_dev(torch.float64)
+
+
+def _march1d_direct(fwd, x, group):
+    """The 1D march wrapper with an explicit members-per-CTA group."""
+    from vch_tpu_torch.config import DELTA_SEP
+    from vch_tpu_torch.ops import march as km
+    cfg = fwd.config
+    return km.march_fused_1d(
+        fwd.dts, x["phi0"], x["u"], fwd.LT, fwd.VinvT, fwd.VT, fwd.lam[None],
+        fwd.wts[None], tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
+        gamma=cfg.gamma, delta_sep=DELTA_SEP, Lx_len=float(cfg.Lx),
+        newton_tol=cfg.newton_tol, newton_rtol=fwd._rtol,
+        newton_max_iter=cfg.newton_max_iter, n_trips=fwd._krylov_fixed,
+        stagnation_exit=fwd._stagnation, group=group)
+
+
+def march1d_case(torch, device, N, B, T, dt, plain_members=8, reps=3,
+                 cpu_reference=False):
+    """Phase 2d at one shape: the 1D march kernel (the wrapper's own
+    grouping) against its plain version in float32 and both against the
+    plain version in float64 on the first plain_members members (with
+    cpu_reference also the plain float32 version on the CPU: the spread of
+    two float32 implementations); every explicit grouping against the
+    wrapper's own on all members."""
+    from vch_tpu_torch.ops import march as km
+
+    fwd, fwd64, x, x64 = _problem_inputs_1d(torch, N, B, T, dt, device)
+    kh, kns, kbad = fwd.march_fused_batch(x["u"], x["phi0"])
+    torch.cuda.synchronize()
+    groups_equal = True
+    for group in km.MARCH_1D_GROUPS:
+        gh, gns, gbad = _march1d_direct(fwd, x, group)
+        groups_equal = groups_equal and bool(
+            torch.equal(gh, kh) and torch.equal(gns, kns)
+            and torch.equal(gbad, kbad))
+    P = min(plain_members, B)
+    sub = lambda v: {k: t[:P].contiguous() for k, t in v.items()}
+    xs, x64s = sub(x), sub(x64)
+    fwd.entries = km.PLAIN
+    plain_ms, (ph, pns, pbad) = _host_ms(
+        torch, lambda: fwd.march_fused_batch(xs["u"], xs["phi0"]))
+    fwd.entries = km.KERNELS
+    h64, _, _ = fwd64.march_fused_batch(x64s["u"], x64s["phi0"])
+    torch.cuda.synchronize()
+    cpu_vs_f64 = None
+    if cpu_reference:
+        h_cpu = _plain_on_cpu(fwd, "march_fused_batch", xs["u"], xs["phi0"])[0]
+        cpu_vs_f64 = (h_cpu.double() - h64.cpu()).abs().max().item()
+    return dict(n=N + 1, B=B, M=fwd.M, plain_members=P,
+                dphi_plain_cpu_vs_f64=cpu_vs_f64,
+                finite=bool(torch.isfinite(kh).all()),
+                groups_bit_equal=groups_equal,
+                max_abs_dphi=(kh[:P] - ph).abs().max().item(),
+                dphi_kernel_vs_f64=(kh[:P].double() - h64).abs().max().item(),
+                dphi_plain_vs_f64=(ph.double() - h64).abs().max().item(),
+                newton_kernel=kns[:P].cpu().tolist(),
+                newton_plain=pns.cpu().tolist(),
+                newton_kernel_total=float(kns.sum()),
+                first_bad_equal=bool(torch.equal(kbad[:P], pbad)),
+                march_ms=_time_ms(torch, lambda: fwd.march_fused_batch(
+                    x["u"], x["phi0"]), reps),
+                march_plain_ms=plain_ms)
+
+
+def check_march1d_case(c, short: bool):
+    """Phase 2d gates: finite; first_bad equal to the plain version's; every
+    grouping bit-equal (a member's sums are taken in one order whatever the
+    members per CTA). Short marches at n = 129: max|dphi| <= 1e-5 and equal
+    Newton counts. Elsewhere the float64-referenced gate of phase 2 (at
+    n = 513 the Laplacian's entries are ~5e5, and two float32 marches of a
+    rough field differ by ~4e-4 after five steps; over 100 steps any two
+    float32 marches drift apart within the Newton tolerance's slack): the
+    kernel no farther from the float64 march than twice the farther of the
+    two plain float32 marches (on the card and on the CPU: one plain march's
+    distance is one sample of that spread), plus 1e-6, and Newton totals
+    within 1%."""
+    fails = []
+    if not c["finite"]:
+        fails.append("non-finite phi")
+    if not c["first_bad_equal"]:
+        fails.append("first_bad differs from plain")
+    if not c["groups_bit_equal"]:
+        fails.append("a grouping changed a member's result")
+    nk, npl = sum(c["newton_kernel"]), sum(c["newton_plain"])
+    if short:
+        if c["max_abs_dphi"] > 1e-5:
+            fails.append(f"max|dphi| {c['max_abs_dphi']} > 1e-5")
+        if c["newton_kernel"] != c["newton_plain"]:
+            fails.append(f"Newton counts {c['newton_kernel']} vs "
+                         f"{c['newton_plain']}")
+    else:
+        ref = max(c["dphi_plain_vs_f64"], c["dphi_plain_cpu_vs_f64"] or 0.0)
+        if c["dphi_kernel_vs_f64"] > 2 * ref + 1e-6:
+            fails.append("kernel farther from float64 than plain float32")
+        if abs(nk - npl) > 0.01 * npl:
+            fails.append(f"Newton solves {nk} vs {npl}")
+    if fails:
+        raise RuntimeError(f"1D march n={c['n']} B={c['B']} M={c['M']}: "
+                           + "; ".join(fails) + f" | {c}")
+
+
+def _march1d_work(n, B, M, newton, n_trips):
+    """(FLOPs, bytes) of a 1D march launch: 2 n^2 FLOP per vector-operator
+    product; per member one product at the start and four per step (the two
+    Laplacians of the old level, the first residual), per Newton solve
+    6 + 4 n_trips (right-hand side, the trips' operator applies, the step's
+    synthesis and Laplacian, one Armijo trial's residual, the fewest there
+    can be), Krylov trips counted in full. Bytes in: u, phi0, dts, the three
+    operators, lam, wts; out: the history and the two counters."""
+    flops = 2.0 * n * n * (B * (1 + 4 * M) + newton * (6 + 4 * n_trips))
+    nbytes = 4 * (2 * B * (M + 1) * n + B * n + M + 3 * n * n + 2 * n + 2 * B)
+    return flops, nbytes
+
+
+APPLY_KERNELS = ("schur_apply", "adjoint_apply", "spectral_solve")
+
+
+def _apply_args(name, ops, f):
+    """One operator apply's arguments on the fields of _solve_args: the
+    Schur operator on (d, p), the adjoint operator on (f'', p), the spectral
+    solve on (denom, the Schur right-hand side)."""
+    (denom, d, rhs), (_, fpp, _, p) = f["schur"], f["adjoint"]
+    if name == "schur_apply":
+        return (ops.Lx, ops.LyT, d, p)
+    if name == "adjoint_apply":
+        return (ops.Lx, ops.LyT, fpp, p)
+    return (ops.Vx_inv, ops.Vy_inv_T, ops.Vx, ops.VyT, denom, rhs)
+
+
+def _apply_as_matmuls(torch, name, args, scal):
+    """The same function as plain torch.matmul calls: the yardstick beside
+    each apply kernel (timed here, used nowhere in the package)."""
+    mm = torch.matmul
+    if name == "spectral_solve":
+        Vxi, VyiT, Vx, VyT, denom, v = args
+        return mm(mm(Vx, mm(mm(Vxi, v), VyiT) / denom), VyT)
+    Lx, LyT, f1, v = args
+    lap = lambda a: mm(Lx, a) + mm(a, LyT)
+    if name == "schur_apply":
+        inv_dt, tau_dt, hk = scal
+        return inv_dt * v - lap((tau_dt + f1) * v - hk * lap(v))
+    tau, half = scal
+    w = lap(v)
+    return v - tau * w + half * (lap(w) - f1 * w)
+
+
+def _apply_work(name, n, B):
+    """(FLOPs, bytes) of an apply on B members of an (n, n) grid: four
+    products of 2 n^3 FLOP; in: the field, its coefficient, two or four
+    operators; out: the result."""
+    mats = 4 if name == "spectral_solve" else 2
+    return 4 * 2.0 * n ** 3 * B, 4 * n * n * (3 * B + mats)
+
+
+def apply_case(torch, device, n, B, reps=20):
+    """Phase 2e at one shape: each operator apply against its plain version
+    on float32 fields from a real step, both against the plain version in
+    float64; CUDA-event ms of the kernel, the plain version and the
+    torch.matmul form."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
+    scalars = {"schur_apply": scal["schur"][0],
+               "adjoint_apply": scal["adjoint"][0], "spectral_solve": ()}
+    out = dict(n=n, B=B or 1, batched=B is not None)
+    for name in APPLY_KERNELS:
+        wrapper, plain = getattr(sk, name), getattr(sk, name + "_plain")
+        a32, a64 = _apply_args(name, ops32, f32), _apply_args(name, ops64, f64)
+        k = wrapper(*a32, *scalars[name])
+        p = plain(*a32, *scalars[name])
+        p64 = plain(*a64, *scalars[name])
+        lib = _apply_as_matmuls(torch, name, a32, scalars[name])
+        torch.cuda.synchronize()
+        out[name] = dict(
+            finite=bool(torch.isfinite(k).all()),
+            max_abs_err=(k - p).abs().max().item(),
+            rel_kernel_vs_plain=_rel(k, p, p),
+            rel_kernel_vs_f64=_rel(k, p64, p64),
+            rel_plain_vs_f64=_rel(p, p64, p64),
+            rel_matmuls_vs_plain=_rel(lib, p, p),
+            ms=_time_ms(torch, lambda: wrapper(*a32, *scalars[name]), reps),
+            plain_ms=_time_ms(torch, lambda: plain(*a32, *scalars[name]),
+                              reps),
+            library_ms=_time_ms(torch, lambda: _apply_as_matmuls(
+                torch, name, a32, scalars[name]), reps))
+    return out
+
+
+def batched_schur_case(torch, device, n=65, B=8, reps=20):
+    """Phase 2e: the raw Schur solve launched on a batch of B (one CTA per
+    member), the counterpart of the TPU's member-tiled solve, against its
+    plain version in float32 and float64, and member 0 against its own
+    one-member launch."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
+    name = "bicgstab_schur"
+    k = _solve_call(name, ops32, f32, scal, sk.bicgstab_schur)
+    p = _solve_call(name, ops32, f32, scal, sk.bicgstab_schur_plain)
+    p64 = _solve_call(name, ops64, f64, scal, sk.bicgstab_schur_plain)
+    one = {kind: tuple(t[0].contiguous() for t in v) for kind, v in f32.items()}
+    k0 = _solve_call(name, ops32, one, scal, sk.bicgstab_schur)
+    trips = _solve_call(name, ops32, f32, scal, lambda *a, n_iter:
+                        sk.solve_trips(name, *a, n_iter=n_iter))
+    torch.cuda.synchronize()
+    return dict(n=n, B=B, finite=bool(torch.isfinite(k).all()),
+                max_abs_err=(k - p).abs().max().item(),
+                rel_kernel_vs_plain=_rel(k, p, p),
+                rel_kernel_vs_f64=_rel(k, p64, p64),
+                rel_plain_vs_f64=_rel(p, p64, p64),
+                member_equals_single_launch=bool(torch.equal(k[0], k0)),
+                trips=trips.flatten().cpu().tolist(),
+                ms=_time_ms(torch, lambda: _solve_call(
+                    name, ops32, f32, scal, sk.bicgstab_schur), reps),
+                plain_ms=_time_ms(torch, lambda: _solve_call(
+                    name, ops32, f32, scal, sk.bicgstab_schur_plain), reps))
+
+
+def check_apply_cases(applies, batched):
+    """Phase 2e gates, the float64-referenced pattern of phase 2c: each
+    kernel's float32 result finite and no farther from the float64 plain
+    version than twice the plain float32 version plus 1e-5; a member of the
+    batched Schur solve bit-equal to its one-member launch."""
+    fails = []
+    results = [(f"{name} n={c['n']} B={c['B']}", c[name])
+               for c in applies for name in APPLY_KERNELS]
+    results.append((f"batched bicgstab_schur B={batched['B']}", batched))
+    for tag, k in results:
+        if not k["finite"]:
+            fails.append(f"{tag}: non-finite output")
+        if k["rel_kernel_vs_f64"] > 2 * k["rel_plain_vs_f64"] + 1e-5:
+            fails.append(f"{tag}: {k['rel_kernel_vs_f64']} from float64, "
+                         f"plain float32 {k['rel_plain_vs_f64']}")
+    if not batched["member_equals_single_launch"]:
+        fails.append("a member of the batched solve differs from its "
+                     "one-member launch")
+    if fails:
+        raise RuntimeError("apply kernels: " + "; ".join(fails))
+
+
+def operator_calls(torch, device, n=65, B=4):
+    """The three operator applies and the batched raw Schur solve have no
+    caller in the solvers: their entry points are the wrappers themselves.
+    Calls each once through its wrapper, as a user would, with the counts
+    set to 0 just before, and returns the counts read just after."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    ops32, _, f32, _, scal = _solve_args(torch, device, n, B)
+    km.reset_launches()
+    outs = [sk.schur_apply(*_apply_args("schur_apply", ops32, f32),
+                           *scal["schur"][0]),
+            sk.adjoint_apply(*_apply_args("adjoint_apply", ops32, f32),
+                             *scal["adjoint"][0]),
+            sk.spectral_solve(*_apply_args("spectral_solve", ops32, f32)),
+            _solve_call("bicgstab_schur", ops32, f32, scal,
+                        sk.bicgstab_schur)]
+    torch.cuda.synchronize()
+    counts = km.launch_counts()
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise RuntimeError("operator calls: non-finite output")
+    return counts
+
+
+def slice1d_case(torch, device, N=64, T=0.1, iters=3):
+    """Phase 3d: the batched 1D PGD slice on a heterogeneous B = 16 sweep,
+    kernel path (the fused 1D march) against plain path."""
+    from vch_tpu_torch.config import ForwardSolverConfig1D
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.batch import BatchedProblem1D, sweep_1d
+
+    cfg = ForwardSolverConfig1D(N=N, T=T, dtype="float32", newton_tol=2e-4)
+    sc = sweep_1d(cfg, b3_values=np.logspace(-5, -2, 4),
+                  kappa_values=np.logspace(-6, -3, 4))
+    runs = {}
+    for path in ("kernel", "plain"):
+        prob = BatchedProblem1D(cfg, device=device)
+        if not prob._use_fused_march:
+            raise RuntimeError("the 1D slice did not take the fused march")
+        if path == "plain":
+            prob.solver.entries = km.PLAIN
+        km.reset_launches()
+        t0 = time.perf_counter()
+        out = prob.run(sc, max_iter=iters, verbose=False)
+        runs[path] = (out, prob.straggler_rounds, time.perf_counter() - t0,
+                      km.launch_counts())
+    (ko, ks, kt, kl), (po, ps, pt, pl) = runs["kernel"], runs["plain"]
+    c0, c1 = po["cost_history"], ko["cost_history"]
+    return dict(N=N, B=sc.batch, M=prob.solver.M, iters=iters,
+                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+                straggler_rounds_kernel=ks, straggler_rounds_plain=ps,
+                newton_kernel=ko["newton_solves"],
+                newton_plain=po["newton_solves"], kernel_s=kt, plain_s=pt,
+                launches=kl, plain_launches=pl, cost_history=c1.tolist(),
+                finite=bool(np.isfinite(c1).all()))
+
+
+def check_slice1d(c):
+    """Phase 3d gates: finite costs; the kernel path's cost history within
+    2e-4 relative of the plain path's; Newton solves within 1% (a step that
+    converges right at the tolerance may take one more iteration when sums
+    run in another order); the 1D march launched on the kernel path, nothing
+    on the plain path."""
+    fails = []
+    if not c["finite"] or c["rel_cost"] > 2e-4:
+        fails.append(f"cost history vs plain {c['rel_cost']}")
+    if abs(c["newton_kernel"] - c["newton_plain"]) > 0.01 * c["newton_plain"]:
+        fails.append(f"Newton solves {c['newton_kernel']} vs "
+                     f"{c['newton_plain']}")
+    if c["launches"]["march_fused_1d"] <= 0:
+        fails.append("march_fused_1d never launched")
+    fails += [f"plain path launched {k}"
+              for k, v in c["plain_launches"].items() if v]
+    if fails:
+        raise RuntimeError("1D slice: " + "; ".join(fails) + f" | {c}")
+
+
+def config2_problem(device):
+    """BASELINE config 2 at full width (scripts/run_benchmarks.py:49-58): 1D,
+    N = 512, T = 1, dt = 2e-3 (M = 500), float32, newton_tol 2e-4, the
+    32 x 8 (b3, kappa_spar) sweep: B = 256."""
+    from vch_tpu_torch.config import (ForwardSolverConfig1D,
+                                      OptimizationConfig)
+    from vch_tpu_torch.parallel.batch import BatchedProblem1D, sweep_1d
+
+    cfg = ForwardSolverConfig1D(N=512, T=1.0, dt_initial=2e-3,
+                                dtype="float32", newton_tol=2e-4)
+    sc = sweep_1d(cfg, OptimizationConfig(),
+                  b3_values=np.linspace(5e-4, 5e-3, 32),
+                  kappa_values=np.linspace(1e-5, 2e-4, 8))
+    return BatchedProblem1D(cfg, device=device), sc
+
+
+def config1_run(torch, device, iters=3):
+    """Phase 10: BASELINE config 1 (scripts/run_benchmarks.py:31-45 in
+    float32: N = 128, T = 1, M = 100, the 1D optimizer defaults) through
+    ControlProblem1D on the card: constructor, one warm-up PGD iteration,
+    `iters` timed ones, verify_sparsity; the launch counts set to 0 before
+    the constructor and read at the end."""
+    from vch_tpu_torch.config import ForwardSolverConfig1D
+    from vch_tpu_torch.control.problems import ControlProblem1D
+    from vch_tpu_torch.ops import march as km
+
+    km.reset_launches()
+    t0 = time.perf_counter()
+    prob = ControlProblem1D(ForwardSolverConfig1D(dtype="float32"),
+                            device=device)
+    torch.cuda.synchronize()
+    constructor_s = time.perf_counter() - t0
+    n0 = prob.newton_solves
+    t0 = time.perf_counter()
+    prob.optimize(max_iter=1, verbose=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n1 = prob.newton_solves
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = prob.optimize(max_iter=iters, verbose=False)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    sparsity = prob.verify_sparsity(res, verbose=False)
+    ch = np.asarray(res.cost_history)
+    return dict(N=prob.fwd_config.N, M=prob.solver.M, iters=iters,
+                pgd_iters_per_s=iters / elapsed, elapsed_s=elapsed,
+                constructor_s=constructor_s, warmup_s=warm_s,
+                timers=dict(res.timers), ls_trials=res.ls_trials_per_iter,
+                constructor_newton_solves=n0,
+                newton_solves=prob.newton_solves - n1,
+                cost_history=ch.tolist(), peak_bytes=peak,
+                sparsity={k: (float(v) if isinstance(v, (float, np.floating))
+                              else v) for k, v in sparsity.items()},
+                launches=km.launch_counts(),
+                device=str(prob.phi_hist0.device),
+                finite=bool(np.isfinite(ch).all()))
+
+
+def check_config1(c):
+    """Phase 10 gates: finite costs, the last below the first; on the card;
+    no kernel launched (the problem runs the per-step marcher and sweep)."""
+    fails = [f"{k} launched {v} times" for k, v in c["launches"].items() if v]
+    ch = c["cost_history"]
+    if not c["finite"] or not ch[-1] < ch[0]:
+        fails.append("did not descend")
+    if not c["device"].startswith("cuda"):
+        fails.append(f"ran on {c['device']}")
+    if fails:
+        raise RuntimeError("config 1: " + "; ".join(fails) + f" | {c}")
+
+
 def _control_problem(device, cfg):
     from vch_tpu_torch.config import OptimizationConfig
     from vch_tpu_torch.control.problems import ControlProblem2D
@@ -935,7 +1417,9 @@ def pgd_run(torch, device, prob, sc, iters):
     launches = km.launch_counts()
     B = sc.batch
     ch = out["cost_history"]
-    return dict(B=B, n=prob.solver.config.Nx, M=prob.solver.M, iters=iters,
+    cfg = prob.solver.config
+    return dict(B=B, n=cfg.Nx if hasattr(cfg, "Nx") else cfg.N,
+                M=prob.solver.M, iters=iters,
                 problem=type(prob).__name__, elapsed_s=elapsed,
                 warmup_s=warm_s, scenario_iters_per_s=B * iters / elapsed,
                 newton_solves=out["newton_solves"],
@@ -1023,12 +1507,10 @@ def main():
 
     t0 = time.perf_counter()
     lib = _build.load()
-    regs = [ln.strip() for ln in _build.ptxas_log.splitlines()
-            if "registers" in ln or "spill" in ln]
     how = (f"nvcc {_build.build_seconds:.1f} s" if _build.build_seconds
            else "library of these sources already built")
-    _log(1, f"build {time.perf_counter() - t0:.1f} s ({how}) | "
-            + " ; ".join(regs))
+    _log(1, f"build {time.perf_counter() - t0:.1f} s ({how}) | registers/"
+            "spill-store bytes per kernel: " + _ptxas_summary(_build.ptxas_log))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
              kernel_case(torch, 129, 2, 0.05, device),
@@ -1061,6 +1543,33 @@ def main():
         check_solve_case(c)
     s65 = solves[0]
 
+    # (N, B, T, dt, short): n = 129 and 513, 5-step and 100-step marches at
+    # B = 8; B = 134 and 270 give two and four members per CTA on 132 SMs,
+    # the last CTA not full
+    m1d = [(march1d_case(torch, device, N, B, T, dt,
+                         reps=1 if T / dt > 50 else 3,
+                         cpu_reference=not short), short)
+           for N, B, T, dt, short in (
+               (128, 8, 0.05, 1e-2, True), (128, 8, 1.0, 1e-2, False),
+               (512, 8, 0.01, 2e-3, False), (512, 8, 0.2, 2e-3, False),
+               (128, 134, 0.05, 1e-2, True), (512, 270, 0.01, 2e-3, False))]
+    for c, _ in m1d:
+        _log("2d", json.dumps(c))
+    for c, short in m1d:
+        check_march1d_case(c, short)
+    long1d = m1d[3][0]
+
+    applies = [apply_case(torch, device, n, B, reps=20 if n == 65 else 5)
+               for n in (65, 129, 257) for B in (None, 4)]
+    bschur = batched_schur_case(torch, device)
+    for c in applies + [bschur]:
+        _log("2e", json.dumps(c))
+    check_apply_cases(applies, bschur)
+    op_calls = operator_calls(torch, device)
+    _log("2e", "launches of the operators' own calls: " + json.dumps(
+        {k: v for k, v in op_calls.items() if v}))
+    a65 = applies[0]
+
     sl = slice_case(torch, device, block=0)
     _log(3, json.dumps(sl))
     sl_blk = slice_case(torch, device, block=8)
@@ -1081,16 +1590,20 @@ def main():
         _log("3c", json.dumps(c))
     for c in ctl.values():
         check_control_slice(c)
+    sl1d = slice1d_case(torch, device)
+    _log("3d", json.dumps(sl1d))
+    check_slice1d(sl1d)
 
     per_member = ("march_fused_2d", "adjoint_fused_2d")
     blocked = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked")
     segment = ("march_fused_2d_segment", "adjoint_fused_2d_segment")
+    march_1d = ("march_fused_1d",)
 
     cfg4 = _config(128)
     c4 = pgd_run(torch, device, BatchedProblem2D(cfg4, device=device),
                  _bench_sweep(cfg4, 128), iters=3)
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
-    check_main_path(c4, per_member, blocked + segment)
+    check_main_path(c4, per_member, blocked + segment + march_1d)
 
     cfg64 = _config(64)
     prob5 = make_batched_problem_2d(cfg64, batch=512, device=device)
@@ -1098,7 +1611,7 @@ def main():
         raise RuntimeError(f"64x64 B=512 routed to {type(prob5).__name__}")
     c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3)
     _log(5, json.dumps(c5) + f" | {name} | {smi}")
-    check_main_path(c5, blocked, per_member + segment)
+    check_main_path(c5, blocked, per_member + segment + march_1d)
 
     # the largest limit under which the full-memory estimate does not fit
     # (est6 > 0.75 limit): the low-memory arm must run within it
@@ -1121,7 +1634,7 @@ def main():
               full_memory_estimate_bytes=est6, limit_bytes=limit6,
               peak_over_S=c6["peak_bytes"] / S6)
     _log(6, json.dumps(c6) + f" | {name} | {smi}")
-    check_main_path(c6, segment, per_member + blocked)
+    check_main_path(c6, segment, per_member + blocked + march_1d)
     if c6["peak_bytes"] > limit6:
         raise RuntimeError(f"low-memory peak {c6['peak_bytes']} B exceeds "
                            f"the limit it was routed under, {limit6} B")
@@ -1143,15 +1656,53 @@ def main():
     _log(8, json.dumps(c3) + f" | {name} | {smi}")
     check_config3(c3)
 
-    def entry(fn, source, replaces, launches, err, ms, plain_ms, work):
+    prob9, sc9 = config2_problem(device)
+    if not (prob9._use_fused_march and sc9.batch == 256
+            and prob9.solver.fused_march_available(256)):
+        raise RuntimeError("config 2 does not take the fused 1D march")
+    c9 = pgd_run(torch, device, prob9, sc9, iters=3)
+    # the kernel alone at this shape, on the run's initial condition and a
+    # seeded control
+    x9 = {"phi0": torch.as_tensor(sc9.phi0, dtype=torch.float32,
+                                  device=device),
+          "u": 0.05 * torch.randn(
+              (256, prob9.solver.M + 1, 513), device=device,
+              generator=torch.Generator(device).manual_seed(0))}
+    c9["march_ms_full_shape"] = _time_ms(
+        torch, lambda: prob9.solver.march_fused_batch(x9["u"], x9["phi0"]), 1)
+    c9["entries_are_kernels"] = prob9.solver.entries is km.KERNELS
+    _log(9, json.dumps(c9) + f" | {name} | {smi}")
+    check_main_path(c9, march_1d, per_member + blocked + segment
+                    + tuple(SOLVE_KERNELS) + tuple(APPLY_KERNELS))
+    if not c9["entries_are_kernels"]:
+        raise RuntimeError("config 2: solver entries are not the kernels")
+    del x9
+
+    c1 = config1_run(torch, device)
+    _log(10, json.dumps(c1) + " | no kernel on this path: the per-step "
+         f"marcher and sweep, as in vch_tpu | {name} | {smi}")
+    check_config1(c1)
+
+    # config 2 again, one PGD iteration (the baseline march, one sweep, its
+    # trials) under the profiler, after every timed phase: profiling slows
+    # the host, during the profiled call and after it, so its wall is not a
+    # rate
+    _log("9p", json.dumps(device_share(
+        torch, lambda: prob9.run(sc9, max_iter=1, verbose=False)))
+        + f" | {name} | {smi}")
+    del prob9, sc9
+
+    def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
+              library_ms=None):
         bound_ms, bound_by = _bound(*work)
         # library_ms: no single PyTorch call computes a whole march, sweep
-        # or fixed-trip BiCGStab solve
+        # or fixed-trip BiCGStab solve; the operator applies carry the time
+        # of the same function as torch.matmul calls
         return {"name": fn, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None}
+                "library_ms": library_ms}
 
     mean = lambda v: float(np.mean(v))
     march_cu = "vch_tpu_torch/csrc/march2d.cu"
@@ -1162,6 +1713,7 @@ def main():
     seg_newton = sum(seg257["newton_chain"]) / (seg257["M"] // seg257["K"])
     trips_fwd = _config(64).fused_krylov_fixed_iters
     trips_adj = _config(64).adjoint_krylov_fixed_iters
+    trips_1d = _config(64).krylov_fixed_iters    # the 1D march's trips
     kernels = [
         entry("march_fused_2d", march_cu, f"{pm}:393",
               c4["launches"]["march_fused_2d"], long["max_abs_dphi"],
@@ -1213,6 +1765,30 @@ def main():
                              solve_launches[k], c["max_abs_err"], c["ms"],
                              c["plain_ms"],
                              _solve_work(k, s65["n"], 1, c["trips"])))
+    # the 1D march at config 2's smallest bucket and a fifth of its depth
+    # (n = 513, B = 8, M = 100), its launches on config 2's timed run
+    kernels.append(entry(
+        "march_fused_1d", "vch_tpu_torch/csrc/march1d.cu", f"{pm}:1183",
+        c9["launches"]["march_fused_1d"], long1d["max_abs_dphi"],
+        long1d["march_ms"], long1d["march_plain_ms"],
+        _march1d_work(long1d["n"], long1d["B"], long1d["M"],
+                      long1d["newton_kernel_total"],
+                      trips_1d)))
+    # the operators no solver calls, at n = 65, one field (the batched Schur
+    # solve at B = 8), their launches those of operator_calls
+    apply_cu = "vch_tpu_torch/csrc/apply2d.cu"
+    kernels.append(entry(
+        "bicgstab_schur_batched", solve_cu, f"{pk}:394",
+        op_calls["bicgstab_schur"], bschur["max_abs_err"], bschur["ms"],
+        bschur["plain_ms"],
+        (sum(_solve_work("bicgstab_schur", bschur["n"], 1, t)[0]
+             for t in bschur["trips"]),
+         _solve_work("bicgstab_schur", bschur["n"], bschur["B"], 0)[1])))
+    for k, line in zip(APPLY_KERNELS, (101, 133, 478)):
+        c = a65[k]
+        kernels.append(entry(k, apply_cu, f"{pk}:{line}", op_calls[k],
+                             c["max_abs_err"], c["ms"], c["plain_ms"],
+                             _apply_work(k, a65["n"], 1), c["library_ms"]))
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

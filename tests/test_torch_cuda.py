@@ -11,7 +11,10 @@ right at the tolerance may take one more iteration); r 2e-3 relative, the
 float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
-do the two one-member marches.
+do the two one-member marches. The 1D march: phi 1e-5 absolute on a short
+march, Newton counts and first_bad equal, and bit-equal results for every
+members-per-CTA grouping. The operator applies: 1e-5 of |out|max on smooth
+fields (four products; the solve kernels' own gates are in chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -305,3 +308,164 @@ def test_solve_kernels_reject_what_they_do_not_take(cuda):
                + (fields["adjoint"][3][:1],))
     with pytest.raises(ValueError, match="shape"):
         _solve_call("bicgstab_adjoint", ops, bad, scal, sk.bicgstab_adjoint)
+
+
+# --------------------------------------------------------------------------
+# the 1D march, the operator applies, the batched raw Schur solve
+
+
+def _problem_1d(device, N=64, B=5, T=0.06, seed=0, dtype="float32"):
+    from vch_tpu_torch.config import ForwardSolverConfig1D
+    from vch_tpu_torch.models.forward1d import ForwardSolver1D
+    from vch_tpu_torch.ops.potential import init_phi_random_1d
+    cfg = ForwardSolverConfig1D(N=N, T=T, dt_initial=T / 6, dtype=dtype,
+                                newton_tol=2e-4, linsolve_1d="spectral")
+    fwd = ForwardSolver1D(cfg, device=device)
+    if dtype == "float64":      # the float32 path's exits and trips
+        fwd._rtol, fwd._stagnation = cfg.newton_rtol, True
+        fwd._krylov_fixed = cfg.krylov_fixed_iters
+        fwd.entries = km.PLAIN
+    rng = np.random.default_rng(seed)
+    phi0 = np.stack([init_phi_random_1d(N, DELTA_SEP, amp=0.01, seed=42 + i)
+                     for i in range(B)])
+    u = 0.05 * rng.standard_normal((B, fwd.M + 1, N + 1))
+    as_t = lambda a: torch.as_tensor(a, dtype=fwd.dtype, device=device)
+    return fwd, as_t(phi0), as_t(u)
+
+
+def test_1d_cpu_tensors_run_the_plain_version():
+    fwd, phi0, u = _problem_1d(torch.device("cpu"), B=2)
+    before = km.march_fused_1d.launches
+    hist, ns, bad = fwd.march_fused_batch(u, phi0)
+    assert km.march_fused_1d.launches == before
+    assert fwd.M == 6 and hist.shape == (2, fwd.M + 1, 65) and torch.equal(hist[:, 0], phi0)
+    assert ns.dtype == torch.float32 and bad.dtype == torch.float32
+    assert (bad == -1).all() and (ns >= fwd.M).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B,T", [(64, 5, 0.06), (128, 3, 0.06),
+                                   (512, 3, 0.012)])
+def test_march_1d_kernel_matches_plain_for_every_grouping(cuda, N, B, T):
+    fwd, phi0, u = _problem_1d(cuda, N=N, B=B, T=T)
+    fwd.entries = km.PLAIN
+    ph, pns, pbad = fwd.march_fused_batch(u, phi0)
+    fwd.entries = km.KERNELS
+    before = km.march_fused_1d.launches
+    kh, kns, kbad = fwd.march_fused_batch(u, phi0)
+    torch.cuda.synchronize()
+    assert km.march_fused_1d.launches == before + 1
+    assert torch.equal(kh[:, 0], phi0) and torch.equal(kbad, pbad)
+    if N <= 128:
+        assert (kh - ph).abs().max().item() <= 1e-5
+        assert torch.equal(kns, pns)
+    else:
+        # the Laplacian's entries grow as N^2: on a rough field two float32
+        # marches differ by more than 1e-5, so both are held to float64
+        fwd64, phi0_64, u64 = _problem_1d(cuda, N=N, B=B, T=T,
+                                          dtype="float64")
+        h64 = fwd64.march_fused_batch(u64, phi0_64)[0]
+        err_k = (kh.double() - h64).abs().max().item()
+        err_p = (ph.double() - h64).abs().max().item()
+        assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+        assert (kns - pns).abs().max().item() <= fwd.M
+    cfg = fwd.config
+    kw = dict(tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
+              gamma=cfg.gamma, delta_sep=DELTA_SEP, Lx_len=cfg.Lx,
+              newton_tol=cfg.newton_tol, newton_rtol=fwd._rtol,
+              newton_max_iter=cfg.newton_max_iter,
+              n_trips=cfg.krylov_fixed_iters, stagnation_exit=True)
+    args = (fwd.dts, phi0, u, fwd.LT, fwd.VinvT, fwd.VT, fwd.lam[None],
+            fwd.wts[None])
+    for group in km.MARCH_1D_GROUPS:      # B is not a multiple of 2 or 4
+        gh, gns, gbad = km.march_fused_1d(*args, group=group, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(gh, kh), group
+        assert torch.equal(gns, kns) and torch.equal(gbad, kbad), group
+
+
+@pytest.mark.cuda
+def test_march_1d_kernel_flags_a_diverged_member(cuda):
+    fwd, phi0, u = _problem_1d(cuda, B=3)
+    phi0[1, 7] = float("nan")
+    kh, kns, kbad = fwd.march_fused_batch(u, phi0)
+    fwd.entries = km.PLAIN
+    ph, pns, pbad = fwd.march_fused_batch(u, phi0)
+    torch.cuda.synchronize()
+    assert kbad.tolist() == [-1.0, 0.0, -1.0] and torch.equal(kbad, pbad)
+    assert torch.equal(kns, pns)
+    assert (kh[[0, 2]] - ph[[0, 2]]).abs().max().item() <= 1e-5
+
+
+def _apply_inputs(device, n=33, m=29, B=3, seed=0):
+    from vch_tpu_torch.ops.linsolve import make_spectral_op_2d, ops_2d
+    op = ops_2d(make_spectral_op_2d(n - 1, m - 1, 1.0 / (n - 1),
+                                    1.0 / (m - 1), dtype=torch.float32,
+                                    device=device))
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    x = np.linspace(0, 1, n)[:, None]
+    y = np.linspace(0, 1, m)[None, :]
+    v = f32(np.stack([np.cos(np.pi * (b + 1) * x) * np.cos(np.pi * y)
+                      + 0.1 * rng.standard_normal((n, m)) for b in range(B)]))
+    d = f32(1.5 + rng.random((B, n, m)))
+    return op, v, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_apply_kernels_match_plain(cuda, batched):
+    from vch_tpu_torch.ops import solve_kernels as sk
+    op, v, d = _apply_inputs(cuda)
+    if not batched:
+        v, d = v[0].contiguous(), d[0].contiguous()
+    denom = 1.0 + op.lam.abs()
+    cases = [
+        (sk.schur_apply, sk.schur_apply_plain,
+         (op.Lx, op.LyT, d, v, 100.0, 5.0, 5e-5)),
+        (sk.adjoint_apply, sk.adjoint_apply_plain,
+         (op.Lx, op.LyT, d - 2.0, v, 0.05, 5e-3)),
+        (sk.spectral_solve, sk.spectral_solve_plain,
+         (op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, denom, v)),
+        (sk.spectral_solve, sk.spectral_solve_plain,
+         (op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, d * denom, v)),
+    ]
+    for wrapper, plain, args in cases:
+        before = wrapper.launches
+        k = wrapper(*args)
+        p = plain(*args)
+        p64 = plain(*[a.double() if torch.is_tensor(a) else a for a in args])
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        scale = p64.abs().max().item()
+        err_k = (k.double() - p64).abs().max().item() / scale
+        err_p = (p.double() - p64).abs().max().item() / scale
+        assert err_k <= 2 * err_p + 1e-5, (wrapper.__name__, err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_raw_schur_solve_on_a_batch_of_8(cuda):
+    """The batched launch of the raw Schur solve (one CTA per member): the
+    counterpart of vch_tpu's member-tiled bicgstab_schur_pallas_batched."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    op, v, d = _apply_inputs(cuda, n=33, m=33, B=8)
+    inv_dt, tau_dt, hk = 100.0, 5.0, 5e-5
+    dbar = d.mean(dim=(-2, -1), keepdim=True)
+    denom = inv_dt + hk * op.lam ** 2 - (tau_dt + dbar) * op.lam
+    args = (op.Lx, op.LyT, op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, denom, d, v,
+            inv_dt, tau_dt, hk)
+    before = sk.bicgstab_schur.launches
+    k = sk.bicgstab_schur(*args, n_iter=4)
+    p = sk.bicgstab_schur_plain(*args, n_iter=4)
+    p64 = sk.bicgstab_schur_plain(
+        *[a.double() if torch.is_tensor(a) else a for a in args], n_iter=4)
+    one = sk.bicgstab_schur(*[a[3].contiguous() if torch.is_tensor(a)
+                              and a.dim() == 3 else a for a in args],
+                            n_iter=4)
+    torch.cuda.synchronize()
+    assert sk.bicgstab_schur.launches == before + 2
+    scale = p64.abs().max().item()
+    err_k = (k.double() - p64).abs().max().item() / scale
+    err_p = (p.double() - p64).abs().max().item() / scale
+    assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
+    assert torch.equal(k[3], one)     # a member does not depend on the batch

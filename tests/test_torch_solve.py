@@ -282,3 +282,108 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
     obj = _construct(name, device="cpu")
     solver = getattr(obj, "solver", obj)
     assert solver.dts.device.type == "cpu"
+
+
+# --------------------------------------------------------------------------
+# the three operator applies and the member-tiled Schur solve
+
+APPLY_TOL32 = 1e-5      # float32 against the Pallas kernel, of |out|max
+
+
+def _apply_case(name, B, dtype_name, seed=2):
+    """(Pallas function, plain function, arguments as numpy) of one apply on
+    B members; the operators first, then the per-member fields."""
+    o = _op_np()
+    rng = np.random.default_rng(seed)
+    sh = (B, N + 1, N + 1)
+    v = rng.standard_normal(sh)
+    d = 1.5 + rng.random(sh)
+    if name == "schur_apply":
+        return (pk.schur_apply_pallas, sk.schur_apply_plain,
+                (o["Lx"], o["Ly"].T), (d, v), (1 / DT, TAU / DT, 0.5 * KAPPA))
+    if name == "adjoint_apply":
+        return (pk.adjoint_apply_pallas, sk.adjoint_apply_plain,
+                (o["Lx"], o["Ly"].T), (rng.standard_normal(sh), v),
+                (TAU, 0.5 * DT))
+    denom = (1.0 + np.abs(o["lam"])) * d
+    return (pk.spectral_solve_pallas, sk.spectral_solve_plain,
+            (o["Vx_inv"], o["Vy_inv"].T, o["Vx"], o["Vy"].T), (denom, v), ())
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", ["schur_apply", "adjoint_apply",
+                                  "spectral_solve"])
+def test_plain_apply_matches_pallas_kernel(name, B):
+    """Each operator apply's plain version against the Pallas kernel in
+    interpret mode: one (n, m) field, and vmap over a (B, n, m) batch;
+    float64 1e-10 and float32 1e-5 of |out|max."""
+    results = {}
+    for dtype_name in ("float64", "float32"):
+        pallas, plain, mats, fields, scal = _apply_case(name, B, dtype_name)
+        j = lambda a: jnp.asarray(a, NP[dtype_name])
+        t = lambda a: torch.as_tensor(np.array(a), dtype=TD[dtype_name])
+        f = lambda *fs: pallas(*map(j, mats), *fs, *scal, interpret=True)
+        if B > 1:
+            ref = np.asarray(jax.vmap(f)(*map(j, fields)))
+            got = plain(*map(t, mats), *map(t, fields), *scal).numpy()
+        else:
+            ref = np.asarray(f(*[j(a[0]) for a in fields]))
+            got = plain(*map(t, mats), *[t(a[0]) for a in fields],
+                        *scal).numpy()
+        assert got.shape == ref.shape and got.dtype == NP[dtype_name]
+        results[dtype_name] = (got, ref)
+    got64, ref64 = results["float64"]
+    got32, ref32 = results["float32"]
+    assert _rel(got64, ref64) <= 1e-10
+    assert _rel(got32, ref32.astype(np.float64)) <= APPLY_TOL32
+    assert _rel(got32, ref64) <= 2 * _rel(ref32, ref64) + 1e-6
+
+
+def test_apply_wrappers_on_cpu_tensors_run_the_plain_versions():
+    t = lambda a: torch.as_tensor(np.array(a))
+    km.reset_launches()
+    for name in ("schur_apply", "adjoint_apply", "spectral_solve"):
+        _, plain, mats, fields, scal = _apply_case(name, 2, "float64")
+        args = [*map(t, mats), *map(t, fields), *scal]
+        assert torch.equal(getattr(sk, name)(*args), plain(*args))
+    # a denom shared by the members broadcasts
+    _, plain, mats, (denom, v), _ = _apply_case("spectral_solve", 2,
+                                                "float64")
+    shared = sk.spectral_solve(*map(t, mats), t(denom[0]), t(v))
+    assert torch.equal(shared[0], plain(*map(t, mats), t(denom[0]), t(v[0])))
+    counts = km.launch_counts()
+    assert {"schur_apply", "adjoint_apply", "spectral_solve",
+            "march_fused_1d"} <= set(counts)
+    assert not any(counts.values())
+
+
+@pytest.mark.parametrize("block_b", [2, None])
+@pytest.mark.parametrize("dtype_name", ["float64", "float32"])
+def test_batched_schur_solve_matches_member_tiled_pallas_kernel(dtype_name,
+                                                                block_b):
+    """`bicgstab_schur` on a (B, n, m) batch against vch_tpu's member-tiled
+    `bicgstab_schur_pallas_batched` in interpret mode, with block_b = 2 on
+    B = 5 (a batch its tiling has to pad) and its automatic block: the
+    batched launch of the per-member solve is that kernel's counterpart.
+    float64 1e-10; float32 1e-5, and no farther from float64 than twice the
+    Pallas float32 result plus 1e-6."""
+    B = 5
+    fields = _fields(B, seed=4)["schur"]
+    scal, n_iter = _scalars("schur")
+    out = {}
+    for name in ("float64", dtype_name):
+        j = lambda a: jnp.asarray(a, NP[name])
+        t = lambda a: torch.as_tensor(np.array(a), dtype=TD[name])
+        ref = np.asarray(pk.bicgstab_schur_pallas_batched(
+            *_mats("schur", j), *map(j, fields), *scal, n_iter=n_iter,
+            block_b=block_b, interpret=True))
+        got = sk.bicgstab_schur(*_mats("schur", t), *map(t, fields), *scal,
+                                n_iter=n_iter).numpy()
+        assert got.shape == ref.shape == (B, N + 1, N + 1)
+        out[name] = (got, ref)
+    got64, ref64 = out["float64"]
+    assert _rel(got64, ref64) <= 1e-10
+    if dtype_name == "float32":
+        got32, ref32 = out["float32"]
+        assert _rel(got32, ref32.astype(np.float64)) <= TOL32["schur"]
+        assert _rel(got32, ref64) <= 2 * _rel(ref32, ref64) + 1e-6

@@ -1,10 +1,11 @@
 """Solver and optimizer configuration, as plain dataclasses.
 
-Same field names and defaults as `vch_tpu/config.py` (ForwardSolverConfig2D,
-OptimizationConfig) and `vch_tpu/control/pgd.py` (PGDSettings), so a config
-dumped by `vch_tpu` (`model_dump()` or its JSON) loads here through
-`from_dict`. Validation is by hand: c2 > c1, u_max > u_min, dtype in
-{float32, float64}, and positivity where vch_tpu's fields demand it.
+Same field names and defaults as `vch_tpu/config.py` (ForwardSolverConfig1D,
+ForwardSolverConfig2D, OptimizationConfig) and `vch_tpu/control/pgd.py`
+(PGDSettings), so a config dumped by `vch_tpu` (`model_dump()` or its JSON)
+loads here through `from_dict`. Validation is by hand: c2 > c1,
+u_max > u_min, dtype in {float32, float64}, and positivity where vch_tpu's
+fields demand it.
 
 `fused_march_block` is honored as vch_tpu honors it: `resolved_fused_block()`
 gives the members per CTA of the blocked kernels (8 on grids of up to 96
@@ -25,8 +26,13 @@ Fields accepted for interchangeability but NOT honored by the port:
   adjoint_solve_precision,   float32 FMA (vch_tpu's 'highest'), and the
   forward_matmul_precision   plain versions compute in full float32 too
                              (vch_tpu's float32 per-step march runs at
-                             matmul precision 'high');
-  linsolve_1d              — 1D is not ported.
+                             matmul precision 'high').
+Both configs carry every knob, so either loads the other package's dump;
+the 1D solvers honor `linsolve_1d` ("dense": the exact Schur solve by
+`torch.linalg.solve`, "spectral": the cosine-preconditioned BiCGStab,
+"auto": dense in float64 up to N = 256, spectral otherwise),
+`krylov_fixed_iters` (the float32 forward solve and the fused 1D march) and
+`krylov_tol`; the 2D-only knobs are carried and unused there.
 """
 from __future__ import annotations
 
@@ -44,24 +50,19 @@ def _known(cls, d: dict) -> dict:
 
 
 @dataclass
-class ForwardSolverConfig2D:
-    """2D forward-solve parameters (vch_tpu/config.py:25-105)."""
+class _SolverKnobs:
+    """The physics and the solver knobs the 1D and 2D configs share
+    (vch_tpu/config.py:25-58), with vch_tpu's checks."""
 
-    Nx: int = 128
-    Ny: int = 128
-    Lx: float = 1.0
-    Ly: float = 1.0
     T: float = 1.0
     dt_initial: float = 1e-2
     tau: float = 0.05
     gamma: float = 10.0
     c1: float = 0.75
     c2: float = 1.0
-    kappa: float = 0.01 ** 2
     dtype: str = "float64"
     newton_tol: float = 1e-6
     newton_rtol: float = 1e-5
-    newton_max_iter: int = 500
     krylov_tol: float = 1e-9
     krylov_max_iter: int = 200
     krylov_fixed_iters: int = 4
@@ -79,15 +80,15 @@ class ForwardSolverConfig2D:
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):
             raise ValueError("dtype must be 'float32' or 'float64'")
+        if self.linsolve_1d not in ("auto", "dense", "spectral"):
+            raise ValueError("linsolve_1d must be 'auto', 'dense', or "
+                             "'spectral'")
         if self.c2 <= self.c1:
             raise ValueError(f"c2 ({self.c2}) must be greater than c1 "
                              f"({self.c1})")
-        for name in ("Nx", "Ny"):
-            if getattr(self, name) <= 10:
-                raise ValueError(f"{name} must be > 10")
-        for name in ("Lx", "Ly", "T", "dt_initial", "gamma", "newton_tol",
+        for name in ("T", "dt_initial", "gamma", "newton_tol",
                      "newton_max_iter", "krylov_tol", "krylov_max_iter",
-                     "krylov_fixed_iters"):
+                     "krylov_fixed_iters") + self._positive:
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be > 0")
         for name in ("fused_krylov_fixed_iters", "adjoint_krylov_fixed_iters"):
@@ -99,6 +100,48 @@ class ForwardSolverConfig2D:
         if self.fused_march_block is not None and self.fused_march_block < 0:
             raise ValueError("fused_march_block must be >= 0 or None")
 
+    @classmethod
+    def from_dict(cls, d: dict):
+        """Build from vch_tpu's `model_dump()` / JSON; unknown keys are
+        dropped."""
+        return cls(**_known(cls, d))
+
+
+@dataclass
+class ForwardSolverConfig1D(_SolverKnobs):
+    """1D forward-solve parameters (vch_tpu/config.py:60-80). The 2D-only
+    knobs are carried for interchangeability; no 1D code reads them."""
+
+    N: int = 128
+    Lx: float = 1.0
+    kappa: float = 0.03 ** 2
+    newton_max_iter: int = 50
+    _positive = ("Lx",)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.N <= 10:
+            raise ValueError("N must be > 10")
+
+
+@dataclass
+class ForwardSolverConfig2D(_SolverKnobs):
+    """2D forward-solve parameters (vch_tpu/config.py:83-105)."""
+
+    Nx: int = 128
+    Ny: int = 128
+    Lx: float = 1.0
+    Ly: float = 1.0
+    kappa: float = 0.01 ** 2
+    newton_max_iter: int = 500
+    _positive = ("Lx", "Ly")
+
+    def __post_init__(self):
+        super().__post_init__()
+        for name in ("Nx", "Ny"):
+            if getattr(self, name) <= 10:
+                raise ValueError(f"{name} must be > 10")
+
     def resolved_fused_block(self) -> int:
         """Members per CTA of the member-blocked kernels (0: one member per
         CTA), vch_tpu/config.py:107-115: None gives 8 on grids of up to 96
@@ -107,12 +150,6 @@ class ForwardSolverConfig2D:
         if bb is None:
             return 8 if max(self.Nx, self.Ny) <= 96 else 0
         return bb
-
-    @classmethod
-    def from_dict(cls, d: dict) -> "ForwardSolverConfig2D":
-        """Build from vch_tpu's `model_dump()` / JSON; unknown keys are
-        dropped."""
-        return cls(**_known(cls, d))
 
 
 @dataclass
@@ -136,6 +173,10 @@ class OptimizationConfig:
                 raise ValueError(f"{name} must be >= 0")
         if self.alpha_max <= 0 or self.max_iter <= 10:
             raise ValueError("alpha_max must be > 0 and max_iter > 10")
+
+    @classmethod
+    def defaults_1d(cls, **over) -> "OptimizationConfig":
+        return cls(**over)
 
     @classmethod
     def defaults_2d(cls, **over) -> "OptimizationConfig":
@@ -163,6 +204,10 @@ class PGDSettings:
     conv_min_iter: int = 10
     advisor_start_iter: int = 100
     keep_failed_step: bool = True
+
+    @classmethod
+    def defaults_1d(cls) -> "PGDSettings":
+        return cls()
 
     @classmethod
     def defaults_2d(cls) -> "PGDSettings":

@@ -1,5 +1,5 @@
 """Discrete cost J = J1 + J2 + J3 + J4 by nested trapezoid quadrature
-(vch_tpu/control/cost.py:41-65): space y then x, then time.
+(vch_tpu/control/cost.py:19-65): space (2D: y then x), then time.
 
 J = (b1/2)||phi-phi_Q||^2_Q + (b2/2)||phi(T)-phi_Omega||^2
   + (b3/2)||u||^2_Q + kappa_spar ||u||_{L1(Q)}
@@ -13,6 +13,27 @@ import torch
 
 def _trapz(y, x, dim):
     return torch.trapezoid(y, x=x, dim=dim)
+
+
+def cost_breakdown_1d(phi_hist, u, phi_Q_target, phi_T_target, x, t_hist,
+                      b1, b2, b3, kappa_spar):
+    """(J1, J2, J3, J4) for 1D histories [..., K, N+1] on the time stamps
+    t_hist (K,), in either layout."""
+    J1 = (b1 / 2.0) * _trapz(_trapz((phi_hist - phi_Q_target) ** 2, x, -1),
+                             t_hist, -1)
+    J2 = (b2 / 2.0) * _trapz((phi_hist[..., -1, :] - phi_T_target) ** 2, x,
+                             -1)
+    J3 = (b3 / 2.0) * _trapz(_trapz(u ** 2, x, -1), t_hist, -1)
+    J4 = kappa_spar * _trapz(_trapz(torch.abs(u), x, -1), t_hist, -1)
+    return J1, J2, J3, J4
+
+
+def calculate_cost_1d(phi_hist, u, phi_Q_target, phi_T_target, x, t_hist,
+                      b1, b2, b3, kappa_spar):
+    J1, J2, J3, J4 = cost_breakdown_1d(phi_hist, u, phi_Q_target,
+                                       phi_T_target, x, t_hist, b1, b2, b3,
+                                       kappa_spar)
+    return J1 + J2 + J3 + J4
 
 
 def cost_breakdown_2d(phi_hist, u, phi_Q_target, phi_T_target, x, y, t_hist,

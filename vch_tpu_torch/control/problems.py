@@ -1,7 +1,9 @@
-"""The single-scenario 2D control problem (vch_tpu/control/problems.py:
-26-160): the reference program GD2_configured.py as an object,
+"""The single-scenario control problems (vch_tpu/control/problems.py): the
+reference programs GD2_configured.py (2D) and GD_1D.py (1D) as objects, each
 with the uncontrolled baseline trajectory, the targets, and the forward,
-adjoint and cost callables handed to ProximalGradientLoop.
+adjoint and cost callables handed to ProximalGradientLoop. The 1D problem
+works in the reference's history layout (a duplicated t = 0 row), so its
+cost trajectory compares directly with a reference run.
 """
 from __future__ import annotations
 
@@ -10,16 +12,29 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vch_tpu_torch.config import (ForwardSolverConfig2D, OptimizationConfig,
+from vch_tpu_torch.config import (ForwardSolverConfig1D,
+                                  ForwardSolverConfig2D, OptimizationConfig,
                                   PGDSettings)
-from vch_tpu_torch.control.cost import calculate_cost_2d
+from vch_tpu_torch.control.cost import calculate_cost_1d, calculate_cost_2d
 from vch_tpu_torch.control.diagnostics import (
     approximate_second_order_condition, verify_sparsity_condition)
 from vch_tpu_torch.control.pgd import PGDResult, ProximalGradientLoop
-from vch_tpu_torch.control.targets import build_targets_2d
+from vch_tpu_torch.control.targets import build_targets_1d, build_targets_2d
 from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+from vch_tpu_torch.models.forward1d import ForwardSolver1D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
+
+
+def _check_gradient_mode(gradient_mode: str):
+    if gradient_mode == "exact":
+        raise NotImplementedError(
+            "gradient_mode='exact' (implicit differentiation through the "
+            "march) is not ported; ROADMAP queue A5")
+    if gradient_mode != "reference":
+        raise ValueError(f"gradient_mode must be 'reference', got "
+                         f"{gradient_mode!r}")
 
 
 class ControlProblem2D:
@@ -41,13 +56,7 @@ class ControlProblem2D:
                  choice_t: int = 1, choice_q: int = 1,
                  initial_phi: Optional[np.ndarray] = None,
                  gradient_mode: str = "reference", device=None):
-        if gradient_mode == "exact":
-            raise NotImplementedError(
-                "gradient_mode='exact' (implicit differentiation through the "
-                "march) is not ported; ROADMAP queue A5")
-        if gradient_mode != "reference":
-            raise ValueError(f"gradient_mode must be 'reference', got "
-                             f"{gradient_mode!r}")
+        _check_gradient_mode(gradient_mode)
         device = resolve_device(device)
         self.gradient_mode = gradient_mode
         self.fwd_config = fwd_config or ForwardSolverConfig2D()
@@ -161,4 +170,129 @@ class ControlProblem2D:
             result.r_optimal, result.phi_final, opt.b3, opt.kappa_sparsity,
             opt.u_min, opt.u_max, num_directions=num_directions,
             epsilon=epsilon, seed=seed, handle_kink=False, dtype=self.dtype,
+            device=self.device)
+
+
+class ControlProblem1D:
+    """Sparse optimal control of the 1D vCH system (ref: GD_1D.py) on one
+    device (device=None: the CUDA card), in the reference layout: the
+    baseline, the controls and the targets carry M + 2 rows, the t = 0 row
+    duplicated (vch_tpu/control/problems.py:163-305).
+
+    Every forward solve is the per-step marcher of one member and the
+    gradient the per-step adjoint sweep's r: as in vch_tpu this problem runs
+    no kernel. `newton_solves` counts the forward Newton linear solves of
+    every march the problem ran. gradient_mode "exact" (implicit
+    differentiation, models/adjoint_exact1d.py) is not ported.
+    """
+
+    def __init__(self, fwd_config: Optional[ForwardSolverConfig1D] = None,
+                 opt_config: Optional[OptimizationConfig] = None,
+                 choice_t: int = 1, choice_q: int = 1,
+                 initial_phi: Optional[np.ndarray] = None,
+                 gradient_mode: str = "reference", device=None):
+        _check_gradient_mode(gradient_mode)
+        device = resolve_device(device)
+        self.gradient_mode = gradient_mode
+        self.fwd_config = cfg = fwd_config or ForwardSolverConfig1D()
+        self.opt_config = opt_config or OptimizationConfig()
+        self.device = device
+        self.solver = ForwardSolver1D(cfg, device=device)
+        self.adjoint = AdjointSolver1D(cfg, device=device)
+        self.dtype = dtype = self.solver.dtype
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                         device=device)
+        self.phi0 = (self.solver.default_initial_phi() if initial_phi is None
+                     else np.asarray(initial_phi, np.float64))
+        self._phi0_dev = as_t(self.phi0)
+
+        # the uncontrolled baseline in reference layout
+        phi_hist, x, t_hist = self.solver.simulate(initial_phi=self.phi0,
+                                                   ref_layout=True)
+        self.newton_solves = self.solver.last_stats.newton_solves
+        self.phi_hist0 = phi_hist
+        self.x, self.t_hist = x, t_hist
+        self._dts = as_t(np.diff(t_hist))
+        phi_T, phi_Q = build_targets_1d(
+            x, t_hist, phi_hist[0].cpu().numpy(), float(cfg.Lx), float(cfg.T),
+            choice_t=choice_t, choice_q=choice_q)
+        self.phi_T_target = as_t(phi_T)
+        self.phi_Q_target = as_t(phi_Q)
+        self._x, self._t = as_t(x), as_t(t_hist)
+        self.loop = ProximalGradientLoop(
+            self._forward, self._adjoint_r, self._cost, self.opt_config,
+            settings=PGDSettings.defaults_1d(), error_norms=self.error_norms)
+
+    def _forward_batch(self, u_ref):
+        """Trajectories (D, M+2, N+1) of the controls u_ref (D, M+2, N+1)
+        from phi0: the duplicate control row dropped for the march, the
+        duplicate history row added."""
+        M = self.solver.M
+        phi0 = self._phi0_dev.expand(u_ref.shape[0], -1)
+        phi, ns, _ = self.solver._march_batch(u_ref[:, : M + 1], phi0)
+        self.newton_solves += int(ns.sum())
+        return torch.cat([phi[:, :1], phi], dim=1)
+
+    def _forward(self, u_ref):
+        return self._forward_batch(u_ref[None])[0]
+
+    def _adjoint_r(self, phi_ref):
+        opt = self.opt_config
+        _, _, r = self.adjoint._run_impl(phi_ref, self._dts, opt.b1, opt.b2,
+                                         self.phi_Q_target, self.phi_T_target)
+        return r
+
+    def _cost(self, phi_ref, u_ref):
+        opt = self.opt_config
+        return calculate_cost_1d(phi_ref, u_ref, self.phi_Q_target,
+                                 self.phi_T_target, self._x, self._t, opt.b1,
+                                 opt.b2, opt.b3, opt.kappa_sparsity)
+
+    def error_norms(self, phi_ref):
+        """(relative tracking error over space-time, relative terminal
+        error) of a trajectory."""
+        x, t = self._x, self._t
+
+        def l2_x(a):
+            return torch.sqrt(torch.trapezoid(a ** 2, x=x, dim=-1))
+
+        def l2_xt(A):
+            return torch.sqrt(torch.trapezoid(
+                torch.trapezoid(A ** 2, x=x, dim=-1), x=t, dim=-1))
+
+        xh, th = self.x, self.t_hist
+        rms_scale = float(np.sqrt(max(xh[-1] - xh[0], 1e-30)
+                                  * max(th[-1] - th[0], 1e-30)))
+        numQ = l2_xt(phi_ref - self.phi_Q_target)
+        denQ = l2_xt(self.phi_Q_target)
+        denQ = torch.where(denQ < 1e-9 * rms_scale,
+                           torch.full_like(denQ, rms_scale), denQ)
+        rel_track = numQ / (denQ + 1e-12)
+        numT = l2_x(phi_ref[..., -1, :] - self.phi_T_target)
+        denT = l2_x(self.phi_T_target) + 1e-12
+        return rel_track, numT / denT
+
+    def initial_control(self):
+        return torch.zeros_like(self.phi_hist0)
+
+    def optimize(self, max_iter: Optional[int] = None,
+                 verbose: bool = True) -> PGDResult:
+        return self.loop.run(self.initial_control(), self.phi_hist0,
+                             max_iter=max_iter, verbose=verbose)
+
+    def verify_sparsity(self, result, verbose: bool = True):
+        return verify_sparsity_condition(result.u_optimal, result.r_optimal,
+                                         self.opt_config.kappa_sparsity,
+                                         verbose=verbose)
+
+    def second_order_check(self, result, num_directions: int = 3,
+                           epsilon: float = 1e-4, seed: int = 42):
+        """Batched FD coercivity probe (1D cone: handles the L1 kink, ref
+        second_order_conditions.py:33-55)."""
+        opt = self.opt_config
+        return approximate_second_order_condition(
+            self._forward_batch, self._cost, result.u_optimal,
+            result.r_optimal, result.phi_final, opt.b3, opt.kappa_sparsity,
+            opt.u_min, opt.u_max, num_directions=num_directions,
+            epsilon=epsilon, seed=seed, handle_kink=True, dtype=self.dtype,
             device=self.device)

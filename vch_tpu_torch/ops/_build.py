@@ -2,9 +2,10 @@
 kernel wrapper makes before a launch.
 
 `nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
-members-per-CTA instantiation it is built for (`SOURCES`: the fused march
+members-per-CTA instantiation it is built for (`SOURCES`: the fused 2D march
 and sweep with `-DVCH_BB=1` and `8`, one member per CTA and the block that
-`resolved_fused_block()` picks; the per-solve kernels with `-DVCH_BB=1`),
+`resolved_fused_block()` picks; the per-solve kernels, the operator applies
+and the fused 1D march, which holds its own group sizes, with `-DVCH_BB=1`),
 all at once in parallel, and links the objects into one shared library with
 a plain C interface, at first use, into `vch_tpu_torch/_build/` (listed in
 .gitignore); `ctypes` loads it. The library's file name carries a
@@ -31,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 MEMBER_BLOCKS = (1, 8)   # the members-per-CTA the fused kernels are built for
 # each source and the VCH_BB objects it is compiled into
 SOURCES = {"march2d.cu": MEMBER_BLOCKS, "adjoint2d.cu": MEMBER_BLOCKS,
-           "solve2d.cu": (1,)}
+           "solve2d.cu": (1,), "apply2d.cu": (1,), "march1d.cu": (1,)}
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -138,9 +139,20 @@ def load():
                                     + [ctypes.c_float, _P])
     lib.vch_solve_workspace_fields.argtypes = []
     lib.vch_solve_workspace_fields.restype = _I
+    # variant scal Lx LyT Vxi VyiT Vx VyT f1 v | out work | B n m shared |
+    # stream
+    lib.vch_apply_2d.argtypes = ([_I] + [_P] * 9 + [_P] * 2 + [_I] * 4
+                                 + [_P])
+    # dts phi0 u LT VinvT VT lam wts | hist nsolve bad work | B M n |
+    # consts nconst | max_iter n_trips stagnation group | stream
+    lib.vch_march_fused_1d.argtypes = ([_P] * 8 + [_P] * 4 + [_I] * 3
+                                       + [_FP, _I] + [_I] * 4 + [_P])
+    lib.vch_march_1d_workspace_fields.argtypes = []
+    lib.vch_march_1d_workspace_fields.restype = _I
     for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_segment,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
-               lib.vch_bicgstab_2d):
+               lib.vch_bicgstab_2d, lib.vch_apply_2d,
+               lib.vch_march_fused_1d):
         fn.restype = _I
     lib.vch_error_string.argtypes = [_I]
     lib.vch_error_string.restype = ctypes.c_char_p

@@ -12,6 +12,13 @@ def trapz_weights(n_nodes: int) -> np.ndarray:
     return w
 
 
+def grid_1d(N: int, Lx: float):
+    """Uniform 1D grid: nodes x, spacing h, quadrature weights h*w_i."""
+    h = Lx / N
+    x = np.linspace(0.0, Lx, N + 1)
+    return x, h, h * trapz_weights(N + 1)
+
+
 def grid_2d(Nx: int, Ny: int, Lx: float, Ly: float):
     """Uniform 2D tensor grid: (x, y), spacings (hx, hy), 2D quadrature
     weights hx*hy*w_i*w_j."""

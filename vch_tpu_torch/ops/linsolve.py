@@ -1,5 +1,5 @@
-"""Cosine-basis operators and the Krylov solvers of the 2D Newton and adjoint
-systems (vch_tpu/ops/linsolve.py).
+"""Cosine-basis operators, the Krylov solvers of the Newton and adjoint
+systems, and the 1D and 2D Newton steps (vch_tpu/ops/linsolve.py).
 
 On the uniform Neumann grid the Laplacian is exactly diagonal in the cosine
 basis, so the constant-coefficient part of every implicit operator is a
@@ -92,6 +92,12 @@ def member_dot(a, c):
     """Inner product over the last two axes, kept as (..., 1, 1): one value
     per member of a batch of fields."""
     return torch.sum(a * c, dim=(-2, -1), keepdim=True)
+
+
+def member_dot_1d(a, c):
+    """Inner product over the last axis, kept as (..., 1): one value per
+    member of a batch of 1D fields."""
+    return torch.sum(a * c, dim=-1, keepdim=True)
 
 
 def _eps_div(dtype) -> float:
@@ -234,6 +240,79 @@ def bicgstab_split_fixed(apply_A: Callable, b: torch.Tensor,
     y = bicgstab_fixed(apply_At, bt, lambda v: v, n_iter=n_iter, x0=y0,
                        dot_fn=dot_fn, eps_div=eps_div)
     return apply_Phalf(y)
+
+
+class SpectralOp1D(NamedTuple):
+    """Operator constants on an (N+1) grid."""
+
+    L: torch.Tensor       # (N+1, N+1) Neumann Laplacian
+    V: torch.Tensor       # cosine modes as columns
+    Vinv: torch.Tensor
+    lam: torch.Tensor     # (N+1,) eigenvalues
+
+
+def make_spectral_op_1d(N: int, h: float, dtype=torch.float64,
+                        device=None) -> SpectralOp1D:
+    L = laplacian_matrix_neumann(N, h)
+    lam, V, Vinv = neumann_eigendecomposition(N, h)
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                     device=device)
+    return SpectralOp1D(as_t(L), as_t(V), as_t(Vinv), as_t(lam))
+
+
+def newton_schur_solve_1d(L, phi, Rphi, Rmu, dt, tau: float, c1: float,
+                          kappa: float, delta_sep: float):
+    """The 1D Newton step (dphi, dmu) by the exact dense Schur solve
+    (vch_tpu/ops/linsolve.py:278), one (N+1) system per member of
+    phi[..., N+1]: S dphi = L Rphi - Rmu. A singular or non-finite system
+    gives a non-finite step, not an error, as jnp.linalg.solve does."""
+    n = phi.shape[-1]
+    d = 2.0 * c1 / (1.0 - phi * phi)
+    I = torch.eye(n, dtype=phi.dtype, device=phi.device)
+    S = ((1.0 / dt) * I + (0.5 * kappa) * (L @ L) - (tau / dt) * L
+         - L * d[..., None, :])
+    rhs = torch.matmul(Rphi, L.T) - Rmu
+    dphi = torch.linalg.solve_ex(S, rhs[..., None])[0][..., 0]
+    Kpp_dphi = (-(0.5 * kappa) * torch.matmul(dphi, L.T)
+                + (tau / dt + d) * dphi)
+    dmu = 2.0 * (Kpp_dphi + Rphi)
+    return dphi, dmu
+
+
+def newton_schur_solve_1d_spectral(op: SpectralOp1D, phi, Rphi, Rmu, dt,
+                                   tau: float, c1: float, kappa: float,
+                                   delta_sep: float, tol: float = 1e-9,
+                                   max_iter: int = 100,
+                                   fixed_iters: Optional[int] = None):
+    """The same step by raw-basis BiCGStab with the cosine-diagonal
+    preconditioner (d replaced by its mean), per member of phi[..., N+1]
+    (vch_tpu/ops/linsolve.py:317): fixed_iters trips of `bicgstab_fixed`,
+    or the adaptive `bicgstab`."""
+    LT, VinvT, VT = op.L.T, op.Vinv.T, op.V.T
+    mm = torch.matmul
+    d = 2.0 * c1 / (1.0 - phi * phi)
+    dbar = torch.mean(d, dim=-1, keepdim=True)
+    lap = lambda v: mm(v, LT)
+
+    def apply_S(v):
+        u = (tau / dt + d) * v - 0.5 * kappa * lap(v)
+        return (1.0 / dt) * v - lap(u)
+
+    denom = (1.0 / dt) + 0.5 * kappa * op.lam ** 2 - (tau / dt + dbar) * op.lam
+
+    def apply_M(v):
+        return mm(mm(v, VinvT) / denom, VT)
+
+    rhs = lap(Rphi) - Rmu
+    if fixed_iters is not None:
+        dphi = bicgstab_fixed(apply_S, rhs, apply_M, n_iter=fixed_iters,
+                              dot_fn=member_dot_1d)
+    else:
+        dphi = bicgstab(apply_S, rhs, apply_M, tol=tol, max_iter=max_iter,
+                        dot_fn=member_dot_1d)
+    Kpp_dphi = -(0.5 * kappa) * lap(dphi) + (tau / dt + d) * dphi
+    dmu = 2.0 * (Kpp_dphi + Rphi)
+    return dphi, dmu
 
 
 def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,

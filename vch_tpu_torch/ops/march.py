@@ -1,14 +1,15 @@
-"""The kernels of the batched 2D PGD paths: the whole forward march and the
-whole adjoint sweep, their member-blocked forms and their K-step segment
-forms (counterpart of vch_tpu/ops/pallas_march.py); and `Entries`, the
-table of every kernel entry point a solver calls, per-solve kernels of
-ops.solve_kernels included.
+"""The kernels of the batched PGD paths: the whole 2D forward march and the
+whole 2D adjoint sweep, their member-blocked forms and their K-step segment
+forms, and the whole batched 1D forward march (counterpart of
+vch_tpu/ops/pallas_march.py); and `Entries`, the table of every kernel
+entry point a solver calls, per-solve kernels of ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernels of `csrc/march2d.cu` and `csrc/adjoint2d.cu` (float32
-only; anything else raises), on CPU tensors it runs its plain PyTorch
-version `<name>_plain` of this module. There is no fallback from one to the
-other. Each wrapper counts its kernel launches in `.launches`.
+hand-written kernels of `csrc/march2d.cu`, `csrc/adjoint2d.cu` and
+`csrc/march1d.cu` (float32 only; anything else raises), on CPU tensors it
+runs its plain PyTorch version `<name>_plain` of this module. There is no
+fallback from one to the other. Each wrapper counts its kernel launches in
+`.launches`.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -704,9 +705,231 @@ def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
 adjoint_fused_2d_segment.launches = 0
 
 
+# --------------------------------------------------------------------------
+# 1D forward march
+
+_ARMIJO_ETA_1D = 1e-3
+
+
+def _march1d_member(dts, phi0, u, LT, VinvT, VT, lam, wts, k):
+    """One member's 1D march: phi0, lam, wts (n,), u (M+1, n) in core
+    layout. What the Pallas body (`_march1d_kernel_factory`,
+    pallas_march.py:897-1180) computes for a member: its masked lockstep
+    gives each member its own Newton, Armijo and Krylov trip counts.
+    Returns (post-step frames, nsolve, first_bad)."""
+    mm = torch.matmul
+    tau, c1, c2, kappa, gamma = k["tau"], k["c1"], k["c2"], k["kappa"], k["gamma"]
+    delta_sep = k["delta_sep"]
+    lo, hi = -1.0 + delta_sep, 1.0 - delta_sep
+    n = phi0.shape[0]
+    eps_mach = _eps_mach(phi0.dtype)
+    lap = lambda v: mm(v, LT)
+    to_s = lambda v: mm(v, VinvT)
+    from_s = lambda vh: mm(vh, VT)
+    f_log = lambda phi: regularized_log(phi, delta_sep)
+
+    phi_old = phi0
+    w_old = torch.zeros_like(phi0)
+    mu_old = -kappa * lap(phi0) + c1 * f_log(phi0) - 2.0 * c2 * phi0
+    m0 = torch.sum(wts * phi0)
+    frames, nsolve, first_bad = [], 0, -1
+
+    for step in range(dts.shape[0]):
+        dt = dts[step]
+        inv_dt = 1.0 / dt
+        tau_dt = tau * inv_dt
+        gamma_dt = gamma * inv_dt
+        w_new = (((gamma_dt - 0.5) * w_old + 0.5 * (u[step + 1] + u[step]))
+                 / (gamma_dt + 0.5))
+        lap_mu_old = lap(mu_old)
+        lap_phi_old = lap(phi_old)
+        f_ccv = -2.0 * c2 * phi_old
+        w_avg = 0.5 * (w_new + w_old)
+
+        def resid(phi, mu):
+            lap_mu = lap(mu)
+            lap_phi = lap(phi)
+            Rmu = (phi - phi_old) * inv_dt - 0.5 * (lap_mu + lap_mu_old)
+            Rphi = (tau * inv_dt * (phi - phi_old)
+                    - 0.5 * kappa * (lap_phi + lap_phi_old)
+                    + c1 * f_log(phi) + f_ccv
+                    - 0.5 * (mu + mu_old) - w_avg)
+            norm = torch.sqrt(torch.sum(Rphi * Rphi) + torch.sum(Rmu * Rmu))
+            return norm, Rphi, Rmu
+
+        def schur_solve(phi, Rphi, Rmu):
+            d = 2.0 * c1 / (1.0 - phi * phi)
+            dbar = torch.sum(d) / n
+            poly = inv_dt - tau_dt * lam + 0.5 * kappa * lam * lam
+            denom = poly - dbar * lam
+
+            def apply_S(yh):
+                return poly * yh - lam * to_s(d * from_s(yh))
+
+            bvec = to_s(lap(Rphi) - Rmu)
+            floor2 = ((50.0 * eps_mach) ** 2
+                      * torch.clamp(_dot(bvec, bvec), min=EPS_DIV))
+            z = torch.zeros_like(bvec)
+            best_x = _bicgstab_fixed(apply_S, lambda v: v / denom, bvec, z, z,
+                                     floor2, k["n_trips"])
+            dphi = from_s(best_x)
+            Kpp_dphi = -(0.5 * kappa) * lap(dphi) + (tau_dt + d) * dphi
+            dmu = 2.0 * (Kpp_dphi + Rphi)
+            return dphi, dmu
+
+        def step_ceiling(phi, dphi):
+            inf = torch.full_like(phi, math.inf)
+            ratio_pos = torch.where(dphi > 0, (hi - phi) / dphi, inf)
+            ratio_neg = torch.where(dphi < 0, (lo - phi) / dphi, inf)
+            amax = torch.minimum(torch.min(ratio_pos), torch.min(ratio_neg))
+            if not bool(torch.isfinite(amax)) or bool(amax <= 0):
+                amax = torch.ones_like(amax)
+            return torch.clamp(0.9 * amax, max=1.0)
+
+        def armijo(phi, mu, dphi, dmu, norm_R):
+            # in-bounds guard, no best-trial fallback; the trial step is
+            # alpha0 * 0.5^j; an accepted trial hands its residual on
+            alpha0 = step_ceiling(phi, dphi)
+            fac = 1.0
+            for _ in range(_ARMIJO_MAX):
+                alpha = alpha0 * fac
+                phi_t = phi + alpha * dphi
+                mu_t = mu + alpha * dmu
+                norm_t, Rp_t, Rm_t = resid(phi_t, mu_t)
+                if (bool(torch.all(torch.abs(phi_t) < 1.0 - delta_sep))
+                        and bool(norm_t <= (1.0 - _ARMIJO_ETA_1D * alpha)
+                                 * norm_R)):
+                    return phi_t, mu_t, norm_t, Rp_t, Rm_t
+                fac *= 0.5
+            return None
+
+        # Newton from (phi_old, mu_old): this member's own trip count; the
+        # residual of an accepted trial is the next round's residual
+        phi, mu = phi_old, mu_old
+        norm_R, Rphi, Rmu = resid(phi, mu)
+        norm0, prev_norm = norm_R, None
+        for it in range(k["newton_max_iter"]):
+            conv = bool(norm_R < k["newton_tol"])
+            if k["newton_rtol"] > 0:
+                conv = conv or bool(norm_R < k["newton_rtol"] * norm0)
+            if k["stagnation_exit"] and it > 0:
+                conv = conv or bool(norm_R >= prev_norm)
+            if conv:
+                break
+            dphi, dmu = schur_solve(phi, Rphi, Rmu)
+            nsolve += 1
+            trial = armijo(phi, mu, dphi, dmu, norm_R)
+            if trial is None:       # a failed line search ends the loop
+                break
+            prev_norm = norm_R
+            phi, mu, norm_R, Rphi, Rmu = trial
+
+        # clip + uniform mass projection + sanitizer
+        phi_c = torch.clamp(phi, lo, hi)
+        mass_error = torch.sum(wts * phi_c) - m0
+        if not bool(torch.isfinite(mass_error)) and first_bad < 0:
+            first_bad = step
+        phi_c = phi_c - mass_error / k["Lx_len"]
+        frames.append(phi_c)
+        phi_old, mu_old, w_old = phi_c, mu, w_new
+    return frames, nsolve, first_bad
+
+
+def march_fused_1d_plain(dts, phi0, u, LT, VinvT, VT, lam, wts, **k):
+    """Plain PyTorch version of the 1D forward-march kernel (any device,
+    float32 or float64). Arguments as `march_fused_1d`."""
+    hist, ns, bad = [], [], []
+    for b in range(phi0.shape[0]):
+        frames, nsolve, first_bad = _march1d_member(
+            dts, phi0[b], u[b], LT, VinvT, VT, lam[0], wts[0], k)
+        hist.append(torch.stack([phi0[b]] + frames))
+        ns.append(nsolve)
+        bad.append(first_bad)
+    as_f = lambda v: torch.tensor(v, dtype=torch.float32, device=phi0.device)
+    return torch.stack(hist), as_f(ns), as_f(bad)
+
+
+def _fwd1d_consts(k):
+    """The 1D kernel's constants, formed in double precision the way the
+    Pallas kernel forms them from Python floats, then rounded to float32."""
+    ds = k["delta_sep"]
+    log_eps = max(1e-8, 0.5 * ds)
+    vals = [k["tau"], k["c1"], 2.0 * k["c1"], 2.0 * k["c2"], -k["kappa"],
+            0.5 * k["kappa"], k["gamma"], -1.0 + log_eps, 1.0 - log_eps,
+            -1.0 + ds, 1.0 - ds, k["Lx_len"], k["newton_tol"],
+            k["newton_rtol"], (50.0 * _eps_mach(torch.float32)) ** 2]
+    return (ctypes.c_float * len(vals))(*vals), len(vals)
+
+
+# members per CTA the 1D march kernel is built for (csrc/march1d.cu)
+MARCH_1D_GROUPS = (1, 2, 4)
+
+
+def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
+                   c1: float, c2: float, kappa: float, gamma: float,
+                   delta_sep: float, Lx_len: float, newton_tol: float,
+                   newton_rtol: float, newton_max_iter: int, n_trips: int,
+                   stagnation_exit: bool = True, group: int = 0):
+    """The whole batched 1D forward march in one launch
+    (pallas_march.py:1183).
+
+    Args:
+      dts (M,), phi0 (B, n), u (B, M+1, n) in core layout (no duplicated
+      t = 0 row: that is the caller's); LT, VinvT, VT (n, n): the Laplacian
+      and the cosine analysis and synthesis transforms, transposed; lam
+      (1, n) eigenvalues; wts (1, n) quadrature weights * h; Lx_len the
+      domain length of the uniform mass projection.
+      group: members per CTA on CUDA tensors, one of MARCH_1D_GROUPS, or 0:
+      the smallest of them that gives every CTA an SM to itself (4 beyond
+      that). A member's result does not depend on it.
+    Returns phi_hist (B, M+1, n) with phi0 first, newton_solves (B,)
+    float32, first_bad (B,) float32: the first step whose mass defect was
+    not finite, -1 for none.
+    """
+    k = dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
+             delta_sep=delta_sep, Lx_len=Lx_len, newton_tol=newton_tol,
+             newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
+             n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
+    args = (dts, phi0, u, LT, VinvT, VT, lam, wts)
+    if not _build.on_cuda("march_fused_1d", phi0):
+        return march_fused_1d_plain(*args, **k)
+    if group not in (0,) + MARCH_1D_GROUPS:
+        raise ValueError(f"group must be 0 or one of {MARCH_1D_GROUPS}, got "
+                         f"{group}")
+    B, n = phi0.shape
+    M = dts.shape[0]
+    dev = phi0.device
+    _build.check_cuda([("dts", dts, (M,)), ("phi0", phi0, (B, n)),
+                       ("u", u, (B, M + 1, n)), ("LT", LT, (n, n)),
+                       ("VinvT", VinvT, (n, n)), ("VT", VT, (n, n)),
+                       ("lam", lam, (1, n)), ("wts", wts, (1, n))], dev)
+    lib = _build.load()
+    hist = torch.empty((B, M + 1, n), dtype=torch.float32, device=dev)
+    nsolve = torch.empty((B,), dtype=torch.float32, device=dev)
+    first_bad = torch.empty((B,), dtype=torch.float32, device=dev)
+    # a CTA's last members may lie past B: each has a workspace of its own
+    slots = -(-B // max(MARCH_1D_GROUPS)) * max(MARCH_1D_GROUPS)
+    work = torch.empty((slots, lib.vch_march_1d_workspace_fields(), n),
+                       dtype=torch.float32, device=dev)
+    consts, nc = _fwd1d_consts(k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_march_fused_1d(
+        *[t.data_ptr() for t in args], hist.data_ptr(), nsolve.data_ptr(),
+        first_bad.data_ptr(), work.data_ptr(), B, M, n, consts, nc,
+        k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
+        int(group), stream)
+    march_fused_1d.launches += 1
+    _build.raise_on(lib, err, "march_fused_1d")
+    return hist, nsolve, first_bad
+
+
+march_fused_1d.launches = 0
+
+
 class Entries(NamedTuple):
-    """The entry points a solver calls: the six whole-march and whole-sweep
-    kernels and the four per-solve kernels of ops.solve_kernels. KERNELS
+    """The entry points a solver calls: the six 2D whole-march and
+    whole-sweep kernels, the four per-solve kernels of ops.solve_kernels and
+    the whole 1D march. KERNELS
     routes by device (the CUDA kernels on CUDA tensors); PLAIN runs the
     plain versions on any device, which chip_smoke.py uses to hold the
     kernel path against the plain path on the card."""
@@ -721,27 +944,32 @@ class Entries(NamedTuple):
     adjoint_spectral: Callable
     schur_raw: Callable
     adjoint_raw: Callable
+    march_1d: Callable
 
 
 KERNELS = Entries(march_fused_2d, march_fused_2d_blocked,
                   march_fused_2d_segment, adjoint_fused_2d,
                   adjoint_fused_2d_blocked, adjoint_fused_2d_segment,
                   sk.bicgstab_schur_spectral, sk.bicgstab_adjoint_spectral,
-                  sk.bicgstab_schur, sk.bicgstab_adjoint)
+                  sk.bicgstab_schur, sk.bicgstab_adjoint, march_fused_1d)
 PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 march_fused_2d_segment_plain, adjoint_fused_2d_plain,
                 adjoint_fused_2d_blocked_plain, adjoint_fused_2d_segment_plain,
                 sk.bicgstab_schur_spectral_plain,
                 sk.bicgstab_adjoint_spectral_plain, sk.bicgstab_schur_plain,
-                sk.bicgstab_adjoint_plain)
+                sk.bicgstab_adjoint_plain, march_fused_1d_plain)
+# every kernel wrapper of the port: the solvers' entries and the three
+# operator applies, which no solver calls
+WRAPPERS = tuple(KERNELS) + (sk.schur_apply, sk.adjoint_apply,
+                             sk.spectral_solve)
 
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    for fn in KERNELS:
+    for fn in WRAPPERS:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Each kernel wrapper's launch count, by name."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

@@ -1,7 +1,7 @@
-"""Flory–Huggins potential terms, the 2D free energy and the seeded random
-initial condition (vch_tpu/ops/potential.py).
+"""Flory–Huggins potential terms, the 1D and 2D free energies and the seeded
+random initial conditions (vch_tpu/ops/potential.py).
 
-The initial condition is built host-side with numpy's default_rng so it is
+The initial conditions are built host-side with numpy's default_rng so it is
 bit-identical to vch_tpu's (and to the reference solver's).
 """
 from __future__ import annotations
@@ -32,6 +32,24 @@ def fpp_log(phi: torch.Tensor, c1: float, c2: float,
     return 2.0 * c1 / (1.0 - ph * ph) - 2.0 * c2
 
 
+def free_energy_1d(phi: torch.Tensor, kappa: float, c1: float, c2: float,
+                   h: float, w: torch.Tensor | None = None,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """1D free energy E = int (kappa/2)|phi_x|^2 + psi(phi) [- w phi] dx of
+    phi[..., N+1] (vch_tpu/ops/potential.py:44)."""
+    wts = torch.as_tensor(trapz_weights(phi.shape[-1]), dtype=phi.dtype,
+                          device=phi.device)
+    dphi = torch.diff(phi, dim=-1)
+    E_grad = (kappa / (2.0 * h)) * torch.sum(dphi ** 2, dim=-1)
+    phi_s = torch.clamp(phi, -1.0 + eps, 1.0 - eps)
+    psi = (c1 * ((1.0 + phi_s) * torch.log(1.0 + phi_s)
+                 + (1.0 - phi_s) * torch.log(1.0 - phi_s)) - c2 * phi_s ** 2)
+    E = E_grad + h * torch.sum(wts * psi, dim=-1)
+    if w is not None:
+        E = E - h * torch.sum(wts * w * phi, dim=-1)
+    return E
+
+
 def free_energy_2d(phi: torch.Tensor, kappa: float, c1: float, c2: float,
                    hx: float, hy: float, w: torch.Tensor | None = None,
                    eps: float = 1e-8) -> torch.Tensor:
@@ -53,6 +71,19 @@ def free_energy_2d(phi: torch.Tensor, kappa: float, c1: float, c2: float,
     if w is not None:
         E = E - hx * hy * torch.sum(wts * w * phi, dim=(-2, -1))
     return E
+
+
+def init_phi_random_1d(N: int, delta_sep: float, amp: float = 0.01,
+                       seed: int = 42,
+                       enforce_zero_mean: bool = True) -> np.ndarray:
+    """1D seeded Gaussian IC with trapz zero-mean projection, clipped
+    (float64 numpy; vch_tpu/ops/potential.py:85)."""
+    rng = np.random.default_rng(seed)
+    phi0 = amp * rng.standard_normal(N + 1)
+    if enforce_zero_mean:
+        wts = trapz_weights(N + 1)
+        phi0 -= np.dot(wts, phi0) / wts.sum()
+    return np.clip(phi0, -1.0 + delta_sep, 1.0 - delta_sep)
 
 
 def init_phi_random_2d(Nx: int, Ny: int, delta_sep: float, amp: float = 0.1,

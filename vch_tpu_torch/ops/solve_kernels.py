@@ -1,5 +1,7 @@
 """The per-solve kernels of the 2D scan path: one whole fixed-trip BiCGStab
-solve per launch (counterpart of vch_tpu/ops/pallas_kernels.py).
+solve per launch, and the three operator applies those solves are built
+from, each as a kernel of its own (counterpart of
+vch_tpu/ops/pallas_kernels.py).
 
   bicgstab_schur_spectral   the Newton Schur solve S dphi = rhs in the
                             cosine basis (pallas_kernels.py:691): the
@@ -11,18 +13,27 @@ solve per launch (counterpart of vch_tpu/ops/pallas_kernels.py).
   bicgstab_schur            the Schur solve in the raw basis (:233), 16
                             products per trip (pallas_variant "raw");
   bicgstab_adjoint          the adjoint solve in the raw basis (:581), 24
-                            products per trip.
+                            products per trip;
+  schur_apply               S v = v/dt - L[(tau/dt + d) v - (kappa/2) L v]
+                            (:101), 4 products;
+  adjoint_apply             A v = v - tau L v + (dt/2)(L L v - f'' L v)
+                            (:133), 4 products;
+  spectral_solve            Vx ((Vx^-1 v Vy^-T) / denom) Vy^T, the exact
+                            solve of a polynomial in L (:478), 4 products.
+`bicgstab_schur` on a (B, n, m) batch is also the counterpart of the
+member-tiled `bicgstab_schur_pallas_batched` (:394): one CTA per member
+takes the place of its block_b members per program and its padding.
 
 Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernel of `csrc/solve2d.cu` (float32, one CTA per member; a
-failed build or launch raises), on CPU tensors it runs its plain PyTorch
-version `<name>_plain` of this module, which computes what the Pallas
-kernel body computes (fixed trip count, noise-floor freeze, non-finite
-rejection, best iterate; eps_div 1e-30 in both dtypes, as the kernels) in
-float32 or float64 without host syncs. Each wrapper counts its launches in
-`.launches`.
+hand-written kernel of `csrc/solve2d.cu` or `csrc/apply2d.cu` (float32, one
+CTA per member; a failed build or launch raises), on CPU tensors it runs
+its plain PyTorch version `<name>_plain` of this module, which computes
+what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
+non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
+kernels) in float32 or float64 without host syncs. Each wrapper counts its
+launches in `.launches`.
 """
 from __future__ import annotations
 
@@ -290,3 +301,108 @@ def bicgstab_adjoint(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
 
 
 bicgstab_adjoint.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the operator applies
+# variant numbers of vch_apply_2d
+_SCHUR_APPLY, _ADJOINT_APPLY, _SPECTRAL_SOLVE = range(3)
+
+
+def schur_apply_plain(Lx, LyT, d, v, inv_dt, tau_dt, half_kappa):
+    """Plain PyTorch version of `schur_apply`."""
+    lap = lambda f: apply_laplacian_2d(Lx, LyT, f)
+    u = (tau_dt + d) * v - half_kappa * lap(v)
+    return inv_dt * v - lap(u)
+
+
+def adjoint_apply_plain(Lx, LyT, fpp, v, tau, half_dt):
+    """Plain PyTorch version of `adjoint_apply`."""
+    lap = lambda f: apply_laplacian_2d(Lx, LyT, f)
+    w = lap(v)
+    return v - tau * w + half_dt * (lap(w) - fpp * w)
+
+
+def spectral_solve_plain(Vx_inv, Vy_inv_T, Vx, VyT, denom, v):
+    """Plain PyTorch version of `spectral_solve`."""
+    to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
+    return from_s(to_s(v) / denom)
+
+
+def _launch_apply(wrapper, variant, scalars, mats, f1, v):
+    """Check and launch one batch of applies: `mats` the six operator slots
+    (Lx, LyT, Vxi, VyiT, Vx, VyT; None where the variant takes none), f1 the
+    coefficient field (d, f'' or denom), shaped as v, (n, m) or (B, n, m),
+    or (n, m) shared by the members of a (B, n, m) v."""
+    n, m = v.shape[-2:]
+    if v.dim() not in (2, 3):
+        raise ValueError(f"v must be (n, m) or (B, n, m), got "
+                         f"{tuple(v.shape)}")
+    B = v.shape[0] if v.dim() == 3 else 1
+    dev = v.device
+    shapes = ((n, n), (m, m), (n, n), (m, m), (n, n), (m, m))
+    names = ("Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx", "VyT")
+    shared = f1.dim() == 2 and v.dim() == 3
+    _build.check_cuda(
+        [(nm, t, sh) for nm, t, sh in zip(names, mats, shapes)
+         if t is not None]
+        + [("v", v, tuple(v.shape)),
+           ("coefficient", f1, (n, m) if shared else tuple(v.shape))], dev)
+    lib = _build.load()
+    scal = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                        device=dev).reshape(())
+                        for x in scalars])
+    out = torch.empty_like(v)
+    work = torch.empty((B, 2, n, m), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.vch_apply_2d(variant, scal.data_ptr(), *[ptr(t) for t in mats],
+                           f1.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           work.data_ptr(), B, n, m, int(shared), stream)
+    wrapper.launches += 1
+    _build.raise_on(lib, err, wrapper.__name__)
+    return out
+
+
+def schur_apply(Lx, LyT, d, v, inv_dt, tau_dt, half_kappa):
+    """The Newton Schur operator S v = inv_dt v - L[(tau_dt + d) v -
+    half_kappa L v], L v = Lx v + v LyT, per member
+    (vch_tpu/ops/pallas_kernels.py:101). Lx (n, n), LyT (m, m); d and v
+    (n, m) or (B, n, m); the scalars numbers or 0-d tensors. Returns S v
+    shaped as v."""
+    if not _build.on_cuda("schur_apply", v):
+        return schur_apply_plain(Lx, LyT, d, v, inv_dt, tau_dt, half_kappa)
+    return _launch_apply(schur_apply, _SCHUR_APPLY,
+                         (inv_dt, tau_dt, half_kappa),
+                         (Lx, LyT, None, None, None, None), d, v)
+
+
+schur_apply.launches = 0
+
+
+def adjoint_apply(Lx, LyT, fpp, v, tau, half_dt):
+    """The adjoint step operator A v = v - tau L v + half_dt (L L v -
+    fpp L v) per member (vch_tpu/ops/pallas_kernels.py:133). Shapes as
+    `schur_apply`, fpp = f''(phi_n) in d's place."""
+    if not _build.on_cuda("adjoint_apply", v):
+        return adjoint_apply_plain(Lx, LyT, fpp, v, tau, half_dt)
+    return _launch_apply(adjoint_apply, _ADJOINT_APPLY, (tau, half_dt),
+                         (Lx, LyT, None, None, None, None), fpp, v)
+
+
+adjoint_apply.launches = 0
+
+
+def spectral_solve(Vx_inv, Vy_inv_T, Vx, VyT, denom, v):
+    """The cosine-diagonal solve Vx ((Vx^-1 v Vy^-T) / denom) Vy^T per
+    member: exact for a polynomial in L with symbol denom on the eigenvalue
+    grid, and the preconditioner apply of the raw-basis solves
+    (vch_tpu/ops/pallas_kernels.py:478). v (n, m) or (B, n, m); denom shaped
+    as v, or (n, m) shared by the members."""
+    if not _build.on_cuda("spectral_solve", v):
+        return spectral_solve_plain(Vx_inv, Vy_inv_T, Vx, VyT, denom, v)
+    return _launch_apply(spectral_solve, _SPECTRAL_SOLVE, (0.0,),   # unused
+                         (None, None, Vx_inv, Vy_inv_T, Vx, VyT), denom, v)
+
+
+spectral_solve.launches = 0

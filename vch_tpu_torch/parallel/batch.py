@@ -1,4 +1,4 @@
-"""Batched PGD over 2D scenario sweeps (vch_tpu/parallel/batch.py).
+"""Batched PGD over 1D and 2D scenario sweeps (vch_tpu/parallel/batch.py).
 
 Each member of the scenario batch has its own initial condition, targets and
 cost weights (b1, b2, b3, kappa_spar). One PGD iteration runs the whole-batch
@@ -10,10 +10,13 @@ whose results are discarded (their Newton solves are still counted, as in
 vch_tpu). Plateau detection, alpha growth and convergence freezing follow
 vch_tpu/parallel/batch.py:922-984.
 
-Two problems share that PGD loop (`_BatchedPGDBase`): `BatchedProblem2D`
+Three problems share that PGD loop (`_BatchedPGDBase`): `BatchedProblem2D`
 keeps each member's whole trajectory, `LowMemBatchedProblem2D` keeps K-step
-segment checkpoints and recomputes each segment in the adjoint.
-`make_batched_problem_2d` picks one by the estimated peak device memory.
+segment checkpoints and recomputes each segment in the adjoint
+(`make_batched_problem_2d` picks one of the two by the estimated peak device
+memory), and `BatchedProblem1D` runs the 1D family in the reference's history
+layout (a duplicated t = 0 row): its forward is the fused 1D march kernel or
+the batched per-step marcher, its adjoint the batched per-step sweep.
 
 Not ported (single device, eager PyTorch): the device mesh and
 `shard_fused`, the combined (scenarios, grid) mesh problem, the speculative
@@ -30,13 +33,16 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from vch_tpu_torch.config import (ForwardSolverConfig2D, OptimizationConfig,
+from vch_tpu_torch.config import (ForwardSolverConfig1D,
+                                  ForwardSolverConfig2D, OptimizationConfig,
                                   PGDSettings)
-from vch_tpu_torch.control.cost import calculate_cost_2d
+from vch_tpu_torch.control.cost import calculate_cost_1d, calculate_cost_2d
 from vch_tpu_torch.control.prox import calculate_gradient, proximal_step
-from vch_tpu_torch.control.targets import build_targets_2d
+from vch_tpu_torch.control.targets import build_targets_1d, build_targets_2d
 from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+from vch_tpu_torch.models.forward1d import ForwardSolver1D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 from vch_tpu_torch.models.lowmem import FusedLowMemBatch2D, LowMemPipeline2D
 from vch_tpu_torch.models.timegrid import build_dt_schedule
@@ -48,9 +54,9 @@ Array = Union[np.ndarray, torch.Tensor]
 class ScenarioBatch:
     """Per-scenario inputs, leading batch axis B (numpy or tensors)."""
 
-    phi0: Array          # (B, Nx+1, Ny+1)
-    phi_T: Array         # (B, Nx+1, Ny+1)
-    phi_Q: Optional[Array]   # (B, M+1, Nx+1, Ny+1), or None: procedural
+    phi0: Array          # (B, *space)
+    phi_T: Array         # (B, *space)
+    phi_Q: Optional[Array]   # (B, M+1, *space), or None: procedural
     b1: Array            # (B,)
     b2: Array
     b3: Array
@@ -65,6 +71,38 @@ class ScenarioBatch:
     @property
     def batch(self) -> int:
         return self.phi0.shape[0]
+
+
+def _sweep(opt, phi0, phi_T, phi_Q, b3_values, kappa_values, phi_Q_mode=None):
+    """The (b3, kappa_spar) grid over one IC and one pair of targets."""
+    b3s = np.asarray(b3_values if b3_values is not None else [opt.b3])
+    kss = np.asarray(kappa_values if kappa_values is not None
+                     else [opt.kappa_sparsity])
+    g_b3, g_ks = np.meshgrid(b3s, kss, indexing="ij")
+    B = g_b3.size
+    rep = lambda a: np.broadcast_to(a, (B,) + a.shape).copy()
+    return ScenarioBatch(
+        phi0=rep(phi0), phi_T=rep(phi_T),
+        phi_Q=None if phi_Q is None else rep(phi_Q),
+        b1=np.full(B, opt.b1), b2=np.full(B, opt.b2),
+        b3=g_b3.ravel(), kappa_spar=g_ks.ravel(),
+        u_min=opt.u_min, u_max=opt.u_max, phi_Q_mode=phi_Q_mode)
+
+
+def sweep_1d(fwd_config: ForwardSolverConfig1D,
+             opt_config: Optional[OptimizationConfig] = None,
+             b3_values=None, kappa_values=None,
+             choice_t: int = 1, choice_q: int = 1) -> ScenarioBatch:
+    """(b3, kappa_spar) grid sweep with the default 1D IC and targets, as
+    numpy arrays; phi_Q in core layout, M+1 rows
+    (vch_tpu/parallel/batch.py:106-128; BASELINE config 2)."""
+    opt = opt_config or OptimizationConfig()
+    solver = ForwardSolver1D(fwd_config, device="cpu")   # host grids and IC
+    phi0 = solver.default_initial_phi()
+    phi_T, phi_Q = build_targets_1d(solver.x, solver.t_hist, phi0,
+                                    float(fwd_config.Lx), float(fwd_config.T),
+                                    choice_t=choice_t, choice_q=choice_q)
+    return _sweep(opt, phi0, phi_T, phi_Q, b3_values, kappa_values)
 
 
 def sweep_2d(fwd_config: ForwardSolverConfig2D,
@@ -83,20 +121,10 @@ def sweep_2d(fwd_config: ForwardSolverConfig2D,
                                     float(fwd_config.Lx), float(fwd_config.Ly),
                                     float(fwd_config.T),
                                     choice_t=choice_t, choice_q=choice_q)
-    b3s = np.asarray(b3_values if b3_values is not None else [opt.b3])
-    kss = np.asarray(kappa_values if kappa_values is not None
-                     else [opt.kappa_sparsity])
-    g_b3, g_ks = np.meshgrid(b3s, kss, indexing="ij")
-    B = g_b3.size
-    rep = lambda a: np.broadcast_to(a, (B,) + a.shape).copy()
-    return ScenarioBatch(
-        phi0=rep(phi0), phi_T=rep(phi_T),
-        phi_Q=rep(phi_Q) if materialize_phi_Q else None,
-        b1=np.full(B, opt.b1), b2=np.full(B, opt.b2),
-        b3=g_b3.ravel(), kappa_spar=g_ks.ravel(),
-        u_min=opt.u_min, u_max=opt.u_max,
-        phi_Q_mode=None if materialize_phi_Q
-        else ("ramp" if choice_q == 1 else "zeros"))
+    if materialize_phi_Q:
+        return _sweep(opt, phi0, phi_T, phi_Q, b3_values, kappa_values)
+    return _sweep(opt, phi0, phi_T, None, b3_values, kappa_values,
+                  phi_Q_mode="ramp" if choice_q == 1 else "zeros")
 
 
 def straggler_bucket(n_search: int, B: int) -> Optional[int]:
@@ -130,22 +158,26 @@ def _sync(device: torch.device):
 class _BatchedPGDBase:
     """The batched PGD loop on one device: `run`, the masked `_search`
     and the bucket ladder (vch_tpu/parallel/batch.py:_BatchedPGDBase).
-    A subclass sets `solver` (a ForwardSolver2D) before calling __init__
-    and supplies the hooks
+    A subclass sets `solver` (its forward solver) before calling __init__
+    with its PGD settings and the shape of one member's control, and
+    supplies the hooks
       _forward_stats(u, phi0, phi_Q, phi_T) -> (phi, newton_solves (B,)),
       _adjoint(phi, u, b1, b2, phi_Q, phi_T) -> r (B, M+1, ...),
       _cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks) -> (B,),
     where phi is whatever the subclass's forward keeps per member: a tensor
-    or a NamedTuple of tensors, each with a leading batch axis."""
+    or a NamedTuple of tensors, each with a leading batch axis. With
+    `straggler_buckets` off every trial runs the whole batch (vch_tpu's
+    straggler_batch=None, its default where no fused forward is set)."""
 
-    def __init__(self, settings: Optional[PGDSettings], alpha_max: float):
-        cfg = self.solver.config
+    def __init__(self, settings: PGDSettings, alpha_max: float,
+                 control_shape: tuple, straggler_buckets: bool = True):
         self.device = self.solver.dts.device
         self.dtype = self.solver.dtype
-        self.s = settings or PGDSettings.defaults_2d()
+        self.s = settings
         self.alpha_max = alpha_max
+        self.straggler_buckets = straggler_buckets
         self.straggler_rounds = 0
-        self._control_shape = (self.solver.M + 1, cfg.Nx + 1, cfg.Ny + 1)
+        self._control_shape = tuple(control_shape)
 
     def _set_phi_Q_mode(self, mode: Optional[str]):
         """Procedural tracking targets (ScenarioBatch.phi_Q None) need a
@@ -197,7 +229,8 @@ class _BatchedPGDBase:
             last = j == max_trials - 1
             nxt = np.where(j == 0, alpha_prev_np * s.ls_alpha_factor,
                            alpha_try * s.ls_beta)
-            sb_j = straggler_bucket(n_search, B)
+            sb_j = (straggler_bucket(n_search, B) if self.straggler_buckets
+                    else None)
             if sb_j is not None and j > 0 and res is not None:
                 self.straggler_rounds += 1
                 # searching members + non-searching padding rows, whose
@@ -347,6 +380,79 @@ class _BatchedPGDBase:
         }
 
 
+def _control_shape_2d(solver: ForwardSolver2D) -> tuple:
+    return (solver.M + 1, solver.config.Nx + 1, solver.config.Ny + 1)
+
+
+class BatchedProblem1D(_BatchedPGDBase):
+    """Batched 1D PGD on one device (device=None: the CUDA card), in the
+    reference layout: controls and histories carry M + 2 rows, the t = 0 row
+    duplicated (vch_tpu/parallel/batch.py:1009-1109).
+
+    fused_march: the forward solve of the baseline and of every line-search
+    trial as one launch of the fused 1D march kernel, with the straggler
+    buckets on. None turns it on for a CUDA device on the float32 spectral
+    fixed-trip path. A (sub-)batch the kernel's availability rule refuses
+    (`ForwardSolver1D.fused_march_available`) takes the batched per-step
+    marcher, as does every forward solve with fused_march off, which also
+    runs every trial on the whole batch."""
+
+    def __init__(self, fwd_config: Optional[ForwardSolverConfig1D] = None,
+                 settings: Optional[PGDSettings] = None,
+                 alpha_max: float = 100.0, device=None,
+                 fused_march: Optional[bool] = None):
+        self.fwd_config = cfg = fwd_config or ForwardSolverConfig1D()
+        device = resolve_device(device)
+        self.solver = ForwardSolver1D(cfg, device=device)
+        self.adj = AdjointSolver1D(cfg, device=device)
+        self._use_fused_march = (
+            fused_march if fused_march is not None
+            else (device.type == "cuda" and self.solver._use_spectral
+                  and self.solver._krylov_fixed is not None))
+        super().__init__(settings or PGDSettings.defaults_1d(), alpha_max,
+                         (self.solver.M + 2, cfg.N + 1),
+                         straggler_buckets=self._use_fused_march)
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
+        t_ref = np.concatenate([[0.0], self.solver.t_hist])
+        self._x = as_t(self.solver.x)
+        self._t_ref = as_t(t_ref)
+        self._dts_ref = as_t(np.diff(t_ref))
+
+    def _forward_stats(self, u_ref, phi0, phi_Q=None, phi_T=None):
+        M = self.solver.M
+        u = u_ref[:, : M + 1]           # core layout: drop the duplicate row
+        if (self._use_fused_march
+                and self.solver.fused_march_available(phi0.shape[0])):
+            phi, ns, _bad = self.solver.march_fused_batch(u.contiguous(),
+                                                          phi0.contiguous())
+        else:
+            phi, ns, _bad = self.solver._march_batch(u, phi0)
+        return torch.cat([phi[:, :1], phi], dim=1), ns
+
+    def _adjoint(self, phi_ref, u, b1, b2, phi_Q, phi_T):
+        return self.adj._run_batch(phi_ref, self._dts_ref, b1[:, None],
+                                   b2[:, None], phi_Q, phi_T)[2]
+
+    def _cost(self, phi_ref, u_ref, phi_Q, phi_T, b1, b2, b3, ks):
+        return calculate_cost_1d(phi_ref, u_ref, phi_Q, phi_T, self._x,
+                                 self._t_ref, b1, b2, b3, ks)
+
+    def _to_ref_layout(self, scenarios: ScenarioBatch) -> ScenarioBatch:
+        """phi_Q in core layout (M+1 rows, as sweep_1d builds it) gets the
+        duplicated t = 0 row, on a copy of the caller's batch, so that a
+        second run on the same batch converts again from the same input."""
+        pq = scenarios.phi_Q
+        if pq is None or pq.shape[1] != self.solver.M + 1:
+            return scenarios
+        cat = torch.cat if isinstance(pq, torch.Tensor) else np.concatenate
+        return dataclasses.replace(scenarios, phi_Q=cat([pq[:, :1], pq], 1))
+
+    def run(self, scenarios: ScenarioBatch, max_iter: int,
+            verbose: bool = True):
+        return super().run(self._to_ref_layout(scenarios), max_iter,
+                           verbose=verbose)
+
+
 class BatchedProblem2D(_BatchedPGDBase):
     """Batched 2D PGD on one device (device=None: the CUDA card), keeping
     each member's trajectory."""
@@ -358,7 +464,8 @@ class BatchedProblem2D(_BatchedPGDBase):
         device = resolve_device(device)
         self.solver = ForwardSolver2D(cfg, device=device)
         self.adj = AdjointSolver2D(cfg, device=device)
-        super().__init__(settings, alpha_max)
+        super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
+                         _control_shape_2d(self.solver))
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
         self._x = as_t(self.solver.x)
         self._y = as_t(self.solver.y)
@@ -392,7 +499,8 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
         self.pipe = LowMemPipeline2D(self.fwd_config, K=K, device=device)
         self.solver, self.adj = self.pipe.solver, self.pipe.adjoint
         self._fused = FusedLowMemBatch2D(self.pipe)
-        super().__init__(settings, alpha_max)
+        super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
+                         _control_shape_2d(self.solver))
 
     def _set_phi_Q_mode(self, mode: Optional[str]):
         if mode not in ("ramp", "zeros"):

@@ -12,8 +12,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from vch_tpu_torch.config import ForwardSolverConfig2D
-from vch_tpu_torch.ops.linsolve import SpectralOp2D
+from vch_tpu_torch.config import ForwardSolverConfig1D, ForwardSolverConfig2D
+from vch_tpu_torch.ops.linsolve import SpectralOp1D, SpectralOp2D
 from vch_tpu_torch.parallel.batch import ScenarioBatch
 
 
@@ -21,19 +21,21 @@ def _t(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def spectral_op_from_numpy(d: Mapping, dtype=torch.float64,
-                           device=None) -> SpectralOp2D:
+def spectral_op_from_numpy(d: Mapping, dtype=torch.float64, device=None):
     """A SpectralOp2D from a mapping with keys Lx, Ly, Vx, Vy, Vx_inv,
-    Vy_inv, lam (e.g. `op._asdict()` of vch_tpu's SpectralOp2D)."""
-    return SpectralOp2D(*[_t(d[name], dtype, device)
-                          for name in SpectralOp2D._fields])
+    Vy_inv, lam, or a SpectralOp1D from one with keys L, V, Vinv, lam (e.g.
+    `op._asdict()` of vch_tpu's SpectralOp2D or SpectralOp1D)."""
+    cls = SpectralOp1D if "L" in d else SpectralOp2D
+    return cls(*[_t(d[name], dtype, device) for name in cls._fields])
 
 
 def scenario_batch_from_numpy(sc, dtype=torch.float64,
                               device=None) -> ScenarioBatch:
     """The port's ScenarioBatch, as tensors, from any object with vch_tpu's
     ScenarioBatch attributes (phi0, phi_T, phi_Q, b1, b2, b3, kappa_spar,
-    u_min, u_max, and phi_Q_mode when phi_Q is None)."""
+    u_min, u_max, and phi_Q_mode when phi_Q is None), 1D or 2D; a
+    `sweep_1d` batch keeps its core-layout phi_Q (BatchedProblem1D.run adds
+    the duplicated row)."""
     conv = lambda a: _t(a, dtype, device)
     procedural = sc.phi_Q is None
     return ScenarioBatch(
@@ -47,15 +49,17 @@ def scenario_batch_from_numpy(sc, dtype=torch.float64,
 
 def control_arrays_from_vch_tpu(prob) -> dict:
     """phi0, phi_T_target, phi_Q_target and the baseline phi_hist0 of a
-    vch_tpu ControlProblem2D (any object with those attributes), as float64
-    numpy arrays."""
+    vch_tpu ControlProblem2D or ControlProblem1D (any object with those
+    attributes; the 1D ones in the reference layout), as float64 numpy
+    arrays."""
     return {name: np.array(getattr(prob, name), dtype=np.float64)
             for name in ("phi0", "phi_T_target", "phi_Q_target", "phi_hist0")}
 
 
-def config_from_vch_tpu(d: Mapping) -> ForwardSolverConfig2D:
-    """The port's ForwardSolverConfig2D from vch_tpu's
-    `ForwardSolverConfig2D.model_dump()` (or its JSON, loaded), the routing
-    knobs use_pallas, pallas_variant, krylov_tol and krylov_max_iter
-    included."""
-    return ForwardSolverConfig2D.from_dict(dict(d))
+def config_from_vch_tpu(d: Mapping):
+    """The port's ForwardSolverConfig2D or, for a dump with N and no Nx,
+    ForwardSolverConfig1D, from vch_tpu's `model_dump()` of the matching
+    config (or its JSON, loaded), every solver knob included."""
+    cls = ForwardSolverConfig1D if "N" in d and "Nx" not in d \
+        else ForwardSolverConfig2D
+    return cls.from_dict(dict(d))
