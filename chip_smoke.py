@@ -23,7 +23,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
-               gated against float64, with kernel and plain CUDA-event times;
+               and at the scan path's n = 129, B = 128, gated against
+               float64, with kernel and plain CUDA-event times;
   2d kernels — the fused 1D march against its plain version in float32 and
                both against the plain version in float64, at n = 129 and
                n = 513, B = 8, 5-step and 100-step marches, and at B = 134
@@ -46,11 +47,29 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   3c control — ControlProblem2D at 32x32, T = 0.25 (the golden config's
                grid), float32, 3 PGD iterations, kernel path against plain
                path, once with each pallas_variant;
+  2f probes  — the probe entry point vch_tpu_torch.probes.diag_kernel_cost
+               (the raw Schur solve, and its nodots and mmonly probes) at
+               the script's default shape (n = 65, B = 32, 10 trips) and at
+               the scan path's (n = 129, B = 128, 4 trips), each probe kernel
+               against its plain version, gated against float64;
   3d slice   — BatchedProblem1D at N = 64 on a heterogeneous B = 16 sweep,
                kernel path against plain path, 3 PGD iterations;
+  3e scan    — the scan path (fused_march=False: the batched per-step
+               marcher and sweep on the per-solve kernels, one launch per
+               Newton round or sweep step for the whole batch) of
+               BatchedProblem2D and of LowMemBatchedProblem2D (K = 5) at
+               32x32, T = 0.1, on a heterogeneous B = 8 sweep, each with
+               both pallas_variants, kernel path against plain path over
+               3 PGD iterations; the low-memory one's adjoint r gated
+               against float64;
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
                one warm-up iteration, then 3 timed PGD iterations with the
                kernel launch counters reset just before (per-member kernels);
+  4s scan    — a main path: config 4's shape on the scan path
+               (BatchedProblem2D(fused_march=False)), one warm-up and one
+               timed PGD iteration, the spectral per-solve kernels at
+               B = 128; peak memory over S and the first iteration's cost
+               against the fused run of phase 4;
   5 headline — bench.py's configuration: 64x64, T = 1, B = 512, float32,
                one warm-up, then 3 timed PGD iterations (blocked kernels);
   6 low mem  — config 5's grid: 256x256, T = 1, B = 32, K = 10, procedural
@@ -77,10 +96,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                kernel, as in vch_tpu;
   9p profile — config 2 once more, one PGD iteration under torch.profiler,
                after every timed phase: the device's busy share and the
-               kernels with the most device time.
+               kernels with the most device time;
+  4sp profile — the same for phase 4s's scan path.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
+import dataclasses
 import json
 import subprocess
 import time
@@ -1350,10 +1371,10 @@ def check_config3(c):
         raise RuntimeError("config 3: " + "; ".join(fails) + f" | {c}")
 
 
-def _slice_sweep(cfg, materialize=True):
+def _slice_sweep(cfg, materialize=True, n_b3=4, n_ks=4):
     from vch_tpu_torch.parallel.batch import sweep_2d
-    return sweep_2d(cfg, b3_values=np.logspace(-6, 0, 4),
-                    kappa_values=np.logspace(-6, -1, 4),
+    return sweep_2d(cfg, b3_values=np.logspace(-6, 0, n_b3),
+                    kappa_values=np.logspace(-6, -1, n_ks),
                     materialize_phi_Q=materialize)
 
 
@@ -1389,6 +1410,226 @@ def slice_case(torch, device, n=32, T=0.1, iters=3, block=0, lowmem_K=None):
                 newton_plain=po["newton_solves"], kernel_s=kt, plain_s=pt,
                 launches=kl, cost_history=c1.tolist(),
                 finite=bool(np.isfinite(c1).all()))
+
+
+def _scan_f64_twin(pipe32, device):
+    """A float64 low-memory pipeline on the plain versions that takes the
+    float32 scan path's algorithm: its Newton exits, its fixed Krylov trips
+    and the per-solve solves' plain versions (the float64 reference of the
+    scan arm's adjoint gate)."""
+    from vch_tpu_torch.models.lowmem import LowMemPipeline2D
+    from vch_tpu_torch.ops import march as km
+
+    cfg64 = dataclasses.replace(pipe32.config, dtype="float64")
+    pipe = LowMemPipeline2D(cfg64, K=pipe32.K, device=device)
+    f32, a32 = pipe32.solver, pipe32.adjoint
+    f64, a64 = pipe.solver, pipe.adjoint
+    f64.rtol, f64.stagnation = f32.rtol, f32.stagnation
+    f64.krylov_tol = f32.krylov_tol
+    f64._krylov_fixed, a64._krylov_fixed = f32._krylov_fixed, a32._krylov_fixed
+    f64._use_pallas = a64._use_pallas = True
+    f64.entries = a64.entries = km.PLAIN
+    return pipe
+
+
+def _scan_adjoint_gate(torch, device, prob, sc, u):
+    """The scan arm's adjoint r on the kernels, on the plain versions in
+    float32 and in float64 (`_scan_f64_twin`), from the same control u:
+    the numbers of the phase-2 adjoint gate."""
+    from vch_tpu_torch.ops import march as km
+
+    def r_of(pipe, dtype):
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=device)
+        uu, phi0, phiQ, phiT = t(u), t(sc.phi0), t(sc.phi_Q), t(sc.phi_T)
+        b1, b2 = t(sc.b1), t(sc.b2)
+        state = pipe.core.forward_ckpt(uu, phi0, phiQ, phiT)
+        return pipe.core.adjoint_r(state, uu, phiQ, b1, b2, phiT)
+
+    pipe = prob.pipe
+    pipe.solver.entries = pipe.adjoint.entries = km.KERNELS
+    rk = r_of(pipe, torch.float32)
+    pipe.solver.entries = pipe.adjoint.entries = km.PLAIN
+    rp = r_of(pipe, torch.float32)
+    pipe.solver.entries = pipe.adjoint.entries = km.KERNELS
+    r64 = r_of(_scan_f64_twin(pipe, device), torch.float64)
+    torch.cuda.synchronize()
+    return dict(max_abs_dr=(rk - rp).abs().max().item(), rel_dr=_rel(rk, rp, rp),
+                rel_r_kernel_vs_f64=_rel(rk, r64, r64),
+                rel_r_plain_vs_f64=_rel(rp, r64, r64),
+                r_finite=bool(torch.isfinite(rk).all()))
+
+
+def scan_slice_case(torch, device, variant="spectral", lowmem_K=None, n=32,
+                    T=0.1, iters=3):
+    """Phase 3e: the scan path (fused_march=False) of BatchedProblem2D, or
+    of LowMemBatchedProblem2D with lowmem_K, at 32x32 on the heterogeneous
+    B = 8 sweep, kernel path (the per-solve kernels, one CTA per member)
+    against plain path, 3 PGD iterations; the low-memory one also gates its
+    adjoint r against float64 on the kernel run's final control."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
+                                              LowMemBatchedProblem2D)
+
+    cfg = _config(n, T=T, pallas_variant=variant)
+    sc = _slice_sweep(cfg, n_b3=4, n_ks=2)
+    runs = {}
+    for path in ("kernel", "plain"):
+        prob = (LowMemBatchedProblem2D(cfg, K=lowmem_K, device=device,
+                                       fused_march=False)
+                if lowmem_K else
+                BatchedProblem2D(cfg, device=device, fused_march=False))
+        if prob._use_fused_march or prob.straggler_buckets:
+            raise RuntimeError("fused_march=False still takes the fused path")
+        if path == "plain":
+            prob.solver.entries = prob.adj.entries = km.PLAIN
+        km.reset_launches()
+        t0 = time.perf_counter()
+        out = prob.run(sc, max_iter=iters, verbose=False)
+        runs[path] = (prob, out, time.perf_counter() - t0, km.launch_counts())
+    (kp, ko, kt, kl), (_, po, pt, pl) = runs["kernel"], runs["plain"]
+    c0, c1 = po["cost_history"], ko["cost_history"]
+    res = dict(variant=variant, lowmem_K=lowmem_K, n=n, B=sc.batch,
+               M=kp.solver.M, iters=iters,
+               rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+               newton_kernel=ko["newton_solves"],
+               newton_plain=po["newton_solves"], kernel_s=kt, plain_s=pt,
+               launches={k: v for k, v in kl.items() if v},
+               plain_launches={k: v for k, v in pl.items() if v},
+               cost_history_mean=c1.mean(axis=1).tolist(),
+               finite=bool(np.isfinite(c1).all()))
+    if lowmem_K:
+        res.update(_scan_adjoint_gate(torch, device, kp, sc,
+                                      ko["u"].cpu().numpy()))
+    return res
+
+
+def check_scan_slice(c):
+    """Phase 3e gates: the variant's two per-solve kernels launched on the
+    kernel path and no whole-march kernel, nothing launched on the plain
+    path, costs finite and falling, the kernel path's cost history within
+    2e-4 relative of the plain path's, Newton solves within 1%; for the
+    low-memory arm the phase-2 adjoint gate on r."""
+    schur, adj = (("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
+                  if c["variant"] == "spectral"
+                  else ("bicgstab_schur", "bicgstab_adjoint"))
+    fails = [f"{k} never launched" for k in (schur, adj)
+             if c["launches"].get(k, 0) <= 0]
+    fails += [f"{k} launched on the scan path" for k in c["launches"]
+              if k not in (schur, adj)]
+    fails += [f"plain path launched {k}" for k in c["plain_launches"]]
+    ch = c["cost_history_mean"]
+    if not c["finite"] or c["rel_cost"] > 2e-4 or not ch[-1] < ch[0]:
+        fails.append(f"cost history vs plain {c['rel_cost']}")
+    if abs(c["newton_kernel"] - c["newton_plain"]) > 0.01 * c["newton_plain"]:
+        fails.append(f"Newton solves {c['newton_kernel']} vs "
+                     f"{c['newton_plain']}")
+    if c["lowmem_K"]:
+        if not c["r_finite"]:
+            fails.append("non-finite kernel r")
+        fails += _adjoint_gate(c)
+    if fails:
+        raise RuntimeError(f"scan slice {c['variant']} K={c['lowmem_K']}: "
+                           + "; ".join(fails) + f" | {c}")
+
+
+def scan_full_width(torch, device, T=1.0, fused_mean_cost=None):
+    """Phase 4s: the scan path at config 4's full width (128x128, B = 128,
+    T = 1: M = 100, float32), BatchedProblem2D(fused_march=False): one
+    warm-up and one timed PGD iteration, the launch counts read around the
+    timed run, peak memory over S; the relative difference of the first
+    iteration's mean cost from the fused run of config 4 (information: the
+    scan path takes krylov_fixed_iters = 4 forward trips, the fused march
+    fused_krylov_fixed_iters = 3)."""
+    from vch_tpu_torch.parallel.batch import BatchedProblem2D
+
+    cfg = _config(128, T=T)
+    prob = BatchedProblem2D(cfg, device=device, fused_march=False)
+    if prob._use_fused_march or not prob.solver._use_pallas:
+        raise RuntimeError("config 4's scan path is not on the per-solve "
+                           "kernels")
+    sc = _bench_sweep(cfg, 128)
+    res = pgd_run(torch, device, prob, sc, iters=1)
+    res.update(T=T, S_bytes=_traj_bytes(cfg, 128, prob.solver.M),
+               peak_over_S=res["peak_bytes"] / _traj_bytes(cfg, 128,
+                                                           prob.solver.M))
+    if fused_mean_cost is not None:
+        res["rel_cost_vs_fused_config4"] = (
+            abs(res["mean_cost_history"][1] - fused_mean_cost)
+            / abs(fused_mean_cost))
+    return prob, sc, res
+
+
+def _probe_gate(torch, device, n, b, iters):
+    """Each probe kernel against its plain version on the card and both
+    against the plain version in float64, on the probe's inputs at its
+    shape; mmonly also over one link, which stays inside float32's range
+    where the whole chain does not (at n = 65 ten links of these
+    0.01-scaled operators fall below it, and float32 gives 0 for a float64
+    value of ~1e-51). Returns the numbers and the plain versions' ms."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+
+    a32 = probe_args(n - 1, b, device)
+    a64 = probe_args(n - 1, b, device, dtype=torch.float64)
+    out = {}
+    for name, links in (("nodots", iters), ("mmonly", iters), ("mmonly", 1)):
+        wrapper = getattr(sk, f"schur_{name}")
+        plain = getattr(sk, f"schur_{name}_plain")
+        k = wrapper(*a32, n_iter=links)
+        p = plain(*a32, n_iter=links)
+        p64 = plain(*a64, n_iter=links)
+        torch.cuda.synchronize()
+        tag = name if links == iters else f"{name}_1"
+        out[tag] = dict(n_iter=links, finite=bool(torch.isfinite(k).all()),
+                        scale_f64=p64.abs().max().item(),
+                        max_abs_err=(k - p).abs().max().item(),
+                        rel_kernel_vs_plain=_rel(k, p, p64),
+                        rel_kernel_vs_f64=_rel(k, p64, p64),
+                        rel_plain_vs_f64=_rel(p, p64, p64))
+        if links == iters:
+            out[tag]["plain_ms"] = _time_ms(
+                torch, lambda: plain(*a32, n_iter=links), 3)
+    return out
+
+
+def probe_case(torch, device, n, b, iters, reps=20):
+    """Phase 2f: the probe entry point (vch_tpu_torch.probes.
+    diag_kernel_cost) at one shape, with the launch counts set to 0 just
+    before it and read just after, and the probe kernels' gates."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.probes import diag_kernel_cost as probe
+
+    km.reset_launches()
+    res = probe.run(n - 1, b, iters, reps, device=device)
+    res["launches"] = {k: v for k, v in km.launch_counts().items() if v}
+    res["gate"] = _probe_gate(torch, device, n, b, iters)
+    return res
+
+
+def check_probe_case(c):
+    """Phase 2f gates: each probe kernel launched by the entry point, finite,
+    and no farther from float64 than twice the plain float32 version plus
+    1e-5 (the phase-2c pattern; mmonly's one link is the relative test where
+    the whole chain underflows); the script's five keys finite."""
+    fails = [f"{k} never launched" for k in ("schur_nodots", "schur_mmonly",
+                                             "bicgstab_schur")
+             if c["launches"].get(k, 0) <= 0]
+    for tag, g in c["gate"].items():
+        if not g["finite"]:
+            fails.append(f"{tag}: non-finite")
+        if g["rel_kernel_vs_f64"] > 2 * g["rel_plain_vs_f64"] + 1e-5:
+            fails.append(f"{tag}: {g['rel_kernel_vs_f64']} from float64, "
+                         f"plain float32 {g['rel_plain_vs_f64']}")
+    if c["gate"]["mmonly_1"]["scale_f64"] < 1e-30:
+        fails.append("mmonly's one link left float32's range")
+    keys = ("full_ms", "nodots_ms", "mmonly_ms", "full_us_per_member_trip",
+            "reduction_share")
+    if not all(np.isfinite(c[k]) for k in keys):
+        fails.append("non-finite probe keys")
+    if fails:
+        raise RuntimeError(f"probe n={c['n']} b={c['b']}: " + "; ".join(fails)
+                           + f" | {c}")
 
 
 def _bench_sweep(cfg, B, materialize=True):
@@ -1429,6 +1670,7 @@ def pgd_run(torch, device, prob, sc, iters):
                 launches=launches,
                 mean_cost_before=float(ch[0].mean()),
                 mean_cost_after=float(ch[-1].mean()),
+                mean_cost_history=ch.mean(axis=1).tolist(),
                 finite=bool(np.isfinite(ch).all()))
 
 
@@ -1537,6 +1779,9 @@ def main():
 
     solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
               for n in (65, 129, 257) for B in (None, 4)]
+    # the scan path's shape at config 4's width: one launch per Newton round
+    # (or sweep step) for 128 members, one CTA each
+    solves.append(solve_case(torch, device, 129, 128, reps=3))
     for c in solves:
         _log("2c", json.dumps(c))
     for c in solves:
@@ -1570,6 +1815,15 @@ def main():
         {k: v for k, v in op_calls.items() if v}))
     a65 = applies[0]
 
+    # the probe entry point at the script's default shape and at the scan
+    # path's (n = 129, B = 128, 4 trips as krylov_fixed_iters)
+    probes = [probe_case(torch, device, 65, 32, 10),
+              probe_case(torch, device, 129, 128, 4, reps=5)]
+    for c in probes:
+        _log("2f", json.dumps(c) + f" | {name} | {smi}")
+    for c in probes:
+        check_probe_case(c)
+
     sl = slice_case(torch, device, block=0)
     _log(3, json.dumps(sl))
     sl_blk = slice_case(torch, device, block=8)
@@ -1593,6 +1847,12 @@ def main():
     sl1d = slice1d_case(torch, device)
     _log("3d", json.dumps(sl1d))
     check_slice1d(sl1d)
+    scans = [scan_slice_case(torch, device, variant, lowmem_K)
+             for lowmem_K in (None, 5) for variant in ("spectral", "raw")]
+    for c in scans:
+        _log("3e", json.dumps(c))
+    for c in scans:
+        check_scan_slice(c)
 
     per_member = ("march_fused_2d", "adjoint_fused_2d")
     blocked = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked")
@@ -1604,6 +1864,13 @@ def main():
                  _bench_sweep(cfg4, 128), iters=3)
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
     check_main_path(c4, per_member, blocked + segment + march_1d)
+
+    scan_solves = ("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
+    prob4s, sc4s, c4s = scan_full_width(
+        torch, device, fused_mean_cost=c4["mean_cost_history"][1])
+    _log("4s", json.dumps(c4s) + f" | {name} | {smi}")
+    check_main_path(c4s, scan_solves, per_member + blocked + segment
+                    + march_1d + ("bicgstab_schur", "bicgstab_adjoint"))
 
     cfg64 = _config(64)
     prob5 = make_batched_problem_2d(cfg64, batch=512, device=device)
@@ -1691,6 +1958,12 @@ def main():
         torch, lambda: prob9.run(sc9, max_iter=1, verbose=False)))
         + f" | {name} | {smi}")
     del prob9, sc9
+    # the scan path at config 4's width likewise: one PGD iteration with its
+    # baseline march under the profiler
+    _log("4sp", json.dumps(device_share(
+        torch, lambda: prob4s.run(sc4s, max_iter=1, verbose=False)))
+        + f" | {name} | {smi}")
+    del prob4s, sc4s
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
               library_ms=None):
@@ -1789,6 +2062,16 @@ def main():
         kernels.append(entry(k, apply_cu, f"{pk}:{line}", op_calls[k],
                              c["max_abs_err"], c["ms"], c["plain_ms"],
                              _apply_work(k, a65["n"], 1), c["library_ms"]))
+    # the probes at the script's default shape (n = 65, B = 32, 10 trips or
+    # links of 16 products each), their launches the entry point's
+    p65 = probes[0]
+    for k, line in (("nodots", 131), ("mmonly", 176)):
+        g = p65["gate"][k]
+        kernels.append(entry(
+            f"schur_{k}", solve_cu, f"scripts/diag_kernel_cost.py:{line}",
+            p65["launches"][f"schur_{k}"], g["max_abs_err"], p65[f"{k}_ms"],
+            g["plain_ms"], _solve_work("bicgstab_schur", p65["n"] + 1,
+                                       p65["b"], p65["iters"])))
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -45,7 +45,7 @@ def slice_runs():
     jprob = JaxBatched2D(jcfg, fused_march=True)
     jout = jprob.run(jsc, max_iter=4, verbose=False)
     cfg = config_from_vch_tpu(jcfg.model_dump())
-    prob = BatchedProblem2D(cfg, device="cpu")
+    prob = BatchedProblem2D(cfg, device="cpu", fused_march=True)
     out = prob.run(scenario_batch_from_numpy(jsc, dtype=torch.float32),
                    max_iter=4, verbose=False)
     return jprob, jout, prob, out

@@ -469,3 +469,77 @@ def test_raw_schur_solve_on_a_batch_of_8(cuda):
     err_p = (p.double() - p64).abs().max().item() / scale
     assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
     assert torch.equal(k[3], one)     # a member does not depend on the batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,B,iters", [("nodots", 65, 4, 10),
+                                            ("mmonly", 65, 4, 1),
+                                            ("mmonly", 129, 2, 4)])
+def test_probe_kernels_match_plain(cuda, name, n, B, iters):
+    """The cost probes of the raw Schur solve on the probe script's inputs,
+    gated against float64 as the solve kernels are (mmonly at n = 65 for one
+    link: ten fall below float32's range on these inputs)."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+    wrapper = getattr(sk, f"schur_{name}")
+    plain = getattr(sk, f"schur_{name}_plain")
+    args = probe_args(n - 1, B, cuda)
+    args64 = probe_args(n - 1, B, cuda, dtype=torch.float64)
+    before = wrapper.launches
+    k = wrapper(*args, n_iter=iters)
+    p = plain(*args, n_iter=iters)
+    p64 = plain(*args64, n_iter=iters)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(k).all()
+    scale = p64.abs().max().item()
+    assert scale > 0
+    err_k = (k.double() - p64).abs().max().item() / scale
+    err_p = (p.double() - p64).abs().max().item() / scale
+    assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["spectral", "raw"])
+def test_scan_marcher_and_sweep_on_the_per_solve_kernels(cuda, variant):
+    """The batched per-step marcher and sweep at B = 4 on the per-solve
+    kernels (one launch per Newton round and per sweep step for the whole
+    batch) against the same path on the plain versions."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    cfg = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.05, dtype="float32",
+                                newton_tol=2e-4, pallas_variant=variant)
+    fwd = ForwardSolver2D(cfg, device=cuda)
+    adj = AdjointSolver2D(cfg, device=cuda)
+    assert fwd._use_pallas and adj._use_pallas
+    _, _, phi0, u, f32 = _problem(cuda, n=17, B=4, T=0.05)
+    schur, adjoint = ((sk.bicgstab_schur_spectral, sk.bicgstab_adjoint_spectral)
+                      if variant == "spectral"
+                      else (sk.bicgstab_schur, sk.bicgstab_adjoint))
+    s0, a0 = schur.launches, adjoint.launches
+    kh, kns, kbad = fwd._march_batch(u, phi0)
+    b = f32(np.array([5.0, 1.0, 0.3, 2.0]))
+    zero = torch.zeros_like(kh)
+    kr = adj._run_batch(kh, adj.dts, b, 2.0 * b, zero, zero[:, 0])[2]
+    torch.cuda.synchronize()
+    assert schur.launches > s0 and adjoint.launches == a0 + fwd.M
+    fwd.entries = adj.entries = km.PLAIN
+    ph, pns, pbad = fwd._march_batch(u, phi0)
+    pr = adj._run_batch(kh, adj.dts, b, 2.0 * b, zero, zero[:, 0])[2]
+    torch.cuda.synchronize()
+    # the sweep's float64 reference: the plain versions with the same trips
+    adj64 = AdjointSolver2D(ForwardSolverConfig2D(
+        Nx=16, Ny=16, T=0.05, pallas_variant=variant), device=cuda)
+    adj64._krylov_fixed, adj64._use_pallas = adj._krylov_fixed, True
+    adj64.entries = km.PLAIN
+    b64, z64 = b.double(), zero.double()
+    r64 = adj64._run_batch(kh.double(), adj64.dts, b64, 2.0 * b64, z64,
+                           z64[:, 0])[2]
+    torch.cuda.synchronize()
+    assert torch.equal(kbad, pbad) and (kbad == -1).all()
+    assert (kns - pns).abs().max().item() <= 1
+    assert (kh - ph).abs().max().item() <= 1e-5
+    assert torch.isfinite(kr).all()
+    scale = r64.abs().max().item()
+    err_k = (kr.double() - r64).abs().max().item() / scale
+    err_p = (pr.double() - r64).abs().max().item() / scale
+    assert err_k <= 2 * err_p + 1e-4, (err_k, err_p)

@@ -106,7 +106,7 @@ def lowmem_runs():
     jout = JaxLowMem2D(jcfg, K=K, fused_march=True).run(mk(), max_iter=3,
                                                         verbose=False)
     prob = LowMemBatchedProblem2D(config_from_vch_tpu(jcfg.model_dump()), K=K,
-                                  device="cpu")
+                                  device="cpu", fused_march=True)
     out = prob.run(scenario_batch_from_numpy(mk(), dtype=torch.float32),
                    max_iter=3, verbose=False)
     return jout, prob, out
@@ -134,9 +134,9 @@ def test_lowmem_run_matches_full_memory_run():
     the full-memory problem: the same forward march, cut into segments."""
     cfg = config_from_vch_tpu(_jax_cfg().model_dump())
     sc = sweep_2d(cfg, b3_values=B3, kappa_values=KS)
-    full = BatchedProblem2D(cfg, device="cpu").run(sc, max_iter=2,
-                                                   verbose=False)
-    low = LowMemBatchedProblem2D(cfg, K=K, device="cpu").run(
+    full = BatchedProblem2D(cfg, device="cpu", fused_march=True).run(
+        sc, max_iter=2, verbose=False)
+    low = LowMemBatchedProblem2D(cfg, K=K, device="cpu", fused_march=True).run(
         sc, max_iter=2, verbose=False)
     np.testing.assert_allclose(low["cost_history"], full["cost_history"],
                                rtol=1e-5)
@@ -160,10 +160,10 @@ def test_full_memory_problem_refuses_procedural_targets():
     cfg = config_from_vch_tpu(_jax_cfg().model_dump())
     sc = sweep_2d(cfg, b3_values=[1e-4], materialize_phi_Q=False)
     with pytest.raises(ValueError, match="LowMemBatchedProblem2D"):
-        BatchedProblem2D(cfg, device="cpu").run(sc, max_iter=1,
-                                                verbose=False)
+        BatchedProblem2D(cfg, device="cpu", fused_march=True).run(
+            sc, max_iter=1, verbose=False)
     with pytest.raises(ValueError, match="phi_Q_mode"):
-        LowMemBatchedProblem2D(cfg, K=K, device="cpu").run(
+        LowMemBatchedProblem2D(cfg, K=K, device="cpu", fused_march=True).run(
             dataclasses.replace(sc, phi_Q_mode="bogus"), max_iter=1,
             verbose=False)
 

@@ -3,12 +3,13 @@ PyTorch and CUDA (NVIDIA Hopper).
 
 A port of `vch_tpu` (JAX on a TPU), which stays beside it as the reference.
 This package imports torch, numpy and the standard library only: never
-`jax`, `vch_tpu` or `pydantic`, so it runs on a machine that has none of
-them. The batched 2D PGD paths (`parallel.batch`) run the forward march and
-the adjoint sweep, and the single-scenario problem (`control.problems.
-ControlProblem2D`) its per-solve Krylov solves, as hand-written CUDA kernels
-on CUDA tensors (`ops.march`, `ops.solve_kernels`), and their plain PyTorch
-versions on CPU tensors. Entry points run on the CUDA card unless given
+JAX, the `vch_tpu` package or the validation library of its configs, so it
+runs on a machine that has none of them. The batched 2D PGD paths
+(`parallel.batch`) run the forward march and the adjoint sweep as whole-march
+kernels, or their per-step Krylov solves on the scan path, and the
+single-scenario problem (`control.problems.ControlProblem2D`) its per-solve
+Krylov solves, as hand-written CUDA kernels on CUDA tensors (`ops.march`,
+`ops.solve_kernels`), and their plain PyTorch versions on CPU tensors. Entry points run on the CUDA card unless given
 another device (`device.resolve_device`).
 """
 import torch as _torch

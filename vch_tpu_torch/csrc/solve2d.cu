@@ -13,7 +13,15 @@
 //     split-preconditioned adjoint step solve A(phi_n) p = rhs in the cosine
 //     basis, warm started from x0, each apply 4 products;
 //   - :581 bicgstab_adjoint_pallas (body :490-578): the same in the raw
-//     basis, each apply P^-1/2 A P^-1/2 as 12 products.
+//     basis, each apply P^-1/2 A P^-1/2 as 12 products;
+// and the two cost probes of scripts/diag_kernel_cost.py, which time the
+// raw Schur solve's tile code (the script's "full", :65) in parts:
+//   - :131 nodots: the raw Schur solve's trips with every block dot product
+//     replaced by the constant 0.5, no freeze and no best iterate: its
+//     products and elementwise passes without its block reductions;
+//   - :176 mmonly: the chain v <- M(S(M(S(v)))) n_iter times, S the raw
+//     Schur apply (4 products) and M the spectral preconditioner (4
+//     products): the products alone, 16 per link as per trip of the solve.
 // Each computes what the Pallas body computes: n_iter trips, the
 // (50 eps)^2 max(||b||^2, 1e-30) noise-floor freeze, rejection of a
 // non-finite new residual, the best iterate; the spectral forms transform
@@ -48,7 +56,7 @@ enum {
 constexpr int SOLVE_FIELDS = K_COUNT;
 
 enum { SCHUR_SPECTRAL = 0, SCHUR_RAW = 1, ADJOINT_SPECTRAL = 2,
-       ADJOINT_RAW = 3 };
+       ADJOINT_RAW = 3, SCHUR_NODOTS = 4, SCHUR_MMONLY = 5 };
 
 struct SolveArgs {
   const float* scal;                    // Schur: inv_dt, tau_dt, kappa/2;
@@ -237,10 +245,94 @@ __device__ void solve_adjoint(const SolveArgs& a, const KBufs& kb, Slot F,
   }
 }
 
+// The cost probes (VAR = SCHUR_NODOTS or SCHUR_MMONLY) of solve_kernel on
+// the CTA's member, with the raw Schur solve's operator applies: S through
+// two Laplacians, M^-1 through the transforms, in place.
+template <int VAR, class Slot>
+__device__ void solve_probe(const SolveArgs& a, Slot F, Smem& sm) {
+  const int tid = threadIdx.x, n = a.n, m = a.m, nm = n * m;
+  const size_t mo = (size_t)blockIdx.x * nm;
+  float *T1 = F(K_T1), *T2 = F(K_T2);
+  const float *denom = a.f1 + mo, *d = a.f2 + mo, *rhs = a.rhs + mo;
+  float* out = a.out + mo;
+  const float inv_dt = a.scal[0], tau_dt = a.scal[1], hk = a.scal[2];
+  // OUT = S Y = inv_dt Y - L((tau_dt + d) Y - (kappa/2) L Y), OUT != Y, T2
+  auto apply_S = [&](const float* Y, float* OUT) {
+    lap_gemm<1>(a.Lx, a.LyT, Y, 0, n, m, sm, [&](int, int e, float l) {
+      T2[e] = (tau_dt + d[e]) * Y[e] - hk * l;
+    });
+    lap_gemm<1>(a.Lx, a.LyT, T2, 0, n, m, sm, [&](int, int e, float l) {
+      OUT[e] = inv_dt * Y[e] - l;
+    });
+  };
+  // Y <- M^-1 Y = from_s(to_s(Y) / denom)
+  auto apply_M = [&](float* Y) {
+    to_s(a, Y, T1, sm, [&](int e, float v) { T2[e] = v / denom[e]; });
+    from_s(a, T2, T1, sm, [&](int e, float v) { Y[e] = v; });
+  };
+  if constexpr (VAR == SCHUR_MMONLY) {
+    float *Y = F(K_X), *Z = F(K_T);
+    for (int e = tid; e < nm; e += NT) Y[e] = rhs[e];
+    __syncthreads();
+    for (int link = 0; link < 2 * a.n_iter; ++link) {
+      apply_S(Y, Z);
+      apply_M(Z);
+      float* t = Y;                     // the same swap in every thread
+      Y = Z;
+      Z = t;
+    }
+    for (int e = tid; e < nm; e += NT) out[e] = Y[e];
+  } else {
+    float *X = F(K_X), *R = F(K_R), *P = F(K_P), *V = F(K_V), *S = F(K_S),
+          *T = F(K_T), *PH = F(K_PH), *SH = F(K_SH);
+    for (int e = tid; e < nm; e += NT) {
+      X[e] = 0.f;
+      R[e] = rhs[e];
+      P[e] = 0.f;
+      V[e] = 0.f;
+    }
+    __syncthreads();
+    const float dot = 0.5f;             // every block dot product
+    float rho = 1.f, alpha = 1.f, omega = 1.f;
+    for (int trip = 0; trip < a.n_iter; ++trip) {
+      const float rho_new = dot;
+      const float beta = (rho_new / rho) * (alpha / omega);
+      for (int e = tid; e < nm; e += NT) {
+        const float p = R[e] + beta * (P[e] - omega * V[e]);
+        P[e] = p;
+        PH[e] = p;
+      }
+      __syncthreads();
+      apply_M(PH);                      // phat
+      apply_S(PH, V);
+      const float alpha_n = rho_new / dot;
+      for (int e = tid; e < nm; e += NT) {
+        const float sv = R[e] - alpha_n * V[e];
+        S[e] = sv;
+        SH[e] = sv;
+      }
+      __syncthreads();
+      apply_M(SH);                      // shat
+      apply_S(SH, T);
+      const float omega_n = dot / dot;
+      for (int e = tid; e < nm; e += NT) {
+        X[e] = X[e] + alpha_n * PH[e] + omega_n * SH[e];
+        R[e] = S[e] - omega_n * T[e];
+      }
+      __syncthreads();
+      rho = rho_new;
+      alpha = alpha_n;
+      omega = omega_n;
+    }
+    for (int e = tid; e < nm; e += NT) out[e] = X[e];
+  }
+}
+
 template <int VAR>
 __global__ void __launch_bounds__(NT) solve_kernel(SolveArgs a) {
   __shared__ Smem sm;
   constexpr bool SCHUR = VAR == SCHUR_SPECTRAL || VAR == SCHUR_RAW;
+  constexpr bool PROBE = VAR == SCHUR_NODOTS || VAR == SCHUR_MMONLY;
   const int nm = a.n * a.m;
   float* W = a.work + (size_t)blockIdx.x * SOLVE_FIELDS * nm;
   auto F = [=](int slot) { return W + (size_t)slot * nm; };
@@ -249,7 +341,9 @@ __global__ void __launch_bounds__(NT) solve_kernel(SolveArgs a) {
   const KBufs kb{F(K_X), F(K_R), F(K_P), F(K_V), F(K_R0), F(K_BX),
                  F(K_S), F(K_T), SCHUR ? F(K_PH) : F(K_P),
                  SCHUR ? F(K_SH) : F(K_S), (size_t)SOLVE_FIELDS * nm};
-  if constexpr (SCHUR)
+  if constexpr (PROBE)
+    solve_probe<VAR>(a, F, sm);
+  else if constexpr (SCHUR)
     solve_schur<VAR>(a, kb, F, sm);
   else
     solve_adjoint<VAR>(a, kb, F, sm);
@@ -268,7 +362,8 @@ extern "C" int vch_solve_workspace_fields() { return vch::SOLVE_FIELDS; }
 // One batch of solves, one CTA per member. variant: 0 spectral Schur
 // (f1 = denom, f2 = d; scal = inv_dt, tau_dt, kappa/2), 1 raw Schur (the
 // same), 2 spectral adjoint (f1 = isd on the eigenvalue grid, f2 = f''(phi_n),
-// x0 the warm start; scal = tau, dt/2), 3 raw adjoint (the same). f1, f2,
+// x0 the warm start; scal = tau, dt/2), 3 raw adjoint (the same), 4 and 5
+// the probes nodots and mmonly (the raw Schur solve's arguments). f1, f2,
 // rhs, x0 and out are (B, n, m); scal is a device array; work holds
 // B * vch_solve_workspace_fields() (n, m) fields.
 extern "C" int vch_bicgstab_2d(
@@ -281,7 +376,7 @@ extern "C" int vch_bicgstab_2d(
                         variant == vch::ADJOINT_SPECTRAL;
   const bool adjoint = variant == vch::ADJOINT_SPECTRAL ||
                        variant == vch::ADJOINT_RAW;
-  if (variant < 0 || variant > 3 || B <= 0 || n <= 1 || m <= 1 ||
+  if (variant < 0 || variant > 5 || B <= 0 || n <= 1 || m <= 1 ||
       n_iter < 0 || !scal || !Vxi || !VyiT || !Vx || !VyT || !f1 || !f2 ||
       !rhs || !out || !work || (spectral && !lam) ||
       (!spectral && (!Lx || !LyT)) || (adjoint && !x0))
@@ -293,6 +388,8 @@ extern "C" int vch_bicgstab_2d(
     case vch::SCHUR_SPECTRAL: return vch::launch_solve<0>(B, a, s);
     case vch::SCHUR_RAW: return vch::launch_solve<1>(B, a, s);
     case vch::ADJOINT_SPECTRAL: return vch::launch_solve<2>(B, a, s);
-    default: return vch::launch_solve<3>(B, a, s);
+    case vch::ADJOINT_RAW: return vch::launch_solve<3>(B, a, s);
+    case vch::SCHUR_NODOTS: return vch::launch_solve<4>(B, a, s);
+    default: return vch::launch_solve<5>(B, a, s);
   }
 }

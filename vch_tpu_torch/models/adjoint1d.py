@@ -17,8 +17,9 @@ axis. Each step is one linear solve per member: the dense solve
 split-preconditioned `bicgstab_split` (tolerance max(krylov_tol, 1e-6) in
 float32, at most 200 trips, warm started from p_{n+1}; one host sync per
 trip) with the terminal solve exact in the cosine basis. As in vch_tpu the 1D
-sweep has no fixed-trip solve and no kernel: `_krylov_fixed` is computed and
-not used.
+sweep has no fixed-trip solve and no kernel; `_krylov_fixed` serves the
+float32 step of the low-memory scan arm (models/lowmem.py's _Adapter1D),
+which vch_tpu solves in fixed trips.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from torch import nn
 
 from vch_tpu_torch.config import ForwardSolverConfig1D
 from vch_tpu_torch.device import resolve_device
-from vch_tpu_torch.ops.linsolve import (bicgstab_split, make_spectral_op_1d,
-                                        member_dot_1d)
+from vch_tpu_torch.ops.linsolve import (bicgstab_split, bicgstab_split_fixed,
+                                        make_spectral_op_1d, member_dot_1d)
 from vch_tpu_torch.ops.potential import fpp_log
 
 
@@ -61,73 +62,96 @@ class AdjointSolver1D(nn.Module):
         self._krylov_tol = cfg.krylov_tol if f64 else max(cfg.krylov_tol,
                                                           1e-6)
 
-    def _run_batch(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
-        """The sweep of B members: phi_hist, phi_Q (B, K, N+1) in either
-        layout, dts (K-1,), phi_T_target (B, N+1); b1, b2 numbers or (B, 1)
-        tensors. Returns (p, q, r), each (B, K, N+1), with r_T = 0 last
-        (vmap of vch_tpu/models/adjoint1d.py:61)."""
+    def terminal(self, phi_T_state, phi_T_target, b2):
+        """(p_T, q_T, r_T) of the members of phi_T_state (B, N+1), b2 a
+        number or (B, 1): (I - tau L) p_T = b2 (phi(T) - phi_Omega), exact in
+        the cosine basis on the spectral path, dense otherwise; q_T = -L p_T;
+        r_T = 0."""
+        L, lam = self.L, self.lam
+        tau = self.config.tau
+        mm = torch.matmul
+        rhs_T = b2 * (phi_T_state - phi_T_target)
+        if self._use_spectral:
+            p_T = mm(mm(rhs_T, self.Vinv.T) / (1.0 - tau * lam), self.V.T)
+        else:
+            I = torch.eye(L.shape[0], dtype=self.dtype, device=L.device)
+            p_T = torch.linalg.solve_ex(I - tau * L,
+                                        rhs_T[..., None])[0][..., 0]
+        return p_T, -mm(p_T, L.T), torch.zeros_like(p_T)
+
+    def _sweep_step(self, p_next, q_next, r_next, phi_n, phi_np1, src_n,
+                    src_np1, dt, b1, krylov_fixed: Optional[int] = None):
+        """One step of the sweep of the members of phi_n (B, N+1) from the
+        carry (p, q, r) at level n+1, with src = phi - phi_Q at both levels
+        and b1 a number or (B, 1). The solve of A(phi_n) p_n = rhs: dense on
+        the parity path, else split-preconditioned Krylov warm started from
+        p_{n+1}, adaptive, or krylov_fixed fixed trips. Returns (p_n, q_n,
+        r_n) (vch_tpu/models/adjoint1d.py:82-125)."""
         cfg = self.config
         L, V, Vinv, lam = self.L, self.V, self.Vinv, self.lam
         LT, VT, VinvT = L.T, V.T, Vinv.T
         mm = torch.matmul
         tau, gamma, c1, c2 = cfg.tau, cfg.gamma, cfg.c1, cfg.c2
-        n = L.shape[0]
-        I = torch.eye(n, dtype=self.dtype, device=L.device)
-        L2 = L @ L
-
-        rhs_T = b2 * (phi_hist[:, -1] - phi_T_target)
+        fpp_n = fpp_log(phi_n, c1, c2)
+        fpp_np1 = fpp_log(phi_np1, c1, c2)
+        # rhs = B(phi_{n+1}) p_{n+1} + src
+        w1 = mm(p_next, LT)
+        Bp = (p_next - tau * w1 - 0.5 * dt * mm(w1, LT)
+              + 0.5 * dt * fpp_np1 * w1)
+        rhs = Bp + 0.5 * dt * b1 * (src_n + src_np1)
         if self._use_spectral:
-            p_T = mm(mm(rhs_T, VinvT) / (1.0 - tau * lam), VT)
+            fbar = torch.mean(fpp_n, dim=-1, keepdim=True)
+
+            def apply_A(v):
+                w = mm(v, LT)
+                return v - tau * w + 0.5 * dt * (mm(w, LT) - fpp_n * w)
+
+            denom = (1.0 - tau * lam + 0.5 * dt * lam ** 2
+                     - 0.5 * dt * fbar * lam)
+            isd = torch.rsqrt(torch.abs(denom))
+            phalf = lambda v: mm(mm(v, VinvT) * isd, VT)
+            phalf_inv = lambda v: mm(mm(v, VinvT) / isd, VT)
+            if krylov_fixed is not None:
+                p_n = bicgstab_split_fixed(apply_A, rhs, phalf, phalf_inv,
+                                           n_iter=krylov_fixed, x0=p_next,
+                                           dot_fn=member_dot_1d)
+            else:
+                p_n = bicgstab_split(apply_A, rhs, phalf, phalf_inv,
+                                     tol=self._krylov_tol, max_iter=200,
+                                     x0=p_next, dot_fn=member_dot_1d)
         else:
-            p_T = torch.linalg.solve_ex(I - tau * L, rhs_T[..., None])[0][..., 0]
-        q_T = -mm(p_T, LT)
-        r_T = torch.zeros_like(p_T)
+            I = torch.eye(L.shape[0], dtype=self.dtype, device=L.device)
+            A = (I - tau * L + 0.5 * dt * (L @ L)
+                 - 0.5 * dt * (fpp_n[..., :, None] * L))
+            p_n = torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+        q_n = -mm(p_n, LT)
+        den = gamma + 0.5 * dt
+        r_n = ((gamma - 0.5 * dt) / den * r_next
+               + 0.5 * dt / den * (q_n + q_next))
+        return p_n, q_n, r_n
+
+    def _run_batch(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+        """The sweep of B members: phi_hist, phi_Q (B, K, N+1) in either
+        layout, dts (K-1,), phi_T_target (B, N+1); b1, b2 numbers or (B, 1)
+        tensors. Returns (p, q, r), each (B, K, N+1), with r_T = 0 last
+        (vmap of vch_tpu/models/adjoint1d.py:61)."""
+        p, q, r = self.terminal(phi_hist[:, -1], phi_T_target, b2)
         src_all = phi_hist - phi_Q
         dts_host = dts.cpu().numpy()
-        zero = torch.zeros_like(p_T)
-        p_next, q_next, r_next = p_T, q_T, r_T
-        ps, qs, rs = [p_T], [q_T], [r_T]
+        zero = torch.zeros_like(p)
+        ps, qs, rs = [p], [q], [r]
         for k in range(dts.shape[0] - 1, -1, -1):
             if dts_host[k] <= 0:        # duplicated row: zeros, carry frozen
                 ps.append(zero)
                 qs.append(zero)
                 rs.append(zero)
                 continue
-            dt = dts[k]
-            fpp_n = fpp_log(phi_hist[:, k], c1, c2)
-            fpp_np1 = fpp_log(phi_hist[:, k + 1], c1, c2)
-            # rhs = B(phi_{n+1}) p_{n+1} + src
-            w1 = mm(p_next, LT)
-            Bp = (p_next - tau * w1 - 0.5 * dt * mm(w1, LT)
-                  + 0.5 * dt * fpp_np1 * w1)
-            rhs = Bp + 0.5 * dt * b1 * (src_all[:, k] + src_all[:, k + 1])
-            if self._use_spectral:
-                fbar = torch.mean(fpp_n, dim=-1, keepdim=True)
-
-                def apply_A(v):
-                    w = mm(v, LT)
-                    return v - tau * w + 0.5 * dt * (mm(w, LT) - fpp_n * w)
-
-                denom = (1.0 - tau * lam + 0.5 * dt * lam ** 2
-                         - 0.5 * dt * fbar * lam)
-                isd = torch.rsqrt(torch.abs(denom))
-                p_n = bicgstab_split(
-                    apply_A, rhs, lambda v: mm(mm(v, VinvT) * isd, VT),
-                    lambda v: mm(mm(v, VinvT) / isd, VT),
-                    tol=self._krylov_tol, max_iter=200, x0=p_next,
-                    dot_fn=member_dot_1d)
-            else:
-                A = (I - tau * L + 0.5 * dt * L2
-                     - 0.5 * dt * (fpp_n[..., :, None] * L))
-                p_n = torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
-            q_n = -mm(p_n, LT)
-            den = gamma + 0.5 * dt
-            r_n = ((gamma - 0.5 * dt) / den * r_next
-                   + 0.5 * dt / den * (q_n + q_next))
-            p_next, q_next, r_next = p_n, q_n, r_n
-            ps.append(p_n)
-            qs.append(q_n)
-            rs.append(r_n)
+            p, q, r = self._sweep_step(p, q, r, phi_hist[:, k],
+                                       phi_hist[:, k + 1], src_all[:, k],
+                                       src_all[:, k + 1], dts[k], b1)
+            ps.append(p)
+            qs.append(q)
+            rs.append(r)
         rev = lambda fs: torch.stack(fs[::-1], dim=1)
         return rev(ps), rev(qs), rev(rs)
 

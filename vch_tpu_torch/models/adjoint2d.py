@@ -4,15 +4,18 @@
     B(phi_np1) = I - tau L - (dt/2) L^2 + (dt/2) diag(f''(phi_np1)) L
     terminal: (I - tau L) p_T = b2 (phi_T - phi_Omega);  q = -L p;  r_T = 0.
 
-`AdjointSolver2D.run` / `_run_impl` is the per-step sweep of one member
-(vch_tpu/models/adjoint2d.py:66-161, :205): the exact terminal solve, then a
-Python loop over the steps in reverse, each with the forward-ordered
-operators (A at n, B at n+1), the split-preconditioned solve of A p_n = rhs
-warm started from p_{n+1}, q_n = -L p_n and the r recursion; dt <= 1e-14
-copies the next level. The solve routes as vch_tpu's (:114-142): with
-`use_pallas` on (by default: float32 on a CUDA device on a grid vch_tpu
-keeps on its kernel), the per-solve adjoint kernel of `self.entries`
-(spectral, or raw for pallas_variant "raw"); else the composed fixed-trip
+`AdjointSolver2D._run_batch` is the per-step sweep with a leading member
+axis (`run` / `_run_impl`: one member; vch_tpu/models/adjoint2d.py:66-161,
+:205): the exact terminal solve, then a Python loop over the steps in
+reverse, each with the forward-ordered operators (A at n, B at n+1), the
+split-preconditioned solve of A p_n = rhs warm started from p_{n+1}, q_n =
+-L p_n and the r recursion; dt <= 1e-14 copies the next level. Every
+reduction is per member (the mean of f'' in the preconditioner, the Krylov
+dot products), so B members compute what vmap of vch_tpu's sweep does. The
+solve routes as vch_tpu's (:114-142): with `use_pallas` on (by default:
+float32 on a CUDA device on a grid vch_tpu keeps on its kernel), the
+per-solve adjoint kernel of `self.entries` (spectral, or raw for
+pallas_variant "raw"; one CTA per member); else the composed fixed-trip
 `bicgstab_split_fixed` in float32 and the adaptive `bicgstab_split` in
 float64.
 
@@ -34,13 +37,14 @@ from torch import nn
 
 from vch_tpu_torch.config import ForwardSolverConfig2D
 from vch_tpu_torch.device import resolve_device
-from vch_tpu_torch.models.forward2d import torch_dtype
+from vch_tpu_torch.models.forward2d import fused_kernels_fit, torch_dtype
 from vch_tpu_torch.models.timegrid import build_dt_schedule
 from vch_tpu_torch.ops import march as km
 from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
 from vch_tpu_torch.ops.linsolve import (Ops2D, bicgstab_split,
                                         bicgstab_split_fixed,
-                                        make_spectral_op_2d, ops_2d)
+                                        make_spectral_op_2d, member_dot,
+                                        ops_2d)
 from vch_tpu_torch.ops.potential import fpp_log
 from vch_tpu_torch.ops.solve_kernels import per_solve_kernels_fit
 
@@ -87,11 +91,15 @@ class AdjointSolver2D(nn.Module):
     def _ops(self):
         return tuple(self.op)
 
-    def _run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
-        """The sweep of one member: phi_hist, phi_Q (M+1, Nx+1, Ny+1),
-        dts (M,), phi_T_target (Nx+1, Ny+1), b1 and b2 numbers. Returns
-        (p, q, r), each (M+1, Nx+1, Ny+1), with r_T = 0 last
-        (vch_tpu/models/adjoint2d.py:66-161)."""
+    def _sweep_step(self, p_next, q_next, r_next, phi_n, phi_np1, src_n,
+                    src_np1, dt, b1):
+        """One step of the sweep of the members of phi_n (B, Nx+1, Ny+1)
+        from the carry (p, q, r) at level n+1, with src = phi - phi_Q at
+        both levels and b1 (B, 1, 1): the rhs B(phi_{n+1}) p_{n+1} + src,
+        the solve of A(phi_n) p_n = rhs warm started from p_{n+1} (f''
+        replaced by each member's mean in the preconditioner), q_n = -L p_n
+        and the r recursion. Returns (p_n, q_n, r_n)
+        (vch_tpu/models/adjoint2d.py:81-147)."""
         cfg = self.config
         op = self.op
         tau, gamma, c1, c2 = cfg.tau, cfg.gamma, cfg.c1, cfg.c2
@@ -99,67 +107,77 @@ class AdjointSolver2D(nn.Module):
         lap = lambda v: apply_laplacian_2d(op.Lx, op.LyT, v)
         to_s = lambda v: mm(mm(op.Vx_inv, v), op.Vy_inv_T)
         from_s = lambda vh: mm(mm(op.Vx, vh), op.VyT)
+        fpp_n = fpp_log(phi_n, c1, c2)
+        fpp_np1 = fpp_log(phi_np1, c1, c2)
+        fbar = torch.mean(fpp_n, dim=(-2, -1), keepdim=True)
+        w1 = lap(p_next)
+        Bp = (p_next - tau * w1 - 0.5 * dt * lap(w1)
+              + 0.5 * dt * fpp_np1 * w1)
+        rhs = Bp + 0.5 * dt * b1 * (src_n + src_np1)
 
-        # terminal: (I - tau L) p_T = b2 (phi_T - phi_Omega), exact in the
-        # cosine basis; q_T = -L p_T; r_T = 0
-        rhs_T = b2 * (phi_hist[-1] - phi_T_target)
-        p_T = from_s(to_s(rhs_T) / (1.0 - tau * op.lam))
-        q_T = -lap(p_T)
-        r_T = torch.zeros_like(p_T)
+        def apply_A(v):
+            w = lap(v)
+            return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
+
+        denom = (1.0 - tau * op.lam + 0.5 * dt * op.lam ** 2
+                 - 0.5 * dt * fbar * op.lam)
+        isd = torch.rsqrt(torch.abs(denom))
+        if self._use_pallas and self._krylov_fixed is not None:
+            spectral = self._pallas_variant == "spectral"
+            solve = (self.entries.adjoint_spectral if spectral
+                     else self.entries.adjoint_raw)
+            mats = ((op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, op.lam) if spectral
+                    else (op.Lx, op.LyT, op.Vx_inv, op.Vy_inv_T, op.Vx,
+                          op.VyT))
+            p_n = solve(*mats, isd, fpp_n, rhs, p_next, tau, 0.5 * dt,
+                        n_iter=self._krylov_fixed)
+        elif self._krylov_fixed is not None:
+            p_n = bicgstab_split_fixed(
+                apply_A, rhs, lambda v: from_s(to_s(v) * isd),
+                lambda v: from_s(to_s(v) / isd), n_iter=self._krylov_fixed,
+                x0=p_next, dot_fn=member_dot)
+        else:
+            p_n = bicgstab_split(
+                apply_A, rhs, lambda v: from_s(to_s(v) * isd),
+                lambda v: from_s(to_s(v) / isd), tol=self.krylov_tol,
+                max_iter=cfg.krylov_max_iter, x0=p_next, dot_fn=member_dot)
+        q_n = -lap(p_n)
+        den = gamma + 0.5 * dt
+        r_n = ((gamma - 0.5 * dt) / den * r_next
+               + 0.5 * dt / den * (q_n + q_next))
+        return p_n, q_n, r_n
+
+    def _run_batch(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+        """The sweep of B members: phi_hist, phi_Q (B, M+1, Nx+1, Ny+1),
+        dts (M,), b1 and b2 (B,), phi_T_target (B, Nx+1, Ny+1). Returns
+        (p, q, r), each (B, M+1, ...), with r_T = 0 last; a step with
+        dt <= 1e-14 copies the next level (vmap of
+        vch_tpu/models/adjoint2d.py:66-161)."""
+        p, q, r = self.terminal(phi_hist[:, -1], phi_T_target, b2)
+        b1 = b1.reshape(-1, 1, 1)
         src_all = phi_hist - phi_Q
         dts_host = dts.cpu().numpy()
-        p_next, q_next, r_next = p_T, q_T, r_T
-        ps, qs, rs = [p_T], [q_T], [r_T]
+        ps, qs, rs = [p], [q], [r]
         for n in range(dts.shape[0] - 1, -1, -1):
-            dt = dts[n]
-            phi_n, phi_np1 = phi_hist[n], phi_hist[n + 1]
-            fpp_n = fpp_log(phi_n, c1, c2)
-            fpp_np1 = fpp_log(phi_np1, c1, c2)
-            fbar = torch.mean(fpp_n)
-            # rhs = B(phi_{n+1}) p_{n+1} + src
-            w1 = lap(p_next)
-            Bp = (p_next - tau * w1 - 0.5 * dt * lap(w1)
-                  + 0.5 * dt * fpp_np1 * w1)
-            rhs = Bp + 0.5 * dt * b1 * (src_all[n] + src_all[n + 1])
-
-            def apply_A(v):
-                w = lap(v)
-                return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
-
-            denom = (1.0 - tau * op.lam + 0.5 * dt * op.lam ** 2
-                     - 0.5 * dt * fbar * op.lam)
-            isd = torch.rsqrt(torch.abs(denom))
-            if self._use_pallas and self._krylov_fixed is not None:
-                solve = (self.entries.adjoint_spectral
-                         if self._pallas_variant == "spectral"
-                         else self.entries.adjoint_raw)
-                mats = ((op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, op.lam)
-                        if self._pallas_variant == "spectral"
-                        else (op.Lx, op.LyT, op.Vx_inv, op.Vy_inv_T, op.Vx,
-                              op.VyT))
-                p_n = solve(*mats, isd, fpp_n, rhs, p_next, tau, 0.5 * dt,
-                            n_iter=self._krylov_fixed)
-            elif self._krylov_fixed is not None:
-                p_n = bicgstab_split_fixed(
-                    apply_A, rhs, lambda v: from_s(to_s(v) * isd),
-                    lambda v: from_s(to_s(v) / isd),
-                    n_iter=self._krylov_fixed, x0=p_next)
-            else:
-                p_n = bicgstab_split(
-                    apply_A, rhs, lambda v: from_s(to_s(v) * isd),
-                    lambda v: from_s(to_s(v) / isd), tol=self.krylov_tol,
-                    max_iter=cfg.krylov_max_iter, x0=p_next)
-            q_n = -lap(p_n)
-            den = gamma + 0.5 * dt
-            r_n = ((gamma - 0.5 * dt) / den * r_next
-                   + 0.5 * dt / den * (q_n + q_next))
             if not dts_host[n] <= 1e-14:        # else copy the next level
-                p_next, q_next, r_next = p_n, q_n, r_n
-            ps.append(p_next)
-            qs.append(q_next)
-            rs.append(r_next)
-        rev = lambda fs: torch.stack(fs[::-1])
+                p, q, r = self._sweep_step(p, q, r, phi_hist[:, n],
+                                           phi_hist[:, n + 1], src_all[:, n],
+                                           src_all[:, n + 1], dts[n], b1)
+            ps.append(p)
+            qs.append(q)
+            rs.append(r)
+        rev = lambda fs: torch.stack(fs[::-1], dim=1)
         return rev(ps), rev(qs), rev(rs)
+
+    def _run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+        """The sweep of one member: phi_hist, phi_Q (M+1, Nx+1, Ny+1),
+        dts (M,), phi_T_target (Nx+1, Ny+1), b1 and b2 numbers. Returns
+        (p, q, r), each (M+1, Nx+1, Ny+1)."""
+        as_b = lambda v: torch.as_tensor(v, dtype=self.dtype,
+                                         device=phi_hist.device).reshape(1)
+        p, q, r = self._run_batch(phi_hist[None], dts, as_b(b1), as_b(b2),
+                                  phi_Q[None], phi_T_target[None])
+        return p[0], q[0], r[0]
 
     def run(self, phi_hist, t_hist, b1: float, b2: float, phi_Q=None,
             phi_T_target=None):
@@ -177,6 +195,11 @@ class AdjointSolver2D(nn.Module):
                         else as_t(phi_T_target))
         return self._run_impl(phi_hist, dts, float(b1), float(b2), phi_Q,
                               phi_T_target)
+
+    def fused_march_available(self) -> bool:
+        """Whether the whole-sweep kernel can carry the batched adjoint:
+        vch_tpu's rule (adjoint2d.py:163), forward2d.fused_kernels_fit."""
+        return fused_kernels_fit(self.config)
 
     def _kw(self):
         cfg = self.config

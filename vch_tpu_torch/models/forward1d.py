@@ -262,35 +262,38 @@ class ForwardSolver1D(nn.Module):
                     spectral_op=self._op1d, krylov_fixed=self._krylov_fixed,
                     krylov_tol=self._krylov_tol)
 
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0):
+        """One time step of the members of phi (B, N+1) from the carry
+        (phi, mu, w) under the control frames u_n, u_np1, with the initial
+        masses m0 (B, 1): the Newton solve, the clip and the uniform mass
+        projection. Returns (phi, mu, w, newton_solves (B,), bad (B,): the
+        mass defect is not finite) (vch_tpu/models/forward1d.py:255-280)."""
+        cfg = self.config
+        w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
+        phi_new, mu_new, k = newton_1d(self.L, phi, mu, w, w_new, dt,
+                                       return_iters=True, **self._newton_kw())
+        phi_c = torch.clamp(phi_new, -1.0 + DELTA_SEP, 1.0 - DELTA_SEP)
+        mass_error = torch.sum(self.wts * phi_c, dim=-1, keepdim=True) - m0
+        return (phi_c - mass_error / cfg.Lx, mu_new, w_new, k,
+                ~torch.isfinite(mass_error[:, 0]))
+
     def _march_batch(self, u, phi0):
         """The per-step march of B members: u (B, M+1, N+1) in core layout,
         phi0 (B, N+1), on this solver's device. Returns (phi_hist
         (B, M+1, N+1), newton_solves (B,) int64, first_bad (B,) int64, -1:
         none) (vmap of vch_tpu/models/forward1d.py:248)."""
-        cfg = self.config
-        lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
-        wts = self.wts
         w = torch.zeros_like(phi0)
-        phi = phi0
-        mu = self.initialize_mu(phi0, w)
-        m0 = torch.sum(wts * phi0, dim=-1, keepdim=True)
+        phi, mu = phi0, self.initialize_mu(phi0, w)
+        m0 = torch.sum(self.wts * phi0, dim=-1, keepdim=True)
         nsolve = torch.zeros(phi0.shape[0], dtype=torch.int64,
                              device=phi0.device)
         first_bad = torch.full_like(nsolve, -1)
         frames = [phi0]
-        kw = self._newton_kw()
         for n in range(self.M):
-            dt = self.dts[n]
-            w_new = solve_w(w, dt, cfg.gamma, u[:, n], u[:, n + 1])
-            phi_new, mu, k = newton_1d(self.L, phi, mu, w, w_new, dt,
-                                       return_iters=True, **kw)
-            phi_c = torch.clamp(phi_new, lo, hi)
-            mass_error = torch.sum(wts * phi_c, dim=-1, keepdim=True) - m0
-            bad = ~torch.isfinite(mass_error[:, 0])
+            phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
+                                            self.dts[n], m0)
             first_bad = torch.where((first_bad < 0) & bad,
                                     torch.full_like(first_bad, n), first_bad)
-            phi = phi_c - mass_error / cfg.Lx
-            w = w_new
             nsolve = nsolve + k
             frames.append(phi)
         return torch.stack(frames, dim=1), nsolve, first_bad

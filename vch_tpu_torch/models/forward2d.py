@@ -3,20 +3,23 @@
 `ForwardSolver2D` holds the operator matrices as buffers on one device and
 marches in two ways:
 
-  - the per-step marcher (`simulate`, `_march_impl`): one member, a Python
-    loop over the time steps, each a Newton loop (`newton_2d`) whose linear
-    solve is `ops.linsolve.newton_schur_solve_2d`, with the interior-only
-    mass correction and the non-finite sanitizer. The loops read their
-    predicates on the host (one sync per Newton iteration and per Armijo
-    trial), as `_search` does. Float64 takes the adaptive Krylov solve;
-    float32 the fixed-trip one, through the per-solve Schur kernel when
-    `use_pallas` resolves on (by default: float32 on a CUDA device on a grid
-    whose solve vch_tpu's rule keeps on its kernel, ops.solve_kernels);
+  - the per-step marcher (`_march_batch`, and `_march_impl` / `simulate` for
+    one member): a Python loop over the time steps with a leading member
+    axis, each step a Newton loop (`newton_2d`) whose linear solve is
+    `ops.linsolve.newton_schur_solve_2d`, with the interior-only mass
+    correction and the non-finite sanitizer. Newton and Armijo run in masked
+    lockstep: a member's state freezes once its own exit fires, which is what
+    `jax.vmap` of vch_tpu's `while_loop`s computes; one member is B = 1. The
+    loops read their predicates on the host (one sync per Newton round and
+    per Armijo trial). Float64 takes the adaptive Krylov solve; float32 the
+    fixed-trip one, through the per-solve Schur kernel (one CTA per member)
+    when `use_pallas` resolves on (by default: float32 on a CUDA device on a
+    grid whose solve vch_tpu's rule keeps on its kernel, ops.solve_kernels);
   - the whole batched march in one kernel launch (`march_fused_batch`,
     `march_segment`) through `ops.march`: the member-blocked kernel when the
     batch divides by `config.resolved_fused_block()`, else one member per CTA
     (vch_tpu/models/forward2d.py:322-367), K-step segments for the
-    low-memory path.
+    low-memory path; available where `fused_kernels_fit` holds.
 
 Every kernel entry goes through `self.entries` (ops.march.KERNELS: the CUDA
 kernels on CUDA tensors, the plain versions on CPU tensors; ops.march.PLAIN
@@ -70,14 +73,16 @@ def phi_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, w_new, w_old,
 
 
 def _step_ceiling_2d(phi, dphi, delta_sep):
-    """Largest Armijo start keeping phi + alpha dphi inside the bounds: 0.9
-    of the per-sign minima, capped at 2, 1 when that is not finite or not
-    positive, then at most 1 (vch_tpu/models/forward2d.py:51)."""
+    """Largest Armijo start keeping phi + alpha dphi inside the bounds, per
+    member of phi (..., n, m), kept as (..., 1, 1): 0.9 of the per-sign
+    minima, capped at 2, 1 when that is not finite or not positive, then at
+    most 1 (vch_tpu/models/forward2d.py:51)."""
     big = torch.full_like(phi, math.inf)
     ratio_pos = torch.where(dphi > 0, (1.0 - delta_sep - phi) / dphi, big)
     ratio_neg = torch.where(dphi < 0, (-1.0 + delta_sep - phi) / dphi, big)
-    amax = torch.clamp(torch.minimum(0.9 * torch.min(ratio_pos),
-                                     0.9 * torch.min(ratio_neg)), max=2.0)
+    mn = lambda a: torch.amin(a, dim=(-2, -1), keepdim=True)
+    amax = torch.clamp(torch.minimum(0.9 * mn(ratio_pos), 0.9 * mn(ratio_neg)),
+                       max=2.0)
     bad = ~torch.isfinite(amax) | (amax <= 0)
     amax = torch.where(bad, torch.ones_like(amax), amax)
     return torch.clamp(amax, max=1.0)
@@ -90,66 +95,107 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
               krylov_fixed: Optional[int] = None, use_pallas: bool = False,
               pallas_variant: str = "spectral", entries=km.KERNELS):
     """Newton with the best-trial-fallback Armijo (at most 12 trials) for
-    one step of one member (vch_tpu/models/forward2d.py:65). Exits on the
-    absolute tolerance, on rtol times the first residual (rtol > 0), or, with
-    stagnation_exit, on a residual that did not fall. Returns (phi, mu,
-    newton_solves) and, with record_history, the residual norms as a list of
-    floats after them."""
+    one step of the members of phi_old (B, n, m), in masked lockstep
+    (vch_tpu/models/forward2d.py:65 under vmap).
+
+    Each member tests convergence at the top of its round (the absolute
+    tolerance; rtol times its first residual when rtol > 0; with
+    stagnation_exit a residual that did not fall) and otherwise takes the
+    Schur step and the Armijo search; a member that has converged keeps its
+    state while the others go on, for at most max_iter rounds. A member that
+    takes no step in a round solves a zero system, which leaves its Krylov
+    loop at once. Returns (phi, mu, newton_solves (B,) int64) and, with
+    record_history, the residual norms (B, max_iter + 1) after them, NaN
+    where a member ran no round."""
     eta = 1e-4
+    msum = lambda a: torch.sum(a, dim=(-2, -1), keepdim=True)
 
     def resid(phi, mu):
         Rphi = phi_residual_2d(ops, phi, phi_old, mu, mu_old, w_new, w_old,
                                dt, tau, c1, c2, kappa, delta_sep)
         Rmu = mu_residual_2d(ops, phi, phi_old, mu, mu_old, dt)
-        norm = torch.sqrt(torch.sum(Rphi * Rphi) + torch.sum(Rmu * Rmu))
-        return norm, Rphi, Rmu
+        return torch.sqrt(msum(Rphi * Rphi) + msum(Rmu * Rmu)), Rphi, Rmu
 
-    def armijo(phi, mu, dphi, dmu, norm_R):
+    def armijo(phi, mu, dphi, dmu, norm_R, act):
+        """Per member of act: the first accepted trial, else the best trial
+        if it improved on norm_R, else (phi, mu)."""
         alpha = _step_ceiling_2d(phi, dphi, delta_sep)
-        best_norm = math.inf
-        best = (phi, mu)
+        best_norm = torch.full_like(norm_R, math.inf)
+        best_phi, best_mu, phi_a, mu_a = phi, mu, phi, mu
+        accepted = torch.zeros_like(act)
+        live = act
         for _ in range(12):
+            if not bool(live.any()):
+                break
             phi_t = phi + alpha * dphi
             mu_t = mu + alpha * dmu
-            norm_t, _, _ = resid(phi_t, mu_t)
-            if bool(norm_t < best_norm):
-                best_norm, best = norm_t, (phi_t, mu_t)
-            if bool(norm_t <= (1.0 - eta * alpha) * norm_R):
-                return phi_t, mu_t
-            alpha = alpha * 0.5
-        # no trial accepted: the best trial if it improved on norm_R
-        if bool(best_norm < norm_R):
-            return best
-        return phi, mu
+            norm_t = resid(phi_t, mu_t)[0]
+            better = live & (norm_t < best_norm)
+            best_norm = torch.where(better, norm_t, best_norm)
+            best_phi = torch.where(better, phi_t, best_phi)
+            best_mu = torch.where(better, mu_t, best_mu)
+            accept = live & (norm_t <= (1.0 - eta * alpha) * norm_R)
+            phi_a = torch.where(accept, phi_t, phi_a)
+            mu_a = torch.where(accept, mu_t, mu_a)
+            accepted = accepted | accept
+            alpha = torch.where(accept, alpha, alpha * 0.5)
+            live = live & ~accept
+        use_best = ~accepted & (best_norm < norm_R)
+        return (torch.where(accepted, phi_a,
+                            torch.where(use_best, best_phi, phi)),
+                torch.where(accepted, mu_a, torch.where(use_best, best_mu, mu)))
 
+    B = phi_old.shape[0]
+    dev = phi_old.device
     phi, mu = phi_old, mu_init
-    norm0 = prev_norm = None
-    hist = []
-    nsolve = 0
+    done = torch.zeros((B, 1, 1), dtype=torch.bool, device=dev)
+    norm0 = prev = torch.full((B, 1, 1), math.inf, dtype=phi.dtype,
+                              device=dev)
+    nsolve = torch.zeros(B, dtype=torch.int64, device=dev)
+    hist = (torch.full((B, max_iter + 1), math.nan, dtype=phi.dtype,
+                       device=dev) if record_history else None)
     for k in range(max_iter):
+        if bool(done.all()):
+            break
+        live = ~done
         norm_R, Rphi, Rmu = resid(phi, mu)
         if record_history:
-            hist.append(float(norm_R))
+            hist[:, k] = torch.where(live.view(B), norm_R.view(B), hist[:, k])
         if k == 0:
             norm0 = norm_R
-        converged = norm_R < tol
+        conv = norm_R < tol
         if rtol > 0:
-            converged = converged | (norm_R < rtol * norm0)
+            conv = conv | (norm_R < rtol * norm0)
         if stagnation_exit and k > 0:
-            converged = converged | (norm_R >= prev_norm)
-        if bool(converged):
-            break
-        dphi, dmu = newton_schur_solve_2d(
-            ops, phi, Rphi, Rmu, dt, tau, c1, kappa, delta_sep,
-            tol=krylov_tol, max_iter=krylov_max_iter,
-            fixed_iters=krylov_fixed, use_pallas=use_pallas,
-            pallas_variant=pallas_variant, entries=entries)
-        phi, mu = armijo(phi, mu, dphi, dmu, norm_R)
-        prev_norm = norm_R
-        nsolve += 1
+            conv = conv | (norm_R >= prev)
+        act = live & ~conv
+        if bool(act.any()):     # else every live member has just converged
+            zero = torch.zeros_like(Rphi)
+            dphi, dmu = newton_schur_solve_2d(
+                ops, phi, torch.where(act, Rphi, zero),
+                torch.where(act, Rmu, zero), dt, tau, c1, kappa, delta_sep,
+                tol=krylov_tol, max_iter=krylov_max_iter,
+                fixed_iters=krylov_fixed, use_pallas=use_pallas,
+                pallas_variant=pallas_variant, entries=entries)
+            phi_n, mu_n = armijo(phi, mu, dphi, dmu, norm_R, act)
+            phi = torch.where(act, phi_n, phi)
+            mu = torch.where(act, mu_n, mu)
+            nsolve = nsolve + act.view(B)
+        done = done | (live & conv)
+        prev = torch.where(live, norm_R, prev)
     if record_history:
         return phi, mu, nsolve, hist
     return phi, mu, nsolve
+
+
+def fused_kernels_fit(cfg: ForwardSolverConfig2D) -> bool:
+    """vch_tpu's availability rule of the whole-march and whole-sweep
+    kernels (vch_tpu/models/forward2d.py:315, adjoint2d.py:163): the float32
+    fixed-trip path, on a grid whose solve vch_tpu keeps on its kernel
+    (ops.solve_kernels.per_solve_kernels_fit). A float64 config never takes
+    them."""
+    return (cfg.dtype == "float32"
+            and per_solve_kernels_fit(cfg.Nx + 1, cfg.Ny + 1))
 
 
 class ForwardSolver2D(nn.Module):
@@ -227,47 +273,57 @@ class ForwardSolver2D(nn.Module):
                     use_pallas=self._use_pallas,
                     pallas_variant=self._pallas_variant, entries=self.entries)
 
-    def _simulate_body(self, u, phi0):
-        """The per-step march of one member: u (M+1, Nx+1, Ny+1), phi0
-        (Nx+1, Ny+1) on this solver's device. Returns (phi_hist (M+1, ...),
-        MarchStats) (vch_tpu/models/forward2d.py:236-286)."""
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0):
+        """One time step of the members of phi (B, Nx+1, Ny+1) from the
+        carry (phi, mu, w) under the control frames u_n, u_np1, with the
+        initial masses m0 (B, 1, 1): the Newton solve, the clip, and the
+        interior-only mass correction with its uniform fallback. Returns
+        (phi, mu, w, newton_solves (B,), bad (B,): the mass defect is not
+        finite) (vch_tpu/models/forward2d.py:250-278)."""
         cfg = self.config
-        ops = self.op
         lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
         wts = self.wts
+        msum = lambda a: torch.sum(a, dim=(-2, -1), keepdim=True)
+        w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
+        mu_init = self.initialize_mu(phi, w_new)
+        phi_new, mu_new, k = newton_2d(self.op, phi, mu, w, w_new, dt,
+                                       mu_init=mu_init, **self._newton_kw())
+        phi_c = torch.clamp(phi_new, lo, hi)
+        mass_error = msum(wts * phi_c) - m0
+        interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
+        Wint = msum(torch.where(interior, wts, torch.zeros_like(wts)))
+        corrected = torch.where(interior, phi_c - mass_error / Wint, phi_c)
+        fallback = torch.clamp(phi_c - mass_error / (cfg.Lx * cfg.Ly), lo, hi)
+        phi_c = torch.where(torch.abs(mass_error) > 1e-16,
+                            torch.where(Wint > 0, corrected, fallback), phi_c)
+        return phi_c, mu_new, w_new, k, ~torch.isfinite(mass_error).view(-1)
+
+    def _march_batch(self, u, phi0):
+        """The per-step march of B members: u (B, M+1, Nx+1, Ny+1), phi0
+        (B, Nx+1, Ny+1) on this solver's device. Returns (phi_hist
+        (B, M+1, ...), newton_solves (B,) int64, first_bad (B,) int64, -1:
+        none) (vmap of vch_tpu/models/forward2d.py:230-286)."""
         w = torch.zeros_like(phi0)
-        phi = phi0
-        mu = self.initialize_mu(phi0, w)
-        m0 = torch.sum(wts * phi0)
-        frames, bad, nsolve = [phi0], [], 0
-        kw = self._newton_kw()
+        phi, mu = phi0, self.initialize_mu(phi0, w)
+        m0 = torch.sum(self.wts * phi0, dim=(-2, -1), keepdim=True)
+        nsolve = torch.zeros(phi0.shape[0], dtype=torch.int64,
+                             device=phi0.device)
+        first_bad = torch.full_like(nsolve, -1)
+        frames = [phi0]
         for n in range(self.M):
-            dt = self.dts[n]
-            w_new = solve_w(w, dt, cfg.gamma, u[n], u[n + 1])
-            mu_init = self.initialize_mu(phi, w_new)
-            phi_new, mu_new, k = newton_2d(ops, phi, mu, w, w_new, dt,
-                                           mu_init=mu_init, **kw)
-            phi_c = torch.clamp(phi_new, lo, hi)
-            # interior-only mass correction, uniform fallback
-            mass_error = torch.sum(wts * phi_c) - m0
-            bad.append(~torch.isfinite(mass_error))
-            interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
-            Wint = torch.sum(torch.where(interior, wts, torch.zeros_like(wts)))
-            corrected = torch.where(interior, phi_c - mass_error / Wint, phi_c)
-            fallback = torch.clamp(phi_c - mass_error / (cfg.Lx * cfg.Ly),
-                                   lo, hi)
-            phi_c = torch.where(torch.abs(mass_error) > 1e-16,
-                                torch.where(Wint > 0, corrected, fallback),
-                                phi_c)
-            frames.append(phi_c)
-            phi, mu, w = phi_c, mu_new, w_new
-            nsolve += k
-        flags = torch.stack(bad).cpu().numpy()
-        first_bad = int(np.argmax(flags)) if flags.any() else -1
-        return torch.stack(frames), MarchStats(nsolve, first_bad)
+            phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
+                                            self.dts[n], m0)
+            first_bad = torch.where((first_bad < 0) & bad,
+                                    torch.full_like(first_bad, n), first_bad)
+            nsolve = nsolve + k
+            frames.append(phi)
+        return torch.stack(frames, dim=1), nsolve, first_bad
 
     def _march_impl(self, u, phi0):
-        return self._simulate_body(u, phi0)
+        """One member: u (M+1, Nx+1, Ny+1), phi0 (Nx+1, Ny+1). Returns
+        (phi_hist (M+1, ...), MarchStats)."""
+        phi_hist, ns, bad = self._march_batch(u[None], phi0[None])
+        return phi_hist[0], MarchStats(int(ns[0]), int(bad[0]))
 
     def _simulate_impl(self, u, phi0):
         """The trajectory only."""
@@ -317,20 +373,18 @@ class ForwardSolver2D(nn.Module):
         (vch_tpu/models/forward2d.py:381)."""
         as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                          device=self.dts.device)
-        phi_old, w_new = as_t(phi_old), as_t(w_new)
+        phi_old, w_new = as_t(phi_old)[None], as_t(w_new)[None]
         mu_init = self.initialize_mu(phi_old, w_new)
         phi, mu, _, hist = newton_2d(
-            self.op, phi_old, as_t(mu_old), as_t(w_old), w_new, dt,
-            mu_init=mu_init, record_history=True, **self._newton_kw())
-        return phi, mu, hist
+            self.op, phi_old, as_t(mu_old)[None], as_t(w_old)[None], w_new,
+            dt, mu_init=mu_init, record_history=True, **self._newton_kw())
+        hist = hist[0].cpu().numpy()
+        return phi[0], mu[0], list(hist[~np.isnan(hist)])
 
     def fused_march_available(self) -> bool:
         """Whether the whole-march kernel can carry the batched forward
-        solve: vch_tpu's rule (the float32 fixed-trip path with the solve
-        on its kernel, forward2d.py:315)."""
-        return (self._krylov_fixed is not None
-                and per_solve_kernels_fit(self.config.Nx + 1,
-                                          self.config.Ny + 1))
+        solve: vch_tpu's rule (forward2d.py:315), `fused_kernels_fit`."""
+        return fused_kernels_fit(self.config)
 
     def _march_kw(self):
         cfg = self.config

@@ -323,18 +323,18 @@ def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
                           pallas_variant: str = "spectral", entries=None):
     """The 2D Newton step (dphi, dmu) by the exact Schur solve
     (vch_tpu/ops/linsolve.py:361), with the reference's Jacobian clip
-    phi^2 <= 1 - delta_sep^2. Routing as vch_tpu's (:395-422): with
-    use_pallas and fixed_iters, one per-solve kernel entry of `entries`
-    (`schur_spectral` or, for pallas_variant "raw", `schur_raw`; an
-    ops.march.Entries), which launches the CUDA kernel on CUDA tensors and
-    runs its plain version on CPU tensors; else the composed fixed-trip or
-    adaptive BiCGStab with the cosine-diagonal preconditioner (d replaced
-    by its mean)."""
+    phi^2 <= 1 - delta_sep^2, per member of phi (n, m) or (B, n, m).
+    Routing as vch_tpu's (:395-422): with use_pallas and fixed_iters, one
+    per-solve kernel entry of `entries` (`schur_spectral` or, for
+    pallas_variant "raw", `schur_raw`; an ops.march.Entries), which launches
+    the CUDA kernel on CUDA tensors and runs its plain version on CPU
+    tensors; else the composed fixed-trip or adaptive BiCGStab with the
+    cosine-diagonal preconditioner (d replaced by each member's mean)."""
     Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
     mm = torch.matmul
     phi_sq = torch.clamp(phi * phi, 0.0, 1.0 - delta_sep * delta_sep)
     d = 2.0 * c1 / (1.0 - phi_sq)
-    dbar = torch.mean(d)
+    dbar = torch.mean(d, dim=(-2, -1), keepdim=True)
     lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
 
     def apply_S(v):
@@ -357,9 +357,11 @@ def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
                 Lx, LyT, Vxi, VyiT, Vx, VyT, denom, d, rhs, 1.0 / dt,
                 tau / dt, 0.5 * kappa, n_iter=fixed_iters)
     elif fixed_iters is not None:
-        dphi = bicgstab_fixed(apply_S, rhs, apply_M, n_iter=fixed_iters)
+        dphi = bicgstab_fixed(apply_S, rhs, apply_M, n_iter=fixed_iters,
+                              dot_fn=member_dot)
     else:
-        dphi = bicgstab(apply_S, rhs, apply_M, tol=tol, max_iter=max_iter)
+        dphi = bicgstab(apply_S, rhs, apply_M, tol=tol, max_iter=max_iter,
+                        dot_fn=member_dot)
     Kpp_dphi = -(0.5 * kappa) * lap(dphi) + (tau / dt + d) * dphi
     dmu = 2.0 * (Kpp_dphi + Rphi)
     return dphi, dmu

@@ -958,10 +958,11 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 sk.bicgstab_schur_spectral_plain,
                 sk.bicgstab_adjoint_spectral_plain, sk.bicgstab_schur_plain,
                 sk.bicgstab_adjoint_plain, march_fused_1d_plain)
-# every kernel wrapper of the port: the solvers' entries and the three
-# operator applies, which no solver calls
+# every kernel wrapper of the port: the solvers' entries, and the three
+# operator applies and the two cost probes, which no solver calls
 WRAPPERS = tuple(KERNELS) + (sk.schur_apply, sk.adjoint_apply,
-                             sk.spectral_solve)
+                             sk.spectral_solve, sk.schur_nodots,
+                             sk.schur_mmonly)
 
 
 def reset_launches():

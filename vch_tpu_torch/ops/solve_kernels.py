@@ -23,6 +23,12 @@ vch_tpu/ops/pallas_kernels.py).
 `bicgstab_schur` on a (B, n, m) batch is also the counterpart of the
 member-tiled `bicgstab_schur_pallas_batched` (:394): one CTA per member
 takes the place of its block_b members per program and its padding.
+Two cost probes of `bicgstab_schur` (scripts/diag_kernel_cost.py:131,
+:176) split its time between products and block reductions:
+  schur_nodots              its trips with every dot product the constant
+                            0.5 (no freeze, no best iterate);
+  schur_mmonly              the chain v <- M(S(M(S(v)))) n_iter times, its
+                            16 products per trip alone.
 
 Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
@@ -47,7 +53,8 @@ _EPS_DIV = 1e-30
 # (50 eps_f32)^2: the noise-floor freeze factor of the float32 kernels
 _FLOOR_F32 = (50.0 * 1.2e-7) ** 2
 # variant numbers of vch_bicgstab_2d
-_SCHUR_SPECTRAL, _SCHUR_RAW, _ADJOINT_SPECTRAL, _ADJOINT_RAW = range(4)
+(_SCHUR_SPECTRAL, _SCHUR_RAW, _ADJOINT_SPECTRAL, _ADJOINT_RAW,
+ _SCHUR_NODOTS, _SCHUR_MMONLY) = range(6)
 
 
 def per_solve_kernels_fit(n: int, m: int, dtype_bytes: int = 4,
@@ -301,6 +308,85 @@ def bicgstab_adjoint(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
 
 
 bicgstab_adjoint.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the cost probes of the raw Schur solve (scripts/diag_kernel_cost.py)
+
+def schur_nodots_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
+                       inv_dt, tau_dt, half_kappa, n_iter: int):
+    """Plain PyTorch version of `schur_nodots`."""
+    apply_S, r, apply_M, _, _ = _schur_system(
+        Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
+        half_kappa)
+    dot = 0.5
+    x = p = v = torch.zeros_like(rhs)
+    rho = alpha = omega = 1.0
+    for _ in range(n_iter):
+        rho_new = dot
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = apply_M(p)
+        v = apply_S(phat)
+        alpha_n = rho_new / dot
+        s = r - alpha_n * v
+        shat = apply_M(s)
+        t = apply_S(shat)
+        omega_n = dot / dot
+        x = x + alpha_n * phat + omega_n * shat
+        r = s - omega_n * t
+        rho, alpha, omega = rho_new, alpha_n, omega_n
+    return x
+
+
+def schur_mmonly_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
+                       inv_dt, tau_dt, half_kappa, n_iter: int):
+    """Plain PyTorch version of `schur_mmonly`."""
+    apply_S, _, apply_M, _, _ = _schur_system(
+        Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
+        half_kappa)
+    v = rhs
+    for _ in range(n_iter):
+        v = apply_M(apply_S(apply_M(apply_S(v))))
+    return v
+
+
+def schur_nodots(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
+                 tau_dt, half_kappa, n_iter: int):
+    """The probe `nodots` (scripts/diag_kernel_cost.py:131): the trips of
+    `bicgstab_schur` on the same arguments with every block dot product
+    replaced by the constant 0.5, no noise-floor freeze and no best
+    iterate; returns the last iterate. Its time is that of the solve's
+    products and elementwise passes without its reductions; its result is
+    no solve."""
+    args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
+            half_kappa)
+    if not _build.on_cuda("schur_nodots", rhs):
+        return schur_nodots_plain(*args, n_iter=n_iter)
+    return _launch(schur_nodots, _SCHUR_NODOTS, (inv_dt, tau_dt, half_kappa),
+                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                   (denom, d, rhs, None), n_iter)
+
+
+schur_nodots.launches = 0
+
+
+def schur_mmonly(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
+                 tau_dt, half_kappa, n_iter: int):
+    """The probe `mmonly` (scripts/diag_kernel_cost.py:176): v <- M(S(M(S(
+    v)))) n_iter times from v = rhs, S the raw Schur operator and M the
+    spectral preconditioner of `bicgstab_schur` on the same arguments: the
+    16 products of each of its trips with nothing between them."""
+    args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
+            half_kappa)
+    if not _build.on_cuda("schur_mmonly", rhs):
+        return schur_mmonly_plain(*args, n_iter=n_iter)
+    return _launch(schur_mmonly, _SCHUR_MMONLY, (inv_dt, tau_dt, half_kappa),
+                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                   (denom, d, rhs, None), n_iter)
+
+
+schur_mmonly.launches = 0
 
 
 # --------------------------------------------------------------------------

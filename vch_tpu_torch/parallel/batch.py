@@ -16,7 +16,10 @@ segment checkpoints and recomputes each segment in the adjoint
 (`make_batched_problem_2d` picks one of the two by the estimated peak device
 memory), and `BatchedProblem1D` runs the 1D family in the reference's history
 layout (a duplicated t = 0 row): its forward is the fused 1D march kernel or
-the batched per-step marcher, its adjoint the batched per-step sweep.
+the batched per-step marcher, its adjoint the batched per-step sweep. The two
+2D problems take the whole-march and whole-sweep kernels, or the scan path
+(the batched per-step marcher and sweep), by vch_tpu's rule
+(`fused_march_rule`).
 
 Not ported (single device, eager PyTorch): the device mesh and
 `shard_fused`, the combined (scenarios, grid) mesh problem, the speculative
@@ -43,7 +46,7 @@ from vch_tpu_torch.device import resolve_device
 from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.forward1d import ForwardSolver1D
-from vch_tpu_torch.models.forward2d import ForwardSolver2D
+from vch_tpu_torch.models.forward2d import ForwardSolver2D, fused_kernels_fit
 from vch_tpu_torch.models.lowmem import FusedLowMemBatch2D, LowMemPipeline2D
 from vch_tpu_torch.models.timegrid import build_dt_schedule
 
@@ -384,6 +387,24 @@ def _control_shape_2d(solver: ForwardSolver2D) -> tuple:
     return (solver.M + 1, solver.config.Nx + 1, solver.config.Ny + 1)
 
 
+def fused_march_rule(cfg: ForwardSolverConfig2D, device,
+                     fused_march: Optional[bool] = None) -> bool:
+    """Whether a batched 2D problem on `device` takes the whole-march and
+    whole-sweep kernels (vch_tpu/parallel/batch.py:1142-1167, :1321-1325):
+    `fused_march` if given, else on for a CUDA device, and only where the
+    kernels carry the config (`fused_kernels_fit`: float32 on a grid whose
+    solve vch_tpu keeps on its kernel; the forward's and the adjoint's rules
+    are the same). A float64 config never takes them: asking for them there
+    raises. Off, the problem runs the scan path."""
+    fits = fused_kernels_fit(cfg)
+    if fused_march is None:
+        return torch.device(device).type == "cuda" and fits
+    if fused_march and not fits:
+        raise ValueError(f"fused_march=True needs the float32 fixed-trip "
+                         f"path; this config is {cfg.dtype}")
+    return bool(fused_march)
+
+
 class BatchedProblem1D(_BatchedPGDBase):
     """Batched 1D PGD on one device (device=None: the CUDA card), in the
     reference layout: controls and histories carry M + 2 rows, the t = 0 row
@@ -455,28 +476,46 @@ class BatchedProblem1D(_BatchedPGDBase):
 
 class BatchedProblem2D(_BatchedPGDBase):
     """Batched 2D PGD on one device (device=None: the CUDA card), keeping
-    each member's trajectory."""
+    each member's trajectory (vch_tpu/parallel/batch.py:1112-1182).
+
+    fused_march (`fused_march_rule`; None: on for a CUDA device where the
+    kernels carry the config): the forward solve of the baseline and of
+    every trial as one launch of the whole-march kernel and the adjoint as
+    one of the whole-sweep kernel (where its own rule holds), with the
+    straggler buckets on. Off, the scan path: the batched per-step marcher
+    and sweep (masked lockstep over the members; on a float32 CUDA run the
+    per-solve kernels, one CTA per member; adaptive Krylov in float64), and
+    every trial runs on the whole batch."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
                  settings: Optional[PGDSettings] = None,
-                 alpha_max: float = 50.0, device=None):
+                 alpha_max: float = 50.0, device=None,
+                 fused_march: Optional[bool] = None):
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
         device = resolve_device(device)
         self.solver = ForwardSolver2D(cfg, device=device)
         self.adj = AdjointSolver2D(cfg, device=device)
+        self._use_fused_march = fused_march_rule(cfg, device, fused_march)
+        self._use_fused_adjoint = (self._use_fused_march
+                                   and self.adj.fused_march_available())
         super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
-                         _control_shape_2d(self.solver))
+                         _control_shape_2d(self.solver),
+                         straggler_buckets=self._use_fused_march)
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
         self._x = as_t(self.solver.x)
         self._y = as_t(self.solver.y)
         self._t = as_t(self.solver.t_hist)
 
     def _forward_stats(self, u, phi0, phi_Q, phi_T):
-        phi, nsolve, _bad = self.solver.march_fused_batch(u, phi0)
+        march = (self.solver.march_fused_batch if self._use_fused_march
+                 else self.solver._march_batch)
+        phi, nsolve, _bad = march(u, phi0)
         return phi, nsolve
 
     def _adjoint(self, phi, u, b1, b2, phi_Q, phi_T):
-        return self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+        if self._use_fused_adjoint:
+            return self.adj.adjoint_fused_batch(phi, b1, b2, phi_Q, phi_T)
+        return self.adj._run_batch(phi, self.adj.dts, b1, b2, phi_Q, phi_T)[2]
 
     def _cost(self, phi, u, phi_Q, phi_T, b1, b2, b3, ks):
         return calculate_cost_2d(phi, u, phi_Q, phi_T, self._x, self._y,
@@ -489,18 +528,28 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
     holds a models.lowmem.LowMemState (the K-step segment checkpoints, the
     final state and the J1 accumulator), trials are costed from the
     accumulator, and the adjoint recomputes each segment from its
-    checkpoint. Every segment is one segment-kernel launch."""
+    checkpoint. fused_march as BatchedProblem2D's (the forward's and the
+    adjoint's rules together): on, every segment is one launch of the
+    segment march kernel and, in the adjoint, one of the segment sweep
+    kernel, with the straggler buckets on; off, the scan arm of
+    models.lowmem (`_LowMemCore.forward_ckpt` / `adjoint_r`)."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
                  K: int = 10, settings: Optional[PGDSettings] = None,
-                 alpha_max: float = 50.0, device=None):
-        self.fwd_config = fwd_config or ForwardSolverConfig2D()
+                 alpha_max: float = 50.0, device=None,
+                 fused_march: Optional[bool] = None):
+        self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
         device = resolve_device(device)
-        self.pipe = LowMemPipeline2D(self.fwd_config, K=K, device=device)
+        self.pipe = LowMemPipeline2D(cfg, K=K, device=device)
         self.solver, self.adj = self.pipe.solver, self.pipe.adjoint
-        self._fused = FusedLowMemBatch2D(self.pipe)
+        self._use_fused_march = (
+            fused_march_rule(cfg, device, fused_march)
+            and self.adj.fused_march_available())
+        self._fused = (FusedLowMemBatch2D(self.pipe) if self._use_fused_march
+                       else None)
         super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
-                         _control_shape_2d(self.solver))
+                         _control_shape_2d(self.solver),
+                         straggler_buckets=self._use_fused_march)
 
     def _set_phi_Q_mode(self, mode: Optional[str]):
         if mode not in ("ramp", "zeros"):
@@ -509,10 +558,15 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
         self.pipe.core.phi_Q_mode = mode
 
     def _forward_stats(self, u, phi0, phi_Q, phi_T):
-        return self._fused.forward(u, phi0, phi_Q, phi_T)
+        if self._fused is not None:
+            return self._fused.forward(u, phi0, phi_Q, phi_T)
+        state = self.pipe.core.forward_ckpt(u, phi0, phi_Q, phi_T)
+        return state, state.newton_solves
 
     def _adjoint(self, state, u, b1, b2, phi_Q, phi_T):
-        return self._fused.adjoint_r(state, u, phi_Q, b1, b2, phi_T)
+        if self._fused is not None:
+            return self._fused.adjoint_r(state, u, phi_Q, b1, b2, phi_T)
+        return self.pipe.core.adjoint_r(state, u, phi_Q, b1, b2, phi_T)
 
     def _cost(self, state, u, phi_Q, phi_T, b1, b2, b3, ks):
         return self.pipe.core.cost(state, u, phi_T, b1, b2, b3, ks)
@@ -544,14 +598,14 @@ def make_batched_problem_2d(fwd_config: Optional[ForwardSolverConfig2D] = None,
                             batch: int = 1, materialized_phi_Q: bool = True,
                             hbm_limit_bytes: Optional[int] = None,
                             safety: float = 0.75, K: int = 10, device=None,
-                            **kwargs):
+                            fused_march: Optional[bool] = None, **kwargs):
     """The full-memory or the segment-checkpointed batched 2D problem, by
     estimated peak device memory (vch_tpu/parallel/batch.py:1185-1287,
     single-device arms): LowMemBatchedProblem2D when the full-memory
     estimate (full_memory_estimate_bytes) exceeds safety * limit, else
-    BatchedProblem2D, on `device` (None: the CUDA card). The limit is
-    hbm_limit_bytes if given, else the total memory of the CUDA device, or
-    16 GiB for a CPU device."""
+    BatchedProblem2D, on `device` (None: the CUDA card), with `fused_march`
+    passed to either. The limit is hbm_limit_bytes if given, else the total
+    memory of the CUDA device, or 16 GiB for a CPU device."""
     cfg = fwd_config or ForwardSolverConfig2D()
     device = resolve_device(device)
     est = full_memory_estimate_bytes(cfg, batch, materialized_phi_Q)
@@ -559,8 +613,10 @@ def make_batched_problem_2d(fwd_config: Optional[ForwardSolverConfig2D] = None,
         hbm_limit_bytes = (torch.cuda.get_device_properties(device).total_memory
                            if device.type == "cuda" else 16 * 2**30)
     if est > safety * hbm_limit_bytes:
-        return LowMemBatchedProblem2D(cfg, K=K, device=device, **kwargs)
-    return BatchedProblem2D(cfg, device=device, **kwargs)
+        return LowMemBatchedProblem2D(cfg, K=K, device=device,
+                                      fused_march=fused_march, **kwargs)
+    return BatchedProblem2D(cfg, device=device, fused_march=fused_march,
+                            **kwargs)
 
 
 def tile_batch(sc: ScenarioBatch, B: int) -> ScenarioBatch:
