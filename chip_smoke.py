@@ -52,6 +52,13 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                the script's default shape (n = 65, B = 32, 10 trips) and at
                the scan path's (n = 129, B = 128, 4 trips), each probe kernel
                against its plain version, gated against float64;
+  2g probes  — the four chain probe entry points (vch_tpu_torch.probes.
+               diag_march_sol with its chain cut to CHAIN_AMORT = 200 solves'
+               worth of links, diag_interleave, diag_blocked_microbench,
+               probe_while) at the scripts' default shapes, launch counts
+               read around each; each probe kernel (the float32 and bf16
+               chains, the eight microbench variants, the while probe)
+               against its plain version and the plain version in float64;
   3d slice   — BatchedProblem1D at N = 64 on a heterogeneous B = 16 sweep,
                kernel path against plain path, 3 PGD iterations;
   3e scan    — the scan path (fused_march=False: the batched per-step
@@ -107,6 +114,10 @@ import subprocess
 import time
 
 import numpy as np
+
+from vch_tpu_torch.ops.probe_kernels import BF16_CHAIN_TOL
+from vch_tpu_torch.probes._timing import (PEAK_BF16_FLOPS, PEAK_BYTES_PER_S,
+                                          PEAK_FP32_FLOPS, time_ms)
 
 
 def _log(phase, msg):
@@ -165,20 +176,6 @@ def device_share(torch, fn):
         return dict(wall_s=wall, device_s=None, busy_share=None, top=[])
     return dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
                 top=[(k[:60], t) for k, t in rows[:5]])
-
-
-def _time_ms(torch, fn, reps):
-    """Mean device ms of fn() over reps calls after one warm-up call,
-    between two CUDA events on the current stream."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _host_ms(torch, fn):
@@ -282,10 +279,10 @@ def kernel_case(torch, n, B, T, device, seed=0, reps=3):
                rel_r_kernel_vs_f64=_rel(kr, r64, r64),
                rel_r_plain_vs_f64=_rel(pr, r64, r64))
     fwd.entries = adj.entries = km.KERNELS
-    out["march_ms"] = _time_ms(
-        torch, lambda: fwd.march_fused_batch(x["u"], x["phi0"]), reps)
-    out["adjoint_ms"] = _time_ms(
-        torch, lambda: adj.adjoint_fused_batch(*args(x, ph)), reps)
+    out["march_ms"] = time_ms(
+        lambda: fwd.march_fused_batch(x["u"], x["phi0"]), reps)
+    out["adjoint_ms"] = time_ms(
+        lambda: adj.adjoint_fused_batch(*args(x, ph)), reps)
     out["march_plain_ms"] = march_plain_ms
     out["adjoint_plain_ms"] = adjoint_plain_ms
     return out
@@ -419,12 +416,10 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
         **adj._kw())
     for name, fn in (("per_member", member_m), ("blocked", blocked_m),
                      ("blocked", blocked_m), ("per_member", member_m)):
-        out.setdefault(f"march_{name}_ms", []).append(_time_ms(torch, fn,
-                                                               reps))
+        out.setdefault(f"march_{name}_ms", []).append(time_ms(fn, reps))
     for name, fn in (("per_member", member_a), ("blocked", blocked_a),
                      ("blocked", blocked_a), ("per_member", member_a)):
-        out.setdefault(f"adjoint_{name}_ms", []).append(_time_ms(torch, fn,
-                                                                 reps))
+        out.setdefault(f"adjoint_{name}_ms", []).append(time_ms(fn, reps))
     return out
 
 
@@ -490,7 +485,7 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
         ps64 = km.march_fused_2d_segment_plain(*f64(sargs), *fwd64._ops(),
                                                **fwd64._march_kw())
         seg_plain_ms.append(ms)
-        seg_ms.append(_time_ms(torch, lambda: km.march_fused_2d_segment(
+        seg_ms.append(time_ms(lambda: km.march_fused_2d_segment(
             *sargs, *fwd._ops(), **fwd._march_kw()), reps))
         err_march = max([err_march] + [dist(a, b)
                                        for a, b in zip(ks[:4], ps[:4])])
@@ -519,7 +514,7 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
         pseg_cpu = km.adjoint_fused_2d_segment_plain(
             *[a.cpu() for a in aargs + adj._ops()], **adj._kw())
         aseg_plain_ms.append(ms)
-        aseg_ms.append(_time_ms(torch, lambda: km.adjoint_fused_2d_segment(
+        aseg_ms.append(time_ms(lambda: km.adjoint_fused_2d_segment(
             *aargs, *adj._ops(), **adj._kw()), reps))
         err_adj = max(err_adj, dist(kseg[0], pseg[0]))
         rel_adj = max([rel_adj] + [_rel(a, b, b) for a, b in zip(kseg, pseg)])
@@ -693,16 +688,10 @@ def _solve_args(torch, device, n, B, seed=0):
     return fwd.op, fwd64.op, f32, f64, scal
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
-# tensor cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-
-
-def _bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of operations over the FP32 peak and
-    bytes over the memory rate."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def _bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of operations over the peak for
+    their type (FP32 unless given) and bytes over the memory rate."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -772,9 +761,9 @@ def solve_case(torch, device, n, B, reps=20):
                  rel_kernel_vs_plain=_rel(k, p, p),
                  rel_kernel_vs_f64=_rel(k, p64, p64),
                  rel_plain_vs_f64=_rel(p, p64, p64),
-                 ms=_time_ms(torch, lambda: _solve_call(
+                 ms=time_ms(lambda: _solve_call(
                      name, ops32, f32, scal, wrapper), reps),
-                 plain_ms=_time_ms(torch, lambda: _solve_call(
+                 plain_ms=time_ms(lambda: _solve_call(
                      name, ops32, f32, scal, plain), reps))
         if B is None:
             c["trips"] = int(_solve_call(
@@ -886,7 +875,7 @@ def march1d_case(torch, device, N, B, T, dt, plain_members=8, reps=3,
                 newton_plain=pns.cpu().tolist(),
                 newton_kernel_total=float(kns.sum()),
                 first_bad_equal=bool(torch.equal(kbad[:P], pbad)),
-                march_ms=_time_ms(torch, lambda: fwd.march_fused_batch(
+                march_ms=time_ms(lambda: fwd.march_fused_batch(
                     x["u"], x["phi0"]), reps),
                 march_plain_ms=plain_ms)
 
@@ -1007,10 +996,9 @@ def apply_case(torch, device, n, B, reps=20):
             rel_kernel_vs_f64=_rel(k, p64, p64),
             rel_plain_vs_f64=_rel(p, p64, p64),
             rel_matmuls_vs_plain=_rel(lib, p, p),
-            ms=_time_ms(torch, lambda: wrapper(*a32, *scalars[name]), reps),
-            plain_ms=_time_ms(torch, lambda: plain(*a32, *scalars[name]),
-                              reps),
-            library_ms=_time_ms(torch, lambda: _apply_as_matmuls(
+            ms=time_ms(lambda: wrapper(*a32, *scalars[name]), reps),
+            plain_ms=time_ms(lambda: plain(*a32, *scalars[name]), reps),
+            library_ms=time_ms(lambda: _apply_as_matmuls(
                 torch, name, a32, scalars[name]), reps))
     return out
 
@@ -1039,9 +1027,9 @@ def batched_schur_case(torch, device, n=65, B=8, reps=20):
                 rel_plain_vs_f64=_rel(p, p64, p64),
                 member_equals_single_launch=bool(torch.equal(k[0], k0)),
                 trips=trips.flatten().cpu().tolist(),
-                ms=_time_ms(torch, lambda: _solve_call(
+                ms=time_ms(lambda: _solve_call(
                     name, ops32, f32, scal, sk.bicgstab_schur), reps),
-                plain_ms=_time_ms(torch, lambda: _solve_call(
+                plain_ms=time_ms(lambda: _solve_call(
                     name, ops32, f32, scal, sk.bicgstab_schur_plain), reps))
 
 
@@ -1588,8 +1576,8 @@ def _probe_gate(torch, device, n, b, iters):
                         rel_kernel_vs_f64=_rel(k, p64, p64),
                         rel_plain_vs_f64=_rel(p, p64, p64))
         if links == iters:
-            out[tag]["plain_ms"] = _time_ms(
-                torch, lambda: plain(*a32, n_iter=links), 3)
+            out[tag]["plain_ms"] = time_ms(
+                lambda: plain(*a32, n_iter=links), 3)
     return out
 
 
@@ -1630,6 +1618,262 @@ def check_probe_case(c):
     if fails:
         raise RuntimeError(f"probe n={c['n']} b={c['b']}: " + "; ".join(fails)
                            + f" | {c}")
+
+
+# Phase 2g runs diag_march_sol's chain at 200 solves' worth of links, a
+# tenth of the script's AMORT = 2000 (the entry point alone keeps 2000), so
+# that the phase stays within ~60 s.
+CHAIN_AMORT = 200
+
+
+def _gate(torch, k, p, p64):
+    """A kernel's output k against its plain version p on the same float32
+    inputs and both against the plain version in float64."""
+    return dict(finite=bool(torch.isfinite(k).all()),
+                scale_f64=p64.abs().max().item(),
+                max_abs_err=(k - p).abs().max().item(),
+                rel_kernel_vs_plain=_rel(k, p, p64),
+                rel_kernel_vs_f64=_rel(k, p64, p64),
+                rel_plain_vs_f64=_rel(p, p64, p64))
+
+
+def _chain_probe_gates(torch, device):
+    """Each probe kernel of phase 2g against its plain version on the card
+    and the plain version in float64, at the scripts' shapes, with the plain
+    versions' CUDA-event ms: the chain over three links of diag_march_sol's
+    inputs (its 0.01-scaled operator leaves float32's range after ~45), and
+    at the phase's link count on one member of diag_interleave's inputs
+    (0.999 Q keeps it in range: 0.999^8000 ~ 3e-4); both chains at
+    diag_interleave's B = 32, L = 40 for every K; each microbench variant
+    at bb = 8, k = 64; the while probe against the float64 plain version."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_blocked_microbench as mb
+    from vch_tpu_torch.probes import diag_interleave as di
+    from vch_tpu_torch.probes import diag_march_sol as dm
+    from vch_tpu_torch.probes import probe_while as pw
+
+    f64 = torch.float64
+    out = {}
+    a, v = dm.chain_inputs(64, device)
+    a64, v64 = dm.chain_inputs(64, device, f64)
+    out["chain_3"] = _gate(torch, pk.matmul_chain(a, v, 1, 3),
+                           pk.matmul_chain_plain(a, v, 1, 3),
+                           pk.matmul_chain_plain(a64, v64, 1, 3))
+    links = dm.mm_per_solve(3) * CHAIN_AMORT
+    out["chain_plain_ms"] = time_ms(
+        lambda: pk.matmul_chain_plain(a, v, 1, links), 1)
+
+    A, X = di.inputs(64, 32, device)
+    A64, X64 = di.inputs(64, 32, device, f64)
+    out["chain_long"] = _gate(torch, pk.matmul_chain(A, X[:1], 1, links),
+                              pk.matmul_chain_plain(A, X[:1], 1, links),
+                              pk.matmul_chain_plain(A64, X64[:1], 1, links))
+    p, p64 = (pk.matmul_chain_plain(A, X, 1, 40),
+              pk.matmul_chain_plain(A64, X64, 1, 40))
+    pb = pk.matmul_chain_bf16_plain(A, X, 1, 40)
+    hi = [pk.matmul_chain(A, X, K, 40) for K in di.WIDTHS]
+    lo = [pk.matmul_chain_bf16(A, X, K, 40) for K in di.WIDTHS]
+    out["interleave"] = _gate(torch, hi[-1], p, p64)
+    out["interleave"]["widths_equal"] = all(torch.equal(h, hi[0]) for h in hi)
+    out["bf16"] = dict(_gate(torch, lo[-1], pb, p64),
+                       rel_kernel_vs_plain=(lo[-1] - pb).abs().max().item()
+                       / pb.abs().max().item(),
+                       widths_equal=all(torch.equal(h, lo[0]) for h in lo))
+    for key, fn in (("interleave", pk.matmul_chain_plain),
+                    ("bf16", pk.matmul_chain_bf16_plain)):
+        out[key]["plain_ms"] = time_ms(lambda: fn(A, X, 8, 40), 5)
+
+    C, Xm = mb.inputs(64, 8, device)
+    C64, Xm64 = mb.inputs(64, 8, device, f64)
+    micro = {}
+    for var in pk.VARIANTS:
+        plain = lambda c, x, var=var: pk.blocked_microbench_plain(var, c, x, 8,
+                                                                  64)
+        (k, ks), (q, qs), (q64, qs64) = (pk.blocked_microbench(var, C, Xm, 8,
+                                                               64),
+                                         plain(C, Xm), plain(C64, Xm64))
+        g = _gate(torch, k, q, q64)
+        if var == "swap":
+            g["bit_equal_plain"] = torch.equal(k, q)
+        if var in ("gdot", "member_dot"):
+            g.update(unchanged=torch.equal(k, Xm),
+                     sums=_gate(torch, ks, qs, qs64))
+        g["plain_ms"] = time_ms(lambda: plain(C, Xm), 1)
+        micro[var] = g
+    out["microbench"] = micro
+    out["stacked_equals_member"] = torch.equal(
+        pk.blocked_microbench("stacked_mm", C, Xm, 8, 64)[0],
+        pk.blocked_microbench("member_mm", C, Xm, 8, 64)[0])
+
+    x = pw.inputs(2, 65, device)
+    k, ns = pk.while_probe(x, 3)
+    p64, ns64 = pk.while_probe_plain(x.double(), 3)
+    torch.cuda.synchronize()
+    out["while"] = dict(finite=bool(torch.isfinite(k).all()),
+                        max_abs_diff_f64=(k.double() - p64).abs().max().item(),
+                        ns_equal=torch.equal(ns.cpu(), ns64.cpu()))
+    return out
+
+
+def chain_probe_case(torch, device):
+    """Phase 2g: the four probe entry points (vch_tpu_torch.probes.
+    diag_march_sol, diag_interleave, diag_blocked_microbench and
+    probe_while) at the scripts' default shapes, diag_march_sol's chain at
+    CHAIN_AMORT, each with the launch counts set to 0 just before it and
+    read just after; then each probe kernel's gates."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.probes import (diag_blocked_microbench,
+                                      diag_interleave, diag_march_sol,
+                                      probe_while)
+
+    t0 = time.perf_counter()
+    runs = {}
+    for key, fn in (
+            ("march_sol", lambda: diag_march_sol.run(
+                amort=CHAIN_AMORT, reps=1, device=device)),
+            ("interleave", lambda: diag_interleave.run(device=device)),
+            ("microbench", lambda: diag_blocked_microbench.run(
+                device=device)),
+            ("while", lambda: probe_while.run(device=device))):
+        km.reset_launches()
+        runs[key] = fn()
+        runs[key]["launches"] = {k: v for k, v in km.launch_counts().items()
+                                 if v}
+    runs["gate"] = _chain_probe_gates(torch, device)
+    runs["seconds"] = time.perf_counter() - t0
+    return runs
+
+
+def check_chain_probe_case(c):
+    """Phase 2g gates: each kernel launched by its entry point; finite; the
+    float32 products no farther from float64 than twice the plain float32
+    version plus 1e-5 (the chain over three links, the interleaved chain,
+    the chain at the phase's link count on norm-stable inputs, each
+    microbench product; gdot's and member_dot's sums), every
+    interleave width bit-equal, the bf16 chain within BF16_CHAIN_TOL of its
+    bf16-emulated plain version, swap bit-equal to plain, gdot and
+    member_dot returning X, the stacked product bit-equal to the
+    per-member one; the while probe within 1e-4 of float64 with equal trip
+    counts (its entry point also raises on the script's gates); every time
+    finite."""
+    fails = [f"{key}: {name} never launched"
+             for key, names in (("march_sol", ("matmul_chain",)),
+                                ("interleave", ("matmul_chain",
+                                                "matmul_chain_bf16")),
+                                ("microbench", ("blocked_microbench",)),
+                                ("while", ("while_probe",)))
+             for name in names if c[key]["launches"].get(name, 0) <= 0]
+    g = c["gate"]
+    f64_gated = [(k, g[k]) for k in ("chain_3", "chain_long", "interleave")]
+    for var, m in g["microbench"].items():
+        if var in ("gdot", "member_dot"):
+            f64_gated.append((f"{var} sums", m["sums"]))
+            if not m["unchanged"]:
+                fails.append(f"{var} changed X")
+        elif var == "swap":
+            if not m["bit_equal_plain"]:
+                fails.append("swap differs from plain")
+        else:
+            f64_gated.append((var, m))
+        if not m["finite"]:
+            fails.append(f"{var}: non-finite")
+    for tag, m in f64_gated:
+        if not m["finite"]:
+            fails.append(f"{tag}: non-finite")
+        if m["rel_kernel_vs_f64"] > 2 * m["rel_plain_vs_f64"] + 1e-5:
+            fails.append(f"{tag}: {m['rel_kernel_vs_f64']} from float64, "
+                         f"plain float32 {m['rel_plain_vs_f64']}")
+    if not (g["interleave"]["widths_equal"] and g["bf16"]["widths_equal"]):
+        fails.append("interleave widths differ")
+    if not g["bf16"]["finite"] or \
+            g["bf16"]["rel_kernel_vs_plain"] > BF16_CHAIN_TOL:
+        fails.append(f"bf16 chain {g['bf16']['rel_kernel_vs_plain']} from "
+                     f"its emulated plain version")
+    if g["chain_long"]["scale_f64"] < 1e-30:
+        fails.append("the long chain left float32's range")
+    if not g["stacked_equals_member"]:
+        fails.append("stacked product differs from the per-member one")
+    w = g["while"]
+    if not (w["finite"] and w["max_abs_diff_f64"] < 1e-4 and w["ns_equal"]):
+        fails.append(f"while probe vs float64: {w}")
+    times = [c["march_sol"]["chain_ms"], c["march_sol"]["us_ideal"],
+             c["while"]["ms"], g["chain_plain_ms"]]
+    times += [f["march_ms"] for f in c["march_sol"]["forms"].values()]
+    times += [v for k, v in c["interleave"].items() if k.endswith("_mm")]
+    times += [r["us_per_op"] for r in c["microbench"]["results"].values()]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        fails.append("non-finite or zero times")
+    if fails:
+        raise RuntimeError("chain probes: " + "; ".join(fails) + f" | {c}")
+
+
+def _micro_work(variant, n, bb, k):
+    """(FLOPs, bytes) of one microbench launch: 2 n^3 per member product
+    (serial_one one member a step, the other products bb), one multiply per
+    element for swap, a square, a sum and a scale per element for the two
+    reductions; bytes: X in, out and the sums out, and C in for the
+    variants that multiply by it (swap, gdot and member_dot never read
+    it)."""
+    P = 2.0 * n ** 3
+    elementwise = {"swap": bb * n * n, "gdot": 3 * bb * n * n,
+                   "member_dot": 3 * bb * n * n}
+    flops = k * elementwise.get(variant,
+                                P if variant == "serial_one" else bb * P)
+    c_fields = 0 if variant in elementwise else 1
+    return flops, 4 * (n * n * (2 * bb + c_fields) + bb)
+
+
+def _chain_probe_entries(c, entry):
+    """The kernels-line entries of phase 2g: the chain (row 20) at
+    CHAIN_AMORT solves' worth of links on one member, the interleaved
+    chains (row 21) at the script's B = 32, L = 40 and K = 8, the
+    microbench (row 18) as one launch of each of its eight variants at
+    bb = 8, k = 64 (times, errors and bounds summed over the variants), the
+    while probe (row 19) at B = 2, M = 3; launches those of each entry
+    point's run."""
+    src = "vch_tpu_torch/csrc/probes.cu"
+    g = c["gate"]
+    ms, it, mb, wh = (c["march_sol"], c["interleave"], c["microbench"],
+                      c["while"])
+    n = ms["n"] + 1
+    B, L = it["members"], it["chain_len"]
+    chain_bytes = 4 * n * n * (2 * B + 1)
+    out = [
+        entry("matmul_chain", src, "scripts/diag_march_sol.py:86",
+              ms["launches"]["matmul_chain"], g["chain_3"]["max_abs_err"],
+              ms["chain_ms"], g["chain_plain_ms"],
+              (2.0 * n ** 3 * ms["chain_links"], 4 * n * n * 3)),
+        entry("matmul_chain_interleaved", src, "scripts/diag_interleave.py:86",
+              it["launches"]["matmul_chain"], g["interleave"]["max_abs_err"],
+              it["highest_K8_ns_per_mm"] * B * L * 1e-6,
+              g["interleave"]["plain_ms"],
+              (2.0 * n ** 3 * B * L, chain_bytes)),
+    ]
+    bb16 = _bound(2.0 * n ** 3 * B * L, chain_bytes, PEAK_BF16_FLOPS)
+    out.append(entry("matmul_chain_bf16", src, "scripts/diag_interleave.py:86",
+                     it["launches"]["matmul_chain_bf16"],
+                     g["bf16"]["max_abs_err"],
+                     it["bf16_K8_ns_per_mm"] * B * L * 1e-6,
+                     g["bf16"]["plain_ms"], (0.0, 0.0)))
+    out[-1].update(bound_ms=bb16[0], bound_by=bb16[1])
+    nm, bb, k = mb["n"], mb["bb"], mb["k"]
+    bounds = [_bound(*_micro_work(v, nm, bb, k)) for v in mb["results"]]
+    micro = entry(
+        "blocked_microbench", src, "scripts/diag_blocked_microbench.py:100",
+        mb["launches"]["blocked_microbench"],
+        max(m["max_abs_err"] for m in g["microbench"].values()),
+        sum(r["us_per_op"] * k * 1e-3 for r in mb["results"].values()),
+        sum(m["plain_ms"] for m in g["microbench"].values()), (0.0, 0.0))
+    micro.update(bound_ms=sum(b for b, _ in bounds),
+                 bound_by=max(bounds)[1])
+    out.append(micro)
+    wn = wh["n"]
+    out.append(entry(
+        "while_probe", src, "scripts/probe_pallas_while.py:67",
+        wh["launches"]["while_probe"], wh["max_abs_err_vs_plain"], wh["ms"],
+        wh["plain_ms"], (8.0 * wn * wn * sum(wh["ns"]),
+                         4 * (2 * wh["B"] * wn * wn + wh["B"]))))
+    return out
 
 
 def _bench_sweep(cfg, B, materialize=True):
@@ -1824,6 +2068,10 @@ def main():
     for c in probes:
         check_probe_case(c)
 
+    chains = chain_probe_case(torch, device)
+    _log("2g", json.dumps(chains) + f" | {name} | {smi}")
+    check_chain_probe_case(chains)
+
     sl = slice_case(torch, device, block=0)
     _log(3, json.dumps(sl))
     sl_blk = slice_case(torch, device, block=8)
@@ -1935,8 +2183,8 @@ def main():
           "u": 0.05 * torch.randn(
               (256, prob9.solver.M + 1, 513), device=device,
               generator=torch.Generator(device).manual_seed(0))}
-    c9["march_ms_full_shape"] = _time_ms(
-        torch, lambda: prob9.solver.march_fused_batch(x9["u"], x9["phi0"]), 1)
+    c9["march_ms_full_shape"] = time_ms(
+        lambda: prob9.solver.march_fused_batch(x9["u"], x9["phi0"]), 1)
     c9["entries_are_kernels"] = prob9.solver.entries is km.KERNELS
     _log(9, json.dumps(c9) + f" | {name} | {smi}")
     check_main_path(c9, march_1d, per_member + blocked + segment
@@ -2072,6 +2320,7 @@ def main():
             p65["launches"][f"schur_{k}"], g["max_abs_err"], p65[f"{k}_ms"],
             g["plain_ms"], _solve_work("bicgstab_schur", p65["n"] + 1,
                                        p65["b"], p65["iters"])))
+    kernels += _chain_probe_entries(chains, entry)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

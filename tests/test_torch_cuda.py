@@ -15,6 +15,10 @@ do the two one-member marches. The 1D march: phi 1e-5 absolute on a short
 march, Newton counts and first_bad equal, and bit-equal results for every
 members-per-CTA grouping. The operator applies: 1e-5 of |out|max on smooth
 fields (four products; the solve kernels' own gates are in chip_smoke.py).
+The cost probes: the float32 chain and the blocked primitives no farther
+from float64 than twice the plain float32 version plus 1e-5, every
+interleave width bit-equal; the bf16 chain against its bf16-emulated plain
+version at BF16_CHAIN_TOL; the while probe with its script's gates.
 """
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 from vch_tpu_torch.ops import march as km
+from vch_tpu_torch.ops.probe_kernels import BF16_CHAIN_TOL
 from vch_tpu_torch.ops.potential import init_phi_random_2d
 
 torch.set_num_threads(2)
@@ -543,3 +548,104 @@ def test_scan_marcher_and_sweep_on_the_per_solve_kernels(cuda, variant):
     err_k = (kr.double() - r64).abs().max().item() / scale
     err_p = (pr.double() - r64).abs().max().item() / scale
     assert err_k <= 2 * err_p + 1e-4, (err_k, err_p)
+
+
+def _f64_gate(k, p, p64, slack=1e-5):
+    """The kernel no farther from float64 than twice the plain float32
+    version plus `slack`, relative to the float64 scale."""
+    scale = p64.abs().max().item()
+    err_k = (k.double() - p64).abs().max().item() / scale
+    err_p = (p.double() - p64).abs().max().item() / scale
+    assert scale > 0 and err_k <= 2 * err_p + slack, (err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_matmul_chain_matches_plain(cuda):
+    """The float32 chain on diag_interleave's inputs at n = 65 for every
+    interleave width (bit-equal: a member's products sum in one order
+    whatever the tiling), and on diag_march_sol's over three links (later
+    links fall below float32's range on its 0.01-scaled operator)."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_interleave, diag_march_sol
+    A, X = diag_interleave.inputs(64, 16, cuda)
+    A64, X64 = diag_interleave.inputs(64, 16, cuda, torch.float64)
+    before = pk.matmul_chain.launches
+    outs = [pk.matmul_chain(A, X, K, 40) for K in (1, 2, 4, 8)]
+    torch.cuda.synchronize()
+    assert pk.matmul_chain.launches == before + 4
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.isfinite(outs[0]).all()
+    _f64_gate(outs[0], pk.matmul_chain_plain(A, X, 1, 40),
+              pk.matmul_chain_plain(A64, X64, 1, 40))
+    a, v = diag_march_sol.chain_inputs(64, cuda)
+    a64, v64 = diag_march_sol.chain_inputs(64, cuda, torch.float64)
+    _f64_gate(pk.matmul_chain(a, v, 1, 3), pk.matmul_chain_plain(a, v, 1, 3),
+              pk.matmul_chain_plain(a64, v64, 1, 3))
+
+
+
+@pytest.mark.cuda
+def test_matmul_chain_bf16_matches_the_emulated_plain_version(cuda):
+    """The tensor-core chain against bf16-rounded operands multiplied in
+    float32 (chip_smoke.py states the tolerance: two float32 accumulation
+    orders can flip one bf16 rounding, which then carries forward), and the
+    same bits for every interleave width."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_interleave
+    A, X = diag_interleave.inputs(64, 16, cuda)
+    outs = [pk.matmul_chain_bf16(A, X, K, 40) for K in (1, 2, 4, 8)]
+    p = pk.matmul_chain_bf16_plain(A, X, 1, 40)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.isfinite(outs[0]).all()
+    rel = (outs[0] - p).abs().max().item() / p.abs().max().item()
+    assert rel <= BF16_CHAIN_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb", [2, 8])
+@pytest.mark.parametrize("variant", ["serial_one", "member_mm", "left_mm",
+                                     "stacked_mm", "swap", "swap_mm", "gdot",
+                                     "member_dot"])
+def test_blocked_microbench_matches_plain(cuda, variant, bb):
+    """Each primitive on diag_blocked_microbench's inputs at n = 65, 16
+    steps, gated against float64; swap bit-equal; gdot and member_dot
+    return X unchanged, with the per-member sums as close to float64 as
+    the plain version's."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_blocked_microbench as mb
+    C, X = mb.inputs(64, bb, cuda)
+    C64, X64 = mb.inputs(64, bb, cuda, torch.float64)
+    before = pk.blocked_microbench.launches
+    k, ks = pk.blocked_microbench(variant, C, X, bb, 16)
+    p, ps = pk.blocked_microbench_plain(variant, C, X, bb, 16)
+    p64, ps64 = pk.blocked_microbench_plain(variant, C64, X64, bb, 16)
+    torch.cuda.synchronize()
+    assert pk.blocked_microbench.launches == before + 1
+    assert torch.isfinite(k).all()
+    if variant == "swap":
+        assert torch.equal(k, p)
+    elif variant in ("gdot", "member_dot"):
+        assert torch.equal(k, X)
+        _f64_gate(ks, ps, ps64)
+    else:
+        _f64_gate(k, p, p64)
+        if variant == "stacked_mm":
+            # one stacked product sums each member as the per-member one does
+            assert torch.equal(
+                k, pk.blocked_microbench("member_mm", C, X, bb, 16)[0])
+
+
+@pytest.mark.cuda
+def test_while_probe_matches_plain_and_reference(cuda):
+    """The entry point's own gates (the script's: max |diff| < 1e-4 and
+    trip counts equal, against the float64 loop and the plain version);
+    a field whose carry does not fit shared memory is refused."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import probe_while
+    before = pk.while_probe.launches
+    res = probe_while.run(B=3, M=3, n=65, reps=1, device=cuda)
+    assert pk.while_probe.launches > before
+    assert res["ns"] == res["ns_expected"] and res["ns"][0] > 3
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.while_probe(torch.zeros((1, 102, 102), device=cuda), 1)

@@ -4,8 +4,9 @@ kernel wrapper makes before a launch.
 `nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
 members-per-CTA instantiation it is built for (`SOURCES`: the fused 2D march
 and sweep with `-DVCH_BB=1` and `8`, one member per CTA and the block that
-`resolved_fused_block()` picks; the per-solve kernels, the operator applies
-and the fused 1D march, which holds its own group sizes, with `-DVCH_BB=1`),
+`resolved_fused_block()` picks; the per-solve kernels, the operator applies,
+the fused 1D march, which holds its own group sizes, and the cost probes,
+which hold their own members-per-CTA templates, with `-DVCH_BB=1`),
 all at once in parallel, and links the objects into one shared library with
 a plain C interface, at first use, into `vch_tpu_torch/_build/` (listed in
 .gitignore); `ctypes` loads it. The library's file name carries a
@@ -32,7 +33,8 @@ BUILD_DIR = _PKG / "_build"
 MEMBER_BLOCKS = (1, 8)   # the members-per-CTA the fused kernels are built for
 # each source and the VCH_BB objects it is compiled into
 SOURCES = {"march2d.cu": MEMBER_BLOCKS, "adjoint2d.cu": MEMBER_BLOCKS,
-           "solve2d.cu": (1,), "apply2d.cu": (1,), "march1d.cu": (1,)}
+           "solve2d.cu": (1,), "apply2d.cu": (1,), "march1d.cu": (1,),
+           "probes.cu": (1,)}
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -149,10 +151,19 @@ def load():
                                        + [_FP, _I] + [_I] * 4 + [_P])
     lib.vch_march_1d_workspace_fields.argtypes = []
     lib.vch_march_1d_workspace_fields.restype = _I
+    # A X out work | B n K L bf16 | stream
+    lib.vch_matmul_chain.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    # variant | C X out work sums | n bb k | stream
+    lib.vch_blocked_microbench.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_P]
+    # x out ns | B n M | stream
+    lib.vch_while_probe.argtypes = [_P] * 3 + [_I] * 3 + [_P]
+    lib.vch_while_max_elems.argtypes = []
+    lib.vch_while_max_elems.restype = _I
     for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_segment,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
                lib.vch_bicgstab_2d, lib.vch_apply_2d,
-               lib.vch_march_fused_1d):
+               lib.vch_march_fused_1d, lib.vch_matmul_chain,
+               lib.vch_blocked_microbench, lib.vch_while_probe):
         fn.restype = _I
     lib.vch_error_string.argtypes = [_I]
     lib.vch_error_string.restype = ctypes.c_char_p

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from vch_tpu_torch.ops import _build
+from vch_tpu_torch.ops import probe_kernels as pk
 from vch_tpu_torch.ops import solve_kernels as sk
 from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
 from vch_tpu_torch.ops.potential import fpp_log, regularized_log
@@ -959,10 +960,12 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 sk.bicgstab_adjoint_spectral_plain, sk.bicgstab_schur_plain,
                 sk.bicgstab_adjoint_plain, march_fused_1d_plain)
 # every kernel wrapper of the port: the solvers' entries, and the three
-# operator applies and the two cost probes, which no solver calls
+# operator applies and the six cost probes, which no solver calls
 WRAPPERS = tuple(KERNELS) + (sk.schur_apply, sk.adjoint_apply,
                              sk.spectral_solve, sk.schur_nodots,
-                             sk.schur_mmonly)
+                             sk.schur_mmonly, pk.matmul_chain,
+                             pk.matmul_chain_bf16, pk.blocked_microbench,
+                             pk.while_probe)
 
 
 def reset_launches():

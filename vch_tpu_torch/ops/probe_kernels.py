@@ -1,0 +1,263 @@
+"""The kernels of the port's cost probes (`csrc/probes.cu`), counterparts of
+the four TPU probes under scripts/ that reach pl.pallas_call:
+
+  matmul_chain        K interleaved chains x <- A x of L links per CTA, full
+                      float32 (scripts/diag_march_sol.py:86 at K = 1 on one
+                      member; the HIGHEST arm of scripts/diag_interleave.py:86);
+  matmul_chain_bf16   the same with bf16 operands on the tensor cores (the
+                      DEFAULT arm of diag_interleave.py:86);
+  blocked_microbench  k dependent steps of one of eight primitives on a
+                      (bb n, n) stack of bb members in one CTA
+                      (scripts/diag_blocked_microbench.py:100);
+  while_probe         per member, M steps of nested data-dependent loops
+                      with a carry across steps (scripts/probe_pallas_while.py:67).
+
+Each wrapper routes by the tensors' device: on CUDA tensors it launches its
+hand-written kernel (float32; a failed build or launch raises), on CPU
+tensors it runs its plain PyTorch version `<name>_plain`, which computes the
+same function in the tensors' dtype. Each wrapper counts its launches in
+`.launches`. No solver reaches these kernels; the bf16 chain is the
+package's only reduced-precision product.
+"""
+from __future__ import annotations
+
+import torch
+
+from vch_tpu_torch.ops import _build
+
+VARIANTS = ("serial_one", "member_mm", "left_mm", "stacked_mm", "swap",
+            "swap_mm", "gdot", "member_dot")   # the order of probes.cu's enum
+MEMBER_BLOCKS = (1, 2, 4, 8)    # members per CTA the probe kernels are built for
+# The gate of the bf16 chain against its plain version over 40 links, as
+# max |kernel - plain| / max |plain|: the tensor cores and the plain float32
+# product sum each link in another order, so a value near a bf16 tie can
+# round the other way, and the flip carries forward through the later links.
+# Measured 7.8e-3 at n = 65, B = 32 on diag_interleave's inputs (H100 80GB
+# HBM3, 700 W); the gate allows 2.5x.
+BF16_CHAIN_TOL = 2e-2
+
+
+def _check_block(what, k):
+    if k not in MEMBER_BLOCKS:
+        raise ValueError(f"{what} must be one of {MEMBER_BLOCKS}, got {k}")
+
+
+def _check_chain(A, X, K, L):
+    _check_block("K (chains per CTA)", K)
+    if X.dim() != 3 or X.shape[1:] != A.shape or A.shape[0] != A.shape[1]:
+        raise ValueError(f"X must be (B, n, n) for A (n, n), got "
+                         f"{tuple(X.shape)} and {tuple(A.shape)}")
+    if X.shape[0] % K:
+        raise ValueError(f"B = {X.shape[0]} members do not split into "
+                         f"chains of K = {K} per CTA")
+    if L < 1:
+        raise ValueError(f"the chain needs L >= 1 links, got {L}")
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def matmul_chain_plain(A, X, K: int, L: int):
+    """Plain PyTorch version of `matmul_chain`."""
+    _check_chain(A, X, K, L)
+    for _ in range(L):
+        X = torch.matmul(A, X)
+    return X
+
+
+def matmul_chain_bf16_plain(A, X, K: int, L: int):
+    """Plain PyTorch version of `matmul_chain_bf16`: each link's operands
+    rounded to bf16, the product in the tensors' dtype."""
+    _check_chain(A, X, K, L)
+    Ab = _bf16(A)
+    for _ in range(L):
+        X = torch.matmul(Ab, _bf16(X))
+    return X
+
+
+def _launch_chain(wrapper, A, X, K, L, bf16):
+    B, n = X.shape[0], X.shape[1]
+    _build.check_cuda([("A", A, (n, n)), ("X", X, (B, n, n))], X.device)
+    lib = _build.load()
+    out = torch.empty_like(X)
+    work = torch.empty_like(X)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    err = lib.vch_matmul_chain(A.data_ptr(), X.data_ptr(), out.data_ptr(),
+                               work.data_ptr(), B, n, K, int(L), int(bf16),
+                               stream)
+    wrapper.launches += 1
+    _build.raise_on(lib, err, wrapper.__name__)
+    return out
+
+
+def matmul_chain(A, X, K: int, L: int):
+    """out_b = A^L X_b for each member of X (B, n, n), one link x <- A x
+    after another in full float32, K members' chains interleaved in each of
+    B / K CTAs (member g K + k is chain k of CTA g; K in 1, 2, 4, 8). A is
+    (n, n). Every K gives the same bits: a member's products sum in one
+    order whatever the tiling."""
+    if not _build.on_cuda("matmul_chain", X):
+        return matmul_chain_plain(A, X, K, L)
+    _check_chain(A, X, K, L)
+    return _launch_chain(matmul_chain, A, X, K, L, bf16=False)
+
+
+matmul_chain.launches = 0
+
+
+def matmul_chain_bf16(A, X, K: int, L: int):
+    """`matmul_chain` with each link's operands rounded to bf16 (round to
+    nearest even) and multiplied on the tensor cores, accumulating and
+    storing in float32: the counterpart of a DEFAULT-precision float32
+    product on the TPU. A probe only: no solver path may reach it. Each CTA
+    holds bf16(A) and its K members' bf16 x, n padded to a multiple of 16,
+    in dynamic shared memory: a launch that needs more than the card gives
+    one block raises."""
+    if not _build.on_cuda("matmul_chain_bf16", X):
+        return matmul_chain_bf16_plain(A, X, K, L)
+    _check_chain(A, X, K, L)
+    return _launch_chain(matmul_chain_bf16, A, X, K, L, bf16=True)
+
+
+matmul_chain_bf16.launches = 0
+
+
+def _check_micro(variant, C, X, bb, k):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    _check_block("bb (members per CTA)", bb)
+    n = C.shape[0]
+    if C.shape != (n, n) or X.shape != (bb * n, n):
+        raise ValueError(f"C must be (n, n) and X (bb n, n), got "
+                         f"{tuple(C.shape)} and {tuple(X.shape)} for bb = {bb}")
+    if k < 1:
+        raise ValueError(f"the microbench needs k >= 1 steps, got {k}")
+
+
+def blocked_microbench_plain(variant: str, C, X, bb: int, k: int):
+    """Plain PyTorch version of `blocked_microbench`."""
+    _check_micro(variant, C, X, bb, k)
+    n = C.shape[0]
+    X3 = X.reshape(bb, n, n)
+    sums = torch.zeros(bb, dtype=X.dtype, device=X.device)
+    for _ in range(k):
+        if variant == "serial_one":
+            X3 = torch.cat([(X3[0] @ C)[None], X3[1:]])
+        elif variant == "member_mm":
+            X3 = X3 @ C
+        elif variant == "left_mm":
+            X3 = C @ X3
+        elif variant == "stacked_mm":
+            X3 = (X3.reshape(bb * n, n) @ C).reshape(bb, n, n)
+        elif variant == "swap":
+            X3 = X3.transpose(1, 2) * 1.0000001
+        elif variant == "swap_mm":
+            X3 = X3.transpose(1, 2) @ C
+        else:
+            sums = (X3 * X3).sum((1, 2))
+            if variant == "gdot":
+                X3 = X3 * (1.0 + 1e-12 * sums)[:, None, None]
+            else:
+                fac = 1.0
+                for s in sums:
+                    fac = fac + 1e-12 * s
+                X3 = X3 * fac
+    return X3.reshape(bb * n, n).contiguous(), sums
+
+
+def blocked_microbench(variant: str, C, X, bb: int, k: int):
+    """k dependent steps of one primitive on the (bb n, n) stack X of bb
+    members (bb in 1, 2, 4, 8) with the shared (n, n) C, in one CTA;
+    `variant` is one of VARIANTS:
+      serial_one  X_0 <- X_0 C, the other members unchanged;
+      member_mm   X_b <- X_b C;            left_mm   X_b <- C X_b;
+      stacked_mm  X <- X C as one (bb n, n) product;
+      swap        X_b <- X_b^T * 1.0000001; swap_mm  X_b <- X_b^T C;
+      gdot        X_b <- X_b (1 + 1e-12 ||X_b||^2), per member;
+      member_dot  X <- X (1 + sum_b 1e-12 ||X_b||^2), one factor.
+    Returns (out (bb n, n), sums (bb,)): sums are the last step's ||X_b||^2
+    for gdot and member_dot, zeros for the others."""
+    if not _build.on_cuda("blocked_microbench", X):
+        return blocked_microbench_plain(variant, C, X, bb, k)
+    _check_micro(variant, C, X, bb, k)
+    n = C.shape[0]
+    _build.check_cuda([("C", C, (n, n)), ("X", X, (bb * n, n))], X.device)
+    lib = _build.load()
+    out = torch.empty_like(X)
+    work = torch.empty_like(X)
+    sums = torch.empty(bb, dtype=torch.float32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    err = lib.vch_blocked_microbench(VARIANTS.index(variant), C.data_ptr(),
+                                     X.data_ptr(), out.data_ptr(),
+                                     work.data_ptr(), sums.data_ptr(), n, bb,
+                                     int(k), stream)
+    blocked_microbench.launches += 1
+    _build.raise_on(lib, err, "blocked_microbench")
+    return out, sums
+
+
+blocked_microbench.launches = 0
+
+
+def _check_while(x, M):
+    if x.dim() != 3 or x.shape[1] != x.shape[2] or M < 1:
+        raise ValueError(f"x must be (B, n, n) and M >= 1, got "
+                         f"{tuple(x.shape)}, M = {M}")
+
+
+def while_probe_plain(x, M: int):
+    """Plain PyTorch version of `while_probe`, in x's dtype."""
+    _check_while(x, M)
+    one = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    out = x.clone()
+    ns = torch.zeros((x.shape[0], 1), dtype=torch.int32)
+    for b in range(x.shape[0]):
+        phi = out[b]
+        for _ in range(M):
+            trips, done = 0, False
+            while not done and trips < 50:
+                alpha, acc, j = one(1.0), False, 0
+                while not acc and j < 12:
+                    trial = phi * (1.0 - 0.3 * alpha)
+                    acc = bool((trial * trial).sum() <= (phi * phi).sum())
+                    if not acc:
+                        alpha = alpha * 0.5
+                    j += 1
+                phi = phi * (1.0 - 0.3 * alpha)
+                trips += 1
+                done = bool(torch.sqrt((phi * phi).sum()) < 1e-3)
+            ns[b, 0] += trips
+        out[b] = phi
+    return out, ns.to(x.device)
+
+
+def while_probe(x, M: int):
+    """Per member of x (B, n, n), M steps of nested data-dependent loops
+    with phi carried across the steps: each step runs outer trips (at most
+    50) of an inner line search (at most 12 trips: trial = phi (1 - 0.3
+    alpha), accepted when sum trial^2 <= sum phi^2, else alpha halves) and
+    phi <- phi (1 - 0.3 alpha), until ||phi|| < 1e-3. Returns (phi (B, n,
+    n), ns (B, 1) int32, the outer trips summed over the steps). On CUDA one
+    CTA per member carries phi in shared memory, so n^2 is bounded
+    (`vch_while_max_elems`, 10240: n <= 101)."""
+    if not _build.on_cuda("while_probe", x):
+        return while_probe_plain(x, M)
+    _check_while(x, M)
+    B, n = x.shape[0], x.shape[1]
+    _build.check_cuda([("x", x, (B, n, n))], x.device)
+    lib = _build.load()
+    if n * n > lib.vch_while_max_elems():
+        raise ValueError(f"while_probe carries phi in static shared memory: "
+                         f"n^2 = {n * n} exceeds {lib.vch_while_max_elems()}")
+    out = torch.empty_like(x)
+    ns = torch.empty(B, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.vch_while_probe(x.data_ptr(), out.data_ptr(), ns.data_ptr(), B,
+                              n, int(M), stream)
+    while_probe.launches += 1
+    _build.raise_on(lib, err, "while_probe")
+    return out, ns.reshape(B, 1)
+
+
+while_probe.launches = 0

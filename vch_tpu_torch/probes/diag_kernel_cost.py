@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 import vch_tpu_torch  # noqa: F401  (pins TF32 off)
-from vch_tpu_torch.device import resolve_device
 from vch_tpu_torch.ops import solve_kernels as sk
+from vch_tpu_torch.probes._timing import cuda_device, time_ms
 
 SCALARS = (100.0, 5.0, 4.5e-4)          # inv_dt, tau_dt, kappa/2
 PROBES = {"full": sk.bicgstab_schur, "nodots": sk.schur_nodots,
@@ -54,33 +54,18 @@ def probe_args(n: int, b: int, device, dtype=torch.float32, seed: int = 0):
             + SCALARS)
 
 
-def _time_ms(fn, reps: int) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def run(n: int = 64, b: int = 32, iters: int = 10, reps: int = 20,
         device=None) -> dict:
     """The three CUDA-event times and the script's derived keys."""
-    device = resolve_device(device)
-    if device.type != "cuda":
-        raise RuntimeError("the probe times the CUDA kernels: it needs a "
-                           "CUDA device")
+    device = cuda_device(device)
     args = probe_args(n, b, device)
     # in turns (full, nodots, mmonly, mmonly, nodots, full), so that a
     # drift of the card's clock over the call weighs on the three alike
     order = list(PROBES) + list(PROBES)[::-1]
     ms = {name: 0.0 for name in PROBES}
     for name in order:
-        ms[name] += _time_ms(lambda f=PROBES[name]: f(*args, n_iter=iters),
-                             reps) / 2
+        ms[name] += time_ms(lambda f=PROBES[name]: f(*args, n_iter=iters),
+                            reps) / 2
     return {"n": n, "b": b, "iters": iters, "reps": reps,
             "full_ms": ms["full"], "nodots_ms": ms["nodots"],
             "mmonly_ms": ms["mmonly"],
