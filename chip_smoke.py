@@ -35,8 +35,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                against their plain versions on fields from a real step at
                n = 65, 129 and 257, one field and a batch of 4, and the raw
                Schur solve on a batch of 8 (the counterpart of the TPU's
-               member-tiled solve), gated against float64; beside each
-               apply the time of the same function as torch.matmul calls;
+               member-tiled solve), gated against float64; two launches
+               bit-equal, and each member of a batch bit-equal to its
+               one-member launch; beside each apply the time of the same
+               function as torch.matmul calls and the kernel/library ratio,
+               and for the cluster kernels (Schur apply, spectral solve)
+               their geometry and, at n = 257, their time on clusters of 8;
   3 slice    — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep
                with one member per CTA, kernel path against plain path,
                3 PGD iterations;
@@ -104,7 +108,11 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   9p profile — config 2 once more, one PGD iteration under torch.profiler,
                after every timed phase: the device's busy share and the
                kernels with the most device time;
-  4sp profile — the same for phase 4s's scan path.
+  4sp profile — the same for phase 4s's scan path;
+  2e-dev     — the operator applies and their torch.matmul forms once more,
+               one field at n = 65, 129, 257, each timed on the device
+               alone (20 calls in a CUDA graph), last because a capture
+               leaves cuBLAS a workspace that phase 7 would count.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -117,7 +125,7 @@ import numpy as np
 
 from vch_tpu_torch.ops.probe_kernels import BF16_CHAIN_TOL
 from vch_tpu_torch.probes._timing import (PEAK_BF16_FLOPS, PEAK_BYTES_PER_S,
-                                          PEAK_FP32_FLOPS, time_ms)
+                                          PEAK_FP32_FLOPS, graph_ms, time_ms)
 
 
 def _log(phase, msg):
@@ -149,6 +157,26 @@ def _ptxas_summary(log):
         elif "registers" in ln:
             out.append(ln.split("Used")[1].split("registers")[0].strip()
                        + f"r/{spill}s")
+    return " ".join(out)
+
+
+def _ptxas_named(log, kernel):
+    """ptxas's registers and spill stores of each instantiation of
+    `kernel`, by its template arguments: `<0,1> 96r/0s ...`."""
+    import re
+    out, name, spill = [], None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name and "spill stores" in ln:
+            spill = ln.split("bytes stack frame,")[1].split("bytes spill "
+                                                            "stores")[0].strip()
+        elif name and "Used" in ln and "registers" in ln:
+            args = ",".join(re.findall(r"Li(\d+)E", name))
+            out.append(f"<{args}> " + ln.split("Used")[1].split(
+                "registers")[0].strip() + f"r/{spill}s")
+            name = None
     return " ".join(out)
 
 
@@ -973,33 +1001,90 @@ def _apply_work(name, n, B):
 def apply_case(torch, device, n, B, reps=20):
     """Phase 2e at one shape: each operator apply against its plain version
     on float32 fields from a real step, both against the plain version in
-    float64; CUDA-event ms of the kernel, the plain version and the
-    torch.matmul form."""
+    float64; whether two launches give the same bits and (for a batch)
+    whether each member equals its own one-member launch; CUDA-event ms of
+    the kernel, the plain version and the torch.matmul form per call (host
+    launch cost included, as every `ms` of the kernels line), and their
+    ratio. For the cluster kernels (rows 13 and 15) also the geometry
+    (cluster size, band rows, shared-memory bytes per CTA) and, where the
+    cluster is the non-portable 16, the kernel's time on clusters of 8."""
     from vch_tpu_torch.ops import solve_kernels as sk
 
     ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
     scalars = {"schur_apply": scal["schur"][0],
                "adjoint_apply": scal["adjoint"][0], "spectral_solve": ()}
+    variants = {"schur_apply": sk._SCHUR_APPLY,
+                "spectral_solve": sk._SPECTRAL_SOLVE}
     out = dict(n=n, B=B or 1, batched=B is not None)
     for name in APPLY_KERNELS:
         wrapper, plain = getattr(sk, name), getattr(sk, name + "_plain")
         a32, a64 = _apply_args(name, ops32, f32), _apply_args(name, ops64, f64)
         k = wrapper(*a32, *scalars[name])
+        k2 = wrapper(*a32, *scalars[name])
+        members = [wrapper(*[t[b].contiguous() if torch.is_tensor(t)
+                             and t.dim() == 3 else t for t in a32],
+                           *scalars[name]) for b in range(B or 0)]
         p = plain(*a32, *scalars[name])
         p64 = plain(*a64, *scalars[name])
         lib = _apply_as_matmuls(torch, name, a32, scalars[name])
         torch.cuda.synchronize()
-        out[name] = dict(
+        c = dict(
             finite=bool(torch.isfinite(k).all()),
             max_abs_err=(k - p).abs().max().item(),
             rel_kernel_vs_plain=_rel(k, p, p),
             rel_kernel_vs_f64=_rel(k, p64, p64),
             rel_plain_vs_f64=_rel(p, p64, p64),
             rel_matmuls_vs_plain=_rel(lib, p, p),
+            launches_bit_equal=bool(torch.equal(k, k2)),
+            members_equal_single_launch=all(
+                bool(torch.equal(k[b], one)) for b, one in enumerate(members)),
             ms=time_ms(lambda: wrapper(*a32, *scalars[name]), reps),
             plain_ms=time_ms(lambda: plain(*a32, *scalars[name]), reps),
             library_ms=time_ms(lambda: _apply_as_matmuls(
                 torch, name, a32, scalars[name]), reps))
+        c["kernel_over_library"] = c["ms"] / c["library_ms"]
+        if name in variants:
+            g = sk.apply_geometry(name, n, n)
+            c["geometry"] = dict(cluster=g.cluster,
+                                 band_rows=[r for _, r in g.bands],
+                                 per_thread=g.per_thread,
+                                 chunk=g.chunk, smem_bytes=g.smem_bytes)
+            if g.cluster > 8:
+                mats = ((a32[0], a32[1], None, None, None, None)
+                        if name == "schur_apply" else (None, None) + a32[:4])
+                c8 = lambda: sk._launch_apply(
+                    wrapper, variants[name], scalars[name], mats, a32[-2],
+                    a32[-1], cluster=8)
+                # each output sums its k terms in one order whatever the
+                # cluster size, so this is the same result
+                c["cluster8_bit_equal"] = bool(torch.equal(c8(), k))
+                c["ms_cluster8"] = time_ms(c8, reps)
+        out[name] = c
+    return out
+
+
+def apply_device_times(torch, device, shapes=(65, 129, 257)):
+    """Phase 2e-dev: each operator apply and its torch.matmul form on the
+    device alone: mean ms of 20 calls captured in a CUDA graph, one field
+    per shape. Run after every other phase: a capture on a side stream
+    leaves cuBLAS a workspace on that stream, which would count in phase
+    7's peak memory."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    out = []
+    for n in shapes:
+        ops32, _, f32, _, scal = _solve_args(torch, device, n, None)
+        scalars = {"schur_apply": scal["schur"][0],
+                   "adjoint_apply": scal["adjoint"][0],
+                   "spectral_solve": ()}
+        row = dict(n=n)
+        for name in APPLY_KERNELS:
+            a32, sc = _apply_args(name, ops32, f32), scalars[name]
+            k = graph_ms(lambda: getattr(sk, name)(*a32, *sc))
+            lib = graph_ms(lambda: _apply_as_matmuls(torch, name, a32, sc))
+            row[name] = dict(device_ms=k, library_device_ms=lib,
+                             kernel_over_library=k / lib)
+        out.append(row)
     return out
 
 
@@ -1036,8 +1121,10 @@ def batched_schur_case(torch, device, n=65, B=8, reps=20):
 def check_apply_cases(applies, batched):
     """Phase 2e gates, the float64-referenced pattern of phase 2c: each
     kernel's float32 result finite and no farther from the float64 plain
-    version than twice the plain float32 version plus 1e-5; a member of the
-    batched Schur solve bit-equal to its one-member launch."""
+    version than twice the plain float32 version plus 1e-5; two launches of
+    an apply bit-equal, and each member of a batched apply bit-equal to its
+    one-member launch; a member of the batched Schur solve bit-equal to its
+    one-member launch."""
     fails = []
     results = [(f"{name} n={c['n']} B={c['B']}", c[name])
                for c in applies for name in APPLY_KERNELS]
@@ -1048,6 +1135,11 @@ def check_apply_cases(applies, batched):
         if k["rel_kernel_vs_f64"] > 2 * k["rel_plain_vs_f64"] + 1e-5:
             fails.append(f"{tag}: {k['rel_kernel_vs_f64']} from float64, "
                          f"plain float32 {k['rel_plain_vs_f64']}")
+        if not k.get("launches_bit_equal", True):
+            fails.append(f"{tag}: two launches differ")
+        if not k.get("members_equal_single_launch", True):
+            fails.append(f"{tag}: a member differs from its one-member "
+                         "launch")
     if not batched["member_equals_single_launch"]:
         fails.append("a member of the batched solve differs from its "
                      "one-member launch")
@@ -1996,7 +2088,9 @@ def main():
     how = (f"nvcc {_build.build_seconds:.1f} s" if _build.build_seconds
            else "library of these sources already built")
     _log(1, f"build {time.perf_counter() - t0:.1f} s ({how}) | registers/"
-            "spill-store bytes per kernel: " + _ptxas_summary(_build.ptxas_log))
+            "spill-store bytes per kernel: " + _ptxas_summary(_build.ptxas_log)
+         + " | apply2d.cu cluster_apply_kernel<VAR,S>: "
+         + _ptxas_named(_build.ptxas_log, "cluster_apply_kernel"))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
              kernel_case(torch, 129, 2, 0.05, device),
@@ -2212,6 +2306,9 @@ def main():
         torch, lambda: prob4s.run(sc4s, max_iter=1, verbose=False)))
         + f" | {name} | {smi}")
     del prob4s, sc4s
+    # the applies on the device alone, last: see apply_device_times
+    for c in apply_device_times(torch, device):
+        _log("2e-dev", json.dumps(c) + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
               library_ms=None):

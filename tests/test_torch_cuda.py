@@ -13,8 +13,10 @@ it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
 do the two one-member marches. The 1D march: phi 1e-5 absolute on a short
 march, Newton counts and first_bad equal, and bit-equal results for every
-members-per-CTA grouping. The operator applies: 1e-5 of |out|max on smooth
-fields (four products; the solve kernels' own gates are in chip_smoke.py).
+members-per-CTA grouping. The operator applies: no farther from float64
+than twice the plain float32 version plus 1e-5 on smooth fields, two
+launches bit-equal and each member of a batch bit-equal to its one-member
+launch (the solve kernels' own gates are in chip_smoke.py).
 The cost probes: the float32 chain and the blocked primitives no farther
 from float64 than twice the plain float32 version plus 1e-5, every
 interleave width bit-equal; the bf16 chain against its bf16-emulated plain
@@ -419,9 +421,15 @@ def _apply_inputs(device, n=33, m=29, B=3, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batched", [False, True])
-def test_apply_kernels_match_plain(cuda, batched):
+@pytest.mark.parametrize("n,m", [(33, 29), (65, 65), (129, 129), (257, 257)])
+def test_apply_kernels_match_plain(cuda, batched, n, m):
+    """The three applies against float64 (the Schur apply and the spectral
+    solve on their thread-block cluster, the adjoint apply on one CTA per
+    member), the spectral solve with a shared and a per-member denom; two
+    launches give the same bits, and each member of a batch of 4 the bits
+    of its own one-member launch."""
     from vch_tpu_torch.ops import solve_kernels as sk
-    op, v, d = _apply_inputs(cuda)
+    op, v, d = _apply_inputs(cuda, n=n, m=m, B=4)
     if not batched:
         v, d = v[0].contiguous(), d[0].contiguous()
     denom = 1.0 + op.lam.abs()
@@ -438,14 +446,34 @@ def test_apply_kernels_match_plain(cuda, batched):
     for wrapper, plain, args in cases:
         before = wrapper.launches
         k = wrapper(*args)
+        assert wrapper.launches == before + 1
         p = plain(*args)
         p64 = plain(*[a.double() if torch.is_tensor(a) else a for a in args])
+        again = wrapper(*args)
+        members = [wrapper(*[a[b].contiguous() if torch.is_tensor(a)
+                             and a.dim() == 3 else a for a in args])
+                   for b in range(v.shape[0] if batched else 0)]
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
         scale = p64.abs().max().item()
         err_k = (k.double() - p64).abs().max().item() / scale
         err_p = (p.double() - p64).abs().max().item() / scale
         assert err_k <= 2 * err_p + 1e-5, (wrapper.__name__, err_k, err_p)
+        assert torch.equal(k, again), wrapper.__name__
+        for b, one in enumerate(members):
+            assert torch.equal(k[b], one), (wrapper.__name__, b)
+
+
+@pytest.mark.cuda
+def test_apply_scalars_as_tensors_and_numbers_agree(cuda):
+    """The Schur apply's scalars by value (numbers) and from a device array
+    (0-d tensors) give the same bits."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    op, v, d = _apply_inputs(cuda, n=65, m=65, B=2)
+    num = sk.schur_apply(op.Lx, op.LyT, d, v, 100.0, 5.0, 5e-5)
+    ten = sk.schur_apply(op.Lx, op.LyT, d, v,
+                         *[torch.tensor(x, device=cuda)
+                           for x in (100.0, 5.0, 5e-5)])
+    assert torch.equal(num, ten)
 
 
 @pytest.mark.cuda

@@ -34,7 +34,9 @@ Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
 hand-written kernel of `csrc/solve2d.cu` or `csrc/apply2d.cu` (float32, one
-CTA per member; a failed build or launch raises), on CPU tensors it runs
+CTA per member; the Schur apply and the spectral solve one member per
+thread-block cluster, `apply_geometry`; a failed build or launch raises,
+with no fallback), on CPU tensors it runs
 its plain PyTorch version `<name>_plain` of this module, which computes
 what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
 non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
@@ -42,6 +44,9 @@ kernels) in float32 or float64 without host syncs. Each wrapper counts its
 launches in `.launches`.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -415,11 +420,85 @@ def spectral_solve_plain(Vx_inv, Vy_inv_T, Vx, VyT, denom, v):
     return from_s(to_s(v) / denom)
 
 
-def _launch_apply(wrapper, variant, scalars, mats, f1, v):
+# The cluster kernel of the Schur apply and the spectral solve
+# (csrc/apply2d.cu): the kernel checks these numbers against its own.
+SMEM_LIMIT = 232_448     # shared-memory bytes one CTA may use on an H100
+_NT = 256                # threads per CTA
+_MAX_UNITS = 4           # 4 x 4 output units per thread, at most
+_PF_MAX = 12             # float4s of a peer band per thread in flight
+_MAX_CHUNK = 4           # bands' worth of operator rows per chunk, at most
+
+
+@dataclass(frozen=True)
+class ApplyGeometry:
+    """How one (n, m) member is split over a thread-block cluster: `bands`
+    holds each rank's (first row, rows), in rank order; every band is stored
+    with `rows_max` rows of `m_pad` floats; `per_thread` is the 4 x 4 output
+    units a thread accumulates; a right product streams the operator in
+    chunks of `chunk` bands' worth of rows (the largest of 4, 3, 2, 1 whose
+    ring fits), a left product one peer band at a time; `smem_bytes` is the
+    dynamic shared memory of one CTA."""
+    cluster: int
+    bands: tuple
+    rows_max: int
+    m_pad: int
+    per_thread: int
+    chunk: int
+    smem_bytes: int
+
+
+def cluster_size(n: int) -> int:
+    """CTAs per member: 4 at n <= 96, 8 (the portable maximum) at n <= 192,
+    else 16 (non-portable; at n = 257 it ran faster than 8 on an H100); never
+    more than n, so that every band has a row. It depends on n alone, so a
+    batch is just more clusters."""
+    return min(4, n) if n <= 96 else 8 if n <= 192 else 16
+
+
+@lru_cache(maxsize=64)
+def apply_geometry(name: str, n: int, m: int,
+                   cluster: int | None = None) -> ApplyGeometry:
+    """The cluster geometry of `schur_apply` (name "schur_apply": two
+    fields per CTA) or `spectral_solve` (three) on an (n, m) grid; `cluster`
+    overrides `cluster_size(n)` (up to 16, the non-portable maximum) for
+    measurement. Raises ValueError for a shape whose CTA would need more
+    shared memory than SMEM_LIMIT, or more than the kernel holds in
+    registers."""
+    C = cluster_size(n) if cluster is None else cluster
+    if not 1 <= C <= min(16, n):
+        raise ValueError(f"cluster size {C} for n = {n}")
+    q, rem = divmod(n, C)
+    bands = tuple((p * q + min(p, rem), q + (p < rem)) for p in range(C))
+    rmax = q + (rem > 0)
+    rpad, mpad = -(-rmax // 4) * 4, -(-m // 4) * 4
+    units = (rpad // 4) * (mpad // 4)
+    fields = 2 if name == "schur_apply" else 3
+    band = rmax * mpad
+    budget = 4 * _PF_MAX * _NT
+    if units > _MAX_UNITS * _NT or band > budget:
+        raise ValueError(
+            f"{name} on an ({n}, {m}) grid needs bands of {rmax} x {mpad} "
+            f"floats ({4 * band} bytes, at most {4 * budget} in flight) and "
+            f"{units} output units (at most {_MAX_UNITS * _NT}) per CTA in "
+            f"clusters of {C}")
+    for f in range(_MAX_CHUNK, 0, -1):
+        stage = max(min(m, f * rmax), rmax)
+        smem = 4 * (fields * band + 2 * stage * (mpad + rpad))
+        if smem <= SMEM_LIMIT:
+            return ApplyGeometry(C, bands, rmax, mpad, -(-units // _NT), f,
+                                 smem)
+    raise ValueError(
+        f"{name} on an ({n}, {m}) grid needs {smem} bytes of shared memory "
+        f"per CTA in clusters of {C} (at most {SMEM_LIMIT})")
+
+
+def _launch_apply(wrapper, variant, scalars, mats, f1, v, cluster=None):
     """Check and launch one batch of applies: `mats` the six operator slots
     (Lx, LyT, Vxi, VyiT, Vx, VyT; None where the variant takes none), f1 the
     coefficient field (d, f'' or denom), shaped as v, (n, m) or (B, n, m),
-    or (n, m) shared by the members of a (B, n, m) v."""
+    or (n, m) shared by the members of a (B, n, m) v. Scalars that are all
+    numbers reach the kernel by value; 0-d tensors through one device
+    array."""
     n, m = v.shape[-2:]
     if v.dim() not in (2, 3):
         raise ValueError(f"v must be (n, m) or (B, n, m), got "
@@ -434,17 +513,28 @@ def _launch_apply(wrapper, variant, scalars, mats, f1, v):
          if t is not None]
         + [("v", v, tuple(v.shape)),
            ("coefficient", f1, (n, m) if shared else tuple(v.shape))], dev)
+    geo = None
+    if variant != _ADJOINT_APPLY:
+        geo = apply_geometry(wrapper.__name__, n, m, cluster)
     lib = _build.load()
-    scal = torch.stack([torch.as_tensor(x, dtype=torch.float32,
-                                        device=dev).reshape(())
-                        for x in scalars])
+    vals, scal = [0.0] * 3, None
+    if any(torch.is_tensor(x) for x in scalars):
+        scal = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                            device=dev).reshape(())
+                            for x in scalars])
+    else:
+        vals[:len(scalars)] = map(float, scalars)
     out = torch.empty_like(v)
-    work = torch.empty((B, 2, n, m), dtype=torch.float32, device=dev)
+    work = (torch.empty((B, n, m), dtype=torch.float32, device=dev)
+            if geo is None else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vch_apply_2d(variant, scal.data_ptr(), *[ptr(t) for t in mats],
-                           f1.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           work.data_ptr(), B, n, m, int(shared), stream)
+    err = lib.vch_apply_2d(variant, ptr(scal), *vals,
+                           *[ptr(t) for t in mats], f1.data_ptr(),
+                           v.data_ptr(), out.data_ptr(), ptr(work), B, n, m,
+                           int(shared), *((geo.cluster, geo.per_thread,
+                                           geo.chunk, geo.smem_bytes) if geo
+                                          else (0, 0, 0, 0)), stream)
     wrapper.launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return out
@@ -487,7 +577,7 @@ def spectral_solve(Vx_inv, Vy_inv_T, Vx, VyT, denom, v):
     as v, or (n, m) shared by the members."""
     if not _build.on_cuda("spectral_solve", v):
         return spectral_solve_plain(Vx_inv, Vy_inv_T, Vx, VyT, denom, v)
-    return _launch_apply(spectral_solve, _SPECTRAL_SOLVE, (0.0,),   # unused
+    return _launch_apply(spectral_solve, _SPECTRAL_SOLVE, (),
                          (None, None, Vx_inv, Vy_inv_T, Vx, VyT), denom, v)
 
 
