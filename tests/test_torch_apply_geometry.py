@@ -1,5 +1,6 @@
-"""The cluster geometry of the Schur apply and the spectral solve
-(`vch_tpu_torch.ops.solve_kernels.apply_geometry`): how one (n, m) member
+"""The cluster geometry of the three operator applies (the Schur apply,
+the adjoint apply and the spectral solve;
+`vch_tpu_torch.ops.solve_kernels.apply_geometry`): how one (n, m) member
 is split over a thread-block cluster, and the shared memory each CTA of it
 needs. The CUDA kernel (csrc/apply2d.cu) recomputes the same numbers and
 refuses a launch whose geometry differs, so these CPU tests hold the
@@ -9,7 +10,7 @@ import pytest
 from vch_tpu_torch.ops.solve_kernels import (SMEM_LIMIT, apply_geometry,
                                              cluster_size)
 
-NAMES = ("schur_apply", "spectral_solve")
+NAMES = ("schur_apply", "adjoint_apply", "spectral_solve")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -64,6 +65,12 @@ def _ring(rows, m_pad, rows_max):
     ("spectral_solve", 257, 257, 16, 17, 2, 4, 205_360),
     ("schur_apply", 257, 257, 16, 17, 2, 4,
      4 * 2 * 17 * 260 + _ring(68, 260, 17)),
+    ("adjoint_apply", 65, 65, 4, 17, 1, 4,
+     4 * 2 * 17 * 68 + _ring(65, 68, 17)),
+    ("adjoint_apply", 129, 129, 8, 17, 1, 4,
+     4 * 2 * 17 * 132 + _ring(68, 132, 17)),
+    ("adjoint_apply", 257, 257, 16, 17, 2, 4,
+     4 * 2 * 17 * 260 + _ring(68, 260, 17)),
 ])
 def test_geometry_at_the_shapes_the_card_runs(name, n, m, C, rows_max,
                                               per_thread, chunk, smem):
@@ -83,6 +90,8 @@ def test_the_chunk_shrinks_until_the_ring_fits():
 
 @pytest.mark.parametrize("name,n,m", [("spectral_solve", 129, 700),
                                       ("schur_apply", 257, 1200),
+                                      ("adjoint_apply", 257, 1200),
+                                      ("adjoint_apply", 600, 600),
                                       ("spectral_solve", 600, 600),
                                       ("schur_apply", 2049, 256)])
 def test_a_shape_past_the_limit_raises(name, n, m):
@@ -98,3 +107,17 @@ def test_a_cluster_override_keeps_the_split_and_its_limits():
     for bad in (0, 17):
         with pytest.raises(ValueError, match="cluster size"):
             apply_geometry("schur_apply", 257, 257, cluster=bad)
+
+
+def test_the_adjoint_apply_has_the_schur_applys_geometry():
+    """Both hold two fields per CTA (the field and the intermediate L v the
+    peers read), so their splits and shared memory agree at every shape."""
+    for n in (2, 33, 65, 96, 97, 129, 193, 257):
+        for m in (2, 29, 65, 257):
+            assert (apply_geometry("adjoint_apply", n, m)
+                    == apply_geometry("schur_apply", n, m))
+
+
+def test_a_name_without_a_cluster_kernel_raises():
+    with pytest.raises(ValueError, match="no cluster geometry"):
+        apply_geometry("bicgstab_schur", 65, 65)

@@ -423,9 +423,8 @@ def _apply_inputs(device, n=33, m=29, B=3, seed=0):
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("n,m", [(33, 29), (65, 65), (129, 129), (257, 257)])
 def test_apply_kernels_match_plain(cuda, batched, n, m):
-    """The three applies against float64 (the Schur apply and the spectral
-    solve on their thread-block cluster, the adjoint apply on one CTA per
-    member), the spectral solve with a shared and a per-member denom; two
+    """The three applies, each on its thread-block cluster, against
+    float64, the spectral solve with a shared and a per-member denom; two
     launches give the same bits, and each member of a batch of 4 the bits
     of its own one-member launch."""
     from vch_tpu_torch.ops import solve_kernels as sk

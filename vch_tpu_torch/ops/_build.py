@@ -141,10 +141,10 @@ def load():
                                     + [ctypes.c_float, _P])
     lib.vch_solve_workspace_fields.argtypes = []
     lib.vch_solve_workspace_fields.restype = _I
-    # variant scal s0 s1 s2 Lx LyT Vxi VyiT Vx VyT f1 v | out work |
+    # variant scal s0 s1 s2 Lx LyT Vxi VyiT Vx VyT f1 v | out |
     # B n m shared | cluster per_thread chunk smem_bytes | stream
     lib.vch_apply_2d.argtypes = ([_I, _P] + [ctypes.c_float] * 3 + [_P] * 8
-                                 + [_P] * 2 + [_I] * 4 + [_I] * 4 + [_P])
+                                 + [_P] + [_I] * 4 + [_I] * 4 + [_P])
     # dts phi0 u LT VinvT VT lam wts | hist nsolve bad work | B M n |
     # consts nconst | max_iter n_trips stagnation group | stream
     lib.vch_march_fused_1d.argtypes = ([_P] * 8 + [_P] * 4 + [_I] * 3

@@ -34,9 +34,9 @@ Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
 hand-written kernel of `csrc/solve2d.cu` or `csrc/apply2d.cu` (float32, one
-CTA per member; the Schur apply and the spectral solve one member per
-thread-block cluster, `apply_geometry`; a failed build or launch raises,
-with no fallback), on CPU tensors it runs
+CTA per member; the three operator applies one member per thread-block
+cluster, `apply_geometry`; a failed build or launch raises, with no
+fallback), on CPU tensors it runs
 its plain PyTorch version `<name>_plain` of this module, which computes
 what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
 non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
@@ -420,8 +420,8 @@ def spectral_solve_plain(Vx_inv, Vy_inv_T, Vx, VyT, denom, v):
     return from_s(to_s(v) / denom)
 
 
-# The cluster kernel of the Schur apply and the spectral solve
-# (csrc/apply2d.cu): the kernel checks these numbers against its own.
+# The cluster kernel of the three operator applies (csrc/apply2d.cu): the
+# kernel checks these numbers against its own.
 SMEM_LIMIT = 232_448     # shared-memory bytes one CTA may use on an H100
 _NT = 256                # threads per CTA
 _MAX_UNITS = 4           # 4 x 4 output units per thread, at most
@@ -458,12 +458,14 @@ def cluster_size(n: int) -> int:
 @lru_cache(maxsize=64)
 def apply_geometry(name: str, n: int, m: int,
                    cluster: int | None = None) -> ApplyGeometry:
-    """The cluster geometry of `schur_apply` (name "schur_apply": two
-    fields per CTA) or `spectral_solve` (three) on an (n, m) grid; `cluster`
+    """The cluster geometry of `schur_apply` or `adjoint_apply` (two fields
+    per CTA) or `spectral_solve` (three) on an (n, m) grid; `cluster`
     overrides `cluster_size(n)` (up to 16, the non-portable maximum) for
     measurement. Raises ValueError for a shape whose CTA would need more
     shared memory than SMEM_LIMIT, or more than the kernel holds in
     registers."""
+    if name not in ("schur_apply", "adjoint_apply", "spectral_solve"):
+        raise ValueError(f"no cluster geometry for {name!r}")
     C = cluster_size(n) if cluster is None else cluster
     if not 1 <= C <= min(16, n):
         raise ValueError(f"cluster size {C} for n = {n}")
@@ -472,7 +474,7 @@ def apply_geometry(name: str, n: int, m: int,
     rmax = q + (rem > 0)
     rpad, mpad = -(-rmax // 4) * 4, -(-m // 4) * 4
     units = (rpad // 4) * (mpad // 4)
-    fields = 2 if name == "schur_apply" else 3
+    fields = 3 if name == "spectral_solve" else 2
     band = rmax * mpad
     budget = 4 * _PF_MAX * _NT
     if units > _MAX_UNITS * _NT or band > budget:
@@ -513,9 +515,7 @@ def _launch_apply(wrapper, variant, scalars, mats, f1, v, cluster=None):
          if t is not None]
         + [("v", v, tuple(v.shape)),
            ("coefficient", f1, (n, m) if shared else tuple(v.shape))], dev)
-    geo = None
-    if variant != _ADJOINT_APPLY:
-        geo = apply_geometry(wrapper.__name__, n, m, cluster)
+    geo = apply_geometry(wrapper.__name__, n, m, cluster)
     lib = _build.load()
     vals, scal = [0.0] * 3, None
     if any(torch.is_tensor(x) for x in scalars):
@@ -525,16 +525,13 @@ def _launch_apply(wrapper, variant, scalars, mats, f1, v, cluster=None):
     else:
         vals[:len(scalars)] = map(float, scalars)
     out = torch.empty_like(v)
-    work = (torch.empty((B, n, m), dtype=torch.float32, device=dev)
-            if geo is None else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.vch_apply_2d(variant, ptr(scal), *vals,
                            *[ptr(t) for t in mats], f1.data_ptr(),
-                           v.data_ptr(), out.data_ptr(), ptr(work), B, n, m,
-                           int(shared), *((geo.cluster, geo.per_thread,
-                                           geo.chunk, geo.smem_bytes) if geo
-                                          else (0, 0, 0, 0)), stream)
+                           v.data_ptr(), out.data_ptr(), B, n, m,
+                           int(shared), geo.cluster, geo.per_thread,
+                           geo.chunk, geo.smem_bytes, stream)
     wrapper.launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return out
