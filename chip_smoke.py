@@ -12,10 +12,13 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                n = 129 (both odd edges) and at config 4's smallest
                line-search bucket (n = 129, M = 100, B = 8), with kernel and
                plain times;
-  2b kernels — the member-blocked kernels (8 members per CTA) against their
-               plain versions and against the per-member kernels at n = 65,
-               B = 8, and at bench.py's headline shape n = 65, B = 512,
-               M = 100 (plain on the first 8 members there); the segment
+  2b kernels — the member-blocked kernels (the march: 8 members on a
+               thread-block cluster; the sweep: 8 members per CTA) against
+               their plain versions and against the per-member kernels at
+               n = 65, B = 8, at bench.py's headline shape n = 65, B = 512,
+               M = 100, and at n = 65, B = 64, M = 100 (plain on the first 8
+               members there), with the march's cluster geometry and its
+               bound at each shape; the segment
                kernels chained over two segments, K = 5 at n = 65, B = 4,
                and K = 10 at phase 6's grid n = 257, B = 2, each launch
                against its plain version and the chain against the whole
@@ -38,9 +41,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                member-tiled solve), gated against float64; two launches
                bit-equal, and each member of a batch bit-equal to its
                one-member launch; beside each apply the time of the same
-               function as torch.matmul calls and the kernel/library ratio,
-               and for the cluster kernels (Schur apply, spectral solve)
-               their geometry and, at n = 257, their time on clusters of 8;
+               function as torch.matmul calls, the kernel/library ratio, its
+               bound, its cluster geometry and, at n = 257, its time on
+               clusters of 8;
   3 slice    — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep
                with one member per CTA, kernel path against plain path,
                3 PGD iterations;
@@ -379,7 +382,9 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
     against the per-member kernels on all B members, and against the plain
     versions in float32 and float64 on the first plain_members members.
     The blocked and the per-member kernels run in turns (per-member,
-    blocked, blocked, per-member) for their CUDA-event times."""
+    blocked, blocked, per-member) for their CUDA-event times; the march's
+    cluster geometry and its bound (_march_work on the measured Newton
+    total) go with them."""
     from vch_tpu_torch.ops import march as km
 
     solvers, x, x64 = _problem_inputs(torch, n, B, T, device)
@@ -448,6 +453,17 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
     for name, fn in (("per_member", member_a), ("blocked", blocked_a),
                      ("blocked", blocked_a), ("per_member", member_a)):
         out.setdefault(f"adjoint_{name}_ms", []).append(time_ms(fn, reps))
+    g = km.launch_geometry(n, n, B, device)
+    idx = torch.device(device).index or 0
+    out["march_geometry"] = dict(
+        cluster=g.cluster, ctas=B // 8 * g.cluster,
+        band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
+        kc=g.kc, smem_bytes=g.smem_bytes,
+        resident_clusters=km._resident_clusters(idx, n, n, g.cluster, g.kc,
+                                                g.smem_bytes))
+    out["march_bound_ms"], out["march_bound_by"] = _bound(*_march_work(
+        n, B, M, out["newton_blocked_total"],
+        fwd.config.fused_krylov_fixed_iters))
     return out
 
 
@@ -1005,15 +1021,17 @@ def apply_case(torch, device, n, B, reps=20):
     whether each member equals its own one-member launch; CUDA-event ms of
     the kernel, the plain version and the torch.matmul form per call (host
     launch cost included, as every `ms` of the kernels line), and their
-    ratio. For the cluster kernels (rows 13 and 15) also the geometry
-    (cluster size, band rows, shared-memory bytes per CTA) and, where the
-    cluster is the non-portable 16, the kernel's time on clusters of 8."""
+    ratio, and the bound. For each (all three run on the cluster kernel)
+    also the geometry (cluster size, band rows, shared-memory bytes per CTA)
+    and, where the cluster is the non-portable 16, the kernel's time on
+    clusters of 8."""
     from vch_tpu_torch.ops import solve_kernels as sk
 
     ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
     scalars = {"schur_apply": scal["schur"][0],
                "adjoint_apply": scal["adjoint"][0], "spectral_solve": ()}
     variants = {"schur_apply": sk._SCHUR_APPLY,
+                "adjoint_apply": sk._ADJOINT_APPLY,
                 "spectral_solve": sk._SPECTRAL_SOLVE}
     out = dict(n=n, B=B or 1, batched=B is not None)
     for name in APPLY_KERNELS:
@@ -1043,6 +1061,7 @@ def apply_case(torch, device, n, B, reps=20):
             library_ms=time_ms(lambda: _apply_as_matmuls(
                 torch, name, a32, scalars[name]), reps))
         c["kernel_over_library"] = c["ms"] / c["library_ms"]
+        c["bound_ms"], c["bound_by"] = _bound(*_apply_work(name, n, B or 1))
         if name in variants:
             g = sk.apply_geometry(name, n, n)
             c["geometry"] = dict(cluster=g.cluster,
@@ -1050,8 +1069,8 @@ def apply_case(torch, device, n, B, reps=20):
                                  per_thread=g.per_thread,
                                  chunk=g.chunk, smem_bytes=g.smem_bytes)
             if g.cluster > 8:
-                mats = ((a32[0], a32[1], None, None, None, None)
-                        if name == "schur_apply" else (None, None) + a32[:4])
+                mats = ((None, None) + a32[:4] if name == "spectral_solve"
+                        else (a32[0], a32[1], None, None, None, None))
                 c8 = lambda: sk._launch_apply(
                     wrapper, variants[name], scalars[name], mats, a32[-2],
                     a32[-1], cluster=8)
@@ -2090,7 +2109,9 @@ def main():
     _log(1, f"build {time.perf_counter() - t0:.1f} s ({how}) | registers/"
             "spill-store bytes per kernel: " + _ptxas_summary(_build.ptxas_log)
          + " | apply2d.cu cluster_apply_kernel<VAR,S>: "
-         + _ptxas_named(_build.ptxas_log, "cluster_apply_kernel"))
+         + _ptxas_named(_build.ptxas_log, "cluster_apply_kernel")
+         + " | march2d_blocked.cu march_blocked_kernel: "
+         + _ptxas_named(_build.ptxas_log, "march_blocked_kernel"))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
              kernel_case(torch, 129, 2, 0.05, device),
@@ -2105,13 +2126,17 @@ def main():
     _log("2b", json.dumps(blk8))
     blk512 = blocked_case(torch, 65, 512, 1.0, device, plain_members=8,
                           reps=1)
-    _log("2b", json.dumps(blk512))
+    _log("2b", json.dumps(blk512) + f" | {name} | {smi}")
+    blk64 = blocked_case(torch, 65, 64, 1.0, device, plain_members=8,
+                         reps=1)
+    _log("2b", json.dumps(blk64) + f" | {name} | {smi}")
     seg = segment_case(torch, device)
     _log("2b", json.dumps(seg))
     seg257 = segment_case(torch, device, n=257, B=2, K=10, T=0.2, reps=1)
     _log("2b", json.dumps(seg257))
     check_blocked_case(blk8, short=True)
     check_blocked_case(blk512, short=False)
+    check_blocked_case(blk64, short=False)
     check_segment_case(seg, short=True)
     check_segment_case(seg257, short=False)
 
@@ -2342,7 +2367,8 @@ def main():
               c4["launches"]["adjoint_fused_2d"], long["max_abs_dr"],
               long["adjoint_ms"], long["adjoint_plain_ms"],
               _adjoint_work(long["n"], long["B"], long["M"], trips_adj)),
-        entry("march_fused_2d_blocked", march_cu, f"{pm}:1649",
+        entry("march_fused_2d_blocked",
+              "vch_tpu_torch/csrc/march2d_blocked.cu", f"{pm}:1649",
               c5["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
               mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"],
               _march_work(blk8["n"], blk8["B"], blk8["M"],

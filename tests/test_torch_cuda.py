@@ -43,15 +43,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(device, n=17, B=3, T=0.05, seed=0):
-    cfg = ForwardSolverConfig2D(Nx=n - 1, Ny=n - 1, T=T, dtype="float32",
+def _problem(device, n=17, B=3, T=0.05, seed=0, m=None):
+    m = n if m is None else m
+    cfg = ForwardSolverConfig2D(Nx=n - 1, Ny=m - 1, T=T, dtype="float32",
                                 newton_tol=2e-4)
     fwd = ForwardSolver2D(cfg, device=device)
     adj = AdjointSolver2D(cfg, device=device)
     rng = np.random.default_rng(seed)
-    phi0 = np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP, seed=42 + i)
+    phi0 = np.stack([init_phi_random_2d(n - 1, m - 1, DELTA_SEP, seed=42 + i)
                      for i in range(B)])
-    u = 0.1 * rng.standard_normal((B, fwd.M + 1, n, n))
+    u = 0.1 * rng.standard_normal((B, fwd.M + 1, n, m))
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     return fwd, adj, f32(phi0), f32(u), f32
 
@@ -151,24 +152,71 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_b", [8])
-def test_blocked_kernels_equal_the_per_member_kernels(cuda, block_b):
-    fwd, adj, phi0, u, f32 = _problem(cuda, n=33, B=8, T=0.05)
+@pytest.mark.parametrize("B", [8, 16, 64])
+@pytest.mark.parametrize("n,m", [(33, 29), (65, 65), (97, 97)])
+def test_blocked_kernels_equal_the_per_member_kernels(cuda, n, m, B):
+    """The blocked march (eight members on a thread-block cluster) gives
+    each member the history, Newton count and first_bad of the one-member
+    march bit for bit; so does the blocked sweep."""
+    fwd, adj, phi0, u, f32 = _problem(cuda, n=n, m=m, B=B,
+                                      T=0.05 if n < 97 else 0.02)
     args = _march_args(fwd, phi0, u)
     before = km.march_fused_2d_blocked.launches
-    bh, bns, bbad = km.march_fused_2d_blocked(*args, block_b=block_b, **_KW)
+    bh, bns, bbad = km.march_fused_2d_blocked(*args, block_b=8, **_KW)
     assert km.march_fused_2d_blocked.launches == before + 1
     kh, kns, kbad = km.march_fused_2d(*args, **_KW)
     torch.cuda.synchronize()
     assert torch.equal(bh, kh) and torch.equal(bns, kns)
     assert torch.equal(bbad, kbad)
-    b1, b2 = f32(np.linspace(0.3, 5.0, 8)), f32(np.linspace(13.0, 10.0, 8))
+    b1 = f32(np.linspace(0.3, 5.0, B))
+    b2 = f32(np.linspace(13.0, 10.0, B))
     phiT = 0.1 * phi0
     aargs = (adj.dts, kh, torch.zeros_like(kh), phiT, b1, b2) + adj._ops()
-    br = km.adjoint_fused_2d_blocked(*aargs, block_b=block_b, **adj._kw())
+    br = km.adjoint_fused_2d_blocked(*aargs, block_b=8, **adj._kw())
     kr = km.adjoint_fused_2d(*aargs, **adj._kw())
     torch.cuda.synchronize()
     assert torch.equal(br, kr)
+
+
+def _with_geometry(monkeypatch, make):
+    """Make march_fused_2d_blocked launch on make(n, m, B, sms)."""
+    def launch_geometry(n, m, B, device):
+        sms = torch.cuda.get_device_properties(
+            torch.device(device)).multi_processor_count
+        return make(n, m, B, sms)
+    monkeypatch.setattr(km, "launch_geometry", launch_geometry)
+
+
+@pytest.mark.cuda
+def test_blocked_march_bits_do_not_depend_on_the_cluster_size(cuda,
+                                                               monkeypatch):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=8, T=0.03)
+    args = _march_args(fwd, phi0, u)
+    ref = km.march_fused_2d(*args, **_KW)
+    for C in (1, 2, 4, 8, 16):
+        _with_geometry(monkeypatch, lambda n, m, B, sms: km.blocked_geometry(
+            n, m, B, sms, cluster=C))
+        out = km.march_fused_2d_blocked(*args, **_KW)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4),
+                                         ("cluster", 1)])
+def test_blocked_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
+                                                        field, delta):
+    """The C entry recomputes the geometry from (n, m, cluster, kc) and
+    refuses a launch whose shared-memory bytes differ from its own."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=8, T=0.02)
+
+    def bad(n, m, B, sms):
+        g = km.blocked_geometry(n, m, B, sms)
+        return g._replace(**{field: getattr(g, field) + delta})
+    _with_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        km.march_fused_2d_blocked(*_march_args(fwd, phi0, u), **_KW)
 
 
 @pytest.mark.cuda

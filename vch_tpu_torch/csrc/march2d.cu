@@ -1,10 +1,8 @@
 // Whole batched 2D forward march of the viscous Cahn–Hilliard system.
 //
-// Replaces three TPU kernels of vch_tpu/ops/pallas_march.py:
+// Replaces two TPU kernels of vch_tpu/ops/pallas_march.py:
 //   - :393 march_fused_2d (body _march_kernel_factory, :79-390): one member
 //     per CTA, BB = 1;
-//   - :1649 march_fused_2d_blocked (factory :1271): BB members per CTA in
-//     masked lockstep;
 //   - :479 march_fused_2d_segment (the factory's segment=True): one member
 //     per CTA with the (mu, w, global m0) carry in, (phi, mu, w) out, and
 //     only the post-step states in the history.
@@ -20,6 +18,9 @@
 // sequential chain (every Krylov scalar and loop predicate needs the previous
 // product), and the ~33 fields of per-member state: one 129 x 129 float32
 // field is 66.6 KB while a CTA has at most 227 KB of shared memory.
+//
+// The member-blocked form (:1649 march_fused_2d_blocked) is
+// march2d_blocked.cu, which computes each member as this kernel does.
 //
 // Design: a CTA walks the whole time loop for its BB members (the TPU's
 // sequential (member, step) grid becomes a loop inside the CTA). Member
@@ -508,9 +509,8 @@ int launch_march(int B, MarchArgs k, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// Each members-per-CTA size is compiled as its own object (nvcc -DVCH_BB=1
-// and 8, in parallel; ops/_build.py); the VCH_BB=1 object holds both
-// one-member kernels and the C entry points, and dispatches to the others.
+// Compiled with -DVCH_BB=1 (ops/_build.py): the object holds both
+// one-member kernels and the C entry points.
 #ifndef VCH_BB
 #define VCH_BB 1
 #endif
@@ -523,8 +523,6 @@ template int launch_march<VCH_BB, false>(int, MarchArgs, cudaStream_t);
 
 #if VCH_BB == 1
 namespace vch {
-
-extern template int launch_march<8, false>(int, MarchArgs, cudaStream_t);
 
 namespace {
 
@@ -551,7 +549,6 @@ int launch(int bb, int B, const MarchArgs& a, const float* consts, int nconst,
   switch (bb) {
     case 1: return more_ctas_than_sms(B) ? launch_march<1, true>(B, k, s)
                                          : launch_march<1, false>(B, k, s);
-    case 8: return launch_march<8, false>(B, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -567,8 +564,9 @@ extern "C" const char* vch_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The whole march (block_b = 1) or its member-blocked form (block_b = 8;
-// B % block_b == 0). hist is (B, M+1, n, m) with phi0 first.
+// The whole march (block_b = 1; the member-blocked form is
+// vch_march_fused_2d_blocked, march2d_blocked.cu). hist is (B, M+1, n, m)
+// with phi0 first.
 extern "C" int vch_march_fused_2d(
     const float* dts, const float* phi0, const float* u, const float* Lx,
     const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,

@@ -2,11 +2,13 @@
 kernel wrapper makes before a launch.
 
 `nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
-members-per-CTA instantiation it is built for (`SOURCES`: the fused 2D march
-and sweep with `-DVCH_BB=1` and `8`, one member per CTA and the block that
-`resolved_fused_block()` picks; the per-solve kernels, the operator applies,
-the fused 1D march, which holds its own group sizes, and the cost probes,
-which hold their own members-per-CTA templates, with `-DVCH_BB=1`),
+members-per-CTA instantiation it is built for (`SOURCES`: the fused 2D sweep
+with `-DVCH_BB=1` and `8`, one member per CTA and the block that
+`resolved_fused_block()` picks; the fused 2D march, its member-blocked form
+(eight members on a thread-block cluster), the per-solve kernels, the
+operator applies, the fused 1D march, which holds its own group sizes, and
+the cost probes, which hold their own members-per-CTA templates, with
+`-DVCH_BB=1`),
 all at once in parallel, and links the objects into one shared library with
 a plain C interface, at first use, into `vch_tpu_torch/_build/` (listed in
 .gitignore); `ctypes` loads it. The library's file name carries a
@@ -32,10 +34,10 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 MEMBER_BLOCKS = (1, 8)   # the members-per-CTA the fused kernels are built for
 # each source and the VCH_BB objects it is compiled into
-SOURCES = {"march2d.cu": MEMBER_BLOCKS, "adjoint2d.cu": MEMBER_BLOCKS,
-           "solve2d.cu": (1,), "apply2d.cu": (1,), "march1d.cu": (1,),
-           "probes.cu": (1,)}
-HEADERS = ("common.cuh",)
+SOURCES = {"march2d.cu": (1,), "march2d_blocked.cu": (1,),
+           "adjoint2d.cu": MEMBER_BLOCKS, "solve2d.cu": (1,),
+           "apply2d.cu": (1,), "march1d.cu": (1,), "probes.cu": (1,)}
+HEADERS = ("common.cuh", "tile4.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -120,6 +122,15 @@ def load():
     # B M n m | consts nconst | max_iter n_trips stagnation block_b | stream
     lib.vch_march_fused_2d.argtypes = ([_P] * 11 + [_P] * 4 + [_I] * 4
                                        + [_FP, _I] + [_I] * 4 + [_P])
+    # dts phi0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist nsolve bad work |
+    # B M n m | consts nconst | max_iter n_trips stagnation | cluster kc
+    # smem_bytes | stream
+    lib.vch_march_fused_2d_blocked.argtypes = ([_P] * 11 + [_P] * 4
+                                               + [_I] * 4 + [_FP, _I]
+                                               + [_I] * 3 + [_I] * 3 + [_P])
+    # n m cluster kc smem_bytes
+    lib.vch_march_blocked_max_clusters.argtypes = [_I] * 5
+    lib.vch_march_blocked_max_clusters.restype = _I
     # dts phi0 mu0 w0 m0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist phi_f mu_f
     # w_f nsolve bad work | B K n m | consts nconst | max_iter n_trips
     # stagnation | stream
@@ -159,7 +170,8 @@ def load():
     lib.vch_while_probe.argtypes = [_P] * 3 + [_I] * 3 + [_P]
     lib.vch_while_max_elems.argtypes = []
     lib.vch_while_max_elems.restype = _I
-    for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_segment,
+    for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_blocked,
+               lib.vch_march_fused_2d_segment,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
                lib.vch_bicgstab_2d, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,

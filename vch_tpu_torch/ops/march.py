@@ -5,8 +5,8 @@ vch_tpu/ops/pallas_march.py); and `Entries`, the table of every kernel
 entry point a solver calls, per-solve kernels of ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernels of `csrc/march2d.cu`, `csrc/adjoint2d.cu` and
-`csrc/march1d.cu` (float32 only; anything else raises), on CPU tensors it
+hand-written kernels of `csrc/march2d.cu`, `csrc/march2d_blocked.cu`,
+`csrc/adjoint2d.cu` and `csrc/march1d.cu` (float32 only; anything else raises), on CPU tensors it
 runs its plain PyTorch version `<name>_plain` of this module. There is no
 fallback from one to the other. Each wrapper counts its kernel launches in
 `.launches`.
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from functools import lru_cache
 from typing import Callable, NamedTuple
 
 import torch
@@ -328,8 +329,9 @@ def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                 n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
 
 
-def _launch_march(wrapper, args, k, block_b):
-    """Check and launch the whole (block_b = 1) or blocked march kernel."""
+def _launch_march(wrapper, args, k, blocked=False):
+    """Check and launch the whole march kernel, or its member-blocked form
+    (blocked) on the cluster geometry of `launch_geometry`."""
     dts, phi0, u, *ops = args
     B, n, m = phi0.shape
     M = dts.shape[0]
@@ -337,8 +339,9 @@ def _launch_march(wrapper, args, k, block_b):
     _build.check_cuda([("dts", dts, (M,)), ("phi0", phi0, (B, n, m)),
                        ("u", u, (B, M + 1, n, m))]
                       + list(zip(names, ops, shapes)), phi0.device)
-    lib = _build.load()
     dev = phi0.device
+    geo = launch_geometry(n, m, B, dev) if blocked else None
+    lib = _build.load()
     hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
     nsolve = torch.empty((B,), dtype=torch.int32, device=dev)
     first_bad = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -346,11 +349,16 @@ def _launch_march(wrapper, args, k, block_b):
                        dtype=torch.float32, device=dev)
     consts, nc = _fwd_consts(k)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vch_march_fused_2d(
-        *[t.data_ptr() for t in args], hist.data_ptr(), nsolve.data_ptr(),
-        first_bad.data_ptr(), work.data_ptr(), B, M, n, m, consts, nc,
-        k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
-        block_b, stream)
+    common = ([t.data_ptr() for t in args]
+              + [hist.data_ptr(), nsolve.data_ptr(), first_bad.data_ptr(),
+                 work.data_ptr(), B, M, n, m, consts, nc,
+                 k["newton_max_iter"], k["n_trips"],
+                 int(k["stagnation_exit"])])
+    if geo is None:
+        err = lib.vch_march_fused_2d(*common, 1, stream)
+    else:
+        err = lib.vch_march_fused_2d_blocked(*common, geo.cluster, geo.kc,
+                                             geo.smem_bytes, stream)
     wrapper.launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return hist, nsolve, first_bad
@@ -378,10 +386,109 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d", phi0):
         return march_fused_2d_plain(*args, **k)
-    return _launch_march(march_fused_2d, args, k, 1)
+    return _launch_march(march_fused_2d, args, k)
 
 
 march_fused_2d.launches = 0
+
+
+# The blocked march's cluster kernel (csrc/march2d_blocked.cu): the kernel
+# checks these numbers against its own.
+BLOCK_MEMBERS = 8          # members per block, one block per cluster
+BLOCKED_SMEM_LIMIT = 232_448 - 4096   # dynamic shared memory per CTA: an
+                                      # H100's 232,448 bytes less the
+                                      # kernel's static control block
+_BLOCKED_UNITS = 4 * 256   # 4 x 4 output units of one pass: 4 per thread
+_BLOCKED_KC = (32, 16, 8, 4)   # k rows per ring stage, the largest that fits
+
+
+class BlockedGeometry(NamedTuple):
+    """How a block of eight members is split over a thread-block cluster:
+    `bands` holds each rank's (first row, rows) of every member's field, in
+    rank order; bands are stored `rows_pad` rows of `m_pad` floats apart in
+    the ring; a product of the block has `units` 4 x 4 output units, run in
+    `passes` of at most 1024; its operands stream through a two-stage ring of
+    `kc` k rows; `smem_bytes` is the dynamic shared memory of one CTA."""
+    cluster: int
+    bands: tuple
+    rows_max: int
+    rows_pad: int
+    m_pad: int
+    units: int
+    passes: int
+    kc: int
+    smem_bytes: int
+
+
+def blocked_cluster_size(n: int, B: int, sms: int,
+                         max_cluster: int = 16) -> int:
+    """CTAs per block of eight members: the largest power of two up to
+    max_cluster (16, the non-portable size; 8 is the portable one) and up to
+    n whose B / 8 clusters fit in the card's `sms` SMs at once, at least 1."""
+    blocks = B // BLOCK_MEMBERS
+    C = 1
+    while (2 * C <= min(max_cluster, n)
+           and blocks * 2 * C <= sms):
+        C *= 2
+    return C
+
+
+@lru_cache(maxsize=64)
+def blocked_geometry(n: int, m: int, B: int, sms: int,
+                     max_cluster: int = 16,
+                     cluster: int | None = None) -> BlockedGeometry:
+    """The cluster geometry of `march_fused_2d_blocked` for B members on an
+    (n, m) grid on a card of `sms` SMs (`blocked_cluster_size`; `cluster`
+    overrides it). Raises ValueError when B is not a multiple of 8, or when
+    no ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
+    if B <= 0 or B % BLOCK_MEMBERS:
+        raise ValueError(f"the blocked march takes B % {BLOCK_MEMBERS} == 0,"
+                         f" got B = {B}")
+    C = blocked_cluster_size(n, B, sms, max_cluster) if cluster is None \
+        else cluster
+    if not 1 <= C <= min(16, n):
+        raise ValueError(f"cluster size {C} for n = {n}")
+    q, rem = divmod(n, C)
+    bands = tuple((p * q + min(p, rem), q + (p < rem)) for p in range(C))
+    rmax = q + (rem > 0)
+    rpad, mpad = -(-rmax // 4) * 4, -(-m // 4) * 4
+    units = BLOCK_MEMBERS * (rpad // 4) * (mpad // 4)
+    for kc in _BLOCKED_KC:
+        smem = 4 * 2 * kc * (BLOCK_MEMBERS * (rpad + mpad) + 4)
+        if smem <= BLOCKED_SMEM_LIMIT:
+            return BlockedGeometry(C, bands, rmax, rpad, mpad, units,
+                                   -(-units // _BLOCKED_UNITS), kc, smem)
+    raise ValueError(
+        f"the blocked march on an ({n}, {m}) grid in clusters of {C} needs "
+        f"{smem} bytes of shared memory per CTA (at most "
+        f"{BLOCKED_SMEM_LIMIT})")
+
+
+@lru_cache(maxsize=64)
+def _resident_clusters(device_index, n, m, C, kc, smem):
+    return _build.load().vch_march_blocked_max_clusters(n, m, C, kc, smem)
+
+
+def launch_geometry(n: int, m: int, B: int, device) -> BlockedGeometry:
+    """The geometry `march_fused_2d_blocked` launches on this card:
+    `blocked_geometry` on its SM count, with clusters of 16 only where all
+    B / 8 of them are resident at once (cudaOccupancyMaxActiveClusters),
+    else of 8. Raises RuntimeError if no cluster of it fits on the card."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    geo = blocked_geometry(n, m, B, sms)
+    fit = _resident_clusters(idx, n, m, geo.cluster, geo.kc, geo.smem_bytes)
+    if geo.cluster > 8 and fit < B // BLOCK_MEMBERS:
+        geo = blocked_geometry(n, m, B, sms, max_cluster=8)
+        fit = _resident_clusters(idx, n, m, geo.cluster, geo.kc,
+                                 geo.smem_bytes)
+    if fit <= 0:
+        raise RuntimeError(
+            f"march_fused_2d_blocked: a cluster of {geo.cluster} CTAs with "
+            f"{geo.smem_bytes} bytes of dynamic shared memory each does not "
+            f"fit on this card (cudaOccupancyMaxActiveClusters: {fit})")
+    return geo
 
 
 def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
@@ -391,20 +498,21 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
                            block_b: int = 8):
-    """The member-blocked march: block_b members per CTA in masked lockstep
-    (pallas_march.py:1649). Same contract as `march_fused_2d`; B must divide
-    by block_b, and the CUDA kernel is built for block_b in
-    _build.MEMBER_BLOCKS."""
+    """The member-blocked march: block_b = 8 members in masked lockstep
+    (pallas_march.py:1649), each block on a thread-block cluster
+    (`launch_geometry`). Same contract as `march_fused_2d`, and each
+    member's history, Newton count and first_bad are bit for bit those of
+    `march_fused_2d`; B must divide by block_b."""
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d_blocked", phi0):
         return march_fused_2d_blocked_plain(*args, block_b=block_b, **k)
     _check_block(phi0.shape[0], block_b)
-    if block_b not in _build.MEMBER_BLOCKS:
+    if block_b != BLOCK_MEMBERS:
         raise ValueError(f"the CUDA blocked march is built for block_b in "
-                         f"{_build.MEMBER_BLOCKS}, got {block_b}")
-    return _launch_march(march_fused_2d_blocked, args, k, block_b)
+                         f"({BLOCK_MEMBERS},), got {block_b}")
+    return _launch_march(march_fused_2d_blocked, args, k, blocked=True)
 
 
 march_fused_2d_blocked.launches = 0
