@@ -69,7 +69,7 @@ def test_shared_memory_fits_every_blocked_route_grid():
                 g = blocked_geometry(n, m, B, H100_SMS)
                 assert g.m_pad % 4 == 0 and m <= g.m_pad < m + 4
                 assert g.units == 8 * (g.rows_pad // 4) * (g.m_pad // 4)
-                assert g.passes == -(-g.units // 1024)
+                assert g.passes == -(-g.units // 768)
                 assert g.kc in (32, 16, 8, 4)
                 worst = max(worst, g.smem_bytes)
     assert worst <= BLOCKED_SMEM_LIMIT == 232_448 - 4096
@@ -79,7 +79,8 @@ def test_shared_memory_fits_every_blocked_route_grid():
 
 def test_geometry_at_the_headline_shape():
     """n = 65, B = 512 on an H100: 64 blocks on clusters of 2, bands of 33
-    and 32 rows; 1224 units in two passes; a ring of 32 k rows."""
+    and 32 rows; 1224 units in two passes of up to 768; a ring of 32 k
+    rows."""
     g = blocked_geometry(65, 65, 512, H100_SMS)
     assert g.cluster == 2 and [r for _, r in g.bands] == [33, 32]
     assert (g.rows_pad, g.m_pad, g.units, g.passes) == (36, 68, 1224, 2)

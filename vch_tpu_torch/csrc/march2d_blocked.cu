@@ -51,7 +51,9 @@ namespace vch {
 namespace blocked {
 
 constexpr int BB = 8;          // members per block (cluster)
-constexpr int S = 4;           // 4 x 4 units per thread per pass
+constexpr int S = 3;           // 4 x 4 units per thread per pass
+constexpr int U = 4;           // elements per lane whose loads go first
+constexpr int EB = 4;          // outputs of a unit row whose loads go first
 constexpr int MAX_C = 16;      // CTAs per cluster, at most (non-portable)
 constexpr int CTL_BYTES = 4096;   // static shared memory reserved for Ctl
 constexpr size_t SMEM_LIMIT = 232448 - CTL_BYTES;
@@ -130,6 +132,21 @@ struct Args {
   BGeom g;
 };
 
+// What a pass or an epilogue loads for one element, ahead of its stores.
+template <int N>
+struct Vals {
+  float v[N];
+};
+struct None {};
+template <class In>
+struct WithT {                    // a Laplacian's first product, and In
+  float t;
+  In in;
+};
+struct All {                      // every member
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+
 __device__ __forceinline__ bool any8(const int (&v)[BB]) {
   bool a = false;
 #pragma unroll
@@ -166,6 +183,7 @@ struct March {
   int kcmax, a_stage, b_stage;
   size_t FS, HS;
   float *ringA, *ringB, *W;
+  All all;
 
   __device__ __forceinline__ March(const Args& args, Ctl& ctl_, float* smem)
       : a(args), c(args.c), ctl(ctl_), cluster(cg::this_cluster()) {
@@ -205,12 +223,14 @@ struct March {
   // LEFT: out_b[r0 + i, j] = sum_k Op[r0 + i, k] X_b[k, j] (K = n), X_b's
   // rows from every band; RIGHT: out_b[r0 + i, j] = sum_k X_b[r0 + i, k]
   // Op[k, j] (K = m), X_b's rows of this band. X is a field of the block
-  // (member b at X + b FS); epi(b, e, value) for every valid output. The
-  // RIGHT A slab's k stride is 8 rpad + 4 floats, so its transposing writes
-  // do not all fall in one shared-memory bank.
-  template <bool LEFT, class Epi>
+  // (member b at X + b FS). The epilogue is ld(b, e), which loads what
+  // output e needs, and st(b, e, value, loaded), run on four outputs of a
+  // unit's row at a time, their loads first. The RIGHT A slab's k stride
+  // is 8 rpad + 4 floats, so its transposing writes do not all fall in one
+  // shared-memory bank.
+  template <bool LEFT, class Ld, class St>
   __device__ __forceinline__ void product(const float* __restrict__ Op,
-                                          const float* X, Epi epi) {
+                                          const float* X, Ld ld, St st) {
     const int K = LEFT ? n : m;
     const int nch = (K + kcmax - 1) / kcmax, kc = (K + nch - 1) / nch;
     Geom pg = a.g.band;
@@ -218,10 +238,10 @@ struct March {
     pg.mpad = LEFT ? BB * mpad : mpad;      // B's k stride; 4 x 4 columns
     pg.units = units;
     const int sa = pg.rpad, sb = pg.mpad;
-    auto issue = [&](int ch, int st) {
+    auto issue = [&](int ch, int st_) {
       const int k0 = ch * kc, kk = min(kc, K - k0);
-      float* As = ringA + st * a_stage;
-      float* Bs = ringB + st * b_stage;
+      float* As = ringA + st_ * a_stage;
+      float* Bs = ringB + st_ * b_stage;
       if (LEFT) {
         const float* src = Op + (size_t)r0 * n + k0;     // As[k][i]
         each_rc(R, kk, [&](int i, int k) {
@@ -275,67 +295,114 @@ struct March {
         const int i0 = LEFT ? u.aoff[s] : u.aoff[s] - b * rpad;
         const int j0 = LEFT ? u.boff[s] - b * mpad : u.boff[s];
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
+        for (int ii = 0; ii < 4; ++ii) {
+          if (i0 + ii >= R) continue;
+          const int e0 = (r0 + i0 + ii) * m + j0;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int i = i0 + ii, j = j0 + jj;
-            if (i < R && j < m) epi(b, (r0 + i) * m + j, acc[s][ii][jj]);
+          for (int j1 = 0; j1 < 4; j1 += EB) {
+            decltype(ld(b, e0)) in[EB];
+#pragma unroll
+            for (int jj = 0; jj < EB; ++jj)
+              if (j0 + j1 + jj < m) in[jj] = ld(b, e0 + j1 + jj);
+#pragma unroll
+            for (int jj = 0; jj < EB; ++jj)
+              if (j0 + j1 + jj < m)
+                st(b, e0 + j1 + jj, acc[s][ii][j1 + jj], in[jj]);
           }
+        }
       }
     }
   }
 
   // Op X_b after a cluster barrier (the peers' rows of X are written)
-  template <class Epi>
+  template <class Ld, class St>
   __device__ __forceinline__ void gemm_l(const float* Op, const float* X,
-                                         Epi epi) {
+                                         Ld ld, St st) {
     cluster.sync();
-    product<true>(Op, X, epi);
+    product<true>(Op, X, ld, st);
   }
   // X_b Op on this band's rows, which this CTA wrote (the barrier: the
   // first chunk's loads must see every thread's last epilogue)
-  template <class Epi>
+  template <class Ld, class St>
   __device__ __forceinline__ void gemm_r(const float* X, const float* Op,
-                                         Epi epi) {
+                                         Ld ld, St st) {
     __syncthreads();
-    product<false>(Op, X, epi);
+    product<false>(Op, X, ld, st);
   }
-  // epi(b, e, (Lx V_b)[e] + (V_b LyT)[e]), each product rounded, then
-  // added; the first goes through the T2 field
-  template <class Epi>
-  __device__ __forceinline__ void lap(const float* V, Epi epi) {
+  // A product whose epilogue stores its value into field D
+  __device__ __forceinline__ void gemm_l_to(const float* Op, const float* X,
+                                            float* D) {
+    const size_t fs = FS;
+    gemm_l(Op, X, [](int, int) { return None{}; },
+           [=](int b, int e, float x, None) { D[b * fs + e] = x; });
+  }
+  __device__ __forceinline__ void gemm_r_to(const float* X, const float* Op,
+                                            float* D) {
+    const size_t fs = FS;
+    gemm_r(X, Op, [](int, int) { return None{}; },
+           [=](int b, int e, float x, None) { D[b * fs + e] = x; });
+  }
+  // st(b, e, (Lx V_b)[e] + (V_b LyT)[e], ld(b, e)), each product rounded,
+  // then added; the first goes through the T2 field
+  template <class Ld, class St>
+  __device__ __forceinline__ void lap(const float* V, Ld ld, St st) {
     float* t2 = F(F_T2);
     const size_t fs = FS;
-    gemm_l(a.Lx, V, [=](int b, int e, float x) { t2[b * fs + e] = x; });
-    gemm_r(V, a.LyT, [&](int b, int e, float x) {
-      epi(b, e, t2[b * fs + e] + x);
+    gemm_l_to(a.Lx, V, t2);
+    gemm_r(V, a.LyT, [&](int b, int e) {
+      return WithT<decltype(ld(b, e))>{t2[b * fs + e], ld(b, e)};
+    }, [&](int b, int e, float x, const auto& in) {
+      st(b, e, in.t + x, in.in);
     });
   }
 
   // ---- passes in the one-member kernel's thread order -------------------
-  // f(b, e) for every element of every member: pair (b, w) is owned by
-  // warp gw of the cluster, its lane l takes e = 32 w + l, + NT, ...
-  template <class Fn>
-  __device__ __forceinline__ void each_elem(Fn f) {
+  // For every element of every member with on(b): pair (b, w) is owned by
+  // warp gw of the cluster, its lane l takes e = 32 w + l, + NT, ...;
+  // ld(b, e) loads what element e needs and st(b, e, loaded) computes and
+  // stores, U elements' loads at a time before their stores.
+  template <class On, class Ld, class St>
+  __device__ __forceinline__ void each_elem(On on, Ld ld, St st) {
     for (int pr = gw; pr < BB * NWARP; pr += C * NWARP) {
       const int b = pr / NWARP;
-      for (int e = (pr % NWARP) * 32 + lane; e < nm; e += NT) f(b, e);
+      if (!on(b)) continue;
+      int e = (pr % NWARP) * 32 + lane;
+      for (; e + (U - 1) * NT < nm; e += U * NT) {
+        decltype(ld(b, e)) in[U];
+#pragma unroll
+        for (int q = 0; q < U; ++q) in[q] = ld(b, e + q * NT);
+#pragma unroll
+        for (int q = 0; q < U; ++q) st(b, e + q * NT, in[q]);
+      }
+      for (; e < nm; e += NT) st(b, e, ld(b, e));
     }
   }
-  // Per-member reductions of NV values: f(b, e, p) adds element e's terms
-  // into the partials p (starting at init) in the one-member kernel's
-  // block_sum (MIN false) or block_min order; fin(b, v) then runs on thread
-  // b of every CTA with the results, and the CTA syncs. Starts with a
-  // cluster barrier: the inputs may lie in the peers' bands.
-  template <int NV, bool MIN, class Fn, class Fin>
-  __device__ __forceinline__ void reduce(float init, Fn f, Fin fin) {
+  // Per-member reductions of NV values: acc(b, e, loaded, p) adds element
+  // e's terms into the partials p (from init; init alone where !on(b)) in
+  // the one-member kernel's block_sum (MIN false) or block_min order, U
+  // elements' loads ahead; fin(b, v) then runs on thread b of every CTA
+  // with the results, and the CTA syncs. Starts with a cluster barrier:
+  // the inputs may lie in the peers' bands.
+  template <int NV, bool MIN, class On, class Ld, class Ac, class Fin>
+  __device__ __forceinline__ void reduce(float init, On on, Ld ld, Ac acc,
+                                         Fin fin) {
     cluster.sync();
     for (int pr = gw; pr < BB * NWARP; pr += C * NWARP) {
       const int b = pr / NWARP, w = pr % NWARP;
       float p[NV];
 #pragma unroll
       for (int v = 0; v < NV; ++v) p[v] = init;
-      for (int e = w * 32 + lane; e < nm; e += NT) f(b, e, p);
+      if (on(b)) {
+        int e = w * 32 + lane;
+        for (; e + (U - 1) * NT < nm; e += U * NT) {
+          decltype(ld(b, e)) in[U];
+#pragma unroll
+          for (int q = 0; q < U; ++q) in[q] = ld(b, e + q * NT);
+#pragma unroll
+          for (int q = 0; q < U; ++q) acc(b, e + q * NT, in[q], p);
+        }
+        for (; e < nm; e += NT) acc(b, e, ld(b, e), p);
+      }
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
 #pragma unroll
@@ -371,15 +438,19 @@ struct March {
     const float *s0 = Q(from, 0), *s1 = Q(from, 1), *s2 = Q(from, 2),
                 *s3 = Q(from, 3);
     float *d0 = Q(to, 0), *d1 = Q(to, 1), *d2 = Q(to, 2), *d3 = Q(to, 3);
-    each_elem([&](int b, int e) {
-      if (!which[b]) return;
-      const size_t o = b * FS + e;
-      const float v0 = s0[o], v1 = s1[o], v2 = s2[o], v3 = s3[o];
-      d0[o] = v0;
-      d1[o] = v1;
-      d2[o] = v2;
-      d3[o] = v3;
-    });
+    const size_t fs = FS;
+    each_elem([&](int b) { return which[b] != 0; },
+              [&](int b, int e) {
+                const size_t o = b * fs + e;
+                return Vals<4>{{s0[o], s1[o], s2[o], s3[o]}};
+              },
+              [&](int b, int e, const Vals<4>& in) {
+                const size_t o = b * fs + e;
+                d0[o] = in.v[0];
+                d1[o] = in.v[1];
+                d2[o] = in.v[2];
+                d3[o] = in.v[3];
+              });
     __syncthreads();
   }
 
@@ -394,21 +465,27 @@ struct March {
     const float *lmu_old = F(F_LMU_OLD), *lphi_old = F(F_LPHI_OLD);
     const size_t fs = FS;
     const FwdConst& k = c;
-    lap(mu, [&](int b, int e, float l) {
+    lap(mu, [&](int b, int e) {
       const size_t i = b * fs + e;
-      rm[i] = (phi[i] - phi_old[i]) * inv_dt - 0.5f * (l + lmu_old[i]);
+      return Vals<3>{{phi[i], phi_old[i], lmu_old[i]}};
+    }, [&](int b, int e, float l, const Vals<3>& in) {
+      rm[b * fs + e] = (in.v[0] - in.v[1]) * inv_dt - 0.5f * (l + in.v[2]);
     });
-    lap(phi, [&](int b, int e, float l) {
+    lap(phi, [&](int b, int e) {
       const size_t i = b * fs + e;
-      const float ph = phi[i], po = phi_old[i];
-      rp[i] = tau_dt * (ph - po) - k.half_kappa * (l + lphi_old[i]) +
-              k.c1 * flog(ph, k) + (-k.two_c2 * po) -
-              0.5f * (mu[i] + mu_old[i]) - 0.5f * (w_new[i] + w_old[i]);
+      return Vals<7>{{phi[i], phi_old[i], lphi_old[i], mu[i], mu_old[i],
+                      w_new[i], w_old[i]}};
+    }, [&](int b, int e, float l, const Vals<7>& in) {
+      const float ph = in.v[0], po = in.v[1];
+      rp[b * fs + e] = tau_dt * (ph - po) - k.half_kappa * (l + in.v[2]) +
+                       k.c1 * flog(ph, k) + (-k.two_c2 * po) -
+                       0.5f * (in.v[3] + in.v[4]) - 0.5f * (in.v[5] + in.v[6]);
     });
-    reduce<2, false>(0.f, [&](int b, int e, float (&p)[2]) {
-      const float vp = rp[b * fs + e], vm = rm[b * fs + e];
-      p[0] += vp * vp;
-      p[1] += vm * vm;
+    reduce<2, false>(0.f, all, [&](int b, int e) {
+      return Vals<2>{{rp[b * fs + e], rm[b * fs + e]}};
+    }, [](int, int, const Vals<2>& in, float (&p)[2]) {
+      p[0] += in.v[0] * in.v[0];
+      p[1] += in.v[1] * in.v[1];
     }, [&](int b, const float (&v)[2]) { norm[b] = sqrtf(v[0] + v[1]); });
   }
 
@@ -422,49 +499,55 @@ struct March {
     const float* lam = a.lam;
     const size_t fs = FS;
     const FwdConst& k = c;
-    auto poly = [&](int e) {
-      const float l = lam[e];
+    auto poly = [&](float l) {
       return (inv_dt - tau_dt * l) + (k.half_kappa * l) * l;
     };
-    reduce<1, false>(0.f, [&](int b, int e, float (&p)[1]) {
-      const size_t i = b * fs + e;
-      const float ph = phi[i];
+    reduce<1, false>(0.f, all, [&](int b, int e) {
+      return Vals<1>{{phi[b * fs + e]}};
+    }, [&](int b, int e, const Vals<1>& in, float (&p)[1]) {
+      const float ph = in.v[0];
       const float d = k.two_c1 / (1.f - nan_clamp(ph * ph, 0.f, k.dsep2));
-      dfield[i] = d;
+      dfield[b * fs + e] = d;
       p[0] += d;
     }, [&](int b, const float (&v)[1]) { ctl.dbar[b] = v[0] / (float)nm; });
-    auto prec = [&](int b, int e, float v) {
-      return v / (poly(e) - ctl.dbar[b] * lam[e]);
+    auto prec = [&](int b, float l, float v) {
+      return v / (poly(l) - ctl.dbar[b] * l);
     };
     auto apply_S = [&](const float* Y, float* OUT) {
-      gemm_l(a.Vx, Y, [&](int b, int e, float v) { T1[b * fs + e] = v; });
-      gemm_r(T1, a.VyT, [&](int b, int e, float v) {
-        T2[b * fs + e] = dfield[b * fs + e] * v;
+      gemm_l_to(a.Vx, Y, T1);
+      gemm_r(T1, a.VyT, [&](int b, int e) {
+        return Vals<1>{{dfield[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<1>& in) {
+        T2[b * fs + e] = in.v[0] * v;
       });
-      gemm_l(a.Vxi, T2, [&](int b, int e, float v) { T1[b * fs + e] = v; });
-      gemm_r(T1, a.VyiT, [&](int b, int e, float v) {
-        const size_t i = b * fs + e;
-        OUT[i] = poly(e) * Y[i] - lam[e] * v;
+      gemm_l_to(a.Vxi, T2, T1);
+      gemm_r(T1, a.VyiT, [&](int b, int e) {
+        return Vals<2>{{lam[e], Y[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<2>& in) {
+        const float l = in.v[0];
+        OUT[b * fs + e] = poly(l) * in.v[1] - l * v;
       });
     };
     // b = to_s(L Rphi - Rmu); x0 = 0
-    lap(rp, [&](int b, int e, float l) {
-      const size_t i = b * fs + e;
-      T1[i] = l - rm[i];
-    });
-    gemm_l(a.Vxi, T1, [&](int b, int e, float v) { T2[b * fs + e] = v; });
-    gemm_r(T2, a.VyiT, [&](int b, int e, float v) {
-      const size_t i = b * fs + e;
-      R0[i] = v;
-      Rr[i] = v;
-      X[i] = 0.f;
-      BX[i] = 0.f;
-      P[i] = 0.f;
-      V[i] = 0.f;
-    });
-    reduce<1, false>(0.f, [&](int b, int e, float (&p)[1]) {
-      const float v = R0[b * fs + e];
-      p[0] += v * v;
+    lap(rp, [&](int b, int e) { return Vals<1>{{rm[b * fs + e]}}; },
+        [&](int b, int e, float l, const Vals<1>& in) {
+          T1[b * fs + e] = l - in.v[0];
+        });
+    gemm_l_to(a.Vxi, T1, T2);
+    gemm_r(T2, a.VyiT, [](int, int) { return None{}; },
+           [&](int b, int e, float v, None) {
+             const size_t i = b * fs + e;
+             R0[i] = v;
+             Rr[i] = v;
+             X[i] = 0.f;
+             BX[i] = 0.f;
+             P[i] = 0.f;
+             V[i] = 0.f;
+           });
+    reduce<1, false>(0.f, all, [&](int b, int e) {
+      return Vals<1>{{R0[b * fs + e]}};
+    }, [](int, int, const Vals<1>& in, float (&p)[1]) {
+      p[0] += in.v[0] * in.v[0];
     }, [&](int b, const float (&v)[1]) {
       ctl.floor2[b] = k.floor_fac * nan_max(v[0], EPS_DIV);
       ctl.r2[b] = v[0];
@@ -472,52 +555,66 @@ struct March {
       ctl.best_r2[b] = v[0];
       ctl.live[b] = 1;
     });
+    auto live = [&](int b) { return ctl.live[b] != 0; };
     // fixed-trip BiCGStab in masked lockstep (common.cuh bicgstab_fixed)
     for (int trip = 0; trip < a.n_trips; ++trip) {
       if (tid < BB)
         ctl.live[tid] = ctl.live[tid] && ctl.r2[tid] > ctl.floor2[tid];
       __syncthreads();
       if (!any8(ctl.live)) break;
-      reduce<1, false>(0.f, [&](int b, int e, float (&p)[1]) {
-        p[0] += R0[b * fs + e] * Rr[b * fs + e];
+      reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{R0[b * fs + e], Rr[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[1];
       }, [&](int b, const float (&v)[1]) {
         ctl.rho_new[b] = v[0];
         ctl.beta[b] = (v[0] / (ctl.rho[b] + EPS_DIV)) *
                       (ctl.kalpha[b] / (ctl.omega[b] + EPS_DIV));
       });
-      each_elem([&](int b, int e) {
-        if (!ctl.live[b]) return;
+      each_elem(live, [&](int b, int e) {
         const size_t o = b * fs + e;
-        const float p = Rr[o] + ctl.beta[b] * (P[o] - ctl.omega[b] * V[o]);
+        return Vals<4>{{Rr[o], P[o], V[o], lam[e]}};
+      }, [&](int b, int e, const Vals<4>& in) {
+        const size_t o = b * fs + e;
+        const float p =
+            in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
         P[o] = p;
-        PH[o] = prec(b, e, p);
+        PH[o] = prec(b, in.v[3], p);
       });
       apply_S(PH, V);
-      reduce<1, false>(0.f, [&](int b, int e, float (&p)[1]) {
-        p[0] += R0[b * fs + e] * V[b * fs + e];
+      reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{R0[b * fs + e], V[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[1];
       }, [&](int b, const float (&v)[1]) {
         ctl.alpha_n[b] = ctl.rho_new[b] / (v[0] + EPS_DIV);
       });
-      each_elem([&](int b, int e) {
-        if (!ctl.live[b]) return;
+      each_elem(live, [&](int b, int e) {
         const size_t o = b * fs + e;
-        const float sv = Rr[o] - ctl.alpha_n[b] * V[o];
+        return Vals<3>{{Rr[o], V[o], lam[e]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        const size_t o = b * fs + e;
+        const float sv = in.v[0] - ctl.alpha_n[b] * in.v[1];
         Sv[o] = sv;
-        SH[o] = prec(b, e, sv);
+        SH[o] = prec(b, in.v[2], sv);
       });
       apply_S(SH, T);
-      reduce<2, false>(0.f, [&](int b, int e, float (&p)[2]) {
-        const float t = T[b * fs + e];
-        p[0] += t * Sv[b * fs + e];
+      reduce<2, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{T[b * fs + e], Sv[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[2]) {
+        const float t = in.v[0];
+        p[0] += t * in.v[1];
         p[1] += t * t;
       }, [&](int b, const float (&v)[2]) {
         ctl.omega_n[b] = v[0] / (v[1] + EPS_DIV);
       });
-      reduce<1, false>(0.f, [&](int b, int e, float (&p)[1]) {
-        if (!ctl.live[b]) return;
+      reduce<1, false>(0.f, live, [&](int b, int e) {
         const size_t o = b * fs + e;
-        X[o] = X[o] + ctl.alpha_n[b] * PH[o] + ctl.omega_n[b] * SH[o];
-        const float r = Sv[o] - ctl.omega_n[b] * T[o];
+        return Vals<5>{{X[o], PH[o], SH[o], Sv[o], T[o]}};
+      }, [&](int b, int e, const Vals<5>& in, float (&p)[1]) {
+        const size_t o = b * fs + e;
+        X[o] = in.v[0] + ctl.alpha_n[b] * in.v[1] + ctl.omega_n[b] * in.v[2];
+        const float r = in.v[3] - ctl.omega_n[b] * in.v[4];
         Rr[o] = r;
         p[0] += r * r;
       }, [&](int b, const float (&v)[1]) {
@@ -538,17 +635,21 @@ struct March {
         ctl.r2[b] = r2n;
       });
       if (any8(ctl.improved))
-        each_elem([&](int b, int e) {
-          if (ctl.improved[b]) BX[b * fs + e] = X[b * fs + e];
-        });
+        each_elem([&](int b) { return ctl.improved[b] != 0; },
+                  [&](int b, int e) { return Vals<1>{{X[b * fs + e]}}; },
+                  [&](int b, int e, const Vals<1>& in) {
+                    BX[b * fs + e] = in.v[0];
+                  });
     }
     // dphi = from_s(best x); dmu = 2 (Kpp dphi + Rphi)
-    gemm_l(a.Vx, BX, [&](int b, int e, float v) { T1[b * fs + e] = v; });
-    gemm_r(T1, a.VyT, [&](int b, int e, float v) { dphi[b * fs + e] = v; });
-    lap(dphi, [&](int b, int e, float l) {
+    gemm_l_to(a.Vx, BX, T1);
+    gemm_r_to(T1, a.VyT, dphi);
+    lap(dphi, [&](int b, int e) {
       const size_t i = b * fs + e;
-      const float kpp = -k.half_kappa * l + (tau_dt + dfield[i]) * dphi[i];
-      dmu[i] = 2.f * (kpp + rp[i]);
+      return Vals<3>{{dfield[i], dphi[i], rp[i]}};
+    }, [&](int b, int e, float l, const Vals<3>& in) {
+      const float kpp = -k.half_kappa * l + (tau_dt + in.v[0]) * in.v[1];
+      dmu[b * fs + e] = 2.f * (kpp + in.v[2]);
     });
   }
 
@@ -564,43 +665,51 @@ struct March {
     const FwdConst& k = c;
 
     // ---- initial state: w0 = 0, mu0 = -kappa L phi0 + f'(phi0), m0 ------
-    reduce<1, false>(0.f, [&](int b, int e, float (&p)[1]) {
-      const float ph = a.phi0[(size_t)(b0 + b) * nm + e];
+    reduce<1, false>(0.f, all, [&](int b, int e) {
+      return Vals<2>{{a.phi0[(size_t)(b0 + b) * nm + e], wts[e]}};
+    }, [&](int b, int e, const Vals<2>& in, float (&p)[1]) {
+      const float ph = in.v[0];
       phi_old[b * fs + e] = ph;
       hist[b * hs + e] = ph;
       w_old[b * fs + e] = 0.f;
-      p[0] += wts[e] * ph;
+      p[0] += in.v[1] * ph;
     }, [&](int b, const float (&v)[1]) {
       ctl.m0[b] = v[0];
       ctl.nsolve[b] = 0;
       ctl.bad[b] = -1;
     });
-    lap(phi_old, [&](int b, int e, float l) {
-      const float ph = phi_old[b * fs + e];
-      mu_old[b * fs + e] = k.neg_kappa * l + k.c1 * flog(ph, k) - k.two_c2 * ph;
-    });
+    lap(phi_old, [&](int b, int e) { return Vals<1>{{phi_old[b * fs + e]}}; },
+        [&](int b, int e, float l, const Vals<1>& in) {
+          const float ph = in.v[0];
+          mu_old[b * fs + e] =
+              k.neg_kappa * l + k.c1 * flog(ph, k) - k.two_c2 * ph;
+        });
 
     for (int step = 0; step < a.M; ++step) {
       const float dt = a.dts[step];
       const float inv_dt = 1.f / dt;
       const float tau_dt = k.tau * inv_dt;
       const float gamma_dt = k.gamma * inv_dt;
-      each_elem([&](int b, int e) {
-        const size_t i = b * fs + e;
+      each_elem(all, [&](int b, int e) {
         const float* un = ub + b * hs + (size_t)step * nm;
-        const float* unp1 = un + nm;
-        w_new[i] = ((gamma_dt - 0.5f) * w_old[i] + 0.5f * (unp1[e] + un[e])) /
-                   (gamma_dt + 0.5f);
+        return Vals<3>{{w_old[b * fs + e], un[e + nm], un[e]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        w_new[b * fs + e] =
+            ((gamma_dt - 0.5f) * in.v[0] + 0.5f * (in.v[1] + in.v[2])) /
+            (gamma_dt + 0.5f);
       });
-      lap(mu_old, [&](int b, int e, float l) { lmu_old[b * fs + e] = l; });
+      lap(mu_old, [](int, int) { return None{}; },
+          [&](int b, int e, float l, None) { lmu_old[b * fs + e] = l; });
       {
         float *qphi = Q(Q_CUR, 0), *qmu = Q(Q_CUR, 1);
-        lap(phi_old, [&](int b, int e, float l) {
+        lap(phi_old, [&](int b, int e) {
+          return Vals<2>{{phi_old[b * fs + e], w_new[b * fs + e]}};
+        }, [&](int b, int e, float l, const Vals<2>& in) {
           const size_t i = b * fs + e;
-          const float ph = phi_old[i];
+          const float ph = in.v[0];
           lphi_old[i] = l;
           qphi[i] = ph;
-          qmu[i] = k.neg_kappa * l + k.c1 * flog(ph, k) - k.two_c2 * ph - w_new[i];
+          qmu[i] = k.neg_kappa * l + k.c1 * flog(ph, k) - k.two_c2 * ph - in.v[1];
         });
       }
 
@@ -630,8 +739,10 @@ struct March {
         // step ceiling of each member
         {
           const float* phi = Q(Q_CUR, 0);
-          reduce<2, true>(INFINITY, [&](int b, int e, float (&p)[2]) {
-            const float dp = dphi[b * fs + e], ph = phi[b * fs + e];
+          reduce<2, true>(INFINITY, all, [&](int b, int e) {
+            return Vals<2>{{dphi[b * fs + e], phi[b * fs + e]}};
+          }, [&](int, int, const Vals<2>& in, float (&p)[2]) {
+            const float dp = in.v[0], ph = in.v[1];
             p[0] = nan_min(p[0], dp > 0.f ? (k.hi - ph) / dp : INFINITY);
             p[1] = nan_min(p[1], dp < 0.f ? (k.lo - ph) / dp : INFINITY);
           }, [&](int b, const float (&v)[2]) {
@@ -651,12 +762,16 @@ struct March {
         for (int j = 0; j < 12 && any8(ctl.searching); ++j) {
           const float *phi = Q(Q_CUR, 0), *mu = Q(Q_CUR, 1);
           float *tphi = Q(Q_TRIAL, 0), *tmu = Q(Q_TRIAL, 1);
-          each_elem([&](int b, int e) {
-            if (!ctl.searching[b]) return;
-            const size_t o = b * fs + e;
-            tphi[o] = phi[o] + ctl.alpha[b] * dphi[o];
-            tmu[o] = mu[o] + ctl.alpha[b] * dmu[o];
-          });
+          each_elem([&](int b) { return ctl.searching[b] != 0; },
+                    [&](int b, int e) {
+                      const size_t o = b * fs + e;
+                      return Vals<4>{{phi[o], dphi[o], mu[o], dmu[o]}};
+                    },
+                    [&](int b, int e, const Vals<4>& in) {
+                      const size_t o = b * fs + e;
+                      tphi[o] = in.v[0] + ctl.alpha[b] * in.v[1];
+                      tmu[o] = in.v[2] + ctl.alpha[b] * in.v[3];
+                    });
           resid(Q_TRIAL, ctl.norm_t, inv_dt, tau_dt);
           if (tid < BB) {
             const int b = tid;
@@ -702,21 +817,26 @@ struct March {
 
       // ---- clip + interior mass correction + sanitizer ----
       const float *phn = Q(Q_CUR, 0), *mun = Q(Q_CUR, 1);
-      reduce<2, false>(0.f, [&](int b, int e, float (&p)[2]) {
-        const float pc = nan_clamp(phn[b * fs + e], k.lo, k.hi);
-        p[0] += wts[e] * pc;
-        p[1] += fabsf(pc) < k.interior_thr ? wts[e] : 0.f;
+      reduce<2, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{phn[b * fs + e], wts[e]}};
+      }, [&](int, int, const Vals<2>& in, float (&p)[2]) {
+        const float pc = nan_clamp(in.v[0], k.lo, k.hi);
+        p[0] += in.v[1] * pc;
+        p[1] += fabsf(pc) < k.interior_thr ? in.v[1] : 0.f;
       }, [&](int b, const float (&v)[2]) {
         ctl.pmass[b] = v[0] - ctl.m0[b];    // the mass error
         ctl.pint[b] = v[1];
         if (!isfinite(ctl.pmass[b]) && ctl.bad[b] < 0) ctl.bad[b] = step;
       });
-      each_elem([&](int b, int e) {
+      each_elem(all, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<3>{{phn[o], mun[o], w_new[o]}};
+      }, [&](int b, int e, const Vals<3>& in) {
         const size_t o = b * fs + e;
         const float mass_error = ctl.pmass[b];
         const float Wint = ctl.pint[b];
         const bool needs_fix = fabsf(mass_error) > 1e-16f;
-        float pc = nan_clamp(phn[o], k.lo, k.hi);
+        float pc = nan_clamp(in.v[0], k.lo, k.hi);
         if (needs_fix) {
           if (Wint > 0.f) {
             if (fabsf(pc) < k.interior_thr) pc = pc - mass_error / Wint;
@@ -726,8 +846,8 @@ struct March {
         }
         phi_old[o] = pc;
         hist[b * hs + (size_t)(step + 1) * nm + e] = pc;
-        mu_old[o] = mun[o];
-        w_old[o] = w_new[o];
+        mu_old[o] = in.v[1];
+        w_old[o] = in.v[2];
       });
       __syncthreads();
     }

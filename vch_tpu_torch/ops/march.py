@@ -398,7 +398,7 @@ BLOCK_MEMBERS = 8          # members per block, one block per cluster
 BLOCKED_SMEM_LIMIT = 232_448 - 4096   # dynamic shared memory per CTA: an
                                       # H100's 232,448 bytes less the
                                       # kernel's static control block
-_BLOCKED_UNITS = 4 * 256   # 4 x 4 output units of one pass: 4 per thread
+_BLOCKED_UNITS = 3 * 256   # 4 x 4 output units of one pass: 3 per thread
 _BLOCKED_KC = (32, 16, 8, 4)   # k rows per ring stage, the largest that fits
 
 
@@ -407,7 +407,7 @@ class BlockedGeometry(NamedTuple):
     `bands` holds each rank's (first row, rows) of every member's field, in
     rank order; bands are stored `rows_pad` rows of `m_pad` floats apart in
     the ring; a product of the block has `units` 4 x 4 output units, run in
-    `passes` of at most 1024; its operands stream through a two-stage ring of
+    `passes` of at most 768; its operands stream through a two-stage ring of
     `kc` k rows; `smem_bytes` is the dynamic shared memory of one CTA."""
     cluster: int
     bands: tuple

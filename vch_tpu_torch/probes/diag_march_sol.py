@@ -8,12 +8,14 @@ Times three things and sets them side by side:
   march    ForwardSolver2D.march_fused_batch at N = n, B = b, T = 1, float32,
            newton_tol 2e-4, u = 0, phi0 from init_phi_random_2d(N, N,
            DELTA_SEP, amp=0.1, seed=42 + i), in both forms: the member-blocked
-           kernel (fused_march_block=None: 8 members per CTA at this grid) and
-           one member per CTA (fused_march_block=0); per Newton solve = time /
-           the Newton solves the march reports (the script's us_per_solve),
-           and per solve inside one CTA = time x CTAs / solves
-           (us_per_solve_cta): the B / block CTAs run at once on their own
-           SMs, not one after another as the TPU's grid cells do, so the
+           kernel (fused_march_block=None: 8 members per thread-block cluster
+           of C CTAs at this grid, ops.march.launch_geometry) and one member
+           per CTA (fused_march_block=0); per Newton solve = time / the
+           Newton solves the march reports (the script's us_per_solve), and
+           per solve inside one CTA = time x CTAs / solves
+           (us_per_solve_cta): the CTAs (B / 8 x C blocked, B one member
+           each) run at once on their own SMs, not one after another as the
+           TPU's grid cells do, so the
            chain (one CTA) is set beside the per-CTA time (chain_share_cta)
            as well as the script's ratio (chain_share);
   chain    `ops.probe_kernels.matmul_chain` at K = 1 on one member: the same
@@ -43,6 +45,7 @@ import vch_tpu_torch  # noqa: F401  (pins TF32 off)
 from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 from vch_tpu_torch.ops import probe_kernels as pk
+from vch_tpu_torch.ops.march import launch_geometry
 from vch_tpu_torch.ops.potential import init_phi_random_2d
 from vch_tpu_torch.probes._timing import cuda_device, time_ms
 
@@ -81,7 +84,9 @@ def _march(n: int, b: int, block, device, reps: int):
     ms = time_ms(lambda: last.update(r=s.march_fused_batch(u, phi0)), reps)
     solves = int(last["r"][1].sum().item())
     bb = cfg.resolved_fused_block()
-    ctas = b // bb if bb and b % bb == 0 else b
+    ctas = b
+    if bb and b % bb == 0:     # B / 8 clusters of C CTAs
+        ctas = b // bb * launch_geometry(n + 1, n + 1, b, device).cluster
     return {"block": bb, "march_ms": ms, "solves": solves,
             "us_per_solve": ms * 1e3 / solves, "ctas": ctas,
             "us_per_solve_cta": ms * 1e3 * ctas / solves}, s
