@@ -459,8 +459,8 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
         cluster=g.cluster, ctas=B // 8 * g.cluster,
         band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
         kc=g.kc, smem_bytes=g.smem_bytes,
-        resident_clusters=km._resident_clusters(idx, n, n, g.cluster, g.kc,
-                                                g.smem_bytes))
+        resident_clusters=km.resident_clusters(idx, n, n, g.cluster, g.kc,
+                                               g.smem_bytes))
     out["march_bound_ms"], out["march_bound_by"] = _bound(*_march_work(
         n, B, M, out["newton_blocked_total"],
         fwd.config.fused_krylov_fixed_iters))

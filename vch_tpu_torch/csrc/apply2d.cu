@@ -20,8 +20,9 @@
 //
 // All three (rows 13-15) run one member on a thread-block cluster of C CTAs
 // (C from n alone: 4 at n <= 96, 8 at n <= 192, else 16, the non-portable
-// size), launched with cudaLaunchKernelEx. CTA r of a cluster owns a band of about
-// n / C rows of every field of its member, in its own shared memory:
+// size), launched with cudaLaunchKernelEx. CTA r of a cluster owns a band
+// of about n / C rows of every field of its member, in its own shared
+// memory:
 //   - a right product X Op (Op = LyT, VyiT, VyT) is band-local: CTA r forms
 //     X[band_r, :] Op, streaming Op's rows from L2;
 //   - a left product Op X (Op = Lx, Vxi, Vx) sums over the peers' bands:
@@ -32,9 +33,9 @@
 // one cluster barrier between the two halves of each apply, one after the
 // field is loaded and one before exit (a CTA's shared memory must outlive
 // its peers' reads). The product engine is tile4.cuh's. Each product is
-// register-blocked: a thread accumulates
-// 4 x 4 outputs per unit (one to four units) from float4 shared-memory reads
-// of a k-major A slab and a row-major B slab; the slabs of chunk c + 1 load
+// register-blocked: a thread accumulates 4 x 4 outputs per unit (one to
+// four units) from float4 shared-memory reads of a k-major A slab and a
+// row-major B slab; the slabs of chunk c + 1 load
 // while chunk c's FMAs run (operator rows from L2 by 4-byte cp.async into a
 // two-stage ring, a peer's band through registers), so a chunk's load
 // latency is hidden behind the previous chunk's arithmetic. Ragged edges are
@@ -59,7 +60,6 @@ struct Scalars {
     return scal ? scal[i] : sv[i];
   }
 };
-
 
 constexpr int MAX_CLUSTER = 16;
 constexpr int MAX_UNITS = 4;    // 4 x 4 output units per thread, at most

@@ -9,7 +9,8 @@
 // filled by cp.async (Ring). left_product and right_product are the two
 // products of one member's band (apply2d.cu); each_output and add_to are
 // their epilogue helpers. The blocked march (march2d_blocked.cu) runs its
-// eight members' stacked products on the same units and slot loop. Full float32 FMA: no tensor cores, no TF32.
+// eight members' stacked products on the same units and slot loop. Full
+// float32 FMA: no tensor cores, no TF32.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -21,6 +22,7 @@ namespace vch {
 namespace cg = cooperative_groups;
 
 constexpr int PF_MAX = 12;      // float4s of a peer band per thread in flight
+
 // The cluster's split of an (n, m) member, the same on host and device (the
 // Python wrapper computes it too, ops/solve_kernels.py apply_geometry). A
 // chunk of a left product is one peer band; of a right product, ks = f rmax

@@ -6,10 +6,10 @@ entry point a solver calls, per-solve kernels of ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
 hand-written kernels of `csrc/march2d.cu`, `csrc/march2d_blocked.cu`,
-`csrc/adjoint2d.cu` and `csrc/march1d.cu` (float32 only; anything else raises), on CPU tensors it
-runs its plain PyTorch version `<name>_plain` of this module. There is no
-fallback from one to the other. Each wrapper counts its kernel launches in
-`.launches`.
+`csrc/adjoint2d.cu` and `csrc/march1d.cu` (float32 only; anything else
+raises), on CPU tensors it runs its plain PyTorch version `<name>_plain` of
+this module. There is no fallback from one to the other. Each wrapper counts
+its kernel launches in `.launches`.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -427,8 +427,7 @@ def blocked_cluster_size(n: int, B: int, sms: int,
     n whose B / 8 clusters fit in the card's `sms` SMs at once, at least 1."""
     blocks = B // BLOCK_MEMBERS
     C = 1
-    while (2 * C <= min(max_cluster, n)
-           and blocks * 2 * C <= sms):
+    while 2 * C <= min(max_cluster, n) and blocks * 2 * C <= sms:
         C *= 2
     return C
 
@@ -465,8 +464,13 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
 
 
 @lru_cache(maxsize=64)
-def _resident_clusters(device_index, n, m, C, kc, smem):
-    return _build.load().vch_march_blocked_max_clusters(n, m, C, kc, smem)
+def resident_clusters(device_index, n, m, C, kc, smem):
+    """How many clusters of the blocked march with this geometry the card
+    holds at once (cudaOccupancyMaxActiveClusters; negative: a CUDA
+    error)."""
+    with torch.cuda.device(device_index):
+        return _build.load().vch_march_blocked_max_clusters(n, m, C, kc,
+                                                            smem)
 
 
 def launch_geometry(n: int, m: int, B: int, device) -> BlockedGeometry:
@@ -478,10 +482,10 @@ def launch_geometry(n: int, m: int, B: int, device) -> BlockedGeometry:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
     geo = blocked_geometry(n, m, B, sms)
-    fit = _resident_clusters(idx, n, m, geo.cluster, geo.kc, geo.smem_bytes)
+    fit = resident_clusters(idx, n, m, geo.cluster, geo.kc, geo.smem_bytes)
     if geo.cluster > 8 and fit < B // BLOCK_MEMBERS:
         geo = blocked_geometry(n, m, B, sms, max_cluster=8)
-        fit = _resident_clusters(idx, n, m, geo.cluster, geo.kc,
+        fit = resident_clusters(idx, n, m, geo.cluster, geo.kc,
                                  geo.smem_bytes)
     if fit <= 0:
         raise RuntimeError(
