@@ -21,8 +21,16 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                bound at each shape; the segment
                kernels chained over two segments, K = 5 at n = 65, B = 4,
                and K = 10 at phase 6's grid n = 257, B = 2, each launch
-               against its plain version and the chain against the whole
-               march and sweep;
+               against its plain version, each segment march launch (one
+               member per thread-block cluster) against the one-CTA oracle
+               of march2d.cu bit for bit, and the chain against the whole
+               march and sweep; the segment march and its one-CTA oracle
+               timed in turns at n = 257, K = 10, B = 1, 2, 8, 16 and 32
+               (phase 6's batch and its straggler buckets), with the
+               cluster geometry and the bound, and at B = 8, 16, 32 on
+               the cluster sizes the SM count alone gives and on smaller
+               ones (the launch geometry takes the largest whose clusters
+               the card holds all at once);
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
@@ -79,6 +87,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
                one warm-up iteration, then 3 timed PGD iterations with the
                kernel launch counters reset just before (per-member kernels);
+               then the march kernel alone at that shape, with its bound;
   4s scan    — a main path: config 4's shape on the scan path
                (BatchedProblem2D(fused_march=False)), one warm-up and one
                timed PGD iteration, the spectral per-solve kernels at
@@ -90,7 +99,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                ramp targets, routed by make_batched_problem_2d under the
                largest device-memory limit its full-memory estimate does
                not fit; one warm-up and one timed iteration (segment
-               kernels), whose peak must stay within that limit;
+               kernels), whose peak must stay within that limit; the
+               segment kernels' launches and CUDA-event milliseconds inside
+               the timed iteration, by batch, with their bounds at B = 32;
   7 memory   — peak device memory of the full-memory problem at config 4's
                grid, B = 64 and 128 at T = 1 and B = 128 at T = 0.1, over S
                (one trajectory-shaped array) and over the estimate
@@ -464,6 +475,8 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
     out["march_bound_ms"], out["march_bound_by"] = _bound(*_march_work(
         n, B, M, out["newton_blocked_total"],
         fwd.config.fused_krylov_fixed_iters))
+    out["adjoint_bound_ms"], out["adjoint_bound_by"] = _bound(*_adjoint_work(
+        n, B, M, fwd.config.adjoint_krylov_fixed_iters))
     return out
 
 
@@ -497,7 +510,8 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
     low-memory path chains them, against the whole march and sweep kernels;
     each segment launch against its plain version on the same inputs, in
     float32 on the card and in float64 (and, for the sweep, in float32 on
-    the CPU: the spread of two float32 implementations)."""
+    the CPU: the spread of two float32 implementations); each segment march
+    launch against the one-CTA oracle on the same inputs, bit for bit."""
     from vch_tpu_torch.ops import march as km
 
     solvers, x, x64 = _problem_inputs(torch, n, B, T, device)
@@ -520,10 +534,14 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
     frames, ns, ns_plain = [], torch.zeros_like(wns), torch.zeros_like(wns)
     err_march, seg_ms, seg_plain_ms = 0.0, [], []
     mk64, mp64 = [0.0] * 4, [0.0] * 4     # (hist, phi, mu, w) vs float64
+    oracle_equal = True
     for start in range(0, M, K):
         u_seg = x["u"][:, start:start + K + 1].contiguous()
         sargs = (fwd.dts[start:start + K], phi, mu, w, m0, u_seg)
         ks = km.march_fused_2d_segment(*sargs, *fwd._ops(), **fwd._march_kw())
+        ko = km._march_fused_2d_segment_cta(*sargs, *fwd._ops(),
+                                            **fwd._march_kw())
+        oracle_equal &= all(torch.equal(a, b) for a, b in zip(ks, ko))
         ms, ps = _host_ms(torch, lambda: km.march_fused_2d_segment_plain(
             *sargs, *fwd._ops(), **fwd._march_kw()))
         ps64 = km.march_fused_2d_segment_plain(*f64(sargs), *fwd64._ops(),
@@ -578,6 +596,7 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
     adj.entries = km.KERNELS
     torch.cuda.synchronize()
     return dict(n=n, B=B, M=M, K=K,
+                cluster_equals_cta=bool(oracle_equal),
                 max_abs_dphi_chain_vs_whole=dist(hist, wh),
                 dphi_chain_vs_f64=dist(hist, h64),
                 dphi_plain_vs_f64=dist(ph, h64),
@@ -600,8 +619,10 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
 
 
 def check_segment_case(c, short: bool):
-    """Phase 2b gates of the segment chain. Newton counts of the chain equal
-    the whole march's and the plain segments', member for member.
+    """Phase 2b gates of the segment chain. Every segment march launch is
+    bit for bit its one-CTA oracle's (history, carry out, Newton counts,
+    first_bad). Newton counts of the chain equal the whole march's and the
+    plain segments', member for member.
 
     - Short case (n = 65): the chain reproduces the whole march's history
       within 1e-5 (mu at t = 0 is formed outside the kernel: roundoff, not
@@ -621,6 +642,9 @@ def check_segment_case(c, short: bool):
     """
     fails = []
     tag = f"n={c['n']} B={c['B']} K={c['K']}"
+    if not c["cluster_equals_cta"]:
+        fails.append("the cluster segment march differs from the one-CTA "
+                     "oracle")
     if c["newton_chain"] != c["newton_whole"]:
         fails.append(f"Newton counts {c['newton_chain']} vs whole "
                      f"{c['newton_whole']}")
@@ -658,6 +682,74 @@ def check_segment_case(c, short: bool):
                          f"{ceiling}")
     if fails:
         raise RuntimeError(f"segment chain {tag}: " + "; ".join(fails))
+
+
+def segment_timing(torch, device, n=257, B=32, K=10, reps=1, clusters=()):
+    """Phase 2b: one K-step segment march of B members from seeded initial
+    conditions under a seeded control, on the cluster kernel and on the
+    one-CTA oracle, bit-gated against each other and timed in turns
+    (oracle, cluster, cluster, oracle; CUDA events), with the cluster
+    geometry and the bound (_march_work on the measured Newton total);
+    then on each cluster size of `clusters` in place of the launch
+    geometry's, bit-gated and timed likewise, with how many such clusters
+    the card holds at once."""
+    from vch_tpu_torch.config import DELTA_SEP
+    from vch_tpu_torch.models.forward2d import ForwardSolver2D
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops.potential import init_phi_random_2d
+
+    fwd = ForwardSolver2D(_config(n - 1, T=K * 0.01), device=device)
+    if fwd.M != K:
+        raise RuntimeError(f"segment timing: {fwd.M} steps, expected {K}")
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    phi0 = f32(np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP,
+                                            amp=0.1, seed=42 + i)
+                         for i in range(B)]))
+    u = f32(0.1 * rng.standard_normal((B, K + 1, n, n)))
+    w = torch.zeros_like(phi0)
+    args = (fwd.dts, phi0, fwd.initialize_mu(phi0, w), w,
+            torch.sum(fwd.wts * phi0, dim=(-2, -1)), u) + fwd._ops()
+    new = lambda: km.march_fused_2d_segment(*args, **fwd._march_kw())
+    old = lambda: km._march_fused_2d_segment_cta(*args, **fwd._march_kw())
+    ks, ko = new(), old()
+    torch.cuda.synchronize()
+    out = dict(n=n, B=B, K=K,
+               cluster_equals_cta=all(torch.equal(a, b)
+                                      for a, b in zip(ks, ko)),
+               newton_total=int(ks[4].sum()))
+    for name, fn in (("cta", old), ("cluster", new), ("cluster", new),
+                     ("cta", old)):
+        out.setdefault(f"{name}_ms", []).append(time_ms(fn, reps))
+    g = km.launch_geometry(n, n, B, device, members=km.SEGMENT_MEMBERS)
+    idx = torch.device(device).index or 0
+    out["geometry"] = dict(
+        cluster=g.cluster, ctas=B * g.cluster,
+        band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
+        kc=g.kc, smem_bytes=g.smem_bytes,
+        resident_clusters=km.resident_clusters(idx, n, n, g.cluster, g.kc,
+                                               g.smem_bytes, g.members))
+    out["bound_ms"], out["bound_by"] = _bound(*_march_work(
+        n, B, K, out["newton_total"], fwd.config.fused_krylov_fixed_iters,
+        segment=True))
+    fitted = km.launch_geometry
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    try:
+        for C in clusters:
+            gc = km.blocked_geometry(n, n, B, sms, cluster=C,
+                                     members=km.SEGMENT_MEMBERS)
+            km.launch_geometry = lambda *a, **k: gc
+            kc_ = new()
+            out.setdefault("other_clusters", []).append(dict(
+                cluster=C, equal=all(torch.equal(a, b)
+                                     for a, b in zip(kc_, ko)),
+                ms=[time_ms(new, reps) for _ in range(2)],
+                resident_clusters=km.resident_clusters(
+                    idx, n, n, C, gc.kc, gc.smem_bytes, gc.members)))
+    finally:
+        km.launch_geometry = fitted
+    del ks, ko, args, u
+    return out
 
 
 SOLVE_KERNELS = ("bicgstab_schur_spectral", "bicgstab_schur",
@@ -1996,9 +2088,50 @@ def _bench_sweep(cfg, B, materialize=True):
     return tile_batch(sc, B)
 
 
-def pgd_run(torch, device, prob, sc, iters):
+class EntryTimer:
+    """A solver entry wrapped in CUDA events: each call's batch, its
+    start and end events on the current stream and, for a march, its
+    Newton counts (B,). Keeps no output field, so it adds nothing to a
+    peak-memory reading."""
+
+    def __init__(self, torch, fn, newton_at=None):
+        self.torch, self.fn, self.newton_at = torch, fn, newton_at
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        ev = lambda: self.torch.cuda.Event(enable_timing=True)
+        start, end = ev(), ev()
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        ns = None if self.newton_at is None else out[self.newton_at]
+        self.calls.append((args[1].shape[0], start, end, ns))
+        return out
+
+    def clear(self):
+        self.calls = []
+
+    def summary(self):
+        """Launches and device ms in all, and by batch: launches, ms in all
+        and per launch, Newton solves in all (a march)."""
+        self.torch.cuda.synchronize()
+        by = {}
+        for B, start, end, ns in self.calls:
+            d = by.setdefault(B, dict(launches=0, ms=0.0, newton=0))
+            d["launches"] += 1
+            d["ms"] += start.elapsed_time(end)
+            if ns is not None:
+                d["newton"] += int(ns.sum())
+        for d in by.values():
+            d["ms_per_launch"] = d["ms"] / d["launches"]
+        return dict(launches=len(self.calls),
+                    ms=sum(d["ms"] for d in by.values()), by_batch=by)
+
+
+def pgd_run(torch, device, prob, sc, iters, before_timed=None):
     """A main path: one warm-up PGD iteration, then `iters` timed ones with
-    every kernel launch count reset to 0 just before and read just after."""
+    every kernel launch count reset to 0 just before and read just after
+    (before_timed, if given, runs just before too)."""
     from vch_tpu_torch.ops import march as km
 
     t0 = time.perf_counter()
@@ -2006,6 +2139,8 @@ def pgd_run(torch, device, prob, sc, iters):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(device)
     prob.straggler_rounds = 0
+    if before_timed is not None:
+        before_timed()
     km.reset_launches()                                 # the main path's run
     t0 = time.perf_counter()
     out = prob.run(sc, max_iter=iters, verbose=False)
@@ -2110,7 +2245,8 @@ def main():
             "spill-store bytes per kernel: " + _ptxas_summary(_build.ptxas_log)
          + " | apply2d.cu cluster_apply_kernel<VAR,S>: "
          + _ptxas_named(_build.ptxas_log, "cluster_apply_kernel")
-         + " | march2d_blocked.cu march_blocked_kernel: "
+         + " | march2d_blocked.cu march_blocked_kernel<MB> (8: the blocked "
+         "march, 1: the segment march): "
          + _ptxas_named(_build.ptxas_log, "march_blocked_kernel"))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
@@ -2134,11 +2270,25 @@ def main():
     _log("2b", json.dumps(seg))
     seg257 = segment_case(torch, device, n=257, B=2, K=10, T=0.2, reps=1)
     _log("2b", json.dumps(seg257))
+    # each batch also on the clusters the SM count alone would give and on
+    # a smaller one, where those differ from the launch geometry's
+    other = {8: (16, 8), 16: (8, 4), 32: (4, 2)}
+    seg_times = {B: segment_timing(torch, device, B=B,
+                                   clusters=other.get(B, ()))
+                 for B in (1, 2, 8, 16, 32)}
+    for c in seg_times.values():
+        _log("2b", json.dumps(c) + f" | {name} | {smi}")
     check_blocked_case(blk8, short=True)
     check_blocked_case(blk512, short=False)
     check_blocked_case(blk64, short=False)
     check_segment_case(seg, short=True)
     check_segment_case(seg257, short=False)
+    for c in seg_times.values():
+        if not (c["cluster_equals_cta"]
+                and all(o["equal"] for o in c.get("other_clusters", ()))):
+            raise RuntimeError(f"segment march n={c['n']} B={c['B']}: the "
+                               "cluster kernel differs from the one-CTA "
+                               "oracle")
 
     solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
               for n in (65, 129, 257) for B in (None, 4)]
@@ -2224,19 +2374,39 @@ def main():
     per_member = ("march_fused_2d", "adjoint_fused_2d")
     blocked = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked")
     segment = ("march_fused_2d_segment", "adjoint_fused_2d_segment")
+    # the one-CTA segment kernel is the segment march's oracle, which no
+    # main path launches
+    oracle = ("_march_fused_2d_segment_cta",)
+    idle_segment = segment + oracle
     march_1d = ("march_fused_1d",)
+    trips_fwd = _config(64).fused_krylov_fixed_iters
+    trips_adj = _config(64).adjoint_krylov_fixed_iters
 
     cfg4 = _config(128)
-    c4 = pgd_run(torch, device, BatchedProblem2D(cfg4, device=device),
-                 _bench_sweep(cfg4, 128), iters=3)
+    prob4, sc4 = BatchedProblem2D(cfg4, device=device), _bench_sweep(cfg4, 128)
+    c4 = pgd_run(torch, device, prob4, sc4, iters=3)
+    # the march kernel alone at this shape, on the run's initial conditions
+    # and a seeded control, with its bound on the measured Newton total
+    x4 = {"phi0": torch.as_tensor(sc4.phi0, dtype=torch.float32,
+                                  device=device),
+          "u": 0.05 * torch.randn(
+              (128, prob4.solver.M + 1, 129, 129), device=device,
+              generator=torch.Generator(device).manual_seed(0))}
+    _, ns4, _ = prob4.solver.march_fused_batch(x4["u"], x4["phi0"])
+    c4["march_ms_full_shape"] = time_ms(
+        lambda: prob4.solver.march_fused_batch(x4["u"], x4["phi0"]), 1)
+    c4["march_newton_full_shape"] = int(ns4.sum())
+    c4["march_bound_ms_full_shape"], _ = _bound(*_march_work(
+        129, 128, prob4.solver.M, c4["march_newton_full_shape"], trips_fwd))
+    del prob4, x4, ns4
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
-    check_main_path(c4, per_member, blocked + segment + march_1d)
+    check_main_path(c4, per_member, blocked + idle_segment + march_1d)
 
     scan_solves = ("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
     prob4s, sc4s, c4s = scan_full_width(
         torch, device, fused_mean_cost=c4["mean_cost_history"][1])
     _log("4s", json.dumps(c4s) + f" | {name} | {smi}")
-    check_main_path(c4s, scan_solves, per_member + blocked + segment
+    check_main_path(c4s, scan_solves, per_member + blocked + idle_segment
                     + march_1d + ("bicgstab_schur", "bicgstab_adjoint"))
 
     cfg64 = _config(64)
@@ -2245,7 +2415,7 @@ def main():
         raise RuntimeError(f"64x64 B=512 routed to {type(prob5).__name__}")
     c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3)
     _log(5, json.dumps(c5) + f" | {name} | {smi}")
-    check_main_path(c5, blocked, per_member + segment + march_1d)
+    check_main_path(c5, blocked, per_member + idle_segment + march_1d)
 
     # the largest limit under which the full-memory estimate does not fit
     # (est6 > 0.75 limit): the low-memory arm must run within it
@@ -2261,14 +2431,30 @@ def main():
     prob6 = route6(limit6)
     if not isinstance(prob6, LowMemBatchedProblem2D):
         raise RuntimeError(f"256x256 B=32 routed to {type(prob6).__name__}")
+    # CUDA events around every segment launch of the timed iteration
+    seg_m = EntryTimer(torch, prob6.solver.entries.march_segment, newton_at=4)
+    seg_a = EntryTimer(torch, prob6.adj.entries.adjoint_segment)
+    prob6.solver.entries = prob6.solver.entries._replace(march_segment=seg_m)
+    prob6.adj.entries = prob6.adj.entries._replace(adjoint_segment=seg_a)
     c6 = pgd_run(torch, device, prob6,
-                 _bench_sweep(cfg256, 32, materialize=False), iters=1)
+                 _bench_sweep(cfg256, 32, materialize=False), iters=1,
+                 before_timed=lambda: (seg_m.clear(), seg_a.clear()))
     S6 = _traj_bytes(cfg256, 32, prob6.solver.M)
-    c6.update(K=prob6.pipe.K, segments=prob6.pipe.S,
+    K6 = prob6.pipe.K
+    c6.update(K=K6, segments=prob6.pipe.S,
               full_memory_estimate_bytes=est6, limit_bytes=limit6,
-              peak_over_S=c6["peak_bytes"] / S6)
+              peak_over_S=c6["peak_bytes"] / S6,
+              segment_march=seg_m.summary(), segment_adjoint=seg_a.summary())
+    m32 = c6["segment_march"]["by_batch"].get(32)
+    if m32:
+        c6["segment_march_bound_ms_b32"], _ = _bound(*_march_work(
+            257, 32, K6, m32["newton"] / m32["launches"], trips_fwd,
+            segment=True))
+    c6["segment_adjoint_bound_ms_b32"], _ = _bound(*_adjoint_work(
+        257, 32, K6, trips_adj, segment=True))
     _log(6, json.dumps(c6) + f" | {name} | {smi}")
-    check_main_path(c6, segment, per_member + blocked + march_1d)
+    check_main_path(c6, segment, per_member + blocked + march_1d
+                    + oracle)
     if c6["peak_bytes"] > limit6:
         raise RuntimeError(f"low-memory peak {c6['peak_bytes']} B exceeds "
                            f"the limit it was routed under, {limit6} B")
@@ -2306,7 +2492,7 @@ def main():
         lambda: prob9.solver.march_fused_batch(x9["u"], x9["phi0"]), 1)
     c9["entries_are_kernels"] = prob9.solver.entries is km.KERNELS
     _log(9, json.dumps(c9) + f" | {name} | {smi}")
-    check_main_path(c9, march_1d, per_member + blocked + segment
+    check_main_path(c9, march_1d, per_member + blocked + idle_segment
                     + tuple(SOLVE_KERNELS) + tuple(APPLY_KERNELS))
     if not c9["entries_are_kernels"]:
         raise RuntimeError("config 2: solver entries are not the kernels")
@@ -2349,13 +2535,12 @@ def main():
 
     mean = lambda v: float(np.mean(v))
     march_cu = "vch_tpu_torch/csrc/march2d.cu"
+    cluster_cu = "vch_tpu_torch/csrc/march2d_blocked.cu"
     adj_cu = "vch_tpu_torch/csrc/adjoint2d.cu"
     solve_cu = "vch_tpu_torch/csrc/solve2d.cu"
     pm = "vch_tpu/ops/pallas_march.py"
     pk = "vch_tpu/ops/pallas_kernels.py"
     seg_newton = sum(seg257["newton_chain"]) / (seg257["M"] // seg257["K"])
-    trips_fwd = _config(64).fused_krylov_fixed_iters
-    trips_adj = _config(64).adjoint_krylov_fixed_iters
     trips_1d = _config(64).krylov_fixed_iters    # the 1D march's trips
     kernels = [
         entry("march_fused_2d", march_cu, f"{pm}:393",
@@ -2367,8 +2552,7 @@ def main():
               c4["launches"]["adjoint_fused_2d"], long["max_abs_dr"],
               long["adjoint_ms"], long["adjoint_plain_ms"],
               _adjoint_work(long["n"], long["B"], long["M"], trips_adj)),
-        entry("march_fused_2d_blocked",
-              "vch_tpu_torch/csrc/march2d_blocked.cu", f"{pm}:1649",
+        entry("march_fused_2d_blocked", cluster_cu, f"{pm}:1649",
               c5["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
               mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"],
               _march_work(blk8["n"], blk8["B"], blk8["M"],
@@ -2377,7 +2561,7 @@ def main():
               c5["launches"]["adjoint_fused_2d_blocked"], blk8["max_abs_dr"],
               mean(blk8["adjoint_blocked_ms"]), blk8["adjoint_plain_ms"],
               _adjoint_work(blk8["n"], blk8["B"], blk8["M"], trips_adj)),
-        entry("march_fused_2d_segment", march_cu, f"{pm}:479",
+        entry("march_fused_2d_segment", cluster_cu, f"{pm}:479",
               c6["launches"]["march_fused_2d_segment"],
               seg257["max_abs_err_march"], seg257["march_ms"],
               seg257["march_plain_ms"],

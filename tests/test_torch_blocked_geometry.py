@@ -1,15 +1,17 @@
-"""The cluster geometry of the member-blocked march
+"""The cluster geometry of the cluster march
 (`vch_tpu_torch.ops.march.blocked_geometry`): how a block of eight members
-is split over a thread-block cluster, how many CTAs a block takes on a card
-of a given SM count, and the shared memory each CTA needs. The CUDA kernel
+(the member-blocked march) or one member (the segment march) is split over
+a thread-block cluster, how many CTAs a block takes on a card of a given SM
+count, and the shared memory each CTA needs. The CUDA kernel
 (csrc/march2d_blocked.cu) recomputes the split and the shared memory from
 (n, m, cluster, kc) and refuses a launch whose numbers differ, so these CPU
 tests hold the kernel's split too."""
 import pytest
 
 from vch_tpu_torch.config import ForwardSolverConfig2D
-from vch_tpu_torch.ops.march import (BLOCKED_SMEM_LIMIT, blocked_cluster_size,
-                                     blocked_geometry)
+from vch_tpu_torch.ops.march import (BLOCKED_SMEM_LIMIT, SEGMENT_MEMBERS,
+                                     blocked_cluster_size, blocked_geometry,
+                                     fitted_geometry)
 
 H100_SMS = 132
 
@@ -112,3 +114,121 @@ def test_a_cluster_override_past_n_or_16_raises():
             blocked_geometry(65, 65, 8, H100_SMS, cluster=bad)
     with pytest.raises(ValueError, match="cluster size"):
         blocked_geometry(12, 12, 8, H100_SMS, cluster=16)
+
+
+@pytest.mark.parametrize("n,m,B", [(65, 65, 512), (65, 65, 64), (33, 29, 8),
+                                   (97, 97, 16)])
+def test_eight_members_per_cluster_is_the_default(n, m, B):
+    g = blocked_geometry(n, m, B, H100_SMS)
+    assert g.members == 8
+    assert g == blocked_geometry(n, m, B, H100_SMS, members=8)
+    assert g.cluster == blocked_cluster_size(n, B, H100_SMS, members=8)
+
+
+# ---- one member per cluster: the segment march ---------------------------
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8, 16])
+def test_one_member_bands_cover_every_row_once_at_257(C):
+    g = blocked_geometry(257, 257, 2, H100_SMS, cluster=C,
+                         members=SEGMENT_MEMBERS)
+    assert g.members == 1 and g.cluster == C and len(g.bands) == C
+    row = 0
+    for start, rows in g.bands:
+        assert start == row and rows >= 1
+        row += rows
+    assert row == 257
+    assert g.rows_max == max(r for _, r in g.bands)
+    assert max(r for _, r in g.bands) - min(r for _, r in g.bands) <= 1
+    assert g.rows_pad % 4 == 0 and g.rows_max <= g.rows_pad < g.rows_max + 4
+    assert g.units == (g.rows_pad // 4) * (g.m_pad // 4)
+
+
+@pytest.mark.parametrize("B,C", [(1, 16), (2, 16), (4, 16), (8, 16),
+                                 (16, 8), (32, 4)])
+def test_one_member_cluster_follows_the_batch_and_the_sms(B, C):
+    """The largest power of two up to 16 and n with B C <= 132: phase 6's
+    B = 32 on clusters of 4 (128 CTAs), its straggler buckets and B = 1-2
+    on 16 (8 where the occupancy query cannot hold every 16-cluster)."""
+    assert blocked_cluster_size(257, B, H100_SMS, members=1) == C
+    g = blocked_geometry(257, 257, B, H100_SMS, members=SEGMENT_MEMBERS)
+    assert g.cluster == C and B * C <= H100_SMS
+    assert blocked_geometry(257, 257, B, H100_SMS, max_cluster=8,
+                            members=1).cluster == min(C, 8)
+
+
+def test_one_member_shared_memory_fits_every_grid_up_to_257():
+    """Every (n, m) up to 257 x 257 at the batches of the low-memory arm
+    and its straggler buckets keeps the ring of 32 k rows."""
+    worst = 0
+    for n in range(2, 258):
+        for m in {2, 29, n, 257}:
+            for B in (1, 2, 8, 16, 32):
+                g = blocked_geometry(n, m, B, H100_SMS, members=1)
+                assert g.m_pad % 4 == 0 and m <= g.m_pad < m + 4
+                assert g.units == (g.rows_pad // 4) * (g.m_pad // 4)
+                assert g.passes == -(-g.units // 768) and g.kc == 32
+                assert g.smem_bytes == 4 * 2 * 32 * (g.rows_pad + g.m_pad + 4)
+                worst = max(worst, g.smem_bytes)
+    assert worst <= BLOCKED_SMEM_LIMIT
+    g = blocked_geometry(257, 257, 257, H100_SMS, cluster=1, members=1)
+    assert g.kc == 32 and g.smem_bytes <= BLOCKED_SMEM_LIMIT
+
+
+def test_one_member_geometry_at_the_low_memory_shape():
+    """257 x 257, B = 32: clusters of 4, bands of 65 and 64 rows, 1105
+    units in two passes, 84,992 bytes of ring per CTA."""
+    g = blocked_geometry(257, 257, 32, H100_SMS, members=1)
+    assert g.cluster == 4 and [r for _, r in g.bands] == [65, 64, 64, 64]
+    assert (g.rows_pad, g.m_pad, g.units, g.passes) == (68, 260, 1105, 2)
+    assert g.kc == 32 and g.smem_bytes == 84_992
+
+
+@pytest.mark.parametrize("n,m,C", [(3600, 3600, 1), (1000, 6200, 1),
+                                   (7200, 7200, 16)])
+def test_a_one_member_shape_past_the_limit_raises(n, m, C):
+    with pytest.raises(ValueError, match="segment march.*bytes of shared "
+                                         "memory"):
+        blocked_geometry(n, m, 1, H100_SMS, cluster=C, members=1)
+
+
+@pytest.mark.parametrize("members,B,match", [(1, 0, "B % 1"),
+                                             (3, 6, "built for")])
+def test_a_bad_batch_or_member_count_raises(members, B, match):
+    with pytest.raises(ValueError, match=match):
+        blocked_geometry(65, 65, B, H100_SMS, members=members)
+
+
+# Clusters of C CTAs an H100 holds at once with one member per cluster at
+# 257 x 257 (cudaOccupancyMaxActiveClusters, measured at C = 2, 3, 4, 6, 8,
+# 12, 16); other sizes from a model (132 // C up to 8 CTAs, 7 above) that
+# only exercises the search.
+H100_RESIDENT_257 = {16: 7, 12: 7, 8: 15, 6: 17, 4: 30, 3: 39, 2: 66}
+
+
+def _h100_resident(geo):
+    C = geo.cluster
+    return H100_RESIDENT_257.get(C, 7 if C > 8 else H100_SMS // C)
+
+
+@pytest.mark.parametrize("B,C", [(1, 16), (2, 16), (4, 16), (8, 8), (16, 7),
+                                 (32, 3), (64, 2), (200, 1)])
+def test_the_segment_cluster_shrinks_until_every_cluster_is_resident(B, C):
+    """Below the SM rule, one member per cluster shrinks the cluster one
+    CTA at a time until the card holds all B clusters at once: B = 32 on
+    clusters of 3 (4 would hold 30 of 32 at once, a second wave)."""
+    g = fitted_geometry(257, 257, B, H100_SMS, _h100_resident,
+                        members=SEGMENT_MEMBERS)
+    assert g.members == 1 and g.cluster == C
+    assert g == blocked_geometry(257, 257, B, H100_SMS, cluster=C, members=1)
+    assert _h100_resident(g) >= B or C == 1
+
+
+@pytest.mark.parametrize("B,resident16,C", [(512, 7, 2), (64, 7, 8),
+                                            (8, 7, 16), (16, 1, 8)])
+def test_the_blocked_cluster_takes_8_where_16_is_not_resident(B, resident16,
+                                                             C):
+    """Eight members per cluster keep their rule: 16 where every cluster is
+    resident, else 8 (n = 65, B = 64 on the H100 took 8)."""
+    resident = lambda g: resident16 if g.cluster == 16 else 15
+    g = fitted_geometry(65, 65, B, H100_SMS, resident)
+    assert g.members == 8 and g.cluster == C

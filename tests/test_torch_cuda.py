@@ -11,7 +11,8 @@ right at the tolerance may take one more iteration); r 2e-3 relative, the
 float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
-do the two one-member marches. The 1D march: phi 1e-5 absolute on a short
+do the two one-member marches, and the cluster segment march and its
+one-CTA oracle at every batch and cluster size. The 1D march: phi 1e-5 absolute on a short
 march, Newton counts and first_bad equal, and bit-equal results for every
 members-per-CTA grouping. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
@@ -77,6 +78,32 @@ def test_cpu_tensors_run_the_plain_versions():
     ref = km.march_fused_2d_plain(*_march_args(fwd, phi0, u), **_KW)
     assert torch.equal(hist, ref[0]) and torch.equal(ns, ref[1])
     assert r.shape == hist.shape and bool(torch.isfinite(r).all())
+
+
+def _segment_args(fwd, phi0, u, K, start=0, carry=None):
+    """A K-step segment from step `start`: the carry from phi0 (w = 0, mu
+    from phi0, m0 its mass) unless given as (mu, w, m0)."""
+    if carry is None:
+        w = torch.zeros_like(phi0)
+        carry = (fwd.initialize_mu(phi0, w), w,
+                 torch.sum(fwd.wts * phi0, dim=(-2, -1)))
+    mu, w, m0 = carry
+    return (fwd.dts[start:start + K], phi0, mu, w, m0,
+            u[:, start:start + K + 1].contiguous()) + fwd._ops()
+
+
+def test_segment_wrappers_run_the_plain_version_on_cpu_tensors():
+    fwd, _, phi0, u, _ = _problem(torch.device("cpu"), B=2, T=0.02)
+    sargs = _segment_args(fwd, phi0, u, fwd.M)
+    before = (km.march_fused_2d_segment.launches,
+              km._march_fused_2d_segment_cta.launches)
+    ref = km.march_fused_2d_segment_plain(*sargs, **_KW)
+    for fn in (km.march_fused_2d_segment, km._march_fused_2d_segment_cta):
+        for a, b in zip(fn(*sargs, **_KW), ref):
+            assert torch.equal(a, b)
+    assert (km.march_fused_2d_segment.launches,
+            km._march_fused_2d_segment_cta.launches) == before
+    assert "_march_fused_2d_segment_cta" in km.launch_counts()
 
 
 def test_wrappers_reject_other_devices():
@@ -263,6 +290,95 @@ def test_segment_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(kr, pr):
         assert (a - b).abs().max().item() <= 2e-3 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,B", [(33, 29, 1), (33, 29, 2), (33, 29, 4),
+                                   (65, 65, 1), (65, 65, 2), (65, 65, 4),
+                                   (257, 257, 1), (257, 257, 2),
+                                   (257, 257, 4), (257, 257, 32)])
+def test_cluster_segment_march_equals_the_one_cta_oracle(cuda, n, m, B):
+    """The segment march (one member per thread-block cluster) gives the
+    one-CTA segment kernel's history, carry out, Newton counts and
+    first_bad bit for bit, launch for launch."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=n, m=m, B=B,
+                                  T=0.03 if n < 257 else 0.02)
+    sargs = _segment_args(fwd, phi0, u, fwd.M)
+    before = (km.march_fused_2d_segment.launches,
+              km._march_fused_2d_segment_cta.launches)
+    ks = km.march_fused_2d_segment(*sargs, **_KW)
+    ko = km._march_fused_2d_segment_cta(*sargs, **_KW)
+    torch.cuda.synchronize()
+    assert (km.march_fused_2d_segment.launches,
+            km._march_fused_2d_segment_cta.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert ks[0].shape == (B, fwd.M, n, m)
+    for a, b in zip(ks, ko):
+        assert torch.equal(a, b)
+
+
+def _segment_geometry(monkeypatch, make):
+    """Make the segment march launch on make(n, m, B, sms, members)."""
+    def launch_geometry(n, m, B, device, members=km.BLOCK_MEMBERS):
+        sms = torch.cuda.get_device_properties(
+            torch.device(device)).multi_processor_count
+        return make(n, m, B, sms, members)
+    monkeypatch.setattr(km, "launch_geometry", launch_geometry)
+
+
+@pytest.mark.cuda
+def test_cluster_segment_bits_do_not_depend_on_the_cluster_size(cuda,
+                                                                monkeypatch):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=2, T=0.03)
+    sargs = _segment_args(fwd, phi0, u, fwd.M)
+    ref = km._march_fused_2d_segment_cta(*sargs, **_KW)
+    for C in range(1, 17):
+        _segment_geometry(monkeypatch, lambda n, m, B, sms, members:
+                          km.blocked_geometry(n, m, B, sms, cluster=C,
+                                              members=members))
+        out = km.march_fused_2d_segment(*sargs, **_KW)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), C
+
+
+@pytest.mark.cuda
+def test_chained_cluster_segments_give_the_whole_march(cuda):
+    """Two chained segments: the whole march's Newton counts, no bad step,
+    its history within 1e-5 (mu at t = 0 is formed outside the kernel)."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=65, B=3, T=0.06)
+    K = fwd.M // 2
+    wh, wns, wbad = km.march_fused_2d(*_march_args(fwd, phi0, u), **_KW)
+    w = torch.zeros_like(phi0)
+    m0 = torch.sum(fwd.wts * phi0, dim=(-2, -1))
+    phi, carry = phi0, (fwd.initialize_mu(phi0, w), w, m0)
+    frames, ns = [], torch.zeros_like(wns)
+    for start in (0, K):
+        out = km.march_fused_2d_segment(
+            *_segment_args(fwd, phi, u, K, start, carry), **_KW)
+        frames.append(out[0])
+        phi, carry = out[1], (out[2], out[3], m0)
+        ns += out[4]
+        assert (out[5] == -1).all()
+    torch.cuda.synchronize()
+    hist = torch.cat([phi0[:, None]] + frames, dim=1)
+    assert torch.equal(ns, wns) and (wbad == -1).all()
+    assert (hist - wh).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4),
+                                         ("cluster", 1)])
+def test_segment_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
+                                                        field, delta):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=2, T=0.02)
+
+    def bad(n, m, B, sms, members):
+        g = km.blocked_geometry(n, m, B, sms, members=members)
+        return g._replace(**{field: getattr(g, field) + delta})
+    _segment_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        km.march_fused_2d_segment(*_segment_args(fwd, phi0, u, fwd.M), **_KW)
 
 
 @pytest.mark.cuda

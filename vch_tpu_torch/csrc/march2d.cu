@@ -19,8 +19,11 @@
 // product), and the ~33 fields of per-member state: one 129 x 129 float32
 // field is 66.6 KB while a CTA has at most 227 KB of shared memory.
 //
-// The member-blocked form (:1649 march_fused_2d_blocked) is
-// march2d_blocked.cu, which computes each member as this kernel does.
+// The member-blocked form (:1649 march_fused_2d_blocked) and the segment
+// march the solvers run are march2d_blocked.cu's cluster kernel, which
+// computes each member as this kernel does; this kernel's segment flag is
+// that segment march's bit oracle (ops/march.py
+// _march_fused_2d_segment_cta), reached by no solver.
 //
 // Design: a CTA walks the whole time loop for its BB members (the TPU's
 // sequential (member, step) grid becomes a loop inside the CTA). Member

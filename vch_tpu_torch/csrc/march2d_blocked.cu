@@ -1,30 +1,38 @@
-// The member-blocked whole 2D forward march: eight members per block, each
-// block on a thread-block cluster.
+// The 2D forward march on thread-block clusters: a block of MB members per
+// cluster, MB = 8 for the whole march, MB = 1 for a K-step segment.
 //
-// Replaces the TPU kernel vch_tpu/ops/pallas_march.py:1649
-// march_fused_2d_blocked (factory :1271): block_b = 8 members per program in
-// masked lockstep. It computes, member for member and bit for bit, what the
-// one-member march of march2d.cu computes: the w CN update and mu_init,
-// each member's own Newton loop (dense-stencil CN residual, fixed-trip
-// BiCGStab on the Schur system in the cosine basis with best iterate and
-// noise-floor freeze, step ceiling, Armijo with at most 12 halvings,
-// best-trial fallback), then clip, interior mass correction and the
-// first-bad-step sanitizer; the same history, Newton counts and first_bad.
+// Replaces two TPU kernels of vch_tpu/ops/pallas_march.py:
+//   - :1649 march_fused_2d_blocked (factory :1271): block_b = 8 members per
+//     program in masked lockstep; here march_blocked_kernel<8, false>;
+//   - :479 march_fused_2d_segment (the factory's segment=True): one member
+//     per program with the (mu, w, global m0) carry in, (phi, mu, w) out and
+//     only the post-step states in the history; here
+//     march_blocked_kernel<1, true>, one member per cluster.
+// Either computes, member for member and bit for bit, what the one-member
+// march of march2d.cu computes (its segment flag included): the w CN update
+// and mu_init, each member's own Newton loop (dense-stencil CN residual,
+// fixed-trip BiCGStab on the Schur system in the cosine basis with best
+// iterate and noise-floor freeze, step ceiling, Armijo with at most 12
+// halvings, best-trial fallback), then clip, interior mass correction and
+// the first-bad-step sanitizer; the same history, Newton counts and
+// first_bad.
 //
 // What bounds it on an H100: per Newton iteration about 40 dependent dense
 // (n x n)(n x m) products per member, in a sequential chain broken by
-// reductions whose results every later step needs. Eight members share each
-// operator slab, so a block's products are eight times as wide as one
-// member's; the work is the chain's length times that width.
+// reductions whose results every later step needs. The MB members of a
+// block share each operator slab, so a block's products are MB times as
+// wide as one member's; the work is the chain's length times that width.
+// With one member (the segment march at 257 x 257, B = 2 .. 32) a cluster
+// of up to 16 SMs shortens each link of the chain instead.
 //
-// Design. Block k of eight members runs on a cluster of C CTAs (C from the
+// Design. Block k of MB members runs on a cluster of C CTAs (C from the
 // number of blocks and the card's SMs, ops/march.py blocked_geometry). CTA
-// r owns a band of rows of all eight members' fields (tile4.cuh's split):
-//   - a right product X_b Op is band-local: the eight members' bands stacked
-//     (8 R rows) times Op, one operator slab feeding all eight;
-//   - a left product Op X_b takes the eight members side by side (8 m
-//     columns): Op[band_r, :] times their whole fields, which the peers
-//     wrote, read from the workspace after a cluster barrier;
+// r owns a band of rows of all MB members' fields (tile4.cuh's split):
+//   - a right product X_b Op is band-local: the members' bands stacked
+//     (MB R rows) times Op, one operator slab feeding all of them;
+//   - a left product Op X_b takes the members side by side (MB m columns):
+//     Op[band_r, :] times their whole fields, which the peers wrote, read
+//     from the workspace after a cluster barrier;
 // each through tile4.cuh's engine (4 x 4 register units, float4 slab reads,
 // a two-stage cp.async ring), in passes of S NT units. Member state lives in
 // the global workspace (B, 33, n, m) as in march2d.cu; a Laplacian's first
@@ -32,17 +40,22 @@
 //
 // Reductions reproduce the one-member kernel's order: its thread t sums
 // e = t, t + 256, ... of the member's whole field, then a warp xor tree,
-// then the eight warps in order. Here (member b, warp w) is one of 64 pairs,
-// each owned by one warp of the cluster; its lane l sums the elements of
-// thread 32 w + l of the one-member kernel over the whole field, the warp
-// tree follows, lane 0's value goes to every CTA's shared memory
-// (distributed shared memory), and after a cluster barrier each CTA adds the
-// eight warp values in order. So every CTA holds the same per-member
-// scalars, in shared memory, and takes the same branches; elementwise passes
-// run in the same pair layout. Every product output sums its k terms in
-// ascending order in one FMA chain and a Laplacian adds its two rounded
-// products, as common.cuh does, so a member's bits depend neither on the
-// cluster size nor on the batch. Full float32 FMA: no tensor cores, no TF32.
+// then the eight warps in order. Here (member b, warp w) is one of 8 MB
+// pairs, each owned by one warp of the cluster (with one member, pair w on
+// rank w % C, so the eight chains run on up to eight SMs); its lane l sums
+// the elements of thread 32 w + l of the one-member kernel over the whole
+// field, the warp tree follows, lane 0's value goes to every CTA's shared
+// memory (distributed shared memory), and after a cluster barrier each CTA
+// adds the eight warp values in order. So every CTA holds the same
+// per-member scalars, in shared memory, and takes the same branches.
+// Elementwise passes run in the same pair layout with eight members, and
+// over every thread of the cluster with one (no order to keep there: an
+// element is always the same thread's, and whatever reads it in another
+// layout waits at a cluster barrier first). Every product output sums its k
+// terms in ascending order in one FMA chain and a Laplacian adds its two
+// rounded products, as common.cuh does, so a member's bits depend neither
+// on the cluster size nor on the batch. Full float32 FMA: no tensor cores,
+// no TF32.
 #include <mutex>
 
 #include "tile4.cuh"
@@ -50,9 +63,7 @@
 namespace vch {
 namespace blocked {
 
-constexpr int BB = 8;          // members per block (cluster)
 constexpr int S = 3;           // 4 x 4 units per thread per pass
-constexpr int U = 4;           // elements per lane whose loads go first
 constexpr int EB = 4;          // outputs of a unit row whose loads go first
 constexpr int MAX_C = 16;      // CTAs per cluster, at most (non-portable)
 constexpr int CTL_BYTES = 4096;   // static shared memory reserved for Ctl
@@ -82,49 +93,54 @@ __device__ __forceinline__ float flog(float phi, const FwdConst& c) {
   return logf((1.f + ph) / (1.f - ph));
 }
 
-// The cluster's split of a block, the same on host and device (the Python
-// wrapper computes it too, ops/march.py blocked_geometry): band = one
-// member's split (tile4.cuh), kc the most k rows of a ring stage, units the
-// 4 x 4 output units of one product of the block.
+// The cluster's split of a block of MB members, the same on host and
+// device (the Python wrapper computes it too, ops/march.py
+// blocked_geometry): band = one member's split (tile4.cuh), kc the most k
+// rows of a ring stage, units the 4 x 4 output units of one product of the
+// block.
 struct BGeom {
   Geom band;
   int kc, units;
 };
 
+template <int MB>
 __host__ __device__ inline BGeom make_bgeom(int n, int m, int C, int kc) {
   BGeom g;
   g.band = make_geom(n, m, C, 1);
   g.kc = kc;
-  g.units = BB * g.band.units;
+  g.units = MB * g.band.units;
   return g;
 }
 
 // Dynamic shared memory of one CTA: a two-stage ring of A slabs (kc x
-// (8 rpad + 4)) and B slabs (kc x 8 mpad), wide enough for both products.
+// (MB rpad + 4)) and B slabs (kc x MB mpad), wide enough for both products.
+template <int MB>
 inline size_t blocked_smem_bytes(const BGeom& g) {
-  return 4 * 2 * (size_t)g.kc * (BB * (g.band.rpad + g.band.mpad) + 4);
+  return 4 * 2 * (size_t)g.kc * (MB * (g.band.rpad + g.band.mpad) + 4);
 }
 
 // Per-member control state, the same in every CTA of a cluster.
+template <int MB>
 struct Ctl {
-  float red[2][BB][NWARP];        // warp values of a reduction
-  float m0[BB], pmass[BB], pint[BB];
-  int nsolve[BB], bad[BB];
-  float norm_R[BB], norm0[BB], prev[BB], norm_t[BB];
-  int done[BB], act[BB];
-  float alpha[BB], best_norm[BB], acc_norm[BB];
-  int searching[BB], accepted[BB], to_best[BB], to_cur[BB], fallback[BB];
-  float dbar[BB], floor2[BB], r2[BB];
-  float rho[BB], kalpha[BB], omega[BB], best_r2[BB];
-  float rho_new[BB], beta[BB], alpha_n[BB], omega_n[BB];
-  int live[BB], improved[BB];
+  float red[2][MB][NWARP];        // warp values of a reduction
+  float m0[MB], pmass[MB], pint[MB];
+  int nsolve[MB], bad[MB];
+  float norm_R[MB], norm0[MB], prev[MB], norm_t[MB];
+  int done[MB], act[MB];
+  float alpha[MB], best_norm[MB], acc_norm[MB];
+  int searching[MB], accepted[MB], to_best[MB], to_cur[MB], fallback[MB];
+  float dbar[MB], floor2[MB], r2[MB];
+  float rho[MB], kalpha[MB], omega[MB], best_r2[MB];
+  float rho_new[MB], beta[MB], alpha_n[MB], omega_n[MB];
+  int live[MB], improved[MB];
 };
-static_assert(sizeof(Ctl) <= CTL_BYTES, "Ctl outgrew its reserve");
+static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
 
 struct Args {
   const float *dts, *phi0, *u;
   const float *Lx, *LyT, *Vxi, *VyiT, *Vx, *VyT, *lam, *wts;
-  float* hist;
+  const float *mu0, *w0, *m0;     // segment carry in (SEG)
+  float *hist, *phi_f, *mu_f, *w_f;   // phi_f, mu_f, w_f: SEG only
   int *nsolve, *bad;
   float* work;
   int M, n, m, max_iter, n_trips, stagnation;
@@ -147,10 +163,11 @@ struct All {                      // every member
   __device__ __forceinline__ bool operator()(int) const { return true; }
 };
 
-__device__ __forceinline__ bool any8(const int (&v)[BB]) {
+template <int MB>
+__device__ __forceinline__ bool any_member(const int (&v)[MB]) {
   bool a = false;
 #pragma unroll
-  for (int b = 0; b < BB; ++b) a = a || v[b];
+  for (int b = 0; b < MB; ++b) a = a || v[b];
   return a;
 }
 
@@ -171,21 +188,27 @@ __device__ __forceinline__ void each_rc(int rows, int cols, F f) {
   }
 }
 
-// One CTA's view of its block. Every method is force-inlined into the
-// kernel, so the state below lives in registers; the per-member scalars live
-// in `ctl`, in shared memory.
+// One CTA's view of its block of MB members; SEG: a segment with the
+// carry in and out, the history its K post-step states. Every method is
+// force-inlined into the kernel, so the state below lives in registers; the
+// per-member scalars live in `ctl`, in shared memory.
+template <int MB, bool SEG>
 struct March {
+  // elements per lane whose loads go first: one member's reduction chains
+  // run on eight warps of the cluster only, so each lane loads further ahead
+  static constexpr int U = MB == 1 ? 8 : 4;
   const Args& a;
   const FwdConst& c;
-  Ctl& ctl;
+  Ctl<MB>& ctl;
   cg::cluster_group cluster;
-  int tid, lane, gw, n, m, nm, C, rank, b0, r0, R, rpad, mpad, units;
+  int tid, lane, gw, pw, n, m, nm, C, rank, b0, r0, R, rpad, mpad, units;
   int kcmax, a_stage, b_stage;
-  size_t FS, HS;
+  size_t FS, HS, US;
   float *ringA, *ringB, *W;
   All all;
 
-  __device__ __forceinline__ March(const Args& args, Ctl& ctl_, float* smem)
+  __device__ __forceinline__ March(const Args& args, Ctl<MB>& ctl_,
+                                   float* smem)
       : a(args), c(args.c), ctl(ctl_), cluster(cg::this_cluster()) {
     const Geom& gb = a.g.band;
     tid = threadIdx.x;
@@ -196,19 +219,22 @@ struct March {
     C = gb.C;
     rank = (int)cluster.block_rank();
     gw = rank * NWARP + (tid >> 5);         // this warp in the cluster
-    b0 = (blockIdx.x / C) * BB;             // the block's first member
+    // the first (member, warp) pair this warp owns
+    pw = MB == 1 ? (tid >> 5) * C + rank : gw;
+    b0 = (blockIdx.x / C) * MB;             // the block's first member
     r0 = band_start(gb, rank);
     R = band_rows(gb, rank);
     rpad = gb.rpad;
     mpad = gb.mpad;
     units = a.g.units;
     kcmax = a.g.kc;
-    a_stage = kcmax * (BB * rpad + 4);
-    b_stage = kcmax * BB * mpad;
+    a_stage = kcmax * (MB * rpad + 4);
+    b_stage = kcmax * MB * mpad;
     ringA = smem;
     ringB = smem + 2 * a_stage;
     FS = (size_t)F_COUNT * nm;              // member stride of a field
-    HS = (size_t)(a.M + 1) * nm;            // member stride of hist and u
+    HS = (size_t)(SEG ? a.M : a.M + 1) * nm;    // member stride of hist
+    US = SEG ? (size_t)(a.M + 1) * nm : HS;     // and of u
     W = a.work + b0 * FS;
   }
 
@@ -226,7 +252,7 @@ struct March {
   // (member b at X + b FS). The epilogue is ld(b, e), which loads what
   // output e needs, and st(b, e, value, loaded), run on four outputs of a
   // unit's row at a time, their loads first. The RIGHT A slab's k stride
-  // is 8 rpad + 4 floats, so its transposing writes do not all fall in one
+  // is MB rpad + 4 floats, so its transposing writes do not all fall in one
   // shared-memory bank.
   template <bool LEFT, class Ld, class St>
   __device__ __forceinline__ void product(const float* __restrict__ Op,
@@ -234,8 +260,8 @@ struct March {
     const int K = LEFT ? n : m;
     const int nch = (K + kcmax - 1) / kcmax, kc = (K + nch - 1) / nch;
     Geom pg = a.g.band;
-    pg.rpad = LEFT ? rpad : BB * rpad + 4;  // A's k stride
-    pg.mpad = LEFT ? BB * mpad : mpad;      // B's k stride; 4 x 4 columns
+    pg.rpad = LEFT ? rpad : MB * rpad + 4;  // A's k stride
+    pg.mpad = LEFT ? MB * mpad : mpad;      // B's k stride; 4 x 4 columns
     pg.units = units;
     const int sa = pg.rpad, sb = pg.mpad;
     auto issue = [&](int ch, int st_) {
@@ -248,7 +274,7 @@ struct March {
           cp_async4(As + k * sa + i, src + (size_t)i * n + k);
         });
 #pragma unroll 1
-        for (int b = 0; b < BB; ++b) {                   // Bs[k][b mpad + j]
+        for (int b = 0; b < MB; ++b) {                   // Bs[k][b mpad + j]
           const float* xb = X + b * FS + (size_t)k0 * m;
           float* db = Bs + b * mpad;
           each_rc(kk, m, [&](int k, int j) {
@@ -257,7 +283,7 @@ struct March {
         }
       } else {
 #pragma unroll 1
-        for (int b = 0; b < BB; ++b) {                   // As[k][b rpad + i]
+        for (int b = 0; b < MB; ++b) {                   // As[k][b rpad + i]
           const float* xb = X + b * FS + (size_t)r0 * m + k0;
           float* da = As + b * rpad;
           each_rc(R, kk, [&](int i, int k) {
@@ -356,25 +382,40 @@ struct March {
     });
   }
 
-  // ---- passes in the one-member kernel's thread order -------------------
-  // For every element of every member with on(b): pair (b, w) is owned by
-  // warp gw of the cluster, its lane l takes e = 32 w + l, + NT, ...;
-  // ld(b, e) loads what element e needs and st(b, e, loaded) computes and
-  // stores, U elements' loads at a time before their stores.
+  // ---- elementwise passes and reductions ----------------------------------
+  // For every element of every member with on(b): with MB members, pair
+  // (b, w) is owned by warp pw of the cluster, its lane l takes e = 32 w + l,
+  // + NT, ...; with one member, CTA r's thread t takes e = r NT + t,
+  // + C NT, .... ld(b, e) loads what element e needs and st(b, e, loaded)
+  // computes and stores, U elements' loads at a time before their stores.
   template <class On, class Ld, class St>
   __device__ __forceinline__ void each_elem(On on, Ld ld, St st) {
-    for (int pr = gw; pr < BB * NWARP; pr += C * NWARP) {
-      const int b = pr / NWARP;
-      if (!on(b)) continue;
-      int e = (pr % NWARP) * 32 + lane;
-      for (; e + (U - 1) * NT < nm; e += U * NT) {
-        decltype(ld(b, e)) in[U];
+    if constexpr (MB == 1) {
+      if (!on(0)) return;
+      const int stride = C * NT;
+      int e = rank * NT + tid;
+      for (; e + (U - 1) * stride < nm; e += U * stride) {
+        decltype(ld(0, e)) in[U];
 #pragma unroll
-        for (int q = 0; q < U; ++q) in[q] = ld(b, e + q * NT);
+        for (int q = 0; q < U; ++q) in[q] = ld(0, e + q * stride);
 #pragma unroll
-        for (int q = 0; q < U; ++q) st(b, e + q * NT, in[q]);
+        for (int q = 0; q < U; ++q) st(0, e + q * stride, in[q]);
       }
-      for (; e < nm; e += NT) st(b, e, ld(b, e));
+      for (; e < nm; e += stride) st(0, e, ld(0, e));
+    } else {
+      for (int pr = pw; pr < MB * NWARP; pr += C * NWARP) {
+        const int b = pr / NWARP;
+        if (!on(b)) continue;
+        int e = (pr % NWARP) * 32 + lane;
+        for (; e + (U - 1) * NT < nm; e += U * NT) {
+          decltype(ld(b, e)) in[U];
+#pragma unroll
+          for (int q = 0; q < U; ++q) in[q] = ld(b, e + q * NT);
+#pragma unroll
+          for (int q = 0; q < U; ++q) st(b, e + q * NT, in[q]);
+        }
+        for (; e < nm; e += NT) st(b, e, ld(b, e));
+      }
     }
   }
   // Per-member reductions of NV values: acc(b, e, loaded, p) adds element
@@ -387,7 +428,7 @@ struct March {
   __device__ __forceinline__ void reduce(float init, On on, Ld ld, Ac acc,
                                          Fin fin) {
     cluster.sync();
-    for (int pr = gw; pr < BB * NWARP; pr += C * NWARP) {
+    for (int pr = pw; pr < MB * NWARP; pr += C * NWARP) {
       const int b = pr / NWARP, w = pr % NWARP;
       float p[NV];
 #pragma unroll
@@ -415,7 +456,7 @@ struct March {
       }
     }
     cluster.sync();
-    if (tid < BB) {
+    if (tid < MB) {
       const int b = tid;
       float out[NV];
 #pragma unroll
@@ -433,8 +474,8 @@ struct March {
 
   // copy buffer set `from` into set `to` for the members flagged in which
   __device__ __forceinline__ void take(int from, int to,
-                                       const int (&which)[BB]) {
-    if (!any8(which)) return;
+                                       const int (&which)[MB]) {
+    if (!any_member<MB>(which)) return;
     const float *s0 = Q(from, 0), *s1 = Q(from, 1), *s2 = Q(from, 2),
                 *s3 = Q(from, 3);
     float *d0 = Q(to, 0), *d1 = Q(to, 1), *d2 = Q(to, 2), *d3 = Q(to, 3);
@@ -558,10 +599,10 @@ struct March {
     auto live = [&](int b) { return ctl.live[b] != 0; };
     // fixed-trip BiCGStab in masked lockstep (common.cuh bicgstab_fixed)
     for (int trip = 0; trip < a.n_trips; ++trip) {
-      if (tid < BB)
+      if (tid < MB)
         ctl.live[tid] = ctl.live[tid] && ctl.r2[tid] > ctl.floor2[tid];
       __syncthreads();
-      if (!any8(ctl.live)) break;
+      if (!any_member<MB>(ctl.live)) break;
       reduce<1, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{R0[b * fs + e], Rr[b * fs + e]}};
       }, [](int, int, const Vals<2>& in, float (&p)[1]) {
@@ -634,7 +675,7 @@ struct March {
         }
         ctl.r2[b] = r2n;
       });
-      if (any8(ctl.improved))
+      if (any_member<MB>(ctl.improved))
         each_elem([&](int b) { return ctl.improved[b] != 0; },
                   [&](int b, int e) { return Vals<1>{{X[b * fs + e]}}; },
                   [&](int b, int e, const Vals<1>& in) {
@@ -660,30 +701,51 @@ struct March {
     const float *dphi = F(F_DPHI), *dmu = F(F_DMU);
     const float* wts = a.wts;
     float* hist = a.hist + b0 * HS;
-    const float* ub = a.u + b0 * HS;
-    const size_t fs = FS, hs = HS;
+    const float* ub = a.u + b0 * US;
+    const size_t fs = FS, hs = HS, us = US;
     const FwdConst& k = c;
+    constexpr int hoff = SEG ? 0 : 1;       // frame of the state after step 0
 
-    // ---- initial state: w0 = 0, mu0 = -kappa L phi0 + f'(phi0), m0 ------
-    reduce<1, false>(0.f, all, [&](int b, int e) {
-      return Vals<2>{{a.phi0[(size_t)(b0 + b) * nm + e], wts[e]}};
-    }, [&](int b, int e, const Vals<2>& in, float (&p)[1]) {
-      const float ph = in.v[0];
-      phi_old[b * fs + e] = ph;
-      hist[b * hs + e] = ph;
-      w_old[b * fs + e] = 0.f;
-      p[0] += in.v[1] * ph;
-    }, [&](int b, const float (&v)[1]) {
-      ctl.m0[b] = v[0];
-      ctl.nsolve[b] = 0;
-      ctl.bad[b] = -1;
-    });
-    lap(phi_old, [&](int b, int e) { return Vals<1>{{phi_old[b * fs + e]}}; },
-        [&](int b, int e, float l, const Vals<1>& in) {
-          const float ph = in.v[0];
-          mu_old[b * fs + e] =
-              k.neg_kappa * l + k.c1 * flog(ph, k) - k.two_c2 * ph;
-        });
+    if constexpr (SEG) {
+      // ---- initial state: phi0 and the carry (mu0, w0, the global m0) ----
+      each_elem(all, [&](int b, int e) {
+        const size_t g = (size_t)(b0 + b) * nm + e;
+        return Vals<3>{{a.phi0[g], a.mu0[g], a.w0[g]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        const size_t o = b * fs + e;
+        phi_old[o] = in.v[0];
+        mu_old[o] = in.v[1];
+        w_old[o] = in.v[2];
+      });
+      if (tid < MB) {
+        ctl.m0[tid] = a.m0[b0 + tid];
+        ctl.nsolve[tid] = 0;
+        ctl.bad[tid] = -1;
+      }
+      __syncthreads();
+    } else {
+      // ---- initial state: w0 = 0, mu0 = -kappa L phi0 + f'(phi0), m0 ----
+      reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{a.phi0[(size_t)(b0 + b) * nm + e], wts[e]}};
+      }, [&](int b, int e, const Vals<2>& in, float (&p)[1]) {
+        const float ph = in.v[0];
+        phi_old[b * fs + e] = ph;
+        hist[b * hs + e] = ph;
+        w_old[b * fs + e] = 0.f;
+        p[0] += in.v[1] * ph;
+      }, [&](int b, const float (&v)[1]) {
+        ctl.m0[b] = v[0];
+        ctl.nsolve[b] = 0;
+        ctl.bad[b] = -1;
+      });
+      lap(phi_old,
+          [&](int b, int e) { return Vals<1>{{phi_old[b * fs + e]}}; },
+          [&](int b, int e, float l, const Vals<1>& in) {
+            const float ph = in.v[0];
+            mu_old[b * fs + e] =
+                k.neg_kappa * l + k.c1 * flog(ph, k) - k.two_c2 * ph;
+          });
+    }
 
     for (int step = 0; step < a.M; ++step) {
       const float dt = a.dts[step];
@@ -691,7 +753,7 @@ struct March {
       const float tau_dt = k.tau * inv_dt;
       const float gamma_dt = k.gamma * inv_dt;
       each_elem(all, [&](int b, int e) {
-        const float* un = ub + b * hs + (size_t)step * nm;
+        const float* un = ub + b * us + (size_t)step * nm;
         return Vals<3>{{w_old[b * fs + e], un[e + nm], un[e]}};
       }, [&](int b, int e, const Vals<3>& in) {
         w_new[b * fs + e] =
@@ -714,7 +776,7 @@ struct March {
       }
 
       // ---- Newton in masked lockstep: each member's own trip count ----
-      if (tid < BB) {
+      if (tid < MB) {
         ctl.norm_R[tid] = 0.f;
         ctl.norm0[tid] = ctl.prev[tid] = INFINITY;
         ctl.done[tid] = 0;
@@ -722,7 +784,7 @@ struct March {
       __syncthreads();
       for (int it = 0; it < a.max_iter; ++it) {
         if (it == 0) resid(Q_CUR, ctl.norm_R, inv_dt, tau_dt);
-        if (tid < BB) {
+        if (tid < MB) {
           const int b = tid;
           if (it == 0) ctl.norm0[b] = ctl.norm_R[b];
           bool conv = ctl.norm_R[b] < k.newton_tol;
@@ -733,7 +795,7 @@ struct March {
           ctl.act[b] = !ctl.done[b];
         }
         __syncthreads();
-        if (!any8(ctl.act)) break;
+        if (!any_member<MB>(ctl.act)) break;
         schur_solve(inv_dt, tau_dt);
 
         // step ceiling of each member
@@ -759,7 +821,7 @@ struct March {
         // Armijo on the residual norm, in lockstep over the active
         // members; every exit leaves the residual of the returned iterate
         // in the current set for the next Newton iteration
-        for (int j = 0; j < 12 && any8(ctl.searching); ++j) {
+        for (int j = 0; j < 12 && any_member<MB>(ctl.searching); ++j) {
           const float *phi = Q(Q_CUR, 0), *mu = Q(Q_CUR, 1);
           float *tphi = Q(Q_TRIAL, 0), *tmu = Q(Q_TRIAL, 1);
           each_elem([&](int b) { return ctl.searching[b] != 0; },
@@ -773,7 +835,7 @@ struct March {
                       tmu[o] = in.v[2] + ctl.alpha[b] * in.v[3];
                     });
           resid(Q_TRIAL, ctl.norm_t, inv_dt, tau_dt);
-          if (tid < BB) {
+          if (tid < MB) {
             const int b = tid;
             ctl.to_best[b] = ctl.to_cur[b] = 0;
             if (ctl.searching[b]) {
@@ -796,7 +858,7 @@ struct March {
           take(Q_TRIAL, Q_BEST, ctl.to_best);
           take(Q_TRIAL, Q_CUR, ctl.to_cur);
         }
-        if (tid < BB) {
+        if (tid < MB) {
           const int b = tid;
           ctl.fallback[b] = 0;
           if (ctl.act[b]) {
@@ -845,13 +907,25 @@ struct March {
           }
         }
         phi_old[o] = pc;
-        hist[b * hs + (size_t)(step + 1) * nm + e] = pc;
+        hist[b * hs + (size_t)(step + hoff) * nm + e] = pc;
         mu_old[o] = in.v[1];
         w_old[o] = in.v[2];
       });
       __syncthreads();
     }
-    if (rank == 0 && tid < BB) {
+    if constexpr (SEG) {
+      // the carry out: each element is the thread's own last store
+      each_elem(all, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<3>{{phi_old[o], mu_old[o], w_old[o]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        const size_t g = (size_t)(b0 + b) * nm + e;
+        a.phi_f[g] = in.v[0];
+        a.mu_f[g] = in.v[1];
+        a.w_f[g] = in.v[2];
+      });
+    }
+    if (rank == 0 && tid < MB) {
       a.nsolve[b0 + tid] = ctl.nsolve[tid];
       a.bad[b0 + tid] = ctl.bad[tid];
     }
@@ -859,23 +933,25 @@ struct March {
   }
 };
 
+template <int MB, bool SEG>
 __global__ void __launch_bounds__(NT, 1) march_blocked_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  __shared__ Ctl ctl;
-  March(a, ctl, reinterpret_cast<float*>(smem4)).run();
+  __shared__ Ctl<MB> ctl;
+  March<MB, SEG>(a, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
 // Per device: the dynamic shared-memory limit set so far and the
-// non-portable cluster attribute.
+// non-portable cluster attribute, for one instantiation of the kernel.
 struct LaunchState {
   size_t smem_set = 0;
   bool nonportable = false;
 };
 
-std::mutex launch_mutex;
+static std::mutex launch_mutex;
 
-// The launch configuration of B members on clusters of C CTAs; sets the
-// kernel's attributes for it once per device.
+// The launch configuration of B members on clusters of C CTAs, B / MB
+// clusters; sets the kernel's attributes for it once per device.
+template <int MB, bool SEG>
 int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int B,
               int C, size_t smem, cudaStream_t stream) {
   static LaunchState state[16];
@@ -888,7 +964,7 @@ int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int B,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg = {};
-  cfg.gridDim = dim3((B / BB) * C);
+  cfg.gridDim = dim3((B / MB) * C);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -897,14 +973,14 @@ int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int B,
   std::lock_guard<std::mutex> lock(launch_mutex);
   LaunchState& st = state[dev];
   if (smem > st.smem_set) {
-    err = cudaFuncSetAttribute(march_blocked_kernel,
+    err = cudaFuncSetAttribute(march_blocked_kernel<MB, SEG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     st.smem_set = smem;
   }
   if (C > 8 && !st.nonportable) {
-    err = cudaFuncSetAttribute(march_blocked_kernel,
+    err = cudaFuncSetAttribute(march_blocked_kernel<MB, SEG>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return (int)err;
@@ -915,36 +991,118 @@ int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int B,
 
 // The geometry the kernel recomputes from (n, m, C, kc): 0 if the caller's
 // smem_bytes is its own and fits, else cudaErrorInvalidValue.
+template <int MB>
 int check_geometry(int n, int m, int C, int kc, int smem_bytes, BGeom& g) {
   if (n <= 1 || m <= 1 || C < 1 || C > MAX_C || C > n || kc < 4 || kc % 4)
     return (int)cudaErrorInvalidValue;
-  g = make_bgeom(n, m, C, kc);
-  const size_t smem = blocked_smem_bytes(g);
+  g = make_bgeom<MB>(n, m, C, kc);
+  const size_t smem = blocked_smem_bytes<MB>(g);
   if (smem != (size_t)smem_bytes || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-}  // namespace blocked
-}  // namespace vch
-
-// How many clusters of C CTAs of the blocked march can be resident at once
-// on the current card with this geometry (cudaOccupancyMaxActiveClusters);
-// a negative CUDA error code on failure.
-extern "C" int vch_march_blocked_max_clusters(int n, int m, int cluster,
-                                              int kc, int smem_bytes) {
-  using namespace vch::blocked;
+// How many clusters of C CTAs can be resident at once on the current card
+// with this geometry (cudaOccupancyMaxActiveClusters); a negative CUDA error
+// code on failure.
+template <int MB, bool SEG>
+int max_clusters(int n, int m, int C, int kc, int smem_bytes) {
   BGeom g;
-  int err = check_geometry(n, m, cluster, kc, smem_bytes, g);
+  int err = check_geometry<MB>(n, m, C, kc, smem_bytes, g);
   if (err) return -err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  err = configure(cfg, attr, BB, cluster, smem_bytes, 0);
+  err = configure<MB, SEG>(cfg, attr, MB, C, smem_bytes, 0);
   if (err) return -err;
   int clusters = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveClusters(&clusters, march_blocked_kernel, &cfg);
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &clusters, march_blocked_kernel<MB, SEG>, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// One launch of B members (B % MB == 0) on the caller's geometry, checked
+// against the kernel's own.
+template <int MB, bool SEG>
+int launch(Args a, int B, const float* consts, int nconst, int cluster,
+           int kc, int smem_bytes, void* stream) {
+  if (nconst != FWD_NCONST || B <= 0 || B % MB || a.M <= 0)
+    return (int)cudaErrorInvalidValue;
+  int err = check_geometry<MB>(a.n, a.m, cluster, kc, smem_bytes, a.g);
+  if (err) return err;
+  float* dst = reinterpret_cast<float*>(&a.c);
+  for (int i = 0; i < FWD_NCONST; ++i) dst[i] = consts[i];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = configure<MB, SEG>(cfg, attr, B, cluster, smem_bytes,
+                           (cudaStream_t)stream);
+  if (err) return err;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, march_blocked_kernel<MB, SEG>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace blocked
+}  // namespace vch
+
+// Compiled once per instantiation, in parallel (ops/_build.py): -DVCH_BB=8
+// builds the blocked march and its C entries, -DVCH_BB=1 the segment march
+// and its; each object holds one kernel.
+#ifndef VCH_BB
+#define VCH_BB 8
+#endif
+
+#if VCH_BB == 1
+// How many clusters of `cluster` CTAs of the segment march can be resident
+// at once on the current card with this geometry; a negative CUDA error
+// code on failure.
+extern "C" int vch_march_segment_max_clusters(int n, int m, int cluster,
+                                              int kc, int smem_bytes) {
+  return vch::blocked::max_clusters<1, true>(n, m, cluster, kc, smem_bytes);
+}
+
+// One K-step segment of B members, one member per cluster of `cluster`
+// CTAs, with the (mu0, w0, global m0) carry in and (phi_f, mu_f, w_f) out;
+// hist is (B, K, n, m), the post-step states only; u (B, K+1, n, m). The
+// geometry as vch_march_fused_2d_blocked's, for one member per cluster;
+// arguments otherwise as vch_march_fused_2d_segment (march2d.cu).
+extern "C" int vch_march_fused_2d_segment_cluster(
+    const float* dts, const float* phi0, const float* mu0, const float* w0,
+    const float* m0, const float* u, const float* Lx, const float* LyT,
+    const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
+    const float* lam, const float* wts, float* hist, float* phi_f,
+    float* mu_f, float* w_f, int* nsolve, int* first_bad, float* work, int B,
+    int K, int n, int m, const float* consts, int nconst, int max_iter,
+    int n_trips, int stagnation, int cluster, int kc, int smem_bytes,
+    void* stream) {
+  using namespace vch::blocked;
+  const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
+               mu0, w0, m0, hist, phi_f, mu_f, w_f,
+               nsolve, first_bad, work, K, n, m, max_iter, n_trips,
+               stagnation, {}, {}};
+  return launch<1, true>(a, B, consts, nconst, cluster, kc, smem_bytes,
+                         stream);
+}
+#else
+extern "C" int vch_march_segment_max_clusters(int n, int m, int cluster,
+                                              int kc, int smem_bytes);
+
+// How many clusters of `cluster` CTAs of the march with `members` members
+// per cluster (8: the blocked march; 1: the segment march) can be resident
+// at once on the current card with this geometry; a negative CUDA error
+// code on failure.
+extern "C" int vch_march_blocked_max_clusters(int members, int n, int m,
+                                              int cluster, int kc,
+                                              int smem_bytes) {
+  switch (members) {
+    case 8:
+      return vch::blocked::max_clusters<8, false>(n, m, cluster, kc,
+                                                  smem_bytes);
+    case 1:
+      return vch_march_segment_max_clusters(n, m, cluster, kc, smem_bytes);
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
 }
 
 // The member-blocked march of B members (B % 8 == 0) on clusters of
@@ -961,20 +1119,11 @@ extern "C" int vch_march_fused_2d_blocked(
     const float* consts, int nconst, int max_iter, int n_trips,
     int stagnation, int cluster, int kc, int smem_bytes, void* stream) {
   using namespace vch::blocked;
-  if (nconst != FWD_NCONST || B <= 0 || B % BB || M <= 0)
-    return (int)cudaErrorInvalidValue;
-  Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts, hist,
-         nsolve, first_bad, work, M, n, m, max_iter, n_trips, stagnation,
-         {}, {}};
-  int err = check_geometry(n, m, cluster, kc, smem_bytes, a.g);
-  if (err) return err;
-  float* dst = reinterpret_cast<float*>(&a.c);
-  for (int i = 0; i < FWD_NCONST; ++i) dst[i] = consts[i];
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  err = configure(cfg, attr, B, cluster, smem_bytes, (cudaStream_t)stream);
-  if (err) return err;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, march_blocked_kernel, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
+               nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
+               nsolve, first_bad, work, M, n, m, max_iter, n_trips,
+               stagnation, {}, {}};
+  return launch<8, false>(a, B, consts, nconst, cluster, kc, smem_bytes,
+                          stream);
 }
+#endif  // VCH_BB

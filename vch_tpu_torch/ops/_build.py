@@ -4,8 +4,9 @@ kernel wrapper makes before a launch.
 `nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
 members-per-CTA instantiation it is built for (`SOURCES`: the fused 2D sweep
 with `-DVCH_BB=1` and `8`, one member per CTA and the block that
-`resolved_fused_block()` picks; the fused 2D march, its member-blocked form
-(eight members on a thread-block cluster), the per-solve kernels, the
+`resolved_fused_block()` picks; the cluster march with `-DVCH_BB=8` and
+`1`, eight members per thread-block cluster (the member-blocked march) and
+one (the segment march); the fused 2D march, the per-solve kernels, the
 operator applies, the fused 1D march, which holds its own group sizes, and
 the cost probes, which hold their own members-per-CTA templates, with
 `-DVCH_BB=1`),
@@ -34,7 +35,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 MEMBER_BLOCKS = (1, 8)   # the members-per-CTA the fused kernels are built for
 # each source and the VCH_BB objects it is compiled into
-SOURCES = {"march2d.cu": (1,), "march2d_blocked.cu": (1,),
+SOURCES = {"march2d.cu": (1,), "march2d_blocked.cu": (1, 8),
            "adjoint2d.cu": MEMBER_BLOCKS, "solve2d.cu": (1,),
            "apply2d.cu": (1,), "march1d.cu": (1,), "probes.cu": (1,)}
 HEADERS = ("common.cuh", "tile4.cuh")
@@ -128,8 +129,8 @@ def load():
     lib.vch_march_fused_2d_blocked.argtypes = ([_P] * 11 + [_P] * 4
                                                + [_I] * 4 + [_FP, _I]
                                                + [_I] * 3 + [_I] * 3 + [_P])
-    # n m cluster kc smem_bytes
-    lib.vch_march_blocked_max_clusters.argtypes = [_I] * 5
+    # members n m cluster kc smem_bytes
+    lib.vch_march_blocked_max_clusters.argtypes = [_I] * 6
     lib.vch_march_blocked_max_clusters.restype = _I
     # dts phi0 mu0 w0 m0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist phi_f mu_f
     # w_f nsolve bad work | B K n m | consts nconst | max_iter n_trips
@@ -137,6 +138,10 @@ def load():
     lib.vch_march_fused_2d_segment.argtypes = ([_P] * 14 + [_P] * 7
                                                + [_I] * 4 + [_FP, _I]
                                                + [_I] * 3 + [_P])
+    # the same | cluster kc smem_bytes | stream
+    lib.vch_march_fused_2d_segment_cluster.argtypes = (
+        [_P] * 14 + [_P] * 7 + [_I] * 4 + [_FP, _I] + [_I] * 3 + [_I] * 3
+        + [_P])
     # dts hist phiQ phiT b1 b2 Lx LyT Vxi VyiT Vx VyT lam | r work |
     # B M n m | consts nconst | n_trips block_b | stream
     lib.vch_adjoint_fused_2d.argtypes = ([_P] * 13 + [_P] * 2 + [_I] * 4
@@ -172,6 +177,7 @@ def load():
     lib.vch_while_max_elems.restype = _I
     for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_blocked,
                lib.vch_march_fused_2d_segment,
+               lib.vch_march_fused_2d_segment_cluster,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
                lib.vch_bicgstab_2d, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,

@@ -9,7 +9,10 @@ hand-written kernels of `csrc/march2d.cu`, `csrc/march2d_blocked.cu`,
 `csrc/adjoint2d.cu` and `csrc/march1d.cu` (float32 only; anything else
 raises), on CPU tensors it runs its plain PyTorch version `<name>_plain` of
 this module. There is no fallback from one to the other. Each wrapper counts
-its kernel launches in `.launches`.
+its kernel launches in `.launches`. The segment march runs on the cluster
+kernel of `csrc/march2d_blocked.cu`; `_march_fused_2d_segment_cta` keeps the
+one-CTA segment kernel of `csrc/march2d.cu` as its bit oracle, which only
+the card tests and chip_smoke.py call.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -322,7 +325,7 @@ def _op_shapes(n, m, with_wts=True):
 
 
 def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
-              newton_rtol, newton_max_iter, n_trips, stagnation_exit):
+              newton_rtol, newton_max_iter, n_trips, stagnation_exit=True):
     return dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
                 delta_sep=delta_sep, area=area, newton_tol=newton_tol,
                 newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
@@ -392,9 +395,10 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
 march_fused_2d.launches = 0
 
 
-# The blocked march's cluster kernel (csrc/march2d_blocked.cu): the kernel
-# checks these numbers against its own.
-BLOCK_MEMBERS = 8          # members per block, one block per cluster
+# The cluster march (csrc/march2d_blocked.cu): the kernel checks these
+# numbers against its own.
+BLOCK_MEMBERS = 8          # members per block of the blocked march
+SEGMENT_MEMBERS = 1        # members per cluster of the segment march
 BLOCKED_SMEM_LIMIT = 232_448 - 4096   # dynamic shared memory per CTA: an
                                       # H100's 232,448 bytes less the
                                       # kernel's static control block
@@ -403,12 +407,14 @@ _BLOCKED_KC = (32, 16, 8, 4)   # k rows per ring stage, the largest that fits
 
 
 class BlockedGeometry(NamedTuple):
-    """How a block of eight members is split over a thread-block cluster:
-    `bands` holds each rank's (first row, rows) of every member's field, in
-    rank order; bands are stored `rows_pad` rows of `m_pad` floats apart in
-    the ring; a product of the block has `units` 4 x 4 output units, run in
-    `passes` of at most 768; its operands stream through a two-stage ring of
-    `kc` k rows; `smem_bytes` is the dynamic shared memory of one CTA."""
+    """How a block of `members` members (8 for the blocked march, 1 for the
+    segment march) is split over a thread-block cluster: `bands` holds each
+    rank's (first row, rows) of every member's field, in rank order; bands
+    are stored `rows_pad` rows of `m_pad` floats apart in the ring; a
+    product of the block has `units` 4 x 4 output units, run in `passes` of
+    at most 768; its operands stream through a two-stage ring of `kc` k
+    rows; `smem_bytes` is the dynamic shared memory of one CTA."""
+    members: int
     cluster: int
     bands: tuple
     rows_max: int
@@ -420,76 +426,110 @@ class BlockedGeometry(NamedTuple):
     smem_bytes: int
 
 
-def blocked_cluster_size(n: int, B: int, sms: int,
-                         max_cluster: int = 16) -> int:
-    """CTAs per block of eight members: the largest power of two up to
+def blocked_cluster_size(n: int, B: int, sms: int, max_cluster: int = 16,
+                         members: int = BLOCK_MEMBERS) -> int:
+    """CTAs per block of `members` members: the largest power of two up to
     max_cluster (16, the non-portable size; 8 is the portable one) and up to
-    n whose B / 8 clusters fit in the card's `sms` SMs at once, at least 1."""
-    blocks = B // BLOCK_MEMBERS
+    n whose B / members clusters fit in the card's `sms` SMs at once, at
+    least 1."""
+    blocks = B // members
     C = 1
     while 2 * C <= min(max_cluster, n) and blocks * 2 * C <= sms:
         C *= 2
     return C
 
 
+_MARCH_NAMES = {BLOCK_MEMBERS: "the blocked march",
+                SEGMENT_MEMBERS: "the segment march"}
+
+
 @lru_cache(maxsize=64)
 def blocked_geometry(n: int, m: int, B: int, sms: int,
-                     max_cluster: int = 16,
-                     cluster: int | None = None) -> BlockedGeometry:
-    """The cluster geometry of `march_fused_2d_blocked` for B members on an
-    (n, m) grid on a card of `sms` SMs (`blocked_cluster_size`; `cluster`
-    overrides it). Raises ValueError when B is not a multiple of 8, or when
-    no ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
-    if B <= 0 or B % BLOCK_MEMBERS:
-        raise ValueError(f"the blocked march takes B % {BLOCK_MEMBERS} == 0,"
-                         f" got B = {B}")
-    C = blocked_cluster_size(n, B, sms, max_cluster) if cluster is None \
-        else cluster
+                     max_cluster: int = 16, cluster: int | None = None,
+                     members: int = BLOCK_MEMBERS) -> BlockedGeometry:
+    """The cluster geometry of the cluster march for B members on an (n, m)
+    grid on a card of `sms` SMs, `members` per cluster: 8 for
+    `march_fused_2d_blocked`, 1 for `march_fused_2d_segment`
+    (`blocked_cluster_size`; `cluster` overrides it). Raises ValueError when
+    B is not a positive multiple of `members`, or when no ring fits in
+    BLOCKED_SMEM_LIMIT bytes per CTA."""
+    if members not in _MARCH_NAMES:
+        raise ValueError(f"the cluster march is built for "
+                         f"{tuple(_MARCH_NAMES)} members per cluster, got "
+                         f"{members}")
+    what = _MARCH_NAMES[members]
+    if B <= 0 or B % members:
+        raise ValueError(f"{what} takes B % {members} == 0, got B = {B}")
+    C = blocked_cluster_size(n, B, sms, max_cluster, members) \
+        if cluster is None else cluster
     if not 1 <= C <= min(16, n):
         raise ValueError(f"cluster size {C} for n = {n}")
     q, rem = divmod(n, C)
     bands = tuple((p * q + min(p, rem), q + (p < rem)) for p in range(C))
     rmax = q + (rem > 0)
     rpad, mpad = -(-rmax // 4) * 4, -(-m // 4) * 4
-    units = BLOCK_MEMBERS * (rpad // 4) * (mpad // 4)
+    units = members * (rpad // 4) * (mpad // 4)
     for kc in _BLOCKED_KC:
-        smem = 4 * 2 * kc * (BLOCK_MEMBERS * (rpad + mpad) + 4)
+        smem = 4 * 2 * kc * (members * (rpad + mpad) + 4)
         if smem <= BLOCKED_SMEM_LIMIT:
-            return BlockedGeometry(C, bands, rmax, rpad, mpad, units,
-                                   -(-units // _BLOCKED_UNITS), kc, smem)
+            return BlockedGeometry(members, C, bands, rmax, rpad, mpad,
+                                   units, -(-units // _BLOCKED_UNITS), kc,
+                                   smem)
     raise ValueError(
-        f"the blocked march on an ({n}, {m}) grid in clusters of {C} needs "
-        f"{smem} bytes of shared memory per CTA (at most "
-        f"{BLOCKED_SMEM_LIMIT})")
+        f"{what} on an ({n}, {m}) grid in clusters of {C} needs {smem} bytes "
+        f"of shared memory per CTA (at most {BLOCKED_SMEM_LIMIT})")
 
 
 @lru_cache(maxsize=64)
-def resident_clusters(device_index, n, m, C, kc, smem):
-    """How many clusters of the blocked march with this geometry the card
-    holds at once (cudaOccupancyMaxActiveClusters; negative: a CUDA
-    error)."""
+def resident_clusters(device_index, n, m, C, kc, smem,
+                      members=BLOCK_MEMBERS):
+    """How many clusters of the cluster march (`members` per cluster) with
+    this geometry the card holds at once (cudaOccupancyMaxActiveClusters;
+    negative: a CUDA error)."""
     with torch.cuda.device(device_index):
-        return _build.load().vch_march_blocked_max_clusters(n, m, C, kc,
-                                                            smem)
+        return _build.load().vch_march_blocked_max_clusters(members, n, m, C,
+                                                            kc, smem)
 
 
-def launch_geometry(n: int, m: int, B: int, device) -> BlockedGeometry:
-    """The geometry `march_fused_2d_blocked` launches on this card:
-    `blocked_geometry` on its SM count, with clusters of 16 only where all
-    B / 8 of them are resident at once (cudaOccupancyMaxActiveClusters),
-    else of 8. Raises RuntimeError if no cluster of it fits on the card."""
+def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
+                    members: int = BLOCK_MEMBERS) -> BlockedGeometry:
+    """`blocked_geometry` on `sms` SMs, made smaller where the card cannot
+    hold all B / members clusters at once (`resident(geo)`: how many
+    clusters of that geometry it holds). Eight members per cluster: clusters
+    of 8 in place of 16. One member: the cluster shrinks one CTA at a time
+    down to the largest whose clusters are all resident at once (or 1); on
+    the H100 at 257 x 257 that is 3 CTAs at B = 32: it holds only 30
+    clusters of 4, which then ran in two waves (58.6 against 35.8 ms a
+    segment, PERF.md)."""
+    geo = blocked_geometry(n, m, B, sms, members=members)
+    clusters = B // members
+    if members == BLOCK_MEMBERS:
+        if geo.cluster > 8 and resident(geo) < clusters:
+            geo = blocked_geometry(n, m, B, sms, max_cluster=8,
+                                   members=members)
+        return geo
+    while geo.cluster > 1 and resident(geo) < clusters:
+        geo = blocked_geometry(n, m, B, sms, cluster=geo.cluster - 1,
+                               members=members)
+    return geo
+
+
+def launch_geometry(n: int, m: int, B: int, device,
+                    members: int = BLOCK_MEMBERS) -> BlockedGeometry:
+    """The geometry the cluster march launches on this card for B members,
+    `members` per cluster: `fitted_geometry` on its SM count and
+    cudaOccupancyMaxActiveClusters. Raises RuntimeError if no cluster of it
+    fits on the card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    geo = blocked_geometry(n, m, B, sms)
-    fit = resident_clusters(idx, n, m, geo.cluster, geo.kc, geo.smem_bytes)
-    if geo.cluster > 8 and fit < B // BLOCK_MEMBERS:
-        geo = blocked_geometry(n, m, B, sms, max_cluster=8)
-        fit = resident_clusters(idx, n, m, geo.cluster, geo.kc,
-                                 geo.smem_bytes)
+    resident = lambda g: resident_clusters(idx, n, m, g.cluster, g.kc,
+                                           g.smem_bytes, members)
+    geo = fitted_geometry(n, m, B, sms, resident, members)
+    fit = resident(geo)
     if fit <= 0:
         raise RuntimeError(
-            f"march_fused_2d_blocked: a cluster of {geo.cluster} CTAs with "
+            f"{_MARCH_NAMES[members]}: a cluster of {geo.cluster} CTAs with "
             f"{geo.smem_bytes} bytes of dynamic shared memory each does not "
             f"fit on this card (cudaOccupancyMaxActiveClusters: {fit})")
     return geo
@@ -531,6 +571,9 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
     """One K-step segment of the march with the (phi, mu, w) state carried
     explicitly (pallas_march.py:479): mu0, w0 are the segment-start values
     and m0 (B,) the GLOBAL initial mass that the mass correction targets.
+    On CUDA tensors each member runs on a thread-block cluster
+    (`launch_geometry` with one member per cluster), bit for bit what the
+    one-CTA kernel `_march_fused_2d_segment_cta` computes.
 
     Args: dts (K,), phi0, mu0, w0 (B, n, m), m0 (B,), u (B, K+1, n, m);
     operators as `march_fused_2d`.
@@ -543,6 +586,32 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
             lam, wts)
     if not _build.on_cuda("march_fused_2d_segment", phi0):
         return march_fused_2d_segment_plain(*args, **k)
+    return _launch_segment(march_fused_2d_segment, args, k, cluster=True)
+
+
+march_fused_2d_segment.launches = 0
+
+
+def _march_fused_2d_segment_cta(*args, **kw):
+    """The one-CTA segment kernel of csrc/march2d.cu (one member per CTA):
+    the bit oracle of `march_fused_2d_segment`, which the card tests and
+    chip_smoke.py hold the cluster kernel against; no solver calls it.
+    Arguments and results as `march_fused_2d_segment`."""
+    k = _march_kw(**kw)
+    if not _build.on_cuda("_march_fused_2d_segment_cta", args[1]):
+        return march_fused_2d_segment_plain(*args, **k)
+    return _launch_segment(_march_fused_2d_segment_cta, args, k,
+                           cluster=False)
+
+
+_march_fused_2d_segment_cta.launches = 0
+
+
+def _launch_segment(wrapper, args, k, cluster: bool):
+    """Check and launch a segment march: on the cluster kernel (cluster),
+    one member per cluster on the geometry of `launch_geometry`, else on
+    the one-CTA kernel."""
+    dts, phi0, mu0, w0, m0, u = args[:6]
     B, n, m = phi0.shape
     K = dts.shape[0]
     names, shapes = _op_shapes(n, m)
@@ -550,8 +619,10 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
                        ("mu0", mu0, (B, n, m)), ("w0", w0, (B, n, m)),
                        ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
                       + list(zip(names, args[6:], shapes)), phi0.device)
-    lib = _build.load()
     dev = phi0.device
+    geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS) if cluster
+           else None)
+    lib = _build.load()
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     hist = out((B, K, n, m))
     phi_f, mu_f, w_f = out((B, n, m)), out((B, n, m)), out((B, n, m))
@@ -560,18 +631,20 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
     work = out((B, lib.vch_workspace_fields(0), n, m))
     consts, nc = _fwd_consts(k)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vch_march_fused_2d_segment(
-        *[t.data_ptr() for t in args], hist.data_ptr(), phi_f.data_ptr(),
-        mu_f.data_ptr(), w_f.data_ptr(), nsolve.data_ptr(),
-        first_bad.data_ptr(), work.data_ptr(), B, K, n, m, consts, nc,
-        k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
-        stream)
-    march_fused_2d_segment.launches += 1
-    _build.raise_on(lib, err, "march_fused_2d_segment")
+    common = ([t.data_ptr() for t in args]
+              + [hist.data_ptr(), phi_f.data_ptr(), mu_f.data_ptr(),
+                 w_f.data_ptr(), nsolve.data_ptr(), first_bad.data_ptr(),
+                 work.data_ptr(), B, K, n, m, consts, nc,
+                 k["newton_max_iter"], k["n_trips"],
+                 int(k["stagnation_exit"])])
+    if geo is None:
+        err = lib.vch_march_fused_2d_segment(*common, stream)
+    else:
+        err = lib.vch_march_fused_2d_segment_cluster(
+            *common, geo.cluster, geo.kc, geo.smem_bytes, stream)
+    wrapper.launches += 1
+    _build.raise_on(lib, err, wrapper.__name__)
     return hist, phi_f, mu_f, w_f, nsolve, first_bad
-
-
-march_fused_2d_segment.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1071,9 +1144,11 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 sk.bicgstab_schur_spectral_plain,
                 sk.bicgstab_adjoint_spectral_plain, sk.bicgstab_schur_plain,
                 sk.bicgstab_adjoint_plain, march_fused_1d_plain)
-# every kernel wrapper of the port: the solvers' entries, and the three
-# operator applies and the six cost probes, which no solver calls
-WRAPPERS = tuple(KERNELS) + (sk.schur_apply, sk.adjoint_apply,
+# every kernel wrapper of the port: the solvers' entries, the one-CTA
+# segment oracle, and the three operator applies and the six cost probes,
+# which no solver calls
+WRAPPERS = tuple(KERNELS) + (_march_fused_2d_segment_cta,
+                             sk.schur_apply, sk.adjoint_apply,
                              sk.spectral_solve, sk.schur_nodots,
                              sk.schur_mmonly, pk.matmul_chain,
                              pk.matmul_chain_bf16, pk.blocked_microbench,
