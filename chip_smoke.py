@@ -7,18 +7,28 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   0 device   — the card's name and power limit; no card is an error (never
                falls back to the CPU);
   1 build    — nvcc builds every kernel from vch_tpu_torch/csrc for sm_90a;
-  2 kernels  — the per-member march and adjoint kernels against their plain
-               PyTorch versions on the same inputs on the card, at n = 65 and
-               n = 129 (both odd edges) and at config 4's smallest
-               line-search bucket (n = 129, M = 100, B = 8), with kernel and
-               plain times;
+  2 kernels  — the per-member march (one member per thread-block cluster)
+               and adjoint kernels against their plain PyTorch versions on
+               the same inputs on the card, at n = 65 and n = 129 (both odd
+               edges) and at config 4's smallest line-search bucket (n = 129,
+               M = 100, B = 8), with kernel and plain times; then the march
+               against its one-CTA oracle bit for bit and timed in turns
+               with it at n = 65 and 129, B = 1, 8, 128 and at n = 129,
+               B = 256 (past the clusters the card holds at once), M = 100,
+               with the cluster geometry and the bound;
   2b kernels — the member-blocked kernels (the march: 8 members on a
                thread-block cluster; the sweep: 8 members per CTA) against
                their plain versions and against the per-member kernels at
                n = 65, B = 8, at bench.py's headline shape n = 65, B = 512,
                M = 100, and at n = 65, B = 64, M = 100 (plain on the first 8
                members there), with the march's cluster geometry and its
-               bound at each shape; the segment
+               bound at each shape; the blocked march and sweep at
+               block_b = 2 and 4 (n = 65, B = 8) against block_b = 8 and
+               the one-member kernels (the march bit for bit, the sweep by
+               the float64-referenced gate), with their times; the blocked
+               march at the headline's straggler buckets (B = 128 and 256,
+               M = 100) on its own cluster rule and on the one-member rule's
+               search for resident clusters, in turns; the segment
                kernels chained over two segments, K = 5 at n = 65, B = 4,
                and K = 10 at phase 6's grid n = 257, B = 2, each launch
                against its plain version, each segment march launch (one
@@ -36,12 +46,14 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                real step at n = 65, 129 and 257, one solve and a batch of 4,
                and at the scan path's n = 129, B = 128, gated against
                float64, with kernel and plain CUDA-event times;
-  2d kernels — the fused 1D march against its plain version in float32 and
-               both against the plain version in float64, at n = 129 and
-               n = 513, B = 8, 5-step and 100-step marches, and at B = 134
-               and 270 (two and four members per CTA, the last CTA not
-               full); every members-per-CTA grouping bit-equal; the kernel's
-               time at config 2's full shape (n = 513, B = 256, M = 500);
+  2d kernels — the fused 1D march (a group of members per thread-block
+               cluster, the operators' column bands in shared memory)
+               against its plain version in float32 and both against the
+               plain version in float64, at n = 129 and n = 513, B = 8,
+               5-step and 100-step marches, and at B = 134 and 270 (the last
+               cluster not full); one and three members per cluster, two
+               other cluster sizes and single members marched alone, all
+               bit-equal to the wrapper's own run, with its geometry;
   2e kernels — the three operator applies (Schur, adjoint, spectral solve)
                against their plain versions on fields from a real step at
                n = 65, 129 and 257, one field and a batch of 4, and the raw
@@ -87,7 +99,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
                one warm-up iteration, then 3 timed PGD iterations with the
                kernel launch counters reset just before (per-member kernels);
-               then the march kernel alone at that shape, with its bound;
+               then the march kernel alone at that shape, with its cluster
+               geometry and bound, and the one-member sweep alone on its
+               history, with its bound;
   4s scan    — a main path: config 4's shape on the scan path
                (BatchedProblem2D(fused_march=False)), one warm-up and one
                timed PGD iteration, the spectral per-solve kernels at
@@ -114,7 +128,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                T = 1, dt = 2e-3: M = 500, the 32 x 8 (b3, kappa) sweep:
                B = 256, float32) through BatchedProblem1D: one warm-up, then
                3 timed PGD iterations (the fused 1D march; the adjoint is the
-               batched per-step sweep, which has no kernel);
+               batched per-step sweep, which has no kernel); then the 1D
+               march alone at that shape, with its geometry and bound, and
+               on rings of 16 and 8 k rows a stage, bit for bit;
   10 config 1 — BASELINE config 1 (1D, N = 128, M = 100, one scenario,
                float32) through ControlProblem1D: constructor, one warm-up
                and 3 timed PGD iterations, verify_sparsity; it launches no
@@ -752,6 +768,175 @@ def segment_timing(torch, device, n=257, B=32, K=10, reps=1, clusters=()):
     return out
 
 
+def _seeded_march(torch, device, n, B, T):
+    """A float32 forward solver at (n - 1, T) and seeded inputs of B
+    members: phi0 from init_phi_random_2d (seed 42 + i), u = 0.1 N(0, 1)."""
+    from vch_tpu_torch.config import DELTA_SEP
+    from vch_tpu_torch.models.forward2d import ForwardSolver2D
+    from vch_tpu_torch.ops.potential import init_phi_random_2d
+
+    fwd = ForwardSolver2D(_config(n - 1, T=T), device=device)
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    phi0 = f32(np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP,
+                                            amp=0.1, seed=42 + i)
+                         for i in range(B)]))
+    u = f32(0.1 * rng.standard_normal((B, fwd.M + 1, n, n)))
+    return fwd, (fwd.dts, phi0, u) + fwd._ops()
+
+
+def march_timing(torch, device, n, B, T=1.0, reps=1):
+    """Row 1: the whole march of B members on the cluster kernel (one
+    member per cluster, `march_fused_2d`) and on its one-CTA oracle
+    (`_march_fused_2d_cta`, two CTAs per SM where B exceeds the SMs), from
+    seeded inputs: bit-gated against each other (history, Newton counts,
+    first_bad) and timed in turns (oracle, cluster, cluster, oracle; CUDA
+    events), with the cluster geometry, how many clusters the card holds at
+    once and the bound (_march_work on the measured Newton total)."""
+    from vch_tpu_torch.ops import march as km
+
+    fwd, args = _seeded_march(torch, device, n, B, T)
+    new = lambda: km.march_fused_2d(*args, **fwd._march_kw())
+    old = lambda: km._march_fused_2d_cta(*args, **fwd._march_kw())
+    kc, ko = new(), old()
+    torch.cuda.synchronize()
+    out = dict(n=n, B=B, M=fwd.M,
+               cluster_equals_cta=all(torch.equal(a, b)
+                                      for a, b in zip(kc, ko)),
+               finite=bool(torch.isfinite(kc[0]).all()),
+               newton_total=int(kc[1].sum()))
+    for name, fn in (("cta", old), ("cluster", new), ("cluster", new),
+                     ("cta", old)):
+        out.setdefault(f"{name}_ms", []).append(time_ms(fn, reps))
+    g = km.launch_geometry(n, n, B, device, members=1)
+    idx = torch.device(device).index or 0
+    out["geometry"] = dict(
+        cluster=g.cluster, ctas=B * g.cluster,
+        band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
+        kc=g.kc, smem_bytes=g.smem_bytes,
+        resident_clusters=km.resident_clusters(idx, n, n, g.cluster, g.kc,
+                                               g.smem_bytes, 1))
+    out["bound_ms"], out["bound_by"] = _bound(*_march_work(
+        n, B, fwd.M, out["newton_total"], fwd.config.fused_krylov_fixed_iters))
+    del kc, ko, args
+    return out
+
+
+def block_sizes_case(torch, device, n=65, B=8, T=0.1, reps=3):
+    """Fault C2: the blocked march at block_b = 2 and 4 against block_b = 8,
+    the one-member march and its one-CTA oracle, bit for bit (history,
+    Newton counts, first_bad); the blocked sweep at block_b = 2 and 4
+    against block_b = 1 and 8 and against the plain sweep in float64 on the
+    march's history (the phase-2 adjoint gate: no farther from float64 than
+    twice the one-member sweep plus 1e-6, and within 5e-3 of it); the CUDA-
+    event times of each."""
+    from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+    from vch_tpu_torch.ops import march as km
+
+    fwd, args = _seeded_march(torch, device, n, B, T)
+    kw = fwd._march_kw()
+    ref = km.march_fused_2d(*args, **kw)
+    oracle = km._march_fused_2d_cta(*args, **kw)
+    hist = ref[0]
+    rng = np.random.default_rng(1)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    adj = AdjointSolver2D(fwd.config, device=device)
+    aargs = (adj.dts, hist, f32(0.3 * rng.standard_normal(tuple(hist.shape))),
+             0.1 * args[1], f32(np.linspace(0.3, 5.0, B)),
+             f32(np.linspace(13.0, 10.0, B))) + adj._ops()
+    r1 = km.adjoint_fused_2d(*aargs, **adj._kw())
+    r64 = km.adjoint_fused_2d_plain(*[t.double() for t in aargs],
+                                    **adj._kw())
+    rel = lambda x, y: _rel(x, y, y)
+    out = dict(n=n, B=B, M=fwd.M,
+               one_member_equals_cta=all(torch.equal(a, b)
+                                         for a, b in zip(ref, oracle)),
+               rel_r_one_member_vs_f64=rel(r1, r64),
+               march_ms={"1": time_ms(lambda: km.march_fused_2d(*args, **kw),
+                                      reps)},
+               adjoint_ms={"1": time_ms(lambda: km.adjoint_fused_2d(
+                   *aargs, **adj._kw()), reps)}, blocks={})
+    for bb in (2, 4, 8):
+        m = lambda: km.march_fused_2d_blocked(*args, block_b=bb, **kw)
+        a = lambda: km.adjoint_fused_2d_blocked(*aargs, block_b=bb,
+                                                **adj._kw())
+        bm, br = m(), a()
+        torch.cuda.synchronize()
+        out["blocks"][bb] = dict(
+            march_equals_one_member=all(torch.equal(x, y)
+                                        for x, y in zip(bm, ref)),
+            rel_r_vs_f64=rel(br, r64), rel_r_vs_one_member=rel(br, r1),
+            geometry=km.launch_geometry(n, n, B, device,
+                                        members=bb)._asdict())
+        out["blocks"][bb]["geometry"].pop("bands")
+        out["march_ms"][str(bb)] = time_ms(m, reps)
+        out["adjoint_ms"][str(bb)] = time_ms(a, reps)
+    del ref, oracle, hist, aargs, args
+    return out
+
+
+def check_block_sizes_case(c):
+    fails = []
+    if not c["one_member_equals_cta"]:
+        fails.append("the one-member march differs from its one-CTA oracle")
+    for bb, d in c["blocks"].items():
+        if not d["march_equals_one_member"]:
+            fails.append(f"block {bb}: the march differs from the "
+                         "one-member march")
+        if d["rel_r_vs_f64"] > 2 * c["rel_r_one_member_vs_f64"] + 1e-6:
+            fails.append(f"block {bb}: the sweep is farther from float64 "
+                         "than the one-member sweep")
+        if d["rel_r_vs_one_member"] > 5e-3:
+            fails.append(f"block {bb}: sweep vs one-member sweep rel "
+                         f"{d['rel_r_vs_one_member']}")
+    if fails:
+        raise RuntimeError("block sizes 2, 4, 8: " + "; ".join(fails))
+
+
+def blocked_rule_timing(torch, device, B, n=65, T=1.0, reps=1):
+    """Row 3's cluster rule at one of the headline's straggler buckets: the
+    blocked march (8 members per cluster) of B seeded members on the
+    geometry of its former rule (clusters of 16, or 8 where 16 are not all
+    resident) and on the launch geometry, which then shrinks the cluster
+    one CTA at a time until every cluster is resident, bit-gated against
+    each other and timed in turns (rule, search, search, rule)."""
+    from vch_tpu_torch.ops import march as km
+
+    fwd, args = _seeded_march(torch, device, n, B, T)
+    kw = fwd._march_kw()
+    idx = torch.device(device).index or 0
+    held = lambda g: km.resident_clusters(idx, n, n, g.cluster, g.kc,
+                                          g.smem_bytes)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rule = km.blocked_geometry(n, n, B, sms)
+    if rule.cluster > 8 and held(rule) < B // 8:
+        rule = km.blocked_geometry(n, n, B, sms, max_cluster=8)
+    search = km.launch_geometry(n, n, B, device)
+    fitted = km.launch_geometry
+
+    def on(geo):
+        def run():
+            km.launch_geometry = lambda *a, **k: geo
+            try:
+                return km.march_fused_2d_blocked(*args, block_b=8, **kw)
+            finally:
+                km.launch_geometry = fitted
+        return run
+
+    a, b = on(rule)(), on(search)()
+    torch.cuda.synchronize()
+    out = dict(n=n, B=B, M=fwd.M, equal=all(torch.equal(x, y)
+                                            for x, y in zip(a, b)),
+               rule_cluster=rule.cluster, rule_resident=held(rule),
+               search_cluster=search.cluster, search_resident=held(search),
+               clusters=B // 8)
+    for name, geo in (("rule", rule), ("search", search), ("search", search),
+                      ("rule", rule)):
+        out.setdefault(f"{name}_ms", []).append(time_ms(on(geo), reps))
+    del a, b, args
+    return out
+
+
 SOLVE_KERNELS = ("bicgstab_schur_spectral", "bicgstab_schur",
                  "bicgstab_adjoint_spectral", "bicgstab_adjoint")
 
@@ -954,8 +1139,9 @@ def _problem_inputs_1d(torch, N, B, T, dt, device, seed=0):
     return fwd, fwd64, as_dev(torch.float32), as_dev(torch.float64)
 
 
-def _march1d_direct(fwd, x, group):
-    """The 1D march wrapper with an explicit members-per-CTA group."""
+def _march1d_direct(fwd, x, group=0):
+    """The 1D march wrapper with an explicit members-per-cluster group (0:
+    the geometry's)."""
     from vch_tpu_torch.config import DELTA_SEP
     from vch_tpu_torch.ops import march as km
     cfg = fwd.config
@@ -971,22 +1157,37 @@ def _march1d_direct(fwd, x, group):
 def march1d_case(torch, device, N, B, T, dt, plain_members=8, reps=3,
                  cpu_reference=False):
     """Phase 2d at one shape: the 1D march kernel (the wrapper's own
-    grouping) against its plain version in float32 and both against the
+    geometry) against its plain version in float32 and both against the
     plain version in float64 on the first plain_members members (with
     cpu_reference also the plain float32 version on the CPU: the spread of
-    two float32 implementations); every explicit grouping against the
-    wrapper's own on all members."""
+    two float32 implementations); on all members, one and three members per
+    cluster, two other cluster sizes (1, 2 or the chunk count, where the
+    operator bands may stream), and the first and last members marched
+    alone, each against the wrapper's own run bit for bit."""
     from vch_tpu_torch.ops import march as km
 
     fwd, fwd64, x, x64 = _problem_inputs_1d(torch, N, B, T, dt, device)
     kh, kns, kbad = fwd.march_fused_batch(x["u"], x["phi0"])
     torch.cuda.synchronize()
-    groups_equal = True
-    for group in km.MARCH_1D_GROUPS:
-        gh, gns, gbad = _march1d_direct(fwd, x, group)
-        groups_equal = groups_equal and bool(
-            torch.equal(gh, kh) and torch.equal(gns, kns)
-            and torch.equal(gbad, kbad))
+    same = lambda out, idx=slice(None): bool(
+        torch.equal(out[0], kh[idx]) and torch.equal(out[1], kns[idx])
+        and torch.equal(out[2], kbad[idx]))
+    groups_equal = all(same(_march1d_direct(fwd, x, g)) for g in (1, 3))
+    geo = km.march1d_launch_geometry(N + 1, B, device)
+    top = min(16, max(1, (N + 1) // km.MARCH_1D_CHUNK))
+    fitted = km.march1d_geometry
+    clusters = sorted({1, 2, top} - {geo.cluster})[:2]
+    for C in clusters:
+        km.march1d_geometry = (lambda n, B_, res, cluster=None, members=None:
+                               fitted(n, B_, res, C, members))
+        try:
+            groups_equal = groups_equal and same(_march1d_direct(fwd, x))
+        finally:
+            km.march1d_geometry = fitted
+    for i in (0, B - 1):
+        xi = {k: t[i:i + 1].contiguous() for k, t in x.items()}
+        groups_equal = groups_equal and same(_march1d_direct(fwd, xi),
+                                             slice(i, i + 1))
     P = min(plain_members, B)
     sub = lambda v: {k: t[:P].contiguous() for k, t in v.items()}
     xs, x64s = sub(x), sub(x64)
@@ -1001,6 +1202,11 @@ def march1d_case(torch, device, N, B, T, dt, plain_members=8, reps=3,
         h_cpu = _plain_on_cpu(fwd, "march_fused_batch", xs["u"], xs["phi0"])[0]
         cpu_vs_f64 = (h_cpu.double() - h64.cpu()).abs().max().item()
     return dict(n=N + 1, B=B, M=fwd.M, plain_members=P,
+                geometry=dict(cluster=geo.cluster, width=geo.width,
+                              members=geo.members, clusters=geo.clusters,
+                              resident=geo.resident, kc=geo.kc,
+                              smem_bytes=geo.smem_bytes),
+                other_clusters=clusters,
                 dphi_plain_cpu_vs_f64=cpu_vs_f64,
                 finite=bool(torch.isfinite(kh).all()),
                 groups_bit_equal=groups_equal,
@@ -1018,8 +1224,8 @@ def march1d_case(torch, device, N, B, T, dt, plain_members=8, reps=3,
 
 def check_march1d_case(c, short: bool):
     """Phase 2d gates: finite; first_bad equal to the plain version's; every
-    grouping bit-equal (a member's sums are taken in one order whatever the
-    members per CTA). Short marches at n = 129: max|dphi| <= 1e-5 and equal
+    grouping, cluster size and batch bit-equal (a member's sums are taken in
+    one order whatever its cluster holds). Short marches at n = 129: max|dphi| <= 1e-5 and equal
     Newton counts. Elsewhere the float64-referenced gate of phase 2 (at
     n = 513 the Laplacian's entries are ~5e5, and two float32 marches of a
     rough field differ by ~4e-4 after five steps; over 100 steps any two
@@ -2245,9 +2451,11 @@ def main():
             "spill-store bytes per kernel: " + _ptxas_summary(_build.ptxas_log)
          + " | apply2d.cu cluster_apply_kernel<VAR,S>: "
          + _ptxas_named(_build.ptxas_log, "cluster_apply_kernel")
-         + " | march2d_blocked.cu march_blocked_kernel<MB> (8: the blocked "
-         "march, 1: the segment march): "
-         + _ptxas_named(_build.ptxas_log, "march_blocked_kernel"))
+         + " | march2d_blocked.cu march_blocked_kernel<MB,SEG> (8, 4, 2: "
+         "the blocked march; <1,0>: the whole march; <1,1>: the segment "
+         "march): " + _ptxas_named(_build.ptxas_log, "march_blocked_kernel")
+         + " | march1d.cu march1d_kernel: "
+         + _ptxas_named(_build.ptxas_log, "march1d_kernel"))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
              kernel_case(torch, 129, 2, 0.05, device),
@@ -2257,6 +2465,19 @@ def main():
     for i, c in enumerate(cases):
         check_kernel_case(c, short=i < 2)
     long = cases[2]
+    # row 1 on the cluster kernel against its one-CTA oracle, bit for bit
+    # and in turns, at config 3's and config 4's grids, at B = 1, 8, 128
+    # and, past the clusters the card holds at once, at n = 129, B = 256
+    row1 = {(n, B): march_timing(torch, device, n, B)
+            for n, B in ((65, 1), (65, 8), (65, 128), (129, 1), (129, 8),
+                         (129, 128), (129, 256))}
+    for c in row1.values():
+        _log(2, "row 1 " + json.dumps(c) + f" | {name} | {smi}")
+    bad = [k for k, c in row1.items()
+           if not (c["cluster_equals_cta"] and c["finite"])]
+    if bad:
+        raise RuntimeError(f"row 1: the cluster march differs from its "
+                           f"one-CTA oracle (or is not finite) at {bad}")
 
     blk8 = blocked_case(torch, 65, 8, 0.1, device, plain_members=8)
     _log("2b", json.dumps(blk8))
@@ -2281,6 +2502,18 @@ def main():
     check_blocked_case(blk8, short=True)
     check_blocked_case(blk512, short=False)
     check_blocked_case(blk64, short=False)
+    # fault C2: explicit blocks of 2 and 4
+    c2 = block_sizes_case(torch, device)
+    _log("2b", "block sizes " + json.dumps(c2) + f" | {name} | {smi}")
+    check_block_sizes_case(c2)
+    # row 3's cluster rule against the one-member search at the headline's
+    # straggler buckets
+    rule3 = [blocked_rule_timing(torch, device, B) for B in (128, 256)]
+    for c in rule3:
+        _log("2b", "row 3 rule " + json.dumps(c) + f" | {name} | {smi}")
+    if not all(c["equal"] for c in rule3):
+        raise RuntimeError("row 3: the blocked march's bits depend on its "
+                           "cluster size")
     check_segment_case(seg, short=True)
     check_segment_case(seg257, short=False)
     for c in seg_times.values():
@@ -2376,7 +2609,7 @@ def main():
     segment = ("march_fused_2d_segment", "adjoint_fused_2d_segment")
     # the one-CTA segment kernel is the segment march's oracle, which no
     # main path launches
-    oracle = ("_march_fused_2d_segment_cta",)
+    oracle = ("_march_fused_2d_segment_cta", "_march_fused_2d_cta")
     idle_segment = segment + oracle
     march_1d = ("march_fused_1d",)
     trips_fwd = _config(64).fused_krylov_fixed_iters
@@ -2398,7 +2631,21 @@ def main():
     c4["march_newton_full_shape"] = int(ns4.sum())
     c4["march_bound_ms_full_shape"], _ = _bound(*_march_work(
         129, 128, prob4.solver.M, c4["march_newton_full_shape"], trips_fwd))
-    del prob4, x4, ns4
+    g4 = km.launch_geometry(129, 129, 128, device, members=1)
+    c4["march_geometry_full_shape"] = dict(
+        cluster=g4.cluster, resident_clusters=km.resident_clusters(
+            0, 129, 129, g4.cluster, g4.kc, g4.smem_bytes, 1))
+    # row 2, the one-member sweep, alone at this shape on the march's
+    # history, with its bound
+    h4, _, _ = prob4.solver.march_fused_batch(x4["u"], x4["phi0"])
+    a4 = (h4, torch.linspace(0.3, 5.0, 128, device=device),
+          torch.linspace(13.0, 10.0, 128, device=device),
+          torch.zeros_like(h4), 0.1 * x4["phi0"])
+    c4["adjoint_ms_full_shape"] = time_ms(
+        lambda: prob4.adj.adjoint_fused_batch(*a4), 1)
+    c4["adjoint_bound_ms_full_shape"], _ = _bound(*_adjoint_work(
+        129, 128, prob4.solver.M, trips_adj))
+    del prob4, x4, ns4, h4, a4
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
     check_main_path(c4, per_member, blocked + idle_segment + march_1d)
 
@@ -2490,6 +2737,34 @@ def main():
               generator=torch.Generator(device).manual_seed(0))}
     c9["march_ms_full_shape"] = time_ms(
         lambda: prob9.solver.march_fused_batch(x9["u"], x9["phi0"]), 1)
+    _, ns9, _ = prob9.solver.march_fused_batch(x9["u"], x9["phi0"])
+    c9["march_newton_full_shape"] = float(ns9.sum())
+    c9["march_bound_ms_full_shape"], _ = _bound(*_march1d_work(
+        513, 256, prob9.solver.M, c9["march_newton_full_shape"],
+        _config(64).krylov_fixed_iters))
+    g9 = km.march1d_launch_geometry(513, 256, device)
+    c9["march_geometry_full_shape"] = dict(
+        cluster=g9.cluster, members=g9.members, clusters=g9.clusters,
+        resident=g9.resident, kc=g9.kc, smem_bytes=g9.smem_bytes)
+    # the ring's k rows a stage at this shape: the launch geometry's against
+    # 16 and 8, bit-gated against it
+    h9 = prob9.solver.march_fused_batch(x9["u"], x9["phi0"])
+    kcs, c9["march_ms_by_ring"] = km._M1D_KC, []
+    try:
+        for kc in (16, 8):
+            km._M1D_KC = tuple(k for k in kcs if k <= kc)
+            g = km.march1d_launch_geometry(513, 256, device)
+            r = prob9.solver.march_fused_batch(x9["u"], x9["phi0"])
+            c9["march_ms_by_ring"].append(dict(
+                kc=g.kc, bits_equal=all(
+                    torch.equal(a, b) for a, b in zip(r, h9)),
+                ms=time_ms(lambda: prob9.solver.march_fused_batch(
+                    x9["u"], x9["phi0"]), 1)))
+    finally:
+        km._M1D_KC = kcs
+    del h9, r
+    if not all(c["bits_equal"] for c in c9["march_ms_by_ring"]):
+        raise RuntimeError("config 2: the 1D march's bits depend on its ring")
     c9["entries_are_kernels"] = prob9.solver.entries is km.KERNELS
     _log(9, json.dumps(c9) + f" | {name} | {smi}")
     check_main_path(c9, march_1d, per_member + blocked + idle_segment
@@ -2522,19 +2797,21 @@ def main():
         _log("2e-dev", json.dumps(c) + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
-              library_ms=None):
+              library_ms=None, shape=None):
         bound_ms, bound_by = _bound(*work)
         # library_ms: no single PyTorch call computes a whole march, sweep
         # or fixed-trip BiCGStab solve; the operator applies carry the time
         # of the same function as torch.matmul calls
-        return {"name": fn, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
+        out = {"name": fn, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
+        if shape:
+            out["shape"] = shape
+        return out
 
     mean = lambda v: float(np.mean(v))
-    march_cu = "vch_tpu_torch/csrc/march2d.cu"
     cluster_cu = "vch_tpu_torch/csrc/march2d_blocked.cu"
     adj_cu = "vch_tpu_torch/csrc/adjoint2d.cu"
     solve_cu = "vch_tpu_torch/csrc/solve2d.cu"
@@ -2542,16 +2819,18 @@ def main():
     pk = "vch_tpu/ops/pallas_kernels.py"
     seg_newton = sum(seg257["newton_chain"]) / (seg257["M"] // seg257["K"])
     trips_1d = _config(64).krylov_fixed_iters    # the 1D march's trips
+    full4 = "ms, bound_ms: config 4's n=129, B=128, M=100; max_abs_err, " \
+        "plain_ms: n=129, B=8, M=100"
     kernels = [
-        entry("march_fused_2d", march_cu, f"{pm}:393",
+        entry("march_fused_2d", cluster_cu, f"{pm}:393",
               c4["launches"]["march_fused_2d"], long["max_abs_dphi"],
-              long["march_ms"], long["march_plain_ms"],
-              _march_work(long["n"], long["B"], long["M"],
-                          sum(long["newton_kernel"]), trips_fwd)),
+              c4["march_ms_full_shape"], long["march_plain_ms"],
+              _march_work(129, 128, c4["M"], c4["march_newton_full_shape"],
+                          trips_fwd), shape=full4),
         entry("adjoint_fused_2d", adj_cu, f"{pm}:751",
               c4["launches"]["adjoint_fused_2d"], long["max_abs_dr"],
-              long["adjoint_ms"], long["adjoint_plain_ms"],
-              _adjoint_work(long["n"], long["B"], long["M"], trips_adj)),
+              c4["adjoint_ms_full_shape"], long["adjoint_plain_ms"],
+              _adjoint_work(129, 128, c4["M"], trips_adj), shape=full4),
         entry("march_fused_2d_blocked", cluster_cu, f"{pm}:1649",
               c5["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
               mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"],
@@ -2593,15 +2872,17 @@ def main():
                              solve_launches[k], c["max_abs_err"], c["ms"],
                              c["plain_ms"],
                              _solve_work(k, s65["n"], 1, c["trips"])))
-    # the 1D march at config 2's smallest bucket and a fifth of its depth
-    # (n = 513, B = 8, M = 100), its launches on config 2's timed run
+    # the 1D march at config 2's full shape (n = 513, B = 256, M = 500); its
+    # plain version and error at the smallest bucket and a fifth of the
+    # depth (n = 513, B = 8, M = 100); its launches on config 2's timed run
     kernels.append(entry(
         "march_fused_1d", "vch_tpu_torch/csrc/march1d.cu", f"{pm}:1183",
         c9["launches"]["march_fused_1d"], long1d["max_abs_dphi"],
-        long1d["march_ms"], long1d["march_plain_ms"],
-        _march1d_work(long1d["n"], long1d["B"], long1d["M"],
-                      long1d["newton_kernel_total"],
-                      trips_1d)))
+        c9["march_ms_full_shape"], long1d["march_plain_ms"],
+        _march1d_work(513, 256, c9["M"], c9["march_newton_full_shape"],
+                      trips_1d),
+        shape="ms, bound_ms: config 2's n=513, B=256, M=500; max_abs_err, "
+              "plain_ms: n=513, B=8, M=100"))
     # the operators no solver calls, at n = 65, one field (the batched Schur
     # solve at B = 8), their launches those of operator_calls
     apply_cu = "vch_tpu_torch/csrc/apply2d.cu"

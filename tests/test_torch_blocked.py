@@ -92,16 +92,20 @@ def _adj_kw():
 
 @pytest.mark.parametrize("name", ["float64", "float32"])
 def test_blocked_march_plain_matches_pallas_blocked(name):
+    _blocked_march_case(name, BB)
+
+
+def _blocked_march_case(name, bb):
     op_np, wts, dts, phi0, u = _inputs()
     kw = _march_kw(name)
     j = lambda a: jnp.asarray(a, _np_dt(name))
     jh, jns, jbad = pm.march_fused_2d_blocked(
         j(dts), j(phi0), j(u), *_jax_ops(op_np, name, wts), interpret=True,
-        solve_prec="highest", fwd_mm="highest", block_b=BB, **kw)
+        solve_prec="highest", fwd_mm="highest", block_b=bb, **kw)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=_t_dt(name))
     before = tm.march_fused_2d_blocked.launches
     th, tns, tbad = tm.march_fused_2d_blocked(
-        t(dts), t(phi0), t(u), *_torch_ops(op_np, name, wts), block_b=BB,
+        t(dts), t(phi0), t(u), *_torch_ops(op_np, name, wts), block_b=bb,
         **kw)
     assert tm.march_fused_2d_blocked.launches == before  # CPU: plain path
     assert th.shape == jh.shape
@@ -127,20 +131,33 @@ def _adjoint_inputs(name):
 
 @pytest.mark.parametrize("name", ["float64", "float32"])
 def test_blocked_adjoint_plain_matches_pallas_blocked(name):
+    _blocked_adjoint_case(name, BB)
+
+
+def _blocked_adjoint_case(name, bb):
     op_np, dts, hist, phi_Q, phi_T, b1, b2 = _adjoint_inputs(name)
     j = lambda a: jnp.asarray(a, _np_dt(name))
     jr = np.asarray(pm.adjoint_fused_2d_blocked(
         j(dts), j(hist), j(phi_Q), j(phi_T), j(b1), j(b2),
         *_jax_ops(op_np, name), interpret=True, solve_prec="highest",
-        block_b=BB, **_adj_kw()))
+        block_b=bb, **_adj_kw()))
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=_t_dt(name))
     tr = tm.adjoint_fused_2d_blocked(
         t(dts), t(hist), t(phi_Q), t(phi_T), t(b1), t(b2),
-        *_torch_ops(op_np, name), block_b=BB, **_adj_kw()).numpy()
+        *_torch_ops(op_np, name), block_b=bb, **_adj_kw()).numpy()
     assert tr.shape == jr.shape
     assert (tr[:, -1] == 0).all()
     rel = np.abs(tr - jr).max() / np.abs(jr).max()
     assert rel <= TOL_R[name], rel
+
+
+@pytest.mark.parametrize("name", ["float64", "float32"])
+@pytest.mark.parametrize("case", [_blocked_march_case, _blocked_adjoint_case],
+                         ids=["march", "adjoint"])
+def test_blocked_plain_matches_pallas_at_block_4(case, name):
+    """The blocks of 4 that the CUDA kernels are built for beside 2 and 8
+    (one block of the four members)."""
+    case(name, 4)
 
 
 class _Spy:

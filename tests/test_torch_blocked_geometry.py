@@ -229,6 +229,79 @@ def test_the_blocked_cluster_takes_8_where_16_is_not_resident(B, resident16,
                                                              C):
     """Eight members per cluster keep their rule: 16 where every cluster is
     resident, else 8 (n = 65, B = 64 on the H100 took 8)."""
-    resident = lambda g: resident16 if g.cluster == 16 else 15
+    resident = lambda g: (resident16 if g.cluster == 16
+                          else 15 if g.cluster == 8 else H100_SMS // g.cluster)
     g = fitted_geometry(65, 65, B, H100_SMS, resident)
     assert g.members == 8 and g.cluster == C
+
+
+# ---- two and four members per cluster (the blocked march at block_b = 2
+# and 4), and the whole one-member march -----------------------------------
+
+@pytest.mark.parametrize("members,B,C", [(2, 8, 16), (4, 8, 16), (2, 64, 4),
+                                         (4, 64, 8), (2, 512, 1),
+                                         (4, 512, 1)])
+def test_two_and_four_members_follow_the_blocks_and_the_sms(members, B, C):
+    g = blocked_geometry(65, 65, B, H100_SMS, members=members)
+    assert g.members == members and g.cluster == C
+    assert g.units == members * (g.rows_pad // 4) * (g.m_pad // 4)
+    assert g.smem_bytes == 4 * 2 * g.kc * (members * (g.rows_pad + g.m_pad)
+                                           + 4)
+    assert g.smem_bytes <= BLOCKED_SMEM_LIMIT
+    assert (B // members) * C <= H100_SMS or C == 1
+
+
+@pytest.mark.parametrize("members,B,C", [(2, 8, 16), (4, 8, 16),
+                                         (2, 64, 3), (4, 64, 7),
+                                         (2, 128, 2), (4, 128, 3)])
+def test_two_and_four_members_shrink_until_every_cluster_is_resident(
+        members, B, C):
+    """Two and four members per cluster take the one-member search: B = 64
+    at two members is 32 clusters, 4 CTAs each by the SM rule, of which the
+    card holds 30; clusters of 3 are all resident (at four members, 16
+    clusters of 8, 15 resident: 7)."""
+    g = fitted_geometry(65, 65, B, H100_SMS, _h100_resident, members=members)
+    assert g.members == members and g.cluster == C
+    assert _h100_resident(g) >= B // members or C == 1
+
+
+@pytest.mark.parametrize("B,C", [(128, 1), (64, 2), (32, 3), (16, 7), (8, 8),
+                                 (1, 16)])
+def test_one_member_march_at_config_4_and_its_buckets(B, C):
+    """Config 4 (129 x 129, B = 128): one CTA per member, the card holding
+    one per SM; its straggler buckets shrink to resident clusters."""
+    g = fitted_geometry(129, 129, B, H100_SMS, _h100_resident, members=1)
+    assert g.members == 1 and g.cluster == C
+    assert g == blocked_geometry(129, 129, B, H100_SMS, cluster=C, members=1)
+    assert B * C <= H100_SMS and (_h100_resident(g) >= B or C == 1)
+    assert g.smem_bytes <= BLOCKED_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,C", [(1, 16), (5, 16), (8, 8)])
+def test_one_member_march_at_config_3(B, C):
+    """Config 3 (65 x 65): the trial march of one member on a cluster of 16,
+    the checks' five members too (seven such clusters are resident)."""
+    g = fitted_geometry(65, 65, B, H100_SMS, _h100_resident, members=1)
+    assert g.cluster == C and [r for _, r in g.bands][:2] == (
+        [5, 4] if C == 16 else [9, 8])
+    assert g.units == (g.rows_pad // 4) * (g.m_pad // 4)
+
+
+@pytest.mark.parametrize("members", [2, 4])
+def test_a_batch_not_of_whole_blocks_of_two_or_four_raises(members):
+    with pytest.raises(ValueError, match=f"B % {members}"):
+        blocked_geometry(65, 65, members + 1, H100_SMS, members=members)
+
+
+@pytest.mark.parametrize("B,C", [(512, 2), (256, 3), (128, 6), (64, 8),
+                                 (32, 16), (8, 16)])
+def test_the_blocked_cluster_shrinks_where_its_rule_leaves_a_second_wave(
+        B, C):
+    """Eight members at 65 x 65 on the H100's residency (measured at
+    B = 128 and 256: 15 clusters of 8 and 30 of 4 at once, 17 of 6 and 39
+    of 3): the 16 -> 8 trade, then the one-member search where clusters
+    still wait: B = 128 on clusters of 6, B = 256 on 3."""
+    held = {16: 7, 8: 15, 7: 15, 6: 17, 4: 30, 3: 39, 2: 66}
+    g = fitted_geometry(65, 65, B, H100_SMS, lambda g: held[g.cluster])
+    assert g.members == 8 and g.cluster == C
+    assert held[C] >= B // 8

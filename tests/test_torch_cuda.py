@@ -11,10 +11,10 @@ right at the tolerance may take one more iteration); r 2e-3 relative, the
 float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
-do the two one-member marches, and the cluster segment march and its
-one-CTA oracle at every batch and cluster size. The 1D march: phi 1e-5 absolute on a short
-march, Newton counts and first_bad equal, and bit-equal results for every
-members-per-CTA grouping. The operator applies: no farther from float64
+do the cluster marches (whole, blocked, segment) and their one-CTA oracles
+at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
+short march, Newton counts and first_bad equal, and bit-equal results for
+every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
 launches bit-equal and each member of a batch bit-equal to its one-member
 launch (the solve kernels' own gates are in chip_smoke.py).
@@ -115,6 +115,40 @@ def test_wrappers_reject_other_devices():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(65, 1), (65, 8), (65, 128), (129, 1),
+                                 (129, 8), (129, 128)])
+def test_one_member_march_equals_the_one_cta_oracle(cuda, n, B):
+    """The whole march (one member per thread-block cluster) gives the
+    one-CTA kernel's history, Newton counts and first_bad bit for bit."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=n, B=B, T=0.03)
+    args = _march_args(fwd, phi0, u)
+    before = (km.march_fused_2d.launches, km._march_fused_2d_cta.launches)
+    kc = km.march_fused_2d(*args, **_KW)
+    ko = km._march_fused_2d_cta(*args, **_KW)
+    torch.cuda.synchronize()
+    assert (km.march_fused_2d.launches,
+            km._march_fused_2d_cta.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(kc, ko):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_one_member_march_bits_do_not_depend_on_the_cluster_size(
+        cuda, monkeypatch):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=2, T=0.03)
+    args = _march_args(fwd, phi0, u)
+    ref = km._march_fused_2d_cta(*args, **_KW)
+    for C in range(1, 17):
+        _segment_geometry(monkeypatch, lambda n, m, B, sms, members:
+                          km.blocked_geometry(n, m, B, sms, cluster=C,
+                                              members=members))
+        out = km.march_fused_2d(*args, **_KW)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), C
+
+
+@pytest.mark.cuda
 def test_march_kernel_matches_plain(cuda):
     fwd, _, phi0, u, _ = _problem(cuda, n=33, B=4, T=0.1)
     args = _march_args(fwd, phi0, u)
@@ -206,8 +240,8 @@ def test_blocked_kernels_equal_the_per_member_kernels(cuda, n, m, B):
 
 
 def _with_geometry(monkeypatch, make):
-    """Make march_fused_2d_blocked launch on make(n, m, B, sms)."""
-    def launch_geometry(n, m, B, device):
+    """Make the cluster march launch on make(n, m, B, sms)."""
+    def launch_geometry(n, m, B, device, **kw):
         sms = torch.cuda.get_device_properties(
             torch.device(device)).multi_processor_count
         return make(n, m, B, sms)
@@ -248,13 +282,17 @@ def test_blocked_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
 
 @pytest.mark.cuda
 def test_lean_one_member_march_equals_the_held_one(cuda):
-    """A launch with more CTAs than SMs takes the lean one-member march
-    (field pointers formed at use); it computes what the other does."""
+    """A launch of the one-CTA oracle with more CTAs than SMs takes its lean
+    form (field pointers formed at use); it computes what the other does,
+    and so does the cluster march beyond the clusters the card holds."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     fwd, _, phi0, u, _ = _problem(cuda, B=sms + 4, T=0.03)
-    lean = km.march_fused_2d(*_march_args(fwd, phi0, u), **_KW)
-    held = km.march_fused_2d(*_march_args(fwd, phi0[:4], u[:4].contiguous()),
-                             **_KW)
+    lean = km._march_fused_2d_cta(*_march_args(fwd, phi0, u), **_KW)
+    held = km._march_fused_2d_cta(
+        *_march_args(fwd, phi0[:4], u[:4].contiguous()), **_KW)
+    waves = km.march_fused_2d(*_march_args(fwd, phi0, u), **_KW)
+    for a, b in zip(waves, lean):
+        assert torch.equal(a, b)
     torch.cuda.synchronize()
     for a, b in zip(lean, held):
         assert torch.equal(a[:4], b)
@@ -319,7 +357,7 @@ def test_cluster_segment_march_equals_the_one_cta_oracle(cuda, n, m, B):
 
 def _segment_geometry(monkeypatch, make):
     """Make the segment march launch on make(n, m, B, sms, members)."""
-    def launch_geometry(n, m, B, device, members=km.BLOCK_MEMBERS):
+    def launch_geometry(n, m, B, device, members=km.BLOCK_MEMBERS, **kw):
         sms = torch.cuda.get_device_properties(
             torch.device(device)).multi_processor_count
         return make(n, m, B, sms, members)
@@ -383,13 +421,46 @@ def test_segment_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
 
 @pytest.mark.cuda
 def test_blocked_wrappers_reject_unbuilt_and_indivisible_blocks(cuda):
-    fwd, _, phi0, u, _ = _problem(cuda, B=6)
+    """block_b = 2 and 4 run: the march bit for bit the one-member march and
+    its one-CTA oracle, member for member; the sweep as close to float64 as
+    the one-member sweep (within 2x plus 1e-6) and within 2e-3 of it. A
+    block of 3 and a batch that does not divide by the block raise."""
+    fwd, adj, phi0, u, f32 = _problem(cuda, n=65, B=8, T=0.05)
     args = _march_args(fwd, phi0, u)
-    for block_b in (2, 3):
-        with pytest.raises(ValueError, match="built for block_b"):
-            km.march_fused_2d_blocked(*args, block_b=block_b, **_KW)
+    kh, kns, kbad = km.march_fused_2d(*args, **_KW)
+    oh, ons, obad = km._march_fused_2d_cta(*args, **_KW)
+    b1, b2 = f32(np.linspace(0.3, 5.0, 8)), f32(np.linspace(13.0, 10.0, 8))
+    aargs = (adj.dts, kh, torch.zeros_like(kh), 0.1 * phi0, b1, b2) + \
+        adj._ops()
+    kr = km.adjoint_fused_2d(*aargs, **adj._kw())
+    r64 = km.adjoint_fused_2d_plain(*[t.double() for t in aargs],
+                                    **adj._kw())
+    torch.cuda.synchronize()
+    for a, b in ((kh, oh), (kns, ons), (kbad, obad)):
+        assert torch.equal(a, b)
+    for block_b in (2, 4):
+        before = (km.march_fused_2d_blocked.launches,
+                  km.adjoint_fused_2d_blocked.launches)
+        bh, bns, bbad = km.march_fused_2d_blocked(*args, block_b=block_b,
+                                                  **_KW)
+        br = km.adjoint_fused_2d_blocked(*aargs, block_b=block_b,
+                                         **adj._kw())
+        torch.cuda.synchronize()
+        assert (km.march_fused_2d_blocked.launches,
+                km.adjoint_fused_2d_blocked.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+        for a, b in ((bh, kh), (bns, kns), (bbad, kbad)):
+            assert torch.equal(a, b), block_b
+        rel = lambda x, y: ((x.double() - y).abs().max()
+                            / y.abs().max()).item()
+        assert rel(br, r64) <= 2 * rel(kr, r64) + 1e-6, block_b
+        assert rel(br, kr.double()) <= 2e-3, block_b
+    fwd6, _, phi6, u6, _ = _problem(cuda, B=6)
+    args6 = _march_args(fwd6, phi6, u6)
+    with pytest.raises(ValueError, match="built for block_b"):
+        km.march_fused_2d_blocked(*args6, block_b=3, **_KW)
     with pytest.raises(ValueError, match="B % block_b"):
-        km.march_fused_2d_blocked(*args, block_b=4, **_KW)
+        km.march_fused_2d_blocked(*args6, block_b=4, **_KW)
 
 
 def _solve_inputs(device, dtype, n=65, B=4, seed=0):
@@ -548,11 +619,50 @@ def test_march_1d_kernel_matches_plain_for_every_grouping(cuda, N, B, T):
               n_trips=cfg.krylov_fixed_iters, stagnation_exit=True)
     args = (fwd.dts, phi0, u, fwd.LT, fwd.VinvT, fwd.VT, fwd.lam[None],
             fwd.wts[None])
-    for group in km.MARCH_1D_GROUPS:      # B is not a multiple of 2 or 4
+    for group in (1, 2, 4):       # B is not a multiple of 2 or 4
         gh, gns, gbad = km.march_fused_1d(*args, group=group, **kw)
         torch.cuda.synchronize()
         assert torch.equal(gh, kh), group
         assert torch.equal(gns, kns) and torch.equal(gbad, kbad), group
+
+
+def _march1d_kw(fwd):
+    cfg = fwd.config
+    return dict(tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
+                gamma=cfg.gamma, delta_sep=DELTA_SEP, Lx_len=cfg.Lx,
+                newton_tol=cfg.newton_tol, newton_rtol=fwd._rtol,
+                newton_max_iter=cfg.newton_max_iter,
+                n_trips=cfg.krylov_fixed_iters, stagnation_exit=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 128, 512])
+def test_march_1d_bits_do_not_depend_on_cluster_members_or_batch(
+        cuda, monkeypatch, N):
+    """Every cluster size up to the chunk count, several members per
+    cluster, and a member marched in a batch of one: the same bits."""
+    fwd, phi0, u = _problem_1d(cuda, N=N, B=7, T=0.02)
+    args = (fwd.dts, phi0, u, fwd.LT, fwd.VinvT, fwd.VT, fwd.lam[None],
+            fwd.wts[None])
+    kw = _march1d_kw(fwd)
+    ref = km.march_fused_1d(*args, **kw)
+    one = km.march_fused_1d(fwd.dts, phi0[3:4].contiguous(),
+                            u[3:4].contiguous(), *args[3:], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(one, ref):
+        assert torch.equal(a, b[3:4])
+    nch = max(1, (N + 1) // km.MARCH_1D_CHUNK)
+    fitted = km.march1d_geometry
+    for C in sorted({1, 2, 3, min(nch, 16)} & set(range(1, min(nch, 16) + 1))):
+        for members in (None, 3):
+            monkeypatch.setattr(km, "march1d_geometry",
+                                lambda n, B, res, cluster=None, members=None,
+                                C=C, mb=members: fitted(n, B, res, C,
+                                                        members or mb))
+            out = km.march_fused_1d(*args, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b), (C, members)
 
 
 @pytest.mark.cuda

@@ -275,7 +275,7 @@ int launch_adjoint(int B, AdjArgs k, cudaStream_t s) {
 }
 
 // Each members-per-CTA instantiation is compiled as its own object (nvcc
-// -DVCH_BB=1 and 8, in parallel; ops/_build.py); the VCH_BB=1 object
+// -DVCH_BB=1, 2, 4 and 8, in parallel; ops/_build.py); the VCH_BB=1 object
 // holds the C entry points and dispatches to the others.
 #ifndef VCH_BB
 #define VCH_BB 1
@@ -287,6 +287,8 @@ template int launch_adjoint<VCH_BB>(int, AdjArgs, cudaStream_t);
 #if VCH_BB == 1
 namespace vch {
 
+extern template int launch_adjoint<2>(int, AdjArgs, cudaStream_t);
+extern template int launch_adjoint<4>(int, AdjArgs, cudaStream_t);
 extern template int launch_adjoint<8>(int, AdjArgs, cudaStream_t);
 
 namespace {
@@ -302,6 +304,8 @@ int launch(int bb, int B, const AdjArgs& a, const float* consts, int nconst,
   const cudaStream_t s = (cudaStream_t)stream;
   switch (bb) {
     case 1: return launch_adjoint<1>(B, k, s);
+    case 2: return launch_adjoint<2>(B, k, s);
+    case 4: return launch_adjoint<4>(B, k, s);
     case 8: return launch_adjoint<8>(B, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -310,8 +314,8 @@ int launch(int bb, int B, const AdjArgs& a, const float* consts, int nconst,
 }  // namespace
 }  // namespace vch
 
-// The whole sweep (block_b = 1) or its member-blocked form (block_b = 8;
-// B % block_b == 0). r is (B, M+1, n, m) with r_T = 0 last.
+// The whole sweep (block_b = 1) or its member-blocked form (block_b = 2, 4
+// or 8; B % block_b == 0). r is (B, M+1, n, m) with r_T = 0 last.
 extern "C" int vch_adjoint_fused_2d(
     const float* dts, const float* hist, const float* phiQ, const float* phiT,
     const float* b1, const float* b2, const float* Lx, const float* LyT,

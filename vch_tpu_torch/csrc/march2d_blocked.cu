@@ -1,14 +1,18 @@
 // The 2D forward march on thread-block clusters: a block of MB members per
-// cluster, MB = 8 for the whole march, MB = 1 for a K-step segment.
+// cluster, MB = 8, 4 or 2 for the member-blocked march, MB = 1 for the
+// whole one-member march and for a K-step segment.
 //
-// Replaces two TPU kernels of vch_tpu/ops/pallas_march.py:
-//   - :1649 march_fused_2d_blocked (factory :1271): block_b = 8 members per
-//     program in masked lockstep; here march_blocked_kernel<8, false>;
+// Replaces three TPU kernels of vch_tpu/ops/pallas_march.py:
+//   - :393 march_fused_2d: one member per program; here
+//     march_blocked_kernel<1, false>, one member per cluster;
+//   - :1649 march_fused_2d_blocked (factory :1271): block_b members per
+//     program in masked lockstep; here march_blocked_kernel<block_b, false>
+//     for block_b = 8, 4 or 2;
 //   - :479 march_fused_2d_segment (the factory's segment=True): one member
 //     per program with the (mu, w, global m0) carry in, (phi, mu, w) out and
 //     only the post-step states in the history; here
 //     march_blocked_kernel<1, true>, one member per cluster.
-// Either computes, member for member and bit for bit, what the one-member
+// Each computes, member for member and bit for bit, what the one-member
 // march of march2d.cu computes (its segment flag included): the w CN update
 // and mu_init, each member's own Newton loop (dense-stencil CN residual,
 // fixed-trip BiCGStab on the Schur system in the cosine basis with best
@@ -22,8 +26,9 @@
 // reductions whose results every later step needs. The MB members of a
 // block share each operator slab, so a block's products are MB times as
 // wide as one member's; the work is the chain's length times that width.
-// With one member (the segment march at 257 x 257, B = 2 .. 32) a cluster
-// of up to 16 SMs shortens each link of the chain instead.
+// With one member (the segment march at 257 x 257, B = 2 .. 32; the whole
+// march of one scenario at 65 x 65) a cluster of up to 16 SMs shortens
+// each link of the chain instead.
 //
 // Design. Block k of MB members runs on a cluster of C CTAs (C from the
 // number of blocks and the card's SMs, ops/march.py blocked_geometry). CTA
@@ -1045,27 +1050,127 @@ int launch(Args a, int B, const float* consts, int nconst, int cluster,
 }  // namespace blocked
 }  // namespace vch
 
-// Compiled once per instantiation, in parallel (ops/_build.py): -DVCH_BB=8
-// builds the blocked march and its C entries, -DVCH_BB=1 the segment march
-// and its; each object holds one kernel.
+// Compiled once per instantiation, in parallel (ops/_build.py): the object
+// of -DVCH_BB=MB (-DVCH_SEG=1: the segment march) holds
+// march_blocked_kernel<MB, SEG> and its launch and occupancy functions;
+// the -DVCH_BB=8 object also holds the C entries, which dispatch to the
+// others by member count.
 #ifndef VCH_BB
 #define VCH_BB 8
 #endif
+#ifndef VCH_SEG
+#define VCH_SEG 0
+#endif
 
-#if VCH_BB == 1
-// How many clusters of `cluster` CTAs of the segment march can be resident
-// at once on the current card with this geometry; a negative CUDA error
-// code on failure.
-extern "C" int vch_march_segment_max_clusters(int n, int m, int cluster,
+namespace vch {
+namespace blocked {
+template int launch<VCH_BB, (VCH_SEG != 0)>(Args, int, const float*, int,
+                                            int, int, int, void*);
+template int max_clusters<VCH_BB, (VCH_SEG != 0)>(int, int, int, int, int);
+}  // namespace blocked
+}  // namespace vch
+
+#if VCH_BB == 8 && !VCH_SEG
+namespace vch {
+namespace blocked {
+#define VCH_EXTERN(MB, SEG)                                                  \
+  extern template int launch<MB, SEG>(Args, int, const float*, int, int,     \
+                                      int, int, void*);                      \
+  extern template int max_clusters<MB, SEG>(int, int, int, int, int);
+VCH_EXTERN(4, false)
+VCH_EXTERN(2, false)
+VCH_EXTERN(1, false)
+VCH_EXTERN(1, true)
+#undef VCH_EXTERN
+
+// The whole march of B members, `members` per cluster.
+int launch_whole(int members, const Args& a, int B, const float* consts,
+                 int nconst, int cluster, int kc, int smem_bytes,
+                 void* stream) {
+  switch (members) {
+    case 8: return launch<8, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    case 4: return launch<4, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    case 2: return launch<2, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    case 1: return launch<1, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace blocked
+}  // namespace vch
+
+// How many clusters of `cluster` CTAs of the march with `members` members
+// per cluster (8, 4, 2: the blocked march; 1: the one-member march, or with
+// segment != 0 the segment march) can be resident at once on the current
+// card with this geometry; a negative CUDA error code on failure.
+extern "C" int vch_march_blocked_max_clusters(int members, int segment,
+                                              int n, int m, int cluster,
                                               int kc, int smem_bytes) {
-  return vch::blocked::max_clusters<1, true>(n, m, cluster, kc, smem_bytes);
+  using namespace vch::blocked;
+  if (segment)
+    return members == 1 ? max_clusters<1, true>(n, m, cluster, kc, smem_bytes)
+                        : -(int)cudaErrorInvalidValue;
+  switch (members) {
+    case 8: return max_clusters<8, false>(n, m, cluster, kc, smem_bytes);
+    case 4: return max_clusters<4, false>(n, m, cluster, kc, smem_bytes);
+    case 2: return max_clusters<2, false>(n, m, cluster, kc, smem_bytes);
+    case 1: return max_clusters<1, false>(n, m, cluster, kc, smem_bytes);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// The member-blocked march of B members (B % members == 0, members 8, 4 or
+// 2) on clusters of `cluster` CTAs, with ring stages of kc rows and
+// smem_bytes of dynamic shared memory per CTA: the geometry of
+// ops/march.py blocked_geometry, checked here against the kernel's own.
+// Arguments otherwise as vch_march_fused_2d (march2d.cu); hist is
+// (B, M+1, n, m) with phi0 first, work (B, 33, n, m).
+extern "C" int vch_march_fused_2d_blocked(
+    const float* dts, const float* phi0, const float* u, const float* Lx,
+    const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
+    const float* VyT, const float* lam, const float* wts, float* hist,
+    int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
+    const float* consts, int nconst, int max_iter, int n_trips,
+    int stagnation, int members, int cluster, int kc, int smem_bytes,
+    void* stream) {
+  using namespace vch::blocked;
+  if (members == 1) return (int)cudaErrorInvalidValue;
+  const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
+               nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
+               nsolve, first_bad, work, M, n, m, max_iter, n_trips,
+               stagnation, {}, {}};
+  return launch_whole(members, a, B, consts, nconst, cluster, kc, smem_bytes,
+                      stream);
+}
+
+// The whole march with one member per cluster of `cluster` CTAs: what
+// vch_march_fused_2d (march2d.cu) computes, bit for bit; arguments as
+// vch_march_fused_2d_blocked's for one member.
+extern "C" int vch_march_fused_2d_cluster(
+    const float* dts, const float* phi0, const float* u, const float* Lx,
+    const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
+    const float* VyT, const float* lam, const float* wts, float* hist,
+    int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
+    const float* consts, int nconst, int max_iter, int n_trips,
+    int stagnation, int cluster, int kc, int smem_bytes, void* stream) {
+  using namespace vch::blocked;
+  const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
+               nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
+               nsolve, first_bad, work, M, n, m, max_iter, n_trips,
+               stagnation, {}, {}};
+  return launch_whole(1, a, B, consts, nconst, cluster, kc, smem_bytes,
+                      stream);
 }
 
 // One K-step segment of B members, one member per cluster of `cluster`
 // CTAs, with the (mu0, w0, global m0) carry in and (phi_f, mu_f, w_f) out;
 // hist is (B, K, n, m), the post-step states only; u (B, K+1, n, m). The
-// geometry as vch_march_fused_2d_blocked's, for one member per cluster;
-// arguments otherwise as vch_march_fused_2d_segment (march2d.cu).
+// geometry as vch_march_fused_2d_cluster's; arguments otherwise as
+// vch_march_fused_2d_segment (march2d.cu).
 extern "C" int vch_march_fused_2d_segment_cluster(
     const float* dts, const float* phi0, const float* mu0, const float* w0,
     const float* m0, const float* u, const float* Lx, const float* LyT,
@@ -1083,47 +1188,4 @@ extern "C" int vch_march_fused_2d_segment_cluster(
   return launch<1, true>(a, B, consts, nconst, cluster, kc, smem_bytes,
                          stream);
 }
-#else
-extern "C" int vch_march_segment_max_clusters(int n, int m, int cluster,
-                                              int kc, int smem_bytes);
-
-// How many clusters of `cluster` CTAs of the march with `members` members
-// per cluster (8: the blocked march; 1: the segment march) can be resident
-// at once on the current card with this geometry; a negative CUDA error
-// code on failure.
-extern "C" int vch_march_blocked_max_clusters(int members, int n, int m,
-                                              int cluster, int kc,
-                                              int smem_bytes) {
-  switch (members) {
-    case 8:
-      return vch::blocked::max_clusters<8, false>(n, m, cluster, kc,
-                                                  smem_bytes);
-    case 1:
-      return vch_march_segment_max_clusters(n, m, cluster, kc, smem_bytes);
-    default:
-      return -(int)cudaErrorInvalidValue;
-  }
-}
-
-// The member-blocked march of B members (B % 8 == 0) on clusters of
-// `cluster` CTAs, with ring stages of kc rows and smem_bytes of dynamic
-// shared memory per CTA: the geometry of ops/march.py blocked_geometry,
-// checked here against the kernel's own. Arguments otherwise as
-// vch_march_fused_2d (march2d.cu); hist is (B, M+1, n, m) with phi0 first,
-// work (B, 33, n, m).
-extern "C" int vch_march_fused_2d_blocked(
-    const float* dts, const float* phi0, const float* u, const float* Lx,
-    const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
-    const float* VyT, const float* lam, const float* wts, float* hist,
-    int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
-    const float* consts, int nconst, int max_iter, int n_trips,
-    int stagnation, int cluster, int kc, int smem_bytes, void* stream) {
-  using namespace vch::blocked;
-  const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
-               nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
-               nsolve, first_bad, work, M, n, m, max_iter, n_trips,
-               stagnation, {}, {}};
-  return launch<8, false>(a, B, consts, nconst, cluster, kc, smem_bytes,
-                          stream);
-}
-#endif  // VCH_BB
+#endif  // VCH_BB == 8 && !VCH_SEG

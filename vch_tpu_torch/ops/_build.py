@@ -2,15 +2,18 @@
 kernel wrapper makes before a launch.
 
 `nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
-members-per-CTA instantiation it is built for (`SOURCES`: the fused 2D sweep
-with `-DVCH_BB=1` and `8`, one member per CTA and the block that
-`resolved_fused_block()` picks; the cluster march with `-DVCH_BB=8` and
-`1`, eight members per thread-block cluster (the member-blocked march) and
-one (the segment march); the fused 2D march, the per-solve kernels, the
-operator applies, the fused 1D march, which holds its own group sizes, and
-the cost probes, which hold their own members-per-CTA templates, with
-`-DVCH_BB=1`),
-all at once in parallel, and links the objects into one shared library with
+object listed in `SOURCES`, each object with its own flags: the fused
+2D sweep with `-DVCH_BB=1`, `2`, `4` and `8` (members per CTA); the cluster
+march with `-DVCH_BB=8`, `4`, `2` (members per thread-block cluster of the
+member-blocked march), `1` (the whole one-member march) and `1` with
+`-DVCH_SEG=1` (the segment march), one kernel per object; the one-CTA 2D
+march (the bit oracle of the one-member and segment marches), the
+per-solve kernels, the operator applies, the fused 1D march and the cost
+probes, which hold their own members-per-CTA templates, once each (the 1D
+march with `-fmad=false`: its only FMAs are the explicit ones of its
+products, so that no copy of an elementwise expression that the compiler
+unrolls rounds differently from another). All
+objects compile at once in parallel, and link into one shared library with
 a plain C interface, at first use, into `vch_tpu_torch/_build/` (listed in
 .gitignore); `ctypes` loads it. The library's file name carries a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
@@ -33,11 +36,16 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-MEMBER_BLOCKS = (1, 8)   # the members-per-CTA the fused kernels are built for
-# each source and the VCH_BB objects it is compiled into
-SOURCES = {"march2d.cu": (1,), "march2d_blocked.cu": (1, 8),
-           "adjoint2d.cu": MEMBER_BLOCKS, "solve2d.cu": (1,),
-           "apply2d.cu": (1,), "march1d.cu": (1,), "probes.cu": (1,)}
+MEMBER_BLOCKS = (1, 2, 4, 8)   # the members per CTA (the sweep) and per
+                                # cluster (the march) the kernels are built for
+# each source and its objects, each object's own flags
+SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
+           "march2d_blocked.cu": tuple((f"-DVCH_BB={bb}",)
+                                       for bb in (8, 4, 2, 1))
+           + (("-DVCH_BB=1", "-DVCH_SEG=1"),),
+           "adjoint2d.cu": tuple((f"-DVCH_BB={bb}",) for bb in MEMBER_BLOCKS),
+           "solve2d.cu": ((),), "apply2d.cu": ((),),
+           "march1d.cu": (("-fmad=false",),), "probes.cu": ((),)}
 HEADERS = ("common.cuh", "tile4.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,18 +91,22 @@ def build() -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        jobs = [(src, bb, os.path.join(tmpdir, f"{Path(src).stem}_{bb}.o"))
-                for src, blocks in SOURCES.items() for bb in blocks]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DVCH_BB={bb}", "-c",
-                                   "-o", obj, str(SRC_DIR / src)],
+        name = lambda src, flags: "_".join(
+            (Path(src).stem,) + tuple(f.strip("-").replace("=", "")
+                                      for f in flags)) + ".o"
+        jobs = [(src, flags, os.path.join(tmpdir, name(src, flags)))
+                for src, objects in SOURCES.items() for flags in objects]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o",
+                                   obj, str(SRC_DIR / src)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
-                 for src, bb, obj in jobs]
+                 for src, flags, obj in jobs]
         logs = [p.communicate()[0] for p in procs]
-        ptxas_log = "".join(f"[{src} VCH_BB={bb}]\n{log}"
-                            for (src, bb, _), log in zip(jobs, logs))
-        failed = [f"{src} VCH_BB={bb}: nvcc exit {p.returncode}"
-                  for (src, bb, _), p in zip(jobs, procs)
+        tag = lambda src, flags: " ".join((src,) + flags)
+        ptxas_log = "".join(f"[{tag(src, flags)}]\n{log}"
+                            for (src, flags, _), log in zip(jobs, logs))
+        failed = [f"{tag(src, flags)}: nvcc exit {p.returncode}"
+                  for (src, flags, _), p in zip(jobs, procs)
                   if p.returncode != 0]
         objs = [obj for _, _, obj in jobs]
         if not failed:
@@ -126,11 +138,15 @@ def load():
     # dts phi0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist nsolve bad work |
     # B M n m | consts nconst | max_iter n_trips stagnation | cluster kc
     # smem_bytes | stream
-    lib.vch_march_fused_2d_blocked.argtypes = ([_P] * 11 + [_P] * 4
+    lib.vch_march_fused_2d_cluster.argtypes = ([_P] * 11 + [_P] * 4
                                                + [_I] * 4 + [_FP, _I]
                                                + [_I] * 3 + [_I] * 3 + [_P])
-    # members n m cluster kc smem_bytes
-    lib.vch_march_blocked_max_clusters.argtypes = [_I] * 6
+    # the same with members before cluster
+    lib.vch_march_fused_2d_blocked.argtypes = ([_P] * 11 + [_P] * 4
+                                               + [_I] * 4 + [_FP, _I]
+                                               + [_I] * 3 + [_I] * 4 + [_P])
+    # members segment n m cluster kc smem_bytes
+    lib.vch_march_blocked_max_clusters.argtypes = [_I] * 7
     lib.vch_march_blocked_max_clusters.restype = _I
     # dts phi0 mu0 w0 m0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist phi_f mu_f
     # w_f nsolve bad work | B K n m | consts nconst | max_iter n_trips
@@ -162,9 +178,14 @@ def load():
     lib.vch_apply_2d.argtypes = ([_I, _P] + [ctypes.c_float] * 3 + [_P] * 8
                                  + [_P] + [_I] * 4 + [_I] * 4 + [_P])
     # dts phi0 u LT VinvT VT lam wts | hist nsolve bad work | B M n |
-    # consts nconst | max_iter n_trips stagnation group | stream
+    # consts nconst | max_iter n_trips stagnation | cluster members kc
+    # resident smem_bytes | stream
     lib.vch_march_fused_1d.argtypes = ([_P] * 8 + [_P] * 4 + [_I] * 3
-                                       + [_FP, _I] + [_I] * 4 + [_P])
+                                       + [_FP, _I] + [_I] * 3 + [_I] * 5
+                                       + [_P])
+    # n cluster members kc resident smem_bytes
+    lib.vch_march1d_max_clusters.argtypes = [_I] * 6
+    lib.vch_march1d_max_clusters.restype = _I
     lib.vch_march_1d_workspace_fields.argtypes = []
     lib.vch_march_1d_workspace_fields.restype = _I
     # A X out work | B n K L bf16 | stream
@@ -175,7 +196,8 @@ def load():
     lib.vch_while_probe.argtypes = [_P] * 3 + [_I] * 3 + [_P]
     lib.vch_while_max_elems.argtypes = []
     lib.vch_while_max_elems.restype = _I
-    for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_blocked,
+    for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_cluster,
+               lib.vch_march_fused_2d_blocked,
                lib.vch_march_fused_2d_segment,
                lib.vch_march_fused_2d_segment_cluster,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,

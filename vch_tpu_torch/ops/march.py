@@ -5,14 +5,14 @@ vch_tpu/ops/pallas_march.py); and `Entries`, the table of every kernel
 entry point a solver calls, per-solve kernels of ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernels of `csrc/march2d.cu`, `csrc/march2d_blocked.cu`,
-`csrc/adjoint2d.cu` and `csrc/march1d.cu` (float32 only; anything else
-raises), on CPU tensors it runs its plain PyTorch version `<name>_plain` of
-this module. There is no fallback from one to the other. Each wrapper counts
-its kernel launches in `.launches`. The segment march runs on the cluster
-kernel of `csrc/march2d_blocked.cu`; `_march_fused_2d_segment_cta` keeps the
-one-CTA segment kernel of `csrc/march2d.cu` as its bit oracle, which only
-the card tests and chip_smoke.py call.
+hand-written kernels of `csrc/march2d_blocked.cu`, `csrc/adjoint2d.cu` and
+`csrc/march1d.cu` (float32 only; anything else raises), on CPU tensors it
+runs its plain PyTorch version `<name>_plain` of this module. There is no
+fallback from one to the other. Each wrapper counts its kernel launches in
+`.launches`. The whole, blocked and segment marches run on the cluster
+kernel of `csrc/march2d_blocked.cu`; `_march_fused_2d_cta` and
+`_march_fused_2d_segment_cta` keep the one-CTA kernels of `csrc/march2d.cu`
+as their bit oracles, which only the card tests and chip_smoke.py call.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -332,9 +332,11 @@ def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                 n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
 
 
-def _launch_march(wrapper, args, k, blocked=False):
-    """Check and launch the whole march kernel, or its member-blocked form
-    (blocked) on the cluster geometry of `launch_geometry`."""
+def _launch_march(wrapper, args, k, members=None):
+    """Check and launch the whole march: on the cluster kernel with
+    `members` members per cluster (1, or 2, 4, 8: the member-blocked march)
+    on the geometry of `launch_geometry`, or (None) on the one-CTA kernel of
+    csrc/march2d.cu, the bit oracle."""
     dts, phi0, u, *ops = args
     B, n, m = phi0.shape
     M = dts.shape[0]
@@ -343,7 +345,8 @@ def _launch_march(wrapper, args, k, blocked=False):
                        ("u", u, (B, M + 1, n, m))]
                       + list(zip(names, ops, shapes)), phi0.device)
     dev = phi0.device
-    geo = launch_geometry(n, m, B, dev) if blocked else None
+    geo = (None if members is None
+           else launch_geometry(n, m, B, dev, members=members))
     lib = _build.load()
     hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
     nsolve = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -359,9 +362,12 @@ def _launch_march(wrapper, args, k, blocked=False):
                  int(k["stagnation_exit"])])
     if geo is None:
         err = lib.vch_march_fused_2d(*common, 1, stream)
-    else:
-        err = lib.vch_march_fused_2d_blocked(*common, geo.cluster, geo.kc,
+    elif members == 1:
+        err = lib.vch_march_fused_2d_cluster(*common, geo.cluster, geo.kc,
                                              geo.smem_bytes, stream)
+    else:
+        err = lib.vch_march_fused_2d_blocked(*common, members, geo.cluster,
+                                             geo.kc, geo.smem_bytes, stream)
     wrapper.launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return hist, nsolve, first_bad
@@ -373,7 +379,10 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
                    newton_tol: float, newton_rtol: float,
                    newton_max_iter: int, n_trips: int,
                    stagnation_exit: bool = True):
-    """The whole batched 2D forward march, one member per CTA.
+    """The whole batched 2D forward march (pallas_march.py:393). On CUDA
+    tensors each member runs on a thread-block cluster (`launch_geometry`
+    with one member per cluster), bit for bit what the one-CTA kernel
+    `_march_fused_2d_cta` computes.
 
     Args:
       dts (M,), phi0 (B, n, m), u (B, M+1, n, m); Lx (n, n), LyT (m, m)
@@ -389,15 +398,31 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d", phi0):
         return march_fused_2d_plain(*args, **k)
-    return _launch_march(march_fused_2d, args, k)
+    return _launch_march(march_fused_2d, args, k, members=1)
 
 
 march_fused_2d.launches = 0
 
 
+def _march_fused_2d_cta(*args, **kw):
+    """The one-CTA march of csrc/march2d.cu (one member per CTA; two CTAs
+    per SM with field pointers formed at use where B exceeds the SMs): the
+    bit oracle of `march_fused_2d` and of the blocked march, which the card
+    tests and chip_smoke.py hold the cluster kernel against; no solver
+    calls it. Arguments and results as `march_fused_2d`."""
+    k = _march_kw(**kw)
+    if not _build.on_cuda("_march_fused_2d_cta", args[1]):
+        return march_fused_2d_plain(*args, **k)
+    return _launch_march(_march_fused_2d_cta, args, k)
+
+
+_march_fused_2d_cta.launches = 0
+
+
 # The cluster march (csrc/march2d_blocked.cu): the kernel checks these
 # numbers against its own.
-BLOCK_MEMBERS = 8          # members per block of the blocked march
+BLOCK_MEMBERS = 8          # members per block of the blocked march by default
+BLOCK_SIZES = (2, 4, 8)    # the blocks the blocked march is built for
 SEGMENT_MEMBERS = 1        # members per cluster of the segment march
 BLOCKED_SMEM_LIMIT = 232_448 - 4096   # dynamic shared memory per CTA: an
                                       # H100's 232,448 bytes less the
@@ -407,9 +432,10 @@ _BLOCKED_KC = (32, 16, 8, 4)   # k rows per ring stage, the largest that fits
 
 
 class BlockedGeometry(NamedTuple):
-    """How a block of `members` members (8 for the blocked march, 1 for the
-    segment march) is split over a thread-block cluster: `bands` holds each
-    rank's (first row, rows) of every member's field, in rank order; bands
+    """How a block of `members` members (8, 4 or 2 for the blocked march, 1
+    for the whole and the segment march) is split over a thread-block
+    cluster: `bands` holds each rank's (first row, rows) of every member's
+    field, in rank order; bands
     are stored `rows_pad` rows of `m_pad` floats apart in the ring; a
     product of the block has `units` 4 x 4 output units, run in `passes` of
     at most 768; its operands stream through a two-stage ring of `kc` k
@@ -439,8 +465,9 @@ def blocked_cluster_size(n: int, B: int, sms: int, max_cluster: int = 16,
     return C
 
 
-_MARCH_NAMES = {BLOCK_MEMBERS: "the blocked march",
-                SEGMENT_MEMBERS: "the segment march"}
+_MARCH_NAMES = {8: "the blocked march", 4: "the blocked march",
+                2: "the blocked march",
+                1: "the one-member march (whole or segment march)"}
 
 
 @lru_cache(maxsize=64)
@@ -448,11 +475,11 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
                      max_cluster: int = 16, cluster: int | None = None,
                      members: int = BLOCK_MEMBERS) -> BlockedGeometry:
     """The cluster geometry of the cluster march for B members on an (n, m)
-    grid on a card of `sms` SMs, `members` per cluster: 8 for
-    `march_fused_2d_blocked`, 1 for `march_fused_2d_segment`
-    (`blocked_cluster_size`; `cluster` overrides it). Raises ValueError when
-    B is not a positive multiple of `members`, or when no ring fits in
-    BLOCKED_SMEM_LIMIT bytes per CTA."""
+    grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
+    `march_fused_2d_blocked`, 1 for `march_fused_2d` and
+    `march_fused_2d_segment` (`blocked_cluster_size`; `cluster` overrides
+    it). Raises ValueError when B is not a positive multiple of `members`,
+    or when no ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
     if members not in _MARCH_NAMES:
         raise ValueError(f"the cluster march is built for "
                          f"{tuple(_MARCH_NAMES)} members per cluster, got "
@@ -482,32 +509,32 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
 
 @lru_cache(maxsize=64)
 def resident_clusters(device_index, n, m, C, kc, smem,
-                      members=BLOCK_MEMBERS):
-    """How many clusters of the cluster march (`members` per cluster) with
-    this geometry the card holds at once (cudaOccupancyMaxActiveClusters;
-    negative: a CUDA error)."""
+                      members=BLOCK_MEMBERS, segment=False):
+    """How many clusters of the cluster march (`members` per cluster; with
+    segment, the segment march) with this geometry the card holds at once
+    (cudaOccupancyMaxActiveClusters; negative: a CUDA error)."""
     with torch.cuda.device(device_index):
-        return _build.load().vch_march_blocked_max_clusters(members, n, m, C,
-                                                            kc, smem)
+        return _build.load().vch_march_blocked_max_clusters(
+            members, int(segment), n, m, C, kc, smem)
 
 
 def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
                     members: int = BLOCK_MEMBERS) -> BlockedGeometry:
     """`blocked_geometry` on `sms` SMs, made smaller where the card cannot
     hold all B / members clusters at once (`resident(geo)`: how many
-    clusters of that geometry it holds). Eight members per cluster: clusters
-    of 8 in place of 16. One member: the cluster shrinks one CTA at a time
-    down to the largest whose clusters are all resident at once (or 1); on
-    the H100 at 257 x 257 that is 3 CTAs at B = 32: it holds only 30
-    clusters of 4, which then ran in two waves (58.6 against 35.8 ms a
-    segment, PERF.md)."""
+    clusters of that geometry it holds): eight members per cluster first
+    take clusters of 8 in place of 16; then the cluster shrinks one CTA at a
+    time down to the largest whose clusters are all resident at once (or
+    1). On the H100 at 257 x 257 with one member that is 3 CTAs at B = 32:
+    it holds only 30 clusters of 4, which then ran in two waves (58.6
+    against 35.8 ms a segment); with eight members at 65 x 65, B = 128 it
+    is 6 (161.7 against 97.5 ms a march), at B = 256 3 (224.3 against
+    187.4; PERF.md)."""
     geo = blocked_geometry(n, m, B, sms, members=members)
     clusters = B // members
-    if members == BLOCK_MEMBERS:
-        if geo.cluster > 8 and resident(geo) < clusters:
-            geo = blocked_geometry(n, m, B, sms, max_cluster=8,
-                                   members=members)
-        return geo
+    if (members == BLOCK_MEMBERS and geo.cluster > 8
+            and resident(geo) < clusters):
+        geo = blocked_geometry(n, m, B, sms, max_cluster=8, members=members)
     while geo.cluster > 1 and resident(geo) < clusters:
         geo = blocked_geometry(n, m, B, sms, cluster=geo.cluster - 1,
                                members=members)
@@ -515,16 +542,17 @@ def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
 
 
 def launch_geometry(n: int, m: int, B: int, device,
-                    members: int = BLOCK_MEMBERS) -> BlockedGeometry:
-    """The geometry the cluster march launches on this card for B members,
-    `members` per cluster: `fitted_geometry` on its SM count and
-    cudaOccupancyMaxActiveClusters. Raises RuntimeError if no cluster of it
-    fits on the card."""
+                    members: int = BLOCK_MEMBERS,
+                    segment: bool = False) -> BlockedGeometry:
+    """The geometry the cluster march (with segment, the segment march)
+    launches on this card for B members, `members` per cluster:
+    `fitted_geometry` on its SM count and cudaOccupancyMaxActiveClusters.
+    Raises RuntimeError if no cluster of it fits on the card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
     resident = lambda g: resident_clusters(idx, n, m, g.cluster, g.kc,
-                                           g.smem_bytes, members)
+                                           g.smem_bytes, members, segment)
     geo = fitted_geometry(n, m, B, sms, resident, members)
     fit = resident(geo)
     if fit <= 0:
@@ -542,21 +570,21 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
                            block_b: int = 8):
-    """The member-blocked march: block_b = 8 members in masked lockstep
-    (pallas_march.py:1649), each block on a thread-block cluster
-    (`launch_geometry`). Same contract as `march_fused_2d`, and each
-    member's history, Newton count and first_bad are bit for bit those of
-    `march_fused_2d`; B must divide by block_b."""
+    """The member-blocked march: block_b members (8, 4 or 2 on CUDA
+    tensors, BLOCK_SIZES) in masked lockstep (pallas_march.py:1649), each
+    block on a thread-block cluster (`launch_geometry`). Same contract as
+    `march_fused_2d`, and each member's history, Newton count and first_bad
+    are bit for bit those of `march_fused_2d`; B must divide by block_b."""
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d_blocked", phi0):
         return march_fused_2d_blocked_plain(*args, block_b=block_b, **k)
     _check_block(phi0.shape[0], block_b)
-    if block_b != BLOCK_MEMBERS:
+    if block_b not in BLOCK_SIZES:
         raise ValueError(f"the CUDA blocked march is built for block_b in "
-                         f"({BLOCK_MEMBERS},), got {block_b}")
-    return _launch_march(march_fused_2d_blocked, args, k, blocked=True)
+                         f"{BLOCK_SIZES}, got {block_b}")
+    return _launch_march(march_fused_2d_blocked, args, k, members=block_b)
 
 
 march_fused_2d_blocked.launches = 0
@@ -620,8 +648,8 @@ def _launch_segment(wrapper, args, k, cluster: bool):
                        ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
                       + list(zip(names, args[6:], shapes)), phi0.device)
     dev = phi0.device
-    geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS) if cluster
-           else None)
+    geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS,
+                           segment=True) if cluster else None)
     lib = _build.load()
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     hist = out((B, K, n, m))
@@ -1047,8 +1075,154 @@ def _fwd1d_consts(k):
     return (ctypes.c_float * len(vals))(*vals), len(vals)
 
 
-# members per CTA the 1D march kernel is built for (csrc/march1d.cu)
-MARCH_1D_GROUPS = (1, 2, 4)
+# The 1D march on thread-block clusters (csrc/march1d.cu): the kernel
+# checks these numbers against its own.
+MARCH_1D_CHUNK = 32          # columns per chunk (the last takes the rest):
+                             # bands are whole chunks
+MARCH_1D_UNIT = 8            # members per product unit
+MARCH_1D_MEMBERS_MAX = 64    # members per cluster, at most
+MARCH_1D_SMEM_LIMIT = 232_448 - 8192   # dynamic shared memory per CTA: an
+                                       # H100's 232,448 bytes less the
+                                       # kernel's static control block
+_M1D_KC = (32, 16, 8, 4)     # k rows per ring stage, the most that fit
+_M1D_NV = 2                  # values per reduction, at most
+
+
+class March1dGeometry(NamedTuple):
+    """How the 1D march splits B members over thread-block clusters:
+    `clusters` clusters of `cluster` CTAs, `members` members each (the last
+    cluster the rest); rank p owns `chunks[p]` = (first chunk, chunks) of
+    32 columns and so `bands[p]` = (first column, columns), `width` the
+    widest; `resident`: the operator bands stay in shared memory for the
+    launch (else they stream through the ring); the ring has two stages of
+    `kc` k rows; `smem_bytes` the dynamic shared memory of one CTA."""
+    cluster: int
+    chunks: tuple
+    bands: tuple
+    width: int
+    members: int
+    clusters: int
+    resident: bool
+    kc: int
+    smem_bytes: int
+
+
+def _m1d_chunks(n: int) -> int:
+    """Chunks of 32 columns, the last with the n % 32 columns past them."""
+    return max(1, n // MARCH_1D_CHUNK)
+
+
+def _m1d_split(n: int, C: int):
+    """(chunks, bands) of every rank: the last (chunk count % C) ranks take
+    one chunk more."""
+    nch = _m1d_chunks(n)
+    q, rem = divmod(nch, C)
+    chunks = tuple((p * q + max(0, p - (C - rem)), q + (p >= C - rem))
+                   for p in range(C))
+    end = lambda f, k: n if f + k == nch else MARCH_1D_CHUNK * (f + k)
+    bands = tuple((MARCH_1D_CHUNK * f, end(f, k) - MARCH_1D_CHUNK * f)
+                  for f, k in chunks)
+    return chunks, bands
+
+
+def _m1d_smem(n: int, C: int, members: int, kc: int, resident: bool) -> int:
+    """Dynamic shared-memory bytes of one CTA: the input ring, the two
+    buffers of the reduction exchange and the operator bands (or their
+    ring)."""
+    _, bands = _m1d_split(n, C)
+    w = max(c for _, c in bands)
+    mbp = -(-members // MARCH_1D_UNIT) * MARCH_1D_UNIT
+    ops = 3 * n * w if resident else 2 * kc * w
+    return 4 * (2 * mbp * kc + 2 * _M1D_NV * members * _m1d_chunks(n) + ops)
+
+
+def march1d_geometry(n: int, B: int, resident, cluster: int | None = None,
+                     members: int | None = None) -> March1dGeometry:
+    """The 1D march's geometry for B members of length n. The cluster is
+    the smallest C (at most 16 and the chunk count) whose operator bands fit
+    in MARCH_1D_SMEM_LIMIT bytes per CTA, held for the launch (n = 129: 1;
+    257: 4; 513: 16); where none fits, C = 16 (or the chunk count) and the
+    operator rows stream. A ring stage takes 32 k rows where two stages fit
+    (else 16, 8, 4): each stage costs a CTA barrier, which at n = 513,
+    B = 256 costs more than the loads' latency (chip_smoke.py phase 9 times
+    rings of 16 and 8 rows; PERF.md).
+    The members per cluster follow from how many
+    clusters the card holds at once (`resident(geo)`, e.g. 7 clusters of
+    16 on the H100): ceil(B / that), at most MARCH_1D_MEMBERS_MAX (fewer
+    where their ring and exchange do not fit); `cluster` and `members`
+    override. Raises ValueError for a shape no geometry fits."""
+    if n < 2 or B < 1:
+        raise ValueError(f"the 1D march needs n >= 2 and B >= 1 (n={n}, "
+                         f"B={B})")
+    need = min(MARCH_1D_MEMBERS_MAX, B)
+    fits = lambda C, mb, kc, res: (_m1d_smem(n, C, mb, kc, res)
+                                   <= MARCH_1D_SMEM_LIMIT)
+    least = lambda C, mb, res: fits(C, mb, 4, res)
+    top = min(16, _m1d_chunks(n))
+    if cluster is None:
+        C = next((c for c in range(1, top + 1) if least(c, need, True)),
+                 None)
+        res = C is not None
+        C = C if res else top
+    else:
+        if not 1 <= cluster <= top:
+            raise ValueError(f"cluster size {cluster} for n = {n}")
+        C, res = cluster, least(cluster, need, True)
+    cap = next((mb for mb in range(need, 0, -1) if least(C, mb, res)),
+               None)
+    if cap is None:
+        raise ValueError(f"the 1D march at n = {n} needs "
+                         f"{_m1d_smem(n, C, 1, 4, res)} bytes of shared "
+                         f"memory per CTA (at most {MARCH_1D_SMEM_LIMIT})")
+    chunks, bands = _m1d_split(n, C)
+    width = max(c for _, c in bands)
+
+    def geo(mb):
+        kc = next(k for k in _M1D_KC if fits(C, mb, k, res))
+        return March1dGeometry(C, chunks, bands, width, mb, -(-B // mb), res,
+                               kc, _m1d_smem(n, C, mb, kc, res))
+
+    if members is not None:
+        if not 1 <= members <= MARCH_1D_MEMBERS_MAX:
+            raise ValueError(f"members per cluster must be 1 .. "
+                             f"{MARCH_1D_MEMBERS_MAX}, got {members}")
+        if not least(C, members, res):
+            raise ValueError(f"{members} members per cluster do not fit at "
+                             f"n = {n}")
+        return geo(members)
+    held = resident(geo(cap))
+    if held <= 0:
+        return geo(cap)
+    return geo(min(cap, -(-B // min(held, B))))
+
+
+@lru_cache(maxsize=64)
+def march1d_resident_clusters(device_index, n, C, members, kc, resident,
+                              smem):
+    """How many clusters of the 1D march with this geometry the card holds
+    at once (cudaOccupancyMaxActiveClusters; negative: a CUDA error)."""
+    with torch.cuda.device(device_index):
+        return _build.load().vch_march1d_max_clusters(
+            n, C, members, kc, int(resident), smem)
+
+
+def march1d_launch_geometry(n: int, B: int, device,
+                            members: int | None = None) -> March1dGeometry:
+    """The geometry the 1D march launches on this card: `march1d_geometry`
+    on cudaOccupancyMaxActiveClusters. Raises RuntimeError if no cluster of
+    it fits on the card."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    resident = lambda g: march1d_resident_clusters(
+        idx, n, g.cluster, g.members, g.kc, g.resident, g.smem_bytes)
+    geo = march1d_geometry(n, B, resident, members=members)
+    fit = resident(geo)
+    if fit <= 0:
+        raise RuntimeError(
+            f"the 1D march: a cluster of {geo.cluster} CTAs with "
+            f"{geo.smem_bytes} bytes of dynamic shared memory each does not "
+            f"fit on this card (cudaOccupancyMaxActiveClusters: {fit})")
+    return geo
 
 
 def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
@@ -1057,7 +1231,8 @@ def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
                    newton_rtol: float, newton_max_iter: int, n_trips: int,
                    stagnation_exit: bool = True, group: int = 0):
     """The whole batched 1D forward march in one launch
-    (pallas_march.py:1183).
+    (pallas_march.py:1183), on CUDA tensors on thread-block clusters
+    (`march1d_launch_geometry`).
 
     Args:
       dts (M,), phi0 (B, n), u (B, M+1, n) in core layout (no duplicated
@@ -1065,9 +1240,9 @@ def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
       and the cosine analysis and synthesis transforms, transposed; lam
       (1, n) eigenvalues; wts (1, n) quadrature weights * h; Lx_len the
       domain length of the uniform mass projection.
-      group: members per CTA on CUDA tensors, one of MARCH_1D_GROUPS, or 0:
-      the smallest of them that gives every CTA an SM to itself (4 beyond
-      that). A member's result does not depend on it.
+      group: members per cluster on CUDA tensors, 1 ..
+      MARCH_1D_MEMBERS_MAX, or 0: the geometry's choice. A member's result
+      does not depend on it.
     Returns phi_hist (B, M+1, n) with phi0 first, newton_solves (B,)
     float32, first_bad (B,) float32: the first step whose mass defect was
     not finite, -1 for none.
@@ -1079,8 +1254,8 @@ def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
     args = (dts, phi0, u, LT, VinvT, VT, lam, wts)
     if not _build.on_cuda("march_fused_1d", phi0):
         return march_fused_1d_plain(*args, **k)
-    if group not in (0,) + MARCH_1D_GROUPS:
-        raise ValueError(f"group must be 0 or one of {MARCH_1D_GROUPS}, got "
+    if not 0 <= group <= MARCH_1D_MEMBERS_MAX:
+        raise ValueError(f"group must be 0 .. {MARCH_1D_MEMBERS_MAX}, got "
                          f"{group}")
     B, n = phi0.shape
     M = dts.shape[0]
@@ -1089,13 +1264,13 @@ def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
                        ("u", u, (B, M + 1, n)), ("LT", LT, (n, n)),
                        ("VinvT", VinvT, (n, n)), ("VT", VT, (n, n)),
                        ("lam", lam, (1, n)), ("wts", wts, (1, n))], dev)
+    geo = march1d_launch_geometry(n, B, dev, members=group or None)
     lib = _build.load()
     hist = torch.empty((B, M + 1, n), dtype=torch.float32, device=dev)
     nsolve = torch.empty((B,), dtype=torch.float32, device=dev)
     first_bad = torch.empty((B,), dtype=torch.float32, device=dev)
-    # a CTA's last members may lie past B: each has a workspace of its own
-    slots = -(-B // max(MARCH_1D_GROUPS)) * max(MARCH_1D_GROUPS)
-    work = torch.empty((slots, lib.vch_march_1d_workspace_fields(), n),
+    npad = -(-n // MARCH_1D_CHUNK) * MARCH_1D_CHUNK
+    work = torch.empty((B, lib.vch_march_1d_workspace_fields(), npad),
                        dtype=torch.float32, device=dev)
     consts, nc = _fwd1d_consts(k)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1103,7 +1278,8 @@ def march_fused_1d(dts, phi0, u, LT, VinvT, VT, lam, wts, *, tau: float,
         *[t.data_ptr() for t in args], hist.data_ptr(), nsolve.data_ptr(),
         first_bad.data_ptr(), work.data_ptr(), B, M, n, consts, nc,
         k["newton_max_iter"], k["n_trips"], int(k["stagnation_exit"]),
-        int(group), stream)
+        geo.cluster, geo.members, geo.kc, int(geo.resident), geo.smem_bytes,
+        stream)
     march_fused_1d.launches += 1
     _build.raise_on(lib, err, "march_fused_1d")
     return hist, nsolve, first_bad
@@ -1145,9 +1321,9 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 sk.bicgstab_adjoint_spectral_plain, sk.bicgstab_schur_plain,
                 sk.bicgstab_adjoint_plain, march_fused_1d_plain)
 # every kernel wrapper of the port: the solvers' entries, the one-CTA
-# segment oracle, and the three operator applies and the six cost probes,
-# which no solver calls
-WRAPPERS = tuple(KERNELS) + (_march_fused_2d_segment_cta,
+# oracles, and the three operator applies and the six cost probes, which no
+# solver calls
+WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              sk.schur_apply, sk.adjoint_apply,
                              sk.spectral_solve, sk.schur_nodots,
                              sk.schur_mmonly, pk.matmul_chain,

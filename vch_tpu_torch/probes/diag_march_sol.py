@@ -10,12 +10,12 @@ Times three things and sets them side by side:
            DELTA_SEP, amp=0.1, seed=42 + i), in both forms: the member-blocked
            kernel (fused_march_block=None: 8 members per thread-block cluster
            of C CTAs at this grid, ops.march.launch_geometry) and one member
-           per CTA (fused_march_block=0); per Newton solve = time / the
+           per cluster (fused_march_block=0); per Newton solve = time / the
            Newton solves the march reports (the script's us_per_solve), and
            per solve inside one CTA = time x CTAs / solves
-           (us_per_solve_cta): the CTAs (B / 8 x C blocked, B one member
-           each) run at once on their own SMs, not one after another as the
-           TPU's grid cells do, so the
+           (us_per_solve_cta): the CTAs (B / 8 x C blocked, B x C one
+           member each) run at once on their own SMs, not one after another
+           as the TPU's grid cells do, so the
            chain (one CTA) is set beside the per-CTA time (chain_share_cta)
            as well as the script's ratio (chain_share);
   chain    `ops.probe_kernels.matmul_chain` at K = 1 on one member: the same
@@ -84,9 +84,9 @@ def _march(n: int, b: int, block, device, reps: int):
     ms = time_ms(lambda: last.update(r=s.march_fused_batch(u, phi0)), reps)
     solves = int(last["r"][1].sum().item())
     bb = cfg.resolved_fused_block()
-    ctas = b
-    if bb and b % bb == 0:     # B / 8 clusters of C CTAs
-        ctas = b // bb * launch_geometry(n + 1, n + 1, b, device).cluster
+    members = bb if bb and b % bb == 0 else 1   # B / members clusters of C
+    ctas = b // members * launch_geometry(n + 1, n + 1, b, device,
+                                          members=members).cluster
     return {"block": bb, "march_ms": ms, "solves": solves,
             "us_per_solve": ms * 1e3 / solves, "ctas": ctas,
             "us_per_solve_cta": ms * 1e3 * ctas / solves}, s
