@@ -16,16 +16,16 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                with it at n = 65 and 129, B = 1, 8, 128 and at n = 129,
                B = 256 (past the clusters the card holds at once), M = 100,
                with the cluster geometry and the bound;
-  2b kernels — the member-blocked kernels (the march: 8 members on a
-               thread-block cluster; the sweep: 8 members per CTA) against
+  2b kernels — the member-blocked kernels (8 members on a thread-block
+               cluster: the march and the sweep) against
                their plain versions and against the per-member kernels at
                n = 65, B = 8, at bench.py's headline shape n = 65, B = 512,
                M = 100, and at n = 65, B = 64, M = 100 (plain on the first 8
-               members there), with the march's cluster geometry and its
-               bound at each shape; the blocked march and sweep at
-               block_b = 2 and 4 (n = 65, B = 8) against block_b = 8 and
-               the one-member kernels (the march bit for bit, the sweep by
-               the float64-referenced gate), with their times; the blocked
+               members there), both bit for bit, timed in turns with them,
+               with the march's and the sweep's cluster geometry and their
+               bounds at each shape; the blocked march and sweep at
+               block_b = 2, 4 and 8 (n = 65, B = 8) against the one-member
+               kernels, bit for bit, with their times; the blocked
                march at the headline's straggler buckets (B = 128 and 256,
                M = 100) on its own cluster rule and on the one-member rule's
                search for resident clusters, in turns; the segment
@@ -33,14 +33,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                and K = 10 at phase 6's grid n = 257, B = 2, each launch
                against its plain version, each segment march launch (one
                member per thread-block cluster) against the one-CTA oracle
-               of march2d.cu bit for bit, and the chain against the whole
-               march and sweep; the segment march and its one-CTA oracle
+               of march2d.cu bit for bit, each segment sweep launch
+               against that of adjoint2d.cu likewise, and the chain
+               against the whole march and sweep; the segment march and
+               its one-CTA oracle
                timed in turns at n = 257, K = 10, B = 1, 2, 8, 16 and 32
                (phase 6's batch and its straggler buckets), with the
                cluster geometry and the bound, and at B = 8, 16, 32 on
                the cluster sizes the SM count alone gives and on smaller
                ones (the launch geometry takes the largest whose clusters
-               the card holds all at once);
+               the card holds all at once); the segment sweep and its
+               one-CTA oracle likewise at n = 65, B = 4, K = 5 and at
+               n = 257, K = 10, B = 1, 2, 8, 16 and 32, bit for bit with a
+               zero dt step too, on the launch geometry and on two other
+               cluster sizes;
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
@@ -109,13 +115,17 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                against the fused run of phase 4;
   5 headline — bench.py's configuration: 64x64, T = 1, B = 512, float32,
                one warm-up, then 3 timed PGD iterations (blocked kernels);
+               the blocked kernels' launches and CUDA-event milliseconds
+               inside the timed window, by batch, beside phase 2b's
+               one-CTA sweep at B = 512;
   6 low mem  — config 5's grid: 256x256, T = 1, B = 32, K = 10, procedural
                ramp targets, routed by make_batched_problem_2d under the
                largest device-memory limit its full-memory estimate does
                not fit; one warm-up and one timed iteration (segment
                kernels), whose peak must stay within that limit; the
                segment kernels' launches and CUDA-event milliseconds inside
-               the timed iteration, by batch, with their bounds at B = 32;
+               the timed iteration, by batch, with their bounds at B = 32,
+               beside phase 2b's segment sweep on its one-CTA oracle;
   7 memory   — peak device memory of the full-memory problem at config 4's
                grid, B = 64 and 128 at T = 1 and B = 128 at T = 0.1, over S
                (one trajectory-shaped array) and over the estimate
@@ -480,20 +490,31 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
     for name, fn in (("per_member", member_a), ("blocked", blocked_a),
                      ("blocked", blocked_a), ("per_member", member_a)):
         out.setdefault(f"adjoint_{name}_ms", []).append(time_ms(fn, reps))
-    g = km.launch_geometry(n, n, B, device)
-    idx = torch.device(device).index or 0
-    out["march_geometry"] = dict(
-        cluster=g.cluster, ctas=B // 8 * g.cluster,
-        band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
-        kc=g.kc, smem_bytes=g.smem_bytes,
-        resident_clusters=km.resident_clusters(idx, n, n, g.cluster, g.kc,
-                                               g.smem_bytes))
+    out["march_geometry"] = _geometry(km, torch, device, n, B, 8)
     out["march_bound_ms"], out["march_bound_by"] = _bound(*_march_work(
         n, B, M, out["newton_blocked_total"],
         fwd.config.fused_krylov_fixed_iters))
     out["adjoint_bound_ms"], out["adjoint_bound_by"] = _bound(*_adjoint_work(
         n, B, M, fwd.config.adjoint_krylov_fixed_iters))
+    out["adjoint_geometry"] = _geometry(km, torch, device, n, B, 8,
+                                        kernel="sweep")
     return out
+
+
+def _geometry(km, torch, device, n, B, members, segment=False,
+              kernel="march"):
+    """The launch geometry of a cluster kernel for B members of an (n, n)
+    grid, `members` per cluster: cluster, CTAs, band rows, units, passes,
+    ring rows, shared bytes and how many such clusters the card holds."""
+    g = km.launch_geometry(n, n, B, device, members=members,
+                           segment=segment, kernel=kernel)
+    idx = torch.device(device).index or 0
+    return dict(cluster=g.cluster, ctas=B // members * g.cluster,
+                band_rows=[r for _, r in g.bands], units=g.units,
+                passes=g.passes, kc=g.kc, smem_bytes=g.smem_bytes,
+                resident_clusters=km.resident_clusters(
+                    idx, n, n, g.cluster, g.kc, g.smem_bytes, members,
+                    segment, kernel))
 
 
 def check_blocked_case(c, short: bool):
@@ -579,12 +600,17 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
     # the sweep: terminal solve, then the segments in reverse
     p, q, r = adj.terminal(wh[:, M], x["phiT"], x["b2"])
     parts, err_adj, rel_adj, aseg_ms, aseg_plain_ms = [], 0.0, 0.0, [], []
+    sweep_oracle_equal = True
     ak64 = ap64 = apc64 = 0.0             # segment r vs float64, relative
     for start in reversed(range(0, M, K)):
         sl = slice(start, start + K + 1)
         aargs = (adj.dts[start:start + K], wh[:, sl].contiguous(),
                  x["phiQ"][:, sl].contiguous(), p, q, r, x["b1"])
         kseg = km.adjoint_fused_2d_segment(*aargs, *adj._ops(), **adj._kw())
+        oseg = km._adjoint_fused_2d_segment_cta(*aargs, *adj._ops(),
+                                                **adj._kw())
+        sweep_oracle_equal &= all(torch.equal(a, b)
+                                  for a, b in zip(kseg, oseg))
         ms, pseg = _host_ms(torch, lambda: km.adjoint_fused_2d_segment_plain(
             *aargs, *adj._ops(), **adj._kw()))
         pseg64 = km.adjoint_fused_2d_segment_plain(*f64(aargs), *adj64._ops(),
@@ -613,6 +639,7 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
     torch.cuda.synchronize()
     return dict(n=n, B=B, M=M, K=K,
                 cluster_equals_cta=bool(oracle_equal),
+                sweep_cluster_equals_cta=bool(sweep_oracle_equal),
                 max_abs_dphi_chain_vs_whole=dist(hist, wh),
                 dphi_chain_vs_f64=dist(hist, h64),
                 dphi_plain_vs_f64=dist(ph, h64),
@@ -637,7 +664,8 @@ def segment_case(torch, device, n=65, B=4, K=5, T=0.1, reps=3):
 def check_segment_case(c, short: bool):
     """Phase 2b gates of the segment chain. Every segment march launch is
     bit for bit its one-CTA oracle's (history, carry out, Newton counts,
-    first_bad). Newton counts of the chain equal the whole march's and the
+    first_bad), and so is every segment sweep launch (r and the carry
+    out). Newton counts of the chain equal the whole march's and the
     plain segments', member for member.
 
     - Short case (n = 65): the chain reproduces the whole march's history
@@ -660,6 +688,9 @@ def check_segment_case(c, short: bool):
     tag = f"n={c['n']} B={c['B']} K={c['K']}"
     if not c["cluster_equals_cta"]:
         fails.append("the cluster segment march differs from the one-CTA "
+                     "oracle")
+    if not c["sweep_cluster_equals_cta"]:
+        fails.append("the cluster segment sweep differs from the one-CTA "
                      "oracle")
     if c["newton_chain"] != c["newton_whole"]:
         fails.append(f"Newton counts {c['newton_chain']} vs whole "
@@ -737,19 +768,14 @@ def segment_timing(torch, device, n=257, B=32, K=10, reps=1, clusters=()):
     for name, fn in (("cta", old), ("cluster", new), ("cluster", new),
                      ("cta", old)):
         out.setdefault(f"{name}_ms", []).append(time_ms(fn, reps))
-    g = km.launch_geometry(n, n, B, device, members=km.SEGMENT_MEMBERS)
-    idx = torch.device(device).index or 0
-    out["geometry"] = dict(
-        cluster=g.cluster, ctas=B * g.cluster,
-        band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
-        kc=g.kc, smem_bytes=g.smem_bytes,
-        resident_clusters=km.resident_clusters(idx, n, n, g.cluster, g.kc,
-                                               g.smem_bytes, g.members))
+    out["geometry"] = _geometry(km, torch, device, n, B,
+                                km.SEGMENT_MEMBERS, segment=True)
     out["bound_ms"], out["bound_by"] = _bound(*_march_work(
         n, B, K, out["newton_total"], fwd.config.fused_krylov_fixed_iters,
         segment=True))
     fitted = km.launch_geometry
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    idx = torch.device(device).index or 0
     try:
         for C in clusters:
             gc = km.blocked_geometry(n, n, B, sms, cluster=C,
@@ -761,11 +787,104 @@ def segment_timing(torch, device, n=257, B=32, K=10, reps=1, clusters=()):
                                      for a, b in zip(kc_, ko)),
                 ms=[time_ms(new, reps) for _ in range(2)],
                 resident_clusters=km.resident_clusters(
-                    idx, n, n, C, gc.kc, gc.smem_bytes, gc.members)))
+                    idx, n, n, C, gc.kc, gc.smem_bytes, gc.members, True)))
     finally:
         km.launch_geometry = fitted
     del ks, ko, args, u
     return out
+
+
+def _other_clusters(C, n, prefer):
+    """Two cluster sizes other than the launch geometry's C: the first two
+    of `prefer` (then C - 1, C + 1) that differ from it and fit n."""
+    out = []
+    for c in tuple(prefer) + (C - 1, C + 1):
+        if c != C and 1 <= c <= min(16, n) and c not in out:
+            out.append(c)
+    return tuple(out[:2])
+
+
+def sweep_segment_timing(torch, device, n=257, B=32, K=10, reps=1,
+                         prefer=(8, 4)):
+    """Phase 2b, row 6: one K-step segment sweep of B members, on the
+    cluster kernel and on the one-CTA oracle, from a seeded march's history
+    (seeded phi_Q, b1, b2 and terminal targets, the terminal carry), bit-
+    gated against each other (r, p_f, q_f, r_f), once more with one dt set
+    to 0 (that step copies the next level), and timed in turns (oracle,
+    cluster, cluster, oracle; CUDA events), with the cluster geometry and
+    the bound (_adjoint_work, trips in full); then on two other cluster
+    sizes (`_other_clusters`), bit-gated and timed likewise."""
+    from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+    from vch_tpu_torch.ops import march as km
+
+    fwd, margs = _seeded_march(torch, device, n, B, K * 0.01)
+    if fwd.M != K:
+        raise RuntimeError(f"sweep timing: {fwd.M} steps, expected {K}")
+    hist = km.march_fused_2d(*margs, **fwd._march_kw())[0]
+    adj = AdjointSolver2D(fwd.config, device=device)
+    rng = np.random.default_rng(2)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    b1, b2 = f32(np.linspace(0.3, 5.0, B)), f32(np.linspace(13.0, 10.0, B))
+    p, q, r = adj.terminal(hist[:, K], 0.1 * margs[1], b2)
+    args = (adj.dts, hist, f32(0.3 * rng.standard_normal(tuple(hist.shape))),
+            p, q, r, b1) + adj._ops()
+    kw = adj._kw()
+    zero = K // 2
+    zdts = adj.dts.clone()
+    zdts[zero] = 0.0
+    zargs = (zdts,) + args[1:]
+    new = lambda a=args: km.adjoint_fused_2d_segment(*a, **kw)
+    old = lambda a=args: km._adjoint_fused_2d_segment_cta(*a, **kw)
+    same = lambda x, y: all(torch.equal(u, v) for u, v in zip(x, y))
+    ks, ko, zs, zo = new(), old(), new(zargs), old(zargs)
+    torch.cuda.synchronize()
+    out = dict(n=n, B=B, K=K, cluster_equals_cta=same(ks, ko),
+               zero_dt_equals_cta=same(zs, zo),
+               zero_dt_copies=bool(torch.equal(zs[0][:, zero],
+                                               zs[0][:, zero + 1])),
+               finite=all(bool(torch.isfinite(t).all()) for t in ks))
+    for name, fn in (("cta", old), ("cluster", new), ("cluster", new),
+                     ("cta", old)):
+        out.setdefault(f"{name}_ms", []).append(time_ms(fn, reps))
+    out["geometry"] = _geometry(km, torch, device, n, B, 1, segment=True,
+                                kernel="sweep")
+    out["bound_ms"], out["bound_by"] = _bound(*_adjoint_work(
+        n, B, K, fwd.config.adjoint_krylov_fixed_iters, segment=True))
+    fitted = km.launch_geometry
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    idx = torch.device(device).index or 0
+    try:
+        for C in _other_clusters(out["geometry"]["cluster"], n, prefer):
+            gc = km.blocked_geometry(n, n, B, sms, cluster=C, members=1,
+                                     kernel="sweep")
+            km.launch_geometry = lambda *a, **k: gc
+            out.setdefault("other_clusters", []).append(dict(
+                cluster=C, equal=same(new(), ko),
+                zero_dt_equal=same(new(zargs), zo),
+                ms=[time_ms(new, reps) for _ in range(2)],
+                resident_clusters=km.resident_clusters(
+                    idx, n, n, C, gc.kc, gc.smem_bytes, 1, True, "sweep")))
+    finally:
+        km.launch_geometry = fitted
+    del ks, ko, zs, zo, args, zargs, hist
+    return out
+
+
+def check_sweep_segment_timing(c):
+    fails = []
+    if not (c["cluster_equals_cta"] and c["zero_dt_equals_cta"]):
+        fails.append("the cluster segment sweep differs from the one-CTA "
+                     "oracle")
+    if not all(o["equal"] and o["zero_dt_equal"]
+               for o in c.get("other_clusters", ())):
+        fails.append("the cluster segment sweep's bits depend on its "
+                     "cluster size")
+    if not (c["zero_dt_copies"] and c["finite"]):
+        fails.append("a zero dt step did not copy the next level, or r is "
+                     "not finite")
+    if fails:
+        raise RuntimeError(f"segment sweep n={c['n']} B={c['B']} "
+                           f"K={c['K']}: " + "; ".join(fails))
 
 
 def _seeded_march(torch, device, n, B, T):
@@ -808,14 +927,7 @@ def march_timing(torch, device, n, B, T=1.0, reps=1):
     for name, fn in (("cta", old), ("cluster", new), ("cluster", new),
                      ("cta", old)):
         out.setdefault(f"{name}_ms", []).append(time_ms(fn, reps))
-    g = km.launch_geometry(n, n, B, device, members=1)
-    idx = torch.device(device).index or 0
-    out["geometry"] = dict(
-        cluster=g.cluster, ctas=B * g.cluster,
-        band_rows=[r for _, r in g.bands], units=g.units, passes=g.passes,
-        kc=g.kc, smem_bytes=g.smem_bytes,
-        resident_clusters=km.resident_clusters(idx, n, n, g.cluster, g.kc,
-                                               g.smem_bytes, 1))
+    out["geometry"] = _geometry(km, torch, device, n, B, 1)
     out["bound_ms"], out["bound_by"] = _bound(*_march_work(
         n, B, fwd.M, out["newton_total"], fwd.config.fused_krylov_fixed_iters))
     del kc, ko, args
@@ -825,11 +937,12 @@ def march_timing(torch, device, n, B, T=1.0, reps=1):
 def block_sizes_case(torch, device, n=65, B=8, T=0.1, reps=3):
     """Fault C2: the blocked march at block_b = 2 and 4 against block_b = 8,
     the one-member march and its one-CTA oracle, bit for bit (history,
-    Newton counts, first_bad); the blocked sweep at block_b = 2 and 4
-    against block_b = 1 and 8 and against the plain sweep in float64 on the
-    march's history (the phase-2 adjoint gate: no farther from float64 than
-    twice the one-member sweep plus 1e-6, and within 5e-3 of it); the CUDA-
-    event times of each."""
+    Newton counts, first_bad); the blocked sweep (the cluster sweep) at
+    block_b = 2, 4 and 8 against the one-CTA one-member sweep bit for bit,
+    and against the plain sweep in float64 on the march's history (the
+    phase-2 adjoint gate: no farther from float64 than twice the
+    one-member sweep plus 1e-6, and within 5e-3 of it); the CUDA-event
+    times of each, and each block's sweep geometry."""
     from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
     from vch_tpu_torch.ops import march as km
 
@@ -865,9 +978,12 @@ def block_sizes_case(torch, device, n=65, B=8, T=0.1, reps=3):
         out["blocks"][bb] = dict(
             march_equals_one_member=all(torch.equal(x, y)
                                         for x, y in zip(bm, ref)),
+            sweep_equals_one_member=bool(torch.equal(br, r1)),
             rel_r_vs_f64=rel(br, r64), rel_r_vs_one_member=rel(br, r1),
             geometry=km.launch_geometry(n, n, B, device,
-                                        members=bb)._asdict())
+                                        members=bb)._asdict(),
+            sweep_geometry=_geometry(km, torch, device, n, B, bb,
+                                     kernel="sweep"))
         out["blocks"][bb]["geometry"].pop("bands")
         out["march_ms"][str(bb)] = time_ms(m, reps)
         out["adjoint_ms"][str(bb)] = time_ms(a, reps)
@@ -883,6 +999,9 @@ def check_block_sizes_case(c):
         if not d["march_equals_one_member"]:
             fails.append(f"block {bb}: the march differs from the "
                          "one-member march")
+        if not d["sweep_equals_one_member"]:
+            fails.append(f"block {bb}: the cluster sweep differs from the "
+                         "one-CTA sweep")
         if d["rel_r_vs_f64"] > 2 * c["rel_r_one_member_vs_f64"] + 1e-6:
             fails.append(f"block {bb}: the sweep is farther from float64 "
                          "than the one-member sweep")
@@ -2454,6 +2573,9 @@ def main():
          + " | march2d_blocked.cu march_blocked_kernel<MB,SEG> (8, 4, 2: "
          "the blocked march; <1,0>: the whole march; <1,1>: the segment "
          "march): " + _ptxas_named(_build.ptxas_log, "march_blocked_kernel")
+         + " | adjoint2d_cluster.cu adjoint_cluster_kernel<MB,SEG> (8, 4, "
+         "2: the blocked sweep; <1,1>: the segment sweep): "
+         + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
          + " | march1d.cu march1d_kernel: "
          + _ptxas_named(_build.ptxas_log, "march1d_kernel"))
 
@@ -2499,6 +2621,20 @@ def main():
                  for B in (1, 2, 8, 16, 32)}
     for c in seg_times.values():
         _log("2b", json.dumps(c) + f" | {name} | {smi}")
+    # row 6, the segment sweep, on the cluster kernel against its one-CTA
+    # oracle: at n = 65 and at phase 6's batch and its straggler buckets,
+    # each also on two other cluster sizes
+    prefer = {1: (8, 4), 2: (8, 4), 8: (16, 8), 16: (8, 4), 32: (4, 2)}
+    sweep_times = [sweep_segment_timing(torch, device, n=65, B=4, K=5,
+                                        reps=3, prefer=(8, 2))]
+    sweep_times += [sweep_segment_timing(torch, device, B=B,
+                                         prefer=prefer[B])
+                    for B in (1, 2, 8, 16, 32)]
+    for c in sweep_times:
+        _log("2b", "row 6 " + json.dumps(c) + f" | {name} | {smi}")
+    for c in sweep_times:
+        check_sweep_segment_timing(c)
+    sweep32 = sweep_times[-1]
     check_blocked_case(blk8, short=True)
     check_blocked_case(blk512, short=False)
     check_blocked_case(blk64, short=False)
@@ -2607,9 +2743,10 @@ def main():
     per_member = ("march_fused_2d", "adjoint_fused_2d")
     blocked = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked")
     segment = ("march_fused_2d_segment", "adjoint_fused_2d_segment")
-    # the one-CTA segment kernel is the segment march's oracle, which no
-    # main path launches
-    oracle = ("_march_fused_2d_segment_cta", "_march_fused_2d_cta")
+    # the one-CTA kernels are the cluster kernels' oracles, which no main
+    # path launches
+    oracle = ("_march_fused_2d_segment_cta", "_march_fused_2d_cta",
+              "_adjoint_fused_2d_segment_cta", "_adjoint_fused_2d_cta")
     idle_segment = segment + oracle
     march_1d = ("march_fused_1d",)
     trips_fwd = _config(64).fused_krylov_fixed_iters
@@ -2660,7 +2797,19 @@ def main():
     prob5 = make_batched_problem_2d(cfg64, batch=512, device=device)
     if type(prob5) is not BatchedProblem2D:
         raise RuntimeError(f"64x64 B=512 routed to {type(prob5).__name__}")
-    c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3)
+    # CUDA events around every blocked launch of the timed window
+    blk_m = EntryTimer(torch, prob5.solver.entries.march_blocked,
+                       newton_at=1)
+    blk_a = EntryTimer(torch, prob5.adj.entries.adjoint_blocked)
+    prob5.solver.entries = prob5.solver.entries._replace(march_blocked=blk_m)
+    prob5.adj.entries = prob5.adj.entries._replace(adjoint_blocked=blk_a)
+    c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3,
+                 before_timed=lambda: (blk_m.clear(), blk_a.clear()))
+    # beside row 4's launches, the one-CTA sweep at B = 512 (phase 2b)
+    c5.update(blocked_march=blk_m.summary(), blocked_adjoint=blk_a.summary(),
+              adjoint_one_cta_ms_b512=blk512["adjoint_per_member_ms"],
+              adjoint_cluster_ms_b512=blk512["adjoint_blocked_ms"],
+              adjoint_bound_ms_b512=blk512["adjoint_bound_ms"])
     _log(5, json.dumps(c5) + f" | {name} | {smi}")
     check_main_path(c5, blocked, per_member + idle_segment + march_1d)
 
@@ -2699,6 +2848,11 @@ def main():
             segment=True))
     c6["segment_adjoint_bound_ms_b32"], _ = _bound(*_adjoint_work(
         257, 32, K6, trips_adj, segment=True))
+    # beside row 6's launches, the segment sweep at B = 32 on phase 2b's
+    # inputs: the one-CTA oracle and the cluster kernel, and its geometry
+    c6.update(segment_adjoint_one_cta_ms_b32=sweep32["cta_ms"],
+              segment_adjoint_cluster_ms_b32=sweep32["cluster_ms"],
+              segment_adjoint_geometry_b32=sweep32["geometry"])
     _log(6, json.dumps(c6) + f" | {name} | {smi}")
     check_main_path(c6, segment, per_member + blocked + march_1d
                     + oracle)
@@ -2814,6 +2968,7 @@ def main():
     mean = lambda v: float(np.mean(v))
     cluster_cu = "vch_tpu_torch/csrc/march2d_blocked.cu"
     adj_cu = "vch_tpu_torch/csrc/adjoint2d.cu"
+    sweep_cu = "vch_tpu_torch/csrc/adjoint2d_cluster.cu"
     solve_cu = "vch_tpu_torch/csrc/solve2d.cu"
     pm = "vch_tpu/ops/pallas_march.py"
     pk = "vch_tpu/ops/pallas_kernels.py"
@@ -2836,22 +2991,26 @@ def main():
               mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"],
               _march_work(blk8["n"], blk8["B"], blk8["M"],
                           blk8["newton_blocked_total"], trips_fwd)),
-        entry("adjoint_fused_2d_blocked", adj_cu, f"{pm}:1905",
+        entry("adjoint_fused_2d_blocked", sweep_cu, f"{pm}:1905",
               c5["launches"]["adjoint_fused_2d_blocked"], blk8["max_abs_dr"],
-              mean(blk8["adjoint_blocked_ms"]), blk8["adjoint_plain_ms"],
-              _adjoint_work(blk8["n"], blk8["B"], blk8["M"], trips_adj)),
+              mean(blk512["adjoint_blocked_ms"]), blk8["adjoint_plain_ms"],
+              _adjoint_work(blk512["n"], blk512["B"], blk512["M"], trips_adj),
+              shape="ms, bound_ms: the headline's n=65, B=512, M=100; "
+                    "max_abs_err, plain_ms: n=65, B=8, M=10"),
         entry("march_fused_2d_segment", cluster_cu, f"{pm}:479",
               c6["launches"]["march_fused_2d_segment"],
               seg257["max_abs_err_march"], seg257["march_ms"],
               seg257["march_plain_ms"],
               _march_work(seg257["n"], seg257["B"], seg257["K"], seg_newton,
                           trips_fwd, segment=True)),
-        entry("adjoint_fused_2d_segment", adj_cu, f"{pm}:819",
+        entry("adjoint_fused_2d_segment", sweep_cu, f"{pm}:819",
               c6["launches"]["adjoint_fused_2d_segment"],
-              seg257["max_abs_err_adjoint"], seg257["adjoint_ms"],
+              seg257["max_abs_err_adjoint"], mean(sweep32["cluster_ms"]),
               seg257["adjoint_plain_ms"],
-              _adjoint_work(seg257["n"], seg257["B"], seg257["K"], trips_adj,
-                            segment=True)),
+              _adjoint_work(sweep32["n"], sweep32["B"], sweep32["K"],
+                            trips_adj, segment=True),
+              shape="ms, bound_ms: phase 6's n=257, B=32, K=10; "
+                    "max_abs_err, plain_ms: n=257, B=2, K=10"),
     ]
     # the per-solve kernels at config 3's shape (n = 65, one solve), their
     # launches on their paths: the Schur solves of config 3's constructor,

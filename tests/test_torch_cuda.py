@@ -11,8 +11,8 @@ right at the tolerance may take one more iteration); r 2e-3 relative, the
 float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
-do the cluster marches (whole, blocked, segment) and their one-CTA oracles
-at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
+do the cluster marches (whole, blocked, segment) and sweeps (blocked,
+segment) and their one-CTA oracles at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
 every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
@@ -422,9 +422,9 @@ def test_segment_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
 @pytest.mark.cuda
 def test_blocked_wrappers_reject_unbuilt_and_indivisible_blocks(cuda):
     """block_b = 2 and 4 run: the march bit for bit the one-member march and
-    its one-CTA oracle, member for member; the sweep as close to float64 as
-    the one-member sweep (within 2x plus 1e-6) and within 2e-3 of it. A
-    block of 3 and a batch that does not divide by the block raise."""
+    its one-CTA oracle, member for member; the sweep (the cluster sweep)
+    bit for bit the one-CTA sweep. A block of 3 and a batch that does not
+    divide by the block raise, for the march and for the sweep."""
     fwd, adj, phi0, u, f32 = _problem(cuda, n=65, B=8, T=0.05)
     args = _march_args(fwd, phi0, u)
     kh, kns, kbad = km.march_fused_2d(*args, **_KW)
@@ -432,9 +432,7 @@ def test_blocked_wrappers_reject_unbuilt_and_indivisible_blocks(cuda):
     b1, b2 = f32(np.linspace(0.3, 5.0, 8)), f32(np.linspace(13.0, 10.0, 8))
     aargs = (adj.dts, kh, torch.zeros_like(kh), 0.1 * phi0, b1, b2) + \
         adj._ops()
-    kr = km.adjoint_fused_2d(*aargs, **adj._kw())
-    r64 = km.adjoint_fused_2d_plain(*[t.double() for t in aargs],
-                                    **adj._kw())
+    kr = km._adjoint_fused_2d_cta(*aargs, **adj._kw())
     torch.cuda.synchronize()
     for a, b in ((kh, oh), (kns, ons), (kbad, obad)):
         assert torch.equal(a, b)
@@ -451,16 +449,143 @@ def test_blocked_wrappers_reject_unbuilt_and_indivisible_blocks(cuda):
                                                           before[1] + 1)
         for a, b in ((bh, kh), (bns, kns), (bbad, kbad)):
             assert torch.equal(a, b), block_b
-        rel = lambda x, y: ((x.double() - y).abs().max()
-                            / y.abs().max()).item()
-        assert rel(br, r64) <= 2 * rel(kr, r64) + 1e-6, block_b
-        assert rel(br, kr.double()) <= 2e-3, block_b
-    fwd6, _, phi6, u6, _ = _problem(cuda, B=6)
+        assert torch.equal(br, kr), block_b
+    fwd6, adj6, phi6, u6, f6 = _problem(cuda, B=6)
     args6 = _march_args(fwd6, phi6, u6)
+    h6 = km.march_fused_2d(*args6, **_KW)[0]
+    aargs6 = (adj6.dts, h6, torch.zeros_like(h6), 0.1 * phi6,
+              f6([1.0] * 6), f6([10.0] * 6)) + adj6._ops()
     with pytest.raises(ValueError, match="built for block_b"):
         km.march_fused_2d_blocked(*args6, block_b=3, **_KW)
     with pytest.raises(ValueError, match="B % block_b"):
         km.march_fused_2d_blocked(*args6, block_b=4, **_KW)
+    with pytest.raises(ValueError, match="built for block_b"):
+        km.adjoint_fused_2d_blocked(*aargs6, block_b=3, **adj6._kw())
+    with pytest.raises(ValueError, match="B % block_b"):
+        km.adjoint_fused_2d_blocked(*aargs6, block_b=4, **adj6._kw())
+
+
+def _sweep_inputs(device, n, B, T, zero_dt=True, seed=5):
+    """A float32 sweep's inputs of B members on an (n, n) grid: the march's
+    history under a seeded control, seeded targets and weights, the dts
+    with step 1 set to 0 (zero_dt: that step copies the next level).
+    Returns (adj, the whole sweep's arguments)."""
+    fwd, adj, phi0, u, f32 = _problem(device, n=n, B=B, T=T)
+    hist = km.march_fused_2d(*_march_args(fwd, phi0, u), **_KW)[0]
+    rng = np.random.default_rng(seed)
+    dts = adj.dts.clone()
+    if zero_dt:
+        dts[1] = 0.0
+    phiQ = f32(0.3 * rng.standard_normal(tuple(hist.shape)))
+    aargs = (dts, hist, phiQ, 0.1 * phi0, f32(np.linspace(0.3, 5.0, B)),
+             f32(np.linspace(13.0, 10.0, B))) + adj._ops()
+    return adj, aargs
+
+
+def _segment_sweep_args(adj, aargs, K):
+    """The last K steps of a whole sweep's arguments as a segment, from
+    the terminal carry."""
+    dts, hist, phiQ, phiT, b1, b2, *ops = aargs
+    M = dts.shape[0]
+    p, q, r = adj.terminal(hist[:, M], phiT, b2)
+    sl = slice(M - K, M + 1)
+    return (dts[M - K:], hist[:, sl].contiguous(), phiQ[:, sl].contiguous(),
+            p, q, r, b1) + tuple(ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(65, 1), (65, 2), (65, 4), (257, 1),
+                                 (257, 2), (257, 8)])
+def test_cluster_segment_sweep_equals_the_one_cta_oracle(cuda, n, B):
+    """The segment sweep (one member per thread-block cluster) gives the
+    one-CTA segment sweep's r and (p_f, q_f, r_f) carry bit for bit, a
+    zero dt step included."""
+    adj, aargs = _sweep_inputs(cuda, n, B, T=0.04 if n < 257 else 0.03)
+    sargs = _segment_sweep_args(adj, aargs, aargs[0].shape[0])
+    before = (km.adjoint_fused_2d_segment.launches,
+              km._adjoint_fused_2d_segment_cta.launches)
+    ks = km.adjoint_fused_2d_segment(*sargs, **adj._kw())
+    ko = km._adjoint_fused_2d_segment_cta(*sargs, **adj._kw())
+    torch.cuda.synchronize()
+    assert (km.adjoint_fused_2d_segment.launches,
+            km._adjoint_fused_2d_segment_cta.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert ks[0].shape == (B, sargs[0].shape[0], n, n)
+    assert bool(torch.isfinite(ks[0]).all())
+    assert torch.equal(ks[0][:, 1], ks[0][:, 2])     # the zero-dt copy
+    for a, b in zip(ks, ko):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_b", [8, 4, 2])
+@pytest.mark.parametrize("n", [65, 257])
+def test_cluster_blocked_sweep_equals_the_one_cta_oracle(cuda, n, block_b):
+    """The blocked sweep (block_b members on a thread-block cluster) gives
+    each member the one-CTA sweep's r bit for bit, a zero dt step
+    included."""
+    adj, aargs = _sweep_inputs(cuda, n, 8, T=0.04 if n < 257 else 0.03)
+    before = km.adjoint_fused_2d_blocked.launches
+    br = km.adjoint_fused_2d_blocked(*aargs, block_b=block_b, **adj._kw())
+    assert km.adjoint_fused_2d_blocked.launches == before + 1
+    kr = km._adjoint_fused_2d_cta(*aargs, **adj._kw())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(br).all()) and (br[:, -1] == 0).all()
+    assert torch.equal(br[:, 1], br[:, 2])           # the zero-dt copy
+    assert torch.equal(br, kr)
+
+
+def _sweep_geometry(monkeypatch, make):
+    """Make the cluster sweep launch on make(n, m, B, sms, members)."""
+    def launch_geometry(n, m, B, device, members=km.BLOCK_MEMBERS, **kw):
+        assert kw.get("kernel") == "sweep"
+        sms = torch.cuda.get_device_properties(
+            torch.device(device)).multi_processor_count
+        return make(n, m, B, sms, members)
+    monkeypatch.setattr(km, "launch_geometry", launch_geometry)
+
+
+@pytest.mark.cuda
+def test_cluster_sweep_bits_do_not_depend_on_the_cluster_size(cuda,
+                                                              monkeypatch):
+    adj, aargs = _sweep_inputs(cuda, 33, 8, T=0.04)
+    ref = km._adjoint_fused_2d_cta(*aargs, **adj._kw())
+    sargs = _segment_sweep_args(adj, aargs, 3)
+    sref = km._adjoint_fused_2d_segment_cta(*sargs, **adj._kw())
+    for C in range(1, 17):
+        _sweep_geometry(monkeypatch, lambda n, m, B, sms, members:
+                        km.blocked_geometry(n, m, B, sms, cluster=C,
+                                            members=members, kernel="sweep"))
+        out = km.adjoint_fused_2d_segment(*sargs, **adj._kw())
+        torch.cuda.synchronize()
+        for a, b in zip(out, sref):
+            assert torch.equal(a, b), C
+        if C & (C - 1) == 0:
+            br = km.adjoint_fused_2d_blocked(*aargs, **adj._kw())
+            torch.cuda.synchronize()
+            assert torch.equal(br, ref), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segment", [False, True])
+@pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4),
+                                         ("cluster", 1)])
+def test_sweep_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
+                                                      field, delta, segment):
+    """The C entries recompute the geometry from (n, m, cluster, kc) and
+    refuse a launch whose shared-memory bytes differ from their own."""
+    adj, aargs = _sweep_inputs(cuda, 33, 8, T=0.02, zero_dt=False)
+
+    def bad(n, m, B, sms, members):
+        g = km.blocked_geometry(n, m, B, sms, members=members, kernel="sweep")
+        return g._replace(**{field: getattr(g, field) + delta})
+    _sweep_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if segment:
+            km.adjoint_fused_2d_segment(
+                *_segment_sweep_args(adj, aargs, 2), **adj._kw())
+        else:
+            km.adjoint_fused_2d_blocked(*aargs, **adj._kw())
 
 
 def _solve_inputs(device, dtype, n=65, B=4, seed=0):

@@ -1,21 +1,26 @@
-// Whole batched 2D adjoint (p, q, r) sweep; writes the gradient channel r.
+// Whole batched 2D adjoint (p, q, r) sweep, one member per CTA; writes the
+// gradient channel r.
 //
-// Replaces three TPU kernels of vch_tpu/ops/pallas_march.py:
-//   - :751 adjoint_fused_2d (body _adjoint_kernel_factory, :567-748): one
-//     member per CTA, BB = 1;
-//   - :1905 adjoint_fused_2d_blocked (factory :1727): BB members per CTA;
-//   - :819 adjoint_fused_2d_segment (the factory's carry_in=True): one member
-//     per CTA, the (p, q, r) carry of the segment's last level in instead of
-//     the terminal solve, (p, q, r) of its first level out, r of its K levels
-//     (no terminal frame) in forward order.
+// Replaces two TPU kernels of vch_tpu/ops/pallas_march.py:
+//   - :751 adjoint_fused_2d (body _adjoint_kernel_factory, :567-748);
+//   - :819 adjoint_fused_2d_segment (the factory's carry_in=True): the
+//     (p, q, r) carry of the segment's last level in instead of the terminal
+//     solve, (p, q, r) of its first level out, r of its K levels (no
+//     terminal frame) in forward order.
+// The whole sweep is row 2's kernel; the segment flag, and the whole sweep
+// for the member-blocked form, are the bit oracles of the cluster sweep
+// (adjoint2d_cluster.cu), which carries rows 4 and 6.
 // Per member: the terminal solve (I - tau L) p_T = b2 (phi(T) - phi_Omega),
 // exact in the cosine basis, and q_T = -L p_T; then per reverse step
 // n = M-1 .. 0:
 //   rhs = B(phi_{n+1}) p_{n+1} + (dt/2) b1 (src_n + src_{n+1}),
 //   the split-preconditioned spectral BiCGStab solve of A(phi_n) p_n = rhs
-//   (isd = rsqrt|denom|, warm start p_{n+1}, best iterate, noise-floor
+//   (isd = 1 / sqrt|denom|, warm start p_{n+1}, best iterate, noise-floor
 //   freeze), q_n = -L p_n and the r CN recursion; dt <= 1e-14 copies the
 //   next level. Every product is full float32 (condition-1e6 operator).
+// Compiled with -fmad=false (ops/_build.py), as the cluster sweep is: the
+// only FMAs are the products' explicit ones, so an elementwise expression
+// rounds the same in both kernels whatever the compiler's contraction.
 //
 // What bounds it on an H100: a chain of ~56 dependent dense products per
 // step (each 2.1 MFMA at n = m = 129) with a CTA-wide reduction between
@@ -23,46 +28,17 @@
 // not fit a CTA's 227 KB of shared memory.
 //
 // Design: the same as march2d.cu — a CTA walks the reverse time loop for
-// its BB members, state in a global workspace (B, ADJ_FIELDS, n, m),
-// operators shared from L2, SIMT FP32 products through 48 x 48
-// shared-memory tiles with fused elementwise epilogues (left-multiplies
-// over the members side by side, right-multiplies over them stacked),
-// CTA-uniform predicates from block-wide reductions, the Krylov trips in
-// masked lockstep. The preconditioner scale isd is stored once per step
-// as a field, since it depends on the member's mean f''.
-#include "common.cuh"
+// its member, state in a global workspace (B, ADJ_FIELDS, n, m), operators
+// shared from L2, SIMT FP32 products through 48 x 48 shared-memory tiles
+// with fused elementwise epilogues, CTA-uniform predicates from block-wide
+// reductions. The preconditioner scale isd is stored once per step as a
+// field, since it depends on the member's mean f''.
+#include "adjoint.cuh"
 
 namespace vch {
 
-struct AdjConst {
-  float tau, gamma, two_c1, two_c2, fpp_lo, fpp_hi, floor_fac;
-};
-constexpr int ADJ_NCONST = sizeof(AdjConst) / sizeof(float);
-
-enum {
-  A_P, A_Q, A_R, A_PN, A_QN, A_W1, A_RHS, A_FPP, A_ISD,
-  A_X, A_RR, A_PK, A_V, A_R0, A_BX, A_S, A_T, A_Z, A_T1, A_T2,
-  A_COUNT
-};
-static_assert(A_COUNT == ADJ_FIELDS, "ADJ_FIELDS out of date");
-
-__device__ __forceinline__ float fpp(float phi, const AdjConst& c) {
-  const float ph = nan_clamp(phi, c.fpp_lo, c.fpp_hi);
-  return c.two_c1 / (1.f - ph * ph) - c.two_c2;
-}
-
-struct AdjArgs {
-  const float *dts, *hist, *phiQ, *phiT, *b1, *b2;
-  const float *Lx, *LyT, *Vxi, *VyiT, *Vx, *VyT, *lam;
-  const float *p0, *q0, *r0;            // segment carry in (null: terminal)
-  float *r, *p_f, *q_f, *r_f;           // p_f.. null: whole sweep
-  float* work;
-  int M, n, m, n_trips;
-  AdjConst c;
-};
-
-template <int BB>
 __global__ void __launch_bounds__(NT) adjoint_kernel(AdjArgs a) {
+  constexpr int BB = 1;                 // members per CTA (common.cuh)
   __shared__ Smem sm;
   const AdjConst& c = a.c;
   const int tid = threadIdx.x, n = a.n, m = a.m, nm = n * m, M = a.M;
@@ -267,65 +243,30 @@ __global__ void __launch_bounds__(NT) adjoint_kernel(AdjArgs a) {
   }
 }
 
-// One launch of the BB-member kernel: B / BB CTAs.
-template <int BB>
-int launch_adjoint(int B, AdjArgs k, cudaStream_t s) {
-  adjoint_kernel<BB><<<B / BB, NT, 0, s>>>(k);
+// One launch: B CTAs.
+int launch_adjoint(int B, const AdjArgs& a, const float* consts, int nconst,
+                   void* stream) {
+  AdjArgs k = a;
+  if (!set_consts(k, consts, nconst) || B <= 0 || a.M <= 0 || a.n <= 1 ||
+      a.m <= 1)
+    return (int)cudaErrorInvalidValue;
+  adjoint_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(k);
   return (int)cudaGetLastError();
 }
 
-// Each members-per-CTA instantiation is compiled as its own object (nvcc
-// -DVCH_BB=1, 2, 4 and 8, in parallel; ops/_build.py); the VCH_BB=1 object
-// holds the C entry points and dispatches to the others.
-#ifndef VCH_BB
-#define VCH_BB 1
-#endif
-template int launch_adjoint<VCH_BB>(int, AdjArgs, cudaStream_t);
-
 }  // namespace vch
 
-#if VCH_BB == 1
-namespace vch {
-
-extern template int launch_adjoint<2>(int, AdjArgs, cudaStream_t);
-extern template int launch_adjoint<4>(int, AdjArgs, cudaStream_t);
-extern template int launch_adjoint<8>(int, AdjArgs, cudaStream_t);
-
-namespace {
-
-int launch(int bb, int B, const AdjArgs& a, const float* consts, int nconst,
-           void* stream) {
-  if (nconst != ADJ_NCONST || B <= 0 || a.M <= 0 || a.n <= 1 || a.m <= 1 ||
-      bb <= 0 || B % bb)
-    return (int)cudaErrorInvalidValue;
-  AdjArgs k = a;
-  float* dst = reinterpret_cast<float*>(&k.c);
-  for (int i = 0; i < ADJ_NCONST; ++i) dst[i] = consts[i];
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (bb) {
-    case 1: return launch_adjoint<1>(B, k, s);
-    case 2: return launch_adjoint<2>(B, k, s);
-    case 4: return launch_adjoint<4>(B, k, s);
-    case 8: return launch_adjoint<8>(B, k, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-}  // namespace vch
-
-// The whole sweep (block_b = 1) or its member-blocked form (block_b = 2, 4
-// or 8; B % block_b == 0). r is (B, M+1, n, m) with r_T = 0 last.
+// The whole sweep. r is (B, M+1, n, m) with r_T = 0 last.
 extern "C" int vch_adjoint_fused_2d(
     const float* dts, const float* hist, const float* phiQ, const float* phiT,
     const float* b1, const float* b2, const float* Lx, const float* LyT,
     const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
     const float* lam, float* r, float* work, int B, int M, int n, int m,
-    const float* consts, int nconst, int n_trips, int block_b, void* stream) {
+    const float* consts, int nconst, int n_trips, void* stream) {
   vch::AdjArgs a{dts, hist, phiQ, phiT, b1, b2, Lx, LyT, Vxi, VyiT, Vx, VyT,
                  lam, nullptr, nullptr, nullptr, r, nullptr, nullptr, nullptr,
                  work, M, n, m, n_trips, {}};
-  return vch::launch(block_b, B, a, consts, nconst, stream);
+  return vch::launch_adjoint(B, a, consts, nconst, stream);
 }
 
 // One K-step segment: (p0, q0, r0) at the segment's last level in, r
@@ -341,6 +282,5 @@ extern "C" int vch_adjoint_fused_2d_segment(
   vch::AdjArgs a{dts, hist, phiQ, nullptr, b1, nullptr, Lx, LyT, Vxi, VyiT,
                  Vx, VyT, lam, p0, q0, r0, r, p_f, q_f, r_f,
                  work, K, n, m, n_trips, {}};
-  return vch::launch(1, B, a, consts, nconst, stream);
+  return vch::launch_adjoint(B, a, consts, nconst, stream);
 }
-#endif  // VCH_BB == 1

@@ -1,0 +1,553 @@
+// The 2D adjoint (p, q, r) sweep on thread-block clusters: a block of MB
+// members per cluster, MB = 8, 4 or 2 for the member-blocked sweep, MB = 1
+// for a K-step segment.
+//
+// Replaces two TPU kernels of vch_tpu/ops/pallas_march.py:
+//   - :1905 adjoint_fused_2d_blocked (factory :1727): block_b members per
+//     program in masked lockstep; here adjoint_cluster_kernel<block_b,
+//     false> for block_b = 8, 4 or 2;
+//   - :819 adjoint_fused_2d_segment (the carry-in factory :567-748): one
+//     member per program, the (p, q, r) carry of the segment's last level in
+//     instead of the terminal solve, (p, q, r) of its first level out, r of
+//     its K levels in forward order; here adjoint_cluster_kernel<1, true>,
+//     one member per cluster.
+// Each computes, member for member and bit for bit, what the one-CTA sweep
+// of adjoint2d.cu computes (its segment flag included): the terminal solve
+// (I - tau L) p_T = b2 (phi(T) - phi_Omega) exact in the cosine basis and
+// q_T = -L p_T, or the carry; then per reverse step f'' and
+// isd = 1 / sqrt|poly - (dt/2) mean(f'') lam|, rhs = B(phi_{n+1}) p_{n+1} +
+// (dt/2) b1 (src_n + src_{n+1}), the split-preconditioned spectral
+// BiCGStab solve (warm start p_{n+1}, n_trips trips, best iterate,
+// noise-floor freeze), p_n = from_s(isd best), q_n = -L p_n and the r CN
+// recursion; dt <= 1e-14 copies the next level.
+//
+// What bounds it on an H100: per step a chain of 16 + 8 n_trips dependent
+// dense (n x n)(n x m) products per member (56 at five trips) and about 25
+// reductions whose results every later step needs; no Newton or Armijo
+// loop. The MB members of a block share each operator slab, so a block's
+// products are MB times as wide as one member's; with one member (the
+// segment sweep at 257 x 257, B = 1 .. 32) a cluster of up to 16 SMs
+// shortens each link of the chain instead.
+//
+// Design: cluster.cuh's engine, as the cluster march (march2d_blocked.cu)
+// runs it. Member state lives in the global workspace (B, 20, n, m) as in
+// adjoint2d.cu; a Laplacian's first product goes through the T2 field,
+// free at every Laplacian. Every product output sums its k terms in
+// ascending order in one FMA chain, a Laplacian adds its two rounded
+// products and every reduction follows common.cuh's block_sum order, as
+// adjoint2d.cu does; both are compiled with -fmad=false (ops/_build.py), so
+// each elementwise expression, written here as there, rounds the same. So a
+// member's bits depend neither on the cluster size nor on the batch, and
+// equal the one-CTA sweep's. Full float32 FMA: no tensor cores, no TF32.
+#include "adjoint.cuh"
+#include "cluster.cuh"
+
+namespace vch {
+namespace sweep {
+
+using namespace cluster;
+
+// Per-member control state, the same in every CTA of a cluster.
+template <int MB>
+struct Ctl {
+  float red[2][MB][NWARP];        // warp values of a reduction
+  float hdt_fbar[MB], floor2[MB], r2[MB];
+  float rho[MB], kalpha[MB], omega[MB], best_r2[MB];
+  float rho_new[MB], beta[MB], alpha_n[MB], omega_n[MB];
+  int live[MB], improved[MB];
+};
+static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
+
+// One CTA's view of its block of MB members; SEG: a segment with the
+// carry in and out. Every method is force-inlined into the kernel, so the
+// state below lives in registers; the per-member scalars live in `ctl`, in
+// shared memory.
+template <int MB, bool SEG>
+struct Sweep : Block<MB> {
+  using Base = Block<MB>;
+  using Base::tid;
+  using Base::nm;
+  using Base::b0;
+  using Base::FS;
+  using Base::all;
+  using Base::cluster;
+  using Base::F;
+  using Base::each_elem;
+  using Base::gemm_l_to;
+  using Base::gemm_r;
+  using Base::gemm_r_to;
+  const AdjArgs& a;
+  const AdjConst& c;
+  Ctl<MB>& ctl;
+  size_t HS, RS;
+
+  __device__ __forceinline__ Sweep(const AdjArgs& args, const BGeom& g,
+                                   Ctl<MB>& ctl_, float* smem)
+      : Base(g, args.n, args.m, A_COUNT, args.work, smem, ctl_.red),
+        a(args), c(args.c), ctl(ctl_) {
+    HS = (size_t)(a.M + 1) * nm;                // member stride of hist, phiQ
+    RS = (size_t)(SEG ? a.M : a.M + 1) * nm;    // and of r
+  }
+
+  // the Laplacian through the T2 field, free at every Laplacian
+  template <class Ld, class St>
+  __device__ __forceinline__ void lap(const float* V, Ld ld, St st) {
+    Base::lap(a.Lx, a.LyT, V, F(A_T2), ld, st);
+  }
+
+  // OUT_b = At_b Y_b, the split-preconditioned operator in the cosine
+  // basis: isd (poly z - (dt/2) to_s(fpp_n from_s(lam z))), z = isd y. Y's
+  // elements are read in the elementwise layout: a Y whose last writer was
+  // a product's epilogue needs a cluster barrier first.
+  __device__ __forceinline__ void apply_At(const float* Y, float* OUT,
+                                           float half_dt) {
+    const float *ISD = F(A_ISD), *FPP = F(A_FPP), *lam = a.lam;
+    float *Z = F(A_Z), *T1 = F(A_T1), *T2 = F(A_T2);
+    const size_t fs = FS;
+    const AdjConst& k = c;
+    each_elem(all, [&](int b, int e) {
+      const size_t i = b * fs + e;
+      return Vals<3>{{lam[e], ISD[i], Y[i]}};
+    }, [&](int b, int e, const Vals<3>& in) {
+      Z[b * fs + e] = in.v[0] * (in.v[1] * in.v[2]);
+    });
+    gemm_l_to(a.Vx, Z, T1);
+    gemm_r(T1, a.VyT, [&](int b, int e) {
+      return Vals<1>{{FPP[b * fs + e]}};
+    }, [&](int b, int e, float v, const Vals<1>& in) {
+      T2[b * fs + e] = in.v[0] * v;
+    });
+    gemm_l_to(a.Vxi, T2, T1);
+    gemm_r(T1, a.VyiT, [&](int b, int e) {
+      const size_t i = b * fs + e;
+      return Vals<3>{{ISD[i], Y[i], lam[e]}};
+    }, [&](int b, int e, float v, const Vals<3>& in) {
+      const float s = in.v[0], l = in.v[2];
+      const float poly = (1.f - k.tau * l) + (half_dt * l) * l;
+      OUT[b * fs + e] = s * (poly * (s * in.v[1]) - half_dt * v);
+    });
+  }
+
+  // Fixed-trip BiCGStab in masked lockstep (common.cuh bicgstab_fixed with
+  // no preconditioner: PH is P, SH is S). On entry X, RR = R0, P = V = 0,
+  // BX and ctl's r2, floor2 and Krylov scalars are set.
+  __device__ __forceinline__ void bicgstab(float half_dt) {
+    float *X = F(A_X), *RR = F(A_RR), *PK = F(A_PK), *V = F(A_V);
+    float *R0 = F(A_R0), *BX = F(A_BX), *Sv = F(A_S), *T = F(A_T);
+    const size_t fs = FS;
+    auto live = [&](int b) { return ctl.live[b] != 0; };
+    for (int trip = 0; trip < a.n_trips; ++trip) {
+      if (tid < MB)
+        ctl.live[tid] = ctl.live[tid] && ctl.r2[tid] > ctl.floor2[tid];
+      __syncthreads();
+      if (!any_member<MB>(ctl.live)) break;
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{R0[b * fs + e], RR[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[1];
+      }, [&](int b, const float (&v)[1]) {
+        ctl.rho_new[b] = v[0];
+        ctl.beta[b] = (v[0] / (ctl.rho[b] + EPS_DIV)) *
+                      (ctl.kalpha[b] / (ctl.omega[b] + EPS_DIV));
+      });
+      each_elem(live, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<3>{{RR[o], PK[o], V[o]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        PK[b * fs + e] =
+            in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
+      });
+      apply_At(PK, V, half_dt);
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{R0[b * fs + e], V[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[1];
+      }, [&](int b, const float (&v)[1]) {
+        ctl.alpha_n[b] = ctl.rho_new[b] / (v[0] + EPS_DIV);
+      });
+      each_elem(live, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<2>{{RR[o], V[o]}};
+      }, [&](int b, int e, const Vals<2>& in) {
+        Sv[b * fs + e] = in.v[0] - ctl.alpha_n[b] * in.v[1];
+      });
+      apply_At(Sv, T, half_dt);
+      this->template reduce<2, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{T[b * fs + e], Sv[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[2]) {
+        const float t = in.v[0];
+        p[0] += t * in.v[1];
+        p[1] += t * t;
+      }, [&](int b, const float (&v)[2]) {
+        ctl.omega_n[b] = v[0] / (v[1] + EPS_DIV);
+      });
+      this->template reduce<1, false>(0.f, live, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<4>{{X[o], PK[o], Sv[o], T[o]}};
+      }, [&](int b, int e, const Vals<4>& in, float (&p)[1]) {
+        const size_t o = b * fs + e;
+        X[o] = in.v[0] + ctl.alpha_n[b] * in.v[1] + ctl.omega_n[b] * in.v[2];
+        const float r = in.v[2] - ctl.omega_n[b] * in.v[3];
+        RR[o] = r;
+        p[0] += r * r;
+      }, [&](int b, const float (&v)[1]) {
+        ctl.improved[b] = 0;
+        if (!ctl.live[b]) return;
+        const float r2n = v[0];
+        if (!isfinite(r2n)) {
+          ctl.live[b] = 0;
+          return;
+        }
+        ctl.rho[b] = ctl.rho_new[b];
+        ctl.kalpha[b] = ctl.alpha_n[b];
+        ctl.omega[b] = ctl.omega_n[b];
+        if (r2n < ctl.best_r2[b]) {
+          ctl.best_r2[b] = r2n;
+          ctl.improved[b] = 1;
+        }
+        ctl.r2[b] = r2n;
+      });
+      if (any_member<MB>(ctl.improved))
+        each_elem([&](int b) { return ctl.improved[b] != 0; },
+                  [&](int b, int e) { return Vals<1>{{X[b * fs + e]}}; },
+                  [&](int b, int e, const Vals<1>& in) {
+                    BX[b * fs + e] = in.v[0];
+                  });
+    }
+  }
+
+  __device__ __forceinline__ void run() {
+    float *P = F(A_P), *Q = F(A_Q), *R = F(A_R), *PN = F(A_PN), *QN = F(A_QN);
+    float *W1 = F(A_W1), *RHS = F(A_RHS), *FPP = F(A_FPP), *ISD = F(A_ISD);
+    float *Z = F(A_Z), *T1 = F(A_T1), *T2 = F(A_T2);
+    float *X = F(A_X), *RR = F(A_RR), *PK = F(A_PK), *V = F(A_V);
+    float *R0 = F(A_R0), *BX = F(A_BX), *T = F(A_T);
+    const float* lam = a.lam;
+    const float* hb = a.hist + b0 * HS;
+    const float* qb = a.phiQ + b0 * HS;
+    float* rb = a.r + b0 * RS;
+    const size_t fs = FS, hs = HS, rs = RS;
+    const AdjConst& k = c;
+    const int M = a.M;
+
+    if constexpr (SEG) {
+      // the carry of the segment's last level
+      each_elem(all, [&](int b, int e) {
+        const size_t g = (size_t)(b0 + b) * nm + e;
+        return Vals<3>{{a.p0[g], a.q0[g], a.r0[g]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        const size_t o = b * fs + e;
+        P[o] = in.v[0];
+        Q[o] = in.v[1];
+        R[o] = in.v[2];
+      });
+    } else {
+      // terminal: (I - tau L) p_T = b2 (phi(T) - phi_Omega); q_T; r_T = 0
+      each_elem(all, [&](int b, int e) {
+        return Vals<2>{{hb[b * hs + (size_t)M * nm + e],
+                        a.phiT[(size_t)(b0 + b) * nm + e]}};
+      }, [&](int b, int e, const Vals<2>& in) {
+        const size_t o = b * fs + e;
+        T1[o] = a.b2[b0 + b] * (in.v[0] - in.v[1]);
+        rb[b * rs + (size_t)M * nm + e] = 0.f;
+        R[o] = 0.f;
+      });
+      gemm_l_to(a.Vxi, T1, T2);
+      gemm_r(T2, a.VyiT, [&](int, int e) { return Vals<1>{{lam[e]}}; },
+             [&](int b, int e, float v, const Vals<1>& in) {
+               Z[b * fs + e] = v / (1.f - k.tau * in.v[0]);
+             });
+      gemm_l_to(a.Vx, Z, T1);
+      gemm_r_to(T1, a.VyT, P);
+      lap(P, [](int, int) { return None{}; },
+          [&](int b, int e, float l, None) { Q[b * fs + e] = -l; });
+    }
+
+    for (int nstep = M - 1; nstep >= 0; --nstep) {
+      const float dt = a.dts[nstep];
+      float* rf = rb + (size_t)nstep * nm;    // member b's frame at + b rs
+      if (dt <= 1e-14f) {               // copy the next level
+        cluster.sync();                 // R's bands were written by their CTAs
+        each_elem(all, [&](int b, int e) { return Vals<1>{{R[b * fs + e]}}; },
+                  [&](int b, int e, const Vals<1>& in) {
+                    rf[b * rs + e] = in.v[0];
+                  });
+        continue;
+      }
+      const float half_dt = 0.5f * dt;
+      const float* hn = hb + (size_t)nstep * nm;    // phi_n; phi_{n+1} at + nm
+      const float* qn = qb + (size_t)nstep * nm;
+
+      // f''(phi_n), its mean and the preconditioner scale isd
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<1>{{hn[b * hs + e]}};
+      }, [&](int b, int e, const Vals<1>& in, float (&p)[1]) {
+        const float f = fpp(in.v[0], k);
+        FPP[b * fs + e] = f;
+        p[0] += f;
+      }, [&](int b, const float (&v)[1]) {
+        ctl.hdt_fbar[b] = half_dt * (v[0] / (float)nm);
+      });
+      each_elem(all, [&](int, int e) { return Vals<1>{{lam[e]}}; },
+                [&](int b, int e, const Vals<1>& in) {
+        const float l = in.v[0];
+        const float poly = (1.f - k.tau * l) + (half_dt * l) * l;
+        ISD[b * fs + e] = 1.f / sqrtf(fabsf(poly - ctl.hdt_fbar[b] * l));
+      });
+
+      // rhs = B(phi_{n+1}) p_{n+1} + (dt/2) b1 (src_n + src_{n+1})
+      lap(P, [](int, int) { return None{}; },
+          [&](int b, int e, float l, None) { W1[b * fs + e] = l; });
+      lap(W1, [&](int b, int e) {
+        const size_t i = b * fs + e, h = b * hs + e;
+        return Vals<6>{{W1[i], P[i], hn[h], hn[h + nm], qn[h], qn[h + nm]}};
+      }, [&](int b, int e, float l, const Vals<6>& in) {
+        const float w1 = in.v[0];
+        const float Bp = in.v[1] - k.tau * w1 - half_dt * l +
+                         (half_dt * fpp(in.v[3], k)) * w1;
+        const float src = (in.v[2] - in.v[4]) + (in.v[3] - in.v[5]);
+        RHS[b * fs + e] = Bp + (half_dt * a.b1[b0 + b]) * src;
+      });
+
+      // bt = isd to_s(rhs) (kept in R0 until r0 is formed), its floor
+      gemm_l_to(a.Vxi, RHS, T1);
+      gemm_r(T1, a.VyiT, [&](int b, int e) {
+        return Vals<1>{{ISD[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<1>& in) {
+        R0[b * fs + e] = in.v[0] * v;
+      });
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<1>{{R0[b * fs + e]}};
+      }, [](int, int, const Vals<1>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[0];
+      }, [&](int b, const float (&v)[1]) {
+        ctl.floor2[b] = k.floor_fac * nan_max(v[0], EPS_DIV);
+      });
+      // y0 = to_s(p_{n+1}) / isd (warm start and initial best iterate)
+      gemm_l_to(a.Vxi, P, T1);
+      gemm_r(T1, a.VyiT, [&](int b, int e) {
+        return Vals<1>{{ISD[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<1>& in) {
+        const size_t i = b * fs + e;
+        const float y = v / in.v[0];
+        X[i] = y;
+        BX[i] = y;
+      });
+      // r0 = bt - At y0 (At y0 lands in T, which every trip overwrites)
+      cluster.sync();                   // y0's bands were written by their CTAs
+      apply_At(X, T, half_dt);
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        const size_t i = b * fs + e;
+        return Vals<2>{{R0[i], T[i]}};
+      }, [&](int b, int e, const Vals<2>& in, float (&p)[1]) {
+        const size_t i = b * fs + e;
+        const float r = in.v[0] - in.v[1];
+        R0[i] = r;
+        RR[i] = r;
+        PK[i] = 0.f;
+        V[i] = 0.f;
+        p[0] += r * r;
+      }, [&](int b, const float (&v)[1]) {
+        ctl.r2[b] = v[0];
+        ctl.rho[b] = ctl.kalpha[b] = ctl.omega[b] = 1.f;
+        ctl.best_r2[b] = v[0];
+        ctl.live[b] = 1;
+      });
+      bicgstab(half_dt);
+
+      // p_n = from_s(isd * best); q_n = -L p_n; r CN recursion
+      each_elem(all, [&](int b, int e) {
+        const size_t i = b * fs + e;
+        return Vals<2>{{ISD[i], BX[i]}};
+      }, [&](int b, int e, const Vals<2>& in) {
+        Z[b * fs + e] = in.v[0] * in.v[1];
+      });
+      gemm_l_to(a.Vx, Z, T1);
+      gemm_r_to(T1, a.VyT, PN);
+      const float den = k.gamma + half_dt;
+      const float ca = (k.gamma - half_dt) / den, cb = half_dt / den;
+      lap(PN, [&](int b, int e) {
+        const size_t i = b * fs + e;
+        return Vals<2>{{R[i], Q[i]}};
+      }, [&](int b, int e, float l, const Vals<2>& in) {
+        const size_t i = b * fs + e;
+        const float q = -l;
+        QN[i] = q;
+        const float r = ca * in.v[0] + cb * (q + in.v[1]);
+        R[i] = r;
+        rf[b * rs + e] = r;
+      });
+      float* tmp = P;
+      P = PN;
+      PN = tmp;
+      tmp = Q;
+      Q = QN;
+      QN = tmp;
+    }
+    if constexpr (SEG) {
+      cluster.sync();                   // P, Q, R's bands: their CTAs wrote them
+      each_elem(all, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<3>{{P[o], Q[o], R[o]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        const size_t g = (size_t)(b0 + b) * nm + e;
+        a.p_f[g] = in.v[0];
+        a.q_f[g] = in.v[1];
+        a.r_f[g] = in.v[2];
+      });
+    }
+    cluster.sync();   // no CTA leaves while a peer may still write its Ctl
+  }
+};
+
+template <int MB, bool SEG>
+__global__ void __launch_bounds__(NT, 1)
+    adjoint_cluster_kernel(AdjArgs a, BGeom g) {
+  extern __shared__ float4 smem4[];
+  __shared__ Ctl<MB> ctl;
+  Sweep<MB, SEG>(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
+}
+
+// Per device: the attributes set so far on adjoint_cluster_kernel<MB, SEG>.
+template <int MB, bool SEG>
+LaunchState (&launch_state())[16] {
+  static LaunchState state[16];
+  return state;
+}
+
+// How many clusters of C CTAs can be resident at once on the current card
+// with this geometry (cudaOccupancyMaxActiveClusters); a negative CUDA error
+// code on failure.
+template <int MB, bool SEG>
+int max_clusters(int n, int m, int C, int kc, int smem_bytes) {
+  return cluster::max_clusters<MB>(
+      (const void*)adjoint_cluster_kernel<MB, SEG>, launch_state<MB, SEG>(),
+      n, m, C, kc, smem_bytes);
+}
+
+// One launch of B members (B % MB == 0) on the caller's geometry, checked
+// against the kernel's own.
+template <int MB, bool SEG>
+int launch(AdjArgs a, int B, const float* consts, int nconst, int C, int kc,
+           int smem_bytes, void* stream) {
+  if (!set_consts(a, consts, nconst) || B <= 0 || B % MB || a.M <= 0)
+    return (int)cudaErrorInvalidValue;
+  BGeom g;
+  int err = check_geometry<MB>(a.n, a.m, C, kc, smem_bytes, g);
+  if (err) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = configure((const void*)adjoint_cluster_kernel<MB, SEG>,
+                  launch_state<MB, SEG>(), cfg, attr, B / MB, C, smem_bytes,
+                  (cudaStream_t)stream);
+  if (err) return err;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, adjoint_cluster_kernel<MB, SEG>, a, g);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sweep
+}  // namespace vch
+
+// Compiled once per instantiation, in parallel (ops/_build.py): the object
+// of -DVCH_BB=MB (-DVCH_SEG=1: the segment sweep) holds
+// adjoint_cluster_kernel<MB, SEG> and its launch and occupancy functions;
+// the -DVCH_BB=8 object also holds the C entries, which dispatch to the
+// others by member count.
+#ifndef VCH_BB
+#define VCH_BB 8
+#endif
+#ifndef VCH_SEG
+#define VCH_SEG 0
+#endif
+
+namespace vch {
+namespace sweep {
+template int launch<VCH_BB, (VCH_SEG != 0)>(AdjArgs, int, const float*, int,
+                                            int, int, int, void*);
+template int max_clusters<VCH_BB, (VCH_SEG != 0)>(int, int, int, int, int);
+}  // namespace sweep
+}  // namespace vch
+
+#if VCH_BB == 8 && !VCH_SEG
+namespace vch {
+namespace sweep {
+#define VCH_EXTERN(MB, SEG)                                                  \
+  extern template int launch<MB, SEG>(AdjArgs, int, const float*, int, int,  \
+                                      int, int, void*);                      \
+  extern template int max_clusters<MB, SEG>(int, int, int, int, int);
+VCH_EXTERN(4, false)
+VCH_EXTERN(2, false)
+VCH_EXTERN(1, true)
+#undef VCH_EXTERN
+}  // namespace sweep
+}  // namespace vch
+
+// How many clusters of `cluster` CTAs of the sweep with `members` members
+// per cluster (8, 4, 2: the blocked sweep; 1 with segment != 0: the segment
+// sweep) can be resident at once on the current card with this geometry; a
+// negative CUDA error code on failure.
+extern "C" int vch_adjoint_cluster_max_clusters(int members, int segment,
+                                                int n, int m, int cluster,
+                                                int kc, int smem_bytes) {
+  using namespace vch::sweep;
+  if (segment)
+    return members == 1 ? max_clusters<1, true>(n, m, cluster, kc, smem_bytes)
+                        : -(int)cudaErrorInvalidValue;
+  switch (members) {
+    case 8: return max_clusters<8, false>(n, m, cluster, kc, smem_bytes);
+    case 4: return max_clusters<4, false>(n, m, cluster, kc, smem_bytes);
+    case 2: return max_clusters<2, false>(n, m, cluster, kc, smem_bytes);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// The member-blocked sweep of B members (B % members == 0, members 8, 4 or
+// 2) on clusters of `cluster` CTAs, with ring stages of kc rows and
+// smem_bytes of dynamic shared memory per CTA: the geometry of
+// ops/march.py blocked_geometry, checked here against the kernel's own.
+// Arguments otherwise as vch_adjoint_fused_2d (adjoint2d.cu); r is
+// (B, M+1, n, m) with r_T = 0 last, work (B, 20, n, m).
+extern "C" int vch_adjoint_fused_2d_blocked(
+    const float* dts, const float* hist, const float* phiQ, const float* phiT,
+    const float* b1, const float* b2, const float* Lx, const float* LyT,
+    const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
+    const float* lam, float* r, float* work, int B, int M, int n, int m,
+    const float* consts, int nconst, int n_trips, int members, int cluster,
+    int kc, int smem_bytes, void* stream) {
+  using namespace vch::sweep;
+  const vch::AdjArgs a{dts, hist, phiQ, phiT, b1, b2, Lx, LyT, Vxi, VyiT,
+                       Vx, VyT, lam, nullptr, nullptr, nullptr, r, nullptr,
+                       nullptr, nullptr, work, M, n, m, n_trips, {}};
+  switch (members) {
+    case 8: return launch<8, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    case 4: return launch<4, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    case 2: return launch<2, false>(a, B, consts, nconst, cluster, kc,
+                                    smem_bytes, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One K-step segment of B members, one member per cluster of `cluster`
+// CTAs: what vch_adjoint_fused_2d_segment (adjoint2d.cu) computes, bit for
+// bit; the geometry as vch_adjoint_fused_2d_blocked's, arguments otherwise
+// as vch_adjoint_fused_2d_segment's.
+extern "C" int vch_adjoint_fused_2d_segment_cluster(
+    const float* dts, const float* hist, const float* phiQ, const float* p0,
+    const float* q0, const float* r0, const float* b1, const float* Lx,
+    const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
+    const float* VyT, const float* lam, float* r, float* p_f, float* q_f,
+    float* r_f, float* work, int B, int K, int n, int m, const float* consts,
+    int nconst, int n_trips, int cluster, int kc, int smem_bytes,
+    void* stream) {
+  using namespace vch::sweep;
+  const vch::AdjArgs a{dts, hist, phiQ, nullptr, b1, nullptr, Lx, LyT, Vxi,
+                       VyiT, Vx, VyT, lam, p0, q0, r0, r, p_f, q_f, r_f,
+                       work, K, n, m, n_trips, {}};
+  return launch<1, true>(a, B, consts, nconst, cluster, kc, smem_bytes,
+                         stream);
+}
+#endif  // VCH_BB == 8 && !VCH_SEG

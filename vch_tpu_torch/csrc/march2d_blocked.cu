@@ -30,49 +30,21 @@
 // march of one scenario at 65 x 65) a cluster of up to 16 SMs shortens
 // each link of the chain instead.
 //
-// Design. Block k of MB members runs on a cluster of C CTAs (C from the
-// number of blocks and the card's SMs, ops/march.py blocked_geometry). CTA
-// r owns a band of rows of all MB members' fields (tile4.cuh's split):
-//   - a right product X_b Op is band-local: the members' bands stacked
-//     (MB R rows) times Op, one operator slab feeding all of them;
-//   - a left product Op X_b takes the members side by side (MB m columns):
-//     Op[band_r, :] times their whole fields, which the peers wrote, read
-//     from the workspace after a cluster barrier;
-// each through tile4.cuh's engine (4 x 4 register units, float4 slab reads,
-// a two-stage cp.async ring), in passes of S NT units. Member state lives in
-// the global workspace (B, 33, n, m) as in march2d.cu; a Laplacian's first
-// product goes through the T2 field, free at every Laplacian.
-//
-// Reductions reproduce the one-member kernel's order: its thread t sums
-// e = t, t + 256, ... of the member's whole field, then a warp xor tree,
-// then the eight warps in order. Here (member b, warp w) is one of 8 MB
-// pairs, each owned by one warp of the cluster (with one member, pair w on
-// rank w % C, so the eight chains run on up to eight SMs); its lane l sums
-// the elements of thread 32 w + l of the one-member kernel over the whole
-// field, the warp tree follows, lane 0's value goes to every CTA's shared
-// memory (distributed shared memory), and after a cluster barrier each CTA
-// adds the eight warp values in order. So every CTA holds the same
-// per-member scalars, in shared memory, and takes the same branches.
-// Elementwise passes run in the same pair layout with eight members, and
-// over every thread of the cluster with one (no order to keep there: an
-// element is always the same thread's, and whatever reads it in another
-// layout waits at a cluster barrier first). Every product output sums its k
-// terms in ascending order in one FMA chain and a Laplacian adds its two
-// rounded products, as common.cuh does, so a member's bits depend neither
-// on the cluster size nor on the batch. Full float32 FMA: no tensor cores,
-// no TF32.
-#include <mutex>
-
-#include "tile4.cuh"
+// Design: cluster.cuh's engine. Block k of MB members runs on a cluster of
+// C CTAs (C from the number of blocks and the card's SMs, ops/march.py
+// blocked_geometry), CTA r owning a band of rows of all MB members'
+// fields; member state lives in the global workspace (B, 33, n, m) as in
+// march2d.cu; a Laplacian's first product goes through the T2 field, free
+// at every Laplacian. Products, reductions and elementwise passes follow
+// the one-member march's order exactly, as cluster.cuh sets out, so a
+// member's bits depend neither on the cluster size nor on the batch. Full
+// float32 FMA: no tensor cores, no TF32.
+#include "cluster.cuh"
 
 namespace vch {
 namespace blocked {
 
-constexpr int S = 3;           // 4 x 4 units per thread per pass
-constexpr int EB = 4;          // outputs of a unit row whose loads go first
-constexpr int MAX_C = 16;      // CTAs per cluster, at most (non-portable)
-constexpr int CTL_BYTES = 4096;   // static shared memory reserved for Ctl
-constexpr size_t SMEM_LIMIT = 232448 - CTL_BYTES;
+using namespace cluster;
 
 struct FwdConst {
   float tau, c1, two_c1, two_c2, neg_kappa, half_kappa, gamma;
@@ -98,31 +70,6 @@ __device__ __forceinline__ float flog(float phi, const FwdConst& c) {
   return logf((1.f + ph) / (1.f - ph));
 }
 
-// The cluster's split of a block of MB members, the same on host and
-// device (the Python wrapper computes it too, ops/march.py
-// blocked_geometry): band = one member's split (tile4.cuh), kc the most k
-// rows of a ring stage, units the 4 x 4 output units of one product of the
-// block.
-struct BGeom {
-  Geom band;
-  int kc, units;
-};
-
-template <int MB>
-__host__ __device__ inline BGeom make_bgeom(int n, int m, int C, int kc) {
-  BGeom g;
-  g.band = make_geom(n, m, C, 1);
-  g.kc = kc;
-  g.units = MB * g.band.units;
-  return g;
-}
-
-// Dynamic shared memory of one CTA: a two-stage ring of A slabs (kc x
-// (MB rpad + 4)) and B slabs (kc x MB mpad), wide enough for both products.
-template <int MB>
-inline size_t blocked_smem_bytes(const BGeom& g) {
-  return 4 * 2 * (size_t)g.kc * (MB * (g.band.rpad + g.band.mpad) + 4);
-}
 
 // Per-member control state, the same in every CTA of a cluster.
 template <int MB>
@@ -153,328 +100,47 @@ struct Args {
   BGeom g;
 };
 
-// What a pass or an epilogue loads for one element, ahead of its stores.
-template <int N>
-struct Vals {
-  float v[N];
-};
-struct None {};
-template <class In>
-struct WithT {                    // a Laplacian's first product, and In
-  float t;
-  In in;
-};
-struct All {                      // every member
-  __device__ __forceinline__ bool operator()(int) const { return true; }
-};
-
-template <int MB>
-__device__ __forceinline__ bool any_member(const int (&v)[MB]) {
-  bool a = false;
-#pragma unroll
-  for (int b = 0; b < MB; ++b) a = a || v[b];
-  return a;
-}
-
-// f(r, c) for e = tid, tid + NT, ... < rows cols, (r, c) = divmod(e, cols),
-// without a division per element.
-template <class F>
-__device__ __forceinline__ void each_rc(int rows, int cols, F f) {
-  const int dr = NT / cols, dc = NT - dr * cols;
-  int r = threadIdx.x / cols, c = threadIdx.x - r * cols;
-  while (r < rows) {
-    f(r, c);
-    c += dc;
-    r += dr;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
-    }
-  }
-}
 
 // One CTA's view of its block of MB members; SEG: a segment with the
 // carry in and out, the history its K post-step states. Every method is
 // force-inlined into the kernel, so the state below lives in registers; the
 // per-member scalars live in `ctl`, in shared memory.
 template <int MB, bool SEG>
-struct March {
-  // elements per lane whose loads go first: one member's reduction chains
-  // run on eight warps of the cluster only, so each lane loads further ahead
-  static constexpr int U = MB == 1 ? 8 : 4;
+struct March : Block<MB> {
+  using Base = Block<MB>;
+  using Base::tid;
+  using Base::nm;
+  using Base::rank;
+  using Base::b0;
+  using Base::FS;
+  using Base::all;
+  using Base::cluster;
+  using Base::F;
+  using Base::each_elem;
+  using Base::gemm_l_to;
+  using Base::gemm_r;
+  using Base::gemm_r_to;
   const Args& a;
   const FwdConst& c;
   Ctl<MB>& ctl;
-  cg::cluster_group cluster;
-  int tid, lane, gw, pw, n, m, nm, C, rank, b0, r0, R, rpad, mpad, units;
-  int kcmax, a_stage, b_stage;
-  size_t FS, HS, US;
-  float *ringA, *ringB, *W;
-  All all;
+  size_t HS, US;
 
   __device__ __forceinline__ March(const Args& args, Ctl<MB>& ctl_,
                                    float* smem)
-      : a(args), c(args.c), ctl(ctl_), cluster(cg::this_cluster()) {
-    const Geom& gb = a.g.band;
-    tid = threadIdx.x;
-    lane = tid & 31;
-    n = a.n;
-    m = a.m;
-    nm = n * m;
-    C = gb.C;
-    rank = (int)cluster.block_rank();
-    gw = rank * NWARP + (tid >> 5);         // this warp in the cluster
-    // the first (member, warp) pair this warp owns
-    pw = MB == 1 ? (tid >> 5) * C + rank : gw;
-    b0 = (blockIdx.x / C) * MB;             // the block's first member
-    r0 = band_start(gb, rank);
-    R = band_rows(gb, rank);
-    rpad = gb.rpad;
-    mpad = gb.mpad;
-    units = a.g.units;
-    kcmax = a.g.kc;
-    a_stage = kcmax * (MB * rpad + 4);
-    b_stage = kcmax * MB * mpad;
-    ringA = smem;
-    ringB = smem + 2 * a_stage;
-    FS = (size_t)F_COUNT * nm;              // member stride of a field
+      : Base(args.g, args.n, args.m, F_COUNT, args.work, smem, ctl_.red),
+        a(args), c(args.c), ctl(ctl_) {
     HS = (size_t)(SEG ? a.M : a.M + 1) * nm;    // member stride of hist
     US = SEG ? (size_t)(a.M + 1) * nm : HS;     // and of u
-    W = a.work + b0 * FS;
   }
 
-  __device__ __forceinline__ float* F(int slot) const {
-    return W + (size_t)slot * nm;
-  }
   __device__ __forceinline__ float* Q(int q, int f) const {
     return F(F_QUAD + 4 * q + f);           // f: 0 phi, 1 mu, 2 Rphi, 3 Rmu
   }
 
-  // ---- products --------------------------------------------------------
-  // LEFT: out_b[r0 + i, j] = sum_k Op[r0 + i, k] X_b[k, j] (K = n), X_b's
-  // rows from every band; RIGHT: out_b[r0 + i, j] = sum_k X_b[r0 + i, k]
-  // Op[k, j] (K = m), X_b's rows of this band. X is a field of the block
-  // (member b at X + b FS). The epilogue is ld(b, e), which loads what
-  // output e needs, and st(b, e, value, loaded), run on four outputs of a
-  // unit's row at a time, their loads first. The RIGHT A slab's k stride
-  // is MB rpad + 4 floats, so its transposing writes do not all fall in one
-  // shared-memory bank.
-  template <bool LEFT, class Ld, class St>
-  __device__ __forceinline__ void product(const float* __restrict__ Op,
-                                          const float* X, Ld ld, St st) {
-    const int K = LEFT ? n : m;
-    const int nch = (K + kcmax - 1) / kcmax, kc = (K + nch - 1) / nch;
-    Geom pg = a.g.band;
-    pg.rpad = LEFT ? rpad : MB * rpad + 4;  // A's k stride
-    pg.mpad = LEFT ? MB * mpad : mpad;      // B's k stride; 4 x 4 columns
-    pg.units = units;
-    const int sa = pg.rpad, sb = pg.mpad;
-    auto issue = [&](int ch, int st_) {
-      const int k0 = ch * kc, kk = min(kc, K - k0);
-      float* As = ringA + st_ * a_stage;
-      float* Bs = ringB + st_ * b_stage;
-      if (LEFT) {
-        const float* src = Op + (size_t)r0 * n + k0;     // As[k][i]
-        each_rc(R, kk, [&](int i, int k) {
-          cp_async4(As + k * sa + i, src + (size_t)i * n + k);
-        });
-#pragma unroll 1
-        for (int b = 0; b < MB; ++b) {                   // Bs[k][b mpad + j]
-          const float* xb = X + b * FS + (size_t)k0 * m;
-          float* db = Bs + b * mpad;
-          each_rc(kk, m, [&](int k, int j) {
-            cp_async4(db + k * sb + j, xb + k * m + j);
-          });
-        }
-      } else {
-#pragma unroll 1
-        for (int b = 0; b < MB; ++b) {                   // As[k][b rpad + i]
-          const float* xb = X + b * FS + (size_t)r0 * m + k0;
-          float* da = As + b * rpad;
-          each_rc(R, kk, [&](int i, int k) {
-            cp_async4(da + k * sa + i, xb + i * m + k);
-          });
-        }
-        const float* src = Op + (size_t)k0 * m;          // Bs[k][j]
-        each_rc(kk, m, [&](int k, int j) {
-          cp_async4(Bs + k * sb + j, src + k * m + j);
-        });
-      }
-      cp_async_commit();
-    };
-    for (int first = 0; first < units; first += S * NT) {
-      const Units<S> u(pg, first);
-      Acc<S> acc;
-      zero<S>(acc);
-      issue(0, 0);
-      for (int ch = 0; ch < nch; ++ch) {
-        if (ch + 1 < nch) {
-          issue(ch + 1, (ch + 1) & 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        mma_chunk<S>(acc, ringA + (ch & 1) * a_stage,
-                     ringB + (ch & 1) * b_stage, min(kc, K - ch * kc), pg, u);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (s >= u.nu) continue;
-        const int b = LEFT ? u.boff[s] / mpad : u.aoff[s] / rpad;
-        const int i0 = LEFT ? u.aoff[s] : u.aoff[s] - b * rpad;
-        const int j0 = LEFT ? u.boff[s] - b * mpad : u.boff[s];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          if (i0 + ii >= R) continue;
-          const int e0 = (r0 + i0 + ii) * m + j0;
-#pragma unroll
-          for (int j1 = 0; j1 < 4; j1 += EB) {
-            decltype(ld(b, e0)) in[EB];
-#pragma unroll
-            for (int jj = 0; jj < EB; ++jj)
-              if (j0 + j1 + jj < m) in[jj] = ld(b, e0 + j1 + jj);
-#pragma unroll
-            for (int jj = 0; jj < EB; ++jj)
-              if (j0 + j1 + jj < m)
-                st(b, e0 + j1 + jj, acc[s][ii][j1 + jj], in[jj]);
-          }
-        }
-      }
-    }
-  }
-
-  // Op X_b after a cluster barrier (the peers' rows of X are written)
-  template <class Ld, class St>
-  __device__ __forceinline__ void gemm_l(const float* Op, const float* X,
-                                         Ld ld, St st) {
-    cluster.sync();
-    product<true>(Op, X, ld, st);
-  }
-  // X_b Op on this band's rows, which this CTA wrote (the barrier: the
-  // first chunk's loads must see every thread's last epilogue)
-  template <class Ld, class St>
-  __device__ __forceinline__ void gemm_r(const float* X, const float* Op,
-                                         Ld ld, St st) {
-    __syncthreads();
-    product<false>(Op, X, ld, st);
-  }
-  // A product whose epilogue stores its value into field D
-  __device__ __forceinline__ void gemm_l_to(const float* Op, const float* X,
-                                            float* D) {
-    const size_t fs = FS;
-    gemm_l(Op, X, [](int, int) { return None{}; },
-           [=](int b, int e, float x, None) { D[b * fs + e] = x; });
-  }
-  __device__ __forceinline__ void gemm_r_to(const float* X, const float* Op,
-                                            float* D) {
-    const size_t fs = FS;
-    gemm_r(X, Op, [](int, int) { return None{}; },
-           [=](int b, int e, float x, None) { D[b * fs + e] = x; });
-  }
-  // st(b, e, (Lx V_b)[e] + (V_b LyT)[e], ld(b, e)), each product rounded,
-  // then added; the first goes through the T2 field
+  // the Laplacian through the T2 field, free at every Laplacian
   template <class Ld, class St>
   __device__ __forceinline__ void lap(const float* V, Ld ld, St st) {
-    float* t2 = F(F_T2);
-    const size_t fs = FS;
-    gemm_l_to(a.Lx, V, t2);
-    gemm_r(V, a.LyT, [&](int b, int e) {
-      return WithT<decltype(ld(b, e))>{t2[b * fs + e], ld(b, e)};
-    }, [&](int b, int e, float x, const auto& in) {
-      st(b, e, in.t + x, in.in);
-    });
-  }
-
-  // ---- elementwise passes and reductions ----------------------------------
-  // For every element of every member with on(b): with MB members, pair
-  // (b, w) is owned by warp pw of the cluster, its lane l takes e = 32 w + l,
-  // + NT, ...; with one member, CTA r's thread t takes e = r NT + t,
-  // + C NT, .... ld(b, e) loads what element e needs and st(b, e, loaded)
-  // computes and stores, U elements' loads at a time before their stores.
-  template <class On, class Ld, class St>
-  __device__ __forceinline__ void each_elem(On on, Ld ld, St st) {
-    if constexpr (MB == 1) {
-      if (!on(0)) return;
-      const int stride = C * NT;
-      int e = rank * NT + tid;
-      for (; e + (U - 1) * stride < nm; e += U * stride) {
-        decltype(ld(0, e)) in[U];
-#pragma unroll
-        for (int q = 0; q < U; ++q) in[q] = ld(0, e + q * stride);
-#pragma unroll
-        for (int q = 0; q < U; ++q) st(0, e + q * stride, in[q]);
-      }
-      for (; e < nm; e += stride) st(0, e, ld(0, e));
-    } else {
-      for (int pr = pw; pr < MB * NWARP; pr += C * NWARP) {
-        const int b = pr / NWARP;
-        if (!on(b)) continue;
-        int e = (pr % NWARP) * 32 + lane;
-        for (; e + (U - 1) * NT < nm; e += U * NT) {
-          decltype(ld(b, e)) in[U];
-#pragma unroll
-          for (int q = 0; q < U; ++q) in[q] = ld(b, e + q * NT);
-#pragma unroll
-          for (int q = 0; q < U; ++q) st(b, e + q * NT, in[q]);
-        }
-        for (; e < nm; e += NT) st(b, e, ld(b, e));
-      }
-    }
-  }
-  // Per-member reductions of NV values: acc(b, e, loaded, p) adds element
-  // e's terms into the partials p (from init; init alone where !on(b)) in
-  // the one-member kernel's block_sum (MIN false) or block_min order, U
-  // elements' loads ahead; fin(b, v) then runs on thread b of every CTA
-  // with the results, and the CTA syncs. Starts with a cluster barrier:
-  // the inputs may lie in the peers' bands.
-  template <int NV, bool MIN, class On, class Ld, class Ac, class Fin>
-  __device__ __forceinline__ void reduce(float init, On on, Ld ld, Ac acc,
-                                         Fin fin) {
-    cluster.sync();
-    for (int pr = pw; pr < MB * NWARP; pr += C * NWARP) {
-      const int b = pr / NWARP, w = pr % NWARP;
-      float p[NV];
-#pragma unroll
-      for (int v = 0; v < NV; ++v) p[v] = init;
-      if (on(b)) {
-        int e = w * 32 + lane;
-        for (; e + (U - 1) * NT < nm; e += U * NT) {
-          decltype(ld(b, e)) in[U];
-#pragma unroll
-          for (int q = 0; q < U; ++q) in[q] = ld(b, e + q * NT);
-#pragma unroll
-          for (int q = 0; q < U; ++q) acc(b, e + q * NT, in[q], p);
-        }
-        for (; e < nm; e += NT) acc(b, e, ld(b, e), p);
-      }
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float o = __shfl_xor_sync(0xffffffffu, p[v], off);
-          p[v] = MIN ? nan_min(p[v], o) : p[v] + o;
-        }
-        p[v] = __shfl_sync(0xffffffffu, p[v], 0);
-        if (lane < C) *cluster.map_shared_rank(&ctl.red[v][b][w], lane) = p[v];
-      }
-    }
-    cluster.sync();
-    if (tid < MB) {
-      const int b = tid;
-      float out[NV];
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        float s = MIN ? ctl.red[v][b][0] : 0.f;
-#pragma unroll
-        for (int w = MIN ? 1 : 0; w < NWARP; ++w)
-          s = MIN ? nan_min(s, ctl.red[v][b][w]) : s + ctl.red[v][b][w];
-        out[v] = s;
-      }
-      fin(b, out);
-    }
-    __syncthreads();
+    Base::lap(a.Lx, a.LyT, V, F(F_T2), ld, st);
   }
 
   // copy buffer set `from` into set `to` for the members flagged in which
@@ -527,7 +193,7 @@ struct March {
                        k.c1 * flog(ph, k) + (-k.two_c2 * po) -
                        0.5f * (in.v[3] + in.v[4]) - 0.5f * (in.v[5] + in.v[6]);
     });
-    reduce<2, false>(0.f, all, [&](int b, int e) {
+    this->template reduce<2, false>(0.f, all, [&](int b, int e) {
       return Vals<2>{{rp[b * fs + e], rm[b * fs + e]}};
     }, [](int, int, const Vals<2>& in, float (&p)[2]) {
       p[0] += in.v[0] * in.v[0];
@@ -548,7 +214,7 @@ struct March {
     auto poly = [&](float l) {
       return (inv_dt - tau_dt * l) + (k.half_kappa * l) * l;
     };
-    reduce<1, false>(0.f, all, [&](int b, int e) {
+    this->template reduce<1, false>(0.f, all, [&](int b, int e) {
       return Vals<1>{{phi[b * fs + e]}};
     }, [&](int b, int e, const Vals<1>& in, float (&p)[1]) {
       const float ph = in.v[0];
@@ -590,7 +256,7 @@ struct March {
              P[i] = 0.f;
              V[i] = 0.f;
            });
-    reduce<1, false>(0.f, all, [&](int b, int e) {
+    this->template reduce<1, false>(0.f, all, [&](int b, int e) {
       return Vals<1>{{R0[b * fs + e]}};
     }, [](int, int, const Vals<1>& in, float (&p)[1]) {
       p[0] += in.v[0] * in.v[0];
@@ -608,7 +274,7 @@ struct March {
         ctl.live[tid] = ctl.live[tid] && ctl.r2[tid] > ctl.floor2[tid];
       __syncthreads();
       if (!any_member<MB>(ctl.live)) break;
-      reduce<1, false>(0.f, all, [&](int b, int e) {
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{R0[b * fs + e], Rr[b * fs + e]}};
       }, [](int, int, const Vals<2>& in, float (&p)[1]) {
         p[0] += in.v[0] * in.v[1];
@@ -628,7 +294,7 @@ struct March {
         PH[o] = prec(b, in.v[3], p);
       });
       apply_S(PH, V);
-      reduce<1, false>(0.f, all, [&](int b, int e) {
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{R0[b * fs + e], V[b * fs + e]}};
       }, [](int, int, const Vals<2>& in, float (&p)[1]) {
         p[0] += in.v[0] * in.v[1];
@@ -645,7 +311,7 @@ struct March {
         SH[o] = prec(b, in.v[2], sv);
       });
       apply_S(SH, T);
-      reduce<2, false>(0.f, all, [&](int b, int e) {
+      this->template reduce<2, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{T[b * fs + e], Sv[b * fs + e]}};
       }, [](int, int, const Vals<2>& in, float (&p)[2]) {
         const float t = in.v[0];
@@ -654,7 +320,7 @@ struct March {
       }, [&](int b, const float (&v)[2]) {
         ctl.omega_n[b] = v[0] / (v[1] + EPS_DIV);
       });
-      reduce<1, false>(0.f, live, [&](int b, int e) {
+      this->template reduce<1, false>(0.f, live, [&](int b, int e) {
         const size_t o = b * fs + e;
         return Vals<5>{{X[o], PH[o], SH[o], Sv[o], T[o]}};
       }, [&](int b, int e, const Vals<5>& in, float (&p)[1]) {
@@ -730,7 +396,7 @@ struct March {
       __syncthreads();
     } else {
       // ---- initial state: w0 = 0, mu0 = -kappa L phi0 + f'(phi0), m0 ----
-      reduce<1, false>(0.f, all, [&](int b, int e) {
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{a.phi0[(size_t)(b0 + b) * nm + e], wts[e]}};
       }, [&](int b, int e, const Vals<2>& in, float (&p)[1]) {
         const float ph = in.v[0];
@@ -806,7 +472,7 @@ struct March {
         // step ceiling of each member
         {
           const float* phi = Q(Q_CUR, 0);
-          reduce<2, true>(INFINITY, all, [&](int b, int e) {
+          this->template reduce<2, true>(INFINITY, all, [&](int b, int e) {
             return Vals<2>{{dphi[b * fs + e], phi[b * fs + e]}};
           }, [&](int, int, const Vals<2>& in, float (&p)[2]) {
             const float dp = in.v[0], ph = in.v[1];
@@ -884,7 +550,7 @@ struct March {
 
       // ---- clip + interior mass correction + sanitizer ----
       const float *phn = Q(Q_CUR, 0), *mun = Q(Q_CUR, 1);
-      reduce<2, false>(0.f, all, [&](int b, int e) {
+      this->template reduce<2, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{phn[b * fs + e], wts[e]}};
       }, [&](int, int, const Vals<2>& in, float (&p)[2]) {
         const float pc = nan_clamp(in.v[0], k.lo, k.hi);
@@ -945,66 +611,12 @@ __global__ void __launch_bounds__(NT, 1) march_blocked_kernel(Args a) {
   March<MB, SEG>(a, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
-// Per device: the dynamic shared-memory limit set so far and the
-// non-portable cluster attribute, for one instantiation of the kernel.
-struct LaunchState {
-  size_t smem_set = 0;
-  bool nonportable = false;
-};
 
-static std::mutex launch_mutex;
-
-// The launch configuration of B members on clusters of C CTAs, B / MB
-// clusters; sets the kernel's attributes for it once per device.
+// Per device: the attributes set so far on march_blocked_kernel<MB, SEG>.
 template <int MB, bool SEG>
-int configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int B,
-              int C, size_t smem, cudaStream_t stream) {
+LaunchState (&launch_state())[16] {
   static LaunchState state[16];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 16) return (int)cudaErrorInvalidDevice;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg = {};
-  cfg.gridDim = dim3((B / MB) * C);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  std::lock_guard<std::mutex> lock(launch_mutex);
-  LaunchState& st = state[dev];
-  if (smem > st.smem_set) {
-    err = cudaFuncSetAttribute(march_blocked_kernel<MB, SEG>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    st.smem_set = smem;
-  }
-  if (C > 8 && !st.nonportable) {
-    err = cudaFuncSetAttribute(march_blocked_kernel<MB, SEG>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-    if (err != cudaSuccess) return (int)err;
-    st.nonportable = true;
-  }
-  return 0;
-}
-
-// The geometry the kernel recomputes from (n, m, C, kc): 0 if the caller's
-// smem_bytes is its own and fits, else cudaErrorInvalidValue.
-template <int MB>
-int check_geometry(int n, int m, int C, int kc, int smem_bytes, BGeom& g) {
-  if (n <= 1 || m <= 1 || C < 1 || C > MAX_C || C > n || kc < 4 || kc % 4)
-    return (int)cudaErrorInvalidValue;
-  g = make_bgeom<MB>(n, m, C, kc);
-  const size_t smem = blocked_smem_bytes<MB>(g);
-  if (smem != (size_t)smem_bytes || smem > SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  return 0;
+  return state;
 }
 
 // How many clusters of C CTAs can be resident at once on the current card
@@ -1012,17 +624,9 @@ int check_geometry(int n, int m, int C, int kc, int smem_bytes, BGeom& g) {
 // code on failure.
 template <int MB, bool SEG>
 int max_clusters(int n, int m, int C, int kc, int smem_bytes) {
-  BGeom g;
-  int err = check_geometry<MB>(n, m, C, kc, smem_bytes, g);
-  if (err) return -err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  err = configure<MB, SEG>(cfg, attr, MB, C, smem_bytes, 0);
-  if (err) return -err;
-  int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &clusters, march_blocked_kernel<MB, SEG>, &cfg);
-  return e == cudaSuccess ? clusters : -(int)e;
+  return cluster::max_clusters<MB>(
+      (const void*)march_blocked_kernel<MB, SEG>, launch_state<MB, SEG>(), n,
+      m, C, kc, smem_bytes);
 }
 
 // One launch of B members (B % MB == 0) on the caller's geometry, checked
@@ -1038,8 +642,9 @@ int launch(Args a, int B, const float* consts, int nconst, int cluster,
   for (int i = 0; i < FWD_NCONST; ++i) dst[i] = consts[i];
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  err = configure<MB, SEG>(cfg, attr, B, cluster, smem_bytes,
-                           (cudaStream_t)stream);
+  err = configure((const void*)march_blocked_kernel<MB, SEG>,
+                  launch_state<MB, SEG>(), cfg, attr, B / MB, cluster,
+                  smem_bytes, (cudaStream_t)stream);
   if (err) return err;
   const cudaError_t e =
       cudaLaunchKernelEx(&cfg, march_blocked_kernel<MB, SEG>, a);

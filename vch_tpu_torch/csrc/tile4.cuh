@@ -8,8 +8,8 @@
 // per unit), the slabs streaming through a two-stage shared-memory ring
 // filled by cp.async (Ring). left_product and right_product are the two
 // products of one member's band (apply2d.cu); each_output and add_to are
-// their epilogue helpers. The blocked march (march2d_blocked.cu) runs its
-// eight members' stacked products on the same units and slot loop. Full
+// their epilogue helpers. The cluster march and sweep (cluster.cuh) run a
+// block's stacked products on the same units and slot loop. Full
 // float32 FMA: no tensor cores, no TF32.
 #pragma once
 

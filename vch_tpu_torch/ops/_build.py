@@ -2,23 +2,26 @@
 kernel wrapper makes before a launch.
 
 `nvcc` compiles each source of `vch_tpu_torch/csrc/` for sm_90a once per
-object listed in `SOURCES`, each object with its own flags: the fused
-2D sweep with `-DVCH_BB=1`, `2`, `4` and `8` (members per CTA); the cluster
+object listed in `SOURCES`, each object with its own flags: the cluster
 march with `-DVCH_BB=8`, `4`, `2` (members per thread-block cluster of the
 member-blocked march), `1` (the whole one-member march) and `1` with
-`-DVCH_SEG=1` (the segment march), one kernel per object; the one-CTA 2D
-march (the bit oracle of the one-member and segment marches), the
-per-solve kernels, the operator applies, the fused 1D march and the cost
-probes, which hold their own members-per-CTA templates, once each (the 1D
-march with `-fmad=false`: its only FMAs are the explicit ones of its
+`-DVCH_SEG=1` (the segment march), and the cluster sweep with `-DVCH_BB=8`,
+`4`, `2` (the member-blocked sweep) and `1` with `-DVCH_SEG=1` (the segment
+sweep), one kernel per object; the one-CTA 2D march (the bit oracle of the
+one-member and segment marches), the one-CTA sweep (the whole sweep, and
+the bit oracle of the cluster sweep), the per-solve kernels, the operator
+applies, the fused 1D march and the cost probes, which hold their own
+members-per-CTA templates, once each. The 1D march and both sweeps compile
+with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
-unrolls rounds differently from another). All
-objects compile at once in parallel, and link into one shared library with
-a plain C interface, at first use, into `vch_tpu_torch/_build/` (listed in
-.gitignore); `ctypes` loads it. The library's file name carries a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing here runs at import: `load()` is called by the kernel
-wrappers on their first CUDA launch.
+unrolls rounds differently from another, and the cluster sweep rounds as
+the one-CTA sweep does. All objects compile at once in parallel, and link
+into one shared library with a plain C interface, at first use, into
+`vch_tpu_torch/_build/` (listed in .gitignore); `ctypes` loads it. The
+library's file name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused. Nothing here runs at
+import: `load()` is called by the kernel wrappers on their first CUDA
+launch.
 """
 from __future__ import annotations
 
@@ -36,17 +39,18 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-MEMBER_BLOCKS = (1, 2, 4, 8)   # the members per CTA (the sweep) and per
-                                # cluster (the march) the kernels are built for
 # each source and its objects, each object's own flags
 SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            "march2d_blocked.cu": tuple((f"-DVCH_BB={bb}",)
                                        for bb in (8, 4, 2, 1))
            + (("-DVCH_BB=1", "-DVCH_SEG=1"),),
-           "adjoint2d.cu": tuple((f"-DVCH_BB={bb}",) for bb in MEMBER_BLOCKS),
+           "adjoint2d.cu": (("-fmad=false",),),
+           "adjoint2d_cluster.cu": tuple((f"-DVCH_BB={bb}", "-fmad=false")
+                                         for bb in (8, 4, 2))
+           + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),),
            "solve2d.cu": ((),), "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),)}
-HEADERS = ("common.cuh", "tile4.cuh")
+HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -159,14 +163,26 @@ def load():
         [_P] * 14 + [_P] * 7 + [_I] * 4 + [_FP, _I] + [_I] * 3 + [_I] * 3
         + [_P])
     # dts hist phiQ phiT b1 b2 Lx LyT Vxi VyiT Vx VyT lam | r work |
-    # B M n m | consts nconst | n_trips block_b | stream
+    # B M n m | consts nconst | n_trips | stream
     lib.vch_adjoint_fused_2d.argtypes = ([_P] * 13 + [_P] * 2 + [_I] * 4
-                                         + [_FP, _I] + [_I] * 2 + [_P])
+                                         + [_FP, _I] + [_I] + [_P])
     # dts hist phiQ p0 q0 r0 b1 Lx LyT Vxi VyiT Vx VyT lam | r p_f q_f r_f
     # work | B K n m | consts nconst | n_trips | stream
     lib.vch_adjoint_fused_2d_segment.argtypes = ([_P] * 14 + [_P] * 5
                                                  + [_I] * 4 + [_FP, _I]
                                                  + [_I] + [_P])
+    # dts hist phiQ phiT b1 b2 Lx LyT Vxi VyiT Vx VyT lam | r work |
+    # B M n m | consts nconst | n_trips | members cluster kc smem_bytes |
+    # stream
+    lib.vch_adjoint_fused_2d_blocked.argtypes = ([_P] * 13 + [_P] * 2
+                                                 + [_I] * 4 + [_FP, _I]
+                                                 + [_I] + [_I] * 4 + [_P])
+    # the segment's arguments | cluster kc smem_bytes | stream
+    lib.vch_adjoint_fused_2d_segment_cluster.argtypes = (
+        [_P] * 14 + [_P] * 5 + [_I] * 4 + [_FP, _I] + [_I] + [_I] * 3 + [_P])
+    # members segment n m cluster kc smem_bytes
+    lib.vch_adjoint_cluster_max_clusters.argtypes = [_I] * 7
+    lib.vch_adjoint_cluster_max_clusters.restype = _I
     # variant scal Lx LyT Vxi VyiT Vx VyT lam f1 f2 rhs x0 | out work |
     # B n m n_iter floor_fac | stream
     lib.vch_bicgstab_2d.argtypes = ([_I] + [_P] * 12 + [_P] * 2 + [_I] * 4
@@ -201,6 +217,8 @@ def load():
                lib.vch_march_fused_2d_segment,
                lib.vch_march_fused_2d_segment_cluster,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
+               lib.vch_adjoint_fused_2d_blocked,
+               lib.vch_adjoint_fused_2d_segment_cluster,
                lib.vch_bicgstab_2d, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_blocked_microbench, lib.vch_while_probe):

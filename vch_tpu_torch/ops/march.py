@@ -5,14 +5,19 @@ vch_tpu/ops/pallas_march.py); and `Entries`, the table of every kernel
 entry point a solver calls, per-solve kernels of ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernels of `csrc/march2d_blocked.cu`, `csrc/adjoint2d.cu` and
-`csrc/march1d.cu` (float32 only; anything else raises), on CPU tensors it
-runs its plain PyTorch version `<name>_plain` of this module. There is no
-fallback from one to the other. Each wrapper counts its kernel launches in
-`.launches`. The whole, blocked and segment marches run on the cluster
-kernel of `csrc/march2d_blocked.cu`; `_march_fused_2d_cta` and
-`_march_fused_2d_segment_cta` keep the one-CTA kernels of `csrc/march2d.cu`
-as their bit oracles, which only the card tests and chip_smoke.py call.
+hand-written kernels of `csrc/march2d_blocked.cu`, `csrc/adjoint2d.cu`,
+`csrc/adjoint2d_cluster.cu` and `csrc/march1d.cu` (float32 only; anything
+else raises), on CPU tensors it runs its plain PyTorch version
+`<name>_plain` of this module. There is no fallback from one to the other.
+Each wrapper counts its kernel launches in `.launches`. The whole, blocked
+and segment marches run on the cluster kernel of `csrc/march2d_blocked.cu`;
+`_march_fused_2d_cta` and `_march_fused_2d_segment_cta` keep the one-CTA
+kernels of `csrc/march2d.cu` as their bit oracles. The blocked and segment
+sweeps run on the cluster kernel of `csrc/adjoint2d_cluster.cu`, the whole
+sweep on the one-CTA kernel of `csrc/adjoint2d.cu`, which
+`_adjoint_fused_2d_cta` and `_adjoint_fused_2d_segment_cta` launch as the
+cluster sweep's bit oracles. Only the card tests and chip_smoke.py call the
+oracles.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -419,10 +424,12 @@ def _march_fused_2d_cta(*args, **kw):
 _march_fused_2d_cta.launches = 0
 
 
-# The cluster march (csrc/march2d_blocked.cu): the kernel checks these
-# numbers against its own.
+# The cluster march and sweep (csrc/march2d_blocked.cu,
+# csrc/adjoint2d_cluster.cu): the kernels check these
+# numbers against their own.
 BLOCK_MEMBERS = 8          # members per block of the blocked march by default
-BLOCK_SIZES = (2, 4, 8)    # the blocks the blocked march is built for
+BLOCK_SIZES = (2, 4, 8)    # the blocks the blocked march and sweep are
+                           # built for
 SEGMENT_MEMBERS = 1        # members per cluster of the segment march
 BLOCKED_SMEM_LIMIT = 232_448 - 4096   # dynamic shared memory per CTA: an
                                       # H100's 232,448 bytes less the
@@ -468,23 +475,41 @@ def blocked_cluster_size(n: int, B: int, sms: int, max_cluster: int = 16,
 _MARCH_NAMES = {8: "the blocked march", 4: "the blocked march",
                 2: "the blocked march",
                 1: "the one-member march (whole or segment march)"}
+_SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
+                2: "the blocked sweep", 1: "the segment sweep"}
+# the cluster kernels launch_geometry fits: the march
+# (csrc/march2d_blocked.cu) and the sweep (csrc/adjoint2d_cluster.cu), each
+# with its own register count, so its own residency
+CLUSTER_KERNELS = ("march", "sweep")
+
+
+def _kernel_names(kernel: str) -> dict:
+    """The names of a cluster kernel's forms, by members per cluster."""
+    if kernel not in CLUSTER_KERNELS:
+        raise ValueError(f"kernel must be one of {CLUSTER_KERNELS}, got "
+                         f"{kernel!r}")
+    return _MARCH_NAMES if kernel == "march" else _SWEEP_NAMES
 
 
 @lru_cache(maxsize=64)
 def blocked_geometry(n: int, m: int, B: int, sms: int,
                      max_cluster: int = 16, cluster: int | None = None,
-                     members: int = BLOCK_MEMBERS) -> BlockedGeometry:
-    """The cluster geometry of the cluster march for B members on an (n, m)
-    grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
-    `march_fused_2d_blocked`, 1 for `march_fused_2d` and
-    `march_fused_2d_segment` (`blocked_cluster_size`; `cluster` overrides
+                     members: int = BLOCK_MEMBERS,
+                     kernel: str = "march") -> BlockedGeometry:
+    """The cluster geometry of a cluster kernel (`kernel`: "march" or
+    "sweep", which split a block alike) for B members on an (n, m) grid on
+    a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
+    `march_fused_2d_blocked` and `adjoint_fused_2d_blocked`, 1 for
+    `march_fused_2d`, `march_fused_2d_segment` and
+    `adjoint_fused_2d_segment` (`blocked_cluster_size`; `cluster` overrides
     it). Raises ValueError when B is not a positive multiple of `members`,
     or when no ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
-    if members not in _MARCH_NAMES:
-        raise ValueError(f"the cluster march is built for "
-                         f"{tuple(_MARCH_NAMES)} members per cluster, got "
+    names = _kernel_names(kernel)
+    if members not in names:
+        raise ValueError(f"the cluster {kernel} is built for "
+                         f"{tuple(names)} members per cluster, got "
                          f"{members}")
-    what = _MARCH_NAMES[members]
+    what = names[members]
     if B <= 0 or B % members:
         raise ValueError(f"{what} takes B % {members} == 0, got B = {B}")
     C = blocked_cluster_size(n, B, sms, max_cluster, members) \
@@ -509,17 +534,23 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
 
 @lru_cache(maxsize=64)
 def resident_clusters(device_index, n, m, C, kc, smem,
-                      members=BLOCK_MEMBERS, segment=False):
-    """How many clusters of the cluster march (`members` per cluster; with
-    segment, the segment march) with this geometry the card holds at once
-    (cudaOccupancyMaxActiveClusters; negative: a CUDA error)."""
+                      members=BLOCK_MEMBERS, segment=False, kernel="march"):
+    """How many clusters of a cluster kernel (`kernel`: the march or the
+    sweep; `members` per cluster; with segment, the segment march or sweep)
+    with this geometry the card holds at once
+    (cudaOccupancyMaxActiveClusters on that kernel; negative: a CUDA
+    error)."""
+    _kernel_names(kernel)
     with torch.cuda.device(device_index):
-        return _build.load().vch_march_blocked_max_clusters(
-            members, int(segment), n, m, C, kc, smem)
+        lib = _build.load()
+        query = (lib.vch_march_blocked_max_clusters if kernel == "march"
+                 else lib.vch_adjoint_cluster_max_clusters)
+        return query(members, int(segment), n, m, C, kc, smem)
 
 
 def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
-                    members: int = BLOCK_MEMBERS) -> BlockedGeometry:
+                    members: int = BLOCK_MEMBERS,
+                    kernel: str = "march") -> BlockedGeometry:
     """`blocked_geometry` on `sms` SMs, made smaller where the card cannot
     hold all B / members clusters at once (`resident(geo)`: how many
     clusters of that geometry it holds): eight members per cluster first
@@ -530,36 +561,41 @@ def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
     against 35.8 ms a segment); with eight members at 65 x 65, B = 128 it
     is 6 (161.7 against 97.5 ms a march), at B = 256 3 (224.3 against
     187.4; PERF.md)."""
-    geo = blocked_geometry(n, m, B, sms, members=members)
+    geo = blocked_geometry(n, m, B, sms, members=members, kernel=kernel)
     clusters = B // members
     if (members == BLOCK_MEMBERS and geo.cluster > 8
             and resident(geo) < clusters):
-        geo = blocked_geometry(n, m, B, sms, max_cluster=8, members=members)
+        geo = blocked_geometry(n, m, B, sms, max_cluster=8, members=members,
+                               kernel=kernel)
     while geo.cluster > 1 and resident(geo) < clusters:
         geo = blocked_geometry(n, m, B, sms, cluster=geo.cluster - 1,
-                               members=members)
+                               members=members, kernel=kernel)
     return geo
 
 
 def launch_geometry(n: int, m: int, B: int, device,
-                    members: int = BLOCK_MEMBERS,
-                    segment: bool = False) -> BlockedGeometry:
-    """The geometry the cluster march (with segment, the segment march)
-    launches on this card for B members, `members` per cluster:
-    `fitted_geometry` on its SM count and cudaOccupancyMaxActiveClusters.
-    Raises RuntimeError if no cluster of it fits on the card."""
+                    members: int = BLOCK_MEMBERS, segment: bool = False,
+                    kernel: str = "march") -> BlockedGeometry:
+    """The geometry the cluster march or sweep (`kernel`; with segment, the
+    segment march or sweep) launches on this card for B members, `members`
+    per cluster: `fitted_geometry` on its SM count and on
+    cudaOccupancyMaxActiveClusters of that kernel (the two kernels take
+    their own registers, so a geometry fitted to one would over-commit the
+    other). Raises RuntimeError if no cluster of it fits on the card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
     resident = lambda g: resident_clusters(idx, n, m, g.cluster, g.kc,
-                                           g.smem_bytes, members, segment)
-    geo = fitted_geometry(n, m, B, sms, resident, members)
+                                           g.smem_bytes, members, segment,
+                                           kernel)
+    geo = fitted_geometry(n, m, B, sms, resident, members, kernel)
     fit = resident(geo)
     if fit <= 0:
         raise RuntimeError(
-            f"{_MARCH_NAMES[members]}: a cluster of {geo.cluster} CTAs with "
-            f"{geo.smem_bytes} bytes of dynamic shared memory each does not "
-            f"fit on this card (cudaOccupancyMaxActiveClusters: {fit})")
+            f"{_kernel_names(kernel)[members]}: a cluster of {geo.cluster} "
+            f"CTAs with {geo.smem_bytes} bytes of dynamic shared memory each "
+            f"does not fit on this card (cudaOccupancyMaxActiveClusters: "
+            f"{fit})")
     return geo
 
 
@@ -803,8 +839,15 @@ def _adj_consts(k):
     return (ctypes.c_float * len(vals))(*vals), len(vals)
 
 
-def _launch_adjoint(wrapper, args, k, block_b):
-    """Check and launch the whole (block_b = 1) or blocked sweep kernel."""
+def _adjoint_kw(tau, gamma, c1, c2, n_trips):
+    return dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+
+
+def _launch_adjoint(wrapper, args, k, members=None):
+    """Check and launch the whole sweep: on the cluster kernel with
+    `members` (8, 4 or 2) members per cluster on the geometry of
+    `launch_geometry`, or (None) on the one-CTA kernel of
+    csrc/adjoint2d.cu."""
     dts, phi_hist, phi_Q, phi_T, b1, b2, *ops = args
     B, n, m = phi_T.shape
     M = dts.shape[0]
@@ -815,16 +858,24 @@ def _launch_adjoint(wrapper, args, k, block_b):
                        ("phi_T", phi_T, (B, n, m)), ("b1", b1, (B,)),
                        ("b2", b2, (B,))]
                       + list(zip(names, ops, shapes)), phi_T.device)
-    lib = _build.load()
     dev = phi_T.device
+    geo = (None if members is None
+           else launch_geometry(n, m, B, dev, members=members,
+                                kernel="sweep"))
+    lib = _build.load()
     r = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
     work = torch.empty((B, lib.vch_workspace_fields(1), n, m),
                        dtype=torch.float32, device=dev)
     consts, nc = _adj_consts(k)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vch_adjoint_fused_2d(
-        *[t.data_ptr() for t in args], r.data_ptr(), work.data_ptr(),
-        B, M, n, m, consts, nc, k["n_trips"], block_b, stream)
+    common = ([t.data_ptr() for t in args] + [r.data_ptr(), work.data_ptr(),
+                                              B, M, n, m, consts, nc,
+                                              k["n_trips"]])
+    if geo is None:
+        err = lib.vch_adjoint_fused_2d(*common, stream)
+    else:
+        err = lib.vch_adjoint_fused_2d_blocked(*common, members, geo.cluster,
+                                               geo.kc, geo.smem_bytes, stream)
     wrapper.launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return r
@@ -833,41 +884,58 @@ def _launch_adjoint(wrapper, args, k, block_b):
 def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
                      Vy_inv_T, Vx, VyT, lam, *, tau: float, gamma: float,
                      c1: float, c2: float, n_trips: int):
-    """The whole batched 2D adjoint sweep, one member per CTA.
+    """The whole batched 2D adjoint sweep, one member per CTA
+    (pallas_march.py:751).
 
     Args: dts (M,); phi_hist, phi_Q (B, M+1, n, m); phi_T (B, n, m) terminal
     targets; b1, b2 (B,) weights; operators as `march_fused_2d`.
     Returns r (B, M+1, n, m), with r_T = 0 in the last frame.
     """
-    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    k = _adjoint_kw(tau, gamma, c1, c2, n_trips)
     args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
             Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d", phi_T):
         return adjoint_fused_2d_plain(*args, **k)
-    return _launch_adjoint(adjoint_fused_2d, args, k, 1)
+    return _launch_adjoint(adjoint_fused_2d, args, k)
 
 
 adjoint_fused_2d.launches = 0
+
+
+def _adjoint_fused_2d_cta(*args, **kw):
+    """The one-CTA sweep of csrc/adjoint2d.cu (one member per CTA), which
+    `adjoint_fused_2d` launches too, under a launch count of its own: the
+    bit oracle of the blocked sweep, which the card tests and chip_smoke.py
+    hold the cluster kernel against; no solver calls it. Arguments and
+    results as `adjoint_fused_2d`."""
+    k = _adjoint_kw(**kw)
+    if not _build.on_cuda("_adjoint_fused_2d_cta", args[3]):
+        return adjoint_fused_2d_plain(*args, **k)
+    return _launch_adjoint(_adjoint_fused_2d_cta, args, k)
+
+
+_adjoint_fused_2d_cta.launches = 0
 
 
 def adjoint_fused_2d_blocked(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
                              Vx_inv, Vy_inv_T, Vx, VyT, lam, *, tau: float,
                              gamma: float, c1: float, c2: float,
                              n_trips: int, block_b: int = 8):
-    """The member-blocked sweep: block_b members per CTA
-    (pallas_march.py:1905). Same contract as `adjoint_fused_2d`; B must
-    divide by block_b, and the CUDA kernel is built for block_b in
-    _build.MEMBER_BLOCKS."""
-    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    """The member-blocked sweep: block_b members (8, 4 or 2 on CUDA
+    tensors, BLOCK_SIZES) in masked lockstep (pallas_march.py:1905), each
+    block on a thread-block cluster (`launch_geometry` of the sweep). Same
+    contract as `adjoint_fused_2d`, and each member's r is bit for bit the
+    one-CTA sweep's (`_adjoint_fused_2d_cta`); B must divide by block_b."""
+    k = _adjoint_kw(tau, gamma, c1, c2, n_trips)
     args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
             Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d_blocked", phi_T):
         return adjoint_fused_2d_blocked_plain(*args, block_b=block_b, **k)
     _check_block(phi_T.shape[0], block_b)
-    if block_b not in _build.MEMBER_BLOCKS:
+    if block_b not in BLOCK_SIZES:
         raise ValueError(f"the CUDA blocked sweep is built for block_b in "
-                         f"{_build.MEMBER_BLOCKS}, got {block_b}")
-    return _launch_adjoint(adjoint_fused_2d_blocked, args, k, block_b)
+                         f"{BLOCK_SIZES}, got {block_b}")
+    return _launch_adjoint(adjoint_fused_2d_blocked, args, k, members=block_b)
 
 
 adjoint_fused_2d_blocked.launches = 0
@@ -880,16 +948,45 @@ def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
     """One K-step segment of the sweep with the (p, q, r) carry explicit
     (pallas_march.py:819): p0, q0, r0 are the adjoint state at the segment's
     LAST level, phi_seg / phi_Q_seg (B, K+1, n, m) its state and target
-    frames.
+    frames. On CUDA tensors each member runs on a thread-block cluster
+    (`launch_geometry` of the segment sweep), bit for bit what the one-CTA
+    kernel `_adjoint_fused_2d_segment_cta` computes.
 
     Returns (r (B, K, n, m), the segment's first K levels in forward order;
     p_f, q_f, r_f (B, n, m) at its first level).
     """
-    k = dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+    k = _adjoint_kw(tau, gamma, c1, c2, n_trips)
     args = (dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx, LyT, Vx_inv,
             Vy_inv_T, Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d_segment", p0):
         return adjoint_fused_2d_segment_plain(*args, **k)
+    return _launch_adjoint_segment(adjoint_fused_2d_segment, args, k,
+                                   cluster=True)
+
+
+adjoint_fused_2d_segment.launches = 0
+
+
+def _adjoint_fused_2d_segment_cta(*args, **kw):
+    """The one-CTA segment sweep of csrc/adjoint2d.cu (one member per CTA):
+    the bit oracle of `adjoint_fused_2d_segment`, which the card tests and
+    chip_smoke.py hold the cluster kernel against; no solver calls it.
+    Arguments and results as `adjoint_fused_2d_segment`."""
+    k = _adjoint_kw(**kw)
+    if not _build.on_cuda("_adjoint_fused_2d_segment_cta", args[3]):
+        return adjoint_fused_2d_segment_plain(*args, **k)
+    return _launch_adjoint_segment(_adjoint_fused_2d_segment_cta, args, k,
+                                   cluster=False)
+
+
+_adjoint_fused_2d_segment_cta.launches = 0
+
+
+def _launch_adjoint_segment(wrapper, args, k, cluster: bool):
+    """Check and launch a segment sweep: on the cluster kernel (cluster),
+    one member per cluster on the geometry of `launch_geometry`, else on
+    the one-CTA kernel."""
+    dts, phi_seg, phi_Q_seg, p0, q0, r0, b1 = args[:7]
     B, n, m = p0.shape
     K = dts.shape[0]
     names, shapes = _op_shapes(n, m, with_wts=False)
@@ -899,24 +996,27 @@ def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
                        ("p0", p0, (B, n, m)), ("q0", q0, (B, n, m)),
                        ("r0", r0, (B, n, m)), ("b1", b1, (B,))]
                       + list(zip(names, args[7:], shapes)), p0.device)
-    lib = _build.load()
     dev = p0.device
+    geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS,
+                           segment=True, kernel="sweep") if cluster else None)
+    lib = _build.load()
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     r = out((B, K, n, m))
     p_f, q_f, r_f = out((B, n, m)), out((B, n, m)), out((B, n, m))
     work = out((B, lib.vch_workspace_fields(1), n, m))
     consts, nc = _adj_consts(k)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vch_adjoint_fused_2d_segment(
-        *[t.data_ptr() for t in args], r.data_ptr(), p_f.data_ptr(),
-        q_f.data_ptr(), r_f.data_ptr(), work.data_ptr(), B, K, n, m, consts,
-        nc, k["n_trips"], stream)
-    adjoint_fused_2d_segment.launches += 1
-    _build.raise_on(lib, err, "adjoint_fused_2d_segment")
+    common = ([t.data_ptr() for t in args]
+              + [r.data_ptr(), p_f.data_ptr(), q_f.data_ptr(), r_f.data_ptr(),
+                 work.data_ptr(), B, K, n, m, consts, nc, k["n_trips"]])
+    if geo is None:
+        err = lib.vch_adjoint_fused_2d_segment(*common, stream)
+    else:
+        err = lib.vch_adjoint_fused_2d_segment_cluster(
+            *common, geo.cluster, geo.kc, geo.smem_bytes, stream)
+    wrapper.launches += 1
+    _build.raise_on(lib, err, wrapper.__name__)
     return r, p_f, q_f, r_f
-
-
-adjoint_fused_2d_segment.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1324,8 +1424,10 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
 # oracles, and the three operator applies and the six cost probes, which no
 # solver calls
 WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
-                             sk.schur_apply, sk.adjoint_apply,
-                             sk.spectral_solve, sk.schur_nodots,
+                             _adjoint_fused_2d_cta,
+                             _adjoint_fused_2d_segment_cta, sk.schur_apply,
+                             sk.adjoint_apply, sk.spectral_solve,
+                             sk.schur_nodots,
                              sk.schur_mmonly, pk.matmul_chain,
                              pk.matmul_chain_bf16, pk.blocked_microbench,
                              pk.while_probe)
