@@ -7,15 +7,18 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   0 device   — the card's name and power limit; no card is an error (never
                falls back to the CPU);
   1 build    — nvcc builds every kernel from vch_tpu_torch/csrc for sm_90a;
-  2 kernels  — the per-member march (one member per thread-block cluster)
-               and adjoint kernels against their plain PyTorch versions on
+  2 kernels  — the per-member march and sweep (one member per
+               thread-block cluster) against their plain PyTorch versions on
                the same inputs on the card, at n = 65 and n = 129 (both odd
                edges) and at config 4's smallest line-search bucket (n = 129,
                M = 100, B = 8), with kernel and plain times; then the march
                against its one-CTA oracle bit for bit and timed in turns
                with it at n = 65 and 129, B = 1, 8, 128 and at n = 129,
                B = 256 (past the clusters the card holds at once), M = 100,
-               with the cluster geometry and the bound;
+               with the cluster geometry and the bound; the sweep against
+               its one-CTA oracle of adjoint2d.cu likewise ("row 2"), with
+               a zero dt step, at n = 65, B = 1 and n = 129, B = 1, 8, 128,
+               at 129 x 1 also on clusters of 8 and 4;
   2b kernels — the member-blocked kernels (8 members on a thread-block
                cluster: the march and the sweep) against
                their plain versions and against the per-member kernels at
@@ -37,21 +40,30 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                against that of adjoint2d.cu likewise, and the chain
                against the whole march and sweep; the segment march and
                its one-CTA oracle
-               timed in turns at n = 257, K = 10, B = 1, 2, 8, 16 and 32
-               (phase 6's batch and its straggler buckets), with the
-               cluster geometry and the bound, and at B = 8, 16, 32 on
+               timed in turns at n = 257, K = 10, B = 1, 8 and 32
+               (phase 6's batch and two of its straggler buckets), with the
+               cluster geometry and the bound, and at B = 8, 32 on
                the cluster sizes the SM count alone gives and on smaller
                ones (the launch geometry takes the largest whose clusters
                the card holds all at once); the segment sweep and its
                one-CTA oracle likewise at n = 65, B = 4, K = 5 and at
-               n = 257, K = 10, B = 1, 2, 8, 16 and 32, bit for bit with a
+               n = 257, K = 10, B = 1, 8 and 32, bit for bit with a
                zero dt step too, on the launch geometry and on two other
-               cluster sizes;
+               cluster sizes; the one-member sweep (one member per
+               cluster) against its one-CTA oracle, bit for bit, and both
+               timed beside the blocked sweep at n = 65, B = 8, 64 and 512
+               (the 64x64 routing arms);
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
                and at the scan path's n = 129, B = 128, gated against
-               float64, with kernel and plain CUDA-event times;
+               float64, with kernel and plain CUDA-event times; the
+               spectral adjoint solve (one member per thread-block
+               cluster) against its one-CTA oracle of solve2d.cu ("row
+               9"), bit for bit, dt/2 as a number and as a 0-d tensor,
+               timed in turns at n = 65, B = 1 (config 3's, also on
+               clusters of 8 and 4), n = 129, B = 128 and n = 257, B = 1,
+               with its geometry, trips and bound;
   2d kernels — the fused 1D march (a group of members per thread-block
                cluster, the operators' column bands in shared memory)
                against its plain version in float32 and both against the
@@ -107,7 +119,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                kernel launch counters reset just before (per-member kernels);
                then the march kernel alone at that shape, with its cluster
                geometry and bound, and the one-member sweep alone on its
-               history, with its bound;
+               history, with its bound, and its one-CTA oracle in turns
+               with it, bit-gated;
   4s scan    — a main path: config 4's shape on the scan path
                (BatchedProblem2D(fused_march=False)), one warm-up and one
                timed PGD iteration, the spectral per-solve kernels at
@@ -133,7 +146,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   8 config 3 — a main path: BASELINE config 3 (64x64, T = 1, M = 100,
                float32) through ControlProblem2D: constructor, one warm-up
                and 3 timed PGD iterations, verify_sparsity and
-               second_order_check, launches counted in each window;
+               second_order_check, launches counted in each window; the
+               adjoint step solve's wrapper: host microseconds a call
+               against the kernel's device microseconds;
   9 config 2 — a main path: BASELINE config 2 at full width (1D, N = 512,
                T = 1, dt = 2e-3: M = 500, the 32 x 8 (b3, kappa) sweep:
                B = 256, float32) through BatchedProblem1D: one warm-up, then
@@ -150,7 +165,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                kernels with the most device time;
   4sp profile — the same for phase 4s's scan path;
   2e-dev     — the operator applies and their torch.matmul forms once more,
-               one field at n = 65, 129, 257, each timed on the device
+               one field at n = 65, 129, 257, and row 9's solve and its
+               one-CTA oracle at phase 2c's shapes, each timed on the device
                alone (20 calls in a CUDA graph), last because a capture
                leaves cuBLAS a workspace that phase 7 would count.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
@@ -487,8 +503,13 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
     for name, fn in (("per_member", member_m), ("blocked", blocked_m),
                      ("blocked", blocked_m), ("per_member", member_m)):
         out.setdefault(f"march_{name}_ms", []).append(time_ms(fn, reps))
-    for name, fn in (("per_member", member_a), ("blocked", blocked_a),
-                     ("blocked", blocked_a), ("per_member", member_a)):
+    one_cta_a = lambda: km._adjoint_fused_2d_cta(
+        adj.dts, kh, x["phiQ"], x["phiT"], x["b1"], x["b2"], *adj._ops(),
+        **adj._kw())
+    out["one_cta_equals_per_member"] = bool(torch.equal(one_cta_a(), kr))
+    for name, fn in (("one_cta", one_cta_a), ("per_member", member_a),
+                     ("blocked", blocked_a), ("blocked", blocked_a),
+                     ("per_member", member_a), ("one_cta", one_cta_a)):
         out.setdefault(f"adjoint_{name}_ms", []).append(time_ms(fn, reps))
     out["march_geometry"] = _geometry(km, torch, device, n, B, 8)
     out["march_bound_ms"], out["march_bound_by"] = _bound(*_march_work(
@@ -527,6 +548,8 @@ def check_blocked_case(c, short: bool):
     fails = []
     if not c["blocked_equals_per_member"]:
         fails.append("blocked differs from the per-member kernels")
+    if not c["one_cta_equals_per_member"]:
+        fails.append("the one-member sweep differs from its one-CTA oracle")
     if c["newton_blocked"] != c["newton_plain"]:
         fails.append(f"Newton counts {c['newton_blocked']} vs plain "
                      f"{c['newton_plain']}")
@@ -870,21 +893,24 @@ def sweep_segment_timing(torch, device, n=257, B=32, K=10, reps=1,
     return out
 
 
-def check_sweep_segment_timing(c):
+def check_sweep_timing(c):
+    """The gates of a cluster sweep's timing case (row 2's whole sweep, with
+    M steps, or row 6's segment sweep, with K): bit for bit the one-CTA
+    oracle with and without a zero dt step, at every cluster size tried; the
+    zero dt step copies the next level; r finite."""
     fails = []
     if not (c["cluster_equals_cta"] and c["zero_dt_equals_cta"]):
-        fails.append("the cluster segment sweep differs from the one-CTA "
-                     "oracle")
+        fails.append("the cluster sweep differs from the one-CTA oracle")
     if not all(o["equal"] and o["zero_dt_equal"]
                for o in c.get("other_clusters", ())):
-        fails.append("the cluster segment sweep's bits depend on its "
-                     "cluster size")
+        fails.append("the cluster sweep's bits depend on its cluster size")
     if not (c["zero_dt_copies"] and c["finite"]):
         fails.append("a zero dt step did not copy the next level, or r is "
                      "not finite")
     if fails:
-        raise RuntimeError(f"segment sweep n={c['n']} B={c['B']} "
-                           f"K={c['K']}: " + "; ".join(fails))
+        steps = f"K={c['K']}" if "K" in c else f"M={c['M']}"
+        raise RuntimeError(f"sweep n={c['n']} B={c['B']} {steps}: "
+                           + "; ".join(fails))
 
 
 def _seeded_march(torch, device, n, B, T):
@@ -931,6 +957,66 @@ def march_timing(torch, device, n, B, T=1.0, reps=1):
     out["bound_ms"], out["bound_by"] = _bound(*_march_work(
         n, B, fwd.M, out["newton_total"], fwd.config.fused_krylov_fixed_iters))
     del kc, ko, args
+    return out
+
+
+def sweep_timing(torch, device, n, B, T=1.0, reps=1, clusters=()):
+    """Row 2: the whole sweep of B members on the cluster kernel (one
+    member per cluster, `adjoint_fused_2d`) and on its one-CTA oracle
+    (`_adjoint_fused_2d_cta`), from a seeded march's history (seeded phi_Q,
+    b1, b2 and terminal targets): bit-gated against each other (r), once
+    more with one dt set to 0 (that step copies the next level), and timed
+    in turns (oracle, cluster, cluster, oracle; CUDA events), with the
+    cluster geometry, how many clusters the card holds at once and the
+    bound (_adjoint_work, trips in full); then on the cluster sizes
+    `clusters`, bit-gated and timed likewise."""
+    from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+    from vch_tpu_torch.ops import march as km
+
+    fwd, margs = _seeded_march(torch, device, n, B, T)
+    hist = km.march_fused_2d(*margs, **fwd._march_kw())[0]
+    adj = AdjointSolver2D(fwd.config, device=device)
+    rng = np.random.default_rng(2)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    args = (adj.dts, hist, f32(0.3 * rng.standard_normal(tuple(hist.shape))),
+            0.1 * margs[1], f32(np.linspace(0.3, 5.0, B)),
+            f32(np.linspace(13.0, 10.0, B))) + adj._ops()
+    kw = adj._kw()
+    zero = fwd.M // 2
+    zdts = adj.dts.clone()
+    zdts[zero] = 0.0
+    zargs = (zdts,) + args[1:]
+    new = lambda a=args: km.adjoint_fused_2d(*a, **kw)
+    old = lambda a=args: km._adjoint_fused_2d_cta(*a, **kw)
+    kr, ko, zr, zo = new(), old(), new(zargs), old(zargs)
+    torch.cuda.synchronize()
+    out = dict(n=n, B=B, M=fwd.M, cluster_equals_cta=bool(torch.equal(kr, ko)),
+               zero_dt_equals_cta=bool(torch.equal(zr, zo)),
+               zero_dt_copies=bool(torch.equal(zr[:, zero], zr[:, zero + 1])),
+               finite=bool(torch.isfinite(kr).all()))
+    for name, fn in (("cta", old), ("cluster", new), ("cluster", new),
+                     ("cta", old)):
+        out.setdefault(f"{name}_ms", []).append(time_ms(fn, reps))
+    out["geometry"] = _geometry(km, torch, device, n, B, 1, kernel="sweep")
+    out["bound_ms"], out["bound_by"] = _bound(*_adjoint_work(
+        n, B, fwd.M, fwd.config.adjoint_krylov_fixed_iters))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fitted, others = km.launch_geometry, []
+    try:
+        for C in clusters:
+            if C == out["geometry"]["cluster"]:
+                continue
+            gc = km.blocked_geometry(n, n, B, sms, cluster=C, members=1,
+                                     kernel="sweep")
+            km.launch_geometry = lambda *a, **k: gc
+            others.append(dict(cluster=C, equal=bool(torch.equal(new(), ko)),
+                               zero_dt_equal=bool(torch.equal(new(zargs),
+                                                              zo)),
+                               ms=time_ms(new, reps)))
+    finally:
+        km.launch_geometry = fitted
+    out["other_clusters"] = others
+    del kr, ko, zr, zo, args, zargs, hist
     return out
 
 
@@ -1230,6 +1316,145 @@ def check_solve_case(c):
     if fails:
         raise RuntimeError(f"solve kernels n={c['n']} B={c['B']}: "
                            + "; ".join(fails))
+
+
+def adjoint_solve_timing(torch, device, n, B, reps=20, clusters=()):
+    """Row 9: the spectral adjoint solve of B members on the inputs of a
+    real step (_solve_args) on the cluster kernel (one member per cluster,
+    `bicgstab_adjoint_spectral`) and on its one-CTA oracle
+    (`_bicgstab_adjoint_spectral_cta`): bit-gated against each other, dt/2
+    given as a number and as a 0-d tensor on the card (the per-step
+    sweep's form) bit-gated too; the cluster kernel against the plain
+    version in float32 and float64 (phase 2c's gate); timed in turns
+    (oracle, cluster, cluster, oracle; CUDA events) beside the plain
+    version; the cluster geometry, the trips each member runs and the
+    bound; then on the cluster sizes `clusters`, bit-gated and timed
+    likewise."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    name = "bicgstab_adjoint_spectral"
+    ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
+    (tau, half), n_iter = scal["adjoint"]
+    scal_t = dict(scal, adjoint=((tau, torch.tensor(half, device=device)),
+                                 n_iter))
+    call = lambda fn, sc=scal: _solve_call(name, ops32, f32, sc, fn)
+    new = lambda: call(sk.bicgstab_adjoint_spectral)
+    new_t = lambda: call(sk.bicgstab_adjoint_spectral, scal_t)
+    old = lambda: call(sk._bicgstab_adjoint_spectral_cta)
+    k, kt, o = new(), new_t(), old()
+    p = call(sk.bicgstab_adjoint_spectral_plain)
+    p64 = _solve_call(name, ops64, f64, scal,
+                      sk.bicgstab_adjoint_spectral_plain)
+    torch.cuda.synchronize()
+    trips = _solve_call(name, ops32, f32, scal, lambda *a, n_iter: sk.
+                        solve_trips(name, *a, n_iter=n_iter))
+    trips = [int(t) for t in torch.as_tensor(trips).reshape(-1).tolist()]
+    out = dict(n=n, B=B, cluster_equals_cta=bool(torch.equal(k, o)),
+               tensor_scalar_equal=bool(torch.equal(kt, k)),
+               finite=bool(torch.isfinite(k).all()),
+               max_abs_err=(k - p).abs().max().item(),
+               rel_kernel_vs_plain=_rel(k, p, p),
+               rel_kernel_vs_f64=_rel(k, p64, p64),
+               rel_plain_vs_f64=_rel(p, p64, p64), trips=trips)
+    for label, fn in (("cta", old), ("cluster", new), ("cluster", new),
+                      ("cta", old)):
+        out.setdefault(f"{label}_ms", []).append(time_ms(fn, reps))
+    out["plain_ms"] = time_ms(lambda: call(sk.bicgstab_adjoint_spectral_plain),
+                              max(1, reps // 4))
+    g = km.launch_geometry(n, n, B, device, members=1, kernel="solve")
+    out["geometry"] = dict(cluster=g.cluster, ctas=B * g.cluster, kc=g.kc,
+                           smem_bytes=g.smem_bytes,
+                           resident_clusters=km.resident_clusters(
+                               torch.device(device).index or 0, n, n,
+                               g.cluster, g.kc, g.smem_bytes, 1, False,
+                               "solve"))
+    flops = sum(_solve_work(name, n, 1, t)[0] for t in trips)
+    out["bound_ms"], out["bound_by"] = _bound(flops,
+                                              _solve_work(name, n, B, 0)[1])
+    fitted, others = sk.solve_geometry, []
+    try:
+        for C in clusters:
+            if C == g.cluster:
+                continue
+            gc = km.blocked_geometry(n, n, B, 1, cluster=C, members=1,
+                                     kernel="solve")
+            sk.solve_geometry = lambda *a: gc
+            others.append(dict(cluster=C, equal=bool(torch.equal(new(), o)),
+                               ms=time_ms(new, reps)))
+    finally:
+        sk.solve_geometry = fitted
+    out["other_clusters"] = others
+    return out
+
+
+def check_adjoint_solve_timing(c):
+    """Row 9's gates: bit for bit its one-CTA oracle (at every cluster size
+    tried, and with dt/2 as a 0-d tensor), finite, and no farther from the
+    float64 plain version than twice the plain float32 version plus 1e-5
+    (phase 2c's gate)."""
+    fails = []
+    if not (c["cluster_equals_cta"] and c["tensor_scalar_equal"]
+            and all(o["equal"] for o in c["other_clusters"])):
+        fails.append("the cluster solve differs from its one-CTA oracle")
+    if not c["finite"]:
+        fails.append("non-finite output")
+    if c["rel_kernel_vs_f64"] > 2 * c["rel_plain_vs_f64"] + 1e-5:
+        fails.append(f"{c['rel_kernel_vs_f64']} from float64, plain float32 "
+                     f"{c['rel_plain_vs_f64']}")
+    if fails:
+        raise RuntimeError(f"row 9 n={c['n']} B={c['B']}: " + "; ".join(fails))
+
+
+def _adjoint_solve_call(torch, device, n, B, tau_on_device=False):
+    """A call of `bicgstab_adjoint_spectral` on a real step's B members at
+    (n, n) (_solve_args), dt/2 a 0-d tensor on the card as the per-step
+    sweep passes it (tau_on_device: tau too, as a CUDA graph's capture of
+    the oracle needs), and the same on the one-CTA oracle."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    name = "bicgstab_adjoint_spectral"
+    ops32, _, f32, _, scal = _solve_args(torch, device, n, B)
+    (tau, half), n_iter = scal["adjoint"]
+    on_device = lambda v: torch.tensor(v, device=device)
+    scal = dict(scal, adjoint=((on_device(tau) if tau_on_device else tau,
+                                on_device(half)), n_iter))
+    return (lambda: _solve_call(name, ops32, f32, scal,
+                                sk.bicgstab_adjoint_spectral),
+            lambda: _solve_call(name, ops32, f32, scal,
+                                sk._bicgstab_adjoint_spectral_cta))
+
+
+def solve_host_cost(torch, device, n=65, B=1, calls=200):
+    """Phase 8: the per-step solve's wrapper at config 3's shape: host
+    microseconds a call, `calls` calls enqueued without a sync, against the
+    kernel's device microseconds a call, CUDA events over the same calls
+    (the device's time where the host keeps ahead of it)."""
+    new, _ = _adjoint_solve_call(torch, device, n, B)
+    new()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        new()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    device_us = 1e3 * time_ms(new, calls)
+    return dict(n=n, B=B, calls=calls, host_us=host_us, device_us=device_us,
+                host_over_device=host_us / device_us)
+
+
+def adjoint_solve_device_times(torch, device, shapes=((65, 1), (129, 128),
+                                                      (257, 1))):
+    """Row 9 on the device alone: the cluster solve and its one-CTA oracle,
+    mean ms of 20 calls captured in a CUDA graph (graph_ms), after phase 7
+    as every capture is."""
+    out = []
+    for n, B in shapes:
+        new, old = _adjoint_solve_call(torch, device, n, B,
+                                       tau_on_device=True)
+        out.append(dict(n=n, B=B, cluster_device_ms=graph_ms(new),
+                        cta_device_ms=graph_ms(old)))
+    return out
 
 
 def _problem_inputs_1d(torch, N, B, T, dt, device, seed=0):
@@ -2574,8 +2799,13 @@ def main():
          "the blocked march; <1,0>: the whole march; <1,1>: the segment "
          "march): " + _ptxas_named(_build.ptxas_log, "march_blocked_kernel")
          + " | adjoint2d_cluster.cu adjoint_cluster_kernel<MB,SEG> (8, 4, "
-         "2: the blocked sweep; <1,1>: the segment sweep): "
-         + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
+         "2: the blocked sweep; <1,0>: the whole sweep; <1,1>: the segment "
+         "sweep): " + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
+         + " | solve2d_cluster.cu solve_cluster_kernel: "
+         + _ptxas_named(_build.ptxas_log, "solve_cluster_kernel")
+         + " | solve2d.cu solve_kernel<VAR> (2: the spectral adjoint solve's "
+         "one-CTA oracle, -fmad=false): "
+         + _ptxas_named(_build.ptxas_log, "solve_kernel")
          + " | march1d.cu march1d_kernel: "
          + _ptxas_named(_build.ptxas_log, "march1d_kernel"))
 
@@ -2600,6 +2830,16 @@ def main():
     if bad:
         raise RuntimeError(f"row 1: the cluster march differs from its "
                            f"one-CTA oracle (or is not finite) at {bad}")
+    # row 2 on the cluster sweep against its one-CTA oracle, bit for bit
+    # and in turns, at config 3's and config 4's grids; at n = 129, B = 1
+    # also on clusters of 8 and 4
+    row2 = {(n, B): sweep_timing(torch, device, n, B,
+                                 clusters=(8, 4) if (n, B) == (129, 1) else ())
+            for n, B in ((65, 1), (129, 1), (129, 8), (129, 128))}
+    for c in row2.values():
+        _log(2, "row 2 " + json.dumps(c) + f" | {name} | {smi}")
+    for c in row2.values():
+        check_sweep_timing(c)
 
     blk8 = blocked_case(torch, 65, 8, 0.1, device, plain_members=8)
     _log("2b", json.dumps(blk8))
@@ -2615,25 +2855,25 @@ def main():
     _log("2b", json.dumps(seg257))
     # each batch also on the clusters the SM count alone would give and on
     # a smaller one, where those differ from the launch geometry's
-    other = {8: (16, 8), 16: (8, 4), 32: (4, 2)}
+    other = {8: (16, 8), 32: (4, 2)}
     seg_times = {B: segment_timing(torch, device, B=B,
                                    clusters=other.get(B, ()))
-                 for B in (1, 2, 8, 16, 32)}
+                 for B in (1, 8, 32)}
     for c in seg_times.values():
         _log("2b", json.dumps(c) + f" | {name} | {smi}")
     # row 6, the segment sweep, on the cluster kernel against its one-CTA
     # oracle: at n = 65 and at phase 6's batch and its straggler buckets,
     # each also on two other cluster sizes
-    prefer = {1: (8, 4), 2: (8, 4), 8: (16, 8), 16: (8, 4), 32: (4, 2)}
+    prefer = {1: (8, 4), 8: (16, 8), 32: (4, 2)}
     sweep_times = [sweep_segment_timing(torch, device, n=65, B=4, K=5,
                                         reps=3, prefer=(8, 2))]
     sweep_times += [sweep_segment_timing(torch, device, B=B,
                                          prefer=prefer[B])
-                    for B in (1, 2, 8, 16, 32)]
+                    for B in (1, 8, 32)]
     for c in sweep_times:
         _log("2b", "row 6 " + json.dumps(c) + f" | {name} | {smi}")
     for c in sweep_times:
-        check_sweep_segment_timing(c)
+        check_sweep_timing(c)
     sweep32 = sweep_times[-1]
     check_blocked_case(blk8, short=True)
     check_blocked_case(blk512, short=False)
@@ -2669,6 +2909,17 @@ def main():
     for c in solves:
         check_solve_case(c)
     s65 = solves[0]
+    # row 9 on the cluster solve against its one-CTA oracle: config 3's
+    # B = 1 at n = 65 (also on clusters of 8 and 4), the scan path's
+    # n = 129, B = 128, and one member at n = 257
+    row9 = {(n, B): adjoint_solve_timing(
+        torch, device, n, B, reps=20 if n == 65 else 5,
+        clusters=(8, 4) if n == 65 else ())
+        for n, B in ((65, 1), (129, 128), (257, 1))}
+    for c in row9.values():
+        _log("2c", "row 9 " + json.dumps(c) + f" | {name} | {smi}")
+    for c in row9.values():
+        check_adjoint_solve_timing(c)
 
     # (N, B, T, dt, short): n = 129 and 513, 5-step and 100-step marches at
     # B = 8; B = 134 and 270 give two and four members per CTA on 132 SMs,
@@ -2746,7 +2997,8 @@ def main():
     # the one-CTA kernels are the cluster kernels' oracles, which no main
     # path launches
     oracle = ("_march_fused_2d_segment_cta", "_march_fused_2d_cta",
-              "_adjoint_fused_2d_segment_cta", "_adjoint_fused_2d_cta")
+              "_adjoint_fused_2d_segment_cta", "_adjoint_fused_2d_cta",
+              "_bicgstab_adjoint_spectral_cta")
     idle_segment = segment + oracle
     march_1d = ("march_fused_1d",)
     trips_fwd = _config(64).fused_krylov_fixed_iters
@@ -2782,9 +3034,23 @@ def main():
         lambda: prob4.adj.adjoint_fused_batch(*a4), 1)
     c4["adjoint_bound_ms_full_shape"], _ = _bound(*_adjoint_work(
         129, 128, prob4.solver.M, trips_adj))
-    del prob4, x4, ns4, h4, a4
+    # the one-CTA sweep it displaced (now its bit oracle) on the same
+    # history, in turns with it
+    r4 = prob4.adj.adjoint_fused_batch(*a4)
+    prob4.adj.entries = km.KERNELS._replace(adjoint=km._adjoint_fused_2d_cta)
+    c4["adjoint_equals_one_cta_full_shape"] = bool(torch.equal(
+        r4, prob4.adj.adjoint_fused_batch(*a4)))
+    c4["adjoint_one_cta_ms_full_shape"] = time_ms(
+        lambda: prob4.adj.adjoint_fused_batch(*a4), 1)
+    prob4.adj.entries = km.KERNELS
+    c4["adjoint_ms_full_shape_again"] = time_ms(
+        lambda: prob4.adj.adjoint_fused_batch(*a4), 1)
+    del prob4, x4, ns4, h4, a4, r4
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
     check_main_path(c4, per_member, blocked + idle_segment + march_1d)
+    if not c4["adjoint_equals_one_cta_full_shape"]:
+        raise RuntimeError("config 4: the cluster sweep differs from its "
+                           "one-CTA oracle")
 
     scan_solves = ("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
     prob4s, sc4s, c4s = scan_full_width(
@@ -2805,9 +3071,11 @@ def main():
     prob5.adj.entries = prob5.adj.entries._replace(adjoint_blocked=blk_a)
     c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3,
                  before_timed=lambda: (blk_m.clear(), blk_a.clear()))
-    # beside row 4's launches, the one-CTA sweep at B = 512 (phase 2b)
+    # beside row 4's launches, the one-member sweep at B = 512 on the
+    # cluster kernel and on the one-CTA oracle (phase 2b)
     c5.update(blocked_march=blk_m.summary(), blocked_adjoint=blk_a.summary(),
-              adjoint_one_cta_ms_b512=blk512["adjoint_per_member_ms"],
+              adjoint_one_member_ms_b512=blk512["adjoint_per_member_ms"],
+              adjoint_one_cta_ms_b512=blk512["adjoint_one_cta_ms"],
               adjoint_cluster_ms_b512=blk512["adjoint_blocked_ms"],
               adjoint_bound_ms_b512=blk512["adjoint_bound_ms"])
     _log(5, json.dumps(c5) + f" | {name} | {smi}")
@@ -2874,6 +3142,10 @@ def main():
                            f"{over}")
 
     c3 = config3_run(torch, device)
+    # the per-step solve's wrapper at config 3's shape: host microseconds a
+    # call (enqueued without a sync, dt/2 a 0-d tensor as the sweep passes
+    # it) against the kernel's device microseconds
+    c3["adjoint_solve_per_call"] = solve_host_cost(torch, device)
     _log(8, json.dumps(c3) + f" | {name} | {smi}")
     check_config3(c3)
 
@@ -2949,6 +3221,8 @@ def main():
     # the applies on the device alone, last: see apply_device_times
     for c in apply_device_times(torch, device):
         _log("2e-dev", json.dumps(c) + f" | {name} | {smi}")
+    solve_dev = adjoint_solve_device_times(torch, device)
+    _log("2e-dev", "row 9 " + json.dumps(solve_dev) + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
               library_ms=None, shape=None):
@@ -2967,7 +3241,6 @@ def main():
 
     mean = lambda v: float(np.mean(v))
     cluster_cu = "vch_tpu_torch/csrc/march2d_blocked.cu"
-    adj_cu = "vch_tpu_torch/csrc/adjoint2d.cu"
     sweep_cu = "vch_tpu_torch/csrc/adjoint2d_cluster.cu"
     solve_cu = "vch_tpu_torch/csrc/solve2d.cu"
     pm = "vch_tpu/ops/pallas_march.py"
@@ -2982,7 +3255,7 @@ def main():
               c4["march_ms_full_shape"], long["march_plain_ms"],
               _march_work(129, 128, c4["M"], c4["march_newton_full_shape"],
                           trips_fwd), shape=full4),
-        entry("adjoint_fused_2d", adj_cu, f"{pm}:751",
+        entry("adjoint_fused_2d", sweep_cu, f"{pm}:751",
               c4["launches"]["adjoint_fused_2d"], long["max_abs_dr"],
               c4["adjoint_ms_full_shape"], long["adjoint_plain_ms"],
               _adjoint_work(129, 128, c4["M"], trips_adj), shape=full4),
@@ -3027,6 +3300,16 @@ def main():
              "bicgstab_adjoint_spectral": 798, "bicgstab_adjoint": 581}
     for k in SOLVE_KERNELS:
         c = s65[k]
+        if k == "bicgstab_adjoint_spectral":
+            # row 9 on the cluster kernel at config 3's n = 65, B = 1
+            r9 = row9[(65, 1)]
+            kernels.append(entry(
+                k, "vch_tpu_torch/csrc/solve2d_cluster.cu", f"{pk}:{lines[k]}",
+                solve_launches[k], r9["max_abs_err"], mean(r9["cluster_ms"]),
+                r9["plain_ms"], (sum(_solve_work(k, 65, 1, t)[0]
+                                     for t in r9["trips"]),
+                                 _solve_work(k, 65, 1, 0)[1])))
+            continue
         kernels.append(entry(k, solve_cu, f"{pk}:{lines[k]}",
                              solve_launches[k], c["max_abs_err"], c["ms"],
                              c["plain_ms"],

@@ -11,8 +11,9 @@ right at the tolerance may take one more iteration); r 2e-3 relative, the
 float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
-do the cluster marches (whole, blocked, segment) and sweeps (blocked,
-segment) and their one-CTA oracles at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
+do the cluster marches (whole, blocked, segment), sweeps (whole, blocked,
+segment) and spectral adjoint solve and their one-CTA oracles at every
+batch and cluster size. The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
 every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
@@ -588,6 +589,56 @@ def test_sweep_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
             km.adjoint_fused_2d_blocked(*aargs, **adj._kw())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 128])
+@pytest.mark.parametrize("n", [65, 129])
+def test_one_member_sweep_equals_the_one_cta_oracle(cuda, n, B):
+    """The whole sweep (one member per thread-block cluster) gives the
+    one-CTA sweep's r bit for bit, a zero dt step included."""
+    adj, aargs = _sweep_inputs(cuda, n, B, T=0.04 if n < 129 else 0.03)
+    before = (km.adjoint_fused_2d.launches, km._adjoint_fused_2d_cta.launches)
+    kr = km.adjoint_fused_2d(*aargs, **adj._kw())
+    ko = km._adjoint_fused_2d_cta(*aargs, **adj._kw())
+    torch.cuda.synchronize()
+    assert (km.adjoint_fused_2d.launches,
+            km._adjoint_fused_2d_cta.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert bool(torch.isfinite(kr).all()) and (kr[:, -1] == 0).all()
+    assert torch.equal(kr[:, 1], kr[:, 2])           # the zero-dt copy
+    assert torch.equal(kr, ko)
+
+
+@pytest.mark.cuda
+def test_one_member_sweep_bits_do_not_depend_on_the_cluster_size(
+        cuda, monkeypatch):
+    """The whole one-member sweep on forced clusters of 1, 2, 4 and 16 (and
+    every size between) gives the one-CTA sweep's r bit for bit."""
+    adj, aargs = _sweep_inputs(cuda, 65, 2, T=0.04)
+    ref = km._adjoint_fused_2d_cta(*aargs, **adj._kw())
+    for C in range(1, 17):
+        _sweep_geometry(monkeypatch, lambda n, m, B, sms, members:
+                        km.blocked_geometry(n, m, B, sms, cluster=C,
+                                            members=members, kernel="sweep"))
+        out = km.adjoint_fused_2d(*aargs, **adj._kw())
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4),
+                                         ("cluster", 1)])
+def test_one_member_sweep_c_entry_refuses_a_geometry_not_its_own(
+        cuda, monkeypatch, field, delta):
+    adj, aargs = _sweep_inputs(cuda, 33, 2, T=0.02, zero_dt=False)
+
+    def bad(n, m, B, sms, members):
+        g = km.blocked_geometry(n, m, B, sms, members=members, kernel="sweep")
+        return g._replace(**{field: getattr(g, field) + delta})
+    _sweep_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        km.adjoint_fused_2d(*aargs, **adj._kw())
+
+
 def _solve_inputs(device, dtype, n=65, B=4, seed=0):
     """A Newton state and an adjoint step of B members on an (n, n) grid
     (as tests/test_torch_solve.py builds them): the operators, the Schur
@@ -675,6 +726,107 @@ def test_solve_kernels_reject_what_they_do_not_take(cuda):
                + (fields["adjoint"][3][:1],))
     with pytest.raises(ValueError, match="shape"):
         _solve_call("bicgstab_adjoint", ops, bad, scal, sk.bicgstab_adjoint)
+
+
+def _adjoint_spectral(ops, fields, scal, fn, **kw):
+    return _solve_call("bicgstab_adjoint_spectral", ops, fields, scal,
+                       lambda *a, n_iter: fn(*a, n_iter=n_iter, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(65, None), (65, 1), (65, 4), (17, 3),
+                                 (129, 8), (257, None)])
+def test_cluster_adjoint_solve_equals_the_one_cta_oracle(cuda, n, B):
+    """The spectral adjoint solve on thread-block clusters (one member per
+    cluster) gives its one-CTA oracle's p bit for bit; dt/2 passed as a 0-d
+    tensor on the card (the sweep's form) and as a number give the same
+    bits."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    ops, fields, scal = _solve_inputs(cuda, torch.float32, n=n, B=B)
+    before = (sk.bicgstab_adjoint_spectral.launches,
+              sk._bicgstab_adjoint_spectral_cta.launches)
+    k = _adjoint_spectral(ops, fields, scal, sk.bicgstab_adjoint_spectral)
+    o = _adjoint_spectral(ops, fields, scal,
+                          sk._bicgstab_adjoint_spectral_cta)
+    (tau, half), n_iter = scal["adjoint"]
+    as_dev = dict(scal, adjoint=((tau, torch.tensor(half, device=cuda)),
+                                 n_iter))
+    kt = _adjoint_spectral(ops, fields, as_dev, sk.bicgstab_adjoint_spectral)
+    torch.cuda.synchronize()
+    assert (sk.bicgstab_adjoint_spectral.launches,
+            sk._bicgstab_adjoint_spectral_cta.launches) == (before[0] + 2,
+                                                            before[1] + 1)
+    assert k.shape == fields["adjoint"][2].shape
+    assert bool(torch.isfinite(k).all())
+    assert torch.equal(k, o) and torch.equal(kt, k)
+
+
+def _solve_geometry(monkeypatch, make):
+    """Make the cluster solve launch on make(n, m, B, sms)."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    def solve_geometry(n, m, B, device_index):
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        return make(n, m, B, sms)
+    monkeypatch.setattr(sk, "solve_geometry", solve_geometry)
+
+
+@pytest.mark.cuda
+def test_cluster_adjoint_solve_bits_do_not_depend_on_the_cluster_size(
+        cuda, monkeypatch):
+    from vch_tpu_torch.ops import solve_kernels as sk
+    ops, fields, scal = _solve_inputs(cuda, torch.float32, n=65, B=2)
+    ref = _adjoint_spectral(ops, fields, scal,
+                            sk._bicgstab_adjoint_spectral_cta)
+    for C in range(1, 17):
+        _solve_geometry(monkeypatch, lambda n, m, B, sms: km.blocked_geometry(
+            n, m, B, sms, cluster=C, members=1, kernel="solve"))
+        out = _adjoint_spectral(ops, fields, scal,
+                                sk.bicgstab_adjoint_spectral)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4),
+                                         ("cluster", 1)])
+def test_cluster_adjoint_solve_refuses_a_geometry_not_its_own(
+        cuda, monkeypatch, field, delta):
+    from vch_tpu_torch.ops import solve_kernels as sk
+    ops, fields, scal = _solve_inputs(cuda, torch.float32, n=33, B=2)
+
+    def bad(n, m, B, sms):
+        g = km.blocked_geometry(n, m, B, sms, members=1, kernel="solve")
+        return g._replace(**{field: getattr(g, field) + delta})
+    _solve_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _adjoint_spectral(ops, fields, scal, sk.bicgstab_adjoint_spectral)
+
+
+@pytest.mark.cuda
+def test_config3_sweeps_run_m_cluster_solves(cuda):
+    """Config 3 (64 x 64, T = 1, M = 100, float32) through ControlProblem2D:
+    the solvers' entries are the kernels, and one PGD iteration's sweep
+    launches the cluster solve M times and its one-CTA oracle never."""
+    from vch_tpu_torch.config import OptimizationConfig
+    from vch_tpu_torch.control.problems import ControlProblem2D
+    from vch_tpu_torch.ops import solve_kernels as sk
+    cfg = ForwardSolverConfig2D(Nx=64, Ny=64, T=1.0, dtype="float32",
+                                newton_tol=2e-4)
+    prob = ControlProblem2D(cfg, OptimizationConfig.defaults_2d(),
+                            device=cuda)
+    assert prob.solver.entries is km.KERNELS
+    assert prob.adjoint.entries is km.KERNELS
+    km.reset_launches()
+    res = prob.optimize(max_iter=1, verbose=False)
+    torch.cuda.synchronize()
+    counts = km.launch_counts()
+    assert counts["bicgstab_adjoint_spectral"] == prob.solver.M == 100
+    assert counts["_bicgstab_adjoint_spectral_cta"] == 0
+    assert counts["march_fused_2d"] == sum(res.ls_trials_per_iter)
+    assert np.isfinite(res.cost_history).all()
+    assert sk.bicgstab_adjoint_spectral is km.KERNELS.adjoint_spectral
 
 
 # --------------------------------------------------------------------------

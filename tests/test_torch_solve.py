@@ -150,6 +150,64 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     assert km.PLAIN.adjoint_raw is sk.bicgstab_adjoint_plain
 
 
+def _adjoint_spectral_case(n, m, B, seed=2):
+    """The spectral adjoint solve's numpy arguments on an (n, m) grid
+    (operators from vch_tpu's make_spectral_op_2d, fields as `_fields`),
+    B members."""
+    op = jls.make_spectral_op_2d(n - 1, m - 1, 1.0 / (n - 1), 1.0 / (m - 1),
+                                 dtype=jnp.float64)
+    o = {k: np.asarray(v) for k, v in op._asdict().items()}
+    mats = (o["Vx_inv"], o["Vy_inv"].T, o["Vx"], o["Vy"].T, o["lam"])
+    rng = np.random.default_rng(seed)
+    sh = (B, n, m)
+    phi = np.clip(0.5 * rng.standard_normal(sh), -0.95, 0.95)
+    fpp = 2 * C1 / (1 - phi * phi) - 2 * C2
+    half = 0.5 * DT
+    dena = (1 - TAU * o["lam"] + half * o["lam"] ** 2
+            - half * fpp.mean(axis=(1, 2), keepdims=True) * o["lam"])
+    fields = (1 / np.sqrt(np.abs(dena)), fpp, rng.standard_normal(sh),
+              rng.standard_normal(sh))
+    return mats, fields
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("n,m", [(N + 1, N + 1), (17, 13)])
+def test_adjoint_spectral_wrapper_on_cpu_matches_pallas_kernel(n, m,
+                                                               batched):
+    """`bicgstab_adjoint_spectral` (the cluster kernel on the card) on CPU
+    tensors runs the plain version, with no launch counted, and matches
+    bicgstab_adjoint_spectral_pallas in interpret mode as one (n, m) solve
+    and, vmapped, on a (3, n, m) batch, on a square and a rectangular grid:
+    float64 1e-10, float32 TOL32 (1e-4) and no farther from the float64
+    kernel than twice the float32 kernel plus 1e-6; the scalar dt/2 as a
+    0-d tensor, as the per-step sweep passes it."""
+    mats, fields = _adjoint_spectral_case(n, m, 3 if batched else 1)
+    pick = (lambda a: a) if batched else (lambda a: a[0])
+    outs = {}
+    for name in ("float64", "float32"):
+        j = lambda a: jnp.asarray(a, NP[name])
+        f = lambda *fs: pk.bicgstab_adjoint_spectral_pallas(
+            *map(j, mats), *fs, TAU, 0.5 * DT, n_iter=5, interpret=True)
+        ref = np.asarray(jax.vmap(f)(*map(j, fields)) if batched
+                         else f(*[j(a[0]) for a in fields]))
+        t = lambda a: torch.as_tensor(np.array(a), dtype=TD[name])
+        before = (sk.bicgstab_adjoint_spectral.launches,
+                  sk._bicgstab_adjoint_spectral_cta.launches)
+        got = sk.bicgstab_adjoint_spectral(
+            *map(t, mats), *[t(pick(a)) for a in fields], TAU,
+            torch.tensor(0.5 * DT, dtype=TD[name]), n_iter=5)
+        assert (sk.bicgstab_adjoint_spectral.launches,
+                sk._bicgstab_adjoint_spectral_cta.launches) == before
+        assert got.shape == ref.shape == ((3,) if batched else ()) + (n, m)
+        outs[name] = (got.numpy(), ref)
+    got64, ref64 = outs["float64"]
+    got32, ref32 = outs["float32"]
+    assert _rel(got64, ref64) <= 1e-10
+    assert got32.dtype == np.float32 and np.isfinite(got32).all()
+    assert _rel(got32, ref32) <= TOL32["adjoint_spectral"], _rel(got32, ref32)
+    assert _rel(got32, ref64) <= 2 * _rel(ref32, ref64) + 1e-6
+
+
 @pytest.mark.parametrize("n,m", [(17, 17), (65, 65), (129, 129), (257, 257),
                                  (513, 513), (769, 769), (65, 257)])
 def test_kernel_routing_rule_matches_vch_tpu(n, m):

@@ -1,7 +1,9 @@
 """The cluster geometry of the cluster sweep (csrc/adjoint2d_cluster.cu;
 `vch_tpu_torch.ops.march.blocked_geometry` / `fitted_geometry` with
-kernel="sweep"), the routing of the solvers' blocked and segment sweeps,
-and the one-CTA sweep oracles' plain path on CPU tensors.
+kernel="sweep"): the blocked sweep, the whole one-member sweep and the
+segment sweep; the routing of the solvers' blocked and segment sweeps, and
+the whole sweep's and the one-CTA sweep oracles' plain path on CPU
+tensors.
 
 The sweep splits a block of members over a thread-block cluster as the
 cluster march does (the same bands, ring and shared memory), and the C
@@ -66,8 +68,9 @@ def test_the_blocked_sweep_at_257_takes_a_smaller_ring():
 
 
 @pytest.mark.parametrize("members,n,C,what", [
-    (8, 1000, 1, "blocked sweep"), (1, 3600, 1, "segment sweep"),
-    (1, 7200, 16, "segment sweep")])
+    (8, 1000, 1, "blocked sweep"),
+    (1, 3600, 1, r"one-member sweep \(whole or segment sweep\)"),
+    (1, 7200, 16, r"one-member sweep \(whole or segment sweep\)")])
 def test_a_sweep_past_the_limit_raises_with_its_bytes(members, n, C, what):
     with pytest.raises(ValueError, match=f"{what} on an \\({n}, {n}\\) grid "
                        f"in clusters of {C} needs [0-9]+ bytes of shared "
@@ -87,7 +90,57 @@ def test_a_bad_sweep_batch_or_block_raises(members, B, match):
 
 def test_an_unknown_kernel_raises():
     with pytest.raises(ValueError, match="kernel must be one of"):
-        blocked_geometry(65, 65, 8, H100_SMS, kernel="solve")
+        blocked_geometry(65, 65, 8, H100_SMS, kernel="apply")
+
+
+# the whole one-member sweep (row 2): C by the SM rule, then the fit on a
+# fake residency of 66 // C clusters
+_WHOLE = [(65, 1, 16, 5, 8, 68, 32, 20_480),
+          (65, 128, 1, 65, 68, 68, 32, 35_840),
+          (129, 1, 16, 9, 12, 132, 32, 37_888),
+          (129, 128, 1, 129, 132, 132, 32, 68_608),
+          (257, 1, 16, 17, 20, 260, 32, 72_704),
+          (257, 128, 1, 257, 260, 260, 32, 134_144)]
+
+
+@pytest.mark.parametrize("n,B,C,rows,rpad,mpad,kc,smem", _WHOLE)
+def test_the_whole_one_member_sweep_splits_as_the_one_member_march(
+        n, B, C, rows, rpad, mpad, kc, smem):
+    """One member per cluster: up to 16 CTAs at B = 1, one at B = 128
+    (more members than SMs), the bands covering every row once, a ring of
+    kc k rows within the limit, the one-member march's split."""
+    g = blocked_geometry(n, n, B, H100_SMS, members=1, kernel="sweep")
+    assert g == blocked_geometry(n, n, B, H100_SMS, members=1)
+    assert (g.members, g.cluster, g.rows_max, g.rows_pad, g.m_pad,
+            g.kc, g.smem_bytes) == (1, C, rows, rpad, mpad, kc, smem)
+    assert sum(r for _, r in g.bands) == n and len(g.bands) == C
+    assert g.smem_bytes == 4 * 2 * g.kc * (g.rows_pad + g.m_pad + 4)
+    assert g.smem_bytes <= BLOCKED_SMEM_LIMIT
+    assert 4 * 2 * 2 * g.kc * (g.rows_pad + g.m_pad + 4) > BLOCKED_SMEM_LIMIT \
+        or g.kc == 32
+
+
+@pytest.mark.parametrize("n,B,C,rows,rpad,mpad,kc,smem", _WHOLE)
+def test_the_whole_one_member_sweep_fits_its_own_residency(
+        n, B, C, rows, rpad, mpad, kc, smem):
+    """At B = 1 the card holds the 16-CTA cluster (66 // 16 = 4 >= 1); at
+    B = 128 the clusters of one CTA cannot all be resident (66 < 128) and
+    nothing smaller exists, so C stays 1."""
+    g = fitted_geometry(n, n, B, H100_SMS, _fake_sweep_resident, members=1,
+                        kernel="sweep")
+    assert g.cluster == C
+    assert g == blocked_geometry(n, n, B, H100_SMS, cluster=C, members=1,
+                                 kernel="sweep")
+    assert _fake_sweep_resident(g) >= B or C == 1
+
+
+def test_the_one_member_sweep_is_named_in_its_errors():
+    with pytest.raises(ValueError, match=r"the one-member sweep \(whole or "
+                       r"segment sweep\) takes B % 1 == 0, got B = 0"):
+        blocked_geometry(65, 65, 0, H100_SMS, members=1, kernel="sweep")
+    with pytest.raises(ValueError, match=r"the one-member sweep \(whole or "
+                       r"segment sweep\) on an \(7200, 7200\) grid"):
+        blocked_geometry(7200, 7200, 1, H100_SMS, members=1, kernel="sweep")
 
 
 # Clusters the card holds at once of a kernel whose registers allow half
@@ -202,3 +255,16 @@ def test_the_sweep_oracles_run_the_plain_version_on_cpu_tensors():
     counts = km.launch_counts()
     assert "_adjoint_fused_2d_cta" in counts
     assert "_adjoint_fused_2d_segment_cta" in counts
+
+
+def test_the_whole_sweep_runs_the_plain_version_on_cpu_tensors():
+    """`adjoint_fused_2d` (the cluster kernel on the card) on CPU tensors:
+    the plain version, no launch counted."""
+    fwd, adj = _solvers()
+    hist, b1, b2, phiQ, phiT = _sweep_inputs(fwd, 3)
+    aargs = (adj.dts, hist, phiQ, phiT, b1, b2) + adj._ops()
+    before = km.adjoint_fused_2d.launches
+    ref = km.adjoint_fused_2d_plain(*aargs, **adj._kw())
+    assert torch.equal(km.adjoint_fused_2d(*aargs, **adj._kw()), ref)
+    assert km.adjoint_fused_2d.launches == before
+    assert ref.shape == hist.shape and (ref[:, -1] == 0).all()

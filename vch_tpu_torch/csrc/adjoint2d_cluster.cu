@@ -1,8 +1,11 @@
 // The 2D adjoint (p, q, r) sweep on thread-block clusters: a block of MB
 // members per cluster, MB = 8, 4 or 2 for the member-blocked sweep, MB = 1
-// for a K-step segment.
+// for the whole one-member sweep and for a K-step segment.
 //
-// Replaces two TPU kernels of vch_tpu/ops/pallas_march.py:
+// Replaces three TPU kernels of vch_tpu/ops/pallas_march.py:
+//   - :751 adjoint_fused_2d (factory :567-748): one member per program, the
+//     terminal solve, r of every level; here adjoint_cluster_kernel<1,
+//     false>, one member per cluster;
 //   - :1905 adjoint_fused_2d_blocked (factory :1727): block_b members per
 //     program in masked lockstep; here adjoint_cluster_kernel<block_b,
 //     false> for block_b = 8, 4 or 2;
@@ -26,46 +29,43 @@
 // reductions whose results every later step needs; no Newton or Armijo
 // loop. The MB members of a block share each operator slab, so a block's
 // products are MB times as wide as one member's; with one member (the
-// segment sweep at 257 x 257, B = 1 .. 32) a cluster of up to 16 SMs
-// shortens each link of the chain instead.
+// segment sweep at 257 x 257, B = 1 .. 32; the whole sweep at a batch
+// below the SM count) a cluster of up to 16 SMs shortens each link of the
+// chain instead. At config 4's B = 128 the whole sweep takes clusters of 1:
+// one member per SM, as the one-CTA sweep, on this engine's products.
 //
 // Design: cluster.cuh's engine, as the cluster march (march2d_blocked.cu)
 // runs it. Member state lives in the global workspace (B, 20, n, m) as in
 // adjoint2d.cu; a Laplacian's first product goes through the T2 field,
-// free at every Laplacian. Every product output sums its k terms in
+// free at every Laplacian. The step's solve is adjoint_solve.cuh's, which
+// the per-step solve kernel (solve2d_cluster.cu) runs too. Every product output sums its k terms in
 // ascending order in one FMA chain, a Laplacian adds its two rounded
 // products and every reduction follows common.cuh's block_sum order, as
 // adjoint2d.cu does; both are compiled with -fmad=false (ops/_build.py), so
 // each elementwise expression, written here as there, rounds the same. So a
 // member's bits depend neither on the cluster size nor on the batch, and
 // equal the one-CTA sweep's. Full float32 FMA: no tensor cores, no TF32.
-#include "adjoint.cuh"
-#include "cluster.cuh"
+#include "adjoint_solve.cuh"
 
 namespace vch {
 namespace sweep {
 
 using namespace cluster;
 
-// Per-member control state, the same in every CTA of a cluster.
-template <int MB>
-struct Ctl {
-  float red[2][MB][NWARP];        // warp values of a reduction
-  float hdt_fbar[MB], floor2[MB], r2[MB];
-  float rho[MB], kalpha[MB], omega[MB], best_r2[MB];
-  float rho_new[MB], beta[MB], alpha_n[MB], omega_n[MB];
-  int live[MB], improved[MB];
+// The sweep's fields in the shared solve (adjoint_solve.cuh)
+struct SweepSlots {
+  enum { ISD = A_ISD, FPP = A_FPP, X = A_X, RR = A_RR, PK = A_PK, V = A_V,
+         R0 = A_R0, BX = A_BX, S = A_S, T = A_T, Z = A_Z, T1 = A_T1,
+         T2 = A_T2 };
 };
-static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
 
 // One CTA's view of its block of MB members; SEG: a segment with the
 // carry in and out. Every method is force-inlined into the kernel, so the
 // state below lives in registers; the per-member scalars live in `ctl`, in
 // shared memory.
 template <int MB, bool SEG>
-struct Sweep : Block<MB> {
-  using Base = Block<MB>;
-  using Base::tid;
+struct Sweep : adj::Solve<MB, AdjArgs, SweepSlots> {
+  using Base = adj::Solve<MB, AdjArgs, SweepSlots>;
   using Base::nm;
   using Base::b0;
   using Base::FS;
@@ -76,15 +76,14 @@ struct Sweep : Block<MB> {
   using Base::gemm_l_to;
   using Base::gemm_r;
   using Base::gemm_r_to;
-  const AdjArgs& a;
-  const AdjConst& c;
-  Ctl<MB>& ctl;
+  using Base::a;
+  using Base::c;
+  using Base::ctl;
   size_t HS, RS;
 
   __device__ __forceinline__ Sweep(const AdjArgs& args, const BGeom& g,
-                                   Ctl<MB>& ctl_, float* smem)
-      : Base(g, args.n, args.m, A_COUNT, args.work, smem, ctl_.red),
-        a(args), c(args.c), ctl(ctl_) {
+                                   adj::Ctl<MB>& ctl_, float* smem)
+      : Base(args, g, ctl_, smem, A_COUNT) {
     HS = (size_t)(a.M + 1) * nm;                // member stride of hist, phiQ
     RS = (size_t)(SEG ? a.M : a.M + 1) * nm;    // and of r
   }
@@ -95,133 +94,11 @@ struct Sweep : Block<MB> {
     Base::lap(a.Lx, a.LyT, V, F(A_T2), ld, st);
   }
 
-  // OUT_b = At_b Y_b, the split-preconditioned operator in the cosine
-  // basis: isd (poly z - (dt/2) to_s(fpp_n from_s(lam z))), z = isd y. Y's
-  // elements are read in the elementwise layout: a Y whose last writer was
-  // a product's epilogue needs a cluster barrier first.
-  __device__ __forceinline__ void apply_At(const float* Y, float* OUT,
-                                           float half_dt) {
-    const float *ISD = F(A_ISD), *FPP = F(A_FPP), *lam = a.lam;
-    float *Z = F(A_Z), *T1 = F(A_T1), *T2 = F(A_T2);
-    const size_t fs = FS;
-    const AdjConst& k = c;
-    each_elem(all, [&](int b, int e) {
-      const size_t i = b * fs + e;
-      return Vals<3>{{lam[e], ISD[i], Y[i]}};
-    }, [&](int b, int e, const Vals<3>& in) {
-      Z[b * fs + e] = in.v[0] * (in.v[1] * in.v[2]);
-    });
-    gemm_l_to(a.Vx, Z, T1);
-    gemm_r(T1, a.VyT, [&](int b, int e) {
-      return Vals<1>{{FPP[b * fs + e]}};
-    }, [&](int b, int e, float v, const Vals<1>& in) {
-      T2[b * fs + e] = in.v[0] * v;
-    });
-    gemm_l_to(a.Vxi, T2, T1);
-    gemm_r(T1, a.VyiT, [&](int b, int e) {
-      const size_t i = b * fs + e;
-      return Vals<3>{{ISD[i], Y[i], lam[e]}};
-    }, [&](int b, int e, float v, const Vals<3>& in) {
-      const float s = in.v[0], l = in.v[2];
-      const float poly = (1.f - k.tau * l) + (half_dt * l) * l;
-      OUT[b * fs + e] = s * (poly * (s * in.v[1]) - half_dt * v);
-    });
-  }
-
-  // Fixed-trip BiCGStab in masked lockstep (common.cuh bicgstab_fixed with
-  // no preconditioner: PH is P, SH is S). On entry X, RR = R0, P = V = 0,
-  // BX and ctl's r2, floor2 and Krylov scalars are set.
-  __device__ __forceinline__ void bicgstab(float half_dt) {
-    float *X = F(A_X), *RR = F(A_RR), *PK = F(A_PK), *V = F(A_V);
-    float *R0 = F(A_R0), *BX = F(A_BX), *Sv = F(A_S), *T = F(A_T);
-    const size_t fs = FS;
-    auto live = [&](int b) { return ctl.live[b] != 0; };
-    for (int trip = 0; trip < a.n_trips; ++trip) {
-      if (tid < MB)
-        ctl.live[tid] = ctl.live[tid] && ctl.r2[tid] > ctl.floor2[tid];
-      __syncthreads();
-      if (!any_member<MB>(ctl.live)) break;
-      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
-        return Vals<2>{{R0[b * fs + e], RR[b * fs + e]}};
-      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
-        p[0] += in.v[0] * in.v[1];
-      }, [&](int b, const float (&v)[1]) {
-        ctl.rho_new[b] = v[0];
-        ctl.beta[b] = (v[0] / (ctl.rho[b] + EPS_DIV)) *
-                      (ctl.kalpha[b] / (ctl.omega[b] + EPS_DIV));
-      });
-      each_elem(live, [&](int b, int e) {
-        const size_t o = b * fs + e;
-        return Vals<3>{{RR[o], PK[o], V[o]}};
-      }, [&](int b, int e, const Vals<3>& in) {
-        PK[b * fs + e] =
-            in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
-      });
-      apply_At(PK, V, half_dt);
-      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
-        return Vals<2>{{R0[b * fs + e], V[b * fs + e]}};
-      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
-        p[0] += in.v[0] * in.v[1];
-      }, [&](int b, const float (&v)[1]) {
-        ctl.alpha_n[b] = ctl.rho_new[b] / (v[0] + EPS_DIV);
-      });
-      each_elem(live, [&](int b, int e) {
-        const size_t o = b * fs + e;
-        return Vals<2>{{RR[o], V[o]}};
-      }, [&](int b, int e, const Vals<2>& in) {
-        Sv[b * fs + e] = in.v[0] - ctl.alpha_n[b] * in.v[1];
-      });
-      apply_At(Sv, T, half_dt);
-      this->template reduce<2, false>(0.f, all, [&](int b, int e) {
-        return Vals<2>{{T[b * fs + e], Sv[b * fs + e]}};
-      }, [](int, int, const Vals<2>& in, float (&p)[2]) {
-        const float t = in.v[0];
-        p[0] += t * in.v[1];
-        p[1] += t * t;
-      }, [&](int b, const float (&v)[2]) {
-        ctl.omega_n[b] = v[0] / (v[1] + EPS_DIV);
-      });
-      this->template reduce<1, false>(0.f, live, [&](int b, int e) {
-        const size_t o = b * fs + e;
-        return Vals<4>{{X[o], PK[o], Sv[o], T[o]}};
-      }, [&](int b, int e, const Vals<4>& in, float (&p)[1]) {
-        const size_t o = b * fs + e;
-        X[o] = in.v[0] + ctl.alpha_n[b] * in.v[1] + ctl.omega_n[b] * in.v[2];
-        const float r = in.v[2] - ctl.omega_n[b] * in.v[3];
-        RR[o] = r;
-        p[0] += r * r;
-      }, [&](int b, const float (&v)[1]) {
-        ctl.improved[b] = 0;
-        if (!ctl.live[b]) return;
-        const float r2n = v[0];
-        if (!isfinite(r2n)) {
-          ctl.live[b] = 0;
-          return;
-        }
-        ctl.rho[b] = ctl.rho_new[b];
-        ctl.kalpha[b] = ctl.alpha_n[b];
-        ctl.omega[b] = ctl.omega_n[b];
-        if (r2n < ctl.best_r2[b]) {
-          ctl.best_r2[b] = r2n;
-          ctl.improved[b] = 1;
-        }
-        ctl.r2[b] = r2n;
-      });
-      if (any_member<MB>(ctl.improved))
-        each_elem([&](int b) { return ctl.improved[b] != 0; },
-                  [&](int b, int e) { return Vals<1>{{X[b * fs + e]}}; },
-                  [&](int b, int e, const Vals<1>& in) {
-                    BX[b * fs + e] = in.v[0];
-                  });
-    }
-  }
-
   __device__ __forceinline__ void run() {
     float *P = F(A_P), *Q = F(A_Q), *R = F(A_R), *PN = F(A_PN), *QN = F(A_QN);
     float *W1 = F(A_W1), *RHS = F(A_RHS), *FPP = F(A_FPP), *ISD = F(A_ISD);
     float *Z = F(A_Z), *T1 = F(A_T1), *T2 = F(A_T2);
-    float *X = F(A_X), *RR = F(A_RR), *PK = F(A_PK), *V = F(A_V);
-    float *R0 = F(A_R0), *BX = F(A_BX), *T = F(A_T);
+    const auto solve_fields = this->fields();
     const float* lam = a.lam;
     const float* hb = a.hist + b0 * HS;
     const float* qb = a.phiQ + b0 * HS;
@@ -309,61 +186,11 @@ struct Sweep : Block<MB> {
         RHS[b * fs + e] = Bp + (half_dt * a.b1[b0 + b]) * src;
       });
 
-      // bt = isd to_s(rhs) (kept in R0 until r0 is formed), its floor
-      gemm_l_to(a.Vxi, RHS, T1);
-      gemm_r(T1, a.VyiT, [&](int b, int e) {
-        return Vals<1>{{ISD[b * fs + e]}};
-      }, [&](int b, int e, float v, const Vals<1>& in) {
-        R0[b * fs + e] = in.v[0] * v;
-      });
-      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
-        return Vals<1>{{R0[b * fs + e]}};
-      }, [](int, int, const Vals<1>& in, float (&p)[1]) {
-        p[0] += in.v[0] * in.v[0];
-      }, [&](int b, const float (&v)[1]) {
-        ctl.floor2[b] = k.floor_fac * nan_max(v[0], EPS_DIV);
-      });
-      // y0 = to_s(p_{n+1}) / isd (warm start and initial best iterate)
-      gemm_l_to(a.Vxi, P, T1);
-      gemm_r(T1, a.VyiT, [&](int b, int e) {
-        return Vals<1>{{ISD[b * fs + e]}};
-      }, [&](int b, int e, float v, const Vals<1>& in) {
-        const size_t i = b * fs + e;
-        const float y = v / in.v[0];
-        X[i] = y;
-        BX[i] = y;
-      });
-      // r0 = bt - At y0 (At y0 lands in T, which every trip overwrites)
-      cluster.sync();                   // y0's bands were written by their CTAs
-      apply_At(X, T, half_dt);
-      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
-        const size_t i = b * fs + e;
-        return Vals<2>{{R0[i], T[i]}};
-      }, [&](int b, int e, const Vals<2>& in, float (&p)[1]) {
-        const size_t i = b * fs + e;
-        const float r = in.v[0] - in.v[1];
-        R0[i] = r;
-        RR[i] = r;
-        PK[i] = 0.f;
-        V[i] = 0.f;
-        p[0] += r * r;
-      }, [&](int b, const float (&v)[1]) {
-        ctl.r2[b] = v[0];
-        ctl.rho[b] = ctl.kalpha[b] = ctl.omega[b] = 1.f;
-        ctl.best_r2[b] = v[0];
-        ctl.live[b] = 1;
-      });
-      bicgstab(half_dt);
+      // the solve of A(phi_n) p_n = rhs warm started from p_{n+1}:
+      // p_n = from_s(isd best) into PN
+      this->solve(solve_fields, RHS, P, PN, k.tau, half_dt);
 
-      // p_n = from_s(isd * best); q_n = -L p_n; r CN recursion
-      each_elem(all, [&](int b, int e) {
-        const size_t i = b * fs + e;
-        return Vals<2>{{ISD[i], BX[i]}};
-      }, [&](int b, int e, const Vals<2>& in) {
-        Z[b * fs + e] = in.v[0] * in.v[1];
-      });
-      gemm_l_to(a.Vx, Z, T1);
-      gemm_r_to(T1, a.VyT, PN);
+      // q_n = -L p_n; r CN recursion
       const float den = k.gamma + half_dt;
       const float ca = (k.gamma - half_dt) / den, cb = half_dt / den;
       lap(PN, [&](int b, int e) {
@@ -404,7 +231,7 @@ template <int MB, bool SEG>
 __global__ void __launch_bounds__(NT, 1)
     adjoint_cluster_kernel(AdjArgs a, BGeom g) {
   extern __shared__ float4 smem4[];
-  __shared__ Ctl<MB> ctl;
+  __shared__ adj::Ctl<MB> ctl;
   Sweep<MB, SEG>(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
@@ -451,7 +278,8 @@ int launch(AdjArgs a, int B, const float* consts, int nconst, int C, int kc,
 }  // namespace vch
 
 // Compiled once per instantiation, in parallel (ops/_build.py): the object
-// of -DVCH_BB=MB (-DVCH_SEG=1: the segment sweep) holds
+// of -DVCH_BB=MB (1: the whole one-member sweep; -DVCH_SEG=1: the segment
+// sweep) holds
 // adjoint_cluster_kernel<MB, SEG> and its launch and occupancy functions;
 // the -DVCH_BB=8 object also holds the C entries, which dispatch to the
 // others by member count.
@@ -479,14 +307,15 @@ namespace sweep {
   extern template int max_clusters<MB, SEG>(int, int, int, int, int);
 VCH_EXTERN(4, false)
 VCH_EXTERN(2, false)
+VCH_EXTERN(1, false)
 VCH_EXTERN(1, true)
 #undef VCH_EXTERN
 }  // namespace sweep
 }  // namespace vch
 
 // How many clusters of `cluster` CTAs of the sweep with `members` members
-// per cluster (8, 4, 2: the blocked sweep; 1 with segment != 0: the segment
-// sweep) can be resident at once on the current card with this geometry; a
+// per cluster (8, 4, 2: the blocked sweep; 1: the whole one-member sweep,
+// with segment != 0 the segment sweep) can be resident at once on the current card with this geometry; a
 // negative CUDA error code on failure.
 extern "C" int vch_adjoint_cluster_max_clusters(int members, int segment,
                                                 int n, int m, int cluster,
@@ -499,6 +328,7 @@ extern "C" int vch_adjoint_cluster_max_clusters(int members, int segment,
     case 8: return max_clusters<8, false>(n, m, cluster, kc, smem_bytes);
     case 4: return max_clusters<4, false>(n, m, cluster, kc, smem_bytes);
     case 2: return max_clusters<2, false>(n, m, cluster, kc, smem_bytes);
+    case 1: return max_clusters<1, false>(n, m, cluster, kc, smem_bytes);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -529,6 +359,25 @@ extern "C" int vch_adjoint_fused_2d_blocked(
                                     smem_bytes, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The whole sweep of B members, one member per cluster of `cluster` CTAs:
+// what vch_adjoint_fused_2d (adjoint2d.cu) computes, bit for bit; the
+// geometry as vch_adjoint_fused_2d_blocked's, checked against the kernel's
+// own, arguments otherwise as vch_adjoint_fused_2d's.
+extern "C" int vch_adjoint_fused_2d_cluster(
+    const float* dts, const float* hist, const float* phiQ, const float* phiT,
+    const float* b1, const float* b2, const float* Lx, const float* LyT,
+    const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
+    const float* lam, float* r, float* work, int B, int M, int n, int m,
+    const float* consts, int nconst, int n_trips, int cluster, int kc,
+    int smem_bytes, void* stream) {
+  using namespace vch::sweep;
+  const vch::AdjArgs a{dts, hist, phiQ, phiT, b1, b2, Lx, LyT, Vxi, VyiT,
+                       Vx, VyT, lam, nullptr, nullptr, nullptr, r, nullptr,
+                       nullptr, nullptr, work, M, n, m, n_trips, {}};
+  return launch<1, false>(a, B, consts, nconst, cluster, kc, smem_bytes,
+                          stream);
 }
 
 // One K-step segment of B members, one member per cluster of `cluster`

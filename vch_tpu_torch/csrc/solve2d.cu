@@ -11,7 +11,8 @@
 //     Schur operator as two Laplacians (4 products);
 //   - :798 bicgstab_adjoint_spectral_pallas (body :712-795): the
 //     split-preconditioned adjoint step solve A(phi_n) p = rhs in the cosine
-//     basis, warm started from x0, each apply 4 products;
+//     basis, warm started from x0, each apply 4 products (the solvers run
+//     solve2d_cluster.cu's cluster kernel; this one is its bit oracle);
 //   - :581 bicgstab_adjoint_pallas (body :490-578): the same in the raw
 //     basis, each apply P^-1/2 A P^-1/2 as 12 products;
 // and the two cost probes of scripts/diag_kernel_cost.py, which time the
@@ -357,6 +358,26 @@ int launch_solve(int B, const SolveArgs& a, cudaStream_t s) {
 
 }  // namespace vch
 
+// Compiled twice (ops/_build.py): the object of -DVCH_ADJ_SPECTRAL=1, built
+// with -fmad=false, holds the spectral adjoint solve alone, the bit oracle
+// of the cluster solve (solve2d_cluster.cu), which rounds as this one only
+// where neither contracts an elementwise product into an FMA; the other
+// object holds the five other variants and the C entries.
+#ifndef VCH_ADJ_SPECTRAL
+#define VCH_ADJ_SPECTRAL 0
+#endif
+
+namespace vch {
+#if VCH_ADJ_SPECTRAL
+template int launch_solve<ADJOINT_SPECTRAL>(int, const SolveArgs&,
+                                            cudaStream_t);
+#else
+extern template int launch_solve<ADJOINT_SPECTRAL>(int, const SolveArgs&,
+                                                   cudaStream_t);
+#endif
+}  // namespace vch
+
+#if !VCH_ADJ_SPECTRAL
 extern "C" int vch_solve_workspace_fields() { return vch::SOLVE_FIELDS; }
 
 // One batch of solves, one CTA per member. variant: 0 spectral Schur
@@ -393,3 +414,4 @@ extern "C" int vch_bicgstab_2d(
     default: return vch::launch_solve<5>(B, a, s);
   }
 }
+#endif  // !VCH_ADJ_SPECTRAL

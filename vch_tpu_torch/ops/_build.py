@@ -6,16 +6,17 @@ object listed in `SOURCES`, each object with its own flags: the cluster
 march with `-DVCH_BB=8`, `4`, `2` (members per thread-block cluster of the
 member-blocked march), `1` (the whole one-member march) and `1` with
 `-DVCH_SEG=1` (the segment march), and the cluster sweep with `-DVCH_BB=8`,
-`4`, `2` (the member-blocked sweep) and `1` with `-DVCH_SEG=1` (the segment
-sweep), one kernel per object; the one-CTA 2D march (the bit oracle of the
-one-member and segment marches), the one-CTA sweep (the whole sweep, and
-the bit oracle of the cluster sweep), the per-solve kernels, the operator
-applies, the fused 1D march and the cost probes, which hold their own
-members-per-CTA templates, once each. The 1D march and both sweeps compile
-with `-fmad=false`: their only FMAs are the explicit ones of their
-products, so that no copy of an elementwise expression that the compiler
-unrolls rounds differently from another, and the cluster sweep rounds as
-the one-CTA sweep does. All objects compile at once in parallel, and link
+`4`, `2` (the member-blocked sweep), `1` (the whole one-member sweep) and
+`1` with `-DVCH_SEG=1` (the segment sweep), one kernel per object; the
+per-solve kernels twice, the spectral adjoint solve (`-DVCH_ADJ_SPECTRAL=1`)
+apart from the five others; the one-CTA 2D march and sweep (the bit oracles
+of the cluster march and sweep), the cluster adjoint step solve, the
+operator applies, the fused 1D march and the cost probes, which hold their
+own members-per-CTA templates, once each. The 1D march, both sweeps and
+both spectral adjoint solves compile with `-fmad=false`: their only FMAs are
+the explicit ones of their products, so that no copy of an elementwise
+expression that the compiler unrolls rounds differently from another, and
+each cluster kernel rounds as its one-CTA oracle does. All objects compile at once in parallel, and link
 into one shared library with a plain C interface, at first use, into
 `vch_tpu_torch/_build/` (listed in .gitignore); `ctypes` loads it. The
 library's file name carries a hash of the sources and flags, so an edited
@@ -46,11 +47,13 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            + (("-DVCH_BB=1", "-DVCH_SEG=1"),),
            "adjoint2d.cu": (("-fmad=false",),),
            "adjoint2d_cluster.cu": tuple((f"-DVCH_BB={bb}", "-fmad=false")
-                                         for bb in (8, 4, 2))
+                                         for bb in (8, 4, 2, 1))
            + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),),
-           "solve2d.cu": ((),), "apply2d.cu": ((),),
+           "solve2d.cu": ((), ("-DVCH_ADJ_SPECTRAL=1", "-fmad=false")),
+           "solve2d_cluster.cu": (("-fmad=false",),), "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),)}
-HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh")
+HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh",
+           "adjoint_solve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -177,6 +180,10 @@ def load():
     lib.vch_adjoint_fused_2d_blocked.argtypes = ([_P] * 13 + [_P] * 2
                                                  + [_I] * 4 + [_FP, _I]
                                                  + [_I] + [_I] * 4 + [_P])
+    # the whole sweep's arguments | cluster kc smem_bytes | stream
+    lib.vch_adjoint_fused_2d_cluster.argtypes = ([_P] * 13 + [_P] * 2
+                                                 + [_I] * 4 + [_FP, _I]
+                                                 + [_I] + [_I] * 3 + [_P])
     # the segment's arguments | cluster kc smem_bytes | stream
     lib.vch_adjoint_fused_2d_segment_cluster.argtypes = (
         [_P] * 14 + [_P] * 5 + [_I] * 4 + [_FP, _I] + [_I] + [_I] * 3 + [_P])
@@ -189,6 +196,16 @@ def load():
                                     + [ctypes.c_float, _P])
     lib.vch_solve_workspace_fields.argtypes = []
     lib.vch_solve_workspace_fields.restype = _I
+    # Vxi VyiT Vx VyT lam isd fpp rhs x0 tau_p half_dt_p | tau half_dt |
+    # out work | B n m n_iter | floor_fac | cluster kc smem_bytes | stream
+    lib.vch_bicgstab_adjoint_spectral_cluster.argtypes = (
+        [_P] * 11 + [ctypes.c_float] * 2 + [_P] * 2 + [_I] * 4
+        + [ctypes.c_float] + [_I] * 3 + [_P])
+    # members segment n m cluster kc smem_bytes
+    lib.vch_solve_cluster_max_clusters.argtypes = [_I] * 7
+    lib.vch_solve_cluster_max_clusters.restype = _I
+    lib.vch_solve_cluster_workspace_fields.argtypes = []
+    lib.vch_solve_cluster_workspace_fields.restype = _I
     # variant scal s0 s1 s2 Lx LyT Vxi VyiT Vx VyT f1 v | out |
     # B n m shared | cluster per_thread chunk smem_bytes | stream
     lib.vch_apply_2d.argtypes = ([_I, _P] + [ctypes.c_float] * 3 + [_P] * 8
@@ -218,8 +235,10 @@ def load():
                lib.vch_march_fused_2d_segment_cluster,
                lib.vch_adjoint_fused_2d, lib.vch_adjoint_fused_2d_segment,
                lib.vch_adjoint_fused_2d_blocked,
+               lib.vch_adjoint_fused_2d_cluster,
                lib.vch_adjoint_fused_2d_segment_cluster,
-               lib.vch_bicgstab_2d, lib.vch_apply_2d,
+               lib.vch_bicgstab_2d, lib.vch_bicgstab_adjoint_spectral_cluster,
+               lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_blocked_microbench, lib.vch_while_probe):
         fn.restype = _I

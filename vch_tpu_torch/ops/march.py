@@ -5,19 +5,18 @@ vch_tpu/ops/pallas_march.py); and `Entries`, the table of every kernel
 entry point a solver calls, per-solve kernels of ops.solve_kernels included.
 
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernels of `csrc/march2d_blocked.cu`, `csrc/adjoint2d.cu`,
+hand-written kernels of `csrc/march2d_blocked.cu`,
 `csrc/adjoint2d_cluster.cu` and `csrc/march1d.cu` (float32 only; anything
 else raises), on CPU tensors it runs its plain PyTorch version
 `<name>_plain` of this module. There is no fallback from one to the other.
 Each wrapper counts its kernel launches in `.launches`. The whole, blocked
 and segment marches run on the cluster kernel of `csrc/march2d_blocked.cu`;
 `_march_fused_2d_cta` and `_march_fused_2d_segment_cta` keep the one-CTA
-kernels of `csrc/march2d.cu` as their bit oracles. The blocked and segment
-sweeps run on the cluster kernel of `csrc/adjoint2d_cluster.cu`, the whole
-sweep on the one-CTA kernel of `csrc/adjoint2d.cu`, which
-`_adjoint_fused_2d_cta` and `_adjoint_fused_2d_segment_cta` launch as the
-cluster sweep's bit oracles. Only the card tests and chip_smoke.py call the
-oracles.
+kernels of `csrc/march2d.cu` as their bit oracles. The whole, blocked and
+segment sweeps run on the cluster kernel of `csrc/adjoint2d_cluster.cu`;
+`_adjoint_fused_2d_cta` and `_adjoint_fused_2d_segment_cta` keep the one-CTA
+kernels of `csrc/adjoint2d.cu` as their bit oracles. Only the card tests and
+chip_smoke.py call the oracles.
 
 The plain versions walk each member's time loop in Python with that
 member's own Newton / Armijo / Krylov trip counts, statement for statement
@@ -476,19 +475,26 @@ _MARCH_NAMES = {8: "the blocked march", 4: "the blocked march",
                 2: "the blocked march",
                 1: "the one-member march (whole or segment march)"}
 _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
-                2: "the blocked sweep", 1: "the segment sweep"}
-# the cluster kernels launch_geometry fits: the march
-# (csrc/march2d_blocked.cu) and the sweep (csrc/adjoint2d_cluster.cu), each
-# with its own register count, so its own residency
-CLUSTER_KERNELS = ("march", "sweep")
+                2: "the blocked sweep",
+                1: "the one-member sweep (whole or segment sweep)"}
+_SOLVE_NAMES = {1: "the adjoint step solve"}
+# the cluster kernels launch_geometry fits, each with its own register
+# count, so its own residency: the march (csrc/march2d_blocked.cu), the
+# sweep (csrc/adjoint2d_cluster.cu) and the per-step adjoint solve
+# (csrc/solve2d_cluster.cu); their names by members per cluster, and
+# their occupancy queries
+CLUSTER_KERNELS = {
+    "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
+    "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
+    "solve": (_SOLVE_NAMES, "vch_solve_cluster_max_clusters")}
 
 
 def _kernel_names(kernel: str) -> dict:
     """The names of a cluster kernel's forms, by members per cluster."""
     if kernel not in CLUSTER_KERNELS:
-        raise ValueError(f"kernel must be one of {CLUSTER_KERNELS}, got "
-                         f"{kernel!r}")
-    return _MARCH_NAMES if kernel == "march" else _SWEEP_NAMES
+        raise ValueError(f"kernel must be one of {tuple(CLUSTER_KERNELS)}, "
+                         f"got {kernel!r}")
+    return CLUSTER_KERNELS[kernel][0]
 
 
 @lru_cache(maxsize=64)
@@ -496,14 +502,15 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
                      max_cluster: int = 16, cluster: int | None = None,
                      members: int = BLOCK_MEMBERS,
                      kernel: str = "march") -> BlockedGeometry:
-    """The cluster geometry of a cluster kernel (`kernel`: "march" or
-    "sweep", which split a block alike) for B members on an (n, m) grid on
-    a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
+    """The cluster geometry of a cluster kernel (`kernel`: "march",
+    "sweep" or "solve", which split a block alike) for B members on an
+    (n, m) grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
     `march_fused_2d_blocked` and `adjoint_fused_2d_blocked`, 1 for
-    `march_fused_2d`, `march_fused_2d_segment` and
-    `adjoint_fused_2d_segment` (`blocked_cluster_size`; `cluster` overrides
-    it). Raises ValueError when B is not a positive multiple of `members`,
-    or when no ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
+    `march_fused_2d`, `march_fused_2d_segment`, `adjoint_fused_2d`,
+    `adjoint_fused_2d_segment` and the adjoint step solve
+    (`blocked_cluster_size`; `cluster` overrides it). Raises ValueError
+    when B is not a positive multiple of `members`, or when no ring fits in
+    BLOCKED_SMEM_LIMIT bytes per CTA."""
     names = _kernel_names(kernel)
     if members not in names:
         raise ValueError(f"the cluster {kernel} is built for "
@@ -535,16 +542,14 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
 @lru_cache(maxsize=64)
 def resident_clusters(device_index, n, m, C, kc, smem,
                       members=BLOCK_MEMBERS, segment=False, kernel="march"):
-    """How many clusters of a cluster kernel (`kernel`: the march or the
-    sweep; `members` per cluster; with segment, the segment march or sweep)
-    with this geometry the card holds at once
+    """How many clusters of a cluster kernel (`kernel`: the march, the
+    sweep or the solve; `members` per cluster; with segment, the segment
+    march or sweep) with this geometry the card holds at once
     (cudaOccupancyMaxActiveClusters on that kernel; negative: a CUDA
     error)."""
     _kernel_names(kernel)
     with torch.cuda.device(device_index):
-        lib = _build.load()
-        query = (lib.vch_march_blocked_max_clusters if kernel == "march"
-                 else lib.vch_adjoint_cluster_max_clusters)
+        query = getattr(_build.load(), CLUSTER_KERNELS[kernel][1])
         return query(members, int(segment), n, m, C, kc, smem)
 
 
@@ -576,12 +581,12 @@ def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
 def launch_geometry(n: int, m: int, B: int, device,
                     members: int = BLOCK_MEMBERS, segment: bool = False,
                     kernel: str = "march") -> BlockedGeometry:
-    """The geometry the cluster march or sweep (`kernel`; with segment, the
-    segment march or sweep) launches on this card for B members, `members`
-    per cluster: `fitted_geometry` on its SM count and on
-    cudaOccupancyMaxActiveClusters of that kernel (the two kernels take
-    their own registers, so a geometry fitted to one would over-commit the
-    other). Raises RuntimeError if no cluster of it fits on the card."""
+    """The geometry the cluster march, sweep or solve (`kernel`; with
+    segment, the segment march or sweep) launches on this card for B
+    members, `members` per cluster: `fitted_geometry` on its SM count and
+    on cudaOccupancyMaxActiveClusters of that kernel (the kernels take
+    their own registers, so a geometry fitted to one would over-commit
+    another). Raises RuntimeError if no cluster of it fits on the card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
@@ -845,9 +850,9 @@ def _adjoint_kw(tau, gamma, c1, c2, n_trips):
 
 def _launch_adjoint(wrapper, args, k, members=None):
     """Check and launch the whole sweep: on the cluster kernel with
-    `members` (8, 4 or 2) members per cluster on the geometry of
-    `launch_geometry`, or (None) on the one-CTA kernel of
-    csrc/adjoint2d.cu."""
+    `members` members per cluster (1, or 2, 4, 8: the member-blocked sweep)
+    on the geometry of `launch_geometry`, or (None) on the one-CTA kernel of
+    csrc/adjoint2d.cu, the bit oracle."""
     dts, phi_hist, phi_Q, phi_T, b1, b2, *ops = args
     B, n, m = phi_T.shape
     M = dts.shape[0]
@@ -873,6 +878,9 @@ def _launch_adjoint(wrapper, args, k, members=None):
                                               k["n_trips"]])
     if geo is None:
         err = lib.vch_adjoint_fused_2d(*common, stream)
+    elif members == 1:
+        err = lib.vch_adjoint_fused_2d_cluster(*common, geo.cluster, geo.kc,
+                                               geo.smem_bytes, stream)
     else:
         err = lib.vch_adjoint_fused_2d_blocked(*common, members, geo.cluster,
                                                geo.kc, geo.smem_bytes, stream)
@@ -884,8 +892,10 @@ def _launch_adjoint(wrapper, args, k, members=None):
 def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
                      Vy_inv_T, Vx, VyT, lam, *, tau: float, gamma: float,
                      c1: float, c2: float, n_trips: int):
-    """The whole batched 2D adjoint sweep, one member per CTA
-    (pallas_march.py:751).
+    """The whole batched 2D adjoint sweep (pallas_march.py:751). On CUDA
+    tensors each member runs on a thread-block cluster (`launch_geometry`
+    of the sweep with one member per cluster), bit for bit what the one-CTA
+    kernel `_adjoint_fused_2d_cta` computes.
 
     Args: dts (M,); phi_hist, phi_Q (B, M+1, n, m); phi_T (B, n, m) terminal
     targets; b1, b2 (B,) weights; operators as `march_fused_2d`.
@@ -896,18 +906,17 @@ def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
             Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d", phi_T):
         return adjoint_fused_2d_plain(*args, **k)
-    return _launch_adjoint(adjoint_fused_2d, args, k)
+    return _launch_adjoint(adjoint_fused_2d, args, k, members=1)
 
 
 adjoint_fused_2d.launches = 0
 
 
 def _adjoint_fused_2d_cta(*args, **kw):
-    """The one-CTA sweep of csrc/adjoint2d.cu (one member per CTA), which
-    `adjoint_fused_2d` launches too, under a launch count of its own: the
-    bit oracle of the blocked sweep, which the card tests and chip_smoke.py
-    hold the cluster kernel against; no solver calls it. Arguments and
-    results as `adjoint_fused_2d`."""
+    """The one-CTA sweep of csrc/adjoint2d.cu (one member per CTA): the bit
+    oracle of `adjoint_fused_2d` and of the blocked sweep, which the card
+    tests and chip_smoke.py hold the cluster kernel against; no solver
+    calls it. Arguments and results as `adjoint_fused_2d`."""
     k = _adjoint_kw(**kw)
     if not _build.on_cuda("_adjoint_fused_2d_cta", args[3]):
         return adjoint_fused_2d_plain(*args, **k)
@@ -1425,7 +1434,9 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
 # solver calls
 WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              _adjoint_fused_2d_cta,
-                             _adjoint_fused_2d_segment_cta, sk.schur_apply,
+                             _adjoint_fused_2d_segment_cta,
+                             sk._bicgstab_adjoint_spectral_cta,
+                             sk.schur_apply,
                              sk.adjoint_apply, sk.spectral_solve,
                              sk.schur_nodots,
                              sk.schur_mmonly, pk.matmul_chain,

@@ -33,15 +33,18 @@ Two cost probes of `bicgstab_schur` (scripts/diag_kernel_cost.py:131,
 Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernel of `csrc/solve2d.cu` or `csrc/apply2d.cu` (float32, one
-CTA per member; the three operator applies one member per thread-block
-cluster, `apply_geometry`; a failed build or launch raises, with no
-fallback), on CPU tensors it runs
+hand-written kernel of `csrc/solve2d.cu`, `csrc/solve2d_cluster.cu` or
+`csrc/apply2d.cu` (float32; one CTA per member, but one member per
+thread-block cluster for `bicgstab_adjoint_spectral`, `solve_geometry`, and
+for the three operator applies, `apply_geometry`; a failed build or launch
+raises, with no fallback), on CPU tensors it runs
 its plain PyTorch version `<name>_plain` of this module, which computes
 what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
 non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
 kernels) in float32 or float64 without host syncs. Each wrapper counts its
-launches in `.launches`.
+launches in `.launches`. `_bicgstab_adjoint_spectral_cta` keeps the one-CTA
+spectral adjoint solve of `csrc/solve2d.cu` as the cluster kernel's bit
+oracle, which only the card tests and chip_smoke.py call.
 """
 from __future__ import annotations
 
@@ -193,25 +196,32 @@ def bicgstab_adjoint_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                    rhs, x0, tau, half_dt), n_iter)[0]
 
 
-def _launch(wrapper, variant, scalars, mats, fields, n_iter):
-    """Check and launch one batch of solves: `mats` the seven operator slots
+def _check(mats, fields):
+    """Check one batch of solves' tensors: `mats` the seven operator slots
     (Lx, LyT, Vxi, VyiT, Vx, VyT, lam; None where the variant takes none),
     `fields` the four per-member slots (f1, f2, rhs, x0; x0 None for the
-    Schur solves), each (n, m) or (B, n, m)."""
+    Schur solves), each (n, m) or (B, n, m). Returns (n, m, B)."""
     rhs = fields[2]
+    if rhs.dim() not in (2, 3) or rhs.numel() == 0:
+        raise ValueError(f"rhs must be (n, m) or (B, n, m), got "
+                         f"{tuple(rhs.shape)}")
     n, m = rhs.shape[-2:]
-    B = rhs.shape[0] if rhs.dim() == 3 else 1
-    dev = rhs.device
     shapes = ((n, n), (m, m), (n, n), (m, m), (n, n), (m, m), (n, m))
     names = ("Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam")
     fnames = ("f1", "f2", "rhs", "x0")
     _build.check_cuda(
         [(nm, t, s) for nm, t, s in zip(names, mats, shapes) if t is not None]
         + [(nm, t, tuple(rhs.shape)) for nm, t in zip(fnames, fields)
-           if t is not None], dev)
-    if rhs.dim() not in (2, 3) or B < 1:
-        raise ValueError(f"rhs must be (n, m) or (B, n, m), got "
-                         f"{tuple(rhs.shape)}")
+           if t is not None], rhs.device)
+    return n, m, rhs.shape[0] if rhs.dim() == 3 else 1
+
+
+def _launch(wrapper, variant, scalars, mats, fields, n_iter):
+    """Check and launch one batch of solves on the one-CTA kernel of
+    csrc/solve2d.cu (`_check`'s arguments)."""
+    n, m, B = _check(mats, fields)
+    rhs = fields[2]
+    dev = rhs.device
     lib = _build.load()
     scal = torch.stack([torch.as_tensor(v, dtype=torch.float32,
                                         device=dev).reshape(())
@@ -256,27 +266,88 @@ def bicgstab_schur_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs,
 bicgstab_schur_spectral.launches = 0
 
 
+@lru_cache(maxsize=64)
+def solve_geometry(n: int, m: int, B: int, device_index: int):
+    """The cluster geometry of `bicgstab_adjoint_spectral` for B members of
+    an (n, m) grid on CUDA device `device_index`: one member per
+    thread-block cluster, `ops.march.launch_geometry` fitted to the solve
+    kernel's own residency (at n = 65 up to 16 CTAs for one member, one at
+    a batch above the SMs). Cached: the per-step sweep calls the solve once
+    per step, and its wrapper must cost less host time than the kernel."""
+    from vch_tpu_torch.ops import march   # ops.march imports this module
+    return march.launch_geometry(n, m, B, torch.device("cuda", device_index),
+                                 members=1, kernel="solve")
+
+
+def _device_scalar(x, dev):
+    """(pointer, value) of a scalar argument: a tensor of one element is
+    read on the card from its float32 copy on `dev` (none is made where it
+    is one already), a number goes by value."""
+    if not torch.is_tensor(x):
+        return None, float(x)
+    t = x.reshape(())
+    if t.dtype != torch.float32 or t.device != dev:
+        t = t.to(device=dev, dtype=torch.float32)
+    return t, 0.0
+
+
 def bicgstab_adjoint_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom,
                               fpp, rhs, x0, tau, half_dt, n_iter: int):
     """One fixed-trip split-preconditioned adjoint step solve A(phi_n) p =
     rhs per member in the cosine basis, warm started from x0
-    (vch_tpu/ops/pallas_kernels.py:798).
+    (vch_tpu/ops/pallas_kernels.py:798). On CUDA tensors each member runs
+    on a thread-block cluster (`solve_geometry`), bit for bit what the
+    one-CTA kernel `_bicgstab_adjoint_spectral_cta` computes.
 
     Args: operators as `bicgstab_schur_spectral`; inv_sqrt_denom
     1/sqrt|denom| on the eigenvalue grid, fpp f''(phi_n), rhs and x0, each
-    (n, m) or (B, n, m); tau, half_dt scalars. Returns p shaped as rhs.
+    (n, m) or (B, n, m); tau, half_dt scalars (numbers, or tensors of one
+    element, read on the card without a host sync). Returns p shaped as
+    rhs.
     """
     args = (Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom, fpp, rhs, x0, tau,
             half_dt)
     if not _build.on_cuda("bicgstab_adjoint_spectral", rhs):
         return bicgstab_adjoint_spectral_plain(*args, n_iter=n_iter)
-    return _launch(bicgstab_adjoint_spectral, _ADJOINT_SPECTRAL,
-                   (tau, half_dt),
-                   (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
-                   (inv_sqrt_denom, fpp, rhs, x0), n_iter)
+    fields = (inv_sqrt_denom, fpp, rhs, x0)
+    n, m, B = _check((None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam), fields)
+    dev = rhs.device
+    geo = solve_geometry(n, m, B, dev.index)
+    lib = _build.load()
+    (tau_t, tau_v), (hdt_t, hdt_v) = (_device_scalar(tau, dev),
+                                      _device_scalar(half_dt, dev))
+    out = torch.empty_like(rhs)
+    work = torch.empty((B, lib.vch_solve_cluster_workspace_fields(), n, m),
+                       dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.vch_bicgstab_adjoint_spectral_cluster(
+        *[t.data_ptr() for t in (Vx_inv, Vy_inv_T, Vx, VyT, lam) + fields],
+        ptr(tau_t), ptr(hdt_t), tau_v, hdt_v, out.data_ptr(), work.data_ptr(),
+        B, n, m, int(n_iter), _FLOOR_F32, geo.cluster, geo.kc,
+        geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    bicgstab_adjoint_spectral.launches += 1
+    _build.raise_on(lib, err, "bicgstab_adjoint_spectral")
+    return out
 
 
 bicgstab_adjoint_spectral.launches = 0
+
+
+def _bicgstab_adjoint_spectral_cta(*args, n_iter: int):
+    """The one-CTA spectral adjoint solve of csrc/solve2d.cu (one member per
+    CTA): the bit oracle of `bicgstab_adjoint_spectral`, which the card
+    tests and chip_smoke.py hold the cluster kernel against; no solver
+    calls it. Arguments and results as `bicgstab_adjoint_spectral`."""
+    if not _build.on_cuda("_bicgstab_adjoint_spectral_cta", args[7]):
+        return bicgstab_adjoint_spectral_plain(*args, n_iter=n_iter)
+    Vx_inv, Vy_inv_T, Vx, VyT, lam, isd, fpp, rhs, x0, tau, half_dt = args
+    return _launch(_bicgstab_adjoint_spectral_cta, _ADJOINT_SPECTRAL,
+                   (tau, half_dt),
+                   (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
+                   (isd, fpp, rhs, x0), n_iter)
+
+
+_bicgstab_adjoint_spectral_cta.launches = 0
 
 
 def bicgstab_schur(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
