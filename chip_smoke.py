@@ -58,12 +58,14 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                real step at n = 65, 129 and 257, one solve and a batch of 4,
                and at the scan path's n = 129, B = 128, gated against
                float64, with kernel and plain CUDA-event times; the
-               spectral adjoint solve (one member per thread-block
-               cluster) against its one-CTA oracle of solve2d.cu ("row
-               9"), bit for bit, dt/2 as a number and as a 0-d tensor,
-               timed in turns at n = 65, B = 1 (config 3's, also on
-               clusters of 8 and 4), n = 129, B = 128 and n = 257, B = 1,
-               with its geometry, trips and bound;
+               spectral Schur solve, the spectral and the raw adjoint
+               solve (one member per thread-block cluster) each against
+               its one-CTA oracle of solve2d.cu ("row 8", "row 9", "row
+               11"), bit for bit, the scalars the per-step solvers pass as
+               0-d tensors passed so and as numbers, timed in turns at
+               n = 65, B = 1 (config 3's, also on clusters of 8 and 4),
+               n = 129, B = 128 and n = 257, B = 1, with the geometry,
+               trips and bound;
   2d kernels — the fused 1D march (a group of members per thread-block
                cluster, the operators' column bands in shared memory)
                against its plain version in float32 and both against the
@@ -124,8 +126,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   4s scan    — a main path: config 4's shape on the scan path
                (BatchedProblem2D(fused_march=False)), one warm-up and one
                timed PGD iteration, the spectral per-solve kernels at
-               B = 128; peak memory over S and the first iteration's cost
-               against the fused run of phase 4;
+               B = 128, with their launches' CUDA-event ms; peak memory
+               over S and the first iteration's cost against the fused run
+               of phase 4;
   5 headline — bench.py's configuration: 64x64, T = 1, B = 512, float32,
                one warm-up, then 3 timed PGD iterations (blocked kernels);
                the blocked kernels' launches and CUDA-event milliseconds
@@ -146,9 +149,14 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   8 config 3 — a main path: BASELINE config 3 (64x64, T = 1, M = 100,
                float32) through ControlProblem2D: constructor, one warm-up
                and 3 timed PGD iterations, verify_sparsity and
-               second_order_check, launches counted in each window; the
-               adjoint step solve's wrapper: host microseconds a call
-               against the kernel's device microseconds;
+               second_order_check, launches counted in each window, the
+               constructor's Schur solves timed by CUDA events; the three
+               cluster solves' wrappers: host microseconds a call against
+               the kernel's device microseconds;
+  8r config 3 raw — a main path: config 3 on pallas_variant "raw" (the
+               raw-basis solves): constructor, one warm-up and 3 timed PGD
+               iterations, the raw adjoint solve's launches and CUDA-event
+               ms, its cost history against the raw solves' plain path;
   9 config 2 — a main path: BASELINE config 2 at full width (1D, N = 512,
                T = 1, dt = 2e-3: M = 500, the 32 x 8 (b3, kappa) sweep:
                B = 256, float32) through BatchedProblem1D: one warm-up, then
@@ -165,8 +173,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                kernels with the most device time;
   4sp profile — the same for phase 4s's scan path;
   2e-dev     — the operator applies and their torch.matmul forms once more,
-               one field at n = 65, 129, 257, and row 9's solve and its
-               one-CTA oracle at phase 2c's shapes, each timed on the device
+               one field at n = 65, 129, 257, and the cluster solves (rows
+               8, 9, 11) and their one-CTA oracles at phase 2c's shapes,
+               each timed on the device
                alone (20 calls in a CUDA graph), last because a capture
                leaves cuBLAS a workspace that phase 7 would count.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
@@ -218,13 +227,15 @@ def _ptxas_summary(log):
 
 def _ptxas_named(log, kernel):
     """ptxas's registers and spill stores of each instantiation of
-    `kernel`, by its template arguments: `<0,1> 96r/0s ...`."""
+    `kernel` (the whole identifier: its length leads it in the mangled
+    name), by its template arguments: `<0,1> 96r/0s ...`."""
     import re
     out, name, spill = [], None, "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = (m.group(1) if f"{len(kernel)}{kernel}" in m.group(1)
+                    else None)
         elif name and "spill stores" in ln:
             spill = ln.split("bytes stack frame,")[1].split("bytes spill "
                                                             "stores")[0].strip()
@@ -1318,13 +1329,37 @@ def check_solve_case(c):
                            + "; ".join(fails))
 
 
-def adjoint_solve_timing(torch, device, n, B, reps=20, clusters=()):
-    """Row 9: the spectral adjoint solve of B members on the inputs of a
-    real step (_solve_args) on the cluster kernel (one member per cluster,
-    `bicgstab_adjoint_spectral`) and on its one-CTA oracle
-    (`_bicgstab_adjoint_spectral_cta`): bit-gated against each other, dt/2
-    given as a number and as a 0-d tensor on the card (the per-step
-    sweep's form) bit-gated too; the cluster kernel against the plain
+# the cluster solves of csrc/solve2d_cluster.cu: the kernel-table row, the
+# one-CTA oracle and the kernel in CLUSTER_KERNELS of each wrapper
+CLUSTER_SOLVES = {
+    "bicgstab_schur_spectral": (8, "_bicgstab_schur_spectral_cta",
+                                "schur_solve"),
+    "bicgstab_adjoint_spectral": (9, "_bicgstab_adjoint_spectral_cta",
+                                  "solve"),
+    "bicgstab_adjoint": (11, "_bicgstab_adjoint_cta", "raw_solve")}
+
+
+def _scalars_on_device(torch, device, name, scal, all_of_them=False):
+    """scal with the scalars the per-step solvers pass as 0-d tensors on
+    the card made so (the marcher's 1/dt and tau/dt, the sweep's dt/2;
+    all_of_them: every scalar, as a CUDA graph's capture of a one-CTA
+    oracle needs)."""
+    kind = "schur" if "schur" in name else "adjoint"
+    vals, trips = scal[kind]
+    tensors = (0, 1) if kind == "schur" else (1,)
+    on = lambda i, v: (torch.tensor(v, device=device)
+                       if all_of_them or i in tensors else v)
+    return dict(scal, **{kind: (tuple(on(i, v) for i, v in enumerate(vals)),
+                                trips)})
+
+
+def cluster_solve_timing(torch, device, name, n, B, reps=20, clusters=()):
+    """Rows 8, 9 and 11: the solve `name` (`bicgstab_schur_spectral`,
+    `bicgstab_adjoint_spectral`, `bicgstab_adjoint`) of B members on the
+    inputs of a real step (_solve_args) on its cluster kernel (one member
+    per cluster) and on its one-CTA oracle: bit-gated against each other,
+    the scalars the per-step solvers pass as 0-d tensors on the card passed
+    so and as numbers, bit-gated too; the cluster kernel against the plain
     version in float32 and float64 (phase 2c's gate); timed in turns
     (oracle, cluster, cluster, oracle; CUDA events) beside the plain
     version; the cluster geometry, the trips each member runs and the
@@ -1333,24 +1368,23 @@ def adjoint_solve_timing(torch, device, n, B, reps=20, clusters=()):
     from vch_tpu_torch.ops import march as km
     from vch_tpu_torch.ops import solve_kernels as sk
 
-    name = "bicgstab_adjoint_spectral"
+    row, oracle, kernel = CLUSTER_SOLVES[name]
     ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
-    (tau, half), n_iter = scal["adjoint"]
-    scal_t = dict(scal, adjoint=((tau, torch.tensor(half, device=device)),
-                                 n_iter))
+    scal_t = _scalars_on_device(torch, device, name, scal)
     call = lambda fn, sc=scal: _solve_call(name, ops32, f32, sc, fn)
-    new = lambda: call(sk.bicgstab_adjoint_spectral)
-    new_t = lambda: call(sk.bicgstab_adjoint_spectral, scal_t)
-    old = lambda: call(sk._bicgstab_adjoint_spectral_cta)
+    new = lambda: call(getattr(sk, name))
+    new_t = lambda: call(getattr(sk, name), scal_t)
+    old = lambda: call(getattr(sk, oracle))
+    plain = getattr(sk, name + "_plain")
     k, kt, o = new(), new_t(), old()
-    p = call(sk.bicgstab_adjoint_spectral_plain)
-    p64 = _solve_call(name, ops64, f64, scal,
-                      sk.bicgstab_adjoint_spectral_plain)
+    p = call(plain)
+    p64 = _solve_call(name, ops64, f64, scal, plain)
     torch.cuda.synchronize()
     trips = _solve_call(name, ops32, f32, scal, lambda *a, n_iter: sk.
                         solve_trips(name, *a, n_iter=n_iter))
     trips = [int(t) for t in torch.as_tensor(trips).reshape(-1).tolist()]
-    out = dict(n=n, B=B, cluster_equals_cta=bool(torch.equal(k, o)),
+    out = dict(row=row, name=name, n=n, B=B,
+               cluster_equals_cta=bool(torch.equal(k, o)),
                tensor_scalar_equal=bool(torch.equal(kt, k)),
                finite=bool(torch.isfinite(k).all()),
                max_abs_err=(k - p).abs().max().item(),
@@ -1360,15 +1394,14 @@ def adjoint_solve_timing(torch, device, n, B, reps=20, clusters=()):
     for label, fn in (("cta", old), ("cluster", new), ("cluster", new),
                       ("cta", old)):
         out.setdefault(f"{label}_ms", []).append(time_ms(fn, reps))
-    out["plain_ms"] = time_ms(lambda: call(sk.bicgstab_adjoint_spectral_plain),
-                              max(1, reps // 4))
-    g = km.launch_geometry(n, n, B, device, members=1, kernel="solve")
+    out["plain_ms"] = time_ms(lambda: call(plain), max(1, reps // 4))
+    g = km.launch_geometry(n, n, B, device, members=1, kernel=kernel)
     out["geometry"] = dict(cluster=g.cluster, ctas=B * g.cluster, kc=g.kc,
                            smem_bytes=g.smem_bytes,
                            resident_clusters=km.resident_clusters(
                                torch.device(device).index or 0, n, n,
                                g.cluster, g.kc, g.smem_bytes, 1, False,
-                               "solve"))
+                               kernel))
     flops = sum(_solve_work(name, n, 1, t)[0] for t in trips)
     out["bound_ms"], out["bound_by"] = _bound(flops,
                                               _solve_work(name, n, B, 0)[1])
@@ -1378,7 +1411,7 @@ def adjoint_solve_timing(torch, device, n, B, reps=20, clusters=()):
             if C == g.cluster:
                 continue
             gc = km.blocked_geometry(n, n, B, 1, cluster=C, members=1,
-                                     kernel="solve")
+                                     kernel=kernel)
             sk.solve_geometry = lambda *a: gc
             others.append(dict(cluster=C, equal=bool(torch.equal(new(), o)),
                                ms=time_ms(new, reps)))
@@ -1388,11 +1421,11 @@ def adjoint_solve_timing(torch, device, n, B, reps=20, clusters=()):
     return out
 
 
-def check_adjoint_solve_timing(c):
-    """Row 9's gates: bit for bit its one-CTA oracle (at every cluster size
-    tried, and with dt/2 as a 0-d tensor), finite, and no farther from the
-    float64 plain version than twice the plain float32 version plus 1e-5
-    (phase 2c's gate)."""
+def check_cluster_solve_timing(c):
+    """A cluster solve's gates: bit for bit its one-CTA oracle (at every
+    cluster size tried, and with the scalars as 0-d tensors), finite, and
+    no farther from the float64 plain version than twice the plain float32
+    version plus 1e-5 (phase 2c's gate)."""
     fails = []
     if not (c["cluster_equals_cta"] and c["tensor_scalar_equal"]
             and all(o["equal"] for o in c["other_clusters"])):
@@ -1403,34 +1436,31 @@ def check_adjoint_solve_timing(c):
         fails.append(f"{c['rel_kernel_vs_f64']} from float64, plain float32 "
                      f"{c['rel_plain_vs_f64']}")
     if fails:
-        raise RuntimeError(f"row 9 n={c['n']} B={c['B']}: " + "; ".join(fails))
+        raise RuntimeError(f"row {c['row']} n={c['n']} B={c['B']}: "
+                           + "; ".join(fails))
 
 
-def _adjoint_solve_call(torch, device, n, B, tau_on_device=False):
-    """A call of `bicgstab_adjoint_spectral` on a real step's B members at
-    (n, n) (_solve_args), dt/2 a 0-d tensor on the card as the per-step
-    sweep passes it (tau_on_device: tau too, as a CUDA graph's capture of
-    the oracle needs), and the same on the one-CTA oracle."""
+def _cluster_solve_call(torch, device, name, n, B, all_on_device=False):
+    """A call of the cluster solve `name` on a real step's B members at
+    (n, n) (_solve_args), the scalars as the per-step solvers pass them
+    (all_on_device: every scalar a 0-d tensor on the card, as a CUDA
+    graph's capture of the oracle needs), and the same on its one-CTA
+    oracle."""
     from vch_tpu_torch.ops import solve_kernels as sk
 
-    name = "bicgstab_adjoint_spectral"
     ops32, _, f32, _, scal = _solve_args(torch, device, n, B)
-    (tau, half), n_iter = scal["adjoint"]
-    on_device = lambda v: torch.tensor(v, device=device)
-    scal = dict(scal, adjoint=((on_device(tau) if tau_on_device else tau,
-                                on_device(half)), n_iter))
-    return (lambda: _solve_call(name, ops32, f32, scal,
-                                sk.bicgstab_adjoint_spectral),
-            lambda: _solve_call(name, ops32, f32, scal,
-                                sk._bicgstab_adjoint_spectral_cta))
+    scal = _scalars_on_device(torch, device, name, scal, all_on_device)
+    fn = lambda w: lambda: _solve_call(name, ops32, f32, scal, w)
+    return (fn(getattr(sk, name)),
+            fn(getattr(sk, CLUSTER_SOLVES[name][1])))
 
 
-def solve_host_cost(torch, device, n=65, B=1, calls=200):
-    """Phase 8: the per-step solve's wrapper at config 3's shape: host
+def solve_host_cost(torch, device, name, n=65, B=1, calls=200):
+    """Phase 8: a cluster solve's wrapper at config 3's shape: host
     microseconds a call, `calls` calls enqueued without a sync, against the
     kernel's device microseconds a call, CUDA events over the same calls
     (the device's time where the host keeps ahead of it)."""
-    new, _ = _adjoint_solve_call(torch, device, n, B)
+    new, _ = _cluster_solve_call(torch, device, name, n, B)
     new()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1439,21 +1469,22 @@ def solve_host_cost(torch, device, n=65, B=1, calls=200):
     host_us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     device_us = 1e3 * time_ms(new, calls)
-    return dict(n=n, B=B, calls=calls, host_us=host_us, device_us=device_us,
-                host_over_device=host_us / device_us)
+    return dict(name=name, n=n, B=B, calls=calls, host_us=host_us,
+                device_us=device_us, host_over_device=host_us / device_us)
 
 
-def adjoint_solve_device_times(torch, device, shapes=((65, 1), (129, 128),
+def cluster_solve_device_times(torch, device, shapes=((65, 1), (129, 128),
                                                       (257, 1))):
-    """Row 9 on the device alone: the cluster solve and its one-CTA oracle,
-    mean ms of 20 calls captured in a CUDA graph (graph_ms), after phase 7
-    as every capture is."""
+    """Rows 8, 9 and 11 on the device alone: each cluster solve and its
+    one-CTA oracle, mean ms of 20 calls captured in a CUDA graph
+    (graph_ms), after phase 7 as every capture is."""
     out = []
-    for n, B in shapes:
-        new, old = _adjoint_solve_call(torch, device, n, B,
-                                       tau_on_device=True)
-        out.append(dict(n=n, B=B, cluster_device_ms=graph_ms(new),
-                        cta_device_ms=graph_ms(old)))
+    for name, (row, _, _) in CLUSTER_SOLVES.items():
+        for n, B in shapes:
+            new, old = _cluster_solve_call(torch, device, name, n, B,
+                                           all_on_device=True)
+            out.append(dict(row=row, n=n, B=B, cluster_device_ms=graph_ms(new),
+                            cta_device_ms=graph_ms(old)))
     return out
 
 
@@ -2028,7 +2059,9 @@ def config3_run(torch, device, iters=3):
     per-step marcher on the spectral Schur kernel), one warm-up PGD
     iteration, then `iters` timed ones, then the reference program's closing
     checks (verify_sparsity, second_order_check with 5 directions); every
-    launch count reset to 0 before each of the four and read after it."""
+    launch count reset to 0 before each of the four and read after it; last
+    the constructor's baseline march once more with CUDA events around each
+    Schur solve (row 8, EntryTimer)."""
     from vch_tpu_torch.ops import march as km
 
     cfg = _config(64)
@@ -2059,6 +2092,12 @@ def config3_run(torch, device, iters=3):
         prob.second_order_check(res, num_directions=5)))
     ch = np.asarray(res.cost_history)
     t = windows["timed"]
+    entries_are_kernels = (prob.solver.entries is km.KERNELS
+                           and prob.adjoint.entries is km.KERNELS)
+    t8 = EntryTimer(torch, km.KERNELS.schur_spectral, batch_at=7)
+    prob.solver.entries = km.KERNELS._replace(schur_spectral=t8)
+    prob.solver.simulate(initial_phi=prob.phi0)
+    prob.solver.entries = km.KERNELS
     return dict(n=prob.solver.config.Nx, M=prob.solver.M, iters=iters,
                 pgd_iters_per_s=iters / t["s"], elapsed_s=t["s"],
                 constructor_s=windows["constructor"]["s"],
@@ -2074,8 +2113,8 @@ def config3_run(torch, device, iters=3):
                 second_order=[float(v) for v in d2],
                 checks_s=windows["checks"]["s"],
                 launches={k: v["launches"] for k, v in windows.items()},
-                entries_are_kernels=(prob.solver.entries is km.KERNELS
-                                     and prob.adjoint.entries is km.KERNELS),
+                constructor_schur_solve=t8.summary(),
+                entries_are_kernels=entries_are_kernels,
                 finite=bool(np.isfinite(ch).all()))
 
 
@@ -2110,6 +2149,99 @@ def check_config3(c):
         fails.append("non-finite second-order estimates")
     if fails:
         raise RuntimeError("config 3: " + "; ".join(fails) + f" | {c}")
+
+
+def config3_raw_run(torch, device, iters=3):
+    """Phase 8r, row 11's main path at full width: config 3 (64x64, T = 1,
+    M = 100, float32, the 2D optimizer defaults) on pallas_variant "raw"
+    through ControlProblem2D: the constructor (the baseline march on the
+    raw Schur solve, row 10), one warm-up PGD iteration, then `iters` timed
+    ones, every launch count reset to 0 just before them and read just
+    after, with CUDA events around each raw adjoint solve (EntryTimer).
+    Then the same problem on the raw solves' plain versions (rows 10 and 11
+    in the kernels' place, the baseline re-marched on them; the trial
+    marches stay on the march kernel, which phases 2 and 3c hold against
+    its plain version, so that the run stays within seconds)."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    cfg = _config(64, pallas_variant="raw")
+    plain = km.KERNELS._replace(schur_raw=sk.bicgstab_schur_plain,
+                                adjoint_raw=sk.bicgstab_adjoint_plain)
+    out = {}
+    for path in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        prob = _control_problem(device, cfg)
+        torch.cuda.synchronize()
+        run = dict(constructor_s=time.perf_counter() - t0,
+                   constructor_launches=km.launch_counts())
+        if path == "plain":
+            prob.solver.entries = prob.adjoint.entries = plain
+            prob.phi_hist0 = prob.solver.simulate(initial_phi=prob.phi0)[0]
+            prob.newton_solves = prob.solver.last_stats.newton_solves
+        run["constructor_newton_solves"] = prob.newton_solves
+        timer = EntryTimer(torch, prob.adjoint.entries.adjoint_raw,
+                           batch_at=8)
+        prob.adjoint.entries = prob.adjoint.entries._replace(
+            adjoint_raw=timer)
+        prob.optimize(max_iter=1, verbose=False)               # warm-up
+        n0 = prob.newton_solves
+        torch.cuda.synchronize()
+        timer.clear()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        res = prob.optimize(max_iter=iters, verbose=False)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        ch = np.asarray(res.cost_history)
+        run.update(pgd_iters_per_s=iters / elapsed, elapsed_s=elapsed,
+                   launches=km.launch_counts(), raw_adjoint=timer.summary(),
+                   newton_solves=prob.newton_solves - n0,
+                   ls_trials=res.ls_trials_per_iter,
+                   timers=dict(res.timers), cost_history=ch.tolist(),
+                   finite=bool(np.isfinite(ch).all()))
+        out[path] = run
+    c0 = np.asarray(out["plain"]["cost_history"])
+    c1 = np.asarray(out["kernel"]["cost_history"])
+    out.update(n=cfg.Nx, M=prob.solver.M, iters=iters,
+               rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()))
+    return out
+
+
+def check_config3_raw(c):
+    """Phase 8r gates: costs finite and falling, the kernel path's cost
+    history within 2e-4 relative of the plain path's and its Newton solves
+    within 1% (phase 3c's gates); on the kernel path the constructor
+    launched the raw Schur kernel once per Newton solve and the timed run
+    the raw adjoint kernel M times an iteration and the march kernel once a
+    trial, nothing else; on the plain path no solve kernel."""
+    fails = []
+    k, p = c["kernel"], c["plain"]
+    expect = {
+        ("kernel", "constructor_launches"): {
+            "bicgstab_schur": k["constructor_newton_solves"]},
+        ("kernel", "launches"): {"bicgstab_adjoint": c["M"] * c["iters"],
+                                 "march_fused_2d": sum(k["ls_trials"])},
+        ("plain", "launches"): {"march_fused_2d": sum(p["ls_trials"])}}
+    for (path, window), want in expect.items():
+        for name, v in c[path][window].items():
+            if v != want.get(name, 0):
+                fails.append(f"{path} {window}: {name} launched {v}, "
+                             f"expected {want.get(name, 0)}")
+    if k["raw_adjoint"]["launches"] != c["M"] * c["iters"]:
+        fails.append(f"timed {k['raw_adjoint']['launches']} raw solves")
+    ch = k["cost_history"]
+    if not (k["finite"] and p["finite"]) or not ch[-1] < ch[0]:
+        fails.append("did not descend")
+    if c["rel_cost"] > 2e-4:
+        fails.append(f"cost history vs plain {c['rel_cost']}")
+    if abs(k["newton_solves"] - p["newton_solves"]) > 0.01 * p["newton_solves"]:
+        fails.append(f"Newton solves {k['newton_solves']} vs "
+                     f"{p['newton_solves']}")
+    if fails:
+        raise RuntimeError("config 3 raw: " + "; ".join(fails) + f" | {c}")
 
 
 def _slice_sweep(cfg, materialize=True, n_b3=4, n_ks=4):
@@ -2278,7 +2410,8 @@ def scan_full_width(torch, device, T=1.0, fused_mean_cost=None):
     """Phase 4s: the scan path at config 4's full width (128x128, B = 128,
     T = 1: M = 100, float32), BatchedProblem2D(fused_march=False): one
     warm-up and one timed PGD iteration, the launch counts read around the
-    timed run, peak memory over S; the relative difference of the first
+    timed run and the solve launches' CUDA-event ms inside it (rows 8 and
+    9, EntryTimer), peak memory over S; the relative difference of the first
     iteration's mean cost from the fused run of config 4 (information: the
     scan path takes krylov_fixed_iters = 4 forward trips, the fused march
     fused_krylov_fixed_iters = 3)."""
@@ -2289,8 +2422,15 @@ def scan_full_width(torch, device, T=1.0, fused_mean_cost=None):
     if prob._use_fused_march or not prob.solver._use_pallas:
         raise RuntimeError("config 4's scan path is not on the per-solve "
                            "kernels")
+    # CUDA events around every solve launch (rows 8 and 9) of the timed run
+    t8 = EntryTimer(torch, prob.solver.entries.schur_spectral, batch_at=7)
+    t9 = EntryTimer(torch, prob.adj.entries.adjoint_spectral, batch_at=7)
+    prob.solver.entries = prob.solver.entries._replace(schur_spectral=t8)
+    prob.adj.entries = prob.adj.entries._replace(adjoint_spectral=t9)
     sc = _bench_sweep(cfg, 128)
-    res = pgd_run(torch, device, prob, sc, iters=1)
+    res = pgd_run(torch, device, prob, sc, iters=1,
+                  before_timed=lambda: (t8.clear(), t9.clear()))
+    res.update(schur_solve=t8.summary(), adjoint_solve=t9.summary())
     res.update(T=T, S_bytes=_traj_bytes(cfg, 128, prob.solver.M),
                peak_over_S=res["peak_bytes"] / _traj_bytes(cfg, 128,
                                                            prob.solver.M))
@@ -2639,13 +2779,15 @@ def _bench_sweep(cfg, B, materialize=True):
 
 
 class EntryTimer:
-    """A solver entry wrapped in CUDA events: each call's batch, its
+    """A solver entry wrapped in CUDA events: each call's batch (the
+    leading axis of its argument `batch_at`; 1 for an (n, m) field), its
     start and end events on the current stream and, for a march, its
     Newton counts (B,). Keeps no output field, so it adds nothing to a
     peak-memory reading."""
 
-    def __init__(self, torch, fn, newton_at=None):
+    def __init__(self, torch, fn, newton_at=None, batch_at=1):
         self.torch, self.fn, self.newton_at = torch, fn, newton_at
+        self.batch_at = batch_at
         self.calls = []
 
     def __call__(self, *args, **kw):
@@ -2655,7 +2797,9 @@ class EntryTimer:
         out = self.fn(*args, **kw)
         end.record()
         ns = None if self.newton_at is None else out[self.newton_at]
-        self.calls.append((args[1].shape[0], start, end, ns))
+        t = args[self.batch_at]
+        self.calls.append((1 if t.dim() == 2 else t.shape[0], start, end,
+                           ns))
         return out
 
     def clear(self):
@@ -2801,10 +2945,14 @@ def main():
          + " | adjoint2d_cluster.cu adjoint_cluster_kernel<MB,SEG> (8, 4, "
          "2: the blocked sweep; <1,0>: the whole sweep; <1,1>: the segment "
          "sweep): " + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
-         + " | solve2d_cluster.cu solve_cluster_kernel: "
+         + " | solve2d_cluster.cu schur_solve_cluster_kernel (row 8): "
+         + _ptxas_named(_build.ptxas_log, "schur_solve_cluster_kernel")
+         + ", solve_cluster_kernel (row 9): "
          + _ptxas_named(_build.ptxas_log, "solve_cluster_kernel")
-         + " | solve2d.cu solve_kernel<VAR> (2: the spectral adjoint solve's "
-         "one-CTA oracle, -fmad=false): "
+         + ", adjoint_raw_cluster_kernel (row 11): "
+         + _ptxas_named(_build.ptxas_log, "adjoint_raw_cluster_kernel")
+         + " | solve2d.cu solve_kernel<VAR> (0, 2, 3: the cluster solves' "
+         "one-CTA oracles, -fmad=false): "
          + _ptxas_named(_build.ptxas_log, "solve_kernel")
          + " | march1d.cu march1d_kernel: "
          + _ptxas_named(_build.ptxas_log, "march1d_kernel"))
@@ -2909,17 +3057,17 @@ def main():
     for c in solves:
         check_solve_case(c)
     s65 = solves[0]
-    # row 9 on the cluster solve against its one-CTA oracle: config 3's
-    # B = 1 at n = 65 (also on clusters of 8 and 4), the scan path's
-    # n = 129, B = 128, and one member at n = 257
-    row9 = {(n, B): adjoint_solve_timing(
-        torch, device, n, B, reps=20 if n == 65 else 5,
+    # rows 8, 9 and 11 on their cluster kernels against their one-CTA
+    # oracles: config 3's B = 1 at n = 65 (also on clusters of 8 and 4),
+    # the scan path's n = 129, B = 128, and one member at n = 257
+    rows = {(k, n, B): cluster_solve_timing(
+        torch, device, k, n, B, reps=20 if n == 65 else 5,
         clusters=(8, 4) if n == 65 else ())
-        for n, B in ((65, 1), (129, 128), (257, 1))}
-    for c in row9.values():
-        _log("2c", "row 9 " + json.dumps(c) + f" | {name} | {smi}")
-    for c in row9.values():
-        check_adjoint_solve_timing(c)
+        for k in CLUSTER_SOLVES for n, B in ((65, 1), (129, 128), (257, 1))}
+    for c in rows.values():
+        _log("2c", f"row {c['row']} " + json.dumps(c) + f" | {name} | {smi}")
+    for c in rows.values():
+        check_cluster_solve_timing(c)
 
     # (N, B, T, dt, short): n = 129 and 513, 5-step and 100-step marches at
     # B = 8; B = 134 and 270 give two and four members per CTA on 132 SMs,
@@ -2997,8 +3145,8 @@ def main():
     # the one-CTA kernels are the cluster kernels' oracles, which no main
     # path launches
     oracle = ("_march_fused_2d_segment_cta", "_march_fused_2d_cta",
-              "_adjoint_fused_2d_segment_cta", "_adjoint_fused_2d_cta",
-              "_bicgstab_adjoint_spectral_cta")
+              "_adjoint_fused_2d_segment_cta", "_adjoint_fused_2d_cta") \
+        + tuple(o for _, o, _ in CLUSTER_SOLVES.values())
     idle_segment = segment + oracle
     march_1d = ("march_fused_1d",)
     trips_fwd = _config(64).fused_krylov_fixed_iters
@@ -3142,12 +3290,16 @@ def main():
                            f"{over}")
 
     c3 = config3_run(torch, device)
-    # the per-step solve's wrapper at config 3's shape: host microseconds a
-    # call (enqueued without a sync, dt/2 a 0-d tensor as the sweep passes
-    # it) against the kernel's device microseconds
-    c3["adjoint_solve_per_call"] = solve_host_cost(torch, device)
+    # the cluster solves' wrappers at config 3's shape: host microseconds a
+    # call (enqueued without a sync, the scalars as the per-step solvers
+    # pass them) against the kernel's device microseconds
+    c3["solve_per_call"] = [solve_host_cost(torch, device, k)
+                            for k in CLUSTER_SOLVES]
     _log(8, json.dumps(c3) + f" | {name} | {smi}")
     check_config3(c3)
+    c3r = config3_raw_run(torch, device)
+    _log("8r", json.dumps(c3r) + f" | {name} | {smi}")
+    check_config3_raw(c3r)
 
     prob9, sc9 = config2_problem(device)
     if not (prob9._use_fused_march and sc9.batch == 256
@@ -3221,8 +3373,9 @@ def main():
     # the applies on the device alone, last: see apply_device_times
     for c in apply_device_times(torch, device):
         _log("2e-dev", json.dumps(c) + f" | {name} | {smi}")
-    solve_dev = adjoint_solve_device_times(torch, device)
-    _log("2e-dev", "row 9 " + json.dumps(solve_dev) + f" | {name} | {smi}")
+    solve_dev = cluster_solve_device_times(torch, device)
+    _log("2e-dev", "rows 8, 9, 11 " + json.dumps(solve_dev)
+         + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
               library_ms=None, shape=None):
@@ -3287,28 +3440,29 @@ def main():
     ]
     # the per-solve kernels at config 3's shape (n = 65, one solve), their
     # launches on their paths: the Schur solves of config 3's constructor,
-    # the adjoint solves of its timed run, the raw ones in phase 3c
-    L8 = c3["launches"]
+    # the adjoint solves of its timed run, and the same of the raw config-3
+    # run (phase 8r)
+    L8, L8r = c3["launches"], c3r["kernel"]
     solve_launches = {
         "bicgstab_schur_spectral":
             L8["constructor"]["bicgstab_schur_spectral"],
         "bicgstab_adjoint_spectral":
             L8["timed"]["bicgstab_adjoint_spectral"],
-        "bicgstab_schur": ctl["raw"]["launches"]["bicgstab_schur"],
-        "bicgstab_adjoint": ctl["raw"]["launches"]["bicgstab_adjoint"]}
+        "bicgstab_schur": L8r["constructor_launches"]["bicgstab_schur"],
+        "bicgstab_adjoint": L8r["launches"]["bicgstab_adjoint"]}
     lines = {"bicgstab_schur_spectral": 691, "bicgstab_schur": 233,
              "bicgstab_adjoint_spectral": 798, "bicgstab_adjoint": 581}
     for k in SOLVE_KERNELS:
         c = s65[k]
-        if k == "bicgstab_adjoint_spectral":
-            # row 9 on the cluster kernel at config 3's n = 65, B = 1
-            r9 = row9[(65, 1)]
+        if k in CLUSTER_SOLVES:
+            # rows 8, 9, 11 on their cluster kernels at n = 65, B = 1
+            r = rows[(k, 65, 1)]
             kernels.append(entry(
                 k, "vch_tpu_torch/csrc/solve2d_cluster.cu", f"{pk}:{lines[k]}",
-                solve_launches[k], r9["max_abs_err"], mean(r9["cluster_ms"]),
-                r9["plain_ms"], (sum(_solve_work(k, 65, 1, t)[0]
-                                     for t in r9["trips"]),
-                                 _solve_work(k, 65, 1, 0)[1])))
+                solve_launches[k], r["max_abs_err"], mean(r["cluster_ms"]),
+                r["plain_ms"], (sum(_solve_work(k, 65, 1, t)[0]
+                                    for t in r["trips"]),
+                                _solve_work(k, 65, 1, 0)[1])))
             continue
         kernels.append(entry(k, solve_cu, f"{pk}:{lines[k]}",
                              solve_launches[k], c["max_abs_err"], c["ms"],

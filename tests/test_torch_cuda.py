@@ -12,8 +12,8 @@ float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
 do the cluster marches (whole, blocked, segment), sweeps (whole, blocked,
-segment) and spectral adjoint solve and their one-CTA oracles at every
-batch and cluster size. The 1D march: phi 1e-5 absolute on a
+segment) and solves (spectral Schur, spectral and raw adjoint) and their
+one-CTA oracles at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
 every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
@@ -728,105 +728,148 @@ def test_solve_kernels_reject_what_they_do_not_take(cuda):
         _solve_call("bicgstab_adjoint", ops, bad, scal, sk.bicgstab_adjoint)
 
 
-def _adjoint_spectral(ops, fields, scal, fn, **kw):
-    return _solve_call("bicgstab_adjoint_spectral", ops, fields, scal,
-                       lambda *a, n_iter: fn(*a, n_iter=n_iter, **kw))
+# the cluster solves (one member per thread-block cluster) and their one-CTA
+# oracles: each wrapper, its oracle, its kernel in CLUSTER_KERNELS, and its
+# scalars' index among the wrapper's trailing scalar arguments that the
+# per-step solvers pass as 0-d tensors on the card
+CLUSTER_SOLVES = {
+    "bicgstab_adjoint_spectral": ("_bicgstab_adjoint_spectral_cta", "solve"),
+    "bicgstab_schur_spectral": ("_bicgstab_schur_spectral_cta",
+                                "schur_solve"),
+    "bicgstab_adjoint": ("_bicgstab_adjoint_cta", "raw_solve")}
+
+
+def _cluster_solve(name, ops, fields, scal, oracle=False):
+    from vch_tpu_torch.ops import solve_kernels as sk
+    fn = getattr(sk, CLUSTER_SOLVES[name][0] if oracle else name)
+    return _solve_call(name, ops, fields, scal, fn)
+
+
+def _on_device(scal, device):
+    """The solves' scalars as the per-step solvers pass them: the marcher's
+    1/dt and tau/dt and the sweep's dt/2 as 0-d tensors on the card."""
+    (s_vals, s_trips), (a_vals, a_trips) = scal["schur"], scal["adjoint"]
+    t = lambda v: torch.tensor(v, device=device)
+    return dict(schur=((t(s_vals[0]), t(s_vals[1]), s_vals[2]), s_trips),
+                adjoint=((a_vals[0], t(a_vals[1])), a_trips))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLUSTER_SOLVES))
 @pytest.mark.parametrize("n,B", [(65, None), (65, 1), (65, 4), (17, 3),
-                                 (129, 8), (257, None)])
-def test_cluster_adjoint_solve_equals_the_one_cta_oracle(cuda, n, B):
-    """The spectral adjoint solve on thread-block clusters (one member per
-    cluster) gives its one-CTA oracle's p bit for bit; dt/2 passed as a 0-d
-    tensor on the card (the sweep's form) and as a number give the same
-    bits."""
+                                 (129, 8), (257, None), (33, 4), (129, 128),
+                                 (257, 1)])
+def test_cluster_adjoint_solve_equals_the_one_cta_oracle(cuda, n, B, name):
+    """Each cluster solve (the spectral and the raw adjoint step solve, the
+    spectral Schur solve; one member per thread-block cluster) gives its
+    one-CTA oracle's result bit for bit; the scalars the per-step solvers
+    pass as 0-d tensors on the card, passed so and as numbers, give the
+    same bits."""
     from vch_tpu_torch.ops import solve_kernels as sk
     ops, fields, scal = _solve_inputs(cuda, torch.float32, n=n, B=B)
-    before = (sk.bicgstab_adjoint_spectral.launches,
-              sk._bicgstab_adjoint_spectral_cta.launches)
-    k = _adjoint_spectral(ops, fields, scal, sk.bicgstab_adjoint_spectral)
-    o = _adjoint_spectral(ops, fields, scal,
-                          sk._bicgstab_adjoint_spectral_cta)
-    (tau, half), n_iter = scal["adjoint"]
-    as_dev = dict(scal, adjoint=((tau, torch.tensor(half, device=cuda)),
-                                 n_iter))
-    kt = _adjoint_spectral(ops, fields, as_dev, sk.bicgstab_adjoint_spectral)
+    oracle = CLUSTER_SOLVES[name][0]
+    wrapper, cta = getattr(sk, name), getattr(sk, oracle)
+    before = (wrapper.launches, cta.launches)
+    k = _cluster_solve(name, ops, fields, scal)
+    o = _cluster_solve(name, ops, fields, scal, oracle=True)
+    kt = _cluster_solve(name, ops, fields, _on_device(scal, cuda))
     torch.cuda.synchronize()
-    assert (sk.bicgstab_adjoint_spectral.launches,
-            sk._bicgstab_adjoint_spectral_cta.launches) == (before[0] + 2,
-                                                            before[1] + 1)
-    assert k.shape == fields["adjoint"][2].shape
+    assert (wrapper.launches, cta.launches) == (before[0] + 2,
+                                                before[1] + 1)
+    kind = "schur" if "schur" in name else "adjoint"
+    assert k.shape == fields[kind][2].shape
     assert bool(torch.isfinite(k).all())
     assert torch.equal(k, o) and torch.equal(kt, k)
 
 
 def _solve_geometry(monkeypatch, make):
-    """Make the cluster solve launch on make(n, m, B, sms)."""
+    """Make the cluster solves launch on make(n, m, B, sms, kernel)."""
     from vch_tpu_torch.ops import solve_kernels as sk
 
-    def solve_geometry(n, m, B, device_index):
+    def solve_geometry(n, m, B, device_index, kernel="solve"):
         sms = torch.cuda.get_device_properties(
             device_index).multi_processor_count
-        return make(n, m, B, sms)
+        return make(n, m, B, sms, kernel)
     monkeypatch.setattr(sk, "solve_geometry", solve_geometry)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLUSTER_SOLVES))
 def test_cluster_adjoint_solve_bits_do_not_depend_on_the_cluster_size(
-        cuda, monkeypatch):
-    from vch_tpu_torch.ops import solve_kernels as sk
+        cuda, monkeypatch, name):
     ops, fields, scal = _solve_inputs(cuda, torch.float32, n=65, B=2)
-    ref = _adjoint_spectral(ops, fields, scal,
-                            sk._bicgstab_adjoint_spectral_cta)
+    ref = _cluster_solve(name, ops, fields, scal, oracle=True)
     for C in range(1, 17):
-        _solve_geometry(monkeypatch, lambda n, m, B, sms: km.blocked_geometry(
-            n, m, B, sms, cluster=C, members=1, kernel="solve"))
-        out = _adjoint_spectral(ops, fields, scal,
-                                sk.bicgstab_adjoint_spectral)
+        _solve_geometry(monkeypatch, lambda n, m, B, sms, kernel:
+                        km.blocked_geometry(n, m, B, sms, cluster=C,
+                                            members=1, kernel=kernel))
+        out = _cluster_solve(name, ops, fields, scal)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), C
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CLUSTER_SOLVES))
 @pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4),
                                          ("cluster", 1)])
 def test_cluster_adjoint_solve_refuses_a_geometry_not_its_own(
-        cuda, monkeypatch, field, delta):
-    from vch_tpu_torch.ops import solve_kernels as sk
+        cuda, monkeypatch, field, delta, name):
     ops, fields, scal = _solve_inputs(cuda, torch.float32, n=33, B=2)
 
-    def bad(n, m, B, sms):
-        g = km.blocked_geometry(n, m, B, sms, members=1, kernel="solve")
+    def bad(n, m, B, sms, kernel):
+        assert kernel == CLUSTER_SOLVES[name][1]
+        g = km.blocked_geometry(n, m, B, sms, members=1, kernel=kernel)
         return g._replace(**{field: getattr(g, field) + delta})
     _solve_geometry(monkeypatch, bad)
     with pytest.raises(RuntimeError, match="launch failed"):
-        _adjoint_spectral(ops, fields, scal, sk.bicgstab_adjoint_spectral)
+        _cluster_solve(name, ops, fields, scal)
 
 
-@pytest.mark.cuda
-def test_config3_sweeps_run_m_cluster_solves(cuda):
-    """Config 3 (64 x 64, T = 1, M = 100, float32) through ControlProblem2D:
-    the solvers' entries are the kernels, and one PGD iteration's sweep
-    launches the cluster solve M times and its one-CTA oracle never."""
+def _config3(cuda, variant="spectral"):
     from vch_tpu_torch.config import OptimizationConfig
     from vch_tpu_torch.control.problems import ControlProblem2D
-    from vch_tpu_torch.ops import solve_kernels as sk
     cfg = ForwardSolverConfig2D(Nx=64, Ny=64, T=1.0, dtype="float32",
-                                newton_tol=2e-4)
+                                newton_tol=2e-4, pallas_variant=variant)
     prob = ControlProblem2D(cfg, OptimizationConfig.defaults_2d(),
                             device=cuda)
     assert prob.solver.entries is km.KERNELS
     assert prob.adjoint.entries is km.KERNELS
+    return prob
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,solve", [
+    ("spectral", "bicgstab_adjoint_spectral"), ("raw", "bicgstab_adjoint")])
+def test_config3_sweeps_run_m_cluster_solves(cuda, variant, solve):
+    """Config 3 (64 x 64, T = 1, M = 100, float32) through ControlProblem2D,
+    on each pallas_variant: the solvers' entries are the kernels, and one
+    PGD iteration's sweep launches the variant's cluster solve M times and
+    its one-CTA oracle never."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    prob = _config3(cuda, variant)
     km.reset_launches()
     res = prob.optimize(max_iter=1, verbose=False)
     torch.cuda.synchronize()
     counts = km.launch_counts()
-    assert counts["bicgstab_adjoint_spectral"] == prob.solver.M == 100
-    assert counts["_bicgstab_adjoint_spectral_cta"] == 0
+    assert counts[solve] == prob.solver.M == 100
+    assert counts[CLUSTER_SOLVES[solve][0]] == 0
     assert counts["march_fused_2d"] == sum(res.ls_trials_per_iter)
     assert np.isfinite(res.cost_history).all()
-    assert sk.bicgstab_adjoint_spectral is km.KERNELS.adjoint_spectral
+    assert getattr(sk, solve) in km.KERNELS
+
+
+@pytest.mark.cuda
+def test_config3_constructor_runs_a_cluster_schur_solve_per_newton_solve(
+        cuda):
+    """Config 3's constructor (the baseline march on the per-step marcher)
+    launches the cluster Schur solve once per Newton solve, its one-CTA
+    oracle never."""
+    km.reset_launches()
+    prob = _config3(cuda)
+    torch.cuda.synchronize()
+    counts = km.launch_counts()
+    assert counts["bicgstab_schur_spectral"] == prob.newton_solves > 0
+    assert counts["_bicgstab_schur_spectral_cta"] == 0
 
 
 # --------------------------------------------------------------------------

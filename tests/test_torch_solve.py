@@ -150,61 +150,81 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     assert km.PLAIN.adjoint_raw is sk.bicgstab_adjoint_plain
 
 
-def _adjoint_spectral_case(n, m, B, seed=2):
-    """The spectral adjoint solve's numpy arguments on an (n, m) grid
-    (operators from vch_tpu's make_spectral_op_2d, fields as `_fields`),
-    B members."""
+def _solve_case(kind, n, m, B, seed=2):
+    """A solve's numpy arguments on an (n, m) grid (operators from vch_tpu's
+    make_spectral_op_2d, fields as `_fields`), B members: the spectral
+    operators for the spectral kinds, the raw ones (Laplacian factors
+    first) for "adjoint"."""
     op = jls.make_spectral_op_2d(n - 1, m - 1, 1.0 / (n - 1), 1.0 / (m - 1),
                                  dtype=jnp.float64)
     o = {k: np.asarray(v) for k, v in op._asdict().items()}
-    mats = (o["Vx_inv"], o["Vy_inv"].T, o["Vx"], o["Vy"].T, o["lam"])
+    mats = ((o["Vx_inv"], o["Vy_inv"].T, o["Vx"], o["Vy"].T, o["lam"])
+            if "spectral" in kind else
+            (o["Lx"], o["Ly"].T, o["Vx_inv"], o["Vy_inv"].T, o["Vx"],
+             o["Vy"].T))
     rng = np.random.default_rng(seed)
     sh = (B, n, m)
+    lam = o["lam"]
+    mean = lambda a: a.mean(axis=(1, 2), keepdims=True)
     phi = np.clip(0.5 * rng.standard_normal(sh), -0.95, 0.95)
+    if kind.startswith("schur"):
+        d = 2 * C1 / (1 - np.clip(phi * phi, 0, 1 - 1e-4))
+        denom = 1 / DT + 0.5 * KAPPA * lam ** 2 - (TAU / DT + mean(d)) * lam
+        return mats, (denom, d, rng.standard_normal(sh))
     fpp = 2 * C1 / (1 - phi * phi) - 2 * C2
     half = 0.5 * DT
-    dena = (1 - TAU * o["lam"] + half * o["lam"] ** 2
-            - half * fpp.mean(axis=(1, 2), keepdims=True) * o["lam"])
-    fields = (1 / np.sqrt(np.abs(dena)), fpp, rng.standard_normal(sh),
-              rng.standard_normal(sh))
-    return mats, fields
+    dena = 1 - TAU * lam + half * lam ** 2 - half * mean(fpp) * lam
+    return mats, (1 / np.sqrt(np.abs(dena)), fpp, rng.standard_normal(sh),
+                  rng.standard_normal(sh))
 
 
+# the cluster solves' wrappers (one member per thread-block cluster on the
+# card) and their one-CTA oracles
+CLUSTER_SOLVES = [(kind, fn) for kind in ("adjoint_spectral",
+                                          "schur_spectral", "adjoint")
+                  for fn in (f"bicgstab_{kind}", f"_bicgstab_{kind}_cta")]
+
+
+@pytest.mark.parametrize("kind,fn", CLUSTER_SOLVES)
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("n,m", [(N + 1, N + 1), (17, 13)])
 def test_adjoint_spectral_wrapper_on_cpu_matches_pallas_kernel(n, m,
-                                                               batched):
-    """`bicgstab_adjoint_spectral` (the cluster kernel on the card) on CPU
-    tensors runs the plain version, with no launch counted, and matches
-    bicgstab_adjoint_spectral_pallas in interpret mode as one (n, m) solve
-    and, vmapped, on a (3, n, m) batch, on a square and a rectangular grid:
-    float64 1e-10, float32 TOL32 (1e-4) and no farther from the float64
-    kernel than twice the float32 kernel plus 1e-6; the scalar dt/2 as a
-    0-d tensor, as the per-step sweep passes it."""
-    mats, fields = _adjoint_spectral_case(n, m, 3 if batched else 1)
+                                                               batched, kind,
+                                                               fn):
+    """Each cluster solve's wrapper (`bicgstab_adjoint_spectral`,
+    `bicgstab_schur_spectral`, `bicgstab_adjoint`: the cluster kernels on
+    the card) and its one-CTA oracle on CPU tensors run the plain version,
+    with no launch counted, and match the Pallas kernel in interpret mode as
+    one (n, m) solve and, vmapped, on a (3, n, m) batch, on a square and a
+    rectangular grid: float64 1e-10, float32 TOL32 and no farther from the
+    float64 kernel than twice the float32 kernel plus 1e-6; the scalars the
+    per-step solvers pass as 0-d tensors (the sweep's dt/2, the marcher's
+    1/dt and tau/dt) passed so."""
+    mats, fields = _solve_case(kind, n, m, 3 if batched else 1)
     pick = (lambda a: a) if batched else (lambda a: a[0])
+    scal, n_iter = _scalars(kind)
+    wrapper = getattr(sk, fn)
     outs = {}
     for name in ("float64", "float32"):
         j = lambda a: jnp.asarray(a, NP[name])
-        f = lambda *fs: pk.bicgstab_adjoint_spectral_pallas(
-            *map(j, mats), *fs, TAU, 0.5 * DT, n_iter=5, interpret=True)
+        f = lambda *fs: _pallas(kind)(*map(j, mats), *fs, *scal,
+                                      n_iter=n_iter, interpret=True)
         ref = np.asarray(jax.vmap(f)(*map(j, fields)) if batched
                          else f(*[j(a[0]) for a in fields]))
         t = lambda a: torch.as_tensor(np.array(a), dtype=TD[name])
-        before = (sk.bicgstab_adjoint_spectral.launches,
-                  sk._bicgstab_adjoint_spectral_cta.launches)
-        got = sk.bicgstab_adjoint_spectral(
-            *map(t, mats), *[t(pick(a)) for a in fields], TAU,
-            torch.tensor(0.5 * DT, dtype=TD[name]), n_iter=5)
-        assert (sk.bicgstab_adjoint_spectral.launches,
-                sk._bicgstab_adjoint_spectral_cta.launches) == before
+        on_card = tuple(t(v) if i < 2 else v for i, v in enumerate(scal)) \
+            if kind.startswith("schur") else (scal[0], t(scal[1]))
+        km.reset_launches()
+        got = wrapper(*map(t, mats), *[t(pick(a)) for a in fields],
+                      *on_card, n_iter=n_iter)
+        assert all(v == 0 for v in km.launch_counts().values())
         assert got.shape == ref.shape == ((3,) if batched else ()) + (n, m)
         outs[name] = (got.numpy(), ref)
     got64, ref64 = outs["float64"]
     got32, ref32 = outs["float32"]
     assert _rel(got64, ref64) <= 1e-10
     assert got32.dtype == np.float32 and np.isfinite(got32).all()
-    assert _rel(got32, ref32) <= TOL32["adjoint_spectral"], _rel(got32, ref32)
+    assert _rel(got32, ref32) <= TOL32[kind], _rel(got32, ref32)
     assert _rel(got32, ref64) <= 2 * _rel(ref32, ref64) + 1e-6
 
 

@@ -1,20 +1,27 @@
-// The split-preconditioned spectral solve of one adjoint step on the
-// cluster engine (cluster.cuh): one body for the cluster sweep
-// (adjoint2d_cluster.cu), which runs it inside every reverse step, and the
-// per-step solve kernel (solve2d_cluster.cu), which runs it alone. Per
-// member, from the fields ISD (1 / sqrt|denom| on the eigenvalue grid) and
-// FPP (f''(phi_n)) of the workspace:
+// The split-preconditioned solve of one adjoint step on the cluster engine
+// (cluster.cuh): one body for the cluster sweep (adjoint2d_cluster.cu),
+// which runs it inside every reverse step, and the per-step solve kernels
+// (solve2d_cluster.cu), which run it alone. Per member, from the fields ISD
+// (1 / sqrt|denom| on the eigenvalue grid) and FPP (f''(phi_n)) of the
+// workspace, in the cosine basis (RAW false: the sweep's and the spectral
+// solve's operator):
 //   bt = isd to_s(rhs), y0 = to_s(x0) / isd, r0 = bt - At y0;
 //   n_trips trips of the fixed-trip BiCGStab on
 //     At y = isd (poly z - (dt/2) to_s(f'' from_s(lam z))), z = isd y,
 //   with the best iterate, the (50 eps)^2 ||bt||^2 noise-floor freeze and
 //   a non-finite new residual rejected;
-//   p = from_s(isd best).
+//   p = from_s(isd best);
+// or in the raw basis (RAW true), with P^-1/2 v = from_s(isd to_s(v)):
+//   bt = P^-1/2 rhs, y0 = P^1/2 x0, the same trips on
+//     At y = P^-1/2 A P^-1/2 y, A v = v - tau L v + (dt/2)(L L v - f'' L v),
+//   p = P^-1/2 best.
 // It sums and rounds as the one-CTA kernels do (common.cuh's
 // bicgstab_fixed in adjoint2d.cu's sweep and in solve2d.cu's
-// ADJOINT_SPECTRAL variant): products k ascending in one FMA chain,
-// reductions in block_sum's order, every elementwise expression written
-// alike. Built with -fmad=false on both sides (ops/_build.py), a member's
+// ADJOINT_SPECTRAL and ADJOINT_RAW variants): products k ascending in one
+// FMA chain, a Laplacian's two rounded products added, reductions in
+// block_sum's order, every elementwise expression written alike. Built
+// alike on both sides (ops/_build.py: the sweep and the spectral solve with
+// -fmad=false, the raw solve with nvcc's default contraction), a member's
 // bits are theirs, whatever the cluster size or the batch.
 #pragma once
 
@@ -38,12 +45,13 @@ struct Ctl {
 static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
 
 // One CTA's view of its block of MB members, for the solve. Args: the
-// kernel's arguments, with the operators Vxi, VyiT, Vx, VyT and lam (n, m),
-// n, m, n_trips, work and c (an AdjConst: floor_fac); Slots: the workspace
-// slots of the fields ISD, FPP, X, RR, PK, V, R0, BX, S, T, Z, T1, T2.
-// Every method is force-inlined into the kernel, so the state below lives
-// in registers; the per-member scalars live in `ctl`, in shared memory.
-template <int MB, class Args, class Slots>
+// kernel's arguments, with the operators Vxi, VyiT, Vx, VyT and lam (n, m)
+// (RAW: Lx (n, n) and LyT (m, m) too), n, m, n_trips, work and c (an
+// AdjConst: floor_fac); Slots: the workspace slots of the fields ISD, FPP,
+// X, RR, PK, V, R0, BX, S, T, Z, T1, T2 (RAW: W and U too). Every method is
+// force-inlined into the kernel, so the state below lives in registers; the
+// per-member scalars live in `ctl`, in shared memory.
+template <int MB, class Args, class Slots, bool RAW = false>
 struct Solve : Block<MB> {
   using Base = Block<MB>;
   using Base::tid;
@@ -64,12 +72,22 @@ struct Solve : Block<MB> {
       : Base(g, args.n, args.m, fields, args.work, smem, ctl_.red),
         a(args), c(args.c), ctl(ctl_) {}
 
-  // OUT_b = At_b Y_b, the split-preconditioned operator in the cosine
-  // basis: isd (poly z - (dt/2) to_s(fpp_n from_s(lam z))), z = isd y. Y's
-  // elements are read in the elementwise layout: a Y whose last writer was
-  // a product's epilogue needs a cluster barrier first.
+  // OUT_b = At_b Y_b, the split-preconditioned operator: apply_spectral
+  // or apply_raw
   __device__ __forceinline__ void apply_At(const float* Y, float* OUT,
                                            float tau, float half_dt) {
+    if constexpr (RAW)
+      apply_raw(Y, OUT, tau, half_dt);
+    else
+      apply_spectral(Y, OUT, tau, half_dt);
+  }
+
+  // OUT_b = At_b Y_b in the cosine basis: isd (poly z - (dt/2)
+  // to_s(fpp_n from_s(lam z))), z = isd y. Y's elements are read in the
+  // elementwise layout: a Y whose last writer was a product's epilogue
+  // needs a cluster barrier first.
+  __device__ __forceinline__ void apply_spectral(const float* Y, float* OUT,
+                                                 float tau, float half_dt) {
     const float *ISD = F(Slots::ISD), *FPP = F(Slots::FPP), *lam = a.lam;
     float *Z = F(Slots::Z), *T1 = F(Slots::T1), *T2 = F(Slots::T2);
     const size_t fs = FS;
@@ -94,6 +112,47 @@ struct Solve : Block<MB> {
       const float poly = (1.f - tau * l) + (half_dt * l) * l;
       OUT[b * fs + e] = s * (poly * (s * in.v[1]) - half_dt * v);
     });
+  }
+
+  // st(b, e, (P^-1/2 V_b)[e]) (MUL) or st(b, e, (P^1/2 V_b)[e]), P^-1/2 V
+  // = from_s(isd to_s(V)): the raw basis's split preconditioner, through
+  // T1 and T2
+  template <bool MUL, class St>
+  __device__ __forceinline__ void phalf(const float* V, St st) {
+    const float* ISD = F(Slots::ISD);
+    float *T1 = F(Slots::T1), *T2 = F(Slots::T2);
+    const size_t fs = FS;
+    gemm_l_to(a.Vxi, V, T1);
+    gemm_r(T1, a.VyiT, [&](int b, int e) {
+      return Vals<1>{{ISD[b * fs + e]}};
+    }, [&](int b, int e, float v, const Vals<1>& in) {
+      T2[b * fs + e] = MUL ? v * in.v[0] : v / in.v[0];
+    });
+    gemm_l_to(a.Vx, T2, T1);
+    gemm_r(T1, a.VyT, [](int, int) { return None{}; },
+           [&](int b, int e, float v, None) { st(b, e, v); });
+  }
+
+  // OUT_b = At_b Y_b in the raw basis: P^-1/2 A P^-1/2 y, A v = v - tau w
+  // + (dt/2)(L w - f'' w), w = L v; z = P^-1/2 y in Z, w in W, A z in U,
+  // each Laplacian's first product through T1
+  __device__ __forceinline__ void apply_raw(const float* Y, float* OUT,
+                                            float tau, float half_dt) {
+    const float* FPP = F(Slots::FPP);
+    float *Z = F(Slots::Z), *T1 = F(Slots::T1), *W = F(Slots::W);
+    float* U = F(Slots::U);
+    const size_t fs = FS;
+    phalf<true>(Y, [&](int b, int e, float v) { Z[b * fs + e] = v; });
+    this->lap(a.Lx, a.LyT, Z, T1, [](int, int) { return None{}; },
+              [&](int b, int e, float l, None) { W[b * fs + e] = l; });
+    this->lap(a.Lx, a.LyT, W, T1, [&](int b, int e) {
+      const size_t i = b * fs + e;
+      return Vals<3>{{W[i], Z[i], FPP[i]}};
+    }, [&](int b, int e, float l, const Vals<3>& in) {
+      const float w = in.v[0];
+      U[b * fs + e] = in.v[1] - tau * w + half_dt * (l - in.v[2] * w);
+    });
+    phalf<true>(U, [&](int b, int e, float v) { OUT[b * fs + e] = v; });
   }
 
   // Fixed-trip BiCGStab in masked lockstep (common.cuh bicgstab_fixed with
@@ -212,13 +271,18 @@ struct Solve : Block<MB> {
     const size_t fs = FS;
     const AdjConst& k = c;
 
-    // bt = isd to_s(rhs) (kept in R0 until r0 is formed), its floor
-    gemm_l_to(a.Vxi, RHS, T1);
-    gemm_r(T1, a.VyiT, [&](int b, int e) {
-      return Vals<1>{{ISD[b * fs + e]}};
-    }, [&](int b, int e, float v, const Vals<1>& in) {
-      R0[b * fs + e] = in.v[0] * v;
-    });
+    // bt = isd to_s(rhs) (raw: P^-1/2 rhs; kept in R0 until r0 is
+    // formed), its floor
+    if constexpr (RAW) {
+      phalf<true>(RHS, [&](int b, int e, float v) { R0[b * fs + e] = v; });
+    } else {
+      gemm_l_to(a.Vxi, RHS, T1);
+      gemm_r(T1, a.VyiT, [&](int b, int e) {
+        return Vals<1>{{ISD[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<1>& in) {
+        R0[b * fs + e] = in.v[0] * v;
+      });
+    }
     this->template reduce<1, false>(0.f, all, [&](int b, int e) {
       return Vals<1>{{R0[b * fs + e]}};
     }, [](int, int, const Vals<1>& in, float (&p)[1]) {
@@ -226,16 +290,25 @@ struct Solve : Block<MB> {
     }, [&](int b, const float (&v)[1]) {
       ctl.floor2[b] = k.floor_fac * nan_max(v[0], EPS_DIV);
     });
-    // y0 = to_s(x0) / isd (warm start and initial best iterate)
-    gemm_l_to(a.Vxi, X0, T1);
-    gemm_r(T1, a.VyiT, [&](int b, int e) {
-      return Vals<1>{{ISD[b * fs + e]}};
-    }, [&](int b, int e, float v, const Vals<1>& in) {
-      const size_t i = b * fs + e;
-      const float y = v / in.v[0];
-      X[i] = y;
-      BX[i] = y;
-    });
+    // y0 = to_s(x0) / isd (raw: P^1/2 x0; warm start and initial best
+    // iterate)
+    if constexpr (RAW) {
+      phalf<false>(X0, [&](int b, int e, float y) {
+        const size_t i = b * fs + e;
+        X[i] = y;
+        BX[i] = y;
+      });
+    } else {
+      gemm_l_to(a.Vxi, X0, T1);
+      gemm_r(T1, a.VyiT, [&](int b, int e) {
+        return Vals<1>{{ISD[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<1>& in) {
+        const size_t i = b * fs + e;
+        const float y = v / in.v[0];
+        X[i] = y;
+        BX[i] = y;
+      });
+    }
     // r0 = bt - At y0 (At y0 lands in T, which every trip overwrites)
     cluster.sync();                   // y0's bands were written by their CTAs
     apply_At(X, T, tau, half_dt);
@@ -258,15 +331,19 @@ struct Solve : Block<MB> {
     });
     bicgstab(tau, half_dt);
 
-    // p = from_s(isd * best)
-    each_elem(all, [&](int b, int e) {
-      const size_t i = b * fs + e;
-      return Vals<2>{{ISD[i], BX[i]}};
-    }, [&](int b, int e, const Vals<2>& in) {
-      Z[b * fs + e] = in.v[0] * in.v[1];
-    });
-    gemm_l_to(a.Vx, Z, T1);
-    gemm_r_to(T1, a.VyT, OUT);
+    // p = from_s(isd * best) (raw: P^-1/2 best)
+    if constexpr (RAW) {
+      phalf<true>(BX, [&](int b, int e, float v) { OUT[b * fs + e] = v; });
+    } else {
+      each_elem(all, [&](int b, int e) {
+        const size_t i = b * fs + e;
+        return Vals<2>{{ISD[i], BX[i]}};
+      }, [&](int b, int e, const Vals<2>& in) {
+        Z[b * fs + e] = in.v[0] * in.v[1];
+      });
+      gemm_l_to(a.Vx, Z, T1);
+      gemm_r_to(T1, a.VyT, OUT);
+    }
   }
 };
 

@@ -1,0 +1,220 @@
+// The Newton Schur solve in the cosine basis on the cluster engine
+// (cluster.cuh): the body of the per-solve Schur kernel
+// (solve2d_cluster.cu). Per member, from the caller's fields DEN (the
+// preconditioner symbol on the eigenvalue grid) and D (the Jacobian
+// diagonal) and the right-hand side RHS:
+//   b = to_s(rhs), x0 = 0;
+//   n_trips trips of the fixed-trip BiCGStab on
+//     S yh = poly yh - lam to_s(d from_s(yh)),
+//     poly = 1/dt - (tau/dt) lam + (kappa/2) lam^2,
+//   right-preconditioned by the pointwise divide by DEN, with the best
+//   iterate, the (50 eps)^2 ||b||^2 noise-floor freeze and a non-finite new
+//   residual rejected;
+//   out = from_s(best).
+// Its loop is the cluster march's in-kernel Schur solve
+// (march2d_blocked.cu, which forms DEN and D from phi and mean(d) instead).
+// It sums and rounds as the one-CTA kernel does (solve2d.cu's
+// SCHUR_SPECTRAL variant, common.cuh's bicgstab_fixed): products k
+// ascending in one FMA chain, reductions in block_sum's order, every
+// elementwise expression written alike. Built with -fmad=false on both
+// sides (ops/_build.py), a member's bits are that kernel's, whatever the
+// cluster size or the batch.
+#pragma once
+
+#include "cluster.cuh"
+
+namespace vch {
+namespace schur {
+
+using namespace cluster;
+
+// Per-member control state, the same in every CTA of a cluster.
+template <int MB>
+struct Ctl {
+  float red[2][MB][NWARP];        // warp values of a reduction
+  float floor2[MB], r2[MB];
+  float rho[MB], kalpha[MB], omega[MB], best_r2[MB];
+  float rho_new[MB], beta[MB], alpha_n[MB], omega_n[MB];
+  int live[MB], improved[MB];
+};
+static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
+
+// One CTA's view of its block of MB members, for the solve. Args: the
+// kernel's arguments, with the operators Vxi, VyiT, Vx, VyT and lam (n, m),
+// n, m, n_trips, work and floor_fac; Slots: the workspace slots of the
+// fields X, RR, P, V, R0, BX, S, T, PH, SH, T1, T2. Every method is
+// force-inlined into the kernel, so the state below lives in registers; the
+// per-member scalars live in `ctl`, in shared memory.
+template <int MB, class Args, class Slots>
+struct Solve : Block<MB> {
+  using Base = Block<MB>;
+  using Base::tid;
+  using Base::FS;
+  using Base::all;
+  using Base::F;
+  using Base::each_elem;
+  using Base::gemm_l_to;
+  using Base::gemm_r;
+  using Base::gemm_r_to;
+  const Args& a;
+  Ctl<MB>& ctl;
+
+  __device__ __forceinline__ Solve(const Args& args, const BGeom& g,
+                                   Ctl<MB>& ctl_, float* smem, int fields)
+      : Base(g, args.n, args.m, fields, args.work, smem, ctl_.red),
+        a(args), ctl(ctl_) {}
+
+  // OUT_b = S_b Y_b = poly Y_b - lam to_s(D_b from_s(Y_b)). Y is read in
+  // the last product's epilogue, after the first product's cluster barrier.
+  __device__ __forceinline__ void apply_S(const float* D, const float* Y,
+                                          float* OUT, float inv_dt,
+                                          float tau_dt, float hk) {
+    float *T1 = F(Slots::T1), *T2 = F(Slots::T2);
+    const float* lam = a.lam;
+    const size_t fs = FS;
+    gemm_l_to(a.Vx, Y, T1);
+    gemm_r(T1, a.VyT, [&](int b, int e) {
+      return Vals<1>{{D[b * fs + e]}};
+    }, [&](int b, int e, float v, const Vals<1>& in) {
+      T2[b * fs + e] = in.v[0] * v;
+    });
+    gemm_l_to(a.Vxi, T2, T1);
+    gemm_r(T1, a.VyiT, [&](int b, int e) {
+      return Vals<2>{{lam[e], Y[b * fs + e]}};
+    }, [&](int b, int e, float v, const Vals<2>& in) {
+      const float l = in.v[0];
+      const float poly = (inv_dt - tau_dt * l) + (hk * l) * l;
+      OUT[b * fs + e] = poly * in.v[1] - l * v;
+    });
+  }
+
+  // The whole solve: OUT = from_s(best). DEN, D, RHS and OUT are fields of
+  // the block (member b at + b FS); RHS is read only by a left product,
+  // after its barrier, and OUT is written band by band by the last product.
+  __device__ __forceinline__ void solve(const float* DEN, const float* D,
+                                        const float* RHS, float* OUT,
+                                        float inv_dt, float tau_dt,
+                                        float hk) {
+    float *X = F(Slots::X), *RR = F(Slots::RR), *P = F(Slots::P);
+    float *V = F(Slots::V), *R0 = F(Slots::R0), *BX = F(Slots::BX);
+    float *Sv = F(Slots::S), *T = F(Slots::T), *PH = F(Slots::PH);
+    float *SH = F(Slots::SH), *T1 = F(Slots::T1);
+    const size_t fs = FS;
+
+    // b = to_s(rhs) into R0 and RR; x0 = 0
+    gemm_l_to(a.Vxi, RHS, T1);
+    gemm_r(T1, a.VyiT, [](int, int) { return None{}; },
+           [&](int b, int e, float v, None) {
+             const size_t i = b * fs + e;
+             R0[i] = v;
+             RR[i] = v;
+             X[i] = 0.f;
+             BX[i] = 0.f;
+             P[i] = 0.f;
+             V[i] = 0.f;
+           });
+    this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+      return Vals<1>{{R0[b * fs + e]}};
+    }, [](int, int, const Vals<1>& in, float (&p)[1]) {
+      p[0] += in.v[0] * in.v[0];
+    }, [&](int b, const float (&v)[1]) {
+      ctl.floor2[b] = a.floor_fac * nan_max(v[0], EPS_DIV);
+      ctl.r2[b] = v[0];
+      ctl.rho[b] = ctl.kalpha[b] = ctl.omega[b] = 1.f;
+      ctl.best_r2[b] = v[0];
+      ctl.live[b] = 1;
+    });
+    auto live = [&](int b) { return ctl.live[b] != 0; };
+    // fixed-trip BiCGStab in masked lockstep (common.cuh bicgstab_fixed)
+    for (int trip = 0; trip < a.n_trips; ++trip) {
+      if (tid < MB)
+        ctl.live[tid] = ctl.live[tid] && ctl.r2[tid] > ctl.floor2[tid];
+      __syncthreads();
+      if (!any_member<MB>(ctl.live)) break;
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{R0[b * fs + e], RR[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[1];
+      }, [&](int b, const float (&v)[1]) {
+        ctl.rho_new[b] = v[0];
+        ctl.beta[b] = (v[0] / (ctl.rho[b] + EPS_DIV)) *
+                      (ctl.kalpha[b] / (ctl.omega[b] + EPS_DIV));
+      });
+      each_elem(live, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<4>{{RR[o], P[o], V[o], DEN[o]}};
+      }, [&](int b, int e, const Vals<4>& in) {
+        const size_t o = b * fs + e;
+        const float p =
+            in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
+        P[o] = p;
+        PH[o] = p / in.v[3];
+      });
+      apply_S(D, PH, V, inv_dt, tau_dt, hk);
+      this->template reduce<1, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{R0[b * fs + e], V[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[1]) {
+        p[0] += in.v[0] * in.v[1];
+      }, [&](int b, const float (&v)[1]) {
+        ctl.alpha_n[b] = ctl.rho_new[b] / (v[0] + EPS_DIV);
+      });
+      each_elem(live, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<3>{{RR[o], V[o], DEN[o]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        const size_t o = b * fs + e;
+        const float sv = in.v[0] - ctl.alpha_n[b] * in.v[1];
+        Sv[o] = sv;
+        SH[o] = sv / in.v[2];
+      });
+      apply_S(D, SH, T, inv_dt, tau_dt, hk);
+      this->template reduce<2, false>(0.f, all, [&](int b, int e) {
+        return Vals<2>{{T[b * fs + e], Sv[b * fs + e]}};
+      }, [](int, int, const Vals<2>& in, float (&p)[2]) {
+        const float t = in.v[0];
+        p[0] += t * in.v[1];
+        p[1] += t * t;
+      }, [&](int b, const float (&v)[2]) {
+        ctl.omega_n[b] = v[0] / (v[1] + EPS_DIV);
+      });
+      this->template reduce<1, false>(0.f, live, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<5>{{X[o], PH[o], SH[o], Sv[o], T[o]}};
+      }, [&](int b, int e, const Vals<5>& in, float (&p)[1]) {
+        const size_t o = b * fs + e;
+        X[o] = in.v[0] + ctl.alpha_n[b] * in.v[1] + ctl.omega_n[b] * in.v[2];
+        const float r = in.v[3] - ctl.omega_n[b] * in.v[4];
+        RR[o] = r;
+        p[0] += r * r;
+      }, [&](int b, const float (&v)[1]) {
+        ctl.improved[b] = 0;
+        if (!ctl.live[b]) return;
+        const float r2n = v[0];
+        if (!isfinite(r2n)) {
+          ctl.live[b] = 0;
+          return;
+        }
+        ctl.rho[b] = ctl.rho_new[b];
+        ctl.kalpha[b] = ctl.alpha_n[b];
+        ctl.omega[b] = ctl.omega_n[b];
+        if (r2n < ctl.best_r2[b]) {
+          ctl.best_r2[b] = r2n;
+          ctl.improved[b] = 1;
+        }
+        ctl.r2[b] = r2n;
+      });
+      if (any_member<MB>(ctl.improved))
+        each_elem([&](int b) { return ctl.improved[b] != 0; },
+                  [&](int b, int e) { return Vals<1>{{X[b * fs + e]}}; },
+                  [&](int b, int e, const Vals<1>& in) {
+                    BX[b * fs + e] = in.v[0];
+                  });
+    }
+    // out = from_s(best x)
+    gemm_l_to(a.Vx, BX, T1);
+    gemm_r_to(T1, a.VyT, OUT);
+  }
+};
+
+}  // namespace schur
+}  // namespace vch

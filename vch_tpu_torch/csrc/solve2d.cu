@@ -11,11 +11,12 @@
 //     Schur operator as two Laplacians (4 products);
 //   - :798 bicgstab_adjoint_spectral_pallas (body :712-795): the
 //     split-preconditioned adjoint step solve A(phi_n) p = rhs in the cosine
-//     basis, warm started from x0, each apply 4 products (the solvers run
-//     solve2d_cluster.cu's cluster kernel; this one is its bit oracle);
+//     basis, warm started from x0, each apply 4 products;
 //   - :581 bicgstab_adjoint_pallas (body :490-578): the same in the raw
 //     basis, each apply P^-1/2 A P^-1/2 as 12 products;
-// and the two cost probes of scripts/diag_kernel_cost.py, which time the
+// the solvers run the first, third and fourth on solve2d_cluster.cu's
+// cluster kernels, and these three are only their bit oracles; and the two
+// cost probes of scripts/diag_kernel_cost.py, which time the
 // raw Schur solve's tile code (the script's "full", :65) in parts:
 //   - :131 nodots: the raw Schur solve's trips with every block dot product
 //     replaced by the constant 0.5, no freeze and no best iterate: its
@@ -358,26 +359,29 @@ int launch_solve(int B, const SolveArgs& a, cudaStream_t s) {
 
 }  // namespace vch
 
-// Compiled twice (ops/_build.py): the object of -DVCH_ADJ_SPECTRAL=1, built
-// with -fmad=false, holds the spectral adjoint solve alone, the bit oracle
-// of the cluster solve (solve2d_cluster.cu), which rounds as this one only
-// where neither contracts an elementwise product into an FMA; the other
-// object holds the five other variants and the C entries.
-#ifndef VCH_ADJ_SPECTRAL
-#define VCH_ADJ_SPECTRAL 0
+// Compiled three times (ops/_build.py): each object of -DVCH_VARIANT=v,
+// v = 0, 2, built with -fmad=false, holds variant v alone, the bit oracle
+// of a cluster kernel (solve2d_cluster.cu), which rounds as this one only
+// where neither contracts an elementwise product into an FMA; the object
+// without VCH_VARIANT holds the four other variants and the C entries,
+// with nvcc's default contraction, as the raw adjoint cluster solve (variant
+// 3's counterpart) is compiled.
+#ifndef VCH_VARIANT
+#define VCH_VARIANT -1
 #endif
 
 namespace vch {
-#if VCH_ADJ_SPECTRAL
-template int launch_solve<ADJOINT_SPECTRAL>(int, const SolveArgs&,
-                                            cudaStream_t);
+#if VCH_VARIANT >= 0
+template int launch_solve<VCH_VARIANT>(int, const SolveArgs&, cudaStream_t);
 #else
+extern template int launch_solve<SCHUR_SPECTRAL>(int, const SolveArgs&,
+                                                 cudaStream_t);
 extern template int launch_solve<ADJOINT_SPECTRAL>(int, const SolveArgs&,
                                                    cudaStream_t);
 #endif
 }  // namespace vch
 
-#if !VCH_ADJ_SPECTRAL
+#if VCH_VARIANT < 0
 extern "C" int vch_solve_workspace_fields() { return vch::SOLVE_FIELDS; }
 
 // One batch of solves, one CTA per member. variant: 0 spectral Schur
@@ -414,4 +418,4 @@ extern "C" int vch_bicgstab_2d(
     default: return vch::launch_solve<5>(B, a, s);
   }
 }
-#endif  // !VCH_ADJ_SPECTRAL
+#endif  // VCH_VARIANT < 0

@@ -1,42 +1,142 @@
-// The per-step adjoint solve of the 2D scan path on thread-block clusters:
-// one member of a (B, n, m) batch per cluster of C CTAs.
+// The per-solve kernels of the 2D scan path on thread-block clusters: one
+// member of a (B, n, m) batch per cluster of C CTAs.
 //
-// Replaces vch_tpu/ops/pallas_kernels.py:798 bicgstab_adjoint_spectral_pallas
-// (body :712-795), one pallas_call per solve (vmap over members): the
-// split-preconditioned adjoint step solve A(phi_n) p = rhs in the cosine
-// basis, warm started from x0; bt = isd to_s(rhs), y0 = to_s(x0) / isd,
-// n_iter trips of the fixed-trip BiCGStab on At y = isd (poly (isd y) -
-// (dt/2) to_s(f'' from_s(lam isd y))) with the best iterate, the (50 eps)^2
-// noise-floor freeze and a non-finite new residual rejected, then
-// p = from_s(isd best). The per-step sweep (models/adjoint2d.py) calls it
-// once per reverse step for the whole batch: config 3's sweep is 100 calls
-// of one member at n = 65.
+// Replaces three TPU kernels of vch_tpu/ops/pallas_kernels.py, each one
+// pallas_call per solve (vmap over members):
+//   - :798 bicgstab_adjoint_spectral_pallas (body :712-795): the
+//     split-preconditioned adjoint step solve A(phi_n) p = rhs in the cosine
+//     basis, warm started from x0; bt = isd to_s(rhs), y0 = to_s(x0) / isd,
+//     n_iter trips of the fixed-trip BiCGStab on At y = isd (poly (isd y) -
+//     (dt/2) to_s(f'' from_s(lam isd y))) with the best iterate, the
+//     (50 eps)^2 noise-floor freeze and a non-finite new residual rejected,
+//     then p = from_s(isd best); here solve_cluster_kernel. The per-step
+//     sweep (models/adjoint2d.py) calls it once per reverse step for the
+//     whole batch: config 3's sweep is 100 calls of one member at n = 65;
+//   - :581 bicgstab_adjoint_pallas (body :490-578): the same solve in the
+//     raw basis, At = P^-1/2 A P^-1/2 with P^-1/2 v = from_s(isd to_s(v))
+//     and A v = v - tau L v + (dt/2)(L L v - f'' L v), bt = P^-1/2 rhs,
+//     y0 = P^1/2 x0, p = P^-1/2 best (pallas_variant "raw"); here
+//     adjoint_raw_cluster_kernel;
+//   - :691 bicgstab_schur_spectral_pallas (body :601-688): the Newton Schur
+//     solve S dphi = rhs in the cosine basis, x0 = 0, S yh = poly yh -
+//     lam to_s(d from_s(yh)), preconditioned by the pointwise divide by
+//     denom, out = from_s(best); here schur_solve_cluster_kernel. The
+//     per-step marcher (ops/linsolve.py) calls it once per Newton round.
 //
-// What bounds it on an H100: a chain of 10 + 8 n_iter dependent dense
-// (n x n)(n x m) products (50 at five trips; 27 MFLOP at n = 65) with a
-// cluster-wide reduction between most of them. One CTA per member (the
-// one-CTA kernel of solve2d.cu, now this kernel's bit oracle) runs a
-// config-3 solve on one SM of 132.
+// What bounds them on an H100: a chain of dependent dense (n x n)(n x m)
+// products (spectral adjoint 10 + 8 n_iter, raw adjoint 24 + 24 n_iter,
+// Schur 4 + 8 n_iter; 27 MFLOP for the spectral adjoint at n = 65 and five
+// trips) with a cluster-wide reduction between most of them. One CTA per
+// member (the one-CTA kernels of solve2d.cu, now these kernels' bit
+// oracles) runs a config-3 solve on one SM of 132.
 //
-// Design: the cluster sweep's own solve (adjoint_solve.cuh, the body
-// adjoint2d_cluster.cu runs inside every reverse step) on cluster.cuh's
-// engine with one member per cluster: each product is split by bands of
-// rows over the C CTAs (up to 16 at a batch of one), the eight reduction
-// chains run on up to eight SMs, and the scalars every CTA branches on come
-// through distributed shared memory. The sweep forms isd and f'' in the
-// kernel; here they come from the caller, and one elementwise pass copies
-// them into the workspace first, so that both kernels run one body. The
-// scalars tau and dt/2 come by value or from device memory (a 0-d tensor
-// on the card: the sweep's dt/2 is one), so a call needs no host sync.
-// Compiled with -fmad=false, as the one-CTA ADJOINT_SPECTRAL variant is: a
-// member's bits are that kernel's, whatever the cluster size or the batch.
-// Full float32 FMA: no tensor cores, no TF32.
+// Design: cluster.cuh's engine with one member per cluster: each product is
+// split by bands of rows over the C CTAs (up to 16 at a batch of one), the
+// eight reduction chains run on up to eight SMs, and the scalars every CTA
+// branches on come through distributed shared memory. The adjoint solves
+// run the cluster sweep's own solve (adjoint_solve.cuh, the body
+// adjoint2d_cluster.cu runs inside every reverse step; the raw one its raw
+// operator): the sweep forms isd and f'' in the kernel, here they come from
+// the caller, and one elementwise pass copies them into the workspace
+// first, so that both kernels run one body. The Schur solve runs
+// schur_solve.cuh, reading denom, d and rhs from the caller's fields. The
+// scalars come by value or from device memory (a 0-d tensor on the card:
+// the sweep's dt/2 and the marcher's 1/dt and tau/dt are), so a call needs
+// no host sync.
+//
+// Compiled once per kernel (ops/_build.py): -DVCH_VARIANT=0 the Schur
+// solve, 2 the spectral adjoint solve, 3 the raw one (solve2d.cu's variant
+// numbers), each object holding its kernel and C entries. Each compiles as
+// its one-CTA oracle does, so that a member's bits are that kernel's,
+// whatever the cluster size or the batch: the Schur and the spectral
+// adjoint solve with -fmad=false (an expression such as poly y - l v adds
+// two products, which nvcc may fuse either way), the raw adjoint solve with
+// nvcc's default contraction (none of its expressions adds two products, so
+// both fuse alike; without contraction its float32 result on rough inputs
+// lay farther from float64). Full float32 FMA: no tensor cores, no TF32.
+#include <type_traits>
+
 #include "adjoint_solve.cuh"
+#include "schur_solve.cuh"
+
+#ifndef VCH_VARIANT
+#error "compile with -DVCH_VARIANT=0 (Schur), 2 (adjoint) or 3 (raw adjoint)"
+#endif
 
 namespace vch {
 namespace step {
 
 using namespace cluster;
+
+// One batch of B solves on `kernel`, one member per cluster of `cluster`
+// CTAs, with ring stages of kc rows and smem_bytes of dynamic shared memory
+// per CTA: the geometry of ops/march.py blocked_geometry with one member,
+// checked here against the kernel's own.
+template <class A>
+int launch(void (*kernel)(A, BGeom), LaunchState (&state)[16], const A& a,
+           int B, int cluster, int kc, int smem_bytes, void* stream) {
+  BGeom g;
+  int err = check_geometry<1>(a.n, a.m, cluster, kc, smem_bytes, g);
+  if (err) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = configure((const void*)kernel, state, cfg, attr, B, cluster,
+                  smem_bytes, (cudaStream_t)stream);
+  if (err) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, g);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs of `kernel` (members 1, segment 0:
+// the arguments of the march's and the sweep's queries) can be resident at
+// once on the current card with this geometry; a negative CUDA error code
+// on failure.
+inline int resident(const void* kernel, LaunchState (&state)[16],
+                    int members, int segment, int n, int m, int cluster,
+                    int kc, int smem_bytes) {
+  if (members != 1 || segment) return -(int)cudaErrorInvalidValue;
+  return max_clusters<1>(kernel, state, n, m, cluster, kc, smem_bytes);
+}
+
+// Per object: the attributes set so far on its kernel, per device.
+static LaunchState (&launch_state())[16] {
+  static LaunchState state[16];
+  return state;
+}
+
+#if VCH_VARIANT == 0
+
+struct SchurArgs {
+  const float *Vxi, *VyiT, *Vx, *VyT, *lam;   // (n, n), (m, m), (n, m)
+  const float *denom, *d, *rhs;               // (B, n, m)
+  const float* scal_p[3];   // device scalars, or null: scal
+  float scal[3];            // inv_dt, tau_dt, kappa/2
+  float *out, *work;
+  int n, m, n_trips;
+  float floor_fac;
+};
+
+// the workspace's fields of one member
+struct SchurSlots {
+  enum { X, RR, P, V, R0, BX, S, T, PH, SH, T1, T2, COUNT };
+};
+
+__global__ void __launch_bounds__(NT, 1)
+    schur_solve_cluster_kernel(SchurArgs a, BGeom g) {
+  extern __shared__ float4 smem4[];
+  __shared__ schur::Ctl<1> ctl;
+  schur::Solve<1, SchurArgs, SchurSlots> s(
+      a, g, ctl, reinterpret_cast<float*>(smem4), SchurSlots::COUNT);
+  float v[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = a.scal_p[i] ? *a.scal_p[i] : a.scal[i];
+  const size_t mo = (size_t)s.b0 * s.nm;    // the member's fields
+  s.solve(a.denom + mo, a.d + mo, a.rhs + mo, a.out + mo, v[0], v[1], v[2]);
+  s.cluster.sync();   // no CTA leaves while a peer may still write its Ctl
+}
+
+#else
 
 struct Args {
   const float *Vxi, *VyiT, *Vx, *VyT, *lam;   // (n, n), (m, m), (n, m)
@@ -47,14 +147,26 @@ struct Args {
   int n, m, n_trips;
   AdjConst c;                       // tau and floor_fac (the rest unused)
 };
+struct RawArgs : Args {
+  const float *Lx, *LyT;                      // (n, n), (m, m)
+};
 
 // the workspace's fields of one member
 struct Slots {
   enum { ISD, FPP, X, RR, PK, V, R0, BX, S, T, Z, T1, T2, COUNT };
 };
+struct RawSlots : Slots {
+  enum { W = Slots::COUNT, U, COUNT };
+};
 
-struct StepSolve : adj::Solve<1, Args, Slots> {
-  using Base = adj::Solve<1, Args, Slots>;
+template <bool RAW>
+using StepArgs = std::conditional_t<RAW, RawArgs, Args>;
+template <bool RAW>
+using StepSlots = std::conditional_t<RAW, RawSlots, Slots>;
+
+template <bool RAW>
+struct StepSolve : adj::Solve<1, StepArgs<RAW>, StepSlots<RAW>, RAW> {
+  using Base = adj::Solve<1, StepArgs<RAW>, StepSlots<RAW>, RAW>;
   using Base::nm;
   using Base::b0;
   using Base::all;
@@ -63,9 +175,10 @@ struct StepSolve : adj::Solve<1, Args, Slots> {
   using Base::each_elem;
   using Base::a;
 
-  __device__ __forceinline__ StepSolve(const Args& args, const BGeom& g,
-                                       adj::Ctl<1>& ctl_, float* smem)
-      : Base(args, g, ctl_, smem, Slots::COUNT) {}
+  __device__ __forceinline__ StepSolve(const StepArgs<RAW>& args,
+                                       const BGeom& g, adj::Ctl<1>& ctl_,
+                                       float* smem)
+      : Base(args, g, ctl_, smem, StepSlots<RAW>::COUNT) {}
 
   __device__ __forceinline__ void run() {
     const size_t mo = (size_t)b0 * nm;    // the member's fields
@@ -85,21 +198,86 @@ struct StepSolve : adj::Solve<1, Args, Slots> {
   }
 };
 
+#if VCH_VARIANT == 2
 __global__ void __launch_bounds__(NT, 1)
     solve_cluster_kernel(Args a, BGeom g) {
   extern __shared__ float4 smem4[];
   __shared__ adj::Ctl<1> ctl;
-  StepSolve(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
+  StepSolve<false>(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
+}
+#else
+__global__ void __launch_bounds__(NT, 1)
+    adjoint_raw_cluster_kernel(RawArgs a, BGeom g) {
+  extern __shared__ float4 smem4[];
+  __shared__ adj::Ctl<1> ctl;
+  StepSolve<true>(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
+}
+#endif
+
+// The adjoint solves' arguments; tau and half_dt are read from tau_p and
+// half_dt_p where those are not null.
+inline Args adjoint_args(const float* Vxi, const float* VyiT,
+                         const float* Vx, const float* VyT, const float* lam,
+                         const float* isd, const float* fpp,
+                         const float* rhs, const float* x0,
+                         const float* tau_p, const float* half_dt_p,
+                         float tau, float half_dt, float* out, float* work,
+                         int n, int m, int n_iter, float floor_fac) {
+  Args a{Vxi, VyiT, Vx, VyT, lam, isd, fpp, rhs, x0, tau_p, half_dt_p,
+         half_dt, out, work, n, m, n_iter, {}};
+  a.c.tau = tau;
+  a.c.floor_fac = floor_fac;
+  return a;
 }
 
-// Per device: the attributes set so far on solve_cluster_kernel.
-LaunchState (&launch_state())[16] {
-  static LaunchState state[16];
-  return state;
-}
+#endif  // VCH_VARIANT
 
 }  // namespace step
 }  // namespace vch
+
+#if VCH_VARIANT == 0
+
+extern "C" int vch_schur_cluster_workspace_fields() {
+  return vch::step::SchurSlots::COUNT;
+}
+
+// The occupancy query of the Schur solve (vch_solve_cluster_max_clusters'
+// arguments).
+extern "C" int vch_schur_cluster_max_clusters(int members, int segment,
+                                              int n, int m, int cluster,
+                                              int kc, int smem_bytes) {
+  return vch::step::resident(
+      (const void*)vch::step::schur_solve_cluster_kernel,
+      vch::step::launch_state(), members, segment, n, m, cluster, kc,
+      smem_bytes);
+}
+
+// One batch of B spectral Newton Schur solves, one member per cluster of
+// `cluster` CTAs (vch_bicgstab_adjoint_spectral_cluster's geometry). denom
+// (the preconditioner symbol on the eigenvalue grid), d, rhs and out are
+// (B, n, m); inv_dt, tau_dt and kappa/2 are read from inv_dt_p, tau_dt_p
+// and hk_p where those are not null; work holds B *
+// vch_schur_cluster_workspace_fields() (n, m) fields. What vch_bicgstab_2d's
+// variant 0 (solve2d.cu) computes, bit for bit.
+extern "C" int vch_bicgstab_schur_spectral_cluster(
+    const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
+    const float* lam, const float* denom, const float* d, const float* rhs,
+    const float* inv_dt_p, const float* tau_dt_p, const float* hk_p,
+    float inv_dt, float tau_dt, float hk, float* out, float* work, int B,
+    int n, int m, int n_iter, float floor_fac, int cluster, int kc,
+    int smem_bytes, void* stream) {
+  if (B <= 0 || n_iter < 0 || !Vxi || !VyiT || !Vx || !VyT || !lam ||
+      !denom || !d || !rhs || !out || !work)
+    return (int)cudaErrorInvalidValue;
+  const vch::step::SchurArgs a{
+      Vxi, VyiT, Vx, VyT, lam, denom, d, rhs, {inv_dt_p, tau_dt_p, hk_p},
+      {inv_dt, tau_dt, hk}, out, work, n, m, n_iter, floor_fac};
+  return vch::step::launch(vch::step::schur_solve_cluster_kernel,
+                           vch::step::launch_state(), a, B, cluster, kc,
+                           smem_bytes, stream);
+}
+
+#elif VCH_VARIANT == 2
 
 extern "C" int vch_solve_cluster_workspace_fields() {
   return vch::step::Slots::COUNT;
@@ -112,10 +290,9 @@ extern "C" int vch_solve_cluster_workspace_fields() {
 extern "C" int vch_solve_cluster_max_clusters(int members, int segment,
                                               int n, int m, int cluster,
                                               int kc, int smem_bytes) {
-  if (members != 1 || segment) return -(int)cudaErrorInvalidValue;
-  return vch::cluster::max_clusters<1>(
-      (const void*)vch::step::solve_cluster_kernel, vch::step::launch_state(),
-      n, m, cluster, kc, smem_bytes);
+  return vch::step::resident((const void*)vch::step::solve_cluster_kernel,
+                             vch::step::launch_state(), members, segment, n,
+                             m, cluster, kc, smem_bytes);
 }
 
 // One batch of B per-step adjoint solves, one member per cluster of
@@ -132,25 +309,59 @@ extern "C" int vch_bicgstab_adjoint_spectral_cluster(
     const float* x0, const float* tau_p, const float* half_dt_p, float tau,
     float half_dt, float* out, float* work, int B, int n, int m, int n_iter,
     float floor_fac, int cluster, int kc, int smem_bytes, void* stream) {
-  using namespace vch::cluster;
   if (B <= 0 || n_iter < 0 || !Vxi || !VyiT || !Vx || !VyT || !lam ||
       !isd || !fpp || !rhs || !x0 || !out || !work)
     return (int)cudaErrorInvalidValue;
-  vch::step::Args a{Vxi, VyiT, Vx, VyT, lam, isd, fpp, rhs, x0, tau_p,
-                    half_dt_p, half_dt, out, work, n, m, n_iter, {}};
-  a.c.tau = tau;
-  a.c.floor_fac = floor_fac;
-  BGeom g;
-  int err = check_geometry<1>(n, m, cluster, kc, smem_bytes, g);
-  if (err) return err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  err = configure((const void*)vch::step::solve_cluster_kernel,
-                  vch::step::launch_state(), cfg, attr, B, cluster,
-                  smem_bytes, (cudaStream_t)stream);
-  if (err) return err;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, vch::step::solve_cluster_kernel, a, g);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const vch::step::Args a = vch::step::adjoint_args(
+      Vxi, VyiT, Vx, VyT, lam, isd, fpp, rhs, x0, tau_p, half_dt_p, tau,
+      half_dt, out, work, n, m, n_iter, floor_fac);
+  return vch::step::launch(vch::step::solve_cluster_kernel,
+                           vch::step::launch_state(), a, B, cluster, kc,
+                           smem_bytes, stream);
 }
+
+#else
+
+extern "C" int vch_adjoint_raw_cluster_workspace_fields() {
+  return vch::step::RawSlots::COUNT;
+}
+
+// The occupancy query of the raw adjoint solve
+// (vch_solve_cluster_max_clusters' arguments).
+extern "C" int vch_adjoint_raw_cluster_max_clusters(int members, int segment,
+                                                    int n, int m,
+                                                    int cluster, int kc,
+                                                    int smem_bytes) {
+  return vch::step::resident(
+      (const void*)vch::step::adjoint_raw_cluster_kernel,
+      vch::step::launch_state(), members, segment, n, m, cluster, kc,
+      smem_bytes);
+}
+
+// One batch of B raw-basis adjoint step solves, one member per cluster
+// (vch_bicgstab_adjoint_spectral_cluster's arguments and geometry, with the
+// Laplacian factors Lx (n, n) and LyT (m, m) first); work holds B *
+// vch_adjoint_raw_cluster_workspace_fields() (n, m) fields. What
+// vch_bicgstab_2d's variant 3 (solve2d.cu) computes, bit for bit.
+extern "C" int vch_bicgstab_adjoint_raw_cluster(
+    const float* Lx, const float* LyT, const float* Vxi, const float* VyiT,
+    const float* Vx, const float* VyT, const float* isd, const float* fpp,
+    const float* rhs, const float* x0, const float* tau_p,
+    const float* half_dt_p, float tau, float half_dt, float* out,
+    float* work, int B, int n, int m, int n_iter, float floor_fac,
+    int cluster, int kc, int smem_bytes, void* stream) {
+  if (B <= 0 || n_iter < 0 || !Lx || !LyT || !Vxi || !VyiT || !Vx ||
+      !VyT || !isd || !fpp || !rhs || !x0 || !out || !work)
+    return (int)cudaErrorInvalidValue;
+  vch::step::RawArgs a;
+  static_cast<vch::step::Args&>(a) = vch::step::adjoint_args(
+      Vxi, VyiT, Vx, VyT, nullptr, isd, fpp, rhs, x0, tau_p, half_dt_p, tau,
+      half_dt, out, work, n, m, n_iter, floor_fac);
+  a.Lx = Lx;
+  a.LyT = LyT;
+  return vch::step::launch(vch::step::adjoint_raw_cluster_kernel,
+                           vch::step::launch_state(), a, B, cluster, kc,
+                           smem_bytes, stream);
+}
+
+#endif  // VCH_VARIANT

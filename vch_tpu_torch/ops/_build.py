@@ -8,15 +8,22 @@ member-blocked march), `1` (the whole one-member march) and `1` with
 `-DVCH_SEG=1` (the segment march), and the cluster sweep with `-DVCH_BB=8`,
 `4`, `2` (the member-blocked sweep), `1` (the whole one-member sweep) and
 `1` with `-DVCH_SEG=1` (the segment sweep), one kernel per object; the
-per-solve kernels twice, the spectral adjoint solve (`-DVCH_ADJ_SPECTRAL=1`)
-apart from the five others; the one-CTA 2D march and sweep (the bit oracles
-of the cluster march and sweep), the cluster adjoint step solve, the
-operator applies, the fused 1D march and the cost probes, which hold their
-own members-per-CTA templates, once each. The 1D march, both sweeps and
-both spectral adjoint solves compile with `-fmad=false`: their only FMAs are
+one-CTA per-solve kernels three times, the spectral Schur solve and the
+spectral adjoint solve (`-DVCH_VARIANT=0`, `2`: two cluster solves' bit
+oracles) each apart from the four others; the cluster solves three times
+(`-DVCH_VARIANT=0`, `2`, `3`: the Schur solve, the spectral and the raw
+adjoint step solve); the one-CTA 2D march and sweep (the bit oracles of
+the cluster march and sweep), the operator applies, the fused 1D march and
+the cost probes, which hold their own members-per-CTA templates, once each.
+The 1D march, both sweeps, the Schur and the spectral adjoint cluster
+solves and their oracles compile with `-fmad=false`: their only FMAs are
 the explicit ones of their products, so that no copy of an elementwise
 expression that the compiler unrolls rounds differently from another, and
-each cluster kernel rounds as its one-CTA oracle does. All objects compile at once in parallel, and link
+each cluster kernel rounds as its one-CTA oracle does. The raw adjoint
+cluster solve and its oracle (variant 3, in the first object) compile with
+nvcc's default contraction: no expression of theirs adds two products, so
+nvcc fuses them alike, and the contracted raw solve lies nearer float64 on
+rough inputs. All objects compile at once in parallel, and link
 into one shared library with a plain C interface, at first use, into
 `vch_tpu_torch/_build/` (listed in .gitignore); `ctypes` loads it. The
 library's file name carries a hash of the sources and flags, so an edited
@@ -49,11 +56,15 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            "adjoint2d_cluster.cu": tuple((f"-DVCH_BB={bb}", "-fmad=false")
                                          for bb in (8, 4, 2, 1))
            + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),),
-           "solve2d.cu": ((), ("-DVCH_ADJ_SPECTRAL=1", "-fmad=false")),
-           "solve2d_cluster.cu": (("-fmad=false",),), "apply2d.cu": ((),),
+           "solve2d.cu": ((),) + tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
+                                       for v in (0, 2)),
+           "solve2d_cluster.cu": tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
+                                       for v in (0, 2))
+           + (("-DVCH_VARIANT=3",),),
+           "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),)}
 HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh",
-           "adjoint_solve.cuh")
+           "adjoint_solve.cuh", "schur_solve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -201,11 +212,25 @@ def load():
     lib.vch_bicgstab_adjoint_spectral_cluster.argtypes = (
         [_P] * 11 + [ctypes.c_float] * 2 + [_P] * 2 + [_I] * 4
         + [ctypes.c_float] + [_I] * 3 + [_P])
-    # members segment n m cluster kc smem_bytes
-    lib.vch_solve_cluster_max_clusters.argtypes = [_I] * 7
-    lib.vch_solve_cluster_max_clusters.restype = _I
-    lib.vch_solve_cluster_workspace_fields.argtypes = []
-    lib.vch_solve_cluster_workspace_fields.restype = _I
+    # Lx LyT Vxi VyiT Vx VyT isd fpp rhs x0 tau_p half_dt_p | tau half_dt |
+    # out work | B n m n_iter | floor_fac | cluster kc smem_bytes | stream
+    lib.vch_bicgstab_adjoint_raw_cluster.argtypes = (
+        [_P] * 12 + [ctypes.c_float] * 2 + [_P] * 2 + [_I] * 4
+        + [ctypes.c_float] + [_I] * 3 + [_P])
+    # Vxi VyiT Vx VyT lam denom d rhs inv_dt_p tau_dt_p hk_p | inv_dt
+    # tau_dt hk | out work | B n m n_iter | floor_fac | cluster kc
+    # smem_bytes | stream
+    lib.vch_bicgstab_schur_spectral_cluster.argtypes = (
+        [_P] * 11 + [ctypes.c_float] * 3 + [_P] * 2 + [_I] * 4
+        + [ctypes.c_float] + [_I] * 3 + [_P])
+    for name in ("solve", "adjoint_raw", "schur"):
+        # members segment n m cluster kc smem_bytes
+        query = getattr(lib, f"vch_{name}_cluster_max_clusters")
+        query.argtypes = [_I] * 7
+        query.restype = _I
+        fields = getattr(lib, f"vch_{name}_cluster_workspace_fields")
+        fields.argtypes = []
+        fields.restype = _I
     # variant scal s0 s1 s2 Lx LyT Vxi VyiT Vx VyT f1 v | out |
     # B n m shared | cluster per_thread chunk smem_bytes | stream
     lib.vch_apply_2d.argtypes = ([_I, _P] + [ctypes.c_float] * 3 + [_P] * 8
@@ -238,7 +263,8 @@ def load():
                lib.vch_adjoint_fused_2d_cluster,
                lib.vch_adjoint_fused_2d_segment_cluster,
                lib.vch_bicgstab_2d, lib.vch_bicgstab_adjoint_spectral_cluster,
-               lib.vch_apply_2d,
+               lib.vch_bicgstab_adjoint_raw_cluster,
+               lib.vch_bicgstab_schur_spectral_cluster, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_blocked_microbench, lib.vch_while_probe):
         fn.restype = _I

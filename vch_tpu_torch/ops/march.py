@@ -477,16 +477,21 @@ _MARCH_NAMES = {8: "the blocked march", 4: "the blocked march",
 _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
                 2: "the blocked sweep",
                 1: "the one-member sweep (whole or segment sweep)"}
-_SOLVE_NAMES = {1: "the adjoint step solve"}
 # the cluster kernels launch_geometry fits, each with its own register
 # count, so its own residency: the march (csrc/march2d_blocked.cu), the
-# sweep (csrc/adjoint2d_cluster.cu) and the per-step adjoint solve
-# (csrc/solve2d_cluster.cu); their names by members per cluster, and
-# their occupancy queries
+# sweep (csrc/adjoint2d_cluster.cu) and the three per-solve kernels of
+# csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
+# spectral Schur solve); their names by members per cluster, and their
+# occupancy queries
 CLUSTER_KERNELS = {
     "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
     "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
-    "solve": (_SOLVE_NAMES, "vch_solve_cluster_max_clusters")}
+    "solve": ({1: "the adjoint step solve"},
+              "vch_solve_cluster_max_clusters"),
+    "raw_solve": ({1: "the raw adjoint step solve"},
+                  "vch_adjoint_raw_cluster_max_clusters"),
+    "schur_solve": ({1: "the Schur solve"},
+                    "vch_schur_cluster_max_clusters")}
 
 
 def _kernel_names(kernel: str) -> dict:
@@ -502,12 +507,12 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
                      max_cluster: int = 16, cluster: int | None = None,
                      members: int = BLOCK_MEMBERS,
                      kernel: str = "march") -> BlockedGeometry:
-    """The cluster geometry of a cluster kernel (`kernel`: "march",
-    "sweep" or "solve", which split a block alike) for B members on an
-    (n, m) grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
+    """The cluster geometry of a cluster kernel (`kernel`, one of
+    CLUSTER_KERNELS, which split a block alike) for B members on an (n, m)
+    grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
     `march_fused_2d_blocked` and `adjoint_fused_2d_blocked`, 1 for
     `march_fused_2d`, `march_fused_2d_segment`, `adjoint_fused_2d`,
-    `adjoint_fused_2d_segment` and the adjoint step solve
+    `adjoint_fused_2d_segment` and the three cluster solves
     (`blocked_cluster_size`; `cluster` overrides it). Raises ValueError
     when B is not a positive multiple of `members`, or when no ring fits in
     BLOCKED_SMEM_LIMIT bytes per CTA."""
@@ -542,8 +547,8 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
 @lru_cache(maxsize=64)
 def resident_clusters(device_index, n, m, C, kc, smem,
                       members=BLOCK_MEMBERS, segment=False, kernel="march"):
-    """How many clusters of a cluster kernel (`kernel`: the march, the
-    sweep or the solve; `members` per cluster; with segment, the segment
+    """How many clusters of a cluster kernel (`kernel`, one of
+    CLUSTER_KERNELS; `members` per cluster; with segment, the segment
     march or sweep) with this geometry the card holds at once
     (cudaOccupancyMaxActiveClusters on that kernel; negative: a CUDA
     error)."""
@@ -1435,8 +1440,9 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
 WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              _adjoint_fused_2d_cta,
                              _adjoint_fused_2d_segment_cta,
+                             sk._bicgstab_schur_spectral_cta,
                              sk._bicgstab_adjoint_spectral_cta,
-                             sk.schur_apply,
+                             sk._bicgstab_adjoint_cta, sk.schur_apply,
                              sk.adjoint_apply, sk.spectral_solve,
                              sk.schur_nodots,
                              sk.schur_mmonly, pk.matmul_chain,

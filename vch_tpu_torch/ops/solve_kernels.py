@@ -33,18 +33,20 @@ Two cost probes of `bicgstab_schur` (scripts/diag_kernel_cost.py:131,
 Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernel of `csrc/solve2d.cu`, `csrc/solve2d_cluster.cu` or
-`csrc/apply2d.cu` (float32; one CTA per member, but one member per
-thread-block cluster for `bicgstab_adjoint_spectral`, `solve_geometry`, and
-for the three operator applies, `apply_geometry`; a failed build or launch
-raises, with no fallback), on CPU tensors it runs
+hand-written kernel of `csrc/solve2d_cluster.cu`, `csrc/solve2d.cu` or
+`csrc/apply2d.cu` (float32; one member per thread-block cluster for
+`bicgstab_schur_spectral`, `bicgstab_adjoint_spectral` and
+`bicgstab_adjoint`, `solve_geometry`, and for the three operator applies,
+`apply_geometry`; one CTA per member for the others; a failed build or
+launch raises, with no fallback), on CPU tensors it runs
 its plain PyTorch version `<name>_plain` of this module, which computes
 what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
 non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
 kernels) in float32 or float64 without host syncs. Each wrapper counts its
-launches in `.launches`. `_bicgstab_adjoint_spectral_cta` keeps the one-CTA
-spectral adjoint solve of `csrc/solve2d.cu` as the cluster kernel's bit
-oracle, which only the card tests and chip_smoke.py call.
+launches in `.launches`. `_bicgstab_schur_spectral_cta`,
+`_bicgstab_adjoint_spectral_cta` and `_bicgstab_adjoint_cta` keep the
+one-CTA solves of `csrc/solve2d.cu` as the cluster kernels' bit oracles,
+which only the card tests and chip_smoke.py call.
 """
 from __future__ import annotations
 
@@ -244,39 +246,63 @@ def _launch(wrapper, variant, scalars, mats, fields, n_iter):
 def bicgstab_schur_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs,
                             inv_dt, tau_dt, half_kappa, n_iter: int):
     """One fixed-trip Newton Schur solve S dphi = rhs per member in the
-    cosine basis, x0 = 0 (vch_tpu/ops/pallas_kernels.py:691).
+    cosine basis, x0 = 0 (vch_tpu/ops/pallas_kernels.py:691). On CUDA
+    tensors each member runs on a thread-block cluster (`solve_geometry`),
+    bit for bit what the one-CTA kernel `_bicgstab_schur_spectral_cta`
+    computes.
 
     Args: Vx_inv, Vx (n, n); Vy_inv_T, VyT (m, m); lam (n, m) eigenvalue
     grid; denom (the preconditioner symbol), d (the Jacobian diagonal) and
-    rhs (n, m) or (B, n, m); inv_dt, tau_dt, half_kappa scalars (numbers
-    or 0-d tensors). Returns dphi shaped as rhs. The residual is measured in
-    the spectral metric, so the Krylov path differs from the raw-basis
-    solve's; the Newton tolerance gates the result either way.
+    rhs (n, m) or (B, n, m); inv_dt, tau_dt, half_kappa scalars (numbers,
+    or tensors of one element, read on the card without a host sync).
+    Returns dphi shaped as rhs. The residual is measured in the spectral
+    metric, so the Krylov path differs from the raw-basis solve's; the
+    Newton tolerance gates the result either way.
     """
     args = (Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs, inv_dt, tau_dt,
             half_kappa)
     if not _build.on_cuda("bicgstab_schur_spectral", rhs):
         return bicgstab_schur_spectral_plain(*args, n_iter=n_iter)
-    return _launch(bicgstab_schur_spectral, _SCHUR_SPECTRAL,
-                   (inv_dt, tau_dt, half_kappa),
-                   (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
-                   (denom, d, rhs, None), n_iter)
+    return _launch_cluster(bicgstab_schur_spectral,
+                           (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
+                           (denom, d, rhs, None),
+                           (inv_dt, tau_dt, half_kappa), n_iter)
 
 
 bicgstab_schur_spectral.launches = 0
 
 
+def _bicgstab_schur_spectral_cta(*args, n_iter: int):
+    """The one-CTA spectral Schur solve of csrc/solve2d.cu (one member per
+    CTA): the bit oracle of `bicgstab_schur_spectral`, which the card tests
+    and chip_smoke.py hold the cluster kernel against; no solver calls it.
+    Arguments and results as `bicgstab_schur_spectral`."""
+    if not _build.on_cuda("_bicgstab_schur_spectral_cta", args[7]):
+        return bicgstab_schur_spectral_plain(*args, n_iter=n_iter)
+    Vx_inv, Vy_inv_T, Vx, VyT, lam, denom, d, rhs = args[:8]
+    return _launch(_bicgstab_schur_spectral_cta, _SCHUR_SPECTRAL, args[8:],
+                   (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
+                   (denom, d, rhs, None), n_iter)
+
+
+_bicgstab_schur_spectral_cta.launches = 0
+
+
 @lru_cache(maxsize=64)
-def solve_geometry(n: int, m: int, B: int, device_index: int):
-    """The cluster geometry of `bicgstab_adjoint_spectral` for B members of
-    an (n, m) grid on CUDA device `device_index`: one member per
-    thread-block cluster, `ops.march.launch_geometry` fitted to the solve
+def solve_geometry(n: int, m: int, B: int, device_index: int,
+                   kernel: str = "solve"):
+    """The cluster geometry of a cluster solve for B members of an (n, m)
+    grid on CUDA device `device_index` (`kernel`: "solve" for
+    `bicgstab_adjoint_spectral`, "raw_solve" for `bicgstab_adjoint`,
+    "schur_solve" for `bicgstab_schur_spectral`): one member per
+    thread-block cluster, `ops.march.launch_geometry` fitted to that
     kernel's own residency (at n = 65 up to 16 CTAs for one member, one at
-    a batch above the SMs). Cached: the per-step sweep calls the solve once
-    per step, and its wrapper must cost less host time than the kernel."""
+    a batch above the SMs). Cached: the per-step sweep and marcher call a
+    solve once per step or Newton round, and its wrapper must cost less host
+    time than the kernel."""
     from vch_tpu_torch.ops import march   # ops.march imports this module
     return march.launch_geometry(n, m, B, torch.device("cuda", device_index),
-                                 members=1, kernel="solve")
+                                 members=1, kernel=kernel)
 
 
 def _device_scalar(x, dev):
@@ -289,6 +315,45 @@ def _device_scalar(x, dev):
     if t.dtype != torch.float32 or t.device != dev:
         t = t.to(device=dev, dtype=torch.float32)
     return t, 0.0
+
+
+# each cluster solve of csrc/solve2d_cluster.cu by wrapper: its kernel in
+# ops.march.CLUSTER_KERNELS, its C entry and its workspace query
+_CLUSTER_SOLVES = {
+    "bicgstab_schur_spectral": ("schur_solve",
+                                "vch_bicgstab_schur_spectral_cluster",
+                                "vch_schur_cluster_workspace_fields"),
+    "bicgstab_adjoint_spectral": ("solve",
+                                  "vch_bicgstab_adjoint_spectral_cluster",
+                                  "vch_solve_cluster_workspace_fields"),
+    "bicgstab_adjoint": ("raw_solve", "vch_bicgstab_adjoint_raw_cluster",
+                         "vch_adjoint_raw_cluster_workspace_fields")}
+
+
+def _launch_cluster(wrapper, mats, fields, scalars, n_iter):
+    """Check and launch one batch of solves on the cluster kernel of
+    `wrapper` (`_check`'s arguments; the scalars as `_device_scalar` passes
+    them: no host sync, no stack of fresh copies)."""
+    name = wrapper.__name__
+    kernel, entry, nfields = _CLUSTER_SOLVES[name]
+    n, m, B = _check(mats, fields)
+    rhs = fields[2]
+    dev = rhs.device
+    geo = solve_geometry(n, m, B, dev.index, kernel)
+    lib = _build.load()
+    scal = [_device_scalar(x, dev) for x in scalars]
+    out = torch.empty_like(rhs)
+    work = torch.empty((B, getattr(lib, nfields)(), n, m),
+                       dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = getattr(lib, entry)(
+        *[t.data_ptr() for t in mats + fields if t is not None],
+        *[ptr(t) for t, _ in scal], *[v for _, v in scal], out.data_ptr(),
+        work.data_ptr(), B, n, m, int(n_iter), _FLOOR_F32, geo.cluster,
+        geo.kc, geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    wrapper.launches += 1
+    _build.raise_on(lib, err, name)
+    return out
 
 
 def bicgstab_adjoint_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom,
@@ -309,25 +374,10 @@ def bicgstab_adjoint_spectral(Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom,
             half_dt)
     if not _build.on_cuda("bicgstab_adjoint_spectral", rhs):
         return bicgstab_adjoint_spectral_plain(*args, n_iter=n_iter)
-    fields = (inv_sqrt_denom, fpp, rhs, x0)
-    n, m, B = _check((None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam), fields)
-    dev = rhs.device
-    geo = solve_geometry(n, m, B, dev.index)
-    lib = _build.load()
-    (tau_t, tau_v), (hdt_t, hdt_v) = (_device_scalar(tau, dev),
-                                      _device_scalar(half_dt, dev))
-    out = torch.empty_like(rhs)
-    work = torch.empty((B, lib.vch_solve_cluster_workspace_fields(), n, m),
-                       dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.vch_bicgstab_adjoint_spectral_cluster(
-        *[t.data_ptr() for t in (Vx_inv, Vy_inv_T, Vx, VyT, lam) + fields],
-        ptr(tau_t), ptr(hdt_t), tau_v, hdt_v, out.data_ptr(), work.data_ptr(),
-        B, n, m, int(n_iter), _FLOOR_F32, geo.cluster, geo.kc,
-        geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
-    bicgstab_adjoint_spectral.launches += 1
-    _build.raise_on(lib, err, "bicgstab_adjoint_spectral")
-    return out
+    return _launch_cluster(bicgstab_adjoint_spectral,
+                           (None, None, Vx_inv, Vy_inv_T, Vx, VyT, lam),
+                           (inv_sqrt_denom, fpp, rhs, x0), (tau, half_dt),
+                           n_iter)
 
 
 bicgstab_adjoint_spectral.launches = 0
@@ -373,17 +423,37 @@ def bicgstab_adjoint(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
     """`bicgstab_adjoint_spectral` in the raw basis: the split
     preconditioner P^-1/2 v = from_s(isd to_s(v)) wraps the raw operator
     (vch_tpu/ops/pallas_kernels.py:581), the iteration of vch_tpu's
-    composed bicgstab_split_fixed."""
+    composed bicgstab_split_fixed. Lx (n, n) and LyT (m, m) are the
+    Laplacian factors. On CUDA tensors each member runs on a thread-block
+    cluster (`solve_geometry`), bit for bit what the one-CTA kernel
+    `_bicgstab_adjoint_cta` computes."""
     args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp, rhs, x0,
             tau, half_dt)
     if not _build.on_cuda("bicgstab_adjoint", rhs):
         return bicgstab_adjoint_plain(*args, n_iter=n_iter)
-    return _launch(bicgstab_adjoint, _ADJOINT_RAW, (tau, half_dt),
-                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
-                   (inv_sqrt_denom, fpp, rhs, x0), n_iter)
+    return _launch_cluster(bicgstab_adjoint,
+                           (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                           (inv_sqrt_denom, fpp, rhs, x0), (tau, half_dt),
+                           n_iter)
 
 
 bicgstab_adjoint.launches = 0
+
+
+def _bicgstab_adjoint_cta(*args, n_iter: int):
+    """The one-CTA raw adjoint solve of csrc/solve2d.cu (one member per
+    CTA): the bit oracle of `bicgstab_adjoint`, which the card tests and
+    chip_smoke.py hold the cluster kernel against; no solver calls it.
+    Arguments and results as `bicgstab_adjoint`."""
+    if not _build.on_cuda("_bicgstab_adjoint_cta", args[8]):
+        return bicgstab_adjoint_plain(*args, n_iter=n_iter)
+    Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, isd, fpp, rhs, x0 = args[:10]
+    return _launch(_bicgstab_adjoint_cta, _ADJOINT_RAW, args[10:],
+                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                   (isd, fpp, rhs, x0), n_iter)
+
+
+_bicgstab_adjoint_cta.launches = 0
 
 
 # --------------------------------------------------------------------------
