@@ -58,10 +58,11 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                real step at n = 65, 129 and 257, one solve and a batch of 4,
                and at the scan path's n = 129, B = 128, gated against
                float64, with kernel and plain CUDA-event times; the
-               spectral Schur solve, the spectral and the raw adjoint
-               solve (one member per thread-block cluster) each against
-               its one-CTA oracle of solve2d.cu ("row 8", "row 9", "row
-               11"), bit for bit, the scalars the per-step solvers pass as
+               spectral and the raw Schur solve, the spectral and the raw
+               adjoint solve (one member per thread-block cluster) each
+               against its one-CTA oracle of solve2d.cu ("row 8", "row 10",
+               "row 9", "row 11"), bit for bit, the scalars the per-step
+               solvers pass as
                0-d tensors passed so and as numbers, timed in turns at
                n = 65, B = 1 (config 3's, also on clusters of 8 and 4),
                n = 129, B = 128 and n = 257, B = 1, with the geometry,
@@ -78,9 +79,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                against their plain versions on fields from a real step at
                n = 65, 129 and 257, one field and a batch of 4, and the raw
                Schur solve on a batch of 8 (the counterpart of the TPU's
-               member-tiled solve), gated against float64; two launches
-               bit-equal, and each member of a batch bit-equal to its
-               one-member launch; beside each apply the time of the same
+               member-tiled solve, "row 12"), gated against float64 and bit
+               for bit against its one-CTA oracle, timed in turns with it;
+               two launches bit-equal, and each member of a batch bit-equal
+               to its one-member launch; beside each apply the time of the same
                function as torch.matmul calls, the kernel/library ratio, its
                bound, its cluster geometry and, at n = 257, its time on
                clusters of 8;
@@ -95,7 +97,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                grid), float32, 3 PGD iterations, kernel path against plain
                path, once with each pallas_variant;
   2f probes  — the probe entry point vch_tpu_torch.probes.diag_kernel_cost
-               (the raw Schur solve, and its nodots and mmonly probes) at
+               (the one-CTA raw Schur solve, the cluster kernel's oracle,
+               and its nodots and mmonly probes) at
                the script's default shape (n = 65, B = 32, 10 trips) and at
                the scan path's (n = 129, B = 128, 4 trips), each probe kernel
                against its plain version, gated against float64;
@@ -150,13 +153,16 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                float32) through ControlProblem2D: constructor, one warm-up
                and 3 timed PGD iterations, verify_sparsity and
                second_order_check, launches counted in each window, the
-               constructor's Schur solves timed by CUDA events; the three
+               constructor's Schur solves timed by CUDA events; the four
                cluster solves' wrappers: host microseconds a call against
                the kernel's device microseconds;
   8r config 3 raw — a main path: config 3 on pallas_variant "raw" (the
                raw-basis solves): constructor, one warm-up and 3 timed PGD
                iterations, the raw adjoint solve's launches and CUDA-event
                ms, its cost history against the raw solves' plain path;
+               the constructor's baseline march once more on the cluster
+               raw Schur solve and on its one-CTA oracle, in turns, each
+               solve under CUDA events, the histories bit-equal;
   9 config 2 — a main path: BASELINE config 2 at full width (1D, N = 512,
                T = 1, dt = 2e-3: M = 500, the 32 x 8 (b3, kappa) sweep:
                B = 256, float32) through BatchedProblem1D: one warm-up, then
@@ -174,7 +180,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   4sp profile — the same for phase 4s's scan path;
   2e-dev     — the operator applies and their torch.matmul forms once more,
                one field at n = 65, 129, 257, and the cluster solves (rows
-               8, 9, 11) and their one-CTA oracles at phase 2c's shapes,
+               8-11) and their one-CTA oracles at phase 2c's shapes (the
+               raw Schur solve also at phase 2e's n = 65, B = 8, row 12),
                each timed on the device
                alone (20 calls in a CUDA graph), last because a capture
                leaves cuBLAS a workspace that phase 7 would count.
@@ -193,8 +200,13 @@ from vch_tpu_torch.probes._timing import (PEAK_BF16_FLOPS, PEAK_BYTES_PER_S,
                                           PEAK_FP32_FLOPS, graph_ms, time_ms)
 
 
+_T0 = time.perf_counter()
+
+
 def _log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, ending with the seconds since the script
+    started (the run must stay inside its time limit)."""
+    print(f"[{phase}] {msg} | {time.perf_counter() - _T0:.1f} s", flush=True)
 
 
 def _smi():
@@ -1336,7 +1348,8 @@ CLUSTER_SOLVES = {
                                 "schur_solve"),
     "bicgstab_adjoint_spectral": (9, "_bicgstab_adjoint_spectral_cta",
                                   "solve"),
-    "bicgstab_adjoint": (11, "_bicgstab_adjoint_cta", "raw_solve")}
+    "bicgstab_adjoint": (11, "_bicgstab_adjoint_cta", "raw_solve"),
+    "bicgstab_schur": (10, "_bicgstab_schur_cta", "raw_schur_solve")}
 
 
 def _scalars_on_device(torch, device, name, scal, all_of_them=False):
@@ -1354,8 +1367,9 @@ def _scalars_on_device(torch, device, name, scal, all_of_them=False):
 
 
 def cluster_solve_timing(torch, device, name, n, B, reps=20, clusters=()):
-    """Rows 8, 9 and 11: the solve `name` (`bicgstab_schur_spectral`,
-    `bicgstab_adjoint_spectral`, `bicgstab_adjoint`) of B members on the
+    """Rows 8-11: the solve `name` (`bicgstab_schur_spectral`,
+    `bicgstab_adjoint_spectral`, `bicgstab_schur`, `bicgstab_adjoint`) of
+    B members on the
     inputs of a real step (_solve_args) on its cluster kernel (one member
     per cluster) and on its one-CTA oracle: bit-gated against each other,
     the scalars the per-step solvers pass as 0-d tensors on the card passed
@@ -1475,12 +1489,14 @@ def solve_host_cost(torch, device, name, n=65, B=1, calls=200):
 
 def cluster_solve_device_times(torch, device, shapes=((65, 1), (129, 128),
                                                       (257, 1))):
-    """Rows 8, 9 and 11 on the device alone: each cluster solve and its
-    one-CTA oracle, mean ms of 20 calls captured in a CUDA graph
-    (graph_ms), after phase 7 as every capture is."""
+    """Rows 8-11 on the device alone: each cluster solve and its one-CTA
+    oracle, mean ms of 20 calls captured in a CUDA graph (graph_ms), after
+    phase 7 as every capture is; the raw Schur solve also at phase 2e's
+    batch (n = 65, B = 8: row 12)."""
     out = []
     for name, (row, _, _) in CLUSTER_SOLVES.items():
-        for n, B in shapes:
+        extra = ((65, 8),) if name == "bicgstab_schur" else ()
+        for n, B in shapes + extra:
             new, old = _cluster_solve_call(torch, device, name, n, B,
                                            all_on_device=True)
             out.append(dict(row=row, n=n, B=B, cluster_device_ms=graph_ms(new),
@@ -1781,33 +1797,50 @@ def apply_device_times(torch, device, shapes=(65, 129, 257)):
 
 
 def batched_schur_case(torch, device, n=65, B=8, reps=20):
-    """Phase 2e: the raw Schur solve launched on a batch of B (one CTA per
-    member), the counterpart of the TPU's member-tiled solve, against its
-    plain version in float32 and float64, and member 0 against its own
-    one-member launch."""
+    """Phase 2e, row 12: the raw Schur solve launched on a batch of B (B
+    thread-block clusters, one member each), the counterpart of the TPU's
+    member-tiled solve, against its plain version in float32 and float64,
+    bit for bit against its one-CTA oracle, and each member against its own
+    one-member launch; timed in turns with the oracle (oracle, cluster,
+    cluster, oracle; CUDA events), with the cluster geometry."""
+    from vch_tpu_torch.ops import march as km
     from vch_tpu_torch.ops import solve_kernels as sk
 
     ops32, ops64, f32, f64, scal = _solve_args(torch, device, n, B)
     name = "bicgstab_schur"
-    k = _solve_call(name, ops32, f32, scal, sk.bicgstab_schur)
+    new = lambda: _solve_call(name, ops32, f32, scal, sk.bicgstab_schur)
+    old = lambda: _solve_call(name, ops32, f32, scal, sk._bicgstab_schur_cta)
+    k, o = new(), old()
     p = _solve_call(name, ops32, f32, scal, sk.bicgstab_schur_plain)
     p64 = _solve_call(name, ops64, f64, scal, sk.bicgstab_schur_plain)
-    one = {kind: tuple(t[0].contiguous() for t in v) for kind, v in f32.items()}
-    k0 = _solve_call(name, ops32, one, scal, sk.bicgstab_schur)
+    members = [_solve_call(name, ops32, {kind: tuple(t[b].contiguous()
+                                                     for t in v)
+                                         for kind, v in f32.items()},
+                           scal, sk.bicgstab_schur) for b in range(B)]
     trips = _solve_call(name, ops32, f32, scal, lambda *a, n_iter:
                         sk.solve_trips(name, *a, n_iter=n_iter))
     torch.cuda.synchronize()
-    return dict(n=n, B=B, finite=bool(torch.isfinite(k).all()),
-                max_abs_err=(k - p).abs().max().item(),
-                rel_kernel_vs_plain=_rel(k, p, p),
-                rel_kernel_vs_f64=_rel(k, p64, p64),
-                rel_plain_vs_f64=_rel(p, p64, p64),
-                member_equals_single_launch=bool(torch.equal(k[0], k0)),
-                trips=trips.flatten().cpu().tolist(),
-                ms=time_ms(lambda: _solve_call(
-                    name, ops32, f32, scal, sk.bicgstab_schur), reps),
-                plain_ms=time_ms(lambda: _solve_call(
-                    name, ops32, f32, scal, sk.bicgstab_schur_plain), reps))
+    out = dict(n=n, B=B, finite=bool(torch.isfinite(k).all()),
+               max_abs_err=(k - p).abs().max().item(),
+               rel_kernel_vs_plain=_rel(k, p, p),
+               rel_kernel_vs_f64=_rel(k, p64, p64),
+               rel_plain_vs_f64=_rel(p, p64, p64),
+               cluster_equals_cta=bool(torch.equal(k, o)),
+               member_equals_single_launch=all(
+                   bool(torch.equal(k[b], one))
+                   for b, one in enumerate(members)),
+               trips=trips.flatten().cpu().tolist())
+    for label, fn in (("cta", old), ("cluster", new), ("cluster", new),
+                      ("cta", old)):
+        out.setdefault(f"{label}_ms", []).append(time_ms(fn, reps))
+    out["ms"] = float(np.mean(out["cluster_ms"]))
+    out["plain_ms"] = time_ms(lambda: _solve_call(
+        name, ops32, f32, scal, sk.bicgstab_schur_plain), reps)
+    g = km.launch_geometry(n, n, B, device, members=1,
+                           kernel="raw_schur_solve")
+    out["geometry"] = dict(cluster=g.cluster, ctas=B * g.cluster, kc=g.kc,
+                           smem_bytes=g.smem_bytes)
+    return out
 
 
 def check_apply_cases(applies, batched):
@@ -1815,8 +1848,8 @@ def check_apply_cases(applies, batched):
     kernel's float32 result finite and no farther from the float64 plain
     version than twice the plain float32 version plus 1e-5; two launches of
     an apply bit-equal, and each member of a batched apply bit-equal to its
-    one-member launch; a member of the batched Schur solve bit-equal to its
-    one-member launch."""
+    one-member launch; the batched Schur solve bit-equal to its one-CTA
+    oracle, and each of its members to its one-member launch."""
     fails = []
     results = [(f"{name} n={c['n']} B={c['B']}", c[name])
                for c in applies for name in APPLY_KERNELS]
@@ -1835,6 +1868,8 @@ def check_apply_cases(applies, batched):
     if not batched["member_equals_single_launch"]:
         fails.append("a member of the batched solve differs from its "
                      "one-member launch")
+    if not batched["cluster_equals_cta"]:
+        fails.append("the batched solve differs from its one-CTA oracle")
     if fails:
         raise RuntimeError("apply kernels: " + "; ".join(fails))
 
@@ -2152,16 +2187,19 @@ def check_config3(c):
 
 
 def config3_raw_run(torch, device, iters=3):
-    """Phase 8r, row 11's main path at full width: config 3 (64x64, T = 1,
-    M = 100, float32, the 2D optimizer defaults) on pallas_variant "raw"
-    through ControlProblem2D: the constructor (the baseline march on the
-    raw Schur solve, row 10), one warm-up PGD iteration, then `iters` timed
-    ones, every launch count reset to 0 just before them and read just
-    after, with CUDA events around each raw adjoint solve (EntryTimer).
-    Then the same problem on the raw solves' plain versions (rows 10 and 11
-    in the kernels' place, the baseline re-marched on them; the trial
-    marches stay on the march kernel, which phases 2 and 3c hold against
-    its plain version, so that the run stays within seconds)."""
+    """Phase 8r, rows 10 and 11's main path at full width: config 3 (64x64,
+    T = 1, M = 100, float32, the 2D optimizer defaults) on pallas_variant
+    "raw" through ControlProblem2D: the constructor (the baseline march on
+    the raw Schur solve, row 10), one warm-up PGD iteration, then `iters`
+    timed ones, every launch count reset to 0 just before them and read
+    just after, with CUDA events around each raw adjoint solve
+    (EntryTimer); then the constructor's baseline march once more on the
+    cluster raw Schur solve and on its one-CTA oracle, in turns, each solve
+    under CUDA events (`constructor_schur_solve`). Then the same problem on
+    the raw solves' plain versions (rows 10 and 11 in the kernels' place,
+    the baseline re-marched on them; the trial marches stay on the march
+    kernel, which phases 2 and 3c hold against its plain version, so that
+    the run stays within seconds)."""
     from vch_tpu_torch.ops import march as km
     from vch_tpu_torch.ops import solve_kernels as sk
 
@@ -2202,11 +2240,40 @@ def config3_raw_run(torch, device, iters=3):
                    ls_trials=res.ls_trials_per_iter,
                    timers=dict(res.timers), cost_history=ch.tolist(),
                    finite=bool(np.isfinite(ch).all()))
+        if path == "kernel":
+            run["constructor_schur_solve"] = _constructor_raw_schur(torch,
+                                                                    prob)
         out[path] = run
     c0 = np.asarray(out["plain"]["cost_history"])
     c1 = np.asarray(out["kernel"]["cost_history"])
     out.update(n=cfg.Nx, M=prob.solver.M, iters=iters,
                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()))
+    return out
+
+
+def _constructor_raw_schur(torch, prob):
+    """Row 10 in config 3 raw's constructor: its baseline march re-run on
+    the cluster raw Schur solve and on the one-CTA oracle, in turns
+    (oracle, cluster, cluster, oracle), each solve under CUDA events
+    (EntryTimer); the launches and ms of each run, and whether every run's
+    history equals the first's bit for bit."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops import solve_kernels as sk
+
+    fns = {"cluster": km.KERNELS.schur_raw, "cta": sk._bicgstab_schur_cta}
+    entries, out, hists = prob.solver.entries, {}, []
+    try:
+        for label in ("cta", "cluster", "cluster", "cta"):
+            timer = EntryTimer(torch, fns[label], batch_at=8)
+            prob.solver.entries = entries._replace(schur_raw=timer)
+            hists.append(prob.solver.simulate(initial_phi=prob.phi0)[0])
+            t = timer.summary()
+            out.setdefault(label, []).append(dict(launches=t["launches"],
+                                                  ms=t["ms"]))
+    finally:
+        prob.solver.entries = entries
+    out["histories_equal"] = all(bool(torch.equal(h, hists[0]))
+                                 for h in hists)
     return out
 
 
@@ -2216,7 +2283,9 @@ def check_config3_raw(c):
     within 1% (phase 3c's gates); on the kernel path the constructor
     launched the raw Schur kernel once per Newton solve and the timed run
     the raw adjoint kernel M times an iteration and the march kernel once a
-    trial, nothing else; on the plain path no solve kernel."""
+    trial, nothing else; on the plain path no solve kernel; the
+    constructor's march bit for bit alike on the cluster raw Schur solve
+    and on its one-CTA oracle, with one solve per Newton solve."""
     fails = []
     k, p = c["kernel"], c["plain"]
     expect = {
@@ -2232,6 +2301,14 @@ def check_config3_raw(c):
                              f"expected {want.get(name, 0)}")
     if k["raw_adjoint"]["launches"] != c["M"] * c["iters"]:
         fails.append(f"timed {k['raw_adjoint']['launches']} raw solves")
+    cs = k["constructor_schur_solve"]
+    if not cs["histories_equal"]:
+        fails.append("the constructor's march on the cluster raw Schur solve "
+                     "differs from the march on its one-CTA oracle")
+    if any(r["launches"] != k["constructor_newton_solves"]
+           for label in ("cluster", "cta") for r in cs[label]):
+        fails.append("a timed constructor march ran another number of raw "
+                     "Schur solves")
     ch = k["cost_history"]
     if not (k["finite"] and p["finite"]) or not ch[-1] < ch[0]:
         fails.append("did not descend")
@@ -2337,7 +2414,7 @@ def scan_slice_case(torch, device, variant="spectral", lowmem_K=None, n=32,
                     T=0.1, iters=3):
     """Phase 3e: the scan path (fused_march=False) of BatchedProblem2D, or
     of LowMemBatchedProblem2D with lowmem_K, at 32x32 on the heterogeneous
-    B = 8 sweep, kernel path (the per-solve kernels, one CTA per member)
+    B = 8 sweep, kernel path (the per-solve kernels, one member per cluster)
     against plain path, 3 PGD iterations; the low-memory one also gates its
     adjoint r against float64 on the kernel run's final control."""
     from vch_tpu_torch.ops import march as km
@@ -2494,7 +2571,7 @@ def check_probe_case(c):
     1e-5 (the phase-2c pattern; mmonly's one link is the relative test where
     the whole chain underflows); the script's five keys finite."""
     fails = [f"{k} never launched" for k in ("schur_nodots", "schur_mmonly",
-                                             "bicgstab_schur")
+                                             "_bicgstab_schur_cta")
              if c["launches"].get(k, 0) <= 0]
     for tag, g in c["gate"].items():
         if not g["finite"]:
@@ -2951,8 +3028,10 @@ def main():
          + _ptxas_named(_build.ptxas_log, "solve_cluster_kernel")
          + ", adjoint_raw_cluster_kernel (row 11): "
          + _ptxas_named(_build.ptxas_log, "adjoint_raw_cluster_kernel")
-         + " | solve2d.cu solve_kernel<VAR> (0, 2, 3: the cluster solves' "
-         "one-CTA oracles, -fmad=false): "
+         + ", schur_raw_cluster_kernel (rows 10, 12): "
+         + _ptxas_named(_build.ptxas_log, "schur_raw_cluster_kernel")
+         + " | solve2d.cu solve_kernel<VAR> (0-3: the cluster solves' "
+         "one-CTA oracles, 0-2 with -fmad=false; 4, 5: the probes): "
          + _ptxas_named(_build.ptxas_log, "solve_kernel")
          + " | march1d.cu march1d_kernel: "
          + _ptxas_named(_build.ptxas_log, "march1d_kernel"))
@@ -3050,14 +3129,13 @@ def main():
     solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
               for n in (65, 129, 257) for B in (None, 4)]
     # the scan path's shape at config 4's width: one launch per Newton round
-    # (or sweep step) for 128 members, one CTA each
+    # (or sweep step) for 128 members, one cluster each
     solves.append(solve_case(torch, device, 129, 128, reps=3))
     for c in solves:
         _log("2c", json.dumps(c))
     for c in solves:
         check_solve_case(c)
-    s65 = solves[0]
-    # rows 8, 9 and 11 on their cluster kernels against their one-CTA
+    # rows 8-11 on their cluster kernels against their one-CTA
     # oracles: config 3's B = 1 at n = 65 (also on clusters of 8 and 4),
     # the scan path's n = 129, B = 128, and one member at n = 257
     rows = {(k, n, B): cluster_solve_timing(
@@ -3374,7 +3452,7 @@ def main():
     for c in apply_device_times(torch, device):
         _log("2e-dev", json.dumps(c) + f" | {name} | {smi}")
     solve_dev = cluster_solve_device_times(torch, device)
-    _log("2e-dev", "rows 8, 9, 11 " + json.dumps(solve_dev)
+    _log("2e-dev", "rows 8-12 " + json.dumps(solve_dev)
          + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
@@ -3452,22 +3530,15 @@ def main():
         "bicgstab_adjoint": L8r["launches"]["bicgstab_adjoint"]}
     lines = {"bicgstab_schur_spectral": 691, "bicgstab_schur": 233,
              "bicgstab_adjoint_spectral": 798, "bicgstab_adjoint": 581}
+    # rows 8-11 on their cluster kernels at n = 65, B = 1
     for k in SOLVE_KERNELS:
-        c = s65[k]
-        if k in CLUSTER_SOLVES:
-            # rows 8, 9, 11 on their cluster kernels at n = 65, B = 1
-            r = rows[(k, 65, 1)]
-            kernels.append(entry(
-                k, "vch_tpu_torch/csrc/solve2d_cluster.cu", f"{pk}:{lines[k]}",
-                solve_launches[k], r["max_abs_err"], mean(r["cluster_ms"]),
-                r["plain_ms"], (sum(_solve_work(k, 65, 1, t)[0]
-                                    for t in r["trips"]),
-                                _solve_work(k, 65, 1, 0)[1])))
-            continue
-        kernels.append(entry(k, solve_cu, f"{pk}:{lines[k]}",
-                             solve_launches[k], c["max_abs_err"], c["ms"],
-                             c["plain_ms"],
-                             _solve_work(k, s65["n"], 1, c["trips"])))
+        r = rows[(k, 65, 1)]
+        kernels.append(entry(
+            k, "vch_tpu_torch/csrc/solve2d_cluster.cu", f"{pk}:{lines[k]}",
+            solve_launches[k], r["max_abs_err"], mean(r["cluster_ms"]),
+            r["plain_ms"], (sum(_solve_work(k, 65, 1, t)[0]
+                                for t in r["trips"]),
+                            _solve_work(k, 65, 1, 0)[1])))
     # the 1D march at config 2's full shape (n = 513, B = 256, M = 500); its
     # plain version and error at the smallest bucket and a fifth of the
     # depth (n = 513, B = 8, M = 100); its launches on config 2's timed run
@@ -3483,7 +3554,8 @@ def main():
     # solve at B = 8), their launches those of operator_calls
     apply_cu = "vch_tpu_torch/csrc/apply2d.cu"
     kernels.append(entry(
-        "bicgstab_schur_batched", solve_cu, f"{pk}:394",
+        "bicgstab_schur_batched", "vch_tpu_torch/csrc/solve2d_cluster.cu",
+        f"{pk}:394",
         op_calls["bicgstab_schur"], bschur["max_abs_err"], bschur["ms"],
         bschur["plain_ms"],
         (sum(_solve_work("bicgstab_schur", bschur["n"], 1, t)[0]

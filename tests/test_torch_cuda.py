@@ -12,7 +12,7 @@ float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
 do the cluster marches (whole, blocked, segment), sweeps (whole, blocked,
-segment) and solves (spectral Schur, spectral and raw adjoint) and their
+segment) and solves (spectral and raw Schur, spectral and raw adjoint) and their
 one-CTA oracles at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
 every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
@@ -736,7 +736,8 @@ CLUSTER_SOLVES = {
     "bicgstab_adjoint_spectral": ("_bicgstab_adjoint_spectral_cta", "solve"),
     "bicgstab_schur_spectral": ("_bicgstab_schur_spectral_cta",
                                 "schur_solve"),
-    "bicgstab_adjoint": ("_bicgstab_adjoint_cta", "raw_solve")}
+    "bicgstab_adjoint": ("_bicgstab_adjoint_cta", "raw_solve"),
+    "bicgstab_schur": ("_bicgstab_schur_cta", "raw_schur_solve")}
 
 
 def _cluster_solve(name, ops, fields, scal, oracle=False):
@@ -761,7 +762,8 @@ def _on_device(scal, device):
                                  (257, 1)])
 def test_cluster_adjoint_solve_equals_the_one_cta_oracle(cuda, n, B, name):
     """Each cluster solve (the spectral and the raw adjoint step solve, the
-    spectral Schur solve; one member per thread-block cluster) gives its
+    spectral and the raw Schur solve; one member per thread-block cluster)
+    gives its
     one-CTA oracle's result bit for bit; the scalars the per-step solvers
     pass as 0-d tensors on the card, passed so and as numbers, give the
     same bits."""
@@ -870,6 +872,21 @@ def test_config3_constructor_runs_a_cluster_schur_solve_per_newton_solve(
     counts = km.launch_counts()
     assert counts["bicgstab_schur_spectral"] == prob.newton_solves > 0
     assert counts["_bicgstab_schur_spectral_cta"] == 0
+
+
+@pytest.mark.cuda
+def test_config3_raw_constructor_runs_a_cluster_raw_schur_solve_per_newton(
+        cuda):
+    """Config 3's constructor on pallas_variant "raw" launches the cluster
+    raw Schur solve (row 10) once per Newton solve, its one-CTA oracle and
+    the spectral Schur solve never."""
+    km.reset_launches()
+    prob = _config3(cuda, "raw")
+    torch.cuda.synchronize()
+    counts = km.launch_counts()
+    assert counts["bicgstab_schur"] == prob.newton_solves > 0
+    assert counts["_bicgstab_schur_cta"] == 0
+    assert counts["bicgstab_schur_spectral"] == 0
 
 
 # --------------------------------------------------------------------------
@@ -1071,8 +1088,10 @@ def test_apply_scalars_as_tensors_and_numbers_agree(cuda):
 
 @pytest.mark.cuda
 def test_raw_schur_solve_on_a_batch_of_8(cuda):
-    """The batched launch of the raw Schur solve (one CTA per member): the
-    counterpart of vch_tpu's member-tiled bicgstab_schur_pallas_batched."""
+    """The batched launch of the raw Schur solve (B thread-block clusters,
+    one member each): the counterpart of vch_tpu's member-tiled
+    bicgstab_schur_pallas_batched. Bit for bit its one-CTA oracle, and a
+    member does not depend on the batch."""
     from vch_tpu_torch.ops import solve_kernels as sk
     op, v, d = _apply_inputs(cuda, n=33, m=33, B=8)
     inv_dt, tau_dt, hk = 100.0, 5.0, 5e-5
@@ -1088,6 +1107,7 @@ def test_raw_schur_solve_on_a_batch_of_8(cuda):
     one = sk.bicgstab_schur(*[a[3].contiguous() if torch.is_tensor(a)
                               and a.dim() == 3 else a for a in args],
                             n_iter=4)
+    o = sk._bicgstab_schur_cta(*args, n_iter=4)
     torch.cuda.synchronize()
     assert sk.bicgstab_schur.launches == before + 2
     scale = p64.abs().max().item()
@@ -1095,6 +1115,7 @@ def test_raw_schur_solve_on_a_batch_of_8(cuda):
     err_p = (p.double() - p64).abs().max().item() / scale
     assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
     assert torch.equal(k[3], one)     # a member does not depend on the batch
+    assert torch.equal(k, o)          # the batch is its oracle's
 
 
 @pytest.mark.cuda

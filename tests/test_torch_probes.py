@@ -1,6 +1,7 @@
-"""The two cost probes of the raw Schur solve (ops.solve_kernels.schur_nodots
-and schur_mmonly, the counterparts of scripts/diag_kernel_cost.py:131 and
-:176) and their entry point, on the CPU.
+"""The two cost probes of the one-CTA raw Schur solve
+(ops.solve_kernels.schur_nodots and schur_mmonly, the counterparts of
+scripts/diag_kernel_cost.py:131 and :176) and their entry point, on the
+CPU.
 
 The plain versions are held against the same recurrences built from
 vch_tpu's operator kernels in interpret mode (schur_apply_pallas,
@@ -107,6 +108,43 @@ def test_probe_wrappers_run_the_plain_versions_on_cpu_tensors():
                 for a in args)
     assert _rel(sk.schur_nodots(*one, n_iter=ITERS).numpy(),
                 sk.schur_nodots(*args, n_iter=ITERS)[:1].numpy()) <= 1e-6
+
+
+def test_the_three_probes_share_the_one_cta_design():
+    """The probe's `full` is the one-CTA raw Schur solve, the bit oracle
+    of the solvers' cluster kernel, so that full, nodots and mmonly time
+    the trips of one kernel design (reduction_share divides two of them);
+    on CPU tensors it runs bicgstab_schur_plain and counts no launch."""
+    assert probe.PROBES == {"full": sk._bicgstab_schur_cta,
+                            "nodots": sk.schur_nodots,
+                            "mmonly": sk.schur_mmonly}
+    assert probe.PROBES["full"] is not sk.bicgstab_schur
+    args = probe.probe_args(N, B, "cpu", torch.float32)
+    km.reset_launches()
+    out = probe.PROBES["full"](*args, n_iter=ITERS)
+    assert torch.equal(out, sk.bicgstab_schur_plain(*args, n_iter=ITERS))
+    assert not any(km.launch_counts().values())
+
+
+def test_sass_diff_splits_a_listing_by_function_without_addresses():
+    """probes/sass_diff.py compares two trees' SASS function by function;
+    the instruction lines it reports leave out addresses and encodings."""
+    from vch_tpu_torch.probes import sass_diff
+    listing = """
+\tcode for sm_90a
+\t\tFunction : _Zkernel_a
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   FFMA R2, R3, R4, R2 ;    /* 0x0000000403027223 */
+\t\tFunction : _Zkernel_b
+        /*0000*/                   EXIT ;                   /* 0x000000000000794d */
+"""
+    funcs = sass_diff.functions(listing)
+    assert list(funcs) == ["_Zkernel_a", "_Zkernel_b"]
+    assert sass_diff.instructions(funcs["_Zkernel_a"]) == [
+        "LDC R1, c[0x0][0x28] ;", "FFMA R2, R3, R4, R2 ;"]
+    assert sass_diff.instructions(funcs["_Zkernel_b"]) == ["EXIT ;"]
 
 
 def test_probe_inputs_are_the_scripts():

@@ -1,10 +1,10 @@
 """The cluster geometry of the per-solve kernels of
 csrc/solve2d_cluster.cu (`vch_tpu_torch.ops.march.blocked_geometry` /
 `fitted_geometry` with one member per cluster and kernel="solve",
-"raw_solve" or "schur_solve"), which the wrappers
-`ops.solve_kernels.bicgstab_adjoint_spectral`, `bicgstab_adjoint` and
-`bicgstab_schur_spectral` launch on, and the wrappers' and their one-CTA
-oracles' plain path on CPU tensors.
+"raw_solve", "schur_solve" or "raw_schur_solve"), which the wrappers
+`ops.solve_kernels.bicgstab_adjoint_spectral`, `bicgstab_adjoint`,
+`bicgstab_schur_spectral` and `bicgstab_schur` launch on, and the wrappers'
+and their one-CTA oracles' plain path on CPU tensors.
 
 Each solve splits a member over a thread-block cluster as the one-member
 march and sweep do (the same bands, ring and shared memory), and its C
@@ -35,7 +35,8 @@ _ADMITTED = [(n, m) for n in _SIZES for m in _SIZES
 # each cluster solve's kernel in CLUSTER_KERNELS and its name in messages
 KERNELS = {"solve": "the adjoint step solve",
            "raw_solve": "the raw adjoint step solve",
-           "schur_solve": "the Schur solve"}
+           "schur_solve": "the Schur solve",
+           "raw_schur_solve": "the raw Schur solve"}
 
 
 def _geometry(n, m, B, kernel="solve", **kw):
@@ -126,12 +127,14 @@ def _solve_args(wrapper, B, n=9, m=7, seed=0):
     lam = ops.lam.double().numpy()
     t = lambda a: torch.as_tensor(a if B else a[0], dtype=torch.float32)
     spectral = (ops.Vx_inv, ops.Vy_inv_T, ops.Vx, ops.VyT, ops.lam)
-    if wrapper == "bicgstab_schur_spectral":
+    if "schur" in wrapper:
         d = 1.5 / (1 - np.clip(0.5 * rng.standard_normal(sh), -0.9, 0.9) ** 2)
         denom = 100 + 5e-5 * lam ** 2 - (5 + d.mean()) * lam
-        return spectral + (t(denom * np.ones(sh)), t(d),
-                           t(rng.standard_normal(sh)), torch.tensor(100.0),
-                           torch.tensor(5.0), 5e-5)
+        mats = spectral if "spectral" in wrapper else (
+            ops.Lx, ops.LyT) + spectral[:4]
+        return mats + (t(denom * np.ones(sh)), t(d),
+                       t(rng.standard_normal(sh)), torch.tensor(100.0),
+                       torch.tensor(5.0), 5e-5)
     fpp = 1.5 / (1 - np.clip(0.5 * rng.standard_normal(sh), -0.9, 0.9) ** 2)
     dena = 1 - 0.05 * lam + 5e-3 * lam ** 2 - 5e-3 * fpp.mean() * lam
     mats = spectral if wrapper == "bicgstab_adjoint_spectral" else (
@@ -144,7 +147,8 @@ def _solve_args(wrapper, B, n=9, m=7, seed=0):
 @pytest.mark.parametrize("wrapper,oracle", [
     ("bicgstab_adjoint_spectral", "_bicgstab_adjoint_spectral_cta"),
     ("bicgstab_schur_spectral", "_bicgstab_schur_spectral_cta"),
-    ("bicgstab_adjoint", "_bicgstab_adjoint_cta")])
+    ("bicgstab_adjoint", "_bicgstab_adjoint_cta"),
+    ("bicgstab_schur", "_bicgstab_schur_cta")])
 @pytest.mark.parametrize("B", [None, 3])
 def test_the_solve_and_its_oracle_run_the_plain_version_on_cpu(B, wrapper,
                                                                oracle):
@@ -157,6 +161,6 @@ def test_the_solve_and_its_oracle_run_the_plain_version_on_cpu(B, wrapper,
     for fn in fns:
         assert torch.equal(fn(*args, n_iter=5), ref)
     assert tuple(fn.launches for fn in fns) == before
-    rhs = args[7] if "schur" in wrapper else args[-4]
+    rhs = args[-4]
     assert ref.shape == rhs.shape and bool(torch.isfinite(ref).all())
     assert oracle in km.launch_counts()

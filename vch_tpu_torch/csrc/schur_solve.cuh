@@ -1,8 +1,8 @@
-// The Newton Schur solve in the cosine basis on the cluster engine
-// (cluster.cuh): the body of the per-solve Schur kernel
-// (solve2d_cluster.cu). Per member, from the caller's fields DEN (the
-// preconditioner symbol on the eigenvalue grid) and D (the Jacobian
-// diagonal) and the right-hand side RHS:
+// The Newton Schur solve on the cluster engine (cluster.cuh): the body of
+// the per-solve Schur kernels (solve2d_cluster.cu). Per member, from the
+// caller's fields DEN (the preconditioner symbol on the eigenvalue grid) and
+// D (the Jacobian diagonal) and the right-hand side RHS, in the cosine basis
+// (RAW false: the spectral solve):
 //   b = to_s(rhs), x0 = 0;
 //   n_trips trips of the fixed-trip BiCGStab on
 //     S yh = poly yh - lam to_s(d from_s(yh)),
@@ -10,15 +10,18 @@
 //   right-preconditioned by the pointwise divide by DEN, with the best
 //   iterate, the (50 eps)^2 ||b||^2 noise-floor freeze and a non-finite new
 //   residual rejected;
-//   out = from_s(best).
-// Its loop is the cluster march's in-kernel Schur solve
+//   out = from_s(best);
+// or in the raw basis (RAW true), b = rhs, x0 = 0, the same trips on
+//     S v = (1/dt) v - L((tau/dt + d) v - (kappa/2) L v), L v = Lx v + v LyT,
+//   right-preconditioned by M^-1 v = from_s(to_s(v) / DEN), out = best.
+// The spectral loop is the cluster march's in-kernel Schur solve
 // (march2d_blocked.cu, which forms DEN and D from phi and mean(d) instead).
-// It sums and rounds as the one-CTA kernel does (solve2d.cu's
-// SCHUR_SPECTRAL variant, common.cuh's bicgstab_fixed): products k
-// ascending in one FMA chain, reductions in block_sum's order, every
-// elementwise expression written alike. Built with -fmad=false on both
-// sides (ops/_build.py), a member's bits are that kernel's, whatever the
-// cluster size or the batch.
+// It sums and rounds as the one-CTA kernels do (solve2d.cu's SCHUR_SPECTRAL
+// and SCHUR_RAW variants, common.cuh's bicgstab_fixed): products k
+// ascending in one FMA chain, a Laplacian's two rounded products added,
+// reductions in block_sum's order, every elementwise expression written
+// alike. Built with -fmad=false on both sides (ops/_build.py), a member's
+// bits are that kernel's, whatever the cluster size or the batch.
 #pragma once
 
 #include "cluster.cuh"
@@ -40,12 +43,13 @@ struct Ctl {
 static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
 
 // One CTA's view of its block of MB members, for the solve. Args: the
-// kernel's arguments, with the operators Vxi, VyiT, Vx, VyT and lam (n, m),
-// n, m, n_trips, work and floor_fac; Slots: the workspace slots of the
-// fields X, RR, P, V, R0, BX, S, T, PH, SH, T1, T2. Every method is
-// force-inlined into the kernel, so the state below lives in registers; the
-// per-member scalars live in `ctl`, in shared memory.
-template <int MB, class Args, class Slots>
+// kernel's arguments, with the operators Vxi, VyiT, Vx, VyT and lam (n, m)
+// (RAW: Lx (n, n) and LyT (m, m), lam unused), n, m, n_trips, work and
+// floor_fac; Slots: the workspace slots of the fields X, RR, P, V, R0, BX,
+// S, T, PH, SH, T1, T2. Every method is force-inlined into the kernel, so
+// the state below lives in registers; the per-member scalars live in
+// `ctl`, in shared memory.
+template <int MB, class Args, class Slots, bool RAW = false>
 struct Solve : Block<MB> {
   using Base = Block<MB>;
   using Base::tid;
@@ -88,9 +92,50 @@ struct Solve : Block<MB> {
     });
   }
 
-  // The whole solve: OUT = from_s(best). DEN, D, RHS and OUT are fields of
-  // the block (member b at + b FS); RHS is read only by a left product,
-  // after its barrier, and OUT is written band by band by the last product.
+  // OUT_b = M_b^-1 V_b = from_s(to_s(V_b) / DEN_b), the raw basis's
+  // preconditioner (OUT != V), through T1 and T2; OUT is written band by
+  // band by the last product.
+  __device__ __forceinline__ void precondition(const float* DEN,
+                                               const float* V, float* OUT) {
+    float *T1 = F(Slots::T1), *T2 = F(Slots::T2);
+    const size_t fs = FS;
+    gemm_l_to(a.Vxi, V, T1);
+    gemm_r(T1, a.VyiT, [&](int b, int e) {
+      return Vals<1>{{DEN[b * fs + e]}};
+    }, [&](int b, int e, float v, const Vals<1>& in) {
+      T2[b * fs + e] = v / in.v[0];
+    });
+    gemm_l_to(a.Vx, T2, T1);
+    gemm_r_to(T1, a.VyT, OUT);
+  }
+
+  // OUT_b = S_b Y_b in the raw basis: (1/dt) Y - L U, U = (tau/dt + D) Y -
+  // (kappa/2) L Y in T2 (free here: the preconditioner's last read of it
+  // lies before the first Laplacian's cluster barrier), each Laplacian's
+  // first product through T1. Y is read band-locally, in the epilogues.
+  __device__ __forceinline__ void apply_S_raw(const float* D, const float* Y,
+                                              float* OUT, float inv_dt,
+                                              float tau_dt, float hk) {
+    float *T1 = F(Slots::T1), *U = F(Slots::T2);
+    const size_t fs = FS;
+    this->lap(a.Lx, a.LyT, Y, T1, [&](int b, int e) {
+      const size_t i = b * fs + e;
+      return Vals<2>{{D[i], Y[i]}};
+    }, [&](int b, int e, float l, const Vals<2>& in) {
+      U[b * fs + e] = (tau_dt + in.v[0]) * in.v[1] - hk * l;
+    });
+    this->lap(a.Lx, a.LyT, U, T1, [&](int b, int e) {
+      return Vals<1>{{Y[b * fs + e]}};
+    }, [&](int b, int e, float l, const Vals<1>& in) {
+      OUT[b * fs + e] = inv_dt * in.v[0] - l;
+    });
+  }
+
+  // The whole solve: OUT = from_s(best) (RAW: best). DEN, D, RHS and OUT
+  // are fields of the block (member b at + b FS); RHS is read only by a
+  // left product, after its barrier (RAW: by an elementwise pass), and OUT
+  // is written band by band by the last product (RAW: by an elementwise
+  // pass).
   __device__ __forceinline__ void solve(const float* DEN, const float* D,
                                         const float* RHS, float* OUT,
                                         float inv_dt, float tau_dt,
@@ -101,18 +146,32 @@ struct Solve : Block<MB> {
     float *SH = F(Slots::SH), *T1 = F(Slots::T1);
     const size_t fs = FS;
 
-    // b = to_s(rhs) into R0 and RR; x0 = 0
-    gemm_l_to(a.Vxi, RHS, T1);
-    gemm_r(T1, a.VyiT, [](int, int) { return None{}; },
-           [&](int b, int e, float v, None) {
-             const size_t i = b * fs + e;
-             R0[i] = v;
-             RR[i] = v;
-             X[i] = 0.f;
-             BX[i] = 0.f;
-             P[i] = 0.f;
-             V[i] = 0.f;
-           });
+    // b = to_s(rhs) (RAW: rhs) into R0 and RR; x0 = 0
+    if constexpr (RAW) {
+      each_elem(all, [&](int b, int e) {
+        return Vals<1>{{RHS[b * fs + e]}};
+      }, [&](int b, int e, const Vals<1>& in) {
+        const size_t i = b * fs + e;
+        R0[i] = in.v[0];
+        RR[i] = in.v[0];
+        X[i] = 0.f;
+        BX[i] = 0.f;
+        P[i] = 0.f;
+        V[i] = 0.f;
+      });
+    } else {
+      gemm_l_to(a.Vxi, RHS, T1);
+      gemm_r(T1, a.VyiT, [](int, int) { return None{}; },
+             [&](int b, int e, float v, None) {
+               const size_t i = b * fs + e;
+               R0[i] = v;
+               RR[i] = v;
+               X[i] = 0.f;
+               BX[i] = 0.f;
+               P[i] = 0.f;
+               V[i] = 0.f;
+             });
+    }
     this->template reduce<1, false>(0.f, all, [&](int b, int e) {
       return Vals<1>{{R0[b * fs + e]}};
     }, [](int, int, const Vals<1>& in, float (&p)[1]) {
@@ -140,17 +199,29 @@ struct Solve : Block<MB> {
         ctl.beta[b] = (v[0] / (ctl.rho[b] + EPS_DIV)) *
                       (ctl.kalpha[b] / (ctl.omega[b] + EPS_DIV));
       });
-      each_elem(live, [&](int b, int e) {
-        const size_t o = b * fs + e;
-        return Vals<4>{{RR[o], P[o], V[o], DEN[o]}};
-      }, [&](int b, int e, const Vals<4>& in) {
-        const size_t o = b * fs + e;
-        const float p =
-            in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
-        P[o] = p;
-        PH[o] = p / in.v[3];
-      });
-      apply_S(D, PH, V, inv_dt, tau_dt, hk);
+      if constexpr (RAW) {
+        each_elem(live, [&](int b, int e) {
+          const size_t o = b * fs + e;
+          return Vals<3>{{RR[o], P[o], V[o]}};
+        }, [&](int b, int e, const Vals<3>& in) {
+          P[b * fs + e] =
+              in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
+        });
+        precondition(DEN, P, PH);
+        apply_S_raw(D, PH, V, inv_dt, tau_dt, hk);
+      } else {
+        each_elem(live, [&](int b, int e) {
+          const size_t o = b * fs + e;
+          return Vals<4>{{RR[o], P[o], V[o], DEN[o]}};
+        }, [&](int b, int e, const Vals<4>& in) {
+          const size_t o = b * fs + e;
+          const float p =
+              in.v[0] + ctl.beta[b] * (in.v[1] - ctl.omega[b] * in.v[2]);
+          P[o] = p;
+          PH[o] = p / in.v[3];
+        });
+        apply_S(D, PH, V, inv_dt, tau_dt, hk);
+      }
       this->template reduce<1, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{R0[b * fs + e], V[b * fs + e]}};
       }, [](int, int, const Vals<2>& in, float (&p)[1]) {
@@ -158,16 +229,27 @@ struct Solve : Block<MB> {
       }, [&](int b, const float (&v)[1]) {
         ctl.alpha_n[b] = ctl.rho_new[b] / (v[0] + EPS_DIV);
       });
-      each_elem(live, [&](int b, int e) {
-        const size_t o = b * fs + e;
-        return Vals<3>{{RR[o], V[o], DEN[o]}};
-      }, [&](int b, int e, const Vals<3>& in) {
-        const size_t o = b * fs + e;
-        const float sv = in.v[0] - ctl.alpha_n[b] * in.v[1];
-        Sv[o] = sv;
-        SH[o] = sv / in.v[2];
-      });
-      apply_S(D, SH, T, inv_dt, tau_dt, hk);
+      if constexpr (RAW) {
+        each_elem(live, [&](int b, int e) {
+          const size_t o = b * fs + e;
+          return Vals<2>{{RR[o], V[o]}};
+        }, [&](int b, int e, const Vals<2>& in) {
+          Sv[b * fs + e] = in.v[0] - ctl.alpha_n[b] * in.v[1];
+        });
+        precondition(DEN, Sv, SH);
+        apply_S_raw(D, SH, T, inv_dt, tau_dt, hk);
+      } else {
+        each_elem(live, [&](int b, int e) {
+          const size_t o = b * fs + e;
+          return Vals<3>{{RR[o], V[o], DEN[o]}};
+        }, [&](int b, int e, const Vals<3>& in) {
+          const size_t o = b * fs + e;
+          const float sv = in.v[0] - ctl.alpha_n[b] * in.v[1];
+          Sv[o] = sv;
+          SH[o] = sv / in.v[2];
+        });
+        apply_S(D, SH, T, inv_dt, tau_dt, hk);
+      }
       this->template reduce<2, false>(0.f, all, [&](int b, int e) {
         return Vals<2>{{T[b * fs + e], Sv[b * fs + e]}};
       }, [](int, int, const Vals<2>& in, float (&p)[2]) {
@@ -210,9 +292,16 @@ struct Solve : Block<MB> {
                     BX[b * fs + e] = in.v[0];
                   });
     }
-    // out = from_s(best x)
-    gemm_l_to(a.Vx, BX, T1);
-    gemm_r_to(T1, a.VyT, OUT);
+    // out = from_s(best x) (RAW: best x, in the layout that wrote BX)
+    if constexpr (RAW) {
+      each_elem(all, [&](int b, int e) { return Vals<1>{{BX[b * fs + e]}}; },
+                [&](int b, int e, const Vals<1>& in) {
+                  OUT[b * fs + e] = in.v[0];
+                });
+    } else {
+      gemm_l_to(a.Vx, BX, T1);
+      gemm_r_to(T1, a.VyT, OUT);
+    }
   }
 };
 

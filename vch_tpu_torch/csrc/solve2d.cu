@@ -14,10 +14,10 @@
 //     basis, warm started from x0, each apply 4 products;
 //   - :581 bicgstab_adjoint_pallas (body :490-578): the same in the raw
 //     basis, each apply P^-1/2 A P^-1/2 as 12 products;
-// the solvers run the first, third and fourth on solve2d_cluster.cu's
-// cluster kernels, and these three are only their bit oracles; and the two
-// cost probes of scripts/diag_kernel_cost.py, which time the
-// raw Schur solve's tile code (the script's "full", :65) in parts:
+// the solvers run all four on solve2d_cluster.cu's cluster kernels, and
+// these four are only their bit oracles; and the two cost probes of
+// scripts/diag_kernel_cost.py, which time this kernel's raw Schur solve
+// (the script's "full", :65) in parts:
 //   - :131 nodots: the raw Schur solve's trips with every block dot product
 //     replaced by the constant 0.5, no freeze and no best iterate: its
 //     products and elementwise passes without its block reductions;
@@ -359,13 +359,14 @@ int launch_solve(int B, const SolveArgs& a, cudaStream_t s) {
 
 }  // namespace vch
 
-// Compiled three times (ops/_build.py): each object of -DVCH_VARIANT=v,
-// v = 0, 2, built with -fmad=false, holds variant v alone, the bit oracle
-// of a cluster kernel (solve2d_cluster.cu), which rounds as this one only
-// where neither contracts an elementwise product into an FMA; the object
-// without VCH_VARIANT holds the four other variants and the C entries,
-// with nvcc's default contraction, as the raw adjoint cluster solve (variant
-// 3's counterpart) is compiled.
+// Compiled four times (ops/_build.py): each object of -DVCH_VARIANT=v,
+// v = 0, 1, 2, built with -fmad=false, holds variant v alone, the bit
+// oracle of a cluster kernel (solve2d_cluster.cu), which rounds as this one
+// only where neither contracts an elementwise product into an FMA; the
+// object without VCH_VARIANT holds the three other variants (the raw
+// adjoint solve and the two probes) and the C entries, with nvcc's default
+// contraction, as the raw adjoint cluster solve (variant 3's counterpart)
+// is compiled.
 #ifndef VCH_VARIANT
 #define VCH_VARIANT -1
 #endif
@@ -376,6 +377,8 @@ template int launch_solve<VCH_VARIANT>(int, const SolveArgs&, cudaStream_t);
 #else
 extern template int launch_solve<SCHUR_SPECTRAL>(int, const SolveArgs&,
                                                  cudaStream_t);
+extern template int launch_solve<SCHUR_RAW>(int, const SolveArgs&,
+                                            cudaStream_t);
 extern template int launch_solve<ADJOINT_SPECTRAL>(int, const SolveArgs&,
                                                    cudaStream_t);
 #endif

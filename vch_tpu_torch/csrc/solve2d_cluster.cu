@@ -1,8 +1,9 @@
 // The per-solve kernels of the 2D scan path on thread-block clusters: one
 // member of a (B, n, m) batch per cluster of C CTAs.
 //
-// Replaces three TPU kernels of vch_tpu/ops/pallas_kernels.py, each one
-// pallas_call per solve (vmap over members):
+// Replaces four TPU kernels of vch_tpu/ops/pallas_kernels.py, each one
+// pallas_call per solve (vmap over members), and the member-tiled form of
+// one of them:
 //   - :798 bicgstab_adjoint_spectral_pallas (body :712-795): the
 //     split-preconditioned adjoint step solve A(phi_n) p = rhs in the cosine
 //     basis, warm started from x0; bt = isd to_s(rhs), y0 = to_s(x0) / isd,
@@ -21,12 +22,22 @@
 //     solve S dphi = rhs in the cosine basis, x0 = 0, S yh = poly yh -
 //     lam to_s(d from_s(yh)), preconditioned by the pointwise divide by
 //     denom, out = from_s(best); here schur_solve_cluster_kernel. The
-//     per-step marcher (ops/linsolve.py) calls it once per Newton round.
+//     per-step marcher (ops/linsolve.py) calls it once per Newton round;
+//   - :233 bicgstab_schur_pallas (body :150-231): the same Newton Schur
+//     solve in the raw basis (pallas_variant "raw"), b = rhs, x0 = 0, S v =
+//     (1/dt) v - L((tau/dt + d) v - (kappa/2) L v) as two Laplacians,
+//     right-preconditioned by M^-1 v = Vx((Vx^-1 v Vy^-T) / denom) Vy^T,
+//     out = best; here schur_raw_cluster_kernel, which also takes the place
+//     of :394 bicgstab_schur_pallas_batched (block_b members per program,
+//     the batch padded): B clusters, one member each, no padding. Config 3
+//     on the raw variant calls it once per Newton solve of its baseline
+//     march.
 //
 // What bounds them on an H100: a chain of dependent dense (n x n)(n x m)
 // products (spectral adjoint 10 + 8 n_iter, raw adjoint 24 + 24 n_iter,
-// Schur 4 + 8 n_iter; 27 MFLOP for the spectral adjoint at n = 65 and five
-// trips) with a cluster-wide reduction between most of them. One CTA per
+// Schur 4 + 8 n_iter, raw Schur 16 n_iter; 27 MFLOP for the spectral
+// adjoint at n = 65 and five trips) with a cluster-wide reduction between
+// most of them. One CTA per
 // member (the one-CTA kernels of solve2d.cu, now these kernels' bit
 // oracles) runs a config-3 solve on one SM of 132.
 //
@@ -38,29 +49,32 @@
 // adjoint2d_cluster.cu runs inside every reverse step; the raw one its raw
 // operator): the sweep forms isd and f'' in the kernel, here they come from
 // the caller, and one elementwise pass copies them into the workspace
-// first, so that both kernels run one body. The Schur solve runs
-// schur_solve.cuh, reading denom, d and rhs from the caller's fields. The
+// first, so that both kernels run one body. The Schur solves run
+// schur_solve.cuh (the raw one its raw operator and preconditioner),
+// reading denom, d and rhs from the caller's fields. The
 // scalars come by value or from device memory (a 0-d tensor on the card:
 // the sweep's dt/2 and the marcher's 1/dt and tau/dt are), so a call needs
 // no host sync.
 //
 // Compiled once per kernel (ops/_build.py): -DVCH_VARIANT=0 the Schur
-// solve, 2 the spectral adjoint solve, 3 the raw one (solve2d.cu's variant
-// numbers), each object holding its kernel and C entries. Each compiles as
-// its one-CTA oracle does, so that a member's bits are that kernel's,
-// whatever the cluster size or the batch: the Schur and the spectral
-// adjoint solve with -fmad=false (an expression such as poly y - l v adds
-// two products, which nvcc may fuse either way), the raw adjoint solve with
-// nvcc's default contraction (none of its expressions adds two products, so
-// both fuse alike; without contraction its float32 result on rough inputs
-// lay farther from float64). Full float32 FMA: no tensor cores, no TF32.
+// solve, 1 the raw Schur solve, 2 the spectral adjoint solve, 3 the raw one
+// (solve2d.cu's variant numbers), each object holding its kernel and C
+// entries. Each compiles as its one-CTA oracle does, so that a member's
+// bits are that kernel's, whatever the cluster size or the batch: the two
+// Schur solves and the spectral adjoint solve with -fmad=false (an
+// expression such as poly y - l v, or the raw operator's (tau/dt + d) y -
+// (kappa/2) l, adds two products, which nvcc may fuse either way), the raw
+// adjoint solve with nvcc's default contraction (none of its expressions
+// adds two products, so both fuse alike; without contraction its float32
+// result on rough inputs lay farther from float64). Full float32 FMA: no
+// tensor cores, no TF32.
 #include <type_traits>
 
 #include "adjoint_solve.cuh"
 #include "schur_solve.cuh"
 
 #ifndef VCH_VARIANT
-#error "compile with -DVCH_VARIANT=0 (Schur), 2 (adjoint) or 3 (raw adjoint)"
+#error "compile with -DVCH_VARIANT=0 (Schur), 1 (raw Schur), 2 or 3 (adjoint)"
 #endif
 
 namespace vch {
@@ -105,7 +119,7 @@ static LaunchState (&launch_state())[16] {
   return state;
 }
 
-#if VCH_VARIANT == 0
+#if VCH_VARIANT <= 1
 
 struct SchurArgs {
   const float *Vxi, *VyiT, *Vx, *VyT, *lam;   // (n, n), (m, m), (n, m)
@@ -122,6 +136,7 @@ struct SchurSlots {
   enum { X, RR, P, V, R0, BX, S, T, PH, SH, T1, T2, COUNT };
 };
 
+#if VCH_VARIANT == 0
 __global__ void __launch_bounds__(NT, 1)
     schur_solve_cluster_kernel(SchurArgs a, BGeom g) {
   extern __shared__ float4 smem4[];
@@ -135,6 +150,25 @@ __global__ void __launch_bounds__(NT, 1)
   s.solve(a.denom + mo, a.d + mo, a.rhs + mo, a.out + mo, v[0], v[1], v[2]);
   s.cluster.sync();   // no CTA leaves while a peer may still write its Ctl
 }
+#else
+struct SchurRawArgs : SchurArgs {
+  const float *Lx, *LyT;                      // (n, n), (m, m)
+};
+
+__global__ void __launch_bounds__(NT, 1)
+    schur_raw_cluster_kernel(SchurRawArgs a, BGeom g) {
+  extern __shared__ float4 smem4[];
+  __shared__ schur::Ctl<1> ctl;
+  schur::Solve<1, SchurRawArgs, SchurSlots, true> s(
+      a, g, ctl, reinterpret_cast<float*>(smem4), SchurSlots::COUNT);
+  float v[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = a.scal_p[i] ? *a.scal_p[i] : a.scal[i];
+  const size_t mo = (size_t)s.b0 * s.nm;    // the member's fields
+  s.solve(a.denom + mo, a.d + mo, a.rhs + mo, a.out + mo, v[0], v[1], v[2]);
+  s.cluster.sync();   // no CTA leaves while a peer may still write its Ctl
+}
+#endif
 
 #else
 
@@ -273,6 +307,49 @@ extern "C" int vch_bicgstab_schur_spectral_cluster(
       Vxi, VyiT, Vx, VyT, lam, denom, d, rhs, {inv_dt_p, tau_dt_p, hk_p},
       {inv_dt, tau_dt, hk}, out, work, n, m, n_iter, floor_fac};
   return vch::step::launch(vch::step::schur_solve_cluster_kernel,
+                           vch::step::launch_state(), a, B, cluster, kc,
+                           smem_bytes, stream);
+}
+
+#elif VCH_VARIANT == 1
+
+extern "C" int vch_schur_raw_cluster_workspace_fields() {
+  return vch::step::SchurSlots::COUNT;
+}
+
+// The occupancy query of the raw Schur solve
+// (vch_solve_cluster_max_clusters' arguments).
+extern "C" int vch_schur_raw_cluster_max_clusters(int members, int segment,
+                                                  int n, int m, int cluster,
+                                                  int kc, int smem_bytes) {
+  return vch::step::resident(
+      (const void*)vch::step::schur_raw_cluster_kernel,
+      vch::step::launch_state(), members, segment, n, m, cluster, kc,
+      smem_bytes);
+}
+
+// One batch of B raw-basis Newton Schur solves, one member per cluster
+// (vch_bicgstab_schur_spectral_cluster's arguments and geometry, with the
+// Laplacian factors Lx (n, n) and LyT (m, m) first and no eigenvalue grid);
+// work holds B * vch_schur_raw_cluster_workspace_fields() (n, m) fields.
+// What vch_bicgstab_2d's variant 1 (solve2d.cu) computes, bit for bit.
+extern "C" int vch_bicgstab_schur_raw_cluster(
+    const float* Lx, const float* LyT, const float* Vxi, const float* VyiT,
+    const float* Vx, const float* VyT, const float* denom, const float* d,
+    const float* rhs, const float* inv_dt_p, const float* tau_dt_p,
+    const float* hk_p, float inv_dt, float tau_dt, float hk, float* out,
+    float* work, int B, int n, int m, int n_iter, float floor_fac,
+    int cluster, int kc, int smem_bytes, void* stream) {
+  if (B <= 0 || n_iter < 0 || !Lx || !LyT || !Vxi || !VyiT || !Vx || !VyT ||
+      !denom || !d || !rhs || !out || !work)
+    return (int)cudaErrorInvalidValue;
+  vch::step::SchurRawArgs a;
+  static_cast<vch::step::SchurArgs&>(a) = vch::step::SchurArgs{
+      Vxi, VyiT, Vx, VyT, nullptr, denom, d, rhs, {inv_dt_p, tau_dt_p, hk_p},
+      {inv_dt, tau_dt, hk}, out, work, n, m, n_iter, floor_fac};
+  a.Lx = Lx;
+  a.LyT = LyT;
+  return vch::step::launch(vch::step::schur_raw_cluster_kernel,
                            vch::step::launch_state(), a, B, cluster, kc,
                            smem_bytes, stream);
 }

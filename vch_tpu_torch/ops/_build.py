@@ -8,21 +8,25 @@ member-blocked march), `1` (the whole one-member march) and `1` with
 `-DVCH_SEG=1` (the segment march), and the cluster sweep with `-DVCH_BB=8`,
 `4`, `2` (the member-blocked sweep), `1` (the whole one-member sweep) and
 `1` with `-DVCH_SEG=1` (the segment sweep), one kernel per object; the
-one-CTA per-solve kernels three times, the spectral Schur solve and the
-spectral adjoint solve (`-DVCH_VARIANT=0`, `2`: two cluster solves' bit
-oracles) each apart from the four others; the cluster solves three times
-(`-DVCH_VARIANT=0`, `2`, `3`: the Schur solve, the spectral and the raw
-adjoint step solve); the one-CTA 2D march and sweep (the bit oracles of
-the cluster march and sweep), the operator applies, the fused 1D march and
-the cost probes, which hold their own members-per-CTA templates, once each.
-The 1D march, both sweeps, the Schur and the spectral adjoint cluster
-solves and their oracles compile with `-fmad=false`: their only FMAs are
-the explicit ones of their products, so that no copy of an elementwise
-expression that the compiler unrolls rounds differently from another, and
-each cluster kernel rounds as its one-CTA oracle does. The raw adjoint
-cluster solve and its oracle (variant 3, in the first object) compile with
-nvcc's default contraction: no expression of theirs adds two products, so
-nvcc fuses them alike, and the contracted raw solve lies nearer float64 on
+one-CTA per-solve kernels four times, the spectral and the raw Schur solve
+and the spectral adjoint solve (`-DVCH_VARIANT=0`, `1`, `2`: three cluster
+solves' bit oracles) each apart from the three others (the raw adjoint
+solve and the two cost probes); the cluster solves four times
+(`-DVCH_VARIANT=0`, `1`, `2`, `3`: the spectral and the raw Schur solve,
+the spectral and the raw adjoint step solve); the one-CTA 2D march and
+sweep (the bit oracles of the cluster march and sweep), the operator
+applies, the fused 1D march and the chain probes, which hold their own
+members-per-CTA templates, once each. The 1D march, both sweeps, both
+Schur and the spectral adjoint cluster solves and their oracles compile
+with `-fmad=false`: their only FMAs are the explicit ones of their
+products, so that no copy of an elementwise expression that the compiler
+unrolls rounds differently from another, and each cluster kernel rounds
+as its one-CTA oracle does (the raw Schur operator's (tau/dt + d) v -
+(kappa/2) L v and the iterate update x + alpha ph + omega sh add two
+products, which two codes could fuse apart). The raw adjoint cluster solve
+and its oracle (variant 3, in the first object) compile with nvcc's
+default contraction: no expression of theirs adds two products, so nvcc
+fuses them alike, and the contracted raw solve lies nearer float64 on
 rough inputs. All objects compile at once in parallel, and link
 into one shared library with a plain C interface, at first use, into
 `vch_tpu_torch/_build/` (listed in .gitignore); `ctypes` loads it. The
@@ -57,9 +61,9 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
                                          for bb in (8, 4, 2, 1))
            + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),),
            "solve2d.cu": ((),) + tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
-                                       for v in (0, 2)),
+                                       for v in (0, 1, 2)),
            "solve2d_cluster.cu": tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
-                                       for v in (0, 2))
+                                       for v in (0, 1, 2))
            + (("-DVCH_VARIANT=3",),),
            "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),)}
@@ -223,7 +227,13 @@ def load():
     lib.vch_bicgstab_schur_spectral_cluster.argtypes = (
         [_P] * 11 + [ctypes.c_float] * 3 + [_P] * 2 + [_I] * 4
         + [ctypes.c_float] + [_I] * 3 + [_P])
-    for name in ("solve", "adjoint_raw", "schur"):
+    # Lx LyT Vxi VyiT Vx VyT denom d rhs inv_dt_p tau_dt_p hk_p | inv_dt
+    # tau_dt hk | out work | B n m n_iter | floor_fac | cluster kc
+    # smem_bytes | stream
+    lib.vch_bicgstab_schur_raw_cluster.argtypes = (
+        [_P] * 12 + [ctypes.c_float] * 3 + [_P] * 2 + [_I] * 4
+        + [ctypes.c_float] + [_I] * 3 + [_P])
+    for name in ("solve", "adjoint_raw", "schur", "schur_raw"):
         # members segment n m cluster kc smem_bytes
         query = getattr(lib, f"vch_{name}_cluster_max_clusters")
         query.argtypes = [_I] * 7
@@ -264,7 +274,8 @@ def load():
                lib.vch_adjoint_fused_2d_segment_cluster,
                lib.vch_bicgstab_2d, lib.vch_bicgstab_adjoint_spectral_cluster,
                lib.vch_bicgstab_adjoint_raw_cluster,
-               lib.vch_bicgstab_schur_spectral_cluster, lib.vch_apply_2d,
+               lib.vch_bicgstab_schur_spectral_cluster,
+               lib.vch_bicgstab_schur_raw_cluster, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_blocked_microbench, lib.vch_while_probe):
         fn.restype = _I

@@ -479,10 +479,10 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
                 1: "the one-member sweep (whole or segment sweep)"}
 # the cluster kernels launch_geometry fits, each with its own register
 # count, so its own residency: the march (csrc/march2d_blocked.cu), the
-# sweep (csrc/adjoint2d_cluster.cu) and the three per-solve kernels of
+# sweep (csrc/adjoint2d_cluster.cu) and the four per-solve kernels of
 # csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
-# spectral Schur solve); their names by members per cluster, and their
-# occupancy queries
+# spectral and the raw Schur solve); their names by members per cluster,
+# and their occupancy queries
 CLUSTER_KERNELS = {
     "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
     "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
@@ -491,7 +491,9 @@ CLUSTER_KERNELS = {
     "raw_solve": ({1: "the raw adjoint step solve"},
                   "vch_adjoint_raw_cluster_max_clusters"),
     "schur_solve": ({1: "the Schur solve"},
-                    "vch_schur_cluster_max_clusters")}
+                    "vch_schur_cluster_max_clusters"),
+    "raw_schur_solve": ({1: "the raw Schur solve"},
+                        "vch_schur_raw_cluster_max_clusters")}
 
 
 def _kernel_names(kernel: str) -> dict:
@@ -512,7 +514,7 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
     `march_fused_2d_blocked` and `adjoint_fused_2d_blocked`, 1 for
     `march_fused_2d`, `march_fused_2d_segment`, `adjoint_fused_2d`,
-    `adjoint_fused_2d_segment` and the three cluster solves
+    `adjoint_fused_2d_segment` and the four cluster solves
     (`blocked_cluster_size`; `cluster` overrides it). Raises ValueError
     when B is not a positive multiple of `members`, or when no ring fits in
     BLOCKED_SMEM_LIMIT bytes per CTA."""
@@ -1441,6 +1443,7 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              _adjoint_fused_2d_cta,
                              _adjoint_fused_2d_segment_cta,
                              sk._bicgstab_schur_spectral_cta,
+                             sk._bicgstab_schur_cta,
                              sk._bicgstab_adjoint_spectral_cta,
                              sk._bicgstab_adjoint_cta, sk.schur_apply,
                              sk.adjoint_apply, sk.spectral_solve,

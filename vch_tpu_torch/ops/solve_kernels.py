@@ -21,10 +21,12 @@ vch_tpu/ops/pallas_kernels.py).
   spectral_solve            Vx ((Vx^-1 v Vy^-T) / denom) Vy^T, the exact
                             solve of a polynomial in L (:478), 4 products.
 `bicgstab_schur` on a (B, n, m) batch is also the counterpart of the
-member-tiled `bicgstab_schur_pallas_batched` (:394): one CTA per member
-takes the place of its block_b members per program and its padding.
-Two cost probes of `bicgstab_schur` (scripts/diag_kernel_cost.py:131,
-:176) split its time between products and block reductions:
+member-tiled `bicgstab_schur_pallas_batched` (:394): B thread-block
+clusters, one member each, take the place of its block_b members per
+program and its padding.
+Two cost probes of the one-CTA raw Schur solve (`_bicgstab_schur_cta`;
+scripts/diag_kernel_cost.py:131, :176) split its time between products and
+block reductions:
   schur_nodots              its trips with every dot product the constant
                             0.5 (no freeze, no best iterate);
   schur_mmonly              the chain v <- M(S(M(S(v)))) n_iter times, its
@@ -34,19 +36,19 @@ Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
 hand-written kernel of `csrc/solve2d_cluster.cu`, `csrc/solve2d.cu` or
-`csrc/apply2d.cu` (float32; one member per thread-block cluster for
-`bicgstab_schur_spectral`, `bicgstab_adjoint_spectral` and
-`bicgstab_adjoint`, `solve_geometry`, and for the three operator applies,
-`apply_geometry`; one CTA per member for the others; a failed build or
+`csrc/apply2d.cu` (float32; one member per thread-block cluster for the
+four solves, `solve_geometry`, and for the three operator applies,
+`apply_geometry`; one CTA per member for the two probes; a failed build or
 launch raises, with no fallback), on CPU tensors it runs
 its plain PyTorch version `<name>_plain` of this module, which computes
 what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
 non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
 kernels) in float32 or float64 without host syncs. Each wrapper counts its
 launches in `.launches`. `_bicgstab_schur_spectral_cta`,
-`_bicgstab_adjoint_spectral_cta` and `_bicgstab_adjoint_cta` keep the
-one-CTA solves of `csrc/solve2d.cu` as the cluster kernels' bit oracles,
-which only the card tests and chip_smoke.py call.
+`_bicgstab_schur_cta`, `_bicgstab_adjoint_spectral_cta` and
+`_bicgstab_adjoint_cta` keep the one-CTA solves of `csrc/solve2d.cu` as the
+cluster kernels' bit oracles, which only the card tests, chip_smoke.py and
+the cost probe (`_bicgstab_schur_cta`, beside its two probes) call.
 """
 from __future__ import annotations
 
@@ -294,7 +296,8 @@ def solve_geometry(n: int, m: int, B: int, device_index: int,
     """The cluster geometry of a cluster solve for B members of an (n, m)
     grid on CUDA device `device_index` (`kernel`: "solve" for
     `bicgstab_adjoint_spectral`, "raw_solve" for `bicgstab_adjoint`,
-    "schur_solve" for `bicgstab_schur_spectral`): one member per
+    "schur_solve" for `bicgstab_schur_spectral`, "raw_schur_solve" for
+    `bicgstab_schur`): one member per
     thread-block cluster, `ops.march.launch_geometry` fitted to that
     kernel's own residency (at n = 65 up to 16 CTAs for one member, one at
     a batch above the SMs). Cached: the per-step sweep and marcher call a
@@ -323,6 +326,8 @@ _CLUSTER_SOLVES = {
     "bicgstab_schur_spectral": ("schur_solve",
                                 "vch_bicgstab_schur_spectral_cluster",
                                 "vch_schur_cluster_workspace_fields"),
+    "bicgstab_schur": ("raw_schur_solve", "vch_bicgstab_schur_raw_cluster",
+                       "vch_schur_raw_cluster_workspace_fields"),
     "bicgstab_adjoint_spectral": ("solve",
                                   "vch_bicgstab_adjoint_spectral_cluster",
                                   "vch_solve_cluster_workspace_fields"),
@@ -403,19 +408,40 @@ _bicgstab_adjoint_spectral_cta.launches = 0
 def bicgstab_schur(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
                    tau_dt, half_kappa, n_iter: int):
     """`bicgstab_schur_spectral` in the raw basis, with the preconditioner
-    applied through the transforms (vch_tpu/ops/pallas_kernels.py:233):
-    the iteration of vch_tpu's composed bicgstab_fixed. Lx (n, n) and LyT
-    (m, m) are the Laplacian factors."""
+    applied through the transforms (vch_tpu/ops/pallas_kernels.py:233; on a
+    (B, n, m) batch also :394, the member-tiled form): the iteration of
+    vch_tpu's composed bicgstab_fixed. Lx (n, n) and LyT (m, m) are the
+    Laplacian factors. On CUDA tensors each member runs on a thread-block
+    cluster (`solve_geometry`), bit for bit what the one-CTA kernel
+    `_bicgstab_schur_cta` computes."""
     args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
             half_kappa)
     if not _build.on_cuda("bicgstab_schur", rhs):
         return bicgstab_schur_plain(*args, n_iter=n_iter)
-    return _launch(bicgstab_schur, _SCHUR_RAW, (inv_dt, tau_dt, half_kappa),
+    return _launch_cluster(bicgstab_schur,
+                           (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
+                           (denom, d, rhs, None),
+                           (inv_dt, tau_dt, half_kappa), n_iter)
+
+
+bicgstab_schur.launches = 0
+
+
+def _bicgstab_schur_cta(*args, n_iter: int):
+    """The one-CTA raw Schur solve of csrc/solve2d.cu (one member per
+    CTA): the bit oracle of `bicgstab_schur`, which the card tests and
+    chip_smoke.py hold the cluster kernel against, and the cost probe's
+    `full`, timed beside `schur_nodots` and `schur_mmonly`, its parts; no
+    solver calls it. Arguments and results as `bicgstab_schur`."""
+    if not _build.on_cuda("_bicgstab_schur_cta", args[8]):
+        return bicgstab_schur_plain(*args, n_iter=n_iter)
+    Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs = args[:9]
+    return _launch(_bicgstab_schur_cta, _SCHUR_RAW, args[9:],
                    (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
                    (denom, d, rhs, None), n_iter)
 
 
-bicgstab_schur.launches = 0
+_bicgstab_schur_cta.launches = 0
 
 
 def bicgstab_adjoint(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
@@ -457,7 +483,8 @@ _bicgstab_adjoint_cta.launches = 0
 
 
 # --------------------------------------------------------------------------
-# the cost probes of the raw Schur solve (scripts/diag_kernel_cost.py)
+# the cost probes of the one-CTA raw Schur solve
+# (scripts/diag_kernel_cost.py)
 
 def schur_nodots_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
                        inv_dt, tau_dt, half_kappa, n_iter: int):
@@ -500,11 +527,11 @@ def schur_mmonly_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
 def schur_nodots(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
                  tau_dt, half_kappa, n_iter: int):
     """The probe `nodots` (scripts/diag_kernel_cost.py:131): the trips of
-    `bicgstab_schur` on the same arguments with every block dot product
-    replaced by the constant 0.5, no noise-floor freeze and no best
-    iterate; returns the last iterate. Its time is that of the solve's
-    products and elementwise passes without its reductions; its result is
-    no solve."""
+    the one-CTA raw Schur solve `_bicgstab_schur_cta` on the same arguments
+    with every block dot product replaced by the constant 0.5, no
+    noise-floor freeze and no best iterate; returns the last iterate. Its
+    time is that of the solve's products and elementwise passes without
+    its reductions; its result is no solve."""
     args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
             half_kappa)
     if not _build.on_cuda("schur_nodots", rhs):
@@ -521,8 +548,8 @@ def schur_mmonly(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
                  tau_dt, half_kappa, n_iter: int):
     """The probe `mmonly` (scripts/diag_kernel_cost.py:176): v <- M(S(M(S(
     v)))) n_iter times from v = rhs, S the raw Schur operator and M the
-    spectral preconditioner of `bicgstab_schur` on the same arguments: the
-    16 products of each of its trips with nothing between them."""
+    spectral preconditioner of `_bicgstab_schur_cta` on the same arguments:
+    the 16 products of each of its trips with nothing between them."""
     args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
             half_kappa)
     if not _build.on_cuda("schur_mmonly", rhs):
