@@ -109,6 +109,13 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                read around each; each probe kernel (the float32 and bf16
                chains, the eight microbench variants, the while probe)
                against its plain version and the plain version in float64;
+               the float32 chain (K members per thread-block cluster) bit
+               for bit against its one-CTA oracle at every K, on its launch
+               geometry and on one cluster of every size 1-16 at n = 17,
+               65 and 129, the mma.sync bf16 chain against the wmma one
+               likewise at every K; rows 20 and 21 timed in turns with
+               their oracles, and the float32 chain's time per link by
+               cluster size;
   3d slice   — BatchedProblem1D at N = 64 on a heterogeneous B = 16 sweep,
                kernel path against plain path, 3 PGD iterations;
   3e scan    — the scan path (fused_march=False: the batched per-step
@@ -184,7 +191,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                raw Schur solve also at phase 2e's n = 65, B = 8, row 12),
                each timed on the device
                alone (20 calls in a CUDA graph), last because a capture
-               leaves cuBLAS a workspace that phase 7 would count.
+               leaves cuBLAS a workspace that phase 7 would count;
+  2g-dev     — rows 20 and 21, their one-CTA oracles and their library
+               form (L torch.matmul links) on the device alone likewise.
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -2626,18 +2635,23 @@ def _chain_probe_gates(torch, device):
     out = {}
     a, v = dm.chain_inputs(64, device)
     a64, v64 = dm.chain_inputs(64, device, f64)
-    out["chain_3"] = _gate(torch, pk.matmul_chain(a, v, 1, 3),
-                           pk.matmul_chain_plain(a, v, 1, 3),
+    k3 = pk.matmul_chain(a, v, 1, 3)
+    out["chain_3"] = _gate(torch, k3, pk.matmul_chain_plain(a, v, 1, 3),
                            pk.matmul_chain_plain(a64, v64, 1, 3))
+    out["chain_3"]["equals_cta"] = torch.equal(
+        k3, pk._matmul_chain_cta(a, v, 1, 3))
     links = dm.mm_per_solve(3) * CHAIN_AMORT
     out["chain_plain_ms"] = time_ms(
         lambda: pk.matmul_chain_plain(a, v, 1, links), 1)
 
     A, X = di.inputs(64, 32, device)
     A64, X64 = di.inputs(64, 32, device, f64)
-    out["chain_long"] = _gate(torch, pk.matmul_chain(A, X[:1], 1, links),
+    kl = pk.matmul_chain(A, X[:1], 1, links)
+    out["chain_long"] = _gate(torch, kl,
                               pk.matmul_chain_plain(A, X[:1], 1, links),
                               pk.matmul_chain_plain(A64, X64[:1], 1, links))
+    out["chain_long"]["equals_cta"] = torch.equal(
+        kl, pk._matmul_chain_cta(A, X[:1], 1, links))
     p, p64 = (pk.matmul_chain_plain(A, X, 1, 40),
               pk.matmul_chain_plain(A64, X64, 1, 40))
     pb = pk.matmul_chain_bf16_plain(A, X, 1, 40)
@@ -2645,10 +2659,28 @@ def _chain_probe_gates(torch, device):
     lo = [pk.matmul_chain_bf16(A, X, K, 40) for K in di.WIDTHS]
     out["interleave"] = _gate(torch, hi[-1], p, p64)
     out["interleave"]["widths_equal"] = all(torch.equal(h, hi[0]) for h in hi)
+    # each width on its launch geometry against the one-CTA oracle
+    out["interleave"]["equals_cta"] = {
+        K: torch.equal(h, pk._matmul_chain_cta(A, X, K, 40))
+        for K, h in zip(di.WIDTHS, hi)}
     out["bf16"] = dict(_gate(torch, lo[-1], pb, p64),
                        rel_kernel_vs_plain=(lo[-1] - pb).abs().max().item()
                        / pb.abs().max().item(),
-                       widths_equal=all(torch.equal(h, lo[0]) for h in lo))
+                       widths_equal=all(torch.equal(h, lo[0]) for h in lo),
+                       equals_wmma={K: torch.equal(
+                           h, pk._matmul_chain_bf16_cta(A, X, K, 40))
+                           for K, h in zip(di.WIDTHS, lo)})
+    # the float32 chain on one cluster of K members at every cluster size
+    # that fits, at three grids, against the one-CTA oracle
+    out["cluster_bits"] = {}
+    for n in (17, 65, 129):
+        An, Xn = di.inputs(n - 1, 8, device)
+        for K in di.WIDTHS:
+            ref = pk._matmul_chain_cta(An, Xn[:K], K, 40)
+            Cs = range(1, min(16, n) + 1)
+            out["cluster_bits"][f"{n}x{K}"] = dict(
+                clusters=len(Cs), differ=[C for C in Cs if not torch.equal(
+                    pk.matmul_chain(An, Xn[:K], K, 40, cluster=C), ref)])
     for key, fn in (("interleave", pk.matmul_chain_plain),
                     ("bf16", pk.matmul_chain_bf16_plain)):
         out[key]["plain_ms"] = time_ms(lambda: fn(A, X, 8, 40), 5)
@@ -2710,8 +2742,85 @@ def chain_probe_case(torch, device):
         runs[key]["launches"] = {k: v for k, v in km.launch_counts().items()
                                  if v}
     runs["gate"] = _chain_probe_gates(torch, device)
+    runs["timing"] = chain_timing(torch, device)
     runs["seconds"] = time.perf_counter() - t0
     return runs
+
+
+def _turns(old, new, reps):
+    """CUDA-event ms of two versions of one function in turns: old, new,
+    new, old."""
+    t = [time_ms(f, reps) for f in (old, new, new, old)]
+    return dict(old_ms=[t[0], t[3]], new_ms=[t[1], t[2]])
+
+
+def chain_timing(torch, device):
+    """Rows 20 and 21 on their Hopper kernels and their one-CTA oracles in
+    turns (CUDA events): the chain at phase 2g's link count on one member
+    of diag_march_sol's inputs, the interleaved float32 and bf16 chains at
+    diag_interleave's B = 32, L = 40, K = 8; then the float32 chain's time
+    per link on one cluster at each cluster size, one member (that link
+    count) and eight (40 links): the cluster engine's left-product floor."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_interleave as di
+    from vch_tpu_torch.probes import diag_march_sol as dm
+
+    links = dm.mm_per_solve(3) * CHAIN_AMORT
+    a, v = dm.chain_inputs(64, device)
+    A, X = di.inputs(64, 32, device)
+    geo = lambda B, K, C=None: pk.chain_geometry(65, B, K, 0, C).cluster
+    out = dict(
+        row20=dict(links=links, cluster=geo(1, 1), **_turns(
+            lambda: pk._matmul_chain_cta(a, v, 1, links),
+            lambda: pk.matmul_chain(a, v, 1, links), 1)),
+        row21=dict(B=32, L=40, K=8, cluster=geo(32, 8), **_turns(
+            lambda: pk._matmul_chain_cta(A, X, 8, 40),
+            lambda: pk.matmul_chain(A, X, 8, 40), 20)),
+        row21_bf16=dict(B=32, L=40, K=8, **_turns(
+            lambda: pk._matmul_chain_bf16_cta(A, X, 8, 40),
+            lambda: pk.matmul_chain_bf16(A, X, 8, 40), 20)))
+    out["us_per_link_by_cluster"] = {
+        f"K{K}": {C: time_ms(lambda: pk.matmul_chain(
+            x, X[:K], K, L, cluster=C), reps) * 1e3 / L
+            for C in (16, 8, 4, 2, 1)}
+        for K, x, L, reps in ((1, A, links, 1), (8, A, 40, 10))}
+    return out
+
+
+def chain_device_times(torch, device):
+    """Phase 2g-dev: rows 20 and 21 (new kernel, one-CTA oracle) and their
+    library form, L torch.matmul links, each on the device alone (calls
+    captured in one CUDA graph, `probes/_timing.py` graph_ms): the
+    interleaved chains at B = 32, L = 40, K = 8 (float32, and bf16 with
+    bf16 operands and outputs in the library form), the chain at phase
+    2g's link count on one member. Last, as apply_device_times: a capture
+    leaves cuBLAS a workspace."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_interleave as di
+    from vch_tpu_torch.probes import diag_march_sol as dm
+
+    A, X = di.inputs(64, 32, device)
+    Ab, Xb = A.to(torch.bfloat16), X.to(torch.bfloat16)
+    links = dm.mm_per_solve(3) * CHAIN_AMORT
+    a, v = dm.chain_inputs(64, device)
+    return dict(
+        row21=dict(ms=graph_ms(lambda: pk.matmul_chain(A, X, 8, 40)),
+                   oracle_ms=graph_ms(
+                       lambda: pk._matmul_chain_cta(A, X, 8, 40)),
+                   library_ms=graph_ms(
+                       lambda: pk.matmul_chain_plain(A, X, 8, 40))),
+        row21_bf16=dict(
+            ms=graph_ms(lambda: pk.matmul_chain_bf16(A, X, 8, 40)),
+            oracle_ms=graph_ms(
+                lambda: pk._matmul_chain_bf16_cta(A, X, 8, 40)),
+            library_ms=graph_ms(
+                lambda: pk.matmul_chain_plain(Ab, Xb, 8, 40))),
+        row20=dict(links=links,
+                   ms=graph_ms(lambda: pk.matmul_chain(a, v, 1, links), 2),
+                   oracle_ms=graph_ms(
+                       lambda: pk._matmul_chain_cta(a, v, 1, links), 2),
+                   library_ms=graph_ms(
+                       lambda: pk.matmul_chain_plain(a, v, 1, links), 1)))
 
 
 def check_chain_probe_case(c):
@@ -2755,6 +2864,17 @@ def check_chain_probe_case(c):
                          f"plain float32 {m['rel_plain_vs_f64']}")
     if not (g["interleave"]["widths_equal"] and g["bf16"]["widths_equal"]):
         fails.append("interleave widths differ")
+    if not (g["chain_3"]["equals_cta"] and g["chain_long"]["equals_cta"]
+            and all(g["interleave"]["equals_cta"].values())):
+        fails.append("the cluster chain differs from its one-CTA oracle")
+    differ = {k: b["differ"] for k, b in g["cluster_bits"].items()
+              if b["differ"]}
+    if differ:
+        fails.append(f"the cluster chain differs from its one-CTA oracle on "
+                     f"clusters (n x K: C) {differ}")
+    if not all(g["bf16"]["equals_wmma"].values()):
+        fails.append(f"the mma.sync bf16 chain differs from the wmma one: "
+                     f"{g['bf16']['equals_wmma']}")
     if not g["bf16"]["finite"] or \
             g["bf16"]["rel_kernel_vs_plain"] > BF16_CHAIN_TOL:
         fails.append(f"bf16 chain {g['bf16']['rel_kernel_vs_plain']} from "
@@ -2771,6 +2891,12 @@ def check_chain_probe_case(c):
     times += [f["march_ms"] for f in c["march_sol"]["forms"].values()]
     times += [v for k, v in c["interleave"].items() if k.endswith("_mm")]
     times += [r["us_per_op"] for r in c["microbench"]["results"].values()]
+    times += [f["chain_ms"] for f in c["march_sol"]["forms"].values()]
+    t = c["timing"]
+    times += [x for r in ("row20", "row21", "row21_bf16")
+              for x in t[r]["old_ms"] + t[r]["new_ms"]]
+    times += [x for by in t["us_per_link_by_cluster"].values()
+              for x in by.values()]
     if not all(np.isfinite(t) and t > 0 for t in times):
         fails.append("non-finite or zero times")
     if fails:
@@ -2793,39 +2919,59 @@ def _micro_work(variant, n, bb, k):
     return flops, 4 * (n * n * (2 * bb + c_fields) + bb)
 
 
-def _chain_probe_entries(c, entry):
+def _chain_probe_entries(c, dev, entry):
     """The kernels-line entries of phase 2g: the chain (row 20) at
     CHAIN_AMORT solves' worth of links on one member, the interleaved
     chains (row 21) at the script's B = 32, L = 40 and K = 8, the
     microbench (row 18) as one launch of each of its eight variants at
     bb = 8, k = 64 (times, errors and bounds summed over the variants), the
     while probe (row 19) at B = 2, M = 3; launches those of each entry
-    point's run."""
+    point's run. Rows 20-21 also carry their kernel, cluster size, the
+    one-CTA oracle's time in the same turns and, from phase 2g-dev
+    (`dev`), the library form's device time (L torch.matmul calls under one
+    CUDA graph) beside the kernel's and the oracle's there."""
     src = "vch_tpu_torch/csrc/probes.cu"
-    g = c["gate"]
+    chain_src = "vch_tpu_torch/csrc/chain_cluster.cu"
+    mean = lambda v: float(np.mean(v))
+    g, t = c["gate"], c["timing"]
     ms, it, mb, wh = (c["march_sol"], c["interleave"], c["microbench"],
                       c["while"])
     n = ms["n"] + 1
     B, L = it["members"], it["chain_len"]
     chain_bytes = 4 * n * n * (2 * B + 1)
     out = [
-        entry("matmul_chain", src, "scripts/diag_march_sol.py:86",
+        entry("matmul_chain", chain_src, "scripts/diag_march_sol.py:86",
               ms["launches"]["matmul_chain"], g["chain_3"]["max_abs_err"],
               ms["chain_ms"], g["chain_plain_ms"],
-              (2.0 * n ** 3 * ms["chain_links"], 4 * n * n * 3)),
-        entry("matmul_chain_interleaved", src, "scripts/diag_interleave.py:86",
+              (2.0 * n ** 3 * ms["chain_links"], 4 * n * n * 3),
+              library_ms=dev["row20"]["library_ms"]),
+        entry("matmul_chain_interleaved", chain_src,
+              "scripts/diag_interleave.py:86",
               it["launches"]["matmul_chain"], g["interleave"]["max_abs_err"],
               it["highest_K8_ns_per_mm"] * B * L * 1e-6,
               g["interleave"]["plain_ms"],
-              (2.0 * n ** 3 * B * L, chain_bytes)),
+              (2.0 * n ** 3 * B * L, chain_bytes),
+              library_ms=dev["row21"]["library_ms"]),
     ]
     bb16 = _bound(2.0 * n ** 3 * B * L, chain_bytes, PEAK_BF16_FLOPS)
-    out.append(entry("matmul_chain_bf16", src, "scripts/diag_interleave.py:86",
+    out.append(entry("matmul_chain_bf16", chain_src,
+                     "scripts/diag_interleave.py:86",
                      it["launches"]["matmul_chain_bf16"],
                      g["bf16"]["max_abs_err"],
                      it["bf16_K8_ns_per_mm"] * B * L * 1e-6,
-                     g["bf16"]["plain_ms"], (0.0, 0.0)))
+                     g["bf16"]["plain_ms"], (0.0, 0.0),
+                     library_ms=dev["row21_bf16"]["library_ms"]))
     out[-1].update(bound_ms=bb16[0], bound_by=bb16[1])
+    for e, kernel, cluster, row in (
+            (out[0], "chain_cluster_kernel<1>", ms["chain_cluster"], "row20"),
+            (out[1], "chain_cluster_kernel<8>", it["highest_K8_cluster"],
+             "row21"),
+            (out[2], "chain_mma_kernel<5>", 1, "row21_bf16")):
+        e.update(kernel=kernel, cluster=cluster,
+                 oracle_ms=mean(t[row]["old_ms"]),
+                 ms_in_turns=mean(t[row]["new_ms"]),
+                 device_ms=dev[row]["ms"],
+                 oracle_device_ms=dev[row]["oracle_ms"])
     nm, bb, k = mb["n"], mb["bb"], mb["k"]
     bounds = [_bound(*_micro_work(v, nm, bb, k)) for v in mb["results"]]
     micro = entry(
@@ -3034,7 +3180,11 @@ def main():
          "one-CTA oracles, 0-2 with -fmad=false; 4, 5: the probes): "
          + _ptxas_named(_build.ptxas_log, "solve_kernel")
          + " | march1d.cu march1d_kernel: "
-         + _ptxas_named(_build.ptxas_log, "march1d_kernel"))
+         + _ptxas_named(_build.ptxas_log, "march1d_kernel")
+         + " | chain_cluster.cu chain_cluster_kernel<K> (rows 20, 21 "
+         "float32): " + _ptxas_named(_build.ptxas_log, "chain_cluster_kernel")
+         + ", chain_mma_kernel<RT> (row 21 bf16): "
+         + _ptxas_named(_build.ptxas_log, "chain_mma_kernel"))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
              kernel_case(torch, 129, 2, 0.05, device),
@@ -3454,6 +3604,9 @@ def main():
     solve_dev = cluster_solve_device_times(torch, device)
     _log("2e-dev", "rows 8-12 " + json.dumps(solve_dev)
          + f" | {name} | {smi}")
+    chains_dev = chain_device_times(torch, device)
+    _log("2g-dev", "rows 20-21 " + json.dumps(chains_dev)
+         + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
               library_ms=None, shape=None):
@@ -3576,7 +3729,7 @@ def main():
             p65["launches"][f"schur_{k}"], g["max_abs_err"], p65[f"{k}_ms"],
             g["plain_ms"], _solve_work("bicgstab_schur", p65["n"] + 1,
                                        p65["b"], p65["iters"])))
-    kernels += _chain_probe_entries(chains, entry)
+    kernels += _chain_probe_entries(chains, chains_dev, entry)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -21,8 +21,10 @@ launches bit-equal and each member of a batch bit-equal to its one-member
 launch (the solve kernels' own gates are in chip_smoke.py).
 The cost probes: the float32 chain and the blocked primitives no farther
 from float64 than twice the plain float32 version plus 1e-5, every
-interleave width bit-equal; the bf16 chain against its bf16-emulated plain
-version at BF16_CHAIN_TOL; the while probe with its script's gates.
+interleave width bit-equal, the cluster chain bit-equal to its one-CTA
+oracle at every cluster size; the bf16 chain against its bf16-emulated
+plain version at BF16_CHAIN_TOL and bit-equal to the wmma chain; the while
+probe with its script's gates.
 """
 import numpy as np
 import pytest
@@ -1235,13 +1237,56 @@ def test_matmul_chain_bf16_matches_the_emulated_plain_version(cuda):
     from vch_tpu_torch.ops import probe_kernels as pk
     from vch_tpu_torch.probes import diag_interleave
     A, X = diag_interleave.inputs(64, 16, cuda)
+    before = pk.matmul_chain_bf16.launches
     outs = [pk.matmul_chain_bf16(A, X, K, 40) for K in (1, 2, 4, 8)]
     p = pk.matmul_chain_bf16_plain(A, X, 1, 40)
     torch.cuda.synchronize()
+    assert pk.matmul_chain_bf16.launches == before + 4
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     assert torch.isfinite(outs[0]).all()
-    rel = (outs[0] - p).abs().max().item() / p.abs().max().item()
-    assert rel <= BF16_CHAIN_TOL, rel
+    for o in outs:
+        rel = (o - p).abs().max().item() / p.abs().max().item()
+        assert rel <= BF16_CHAIN_TOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 80])
+def test_matmul_chain_bf16_equals_the_wmma_chain(cuda, n):
+    """The mma.sync chain (x in shared memory across links) bit for bit
+    the wmma chain of probes.cu at every K: the same bf16 roundings and the
+    same k-tile order into float32 accumulators. Past n = 80 it refuses."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_interleave
+    A, X = diag_interleave.inputs(n - 1, 8, cuda)
+    for K in (1, 2, 4, 8):
+        before = pk.matmul_chain_bf16.launches
+        out = pk.matmul_chain_bf16(A, X, K, 9)
+        assert pk.matmul_chain_bf16.launches == before + 1
+        assert torch.equal(out, pk._matmul_chain_bf16_cta(A, X, K, 9)), K
+    big = torch.zeros((81, 81), device=cuda)
+    with pytest.raises(ValueError, match="n <= 80"):
+        pk.matmul_chain_bf16(big, big[None], 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [17, 65, 129])
+def test_matmul_chain_equals_its_one_cta_oracle(cuda, n, K):
+    """The float32 chain, K members per thread-block cluster, bit for bit
+    the one-CTA chain of probes.cu: on its launch geometry at B = 32 and on
+    one cluster of every size 1-16 (up to n); one launch counted a call."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_interleave
+    A, X = diag_interleave.inputs(n - 1, 32, cuda)
+    ref = pk._matmul_chain_cta(A, X, K, 40)
+    before = pk.matmul_chain.launches
+    assert torch.equal(pk.matmul_chain(A, X, K, 40), ref)
+    sizes = range(1, min(16, n) + 1)
+    differ = [C for C in sizes if not torch.equal(
+        pk.matmul_chain(A, X[:K], K, 40, cluster=C), ref[:K])]
+    torch.cuda.synchronize()
+    assert differ == []
+    assert pk.matmul_chain.launches == before + 1 + len(sizes)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,13 @@
-// Kernel cost probes: the counterparts of the four TPU probes under scripts/
-// that reach pl.pallas_call. Each measures a piece of the tile code the march
-// and the solves run on (common.cuh), not a new one:
-//   - chain_kernel<K>: K members' chains x <- A x per CTA, L links each
-//     (rows 20 and 21 "highest" of PERF.md's kernel table);
+// Kernel cost probes on one CTA: the counterparts of the four TPU probes
+// under scripts/ that reach pl.pallas_call, each on the one-CTA tile code of
+// common.cuh, which the bit oracles of the cluster kernels still run (the
+// march, the sweep and the solves themselves run on cluster.cuh's engine):
+//   - chain_kernel<K>: K members' chains x <- A x per CTA, L links each;
+//     since rows 20 and 21 "highest" of PERF.md's kernel table moved to
+//     chain_cluster.cu, only the bit oracle of that kernel;
 //   - chain_bf16_kernel<K>: the same chains with bf16 operands on the tensor
-//     cores (row 21 "bf16");
+//     cores; since row 21 "bf16" moved to chain_cluster.cu, only the oracle
+//     of that kernel;
 //   - micro_kernel<VAR, BB>: k dependent steps of one primitive on BB
 //     members in one CTA (row 18);
 //   - while_kernel: nested data-dependent loops with a carry in shared

@@ -15,8 +15,10 @@ solve and the two cost probes); the cluster solves four times
 (`-DVCH_VARIANT=0`, `1`, `2`, `3`: the spectral and the raw Schur solve,
 the spectral and the raw adjoint step solve); the one-CTA 2D march and
 sweep (the bit oracles of the cluster march and sweep), the operator
-applies, the fused 1D march and the chain probes, which hold their own
-members-per-CTA templates, once each. The 1D march, both sweeps, both
+applies, the fused 1D march, the cost probes of probes.cu (one CTA per
+block of members; its chains are the chain probes' bit oracles) and the
+chain probes of chain_cluster.cu, each of the last two holding its own
+members-per-block templates, once each. The 1D march, both sweeps, both
 Schur and the spectral adjoint cluster solves and their oracles compile
 with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
@@ -66,7 +68,8 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
                                        for v in (0, 1, 2))
            + (("-DVCH_VARIANT=3",),),
            "apply2d.cu": ((),),
-           "march1d.cu": (("-fmad=false",),), "probes.cu": ((),)}
+           "march1d.cu": (("-fmad=false",),), "probes.cu": ((),),
+           "chain_cluster.cu": ((),)}
 HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh",
            "adjoint_solve.cuh", "schur_solve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -258,6 +261,13 @@ def load():
     lib.vch_march_1d_workspace_fields.restype = _I
     # A X out work | B n K L bf16 | stream
     lib.vch_matmul_chain.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+    # A X out work | B n K L | cluster kc smem_bytes | stream
+    lib.vch_matmul_chain_cluster.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+    # A X out | B n K L | stream
+    lib.vch_matmul_chain_mma.argtypes = [_P] * 3 + [_I] * 4 + [_P]
+    # members segment n m cluster kc smem_bytes
+    lib.vch_chain_cluster_max_clusters.argtypes = [_I] * 7
+    lib.vch_chain_cluster_max_clusters.restype = _I
     # variant | C X out work sums | n bb k | stream
     lib.vch_blocked_microbench.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_P]
     # x out ns | B n M | stream
@@ -277,6 +287,7 @@ def load():
                lib.vch_bicgstab_schur_spectral_cluster,
                lib.vch_bicgstab_schur_raw_cluster, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
+               lib.vch_matmul_chain_cluster, lib.vch_matmul_chain_mma,
                lib.vch_blocked_microbench, lib.vch_while_probe):
         fn.restype = _I
     lib.vch_error_string.argtypes = [_I]

@@ -1,25 +1,35 @@
-"""The kernels of the port's cost probes (`csrc/probes.cu`), counterparts of
-the four TPU probes under scripts/ that reach pl.pallas_call:
+"""The kernels of the port's cost probes, counterparts of the four TPU
+probes under scripts/ that reach pl.pallas_call:
 
-  matmul_chain        K interleaved chains x <- A x of L links per CTA, full
-                      float32 (scripts/diag_march_sol.py:86 at K = 1 on one
-                      member; the HIGHEST arm of scripts/diag_interleave.py:86);
-  matmul_chain_bf16   the same with bf16 operands on the tensor cores (the
-                      DEFAULT arm of diag_interleave.py:86);
+  matmul_chain        K interleaved chains x <- A x of L links, full float32,
+                      K members per thread-block cluster on the cluster
+                      engine's left product (`csrc/chain_cluster.cu`;
+                      scripts/diag_march_sol.py:86 at K = 1 on one member;
+                      the HIGHEST arm of scripts/diag_interleave.py:86);
+  matmul_chain_bf16   the same with bf16 operands on the tensor cores
+                      (mma.sync, x resident in shared memory; the DEFAULT
+                      arm of diag_interleave.py:86);
   blocked_microbench  k dependent steps of one of eight primitives on a
                       (bb n, n) stack of bb members in one CTA
-                      (scripts/diag_blocked_microbench.py:100);
+                      (`csrc/probes.cu`;
+                      scripts/diag_blocked_microbench.py:100);
   while_probe         per member, M steps of nested data-dependent loops
-                      with a carry across steps (scripts/probe_pallas_while.py:67).
+                      with a carry across steps (`csrc/probes.cu`;
+                      scripts/probe_pallas_while.py:67).
 
-Each wrapper routes by the tensors' device: on CUDA tensors it launches its
-hand-written kernel (float32; a failed build or launch raises), on CPU
-tensors it runs its plain PyTorch version `<name>_plain`, which computes the
-same function in the tensors' dtype. Each wrapper counts its launches in
-`.launches`. No solver reaches these kernels; the bf16 chain is the
-package's only reduced-precision product.
+The chains' first designs, K members per CTA in `csrc/probes.cu`, stay as
+their bit oracles `_matmul_chain_cta` and `_matmul_chain_bf16_cta`, which
+the card tests and chip_smoke.py hold the chains against; no entry point
+calls them. Each wrapper routes by the tensors' device: on CUDA tensors it
+launches its hand-written kernel (float32; a failed build, fit or launch
+raises), on CPU tensors it runs its plain PyTorch version `<name>_plain`,
+which computes the same function in the tensors' dtype. Each wrapper counts
+its launches in `.launches`. No solver reaches these kernels; the bf16
+chain is the package's only reduced-precision product.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -27,7 +37,8 @@ from vch_tpu_torch.ops import _build
 
 VARIANTS = ("serial_one", "member_mm", "left_mm", "stacked_mm", "swap",
             "swap_mm", "gdot", "member_dot")   # the order of probes.cu's enum
-MEMBER_BLOCKS = (1, 2, 4, 8)    # members per CTA the probe kernels are built for
+MEMBER_BLOCKS = (1, 2, 4, 8)    # members per block the probe kernels are
+                                # built for
 # The gate of the bf16 chain against its plain version over 40 links, as
 # max |kernel - plain| / max |plain|: the tensor cores and the plain float32
 # product sum each link in another order, so a value near a bf16 tie can
@@ -35,6 +46,11 @@ MEMBER_BLOCKS = (1, 2, 4, 8)    # members per CTA the probe kernels are built fo
 # Measured 7.8e-3 at n = 65, B = 32 on diag_interleave's inputs (H100 80GB
 # HBM3, 700 W); the gate allows 2.5x.
 BF16_CHAIN_TOL = 2e-2
+# The bf16 chain keeps every warp's A fragments in registers and x in
+# shared memory: n up to 80 (five 16-row tiles), 2 K pad16(n) (pad16(n) + 8)
+# bf16 of shared memory within a block's 232,448 bytes.
+BF16_CHAIN_MAX_N = 80
+SMEM_PER_BLOCK = 232_448
 
 
 def _check_block(what, k):
@@ -43,13 +59,13 @@ def _check_block(what, k):
 
 
 def _check_chain(A, X, K, L):
-    _check_block("K (chains per CTA)", K)
+    _check_block("K (chains per cluster or CTA)", K)
     if X.dim() != 3 or X.shape[1:] != A.shape or A.shape[0] != A.shape[1]:
         raise ValueError(f"X must be (B, n, n) for A (n, n), got "
                          f"{tuple(X.shape)} and {tuple(A.shape)}")
     if X.shape[0] % K:
         raise ValueError(f"B = {X.shape[0]} members do not split into "
-                         f"chains of K = {K} per CTA")
+                         f"chains of K = {K} per block")
     if L < 1:
         raise ValueError(f"the chain needs L >= 1 links, got {L}")
 
@@ -76,13 +92,68 @@ def matmul_chain_bf16_plain(A, X, K: int, L: int):
     return X
 
 
-def _launch_chain(wrapper, A, X, K, L, bf16):
+def bf16_chain_smem_bytes(n: int, K: int) -> int:
+    """Dynamic shared memory of one CTA of the bf16 chain: two buffers of K
+    members' bf16 x, n padded to a multiple of 16, rows padded by 8 more
+    (225,280 bytes at n = 65, K = 8)."""
+    np_ = -(-n // 16) * 16
+    return 2 * K * np_ * (np_ + 8) * 2
+
+
+@lru_cache(maxsize=64)
+def chain_geometry(n: int, B: int, K: int, device_index: int,
+                   cluster: int | None = None):
+    """The cluster geometry of the float32 chain for B members of (n, n), K
+    per cluster, on CUDA device `device_index`: `ops.march.launch_geometry`
+    fitted to the chain kernel's own residency, or with `cluster` CTAs
+    (`ops.march.blocked_geometry`'s override)."""
+    from vch_tpu_torch.ops import march   # ops.march imports this module
+    if cluster is None:
+        return march.launch_geometry(n, n, B, torch.device("cuda",
+                                                          device_index),
+                                     members=K, kernel="chain")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return march.blocked_geometry(n, n, B, sms, cluster=cluster, members=K,
+                                  kernel="chain")
+
+
+def _chain_buffers(A, X):
     B, n = X.shape[0], X.shape[1]
     _build.check_cuda([("A", A, (n, n)), ("X", X, (B, n, n))], X.device)
-    lib = _build.load()
-    out = torch.empty_like(X)
+    return B, n, _build.load(), torch.empty_like(X), \
+        torch.cuda.current_stream(X.device).cuda_stream
+
+
+def matmul_chain(A, X, K: int, L: int, cluster: int | None = None):
+    """out_b = A^L X_b for each member of X (B, n, n), one link x <- A x
+    after another in full float32, K members' chains on each of B / K
+    thread-block clusters (member g K + k is chain k of cluster g; K in 1,
+    2, 4, 8). A is (n, n). On CUDA tensors every link is the cluster
+    engine's left product (`csrc/chain_cluster.cu`) on `chain_geometry`'s
+    clusters (`cluster`: that many CTAs each), bit for bit what the one-CTA
+    kernel `_matmul_chain_cta` computes. Every K and every cluster size
+    gives the same bits: a member's products sum in one order whatever the
+    tiling."""
+    if not _build.on_cuda("matmul_chain", X):
+        return matmul_chain_plain(A, X, K, L)
+    _check_chain(A, X, K, L)
+    B, n, lib, out, stream = _chain_buffers(A, X)
+    geo = chain_geometry(n, B, K, X.device.index, cluster)
     work = torch.empty_like(X)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
+    err = lib.vch_matmul_chain_cluster(
+        A.data_ptr(), X.data_ptr(), out.data_ptr(), work.data_ptr(), B, n, K,
+        int(L), geo.cluster, geo.kc, geo.smem_bytes, stream)
+    matmul_chain.launches += 1
+    _build.raise_on(lib, err, "matmul_chain")
+    return out
+
+
+matmul_chain.launches = 0
+
+
+def _launch_chain_cta(wrapper, A, X, K, L, bf16):
+    B, n, lib, out, stream = _chain_buffers(A, X)
+    work = torch.empty_like(X)
     err = lib.vch_matmul_chain(A.data_ptr(), X.data_ptr(), out.data_ptr(),
                                work.data_ptr(), B, n, K, int(L), int(bf16),
                                stream)
@@ -91,36 +162,61 @@ def _launch_chain(wrapper, A, X, K, L, bf16):
     return out
 
 
-def matmul_chain(A, X, K: int, L: int):
-    """out_b = A^L X_b for each member of X (B, n, n), one link x <- A x
-    after another in full float32, K members' chains interleaved in each of
-    B / K CTAs (member g K + k is chain k of CTA g; K in 1, 2, 4, 8). A is
-    (n, n). Every K gives the same bits: a member's products sum in one
-    order whatever the tiling."""
-    if not _build.on_cuda("matmul_chain", X):
+def _matmul_chain_cta(A, X, K: int, L: int):
+    """The one-CTA float32 chain of csrc/probes.cu (K members per CTA on
+    common.cuh's products): the bit oracle of `matmul_chain`. Arguments and
+    result as `matmul_chain`'s."""
+    if not _build.on_cuda("_matmul_chain_cta", X):
         return matmul_chain_plain(A, X, K, L)
     _check_chain(A, X, K, L)
-    return _launch_chain(matmul_chain, A, X, K, L, bf16=False)
+    return _launch_chain_cta(_matmul_chain_cta, A, X, K, L, bf16=False)
 
 
-matmul_chain.launches = 0
+_matmul_chain_cta.launches = 0
 
 
 def matmul_chain_bf16(A, X, K: int, L: int):
     """`matmul_chain` with each link's operands rounded to bf16 (round to
-    nearest even) and multiplied on the tensor cores, accumulating and
-    storing in float32: the counterpart of a DEFAULT-precision float32
-    product on the TPU. A probe only: no solver path may reach it. Each CTA
-    holds bf16(A) and its K members' bf16 x, n padded to a multiple of 16,
-    in dynamic shared memory: a launch that needs more than the card gives
-    one block raises."""
+    nearest even) and multiplied on the tensor cores, accumulating in
+    float32; out is the last link's float32 value: the counterpart of a
+    DEFAULT-precision float32 product on the TPU. A probe only: no solver
+    path may reach it. On CUDA tensors one CTA holds K members
+    (`csrc/chain_cluster.cu` chain_mma_kernel: mma.sync, bf16(A) in
+    registers, x in bf16 in shared memory between links), so n is at most
+    BF16_CHAIN_MAX_N and `bf16_chain_smem_bytes(n, K)` at most a block's
+    SMEM_PER_BLOCK bytes; larger ones raise."""
     if not _build.on_cuda("matmul_chain_bf16", X):
         return matmul_chain_bf16_plain(A, X, K, L)
     _check_chain(A, X, K, L)
-    return _launch_chain(matmul_chain_bf16, A, X, K, L, bf16=True)
+    n = X.shape[1]
+    smem = bf16_chain_smem_bytes(n, K)
+    if n > BF16_CHAIN_MAX_N or smem > SMEM_PER_BLOCK:
+        raise ValueError(f"the bf16 chain takes n <= {BF16_CHAIN_MAX_N} and "
+                         f"at most {SMEM_PER_BLOCK} bytes of shared memory "
+                         f"a CTA: n = {n}, K = {K} needs {smem}")
+    B, n, lib, out, stream = _chain_buffers(A, X)
+    err = lib.vch_matmul_chain_mma(A.data_ptr(), X.data_ptr(),
+                                   out.data_ptr(), B, n, K, int(L), stream)
+    matmul_chain_bf16.launches += 1
+    _build.raise_on(lib, err, "matmul_chain_bf16")
+    return out
 
 
 matmul_chain_bf16.launches = 0
+
+
+def _matmul_chain_bf16_cta(A, X, K: int, L: int):
+    """The wmma bf16 chain of csrc/probes.cu (bf16(A) and x in shared
+    memory, x back in device memory after every link), the first design of
+    `matmul_chain_bf16`, kept beside it as its oracle. Arguments and result
+    as `matmul_chain_bf16`'s."""
+    if not _build.on_cuda("_matmul_chain_bf16_cta", X):
+        return matmul_chain_bf16_plain(A, X, K, L)
+    _check_chain(A, X, K, L)
+    return _launch_chain_cta(_matmul_chain_bf16_cta, A, X, K, L, bf16=True)
+
+
+_matmul_chain_bf16_cta.launches = 0
 
 
 def _check_micro(variant, C, X, bb, k):

@@ -12,17 +12,25 @@ Times three things and sets them side by side:
            of C CTAs at this grid, ops.march.launch_geometry) and one member
            per cluster (fused_march_block=0); per Newton solve = time / the
            Newton solves the march reports (the script's us_per_solve), and
-           per solve inside one CTA = time x CTAs / solves
-           (us_per_solve_cta): the CTAs (B / 8 x C blocked, B x C one
-           member each) run at once on their own SMs, not one after another
-           as the TPU's grid cells do, so the
-           chain (one CTA) is set beside the per-CTA time (chain_share_cta)
-           as well as the script's ratio (chain_share);
-  chain    `ops.probe_kernels.matmul_chain` at K = 1 on one member: the same
-           count of dependent (n+1)^3 float32 products as one Newton solve
-           holds (mm_per_solve), repeated amort times in one launch, so the
+           per solve in CTA time = time x CTAs / solves (us_per_solve_cta):
+           the CTAs (B / 8 x C blocked, B x C one member each) run at once
+           on their own SMs, not one after another as the TPU's grid cells
+           do;
+  chain    `ops.probe_kernels.matmul_chain`: the same count of dependent
+           (n+1)^3 float32 products as one Newton solve holds
+           (mm_per_solve), repeated amort times in one launch, so the
            launch's fixed cost is spread over amort solves: the march's
-           serial-product floor, on the tile code the march runs;
+           serial-product floor, on the product the march runs (the
+           cluster engine's left product). Once as the script runs it (one
+           member, the chain's own cluster geometry: chain_ms, us_chain,
+           chain_cluster), then once per form on that form's engine: K
+           members per cluster of C CTAs, K and C the march's (the blocked
+           form 8 members on the blocked march's C, per_member one member
+           on the one-member march's C). Each form's us_chain is the
+           chain's time per solve's worth of links, us_chain_cta = us_chain
+           x C / K its CTA time per member, set beside the march's
+           us_per_solve (chain_share, the script's ratio) and
+           us_per_solve_cta (chain_share_cta);
   peak     torch.matmul on (4096, 4096) float32 (TF32 off): the card's rate
            for large products, and the time one solve's products would take
            at it (us_ideal).
@@ -85,11 +93,21 @@ def _march(n: int, b: int, block, device, reps: int):
     solves = int(last["r"][1].sum().item())
     bb = cfg.resolved_fused_block()
     members = bb if bb and b % bb == 0 else 1   # B / members clusters of C
-    ctas = b // members * launch_geometry(n + 1, n + 1, b, device,
-                                          members=members).cluster
-    return {"block": bb, "march_ms": ms, "solves": solves,
-            "us_per_solve": ms * 1e3 / solves, "ctas": ctas,
-            "us_per_solve_cta": ms * 1e3 * ctas / solves}, s
+    C = launch_geometry(n + 1, n + 1, b, device, members=members).cluster
+    ctas = b // members * C
+    return {"block": bb, "members": members, "cluster": C, "march_ms": ms,
+            "solves": solves, "us_per_solve": ms * 1e3 / solves,
+            "ctas": ctas, "us_per_solve_cta": ms * 1e3 * ctas / solves}, s
+
+
+def _chain_ms(a, v, K, links, reps, cluster=None):
+    """The chain's ms on K members of ones on one cluster (`cluster` CTAs;
+    None: the chain's own geometry), and the cluster size that ran it."""
+    X = v.expand(K, -1, -1).contiguous()
+    ms = time_ms(lambda: pk.matmul_chain(a, X, K, links, cluster=cluster),
+                 reps)
+    return ms, pk.chain_geometry(X.shape[1], K, K, X.device.index,
+                                 cluster).cluster
 
 
 def run(n: int = 64, b: int = 64, amort: int = AMORT, reps: int = 3,
@@ -102,19 +120,24 @@ def run(n: int = 64, b: int = 64, amort: int = AMORT, reps: int = 3,
     trips = solver.n_trips
     mm = mm_per_solve(trips)
     a, v = chain_inputs(n, device)
-    chain_ms = time_ms(lambda: pk.matmul_chain(a, v, 1, mm * amort), reps)
+    chain_ms, chain_cluster = _chain_ms(a, v, 1, mm * amort, reps)
     us_chain = chain_ms * 1e3 / amort
     big = torch.ones((PEAK_N, PEAK_N), dtype=torch.float32, device=device)
     peak = 2.0 * PEAK_N ** 3 / (time_ms(lambda: big @ big, 10) * 1e-3)
     us_ideal = mm * 2.0 * (n + 1) ** 3 / peak * 1e6
     for f in forms.values():
-        f["chain_share"] = us_chain / f["us_per_solve"]
-        f["chain_share_cta"] = us_chain / f["us_per_solve_cta"]
+        K, C = f["members"], f["cluster"]
+        f["chain_ms"], _ = _chain_ms(a, v, K, mm * amort, reps, C)
+        f["us_chain"] = f["chain_ms"] * 1e3 / amort
+        f["us_chain_cta"] = f["us_chain"] * C / K
+        f["chain_share"] = f["us_chain"] / f["us_per_solve"]
+        f["chain_share_cta"] = f["us_chain_cta"] / f["us_per_solve_cta"]
         f["ideal_share"] = us_ideal / f["us_per_solve"]
     return {"n": n, "b": b, "M": solver.M, "trips": trips, "amort": amort,
             "reps": reps, "forms": forms, "mm_per_solve": mm,
             "chain_links": mm * amort, "chain_ms": chain_ms,
-            "us_chain": us_chain, "us_per_product": us_chain / mm,
+            "chain_cluster": chain_cluster, "us_chain": us_chain,
+            "us_per_product": us_chain / mm,
             "peak_tflops": peak / 1e12, "us_ideal": us_ideal,
             "tf32": torch.backends.cuda.matmul.allow_tf32,
             "device": torch.cuda.get_device_name(device)}
