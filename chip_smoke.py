@@ -113,9 +113,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                for bit against its one-CTA oracle at every K, on its launch
                geometry and on one cluster of every size 1-16 at n = 17,
                65 and 129, the mma.sync bf16 chain against the wmma one
-               likewise at every K; rows 20 and 21 timed in turns with
-               their oracles, and the float32 chain's time per link by
-               cluster size;
+               likewise at every K; each microbench variant (bb members on
+               one thread-block cluster) bit for bit its one-CTA oracle,
+               out and sums, at bb = 8, k = 64 and on one cluster of every
+               size 1-16 at bb = 8 and 1; rows 20, 21 and 18 timed in
+               turns with their oracles, the float32 chain's time per link
+               and each microbench variant's per step by cluster size;
   3d slice   — BatchedProblem1D at N = 64 on a heterogeneous B = 16 sweep,
                kernel path against plain path, 3 PGD iterations;
   3e scan    — the scan path (fused_march=False: the batched per-step
@@ -193,7 +196,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                alone (20 calls in a CUDA graph), last because a capture
                leaves cuBLAS a workspace that phase 7 would count;
   2g-dev     — rows 20 and 21, their one-CTA oracles and their library
-               form (L torch.matmul links) on the device alone likewise.
+               form (L torch.matmul links) on the device alone likewise;
+               then row 18's eight variants, their oracles and their
+               library forms (the k steps as PyTorch calls).
 It then prints the kernels' JSON line, the card's nvidia-smi name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -2695,6 +2700,8 @@ def _chain_probe_gates(torch, device):
                                                                64),
                                          plain(C, Xm), plain(C64, Xm64))
         g = _gate(torch, k, q, q64)
+        o, os_ = pk._blocked_microbench_cta(var, C, Xm, 8, 64)
+        g["equals_cta"] = torch.equal(k, o) and torch.equal(ks, os_)
         if var == "swap":
             g["bit_equal_plain"] = torch.equal(k, q)
         if var in ("gdot", "member_dot"):
@@ -2706,6 +2713,17 @@ def _chain_probe_gates(torch, device):
     out["stacked_equals_member"] = torch.equal(
         pk.blocked_microbench("stacked_mm", C, Xm, 8, 64)[0],
         pk.blocked_microbench("member_mm", C, Xm, 8, 64)[0])
+    # each variant on one cluster of every size 1-16, blocks of 8 and of 1,
+    # against the one-CTA oracle (out and sums), 16 steps
+    out["micro_cluster_bits"] = {}
+    for bb in (8, 1):
+        Cb, Xb = mb.inputs(64, bb, device)
+        for var in pk.VARIANTS:
+            ref = pk._blocked_microbench_cta(var, Cb, Xb, bb, 16)
+            out["micro_cluster_bits"][f"{var}x{bb}"] = [
+                c for c in range(1, 17) if not all(
+                    torch.equal(a, b) for a, b in zip(pk.blocked_microbench(
+                        var, Cb, Xb, bb, 16, cluster=c), ref))]
 
     x = pw.inputs(2, 65, device)
     k, ns = pk.while_probe(x, 3)
@@ -2743,6 +2761,7 @@ def chain_probe_case(torch, device):
                                  if v}
     runs["gate"] = _chain_probe_gates(torch, device)
     runs["timing"] = chain_timing(torch, device)
+    runs["micro_timing"] = micro_timing(torch, device)
     runs["seconds"] = time.perf_counter() - t0
     return runs
 
@@ -2768,7 +2787,7 @@ def chain_timing(torch, device):
     links = dm.mm_per_solve(3) * CHAIN_AMORT
     a, v = dm.chain_inputs(64, device)
     A, X = di.inputs(64, 32, device)
-    geo = lambda B, K, C=None: pk.chain_geometry(65, B, K, 0, C).cluster
+    geo = lambda B, K, C=None: pk.probe_geometry("chain", 65, B, K, 0, C).cluster
     out = dict(
         row20=dict(links=links, cluster=geo(1, 1), **_turns(
             lambda: pk._matmul_chain_cta(a, v, 1, links),
@@ -2785,6 +2804,80 @@ def chain_timing(torch, device):
             for C in (16, 8, 4, 2, 1)}
         for K, x, L, reps in ((1, A, links, 1), (8, A, 40, 10))}
     return out
+
+
+def micro_timing(torch, device):
+    """Row 18 at the probe's shape (bb = 8, k = 64, n = 65): each variant
+    on its cluster kernel and on its one-CTA oracle in turns (CUDA events),
+    then its µs a step on one cluster of each size (`us_per_op_by_cluster`)."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_blocked_microbench as mb
+
+    C, X = mb.inputs(64, 8, device)
+    run = lambda v, c=None: pk.blocked_microbench(v, C, X, 8, 64, cluster=c)
+    return dict(
+        cluster=pk.probe_geometry("micro", 65, 8, 8, 0).cluster,
+        turns={v: _turns(lambda v=v: pk._blocked_microbench_cta(v, C, X, 8,
+                                                                64),
+                         lambda v=v: run(v), 5) for v in pk.VARIANTS},
+        us_per_op_by_cluster={v: {c: time_ms(lambda v=v, c=c: run(v, c), 5)
+                                  * 1e3 / 64 for c in (16, 8, 4, 2, 1)}
+                              for v in pk.VARIANTS})
+
+
+def _micro_library(torch, variant, C, X, bb, k):
+    """The microbench's k steps as PyTorch calls, the fewest a step: one
+    torch.matmul of member 0 (serial_one), of the batched members
+    (member_mm, left_mm; swap_mm on their transposed view) or of the
+    stacked ones (stacked_mm); for swap one torch.mul of the transposed
+    view into a contiguous buffer (a transposed copy); for gdot and
+    member_dot torch.linalg.vecdot of the flattened members (the sums), the
+    factor (two small calls; member_dot sums the members' terms first) and
+    one torch.mul."""
+    n = C.shape[0]
+    if variant in ("serial_one", "stacked_mm"):
+        x = X[:n] if variant == "serial_one" else X
+        for _ in range(k):
+            x = torch.matmul(x, C)
+        return x
+    x = X.reshape(bb, n, n)
+    for _ in range(k):
+        if variant == "member_mm":
+            x = torch.matmul(x, C)
+        elif variant == "left_mm":
+            x = torch.matmul(C, x)
+        elif variant == "swap_mm":
+            x = torch.matmul(x.transpose(1, 2), C)
+        elif variant == "swap":
+            x = torch.mul(x.transpose(1, 2), 1.0000001,
+                          out=torch.empty_like(x))
+        else:
+            flat = x.reshape(bb, -1)
+            s = torch.linalg.vecdot(flat, flat)
+            if variant == "member_dot":
+                s = torch.sum(s)
+            fac = s.mul(1e-12).add(1.0)
+            x = torch.mul(x, fac if variant == "member_dot"
+                          else fac[:, None, None])
+    return x
+
+
+def micro_device_times(torch, device):
+    """Row 18 on the device alone (calls captured in one CUDA graph,
+    `probes/_timing.py` graph_ms) at the probe's shape: each variant's
+    cluster kernel, its one-CTA oracle and its library form
+    (`_micro_library`). After phase 7, as every capture."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_blocked_microbench as mb
+
+    C, X = mb.inputs(64, 8, device)
+    return {v: dict(
+        ms=graph_ms(lambda v=v: pk.blocked_microbench(v, C, X, 8, 64), 10),
+        oracle_ms=graph_ms(
+            lambda v=v: pk._blocked_microbench_cta(v, C, X, 8, 64), 3),
+        library_ms=graph_ms(
+            lambda v=v: _micro_library(torch, v, C, X, 8, 64), 10))
+        for v in pk.VARIANTS}
 
 
 def chain_device_times(torch, device):
@@ -2832,7 +2925,10 @@ def check_chain_probe_case(c):
     interleave width bit-equal, the bf16 chain within BF16_CHAIN_TOL of its
     bf16-emulated plain version, swap bit-equal to plain, gdot and
     member_dot returning X, the stacked product bit-equal to the
-    per-member one; the while probe within 1e-4 of float64 with equal trip
+    per-member one, every microbench variant bit-equal (out and sums) to
+    its one-CTA oracle at bb = 8, k = 64 and on one cluster of every size
+    1-16 at bb = 8 and 1, k = 16, the entry point on its geometry's cluster
+    and never on the oracle; the while probe within 1e-4 of float64 with equal trip
     counts (its entry point also raises on the script's gates); every time
     finite."""
     fails = [f"{key}: {name} never launched"
@@ -2883,6 +2979,17 @@ def check_chain_probe_case(c):
         fails.append("the long chain left float32's range")
     if not g["stacked_equals_member"]:
         fails.append("stacked product differs from the per-member one")
+    if c["microbench"]["launches"].get("_blocked_microbench_cta", 0):
+        fails.append("the microbench's entry point ran the one-CTA kernel")
+    if c["microbench"]["cluster"] != c["micro_timing"]["cluster"]:
+        fails.append("the microbench ran on another cluster than its "
+                     "geometry's")
+    differ = [v for v, m in g["microbench"].items() if not m["equals_cta"]]
+    differ += [f"{k} on clusters {cs}" for k, cs in
+               g["micro_cluster_bits"].items() if cs]
+    if differ:
+        fails.append(f"the cluster microbench differs from its one-CTA "
+                     f"oracle: {differ}")
     w = g["while"]
     if not (w["finite"] and w["max_abs_diff_f64"] < 1e-4 and w["ns_equal"]):
         fails.append(f"while probe vs float64: {w}")
@@ -2896,6 +3003,11 @@ def check_chain_probe_case(c):
     times += [x for r in ("row20", "row21", "row21_bf16")
               for x in t[r]["old_ms"] + t[r]["new_ms"]]
     times += [x for by in t["us_per_link_by_cluster"].values()
+              for x in by.values()]
+    mt = c["micro_timing"]
+    times += [x for r in mt["turns"].values()
+              for x in r["old_ms"] + r["new_ms"]]
+    times += [x for by in mt["us_per_op_by_cluster"].values()
               for x in by.values()]
     if not all(np.isfinite(t) and t > 0 for t in times):
         fails.append("non-finite or zero times")
@@ -2924,7 +3036,10 @@ def _chain_probe_entries(c, dev, entry):
     CHAIN_AMORT solves' worth of links on one member, the interleaved
     chains (row 21) at the script's B = 32, L = 40 and K = 8, the
     microbench (row 18) as one launch of each of its eight variants at
-    bb = 8, k = 64 (times, errors and bounds summed over the variants), the
+    bb = 8, k = 64 (times, errors and bounds summed over the variants; with
+    its kernel, cluster size, the one-CTA oracle's time in turns and, from
+    phase 2g-dev, the device-alone times of kernel, oracle and library
+    form, each summed over the variants), the
     while probe (row 19) at B = 2, M = 3; launches those of each entry
     point's run. Rows 20-21 also carry their kernel, cluster size, the
     one-CTA oracle's time in the same turns and, from phase 2g-dev
@@ -2974,14 +3089,23 @@ def _chain_probe_entries(c, dev, entry):
                  oracle_device_ms=dev[row]["oracle_ms"])
     nm, bb, k = mb["n"], mb["bb"], mb["k"]
     bounds = [_bound(*_micro_work(v, nm, bb, k)) for v in mb["results"]]
+    mdev, mt = dev["row18"], c["micro_timing"]["turns"]
     micro = entry(
-        "blocked_microbench", src, "scripts/diag_blocked_microbench.py:100",
+        "blocked_microbench", "vch_tpu_torch/csrc/micro_cluster.cu",
+        "scripts/diag_blocked_microbench.py:100",
         mb["launches"]["blocked_microbench"],
         max(m["max_abs_err"] for m in g["microbench"].values()),
         sum(r["us_per_op"] * k * 1e-3 for r in mb["results"].values()),
-        sum(m["plain_ms"] for m in g["microbench"].values()), (0.0, 0.0))
+        sum(m["plain_ms"] for m in g["microbench"].values()), (0.0, 0.0),
+        library_ms=sum(d["library_ms"] for d in mdev.values()))
     micro.update(bound_ms=sum(b for b, _ in bounds),
-                 bound_by=max(bounds)[1])
+                 bound_by=max(bounds)[1],
+                 kernel=f"micro_cluster_kernel<VAR, {bb}>",
+                 cluster=mb["cluster"],
+                 oracle_ms=sum(mean(r["old_ms"]) for r in mt.values()),
+                 ms_in_turns=sum(mean(r["new_ms"]) for r in mt.values()),
+                 device_ms=sum(d["ms"] for d in mdev.values()),
+                 oracle_device_ms=sum(d["oracle_ms"] for d in mdev.values()))
     out.append(micro)
     wn = wh["n"]
     out.append(entry(
@@ -3184,7 +3308,12 @@ def main():
          + " | chain_cluster.cu chain_cluster_kernel<K> (rows 20, 21 "
          "float32): " + _ptxas_named(_build.ptxas_log, "chain_cluster_kernel")
          + ", chain_mma_kernel<RT> (row 21 bf16): "
-         + _ptxas_named(_build.ptxas_log, "chain_mma_kernel"))
+         + _ptxas_named(_build.ptxas_log, "chain_mma_kernel")
+         + " | micro_cluster.cu micro_cluster_kernel<VAR,BB> (row 18): "
+         + _ptxas_named(_build.ptxas_log, "micro_cluster_kernel")
+         + " | nvcc seconds per object, slowest first: "
+         + json.dumps(dict(sorted(_build.object_seconds.items(),
+                                  key=lambda kv: -kv[1]))))
 
     cases = [kernel_case(torch, 65, 4, 0.1, device),
              kernel_case(torch, 129, 2, 0.05, device),
@@ -3606,6 +3735,9 @@ def main():
          + f" | {name} | {smi}")
     chains_dev = chain_device_times(torch, device)
     _log("2g-dev", "rows 20-21 " + json.dumps(chains_dev)
+         + f" | {name} | {smi}")
+    chains_dev["row18"] = micro_device_times(torch, device)
+    _log("2g-dev", "row 18 " + json.dumps(chains_dev["row18"])
          + f" | {name} | {smi}")
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,

@@ -21,8 +21,8 @@ launches bit-equal and each member of a batch bit-equal to its one-member
 launch (the solve kernels' own gates are in chip_smoke.py).
 The cost probes: the float32 chain and the blocked primitives no farther
 from float64 than twice the plain float32 version plus 1e-5, every
-interleave width bit-equal, the cluster chain bit-equal to its one-CTA
-oracle at every cluster size; the bf16 chain against its bf16-emulated
+interleave width bit-equal, the cluster chain and the cluster microbench
+bit-equal to their one-CTA oracles at every cluster size; the bf16 chain against its bf16-emulated
 plain version at BF16_CHAIN_TOL and bit-equal to the wmma chain; the while
 probe with its script's gates.
 """
@@ -1321,6 +1321,74 @@ def test_blocked_microbench_matches_plain(cuda, variant, bb):
             # one stacked product sums each member as the per-member one does
             assert torch.equal(
                 k, pk.blocked_microbench("member_mm", C, X, bb, 16)[0])
+
+
+_MICRO_VARIANTS = ["serial_one", "member_mm", "left_mm", "stacked_mm", "swap",
+                   "swap_mm", "gdot", "member_dot"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", _MICRO_VARIANTS)
+@pytest.mark.parametrize("bb", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [17, 65])
+def test_blocked_microbench_equals_its_one_cta_oracle(cuda, n, bb, variant):
+    """The microbench on one thread-block cluster (its launch geometry: 16
+    CTAs at these n) bit for bit the one-CTA kernel of probes.cu, out and
+    sums, 16 steps; one launch counted a call, none of the oracle's."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_blocked_microbench as mb
+    C, X = mb.inputs(n - 1, bb, cuda)
+    ref = pk._blocked_microbench_cta(variant, C, X, bb, 16)
+    before = (pk.blocked_microbench.launches,
+              pk._blocked_microbench_cta.launches)
+    out, sums = pk.blocked_microbench(variant, C, X, bb, 16)
+    torch.cuda.synchronize()
+    assert (pk.blocked_microbench.launches,
+            pk._blocked_microbench_cta.launches) == (before[0] + 1, before[1])
+    assert pk.probe_geometry("micro", n, bb, bb, cuda.index or 0).cluster == 16
+    assert torch.equal(out, ref[0]) and torch.equal(sums, ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", _MICRO_VARIANTS)
+@pytest.mark.parametrize("bb", [1, 8])
+def test_blocked_microbench_bits_at_every_cluster_size(cuda, bb, variant):
+    """Every cluster size 1-16 at n = 65 gives the one-CTA kernel's bits
+    (products sum k ascending in one FMA chain, reductions in block_sum's
+    order, whatever the bands); with one member the reductions' eight warp
+    pairs lie on ranks w % C. The stacked product equals the per-member one
+    at every size."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import diag_blocked_microbench as mb
+    C, X = mb.inputs(64, bb, cuda)
+    ref = pk._blocked_microbench_cta(variant, C, X, bb, 16)
+    differ = []
+    for c in range(1, 17):
+        out, sums = pk.blocked_microbench(variant, C, X, bb, 16, cluster=c)
+        if not (torch.equal(out, ref[0]) and torch.equal(sums, ref[1])):
+            differ.append(c)
+        if variant == "stacked_mm":
+            assert torch.equal(out, pk.blocked_microbench(
+                "member_mm", C, X, bb, 16, cluster=c)[0]), c
+    torch.cuda.synchronize()
+    assert differ == []
+
+
+@pytest.mark.cuda
+def test_blocked_microbench_refuses_a_block_that_does_not_fit(cuda):
+    """A cluster past 16 CTAs, or a block whose ring needs more shared
+    memory than a CTA has, raises with its bytes; nothing falls back to
+    the one-CTA kernel."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    C = torch.zeros((65, 65), device=cuda)
+    X = torch.zeros((8 * 65, 65), device=cuda)
+    before = pk._blocked_microbench_cta.launches
+    with pytest.raises(ValueError, match="cluster size"):
+        pk.blocked_microbench("stacked_mm", C, X, 8, 1, cluster=17)
+    big = torch.zeros((1000, 1000), device=cuda)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        pk.blocked_microbench("swap", big, big.repeat(8, 1), 8, 1)
+    assert pk._blocked_microbench_cta.launches == before
 
 
 @pytest.mark.cuda

@@ -174,8 +174,11 @@ struct Block {
   // output e needs, and st(b, e, value, loaded), run on four outputs of a
   // unit's row at a time, their loads first. The RIGHT A slab's k stride
   // is MB rpad + 4 floats, so its transposing writes do not all fall in one
-  // shared-memory bank.
-  template <bool LEFT, class Ld, class St>
+  // shared-memory bank. XT (RIGHT, square fields only): X_b^T Op, the
+  // transpose in the A slab's read (row r0 + i of X_b^T is column r0 + i
+  // of X_b, which crosses every band: the caller waits at a cluster
+  // barrier first).
+  template <bool LEFT, bool XT = false, class Ld, class St>
   __device__ __forceinline__ void product(const float* __restrict__ Op,
                                           const float* X, Ld ld, St st) {
     const int K = LEFT ? n : m;
@@ -205,11 +208,19 @@ struct Block {
       } else {
 #pragma unroll 1
         for (int b = 0; b < MB; ++b) {                   // As[k][b rpad + i]
-          const float* xb = X + b * FS + (size_t)r0 * m + k0;
-          float* da = As + b * rpad;
-          each_rc(R, kk, [&](int i, int k) {
-            cp_async4(da + k * sa + i, xb + i * m + k);
-          });
+          if constexpr (XT) {                            // X_b[k0 + k][r0 + i]
+            const float* xb = X + b * FS + (size_t)k0 * m + r0;
+            float* da = As + b * rpad;
+            each_rc(kk, R, [&](int k, int i) {
+              cp_async4(da + k * sa + i, xb + k * m + i);
+            });
+          } else {
+            const float* xb = X + b * FS + (size_t)r0 * m + k0;
+            float* da = As + b * rpad;
+            each_rc(R, kk, [&](int i, int k) {
+              cp_async4(da + k * sa + i, xb + i * m + k);
+            });
+          }
         }
         const float* src = Op + (size_t)k0 * m;          // Bs[k][j]
         each_rc(kk, m, [&](int k, int j) {

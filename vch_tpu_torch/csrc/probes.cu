@@ -9,7 +9,8 @@
 //     cores; since row 21 "bf16" moved to chain_cluster.cu, only the oracle
 //     of that kernel;
 //   - micro_kernel<VAR, BB>: k dependent steps of one primitive on BB
-//     members in one CTA (row 18);
+//     members in one CTA; since row 18 moved to micro_cluster.cu, only the
+//     bit oracle of that kernel;
 //   - while_kernel: nested data-dependent loops with a carry in shared
 //     memory across steps (row 19).
 // Every array is float32 in device memory; the wrappers are in
@@ -143,7 +144,8 @@ __global__ void __launch_bounds__(NT)
 }
 
 // --------------------------------------------------------------------------
-// The member-blocked primitives (row 18).
+// The member-blocked primitives (row 18, now micro_cluster.cu's cluster
+// kernel, whose bit oracle this one-CTA kernel is).
 //
 // Replaces scripts/diag_blocked_microbench.py:100 (`build`, kernel at :56):
 // one cell applies one step to the (BB n, n) stack X of BB members k times

@@ -16,9 +16,11 @@ solve and the two cost probes); the cluster solves four times
 the spectral and the raw adjoint step solve); the one-CTA 2D march and
 sweep (the bit oracles of the cluster march and sweep), the operator
 applies, the fused 1D march, the cost probes of probes.cu (one CTA per
-block of members; its chains are the chain probes' bit oracles) and the
-chain probes of chain_cluster.cu, each of the last two holding its own
-members-per-block templates, once each. The 1D march, both sweeps, both
+block of members; its chains and its microbench are the bit oracles of
+the chain probes and of the cluster microbench) and the chain probes of
+chain_cluster.cu and the cluster microbench of micro_cluster.cu, each of
+the last three holding its own members-per-block templates, once each.
+The 1D march, both sweeps, both
 Schur and the spectral adjoint cluster solves and their oracles compile
 with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
@@ -46,6 +48,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -69,7 +72,8 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            + (("-DVCH_VARIANT=3",),),
            "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),),
-           "chain_cluster.cu": ((),)}
+           "chain_cluster.cu": ((),),
+           "micro_cluster.cu": ((),)}
 HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh",
            "adjoint_solve.cuh", "schur_solve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,6 +81,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 build_seconds = None     # wall seconds of the last nvcc run (None: reused)
+object_seconds = {}      # of the last nvcc run: wall seconds per object
 ptxas_log = ""           # nvcc/ptxas output of the last build
 
 _P = ctypes.c_void_p
@@ -108,7 +113,7 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the kernels if no library of the current sources exists;
     return its path."""
-    global build_seconds, ptxas_log
+    global build_seconds, object_seconds, ptxas_log
     out = BUILD_DIR / f"libvch_kernels_{_digest()}.so"
     if out.exists():
         return out
@@ -121,18 +126,26 @@ def build() -> Path:
                                       for f in flags)) + ".o"
         jobs = [(src, flags, os.path.join(tmpdir, name(src, flags)))
                 for src, objects in SOURCES.items() for flags in objects]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o",
-                                   obj, str(SRC_DIR / src)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, flags, obj in jobs]
-        logs = [p.communicate()[0] for p in procs]
+
+        def compile_one(job):
+            src, flags, obj = job
+            t = time.perf_counter()
+            p = subprocess.run([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj,
+                                str(SRC_DIR / src)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            return p.returncode, p.stdout, time.perf_counter() - t
+
+        with ThreadPoolExecutor(len(jobs)) as pool:   # all at once
+            done = list(pool.map(compile_one, jobs))
         tag = lambda src, flags: " ".join((src,) + flags)
+        object_seconds = {tag(src, flags): sec
+                          for (src, flags, _), (_, _, sec) in zip(jobs, done)}
         ptxas_log = "".join(f"[{tag(src, flags)}]\n{log}"
-                            for (src, flags, _), log in zip(jobs, logs))
-        failed = [f"{tag(src, flags)}: nvcc exit {p.returncode}"
-                  for (src, flags, _), p in zip(jobs, procs)
-                  if p.returncode != 0]
+                            for (src, flags, _), (_, log, _) in zip(jobs,
+                                                                     done))
+        failed = [f"{tag(src, flags)}: nvcc exit {rc}"
+                  for (src, flags, _), (rc, _, _) in zip(jobs, done)
+                  if rc != 0]
         objs = [obj for _, _, obj in jobs]
         if not failed:
             lib = os.path.join(tmpdir, out.name)
@@ -270,6 +283,12 @@ def load():
     lib.vch_chain_cluster_max_clusters.restype = _I
     # variant | C X out work sums | n bb k | stream
     lib.vch_blocked_microbench.argtypes = [_I] + [_P] * 5 + [_I] * 3 + [_P]
+    # variant | C X out work sums | n bb k | cluster kc smem_bytes | stream
+    lib.vch_blocked_microbench_cluster.argtypes = ([_I] + [_P] * 5 + [_I] * 3
+                                                   + [_I] * 3 + [_P])
+    # members segment n m cluster kc smem_bytes
+    lib.vch_micro_cluster_max_clusters.argtypes = [_I] * 7
+    lib.vch_micro_cluster_max_clusters.restype = _I
     # x out ns | B n M | stream
     lib.vch_while_probe.argtypes = [_P] * 3 + [_I] * 3 + [_P]
     lib.vch_while_max_elems.argtypes = []
@@ -288,7 +307,8 @@ def load():
                lib.vch_bicgstab_schur_raw_cluster, lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_matmul_chain_cluster, lib.vch_matmul_chain_mma,
-               lib.vch_blocked_microbench, lib.vch_while_probe):
+               lib.vch_blocked_microbench,
+               lib.vch_blocked_microbench_cluster, lib.vch_while_probe):
         fn.restype = _I
     lib.vch_error_string.argtypes = [_I]
     lib.vch_error_string.restype = ctypes.c_char_p

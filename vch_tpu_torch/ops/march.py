@@ -481,9 +481,9 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
 # count, so its own residency: the march (csrc/march2d_blocked.cu), the
 # sweep (csrc/adjoint2d_cluster.cu) and the four per-solve kernels of
 # csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
-# spectral and the raw Schur solve) and the float32 chain probe of
-# csrc/chain_cluster.cu; their names by members per cluster, and their
-# occupancy queries
+# spectral and the raw Schur solve), the float32 chain probe of
+# csrc/chain_cluster.cu and the microbench probe of csrc/micro_cluster.cu;
+# their names by members per cluster, and their occupancy queries
 CLUSTER_KERNELS = {
     "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
     "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
@@ -497,7 +497,10 @@ CLUSTER_KERNELS = {
                         "vch_schur_raw_cluster_max_clusters"),
     "chain": ({k: f"the float32 chain of {k} member{'s' * (k > 1)} per "
                   f"cluster" for k in (8, 4, 2, 1)},
-              "vch_chain_cluster_max_clusters")}
+              "vch_chain_cluster_max_clusters"),
+    "micro": ({k: f"the microbench of {k} member{'s' * (k > 1)} per "
+                  f"cluster" for k in (8, 4, 2, 1)},
+              "vch_micro_cluster_max_clusters")}
 
 
 def _kernel_names(kernel: str) -> dict:
@@ -519,10 +522,11 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     `march_fused_2d_blocked` and `adjoint_fused_2d_blocked`, 1 for
     `march_fused_2d`, `march_fused_2d_segment`, `adjoint_fused_2d`,
     `adjoint_fused_2d_segment` and the four cluster solves, 8, 4, 2 or 1
-    for the float32 chain probe (`ops.probe_kernels.matmul_chain`)
-    (`blocked_cluster_size`; `cluster` overrides it). Raises ValueError
-    when B is not a positive multiple of `members`, or when no ring fits in
-    BLOCKED_SMEM_LIMIT bytes per CTA."""
+    for the float32 chain probe (`ops.probe_kernels.matmul_chain`) and the
+    microbench probe (`ops.probe_kernels.blocked_microbench`, B = members:
+    one cluster) (`blocked_cluster_size`; `cluster` overrides it). Raises
+    ValueError when B is not a positive multiple of `members`, or when no
+    ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
     names = _kernel_names(kernel)
     if members not in names:
         raise ValueError(f"the cluster {kernel} is built for "
@@ -1456,7 +1460,7 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              sk.schur_mmonly, pk.matmul_chain,
                              pk._matmul_chain_cta, pk.matmul_chain_bf16,
                              pk._matmul_chain_bf16_cta, pk.blocked_microbench,
-                             pk.while_probe)
+                             pk._blocked_microbench_cta, pk.while_probe)
 
 
 def reset_launches():

@@ -10,17 +10,19 @@ probes under scripts/ that reach pl.pallas_call:
                       (mma.sync, x resident in shared memory; the DEFAULT
                       arm of diag_interleave.py:86);
   blocked_microbench  k dependent steps of one of eight primitives on a
-                      (bb n, n) stack of bb members in one CTA
-                      (`csrc/probes.cu`;
+                      (bb n, n) stack of bb members on one thread-block
+                      cluster, on the cluster engine
+                      (`csrc/micro_cluster.cu`;
                       scripts/diag_blocked_microbench.py:100);
   while_probe         per member, M steps of nested data-dependent loops
                       with a carry across steps (`csrc/probes.cu`;
                       scripts/probe_pallas_while.py:67).
 
-The chains' first designs, K members per CTA in `csrc/probes.cu`, stay as
-their bit oracles `_matmul_chain_cta` and `_matmul_chain_bf16_cta`, which
-the card tests and chip_smoke.py hold the chains against; no entry point
-calls them. Each wrapper routes by the tensors' device: on CUDA tensors it
+The first designs of the chains and of the microbench, K or bb members per
+CTA in `csrc/probes.cu`, stay as their bit oracles `_matmul_chain_cta`,
+`_matmul_chain_bf16_cta` and `_blocked_microbench_cta`, which the card
+tests and chip_smoke.py hold the new kernels against; no entry point calls
+them. Each wrapper routes by the tensors' device: on CUDA tensors it
 launches its hand-written kernel (float32; a failed build, fit or launch
 raises), on CPU tensors it runs its plain PyTorch version `<name>_plain`,
 which computes the same function in the tensors' dtype. Each wrapper counts
@@ -101,20 +103,23 @@ def bf16_chain_smem_bytes(n: int, K: int) -> int:
 
 
 @lru_cache(maxsize=64)
-def chain_geometry(n: int, B: int, K: int, device_index: int,
-                   cluster: int | None = None):
-    """The cluster geometry of the float32 chain for B members of (n, n), K
-    per cluster, on CUDA device `device_index`: `ops.march.launch_geometry`
-    fitted to the chain kernel's own residency, or with `cluster` CTAs
-    (`ops.march.blocked_geometry`'s override)."""
+def probe_geometry(kernel: str, n: int, B: int, members: int,
+                   device_index: int, cluster: int | None = None):
+    """The cluster geometry of a cluster probe (`kernel`: "chain", the
+    float32 chain, or "micro", the microbench, whose B is its one block's
+    members) for B members of (n, n), `members` per cluster, on CUDA device
+    `device_index`: `ops.march.launch_geometry` fitted to that kernel's own
+    residency (16 CTAs at n = 65 for one cluster), or with `cluster` CTAs
+    (`ops.march.blocked_geometry`'s override). A block that does not fit
+    raises (ValueError or RuntimeError, with its shared-memory bytes)."""
     from vch_tpu_torch.ops import march   # ops.march imports this module
     if cluster is None:
         return march.launch_geometry(n, n, B, torch.device("cuda",
                                                           device_index),
-                                     members=K, kernel="chain")
+                                     members=members, kernel=kernel)
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return march.blocked_geometry(n, n, B, sms, cluster=cluster, members=K,
-                                  kernel="chain")
+    return march.blocked_geometry(n, n, B, sms, cluster=cluster,
+                                  members=members, kernel=kernel)
 
 
 def _chain_buffers(A, X):
@@ -129,7 +134,7 @@ def matmul_chain(A, X, K: int, L: int, cluster: int | None = None):
     after another in full float32, K members' chains on each of B / K
     thread-block clusters (member g K + k is chain k of cluster g; K in 1,
     2, 4, 8). A is (n, n). On CUDA tensors every link is the cluster
-    engine's left product (`csrc/chain_cluster.cu`) on `chain_geometry`'s
+    engine's left product (`csrc/chain_cluster.cu`) on `probe_geometry`'s
     clusters (`cluster`: that many CTAs each), bit for bit what the one-CTA
     kernel `_matmul_chain_cta` computes. Every K and every cluster size
     gives the same bits: a member's products sum in one order whatever the
@@ -138,7 +143,7 @@ def matmul_chain(A, X, K: int, L: int, cluster: int | None = None):
         return matmul_chain_plain(A, X, K, L)
     _check_chain(A, X, K, L)
     B, n, lib, out, stream = _chain_buffers(A, X)
-    geo = chain_geometry(n, B, K, X.device.index, cluster)
+    geo = probe_geometry("chain", n, B, K, X.device.index, cluster)
     work = torch.empty_like(X)
     err = lib.vch_matmul_chain_cluster(
         A.data_ptr(), X.data_ptr(), out.data_ptr(), work.data_ptr(), B, n, K,
@@ -222,7 +227,7 @@ _matmul_chain_bf16_cta.launches = 0
 def _check_micro(variant, C, X, bb, k):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    _check_block("bb (members per CTA)", bb)
+    _check_block("bb (members per cluster or CTA)", bb)
     n = C.shape[0]
     if C.shape != (n, n) or X.shape != (bb * n, n):
         raise ValueError(f"C must be (n, n) and X (bb n, n), got "
@@ -262,10 +267,19 @@ def blocked_microbench_plain(variant: str, C, X, bb: int, k: int):
     return X3.reshape(bb * n, n).contiguous(), sums
 
 
-def blocked_microbench(variant: str, C, X, bb: int, k: int):
+def _micro_buffers(C, X, bb):
+    n = C.shape[0]
+    _build.check_cuda([("C", C, (n, n)), ("X", X, (bb * n, n))], X.device)
+    return (n, _build.load(), torch.empty_like(X), torch.empty_like(X),
+            torch.empty(bb, dtype=torch.float32, device=X.device),
+            torch.cuda.current_stream(X.device).cuda_stream)
+
+
+def blocked_microbench(variant: str, C, X, bb: int, k: int,
+                       cluster: int | None = None):
     """k dependent steps of one primitive on the (bb n, n) stack X of bb
-    members (bb in 1, 2, 4, 8) with the shared (n, n) C, in one CTA;
-    `variant` is one of VARIANTS:
+    members (bb in 1, 2, 4, 8) with the shared (n, n) C; `variant` is one
+    of VARIANTS:
       serial_one  X_0 <- X_0 C, the other members unchanged;
       member_mm   X_b <- X_b C;            left_mm   X_b <- C X_b;
       stacked_mm  X <- X C as one (bb n, n) product;
@@ -273,27 +287,45 @@ def blocked_microbench(variant: str, C, X, bb: int, k: int):
       gdot        X_b <- X_b (1 + 1e-12 ||X_b||^2), per member;
       member_dot  X <- X (1 + sum_b 1e-12 ||X_b||^2), one factor.
     Returns (out (bb n, n), sums (bb,)): sums are the last step's ||X_b||^2
-    for gdot and member_dot, zeros for the others."""
+    for gdot and member_dot, zeros for the others. On CUDA tensors the
+    block runs on one thread-block cluster (`csrc/micro_cluster.cu`) on
+    `probe_geometry`'s cluster (`cluster`: that many CTAs), bit for bit
+    what the one-CTA kernel `_blocked_microbench_cta` computes."""
     if not _build.on_cuda("blocked_microbench", X):
         return blocked_microbench_plain(variant, C, X, bb, k)
     _check_micro(variant, C, X, bb, k)
-    n = C.shape[0]
-    _build.check_cuda([("C", C, (n, n)), ("X", X, (bb * n, n))], X.device)
-    lib = _build.load()
-    out = torch.empty_like(X)
-    work = torch.empty_like(X)
-    sums = torch.empty(bb, dtype=torch.float32, device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = lib.vch_blocked_microbench(VARIANTS.index(variant), C.data_ptr(),
-                                     X.data_ptr(), out.data_ptr(),
-                                     work.data_ptr(), sums.data_ptr(), n, bb,
-                                     int(k), stream)
+    n, lib, out, work, sums, stream = _micro_buffers(C, X, bb)
+    geo = probe_geometry("micro", n, bb, bb, X.device.index, cluster)
+    err = lib.vch_blocked_microbench_cluster(
+        VARIANTS.index(variant), C.data_ptr(), X.data_ptr(), out.data_ptr(),
+        work.data_ptr(), sums.data_ptr(), n, bb, int(k), geo.cluster, geo.kc,
+        geo.smem_bytes, stream)
     blocked_microbench.launches += 1
     _build.raise_on(lib, err, "blocked_microbench")
     return out, sums
 
 
 blocked_microbench.launches = 0
+
+
+def _blocked_microbench_cta(variant: str, C, X, bb: int, k: int):
+    """The one-CTA microbench of csrc/probes.cu (the bb members in one CTA
+    on common.cuh's products and block_sum): the bit oracle of
+    `blocked_microbench`. Arguments and result as `blocked_microbench`'s."""
+    if not _build.on_cuda("_blocked_microbench_cta", X):
+        return blocked_microbench_plain(variant, C, X, bb, k)
+    _check_micro(variant, C, X, bb, k)
+    n, lib, out, work, sums, stream = _micro_buffers(C, X, bb)
+    err = lib.vch_blocked_microbench(VARIANTS.index(variant), C.data_ptr(),
+                                     X.data_ptr(), out.data_ptr(),
+                                     work.data_ptr(), sums.data_ptr(), n, bb,
+                                     int(k), stream)
+    _blocked_microbench_cta.launches += 1
+    _build.raise_on(lib, err, "_blocked_microbench_cta")
+    return out, sums
+
+
+_blocked_microbench_cta.launches = 0
 
 
 def _check_while(x, M):

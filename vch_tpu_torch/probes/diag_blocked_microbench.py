@@ -1,13 +1,14 @@
-"""Per-CTA cost of the member-blocked primitives on the CUDA card
-(counterpart of scripts/diag_blocked_microbench.py).
+"""Cost of the member-blocked primitives on the CUDA card (counterpart of
+scripts/diag_blocked_microbench.py).
 
     python -m vch_tpu_torch.probes.diag_blocked_microbench [--n 64] [--bb 8]
         [--k 64] [--reps 30]
 
-One CTA applies k dependent steps of one primitive to a (bb (n+1), n+1)
-stack of bb members (`ops.probe_kernels.blocked_microbench`), in the
-script's eight variants: serial_one (one member's product, the other members
-idle), member_mm and left_mm (one product per member, right and left),
+One thread-block cluster (16 CTAs at the default shape) applies k dependent
+steps of one primitive to a (bb (n+1), n+1) stack of bb members
+(`ops.probe_kernels.blocked_microbench`), in the script's eight variants:
+serial_one (one member's product, the other members idle), member_mm and
+left_mm (one product per member, right and left),
 stacked_mm (one stacked product), swap (the member-local transpose alone),
 swap_mm (the transpose folded into the stacked product's operand read),
 gdot (per-member squared norms) and member_dot (one factor from all
@@ -16,8 +17,8 @@ N(0, 1), then X = 0.1 N(0, 1). Each variant's time is the mean over `reps`
 launches after one warm-up, between two CUDA events, taken twice in turns
 (the variants in order, then back) and averaged. Prints the script's
 summary (`us_per_op` and `us_per_member_op` per variant, unrounded) with
-the card's name as one JSON object; the script's `--record`, which writes
-BENCH_RESULTS.json, has no counterpart. Runs on the CUDA card; raises
+the cluster size it ran on and the card's name as one JSON object; the
+script's `--record`, which writes BENCH_RESULTS.json, has no counterpart. Runs on the CUDA card; raises
 without one.
 """
 from __future__ import annotations
@@ -61,8 +62,10 @@ def run(n: int = 64, bb: int = 8, k: int = 64, reps: int = 30,
         results[v] = {"us_per_op": us_per_op,
                       "us_per_member_op": us_per_op
                       / (1 if v == "serial_one" else bb)}
-    return {"n": n + 1, "bb": bb, "k": k, "reps": reps, "results": results,
-            "device": torch.cuda.get_device_name(device)}
+    return {"n": n + 1, "bb": bb, "k": k, "reps": reps,
+            "cluster": pk.probe_geometry("micro", n + 1, bb, bb,
+                                          X.device.index).cluster,
+            "results": results, "device": torch.cuda.get_device_name(device)}
 
 
 def main(argv=None):

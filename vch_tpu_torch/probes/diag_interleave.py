@@ -66,8 +66,8 @@ def run(n: int = 64, members: int = 32, length: int = 40, reps: int = 30,
             ms = time_ms(lambda: chain(A, X, K, length), reps)
             res[f"{label}_K{K}_ns_per_mm"] = ms * 1e6 / (members * length)
             res[f"{label}_K{K}_cta_ns_per_mm"] = ms * 1e6 / (K * length)
-            res[f"{label}_K{K}_cluster"] = pk.chain_geometry(
-                n + 1, members, K, X.device.index).cluster \
+            res[f"{label}_K{K}_cluster"] = pk.probe_geometry(
+                "chain", n + 1, members, K, X.device.index).cluster \
                 if label == "highest" else 1
     res["ideal_ns_at_67tflops_fp32"] = 2.0 * (n + 1) ** 3 / PEAK_FP32_FLOPS * 1e9
     res["device"] = torch.cuda.get_device_name(device)

@@ -106,8 +106,8 @@ def _chain_ms(a, v, K, links, reps, cluster=None):
     X = v.expand(K, -1, -1).contiguous()
     ms = time_ms(lambda: pk.matmul_chain(a, X, K, links, cluster=cluster),
                  reps)
-    return ms, pk.chain_geometry(X.shape[1], K, K, X.device.index,
-                                 cluster).cluster
+    return ms, pk.probe_geometry("chain", X.shape[1], K, K,
+                                 X.device.index, cluster).cluster
 
 
 def run(n: int = 64, b: int = 64, amort: int = AMORT, reps: int = 3,
