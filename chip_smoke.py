@@ -97,11 +97,15 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                grid), float32, 3 PGD iterations, kernel path against plain
                path, once with each pallas_variant;
   2f probes  — the probe entry point vch_tpu_torch.probes.diag_kernel_cost
-               (the one-CTA raw Schur solve, the cluster kernel's oracle,
-               and its nodots and mmonly probes) at
-               the script's default shape (n = 65, B = 32, 10 trips) and at
-               the scan path's (n = 129, B = 128, 4 trips), each probe kernel
-               against its plain version, gated against float64;
+               (the raw Schur solve bicgstab_schur and its nodots and
+               mmonly probes, all three one member per thread-block
+               cluster) at the script's default shape (n = 65, B = 32, 10
+               trips) and at the scan path's (n = 129, B = 128, 4 trips),
+               each probe kernel against its plain version, gated against
+               float64, and bit for bit its one-CTA oracle of solve2d.cu
+               ("rows 16-17"), at n = 65 also one member on one cluster of
+               every size 1-16; each timed in turns with its oracle, with
+               the probes' and full's cluster geometry;
   2g probes  — the four chain probe entry points (vch_tpu_torch.probes.
                diag_march_sol with its chain cut to CHAIN_AMORT = 200 solves'
                worth of links, diag_interleave, diag_blocked_microbench,
@@ -192,8 +196,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                one field at n = 65, 129, 257, and the cluster solves (rows
                8-11) and their one-CTA oracles at phase 2c's shapes (the
                raw Schur solve also at phase 2e's n = 65, B = 8, row 12),
-               each timed on the device
-               alone (20 calls in a CUDA graph), last because a capture
+               then rows 16-17, their oracles, their library forms (the
+               plain versions' calls) and the probe's full at phase 2f's
+               shapes, each timed on the device
+               alone (calls in a CUDA graph), last because a capture
                leaves cuBLAS a workspace that phase 7 would count;
   2g-dev     — rows 20 and 21, their one-CTA oracles and their library
                form (L torch.matmul links) on the device alone likewise;
@@ -254,7 +260,8 @@ def _ptxas_summary(log):
 def _ptxas_named(log, kernel):
     """ptxas's registers and spill stores of each instantiation of
     `kernel` (the whole identifier: its length leads it in the mangled
-    name), by its template arguments: `<0,1> 96r/0s ...`."""
+    name), by its template arguments (a bool as 0 or 1): `<0,1> 96r/0s
+    ...`."""
     import re
     out, name, spill = [], None, "?"
     for ln in log.splitlines():
@@ -266,7 +273,7 @@ def _ptxas_named(log, kernel):
             spill = ln.split("bytes stack frame,")[1].split("bytes spill "
                                                             "stores")[0].strip()
         elif name and "Used" in ln and "registers" in ln:
-            args = ",".join(re.findall(r"Li(\d+)E", name))
+            args = ",".join(re.findall(r"L[ib](\d+)E", name))
             out.append(f"<{args}> " + ln.split("Used")[1].split(
                 "registers")[0].strip() + f"r/{spill}s")
             name = None
@@ -2565,28 +2572,90 @@ def _probe_gate(torch, device, n, b, iters):
     return out
 
 
-def probe_case(torch, device, n, b, iters, reps=20):
+PROBE_KERNELS = ("schur_nodots", "schur_mmonly")
+
+
+def _probe_bits(torch, device, n, b, iters, every_cluster):
+    """Rows 16-17 on their cluster kernels bit for bit against their
+    one-CTA oracles on the probe's inputs at (n, b): nodots over the
+    shape's trips, mmonly over its links and over one (`_probe_gate`); with
+    every_cluster, also one member at n on one cluster of every size 1-16.
+    Returns {tag: equal} and the cluster sizes that differ."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+
+    args, one = probe_args(n - 1, b, device), probe_args(n - 1, 1, device)
+    out, differ = {}, {}
+    for name, links in (("nodots", iters), ("mmonly", iters), ("mmonly", 1)):
+        new = getattr(sk, f"schur_{name}")
+        old = getattr(sk, f"_schur_{name}_cta")
+        tag = name if links == iters else f"{name}_1"
+        out[tag] = bool(torch.equal(new(*args, n_iter=links),
+                                    old(*args, n_iter=links)))
+        if every_cluster and links == iters:
+            ref = old(*one, n_iter=links)
+            differ[name] = [C for C in range(1, 17) if not torch.equal(
+                new(*one, n_iter=links, cluster=C), ref)]
+    torch.cuda.synchronize()
+    return out, differ
+
+
+def probe_case(torch, device, n, b, iters, reps=20, every_cluster=False):
     """Phase 2f: the probe entry point (vch_tpu_torch.probes.
     diag_kernel_cost) at one shape, with the launch counts set to 0 just
-    before it and read just after, and the probe kernels' gates."""
+    before it and read just after; then, their launches counted apart
+    (`gate_launches`), the probe kernels' float64 gates, rows 16-17 bit for
+    bit their one-CTA oracles (`_probe_bits`), each timed in turns with
+    its oracle (oracle, cluster, cluster, oracle; CUDA events), and the
+    cluster geometry of the probes and of `full`."""
     from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops import solve_kernels as sk
     from vch_tpu_torch.probes import diag_kernel_cost as probe
 
     km.reset_launches()
     res = probe.run(n - 1, b, iters, reps, device=device)
     res["launches"] = {k: v for k, v in km.launch_counts().items() if v}
+    km.reset_launches()
     res["gate"] = _probe_gate(torch, device, n, b, iters)
+    res["bits"], res["cluster_bits_differ"] = _probe_bits(
+        torch, device, n, b, iters, every_cluster)
+    args = probe.probe_args(n - 1, b, device)
+    res["turns"] = {k: _turns(
+        lambda k=k: getattr(sk, f"_{k}_cta")(*args, n_iter=iters),
+        lambda k=k: getattr(sk, k)(*args, n_iter=iters), reps)
+        for k in PROBE_KERNELS}
+    res["gate_launches"] = {k: v for k, v in km.launch_counts().items() if v}
+    idx = torch.device(device).index or 0
+    res["geometry"] = {}
+    for kernel in ("schur_probe", "raw_schur_solve"):
+        g = sk.solve_geometry(n, n, b, idx, kernel)
+        res["geometry"][kernel] = dict(
+            cluster=g.cluster, ctas=b * g.cluster, kc=g.kc,
+            smem_bytes=g.smem_bytes, resident_clusters=km.resident_clusters(
+                idx, n, n, g.cluster, g.kc, g.smem_bytes, 1, False, kernel))
     return res
 
 
 def check_probe_case(c):
-    """Phase 2f gates: each probe kernel launched by the entry point, finite,
-    and no farther from float64 than twice the plain float32 version plus
-    1e-5 (the phase-2c pattern; mmonly's one link is the relative test where
-    the whole chain underflows); the script's five keys finite."""
-    fails = [f"{k} never launched" for k in ("schur_nodots", "schur_mmonly",
-                                             "_bicgstab_schur_cta")
+    """Phase 2f gates: the entry point launched the cluster kernels of
+    `full` (bicgstab_schur), nodots and mmonly, and no one-CTA oracle; the
+    gates launched both probes' oracles; each probe kernel finite, no
+    farther from float64 than twice the plain float32 version plus 1e-5
+    (the phase-2c pattern; mmonly's one link is the relative test where the
+    whole chain underflows) and bit for bit its oracle (at every cluster
+    size tried); the script's five keys finite."""
+    fails = [f"{k} never launched" for k in ("bicgstab_schur",
+                                             "schur_nodots", "schur_mmonly")
              if c["launches"].get(k, 0) <= 0]
+    fails += [f"the entry point launched {k}" for k in c["launches"]
+              if k.endswith("_cta")]
+    fails += [f"{k} never launched by the gates"
+              for k in ("_schur_nodots_cta", "_schur_mmonly_cta")
+              if c["gate_launches"].get(k, 0) <= 0]
+    fails += [f"{tag}: the cluster kernel differs from its one-CTA oracle"
+              for tag, equal in c["bits"].items() if not equal]
+    fails += [f"{k}: clusters {v} differ from the one-CTA oracle"
+              for k, v in c["cluster_bits_differ"].items() if v]
     for tag, g in c["gate"].items():
         if not g["finite"]:
             fails.append(f"{tag}: non-finite")
@@ -2602,6 +2671,34 @@ def check_probe_case(c):
     if fails:
         raise RuntimeError(f"probe n={c['n']} b={c['b']}: " + "; ".join(fails)
                            + f" | {c}")
+
+
+def probe_device_times(torch, device, shapes=((65, 32, 10), (129, 128, 4))):
+    """Phase 2e-dev, rows 16-17: at phase 2f's shapes (n, B, trips), each
+    probe's cluster kernel, its one-CTA oracle and its library form (the
+    plain version's PyTorch calls, batched over B), and the probe's `full`
+    (bicgstab_schur), each on the device alone (calls captured in one CUDA
+    graph, `probes/_timing.py` graph_ms; the scalars 0-d tensors on the
+    card, as a capture of the oracle needs). After phase 7, as every
+    capture."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+
+    out = []
+    for n, B, iters in shapes:
+        a = probe_args(n - 1, B, device)
+        a = a[:9] + tuple(torch.tensor(v, device=device) for v in a[9:])
+        reps = 20 if n == 65 else 5
+        run = lambda fn: graph_ms(lambda: fn(*a, n_iter=iters), reps)
+        row = dict(n=n, B=B, iters=iters, full_ms=run(sk.bicgstab_schur))
+        for k in PROBE_KERNELS:
+            row[k] = dict(ms=run(getattr(sk, k)),
+                          oracle_ms=run(getattr(sk, f"_{k}_cta")),
+                          library_ms=run(getattr(sk, f"{k}_plain")))
+        row["reduction_share"] = 1.0 - row["schur_nodots"]["ms"] / \
+            row["full_ms"]
+        out.append(row)
+    return out
 
 
 # Phase 2g runs diag_march_sol's chain at 200 solves' worth of links, a
@@ -3300,8 +3397,11 @@ def main():
          + _ptxas_named(_build.ptxas_log, "adjoint_raw_cluster_kernel")
          + ", schur_raw_cluster_kernel (rows 10, 12): "
          + _ptxas_named(_build.ptxas_log, "schur_raw_cluster_kernel")
-         + " | solve2d.cu solve_kernel<VAR> (0-3: the cluster solves' "
-         "one-CTA oracles, 0-2 with -fmad=false; 4, 5: the probes): "
+         + ", schur_probe_cluster_kernel<MMONLY> (rows 16, 17): "
+         + _ptxas_named(_build.ptxas_log, "schur_probe_cluster_kernel")
+         + " | solve2d.cu solve_kernel<VAR> (the cluster kernels' one-CTA "
+         "oracles: 0-3 the solves, 4, 5 the probes; all but 3 with "
+         "-fmad=false): "
          + _ptxas_named(_build.ptxas_log, "solve_kernel")
          + " | march1d.cu march1d_kernel: "
          + _ptxas_named(_build.ptxas_log, "march1d_kernel")
@@ -3455,7 +3555,7 @@ def main():
 
     # the probe entry point at the script's default shape and at the scan
     # path's (n = 129, B = 128, 4 trips as krylov_fixed_iters)
-    probes = [probe_case(torch, device, 65, 32, 10),
+    probes = [probe_case(torch, device, 65, 32, 10, every_cluster=True),
               probe_case(torch, device, 129, 128, 4, reps=5)]
     for c in probes:
         _log("2f", json.dumps(c) + f" | {name} | {smi}")
@@ -3733,6 +3833,9 @@ def main():
     solve_dev = cluster_solve_device_times(torch, device)
     _log("2e-dev", "rows 8-12 " + json.dumps(solve_dev)
          + f" | {name} | {smi}")
+    probes_dev = probe_device_times(torch, device)
+    _log("2e-dev", "rows 16-17 " + json.dumps(probes_dev)
+         + f" | {name} | {smi}")
     chains_dev = chain_device_times(torch, device)
     _log("2g-dev", "rows 20-21 " + json.dumps(chains_dev)
          + f" | {name} | {smi}")
@@ -3758,7 +3861,6 @@ def main():
     mean = lambda v: float(np.mean(v))
     cluster_cu = "vch_tpu_torch/csrc/march2d_blocked.cu"
     sweep_cu = "vch_tpu_torch/csrc/adjoint2d_cluster.cu"
-    solve_cu = "vch_tpu_torch/csrc/solve2d.cu"
     pm = "vch_tpu/ops/pallas_march.py"
     pk = "vch_tpu/ops/pallas_kernels.py"
     seg_newton = sum(seg257["newton_chain"]) / (seg257["M"] // seg257["K"])
@@ -3851,16 +3953,28 @@ def main():
         kernels.append(entry(k, apply_cu, f"{pk}:{line}", op_calls[k],
                              c["max_abs_err"], c["ms"], c["plain_ms"],
                              _apply_work(k, a65["n"], 1), c["library_ms"]))
-    # the probes at the script's default shape (n = 65, B = 32, 10 trips or
-    # links of 16 products each), their launches the entry point's
-    p65 = probes[0]
+    # rows 16-17 at the script's default shape (n = 65, B = 32, 10 trips or
+    # link pairs of 16 products each), their launches the entry point's,
+    # with their kernel, cluster size, the one-CTA oracle's time in turns
+    # and, from phase 2e-dev, the device-alone times of kernel, oracle and
+    # library form (the plain version's calls under one CUDA graph)
+    p65, d65 = probes[0], probes_dev[0]
     for k, line in (("nodots", 131), ("mmonly", 176)):
-        g = p65["gate"][k]
-        kernels.append(entry(
-            f"schur_{k}", solve_cu, f"scripts/diag_kernel_cost.py:{line}",
+        g, t, dv = p65["gate"][k], p65["turns"][f"schur_{k}"], \
+            d65[f"schur_{k}"]
+        e = entry(
+            f"schur_{k}", "vch_tpu_torch/csrc/solve2d_cluster.cu",
+            f"scripts/diag_kernel_cost.py:{line}",
             p65["launches"][f"schur_{k}"], g["max_abs_err"], p65[f"{k}_ms"],
             g["plain_ms"], _solve_work("bicgstab_schur", p65["n"] + 1,
-                                       p65["b"], p65["iters"])))
+                                       p65["b"], p65["iters"]),
+            library_ms=dv["library_ms"])
+        e.update(kernel="schur_probe_cluster_kernel<"
+                        f"{'true' if k == 'mmonly' else 'false'}>",
+                 cluster=p65["geometry"]["schur_probe"]["cluster"],
+                 oracle_ms=mean(t["old_ms"]), ms_in_turns=mean(t["new_ms"]),
+                 device_ms=dv["ms"], oracle_device_ms=dv["oracle_ms"])
+        kernels.append(e)
     kernels += _chain_probe_entries(chains, chains_dev, entry)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,9 @@ float32 noise floor of the adjoint on small grids (chip_smoke.py records
 it at larger ones). The member-blocked kernels compute each member with the
 same arithmetic as the per-member kernels, so those two agree exactly, as
 do the cluster marches (whole, blocked, segment), sweeps (whole, blocked,
-segment) and solves (spectral and raw Schur, spectral and raw adjoint) and their
-one-CTA oracles at every batch and cluster size. The 1D march: phi 1e-5 absolute on a
+segment), solves (spectral and raw Schur, spectral and raw adjoint) and the raw
+Schur solve's two cost probes and their one-CTA oracles at every batch and
+cluster size. The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
 every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
@@ -1146,6 +1147,84 @@ def test_probe_kernels_match_plain(cuda, name, n, B, iters):
     err_k = (k.double() - p64).abs().max().item() / scale
     err_p = (p.double() - p64).abs().max().item() / scale
     assert err_k <= 2 * err_p + 1e-5, (err_k, err_p)
+
+
+# each cost probe's trips for the bit tests: mmonly's chain of 0.01-scaled
+# operators stays inside float32's range for four links at n = 65
+_PROBE_TRIPS = {"nodots": 10, "mmonly": 2}
+
+
+def _probe_pair(name):
+    from vch_tpu_torch.ops import solve_kernels as sk
+    return getattr(sk, f"schur_{name}"), getattr(sk, f"_schur_{name}_cta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4, 32])
+@pytest.mark.parametrize("n", [17, 65, 129])
+@pytest.mark.parametrize("name", list(_PROBE_TRIPS))
+def test_schur_probe_equals_its_one_cta_oracle(cuda, name, n, B):
+    """Each cost probe on its cluster kernel (one member per thread-block
+    cluster, on its launch geometry) bit for bit its one-CTA kernel of
+    solve2d.cu on the probe script's inputs; a member of the batch bit for
+    bit its one-member launch; one launch counted a call, none of the
+    oracle's."""
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+    wrapper, oracle = _probe_pair(name)
+    iters = _PROBE_TRIPS[name]
+    args = probe_args(n - 1, B, cuda)
+    ref = oracle(*args, n_iter=iters)
+    before = (wrapper.launches, oracle.launches)
+    out = wrapper(*args, n_iter=iters)
+    last = wrapper(*[a[-1:].contiguous() if torch.is_tensor(a)
+                     and a.dim() == 3 else a for a in args], n_iter=iters)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, oracle.launches) == (before[0] + 2, before[1])
+    assert torch.isfinite(out).all() and out.abs().max().item() > 0
+    assert torch.equal(out, ref)
+    assert torch.equal(out[-1:], last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_PROBE_TRIPS))
+def test_schur_probe_bits_at_every_cluster_size(cuda, name):
+    """One member at n = 65 on one cluster of every size 1-16 gives the
+    one-CTA kernel's bits (products k ascending in one FMA chain, whatever
+    the bands; every elementwise pass rounds alike, -fmad=false on both
+    sides)."""
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+    wrapper, oracle = _probe_pair(name)
+    iters = _PROBE_TRIPS[name]
+    args = probe_args(64, 1, cuda)
+    ref = oracle(*args, n_iter=iters)
+    differ = [C for C in range(1, 17)
+              if not torch.equal(wrapper(*args, n_iter=iters, cluster=C),
+                                 ref)]
+    torch.cuda.synchronize()
+    assert differ == []
+
+
+@pytest.mark.cuda
+def test_schur_probes_refuse_a_member_that_does_not_fit(cuda):
+    """A cluster past 16 CTAs, or a member whose ring needs more shared
+    memory than a CTA has (a 9 x 7168 grid), raises with its bytes;
+    nothing falls back to the one-CTA kernel."""
+    from vch_tpu_torch.ops import solve_kernels as sk
+    from vch_tpu_torch.probes.diag_kernel_cost import probe_args
+    args = probe_args(64, 1, cuda)
+    before = (sk._schur_nodots_cta.launches, sk._schur_mmonly_cta.launches)
+    for wrapper, _ in map(_probe_pair, _PROBE_TRIPS):
+        with pytest.raises(ValueError, match="cluster size"):
+            wrapper(*args, n_iter=1, cluster=17)
+    z = lambda *s: torch.zeros(s, device=cuda)
+    wide = (z(9, 9), z(7168, 7168), z(9, 9), z(7168, 7168), z(9, 9),
+            z(7168, 7168), z(1, 9, 7168) + 1, z(1, 9, 7168), z(1, 9, 7168),
+            100.0, 5.0, 4.5e-4)
+    for wrapper, _ in map(_probe_pair, _PROBE_TRIPS):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            wrapper(*wide, n_iter=1)
+    assert (sk._schur_nodots_cta.launches,
+            sk._schur_mmonly_cta.launches) == before
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The two cost probes of the one-CTA raw Schur solve
+"""The two cost probes of the raw Schur solve
 (ops.solve_kernels.schur_nodots and schur_mmonly, the counterparts of
 scripts/diag_kernel_cost.py:131 and :176) and their entry point, on the
 CPU.
@@ -111,14 +111,15 @@ def test_probe_wrappers_run_the_plain_versions_on_cpu_tensors():
 
 
 def test_the_three_probes_share_the_one_cta_design():
-    """The probe's `full` is the one-CTA raw Schur solve, the bit oracle
-    of the solvers' cluster kernel, so that full, nodots and mmonly time
-    the trips of one kernel design (reduction_share divides two of them);
-    on CPU tensors it runs bicgstab_schur_plain and counts no launch."""
-    assert probe.PROBES == {"full": sk._bicgstab_schur_cta,
+    """The three probes share one design, now the cluster one: the probe's
+    `full` is the solvers' raw Schur solve `bicgstab_schur`, as the
+    script's is its production kernel, beside nodots and mmonly on the
+    same cluster engine (reduction_share divides two of them); on CPU
+    tensors it runs bicgstab_schur_plain and counts no launch."""
+    assert probe.PROBES == {"full": sk.bicgstab_schur,
                             "nodots": sk.schur_nodots,
                             "mmonly": sk.schur_mmonly}
-    assert probe.PROBES["full"] is not sk.bicgstab_schur
+    assert probe.PROBES["full"] is sk.bicgstab_schur
     args = probe.probe_args(N, B, "cpu", torch.float32)
     km.reset_launches()
     out = probe.PROBES["full"](*args, n_iter=ITERS)

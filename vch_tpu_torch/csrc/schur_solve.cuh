@@ -21,7 +21,9 @@
 // ascending in one FMA chain, a Laplacian's two rounded products added,
 // reductions in block_sum's order, every elementwise expression written
 // alike. Built with -fmad=false on both sides (ops/_build.py), a member's
-// bits are that kernel's, whatever the cluster size or the batch.
+// bits are that kernel's, whatever the cluster size or the batch. The raw
+// solve's two cost probes (nodots, mmonly) run its operators here too, bit
+// for bit solve2d.cu's SCHUR_NODOTS and SCHUR_MMONLY variants.
 #pragma once
 
 #include "cluster.cuh"
@@ -302,6 +304,103 @@ struct Solve : Block<MB> {
       gemm_l_to(a.Vx, BX, T1);
       gemm_r_to(T1, a.VyT, OUT);
     }
+  }
+
+  // The cost probe nodots of the raw solve (scripts/diag_kernel_cost.py
+  // :131; solve2d.cu's solve_probe<SCHUR_NODOTS>): n_trips trips of the
+  // loop above with every block dot product the constant 0.5, so beta =
+  // (rho'/rho)(alpha/omega), alpha' = rho'/0.5 and omega' = 0.5/0.5, held
+  // in registers by every thread alike; no reduction, freeze, live mask or
+  // best iterate; OUT = the last X. Slots: X, RR, P, V, S, T, PH, SH, T1,
+  // T2. X, RR, P and S are written and read only by elementwise passes, in
+  // one layout; V and T, which apply_S_raw writes band by band, are read
+  // in that layout after a cluster barrier.
+  __device__ __forceinline__ void nodots(const float* DEN, const float* D,
+                                         const float* RHS, float* OUT,
+                                         float inv_dt, float tau_dt,
+                                         float hk) {
+    static_assert(RAW, "the cost probes run the raw operators");
+    float *X = F(Slots::X), *RR = F(Slots::RR), *P = F(Slots::P);
+    float *V = F(Slots::V), *Sv = F(Slots::S), *T = F(Slots::T);
+    float *PH = F(Slots::PH), *SH = F(Slots::SH);
+    const size_t fs = FS;
+    each_elem(all, [&](int b, int e) { return Vals<1>{{RHS[b * fs + e]}}; },
+              [&](int b, int e, const Vals<1>& in) {
+                const size_t i = b * fs + e;
+                X[i] = 0.f;
+                RR[i] = in.v[0];
+                P[i] = 0.f;
+                V[i] = 0.f;
+              });
+    const float dot = 0.5f;               // every block dot product
+    float rho = 1.f, alpha = 1.f, omega = 1.f;
+    for (int trip = 0; trip < a.n_trips; ++trip) {
+      const float rho_new = dot;
+      const float beta = (rho_new / rho) * (alpha / omega);
+      each_elem(all, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<3>{{RR[o], P[o], V[o]}};
+      }, [&](int b, int e, const Vals<3>& in) {
+        P[b * fs + e] = in.v[0] + beta * (in.v[1] - omega * in.v[2]);
+      });
+      precondition(DEN, P, PH);
+      apply_S_raw(D, PH, V, inv_dt, tau_dt, hk);
+      const float alpha_n = rho_new / dot;
+      this->cluster.sync();               // V, written band by band
+      each_elem(all, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<2>{{RR[o], V[o]}};
+      }, [&](int b, int e, const Vals<2>& in) {
+        Sv[b * fs + e] = in.v[0] - alpha_n * in.v[1];
+      });
+      precondition(DEN, Sv, SH);
+      apply_S_raw(D, SH, T, inv_dt, tau_dt, hk);
+      const float omega_n = dot / dot;
+      this->cluster.sync();               // T, written band by band
+      each_elem(all, [&](int b, int e) {
+        const size_t o = b * fs + e;
+        return Vals<5>{{X[o], PH[o], SH[o], Sv[o], T[o]}};
+      }, [&](int b, int e, const Vals<5>& in) {
+        const size_t o = b * fs + e;
+        X[o] = in.v[0] + alpha_n * in.v[1] + omega_n * in.v[2];
+        RR[o] = in.v[3] - omega_n * in.v[4];
+      });
+      rho = rho_new;
+      alpha = alpha_n;
+      omega = omega_n;
+    }
+    each_elem(all, [&](int b, int e) { return Vals<1>{{X[b * fs + e]}}; },
+              [&](int b, int e, const Vals<1>& in) {
+                OUT[b * fs + e] = in.v[0];
+              });
+  }
+
+  // The cost probe mmonly (scripts/diag_kernel_cost.py:176; solve2d.cu's
+  // solve_probe<SCHUR_MMONLY>): v <- M^-1 S v, 2 n_trips links from v =
+  // RHS, through the slots X and T (and T1, T2): S into T, then M^-1 into X
+  // or, on the last link, OUT. Every field a link reads in another CTA's
+  // band, a left product reads after its own cluster barrier.
+  __device__ __forceinline__ void mmonly(const float* DEN, const float* D,
+                                         const float* RHS, float* OUT,
+                                         float inv_dt, float tau_dt,
+                                         float hk) {
+    static_assert(RAW, "the cost probes run the raw operators");
+    float *Y = F(Slots::X), *Z = F(Slots::T);
+    const size_t fs = FS;
+    const int links = 2 * a.n_trips;
+    const float* y = RHS;
+    for (int link = 0; link < links; ++link) {
+      apply_S_raw(D, y, Z, inv_dt, tau_dt, hk);
+      float* to = link + 1 < links ? Y : OUT;
+      precondition(DEN, Z, to);
+      y = to;
+    }
+    if (links == 0)
+      each_elem(all, [&](int b, int e) {
+        return Vals<1>{{RHS[b * fs + e]}};
+      }, [&](int b, int e, const Vals<1>& in) {
+        OUT[b * fs + e] = in.v[0];
+      });
   }
 };
 

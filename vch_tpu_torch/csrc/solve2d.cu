@@ -16,8 +16,9 @@
 //     basis, each apply P^-1/2 A P^-1/2 as 12 products;
 // the solvers run all four on solve2d_cluster.cu's cluster kernels, and
 // these four are only their bit oracles; and the two cost probes of
-// scripts/diag_kernel_cost.py, which time this kernel's raw Schur solve
-// (the script's "full", :65) in parts:
+// scripts/diag_kernel_cost.py, which time the raw Schur solve (the
+// script's "full", :65) in parts, now also only the bit oracles of their
+// cluster kernels in solve2d_cluster.cu:
 //   - :131 nodots: the raw Schur solve's trips with every block dot product
 //     replaced by the constant 0.5, no freeze and no best iterate: its
 //     products and elementwise passes without its block reductions;
@@ -359,20 +360,23 @@ int launch_solve(int B, const SolveArgs& a, cudaStream_t s) {
 
 }  // namespace vch
 
-// Compiled four times (ops/_build.py): each object of -DVCH_VARIANT=v,
-// v = 0, 1, 2, built with -fmad=false, holds variant v alone, the bit
-// oracle of a cluster kernel (solve2d_cluster.cu), which rounds as this one
-// only where neither contracts an elementwise product into an FMA; the
-// object without VCH_VARIANT holds the three other variants (the raw
-// adjoint solve and the two probes) and the C entries, with nvcc's default
-// contraction, as the raw adjoint cluster solve (variant 3's counterpart)
-// is compiled.
+// Compiled five times (ops/_build.py): each object of -DVCH_VARIANT=v,
+// v = 0, 1, 2, built with -fmad=false, holds variant v alone, and the one
+// of -DVCH_VARIANT=4, built so too, both probes (variants 4 and 5): each
+// the bit oracle of a cluster kernel (solve2d_cluster.cu), which rounds as
+// this one only where neither contracts an elementwise product into an
+// FMA; the object without VCH_VARIANT holds the raw adjoint solve (variant
+// 3) and the C entries, with nvcc's default contraction, as the raw
+// adjoint cluster solve (its counterpart) is compiled.
 #ifndef VCH_VARIANT
 #define VCH_VARIANT -1
 #endif
 
 namespace vch {
-#if VCH_VARIANT >= 0
+#if VCH_VARIANT == 4
+template int launch_solve<SCHUR_NODOTS>(int, const SolveArgs&, cudaStream_t);
+template int launch_solve<SCHUR_MMONLY>(int, const SolveArgs&, cudaStream_t);
+#elif VCH_VARIANT >= 0
 template int launch_solve<VCH_VARIANT>(int, const SolveArgs&, cudaStream_t);
 #else
 extern template int launch_solve<SCHUR_SPECTRAL>(int, const SolveArgs&,
@@ -381,6 +385,10 @@ extern template int launch_solve<SCHUR_RAW>(int, const SolveArgs&,
                                             cudaStream_t);
 extern template int launch_solve<ADJOINT_SPECTRAL>(int, const SolveArgs&,
                                                    cudaStream_t);
+extern template int launch_solve<SCHUR_NODOTS>(int, const SolveArgs&,
+                                               cudaStream_t);
+extern template int launch_solve<SCHUR_MMONLY>(int, const SolveArgs&,
+                                               cudaStream_t);
 #endif
 }  // namespace vch
 

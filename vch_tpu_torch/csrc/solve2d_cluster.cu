@@ -31,13 +31,20 @@
 //     of :394 bicgstab_schur_pallas_batched (block_b members per program,
 //     the batch padded): B clusters, one member each, no padding. Config 3
 //     on the raw variant calls it once per Newton solve of its baseline
-//     march.
+//     march;
+// and two TPU kernels of scripts/diag_kernel_cost.py, the cost probes that
+// time that raw Schur solve in parts (the script's "full", :65):
+//   - :131 nodots: its trips with every block dot product the constant 0.5,
+//     no freeze and no best iterate (its products and elementwise passes
+//     without its reductions); here schur_probe_cluster_kernel<false>;
+//   - :176 mmonly: v <- M^-1 S M^-1 S v n_iter times from v = rhs (its 16
+//     products a trip alone); here schur_probe_cluster_kernel<true>.
 //
 // What bounds them on an H100: a chain of dependent dense (n x n)(n x m)
 // products (spectral adjoint 10 + 8 n_iter, raw adjoint 24 + 24 n_iter,
-// Schur 4 + 8 n_iter, raw Schur 16 n_iter; 27 MFLOP for the spectral
-// adjoint at n = 65 and five trips) with a cluster-wide reduction between
-// most of them. One CTA per
+// Schur 4 + 8 n_iter, raw Schur and either probe 16 n_iter; 27 MFLOP for
+// the spectral adjoint at n = 65 and five trips) with a cluster-wide
+// reduction between most of them (none in the probes). One CTA per
 // member (the one-CTA kernels of solve2d.cu, now these kernels' bit
 // oracles) runs a config-3 solve on one SM of 132.
 //
@@ -51,30 +58,33 @@
 // the caller, and one elementwise pass copies them into the workspace
 // first, so that both kernels run one body. The Schur solves run
 // schur_solve.cuh (the raw one its raw operator and preconditioner),
-// reading denom, d and rhs from the caller's fields. The
+// reading denom, d and rhs from the caller's fields; the probes run its raw
+// operator and preconditioner without its reductions. The
 // scalars come by value or from device memory (a 0-d tensor on the card:
 // the sweep's dt/2 and the marcher's 1/dt and tau/dt are), so a call needs
 // no host sync.
 //
 // Compiled once per kernel (ops/_build.py): -DVCH_VARIANT=0 the Schur
-// solve, 1 the raw Schur solve, 2 the spectral adjoint solve, 3 the raw one
-// (solve2d.cu's variant numbers), each object holding its kernel and C
-// entries. Each compiles as its one-CTA oracle does, so that a member's
-// bits are that kernel's, whatever the cluster size or the batch: the two
-// Schur solves and the spectral adjoint solve with -fmad=false (an
+// solve, 1 the raw Schur solve, 2 the spectral adjoint solve, 3 the raw one,
+// 4 the two probes (solve2d.cu's variant numbers; its 4 and 5 are one
+// object too), each object holding its kernels and C entries. Each
+// compiles as its one-CTA oracle does, so that a member's bits are that
+// kernel's, whatever the cluster size or the batch: the two Schur solves,
+// the probes and the spectral adjoint solve with -fmad=false (an
 // expression such as poly y - l v, or the raw operator's (tau/dt + d) y -
 // (kappa/2) l, adds two products, which nvcc may fuse either way), the raw
 // adjoint solve with nvcc's default contraction (none of its expressions
 // adds two products, so both fuse alike; without contraction its float32
 // result on rough inputs lay farther from float64). Full float32 FMA: no
 // tensor cores, no TF32.
+#include <climits>
 #include <type_traits>
 
 #include "adjoint_solve.cuh"
 #include "schur_solve.cuh"
 
 #ifndef VCH_VARIANT
-#error "compile with -DVCH_VARIANT=0 (Schur), 1 (raw Schur), 2 or 3 (adjoint)"
+#error "-DVCH_VARIANT=0 (Schur), 1 (raw Schur), 2, 3 (adjoint), 4 (probes)"
 #endif
 
 namespace vch {
@@ -113,13 +123,15 @@ inline int resident(const void* kernel, LaunchState (&state)[16],
   return max_clusters<1>(kernel, state, n, m, cluster, kc, smem_bytes);
 }
 
+#if VCH_VARIANT != 4
 // Per object: the attributes set so far on its kernel, per device.
 static LaunchState (&launch_state())[16] {
   static LaunchState state[16];
   return state;
 }
+#endif
 
-#if VCH_VARIANT <= 1
+#if VCH_VARIANT <= 1 || VCH_VARIANT == 4
 
 struct SchurArgs {
   const float *Vxi, *VyiT, *Vx, *VyT, *lam;   // (n, n), (m, m), (n, m)
@@ -155,6 +167,27 @@ struct SchurRawArgs : SchurArgs {
   const float *Lx, *LyT;                      // (n, n), (m, m)
 };
 
+// The raw Schur solve's and the probes' arguments
+inline SchurRawArgs raw_args(const float* Lx, const float* LyT,
+                             const float* Vxi, const float* VyiT,
+                             const float* Vx, const float* VyT,
+                             const float* denom, const float* d,
+                             const float* rhs, const float* inv_dt_p,
+                             const float* tau_dt_p, const float* hk_p,
+                             float inv_dt, float tau_dt, float hk, float* out,
+                             float* work, int n, int m, int n_iter,
+                             float floor_fac) {
+  SchurRawArgs a;
+  static_cast<SchurArgs&>(a) = SchurArgs{
+      Vxi, VyiT, Vx, VyT, nullptr, denom, d, rhs, {inv_dt_p, tau_dt_p, hk_p},
+      {inv_dt, tau_dt, hk}, out, work, n, m, n_iter, floor_fac};
+  a.Lx = Lx;
+  a.LyT = LyT;
+  return a;
+}
+#endif
+
+#if VCH_VARIANT == 1
 __global__ void __launch_bounds__(NT, 1)
     schur_raw_cluster_kernel(SchurRawArgs a, BGeom g) {
   extern __shared__ float4 smem4[];
@@ -168,6 +201,42 @@ __global__ void __launch_bounds__(NT, 1)
   s.solve(a.denom + mo, a.d + mo, a.rhs + mo, a.out + mo, v[0], v[1], v[2]);
   s.cluster.sync();   // no CTA leaves while a peer may still write its Ctl
 }
+#elif VCH_VARIANT == 4
+// the workspace's fields of one member of a probe (mmonly uses X and T)
+struct ProbeSlots {
+  enum { X, RR, P, V, S, T, PH, SH, T1, T2, COUNT };
+};
+
+// The cost probes on the raw Schur solve's operators: nodots (MMONLY false)
+// or mmonly, one member per cluster. They reduce nothing, so no CTA reads
+// a peer's shared memory (its Ctl's warp values stay unused) and none
+// waits for its peers before it leaves.
+template <bool MMONLY>
+__global__ void __launch_bounds__(NT, 1)
+    schur_probe_cluster_kernel(SchurRawArgs a, BGeom g) {
+  extern __shared__ float4 smem4[];
+  __shared__ schur::Ctl<1> ctl;
+  schur::Solve<1, SchurRawArgs, ProbeSlots, true> s(
+      a, g, ctl, reinterpret_cast<float*>(smem4), ProbeSlots::COUNT);
+  float v[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = a.scal_p[i] ? *a.scal_p[i] : a.scal[i];
+  const size_t mo = (size_t)s.b0 * s.nm;    // the member's fields
+  if constexpr (MMONLY)
+    s.mmonly(a.denom + mo, a.d + mo, a.rhs + mo, a.out + mo, v[0], v[1],
+             v[2]);
+  else
+    s.nodots(a.denom + mo, a.d + mo, a.rhs + mo, a.out + mo, v[0], v[1],
+             v[2]);
+}
+
+// Per probe: the attributes set so far on its kernel, per device.
+template <bool MMONLY>
+LaunchState (&probe_state())[16] {
+  static LaunchState state[16];
+  return state;
+}
+
 #endif
 
 #else
@@ -343,12 +412,9 @@ extern "C" int vch_bicgstab_schur_raw_cluster(
   if (B <= 0 || n_iter < 0 || !Lx || !LyT || !Vxi || !VyiT || !Vx || !VyT ||
       !denom || !d || !rhs || !out || !work)
     return (int)cudaErrorInvalidValue;
-  vch::step::SchurRawArgs a;
-  static_cast<vch::step::SchurArgs&>(a) = vch::step::SchurArgs{
-      Vxi, VyiT, Vx, VyT, nullptr, denom, d, rhs, {inv_dt_p, tau_dt_p, hk_p},
-      {inv_dt, tau_dt, hk}, out, work, n, m, n_iter, floor_fac};
-  a.Lx = Lx;
-  a.LyT = LyT;
+  const vch::step::SchurRawArgs a = vch::step::raw_args(
+      Lx, LyT, Vxi, VyiT, Vx, VyT, denom, d, rhs, inv_dt_p, tau_dt_p, hk_p,
+      inv_dt, tau_dt, hk, out, work, n, m, n_iter, floor_fac);
   return vch::step::launch(vch::step::schur_raw_cluster_kernel,
                            vch::step::launch_state(), a, B, cluster, kc,
                            smem_bytes, stream);
@@ -397,7 +463,7 @@ extern "C" int vch_bicgstab_adjoint_spectral_cluster(
                            smem_bytes, stream);
 }
 
-#else
+#elif VCH_VARIANT == 3
 
 extern "C" int vch_adjoint_raw_cluster_workspace_fields() {
   return vch::step::RawSlots::COUNT;
@@ -439,6 +505,87 @@ extern "C" int vch_bicgstab_adjoint_raw_cluster(
   return vch::step::launch(vch::step::adjoint_raw_cluster_kernel,
                            vch::step::launch_state(), a, B, cluster, kc,
                            smem_bytes, stream);
+}
+
+#else
+
+extern "C" int vch_schur_probe_cluster_workspace_fields() {
+  return vch::step::ProbeSlots::COUNT;
+}
+
+// The occupancy query of the two probes (vch_solve_cluster_max_clusters'
+// arguments): the clusters of the one that holds fewer (each kernel has its
+// own registers), so that one geometry serves both.
+extern "C" int vch_schur_probe_cluster_max_clusters(int members, int segment,
+                                                    int n, int m,
+                                                    int cluster, int kc,
+                                                    int smem_bytes) {
+  using namespace vch::step;
+  const int each[2] = {
+      resident((const void*)schur_probe_cluster_kernel<false>,
+               probe_state<false>(), members, segment, n, m, cluster, kc,
+               smem_bytes),
+      resident((const void*)schur_probe_cluster_kernel<true>,
+               probe_state<true>(), members, segment, n, m, cluster, kc,
+               smem_bytes)};
+  int fewest = INT_MAX;
+  for (int c : each) {
+    if (c < 0) return c;
+    fewest = c < fewest ? c : fewest;
+  }
+  return fewest;
+}
+
+// One batch of B cost probes on the raw Schur solve's operators, one
+// member per cluster: nodots (n_iter trips) or mmonly (n_iter times two
+// links), with vch_bicgstab_schur_raw_cluster's arguments and geometry;
+// floor_fac is not read (the probes freeze nothing); work holds B *
+// vch_schur_probe_cluster_workspace_fields() (n, m) fields. What
+// vch_bicgstab_2d's variants 4 and 5 (solve2d.cu) compute, bit for bit.
+template <bool MMONLY>
+static int launch_probe(const float* Lx, const float* LyT, const float* Vxi,
+                        const float* VyiT, const float* Vx, const float* VyT,
+                        const float* denom, const float* d, const float* rhs,
+                        const float* inv_dt_p, const float* tau_dt_p,
+                        const float* hk_p, float inv_dt, float tau_dt,
+                        float hk, float* out, float* work, int B, int n,
+                        int m, int n_iter, int cluster, int kc,
+                        int smem_bytes, void* stream) {
+  if (B <= 0 || n_iter < 0 || !Lx || !LyT || !Vxi || !VyiT || !Vx || !VyT ||
+      !denom || !d || !rhs || !out || !work)
+    return (int)cudaErrorInvalidValue;
+  using namespace vch::step;
+  const SchurRawArgs a = raw_args(Lx, LyT, Vxi, VyiT, Vx, VyT, denom, d, rhs,
+                                  inv_dt_p, tau_dt_p, hk_p, inv_dt, tau_dt,
+                                  hk, out, work, n, m, n_iter, 0.f);
+  return launch(schur_probe_cluster_kernel<MMONLY>, probe_state<MMONLY>(), a,
+                B, cluster, kc, smem_bytes, stream);
+}
+
+extern "C" int vch_schur_nodots_cluster(
+    const float* Lx, const float* LyT, const float* Vxi, const float* VyiT,
+    const float* Vx, const float* VyT, const float* denom, const float* d,
+    const float* rhs, const float* inv_dt_p, const float* tau_dt_p,
+    const float* hk_p, float inv_dt, float tau_dt, float hk, float* out,
+    float* work, int B, int n, int m, int n_iter, float /*floor_fac*/,
+    int cluster, int kc, int smem_bytes, void* stream) {
+  return launch_probe<false>(Lx, LyT, Vxi, VyiT, Vx, VyT, denom, d, rhs,
+                             inv_dt_p, tau_dt_p, hk_p, inv_dt, tau_dt, hk,
+                             out, work, B, n, m, n_iter, cluster, kc,
+                             smem_bytes, stream);
+}
+
+extern "C" int vch_schur_mmonly_cluster(
+    const float* Lx, const float* LyT, const float* Vxi, const float* VyiT,
+    const float* Vx, const float* VyT, const float* denom, const float* d,
+    const float* rhs, const float* inv_dt_p, const float* tau_dt_p,
+    const float* hk_p, float inv_dt, float tau_dt, float hk, float* out,
+    float* work, int B, int n, int m, int n_iter, float /*floor_fac*/,
+    int cluster, int kc, int smem_bytes, void* stream) {
+  return launch_probe<true>(Lx, LyT, Vxi, VyiT, Vx, VyT, denom, d, rhs,
+                            inv_dt_p, tau_dt_p, hk_p, inv_dt, tau_dt, hk,
+                            out, work, B, n, m, n_iter, cluster, kc,
+                            smem_bytes, stream);
 }
 
 #endif  // VCH_VARIANT

@@ -8,21 +8,23 @@ member-blocked march), `1` (the whole one-member march) and `1` with
 `-DVCH_SEG=1` (the segment march), and the cluster sweep with `-DVCH_BB=8`,
 `4`, `2` (the member-blocked sweep), `1` (the whole one-member sweep) and
 `1` with `-DVCH_SEG=1` (the segment sweep), one kernel per object; the
-one-CTA per-solve kernels four times, the spectral and the raw Schur solve
+one-CTA per-solve kernels five times, the spectral and the raw Schur solve
 and the spectral adjoint solve (`-DVCH_VARIANT=0`, `1`, `2`: three cluster
-solves' bit oracles) each apart from the three others (the raw adjoint
-solve and the two cost probes); the cluster solves four times
+solves' bit oracles) each apart, the two cost probes (`-DVCH_VARIANT=4`:
+the cluster probes' oracles) together, and the raw adjoint solve (the
+object without a variant); the cluster solves five times
 (`-DVCH_VARIANT=0`, `1`, `2`, `3`: the spectral and the raw Schur solve,
-the spectral and the raw adjoint step solve); the one-CTA 2D march and
+the spectral and the raw adjoint step solve; `4`: the two cost probes on
+the raw Schur solve's operators); the one-CTA 2D march and
 sweep (the bit oracles of the cluster march and sweep), the operator
 applies, the fused 1D march, the cost probes of probes.cu (one CTA per
 block of members; its chains and its microbench are the bit oracles of
 the chain probes and of the cluster microbench) and the chain probes of
 chain_cluster.cu and the cluster microbench of micro_cluster.cu, each of
 the last three holding its own members-per-block templates, once each.
-The 1D march, both sweeps, both
-Schur and the spectral adjoint cluster solves and their oracles compile
-with `-fmad=false`: their only FMAs are the explicit ones of their
+27 objects in all. The 1D march, both sweeps, both Schur and the
+spectral adjoint cluster solves, the cluster probes and their oracles
+compile with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
 unrolls rounds differently from another, and each cluster kernel rounds
 as its one-CTA oracle does (the raw Schur operator's (tau/dt + d) v -
@@ -66,10 +68,10 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
                                          for bb in (8, 4, 2, 1))
            + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),),
            "solve2d.cu": ((),) + tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
-                                       for v in (0, 1, 2)),
+                                       for v in (0, 1, 2, 4)),
            "solve2d_cluster.cu": tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
                                        for v in (0, 1, 2))
-           + (("-DVCH_VARIANT=3",),),
+           + (("-DVCH_VARIANT=3",), ("-DVCH_VARIANT=4", "-fmad=false")),
            "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),),
            "chain_cluster.cu": ((),),
@@ -249,7 +251,13 @@ def load():
     lib.vch_bicgstab_schur_raw_cluster.argtypes = (
         [_P] * 12 + [ctypes.c_float] * 3 + [_P] * 2 + [_I] * 4
         + [ctypes.c_float] + [_I] * 3 + [_P])
-    for name in ("solve", "adjoint_raw", "schur", "schur_raw"):
+    # the probes: the raw Schur solve's arguments (floor_fac unread)
+    lib.vch_schur_nodots_cluster.argtypes = \
+        lib.vch_bicgstab_schur_raw_cluster.argtypes
+    lib.vch_schur_mmonly_cluster.argtypes = \
+        lib.vch_bicgstab_schur_raw_cluster.argtypes
+    for name in ("solve", "adjoint_raw", "schur", "schur_raw",
+                 "schur_probe"):
         # members segment n m cluster kc smem_bytes
         query = getattr(lib, f"vch_{name}_cluster_max_clusters")
         query.argtypes = [_I] * 7
@@ -304,7 +312,9 @@ def load():
                lib.vch_bicgstab_2d, lib.vch_bicgstab_adjoint_spectral_cluster,
                lib.vch_bicgstab_adjoint_raw_cluster,
                lib.vch_bicgstab_schur_spectral_cluster,
-               lib.vch_bicgstab_schur_raw_cluster, lib.vch_apply_2d,
+               lib.vch_bicgstab_schur_raw_cluster,
+               lib.vch_schur_nodots_cluster, lib.vch_schur_mmonly_cluster,
+               lib.vch_apply_2d,
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_matmul_chain_cluster, lib.vch_matmul_chain_mma,
                lib.vch_blocked_microbench,

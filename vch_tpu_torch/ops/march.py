@@ -481,7 +481,8 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
 # count, so its own residency: the march (csrc/march2d_blocked.cu), the
 # sweep (csrc/adjoint2d_cluster.cu) and the four per-solve kernels of
 # csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
-# spectral and the raw Schur solve), the float32 chain probe of
+# spectral and the raw Schur solve, and the raw Schur solve's two cost
+# probes, which share one geometry), the float32 chain probe of
 # csrc/chain_cluster.cu and the microbench probe of csrc/micro_cluster.cu;
 # their names by members per cluster, and their occupancy queries
 CLUSTER_KERNELS = {
@@ -495,6 +496,8 @@ CLUSTER_KERNELS = {
                     "vch_schur_cluster_max_clusters"),
     "raw_schur_solve": ({1: "the raw Schur solve"},
                         "vch_schur_raw_cluster_max_clusters"),
+    "schur_probe": ({1: "the raw Schur solve's cost probes"},
+                    "vch_schur_probe_cluster_max_clusters"),
     "chain": ({k: f"the float32 chain of {k} member{'s' * (k > 1)} per "
                   f"cluster" for k in (8, 4, 2, 1)},
               "vch_chain_cluster_max_clusters"),
@@ -521,7 +524,8 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
     `march_fused_2d_blocked` and `adjoint_fused_2d_blocked`, 1 for
     `march_fused_2d`, `march_fused_2d_segment`, `adjoint_fused_2d`,
-    `adjoint_fused_2d_segment` and the four cluster solves, 8, 4, 2 or 1
+    `adjoint_fused_2d_segment`, the four cluster solves and the two cost
+    probes of the raw Schur solve, 8, 4, 2 or 1
     for the float32 chain probe (`ops.probe_kernels.matmul_chain`) and the
     microbench probe (`ops.probe_kernels.blocked_microbench`, B = members:
     one cluster) (`blocked_cluster_size`; `cluster` overrides it). Raises
@@ -1447,7 +1451,7 @@ PLAIN = Entries(march_fused_2d_plain, march_fused_2d_blocked_plain,
                 sk.bicgstab_adjoint_plain, march_fused_1d_plain)
 # every kernel wrapper of the port: the solvers' entries, the one-CTA
 # oracles, and the three operator applies and the six cost probes, which no
-# solver calls
+# solver calls, with their oracles
 WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              _adjoint_fused_2d_cta,
                              _adjoint_fused_2d_segment_cta,
@@ -1456,8 +1460,9 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              sk._bicgstab_adjoint_spectral_cta,
                              sk._bicgstab_adjoint_cta, sk.schur_apply,
                              sk.adjoint_apply, sk.spectral_solve,
-                             sk.schur_nodots,
-                             sk.schur_mmonly, pk.matmul_chain,
+                             sk.schur_nodots, sk.schur_mmonly,
+                             sk._schur_nodots_cta, sk._schur_mmonly_cta,
+                             pk.matmul_chain,
                              pk._matmul_chain_cta, pk.matmul_chain_bf16,
                              pk._matmul_chain_bf16_cta, pk.blocked_microbench,
                              pk._blocked_microbench_cta, pk.while_probe)

@@ -24,7 +24,7 @@ vch_tpu/ops/pallas_kernels.py).
 member-tiled `bicgstab_schur_pallas_batched` (:394): B thread-block
 clusters, one member each, take the place of its block_b members per
 program and its padding.
-Two cost probes of the one-CTA raw Schur solve (`_bicgstab_schur_cta`;
+Two cost probes of the raw Schur solve (`bicgstab_schur`;
 scripts/diag_kernel_cost.py:131, :176) split its time between products and
 block reductions:
   schur_nodots              its trips with every dot product the constant
@@ -35,20 +35,20 @@ block reductions:
 Each takes its per-member fields as (n, m) or with a leading batch axis
 (B, n, m) (what vmap of the Pallas kernel takes) and the operators shared.
 Each wrapper routes by the tensors' device: on CUDA tensors it launches the
-hand-written kernel of `csrc/solve2d_cluster.cu`, `csrc/solve2d.cu` or
-`csrc/apply2d.cu` (float32; one member per thread-block cluster for the
-four solves, `solve_geometry`, and for the three operator applies,
-`apply_geometry`; one CTA per member for the two probes; a failed build or
-launch raises, with no fallback), on CPU tensors it runs
-its plain PyTorch version `<name>_plain` of this module, which computes
-what the Pallas kernel body computes (fixed trip count, noise-floor freeze,
-non-finite rejection, best iterate; eps_div 1e-30 in both dtypes, as the
-kernels) in float32 or float64 without host syncs. Each wrapper counts its
-launches in `.launches`. `_bicgstab_schur_spectral_cta`,
-`_bicgstab_schur_cta`, `_bicgstab_adjoint_spectral_cta` and
-`_bicgstab_adjoint_cta` keep the one-CTA solves of `csrc/solve2d.cu` as the
-cluster kernels' bit oracles, which only the card tests, chip_smoke.py and
-the cost probe (`_bicgstab_schur_cta`, beside its two probes) call.
+hand-written kernel of `csrc/solve2d_cluster.cu` or `csrc/apply2d.cu`
+(float32; one member per thread-block cluster for the four solves and the
+two probes, `solve_geometry`, and for the three operator applies,
+`apply_geometry`; a failed build, fit or launch raises, with no fallback),
+on CPU tensors it runs its plain PyTorch version `<name>_plain` of this
+module, which computes what the Pallas kernel body computes (fixed trip
+count, noise-floor freeze, non-finite rejection, best iterate; eps_div
+1e-30 in both dtypes, as the kernels) in float32 or float64 without host
+syncs. Each wrapper counts its launches in `.launches`.
+`_bicgstab_schur_spectral_cta`, `_bicgstab_schur_cta`,
+`_bicgstab_adjoint_spectral_cta`, `_bicgstab_adjoint_cta`,
+`_schur_nodots_cta` and `_schur_mmonly_cta` keep the one-CTA kernels of
+`csrc/solve2d.cu` as the cluster kernels' bit oracles, which only the card
+tests and chip_smoke.py call.
 """
 from __future__ import annotations
 
@@ -200,11 +200,11 @@ def bicgstab_adjoint_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                    rhs, x0, tau, half_dt), n_iter)[0]
 
 
-def _check(mats, fields):
-    """Check one batch of solves' tensors: `mats` the seven operator slots
-    (Lx, LyT, Vxi, VyiT, Vx, VyT, lam; None where the variant takes none),
-    `fields` the four per-member slots (f1, f2, rhs, x0; x0 None for the
-    Schur solves), each (n, m) or (B, n, m). Returns (n, m, B)."""
+def _named_shapes(mats, fields):
+    """Each tensor of one batch of solves with its name and expected shape:
+    `mats` the seven operator slots (Lx, LyT, Vxi, VyiT, Vx, VyT, lam; None
+    where the variant takes none), `fields` the four per-member slots (f1,
+    f2, rhs, x0; x0 None for the Schur solves), each (n, m) or (B, n, m)."""
     rhs = fields[2]
     if rhs.dim() not in (2, 3) or rhs.numel() == 0:
         raise ValueError(f"rhs must be (n, m) or (B, n, m), got "
@@ -213,10 +213,18 @@ def _check(mats, fields):
     shapes = ((n, n), (m, m), (n, n), (m, m), (n, n), (m, m), (n, m))
     names = ("Lx", "LyT", "Vx_inv", "Vy_inv_T", "Vx", "VyT", "lam")
     fnames = ("f1", "f2", "rhs", "x0")
-    _build.check_cuda(
-        [(nm, t, s) for nm, t, s in zip(names, mats, shapes) if t is not None]
-        + [(nm, t, tuple(rhs.shape)) for nm, t in zip(fnames, fields)
-           if t is not None], rhs.device)
+    return ([(nm, t, s) for nm, t, s in zip(names, mats, shapes)
+             if t is not None]
+            + [(nm, t, tuple(rhs.shape)) for nm, t in zip(fnames, fields)
+               if t is not None])
+
+
+def _check(mats, fields):
+    """Check one batch of solves' tensors for a launch (`_named_shapes`'
+    arguments). Returns (n, m, B)."""
+    rhs = fields[2]
+    _build.check_cuda(_named_shapes(mats, fields), rhs.device)
+    n, m = rhs.shape[-2:]
     return n, m, rhs.shape[0] if rhs.dim() == 3 else 1
 
 
@@ -292,18 +300,24 @@ _bicgstab_schur_spectral_cta.launches = 0
 
 @lru_cache(maxsize=64)
 def solve_geometry(n: int, m: int, B: int, device_index: int,
-                   kernel: str = "solve"):
+                   kernel: str = "solve", cluster: int | None = None):
     """The cluster geometry of a cluster solve for B members of an (n, m)
     grid on CUDA device `device_index` (`kernel`: "solve" for
     `bicgstab_adjoint_spectral`, "raw_solve" for `bicgstab_adjoint`,
     "schur_solve" for `bicgstab_schur_spectral`, "raw_schur_solve" for
-    `bicgstab_schur`): one member per
+    `bicgstab_schur`, "schur_probe" for `schur_nodots` and
+    `schur_mmonly`): one member per
     thread-block cluster, `ops.march.launch_geometry` fitted to that
     kernel's own residency (at n = 65 up to 16 CTAs for one member, one at
-    a batch above the SMs). Cached: the per-step sweep and marcher call a
-    solve once per step or Newton round, and its wrapper must cost less host
-    time than the kernel."""
+    a batch above the SMs), or with `cluster` CTAs
+    (`ops.march.blocked_geometry`'s override, for measurement). Cached: the
+    per-step sweep and marcher call a solve once per step or Newton round,
+    and its wrapper must cost less host time than the kernel. A member
+    whose ring does not fit raises ValueError with its bytes."""
     from vch_tpu_torch.ops import march   # ops.march imports this module
+    if cluster is not None:   # the SM count sizes no cluster here
+        return march.blocked_geometry(n, m, B, 1, cluster=cluster, members=1,
+                                      kernel=kernel)
     return march.launch_geometry(n, m, B, torch.device("cuda", device_index),
                                  members=1, kernel=kernel)
 
@@ -332,19 +346,25 @@ _CLUSTER_SOLVES = {
                                   "vch_bicgstab_adjoint_spectral_cluster",
                                   "vch_solve_cluster_workspace_fields"),
     "bicgstab_adjoint": ("raw_solve", "vch_bicgstab_adjoint_raw_cluster",
-                         "vch_adjoint_raw_cluster_workspace_fields")}
+                         "vch_adjoint_raw_cluster_workspace_fields"),
+    "schur_nodots": ("schur_probe", "vch_schur_nodots_cluster",
+                     "vch_schur_probe_cluster_workspace_fields"),
+    "schur_mmonly": ("schur_probe", "vch_schur_mmonly_cluster",
+                     "vch_schur_probe_cluster_workspace_fields")}
 
 
-def _launch_cluster(wrapper, mats, fields, scalars, n_iter):
+def _launch_cluster(wrapper, mats, fields, scalars, n_iter, cluster=None):
     """Check and launch one batch of solves on the cluster kernel of
     `wrapper` (`_check`'s arguments; the scalars as `_device_scalar` passes
-    them: no host sync, no stack of fresh copies)."""
+    them: no host sync, no stack of fresh copies; `cluster`: that many CTAs
+    a member, as `solve_geometry`'s override)."""
     name = wrapper.__name__
     kernel, entry, nfields = _CLUSTER_SOLVES[name]
     n, m, B = _check(mats, fields)
     rhs = fields[2]
     dev = rhs.device
-    geo = solve_geometry(n, m, B, dev.index, kernel)
+    geo = (solve_geometry(n, m, B, dev.index, kernel) if cluster is None
+           else solve_geometry(n, m, B, dev.index, kernel, cluster))
     lib = _build.load()
     scal = [_device_scalar(x, dev) for x in scalars]
     out = torch.empty_like(rhs)
@@ -483,8 +503,7 @@ _bicgstab_adjoint_cta.launches = 0
 
 
 # --------------------------------------------------------------------------
-# the cost probes of the one-CTA raw Schur solve
-# (scripts/diag_kernel_cost.py)
+# the cost probes of the raw Schur solve (scripts/diag_kernel_cost.py)
 
 def schur_nodots_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
                        inv_dt, tau_dt, half_kappa, n_iter: int):
@@ -524,42 +543,80 @@ def schur_mmonly_plain(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs,
     return v
 
 
+def _probe(wrapper, plain, args, n_iter, cluster=None, oracle=None):
+    """One probe call (`wrapper`: `schur_nodots` or `schur_mmonly`, or with
+    `oracle`, the variant of vch_bicgstab_2d, their one-CTA oracle) on the
+    raw Schur solve's arguments: the shapes checked on either route, then
+    the plain version `plain` on CPU tensors, else the kernel."""
+    mats, fields = args[:6] + (None,), args[6:9] + (None,)
+    for name, t, shape in _named_shapes(mats, fields):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    if n_iter < 0:
+        raise ValueError(f"n_iter must be >= 0, got {n_iter}")
+    if not _build.on_cuda(wrapper.__name__, args[8]):
+        return plain(*args, n_iter=n_iter)
+    if oracle is not None:
+        return _launch(wrapper, oracle, args[9:], mats, fields, n_iter)
+    return _launch_cluster(wrapper, mats, fields, args[9:], n_iter, cluster)
+
+
 def schur_nodots(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
-                 tau_dt, half_kappa, n_iter: int):
+                 tau_dt, half_kappa, n_iter: int, cluster: int | None = None):
     """The probe `nodots` (scripts/diag_kernel_cost.py:131): the trips of
-    the one-CTA raw Schur solve `_bicgstab_schur_cta` on the same arguments
-    with every block dot product replaced by the constant 0.5, no
-    noise-floor freeze and no best iterate; returns the last iterate. Its
-    time is that of the solve's products and elementwise passes without
-    its reductions; its result is no solve."""
+    the raw Schur solve `bicgstab_schur` on the same arguments with every
+    block dot product replaced by the constant 0.5, no noise-floor freeze
+    and no best iterate; returns the last iterate. Its time is that of the
+    solve's products and elementwise passes without its reductions; its
+    result is no solve. On CUDA tensors each member runs on a thread-block
+    cluster (`solve_geometry` of kernel "schur_probe"; `cluster`: that many
+    CTAs), bit for bit what the one-CTA kernel `_schur_nodots_cta`
+    computes."""
     args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
             half_kappa)
-    if not _build.on_cuda("schur_nodots", rhs):
-        return schur_nodots_plain(*args, n_iter=n_iter)
-    return _launch(schur_nodots, _SCHUR_NODOTS, (inv_dt, tau_dt, half_kappa),
-                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
-                   (denom, d, rhs, None), n_iter)
+    return _probe(schur_nodots, schur_nodots_plain, args, n_iter, cluster)
 
 
 schur_nodots.launches = 0
 
 
+def _schur_nodots_cta(*args, n_iter: int):
+    """The one-CTA nodots probe of csrc/solve2d.cu (variant 4, one member
+    per CTA): the bit oracle of `schur_nodots`, which the card tests and
+    chip_smoke.py hold the cluster kernel against; no entry point calls it.
+    Arguments and result as `schur_nodots`."""
+    return _probe(_schur_nodots_cta, schur_nodots_plain, args, n_iter,
+                  oracle=_SCHUR_NODOTS)
+
+
+_schur_nodots_cta.launches = 0
+
+
 def schur_mmonly(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
-                 tau_dt, half_kappa, n_iter: int):
+                 tau_dt, half_kappa, n_iter: int, cluster: int | None = None):
     """The probe `mmonly` (scripts/diag_kernel_cost.py:176): v <- M(S(M(S(
     v)))) n_iter times from v = rhs, S the raw Schur operator and M the
-    spectral preconditioner of `_bicgstab_schur_cta` on the same arguments:
-    the 16 products of each of its trips with nothing between them."""
+    spectral preconditioner of `bicgstab_schur` on the same arguments: the
+    16 products of each of its trips with nothing between them. On CUDA
+    tensors as `schur_nodots`, bit for bit `_schur_mmonly_cta`."""
     args = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt, tau_dt,
             half_kappa)
-    if not _build.on_cuda("schur_mmonly", rhs):
-        return schur_mmonly_plain(*args, n_iter=n_iter)
-    return _launch(schur_mmonly, _SCHUR_MMONLY, (inv_dt, tau_dt, half_kappa),
-                   (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, None),
-                   (denom, d, rhs, None), n_iter)
+    return _probe(schur_mmonly, schur_mmonly_plain, args, n_iter, cluster)
 
 
 schur_mmonly.launches = 0
+
+
+def _schur_mmonly_cta(*args, n_iter: int):
+    """The one-CTA mmonly probe of csrc/solve2d.cu (variant 5): the bit
+    oracle of `schur_mmonly`, as `_schur_nodots_cta` is of `schur_nodots`.
+    Arguments and result as `schur_mmonly`."""
+    return _probe(_schur_mmonly_cta, schur_mmonly_plain, args, n_iter,
+                  oracle=_SCHUR_MMONLY)
+
+
+_schur_mmonly_cta.launches = 0
 
 
 # --------------------------------------------------------------------------

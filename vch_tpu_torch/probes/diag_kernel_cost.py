@@ -4,20 +4,18 @@
     python -m vch_tpu_torch.probes.diag_kernel_cost [--n 64] [--b 32]
         [--iters 10] [--reps 20]
 
-Three launches on one batch of B members of an (n+1) x (n+1) grid, each of
-one kernel design, one CTA per member (csrc/solve2d.cu):
-  full     the one-CTA raw Schur solve `ops.solve_kernels._bicgstab_schur_cta`
-           (n_iter fixed trips);
+Three launches on one batch of B members of an (n+1) x (n+1) grid, each
+one member per thread-block cluster on the cluster engine
+(csrc/solve2d_cluster.cu, on csrc/schur_solve.cuh's raw Schur solve):
+  full     the raw Schur solve `ops.solve_kernels.bicgstab_schur`, the
+           production kernel the solvers run (n_iter fixed trips);
   nodots   its trips with every block dot product the constant 0.5
            (`schur_nodots`): the products and elementwise passes alone;
   mmonly   the chain v <- M(S(M(S(v)))) iters times (`schur_mmonly`): the
            products alone.
-`full` is the one-CTA kernel, not the solvers' `bicgstab_schur` (one member
-per thread-block cluster): reduction_share divides the times of nodots and
-full, which must be the trips of one design. That kernel is built with
--fmad=false (as its cluster kernel, whose bit oracle it is), the two probes
-with nvcc's default contraction: their elementwise passes may fuse a
-multiply-add that full rounds twice.
+As in the script, `full` is the production kernel, and the three are one
+design built with one set of flags (-fmad=false), so reduction_share
+splits the time of the kernel the solvers run.
 The inputs are the script's, made with numpy from seed 0 in its order: one
 random operator scaled by 0.01 in all six operator slots, the preconditioner
 symbol den = 1 + |N(0,1)| shared by the members, d = 1 + |N(0,1)| and the
@@ -41,8 +39,8 @@ from vch_tpu_torch.ops import solve_kernels as sk
 from vch_tpu_torch.probes._timing import cuda_device, time_ms
 
 SCALARS = (100.0, 5.0, 4.5e-4)          # inv_dt, tau_dt, kappa/2
-# the three probes, all of the one-CTA design (see above)
-PROBES = {"full": sk._bicgstab_schur_cta, "nodots": sk.schur_nodots,
+# the three probes, all of the cluster design (see above)
+PROBES = {"full": sk.bicgstab_schur, "nodots": sk.schur_nodots,
           "mmonly": sk.schur_mmonly}
 
 
