@@ -17,7 +17,8 @@ import torch
 from vch_tpu.config import ForwardSolverConfig1D as JaxConfig1D
 from vch_tpu.control.problems import ControlProblem1D as JaxProblem1D
 
-from vch_tpu_torch.config import ForwardSolverConfig1D, OptimizationConfig
+from vch_tpu_torch.config import (ForwardSolverConfig1D, OptimizationConfig,
+                                  PGDSettings)
 from vch_tpu_torch.control.problems import ControlProblem1D
 from vch_tpu_torch.ops import march as km
 from vch_tpu_torch.utils.convert import control_arrays_from_vch_tpu
@@ -107,8 +108,11 @@ def test_control_1d_choices_and_initial_phi():
 
 
 def test_control_1d_exact_mode_and_default_device():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A5"):
-        ControlProblem1D(gradient_mode="exact", device="cpu")
+    cfg = ForwardSolverConfig1D(N=32, T=0.03)
+    prob = ControlProblem1D(cfg, gradient_mode="exact", device="cpu")
+    assert prob.loop.s == PGDSettings.defaults_exact()
+    assert prob.loop.adjoint == prob._adjoint_exact
+    assert prob.phi_hist0.shape == (prob.solver.M + 1, 33)   # core layout
     with pytest.raises(ValueError, match="gradient_mode"):
         ControlProblem1D(gradient_mode="other", device="cpu")
     if not torch.cuda.is_available():

@@ -264,9 +264,13 @@ def test_float32_control_problem_matches_vch_tpu(variant):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
+    prob = ControlProblem2D(ForwardSolverConfig2D(Nx=12, Ny=12, T=0.02),
+                            gradient_mode="exact", device="cpu")
+    assert prob.loop.adjoint == prob._adjoint_exact
+    assert prob.loop.s.ls_beta == 0.5
+    with pytest.raises(ValueError, match="gradient_mode"):
         ControlProblem2D(ForwardSolverConfig2D(Nx=12, Ny=12, T=0.02),
-                         gradient_mode="exact", device="cpu")
+                         gradient_mode="other", device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         ProximalGradientLoop(None, None, None, OptimizationConfig(),
                              search_mode="fused")

@@ -25,7 +25,8 @@ from float64 than twice the plain float32 version plus 1e-5, every
 interleave width bit-equal, the cluster chain and the cluster microbench
 bit-equal to their one-CTA oracles at every cluster size; the bf16 chain against its bf16-emulated
 plain version at BF16_CHAIN_TOL and bit-equal to the wmma chain; the while
-probe with its script's gates.
+probe with its script's gates, bit-equal to its one-CTA oracle (phi and trip
+counts, NaN input too) and within 1e-6 relative of its plain version.
 """
 import numpy as np
 import pytest
@@ -1481,5 +1482,69 @@ def test_while_probe_matches_plain_and_reference(cuda):
     res = probe_while.run(B=3, M=3, n=65, reps=1, device=cuda)
     assert pk.while_probe.launches > before
     assert res["ns"] == res["ns_expected"] and res["ns"][0] > 3
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="registers: n\\^2 = 10404 exceeds"):
         pk.while_probe(torch.zeros((1, 102, 102), device=cuda), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3])
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("n", [9, 17, 65, 101])
+def test_while_fused_is_bit_for_bit_its_one_cta_oracle(cuda, n, B, M):
+    """Row 19 (csrc/while_fused.cu, phi in registers, one reduction a trip)
+    against the one-CTA kernel of probes.cu, phi and ns bit for bit, with a
+    NaN-seeded member at B = 3 (NaN at the same places, ns = 50 M); the
+    finite members against the plain version (phi within 1e-6 relative, ns
+    equal) and the float64 reference (the script's 1e-4); one launch each."""
+    from vch_tpu_torch.ops import probe_kernels as pk
+    from vch_tpu_torch.probes import probe_while
+    x = probe_while.inputs(B, n, cuda)
+    if B == 3:
+        x[2, n // 2, n // 3] = float("nan")
+    before = (pk.while_probe.launches, pk._while_probe_cta.launches)
+    out, ns = pk.while_probe(x, M)
+    ref, ns_ref = pk._while_probe_cta(x, M)
+    torch.cuda.synchronize()
+    assert (pk.while_probe.launches, pk._while_probe_cta.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(ns, ns_ref)
+    fin = min(B, 2)
+    if B == 3:
+        assert int(ns[2]) == 50 * M
+        assert torch.equal(torch.isnan(out[2]), torch.isnan(x[2]))
+    plain, ns_plain = pk.while_probe_plain(x[:fin], M)
+    assert torch.equal(ns[:fin], ns_plain)
+    assert ((out[:fin] - plain).abs().max()
+            <= 1e-6 * plain.abs().max()), n
+    ref64, ns64 = probe_while.reference(x[:fin].cpu().numpy(), M)
+    assert np.array_equal(ns[:fin].cpu().numpy(), ns64)
+    assert np.abs(out[:fin].cpu().numpy() - ref64).max() < probe_while.TOL
+
+
+@pytest.mark.cuda
+def test_while_fused_refuses_a_failed_launch(cuda, monkeypatch):
+    """A launch the C entry refuses raises, counted, with no fallback to the
+    plain version or to the oracle; a float64 field is refused before any
+    launch."""
+    from vch_tpu_torch.ops import _build
+    from vch_tpu_torch.ops import probe_kernels as pk
+    lib = _build.load()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def vch_while_fused(*args):
+            return 1                      # cudaErrorInvalidValue
+
+    x = torch.ones((1, 9, 9), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        pk.while_probe(x.double(), 1)
+    monkeypatch.setattr(_build, "load", lambda: Refusing())
+    before = (pk.while_probe.launches, pk._while_probe_cta.launches)
+    with pytest.raises(RuntimeError, match="while_probe launch failed"):
+        pk.while_probe(x, 1)
+    assert (pk.while_probe.launches, pk._while_probe_cta.launches) == (
+        before[0] + 1, before[1])

@@ -214,3 +214,10 @@ class PGDSettings:
         return cls(ls_max_trials=10, ls_alpha_factor=0.8, plateau_length=5,
                    plateau_tolerance=1e-5, plateau_boost=1.5,
                    conv_min_iter=20)
+
+    @classmethod
+    def defaults_exact(cls) -> "PGDSettings":
+        """The exact-gradient mode's (vch_tpu/control/pgd.py:70-73): its
+        gradient has the true, much larger magnitude, so it backtracks
+        deeper and never keeps an ascent step."""
+        return cls(ls_max_trials=15, ls_beta=0.5, keep_failed_step=False)

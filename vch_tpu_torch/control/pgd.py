@@ -58,9 +58,12 @@ class ProximalGradientLoop:
     """Dimension-agnostic PGD engine over callables on tensors:
 
     forward:  u -> phi_hist
-    adjoint:  phi_hist -> r
+    adjoint:  (phi_hist, u) -> r (the reference mode's ignores u)
     cost:     (phi_hist, u) -> 0-d tensor
     error_norms: optional phi_hist -> (rel_tracking, rel_terminal)
+
+    search_mode "fused" (vch_tpu's whole iteration as one jitted program)
+    is not ported.
     """
 
     def __init__(self, forward: Callable, adjoint: Callable, cost: Callable,
@@ -92,10 +95,11 @@ class ProximalGradientLoop:
 
     def _iteration_host(self, u_k, phi_k, cost_k, alpha_prev, timers: dict):
         """One iteration: the adjoint and the gradient, then the optimistic
-        and backtracking trials (vch_tpu/control/pgd.py:197-238)."""
+        and backtracking trials (vch_tpu/control/pgd.py:197-238; the
+        adjoint's call :171-177)."""
         s = self.s
         t0 = time.perf_counter()
-        r_k = self.adjoint(phi_k)
+        r_k = self.adjoint(phi_k, u_k)
         grad = calculate_gradient(r_k, u_k, self.opt.b3)
         _sync(grad)
         timers["backward_total"] += time.perf_counter() - t0

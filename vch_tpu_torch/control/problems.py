@@ -3,7 +3,13 @@ reference programs GD2_configured.py (2D) and GD_1D.py (1D) as objects, each
 with the uncontrolled baseline trajectory, the targets, and the forward,
 adjoint and cost callables handed to ProximalGradientLoop. The 1D problem
 works in the reference's history layout (a duplicated t = 0 row), so its
-cost trajectory compares directly with a reference run.
+cost trajectory compares directly with a reference run; its exact-gradient
+mode works in the core layout.
+
+gradient_mode "reference" takes the reference's approximate adjoint r;
+"exact" the exact gradient of the discrete smooth cost
+(models/adjoint_exact1d.py, adjoint_exact2d.py) under
+`PGDSettings.defaults_exact`, which never keeps an ascent step.
 """
 from __future__ import annotations
 
@@ -23,18 +29,16 @@ from vch_tpu_torch.control.targets import build_targets_1d, build_targets_2d
 from vch_tpu_torch.device import resolve_device
 from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+from vch_tpu_torch.models.adjoint_exact1d import ExactAdjoint1D
+from vch_tpu_torch.models.adjoint_exact2d import ExactAdjoint2D
 from vch_tpu_torch.models.forward1d import ForwardSolver1D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 
 
 def _check_gradient_mode(gradient_mode: str):
-    if gradient_mode == "exact":
-        raise NotImplementedError(
-            "gradient_mode='exact' (implicit differentiation through the "
-            "march) is not ported; ROADMAP queue A5")
-    if gradient_mode != "reference":
-        raise ValueError(f"gradient_mode must be 'reference', got "
-                         f"{gradient_mode!r}")
+    if gradient_mode not in ("reference", "exact"):
+        raise ValueError(f"gradient_mode must be 'reference' or 'exact', "
+                         f"got {gradient_mode!r}")
 
 
 class ControlProblem2D:
@@ -45,10 +49,13 @@ class ControlProblem2D:
     line-search trial's forward solve runs, as vch_tpu routes it on the TPU
     (problems.py:74-82), as the whole-march kernel at B = 1 on a CUDA device
     when the float32 fixed-trip path fits its rule, else the per-step
-    marcher; the gradient is the per-step adjoint sweep's r.
-    `newton_solves` counts the forward Newton linear solves of every march
-    the problem ran. gradient_mode "exact" (implicit differentiation,
-    models/adjoint_exact2d.py) is not ported.
+    marcher; the gradient is the per-step adjoint sweep's r, or with
+    gradient_mode "exact" the exact gradient (models/adjoint_exact2d.py,
+    plain PyTorch as in vch_tpu: its own march and reverse sweep, no
+    kernel) under `PGDSettings.defaults_exact`; 2D has no layout quirk, so
+    both modes share one frame. `newton_solves` counts the forward Newton
+    linear solves of every march the problem ran, the exact gradient's own
+    march not included.
     """
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
@@ -88,9 +95,14 @@ class ControlProblem2D:
         self._x, self._y, self._t = as_t(x), as_t(y), as_t(t_hist)
         self._fused = (device.type == "cuda"
                        and self.solver.fused_march_available())
+        exact = gradient_mode == "exact"
+        if exact:
+            self._exact = ExactAdjoint2D(self.fwd_config, device=device)
         self.loop = ProximalGradientLoop(
-            self._forward, self._adjoint_r, self._cost, self.opt_config,
-            settings=PGDSettings.defaults_2d(),
+            self._forward, self._adjoint_exact if exact else self._adjoint_r,
+            self._cost, self.opt_config,
+            settings=(PGDSettings.defaults_exact() if exact
+                      else PGDSettings.defaults_2d()),
             error_norms=self.error_norms)
 
     def _forward_batch(self, u):
@@ -110,11 +122,21 @@ class ControlProblem2D:
     def _forward(self, u):
         return self._forward_batch(u[None])[0]
 
-    def _adjoint_r(self, phi_hist):
+    def _adjoint_r(self, phi_hist, u):
+        """The adjoint's r (the loop's calling convention passes u, which
+        the reference gradient does not read)."""
         opt = self.opt_config
         _, _, r = self.adjoint._run_impl(phi_hist, self._dts, opt.b1, opt.b2,
                                          self.phi_Q_target, self.phi_T_target)
         return r
+
+    def _adjoint_exact(self, phi_hist, u):
+        """The exact gradient density less b3 u, which the loop adds back
+        (vch_tpu/control/problems.py:88-93)."""
+        opt = self.opt_config
+        g, _ = self._exact._grad(u, self._phi0_dev, opt.b1, opt.b2, opt.b3,
+                                 self.phi_Q_target, self.phi_T_target)
+        return g - opt.b3 * u
 
     def _cost(self, phi_hist, u):
         opt = self.opt_config
@@ -181,9 +203,15 @@ class ControlProblem1D:
 
     Every forward solve is the per-step marcher of one member and the
     gradient the per-step adjoint sweep's r: as in vch_tpu this problem runs
-    no kernel. `newton_solves` counts the forward Newton linear solves of
-    every march the problem ran. gradient_mode "exact" (implicit
-    differentiation, models/adjoint_exact1d.py) is not ported.
+    no kernel. gradient_mode "exact" takes the exact gradient
+    (models/adjoint_exact1d.py) under `PGDSettings.defaults_exact` and works
+    in the core layout (M + 1 rows, no duplicated row), the targets built
+    on the core time grid: the reference frame reads u_ref[k] at t_k in its
+    dynamics and places it at t_{k-1} in its cost quadrature, which makes
+    the exact gradient ill-posed at the edge rows
+    (vch_tpu/control/problems.py:207-236). `newton_solves` counts the
+    forward Newton linear solves of every march the problem ran, the exact
+    gradient's own march not included.
     """
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig1D] = None,
@@ -210,9 +238,16 @@ class ControlProblem1D:
         phi_hist, x, t_hist = self.solver.simulate(initial_phi=self.phi0,
                                                    ref_layout=True)
         self.newton_solves = self.solver.last_stats.newton_solves
+        self._dts = as_t(np.diff(t_hist))
+        exact = gradient_mode == "exact"
+        if exact:
+            # the core layout: the baseline and the time grid without
+            # their duplicated t = 0 entry (the march vch_tpu runs once
+            # more), the targets on the core grid
+            self._exact = ExactAdjoint1D(cfg, device=device)
+            phi_hist, t_hist = phi_hist[1:], t_hist[1:]
         self.phi_hist0 = phi_hist
         self.x, self.t_hist = x, t_hist
-        self._dts = as_t(np.diff(t_hist))
         phi_T, phi_Q = build_targets_1d(
             x, t_hist, phi_hist[0].cpu().numpy(), float(cfg.Lx), float(cfg.T),
             choice_t=choice_t, choice_q=choice_q)
@@ -220,27 +255,43 @@ class ControlProblem1D:
         self.phi_Q_target = as_t(phi_Q)
         self._x, self._t = as_t(x), as_t(t_hist)
         self.loop = ProximalGradientLoop(
-            self._forward, self._adjoint_r, self._cost, self.opt_config,
-            settings=PGDSettings.defaults_1d(), error_norms=self.error_norms)
+            self._forward, self._adjoint_exact if exact else self._adjoint_r,
+            self._cost, self.opt_config,
+            settings=(PGDSettings.defaults_exact() if exact
+                      else PGDSettings.defaults_1d()),
+            error_norms=self.error_norms)
 
-    def _forward_batch(self, u_ref):
-        """Trajectories (D, M+2, N+1) of the controls u_ref (D, M+2, N+1)
-        from phi0: the duplicate control row dropped for the march, the
-        duplicate history row added."""
+    def _forward_batch(self, u):
+        """Trajectories of the controls u (D, rows, N+1) from phi0, in the
+        problem's layout: in the reference layout (M + 2 rows) the duplicate
+        control row dropped for the march and the duplicate history row
+        added; in the exact mode's core layout (M + 1 rows) as marched."""
         M = self.solver.M
-        phi0 = self._phi0_dev.expand(u_ref.shape[0], -1)
-        phi, ns, _ = self.solver._march_batch(u_ref[:, : M + 1], phi0)
+        phi0 = self._phi0_dev.expand(u.shape[0], -1)
+        phi, ns, _ = self.solver._march_batch(u[:, : M + 1], phi0)
         self.newton_solves += int(ns.sum())
+        if self.gradient_mode == "exact":
+            return phi
         return torch.cat([phi[:, :1], phi], dim=1)
 
     def _forward(self, u_ref):
         return self._forward_batch(u_ref[None])[0]
 
-    def _adjoint_r(self, phi_ref):
+    def _adjoint_r(self, phi_ref, u_ref):
+        """The adjoint's r (u_ref passed by the loop, not read)."""
         opt = self.opt_config
         _, _, r = self.adjoint._run_impl(phi_ref, self._dts, opt.b1, opt.b2,
                                          self.phi_Q_target, self.phi_T_target)
         return r
+
+    def _adjoint_exact(self, phi_core, u_core):
+        """The exact gradient density less b3 u, which the loop adds back
+        (vch_tpu/control/problems.py:231-235)."""
+        opt = self.opt_config
+        g, _ = self._exact._grad(u_core, self._phi0_dev, opt.b1, opt.b2,
+                                 opt.b3, self.phi_Q_target,
+                                 self.phi_T_target)
+        return g - opt.b3 * u_core
 
     def _cost(self, phi_ref, u_ref):
         opt = self.opt_config

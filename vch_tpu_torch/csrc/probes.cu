@@ -12,7 +12,8 @@
 //     members in one CTA; since row 18 moved to micro_cluster.cu, only the
 //     bit oracle of that kernel;
 //   - while_kernel: nested data-dependent loops with a carry in shared
-//     memory across steps (row 19).
+//     memory across steps; since row 19 moved to while_fused.cu (phi in
+//     registers, one reduction a trip), only the bit oracle of that kernel.
 // Every array is float32 in device memory; the wrappers are in
 // vch_tpu_torch/ops/probe_kernels.py.
 #include <cuda_bf16.h>

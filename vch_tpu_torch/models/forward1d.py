@@ -267,7 +267,8 @@ class ForwardSolver1D(nn.Module):
         (phi, mu, w) under the control frames u_n, u_np1, with the initial
         masses m0 (B, 1): the Newton solve, the clip and the uniform mass
         projection. Returns (phi, mu, w, newton_solves (B,), bad (B,): the
-        mass defect is not finite) (vch_tpu/models/forward1d.py:255-280)."""
+        mass defect is not finite, the Newton solution before the clip)
+        (vch_tpu/models/forward1d.py:255-280)."""
         cfg = self.config
         w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
         phi_new, mu_new, k = newton_1d(self.L, phi, mu, w, w_new, dt,
@@ -275,7 +276,7 @@ class ForwardSolver1D(nn.Module):
         phi_c = torch.clamp(phi_new, -1.0 + DELTA_SEP, 1.0 - DELTA_SEP)
         mass_error = torch.sum(self.wts * phi_c, dim=-1, keepdim=True) - m0
         return (phi_c - mass_error / cfg.Lx, mu_new, w_new, k,
-                ~torch.isfinite(mass_error[:, 0]))
+                ~torch.isfinite(mass_error[:, 0]), phi_new)
 
     def _march_batch(self, u, phi0):
         """The per-step march of B members: u (B, M+1, N+1) in core layout,
@@ -291,7 +292,7 @@ class ForwardSolver1D(nn.Module):
         frames = [phi0]
         for n in range(self.M):
             phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
-                                            self.dts[n], m0)
+                                            self.dts[n], m0)[:5]
             first_bad = torch.where((first_bad < 0) & bad,
                                     torch.full_like(first_bad, n), first_bad)
             nsolve = nsolve + k

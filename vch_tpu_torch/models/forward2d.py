@@ -262,24 +262,31 @@ class ForwardSolver2D(nn.Module):
     def _ops(self):
         return tuple(self.op) + (self.wts,)
 
-    def _newton_kw(self):
+    def _newton_kw(self, kernels: bool = True):
+        """newton_2d's arguments; kernels=False leaves out the per-solve
+        kernel route (use_pallas and its variant and entries)."""
         cfg = self.config
-        return dict(tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
-                    delta_sep=DELTA_SEP, tol=cfg.newton_tol,
-                    max_iter=cfg.newton_max_iter, krylov_tol=self.krylov_tol,
-                    krylov_max_iter=cfg.krylov_max_iter, rtol=self.rtol,
-                    stagnation_exit=self.stagnation,
-                    krylov_fixed=self._krylov_fixed,
-                    use_pallas=self._use_pallas,
-                    pallas_variant=self._pallas_variant, entries=self.entries)
+        kw = dict(tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
+                  delta_sep=DELTA_SEP, tol=cfg.newton_tol,
+                  max_iter=cfg.newton_max_iter, krylov_tol=self.krylov_tol,
+                  krylov_max_iter=cfg.krylov_max_iter, rtol=self.rtol,
+                  stagnation_exit=self.stagnation,
+                  krylov_fixed=self._krylov_fixed)
+        if kernels:
+            kw.update(use_pallas=self._use_pallas,
+                      pallas_variant=self._pallas_variant,
+                      entries=self.entries)
+        return kw
 
-    def _step(self, phi, mu, w, u_n, u_np1, dt, m0):
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0, kernels: bool = True):
         """One time step of the members of phi (B, Nx+1, Ny+1) from the
         carry (phi, mu, w) under the control frames u_n, u_np1, with the
-        initial masses m0 (B, 1, 1): the Newton solve, the clip, and the
-        interior-only mass correction with its uniform fallback. Returns
-        (phi, mu, w, newton_solves (B,), bad (B,): the mass defect is not
-        finite) (vch_tpu/models/forward2d.py:250-278)."""
+        initial masses m0 (B, 1, 1): the Newton solve (kernels=False: never
+        on the per-solve kernel route), the clip, and the interior-only mass
+        correction with its uniform fallback. Returns (phi, mu, w,
+        newton_solves (B,), bad (B,): the mass defect is not finite, the
+        Newton solution before the clip, the correction's interior mask)
+        (vch_tpu/models/forward2d.py:250-278)."""
         cfg = self.config
         lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
         wts = self.wts
@@ -287,7 +294,8 @@ class ForwardSolver2D(nn.Module):
         w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
         mu_init = self.initialize_mu(phi, w_new)
         phi_new, mu_new, k = newton_2d(self.op, phi, mu, w, w_new, dt,
-                                       mu_init=mu_init, **self._newton_kw())
+                                       mu_init=mu_init,
+                                       **self._newton_kw(kernels))
         phi_c = torch.clamp(phi_new, lo, hi)
         mass_error = msum(wts * phi_c) - m0
         interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
@@ -296,7 +304,8 @@ class ForwardSolver2D(nn.Module):
         fallback = torch.clamp(phi_c - mass_error / (cfg.Lx * cfg.Ly), lo, hi)
         phi_c = torch.where(torch.abs(mass_error) > 1e-16,
                             torch.where(Wint > 0, corrected, fallback), phi_c)
-        return phi_c, mu_new, w_new, k, ~torch.isfinite(mass_error).view(-1)
+        return (phi_c, mu_new, w_new, k, ~torch.isfinite(mass_error).view(-1),
+                phi_new, interior)
 
     def _march_batch(self, u, phi0):
         """The per-step march of B members: u (B, M+1, Nx+1, Ny+1), phi0
@@ -312,7 +321,7 @@ class ForwardSolver2D(nn.Module):
         frames = [phi0]
         for n in range(self.M):
             phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
-                                            self.dts[n], m0)
+                                            self.dts[n], m0)[:5]
             first_bad = torch.where((first_bad < 0) & bad,
                                     torch.full_like(first_bad, n), first_bad)
             nsolve = nsolve + k

@@ -21,8 +21,9 @@ applies, the fused 1D march, the cost probes of probes.cu (one CTA per
 block of members; its chains and its microbench are the bit oracles of
 the chain probes and of the cluster microbench) and the chain probes of
 chain_cluster.cu and the cluster microbench of micro_cluster.cu, each of
-the last three holding its own members-per-block templates, once each.
-27 objects in all. The 1D march, both sweeps, both Schur and the
+the last three holding its own members-per-block templates, and the while
+probe of while_fused.cu (phi in registers; probes.cu's while kernel is its
+bit oracle), once each. 28 objects in all. The 1D march, both sweeps, both Schur and the
 spectral adjoint cluster solves, the cluster probes and their oracles
 compile with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
@@ -33,7 +34,9 @@ products, which two codes could fuse apart). The raw adjoint cluster solve
 and its oracle (variant 3, in the first object) compile with nvcc's
 default contraction: no expression of theirs adds two products, so nvcc
 fuses them alike, and the contracted raw solve lies nearer float64 on
-rough inputs. All objects compile at once in parallel, and link
+rough inputs. while_fused.cu compiles with probes.cu's flags, nvcc's
+default contraction, so that its sums of squares fuse into the FMAs of its
+oracle's. All objects compile at once in parallel, and link
 into one shared library with a plain C interface, at first use, into
 `vch_tpu_torch/_build/` (listed in .gitignore); `ctypes` loads it. The
 library's file name carries a hash of the sources and flags, so an edited
@@ -75,7 +78,8 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            "apply2d.cu": ((),),
            "march1d.cu": (("-fmad=false",),), "probes.cu": ((),),
            "chain_cluster.cu": ((),),
-           "micro_cluster.cu": ((),)}
+           "micro_cluster.cu": ((),),
+           "while_fused.cu": ((),)}
 HEADERS = ("common.cuh", "tile4.cuh", "cluster.cuh", "adjoint.cuh",
            "adjoint_solve.cuh", "schur_solve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -301,6 +305,10 @@ def load():
     lib.vch_while_probe.argtypes = [_P] * 3 + [_I] * 3 + [_P]
     lib.vch_while_max_elems.argtypes = []
     lib.vch_while_max_elems.restype = _I
+    # x out ns | B n M | stream
+    lib.vch_while_fused.argtypes = [_P] * 3 + [_I] * 3 + [_P]
+    lib.vch_while_fused_max_elems.argtypes = []
+    lib.vch_while_fused_max_elems.restype = _I
     for fn in (lib.vch_march_fused_2d, lib.vch_march_fused_2d_cluster,
                lib.vch_march_fused_2d_blocked,
                lib.vch_march_fused_2d_segment,
@@ -318,7 +326,8 @@ def load():
                lib.vch_march_fused_1d, lib.vch_matmul_chain,
                lib.vch_matmul_chain_cluster, lib.vch_matmul_chain_mma,
                lib.vch_blocked_microbench,
-               lib.vch_blocked_microbench_cluster, lib.vch_while_probe):
+               lib.vch_blocked_microbench_cluster, lib.vch_while_probe,
+               lib.vch_while_fused):
         fn.restype = _I
     lib.vch_error_string.argtypes = [_I]
     lib.vch_error_string.restype = ctypes.c_char_p

@@ -1465,7 +1465,8 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              pk.matmul_chain,
                              pk._matmul_chain_cta, pk.matmul_chain_bf16,
                              pk._matmul_chain_bf16_cta, pk.blocked_microbench,
-                             pk._blocked_microbench_cta, pk.while_probe)
+                             pk._blocked_microbench_cta, pk.while_probe,
+                             pk._while_probe_cta)
 
 
 def reset_launches():

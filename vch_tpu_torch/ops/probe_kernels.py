@@ -15,12 +15,14 @@ probes under scripts/ that reach pl.pallas_call:
                       (`csrc/micro_cluster.cu`;
                       scripts/diag_blocked_microbench.py:100);
   while_probe         per member, M steps of nested data-dependent loops
-                      with a carry across steps (`csrc/probes.cu`;
+                      with a carry across steps, in registers, one CTA
+                      reduction a trip (`csrc/while_fused.cu`;
                       scripts/probe_pallas_while.py:67).
 
-The first designs of the chains and of the microbench, K or bb members per
-CTA in `csrc/probes.cu`, stay as their bit oracles `_matmul_chain_cta`,
-`_matmul_chain_bf16_cta` and `_blocked_microbench_cta`, which the card
+The first designs of the four, K or bb members or one member per CTA in
+`csrc/probes.cu`, stay as their bit oracles `_matmul_chain_cta`,
+`_matmul_chain_bf16_cta`, `_blocked_microbench_cta` and
+`_while_probe_cta`, which the card
 tests and chip_smoke.py hold the new kernels against; no entry point calls
 them. Each wrapper routes by the tensors' device: on CUDA tensors it
 launches its hand-written kernel (float32; a failed build, fit or launch
@@ -366,26 +368,56 @@ def while_probe(x, M: int):
     50) of an inner line search (at most 12 trips: trial = phi (1 - 0.3
     alpha), accepted when sum trial^2 <= sum phi^2, else alpha halves) and
     phi <- phi (1 - 0.3 alpha), until ||phi|| < 1e-3. Returns (phi (B, n,
-    n), ns (B, 1) int32, the outer trips summed over the steps). On CUDA one
-    CTA per member carries phi in shared memory, so n^2 is bounded
-    (`vch_while_max_elems`, 10240: n <= 101)."""
+    n), ns (B, 1) int32, the outer trips summed over the steps). On CUDA
+    csrc/while_fused.cu: one CTA per member carries phi in registers and
+    takes one reduction a trip, so n^2 is bounded
+    (`vch_while_fused_max_elems`, 10240: n <= 101); bit for bit the one-CTA
+    kernel of probes.cu, `_while_probe_cta`."""
     if not _build.on_cuda("while_probe", x):
         return while_probe_plain(x, M)
-    _check_while(x, M)
-    B, n = x.shape[0], x.shape[1]
-    _build.check_cuda([("x", x, (B, n, n))], x.device)
-    lib = _build.load()
-    if n * n > lib.vch_while_max_elems():
-        raise ValueError(f"while_probe carries phi in static shared memory: "
-                         f"n^2 = {n * n} exceeds {lib.vch_while_max_elems()}")
-    out = torch.empty_like(x)
-    ns = torch.empty(B, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.vch_while_probe(x.data_ptr(), out.data_ptr(), ns.data_ptr(), B,
-                              n, int(M), stream)
+    lib, out, ns, stream = _while_buffers(x, M)
+    if x.shape[1] ** 2 > lib.vch_while_fused_max_elems():
+        raise ValueError(f"while_probe carries phi in registers: n^2 = "
+                         f"{x.shape[1] ** 2} exceeds "
+                         f"{lib.vch_while_fused_max_elems()}")
+    err = lib.vch_while_fused(x.data_ptr(), out.data_ptr(), ns.data_ptr(),
+                              x.shape[0], x.shape[1], int(M), stream)
     while_probe.launches += 1
     _build.raise_on(lib, err, "while_probe")
-    return out, ns.reshape(B, 1)
+    return out, ns.reshape(-1, 1)
 
 
 while_probe.launches = 0
+
+
+def _while_buffers(x, M):
+    """The checks of a while-probe launch, then (library, out, ns,
+    stream)."""
+    _check_while(x, M)
+    B, n = x.shape[0], x.shape[1]
+    _build.check_cuda([("x", x, (B, n, n))], x.device)
+    out = torch.empty_like(x)
+    ns = torch.empty(B, dtype=torch.int32, device=x.device)
+    return (_build.load(), out, ns,
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _while_probe_cta(x, M: int):
+    """The one-CTA while probe of csrc/probes.cu (phi in static shared
+    memory, three block reductions a trip): the bit oracle of
+    `while_probe`. Arguments and result as `while_probe`'s."""
+    if not _build.on_cuda("_while_probe_cta", x):
+        return while_probe_plain(x, M)
+    lib, out, ns, stream = _while_buffers(x, M)
+    if x.shape[1] ** 2 > lib.vch_while_max_elems():
+        raise ValueError(f"_while_probe_cta carries phi in static shared "
+                         f"memory: n^2 = {x.shape[1] ** 2} exceeds "
+                         f"{lib.vch_while_max_elems()}")
+    err = lib.vch_while_probe(x.data_ptr(), out.data_ptr(), ns.data_ptr(),
+                              x.shape[0], x.shape[1], int(M), stream)
+    _while_probe_cta.launches += 1
+    _build.raise_on(lib, err, "_while_probe_cta")
+    return out, ns.reshape(-1, 1)
+
+
+_while_probe_cta.launches = 0

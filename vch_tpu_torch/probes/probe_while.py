@@ -5,8 +5,8 @@ scripts/probe_pallas_while.py).
 
 Runs `ops.probe_kernels.while_probe` (one CTA per member: per step an outer
 loop of data-dependent trips, each with an inner line search, the field
-carried in shared memory across the M steps, each member's trip count
-written once) on the script's input, x = N(0, 1) (B, n, n) float32 from seed
+carried in registers across the M steps, one CTA reduction a trip, each
+member's trip count written once) on the script's input, x = N(0, 1) (B, n, n) float32 from seed
 0, and holds it with the script's gates (max |diff| < 1e-4, trip counts
 equal) against `reference`, the script's float64 loop restated, and against
 the plain PyTorch version on the card. Prints one JSON object (the
