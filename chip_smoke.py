@@ -205,6 +205,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                iterations, no launch;
   2x exact   — the float64 ExactAdjoint2D on the card at 12 x 12 against
                central finite differences at two entries (1e-4);
+  11 cli     — the command line, vch_tpu_torch.cli, with vch_tpu's
+               defaults (newton_tol 1e-6): in process, `optimize2d` at
+               config 3 (64x64, T = 1, 3 PGD iterations, --checkpoint; rows
+               8, 1, 9 under CUDA events, launches gated: the baseline's
+               Newton solves, each trial and the coercivity probe, M a
+               sweep; costs that never rise, the checkpoint's u equal to
+               the saved control, the config JSON reloaded), `sweep2d` at
+               config 4's width (128x128, B = 128, 3 iterations, every
+               member's cost falling; rows 1-2 only), `forward2d --n 128`
+               (row 8 only), `optimize2d` at 32x32, T = 0.25, float32 on
+               the card against --device cpu (2e-4); then `show-control`,
+               `forward2d --n 128` and `optimize1d --max-iter 2` as
+               processes of their own, each to exit 0; one line per
+               command with its seconds, launches and rates;
   9p profile — config 2 once more, one PGD iteration under torch.profiler,
                after every timed phase: the device's busy share and the
                kernels with the most device time;
@@ -3651,6 +3665,259 @@ def peak_multiple(torch, device, cases=((64, 1.0), (128, 1.0), (128, 0.1)),
     return out
 
 
+def _cli_run(torch, argv, timers=()):
+    """One command of vch_tpu_torch.cli run in this process, as a user runs
+    it (`main(argv)`): its standard output captured, every launch count
+    set to 0 just before and read just after, its wall seconds between two
+    device synchronizations. The problem classes the CLI builds are
+    swapped for subclasses that keep the problem and its result, and the
+    kernel entries named in `timers` ((entry, EntryTimer keywords) pairs)
+    are wrapped in CUDA events; both are put back after."""
+    import contextlib
+    import io
+    from vch_tpu_torch import cli
+    from vch_tpu_torch.control import problems
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel import batch
+
+    made = []
+
+    class Control2D(problems.ControlProblem2D):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+        def optimize(self, *a, **k):
+            self.result = super().optimize(*a, **k)
+            return self.result
+
+    class Batched2D(batch.BatchedProblem2D):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+        def run(self, *a, **k):
+            self.result = super().run(*a, **k)
+            return self.result
+
+    saved = (problems.ControlProblem2D, batch.BatchedProblem2D, km.KERNELS)
+    events = {k: EntryTimer(torch, getattr(km.KERNELS, k), **kw)
+              for k, kw in timers}
+    out = io.StringIO()
+    try:
+        problems.ControlProblem2D, batch.BatchedProblem2D = Control2D, Batched2D
+        km.KERNELS = km.KERNELS._replace(**events)
+        torch.cuda.synchronize()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in km.launch_counts().items() if v}
+    finally:
+        problems.ControlProblem2D, batch.BatchedProblem2D, km.KERNELS = saved
+    return dict(rc=rc, wall_s=wall, launches=launches, out=out.getvalue(),
+                problem=made[-1] if made else None,
+                events={k: t.summary() for k, t in events.items()})
+
+
+def _trials(out):
+    """The line-search trials of each PGD iteration, from the CLI's
+    `iter k | ... | trials n | ...` lines."""
+    return [int(ln.split("| trials")[1].split("|")[0])
+            for ln in out.splitlines() if ln.startswith("iter ")
+            and "| trials" in ln]
+
+
+def _time_study(out):
+    """The CLI's PhaseTimers report (COMPUTATIONAL TIME STUDY) as
+    {phase: seconds}."""
+    rows = {}
+    for ln in out.splitlines():
+        if " s  (" in ln and "calls," in ln:
+            name, rest = ln.split(":", 1)
+            rows[name.strip()] = float(rest.split(" s")[0])
+    return rows
+
+
+# the CLI's subcommands that run as processes of their own in phase 11,
+# each with the seconds it may take
+CLI_SUBPROCESSES = (("show-control", 120), ("forward2d", 300),
+                    ("optimize1d", 600))
+
+
+def cli_phase(device=None, name=None, smi=None):
+    """Phase 11: the command line, `python -m vch_tpu_torch.cli`, on the
+    card with vch_tpu's defaults (newton_tol 1e-6, newton_max_iter 500 in
+    2D), in process: `optimize2d` at config 3 (64x64, T = 1, M = 100,
+    float32) for 3 PGD iterations with a checkpoint, `sweep2d` at config
+    4's width (128x128, T = 1, B = 128: 16 b3 x 8 kappa values) for 3,
+    `forward2d` at n = 128, and `optimize2d` at 32x32, T = 0.25, 2
+    iterations, float32, with --device cuda and with --device cpu (the
+    kernel path against the plain path); then `show-control` on the saved
+    control, `forward2d --n 128` and `optimize1d --max-iter 2` as
+    processes of their own. One line per command: seconds, launches,
+    rates; then the gates. Alone on the card:
+    `python -c "import chip_smoke; chip_smoke.cli_phase()"`."""
+    import os
+    import sys
+    import tempfile
+    import torch
+    from vch_tpu_torch.config import load_params
+    from vch_tpu_torch.utils.checkpoint import load_checkpoint
+
+    if device is None:
+        device, name, smi = (torch.device("cuda", 0),
+                             torch.cuda.get_device_name(0), _smi())
+    fails = []
+    with tempfile.TemporaryDirectory(prefix="vch_cli_") as tmp:
+        pre = os.path.join(tmp, "c3_")
+        ck = os.path.join(tmp, "c3.npz")
+        # config 3 through optimize2d, its three kernels under CUDA events
+        r3 = _cli_run(torch, ["optimize2d", "--n", "64", "--T", "1",
+                              "--max-iter", "3", "--no-artifacts",
+                              "--checkpoint", ck, "--out-prefix", pre],
+                      timers=(("schur_spectral", dict(batch_at=7)),
+                              ("adjoint_spectral", dict(batch_at=7)),
+                              ("march", dict(newton_at=1))))
+        prob, res = r3["problem"], r3["problem"].result
+        ch = np.asarray(res.cost_history)
+        trials = _trials(r3["out"])
+        M = prob.solver.M
+        schur = r3["launches"].get("bicgstab_schur_spectral", 0)
+        state, meta = load_checkpoint(ck)
+        saved_u = np.load(pre + "optimal_control.npy")
+        params = load_params(pre + "last_run_config_2d.json", two_d=True)
+        c3 = dict(
+            command="optimize2d --n 64 --T 1 --max-iter 3 --no-artifacts "
+                    "--checkpoint", n=64, M=M, iters=res.iterations,
+            wall_s=r3["wall_s"],
+            pgd_iters_per_s=res.iterations / res.timers["total_optimization"],
+            time_study=_time_study(r3["out"]), launches=r3["launches"],
+            kernel_ms=r3["events"], trials=trials,
+            newton_solves_baseline=schur,
+            newton_solves_per_step_baseline=schur / M,
+            newton_solves_all=prob.newton_solves,
+            cost_history=ch.tolist(),
+            natural_line=[ln for ln in r3["out"].splitlines()
+                          if ln.startswith("Natural evolution")],
+            device=str(prob.phi_hist0.device))
+        expect = {"bicgstab_schur_spectral": schur,
+                  "bicgstab_adjoint_spectral": M * res.iterations,
+                  "march_fused_2d": sum(trials) + 1}
+        if schur <= 0 or r3["launches"] != expect:
+            fails.append(f"optimize2d launches {r3['launches']}, expected "
+                         f"{expect}")
+        if r3["rc"] != 0 or not np.isfinite(ch).all() \
+                or np.any(np.diff(ch) > 0):
+            fails.append(f"optimize2d costs {ch.tolist()} (rc {r3['rc']})")
+        if not np.array_equal(state["u"], saved_u) \
+                or meta.get("iterations") != res.iterations:
+            fails.append("optimize2d checkpoint differs from the saved "
+                         "control")
+        fs = params.forward_solver
+        if (fs.Nx, fs.Ny, fs.T, fs.dtype, params.last_run_iterations) != (
+                64, 64, 1.0, "float32", res.iterations):
+            fails.append(f"optimize2d config JSON reloads as {params}")
+        if not c3["natural_line"]:
+            fails.append("optimize2d printed no Natural evolution line")
+        if not c3["device"].startswith("cuda"):
+            fails.append(f"optimize2d ran on {c3['device']}")
+        _log(11, "cli " + json.dumps(c3) + f" | {name} | {smi}")
+        del prob, res, state, r3
+
+        # config 4's width through sweep2d
+        b3s = ",".join(repr(float(v)) for v in np.linspace(5e-5, 2e-4, 16))
+        kss = ",".join(repr(float(v)) for v in np.linspace(5e-5, 2e-4, 8))
+        r4 = _cli_run(torch, ["sweep2d", "--n", "128", "--b3", b3s,
+                              "--kappa", kss, "--max-iter", "3",
+                              "--no-artifacts"])
+        out4 = r4["problem"].result
+        ch4 = np.asarray(out4["cost_history"])
+        tot4 = out4["timers"]["total_optimization"]
+        c4 = dict(command="sweep2d --n 128 --b3 <16> --kappa <8> "
+                          "--max-iter 3 --no-artifacts", n=128,
+                  B=ch4.shape[1], iters=ch4.shape[0] - 1, wall_s=r4["wall_s"],
+                  scenario_iters_per_s=ch4.shape[1] * (ch4.shape[0] - 1)
+                  / tot4, timers=out4["timers"],
+                  newton_solves=int(out4["newton_solves"]),
+                  launches=r4["launches"],
+                  mean_cost_history=ch4.mean(axis=1).tolist(),
+                  members_falling=int((ch4[-1] < ch4[0]).sum()),
+                  device=str(out4["u"].device))
+        if r4["rc"] != 0 or ch4.shape[1] != 128 \
+                or not np.isfinite(ch4).all() or c4["members_falling"] != 128:
+            fails.append(f"sweep2d: {c4['members_falling']} of {ch4.shape[1]}"
+                         f" members' costs fell (rc {r4['rc']})")
+        if set(r4["launches"]) != {"march_fused_2d", "adjoint_fused_2d"}:
+            fails.append(f"sweep2d launched {r4['launches']}")
+        _log(11, "cli " + json.dumps(c4) + f" | {name} | {smi}")
+        del out4, r4
+
+        # forward2d at n = 128: the per-step marcher on row 8 alone
+        rf = _cli_run(torch, ["forward2d", "--n", "128", "--no-artifacts"])
+        cf = dict(command="forward2d --n 128 --no-artifacts",
+                  wall_s=rf["wall_s"], launches=rf["launches"],
+                  printed=rf["out"].strip())
+        if rf["rc"] != 0 or set(rf["launches"]) != {
+                "bicgstab_schur_spectral"}:
+            fails.append(f"forward2d launched {rf['launches']}")
+        _log(11, "cli " + json.dumps(cf) + f" | {name} | {smi}")
+
+        # the kernel path against the plain path at 32x32
+        pair = {}
+        for dev in ("cuda", "cpu"):
+            r = _cli_run(torch, ["optimize2d", "--n", "32", "--T", "0.25",
+                                 "--max-iter", "2", "--dtype", "float32",
+                                 "--no-artifacts", "--device", dev,
+                                 "--out-prefix",
+                                 os.path.join(tmp, f"p32_{dev}_")])
+            pair[dev] = (np.asarray(r["problem"].result.cost_history),
+                         r["wall_s"], r["launches"], r["rc"])
+        (kc, kt, kl, krc), (pc, pt, pl, prc) = pair["cuda"], pair["cpu"]
+        rel = float((np.abs(kc - pc) / np.abs(pc)).max())
+        cp = dict(command="optimize2d --n 32 --T 0.25 --max-iter 2 "
+                          "--dtype float32 --no-artifacts --device cuda|cpu",
+                  rel_cost=rel, cost_history_cuda=kc.tolist(),
+                  cost_history_cpu=pc.tolist(), wall_s_cuda=kt,
+                  wall_s_cpu=pt, launches_cuda=kl, launches_cpu=pl)
+        if krc or prc or not np.isfinite(kc).all() or rel > 2e-4 or pl \
+                or set(kl) != {"bicgstab_schur_spectral",
+                               "bicgstab_adjoint_spectral", "march_fused_2d"}:
+            fails.append(f"optimize2d 32x32 cuda against cpu: {cp}")
+        _log(11, "cli " + json.dumps(cp) + f" | {name} | {smi}")
+
+        # as processes of their own, as a user runs them
+        root = os.path.dirname(os.path.abspath(__file__))
+        argvs = {"show-control": ["show-control", pre + "optimal_control.npy"],
+                 "forward2d": ["forward2d", "--n", "128", "--no-artifacts"],
+                 "optimize1d": ["optimize1d", "--max-iter", "2",
+                                "--no-artifacts", "--out-prefix",
+                                os.path.join(tmp, "c1_")]}
+        for cmd, limit in CLI_SUBPROCESSES:
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", "vch_tpu_torch.cli"]
+                               + argvs[cmd], cwd=root, capture_output=True,
+                               text=True, timeout=limit)
+            lines = p.stdout.strip().splitlines()
+            cs = dict(command="python -m vch_tpu_torch.cli "
+                              + " ".join(a if not a.startswith(tmp) else
+                                         os.path.basename(a)
+                                         for a in argvs[cmd]),
+                      rc=p.returncode, wall_s=time.perf_counter() - t0,
+                      launches="not read (a process of its own)",
+                      first_line=lines[0] if lines else "",
+                      cost_lines=[ln for ln in lines
+                                  if ln.startswith("iter ")])
+            if p.returncode != 0:
+                fails.append(f"{cs['command']} exited {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+            _log(11, "cli " + json.dumps(cs) + f" | {name} | {smi}")
+    if fails:
+        raise RuntimeError("phase 11 cli: " + "; ".join(fails))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4116,6 +4383,7 @@ def main():
          f"marcher and sweep, as in vch_tpu | {name} | {smi}")
     check_config1(c1)
     exact_phases(device, name, smi)
+    cli_phase(device, name, smi)
 
     # config 2 again, one PGD iteration (the baseline march, one sweep, its
     # trials) under the profiler, after every timed phase: profiling slows

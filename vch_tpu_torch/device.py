@@ -12,13 +12,12 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device; None is the CUDA card, and raises when
-    there is none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """`device` as a torch.device; None is the CUDA card. Raises when a
+    CUDA device is asked for (None included) and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "vch_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch versions "
             "on the CPU")
-    return torch.device("cuda")
+    return device

@@ -1,5 +1,6 @@
 """Neumann Laplacian: dense matrix and exact cosine eigenbasis (host numpy,
-float64), and the 2D apply on tensors (vch_tpu/ops/laplacian.py).
+float64), the 1D and 2D applies and the matrix-free stencils on tensors
+(vch_tpu/ops/laplacian.py).
 
 The (N+1)x(N+1) mirrored-ghost Neumann FD Laplacian diagonalizes exactly in
 the cosine basis v_k[j] = cos(pi k j / N) with
@@ -41,8 +42,28 @@ def neumann_eigendecomposition(N: int, h: float):
     return lam, V, Vinv
 
 
+def apply_laplacian_1d(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """L @ v along the last axis (any leading batch axes)."""
+    return torch.matmul(v, L.T)
+
+
 def apply_laplacian_2d(Lx: torch.Tensor, LyT: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """2D Neumann Laplacian of v[..., i, j]: Lx along axis -2, Ly along -1,
     as the two products Lx @ v + v @ Ly^T (LyT is Ly transposed)."""
     return torch.matmul(Lx, v) + torch.matmul(v, LyT)
+
+
+def stencil_laplacian_1d(v: torch.Tensor, h: float) -> torch.Tensor:
+    """Matrix-free mirrored-ghost Neumann Laplacian along the last axis."""
+    pad = torch.cat([v[..., 1:2], v, v[..., -2:-1]], dim=-1)
+    return (pad[..., :-2] - 2.0 * v + pad[..., 2:]) / (h * h)
+
+
+def stencil_laplacian_2d(v: torch.Tensor, hx: float, hy: float) -> torch.Tensor:
+    """Matrix-free 2D Neumann Laplacian of v[..., i, j]."""
+    padx = torch.cat([v[..., 1:2, :], v, v[..., -2:-1, :]], dim=-2)
+    lap_x = (padx[..., :-2, :] - 2.0 * v + padx[..., 2:, :]) / (hx * hx)
+    pady = torch.cat([v[..., 1:2], v, v[..., -2:-1]], dim=-1)
+    lap_y = (pady[..., :-2] - 2.0 * v + pady[..., 2:]) / (hy * hy)
+    return lap_x + lap_y

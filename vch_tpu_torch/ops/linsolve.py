@@ -84,6 +84,13 @@ def from_spectral(op: SpectralOp2D, vhat: torch.Tensor) -> torch.Tensor:
     return torch.matmul(torch.matmul(op.Vx, vhat), op.Vy.T)
 
 
+def spectral_poly_solve(op: SpectralOp2D, denom_of_lam: Callable,
+                        rhs: torch.Tensor) -> torch.Tensor:
+    """Exactly solve P v = rhs where P = poly(L) is diagonal in the cosine
+    basis; denom_of_lam maps the eigenvalue grid lam to the symbol of P."""
+    return from_spectral(op, to_spectral(op, rhs) / denom_of_lam(op.lam))
+
+
 def _full_dot(a, c):
     return torch.sum(a * c)
 
