@@ -88,7 +88,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                clusters of 8;
   3 slice    — BatchedProblem2D at 32x32 on the heterogeneous B = 16 sweep
                with one member per CTA, kernel path against plain path,
-               3 PGD iterations;
+               2 PGD iterations;
   3b slices  — the same sweep with the blocked kernels (B = 16, 8 per CTA),
                and LowMemBatchedProblem2D with K = 4, each kernel path
                against its plain path, and the low-memory kernel path
@@ -136,7 +136,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                BatchedProblem2D and of LowMemBatchedProblem2D (K = 5) at
                32x32, T = 0.1, on a heterogeneous B = 8 sweep, each with
                both pallas_variants, kernel path against plain path over
-               3 PGD iterations; the low-memory one's adjoint r gated
+               2 PGD iterations; the low-memory one's adjoint r gated
                against float64;
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
                one warm-up iteration, then 3 timed PGD iterations with the
@@ -219,10 +219,25 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                `forward2d --n 128` and `optimize1d --max-iter 2` as
                processes of their own, each to exit 0; one line per
                command with its seconds, launches and rates;
+  12 side    — the batch runner's side paths (vch_tpu/parallel/batch.py:
+               168-1006), each run after `prewarm` with its launches
+               counted: (a) at the headline (64x64, T = 1, B = 512, the
+               heterogeneous (b3, kappa) grid 16 x 16 tiled, alpha_max
+               2000) 3 PGD iterations in four modes, the plain search
+               (straggler_batch "auto"), speculative=True,
+               straggler_batch=100 (its sub-batches on row 1) and
+               chunk_size=128, each mode's trial counts equal to the
+               plain search's and its cost history within 1e-6, each
+               counter above 0; (b) config 4 (128x128, B = 128):
+               checkpoint at 2, resume to 4 against an uninterrupted 4
+               with metrics (1e-6), and trial_memory_analysis's peak
+               within the chooser's estimate; (c) the low-memory arm at
+               256x256, K = 10, B = 8, resume likewise;
   9p profile — config 2 once more, one PGD iteration under torch.profiler,
                after every timed phase: the device's busy share and the
                kernels with the most device time;
-  4sp profile — the same for phase 4s's scan path;
+  4sp profile — phase 4s's scan path likewise, its baseline march and one
+               sweep (a run of no PGD iteration);
   2e-dev     — the operator applies and their torch.matmul forms once more,
                one field at n = 65, 129, 257, and the cluster solves (rows
                8-11) and their one-CTA oracles at phase 2c's shapes (the
@@ -2553,7 +2568,7 @@ def _slice_sweep(cfg, materialize=True, n_b3=4, n_ks=4):
                     materialize_phi_Q=materialize)
 
 
-def slice_case(torch, device, n=32, T=0.1, iters=3, block=0, lowmem_K=None):
+def slice_case(torch, device, n=32, T=0.1, iters=2, block=0, lowmem_K=None):
     """Phases 3 and 3b: the batched PGD slice, kernel path vs plain path,
     with one member per CTA (block=0), the blocked kernels (block=8), or
     the low-memory problem (lowmem_K)."""
@@ -2636,11 +2651,11 @@ def _scan_adjoint_gate(torch, device, prob, sc, u):
 
 
 def scan_slice_case(torch, device, variant="spectral", lowmem_K=None, n=32,
-                    T=0.1, iters=3):
+                    T=0.1, iters=2):
     """Phase 3e: the scan path (fused_march=False) of BatchedProblem2D, or
     of LowMemBatchedProblem2D with lowmem_K, at 32x32 on the heterogeneous
     B = 8 sweep, kernel path (the per-solve kernels, one member per cluster)
-    against plain path, 3 PGD iterations; the low-memory one also gates its
+    against plain path, 2 PGD iterations; the low-memory one also gates its
     adjoint r against float64 on the kernel run's final control."""
     from vch_tpu_torch.ops import march as km
     from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
@@ -2654,7 +2669,7 @@ def scan_slice_case(torch, device, variant="spectral", lowmem_K=None, n=32,
                                        fused_march=False)
                 if lowmem_K else
                 BatchedProblem2D(cfg, device=device, fused_march=False))
-        if prob._use_fused_march or prob.straggler_buckets:
+        if prob._use_fused_march or prob.straggler_batch is not None:
             raise RuntimeError("fused_march=False still takes the fused path")
         if path == "plain":
             prob.solver.entries = prob.adj.entries = km.PLAIN
@@ -2674,8 +2689,7 @@ def scan_slice_case(torch, device, variant="spectral", lowmem_K=None, n=32,
                cost_history_mean=c1.mean(axis=1).tolist(),
                finite=bool(np.isfinite(c1).all()))
     if lowmem_K:
-        res.update(_scan_adjoint_gate(torch, device, kp, sc,
-                                      ko["u"].cpu().numpy()))
+        res.update(_scan_adjoint_gate(torch, device, kp, sc, ko["u"]))
     return res
 
 
@@ -3582,11 +3596,13 @@ class EntryTimer:
 def pgd_run(torch, device, prob, sc, iters, before_timed=None):
     """A main path: one warm-up PGD iteration, then `iters` timed ones with
     every kernel launch count reset to 0 just before and read just after
-    (before_timed, if given, runs just before too)."""
+    (before_timed, if given, runs just before too). The results stay on
+    the card (host_results=False, as bench.py times vch_tpu): the default
+    download of u, r and phi would add ~1 s at config 4's width."""
     from vch_tpu_torch.ops import march as km
 
     t0 = time.perf_counter()
-    prob.run(sc, max_iter=1, verbose=False)             # warm-up
+    prob.run(sc, max_iter=1, verbose=False, host_results=False)  # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(device)
     prob.straggler_rounds = 0
@@ -3594,7 +3610,7 @@ def pgd_run(torch, device, prob, sc, iters, before_timed=None):
         before_timed()
     km.reset_launches()                                 # the main path's run
     t0 = time.perf_counter()
-    out = prob.run(sc, max_iter=iters, verbose=False)
+    out = prob.run(sc, max_iter=iters, verbose=False, host_results=False)
     elapsed = time.perf_counter() - t0
     launches = km.launch_counts()
     B = sc.batch
@@ -3654,7 +3670,7 @@ def peak_multiple(torch, device, cases=((64, 1.0), (128, 1.0), (128, 0.1)),
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-        prob.run(sc, max_iter=iters, verbose=False)
+        prob.run(sc, max_iter=iters, verbose=False, host_results=False)
         peak = torch.cuda.max_memory_allocated(device)
         S = _traj_bytes(cfg, B, prob.solver.M)
         est = full_memory_estimate_bytes(cfg, B)
@@ -3845,7 +3861,7 @@ def cli_phase(device=None, name=None, smi=None):
                   launches=r4["launches"],
                   mean_cost_history=ch4.mean(axis=1).tolist(),
                   members_falling=int((ch4[-1] < ch4[0]).sum()),
-                  device=str(out4["u"].device))
+                  device=str(r4["problem"].device))
         if r4["rc"] != 0 or ch4.shape[1] != 128 \
                 or not np.isfinite(ch4).all() or c4["members_falling"] != 128:
             fails.append(f"sweep2d: {c4['members_falling']} of {ch4.shape[1]}"
@@ -3916,6 +3932,266 @@ def cli_phase(device=None, name=None, smi=None):
             _log(11, "cli " + json.dumps(cs) + f" | {name} | {smi}")
     if fails:
         raise RuntimeError("phase 11 cli: " + "; ".join(fails))
+
+
+# Phase 12: the batch runner's side paths (vch_tpu/parallel/batch.py:
+# 168-1006). At the headline, each search mode beside the plain search
+# (straggler_batch "auto", the fused route's default): the speculative
+# search, a numeric straggler_batch that is no multiple of the blocked
+# kernels' 8 members (its sub-batch trials take the one-member march, row 1)
+# and chunks of 128 (the blocked kernels). The sweep is the slices'
+# heterogeneous (b3, kappa) grid, 16 x 16 tiled to 512, with alpha_max
+# raised as in vch_tpu's tests, so that members backtrack. Its stragglers
+# come in pairs (the tiling), and on an H100 every backtracking round of
+# its first 3 iterations has 64 members searching, so the numeric size is
+# 100 (12 would never engage).
+SIDE_MODES = (("plain", {}), ("speculative", {"speculative": True}),
+              ("straggler 100", {"straggler_batch": 100}),
+              ("chunked 128", {"chunk_size": 128}))
+SIDE_COUNTER = {"speculative": "speculative_rounds",
+                "straggler 100": "straggler_rounds",
+                "chunked 128": "chunk_calls"}
+SIDE_ALPHA_MAX = 2000.0
+# the gate between a mode's cost history and the plain search's, and
+# between a resumed run and an uninterrupted one (relative)
+SIDE_REL = 1e-6
+
+
+def _on_device(torch, device, sc):
+    """A ScenarioBatch's arrays as float32 tensors on the card, staged once
+    for every run that shares it."""
+    t = lambda a: (None if a is None else torch.as_tensor(
+        np.asarray(a), dtype=torch.float32, device=device))
+    return dataclasses.replace(sc, phi0=t(sc.phi0), phi_T=t(sc.phi_T),
+                               phi_Q=t(sc.phi_Q), b1=t(sc.b1), b2=t(sc.b2),
+                               b3=t(sc.b3), kappa_spar=t(sc.kappa_spar))
+
+
+def side_mode_run(torch, prob, sc, iters, start=0, **run_kw):
+    """`prewarm`, then one `run` to `iters` (from iteration `start` on a
+    resume) with every launch count set to 0 just before and read just
+    after: its seconds, rate, counters and launches (a row of the kernel
+    table for each entry point), and its result."""
+    from vch_tpu_torch.ops import march as km
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob.prewarm(sc)
+    prewarm_s = time.perf_counter() - t0
+    prob.straggler_rounds = prob.speculative_rounds = prob.chunk_calls = 0
+    km.reset_launches()
+    t0 = time.perf_counter()
+    out = prob.run(sc, max_iter=iters, verbose=False, **run_kw)
+    elapsed = time.perf_counter() - t0          # run() ends synchronized
+    ch = out["cost_history"]
+    done = ch.shape[0] - 1 - start
+    return dict(B=sc.batch, iters=done, elapsed_s=elapsed,
+                prewarm_s=prewarm_s,
+                scenario_iters_per_s=sc.batch * done / elapsed,
+                newton_solves=out["newton_solves"],
+                ls_trials=int(out["ls_trials"].sum()),
+                straggler_rounds=prob.straggler_rounds,
+                speculative_rounds=prob.speculative_rounds,
+                chunk_calls=prob.chunk_calls,
+                launches={k: v for k, v in km.launch_counts().items() if v},
+                mean_cost_history=ch.mean(axis=1).tolist(),
+                finite=bool(np.isfinite(ch).all())), out
+
+
+def side_headline(torch, device, iters=3):
+    """Phase 12a: the four search modes at 64x64, T = 1, B = 512."""
+    from vch_tpu_torch.parallel import batch
+    from vch_tpu_torch.parallel.batch import (BatchedProblem2D, sweep_2d,
+                                              tile_batch)
+    cfg = _config(64)
+    sc = _on_device(torch, device, tile_batch(sweep_2d(
+        cfg, b3_values=np.logspace(-6, 0, 16),
+        kappa_values=np.logspace(-6, -1, 16)), 512))
+    res, outs = {}, {}
+    for mode, kw in SIDE_MODES:
+        prob = BatchedProblem2D(cfg, alpha_max=SIDE_ALPHA_MAX, device=device,
+                                **kw)
+        # the plain search's count of searching members in each
+        # backtracking round, read where it picks the round's bucket
+        searching = []
+        if mode == "plain":
+            bucket = batch.straggler_bucket
+            batch.straggler_bucket = lambda n, B: (searching.append(n),
+                                                   bucket(n, B))[1]
+        try:
+            res[mode], out = side_mode_run(torch, prob, sc, iters,
+                                           host_results=False)
+        finally:
+            if mode == "plain":
+                batch.straggler_bucket = bucket
+                res[mode]["searching_per_round"] = [
+                    n for n in searching if n < 512]
+        outs[mode] = {k: out[k] for k in ("cost_history", "ls_trials",
+                                          "newton_solves")}
+        del prob, out
+    plain = outs["plain"]
+    for mode, o in outs.items():
+        c0, c1 = plain["cost_history"], o["cost_history"]
+        res[mode].update(
+            max_rel_cost_vs_plain=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+            ls_trials_equal=bool(np.array_equal(o["ls_trials"],
+                                                plain["ls_trials"])),
+            newton_vs_plain=o["newton_solves"] - plain["newton_solves"])
+    return res
+
+
+def check_side_headline(res):
+    """Phase 12a gates: every mode's trial counts equal the plain search's
+    member for member and its cost history is within SIDE_REL of it; each
+    mode's counter is above 0; chunks count the plain search's Newton
+    solves (sub-batches and packed rounds count their own rows, so they
+    differ by construction); the plain search descends on rows 3-4 and the
+    numeric sub-batches take row 1."""
+    fails = []
+    for mode, c in res.items():
+        if not (c["finite"] and c["ls_trials_equal"]
+                and c["max_rel_cost_vs_plain"] <= SIDE_REL):
+            fails.append(f"{mode}: trials equal {c['ls_trials_equal']}, "
+                         f"cost {c['max_rel_cost_vs_plain']}")
+        if mode in SIDE_COUNTER and c[SIDE_COUNTER[mode]] <= 0:
+            fails.append(f"{mode}: {SIDE_COUNTER[mode]} is 0")
+    if res["chunked 128"]["newton_vs_plain"] != 0:
+        fails.append("chunked 128: Newton solves differ from the plain run")
+    p = res["plain"]
+    if not p["mean_cost_history"][-1] < p["mean_cost_history"][0]:
+        fails.append("the plain search did not descend")
+    for mode, c in res.items():
+        need = ("march_fused_2d_blocked", "adjoint_fused_2d_blocked") + (
+            ("march_fused_2d",) if mode.startswith("straggler") else ())
+        fails += [f"{mode}: {k} never launched" for k in need
+                  if c["launches"].get(k, 0) <= 0]
+    if fails:
+        raise RuntimeError("phase 12a: " + "; ".join(fails) + f" | {res}")
+
+
+def _resume_case(torch, prob, sc, tmp, tag, iters=4, at=2):
+    """An uninterrupted run of `iters` iterations with metrics, one of `at`
+    that checkpoints at its end, and a resume from it to `iters`: their
+    cases, the metrics' events, and the resumed run's largest relative
+    difference from the uninterrupted one in u and in the cost history."""
+    import json
+    import os
+    from vch_tpu_torch.utils.checkpoint import host_numpy
+    ck, mp = os.path.join(tmp, f"{tag}.npz"), os.path.join(tmp,
+                                                           f"{tag}.jsonl")
+    full_c, full = side_mode_run(torch, prob, sc, iters, metrics_path=mp)
+    t0 = time.perf_counter()
+    prob.run(sc, max_iter=at, verbose=False, checkpoint_path=ck,
+             checkpoint_every=at, host_results=False)
+    ckpt_run_s = time.perf_counter() - t0
+    res_c, res = side_mode_run(torch, prob, sc, iters, start=at,
+                               checkpoint_path=ck, resume=True)
+    with open(mp) as f:
+        events = [json.loads(line)["event"] for line in f]
+    rel = lambda a, b: float(np.abs(host_numpy(a) - host_numpy(b)).max()
+                             / max(np.abs(host_numpy(b)).max(), 1e-30))
+    return dict(full=full_c, resumed=res_c, checkpoint_run_s=ckpt_run_s,
+                checkpoint_bytes=os.path.getsize(ck),
+                pgd_iter_records=events.count("pgd_iter"),
+                run_done_records=events.count("run_done"),
+                rel_u=rel(res["u"], full["u"]),
+                rel_cost=rel(res["cost_history"], full["cost_history"]),
+                phi_type=type(res["phi"]).__name__,
+                phi_on_host=all(isinstance(a, np.ndarray)
+                                for a in (res["phi"] if isinstance(
+                                    res["phi"], tuple) else (res["phi"],))))
+
+
+def side_config4(torch, device, tmp):
+    """Phase 12b: config 4 (128x128, T = 1, B = 128, the one-member
+    kernels): checkpoint at 2, resume to 4, against an uninterrupted 4 with
+    metrics; then trial_memory_analysis on the host batch, its peak over S
+    and over the chooser's estimate."""
+    from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
+                                              full_memory_estimate_bytes)
+    cfg = _config(128)
+    host = _bench_sweep(cfg, 128)
+    prob = BatchedProblem2D(cfg, device=device)
+    c = _resume_case(torch, prob, _on_device(torch, device, host), tmp, "c4")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tma = prob.trial_memory_analysis(host)
+    S = _traj_bytes(cfg, 128, prob.solver.M)
+    est = full_memory_estimate_bytes(cfg, 128)
+    c.update(trial_memory=tma, trial_memory_s=time.perf_counter() - t0,
+             S_bytes=S, estimate_bytes=est,
+             trial_peak_over_S=tma["peak_memory_in_bytes"] / S,
+             trial_peak_over_estimate=tma["peak_memory_in_bytes"] / est)
+    return c
+
+
+def side_lowmem(torch, device, tmp, B=8):
+    """Phase 12c: the low-memory arm at config 5's grid (256x256, T = 1,
+    K = 10, procedural ramp targets), B cut to 8: checkpoint at 2, resume
+    to 4, against an uninterrupted 4 (segment kernels, LowMemState)."""
+    from vch_tpu_torch.parallel.batch import LowMemBatchedProblem2D
+    cfg = _config(256)
+    prob = LowMemBatchedProblem2D(cfg, K=10, device=device)
+    sc = _on_device(torch, device, _bench_sweep(cfg, B, materialize=False))
+    return _resume_case(torch, prob, sc, tmp, "low")
+
+
+def check_side_resume(c, row_kernels, tag):
+    """Phases 12b-c gates: the resumed run within SIDE_REL of the
+    uninterrupted one in u and cost, 4 pgd_iter and 1 run_done records,
+    results on the host, the path's kernels launched in both runs."""
+    fails = []
+    if not (c["rel_u"] <= SIDE_REL and c["rel_cost"] <= SIDE_REL):
+        fails.append(f"resume differs: u {c['rel_u']}, cost {c['rel_cost']}")
+    if (c["pgd_iter_records"], c["run_done_records"]) != (4, 1):
+        fails.append(f"metrics: {c['pgd_iter_records']} pgd_iter, "
+                     f"{c['run_done_records']} run_done")
+    if not (c["phi_on_host"] and c["full"]["finite"]
+            and c["resumed"]["finite"]):
+        fails.append("results not finite numpy arrays on the host")
+    for run in ("full", "resumed"):
+        fails += [f"{run}: {k} never launched" for k in row_kernels
+                  if c[run]["launches"].get(k, 0) <= 0]
+    tma = c.get("trial_memory")
+    if tma is not None and not (
+            0 < tma["peak_memory_in_bytes"] <= c["estimate_bytes"]):
+        fails.append(f"trial peak {tma['peak_memory_in_bytes']} B not in "
+                     f"(0, the estimate {c['estimate_bytes']} B]")
+    if fails:
+        raise RuntimeError(f"phase {tag}: " + "; ".join(fails) + f" | {c}")
+
+
+def side_paths_phase(device=None, name=None, smi=None):
+    """Phase 12, each part logged, then gated. Alone on the card:
+    `python -c "import chip_smoke; chip_smoke.side_paths_phase()"`.
+    Returns the launches of rows 1-6 in its main paths' runs."""
+    import tempfile
+    import torch
+    if device is None:
+        device, name, smi = (torch.device("cuda", 0),
+                             torch.cuda.get_device_name(0), _smi())
+    t0 = time.perf_counter()
+    head = side_headline(torch, device)
+    for mode, c in head.items():
+        _log("12a", f"{mode} " + json.dumps(c) + f" | {name} | {smi}")
+    check_side_headline(head)
+    with tempfile.TemporaryDirectory(prefix="vch_side_") as tmp:
+        c4 = side_config4(torch, device, tmp)
+        _log("12b", json.dumps(c4) + f" | {name} | {smi}")
+        check_side_resume(c4, ("march_fused_2d", "adjoint_fused_2d"), "12b")
+        low = side_lowmem(torch, device, tmp)
+        _log("12c", json.dumps(low) + f" | {name} | {smi}")
+        check_side_resume(low, ("march_fused_2d_segment",
+                                "adjoint_fused_2d_segment"), "12c")
+    launches = {}
+    for runs in ([c for c in head.values()],
+                 [c4["full"], c4["resumed"], low["full"], low["resumed"]]):
+        for c in runs:
+            for k, v in c["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    _log(12, f"{time.perf_counter() - t0:.1f} s; launches in its runs "
+         + json.dumps(launches))
+    return launches
 
 
 def main():
@@ -4384,19 +4660,22 @@ def main():
     check_config1(c1)
     exact_phases(device, name, smi)
     cli_phase(device, name, smi)
+    side = side_paths_phase(device, name, smi)
 
     # config 2 again, one PGD iteration (the baseline march, one sweep, its
     # trials) under the profiler, after every timed phase: profiling slows
     # the host, during the profiled call and after it, so its wall is not a
     # rate
     _log("9p", json.dumps(device_share(
-        torch, lambda: prob9.run(sc9, max_iter=1, verbose=False)))
+        torch, lambda: prob9.run(sc9, max_iter=1, verbose=False,
+                                 host_results=False)))
         + f" | {name} | {smi}")
     del prob9, sc9
-    # the scan path at config 4's width likewise: one PGD iteration with its
-    # baseline march under the profiler
+    # the scan path at config 4's width likewise: its baseline march and
+    # one sweep under the profiler
     _log("4sp", json.dumps(device_share(
-        torch, lambda: prob4s.run(sc4s, max_iter=1, verbose=False)))
+        torch, lambda: prob4s.run(sc4s, max_iter=0, verbose=False,
+                                  host_results=False)))
         + f" | {name} | {smi}")
     del prob4s, sc4s
     # the applies on the device alone, last: see apply_device_times
@@ -4551,6 +4830,9 @@ def main():
                  device_ms=dv["ms"], oracle_device_ms=dv["oracle_ms"])
         kernels.append(e)
     kernels += _chain_probe_entries(chains, chains_dev, entry)
+    # rows 1-6: their launches in phase 12's runs beside their main paths'
+    for e in kernels[:6]:
+        e["launches_phase12"] = side.get(e["name"], 0)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

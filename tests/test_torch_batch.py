@@ -73,7 +73,7 @@ def test_slice_counters_match_vch_tpu(slice_runs):
 def test_slice_outputs_match_vch_tpu(slice_runs):
     _, jout, _, out = slice_runs
     for key in ("u", "phi", "r"):
-        a, b = np.asarray(jout[key]), out[key].numpy()
+        a, b = np.asarray(jout[key]), out[key]
         assert a.shape == b.shape, key
         scale = max(np.abs(a).max(), 1e-30)
         assert np.abs(a - b).max() / scale <= 2e-3, key

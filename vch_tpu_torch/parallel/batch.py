@@ -4,11 +4,17 @@ Each member of the scenario batch has its own initial condition, targets and
 cost weights (b1, b2, b3, kappa_spar). One PGD iteration runs the whole-batch
 adjoint sweep for r, then a host-driven masked optimistic/backtracking line
 search: every trial is prox -> whole-batch forward march -> cost, and once
-few members are still searching they are gathered into the smallest
-power-of-two bucket (>= 8) that holds them, padded with non-searching rows
-whose results are discarded (their Newton solves are still counted, as in
-vch_tpu). Plateau detection, alpha growth and convergence freezing follow
-vch_tpu/parallel/batch.py:922-984.
+few members are still searching they are gathered into a sub-batch
+(`straggler_batch`: a fixed size, or "auto", the smallest power-of-two
+bucket >= 8 that holds them), padded with non-searching rows whose results
+are discarded (their Newton solves are still counted, as in vch_tpu); or,
+with `speculative`, several backtracking candidates per straggler are
+packed into one full-batch trial. `chunk_size` runs the adjoint, the trial
+and the forward on chunks of the batch. Plateau detection, alpha growth and
+convergence freezing follow vch_tpu/parallel/batch.py:922-984. `run` takes
+vch_tpu's checkpoint/resume, JSONL metrics and `host_results` (numpy
+results by default); `prewarm` pays the kernels' first-launch costs and
+`trial_memory_analysis` measures a trial's device memory.
 
 Three problems share that PGD loop (`_BatchedPGDBase`): `BatchedProblem2D`
 keeps each member's whole trajectory, `LowMemBatchedProblem2D` keeps K-step
@@ -21,10 +27,9 @@ the batched per-step marcher, its adjoint the batched per-step sweep. The two
 (the batched per-step marcher and sweep), by vch_tpu's rule
 (`fused_march_rule`).
 
-Not ported (single device, eager PyTorch): the device mesh and
-`shard_fused`, the combined (scenarios, grid) mesh problem, the speculative
-search, chunked execution, checkpoint/resume and `prewarm` (eager PyTorch
-compiles nothing per bucket shape).
+Not ported (ROADMAP A7): the device mesh (`mesh`, `use_mesh`, which raise
+NotImplementedError), `shard_fused`, the per-device straggler compaction
+and the combined (scenarios, grid) mesh problem.
 """
 from __future__ import annotations
 
@@ -139,6 +144,17 @@ def straggler_bucket(n_search: int, B: int) -> Optional[int]:
     return sb if sb < B else None
 
 
+_MESH_NOT_PORTED = (
+    "mesh / use_mesh: the multi-device paths of vch_tpu (parallel/mesh.py, "
+    "parallel/spatial.py, shard_fused) are not ported to vch_tpu_torch yet "
+    "(ROADMAP A7); run without a mesh")
+
+
+def _refuse_mesh(mesh, use_mesh: bool):
+    if mesh is not None or use_mesh:
+        raise NotImplementedError(_MESH_NOT_PORTED)
+
+
 def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.ndim - 1))
 
@@ -153,34 +169,95 @@ def _tmap(fn, *trees):
     return fn(*trees)
 
 
+def _gather(it: torch.Tensor, *trees) -> list:
+    """The rows `it` (indices may repeat) of each tree's tensors."""
+    return [_tmap(lambda x: x.index_select(0, it), a) for a in trees]
+
+
+def _scatter(res: tuple, sub: tuple, it: torch.Tensor, take: torch.Tensor):
+    """`res` with its rows `it` (no index repeated) set to the rows of `sub`
+    where take (len(it),), and left as they are elsewhere."""
+    put = lambda full, s: full.index_copy(
+        0, it, torch.where(_bcast(take, s), s, full.index_select(0, it)))
+    return tuple(_tmap(put, f, s) for f, s in zip(res, sub))
+
+
+def _leaves(tree):
+    """The tensors of a (nested) tuple / NamedTuple of tensors and None."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def _cat(outs):
+    """Concatenate along dim 0 the matching leaves of a list of results (a
+    tensor, None, or a tuple / NamedTuple of them)."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        parts = [_cat([o[i] for o in outs]) for i in range(len(first))]
+        return (type(first)(*parts) if hasattr(first, "_fields")
+                else tuple(parts))
+    return torch.cat(outs, dim=0)
+
+
+def _torch_dtype(dtype) -> Optional[torch.dtype]:
+    """None, a torch dtype, or a numpy dtype or its name, as a torch dtype."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 class _BatchedPGDBase:
-    """The batched PGD loop on one device: `run`, the masked `_search`
-    and the bucket ladder (vch_tpu/parallel/batch.py:_BatchedPGDBase).
-    A subclass sets `solver` (its forward solver) before calling __init__
-    with its PGD settings and the shape of one member's control, and
-    supplies the hooks
+    """The batched PGD loop on one device: `run`, the masked `_search`, the
+    speculative `_search_speculative`, the chunker, `prewarm` and
+    `trial_memory_analysis` (vch_tpu/parallel/batch.py:_BatchedPGDBase).
+    A subclass sets `solver` (its forward solver) and `_use_fused_march`
+    before calling __init__ with its PGD settings and the shape of one
+    member's control, and supplies the hooks
       _forward_stats(u, phi0, phi_Q, phi_T) -> (phi, newton_solves (B,)),
       _adjoint(phi, u, b1, b2, phi_Q, phi_T) -> r (B, M+1, ...),
       _cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks) -> (B,),
     where phi is whatever the subclass's forward keeps per member: a tensor
-    or a NamedTuple of tensors, each with a leading batch axis. With
-    `straggler_buckets` off every trial runs the whole batch (vch_tpu's
-    straggler_batch=None, its default where no fused forward is set)."""
+    or a NamedTuple of tensors, each with a leading batch axis.
+
+    straggler_batch (vch_tpu :188-204): None runs every trial on the whole
+    batch; an int sb gathers the still-searching members, padded with
+    non-searching rows to exactly sb, into a sub-batch trial once
+    0 < searching <= sb < B; "auto" takes the smallest power-of-two bucket
+    (>= 8, < B) that holds them each round, and is the default where the
+    fused route is on. speculative (:206-214) packs several backtracking
+    candidates per straggler into one full-batch trial
+    (`_search_speculative`). chunk_size (:176-187) runs the adjoint, the
+    trial and the forward on chunk_size members per call where it divides
+    the batch. The counters straggler_rounds, speculative_rounds and
+    chunk_calls count sub-batch rounds, packed rounds and chunked calls."""
 
     def __init__(self, settings: PGDSettings, alpha_max: float,
-                 control_shape: tuple, straggler_buckets: bool = True):
+                 control_shape: tuple, straggler_batch=None,
+                 speculative: Optional[bool] = None,
+                 chunk_size: Optional[int] = None):
         self.device = self.solver.dts.device
         self.dtype = self.solver.dtype
         self.s = settings
         self.alpha_max = alpha_max
-        self.straggler_buckets = straggler_buckets
-        self.straggler_rounds = 0
         self._control_shape = tuple(control_shape)
+        self.chunk_size = chunk_size
+        self.chunk_calls = 0
+        if straggler_batch is None and self._use_fused_march:
+            straggler_batch = "auto"
+        self.straggler_batch = straggler_batch or None
+        self.straggler_rounds = 0
+        self.speculative = bool(speculative)
+        self.speculative_rounds = 0
 
     def _set_phi_Q_mode(self, mode: Optional[str]):
         """Procedural tracking targets (ScenarioBatch.phi_Q None) need a
@@ -189,15 +266,47 @@ class _BatchedPGDBase:
             "ScenarioBatch.phi_Q=None (procedural targets) is supported by "
             "LowMemBatchedProblem2D only; pass a materialized phi_Q here")
 
+    def _chunked(self, fn, *args):
+        """fn(*args) on chunk_size members per call, the results
+        concatenated along the batch axis (vch_tpu :255-275): every
+        argument leaf whose leading axis is the batch is sliced. The plain
+        call where chunking is off, chunk_size >= B or B % chunk_size."""
+        c = self.chunk_size
+        B = next(t.shape[0] for t in _leaves(args) if t.ndim > 0)
+        if not c or c >= B or B % c:
+            return fn(*args)
+        outs = []
+        for i in range(0, B, c):
+            sl = lambda t: (t[i:i + c] if t.ndim > 0 and t.shape[0] == B
+                            else t)
+            outs.append(fn(*[_tmap(sl, a) for a in args]))
+            self.chunk_calls += 1
+        return _cat(outs)
+
+    def _forward_v(self, u, phi0, phi_Q, phi_T):
+        return self._chunked(self._forward_stats, u, phi0, phi_Q, phi_T)
+
+    def _adjoint_v(self, phi, u, b1, b2, phi_Q, phi_T):
+        return self._chunked(self._adjoint, phi, u, b1, b2, phi_Q, phi_T)
+
     def _trial(self, u, r, alpha, phi0, phi_Q, phi_T, b1, b2, b3, ks):
         """prox -> forward march -> cost for a (sub-)batch; returns
-        (u_t, phi_t, cost, newton_solves (int))."""
+        (u_t, phi_t, cost, newton_solves (B,))."""
         grad = calculate_gradient(r, u, _bcast(b3, u))
         u_t = proximal_step(u, grad, _bcast(alpha, u), _bcast(ks, u),
                             self.u_min, self.u_max)
         phi_t, nsolve = self._forward_stats(u_t, phi0, phi_Q, phi_T)
         c_t = self._cost(phi_t, u_t, phi_Q, phi_T, b1, b2, b3, ks)
-        return u_t, phi_t, c_t, int(nsolve.sum())
+        return u_t, phi_t, c_t, nsolve
+
+    def _trial_v(self, *args):
+        return self._chunked(self._trial, *args)
+
+    @staticmethod
+    def _merge(take: torch.Tensor, new, old):
+        """Per member, `new` where take (B,) else `old`."""
+        pick = lambda a, b: torch.where(_bcast(take, a), a, b)
+        return tuple(_tmap(pick, n, o) for n, o in zip(new, old))
 
     @staticmethod
     def _change(u1, u):
@@ -207,12 +316,15 @@ class _BatchedPGDBase:
         return num / den
 
     def _search(self, u, cost_np, alpha_prev_np, r, phi0, phi_Q, phi_T,
-                b1, b2, b3, ks):
+                b1, b2, b3, ks, dtype):
         """Masked host-driven optimistic + backtracking search
-        (vch_tpu/parallel/batch.py:401-546): alpha_prev first, then
-        alpha_prev * ls_alpha_factor * ls_beta^(j-1); a member that fails
-        every trial keeps its last (worse) iterate, alpha already times
-        beta."""
+        (vch_tpu/parallel/batch.py:401-546, its single-device arms):
+        alpha_prev first, then alpha_prev * ls_alpha_factor * ls_beta^(j-1);
+        a member that fails every trial keeps its last (worse) iterate,
+        alpha already times beta. Backtracking rounds with few members still
+        searching run on a gathered sub-batch (`straggler_batch`), padded
+        with non-searching rows whose results are discarded (their Newton
+        solves are still counted, as in vch_tpu)."""
         s = self.s
         B = cost_np.shape[0]
         max_trials = 1 + s.ls_max_trials
@@ -224,43 +336,38 @@ class _BatchedPGDBase:
         res_alpha = alpha_prev_np.copy()
         solves = 0
         phase = {"optimistic": 0.0, "backtracking": 0.0}
-        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
-                                         device=self.device)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        sb = self.straggler_batch
         for j in range(max_trials):
             t_j = time.perf_counter()
             n_search = int(searching.sum())
             last = j == max_trials - 1
             nxt = np.where(j == 0, alpha_prev_np * s.ls_alpha_factor,
                            alpha_try * s.ls_beta)
-            sb_j = (straggler_bucket(n_search, B) if self.straggler_buckets
-                    else None)
-            if sb_j is not None and j > 0 and res is not None:
+            sb_j = straggler_bucket(n_search, B) if sb == "auto" else sb
+            if (sb_j is not None and j > 0 and res is not None
+                    and 0 < n_search <= sb_j < B):
                 self.straggler_rounds += 1
                 # searching members + non-searching padding rows, whose
-                # writes are masked off below
+                # writes are masked off below; no index repeats
                 idx = np.concatenate([
                     np.nonzero(searching)[0],
                     np.nonzero(~searching)[0][: sb_j - n_search]])
                 it = torch.as_tensor(idx, device=self.device)
-                g = lambda a: _tmap(lambda x: x.index_select(0, it), a)
-                u_t, phi_t, c_t, ns = self._trial(
-                    g(u), g(r), as_t(alpha_try[idx]), g(phi0), g(phi_Q),
-                    g(phi_T), g(b1), g(b2), g(b3), g(ks))
-                solves += ns
+                u_t, phi_t, c_t, ns = self._trial_v(
+                    *_gather(it, u, r), as_t(alpha_try[idx]),
+                    *_gather(it, phi0, phi_Q, phi_T, b1, b2, b3, ks))
+                solves += int(ns.sum())
                 c_sub = c_t.cpu().numpy()
                 ok = np.zeros(B, dtype=bool)
                 ok[idx] = c_sub < cost_np[idx]
                 take = searching & (ok | last)
-                tk = torch.as_tensor(take[idx], device=self.device)
-                put = lambda full, sub: full.index_copy(
-                    0, it, torch.where(_bcast(tk, sub), sub,
-                                       full.index_select(0, it)))
-                res = tuple(_tmap(put, full, sub)
-                            for full, sub in zip(res, (u_t, phi_t, c_t)))
+                res = _scatter(res, (u_t, phi_t, c_t), it, torch.as_tensor(
+                    take[idx], device=self.device))
             else:
-                u_t, phi_t, c_t, ns = self._trial(
+                u_t, phi_t, c_t, ns = self._trial_v(
                     u, r, as_t(alpha_try), phi0, phi_Q, phi_T, b1, b2, b3, ks)
-                solves += ns
+                solves += int(ns.sum())
                 c_np = c_t.cpu().numpy()
                 ok = c_np < cost_np
                 take = searching & (ok | last)
@@ -268,10 +375,7 @@ class _BatchedPGDBase:
                     res = (u_t, phi_t, c_t)
                 else:
                     tk = torch.as_tensor(take, device=self.device)
-                    pick = lambda new, old: torch.where(_bcast(tk, new), new,
-                                                        old)
-                    res = tuple(_tmap(pick, new, old)
-                                for new, old in zip((u_t, phi_t, c_t), res))
+                    res = self._merge(tk, (u_t, phi_t, c_t), res)
             res_alpha = np.where(take, np.where(ok, alpha_try, nxt), res_alpha)
             n_trials = np.where(searching, j + 1, n_trials)
             if j == 0:
@@ -286,58 +390,306 @@ class _BatchedPGDBase:
         return (u1, phi1, c1.cpu().numpy(), res_alpha, n_trials, opt_ok,
                 solves, phase)
 
-    def run(self, scenarios: ScenarioBatch, max_iter: int,
-            verbose: bool = True):
-        """Vectorized PGD over the batch (vch_tpu/parallel/batch.py:819-1006).
-
-        Returns a dict: u, r, phi (on the problem's device; phi is what
-        the problem keeps per member), cost_history (max_iter+1, B), alpha,
-        converged, iterations, newton_solves (forward Newton linear solves,
-        padding rows included), timers (backward / optimistic /
-        backtracking split), advisor_alpha and ls_trials."""
+    def _search_speculative(self, u, cost_np, alpha_prev_np, r, phi0, phi_Q,
+                            phi_T, b1, b2, b3, ks, dtype):
+        """The same trial sequence as `_search`, the backtracking ladder
+        evaluated speculatively (vch_tpu/parallel/batch.py:548-684): once
+        <= B/2 members are still searching, one full-batch trial packs
+        several ladder candidates alpha_prev * f * beta^(t-1) per straggler
+        (round-robin over the B rows; the gather repeats members), and each
+        member keeps its first succeeding candidate, which is what the
+        sequential schedule would have selected. Only the taken rows are
+        written back, so the scatter repeats no index."""
+        s = self.s
+        B = cost_np.shape[0]
+        max_trials = 1 + s.ls_max_trials
+        phase = {"optimistic": 0.0, "backtracking": 0.0}
         dev = self.device
-        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=dev)
-        B = scenarios.batch
-        phi0, phi_T = as_t(scenarios.phi0), as_t(scenarios.phi_T)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+
+        # round 0: the optimistic trial at alpha_prev for every member
+        t_j = time.perf_counter()
+        u_t, phi_t, c_t, ns = self._trial_v(u, r, as_t(alpha_prev_np), phi0,
+                                            phi_Q, phi_T, b1, b2, b3, ks)
+        solves = int(ns.sum())
+        ok = c_t.cpu().numpy() < cost_np
+        res = (u_t, phi_t, c_t)
+        opt_ok = ok.copy()
+        phase["optimistic"] += time.perf_counter() - t_j
+
+        searching = ~ok
+        pos = np.ones(B, dtype=int)          # ladder trials consumed so far
+        n_trials = np.ones(B, dtype=int)
+        res_alpha = np.where(ok, alpha_prev_np,
+                             alpha_prev_np * s.ls_alpha_factor)
+        lead = alpha_prev_np * s.ls_alpha_factor     # ladder head per member
+        ladder = lambda m, t: lead[m] * s.ls_beta ** (t - 1)
+
+        while searching.any():
+            t_j = time.perf_counter()
+            idx_s = np.nonzero(searching)[0]
+            n_s = idx_s.size
+            if n_s > B // 2:
+                # too many stragglers to pack >= 2 candidates each: a plain
+                # full-batch masked round, one ladder step per member
+                alpha_try = np.where(searching, ladder(np.arange(B), pos),
+                                     res_alpha)
+                u_t, phi_t, c_t, ns = self._trial_v(
+                    u, r, as_t(alpha_try), phi0, phi_Q, phi_T, b1, b2, b3, ks)
+                solves += int(ns.sum())
+                ok_full = (c_t.cpu().numpy() < cost_np) & searching
+                pos_new = pos + searching
+                fail_out = searching & ~ok_full & (pos_new >= max_trials)
+                take = ok_full | fail_out
+                res = self._merge(torch.as_tensor(take, device=dev),
+                                  (u_t, phi_t, c_t), res)
+                res_alpha = np.where(
+                    ok_full, alpha_try,
+                    np.where(fail_out, alpha_try * s.ls_beta, res_alpha))
+                n_trials = np.where(take, pos_new, n_trials)
+                pos = pos_new
+                searching = searching & ~take
+                phase["backtracking"] += time.perf_counter() - t_j
+                continue
+
+            # packing: the B rows of one trial round-robin over the
+            # stragglers' remaining ladders, padded with an idle member
+            self.speculative_rounds += 1
+            rem = max_trials - pos[idx_s]
+            base, extra = divmod(B, n_s)
+            counts = np.minimum(base + (np.arange(n_s) < extra), rem)
+            rows_m = np.repeat(idx_s, counts)
+            rows_t = np.concatenate(
+                [pos[m] + np.arange(c) for m, c in zip(idx_s, counts)])
+            n_rows = rows_m.size
+            h = int(np.nonzero(~searching)[0][0])
+            if n_rows < B:
+                rows_m = np.concatenate(
+                    [rows_m, np.full(B - n_rows, h, dtype=int)])
+                rows_t = np.concatenate(
+                    [rows_t, np.ones(B - n_rows, dtype=int)])
+            alpha_rows = ladder(rows_m, rows_t)
+            it = torch.as_tensor(rows_m, device=dev)
+            u_t, phi_t, c_t, ns = self._trial_v(
+                *_gather(it, u, r), as_t(alpha_rows),
+                *_gather(it, phi0, phi_Q, phi_T, b1, b2, b3, ks))
+            solves += int(ns.sum())
+            ok_rows = c_t.cpu().numpy() < cost_np[rows_m]
+
+            # per straggler: the first succeeding candidate in ladder order
+            # (rows_t ascends by construction), or, once its ladder is used
+            # up, its last (worse) candidate with alpha shrunk once more
+            rows, tgt = [], []
+            still = searching.copy()
+            for m in idx_s:
+                rows_i = np.nonzero(rows_m[:n_rows] == m)[0]
+                hits = rows_i[ok_rows[rows_i]]
+                if hits.size:
+                    w = int(hits[0])
+                    res_alpha[m] = alpha_rows[w]
+                    n_trials[m] = rows_t[w] + 1
+                else:
+                    pos[m] += rows_i.size
+                    if pos[m] < max_trials:
+                        continue
+                    w = int(rows_i[-1])
+                    res_alpha[m] = alpha_rows[w] * s.ls_beta
+                    n_trials[m] = max_trials
+                rows.append(w)
+                tgt.append(m)
+                still[m] = False
+            if rows:
+                src = torch.as_tensor(rows, device=dev)
+                dst = torch.as_tensor(tgt, device=dev)
+                put = lambda full, sub: full.index_copy(
+                    0, dst, sub.index_select(0, src))
+                res = tuple(_tmap(put, full, sub)
+                            for full, sub in zip(res, (u_t, phi_t, c_t)))
+            searching = still
+            phase["backtracking"] += time.perf_counter() - t_j
+
+        u1, phi1, c1 = res
+        return (u1, phi1, c1.cpu().numpy(), res_alpha, n_trials, opt_ok,
+                solves, phase)
+
+    def _straggler_buckets(self, B: int) -> list:
+        """The sub-batch sizes the masked search can gather into
+        (vch_tpu :686-715, single device)."""
+        sb = self.straggler_batch
+        if sb is None:
+            return []
+        if sb == "auto":
+            out, c = [], 8
+            while c < B:
+                out.append(c)
+                c *= 2
+            return out
+        return [sb] if 0 < sb < B else []
+
+    def _inputs(self, scenarios: ScenarioBatch, dtype):
+        """The scenario batch on the problem's device in `dtype`:
+        (phi0, phi_Q, phi_T, b1, b2, b3, ks); sets the prox bounds and a
+        procedural phi_Q's mode."""
+        as_t = lambda a: (None if a is None else
+                          torch.as_tensor(a, dtype=dtype, device=self.device))
         if scenarios.phi_Q is None:
             self._set_phi_Q_mode(scenarios.phi_Q_mode)
-            phi_Q = None
-        else:
-            phi_Q = as_t(scenarios.phi_Q)
-        b1, b2 = as_t(scenarios.b1), as_t(scenarios.b2)
-        b3, ks = as_t(scenarios.b3), as_t(scenarios.kappa_spar)
         self.u_min, self.u_max = scenarios.u_min, scenarios.u_max
+        return tuple(as_t(a) for a in (
+            scenarios.phi0, scenarios.phi_Q, scenarios.phi_T, scenarios.b1,
+            scenarios.b2, scenarios.b3, scenarios.kappa_spar))
+
+    def trial_memory_analysis(self, scenarios: ScenarioBatch, dtype=None):
+        """Device memory of one full-batch line-search trial (u and r of
+        zeros, alpha 1), the run's peak-memory step (vch_tpu :717-746).
+
+        vch_tpu reads XLA's compile-time buffer assignment; eager PyTorch
+        has none, so on a CUDA device this runs the trial and reads the
+        allocator: peak_memory_in_bytes is the peak allocated during the
+        trial less what was allocated before its arguments were made,
+        argument_size_in_bytes and output_size_in_bytes the bytes of the
+        trial's argument and output tensors, temp_size_in_bytes the rest of
+        the peak, alias_size_in_bytes and generated_code_size_in_bytes 0.
+        On a CPU device it returns None, vch_tpu's answer for a backend
+        with no analysis: PyTorch keeps no allocator statistics for host
+        memory."""
+        if self.device.type != "cuda":
+            return None
+        dev = self.device
+        dtype = _torch_dtype(dtype) or self.dtype
+        B = scenarios.batch
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev)
+        phi0, phi_Q, phi_T, b1, b2, b3, ks = self._inputs(scenarios, dtype)
+        u = torch.zeros((B,) + self._control_shape, dtype=dtype, device=dev)
+        args = (u, torch.zeros_like(u), torch.ones(B, dtype=dtype, device=dev),
+                phi0, phi_Q, phi_T, b1, b2, b3, ks)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = self._trial_v(*args)
+        _sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        nbytes = lambda tree: sum(t.numel() * t.element_size()
+                                  for t in _leaves(tree))
+        arg_b, out_b = nbytes(args), nbytes(out)
+        return {"peak_memory_in_bytes": int(peak),
+                "argument_size_in_bytes": int(arg_b),
+                "output_size_in_bytes": int(out_b),
+                "temp_size_in_bytes": int(max(peak - arg_b - out_b, 0)),
+                "alias_size_in_bytes": 0,
+                "generated_code_size_in_bytes": 0}
+
+    def prewarm(self, scenarios: ScenarioBatch, dtype=None):
+        """Pay the first-launch costs before a timed run (vch_tpu
+        :748-817): the kernel library's build and load (`ops/_build.load`,
+        nvcc on a fresh checkout), then one throwaway full-batch trial and
+        masked merge and, at each size of `_straggler_buckets`, one gather
+        -> sub-batch trial -> masked scatter, so that each kernel's first
+        launch (its shared-memory attributes) falls here too. Nothing when
+        no bucket applies, as in vch_tpu, and nothing on a CPU device,
+        where the plain versions have nothing to build."""
+        B = scenarios.batch
+        buckets = self._straggler_buckets(B)
+        if not buckets or self.device.type != "cuda":
+            return
+        from vch_tpu_torch.ops import _build
+        _build.load()
+        dev = self.device
+        dtype = _torch_dtype(dtype) or self.dtype
+        phi0, phi_Q, phi_T, b1, b2, b3, ks = self._inputs(scenarios, dtype)
+        u = torch.zeros((B,) + self._control_shape, dtype=dtype, device=dev)
+        r = torch.zeros_like(u)
+        ones = lambda n: torch.ones(n, dtype=dtype, device=dev)
+        res = self._trial_v(u, r, ones(B), phi0, phi_Q, phi_T, b1, b2, b3,
+                            ks)[:3]
+        res = self._merge(torch.zeros(B, dtype=torch.bool, device=dev),
+                          res, res)
+        for bsz in buckets:
+            it = torch.arange(bsz, device=dev)
+            out = self._trial_v(*_gather(it, u, r), ones(bsz),
+                                *_gather(it, phi0, phi_Q, phi_T, b1, b2, b3,
+                                         ks))
+            res = _scatter(res, out[:3], it, torch.zeros(
+                bsz, dtype=torch.bool, device=dev))
+        _sync(dev)
+
+    def run(self, scenarios: ScenarioBatch, max_iter: int,
+            verbose: bool = True, dtype=None,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 0, resume: bool = False,
+            metrics_path: Optional[str] = None,
+            host_results: bool = True):
+        """Vectorized PGD over the batch (vch_tpu/parallel/batch.py:819-1006).
+
+        dtype: the inputs' dtype (None: the problem's). checkpoint_path with
+        checkpoint_every writes the optimizer state (u, alpha, plateau,
+        converged, iters_to_converge, cost_history; meta `iteration`) every
+        checkpoint_every iterations (utils/checkpoint.py, vch_tpu's file
+        layout); resume=True restarts from it, recomputing phi from u with
+        one forward solve, whose Newton solves are counted. metrics_path:
+        one JSON line per iteration (`pgd_iter`) and a `run_done` line
+        (utils/metrics.py).
+
+        Returns a dict: u, r, phi (host numpy arrays, phi tree-mapped where
+        it is a NamedTuple; with host_results=False tensors on the
+        problem's device), cost_history (iterations+1, B), alpha,
+        converged, iterations, newton_solves (forward Newton linear solves,
+        padding and packed rows included), timers (backward / optimistic /
+        backtracking split), advisor_alpha and ls_trials."""
+        from vch_tpu_torch.utils.checkpoint import (host_numpy,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+        from vch_tpu_torch.utils.metrics import MetricsLogger
+        metrics = MetricsLogger(metrics_path) if metrics_path else None
+        dev = self.device
+        dtype = _torch_dtype(dtype) or self.dtype
+        B = scenarios.batch
+        phi0, phi_Q, phi_T, b1, b2, b3, ks = self._inputs(scenarios, dtype)
 
         timers = {"total_optimization": 0.0, "backward_total": 0.0,
                   "line_search_total": 0.0, "optimistic_eval_total": 0.0,
                   "backtracking_total": 0.0}
         t_run0 = time.perf_counter()
-        u = torch.zeros((B,) + self._control_shape, dtype=self.dtype,
-                        device=dev)
-        phi, ns0 = self._forward_stats(u, phi0, phi_Q, phi_T)
+        k_start = 0
+        if resume and checkpoint_path:
+            state, meta = load_checkpoint(checkpoint_path)
+            u = torch.as_tensor(state["u"], dtype=dtype, device=dev)
+            phi, ns0 = self._forward_v(u, phi0, phi_Q, phi_T)
+            alpha = state["alpha"]
+            plateau = state["plateau"].astype(int)
+            converged = state["converged"].astype(bool)
+            iters_to_converge = state["iters_to_converge"].astype(int)
+            cost_hist = list(state["cost_history"])
+            k_start = int(meta["iteration"])
+            if verbose:
+                print(f"[resume] from {checkpoint_path} at iter {k_start}")
+        else:
+            u = torch.zeros((B,) + self._control_shape, dtype=dtype,
+                            device=dev)
+            phi, ns0 = self._forward_v(u, phi0, phi_Q, phi_T)
+            cost = self._cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks)
+            alpha = np.full((B,), self.alpha_max)
+            cost_hist = [cost.cpu().numpy()]
+            plateau = np.zeros(B, dtype=int)
+            converged = np.zeros(B, dtype=bool)
+            iters_to_converge = np.full(B, max_iter, dtype=int)
         newton_solves = int(ns0.sum())
-        cost = self._cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks)
-        cost_hist = [cost.cpu().numpy()]
-        alpha = np.full((B,), self.alpha_max)
-        plateau = np.zeros(B, dtype=int)
-        converged = np.zeros(B, dtype=bool)
-        iters_to_converge = np.full(B, max_iter, dtype=int)
         s = self.s
         advisor_sum = np.zeros(B)
         advisor_cnt = np.zeros(B, dtype=int)
         ls_trials = np.zeros(B, dtype=int)
+        search = self._search_speculative if self.speculative else self._search
         r = None
 
-        for k in range(max_iter):
+        for k in range(k_start, max_iter):
             t0 = time.perf_counter()
-            r = self._adjoint(phi, u, b1, b2, phi_Q, phi_T)
+            r = self._adjoint_v(phi, u, b1, b2, phi_Q, phi_T)
             _sync(dev)
             timers["backward_total"] += time.perf_counter() - t0
             alpha_prev = alpha.copy()
             u_prev = u
-            u, phi, c_np, a_np, n_trials, opt_ok, solves, phase = self._search(
+            u, phi, c_np, a_np, n_trials, opt_ok, solves, phase = search(
                 u, cost_hist[-1], alpha, r, phi0, phi_Q, phi_T,
-                b1, b2, b3, ks)
+                b1, b2, b3, ks, dtype)
             timers["line_search_total"] += phase["backtracking"]
             timers["optimistic_eval_total"] += phase["optimistic"]
             timers["backtracking_total"] += phase["backtracking"]
@@ -364,18 +716,39 @@ class _BatchedPGDBase:
                 print(f"iter {k+1:4d} | mean cost {c_np.mean():.6f} | "
                       f"converged {converged.sum()}/{B} | "
                       f"max trials {int(np.asarray(n_trials).max())}")
+            if metrics:
+                metrics.log("pgd_iter", k=k + 1, mean_cost=float(c_np.mean()),
+                            max_cost=float(c_np.max()),
+                            converged=int(converged.sum()),
+                            max_trials=int(np.asarray(n_trials).max()),
+                            newton_solves=newton_solves,
+                            mean_alpha=float(np.mean(a_np)))
+            if (checkpoint_path and checkpoint_every
+                    and (k + 1) % checkpoint_every == 0):
+                save_checkpoint(
+                    checkpoint_path,
+                    {"u": u, "alpha": alpha, "plateau": plateau,
+                     "converged": converged,
+                     "iters_to_converge": iters_to_converge,
+                     "cost_history": np.stack(cost_hist)},
+                    {"iteration": k + 1})
             if converged.all():
                 break
 
         if r is None:
-            r = self._adjoint(phi, u, b1, b2, phi_Q, phi_T)
+            # the loop never ran (max_iter 0, or a resume at max_iter)
+            r = self._adjoint_v(phi, u, b1, b2, phi_Q, phi_T)
         _sync(dev)
         timers["total_optimization"] = time.perf_counter() - t_run0
         advisor_alpha = np.where(advisor_cnt > 0,
                                  advisor_sum / np.maximum(advisor_cnt, 1),
                                  np.nan)
+        if metrics:
+            metrics.log("run_done", timers=timers,
+                        newton_solves=newton_solves)
+        out = host_numpy if host_results else (lambda a: a)
         return {
-            "u": u, "r": r, "phi": phi,
+            "u": out(u), "r": out(r), "phi": _tmap(out, phi),
             "cost_history": np.stack(cost_hist), "alpha": np.asarray(alpha),
             "converged": converged, "iterations": iters_to_converge,
             "newton_solves": newton_solves, "timers": timers,
@@ -411,17 +784,21 @@ class BatchedProblem1D(_BatchedPGDBase):
     duplicated (vch_tpu/parallel/batch.py:1009-1109).
 
     fused_march: the forward solve of the baseline and of every line-search
-    trial as one launch of the fused 1D march kernel, with the straggler
-    buckets on. None turns it on for a CUDA device on the float32 spectral
-    fixed-trip path. A (sub-)batch the kernel's availability rule refuses
-    (`ForwardSolver1D.fused_march_available`) takes the batched per-step
-    marcher, as does every forward solve with fused_march off, which also
-    runs every trial on the whole batch."""
+    trial as one launch of the fused 1D march kernel, with straggler_batch
+    "auto" unless given. None turns it on for a CUDA device on the float32
+    spectral fixed-trip path. A (sub-)batch the kernel's availability rule
+    refuses (`ForwardSolver1D.fused_march_available`) takes the batched
+    per-step marcher, as does every forward solve with fused_march off,
+    which also runs every trial on the whole batch unless straggler_batch
+    is given. straggler_batch, speculative and chunk_size: see
+    _BatchedPGDBase; a mesh raises (ROADMAP A7)."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig1D] = None,
                  settings: Optional[PGDSettings] = None,
-                 alpha_max: float = 100.0, device=None,
-                 fused_march: Optional[bool] = None):
+                 alpha_max: float = 100.0, mesh=None, use_mesh: bool = False,
+                 straggler_batch=None, speculative=None, chunk_size=None,
+                 fused_march: Optional[bool] = None, device=None):
+        _refuse_mesh(mesh, use_mesh)
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig1D()
         device = resolve_device(device)
         self.solver = ForwardSolver1D(cfg, device=device)
@@ -432,7 +809,8 @@ class BatchedProblem1D(_BatchedPGDBase):
                   and self.solver._krylov_fixed is not None))
         super().__init__(settings or PGDSettings.defaults_1d(), alpha_max,
                          (self.solver.M + 2, cfg.N + 1),
-                         straggler_buckets=self._use_fused_march)
+                         straggler_batch=straggler_batch,
+                         speculative=speculative, chunk_size=chunk_size)
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
         t_ref = np.concatenate([[0.0], self.solver.t_hist])
         self._x = as_t(self.solver.x)
@@ -468,10 +846,17 @@ class BatchedProblem1D(_BatchedPGDBase):
         cat = torch.cat if isinstance(pq, torch.Tensor) else np.concatenate
         return dataclasses.replace(scenarios, phi_Q=cat([pq[:, :1], pq], 1))
 
+    def prewarm(self, scenarios: ScenarioBatch, dtype=None):
+        return super().prewarm(self._to_ref_layout(scenarios), dtype)
+
+    def trial_memory_analysis(self, scenarios: ScenarioBatch, dtype=None):
+        return super().trial_memory_analysis(self._to_ref_layout(scenarios),
+                                             dtype)
+
     def run(self, scenarios: ScenarioBatch, max_iter: int,
-            verbose: bool = True):
+            verbose: bool = True, dtype=None, **kwargs):
         return super().run(self._to_ref_layout(scenarios), max_iter,
-                           verbose=verbose)
+                           verbose=verbose, dtype=dtype, **kwargs)
 
 
 class BatchedProblem2D(_BatchedPGDBase):
@@ -481,16 +866,20 @@ class BatchedProblem2D(_BatchedPGDBase):
     fused_march (`fused_march_rule`; None: on for a CUDA device where the
     kernels carry the config): the forward solve of the baseline and of
     every trial as one launch of the whole-march kernel and the adjoint as
-    one of the whole-sweep kernel (where its own rule holds), with the
-    straggler buckets on. Off, the scan path: the batched per-step marcher
-    and sweep (masked lockstep over the members; on a float32 CUDA run the
-    per-solve kernels, one CTA per member; adaptive Krylov in float64), and
-    every trial runs on the whole batch."""
+    one of the whole-sweep kernel (where its own rule holds), with
+    straggler_batch "auto" unless given. Off, the scan path: the batched
+    per-step marcher and sweep (masked lockstep over the members; on a
+    float32 CUDA run the per-solve kernels, one CTA per member; adaptive
+    Krylov in float64), every trial on the whole batch unless
+    straggler_batch is given. straggler_batch, speculative and chunk_size:
+    see _BatchedPGDBase; a mesh raises (ROADMAP A7)."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
                  settings: Optional[PGDSettings] = None,
-                 alpha_max: float = 50.0, device=None,
-                 fused_march: Optional[bool] = None):
+                 alpha_max: float = 50.0, mesh=None, use_mesh: bool = False,
+                 straggler_batch=None, speculative=None, chunk_size=None,
+                 fused_march: Optional[bool] = None, device=None):
+        _refuse_mesh(mesh, use_mesh)
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
         device = resolve_device(device)
         self.solver = ForwardSolver2D(cfg, device=device)
@@ -500,7 +889,8 @@ class BatchedProblem2D(_BatchedPGDBase):
                                    and self.adj.fused_march_available())
         super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
                          _control_shape_2d(self.solver),
-                         straggler_buckets=self._use_fused_march)
+                         straggler_batch=straggler_batch,
+                         speculative=speculative, chunk_size=chunk_size)
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
         self._x = as_t(self.solver.x)
         self._y = as_t(self.solver.y)
@@ -531,13 +921,16 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
     checkpoint. fused_march as BatchedProblem2D's (the forward's and the
     adjoint's rules together): on, every segment is one launch of the
     segment march kernel and, in the adjoint, one of the segment sweep
-    kernel, with the straggler buckets on; off, the scan arm of
-    models.lowmem (`_LowMemCore.forward_ckpt` / `adjoint_r`)."""
+    kernel, with straggler_batch "auto" unless given; off, the scan arm of
+    models.lowmem (`_LowMemCore.forward_ckpt` / `adjoint_r`). The other
+    keywords as BatchedProblem2D's."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
                  K: int = 10, settings: Optional[PGDSettings] = None,
-                 alpha_max: float = 50.0, device=None,
-                 fused_march: Optional[bool] = None):
+                 alpha_max: float = 50.0, mesh=None, use_mesh: bool = False,
+                 straggler_batch=None, speculative=None, chunk_size=None,
+                 fused_march: Optional[bool] = None, device=None):
+        _refuse_mesh(mesh, use_mesh)
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
         device = resolve_device(device)
         self.pipe = LowMemPipeline2D(cfg, K=K, device=device)
@@ -549,7 +942,8 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
                        else None)
         super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
                          _control_shape_2d(self.solver),
-                         straggler_buckets=self._use_fused_march)
+                         straggler_batch=straggler_batch,
+                         speculative=speculative, chunk_size=chunk_size)
 
     def _set_phi_Q_mode(self, mode: Optional[str]):
         if mode not in ("ramp", "zeros"):
