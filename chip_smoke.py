@@ -233,9 +233,24 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                with metrics (1e-6), and trial_memory_analysis's peak
                within the chooser's estimate; (c) the low-memory arm at
                256x256, K = 10, B = 8, resume likewise;
-  9p profile — config 2 once more, one PGD iteration under torch.profiler,
-               after every timed phase: the device's busy share and the
-               kernels with the most device time;
+  13 mesh    — the multi-device paths on torch.distributed at world size
+               1 on NCCL (the process group made here and destroyed at the
+               end): (a) config 4 (128x128, B = 128) through
+               BatchedProblem2D(use_mesh=True), 2 PGD iterations (after
+               one untimed-for-the-rate first mesh run), bit for bit the
+               run without a mesh (cost history, trials, Newton solves, u,
+               phi), rows 1-2 launched; (b) GridShardedForward2D
+               and GridShardedAdjoint2D at 256 x 256, T = 0.25, float32,
+               against their float64 twin and the unsharded solvers on the
+               card (each no farther from float64 than twice the unsharded
+               one), no launch, collectives per Newton solve; (c)
+               GridShardedProblem2D at 128 x 128, T = 1, 2 iterations,
+               against ControlProblem2D's plain path (trials equal, costs
+               2e-4); (d) GridShardedBatchedProblem2D on the (1, 1) mesh,
+               B = 4, 1 iteration, against BatchedProblem2D(fused_march=
+               False) likewise; (e) `sweep2d --mesh` and `optimize2d
+               --grid-shard` at 32x32 on the card against --device cpu
+               (processes of their own), 2e-4;
   4sp profile — phase 4s's scan path likewise, its baseline march and one
                sweep (a run of no PGD iteration);
   2e-dev     — the operator applies and their torch.matmul forms once more,
@@ -4194,6 +4209,365 @@ def side_paths_phase(device=None, name=None, smi=None):
     return launches
 
 
+# Phase 13: the multi-device paths (vch_tpu/parallel/mesh.py, spatial.py,
+# shard_fused) on torch.distributed, world size 1 on NCCL: one card, so no
+# halo crosses ranks and no scaling is measured. T of (b) at 256 x 256, cut
+# from 1 so that the phase fits its ~90 s (the grid-sharded float32 march
+# took 1.07 s for 10 steps there, the float64 twin 0.31 s).
+MESH_T_GRID = 0.25
+# the gate between two float32 paths' costs (phase 11's, the CLI's)
+MESH_REL = 2e-4
+
+
+def _sync_s(torch, fn):
+    """(seconds between two device synchronizations, fn())."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def mesh_scenario(torch, device, iters=2):
+    """13a: config 4 (128x128, T = 1, B = 128) through
+    BatchedProblem2D(use_mesh=True) against the same problem without a
+    mesh, `iters` PGD iterations each (phases 4 and 12 built and warmed
+    every kernel). The mesh problem runs twice: the process's first mesh
+    run pays a one-off cost of the mesh's first use (`mesh_s_first`), so
+    the rate is read from the second; its launches, from 0 just before it
+    to just after."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.batch import BatchedProblem2D
+    cfg = _config(128)
+    sc = _on_device(torch, device, _bench_sweep(cfg, 128))
+    plain = BatchedProblem2D(cfg, device=device)
+    s0, ref = _sync_s(torch, lambda: plain.run(
+        sc, max_iter=iters, verbose=False, host_results=False))
+    prob = BatchedProblem2D(cfg, device=device, use_mesh=True)
+    s_first, _ = _sync_s(torch, lambda: prob.run(
+        sc, max_iter=iters, verbose=False, host_results=False))
+    km.reset_launches()
+    s1, out = _sync_s(torch, lambda: prob.run(
+        sc, max_iter=iters, verbose=False, host_results=False))
+    launches = km.launch_counts()
+    same = (np.array_equal(out["cost_history"], ref["cost_history"])
+            and np.array_equal(out["ls_trials"], ref["ls_trials"])
+            and out["newton_solves"] == ref["newton_solves"]
+            and torch.equal(out["u"], ref["u"])
+            and torch.equal(out["phi"], ref["phi"]))
+    return dict(n=cfg.Nx + 1, B=sc.batch, M=prob.solver.M, iters=iters,
+                mesh=dict(dims=list(prob.mesh.mesh_dim_names),
+                          size=prob.mesh.size(), backend=str(
+                              torch.distributed.get_backend())),
+                fused=prob._use_fused_march, bit_equal=bool(same),
+                mesh_s=s1, mesh_s_first=s_first, plain_s=s0,
+                scenario_iters_per_s=sc.batch * iters / s1,
+                scenario_iters_per_s_plain=sc.batch * iters / s0,
+                newton_solves=out["newton_solves"],
+                ls_trials=int(out["ls_trials"].sum()),
+                mean_cost_history=out["cost_history"].mean(axis=1).tolist(),
+                launches={k: v for k, v in launches.items() if v})
+
+
+def check_mesh_scenario(c):
+    fails = []
+    if not c["bit_equal"]:
+        fails.append("the mesh run differs from the unsharded run")
+    if set(c["launches"]) != {"march_fused_2d", "adjoint_fused_2d"}:
+        fails.append(f"launched {c['launches']}")
+    h = c["mean_cost_history"]
+    if not np.isfinite(h).all() or not h[-1] < h[0]:
+        fails.append("did not descend")
+    if fails:
+        raise RuntimeError("phase 13a: " + "; ".join(fails) + f" | {c}")
+
+
+def mesh_grid_solvers(torch, device):
+    """13b: GridShardedForward2D and GridShardedAdjoint2D at config 5's
+    width (256 x 256, Nx = Ny = 255), T = MESH_T_GRID, float32, on a (1,)
+    "gx" mesh, against a float64 twin of the same path and against the
+    unsharded ForwardSolver2D / AdjointSolver2D on the card; the adjoint of
+    all three on the float64 trajectory. Launches over the grid-sharded
+    runs (none: plain PyTorch and collectives); collectives per Newton
+    solve (forward) and per step (adjoint)."""
+    from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+    from vch_tpu_torch.models.forward2d import ForwardSolver2D
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.mesh import _world_mesh
+    from vch_tpu_torch.parallel.spatial import (GridShardedAdjoint2D,
+                                                GridShardedForward2D)
+    cfg32 = _config(255, T=MESH_T_GRID)
+    cfg64 = dataclasses.replace(cfg32, dtype="float64")
+    mesh = _world_mesh(device, (1,), ("gx",))
+    f32 = GridShardedForward2D(cfg32, mesh=mesh)
+    f64 = GridShardedForward2D(cfg64, mesh=mesh)
+    a32 = GridShardedAdjoint2D(cfg32, mesh=mesh)
+    a64 = GridShardedAdjoint2D(cfg64, mesh=mesh)
+    km.reset_launches()
+    s32, (phi32, _, t) = _sync_s(torch, f32.simulate)
+    s64, (phi64, _, _) = _sync_s(torch, f64.simulate)
+    x = np.linspace(0.0, cfg32.Lx, cfg32.Nx + 1)
+    phi_T = 0.5 * np.cos(np.pi * x)[:, None] * np.ones(cfg32.Ny + 1)[None]
+    traj = phi64.cpu().numpy()
+    sa32, (_, _, r32) = _sync_s(torch, lambda: a32.run(
+        traj, t, 5.0, 10.0, None, phi_T))
+    sa64, (_, _, r64) = _sync_s(torch, lambda: a64.run(
+        traj, t, 5.0, 10.0, None, phi_T))
+    sharded_launches = {k: v for k, v in km.launch_counts().items() if v}
+    fwd_counts = dict(f32.comm.counts)
+    un = ForwardSolver2D(cfg32, device=device)
+    su, (phiu, _, _) = _sync_s(torch, un.simulate)
+    sau, (_, _, ru) = _sync_s(torch, lambda: AdjointSolver2D(
+        cfg32, device=device).run(traj, t, 5.0, 10.0, None, phi_T))
+    d = lambda a, b: float((a.double() - b.double()).abs().max())
+    scale = float(r64.abs().max())
+    ns = f32.last_stats.newton_solves
+    M = f32.M
+    return dict(
+        n=cfg32.Nx + 1, M=M, T=cfg32.T,
+        newton_solves_f32=ns, newton_solves_f64=f64.last_stats.newton_solves,
+        newton_solves_unsharded=un.last_stats.newton_solves,
+        max_abs_dphi_vs_f64=d(phi32, phi64),
+        max_abs_dphi_unsharded_vs_f64=d(phiu, phi64),
+        max_abs_dphi_vs_unsharded=d(phi32, phiu),
+        rel_r_vs_f64=d(r32, r64) / scale,
+        rel_r_unsharded_vs_f64=d(ru, r64) / scale,
+        forward_s=s32, forward_s_f64=s64, forward_s_unsharded=su,
+        adjoint_s=sa32, adjoint_s_f64=sa64, adjoint_s_unsharded=sau,
+        collectives_per_newton_solve={k: v / max(ns, 1)
+                                      for k, v in fwd_counts.items()},
+        collectives_per_adjoint_step={k: v / M
+                                      for k, v in a32.comm.counts.items()},
+        launches_sharded=sharded_launches)
+
+
+def check_mesh_grid_solvers(c):
+    fails = []
+    if c["launches_sharded"]:
+        fails.append(f"the grid-sharded runs launched {c['launches_sharded']}")
+    if not c["max_abs_dphi_vs_f64"] <= (
+            2 * c["max_abs_dphi_unsharded_vs_f64"] + 1e-5):
+        fails.append("forward farther from float64 than the unsharded one")
+    if not c["rel_r_vs_f64"] <= 2 * c["rel_r_unsharded_vs_f64"] + 1e-6:
+        fails.append("adjoint farther from float64 than the unsharded one")
+    if min(c["newton_solves_f32"], c["newton_solves_f64"]) <= 0:
+        fails.append("no Newton solve")
+    if fails:
+        raise RuntimeError("phase 13b: " + "; ".join(fails) + f" | {c}")
+
+
+def mesh_grid_problem(torch, device, iters=2):
+    """13c: GridShardedProblem2D.optimize at 128 x 128, T = 1, float32, against ControlProblem2D's plain path on the card (its
+    solvers' entries the plain versions, the baseline re-marched on them):
+    trials equal, costs within MESH_REL."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.spatial import GridShardedProblem2D
+    cfg = _config(127)
+    km.reset_launches()
+    gp = GridShardedProblem2D(cfg, device=device)
+    sg, res = _sync_s(torch, lambda: gp.optimize(max_iter=iters,
+                                                 verbose=False))
+    grid_launches = {k: v for k, v in km.launch_counts().items() if v}
+    prob = _control_problem(device, cfg)
+    prob.solver.entries = prob.adjoint.entries = km.PLAIN
+    prob.phi_hist0 = prob.solver.simulate(initial_phi=prob.phi0)[0]
+    km.reset_launches()
+    sp, ref = _sync_s(torch, lambda: prob.optimize(max_iter=iters,
+                                                   verbose=False))
+    c0, c1 = np.asarray(ref.cost_history), np.asarray(res.cost_history)
+    return dict(n=cfg.Nx + 1, M=gp.fwd.M, T=cfg.T, iters=iters,
+                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+                cost_history=c1.tolist(), trials=res.ls_trials_per_iter,
+                trials_plain=ref.ls_trials_per_iter,
+                newton_solves_baseline=gp.newton_solves,
+                grid_s=sg, plain_s=sp,
+                pgd_iters_per_s=iters / sg,
+                collectives=dict(gp.fwd.comm.counts),
+                launches_grid=grid_launches,
+                launches_plain={k: v for k, v in km.launch_counts().items()
+                                if v})
+
+
+def mesh_combined(torch, device, B=4, iters=1):
+    """13d: GridShardedBatchedProblem2D on the (1, 1) combined mesh
+    (grid_shards=1) at 128 x 128, T = 1, B = 4, against
+    BatchedProblem2D(fused_march=False) (the scan path: rows 8-9 at
+    B = 4): trials equal, costs within MESH_REL."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.batch import BatchedProblem2D
+    from vch_tpu_torch.parallel.spatial import GridShardedBatchedProblem2D
+    cfg = _config(127)
+    sc = _bench_sweep(cfg, B)
+    km.reset_launches()
+    gp = GridShardedBatchedProblem2D(cfg, grid_shards=1, device=device)
+    sg, out = _sync_s(torch, lambda: gp.run(sc, max_iter=iters,
+                                            verbose=False))
+    grid_launches = {k: v for k, v in km.launch_counts().items() if v}
+    km.reset_launches()
+    sp, ref = _sync_s(torch, lambda: BatchedProblem2D(
+        cfg, device=device, fused_march=False).run(sc, max_iter=iters,
+                                                   verbose=False))
+    c0, c1 = ref["cost_history"], out["cost_history"]
+    return dict(n=cfg.Nx + 1, M=gp.fwd.M, T=cfg.T, B=B, iters=iters,
+                mesh=list(gp.mesh.shape),
+                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+                trials=out["ls_trials"].tolist(),
+                trials_scan=ref["ls_trials"].tolist(),
+                newton_solves=out["newton_solves"],
+                newton_solves_scan=ref["newton_solves"],
+                grid_s=sg, scan_s=sp,
+                scenario_iters_per_s=B * iters / sg,
+                launches_grid=grid_launches,
+                launches_scan={k: v for k, v in km.launch_counts().items()
+                               if v})
+
+
+def check_mesh_pair(c, tag, plain_key, launch_key):
+    fails = []
+    if c["launches_grid"]:
+        fails.append(f"the grid-sharded run launched {c['launches_grid']}")
+    if c["trials"] != c[plain_key]:
+        fails.append("trials differ")
+    if not np.isfinite(c["rel_cost"]) or c["rel_cost"] > MESH_REL:
+        fails.append(f"costs {c['rel_cost']} apart")
+    if launch_key and not c[launch_key]:
+        fails.append(f"{launch_key}: nothing launched")
+    if fails:
+        raise RuntimeError(f"phase {tag}: " + "; ".join(fails) + f" | {c}")
+
+
+def mesh_cli(torch, device):
+    """13e: the CLI at 32 x 32, T = 0.25, 2 iterations, float32: `sweep2d
+    --mesh` and `optimize2d --grid-shard` in this process on the card
+    against the same commands with --device cpu, each a process of its own
+    (a gloo world of one), their checkpoints' cost histories within
+    MESH_REL."""
+    import os
+    import sys
+    import tempfile
+    from vch_tpu_torch.utils.checkpoint import load_checkpoint
+    cmds = {"sweep2d --mesh": ["sweep2d", "--n", "32", "--mesh"],
+            "optimize2d --grid-shard": ["optimize2d", "--n", "32",
+                                        "--grid-shard"]}
+    common = ["--T", "0.25", "--max-iter", "2", "--dtype", "float32",
+              "--no-artifacts"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vch_mesh_") as tmp:
+        procs = {}
+        try:
+            for k, argv in cmds.items():
+                tag = k.split()[0]
+                procs[k] = subprocess.Popen(
+                    [sys.executable, "-m", "vch_tpu_torch.cli"] + argv
+                    + common + ["--device", "cpu", "--checkpoint",
+                                os.path.join(tmp, f"{tag}_cpu.npz"),
+                                "--out-prefix",
+                                os.path.join(tmp, f"{tag}_cpu_")],
+                    cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+            for k, argv in cmds.items():
+                tag = k.split()[0]
+                r = _cli_run(torch, argv + common + [
+                    "--checkpoint", os.path.join(tmp, f"{tag}_cuda.npz"),
+                    "--out-prefix", os.path.join(tmp, f"{tag}_cuda_")])
+                out[k] = dict(rc=r["rc"], wall_s=r["wall_s"],
+                              launches=r["launches"])
+            for k, p in procs.items():
+                text, _ = p.communicate(timeout=300)
+                out[k].update(rc_cpu=p.returncode,
+                              cpu_tail=text[-1500:] if p.returncode else "")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for k in cmds:
+            tag = k.split()[0]
+            ch = {d: np.asarray(load_checkpoint(os.path.join(
+                tmp, f"{tag}_{d}.npz"))[0]["cost_history"])
+                for d in ("cuda", "cpu")}
+            out[k].update(
+                rel_cost=float((np.abs(ch["cuda"] - ch["cpu"])
+                                / np.abs(ch["cpu"])).max()),
+                cost_history_cuda=ch["cuda"].tolist())
+    return out
+
+
+def check_mesh_cli(c):
+    fails = []
+    for k, r in c.items():
+        if r["rc"] or r["rc_cpu"]:
+            fails.append(f"{k} exited {r['rc']} / {r['rc_cpu']} "
+                         f"{r['cpu_tail']}")
+        if not r["rel_cost"] <= MESH_REL:
+            fails.append(f"{k} cuda against cpu {r['rel_cost']}")
+    if set(c["sweep2d --mesh"]["launches"]) != {"march_fused_2d",
+                                                "adjoint_fused_2d"}:
+        fails.append(f"sweep2d --mesh launched "
+                     f"{c['sweep2d --mesh']['launches']}")
+    if c["optimize2d --grid-shard"]["launches"]:
+        fails.append("optimize2d --grid-shard launched "
+                     f"{c['optimize2d --grid-shard']['launches']}")
+    if fails:
+        raise RuntimeError("phase 13e: " + "; ".join(fails) + f" | {c}")
+
+
+def mesh_phase(device=None, name=None, smi=None):
+    """Phase 13: the multi-device paths at world size 1 on NCCL, each part
+    logged and gated as it ends. The process group is made here (a
+    FileStore world of one, parallel/mesh.py initialize_distributed) and
+    destroyed at the end; a failure raises through. Alone on the card:
+    `python -c "import chip_smoke; chip_smoke.mesh_phase()"`. Returns the
+    kernel launches of its runs, by entry."""
+    import torch
+    import torch.distributed as dist
+    from vch_tpu_torch.parallel.mesh import initialize_distributed
+    if device is None:
+        device, name, smi = (torch.device("cuda", 0),
+                             torch.cuda.get_device_name(0), _smi())
+    t0 = time.perf_counter()
+    made = not dist.is_initialized()
+    if made and not initialize_distributed(device="cuda"):
+        raise RuntimeError("phase 13: no process group could be made")
+    launches = {}
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+            raise RuntimeError(f"phase 13 needs a world of one on NCCL, has "
+                               f"{dist.get_backend()} x "
+                               f"{dist.get_world_size()}")
+        a = mesh_scenario(torch, device)
+        _log("13a", json.dumps(a) + f" | {name} | {smi}")
+        check_mesh_scenario(a)
+        add(a["launches"])
+        b = mesh_grid_solvers(torch, device)
+        _log("13b", json.dumps(b) + f" | {name} | {smi}")
+        check_mesh_grid_solvers(b)
+        c = mesh_grid_problem(torch, device)
+        _log("13c", json.dumps(c) + f" | {name} | {smi}")
+        check_mesh_pair(c, "13c", "trials_plain", None)
+        d = mesh_combined(torch, device)
+        _log("13d", json.dumps(d) + f" | {name} | {smi}")
+        check_mesh_pair(d, "13d", "trials_scan", "launches_scan")
+        add(d["launches_scan"])
+        e = mesh_cli(torch, device)
+        _log("13e", json.dumps(e) + f" | {name} | {smi}")
+        check_mesh_cli(e)
+        for r in e.values():
+            add(r["launches"])
+    finally:
+        if made:
+            dist.destroy_process_group()
+    _log(13, f"{time.perf_counter() - t0:.1f} s; launches in its runs "
+         + json.dumps(launches))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4652,7 +5026,7 @@ def main():
                     + tuple(SOLVE_KERNELS) + tuple(APPLY_KERNELS))
     if not c9["entries_are_kernels"]:
         raise RuntimeError("config 2: solver entries are not the kernels")
-    del x9
+    del x9, prob9, sc9
 
     c1 = config1_run(torch, device)
     _log(10, json.dumps(c1) + " | no kernel on this path: the per-step "
@@ -4661,16 +5035,7 @@ def main():
     exact_phases(device, name, smi)
     cli_phase(device, name, smi)
     side = side_paths_phase(device, name, smi)
-
-    # config 2 again, one PGD iteration (the baseline march, one sweep, its
-    # trials) under the profiler, after every timed phase: profiling slows
-    # the host, during the profiled call and after it, so its wall is not a
-    # rate
-    _log("9p", json.dumps(device_share(
-        torch, lambda: prob9.run(sc9, max_iter=1, verbose=False,
-                                 host_results=False)))
-        + f" | {name} | {smi}")
-    del prob9, sc9
+    mesh = mesh_phase(device, name, smi)
     # the scan path at config 4's width likewise: its baseline march and
     # one sweep under the profiler
     _log("4sp", json.dumps(device_share(
@@ -4830,9 +5195,12 @@ def main():
                  device_ms=dv["ms"], oracle_device_ms=dv["oracle_ms"])
         kernels.append(e)
     kernels += _chain_probe_entries(chains, chains_dev, entry)
-    # rows 1-6: their launches in phase 12's runs beside their main paths'
+    # rows 1-6: their launches in phase 12's runs beside their main paths';
+    # every row's launches in phase 13's runs
     for e in kernels[:6]:
         e["launches_phase12"] = side.get(e["name"], 0)
+    for e in kernels:
+        e["launches_phase13"] = mesh.get(e["name"], 0)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

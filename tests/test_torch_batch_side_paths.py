@@ -23,6 +23,7 @@ from vch_tpu.control.pgd import PGDSettings as JaxPGDSettings
 from vch_tpu.parallel.batch import BatchedProblem1D as JaxBatched1D
 from vch_tpu.parallel.batch import sweep_1d as jax_sweep_1d
 
+import test_torch_dist_cases as cases
 from vch_tpu_torch.config import (ForwardSolverConfig1D,
                                   ForwardSolverConfig2D, OptimizationConfig,
                                   PGDSettings)
@@ -251,14 +252,43 @@ def test_straggler_batch_default_follows_the_route():
             low.chunk_calls) == (True, 4, 0, 0)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"use_mesh": True}])
-def test_a_mesh_raises_naming_a7(kw):
+def _mesh_makers(kw):
     c1 = ForwardSolverConfig1D(N=32, T=0.05)
     c2 = ForwardSolverConfig2D(Nx=16, Ny=16, T=0.05)
-    for make in (lambda: BatchedProblem1D(c1, device="cpu", **kw),
-                 lambda: BatchedProblem2D(c2, device="cpu", **kw),
-                 lambda: LowMemBatchedProblem2D(c2, K=2, device="cpu", **kw),
-                 lambda: make_batched_problem_2d(c2, batch=2, device="cpu",
-                                                 **kw)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            make()
+    return (lambda: BatchedProblem1D(c1, device="cpu", **kw),
+            lambda: BatchedProblem2D(c2, device="cpu", **kw),
+            lambda: LowMemBatchedProblem2D(c2, K=2, device="cpu", **kw),
+            lambda: make_batched_problem_2d(c2, batch=2, device="cpu",
+                                            **kw))
+
+
+@pytest.fixture
+def own_world():
+    """Destroys the process group the test makes (test_torch_dist_cases)."""
+    with cases.own_world():
+        yield
+
+
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"use_mesh": True}])
+def test_a_mesh_raises_naming_a7(kw, own_world):
+    """The mesh keywords, once refused naming ROADMAP A7, now work (the
+    test keeps its name): mesh= takes a torch.distributed DeviceMesh and
+    raises TypeError for anything else; use_mesh=True meshes every rank of
+    the world (here one process, a world of size 1 on gloo), and a run on
+    it equals the run without a mesh."""
+    if "mesh" in kw:
+        for make in _mesh_makers(kw):
+            with pytest.raises(TypeError, match="DeviceMesh"):
+                make()
+        return
+    probs = [make() for make in _mesh_makers(kw)]
+    for p in probs:
+        assert p.mesh.mesh_dim_names == ("scenarios",)
+        assert p.mesh.size() == torch.distributed.get_world_size() == 1
+    cfg = ForwardSolverConfig1D(N=32, T=0.05)
+    sc = sweep_1d(cfg, OptimizationConfig(), **SWEEP)
+    out = probs[0].run(sc, max_iter=2, verbose=False)
+    ref = BatchedProblem1D(cfg, device="cpu").run(sc, max_iter=2,
+                                                  verbose=False)
+    np.testing.assert_array_equal(out["cost_history"], ref["cost_history"])
+    np.testing.assert_array_equal(out["u"], ref["u"])

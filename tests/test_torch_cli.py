@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_dist_cases as cases
 import vch_tpu.cli as jcli
 import vch_tpu_torch.cli as tcli
 from vch_tpu.utils.checkpoint import load_checkpoint as j_load
@@ -179,12 +180,36 @@ def test_help_exits(argv, capsys):
     assert "usage: vch_tpu_torch" in out
 
 
+@pytest.fixture
+def own_world():
+    """Destroys the process group the test makes (test_torch_dist_cases)."""
+    with cases.own_world():
+        yield
+
+
 @pytest.mark.parametrize("argv,flag", [
-    (["optimize2d", "--n", "16", "--grid-shard"], "--grid-shard"),
-    (["sweep2d", "--n", "16", "--mesh"], "--mesh")])
-def test_multi_device_flags_raise(argv, flag):
-    with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP A7"):
-        tcli.main(argv + ["--device", "cpu", "--no-artifacts"])
+    (["optimize2d", "--n", "15", "--T", "0.05", "--grid-shard"],
+     "--grid-shard"),
+    (["sweep2d", "--n", "16", "--T", "0.1", "--mesh"], "--mesh")])
+def test_multi_device_flags_raise(argv, flag, tmp_path, capsys, monkeypatch,
+                                  own_world):
+    """The multi-device flags, once refused naming ROADMAP A7, now run (the
+    test keeps its name): both CLIs with the flag, vch_tpu over its 8
+    virtual devices, the port over its world (here one process, gloo);
+    the same printed lines and saved control (neither writes the config
+    JSON on the grid-sharded arm)."""
+    out_j, out_t = _both(argv + ["--max-iter", "2", "--no-artifacts"],
+                         capsys, tmp_path, monkeypatch)
+    assert len(_cost_lines(out_t)) == 3
+    if flag == "--mesh":
+        assert out_t == out_j
+        return
+    sharded = re.compile(r"grid-sharded over \d+ devices")
+    assert "grid-sharded over 1 devices" in out_t
+    assert "grid-sharded over 8 devices" in out_j
+    _same_lines(sharded.sub("", out_j), sharded.sub("", out_t))
+    _same_control(tmp_path)
+    assert not (tmp_path / "t-last_run_config_2d.json").exists()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -14,11 +14,13 @@ plain PyTorch versions on the CPU). `--dtype` defaults to float32 on the
 card and float64 on the CPU. `--interactive` prompts for every config field
 with the previous run's values shown (config.get_user_input_for_config).
 
-`--mesh` (sweep2d) and `--grid-shard` (optimize2d) are kept so command lines
-carry over; the multi-device paths are not ported (ROADMAP A7) and both
-raise NotImplementedError. The plots need matplotlib: where artifacts are
-asked for (no `--no-artifacts`) and it is missing, a command raises before
-it solves anything.
+`--mesh` (sweep2d) shards the batch over every rank of the world and
+`--grid-shard` (optimize2d) the grid's x-axis (parallel/mesh.py,
+parallel/spatial.py): one process per device, launched by `torchrun
+--nproc-per-node N python -m vch_tpu_torch.cli ...`; without a launcher the
+world is this one process (on one card, a mesh of one). The plots need
+matplotlib: where artifacts are asked for (no `--no-artifacts`) and it is
+missing, a command raises before it solves anything.
 """
 from __future__ import annotations
 
@@ -29,11 +31,6 @@ import sys
 import numpy as np
 
 from vch_tpu_torch.utils.checkpoint import host_numpy as _host
-
-_NOT_PORTED = ("{flag}: the multi-device paths of vch_tpu (parallel/mesh.py, "
-               "parallel/spatial.py) are not ported to vch_tpu_torch yet "
-               "(ROADMAP A7); run without {flag}")
-
 
 def _add_common(p):
     p.add_argument("--interactive", action="store_true",
@@ -224,8 +221,6 @@ def cmd_optimize2d(args):
                                       OptimizationConfig,
                                       get_user_input_for_config, load_params,
                                       save_params)
-    if args.grid_shard:
-        raise NotImplementedError(_NOT_PORTED.format(flag="--grid-shard"))
     _require_plotting(args)
     device, dtype = _device_dtype(args)
     if args.interactive:
@@ -241,6 +236,16 @@ def cmd_optimize2d(args):
         fwd = ForwardSolverConfig2D(dtype=dtype, Nx=args.n, Ny=args.n,
                                     T=args.T)
         opt = OptimizationConfig.defaults_2d()
+    if args.grid_shard:
+        # the field's x-axis over every rank (vch_tpu/cli.py:207-218)
+        from vch_tpu_torch.parallel.spatial import GridShardedProblem2D
+        gprob = GridShardedProblem2D(fwd, opt, choice_t=args.target,
+                                     choice_q=args.tracking, device=device)
+        res = gprob.optimize(max_iter=args.max_iter)
+        print(f"grid-sharded over {gprob.fwd.mesh.size()} devices; "
+              f"baseline Newton solves {gprob.newton_solves}")
+        _post_optimize(args, gprob, res, one_d=False)
+        return 0
     from vch_tpu_torch.control.problems import ControlProblem2D
     prob = ControlProblem2D(fwd, opt, choice_t=args.target,
                             choice_q=args.tracking, device=device)
@@ -283,18 +288,17 @@ def cmd_optimize2d(args):
 
 
 def cmd_sweep2d(args):
-    """Batched (b3, kappa_spar) sweep on one card (the reference runs one
-    scenario per process)."""
+    """Batched (b3, kappa_spar) sweep, on one card or, with --mesh, over
+    every rank of the world (the reference runs one scenario per
+    process)."""
     from vch_tpu_torch.config import ForwardSolverConfig2D
     from vch_tpu_torch.parallel.batch import BatchedProblem2D, sweep_2d
     from vch_tpu_torch.utils.checkpoint import save_checkpoint
-    if args.mesh:
-        raise NotImplementedError(_NOT_PORTED.format(flag="--mesh"))
     device, dtype = _device_dtype(args)
     cfg = ForwardSolverConfig2D(dtype=dtype, Nx=args.n, Ny=args.n, T=args.T)
     b3s = [float(v) for v in args.b3.split(",")]
     kss = [float(v) for v in args.kappa.split(",")]
-    prob = BatchedProblem2D(cfg, device=device)
+    prob = BatchedProblem2D(cfg, device=device, use_mesh=args.mesh)
     sc = sweep_2d(cfg, b3_values=b3s, kappa_values=kss,
                   choice_t=args.target, choice_q=args.tracking)
     out = prob.run(sc, max_iter=args.max_iter or 50)
@@ -347,8 +351,9 @@ def main(argv=None):
     p.add_argument("--n", type=int, default=128)
     p.add_argument("--T", type=float, default=1.0)
     p.add_argument("--grid-shard", action="store_true",
-                   help="shard the grid's x-axis over devices: not ported "
-                        "(ROADMAP A7), raises NotImplementedError")
+                   help="shard the grid's x-axis over all devices "
+                        "(for grids where one scenario outgrows a card; "
+                        "one process per device under torchrun)")
     p.set_defaults(fn=cmd_optimize2d)
 
     p = sub.add_parser("sweep2d", help="batched (b3, kappa) sweep")
@@ -358,8 +363,8 @@ def main(argv=None):
     p.add_argument("--b3", default="1e-4,2e-4", help="comma-separated b3 values")
     p.add_argument("--kappa", default="5e-5,1e-4", help="comma-separated kappa_spar values")
     p.add_argument("--mesh", action="store_true",
-                   help="shard the batch over devices: not ported "
-                        "(ROADMAP A7), raises NotImplementedError")
+                   help="shard the batch over all devices (one process "
+                        "per device under torchrun)")
     p.set_defaults(fn=cmd_sweep2d)
 
     p = sub.add_parser("show-control", help="inspect a saved control .npy")

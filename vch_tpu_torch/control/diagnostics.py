@@ -85,15 +85,18 @@ def approximate_second_order_condition(
         b3: float, kappa: float, u_min: float, u_max: float,
         num_directions: int = 3, epsilon: float = 1e-4,
         seed: Optional[int] = 42, handle_kink: bool = True,
-        dtype=torch.float64, device="cpu") -> List[float]:
+        dtype=torch.float64, device=None) -> List[float]:
     """FD estimate of J''(u*)[h,h] along critical-cone directions:
     (J(u* + eps h) - J(u*) - eps <grad J, h>) / (eps^2 / 2).
 
     forward_batch: u (D, ...) -> phi_hist (D, ...), all directions in one
     call; cost: (phi_hist, u) -> J, over any leading axes. u_star, r_star,
     phi_star are host arrays; the perturbed controls go to `device` in
-    `dtype` (the problem's). Positive values evidence coercivity (4.54).
+    `dtype` (the problem's; device None is the CUDA card, as every entry
+    point resolves it). Positive values evidence coercivity (4.54).
     """
+    from vch_tpu_torch.device import resolve_device
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     u_star = np.asarray(u_star)
     r_star = np.asarray(r_star)

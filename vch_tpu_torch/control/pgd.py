@@ -61,6 +61,9 @@ class ProximalGradientLoop:
     adjoint:  (phi_hist, u) -> r (the reference mode's ignores u)
     cost:     (phi_hist, u) -> 0-d tensor
     error_norms: optional phi_hist -> (rel_tracking, rel_terminal)
+    norm:     optional u -> 0-d tensor, the 2-norm of the relative control
+              change (default torch.linalg.norm; the grid-sharded problem
+              passes one all-reduced over the ranks' row blocks)
 
     search_mode "fused" (vch_tpu's whole iteration as one jitted program)
     is not ported.
@@ -70,7 +73,7 @@ class ProximalGradientLoop:
                  opt_config: OptimizationConfig,
                  settings: Optional[PGDSettings] = None,
                  error_norms: Optional[Callable] = None,
-                 search_mode: str = "host"):
+                 search_mode: str = "host", norm: Optional[Callable] = None):
         if search_mode == "fused":
             raise NotImplementedError(
                 "search_mode='fused' (the whole iteration as one program) is "
@@ -85,6 +88,7 @@ class ProximalGradientLoop:
         self.s = settings or PGDSettings()
         self.error_norms = error_norms
         self.search_mode = search_mode
+        self.norm = norm or torch.linalg.norm
 
     def _trial(self, u_k, grad, alpha):
         opt = self.opt
@@ -126,8 +130,7 @@ class ProximalGradientLoop:
         if not ok and not s.keep_failed_step:
             u_t, phi_t, c = u_k, phi_k, cost_k     # reject the ascent step
         opt_ok = ok and j == 1
-        change = float(torch.linalg.norm(u_t - u_k)
-                       / (torch.linalg.norm(u_k) + 1e-9))
+        change = float(self.norm(u_t - u_k) / (self.norm(u_k) + 1e-9))
         errs = ((0.0, 0.0) if self.error_norms is None
                 else tuple(float(e) for e in self.error_norms(phi_t)))
         return u_t, phi_t, c, alpha_report, r_k, j, change, opt_ok, errs

@@ -40,16 +40,109 @@ from vch_tpu_torch.device import resolve_device
 from vch_tpu_torch.models.forward2d import fused_kernels_fit, torch_dtype
 from vch_tpu_torch.models.timegrid import build_dt_schedule
 from vch_tpu_torch.ops import march as km
-from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
-from vch_tpu_torch.ops.linsolve import (Ops2D, bicgstab_split,
+from vch_tpu_torch.ops.linsolve import (LocalGrid, Ops2D, bicgstab_split,
                                         bicgstab_split_fixed,
-                                        make_spectral_op_2d, member_dot,
-                                        ops_2d)
+                                        make_spectral_op_2d, ops_2d)
 from vch_tpu_torch.ops.potential import fpp_log
 from vch_tpu_torch.ops.solve_kernels import per_solve_kernels_fit
 
 
-class AdjointSolver2D(nn.Module):
+class AdjointSweep2D:
+    """The per-step 2D sweep, shared by AdjointSolver2D and the grid-sharded
+    adjoint (parallel/spatial.py). It reads `config`, `grid` (the grid
+    operations: ops.linsolve.LocalGrid, or the sharded solver itself) and
+    the solve's settings `_use_pallas`, `_pallas_variant`, `entries`,
+    `_krylov_fixed` and `krylov_tol`."""
+
+    def _sweep_step(self, p_next, q_next, r_next, phi_n, phi_np1, src_n,
+                    src_np1, dt, b1):
+        """One step of the sweep of the members of phi_n (B, Nx+1, Ny+1)
+        from the carry (p, q, r) at level n+1, with src = phi - phi_Q at
+        both levels and b1 (B, 1, 1): the rhs B(phi_{n+1}) p_{n+1} + src,
+        the solve of A(phi_n) p_n = rhs warm started from p_{n+1} (f''
+        replaced by each member's mean in the preconditioner), q_n = -L p_n
+        and the r recursion. Returns (p_n, q_n, r_n)
+        (vch_tpu/models/adjoint2d.py:81-147)."""
+        cfg = self.config
+        grid = self.grid
+        tau, gamma, c1, c2 = cfg.tau, cfg.gamma, cfg.c1, cfg.c2
+        lap, lam = grid.lap, grid.lam
+        to_s, from_s = grid.to_spec, grid.from_spec
+        fpp_n = fpp_log(phi_n, c1, c2)
+        fpp_np1 = fpp_log(phi_np1, c1, c2)
+        fbar = grid.mean(fpp_n)
+        w1 = lap(p_next)
+        Bp = (p_next - tau * w1 - 0.5 * dt * lap(w1)
+              + 0.5 * dt * fpp_np1 * w1)
+        rhs = Bp + 0.5 * dt * b1 * (src_n + src_np1)
+
+        def apply_A(v):
+            w = lap(v)
+            return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
+
+        denom = (1.0 - tau * lam + 0.5 * dt * lam ** 2
+                 - 0.5 * dt * fbar * lam)
+        isd = torch.rsqrt(torch.abs(denom))
+        if self._use_pallas and self._krylov_fixed is not None:
+            op = grid.ops
+            spectral = self._pallas_variant == "spectral"
+            solve = (self.entries.adjoint_spectral if spectral
+                     else self.entries.adjoint_raw)
+            mats = ((op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, op.lam) if spectral
+                    else (op.Lx, op.LyT, op.Vx_inv, op.Vy_inv_T, op.Vx,
+                          op.VyT))
+            p_n = solve(*mats, isd, fpp_n, rhs, p_next, tau, 0.5 * dt,
+                        n_iter=self._krylov_fixed)
+        elif self._krylov_fixed is not None:
+            p_n = bicgstab_split_fixed(
+                apply_A, rhs, lambda v: from_s(to_s(v) * isd),
+                lambda v: from_s(to_s(v) / isd), n_iter=self._krylov_fixed,
+                x0=p_next, dot_fn=grid.dot)
+        else:
+            p_n = bicgstab_split(
+                apply_A, rhs, lambda v: from_s(to_s(v) * isd),
+                lambda v: from_s(to_s(v) / isd), tol=self.krylov_tol,
+                max_iter=cfg.krylov_max_iter, x0=p_next, dot_fn=grid.dot)
+        q_n = -lap(p_n)
+        den = gamma + 0.5 * dt
+        r_n = ((gamma - 0.5 * dt) / den * r_next
+               + 0.5 * dt / den * (q_n + q_next))
+        return p_n, q_n, r_n
+
+    def _run_batch(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
+        """The sweep of B members: phi_hist, phi_Q (B, M+1, Nx+1, Ny+1),
+        dts (M,), b1 and b2 (B,), phi_T_target (B, Nx+1, Ny+1). Returns
+        (p, q, r), each (B, M+1, ...), with r_T = 0 last; a step with
+        dt <= 1e-14 copies the next level (vmap of
+        vch_tpu/models/adjoint2d.py:66-161)."""
+        p, q, r = self.terminal(phi_hist[:, -1], phi_T_target, b2)
+        b1 = b1.reshape(-1, 1, 1)
+        src_all = phi_hist - phi_Q
+        dts_host = dts.cpu().numpy()
+        ps, qs, rs = [p], [q], [r]
+        for n in range(dts.shape[0] - 1, -1, -1):
+            if not dts_host[n] <= 1e-14:        # else copy the next level
+                p, q, r = self._sweep_step(p, q, r, phi_hist[:, n],
+                                           phi_hist[:, n + 1], src_all[:, n],
+                                           src_all[:, n + 1], dts[n], b1)
+            ps.append(p)
+            qs.append(q)
+            rs.append(r)
+        rev = lambda fs: torch.stack(fs[::-1], dim=1)
+        return rev(ps), rev(qs), rev(rs)
+
+    def terminal(self, phi_T_state, phi_T_target, b2):
+        """(p_T, q_T, r_T) for (B, ...) states and targets and b2 (B,):
+        (I - tau L) p_T = b2 (phi(T) - phi_Omega) exact in the cosine basis,
+        q_T = -L p_T, r_T = 0 (vch_tpu/models/lowmem.py:612-617)."""
+        grid = self.grid
+        rhs = b2.reshape(-1, 1, 1) * (phi_T_state - phi_T_target)
+        p = grid.from_spec(grid.to_spec(rhs)
+                           / (1.0 - self.config.tau * grid.lam))
+        return p, -grid.lap(p), torch.zeros_like(p)
+
+
+class AdjointSolver2D(AdjointSweep2D, nn.Module):
     """Backward sweep producing (p, q, r), on one device (device=None: the
     CUDA card)."""
 
@@ -88,86 +181,12 @@ class AdjointSolver2D(nn.Module):
         return Ops2D(self.Lx, self.LyT, self.Vx_inv, self.Vy_inv_T, self.Vx,
                      self.VyT, self.lam)
 
+    @property
+    def grid(self) -> LocalGrid:
+        return LocalGrid(self.op)
+
     def _ops(self):
         return tuple(self.op)
-
-    def _sweep_step(self, p_next, q_next, r_next, phi_n, phi_np1, src_n,
-                    src_np1, dt, b1):
-        """One step of the sweep of the members of phi_n (B, Nx+1, Ny+1)
-        from the carry (p, q, r) at level n+1, with src = phi - phi_Q at
-        both levels and b1 (B, 1, 1): the rhs B(phi_{n+1}) p_{n+1} + src,
-        the solve of A(phi_n) p_n = rhs warm started from p_{n+1} (f''
-        replaced by each member's mean in the preconditioner), q_n = -L p_n
-        and the r recursion. Returns (p_n, q_n, r_n)
-        (vch_tpu/models/adjoint2d.py:81-147)."""
-        cfg = self.config
-        op = self.op
-        tau, gamma, c1, c2 = cfg.tau, cfg.gamma, cfg.c1, cfg.c2
-        mm = torch.matmul
-        lap = lambda v: apply_laplacian_2d(op.Lx, op.LyT, v)
-        to_s = lambda v: mm(mm(op.Vx_inv, v), op.Vy_inv_T)
-        from_s = lambda vh: mm(mm(op.Vx, vh), op.VyT)
-        fpp_n = fpp_log(phi_n, c1, c2)
-        fpp_np1 = fpp_log(phi_np1, c1, c2)
-        fbar = torch.mean(fpp_n, dim=(-2, -1), keepdim=True)
-        w1 = lap(p_next)
-        Bp = (p_next - tau * w1 - 0.5 * dt * lap(w1)
-              + 0.5 * dt * fpp_np1 * w1)
-        rhs = Bp + 0.5 * dt * b1 * (src_n + src_np1)
-
-        def apply_A(v):
-            w = lap(v)
-            return v - tau * w + 0.5 * dt * (lap(w) - fpp_n * w)
-
-        denom = (1.0 - tau * op.lam + 0.5 * dt * op.lam ** 2
-                 - 0.5 * dt * fbar * op.lam)
-        isd = torch.rsqrt(torch.abs(denom))
-        if self._use_pallas and self._krylov_fixed is not None:
-            spectral = self._pallas_variant == "spectral"
-            solve = (self.entries.adjoint_spectral if spectral
-                     else self.entries.adjoint_raw)
-            mats = ((op.Vx_inv, op.Vy_inv_T, op.Vx, op.VyT, op.lam) if spectral
-                    else (op.Lx, op.LyT, op.Vx_inv, op.Vy_inv_T, op.Vx,
-                          op.VyT))
-            p_n = solve(*mats, isd, fpp_n, rhs, p_next, tau, 0.5 * dt,
-                        n_iter=self._krylov_fixed)
-        elif self._krylov_fixed is not None:
-            p_n = bicgstab_split_fixed(
-                apply_A, rhs, lambda v: from_s(to_s(v) * isd),
-                lambda v: from_s(to_s(v) / isd), n_iter=self._krylov_fixed,
-                x0=p_next, dot_fn=member_dot)
-        else:
-            p_n = bicgstab_split(
-                apply_A, rhs, lambda v: from_s(to_s(v) * isd),
-                lambda v: from_s(to_s(v) / isd), tol=self.krylov_tol,
-                max_iter=cfg.krylov_max_iter, x0=p_next, dot_fn=member_dot)
-        q_n = -lap(p_n)
-        den = gamma + 0.5 * dt
-        r_n = ((gamma - 0.5 * dt) / den * r_next
-               + 0.5 * dt / den * (q_n + q_next))
-        return p_n, q_n, r_n
-
-    def _run_batch(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
-        """The sweep of B members: phi_hist, phi_Q (B, M+1, Nx+1, Ny+1),
-        dts (M,), b1 and b2 (B,), phi_T_target (B, Nx+1, Ny+1). Returns
-        (p, q, r), each (B, M+1, ...), with r_T = 0 last; a step with
-        dt <= 1e-14 copies the next level (vmap of
-        vch_tpu/models/adjoint2d.py:66-161)."""
-        p, q, r = self.terminal(phi_hist[:, -1], phi_T_target, b2)
-        b1 = b1.reshape(-1, 1, 1)
-        src_all = phi_hist - phi_Q
-        dts_host = dts.cpu().numpy()
-        ps, qs, rs = [p], [q], [r]
-        for n in range(dts.shape[0] - 1, -1, -1):
-            if not dts_host[n] <= 1e-14:        # else copy the next level
-                p, q, r = self._sweep_step(p, q, r, phi_hist[:, n],
-                                           phi_hist[:, n + 1], src_all[:, n],
-                                           src_all[:, n + 1], dts[n], b1)
-            ps.append(p)
-            qs.append(q)
-            rs.append(r)
-        rev = lambda fs: torch.stack(fs[::-1], dim=1)
-        return rev(ps), rev(qs), rev(rs)
 
     def _run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
         """The sweep of one member: phi_hist, phi_Q (M+1, Nx+1, Ny+1),
@@ -215,16 +234,6 @@ class AdjointSolver2D(nn.Module):
             return self.entries.adjoint_blocked(*args, block_b=bb,
                                                 **self._kw())
         return self.entries.adjoint(*args, **self._kw())
-
-    def terminal(self, phi_T_state, phi_T_target, b2):
-        """(p_T, q_T, r_T) for (B, ...) states and targets and b2 (B,):
-        (I - tau L) p_T = b2 (phi(T) - phi_Omega) exact in the cosine basis,
-        q_T = -L p_T, r_T = 0 (vch_tpu/models/lowmem.py:612-617)."""
-        mm = torch.matmul
-        rhs = b2.reshape(-1, 1, 1) * (phi_T_state - phi_T_target)
-        sh = mm(mm(self.Vx_inv, rhs), self.Vy_inv_T)
-        p = mm(mm(self.Vx, sh / (1.0 - self.config.tau * self.lam)), self.VyT)
-        return p, -apply_laplacian_2d(self.Lx, self.LyT, p), torch.zeros_like(p)
 
     def adjoint_segment(self, start: int, length: int, phi_seg, phi_Q_seg, p,
                         q, r, b1):

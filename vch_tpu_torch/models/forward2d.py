@@ -3,11 +3,13 @@
 `ForwardSolver2D` holds the operator matrices as buffers on one device and
 marches in two ways:
 
-  - the per-step marcher (`_march_batch`, and `_march_impl` / `simulate` for
-    one member): a Python loop over the time steps with a leading member
-    axis, each step a Newton loop (`newton_2d`) whose linear solve is
-    `ops.linsolve.newton_schur_solve_2d`, with the interior-only mass
-    correction and the non-finite sanitizer. Newton and Armijo run in masked
+  - the per-step marcher (`ForwardStep2D._march_batch`, and `_march_impl` /
+    `simulate` for one member): a Python loop over the time steps with a
+    leading member axis, each step a Newton loop (`newton_2d`) whose linear
+    solve is `ops.linsolve.newton_schur_solve_2d`, with the interior-only
+    mass correction and the non-finite sanitizer. Every grid operation goes
+    through a grid (ops.linsolve.LocalGrid here), so the grid-sharded
+    forward (parallel/spatial.py) runs the same step with collectives. Newton and Armijo run in masked
     lockstep: a member's state freezes once its own exit fires, which is what
     `jax.vmap` of vch_tpu's `while_loop`s computes; one member is B = 1. The
     loops read their predicates on the host (one sync per Newton round and
@@ -46,8 +48,8 @@ from vch_tpu_torch.models.forward1d import MarchStats, solve_w
 from vch_tpu_torch.models.timegrid import build_dt_schedule, t_history
 from vch_tpu_torch.ops import march as km
 from vch_tpu_torch.ops.grids import grid_2d
-from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
-from vch_tpu_torch.ops.linsolve import (Ops2D, make_spectral_op_2d,
+from vch_tpu_torch.ops.linsolve import (LocalGrid, Ops2D, as_grid,
+                                        make_spectral_op_2d,
                                         newton_schur_solve_2d, ops_2d)
 from vch_tpu_torch.ops.potential import (f_prime, free_energy_2d,
                                          init_phi_random_2d, regularized_log)
@@ -59,30 +61,30 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def mu_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, dt):
+    """`ops`: an Ops2D or a grid (ops.linsolve.as_grid)."""
     return ((phi_new - phi_old) / dt
-            - 0.5 * apply_laplacian_2d(ops.Lx, ops.LyT, mu_new + mu_old))
+            - 0.5 * as_grid(ops).lap(mu_new + mu_old))
 
 
 def phi_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, w_new, w_old,
                     dt, tau, c1, c2, kappa, delta_sep):
-    lap_avg = 0.5 * apply_laplacian_2d(ops.Lx, ops.LyT, phi_new + phi_old)
+    lap_avg = 0.5 * as_grid(ops).lap(phi_new + phi_old)
     f_cvx = c1 * regularized_log(phi_new, delta_sep)
     f_ccv = -2.0 * c2 * phi_old
     return (tau * (phi_new - phi_old) / dt - kappa * lap_avg
             + f_cvx + f_ccv - 0.5 * (mu_new + mu_old) - 0.5 * (w_new + w_old))
 
 
-def _step_ceiling_2d(phi, dphi, delta_sep):
+def _step_ceiling_2d(phi, dphi, delta_sep, grid):
     """Largest Armijo start keeping phi + alpha dphi inside the bounds, per
     member of phi (..., n, m), kept as (..., 1, 1): 0.9 of the per-sign
-    minima, capped at 2, 1 when that is not finite or not positive, then at
-    most 1 (vch_tpu/models/forward2d.py:51)."""
+    minima over the grid, capped at 2, 1 when that is not finite or not
+    positive, then at most 1 (vch_tpu/models/forward2d.py:51)."""
     big = torch.full_like(phi, math.inf)
     ratio_pos = torch.where(dphi > 0, (1.0 - delta_sep - phi) / dphi, big)
     ratio_neg = torch.where(dphi < 0, (-1.0 + delta_sep - phi) / dphi, big)
-    mn = lambda a: torch.amin(a, dim=(-2, -1), keepdim=True)
-    amax = torch.clamp(torch.minimum(0.9 * mn(ratio_pos), 0.9 * mn(ratio_neg)),
-                       max=2.0)
+    m_pos, m_neg = grid.mins(ratio_pos, ratio_neg)
+    amax = torch.clamp(torch.minimum(0.9 * m_pos, 0.9 * m_neg), max=2.0)
     bad = ~torch.isfinite(amax) | (amax <= 0)
     amax = torch.where(bad, torch.ones_like(amax), amax)
     return torch.clamp(amax, max=1.0)
@@ -96,7 +98,9 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
               pallas_variant: str = "spectral", entries=km.KERNELS):
     """Newton with the best-trial-fallback Armijo (at most 12 trials) for
     one step of the members of phi_old (B, n, m), in masked lockstep
-    (vch_tpu/models/forward2d.py:65 under vmap).
+    (vch_tpu/models/forward2d.py:65 under vmap). `ops`: an Ops2D, or a grid
+    whose reductions are collective (a grid-sharded solver; its host
+    decisions then read values that every rank of its group shares).
 
     Each member tests convergence at the top of its round (the absolute
     tolerance; rtol times its first residual when rtol > 0; with
@@ -108,18 +112,19 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     record_history, the residual norms (B, max_iter + 1) after them, NaN
     where a member ran no round."""
     eta = 1e-4
-    msum = lambda a: torch.sum(a, dim=(-2, -1), keepdim=True)
+    grid = as_grid(ops)
 
     def resid(phi, mu):
-        Rphi = phi_residual_2d(ops, phi, phi_old, mu, mu_old, w_new, w_old,
+        Rphi = phi_residual_2d(grid, phi, phi_old, mu, mu_old, w_new, w_old,
                                dt, tau, c1, c2, kappa, delta_sep)
-        Rmu = mu_residual_2d(ops, phi, phi_old, mu, mu_old, dt)
-        return torch.sqrt(msum(Rphi * Rphi) + msum(Rmu * Rmu)), Rphi, Rmu
+        Rmu = mu_residual_2d(grid, phi, phi_old, mu, mu_old, dt)
+        s_phi, s_mu = grid.sums(Rphi * Rphi, Rmu * Rmu)
+        return torch.sqrt(s_phi + s_mu), Rphi, Rmu
 
     def armijo(phi, mu, dphi, dmu, norm_R, act):
         """Per member of act: the first accepted trial, else the best trial
         if it improved on norm_R, else (phi, mu)."""
-        alpha = _step_ceiling_2d(phi, dphi, delta_sep)
+        alpha = _step_ceiling_2d(phi, dphi, delta_sep, grid)
         best_norm = torch.full_like(norm_R, math.inf)
         best_phi, best_mu, phi_a, mu_a = phi, mu, phi, mu
         accepted = torch.zeros_like(act)
@@ -172,7 +177,7 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
         if bool(act.any()):     # else every live member has just converged
             zero = torch.zeros_like(Rphi)
             dphi, dmu = newton_schur_solve_2d(
-                ops, phi, torch.where(act, Rphi, zero),
+                grid, phi, torch.where(act, Rphi, zero),
                 torch.where(act, Rmu, zero), dt, tau, c1, kappa, delta_sep,
                 tol=krylov_tol, max_iter=krylov_max_iter,
                 fixed_iters=krylov_fixed, use_pallas=use_pallas,
@@ -198,7 +203,75 @@ def fused_kernels_fit(cfg: ForwardSolverConfig2D) -> bool:
             and per_solve_kernels_fit(cfg.Nx + 1, cfg.Ny + 1))
 
 
-class ForwardSolver2D(nn.Module):
+class ForwardStep2D:
+    """The per-step 2D march, shared by ForwardSolver2D and the grid-sharded
+    forward (parallel/spatial.py). It reads `config`, `grid` (the grid
+    operations: ops.linsolve.LocalGrid, or the sharded solver itself),
+    `wts` (the trapezoid weights of the grid it holds), `M`, `dts` and
+    `_newton_kw(kernels)`."""
+
+    def initialize_mu(self, phi: torch.Tensor, w: torch.Tensor):
+        """mu = -kappa L phi + f'(phi) - w, batched over leading axes
+        (vch_tpu/models/forward2d.py:220)."""
+        cfg = self.config
+        lap = self.grid.lap(phi)
+        return (-cfg.kappa * lap + f_prime(phi, cfg.c1, cfg.c2, DELTA_SEP)
+                - w)
+
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0, kernels: bool = True):
+        """One time step of the members of phi (B, Nx+1, Ny+1) from the
+        carry (phi, mu, w) under the control frames u_n, u_np1, with the
+        initial masses m0 (B, 1, 1): the Newton solve (kernels=False: never
+        on the per-solve kernel route), the clip, and the interior-only mass
+        correction with its uniform fallback. Returns (phi, mu, w,
+        newton_solves (B,), bad (B,): the mass defect is not finite, the
+        Newton solution before the clip, the correction's interior mask)
+        (vch_tpu/models/forward2d.py:250-278)."""
+        cfg = self.config
+        lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
+        wts, grid = self.wts, self.grid
+        w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
+        mu_init = self.initialize_mu(phi, w_new)
+        phi_new, mu_new, k = newton_2d(grid, phi, mu, w, w_new, dt,
+                                       mu_init=mu_init,
+                                       **self._newton_kw(kernels))
+        phi_c = torch.clamp(phi_new, lo, hi)
+        interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
+        mass, Wint = grid.sums(wts * phi_c,
+                               torch.where(interior, wts,
+                                           torch.zeros_like(wts)))
+        mass_error = mass - m0
+        corrected = torch.where(interior, phi_c - mass_error / Wint, phi_c)
+        fallback = torch.clamp(phi_c - mass_error / (cfg.Lx * cfg.Ly), lo, hi)
+        phi_c = torch.where(torch.abs(mass_error) > 1e-16,
+                            torch.where(Wint > 0, corrected, fallback), phi_c)
+        return (phi_c, mu_new, w_new, k, ~torch.isfinite(mass_error).view(-1),
+                phi_new, interior)
+
+    def _march_batch(self, u, phi0):
+        """The per-step march of B members: u (B, M+1, Nx+1, Ny+1), phi0
+        (B, Nx+1, Ny+1) on this solver's device (on a grid-sharded solver,
+        its row blocks). Returns (phi_hist (B, M+1, ...), newton_solves (B,)
+        int64, first_bad (B,) int64, -1: none) (vmap of
+        vch_tpu/models/forward2d.py:230-286)."""
+        w = torch.zeros_like(phi0)
+        phi, mu = phi0, self.initialize_mu(phi0, w)
+        m0 = self.grid.sums(self.wts * phi0)[0]
+        nsolve = torch.zeros(phi0.shape[0], dtype=torch.int64,
+                             device=phi0.device)
+        first_bad = torch.full_like(nsolve, -1)
+        frames = [phi0]
+        for n in range(self.M):
+            phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
+                                            self.dts[n], m0)[:5]
+            first_bad = torch.where((first_bad < 0) & bad,
+                                    torch.full_like(first_bad, n), first_bad)
+            nsolve = nsolve + k
+            frames.append(phi)
+        return torch.stack(frames, dim=1), nsolve, first_bad
+
+
+class ForwardSolver2D(ForwardStep2D, nn.Module):
     """Forward march on a (Nx+1)x(Ny+1) grid on one device (device=None:
     the CUDA card)."""
 
@@ -251,13 +324,9 @@ class ForwardSolver2D(nn.Module):
         return init_phi_random_2d(self.config.Nx, self.config.Ny, DELTA_SEP,
                                   amp=0.1, seed=42)
 
-    def initialize_mu(self, phi: torch.Tensor, w: torch.Tensor):
-        """mu = -kappa L phi + f'(phi) - w, batched over leading axes
-        (vch_tpu/models/forward2d.py:220)."""
-        cfg = self.config
-        lap = apply_laplacian_2d(self.Lx, self.LyT, phi)
-        return (-cfg.kappa * lap + f_prime(phi, cfg.c1, cfg.c2, DELTA_SEP)
-                - w)
+    @property
+    def grid(self) -> LocalGrid:
+        return LocalGrid(self.op)
 
     def _ops(self):
         return tuple(self.op) + (self.wts,)
@@ -277,56 +346,6 @@ class ForwardSolver2D(nn.Module):
                       pallas_variant=self._pallas_variant,
                       entries=self.entries)
         return kw
-
-    def _step(self, phi, mu, w, u_n, u_np1, dt, m0, kernels: bool = True):
-        """One time step of the members of phi (B, Nx+1, Ny+1) from the
-        carry (phi, mu, w) under the control frames u_n, u_np1, with the
-        initial masses m0 (B, 1, 1): the Newton solve (kernels=False: never
-        on the per-solve kernel route), the clip, and the interior-only mass
-        correction with its uniform fallback. Returns (phi, mu, w,
-        newton_solves (B,), bad (B,): the mass defect is not finite, the
-        Newton solution before the clip, the correction's interior mask)
-        (vch_tpu/models/forward2d.py:250-278)."""
-        cfg = self.config
-        lo, hi = -1.0 + DELTA_SEP, 1.0 - DELTA_SEP
-        wts = self.wts
-        msum = lambda a: torch.sum(a, dim=(-2, -1), keepdim=True)
-        w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
-        mu_init = self.initialize_mu(phi, w_new)
-        phi_new, mu_new, k = newton_2d(self.op, phi, mu, w, w_new, dt,
-                                       mu_init=mu_init,
-                                       **self._newton_kw(kernels))
-        phi_c = torch.clamp(phi_new, lo, hi)
-        mass_error = msum(wts * phi_c) - m0
-        interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
-        Wint = msum(torch.where(interior, wts, torch.zeros_like(wts)))
-        corrected = torch.where(interior, phi_c - mass_error / Wint, phi_c)
-        fallback = torch.clamp(phi_c - mass_error / (cfg.Lx * cfg.Ly), lo, hi)
-        phi_c = torch.where(torch.abs(mass_error) > 1e-16,
-                            torch.where(Wint > 0, corrected, fallback), phi_c)
-        return (phi_c, mu_new, w_new, k, ~torch.isfinite(mass_error).view(-1),
-                phi_new, interior)
-
-    def _march_batch(self, u, phi0):
-        """The per-step march of B members: u (B, M+1, Nx+1, Ny+1), phi0
-        (B, Nx+1, Ny+1) on this solver's device. Returns (phi_hist
-        (B, M+1, ...), newton_solves (B,) int64, first_bad (B,) int64, -1:
-        none) (vmap of vch_tpu/models/forward2d.py:230-286)."""
-        w = torch.zeros_like(phi0)
-        phi, mu = phi0, self.initialize_mu(phi0, w)
-        m0 = torch.sum(self.wts * phi0, dim=(-2, -1), keepdim=True)
-        nsolve = torch.zeros(phi0.shape[0], dtype=torch.int64,
-                             device=phi0.device)
-        first_bad = torch.full_like(nsolve, -1)
-        frames = [phi0]
-        for n in range(self.M):
-            phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
-                                            self.dts[n], m0)[:5]
-            first_bad = torch.where((first_bad < 0) & bad,
-                                    torch.full_like(first_bad, n), first_bad)
-            nsolve = nsolve + k
-            frames.append(phi)
-        return torch.stack(frames, dim=1), nsolve, first_bad
 
     def _march_impl(self, u, phi0):
         """One member: u (M+1, Nx+1, Ny+1), phi0 (Nx+1, Ny+1). Returns
@@ -385,7 +404,7 @@ class ForwardSolver2D(nn.Module):
         phi_old, w_new = as_t(phi_old)[None], as_t(w_new)[None]
         mu_init = self.initialize_mu(phi_old, w_new)
         phi, mu, _, hist = newton_2d(
-            self.op, phi_old, as_t(mu_old)[None], as_t(w_old)[None], w_new,
+            self.grid, phi_old, as_t(mu_old)[None], as_t(w_old)[None], w_new,
             dt, mu_init=mu_init, record_history=True, **self._newton_kw())
         hist = hist[0].cpu().numpy()
         return phi[0], mu[0], list(hist[~np.isnan(hist)])

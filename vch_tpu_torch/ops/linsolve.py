@@ -55,6 +55,51 @@ class Ops2D(NamedTuple):
     lam: torch.Tensor
 
 
+class LocalGrid:
+    """The grid operations of a 2D solver that holds the whole grid, per
+    member of any leading batch axes: the Laplacian, sums, minima and means
+    over the grid (kept as (..., 1, 1)), the inner product, and the cosine
+    transforms with their eigenvalue grid `lam`. The grid-sharded solvers
+    (parallel/spatial.py) provide the same methods with collectives over a
+    row block, so the 2D Newton step, the Schur solve and the adjoint step
+    serve both. `ops` is the Ops2D the per-solve kernels take."""
+
+    def __init__(self, ops: Ops2D):
+        self.ops = ops
+        self.lam = ops.lam
+
+    def lap(self, v):
+        return apply_laplacian_2d(self.ops.Lx, self.ops.LyT, v)
+
+    def sums(self, *parts):
+        return tuple(torch.sum(a, dim=(-2, -1), keepdim=True) for a in parts)
+
+    def mins(self, *parts):
+        return tuple(torch.amin(a, dim=(-2, -1), keepdim=True)
+                     for a in parts)
+
+    def mean(self, a):
+        return torch.mean(a, dim=(-2, -1), keepdim=True)
+
+    def dot(self, a, c):
+        return member_dot(a, c)
+
+    def to_spec(self, v):
+        """vhat = Vx^{-1} v Vy^{-T}."""
+        return torch.matmul(torch.matmul(self.ops.Vx_inv, v),
+                            self.ops.Vy_inv_T)
+
+    def from_spec(self, vh):
+        """v = Vx vhat Vy^T."""
+        return torch.matmul(torch.matmul(self.ops.Vx, vh), self.ops.VyT)
+
+
+def as_grid(ops):
+    """`ops` itself where it is a grid (it has `lap`), else the LocalGrid
+    of an Ops2D."""
+    return ops if hasattr(ops, "lap") else LocalGrid(Ops2D(*ops))
+
+
 def make_spectral_op_2d(Nx: int, Ny: int, hx: float, hy: float,
                         dtype=torch.float64, device=None) -> SpectralOp2D:
     Lx = laplacian_matrix_neumann(Nx, hx)
@@ -322,7 +367,7 @@ def newton_schur_solve_1d_spectral(op: SpectralOp1D, phi, Rphi, Rmu, dt,
     return dphi, dmu
 
 
-def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
+def newton_schur_solve_2d(ops, phi, Rphi, Rmu, dt, tau: float,
                           c1: float, kappa: float, delta_sep: float,
                           tol: float = 1e-9, max_iter: int = 200,
                           fixed_iters: Optional[int] = None,
@@ -331,18 +376,20 @@ def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
     """The 2D Newton step (dphi, dmu) by the exact Schur solve
     (vch_tpu/ops/linsolve.py:361), with the reference's Jacobian clip
     phi^2 <= 1 - delta_sep^2, per member of phi (n, m) or (B, n, m).
-    Routing as vch_tpu's (:395-422): with use_pallas and fixed_iters, one
-    per-solve kernel entry of `entries` (`schur_spectral` or, for
-    pallas_variant "raw", `schur_raw`; an ops.march.Entries), which launches
-    the CUDA kernel on CUDA tensors and runs its plain version on CPU
-    tensors; else the composed fixed-trip or adaptive BiCGStab with the
-    cosine-diagonal preconditioner (d replaced by each member's mean)."""
-    Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
-    mm = torch.matmul
+    `ops`: an Ops2D, or a grid (LocalGrid, or a grid-sharded solver, whose
+    reductions and transforms are collective). Routing as vch_tpu's
+    (:395-422): with use_pallas and fixed_iters, one per-solve kernel entry
+    of `entries` (`schur_spectral` or, for pallas_variant "raw",
+    `schur_raw`; an ops.march.Entries), which launches the CUDA kernel on
+    CUDA tensors and runs its plain version on CPU tensors; else the
+    composed fixed-trip or adaptive BiCGStab with the cosine-diagonal
+    preconditioner (d replaced by each member's mean)."""
+    grid = as_grid(ops)
+    lam = grid.lam
     phi_sq = torch.clamp(phi * phi, 0.0, 1.0 - delta_sep * delta_sep)
     d = 2.0 * c1 / (1.0 - phi_sq)
-    dbar = torch.mean(d, dim=(-2, -1), keepdim=True)
-    lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
+    dbar = grid.mean(d)
+    lap = grid.lap
 
     def apply_S(v):
         u = (tau / dt + d) * v - 0.5 * kappa * lap(v)
@@ -351,10 +398,11 @@ def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
     denom = (1.0 / dt) + 0.5 * kappa * lam ** 2 - (tau / dt + dbar) * lam
 
     def apply_M(v):
-        return mm(mm(Vx, mm(mm(Vxi, v), VyiT) / denom), VyT)
+        return grid.from_spec(grid.to_spec(v) / denom)
 
     rhs = lap(Rphi) - Rmu
     if use_pallas and fixed_iters is not None:
+        Lx, LyT, Vxi, VyiT, Vx, VyT, _ = grid.ops
         if pallas_variant == "spectral":
             dphi = entries.schur_spectral(
                 Vxi, VyiT, Vx, VyT, lam, denom, d, rhs, 1.0 / dt, tau / dt,
@@ -365,10 +413,10 @@ def newton_schur_solve_2d(ops: Ops2D, phi, Rphi, Rmu, dt, tau: float,
                 tau / dt, 0.5 * kappa, n_iter=fixed_iters)
     elif fixed_iters is not None:
         dphi = bicgstab_fixed(apply_S, rhs, apply_M, n_iter=fixed_iters,
-                              dot_fn=member_dot)
+                              dot_fn=grid.dot)
     else:
         dphi = bicgstab(apply_S, rhs, apply_M, tol=tol, max_iter=max_iter,
-                        dot_fn=member_dot)
+                        dot_fn=grid.dot)
     Kpp_dphi = -(0.5 * kappa) * lap(dphi) + (tau / dt + d) * dphi
     dmu = 2.0 * (Kpp_dphi + Rphi)
     return dphi, dmu

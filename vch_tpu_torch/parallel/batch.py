@@ -27,9 +27,24 @@ the batched per-step marcher, its adjoint the batched per-step sweep. The two
 (the batched per-step marcher and sweep), by vch_tpu's rule
 (`fused_march_rule`).
 
-Not ported (ROADMAP A7): the device mesh (`mesh`, `use_mesh`, which raise
-NotImplementedError), `shard_fused`, the per-device straggler compaction
-and the combined (scenarios, grid) mesh problem.
+With a device mesh (`mesh`, or `use_mesh=True` for every rank of the world;
+parallel/mesh.py) the batch is sharded over the "scenarios" ranks of
+torch.distributed, one process per device: each rank holds its block of
+B/D members and runs the same kernels on it (vch_tpu's `shard_fused`:
+members are independent, so there is no collective inside a march or a
+sweep). The host schedule is the same on every rank: each (B,) cost,
+Newton count and control change is all-gathered before the host reads it.
+Under a mesh a numeric or "auto" straggler_batch is a per-rank bucket size
+(each rank gathers its own stragglers, the bucket sized by the rank with
+the most), and the speculative search and the chunker are off, as in
+vch_tpu. A batch the mesh does not divide runs whole on every rank.
+Checkpoints and metrics are written by the mesh's first rank; results with
+`host_results=True` are the whole batch on every rank, with
+`host_results=False` the rank's own block (vch_tpu returns a global sharded
+array; ROADMAP C). The combined ("scenarios", "gx") mesh problem is
+parallel/spatial.py's GridShardedBatchedProblem2D, which
+`make_batched_problem_2d` routes to for a mesh with a grid dimension, or
+when one member's low-memory working set does not fit a device.
 """
 from __future__ import annotations
 
@@ -40,6 +55,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vch_tpu_torch.config import (ForwardSolverConfig1D,
                                   ForwardSolverConfig2D, OptimizationConfig,
@@ -54,6 +70,11 @@ from vch_tpu_torch.models.forward1d import ForwardSolver1D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D, fused_kernels_fit
 from vch_tpu_torch.models.lowmem import FusedLowMemBatch2D, LowMemPipeline2D
 from vch_tpu_torch.models.timegrid import build_dt_schedule
+from vch_tpu_torch.parallel.mesh import (BATCH_AXIS, _world_mesh,
+                                         all_gather_dim, axis_rank,
+                                         axis_size, batch_sharding,
+                                         check_mesh, local_block, make_mesh,
+                                         place_block, shard_batch)
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -144,15 +165,42 @@ def straggler_bucket(n_search: int, B: int) -> Optional[int]:
     return sb if sb < B else None
 
 
-_MESH_NOT_PORTED = (
-    "mesh / use_mesh: the multi-device paths of vch_tpu (parallel/mesh.py, "
-    "parallel/spatial.py, shard_fused) are not ported to vch_tpu_torch yet "
-    "(ROADMAP A7); run without a mesh")
+def shard_fused(fn, mesh, n_in: int, n_out: int):
+    """A whole-batch call run over the mesh's scenario ranks
+    (vch_tpu/parallel/batch.py:55): given the whole batch on every rank,
+    each rank runs fn (a fused kernel route) on its own block, with no
+    collective inside, and the blocks of the n_out outputs are all-gathered
+    so that every rank returns fn(*args). Every argument has a leading batch
+    axis or is None. A batch the mesh does not divide runs whole on every
+    rank. Each rank's block is cut by the same `place_block` as a batched
+    problem's inputs; the problems themselves do not call shard_fused:
+    their run() places each rank's block once and keeps the results
+    rank-local, so a march or a sweep is the same per-rank launch without
+    the gathers (ROADMAP C)."""
+    check_mesh(mesh)
+    group = mesh.get_group(BATCH_AXIS)
+
+    def call(*args):
+        if len(args) != n_in:
+            raise TypeError(f"expected {n_in} arguments, got {len(args)}")
+        if args[0].shape[0] % axis_size(mesh, BATCH_AXIS):
+            return fn(*args)
+        out = fn(*shard_batch(list(args), mesh))
+        outs = (out,) if n_out == 1 else tuple(out)
+        outs = tuple(_tmap(lambda t: all_gather_dim(t, group), o)
+                     for o in outs)
+        return outs[0] if n_out == 1 else outs
+
+    return call
 
 
-def _refuse_mesh(mesh, use_mesh: bool):
-    if mesh is not None or use_mesh:
-        raise NotImplementedError(_MESH_NOT_PORTED)
+def _mesh_for(mesh, use_mesh: bool, device):
+    """A batched problem's mesh: `mesh`, else with use_mesh one over every
+    rank of the world (make_mesh), made before any tensor is placed: making
+    the process group selects this rank's card (LOCAL_RANK)."""
+    if mesh is None and use_mesh:
+        mesh = make_mesh(device=device)
+    return mesh
 
 
 def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -239,17 +287,34 @@ class _BatchedPGDBase:
     (`_search_speculative`). chunk_size (:176-187) runs the adjoint, the
     trial and the forward on chunk_size members per call where it divides
     the batch. The counters straggler_rounds, speculative_rounds and
-    chunk_calls count sub-batch rounds, packed rounds and chunked calls."""
+    chunk_calls count sub-batch rounds, packed rounds and chunked calls.
+
+    mesh (a DeviceMesh with a "scenarios" dimension; a subclass's
+    use_mesh=True makes one over every rank of the world, `_mesh_for`)
+    shards the batch over the ranks (vch_tpu :168-175; see the module
+    docstring); its device type must be the problem's device."""
+
+    _requires_divisible_batch = False
 
     def __init__(self, settings: PGDSettings, alpha_max: float,
                  control_shape: tuple, straggler_batch=None,
                  speculative: Optional[bool] = None,
-                 chunk_size: Optional[int] = None):
+                 chunk_size: Optional[int] = None, mesh=None):
         self.device = self.solver.dts.device
         self.dtype = self.solver.dtype
+        self.mesh = None if mesh is None else check_mesh(mesh)
+        if mesh is not None:
+            if BATCH_AXIS not in mesh.mesh_dim_names:
+                raise ValueError(f"the mesh has no '{BATCH_AXIS}' dimension: "
+                                 f"{mesh.mesh_dim_names}")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a problem "
+                                 f"on {self.device}")
+        self._shard = None     # this rank's members in the current run
         self.s = settings
         self.alpha_max = alpha_max
         self._control_shape = tuple(control_shape)
+        self._local_control_shape = self._control_shape
         self.chunk_size = chunk_size
         self.chunk_calls = 0
         if straggler_batch is None and self._use_fused_march:
@@ -266,6 +331,72 @@ class _BatchedPGDBase:
             "ScenarioBatch.phi_Q=None (procedural targets) is supported by "
             "LowMemBatchedProblem2D only; pass a materialized phi_Q here")
 
+    # -- the mesh (vch_tpu :373-391) ------------------------------------
+    def _batch_shards(self) -> int:
+        """The ranks along the scenario axis (1 without a mesh)."""
+        return 1 if self.mesh is None else axis_size(self.mesh, BATCH_AXIS)
+
+    def _shard_of(self, B: int) -> Optional[slice]:
+        """This rank's members of a batch of B, or None where the batch is
+        not sharded (no mesh, or a batch the mesh does not divide, which then
+        runs whole on every rank; raises for a problem that needs it
+        divided)."""
+        if self.mesh is None:
+            return None
+        D = self._batch_shards()
+        if B % D:
+            if self._requires_divisible_batch:
+                raise ValueError(
+                    f"batch {B} is not divisible by the mesh's scenario-axis "
+                    f"size {D}; the combined (scenarios, gx) mesh programs "
+                    f"have no unsharded fallback — pad or trim the sweep")
+            return None
+        return local_block(B, D, axis_rank(self.mesh, BATCH_AXIS))
+
+    def _input_sharding(self, a):
+        """The placements of a batch-leading input on the mesh, one per
+        mesh dimension (vch_tpu :388-391)."""
+        return batch_sharding(self.mesh)
+
+    def _place(self, a):
+        """This rank's block of a batch-leading input of the current run,
+        by its placements (the whole input where the run is not sharded)."""
+        if a is None or self._shard is None:
+            return a
+        return place_block(a, self.mesh, self._input_sharding(a))
+
+    def _host_read(self, t: torch.Tensor) -> np.ndarray:
+        """A per-member device result as a host array over the whole batch:
+        all-gathered over the scenario ranks in a sharded run, so that every
+        rank drives the same host schedule (vch_tpu :40-52)."""
+        if self._shard is not None:
+            t = all_gather_dim(t, self.mesh.get_group(BATCH_AXIS))
+        return t.cpu().numpy()
+
+    def _gather_full(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch of a rank-local result (itself where the run is
+        not sharded)."""
+        if self._shard is None:
+            return t
+        return all_gather_dim(t, self.mesh.get_group(BATCH_AXIS))
+
+    def _local_batch(self, B: int) -> int:
+        """This rank's member count in the current run."""
+        sh = self._shard
+        return B if sh is None else sh.stop - sh.start
+
+    def _lead(self) -> bool:
+        """Whether this rank writes the run's files and lines: the mesh's
+        first rank, or the only process."""
+        return (self.mesh is None
+                or dist.get_rank() == int(self.mesh.mesh.flatten()[0]))
+
+    def _barrier(self):
+        """Wait for every rank of the mesh (one barrier per dimension)."""
+        if self.mesh is not None:
+            for ax in self.mesh.mesh_dim_names:
+                dist.barrier(group=self.mesh.get_group(ax))
+
     def _chunked(self, fn, *args):
         """fn(*args) on chunk_size members per call, the results
         concatenated along the batch axis (vch_tpu :255-275): every
@@ -273,7 +404,7 @@ class _BatchedPGDBase:
         call where chunking is off, chunk_size >= B or B % chunk_size."""
         c = self.chunk_size
         B = next(t.shape[0] for t in _leaves(args) if t.ndim > 0)
-        if not c or c >= B or B % c:
+        if not c or c >= B or B % c or self.mesh is not None:
             return fn(*args)
         outs = []
         for i in range(0, B, c):
@@ -308,8 +439,8 @@ class _BatchedPGDBase:
         pick = lambda a, b: torch.where(_bcast(take, a), a, b)
         return tuple(_tmap(pick, n, o) for n, o in zip(new, old))
 
-    @staticmethod
-    def _change(u1, u):
+    def _change(self, u1, u):
+        """Each member's relative control change."""
         dims = tuple(range(1, u.ndim))
         num = torch.sqrt(torch.sum((u1 - u) ** 2, dim=dims))
         den = torch.sqrt(torch.sum(u ** 2, dim=dims)) + 1e-9
@@ -318,13 +449,16 @@ class _BatchedPGDBase:
     def _search(self, u, cost_np, alpha_prev_np, r, phi0, phi_Q, phi_T,
                 b1, b2, b3, ks, dtype):
         """Masked host-driven optimistic + backtracking search
-        (vch_tpu/parallel/batch.py:401-546, its single-device arms):
-        alpha_prev first, then alpha_prev * ls_alpha_factor * ls_beta^(j-1);
-        a member that fails every trial keeps its last (worse) iterate,
-        alpha already times beta. Backtracking rounds with few members still
-        searching run on a gathered sub-batch (`straggler_batch`), padded
-        with non-searching rows whose results are discarded (their Newton
-        solves are still counted, as in vch_tpu)."""
+        (vch_tpu/parallel/batch.py:401-546): alpha_prev first, then
+        alpha_prev * ls_alpha_factor * ls_beta^(j-1); a member that fails
+        every trial keeps its last (worse) iterate, alpha already times
+        beta. Backtracking rounds with few members still searching run on a
+        gathered sub-batch (`straggler_batch`), padded with non-searching
+        rows whose results are discarded (their Newton solves are still
+        counted, as in vch_tpu); in a sharded run each rank gathers its own
+        stragglers into a bucket sized by the rank with the most (vch_tpu
+        :437-450, :467-494). The host arrays are over the whole batch; the
+        tensors are this rank's members."""
         s = self.s
         B = cost_np.shape[0]
         max_trials = 1 + s.ls_max_trials
@@ -336,45 +470,70 @@ class _BatchedPGDBase:
         res_alpha = alpha_prev_np.copy()
         solves = 0
         phase = {"optimistic": 0.0, "backtracking": 0.0}
-        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        dev = self.device
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+        mine = self._place        # this rank's part of a (B,) host array
         sb = self.straggler_batch
+        # compaction in D blocks of B/D members: one block without a mesh,
+        # a block per rank on a 1D scenario mesh in a sharded run; none on
+        # the combined mesh or in a mesh run the batch does not divide
+        # (vch_tpu :334, :426-430)
+        D = 0
+        if sb is not None and self.mesh is None:
+            D = 1
+        elif (sb is not None and self._shard is not None
+              and len(self.mesh.mesh_dim_names) == 1):
+            D = self._batch_shards()
+        rk = 0 if self.mesh is None else axis_rank(self.mesh, BATCH_AXIS)
         for j in range(max_trials):
             t_j = time.perf_counter()
             n_search = int(searching.sum())
             last = j == max_trials - 1
             nxt = np.where(j == 0, alpha_prev_np * s.ls_alpha_factor,
                            alpha_try * s.ls_beta)
-            sb_j = straggler_bucket(n_search, B) if sb == "auto" else sb
-            if (sb_j is not None and j > 0 and res is not None
-                    and 0 < n_search <= sb_j < B):
+            sb_loc = None
+            if D > 0 and j > 0 and res is not None and n_search > 0:
+                B_local = B // D
+                s2 = searching.reshape(D, B_local)
+                counts = int(s2.sum(axis=1).max())
+                sb_loc = (straggler_bucket(counts, B_local) if sb == "auto"
+                          else (sb if counts <= sb < B_local else None))
+            if sb_loc is not None:
                 self.straggler_rounds += 1
-                # searching members + non-searching padding rows, whose
-                # writes are masked off below; no index repeats
-                idx = np.concatenate([
-                    np.nonzero(searching)[0],
-                    np.nonzero(~searching)[0][: sb_j - n_search]])
-                it = torch.as_tensor(idx, device=self.device)
+                # each block's stragglers by local index, padded with its
+                # own non-searching rows (their writes are masked off); no
+                # index repeats
+                blocks = []
+                for dv in range(D):
+                    loc_s = np.nonzero(s2[dv])[0]
+                    loc_ns = np.nonzero(~s2[dv])[0][: sb_loc - loc_s.size]
+                    blocks.append(np.concatenate([loc_s, loc_ns]))
+                idx = np.concatenate([dv * B_local + b
+                                      for dv, b in enumerate(blocks)])
+                own = rk * B_local + blocks[rk]
+                it = torch.as_tensor(blocks[rk], device=dev)
                 u_t, phi_t, c_t, ns = self._trial_v(
-                    *_gather(it, u, r), as_t(alpha_try[idx]),
+                    *_gather(it, u, r), as_t(alpha_try[own]),
                     *_gather(it, phi0, phi_Q, phi_T, b1, b2, b3, ks))
-                solves += int(ns.sum())
-                c_sub = c_t.cpu().numpy()
+                solves += int(self._host_read(ns).sum())
+                c_sub = self._host_read(c_t)    # rank order = idx's order
                 ok = np.zeros(B, dtype=bool)
                 ok[idx] = c_sub < cost_np[idx]
                 take = searching & (ok | last)
                 res = _scatter(res, (u_t, phi_t, c_t), it, torch.as_tensor(
-                    take[idx], device=self.device))
+                    take[own], device=dev))
             else:
                 u_t, phi_t, c_t, ns = self._trial_v(
-                    u, r, as_t(alpha_try), phi0, phi_Q, phi_T, b1, b2, b3, ks)
-                solves += int(ns.sum())
-                c_np = c_t.cpu().numpy()
+                    u, r, as_t(mine(alpha_try)), phi0, phi_Q, phi_T, b1, b2,
+                    b3, ks)
+                solves += int(self._host_read(ns).sum())
+                c_np = self._host_read(c_t)
                 ok = c_np < cost_np
                 take = searching & (ok | last)
                 if res is None:
                     res = (u_t, phi_t, c_t)
                 else:
-                    tk = torch.as_tensor(take, device=self.device)
+                    tk = torch.as_tensor(mine(take), device=dev)
                     res = self._merge(tk, (u_t, phi_t, c_t), res)
             res_alpha = np.where(take, np.where(ok, alpha_try, nxt), res_alpha)
             n_trials = np.where(searching, j + 1, n_trials)
@@ -387,7 +546,7 @@ class _BatchedPGDBase:
                 break
             alpha_try = np.where(searching, nxt, alpha_try)
         u1, phi1, c1 = res
-        return (u1, phi1, c1.cpu().numpy(), res_alpha, n_trials, opt_ok,
+        return (u1, phi1, self._host_read(c1), res_alpha, n_trials, opt_ok,
                 solves, phase)
 
     def _search_speculative(self, u, cost_np, alpha_prev_np, r, phi0, phi_Q,
@@ -513,25 +672,33 @@ class _BatchedPGDBase:
                 solves, phase)
 
     def _straggler_buckets(self, B: int) -> list:
-        """The sub-batch sizes the masked search can gather into
-        (vch_tpu :686-715, single device)."""
+        """The sub-batch sizes (whole-batch counts) the masked search can
+        gather into (vch_tpu :686-715): under a 1D scenario mesh, per-rank
+        buckets times the rank count (none if the batch does not divide);
+        none on the combined mesh."""
         sb = self.straggler_batch
         if sb is None:
             return []
+        D = self._batch_shards()
+        if self.mesh is not None and (len(self.mesh.mesh_dim_names) != 1
+                                      or B % D):
+            return []
+        B //= D
         if sb == "auto":
             out, c = [], 8
             while c < B:
-                out.append(c)
+                out.append(c * D)
                 c *= 2
             return out
-        return [sb] if 0 < sb < B else []
+        return [sb * D] if 0 < sb < B else []
 
     def _inputs(self, scenarios: ScenarioBatch, dtype):
-        """The scenario batch on the problem's device in `dtype`:
-        (phi0, phi_Q, phi_T, b1, b2, b3, ks); sets the prox bounds and a
-        procedural phi_Q's mode."""
-        as_t = lambda a: (None if a is None else
-                          torch.as_tensor(a, dtype=dtype, device=self.device))
+        """This rank's block of the scenario batch (the whole batch where
+        the run is not sharded: set self._shard first) on the problem's
+        device in `dtype`: (phi0, phi_Q, phi_T, b1, b2, b3, ks); sets the
+        prox bounds and a procedural phi_Q's mode."""
+        as_t = lambda a: (None if a is None else torch.as_tensor(
+            self._place(a), dtype=dtype, device=self.device))
         if scenarios.phi_Q is None:
             self._set_phi_Q_mode(scenarios.phi_Q_mode)
         self.u_min, self.u_max = scenarios.u_min, scenarios.u_max
@@ -557,11 +724,13 @@ class _BatchedPGDBase:
             return None
         dev = self.device
         dtype = _torch_dtype(dtype) or self.dtype
-        B = scenarios.batch
+        self._shard = self._shard_of(scenarios.batch)
+        B = self._local_batch(scenarios.batch)
         _sync(dev)
         base = torch.cuda.memory_allocated(dev)
         phi0, phi_Q, phi_T, b1, b2, b3, ks = self._inputs(scenarios, dtype)
-        u = torch.zeros((B,) + self._control_shape, dtype=dtype, device=dev)
+        u = torch.zeros((B,) + self._local_control_shape, dtype=dtype,
+                        device=dev)
         args = (u, torch.zeros_like(u), torch.ones(B, dtype=dtype, device=dev),
                 phi0, phi_Q, phi_T, b1, b2, b3, ks)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -587,16 +756,19 @@ class _BatchedPGDBase:
         launch (its shared-memory attributes) falls here too. Nothing when
         no bucket applies, as in vch_tpu, and nothing on a CPU device,
         where the plain versions have nothing to build."""
-        B = scenarios.batch
-        buckets = self._straggler_buckets(B)
+        buckets = self._straggler_buckets(scenarios.batch)
         if not buckets or self.device.type != "cuda":
             return
         from vch_tpu_torch.ops import _build
         _build.load()
         dev = self.device
         dtype = _torch_dtype(dtype) or self.dtype
+        self._shard = self._shard_of(scenarios.batch)
+        B = self._local_batch(scenarios.batch)
+        D = scenarios.batch // B        # per-rank buckets under a mesh
         phi0, phi_Q, phi_T, b1, b2, b3, ks = self._inputs(scenarios, dtype)
-        u = torch.zeros((B,) + self._control_shape, dtype=dtype, device=dev)
+        u = torch.zeros((B,) + self._local_control_shape, dtype=dtype,
+                        device=dev)
         r = torch.zeros_like(u)
         ones = lambda n: torch.ones(n, dtype=dtype, device=dev)
         res = self._trial_v(u, r, ones(B), phi0, phi_Q, phi_T, b1, b2, b3,
@@ -604,6 +776,7 @@ class _BatchedPGDBase:
         res = self._merge(torch.zeros(B, dtype=torch.bool, device=dev),
                           res, res)
         for bsz in buckets:
+            bsz //= D
             it = torch.arange(bsz, device=dev)
             out = self._trial_v(*_gather(it, u, r), ones(bsz),
                                 *_gather(it, phi0, phi_Q, phi_T, b1, b2, b3,
@@ -634,15 +807,25 @@ class _BatchedPGDBase:
         problem's device), cost_history (iterations+1, B), alpha,
         converged, iterations, newton_solves (forward Newton linear solves,
         padding and packed rows included), timers (backward / optimistic /
-        backtracking split), advisor_alpha and ls_trials."""
+        backtracking split), advisor_alpha and ls_trials.
+
+        Under a mesh every rank calls run with the whole ScenarioBatch and
+        runs its own members (a batch the mesh does not divide runs whole on
+        every rank); the cost history and counters are the whole batch's on
+        every rank, u, r and phi too with host_results (else this rank's
+        block), the checkpoint and metrics files are written by the mesh's
+        first rank, and a resume reads the file on every rank."""
         from vch_tpu_torch.utils.checkpoint import (host_numpy,
                                                     load_checkpoint,
                                                     save_checkpoint)
         from vch_tpu_torch.utils.metrics import MetricsLogger
-        metrics = MetricsLogger(metrics_path) if metrics_path else None
         dev = self.device
         dtype = _torch_dtype(dtype) or self.dtype
         B = scenarios.batch
+        self._shard = self._shard_of(B)
+        lead = self._lead()
+        metrics = (MetricsLogger(metrics_path) if metrics_path and lead
+                   else None)
         phi0, phi_Q, phi_T, b1, b2, b3, ks = self._inputs(scenarios, dtype)
 
         timers = {"total_optimization": 0.0, "backward_total": 0.0,
@@ -651,8 +834,10 @@ class _BatchedPGDBase:
         t_run0 = time.perf_counter()
         k_start = 0
         if resume and checkpoint_path:
+            # every rank reads the file and takes its own members
             state, meta = load_checkpoint(checkpoint_path)
-            u = torch.as_tensor(state["u"], dtype=dtype, device=dev)
+            u = torch.as_tensor(self._place(state["u"]), dtype=dtype,
+                                device=dev)
             phi, ns0 = self._forward_v(u, phi0, phi_Q, phi_T)
             alpha = state["alpha"]
             plateau = state["plateau"].astype(int)
@@ -660,24 +845,28 @@ class _BatchedPGDBase:
             iters_to_converge = state["iters_to_converge"].astype(int)
             cost_hist = list(state["cost_history"])
             k_start = int(meta["iteration"])
-            if verbose:
+            if verbose and lead:
                 print(f"[resume] from {checkpoint_path} at iter {k_start}")
         else:
-            u = torch.zeros((B,) + self._control_shape, dtype=dtype,
+            u = torch.zeros((self._local_batch(B),)
+                            + self._local_control_shape, dtype=dtype,
                             device=dev)
             phi, ns0 = self._forward_v(u, phi0, phi_Q, phi_T)
             cost = self._cost(phi, u, phi_Q, phi_T, b1, b2, b3, ks)
             alpha = np.full((B,), self.alpha_max)
-            cost_hist = [cost.cpu().numpy()]
+            cost_hist = [self._host_read(cost)]
             plateau = np.zeros(B, dtype=int)
             converged = np.zeros(B, dtype=bool)
             iters_to_converge = np.full(B, max_iter, dtype=int)
-        newton_solves = int(ns0.sum())
+        newton_solves = int(self._host_read(ns0).sum())
         s = self.s
         advisor_sum = np.zeros(B)
         advisor_cnt = np.zeros(B, dtype=int)
         ls_trials = np.zeros(B, dtype=int)
-        search = self._search_speculative if self.speculative else self._search
+        # the speculative search gathers across the batch axis: off under a
+        # mesh (vch_tpu :930-933)
+        search = (self._search_speculative
+                  if self.speculative and self.mesh is None else self._search)
         r = None
 
         for k in range(k_start, max_iter):
@@ -695,7 +884,7 @@ class _BatchedPGDBase:
             timers["backtracking_total"] += phase["backtracking"]
             newton_solves += solves
             ls_trials += np.asarray(n_trials, dtype=int)
-            ch_np = self._change(u, u_prev).cpu().numpy()
+            ch_np = self._host_read(self._change(u, u_prev))
 
             if k >= s.advisor_start_iter:
                 advisor_sum += np.where(opt_ok, alpha_prev, 0.0)
@@ -712,7 +901,7 @@ class _BatchedPGDBase:
             iters_to_converge[newly] = k + 1
             converged |= newly
             cost_hist.append(c_np)
-            if verbose:
+            if verbose and lead:
                 print(f"iter {k+1:4d} | mean cost {c_np.mean():.6f} | "
                       f"converged {converged.sum()}/{B} | "
                       f"max trials {int(np.asarray(n_trials).max())}")
@@ -725,13 +914,18 @@ class _BatchedPGDBase:
                             mean_alpha=float(np.mean(a_np)))
             if (checkpoint_path and checkpoint_every
                     and (k + 1) % checkpoint_every == 0):
-                save_checkpoint(
-                    checkpoint_path,
-                    {"u": u, "alpha": alpha, "plateau": plateau,
-                     "converged": converged,
-                     "iters_to_converge": iters_to_converge,
-                     "cost_history": np.stack(cost_hist)},
-                    {"iteration": k + 1})
+                # the whole batch's u (a collective), written by one rank
+                u_all = self._gather_full(u)
+                if lead:
+                    save_checkpoint(
+                        checkpoint_path,
+                        {"u": u_all, "alpha": alpha, "plateau": plateau,
+                         "converged": converged,
+                         "iters_to_converge": iters_to_converge,
+                         "cost_history": np.stack(cost_hist)},
+                        {"iteration": k + 1})
+                del u_all
+                self._barrier()
             if converged.all():
                 break
 
@@ -746,7 +940,10 @@ class _BatchedPGDBase:
         if metrics:
             metrics.log("run_done", timers=timers,
                         newton_solves=newton_solves)
-        out = host_numpy if host_results else (lambda a: a)
+        # host_results: the whole batch on every rank; else this rank's own
+        # members (vch_tpu returns a global sharded array; ROADMAP C)
+        out = ((lambda a: host_numpy(self._gather_full(a))) if host_results
+               else (lambda a: a))
         return {
             "u": out(u), "r": out(r), "phi": _tmap(out, phi),
             "cost_history": np.stack(cost_hist), "alpha": np.asarray(alpha),
@@ -790,17 +987,17 @@ class BatchedProblem1D(_BatchedPGDBase):
     refuses (`ForwardSolver1D.fused_march_available`) takes the batched
     per-step marcher, as does every forward solve with fused_march off,
     which also runs every trial on the whole batch unless straggler_batch
-    is given. straggler_batch, speculative and chunk_size: see
-    _BatchedPGDBase; a mesh raises (ROADMAP A7)."""
+    is given. straggler_batch, speculative, chunk_size, mesh and use_mesh:
+    see _BatchedPGDBase."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig1D] = None,
                  settings: Optional[PGDSettings] = None,
                  alpha_max: float = 100.0, mesh=None, use_mesh: bool = False,
                  straggler_batch=None, speculative=None, chunk_size=None,
                  fused_march: Optional[bool] = None, device=None):
-        _refuse_mesh(mesh, use_mesh)
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig1D()
         device = resolve_device(device)
+        mesh = _mesh_for(mesh, use_mesh, device)
         self.solver = ForwardSolver1D(cfg, device=device)
         self.adj = AdjointSolver1D(cfg, device=device)
         self._use_fused_march = (
@@ -810,7 +1007,8 @@ class BatchedProblem1D(_BatchedPGDBase):
         super().__init__(settings or PGDSettings.defaults_1d(), alpha_max,
                          (self.solver.M + 2, cfg.N + 1),
                          straggler_batch=straggler_batch,
-                         speculative=speculative, chunk_size=chunk_size)
+                         speculative=speculative, chunk_size=chunk_size,
+                         mesh=mesh)
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
         t_ref = np.concatenate([[0.0], self.solver.t_hist])
         self._x = as_t(self.solver.x)
@@ -871,17 +1069,17 @@ class BatchedProblem2D(_BatchedPGDBase):
     per-step marcher and sweep (masked lockstep over the members; on a
     float32 CUDA run the per-solve kernels, one CTA per member; adaptive
     Krylov in float64), every trial on the whole batch unless
-    straggler_batch is given. straggler_batch, speculative and chunk_size:
-    see _BatchedPGDBase; a mesh raises (ROADMAP A7)."""
+    straggler_batch is given. straggler_batch, speculative, chunk_size, mesh
+    and use_mesh: see _BatchedPGDBase."""
 
     def __init__(self, fwd_config: Optional[ForwardSolverConfig2D] = None,
                  settings: Optional[PGDSettings] = None,
                  alpha_max: float = 50.0, mesh=None, use_mesh: bool = False,
                  straggler_batch=None, speculative=None, chunk_size=None,
                  fused_march: Optional[bool] = None, device=None):
-        _refuse_mesh(mesh, use_mesh)
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
         device = resolve_device(device)
+        mesh = _mesh_for(mesh, use_mesh, device)
         self.solver = ForwardSolver2D(cfg, device=device)
         self.adj = AdjointSolver2D(cfg, device=device)
         self._use_fused_march = fused_march_rule(cfg, device, fused_march)
@@ -890,7 +1088,8 @@ class BatchedProblem2D(_BatchedPGDBase):
         super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
                          _control_shape_2d(self.solver),
                          straggler_batch=straggler_batch,
-                         speculative=speculative, chunk_size=chunk_size)
+                         speculative=speculative, chunk_size=chunk_size,
+                         mesh=mesh)
         as_t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=device)
         self._x = as_t(self.solver.x)
         self._y = as_t(self.solver.y)
@@ -930,9 +1129,9 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
                  alpha_max: float = 50.0, mesh=None, use_mesh: bool = False,
                  straggler_batch=None, speculative=None, chunk_size=None,
                  fused_march: Optional[bool] = None, device=None):
-        _refuse_mesh(mesh, use_mesh)
         self.fwd_config = cfg = fwd_config or ForwardSolverConfig2D()
         device = resolve_device(device)
+        mesh = _mesh_for(mesh, use_mesh, device)
         self.pipe = LowMemPipeline2D(cfg, K=K, device=device)
         self.solver, self.adj = self.pipe.solver, self.pipe.adjoint
         self._use_fused_march = (
@@ -943,7 +1142,8 @@ class LowMemBatchedProblem2D(_BatchedPGDBase):
         super().__init__(settings or PGDSettings.defaults_2d(), alpha_max,
                          _control_shape_2d(self.solver),
                          straggler_batch=straggler_batch,
-                         speculative=speculative, chunk_size=chunk_size)
+                         speculative=speculative, chunk_size=chunk_size,
+                         mesh=mesh)
 
     def _set_phi_Q_mode(self, mode: Optional[str]):
         if mode not in ("ramp", "zeros"):
@@ -988,24 +1188,90 @@ def full_memory_estimate_bytes(cfg: ForwardSolverConfig2D, batch: int,
     return int(per_s * (M + 1) * field + MARCH_WORKSPACE_FIELDS * field)
 
 
+def grid_factor(n_devices: int, rows: int, member_bytes: float,
+                limit: float) -> int:
+    """The grid axis of the automatic combined mesh: the smallest divisor
+    gx >= 2 of n_devices that also divides the grid's rows into blocks of
+    >= 2 and brings one member's working set under `limit` per device.
+    vch_tpu doubles gx from 2 (batch.py:1268-1272), so a grid of 129 or 257
+    rows never factors; the port tries every divisor (ROADMAP C). Raises
+    ValueError when none does."""
+    for gx in range(2, n_devices + 1):
+        if (n_devices % gx == 0 and rows % gx == 0 and rows // gx >= 2
+                and member_bytes / gx <= limit):
+            return gx
+    raise ValueError(
+        f"one member's low-memory working set (~{member_bytes / 2**30:.1f} "
+        f"GiB) does not fit a device and the {n_devices}-device mesh cannot "
+        f"be factored into (scenarios, gx) with gx dividing both the device "
+        f"count and Nx+1={rows} and bringing it under {limit / 2**30:.1f} "
+        f"GiB")
+
+
 def make_batched_problem_2d(fwd_config: Optional[ForwardSolverConfig2D] = None,
                             batch: int = 1, materialized_phi_Q: bool = True,
                             hbm_limit_bytes: Optional[int] = None,
                             safety: float = 0.75, K: int = 10, device=None,
                             fused_march: Optional[bool] = None, **kwargs):
     """The full-memory or the segment-checkpointed batched 2D problem, by
-    estimated peak device memory (vch_tpu/parallel/batch.py:1185-1287,
-    single-device arms): LowMemBatchedProblem2D when the full-memory
-    estimate (full_memory_estimate_bytes) exceeds safety * limit, else
+    estimated peak device memory (vch_tpu/parallel/batch.py:1185-1287):
+    LowMemBatchedProblem2D when the full-memory estimate
+    (full_memory_estimate_bytes) exceeds safety * limit, else
     BatchedProblem2D, on `device` (None: the CUDA card), with `fused_march`
     passed to either. The limit is hbm_limit_bytes if given, else the total
-    memory of the CUDA device, or 16 GiB for a CPU device."""
+    memory of the CUDA device, or 16 GiB for a CPU device.
+
+    With a mesh (kwargs["mesh"]): a mesh with a dimension besides
+    "scenarios" (the grid axis) gives GridShardedBatchedProblem2D on it
+    (kwargs settings, alpha_max, mesh and grid_axis only); a 1D scenario
+    mesh where even one member's low-memory working set ((ceil(M/K) + 1 +
+    2K) fields, three live copies) exceeds safety * limit is re-meshed into
+    (scenarios, gx), gx from `grid_factor`, and gives the same."""
     cfg = fwd_config or ForwardSolverConfig2D()
     device = resolve_device(device)
+    mesh = kwargs.get("mesh")
+    if mesh is not None:
+        check_mesh(mesh)
+        axes = tuple(mesh.mesh_dim_names)
+        extra_axes = [a for a in axes if a != BATCH_AXIS]
+        if len(extra_axes) > 1:
+            raise ValueError(f"mesh has axes {axes}; at most one "
+                             f"non-'{BATCH_AXIS}' (grid) axis is supported")
+        if extra_axes:
+            from vch_tpu_torch.parallel.spatial import (
+                GridShardedBatchedProblem2D)
+            ga = kwargs.get("grid_axis")
+            if ga is not None and ga != extra_axes[0]:
+                raise ValueError(f"grid_axis={ga!r} not found in mesh axes "
+                                 f"{axes}")
+            kwargs.setdefault("grid_axis", extra_axes[0])
+            supported = {"settings", "alpha_max", "mesh", "grid_axis"}
+            extra = set(kwargs) - supported
+            if extra or fused_march:
+                raise ValueError(
+                    f"the combined (scenarios, grid) mesh arm does not "
+                    f"support {sorted(extra) or ['fused_march']}; supported "
+                    f"kwargs: {sorted(supported)}")
+            return GridShardedBatchedProblem2D(cfg, device=device, **kwargs)
     est = full_memory_estimate_bytes(cfg, batch, materialized_phi_Q)
     if hbm_limit_bytes is None:
-        hbm_limit_bytes = (torch.cuda.get_device_properties(device).total_memory
-                           if device.type == "cuda" else 16 * 2**30)
+        hbm_limit_bytes = (
+            torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else 16 * 2**30)
+    M = len(build_dt_schedule(cfg.T, cfg.dt_initial))
+    field = (cfg.Nx + 1) * (cfg.Ny + 1) * (8 if cfg.dtype == "float64" else 4)
+    member_lowmem = (-(-M // K) + 1 + 2 * K) * field * 3
+    if mesh is not None and member_lowmem > safety * hbm_limit_bytes:
+        from vch_tpu_torch.parallel.spatial import GridShardedBatchedProblem2D
+        ranks = mesh.mesh.flatten().tolist()
+        gx = grid_factor(len(ranks), cfg.Nx + 1, member_lowmem,
+                         safety * hbm_limit_bytes)
+        combined = _world_mesh(mesh.device_type, (len(ranks) // gx, gx),
+                               (BATCH_AXIS, "gx"), ranks=ranks)
+        kw = {k: v for k, v in kwargs.items() if k in ("settings",
+                                                       "alpha_max")}
+        return GridShardedBatchedProblem2D(cfg, mesh=combined, device=device,
+                                           **kw)
     if est > safety * hbm_limit_bytes:
         return LowMemBatchedProblem2D(cfg, K=K, device=device,
                                       fused_march=fused_march, **kwargs)
