@@ -251,6 +251,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                False) likewise; (e) `sweep2d --mesh` and `optimize2d
                --grid-shard` at 32x32 on the card against --device cpu
                (processes of their own), 2e-4;
+  14 fused   — the fused line search (ProximalGradientLoop(search_mode=
+               "fused")): (a) config 3 on phase 8's problem and starting
+               state, 1 warm-up then 3 timed iterations: trials, alphas and
+               Newton solves phase 8's, costs within 1e-6 relative, row 1
+               launched 1 + ls_max_trials times an iteration of which
+               exactly the searching trials march, the search alone free of
+               host reads (set_sync_debug_mode("error")), the synchronizing
+               calls of one iteration of each mode, both modes' rates in
+               turns; (b) config 1, 4 iterations, fused against host on the
+               card (trials, alphas, Newton solves equal, costs 1e-6, a
+               failed iteration keeps its worse iterate); (c) row 1 with the
+               flag: n = 65, B = 4, flags [1, 0, 1, 0] and n = 129, B = 128,
+               all ones, bit for bit the launch without a flag (within 2% of
+               its time), an idle launch's cost at n = 65, B = 1;
   4sp profile — phase 4s's scan path likewise, its baseline march and one
                sweep (a run of no PGD iteration);
   2e-dev     — the operator applies and their torch.matmul forms once more,
@@ -2351,7 +2365,8 @@ def config3_run(torch, device, iters=3):
     checks (verify_sparsity, second_order_check with 5 directions); every
     launch count reset to 0 before each of the four and read after it; last
     the constructor's baseline march once more with CUDA events around each
-    Schur solve (row 8, EntryTimer)."""
+    Schur solve (row 8, EntryTimer). Returns the figures and the problem,
+    which phase 14a reuses."""
     from vch_tpu_torch.ops import march as km
 
     cfg = _config(64)
@@ -2394,6 +2409,7 @@ def config3_run(torch, device, iters=3):
                 warmup_s=windows["warmup"]["s"],
                 timers={k: v for k, v in res.timers.items()},
                 ls_trials=res.ls_trials_per_iter,
+                alpha_history=res.alpha_history,
                 newton_solves=t["newton_solves"],
                 constructor_newton_solves=windows["constructor"][
                     "newton_solves"],
@@ -2405,7 +2421,7 @@ def config3_run(torch, device, iters=3):
                 launches={k: v["launches"] for k, v in windows.items()},
                 constructor_schur_solve=t8.summary(),
                 entries_are_kernels=entries_are_kernels,
-                finite=bool(np.isfinite(ch).all()))
+                finite=bool(np.isfinite(ch).all())), prob
 
 
 def check_config3(c):
@@ -4568,6 +4584,348 @@ def mesh_phase(device=None, name=None, smi=None):
     return launches
 
 
+def _sync_count(torch, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): its result and
+    how many synchronizing CUDA calls it made."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _fused_loop(loop):
+    """The problem's PGD loop with search_mode="fused"."""
+    from vch_tpu_torch.control.pgd import ProximalGradientLoop
+    return ProximalGradientLoop(loop.forward, loop.adjoint, loop.cost,
+                                loop.opt, settings=loop.s,
+                                error_norms=loop.error_norms,
+                                search_mode="fused")
+
+
+def fused_config3(torch, device, prob, c3, iters=3):
+    """Phase 14a: config 3 in the fused search mode on phase 8's
+    ControlProblem2D, from phase 8's starting state: 1 warm-up, then the
+    same `iters` timed iterations, launch counts set to 0 just before; the
+    members each row-1 launch marched (nonzero nsolve) counted on the
+    device; then the host and the fused mode in turns (host, fused, fused,
+    host, twice) for their rates in one window; the search alone, with the
+    problem's trial at the first iterate, under
+    torch.cuda.set_sync_debug_mode("error"); the synchronizing calls of
+    one whole iteration of each mode (set_sync_debug_mode("warn")); and one
+    idle trial slot (the trial with its member inactive): its host µs,
+    enqueued without a sync, and its device ms alone (a CUDA graph)."""
+    from vch_tpu_torch.control.pgd import optimistic_backtracking_search
+    from vch_tpu_torch.control.prox import calculate_gradient
+    from vch_tpu_torch.ops import march as km
+
+    loop, fused = prob.loop, _fused_loop(prob.loop)
+    u0, phi0 = prob.initial_control(), prob.phi_hist0
+    alpha0 = float(prob.opt_config.alpha_max)
+
+    def run(lp):
+        return lp.run(u0, phi0, max_iter=iters, verbose=False)
+
+    fused.run(u0, phi0, max_iter=1, verbose=False)
+    marched = []
+
+    def march(*a, **kw):
+        out = km.march_fused_2d(*a, **kw)
+        marched.append((out[1] > 0).sum())
+        return out
+
+    march.__name__ = "march_fused_2d"
+    prob.solver.entries = km.KERNELS._replace(march=march)
+    try:
+        torch.cuda.synchronize()
+        km.reset_launches()
+        n0 = prob.newton_solves
+        t0 = time.perf_counter()
+        res = run(fused)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k: v for k, v in km.launch_counts().items() if v}
+        newton = prob.newton_solves - n0
+        members = int(torch.stack(marched).sum()) if marched else 0
+    finally:
+        prob.solver.entries = km.KERNELS
+    rates = {}
+    for mode, lp in (("host", loop), ("fused", fused), ("fused", fused),
+                     ("host", loop)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(lp)
+        torch.cuda.synchronize()
+        rates.setdefault(mode, []).append(iters / (time.perf_counter() - t0))
+    r = loop.adjoint(phi0, u0)
+    grad = calculate_gradient(r, u0, prob.opt_config.b3)
+    cost0 = loop.cost(phi0, u0)
+    trial = fused._trial(u0, grad)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        search = optimistic_backtracking_search(trial, cost0, alpha0, loop.s)
+        search_error = None
+    except RuntimeError as e:
+        search_error = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    search_trials = None if search_error else int(search[4])
+    timers = dict.fromkeys(("backward_total", "optimistic_eval_total",
+                            "line_search_total", "successful_step_total"),
+                           0.0)
+    _, syncs_fused = _sync_count(torch, lambda: fused._iteration_fused(
+        u0, phi0, cost0, alpha0, timers))
+    _, syncs_host = _sync_count(torch, lambda: loop._iteration_host(
+        u0, phi0, float(cost0), alpha0, timers))
+    alpha = torch.full((), alpha0, dtype=torch.float64, device=device)
+    idle = torch.zeros((), dtype=torch.bool, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        trial(alpha, idle)
+    slot_host_us = 1e6 * (time.perf_counter() - t0) / 20
+    slot_device_ms = graph_ms(lambda: trial(alpha, idle), 20)
+    ch, ch8 = np.asarray(res.cost_history), np.asarray(c3["cost_history"])
+    return dict(n=prob.solver.config.Nx, M=prob.solver.M, iters=iters,
+                slots_per_iter=1 + loop.s.ls_max_trials,
+                pgd_iters_per_s=iters / elapsed, elapsed_s=elapsed,
+                pgd_iters_per_s_phase8=c3["pgd_iters_per_s"],
+                turns_pgd_iters_per_s=rates,
+                ls_trials=res.ls_trials_per_iter,
+                ls_trials_phase8=c3["ls_trials"],
+                alpha_history=res.alpha_history,
+                alpha_history_phase8=c3["alpha_history"],
+                cost_history=ch.tolist(),
+                max_rel_cost_vs_phase8=float(
+                    (np.abs(ch - ch8) / np.abs(ch8)).max()),
+                newton_solves=newton,
+                newton_solves_phase8=c3["newton_solves"],
+                launches=launches, members_marched=members,
+                timers={k: res.timers[k] for k in timers},
+                search_sync_error=search_error, search_trials=search_trials,
+                syncs_per_iteration=dict(fused=syncs_fused, host=syncs_host),
+                idle_slot=dict(host_us=slot_host_us,
+                               device_ms=slot_device_ms),
+                finite=bool(np.isfinite(ch).all()))
+
+
+def check_fused_config3(c):
+    """Phase 14a gates: trials and alphas those of phase 8's host run, the
+    costs within 1e-6 relative, the Newton solves equal; row 1 launched
+    once a slot (1 + ls_max_trials an iteration), of which exactly the
+    searching trials marched, the adjoint kernel M times an iteration and
+    nothing else; the search alone made no host read; the timers at 0."""
+    fails = []
+    if c["ls_trials"] != c["ls_trials_phase8"]:
+        fails.append(f"trials {c['ls_trials']} vs {c['ls_trials_phase8']}")
+    if c["alpha_history"] != c["alpha_history_phase8"]:
+        fails.append("alphas differ from phase 8's")
+    if not c["finite"] or c["max_rel_cost_vs_phase8"] > 1e-6:
+        fails.append(f"costs vs phase 8 {c['max_rel_cost_vs_phase8']}")
+    if c["newton_solves"] != c["newton_solves_phase8"]:
+        fails.append(f"Newton solves {c['newton_solves']} vs "
+                     f"{c['newton_solves_phase8']}")
+    want = {"march_fused_2d": c["slots_per_iter"] * c["iters"],
+            "bicgstab_adjoint_spectral": c["M"] * c["iters"]}
+    if c["launches"] != want:
+        fails.append(f"launches {c['launches']}, expected {want}")
+    if c["members_marched"] != sum(c["ls_trials"]):
+        fails.append(f"{c['members_marched']} members marched, expected "
+                     f"{sum(c['ls_trials'])}")
+    if c["search_sync_error"] is not None:
+        fails.append(f"the search read the host: {c['search_sync_error']}")
+    if any(c["timers"].values()):
+        fails.append(f"phase timers {c['timers']}")
+    if fails:
+        raise RuntimeError("phase 14a: " + "; ".join(fails) + f" | {c}")
+
+
+def fused_config1(torch, device, iters=4):
+    """Phase 14b: config 1 (ControlProblem1D, float32, N = 128, M = 100)
+    on the card, `iters` iterations in the host mode, then in the fused
+    mode, from one constructor (no kernel on this path: the per-step
+    marcher, its idle trial slots marching no member)."""
+    from vch_tpu_torch.config import ForwardSolverConfig1D
+    from vch_tpu_torch.control.problems import ControlProblem1D
+    from vch_tpu_torch.ops import march as km
+
+    prob = ControlProblem1D(ForwardSolverConfig1D(dtype="float32"),
+                            device=device)
+    runs = {}
+    for mode, lp in (("host", prob.loop), ("fused", _fused_loop(prob.loop))):
+        torch.cuda.synchronize()
+        km.reset_launches()
+        n0 = prob.newton_solves
+        t0 = time.perf_counter()
+        res = lp.run(prob.initial_control(), prob.phi_hist0, max_iter=iters,
+                     verbose=False)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        runs[mode] = dict(
+            pgd_iters_per_s=iters / elapsed, elapsed_s=elapsed,
+            ls_trials=res.ls_trials_per_iter,
+            alpha_history=res.alpha_history,
+            cost_history=res.cost_history,
+            newton_solves=prob.newton_solves - n0,
+            launches={k: v for k, v in km.launch_counts().items() if v})
+    h, f = runs["host"], runs["fused"]
+    ch, cf = np.asarray(h["cost_history"]), np.asarray(f["cost_history"])
+    full = 1 + prob.loop.s.ls_max_trials
+    return dict(N=prob.fwd_config.N, M=prob.solver.M, iters=iters,
+                host=h, fused=f,
+                max_rel_cost=float((np.abs(cf - ch) / np.abs(ch)).max()),
+                failed_iterations=[k for k, n in enumerate(f["ls_trials"])
+                                   if n == full and not cf[k + 1] < cf[k]],
+                device=str(prob.phi_hist0.device),
+                finite=bool(np.isfinite(cf).all()))
+
+
+def check_fused_config1(c):
+    """Phase 14b gates: trials and alphas equal, costs within 1e-6
+    relative, the Newton solves equal; every iteration whose trials all
+    failed keeps its last, worse iterate (the cost rises), as vch_tpu's
+    fused mode does and the host mode under keep_failed_step; no kernel
+    launched; on the card."""
+    h, f = c["host"], c["fused"]
+    fails = []
+    for k in ("ls_trials", "alpha_history", "newton_solves"):
+        if h[k] != f[k]:
+            fails.append(f"{k}: host {h[k]}, fused {f[k]}")
+    if not c["finite"] or c["max_rel_cost"] > 1e-6:
+        fails.append(f"costs {c['max_rel_cost']}")
+    cf = f["cost_history"]
+    if any(not cf[k + 1] > cf[k] for k in c["failed_iterations"]):
+        fails.append("a failed iteration did not keep its worse iterate")
+    for run in (h, f):
+        if run["launches"]:
+            fails.append(f"launched {run['launches']}")
+    if not c["device"].startswith("cuda"):
+        fails.append(f"ran on {c['device']}")
+    if fails:
+        raise RuntimeError("phase 14b: " + "; ".join(fails) + f" | {c}")
+
+
+def row1_flag_case(torch, device, reps=20):
+    """Phase 14c: row 1 (`march_fused_2d`) with the per-member flag. At
+    phase 2's n = 65, B = 4, T = 0.1, flags [1, 0, 1, 0]: the active
+    members bit for bit the launch without a flag and its one-CTA oracle,
+    the inactive ones nsolve 0 and first_bad -1. At config 4's n = 129,
+    B = 128, M = 100, all ones: bit for bit the launch without a flag, both
+    timed in turns (CUDA events). At config 3's n = 65, B = 1, M = 100 (an
+    idle trial slot): one idle launch's CUDA-event ms over `reps` launches
+    and on the device alone (a CUDA graph of `reps` launches), the host µs
+    of the wrapper a call (enqueued without a sync), and one active
+    launch's ms."""
+    from vch_tpu_torch.ops import march as km
+
+    out = {}
+    fwd, args = _seeded_march(torch, device, 65, 4, 0.1)
+    kw = fwd._march_kw()
+    flags = [1, 0, 1, 0]
+    act = torch.tensor(flags, dtype=torch.int32, device=device)
+    ref = km.march_fused_2d(*args, **kw)
+    oracle = km._march_fused_2d_cta(*args, **kw)
+    got = km.march_fused_2d(*args, active=act, **kw)
+    torch.cuda.synchronize()
+    out["n65_b4"] = dict(
+        flags=flags,
+        active_equal=all(torch.equal(g[b], r[b]) and torch.equal(g[b], o[b])
+                         for b, on in enumerate(flags) if on
+                         for g, r, o in zip(got, ref, oracle)),
+        inactive_nsolve=[int(got[1][b]) for b, on in enumerate(flags)
+                         if not on],
+        inactive_bad=[int(got[2][b]) for b, on in enumerate(flags)
+                      if not on])
+    del fwd, args, ref, oracle, got
+    fwd, args = _seeded_march(torch, device, 129, 128, 1.0)
+    kw = fwd._march_kw()
+    ones = torch.ones(128, dtype=torch.int32, device=device)
+    plain = lambda: km.march_fused_2d(*args, **kw)
+    flag = lambda: km.march_fused_2d(*args, active=ones, **kw)
+    a, b = plain(), flag()
+    torch.cuda.synchronize()
+    t = _turns(plain, flag, 1)
+    out["n129_b128"] = dict(bits_equal=all(torch.equal(x, y)
+                                           for x, y in zip(a, b)),
+                            ms_without_flag=t["old_ms"],
+                            ms_all_ones=t["new_ms"],
+                            ratio=float(np.mean(t["new_ms"])
+                                        / np.mean(t["old_ms"])))
+    del fwd, args, a, b
+    fwd, args = _seeded_march(torch, device, 65, 1, 1.0)
+    kw = fwd._march_kw()
+    idle = torch.zeros(1, dtype=torch.int32, device=device)
+    on = torch.ones(1, dtype=torch.int32, device=device)
+    idle_ms = time_ms(lambda: km.march_fused_2d(*args, active=idle, **kw),
+                      reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        km.march_fused_2d(*args, active=idle, **kw)
+    host_us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    out["n65_b1_idle"] = dict(
+        idle_ms=idle_ms, wrapper_host_us=host_us,
+        idle_device_ms=graph_ms(
+            lambda: km.march_fused_2d(*args, active=idle, **kw), reps),
+        active_ms=time_ms(lambda: km.march_fused_2d(*args, active=on, **kw),
+                          1))
+    return out
+
+
+def check_row1_flag(c):
+    """Phase 14c gates: active members bit for bit, inactive ones nsolve 0
+    and first_bad -1; all ones bit for bit the launch without a flag and
+    within 2% of its time."""
+    a, b = c["n65_b4"], c["n129_b128"]
+    fails = []
+    if not a["active_equal"]:
+        fails.append("active members differ from the launch without a flag")
+    if any(a["inactive_nsolve"]) or any(x != -1 for x in a["inactive_bad"]):
+        fails.append("an inactive member solved or was flagged bad")
+    if not b["bits_equal"]:
+        fails.append("all ones differ from the launch without a flag")
+    if abs(b["ratio"] - 1.0) > 0.02:
+        fails.append(f"all ones took {b['ratio']} of the time without a flag")
+    if fails:
+        raise RuntimeError("phase 14c: " + "; ".join(fails) + f" | {c}")
+
+
+def fused_phase(device=None, name=None, smi=None, prob=None, c3=None):
+    """Phase 14, the fused line search: (a) config 3 on phase 8's problem,
+    (b) config 1, (c) row 1 with the per-member flag; each logged, then
+    gated. Alone on the card (phase 8 first, for its problem and its host
+    figures): `python -c "import chip_smoke; chip_smoke.fused_phase()"`.
+    Returns row 1's launches in 14a by entry."""
+    import torch
+    if device is None:
+        device, name, smi = (torch.device("cuda", 0),
+                             torch.cuda.get_device_name(0), _smi())
+    if prob is None:
+        c3, prob = config3_run(torch, device)
+        _log(8, json.dumps(c3) + f" | {name} | {smi}")
+        check_config3(c3)
+    t0 = time.perf_counter()
+    a = fused_config3(torch, device, prob, c3)
+    _log("14a", json.dumps(a) + f" | {name} | {smi}")
+    check_fused_config3(a)
+    b = fused_config1(torch, device)
+    _log("14b", json.dumps(b) + " | no kernel on this path, as in vch_tpu "
+         f"| {name} | {smi}")
+    check_fused_config1(b)
+    c = row1_flag_case(torch, device)
+    _log("14c", json.dumps(c) + f" | {name} | {smi}")
+    check_row1_flag(c)
+    _log(14, f"{time.perf_counter() - t0:.1f} s")
+    return a["launches"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4966,7 +5324,7 @@ def main():
         raise RuntimeError(f"measured peak above the chooser's estimate: "
                            f"{over}")
 
-    c3 = config3_run(torch, device)
+    c3, prob3 = config3_run(torch, device)
     # the cluster solves' wrappers at config 3's shape: host microseconds a
     # call (enqueued without a sync, the scalars as the per-step solvers
     # pass them) against the kernel's device microseconds
@@ -5036,6 +5394,8 @@ def main():
     cli_phase(device, name, smi)
     side = side_paths_phase(device, name, smi)
     mesh = mesh_phase(device, name, smi)
+    fused14 = fused_phase(device, name, smi, prob=prob3, c3=c3)
+    del prob3
     # the scan path at config 4's width likewise: its baseline march and
     # one sweep under the profiler
     _log("4sp", json.dumps(device_share(
@@ -5201,6 +5561,9 @@ def main():
         e["launches_phase12"] = side.get(e["name"], 0)
     for e in kernels:
         e["launches_phase13"] = mesh.get(e["name"], 0)
+    # row 1: its launches in phase 14a's fused line search (11 a PGD
+    # iteration at config 3, of which only the searching trials march)
+    kernels[0]["launches_phase14"] = fused14.get("march_fused_2d", 0)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

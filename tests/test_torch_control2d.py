@@ -271,9 +271,9 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="gradient_mode"):
         ControlProblem2D(ForwardSolverConfig2D(Nx=12, Ny=12, T=0.02),
                          gradient_mode="other", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="search_mode"):
         ProximalGradientLoop(None, None, None, OptimizationConfig(),
-                             search_mode="fused")
+                             search_mode="other")
 
 
 def test_config_dump_carries_the_routing_knobs():

@@ -14,7 +14,9 @@ same arithmetic as the per-member kernels, so those two agree exactly, as
 do the cluster marches (whole, blocked, segment), sweeps (whole, blocked,
 segment), solves (spectral and raw Schur, spectral and raw adjoint) and the raw
 Schur solve's two cost probes and their one-CTA oracles at every batch and
-cluster size. The 1D march: phi 1e-5 absolute on a
+cluster size. The one-member march's per-member flag: an active member bit for bit
+the launch without it, an inactive one nsolve 0 and first_bad -1.
+The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
 every members-per-cluster grouping, cluster size and batch. The operator applies: no farther from float64
 than twice the plain float32 version plus 1e-5 on smooth fields, two
@@ -151,6 +153,53 @@ def test_one_member_march_bits_do_not_depend_on_the_cluster_size(
         torch.cuda.synchronize()
         for a, b in zip(out, ref):
             assert torch.equal(a, b), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,flags", [(65, [1, 0, 1, 0]), (129, [1] * 128)])
+def test_one_member_march_active_flag(cuda, n, flags):
+    """Row 1 with the per-member flag (chip_smoke.py phase 14c's shapes):
+    an active member bit for bit the launch without a flag and the one-CTA
+    oracle; an inactive one nsolve 0 and first_bad -1; one launch."""
+    B = len(flags)
+    fwd, _, phi0, u, _ = _problem(cuda, n=n, B=B, T=0.03)
+    args = _march_args(fwd, phi0, u)
+    ref = km.march_fused_2d(*args, **_KW)
+    oracle = km._march_fused_2d_cta(*args, **_KW)
+    active = torch.tensor(flags, dtype=torch.int32, device=cuda)
+    before = km.march_fused_2d.launches
+    out = km.march_fused_2d(*args, active=active, **_KW)
+    torch.cuda.synchronize()
+    assert km.march_fused_2d.launches == before + 1
+    for b, on in enumerate(flags):
+        if on:
+            for a, r, o in zip(out, ref, oracle):
+                assert torch.equal(a[b], r[b]) and torch.equal(a[b], o[b])
+        else:
+            assert int(out[1][b]) == 0 and int(out[2][b]) == -1
+
+
+@pytest.mark.cuda
+def test_one_member_march_flag_is_refused_elsewhere(cuda):
+    """The blocked, segment and one-CTA marches raise when given the flag,
+    as does a flag of another type, shape or device; nothing launches."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, B=8, T=0.03)
+    args = _march_args(fwd, phi0, u)
+    act = torch.ones(8, dtype=torch.int32, device=cuda)
+    before = km.launch_counts()
+    with pytest.raises(ValueError, match="active"):
+        km.march_fused_2d_blocked(*args, block_b=8, active=act, **_KW)
+    with pytest.raises(ValueError, match="active"):
+        km._march_fused_2d_cta(*args, active=act, **_KW)
+    seg = (fwd.dts[:2], phi0, phi0, phi0, phi0.sum((1, 2)), u[:, :3]) \
+        + tuple(args[3:])
+    for fn in (km.march_fused_2d_segment, km._march_fused_2d_segment_cta):
+        with pytest.raises(ValueError, match="active"):
+            fn(*seg, active=act, **_KW)
+    for bad in (act.float(), act[:7], act.cpu()):
+        with pytest.raises(ValueError, match="active"):
+            km.march_fused_2d(*args, active=bad, **_KW)
+    assert km.launch_counts() == before
 
 
 @pytest.mark.cuda

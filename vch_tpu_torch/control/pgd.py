@@ -2,9 +2,12 @@
 with the optimistic step, the backtracking line search, plateau detection
 and the alpha advisor (vch_tpu/control/pgd.py:121-376).
 
-The search is driven from the host, as vch_tpu's default `search_mode=
-"host"`: each trial (prox, forward solve, cost) is one call, and its cost
-comes back to the host to decide the next. Semantics as vch_tpu's:
+Two search modes, as vch_tpu's. "host" (the default): each trial (prox,
+forward solve, cost) is one call, and its cost comes back to the host to
+decide the next. "fused": the whole search runs on the device with no host
+read (`optimistic_backtracking_search`, vch_tpu's while_loop as a fixed run
+of trial slots under a per-member mask), and an iteration ends in one host
+read of its scalars. Semantics as vch_tpu's:
   - the optimistic trial at alpha_prev; on failure backtracking from
     ls_alpha_factor * alpha_prev, times ls_beta per trial, at most
     ls_max_trials; when every trial fails the last (worse) iterate is kept,
@@ -18,9 +21,15 @@ comes back to the host to decide the next. Semantics as vch_tpu's:
   - the phase timers backward_total, optimistic_eval_total,
     line_search_total and successful_step_total, each closed by a device
     synchronization.
+The fused mode differs from the host mode where vch_tpu's does
+(vch_tpu/control/pgd.py:240-260, :353): it never reads keep_failed_step
+(every trial failing, it keeps the last, worse trial even under
+`PGDSettings.defaults_exact()`), prints no time study and leaves the four
+phase timers at 0.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -54,6 +63,65 @@ def _sync(t: torch.Tensor):
         torch.cuda.synchronize(t.device)
 
 
+def _where(mask, a, b):
+    """torch.where with a per-member mask (0-d or (B,)) over a's trailing
+    axes."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim())),
+                       a, b)
+
+
+def optimistic_backtracking_search(trial, cost_k, alpha_prev, s: PGDSettings):
+    """One PGD step-size search on the device: the optimistic trial at
+    alpha_prev, then backtracking (vch_tpu/control/pgd.py:76-118), with no
+    host read.
+
+    trial(alpha, active) -> (u, phi, cost): alpha a float64 tensor of
+    cost_k's shape, active a bool tensor of that shape, the members still
+    searching; the trial may skip the others, whose results are masked out.
+    cost_k: a 0-d tensor, or (B,) for the semantics of jax.vmap of
+    vch_tpu's search (each member its own predicate; a member that has
+    finished holds its state). alpha_prev: a number or a tensor of cost_k's
+    shape.
+
+    vch_tpu's while_loop becomes exactly 1 + s.ls_max_trials trial slots,
+    enqueued without a host read; slot j runs at
+        alpha_0 = alpha_prev                         (optimistic step)
+        alpha_j = alpha_prev * f * beta^(j-1), j>=1  (backtracking)
+    for the members whose earlier trials all failed, and a mask selects the
+    accepted trial. Alpha stays in float64 and the test is c_t < cost_k on
+    the trial's own values, as in the host mode, so both modes walk the
+    same trials. Returns device tensors (alpha_k float64, u1, phi1, c1,
+    n_trials int32, optimistic_ok bool): the accepted trial and its alpha;
+    when every trial fails, the last trial with alpha already times beta.
+    """
+    dev = cost_k.device
+    f64 = torch.float64
+    if torch.is_tensor(alpha_prev):
+        alpha0 = alpha_prev.to(dev, f64).expand(cost_k.shape)
+    else:
+        alpha0 = torch.full(cost_k.shape, float(alpha_prev), dtype=f64,
+                            device=dev)
+    alpha = alpha0
+    ok = torch.zeros(cost_k.shape, dtype=torch.bool, device=dev)
+    n_trials = torch.zeros(cost_k.shape, dtype=torch.int32, device=dev)
+    for j in range(1 + s.ls_max_trials):
+        active = ~ok
+        u_t, phi_t, c_t = trial(alpha, active)
+        ok_t = c_t < cost_k
+        nxt = alpha0 * s.ls_alpha_factor if j == 0 else alpha * s.ls_beta
+        report = torch.where(ok_t, alpha, nxt)
+        if j == 0:      # every member runs the optimistic trial
+            u1, phi1, c1, alpha_k = u_t, phi_t, c_t, report
+        else:
+            u1, phi1 = _where(active, u_t, u1), _where(active, phi_t, phi1)
+            c1 = torch.where(active, c_t, c1)
+            alpha_k = torch.where(active, report, alpha_k)
+        ok = ok | (active & ok_t)
+        n_trials = n_trials + active
+        alpha = torch.where(active, nxt, alpha)
+    return alpha_k, u1, phi1, c1, n_trials, ok & (n_trials == 1)
+
+
 class ProximalGradientLoop:
     """Dimension-agnostic PGD engine over callables on tensors:
 
@@ -65,8 +133,14 @@ class ProximalGradientLoop:
               change (default torch.linalg.norm; the grid-sharded problem
               passes one all-reduced over the ranks' row blocks)
 
-    search_mode "fused" (vch_tpu's whole iteration as one jitted program)
-    is not ported.
+    search_mode "host" drives the search from the host; "fused" runs it on
+    the device (`optimistic_backtracking_search`) and reads the iteration's
+    scalars once at its end. In the fused mode the trial passes the
+    members still searching to the forward when the forward declares an
+    `active` parameter (`forward(u, active=...)`, a 0-d bool tensor), so an
+    idle trial slot marches nothing; a forward that does not runs every
+    slot in full, and the mask still gives vch_tpu's result, with more
+    work.
     """
 
     def __init__(self, forward: Callable, adjoint: Callable, cost: Callable,
@@ -74,12 +148,8 @@ class ProximalGradientLoop:
                  settings: Optional[PGDSettings] = None,
                  error_norms: Optional[Callable] = None,
                  search_mode: str = "host", norm: Optional[Callable] = None):
-        if search_mode == "fused":
-            raise NotImplementedError(
-                "search_mode='fused' (the whole iteration as one program) is "
-                "not ported; ROADMAP queue A5")
-        if search_mode != "host":
-            raise ValueError(f"search_mode must be 'host', got "
+        if search_mode not in ("host", "fused"):
+            raise ValueError(f"search_mode must be 'host' or 'fused', got "
                              f"{search_mode!r}")
         self.forward = forward
         self.adjoint = adjoint
@@ -89,30 +159,44 @@ class ProximalGradientLoop:
         self.error_norms = error_norms
         self.search_mode = search_mode
         self.norm = norm or torch.linalg.norm
+        try:
+            params = inspect.signature(forward).parameters
+        except (TypeError, ValueError):
+            params = {}
+        self._forward_takes_active = "active" in params
 
-    def _trial(self, u_k, grad, alpha):
+    def _trial(self, u_k, grad):
+        """The trial(alpha, active=None) -> (u, phi, cost) of the iterate
+        u_k and its gradient; active reaches a forward that declares it."""
         opt = self.opt
-        u_t = proximal_step(u_k, grad, alpha, opt.kappa_sparsity, opt.u_min,
-                            opt.u_max)
-        phi_t = self.forward(u_t)
-        return u_t, phi_t, self.cost(phi_t, u_t)
+
+        def trial(alpha, active=None):
+            u_t = proximal_step(u_k, grad, alpha, opt.kappa_sparsity,
+                                opt.u_min, opt.u_max)
+            phi_t = (self.forward(u_t) if active is None
+                     or not self._forward_takes_active
+                     else self.forward(u_t, active=active))
+            return u_t, phi_t, self.cost(phi_t, u_t)
+        return trial
 
     def _iteration_host(self, u_k, phi_k, cost_k, alpha_prev, timers: dict):
         """One iteration: the adjoint and the gradient, then the optimistic
         and backtracking trials (vch_tpu/control/pgd.py:197-238; the
-        adjoint's call :171-177)."""
+        adjoint's call :171-177). cost_k and the cost returned twice (the
+        history's and the next iteration's) are numbers."""
         s = self.s
         t0 = time.perf_counter()
         r_k = self.adjoint(phi_k, u_k)
         grad = calculate_gradient(r_k, u_k, self.opt.b3)
         _sync(grad)
         timers["backward_total"] += time.perf_counter() - t0
+        trial = self._trial(u_k, grad)
         max_trials = 1 + s.ls_max_trials
         alpha = alpha_prev
         j = 0
         while True:
             tt = time.perf_counter()
-            u_t, phi_t, c_t = self._trial(u_k, grad, alpha)
+            u_t, phi_t, c_t = trial(alpha)
             c = float(c_t)
             trial_time = time.perf_counter() - tt
             j += 1
@@ -133,7 +217,28 @@ class ProximalGradientLoop:
         change = float(self.norm(u_t - u_k) / (self.norm(u_k) + 1e-9))
         errs = ((0.0, 0.0) if self.error_norms is None
                 else tuple(float(e) for e in self.error_norms(phi_t)))
-        return u_t, phi_t, c, alpha_report, r_k, j, change, opt_ok, errs
+        return u_t, phi_t, c, c, alpha_report, r_k, j, change, opt_ok, errs
+
+    def _iteration_fused(self, u_k, phi_k, cost_k, alpha_prev, timers: dict):
+        """One iteration on the device (vch_tpu/control/pgd.py:240-260): the
+        adjoint and the gradient, the search, the change and the error
+        norms, then one host read of their scalars. cost_k and the next
+        iteration's cost are 0-d device tensors; the history's cost is a
+        number. Reads no timer and keep_failed_step."""
+        r_k = self.adjoint(phi_k, u_k)
+        grad = calculate_gradient(r_k, u_k, self.opt.b3)
+        alpha_k, u_1, phi_1, c_1, n_trials, opt_ok = (
+            optimistic_backtracking_search(self._trial(u_k, grad),
+                                           cost_k, alpha_prev, self.s))
+        change = self.norm(u_1 - u_k) / (self.norm(u_k) + 1e-9)
+        errs = ((torch.zeros_like(alpha_k),) * 2 if self.error_norms is None
+                else self.error_norms(phi_1))
+        c, a, j, ch, ok, e_track, e_term = torch.stack([
+            t.to(torch.float64).reshape(())
+            for t in (c_1, alpha_k, n_trials, change, opt_ok) + tuple(errs)
+        ]).tolist()
+        return (u_1, phi_1, c, c_1, a, r_k, int(j), ch, bool(ok),
+                (e_track, e_term))
 
     def run(self, u0: torch.Tensor, phi0_hist: torch.Tensor,
             max_iter: Optional[int] = None, verbose: bool = True) -> PGDResult:
@@ -142,9 +247,13 @@ class ProximalGradientLoop:
         opt, s = self.opt, self.s
         max_iter = max_iter if max_iter is not None else opt.max_iter
         u_k, phi_k = u0, phi0_hist
-        cost_k = float(self.cost(phi_k, u_k))
+        fused = self.search_mode == "fused"
+        cost_k = self.cost(phi_k, u_k)
+        cost_history = [float(cost_k)]
+        if not fused:
+            cost_k = cost_history[0]
+        step = self._iteration_fused if fused else self._iteration_host
         alpha_prev = float(opt.alpha_max)
-        cost_history = [cost_k]
         alpha_history, track_hist, term_hist, ls_trials = [], [], [], []
         timers = {"total_optimization": 0.0, "backward_total": 0.0,
                   "line_search_total": 0.0, "optimistic_eval_total": 0.0,
@@ -158,9 +267,9 @@ class ProximalGradientLoop:
         t_start = time.perf_counter()
         for k in range(max_iter):
             it0 = time.perf_counter()
-            (u_1, phi_1, c_1, alpha_k, r_k, n_trials, change, opt_ok,
-             (e_track, e_term)) = self._iteration_host(u_k, phi_k, cost_k,
-                                                       alpha_prev, timers)
+            (u_1, phi_1, c_1, cost_1, alpha_k, r_k, n_trials, change, opt_ok,
+             (e_track, e_term)) = step(u_k, phi_k, cost_k, alpha_prev,
+                                       timers)
             timers["iteration_total"] += time.perf_counter() - it0
             cost_history.append(c_1)
             alpha_history.append(alpha_k)
@@ -200,7 +309,7 @@ class ProximalGradientLoop:
             if verbose:
                 print(f"iter {k+1:4d} | cost {c_1:.6f} | alpha {alpha_k:.4f} "
                       f"| trials {n_trials} | rel-du {change:.3e}")
-            u_k, phi_k, cost_k = u_1, phi_1, c_1
+            u_k, phi_k, cost_k = u_1, phi_1, cost_1
             if change < s.conv_tol and k > s.conv_min_iter:
                 if verbose:
                     print(f"Convergence reached at iteration {k+1}.")
@@ -209,7 +318,7 @@ class ProximalGradientLoop:
                 break
 
         timers["total_optimization"] = time.perf_counter() - t_start
-        if verbose:
+        if verbose and not fused:
             tot = timers["total_optimization"]
             print("\n--- COMPUTATIONAL TIME STUDY ---")
             print(f"Total optimization time:   {tot:8.2f} s")

@@ -35,13 +35,31 @@ from vch_tpu_torch.models.forward1d import ForwardSolver1D
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 
 
+class _NewtonCounter:
+    """`newton_solves`, the forward Newton linear solves of every march the
+    problem ran, held on the problem's device: a march adds its counts
+    there without a host read, and reading the property is the one sync."""
+
+    @property
+    def newton_solves(self) -> int:
+        return int(self._newton_solves)
+
+    @newton_solves.setter
+    def newton_solves(self, value: int):
+        self._newton_solves = torch.tensor(int(value), dtype=torch.int64,
+                                           device=self.device)
+
+    def _count_solves(self, ns: torch.Tensor):
+        self._newton_solves += ns.sum()
+
+
 def _check_gradient_mode(gradient_mode: str):
     if gradient_mode not in ("reference", "exact"):
         raise ValueError(f"gradient_mode must be 'reference' or 'exact', "
                          f"got {gradient_mode!r}")
 
 
-class ControlProblem2D:
+class ControlProblem2D(_NewtonCounter):
     """Sparse optimal control of the 2D vCH system (ref: GD2_configured.py)
     on one device (device=None: the CUDA card).
 
@@ -105,22 +123,29 @@ class ControlProblem2D:
                       else PGDSettings.defaults_2d()),
             error_norms=self.error_norms)
 
-    def _forward_batch(self, u):
-        """Trajectories of the controls u (D, M+1, Nx+1, Ny+1) from phi0."""
+    def _forward_batch(self, u, active=None):
+        """Trajectories of the controls u (D, M+1, Nx+1, Ny+1) from phi0.
+        `active` (D,) bool: the members that march (the fused line search's
+        trial slots); the others' trajectories are unspecified."""
         if self._fused:
             phi0 = self._phi0_dev.expand(u.shape[0], -1, -1).contiguous()
-            phi, ns, _ = self.solver.march_fused_batch(u.contiguous(), phi0)
-            self.newton_solves += int(ns.sum())
+            phi, ns, _ = self.solver.march_fused_batch(
+                u.contiguous(), phi0,
+                active=None if active is None else active.to(torch.int32))
+            self._count_solves(ns)
             return phi
         out = []
-        for u_i in u:
-            phi, stats = self.solver._march_impl(u_i, self._phi0_dev)
-            self.newton_solves += stats.newton_solves
-            out.append(phi)
+        for i, u_i in enumerate(u):
+            phi, ns, _ = self.solver._march_batch(
+                u_i[None], self._phi0_dev[None],
+                active=None if active is None else active[i:i + 1])
+            self._count_solves(ns)
+            out.append(phi[0])
         return torch.stack(out)
 
-    def _forward(self, u):
-        return self._forward_batch(u[None])[0]
+    def _forward(self, u, active=None):
+        return self._forward_batch(
+            u[None], None if active is None else active.reshape(1))[0]
 
     def _adjoint_r(self, phi_hist, u):
         """The adjoint's r (the loop's calling convention passes u, which
@@ -195,7 +220,7 @@ class ControlProblem2D:
             device=self.device)
 
 
-class ControlProblem1D:
+class ControlProblem1D(_NewtonCounter):
     """Sparse optimal control of the 1D vCH system (ref: GD_1D.py) on one
     device (device=None: the CUDA card), in the reference layout: the
     baseline, the controls and the targets carry M + 2 rows, the t = 0 row
@@ -261,21 +286,24 @@ class ControlProblem1D:
                       else PGDSettings.defaults_1d()),
             error_norms=self.error_norms)
 
-    def _forward_batch(self, u):
+    def _forward_batch(self, u, active=None):
         """Trajectories of the controls u (D, rows, N+1) from phi0, in the
         problem's layout: in the reference layout (M + 2 rows) the duplicate
         control row dropped for the march and the duplicate history row
-        added; in the exact mode's core layout (M + 1 rows) as marched."""
+        added; in the exact mode's core layout (M + 1 rows) as marched.
+        `active` (D,) bool: the members that march; the others'
+        trajectories are unspecified."""
         M = self.solver.M
         phi0 = self._phi0_dev.expand(u.shape[0], -1)
-        phi, ns, _ = self.solver._march_batch(u[:, : M + 1], phi0)
-        self.newton_solves += int(ns.sum())
+        phi, ns, _ = self.solver._march_batch(u[:, : M + 1], phi0, active)
+        self._count_solves(ns)
         if self.gradient_mode == "exact":
             return phi
         return torch.cat([phi[:, :1], phi], dim=1)
 
-    def _forward(self, u_ref):
-        return self._forward_batch(u_ref[None])[0]
+    def _forward(self, u_ref, active=None):
+        return self._forward_batch(
+            u_ref[None], None if active is None else active.reshape(1))[0]
 
     def _adjoint_r(self, phi_ref, u_ref):
         """The adjoint's r (u_ref passed by the loop, not read)."""

@@ -98,6 +98,9 @@ struct Args {
   int M, n, m, max_iter, n_trips, stagnation;
   FwdConst c;
   BGeom g;
+  // one flag a member, or null (every member active): the one-member whole
+  // march (MB == 1, !SEG) skips a member whose flag is 0
+  const int* active;
 };
 
 
@@ -608,6 +611,19 @@ template <int MB, bool SEG>
 __global__ void __launch_bounds__(NT, 1) march_blocked_kernel(Args a) {
   extern __shared__ float4 smem4[];
   __shared__ Ctl<MB> ctl;
+  if constexpr (MB == 1 && !SEG) {
+    // an inactive member: every CTA of its cluster reads the same flag and
+    // leaves before the first cluster barrier or DSMEM access; rank 0
+    // reports no Newton solve and no bad step, and no hist row is written
+    const int b = blockIdx.x / a.g.band.C;
+    if (a.active != nullptr && a.active[b] == 0) {
+      if (cg::this_cluster().block_rank() == 0 && threadIdx.x == 0) {
+        a.nsolve[b] = 0;
+        a.bad[b] = -1;
+      }
+      return;
+    }
+  }
   March<MB, SEG>(a, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
@@ -754,19 +770,22 @@ extern "C" int vch_march_fused_2d_blocked(
 
 // The whole march with one member per cluster of `cluster` CTAs: what
 // vch_march_fused_2d (march2d.cu) computes, bit for bit; arguments as
-// vch_march_fused_2d_blocked's for one member.
+// vch_march_fused_2d_blocked's for one member. active: (B,) flags, or null
+// for all; an inactive member gets nsolve 0 and first_bad -1, and its hist
+// rows are left as they were.
 extern "C" int vch_march_fused_2d_cluster(
     const float* dts, const float* phi0, const float* u, const float* Lx,
     const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
     const float* VyT, const float* lam, const float* wts, float* hist,
     int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int max_iter, int n_trips,
-    int stagnation, int cluster, int kc, int smem_bytes, void* stream) {
+    int stagnation, int cluster, int kc, int smem_bytes, const int* active,
+    void* stream) {
   using namespace vch::blocked;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
                nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
                nsolve, first_bad, work, M, n, m, max_iter, n_trips,
-               stagnation, {}, {}};
+               stagnation, {}, {}, active};
   return launch_whole(1, a, B, consts, nconst, cluster, kc, smem_bytes,
                       stream);
 }

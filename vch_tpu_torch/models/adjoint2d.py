@@ -118,7 +118,7 @@ class AdjointSweep2D:
         p, q, r = self.terminal(phi_hist[:, -1], phi_T_target, b2)
         b1 = b1.reshape(-1, 1, 1)
         src_all = phi_hist - phi_Q
-        dts_host = dts.cpu().numpy()
+        dts_host = self._dts_host(dts)
         ps, qs, rs = [p], [q], [r]
         for n in range(dts.shape[0] - 1, -1, -1):
             if not dts_host[n] <= 1e-14:        # else copy the next level
@@ -130,6 +130,15 @@ class AdjointSweep2D:
             rs.append(r)
         rev = lambda fs: torch.stack(fs[::-1], dim=1)
         return rev(ps), rev(qs), rev(rs)
+
+    def _dts_host(self, dts):
+        """The host copy of the schedule dts, on which the sweep branches
+        every step: read from the device once per solver and schedule
+        tensor, not once per sweep."""
+        cached = getattr(self, "_dts_cache", None)
+        if cached is None or cached[0] is not dts:
+            cached = self._dts_cache = (dts, dts.cpu().numpy())
+        return cached[1]
 
     def terminal(self, phi_T_state, phi_T_target, b2):
         """(p_T, q_T, r_T) for (B, ...) states and targets and b2 (B,):

@@ -105,7 +105,7 @@ def newton_1d(L, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
               delta_sep, tol, max_iter, record_history: bool = False,
               rtol: float = 0.0, stagnation_exit: bool = False,
               spectral_op=None, krylov_fixed=None, krylov_tol: float = 1e-9,
-              return_iters: bool = False):
+              return_iters: bool = False, active=None):
     """Newton on (phi, mu) for one step of the members of phi_old (B, N+1),
     in masked lockstep (vch_tpu/models/forward1d.py:95 under vmap).
 
@@ -114,7 +114,8 @@ def newton_1d(L, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     stagnation_exit a residual that did not fall), takes the Schur step with
     the 1D Armijo, and ends on convergence, on a failed line search or at
     max_iter; a member that has ended keeps its state while the others go
-    on. Returns (phi, mu), then with record_history the residual norms
+    on. `active` (B,) bool: the members that start; the others take no
+    round and keep phi_old, mu_old. Returns (phi, mu), then with record_history the residual norms
     (B, max_iter + 1), NaN where a member ran no round, then with
     return_iters the Newton solves per member (B,) int64."""
     eta = 1e-3
@@ -150,7 +151,8 @@ def newton_1d(L, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     B = phi_old.shape[0]
     dev = phi_old.device
     phi, mu = phi_old, mu_old
-    done = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    done = (torch.zeros((B, 1), dtype=torch.bool, device=dev)
+            if active is None else ~active.view(B, 1))
     norm0 = prev = torch.full((B, 1), math.inf, dtype=phi.dtype, device=dev)
     nsolve = torch.zeros((B, 1), dtype=torch.int64, device=dev)
     hist = (torch.full((B, max_iter + 1), math.nan, dtype=phi.dtype,
@@ -262,27 +264,32 @@ class ForwardSolver1D(nn.Module):
                     spectral_op=self._op1d, krylov_fixed=self._krylov_fixed,
                     krylov_tol=self._krylov_tol)
 
-    def _step(self, phi, mu, w, u_n, u_np1, dt, m0):
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0, active=None):
         """One time step of the members of phi (B, N+1) from the carry
         (phi, mu, w) under the control frames u_n, u_np1, with the initial
-        masses m0 (B, 1): the Newton solve, the clip and the uniform mass
+        masses m0 (B, 1): the Newton solve (`active` (B,) bool: the members
+        that solve, as newton_1d's), the clip and the uniform mass
         projection. Returns (phi, mu, w, newton_solves (B,), bad (B,): the
         mass defect is not finite, the Newton solution before the clip)
         (vch_tpu/models/forward1d.py:255-280)."""
         cfg = self.config
         w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
         phi_new, mu_new, k = newton_1d(self.L, phi, mu, w, w_new, dt,
-                                       return_iters=True, **self._newton_kw())
+                                       return_iters=True, active=active,
+                                       **self._newton_kw())
         phi_c = torch.clamp(phi_new, -1.0 + DELTA_SEP, 1.0 - DELTA_SEP)
         mass_error = torch.sum(self.wts * phi_c, dim=-1, keepdim=True) - m0
         return (phi_c - mass_error / cfg.Lx, mu_new, w_new, k,
                 ~torch.isfinite(mass_error[:, 0]), phi_new)
 
-    def _march_batch(self, u, phi0):
+    def _march_batch(self, u, phi0, active=None):
         """The per-step march of B members: u (B, M+1, N+1) in core layout,
         phi0 (B, N+1), on this solver's device. Returns (phi_hist
         (B, M+1, N+1), newton_solves (B,) int64, first_bad (B,) int64, -1:
-        none) (vmap of vch_tpu/models/forward1d.py:248)."""
+        none) (vmap of vch_tpu/models/forward1d.py:248). `active` (B,)
+        bool: the members that march; the others solve nothing
+        (newton_solves 0, first_bad -1) and their histories are
+        unspecified."""
         w = torch.zeros_like(phi0)
         phi, mu = phi0, self.initialize_mu(phi0, w)
         m0 = torch.sum(self.wts * phi0, dim=-1, keepdim=True)
@@ -292,7 +299,9 @@ class ForwardSolver1D(nn.Module):
         frames = [phi0]
         for n in range(self.M):
             phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
-                                            self.dts[n], m0)[:5]
+                                            self.dts[n], m0, active)[:5]
+            if active is not None:
+                bad = bad & active
             first_bad = torch.where((first_bad < 0) & bad,
                                     torch.full_like(first_bad, n), first_bad)
             nsolve = nsolve + k

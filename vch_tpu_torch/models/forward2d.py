@@ -95,7 +95,8 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
               mu_init, record_history: bool = False, rtol: float = 0.0,
               stagnation_exit: bool = False,
               krylov_fixed: Optional[int] = None, use_pallas: bool = False,
-              pallas_variant: str = "spectral", entries=km.KERNELS):
+              pallas_variant: str = "spectral", entries=km.KERNELS,
+              active: Optional[torch.Tensor] = None):
     """Newton with the best-trial-fallback Armijo (at most 12 trials) for
     one step of the members of phi_old (B, n, m), in masked lockstep
     (vch_tpu/models/forward2d.py:65 under vmap). `ops`: an Ops2D, or a grid
@@ -108,7 +109,9 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     Schur step and the Armijo search; a member that has converged keeps its
     state while the others go on, for at most max_iter rounds. A member that
     takes no step in a round solves a zero system, which leaves its Krylov
-    loop at once. Returns (phi, mu, newton_solves (B,) int64) and, with
+    loop at once. `active` (B,) bool: the members that start; the others
+    take no round and keep phi_old, mu_old. Returns (phi, mu, newton_solves
+    (B,) int64) and, with
     record_history, the residual norms (B, max_iter + 1) after them, NaN
     where a member ran no round."""
     eta = 1e-4
@@ -153,7 +156,8 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     B = phi_old.shape[0]
     dev = phi_old.device
     phi, mu = phi_old, mu_init
-    done = torch.zeros((B, 1, 1), dtype=torch.bool, device=dev)
+    done = (torch.zeros((B, 1, 1), dtype=torch.bool, device=dev)
+            if active is None else ~active.view(B, 1, 1))
     norm0 = prev = torch.full((B, 1, 1), math.inf, dtype=phi.dtype,
                               device=dev)
     nsolve = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -218,11 +222,13 @@ class ForwardStep2D:
         return (-cfg.kappa * lap + f_prime(phi, cfg.c1, cfg.c2, DELTA_SEP)
                 - w)
 
-    def _step(self, phi, mu, w, u_n, u_np1, dt, m0, kernels: bool = True):
+    def _step(self, phi, mu, w, u_n, u_np1, dt, m0, kernels: bool = True,
+              active=None):
         """One time step of the members of phi (B, Nx+1, Ny+1) from the
         carry (phi, mu, w) under the control frames u_n, u_np1, with the
         initial masses m0 (B, 1, 1): the Newton solve (kernels=False: never
-        on the per-solve kernel route), the clip, and the interior-only mass
+        on the per-solve kernel route; `active` (B,) bool: the members that
+        solve, as newton_2d's), the clip, and the interior-only mass
         correction with its uniform fallback. Returns (phi, mu, w,
         newton_solves (B,), bad (B,): the mass defect is not finite, the
         Newton solution before the clip, the correction's interior mask)
@@ -233,7 +239,7 @@ class ForwardStep2D:
         w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
         mu_init = self.initialize_mu(phi, w_new)
         phi_new, mu_new, k = newton_2d(grid, phi, mu, w, w_new, dt,
-                                       mu_init=mu_init,
+                                       mu_init=mu_init, active=active,
                                        **self._newton_kw(kernels))
         phi_c = torch.clamp(phi_new, lo, hi)
         interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
@@ -248,12 +254,14 @@ class ForwardStep2D:
         return (phi_c, mu_new, w_new, k, ~torch.isfinite(mass_error).view(-1),
                 phi_new, interior)
 
-    def _march_batch(self, u, phi0):
+    def _march_batch(self, u, phi0, active=None):
         """The per-step march of B members: u (B, M+1, Nx+1, Ny+1), phi0
         (B, Nx+1, Ny+1) on this solver's device (on a grid-sharded solver,
         its row blocks). Returns (phi_hist (B, M+1, ...), newton_solves (B,)
         int64, first_bad (B,) int64, -1: none) (vmap of
-        vch_tpu/models/forward2d.py:230-286)."""
+        vch_tpu/models/forward2d.py:230-286). `active` (B,) bool: the
+        members that march; the others solve nothing (newton_solves 0,
+        first_bad -1) and their histories are unspecified."""
         w = torch.zeros_like(phi0)
         phi, mu = phi0, self.initialize_mu(phi0, w)
         m0 = self.grid.sums(self.wts * phi0)[0]
@@ -263,7 +271,10 @@ class ForwardStep2D:
         frames = [phi0]
         for n in range(self.M):
             phi, mu, w, k, bad = self._step(phi, mu, w, u[:, n], u[:, n + 1],
-                                            self.dts[n], m0)[:5]
+                                            self.dts[n], m0,
+                                            active=active)[:5]
+            if active is not None:
+                bad = bad & active
             first_bad = torch.where((first_bad < 0) & bad,
                                     torch.full_like(first_bad, n), first_bad)
             nsolve = nsolve + k
@@ -422,17 +433,21 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
                     newton_max_iter=cfg.newton_max_iter, n_trips=self.n_trips,
                     stagnation_exit=self.stagnation)
 
-    def march_fused_batch(self, u: torch.Tensor, phi0: torch.Tensor):
+    def march_fused_batch(self, u: torch.Tensor, phi0: torch.Tensor,
+                          active: Optional[torch.Tensor] = None):
         """u (B, M+1, Nx+1, Ny+1), phi0 (B, Nx+1, Ny+1) on this solver's
         device. Returns (phi_hist (B, M+1, ...), newton_solves (B,) int32,
         first_bad (B,) int32). Blocked kernel when B divides by the
-        resolved block size, else one member per CTA."""
+        resolved block size, else one member per CTA. `active`: None or
+        (B,) int32 flags, which only the one-member march takes (the blocked
+        march raises)."""
         bb = self.config.resolved_fused_block()
         args = (self.dts, phi0, u) + self._ops()
+        kw = self._march_kw() if active is None else dict(self._march_kw(),
+                                                           active=active)
         if bb and phi0.shape[0] % bb == 0:
-            return self.entries.march_blocked(*args, block_b=bb,
-                                              **self._march_kw())
-        return self.entries.march(*args, **self._march_kw())
+            return self.entries.march_blocked(*args, block_b=bb, **kw)
+        return self.entries.march(*args, **kw)
 
     def march_segment(self, start: int, length: int, phi, mu, w, m0, u_seg):
         """Steps start .. start+length-1 from the carry (phi, mu, w) with the

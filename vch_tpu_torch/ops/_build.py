@@ -181,10 +181,11 @@ def load():
                                        + [_FP, _I] + [_I] * 4 + [_P])
     # dts phi0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist nsolve bad work |
     # B M n m | consts nconst | max_iter n_trips stagnation | cluster kc
-    # smem_bytes | stream
+    # smem_bytes | active | stream
     lib.vch_march_fused_2d_cluster.argtypes = ([_P] * 11 + [_P] * 4
                                                + [_I] * 4 + [_FP, _I]
-                                               + [_I] * 3 + [_I] * 3 + [_P])
+                                               + [_I] * 3 + [_I] * 3
+                                               + [_P, _P])
     # the same with members before cluster
     lib.vch_march_fused_2d_blocked.argtypes = ([_P] * 11 + [_P] * 4
                                                + [_I] * 4 + [_FP, _I]

@@ -261,12 +261,20 @@ def _int32(values, device):
 
 
 def march_fused_2d_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
-                         lam, wts, **k):
+                         lam, wts, active=None, **k):
     """Plain PyTorch version of the forward-march kernel (any device,
-    float32 or float64). Arguments as `march_fused_2d`."""
+    float32 or float64). Arguments as `march_fused_2d`; an inactive member
+    gets a hist of zeros, nsolve 0 and first_bad -1."""
     ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
+    flags = ([True] * phi0.shape[0] if active is None
+             else [bool(f) for f in active.tolist()])
     hist, ns, bad = [], [], []
     for b in range(phi0.shape[0]):
+        if not flags[b]:
+            hist.append(torch.zeros_like(u[b]))
+            ns.append(0)
+            bad.append(-1)
+            continue
         frames, nsolve, first_bad, _ = _march_member(dts, phi0[b], u[b], ops,
                                                      k)
         hist.append(torch.stack([phi0[b]] + frames))
@@ -281,19 +289,31 @@ def _check_block(B: int, block_b: int):
                          f"(B={B}, block_b={block_b})")
 
 
+def _refuse_active(name: str, active):
+    """Only the one-member whole march skips members: every other march
+    raises when given the flag, never ignores it."""
+    if active is not None:
+        raise ValueError(f"{name} takes no active flag: only the one-member "
+                         f"whole march (march_fused_2d) skips members")
+
+
 def march_fused_2d_blocked_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx,
-                                 VyT, lam, wts, *, block_b: int, **k):
+                                 VyT, lam, wts, *, block_b: int, active=None,
+                                 **k):
     """Plain PyTorch version of the member-blocked march: per member, the
     same computation as `march_fused_2d_plain`."""
+    _refuse_active("march_fused_2d_blocked_plain", active)
     _check_block(phi0.shape[0], block_b)
     return march_fused_2d_plain(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx,
                                 VyT, lam, wts, **k)
 
 
 def march_fused_2d_segment_plain(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
-                                 Vy_inv_T, Vx, VyT, lam, wts, **k):
+                                 Vy_inv_T, Vx, VyT, lam, wts, active=None,
+                                 **k):
     """Plain PyTorch version of the segment march. Arguments as
     `march_fused_2d_segment`."""
+    _refuse_active("march_fused_2d_segment_plain", active)
     ops = (Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     hist, fin, ns, bad = [], [], [], []
     for b in range(phi0.shape[0]):
@@ -336,11 +356,12 @@ def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                 n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
 
 
-def _launch_march(wrapper, args, k, members=None):
+def _launch_march(wrapper, args, k, members=None, active=None):
     """Check and launch the whole march: on the cluster kernel with
     `members` members per cluster (1, or 2, 4, 8: the member-blocked march)
     on the geometry of `launch_geometry`, or (None) on the one-CTA kernel of
-    csrc/march2d.cu, the bit oracle."""
+    csrc/march2d.cu, the bit oracle. `active`: the one-member march's
+    (B,) int32 flags on the device (the other wrappers refuse it)."""
     dts, phi0, u, *ops = args
     B, n, m = phi0.shape
     M = dts.shape[0]
@@ -349,6 +370,12 @@ def _launch_march(wrapper, args, k, members=None):
                        ("u", u, (B, M + 1, n, m))]
                       + list(zip(names, ops, shapes)), phi0.device)
     dev = phi0.device
+    if active is not None:
+        if (active.device != dev or active.dtype != torch.int32
+                or tuple(active.shape) != (B,) or not active.is_contiguous()):
+            raise ValueError(f"active must be a contiguous ({B},) int32 "
+                             f"tensor on {dev}, got {tuple(active.shape)} "
+                             f"{active.dtype} on {active.device}")
     geo = (None if members is None
            else launch_geometry(n, m, B, dev, members=members))
     lib = _build.load()
@@ -367,8 +394,9 @@ def _launch_march(wrapper, args, k, members=None):
     if geo is None:
         err = lib.vch_march_fused_2d(*common, 1, stream)
     elif members == 1:
-        err = lib.vch_march_fused_2d_cluster(*common, geo.cluster, geo.kc,
-                                             geo.smem_bytes, stream)
+        err = lib.vch_march_fused_2d_cluster(
+            *common, geo.cluster, geo.kc, geo.smem_bytes,
+            None if active is None else active.data_ptr(), stream)
     else:
         err = lib.vch_march_fused_2d_blocked(*common, members, geo.cluster,
                                              geo.kc, geo.smem_bytes, stream)
@@ -382,7 +410,7 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
                    gamma: float, delta_sep: float, area: float,
                    newton_tol: float, newton_rtol: float,
                    newton_max_iter: int, n_trips: int,
-                   stagnation_exit: bool = True):
+                   stagnation_exit: bool = True, active=None):
     """The whole batched 2D forward march (pallas_march.py:393). On CUDA
     tensors each member runs on a thread-block cluster (`launch_geometry`
     with one member per cluster), bit for bit what the one-CTA kernel
@@ -393,27 +421,32 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
       (Ly transposed); Vx_inv, Vy_inv_T, Vx, VyT: cosine transforms;
       lam (n, m) eigenvalue grid; wts (n, m) quadrature weights * hx * hy;
       area = Lx * Ly (uniform mass-fix fallback).
+      active: None (every member marches) or a (B,) int32 tensor on the
+      members' device: a member whose flag is 0 is skipped, its cluster
+      leaving at once (the line search's idle trial slots).
     Returns phi_hist (B, M+1, n, m) with phi0 prepended, nsolve (B,) int32
     Newton linear solves per member, first_bad (B,) int32 first step whose
-    mass defect was non-finite (-1: none).
+    mass defect was non-finite (-1: none); an inactive member has nsolve 0,
+    first_bad -1 and an unspecified history (zeros in the plain version).
     """
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d", phi0):
-        return march_fused_2d_plain(*args, **k)
-    return _launch_march(march_fused_2d, args, k, members=1)
+        return march_fused_2d_plain(*args, active=active, **k)
+    return _launch_march(march_fused_2d, args, k, members=1, active=active)
 
 
 march_fused_2d.launches = 0
 
 
-def _march_fused_2d_cta(*args, **kw):
+def _march_fused_2d_cta(*args, active=None, **kw):
     """The one-CTA march of csrc/march2d.cu (one member per CTA; two CTAs
     per SM with field pointers formed at use where B exceeds the SMs): the
     bit oracle of `march_fused_2d` and of the blocked march, which the card
     tests and chip_smoke.py hold the cluster kernel against; no solver
-    calls it. Arguments and results as `march_fused_2d`."""
+    calls it. Arguments and results as `march_fused_2d`, without the flag."""
+    _refuse_active("_march_fused_2d_cta", active)
     k = _march_kw(**kw)
     if not _build.on_cuda("_march_fused_2d_cta", args[1]):
         return march_fused_2d_plain(*args, **k)
@@ -630,12 +663,14 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                            area: float, newton_tol: float,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
-                           block_b: int = 8):
+                           block_b: int = 8, active=None):
     """The member-blocked march: block_b members (8, 4 or 2 on CUDA
     tensors, BLOCK_SIZES) in masked lockstep (pallas_march.py:1649), each
     block on a thread-block cluster (`launch_geometry`). Same contract as
     `march_fused_2d`, and each member's history, Newton count and first_bad
-    are bit for bit those of `march_fused_2d`; B must divide by block_b."""
+    are bit for bit those of `march_fused_2d`; B must divide by block_b.
+    It takes no active flag (ValueError)."""
+    _refuse_active("march_fused_2d_blocked", active)
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
@@ -656,7 +691,8 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
                            c1: float, c2: float, kappa: float, gamma: float,
                            delta_sep: float, area: float, newton_tol: float,
                            newton_rtol: float, newton_max_iter: int,
-                           n_trips: int, stagnation_exit: bool = True):
+                           n_trips: int, stagnation_exit: bool = True,
+                           active=None):
     """One K-step segment of the march with the (phi, mu, w) state carried
     explicitly (pallas_march.py:479): mu0, w0 are the segment-start values
     and m0 (B,) the GLOBAL initial mass that the mass correction targets.
@@ -667,8 +703,10 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
     Args: dts (K,), phi0, mu0, w0 (B, n, m), m0 (B,), u (B, K+1, n, m);
     operators as `march_fused_2d`.
     Returns (hist (B, K, n, m), the K post-step states without phi0;
-    phi_f, mu_f, w_f (B, n, m); nsolve (B,); first_bad (B,)).
+    phi_f, mu_f, w_f (B, n, m); nsolve (B,); first_bad (B,)). It takes
+    no active flag (ValueError).
     """
+    _refuse_active("march_fused_2d_segment", active)
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit)
     args = (dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
@@ -681,11 +719,12 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
 march_fused_2d_segment.launches = 0
 
 
-def _march_fused_2d_segment_cta(*args, **kw):
+def _march_fused_2d_segment_cta(*args, active=None, **kw):
     """The one-CTA segment kernel of csrc/march2d.cu (one member per CTA):
     the bit oracle of `march_fused_2d_segment`, which the card tests and
     chip_smoke.py hold the cluster kernel against; no solver calls it.
     Arguments and results as `march_fused_2d_segment`."""
+    _refuse_active("_march_fused_2d_segment_cta", active)
     k = _march_kw(**kw)
     if not _build.on_cuda("_march_fused_2d_segment_cta", args[1]):
         return march_fused_2d_segment_plain(*args, **k)
