@@ -265,6 +265,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                flag: n = 65, B = 4, flags [1, 0, 1, 0] and n = 129, B = 128,
                all ones, bit for bit the launch without a flag (within 2% of
                its time), an idle launch's cost at n = 65, B = 1;
+  15 surface — the public surface on vch_tpu's contracts: (a) the public
+               apply_laplacian_2d(Lx, Ly, v) at n = 65 and 129, B = 4,
+               float32 and float64, against stencil_laplacian_2d (1e-5 and
+               1e-12 of the largest value), Ly untransposed in the solvers'
+               helper at least 0.1 off; (b) config 3 built from the package
+               namespaces (ForwardSolver2D, AdjointSolver2D, the targets
+               and the cost) into a ProximalGradientLoop on vch_tpu's
+               adjoint contract (phi_hist -> r), 2 iterations in each
+               search mode: trials and alphas phase 8's, the host mode's
+               costs phase 8's bit for bit (fused 1e-6), rows 1, 8, 9
+               launched as phase 8 launches them; (c) the coercivity probe
+               at 15b's result with vch_tpu's one-control forward (5
+               launches of row 1) against phase 8's batched call (1), in
+               turns, their seconds and estimates;
   4sp profile — phase 4s's scan path likewise, its baseline march and one
                sweep (a run of no PGD iteration);
   2e-dev     — the operator applies and their torch.matmul forms once more,
@@ -1292,7 +1306,7 @@ def _solve_args(torch, device, n, B, seed=0):
     from vch_tpu_torch.config import DELTA_SEP
     from vch_tpu_torch.models.forward2d import (mu_residual_2d,
                                                 phi_residual_2d)
-    from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
+    from vch_tpu_torch.ops.laplacian import apply_laplacian_2d_t
     from vch_tpu_torch.ops.potential import fpp_log
 
     solvers, x, x64 = _problem_inputs(torch, n, B or 1, 0.02, device, seed)
@@ -1301,7 +1315,7 @@ def _solve_args(torch, device, n, B, seed=0):
     h = hist.double()
     cfg, ops, M = fwd64.config, fwd64.op, fwd64.M
     dt = float(fwd64.dts[-1])
-    lap = lambda v: apply_laplacian_2d(ops.Lx, ops.LyT, v)
+    lap = lambda v: apply_laplacian_2d_t(ops.Lx, ops.LyT, v)
     mean = lambda v: v.mean(dim=(-2, -1), keepdim=True)
     zero = torch.zeros_like(h[:, M])
     phi, phi_old = h[:, M], h[:, M - 1]
@@ -4605,7 +4619,8 @@ def _fused_loop(loop):
     return ProximalGradientLoop(loop.forward, loop.adjoint, loop.cost,
                                 loop.opt, settings=loop.s,
                                 error_norms=loop.error_norms,
-                                search_mode="fused")
+                                search_mode="fused",
+                                adjoint_takes_u=loop.adjoint_takes_u)
 
 
 def fused_config3(torch, device, prob, c3, iters=3):
@@ -4662,8 +4677,9 @@ def fused_config3(torch, device, prob, c3, iters=3):
         run(lp)
         torch.cuda.synchronize()
         rates.setdefault(mode, []).append(iters / (time.perf_counter() - t0))
-    r = loop.adjoint(phi0, u0)
-    grad = calculate_gradient(r, u0, prob.opt_config.b3)
+    r0 = (loop.adjoint(phi0, u0) if loop.adjoint_takes_u
+          else loop.adjoint(phi0))
+    grad = calculate_gradient(r0, u0, loop.opt.b3)
     cost0 = loop.cost(phi0, u0)
     trial = fused._trial(u0, grad)
     torch.cuda.synchronize()
@@ -4924,6 +4940,296 @@ def fused_phase(device=None, name=None, smi=None, prob=None, c3=None):
     check_row1_flag(c)
     _log(14, f"{time.perf_counter() - t0:.1f} s")
     return a["launches"]
+
+# phase 15a: float32 against the stencil, relative to the largest stencil
+# value: each output adds three products of up to 4|v|/h^2, which the two
+# forms round apart by a few float32 ulps (~1e-7); float64 likewise at
+# 1e-12. A call that hands the solvers' helper Ly where it takes Ly^T (the
+# fault C3 was that call under the public name) must be this far off.
+LAP_F32_REL = 1e-5
+LAP_F64_REL = 1e-12
+LAP_WRONG_FORM_REL = 0.1
+
+
+def surface_laplacian_case(torch, device, shapes=(65, 129), B=4):
+    """Phase 15a: the public `apply_laplacian_2d(Lx, Ly, v)` from
+    `vch_tpu_torch.ops` in vch_tpu's call form on the card, at n = 65 and
+    129, B = 4 seeded fields, float32 and float64, against
+    `stencil_laplacian_2d` on the same fields; and the solvers' helper
+    `apply_laplacian_2d_t` handed Ly untransposed, for the size of the
+    fault it repairs."""
+    from vch_tpu_torch.ops import (apply_laplacian_2d,
+                                   laplacian_matrix_neumann,
+                                   stencil_laplacian_2d)
+    from vch_tpu_torch.ops.laplacian import apply_laplacian_2d_t
+
+    out = []
+    for n in shapes:
+        h = 1.0 / (n - 1)
+        L = laplacian_matrix_neumann(n - 1, h)
+        v = torch.randn((B, n, n), dtype=torch.float64, device=device,
+                        generator=torch.Generator(device).manual_seed(n))
+        got = {}
+        for dt in (torch.float32, torch.float64):
+            Lt, vt = torch.as_tensor(L, dtype=dt, device=device), v.to(dt)
+            got[dt] = (apply_laplacian_2d(Lt, Lt, vt),
+                       stencil_laplacian_2d(vt, h, h))
+        L64 = torch.as_tensor(L, device=device)
+        wrong = apply_laplacian_2d_t(L64, L64, v)
+        (a32, s32), (a64, s64) = got[torch.float32], got[torch.float64]
+        scale = float(s64.abs().max())
+        rel = lambda a, b: float((a.double() - b.double()).abs().max()) \
+            / scale
+        out.append(dict(
+            n=n, B=B, f32_vs_stencil=rel(a32, s32),
+            f32_vs_f64_stencil=rel(a32, s64), f64_vs_stencil=rel(a64, s64),
+            ly_untransposed_vs_stencil=rel(wrong, s64),
+            ly_symmetric=bool(np.array_equal(L, L.T)),
+            finite=bool(torch.isfinite(a32).all())))
+    return out
+
+
+def check_surface_laplacian(cases):
+    """Phase 15a gates: finite; float32 within LAP_F32_REL of the stencil
+    and of float64's, float64 within LAP_F64_REL; Ly untransposed in the
+    helper at least LAP_WRONG_FORM_REL off (so the gate can see the
+    fault)."""
+    fails = []
+    for c in cases:
+        if not c["finite"]:
+            fails.append(f"n={c['n']}: not finite")
+        if max(c["f32_vs_stencil"], c["f32_vs_f64_stencil"]) > LAP_F32_REL:
+            fails.append(f"n={c['n']}: float32 {c['f32_vs_stencil']}, "
+                         f"{c['f32_vs_f64_stencil']} > {LAP_F32_REL}")
+        if c["f64_vs_stencil"] > LAP_F64_REL:
+            fails.append(f"n={c['n']}: float64 {c['f64_vs_stencil']}")
+        if c["ly_untransposed_vs_stencil"] < LAP_WRONG_FORM_REL:
+            fails.append(f"n={c['n']}: Ly untransposed only "
+                         f"{c['ly_untransposed_vs_stencil']} off")
+    if fails:
+        raise RuntimeError("phase 15a: " + "; ".join(fails) + f" | {cases}")
+
+
+def surface_pgd_case(torch, device, c3, iters=2):
+    """Phase 15b: config 3 (64x64, T = 1, float32, newton_tol 2e-4, the 2D
+    optimizer defaults) built as a vch_tpu user builds it, from the
+    package namespaces only (`vch_tpu_torch`, `vch_tpu_torch.models`,
+    `vch_tpu_torch.control`): the solvers, the baseline march, the targets,
+    and a ProximalGradientLoop over forward u -> phi_hist (row 1 at B = 1),
+    adjoint phi_hist -> r (vch_tpu's contract: no adjoint_takes_u; the
+    per-step sweep on row 9) and the cost; `iters` iterations in the host
+    mode, then in the fused mode (whose forward takes no `active`, so every
+    trial slot marches), launch counts set to 0 just before each of the
+    three and read just after."""
+    from vch_tpu_torch import ForwardSolverConfig2D, OptimizationConfig
+    from vch_tpu_torch.control import build_targets_2d, calculate_cost_2d
+    from vch_tpu_torch.control.pgd import PGDSettings, ProximalGradientLoop
+    from vch_tpu_torch.models import AdjointSolver2D, ForwardSolver2D
+    from vch_tpu_torch.ops import march as km
+
+    cfg = ForwardSolverConfig2D(Nx=64, Ny=64, T=1.0, dtype="float32",
+                                newton_tol=2e-4)
+    opt = OptimizationConfig.defaults_2d()
+    windows = {}
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        windows[name] = dict(s=time.perf_counter() - t0, launches={
+            k: v for k, v in km.launch_counts().items() if v})
+        return out
+
+    def build():
+        solver = ForwardSolver2D(cfg, device=device)
+        adj = AdjointSolver2D(cfg, device=device)
+        phi0 = solver.default_initial_phi()
+        return solver, adj, phi0, solver.simulate(initial_phi=phi0)
+
+    solver, adj, phi0, (phi_hist, (x, y), t_hist) = window("constructor",
+                                                           build)
+    windows["constructor"]["newton_solves"] = \
+        solver.last_stats.newton_solves
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=solver.dtype,
+                                     device=device)
+    phi_T, phi_Q = (as_t(a) for a in build_targets_2d(
+        x, y, t_hist, phi_hist[0].cpu().numpy(), float(cfg.Lx),
+        float(cfg.Ly), float(cfg.T)))
+    xs, ys, ts, dts, phi0_d = (as_t(a) for a in (x, y, t_hist,
+                                                 np.diff(t_hist), phi0))
+
+    def forward(u):
+        return solver.march_fused_batch(u[None], phi0_d[None])[0][0]
+
+    def adjoint(phi):
+        return adj._run_impl(phi, dts, opt.b1, opt.b2, phi_Q, phi_T)[2]
+
+    def cost(phi, u):
+        return calculate_cost_2d(phi, u, phi_Q, phi_T, xs, ys, ts, opt.b1,
+                                 opt.b2, opt.b3, opt.kappa_sparsity)
+
+    runs, results = {}, {}
+    for mode in ("host", "fused"):
+        loop = ProximalGradientLoop(forward, adjoint, cost, opt,
+                                    settings=PGDSettings.defaults_2d(),
+                                    search_mode=mode)
+        res = results[mode] = window(
+            mode, lambda: loop.run(torch.zeros_like(phi_hist), phi_hist,
+                                   max_iter=iters, verbose=False))
+        ch, ch8 = (np.asarray(res.cost_history),
+                   np.asarray(c3["cost_history"][:iters + 1]))
+        runs[mode] = dict(
+            cost_history=ch.tolist(), ls_trials=res.ls_trials_per_iter,
+            alpha_history=res.alpha_history,
+            costs_equal_phase8=bool(np.array_equal(ch, ch8)),
+            max_rel_cost_vs_phase8=float((np.abs(ch - ch8)
+                                          / np.abs(ch8)).max()),
+            adjoint_takes_u=loop.adjoint_takes_u,
+            pgd_iters_per_s=iters / windows[mode]["s"],
+            finite=bool(np.isfinite(ch).all()))
+    return dict(n=cfg.Nx, M=solver.M, iters=iters,
+                slots_per_iter=1 + PGDSettings.defaults_2d().ls_max_trials,
+                ls_trials_phase8=c3["ls_trials"][:iters],
+                alpha_history_phase8=c3["alpha_history"][:iters],
+                constructor_newton_solves=windows["constructor"][
+                    "newton_solves"],
+                constructor_newton_solves_phase8=c3[
+                    "constructor_newton_solves"],
+                seconds={k: v["s"] for k, v in windows.items()},
+                launches={k: v["launches"] for k, v in windows.items()},
+                runs=runs), results["host"]
+
+
+def check_surface_pgd(c):
+    """Phase 15b gates: the constructor's Newton solves phase 8's, each on
+    the spectral Schur kernel; in both modes trials and alphas phase 8's
+    first `iters`, and the host mode's costs phase 8's bit for bit (the
+    fused mode's within 1e-6, phase 14a's gate); the adjoint called without
+    u; row 1 once a trial (host) or a slot (fused), row 9 M times an
+    iteration, and nothing else."""
+    fails = []
+    if c["constructor_newton_solves"] != c["constructor_newton_solves_phase8"]:
+        fails.append(f"constructor Newton solves "
+                     f"{c['constructor_newton_solves']} vs "
+                     f"{c['constructor_newton_solves_phase8']}")
+    want = {"constructor": {"bicgstab_schur_spectral":
+                            c["constructor_newton_solves"]}}
+    for mode, r in c["runs"].items():
+        if r["ls_trials"] != c["ls_trials_phase8"]:
+            fails.append(f"{mode}: trials {r['ls_trials']} vs "
+                         f"{c['ls_trials_phase8']}")
+        if r["alpha_history"] != c["alpha_history_phase8"]:
+            fails.append(f"{mode}: alphas {r['alpha_history']} vs "
+                         f"{c['alpha_history_phase8']}")
+        if not r["finite"] or (not r["costs_equal_phase8"] if mode == "host"
+                               else r["max_rel_cost_vs_phase8"] > 1e-6):
+            fails.append(f"{mode}: costs {r['cost_history']} vs phase 8's "
+                         f"({r['max_rel_cost_vs_phase8']})")
+        if r["adjoint_takes_u"]:
+            fails.append(f"{mode}: the loop passes u to the adjoint")
+        trials = (sum(r["ls_trials"]) if mode == "host"
+                  else c["slots_per_iter"] * c["iters"])
+        want[mode] = {"march_fused_2d": trials,
+                      "bicgstab_adjoint_spectral": c["M"] * c["iters"]}
+    for window, w in want.items():
+        if c["launches"][window] != w:
+            fails.append(f"{window}: launches {c['launches'][window]}, "
+                         f"expected {w}")
+    if fails:
+        raise RuntimeError("phase 15b: " + "; ".join(fails) + f" | {c}")
+
+
+def surface_probe_case(torch, device, prob, res, D=5):
+    """Phase 15c: the coercivity probe of phase 8's problem at 15b's host
+    result, with vch_tpu's one-control `forward` (D one-member marches of
+    row 1) against the problem's `second_order_check` (forward_batch=: one
+    march of D members, phase 8's gated count), in turns (forward, batch,
+    batch, forward), launch counts set to 0 just before each call and read
+    just after; the seconds of each call, its launches of the last call,
+    and the estimates of each."""
+    from vch_tpu_torch.control.diagnostics import \
+        approximate_second_order_condition
+    from vch_tpu_torch.ops import march as km
+
+    opt = prob.opt_config
+    calls = {
+        "forward": lambda: approximate_second_order_condition(
+            prob.loop.forward, prob.loop.cost, res.u_optimal,
+            res.r_optimal, res.phi_final, opt.b3, opt.kappa_sparsity,
+            opt.u_min, opt.u_max, num_directions=D, epsilon=1e-4, seed=42,
+            handle_kink=False, dtype=prob.dtype, device=device),
+        "forward_batch": lambda: prob.second_order_check(
+            res, num_directions=D)}
+    out = {k: dict(s=[], d2=None, launches=None) for k in calls}
+    for mode in ("forward", "forward_batch", "forward_batch", "forward"):
+        torch.cuda.synchronize()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        d2 = calls[mode]()
+        torch.cuda.synchronize()
+        out[mode]["s"].append(time.perf_counter() - t0)
+        out[mode]["launches"] = {k: v for k, v in km.launch_counts().items()
+                                 if v}
+        out[mode]["d2"] = [float(v) for v in d2]
+    a, b = (np.asarray(out[k]["d2"]) for k in calls)
+    return dict(n=prob.solver.config.Nx, M=prob.solver.M, directions=D,
+                calls=out, max_rel_d2=float(np.abs(a - b).max()
+                                            / np.abs(b).max()),
+                batch_over_forward_s=min(out["forward_batch"]["s"])
+                / min(out["forward"]["s"]))
+
+
+def check_surface_probe(c):
+    """Phase 15c gates: D launches of row 1 with `forward`, one with the
+    batch, nothing else; finite estimates."""
+    want = {"forward": {"march_fused_2d": c["directions"]},
+            "forward_batch": {"march_fused_2d": 1}}
+    fails = [f"{k}: launches {c['calls'][k]['launches']}, expected {w}"
+             for k, w in want.items() if c["calls"][k]["launches"] != w]
+    fails += [f"{k}: non-finite estimates {r['d2']}"
+              for k, r in c["calls"].items()
+              if not np.isfinite(r["d2"]).all()]
+    if fails:
+        raise RuntimeError("phase 15c: " + "; ".join(fails) + f" | {c}")
+
+
+def surface_phase(device=None, name=None, smi=None, c3=None, prob=None):
+    """Phase 15, the public surface on vch_tpu's contracts: (a) the public
+    Laplacian, (b) config 3 through the package namespaces and vch_tpu's
+    adjoint contract against phase 8, (c) the coercivity probe with
+    vch_tpu's one-control forward against phase 8's batched call; each
+    logged, then gated. Alone on the card (phase 8 first, for its figures
+    and problem): `python -c "import chip_smoke;
+    chip_smoke.surface_phase()"`. Returns the kernels' launches in 15b and
+    15c by entry, their windows summed."""
+    import torch
+    if device is None:
+        device, name, smi = (torch.device("cuda", 0),
+                             torch.cuda.get_device_name(0), _smi())
+    if c3 is None or prob is None:
+        c3, prob = config3_run(torch, device)
+        _log(8, json.dumps(c3) + f" | {name} | {smi}")
+        check_config3(c3)
+    t0 = time.perf_counter()
+    a = surface_laplacian_case(torch, device)
+    _log("15a", json.dumps(a) + " | no kernel: two products and the "
+         f"stencil in PyTorch | {name} | {smi}")
+    check_surface_laplacian(a)
+    b, res = surface_pgd_case(torch, device, c3)
+    _log("15b", json.dumps(b) + f" | {name} | {smi}")
+    check_surface_pgd(b)
+    p = surface_probe_case(torch, device, prob, res)
+    _log("15c", json.dumps(p) + f" | {name} | {smi}")
+    check_surface_probe(p)
+    _log(15, f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for w in (list(b["launches"].values())
+              + [r["launches"] for r in p["calls"].values()]):
+        for k, v in w.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
 
 
 def main():
@@ -5395,6 +5701,7 @@ def main():
     side = side_paths_phase(device, name, smi)
     mesh = mesh_phase(device, name, smi)
     fused14 = fused_phase(device, name, smi, prob=prob3, c3=c3)
+    surface15 = surface_phase(device, name, smi, c3=c3, prob=prob3)
     del prob3
     # the scan path at config 4's width likewise: its baseline march and
     # one sweep under the profiler
@@ -5564,6 +5871,12 @@ def main():
     # row 1: its launches in phase 14a's fused line search (11 a PGD
     # iteration at config 3, of which only the searching trials march)
     kernels[0]["launches_phase14"] = fused14.get("march_fused_2d", 0)
+    # rows 1, 8 and 9: their launches in phase 15b (config 3 through the
+    # package namespaces: the constructor, the host and the fused mode) and
+    # row 1's in 15c (the coercivity probe, one-control and batched)
+    for e in kernels:
+        if e["name"] in surface15:
+            e["launches_phase15"] = surface15[e["name"]]
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

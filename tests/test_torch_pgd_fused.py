@@ -60,7 +60,8 @@ def _fused(loop, settings=None):
     return ProximalGradientLoop(loop.forward, loop.adjoint, loop.cost,
                                 loop.opt, settings=settings or loop.s,
                                 error_norms=loop.error_norms,
-                                search_mode="fused")
+                                search_mode="fused",
+                                adjoint_takes_u=loop.adjoint_takes_u)
 
 
 # ---- (i) the search on toy analytic trials ------------------------------
@@ -259,7 +260,7 @@ def _toy_loops(mode, settings_name):
     s = getattr(PGDSettings, settings_name)()
     js = getattr(JaxSettings, settings_name)()
     port = ProximalGradientLoop(
-        lambda u: 2.0 * u, lambda phi, u: phi - 1.0,
+        lambda u: 2.0 * u, lambda phi: phi - 1.0,
         lambda phi, u: torch.sum(u * u), OptimizationConfig(), settings=s,
         search_mode=mode)
     ref = JaxLoop(lambda u: 2.0 * u, lambda phi: phi - 1.0,

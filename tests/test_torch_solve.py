@@ -261,7 +261,7 @@ def _schur_problem(dtype_name, seed=1):
     t = lambda a: torch.as_tensor(a, dtype=TD[dtype_name])
     jS, jM, jb = pair(jax_lap, j, jop, jls.to_spectral, jls.from_spectral,
                       (jop.Lx, jop.Ly))
-    tS, tM, tb = pair(tls.apply_laplacian_2d, t, top, tls.to_spectral,
+    tS, tM, tb = pair(tls.apply_laplacian_2d_t, t, top, tls.to_spectral,
                       tls.from_spectral, (tops.Lx, tops.LyT))
     return (jS, jM, jb), (tS, tM, tb), (jop, top, tops), phi
 

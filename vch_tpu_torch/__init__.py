@@ -23,3 +23,13 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+# vch_tpu's package exports (vch_tpu/__init__.py); config.py imports no torch
+from vch_tpu_torch.config import (  # noqa: E402,F401
+    ForwardSolverConfig1D,
+    ForwardSolverConfig2D,
+    OptimizationConfig,
+    SimulationParameters,
+    load_params,
+    save_params,
+)

@@ -29,11 +29,14 @@ def cost_breakdown_1d(phi_hist, u, phi_Q_target, phi_T_target, x, t_hist,
 
 
 def calculate_cost_1d(phi_hist, u, phi_Q_target, phi_T_target, x, t_hist,
-                      b1, b2, b3, kappa_spar):
+                      b1, b2, b3, kappa_spar, verbose: bool = False):
     J1, J2, J3, J4 = cost_breakdown_1d(phi_hist, u, phi_Q_target,
                                        phi_T_target, x, t_hist, b1, b2, b3,
                                        kappa_spar)
-    return J1 + J2 + J3 + J4
+    total = J1 + J2 + J3 + J4
+    if verbose:
+        _print_breakdown(J1, J2, J3, J4, total)
+    return total
 
 
 def cost_breakdown_2d(phi_hist, u, phi_Q_target, phi_T_target, x, y, t_hist,
@@ -50,8 +53,21 @@ def cost_breakdown_2d(phi_hist, u, phi_Q_target, phi_T_target, x, y, t_hist,
 
 
 def calculate_cost_2d(phi_hist, u, phi_Q_target, phi_T_target, x, y, t_hist,
-                      b1, b2, b3, kappa_spar):
+                      b1, b2, b3, kappa_spar, verbose: bool = False):
     J1, J2, J3, J4 = cost_breakdown_2d(phi_hist, u, phi_Q_target,
                                        phi_T_target, x, y, t_hist,
                                        b1, b2, b3, kappa_spar)
-    return J1 + J2 + J3 + J4
+    total = J1 + J2 + J3 + J4
+    if verbose:
+        _print_breakdown(J1, J2, J3, J4, total)
+    return total
+
+
+def _print_breakdown(J1, J2, J3, J4, total):
+    """vch_tpu's five lines (vch_tpu/control/cost.py:68-73); one member."""
+    print(f"  Tracking Cost (J1): {float(J1):.6g}")
+    print(f"  Terminal Cost (J2): {float(J2):.6g}")
+    print(f"  Control Energy (J3): {float(J3):.6g}")
+    print(f"  Sparsity Cost (J4): {float(J4):.6g}")
+    print("-----------------------------")
+    print(f"  Total Cost: {float(total):.6g}")

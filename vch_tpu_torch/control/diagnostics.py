@@ -2,10 +2,11 @@
 finite-difference second-order coercivity probe (Theorem 4.8)
 (vch_tpu/control/diagnostics.py).
 
-The probe's perturbed forward solves run as one batch over the directions:
-the caller's `forward_batch` takes them with a leading axis, which is what
-vmap of the single forward computes in vch_tpu (on the card, one launch of
-the whole-march kernel over the directions).
+The probe takes vch_tpu's `forward` (one control in, its trajectory out),
+which it calls once a direction, or, keyword-only, a `forward_batch` that
+takes every direction at once with a leading axis: what vmap of the single
+forward computes in vch_tpu (on the card, one launch of the whole-march
+kernel over the directions). The problems pass `forward_batch`.
 """
 from __future__ import annotations
 
@@ -81,20 +82,25 @@ def generate_critical_cone_direction(u_star, r_star, u_min, u_max, kappa, b3,
 
 
 def approximate_second_order_condition(
-        forward_batch: Callable, cost: Callable, u_star, r_star, phi_star,
-        b3: float, kappa: float, u_min: float, u_max: float,
+        forward: Optional[Callable], cost: Callable, u_star, r_star,
+        phi_star, b3: float, kappa: float, u_min: float, u_max: float,
         num_directions: int = 3, epsilon: float = 1e-4,
         seed: Optional[int] = 42, handle_kink: bool = True,
-        dtype=torch.float64, device=None) -> List[float]:
+        dtype=torch.float64, device=None, *,
+        forward_batch: Optional[Callable] = None) -> List[float]:
     """FD estimate of J''(u*)[h,h] along critical-cone directions:
     (J(u* + eps h) - J(u*) - eps <grad J, h>) / (eps^2 / 2).
 
-    forward_batch: u (D, ...) -> phi_hist (D, ...), all directions in one
-    call; cost: (phi_hist, u) -> J, over any leading axes. u_star, r_star,
+    forward: u -> phi_hist of one control (vch_tpu's contract), called once
+    a direction; or forward_batch: u (D, ...) -> phi_hist (D, ...), all
+    directions in one call. Exactly one of the two. cost: (phi_hist, u) ->
+    J, over any leading axes when forward_batch is given. u_star, r_star,
     phi_star are host arrays; the perturbed controls go to `device` in
     `dtype` (the problem's; device None is the CUDA card, as every entry
     point resolves it). Positive values evidence coercivity (4.54).
     """
+    if (forward is None) == (forward_batch is None):
+        raise ValueError("give exactly one of forward and forward_batch")
     from vch_tpu_torch.device import resolve_device
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -108,7 +114,10 @@ def approximate_second_order_condition(
                                          b3, rng, handle_kink=handle_kink)
         for _ in range(num_directions)])
     u_pert = as_t(u_star[None] + epsilon * hs)
-    costs = cost(forward_batch(u_pert), u_pert).cpu().numpy()
+    if forward_batch is not None:
+        costs = cost(forward_batch(u_pert), u_pert).cpu().numpy()
+    else:
+        costs = [float(cost(forward(u_i), u_i)) for u_i in u_pert]
     d2s = []
     for i in range(num_directions):
         inner = float(np.sum(grad_star * hs[i]))

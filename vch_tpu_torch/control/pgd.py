@@ -126,7 +126,9 @@ class ProximalGradientLoop:
     """Dimension-agnostic PGD engine over callables on tensors:
 
     forward:  u -> phi_hist
-    adjoint:  (phi_hist, u) -> r (the reference mode's ignores u)
+    adjoint:  phi_hist -> r, or (phi_hist, u) -> r with adjoint_takes_u
+              (the exact gradient's, which reads u; vch_tpu's contract,
+              vch_tpu/control/pgd.py:141, 152)
     cost:     (phi_hist, u) -> 0-d tensor
     error_norms: optional phi_hist -> (rel_tracking, rel_terminal)
     norm:     optional u -> 0-d tensor, the 2-norm of the relative control
@@ -147,7 +149,8 @@ class ProximalGradientLoop:
                  opt_config: OptimizationConfig,
                  settings: Optional[PGDSettings] = None,
                  error_norms: Optional[Callable] = None,
-                 search_mode: str = "host", norm: Optional[Callable] = None):
+                 search_mode: str = "host", adjoint_takes_u: bool = False,
+                 norm: Optional[Callable] = None):
         if search_mode not in ("host", "fused"):
             raise ValueError(f"search_mode must be 'host' or 'fused', got "
                              f"{search_mode!r}")
@@ -158,12 +161,19 @@ class ProximalGradientLoop:
         self.s = settings or PGDSettings()
         self.error_norms = error_norms
         self.search_mode = search_mode
+        self.adjoint_takes_u = adjoint_takes_u
         self.norm = norm or torch.linalg.norm
         try:
             params = inspect.signature(forward).parameters
         except (TypeError, ValueError):
             params = {}
         self._forward_takes_active = "active" in params
+
+    def _adjoint_grad(self, phi_k, u_k):
+        """r and the gradient r + b3 u of the iterate (phi_k, u_k)."""
+        r_k = (self.adjoint(phi_k, u_k) if self.adjoint_takes_u
+               else self.adjoint(phi_k))
+        return r_k, calculate_gradient(r_k, u_k, self.opt.b3)
 
     def _trial(self, u_k, grad):
         """The trial(alpha, active=None) -> (u, phi, cost) of the iterate
@@ -186,8 +196,7 @@ class ProximalGradientLoop:
         history's and the next iteration's) are numbers."""
         s = self.s
         t0 = time.perf_counter()
-        r_k = self.adjoint(phi_k, u_k)
-        grad = calculate_gradient(r_k, u_k, self.opt.b3)
+        r_k, grad = self._adjoint_grad(phi_k, u_k)
         _sync(grad)
         timers["backward_total"] += time.perf_counter() - t0
         trial = self._trial(u_k, grad)
@@ -225,8 +234,7 @@ class ProximalGradientLoop:
         norms, then one host read of their scalars. cost_k and the next
         iteration's cost are 0-d device tensors; the history's cost is a
         number. Reads no timer and keep_failed_step."""
-        r_k = self.adjoint(phi_k, u_k)
-        grad = calculate_gradient(r_k, u_k, self.opt.b3)
+        r_k, grad = self._adjoint_grad(phi_k, u_k)
         alpha_k, u_1, phi_1, c_1, n_trials, opt_ok = (
             optimistic_backtracking_search(self._trial(u_k, grad),
                                            cost_k, alpha_prev, self.s))

@@ -121,7 +121,7 @@ class ControlProblem2D(_NewtonCounter):
             self._cost, self.opt_config,
             settings=(PGDSettings.defaults_exact() if exact
                       else PGDSettings.defaults_2d()),
-            error_norms=self.error_norms)
+            error_norms=self.error_norms, adjoint_takes_u=exact)
 
     def _forward_batch(self, u, active=None):
         """Trajectories of the controls u (D, M+1, Nx+1, Ny+1) from phi0.
@@ -147,9 +147,8 @@ class ControlProblem2D(_NewtonCounter):
         return self._forward_batch(
             u[None], None if active is None else active.reshape(1))[0]
 
-    def _adjoint_r(self, phi_hist, u):
-        """The adjoint's r (the loop's calling convention passes u, which
-        the reference gradient does not read)."""
+    def _adjoint_r(self, phi_hist):
+        """The adjoint's r of a trajectory."""
         opt = self.opt_config
         _, _, r = self.adjoint._run_impl(phi_hist, self._dts, opt.b1, opt.b2,
                                          self.phi_Q_target, self.phi_T_target)
@@ -213,11 +212,11 @@ class ControlProblem2D(_NewtonCounter):
         ref second_order_conditions_2d.py:35-88)."""
         opt = self.opt_config
         return approximate_second_order_condition(
-            self._forward_batch, self._cost, result.u_optimal,
+            None, self._cost, result.u_optimal,
             result.r_optimal, result.phi_final, opt.b3, opt.kappa_sparsity,
             opt.u_min, opt.u_max, num_directions=num_directions,
             epsilon=epsilon, seed=seed, handle_kink=False, dtype=self.dtype,
-            device=self.device)
+            device=self.device, forward_batch=self._forward_batch)
 
 
 class ControlProblem1D(_NewtonCounter):
@@ -284,7 +283,7 @@ class ControlProblem1D(_NewtonCounter):
             self._cost, self.opt_config,
             settings=(PGDSettings.defaults_exact() if exact
                       else PGDSettings.defaults_1d()),
-            error_norms=self.error_norms)
+            error_norms=self.error_norms, adjoint_takes_u=exact)
 
     def _forward_batch(self, u, active=None):
         """Trajectories of the controls u (D, rows, N+1) from phi0, in the
@@ -305,8 +304,8 @@ class ControlProblem1D(_NewtonCounter):
         return self._forward_batch(
             u_ref[None], None if active is None else active.reshape(1))[0]
 
-    def _adjoint_r(self, phi_ref, u_ref):
-        """The adjoint's r (u_ref passed by the loop, not read)."""
+    def _adjoint_r(self, phi_ref):
+        """The adjoint's r of a trajectory in the reference layout."""
         opt = self.opt_config
         _, _, r = self.adjoint._run_impl(phi_ref, self._dts, opt.b1, opt.b2,
                                          self.phi_Q_target, self.phi_T_target)
@@ -370,8 +369,8 @@ class ControlProblem1D(_NewtonCounter):
         second_order_conditions.py:33-55)."""
         opt = self.opt_config
         return approximate_second_order_condition(
-            self._forward_batch, self._cost, result.u_optimal,
+            None, self._cost, result.u_optimal,
             result.r_optimal, result.phi_final, opt.b3, opt.kappa_sparsity,
             opt.u_min, opt.u_max, num_directions=num_directions,
             epsilon=epsilon, seed=seed, handle_kink=True, dtype=self.dtype,
-            device=self.device)
+            device=self.device, forward_batch=self._forward_batch)

@@ -9,6 +9,10 @@ def calculate_gradient(r, u, b3):
     return r + b3 * u
 
 
+def perform_gradient_step(u, grad_smooth, alpha):
+    return u - alpha * grad_smooth
+
+
 def soft_threshold(u, threshold):
     return torch.sign(u) * torch.clamp(torch.abs(u) - threshold, min=0.0)
 

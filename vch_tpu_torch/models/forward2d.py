@@ -60,15 +60,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return torch.float64 if name == "float64" else torch.float32
 
 
-def mu_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, dt):
-    """`ops`: an Ops2D or a grid (ops.linsolve.as_grid)."""
+def mu_residual_2d(op, phi_new, phi_old, mu_new, mu_old, dt):
+    """`op`: vch_tpu's SpectralOp2D, an Ops2D or a grid
+    (ops.linsolve.as_grid)."""
     return ((phi_new - phi_old) / dt
-            - 0.5 * as_grid(ops).lap(mu_new + mu_old))
+            - 0.5 * as_grid(op).lap(mu_new + mu_old))
 
 
-def phi_residual_2d(ops, phi_new, phi_old, mu_new, mu_old, w_new, w_old,
+def phi_residual_2d(op, phi_new, phi_old, mu_new, mu_old, w_new, w_old,
                     dt, tau, c1, c2, kappa, delta_sep):
-    lap_avg = 0.5 * as_grid(ops).lap(phi_new + phi_old)
+    lap_avg = 0.5 * as_grid(op).lap(phi_new + phi_old)
     f_cvx = c1 * regularized_log(phi_new, delta_sep)
     f_ccv = -2.0 * c2 * phi_old
     return (tau * (phi_new - phi_old) / dt - kappa * lap_avg
@@ -90,18 +91,22 @@ def _step_ceiling_2d(phi, dphi, delta_sep, grid):
     return torch.clamp(amax, max=1.0)
 
 
-def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
+def newton_2d(op, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
               delta_sep, tol, max_iter, krylov_tol, krylov_max_iter,
               mu_init, record_history: bool = False, rtol: float = 0.0,
               stagnation_exit: bool = False,
-              krylov_fixed: Optional[int] = None, use_pallas: bool = False,
+              krylov_fixed: Optional[int] = None,
+              return_iters: bool = False, use_pallas: bool = False,
               pallas_variant: str = "spectral", entries=km.KERNELS,
               active: Optional[torch.Tensor] = None):
     """Newton with the best-trial-fallback Armijo (at most 12 trials) for
     one step of the members of phi_old (B, n, m), in masked lockstep
-    (vch_tpu/models/forward2d.py:65 under vmap). `ops`: an Ops2D, or a grid
-    whose reductions are collective (a grid-sharded solver; its host
-    decisions then read values that every rank of its group shares).
+    (vch_tpu/models/forward2d.py:65 under vmap). `op`: vch_tpu's
+    SpectralOp2D, an Ops2D, or a grid whose reductions are collective (a
+    grid-sharded solver; its host decisions then read values that every
+    rank of its group shares). Fields of one member (n, m), vch_tpu's call
+    form, are marched as a batch of one and returned without the batch
+    axis.
 
     Each member tests convergence at the top of its round (the absolute
     tolerance; rtol times its first residual when rtol > 0; with
@@ -110,12 +115,17 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     state while the others go on, for at most max_iter rounds. A member that
     takes no step in a round solves a zero system, which leaves its Krylov
     loop at once. `active` (B,) bool: the members that start; the others
-    take no round and keep phi_old, mu_old. Returns (phi, mu, newton_solves
-    (B,) int64) and, with
-    record_history, the residual norms (B, max_iter + 1) after them, NaN
-    where a member ran no round."""
+    take no round and keep phi_old, mu_old. Returns (phi, mu), then with
+    record_history the residual norms (B, max_iter + 1), NaN where a member
+    ran no round, then with return_iters the Newton solves (B,) int64, as
+    vch_tpu orders them."""
     eta = 1e-4
-    grid = as_grid(ops)
+    grid = as_grid(op)
+    one = phi_old.dim() == 2
+    if one:
+        phi_old, mu_old, w_old, w_new, mu_init = (
+            a[None] if torch.is_tensor(a) and a.dim() == 2 else a
+            for a in (phi_old, mu_old, w_old, w_new, mu_init))
 
     def resid(phi, mu):
         Rphi = phi_residual_2d(grid, phi, phi_old, mu, mu_old, w_new, w_old,
@@ -192,9 +202,12 @@ def newton_2d(ops, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
             nsolve = nsolve + act.view(B)
         done = done | (live & conv)
         prev = torch.where(live, norm_R, prev)
+    out = (phi, mu)
     if record_history:
-        return phi, mu, nsolve, hist
-    return phi, mu, nsolve
+        out = out + (hist,)
+    if return_iters:
+        out = out + (nsolve,)
+    return tuple(a[0] for a in out) if one else out
 
 
 def fused_kernels_fit(cfg: ForwardSolverConfig2D) -> bool:
@@ -239,7 +252,8 @@ class ForwardStep2D:
         w_new = solve_w(w, dt, cfg.gamma, u_n, u_np1)
         mu_init = self.initialize_mu(phi, w_new)
         phi_new, mu_new, k = newton_2d(grid, phi, mu, w, w_new, dt,
-                                       mu_init=mu_init, active=active,
+                                       mu_init=mu_init, return_iters=True,
+                                       active=active,
                                        **self._newton_kw(kernels))
         phi_c = torch.clamp(phi_new, lo, hi)
         interior = torch.abs(phi_c) < (1.0 - DELTA_SEP - 5e-3)
@@ -414,7 +428,7 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
                                          device=self.dts.device)
         phi_old, w_new = as_t(phi_old)[None], as_t(w_new)[None]
         mu_init = self.initialize_mu(phi_old, w_new)
-        phi, mu, _, hist = newton_2d(
+        phi, mu, hist = newton_2d(
             self.grid, phi_old, as_t(mu_old)[None], as_t(w_old)[None], w_new,
             dt, mu_init=mu_init, record_history=True, **self._newton_kw())
         hist = hist[0].cpu().numpy()

@@ -2,9 +2,8 @@
 
 The public ops of vch_tpu/ops/__init__.py under the same names, on tensors
 (the grids, Laplacian tables and stability analysis are host numpy, as in
-vch_tpu). One contract differs: `apply_laplacian_2d(Lx, LyT, v)` takes the
-y-direction matrix transposed, as the solvers hold it. The kernel wrappers
-(`ops.march`, `ops.solve_kernels`, `ops.probe_kernels`) are imported by name.
+vch_tpu). The kernel wrappers (`ops.march`, `ops.solve_kernels`,
+`ops.probe_kernels`) are imported by name.
 """
 from vch_tpu_torch.ops.grids import grid_1d, grid_2d, trapz_weights
 from vch_tpu_torch.ops.laplacian import (

@@ -47,10 +47,19 @@ def apply_laplacian_1d(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(v, L.T)
 
 
-def apply_laplacian_2d(Lx: torch.Tensor, LyT: torch.Tensor,
+def apply_laplacian_2d(Lx: torch.Tensor, Ly: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """2D Neumann Laplacian of v[..., i, j]: Lx along axis -2, Ly along -1,
-    as the two products Lx @ v + v @ Ly^T (LyT is Ly transposed)."""
+    as the two products Lx @ v + v @ Ly^T (vch_tpu/ops/laplacian.py:78).
+    The Neumann Ly is not symmetric (2/h^2 in its first and last rows), so
+    passing it transposed gives another field."""
+    return apply_laplacian_2d_t(Lx, Ly.T, v)
+
+
+def apply_laplacian_2d_t(Lx: torch.Tensor, LyT: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """apply_laplacian_2d with Ly given transposed, as the solvers hold it
+    (`LyT`, contiguous): Lx @ v + v @ LyT."""
     return torch.matmul(Lx, v) + torch.matmul(v, LyT)
 
 

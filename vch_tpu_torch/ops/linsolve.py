@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from vch_tpu_torch.ops.laplacian import (apply_laplacian_2d,
+from vch_tpu_torch.ops.laplacian import (apply_laplacian_2d_t,
                                          laplacian_matrix_neumann,
                                          neumann_eigendecomposition)
 
@@ -69,7 +69,7 @@ class LocalGrid:
         self.lam = ops.lam
 
     def lap(self, v):
-        return apply_laplacian_2d(self.ops.Lx, self.ops.LyT, v)
+        return apply_laplacian_2d_t(self.ops.Lx, self.ops.LyT, v)
 
     def sums(self, *parts):
         return tuple(torch.sum(a, dim=(-2, -1), keepdim=True) for a in parts)
@@ -94,12 +94,6 @@ class LocalGrid:
         return torch.matmul(torch.matmul(self.ops.Vx, vh), self.ops.VyT)
 
 
-def as_grid(ops):
-    """`ops` itself where it is a grid (it has `lap`), else the LocalGrid
-    of an Ops2D."""
-    return ops if hasattr(ops, "lap") else LocalGrid(Ops2D(*ops))
-
-
 def make_spectral_op_2d(Nx: int, Ny: int, hx: float, hy: float,
                         dtype=torch.float64, device=None) -> SpectralOp2D:
     Lx = laplacian_matrix_neumann(Nx, hx)
@@ -117,6 +111,19 @@ def ops_2d(op: SpectralOp2D) -> Ops2D:
     c = lambda t: t.T.contiguous()
     return Ops2D(op.Lx, c(op.Ly), op.Vx_inv, c(op.Vy_inv), op.Vx, c(op.Vy),
                  op.lam)
+
+
+def as_grid(op):
+    """The grid of `op`: `op` itself where it is a grid (it has `lap`), the
+    LocalGrid of an Ops2D, or of vch_tpu's SpectralOp2D through ops_2d."""
+    if hasattr(op, "lap"):
+        return op
+    if isinstance(op, Ops2D):
+        return LocalGrid(op)
+    if isinstance(op, SpectralOp2D):
+        return LocalGrid(ops_2d(op))
+    raise TypeError(f"expected a SpectralOp2D, an Ops2D or a grid, got "
+                    f"{type(op).__name__}")
 
 
 def to_spectral(op: SpectralOp2D, v: torch.Tensor) -> torch.Tensor:
@@ -367,7 +374,7 @@ def newton_schur_solve_1d_spectral(op: SpectralOp1D, phi, Rphi, Rmu, dt,
     return dphi, dmu
 
 
-def newton_schur_solve_2d(ops, phi, Rphi, Rmu, dt, tau: float,
+def newton_schur_solve_2d(op, phi, Rphi, Rmu, dt, tau: float,
                           c1: float, kappa: float, delta_sep: float,
                           tol: float = 1e-9, max_iter: int = 200,
                           fixed_iters: Optional[int] = None,
@@ -376,15 +383,15 @@ def newton_schur_solve_2d(ops, phi, Rphi, Rmu, dt, tau: float,
     """The 2D Newton step (dphi, dmu) by the exact Schur solve
     (vch_tpu/ops/linsolve.py:361), with the reference's Jacobian clip
     phi^2 <= 1 - delta_sep^2, per member of phi (n, m) or (B, n, m).
-    `ops`: an Ops2D, or a grid (LocalGrid, or a grid-sharded solver, whose
-    reductions and transforms are collective). Routing as vch_tpu's
+    `op`: vch_tpu's SpectralOp2D, an Ops2D, or a grid (LocalGrid, or a
+    grid-sharded solver, whose reductions and transforms are collective). Routing as vch_tpu's
     (:395-422): with use_pallas and fixed_iters, one per-solve kernel entry
     of `entries` (`schur_spectral` or, for pallas_variant "raw",
     `schur_raw`; an ops.march.Entries), which launches the CUDA kernel on
     CUDA tensors and runs its plain version on CPU tensors; else the
     composed fixed-trip or adaptive BiCGStab with the cosine-diagonal
     preconditioner (d replaced by each member's mean)."""
-    grid = as_grid(ops)
+    grid = as_grid(op)
     lam = grid.lam
     phi_sq = torch.clamp(phi * phi, 0.0, 1.0 - delta_sep * delta_sep)
     d = 2.0 * c1 / (1.0 - phi_sq)

@@ -46,7 +46,7 @@ import torch
 from vch_tpu_torch.ops import _build
 from vch_tpu_torch.ops import probe_kernels as pk
 from vch_tpu_torch.ops import solve_kernels as sk
-from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
+from vch_tpu_torch.ops.laplacian import apply_laplacian_2d_t
 from vch_tpu_torch.ops.potential import fpp_log, regularized_log
 
 EPS_DIV = 1e-30
@@ -122,7 +122,7 @@ def _march_member(dts, phi0, u, ops, k, carry=None):
         return mm(mm(Vx, vh), VyT)
 
     def lap(v):
-        return apply_laplacian_2d(Lx, LyT, v)
+        return apply_laplacian_2d_t(Lx, LyT, v)
 
     def f_log(phi):
         return regularized_log(phi, delta_sep)
@@ -786,7 +786,7 @@ def _adjoint_terminal(phi_T_state, phi_T_target, b2, ops, tau):
     mm = torch.matmul
     rhs_T = b2 * (phi_T_state - phi_T_target)
     p = mm(mm(Vx, mm(mm(Vxi, rhs_T), VyiT) / (1.0 - tau * lam)), VyT)
-    return p, -apply_laplacian_2d(Lx, LyT, p), torch.zeros_like(p)
+    return p, -apply_laplacian_2d_t(Lx, LyT, p), torch.zeros_like(p)
 
 
 def _adjoint_member(dts, hist, phiQ, b1, carry, ops, k):
@@ -806,7 +806,7 @@ def _adjoint_member(dts, hist, phiQ, b1, carry, ops, k):
         return mm(mm(Vx, vh), VyT)
 
     def lap(v):
-        return apply_laplacian_2d(Lx, LyT, v)
+        return apply_laplacian_2d_t(Lx, LyT, v)
 
     def fpp(phi):
         return fpp_log(phi, c1, c2, _FPP_EPS)

@@ -59,7 +59,7 @@ import torch
 
 from vch_tpu_torch.ops import _build
 from vch_tpu_torch.ops.linsolve import bicgstab_fixed_trips, member_dot
-from vch_tpu_torch.ops.laplacian import apply_laplacian_2d
+from vch_tpu_torch.ops.laplacian import apply_laplacian_2d_t
 
 _EPS_DIV = 1e-30
 # (50 eps_f32)^2: the noise-floor freeze factor of the float32 kernels
@@ -117,7 +117,7 @@ def _adjoint_spectral_system(Vx_inv, Vy_inv_T, Vx, VyT, lam, inv_sqrt_denom,
 def _schur_system(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, denom, d, rhs, inv_dt,
                   tau_dt, half_kappa):
     to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
-    lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
+    lap = lambda v: apply_laplacian_2d_t(Lx, LyT, v)
 
     def apply_S(v):
         u = (tau_dt + d) * v - half_kappa * lap(v)
@@ -131,7 +131,7 @@ def _adjoint_system(Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, inv_sqrt_denom, fpp,
                     rhs, x0, tau, half_dt):
     # vch_tpu's bicgstab_split_fixed: P^-1/2 A P^-1/2 on P^-1/2 rhs
     to_s, from_s = _transforms(Vx_inv, Vy_inv_T, Vx, VyT)
-    lap = lambda v: apply_laplacian_2d(Lx, LyT, v)
+    lap = lambda v: apply_laplacian_2d_t(Lx, LyT, v)
     isd = inv_sqrt_denom
     phalf = lambda v: from_s(to_s(v) * isd)
 
@@ -627,14 +627,14 @@ _SCHUR_APPLY, _ADJOINT_APPLY, _SPECTRAL_SOLVE = range(3)
 
 def schur_apply_plain(Lx, LyT, d, v, inv_dt, tau_dt, half_kappa):
     """Plain PyTorch version of `schur_apply`."""
-    lap = lambda f: apply_laplacian_2d(Lx, LyT, f)
+    lap = lambda f: apply_laplacian_2d_t(Lx, LyT, f)
     u = (tau_dt + d) * v - half_kappa * lap(v)
     return inv_dt * v - lap(u)
 
 
 def adjoint_apply_plain(Lx, LyT, fpp, v, tau, half_dt):
     """Plain PyTorch version of `adjoint_apply`."""
-    lap = lambda f: apply_laplacian_2d(Lx, LyT, f)
+    lap = lambda f: apply_laplacian_2d_t(Lx, LyT, f)
     w = lap(v)
     return v - tau * w + half_dt * (lap(w) - fpp * w)
 

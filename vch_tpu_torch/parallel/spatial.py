@@ -464,7 +464,7 @@ class GridShardedProblem2D:
         def forward(u):
             return fwd.march(u, self._phi0_l)[0]
 
-        def adjoint(phi_hist, u):
+        def adjoint(phi_hist):
             return self.adjoint.run_impl(phi_hist, fwd.dts_np, opt.b1,
                                          opt.b2, self._phiQ_l,
                                          self._phiT_l)[2]
@@ -526,11 +526,11 @@ class GridShardedProblem2D:
         the same directions, each perturbed march runs grid-sharded."""
         opt = self.opt_config
         return approximate_second_order_condition(
-            self._forward_whole, self._cost_whole, result.u_optimal,
+            None, self._cost_whole, result.u_optimal,
             result.r_optimal, result.phi_final, opt.b3, opt.kappa_sparsity,
             opt.u_min, opt.u_max, num_directions=num_directions,
             epsilon=epsilon, seed=seed, handle_kink=False, dtype=self.dtype,
-            device=self.device)
+            device=self.device, forward_batch=self._forward_whole)
 
 
 class GridShardedBatchedProblem2D(_BatchedPGDBase):
