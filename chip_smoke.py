@@ -279,6 +279,16 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                at 15b's result with vch_tpu's one-control forward (5
                launches of row 1) against phase 8's batched call (1), in
                turns, their seconds and estimates;
+  16 chain   — vch_tpu's forward -> adjoint -> cost -> sparsity chain through
+               public entry points only, float32, at config 3's 64 x 64 grid
+               and config 1's N = 128: ForwardSolver{2,1}D.simulate(control=
+               <CUDA tensor>), its phi_hist straight into
+               AdjointSolver{2,1}D.run with CUDA t_hist and targets,
+               calculate_cost with numpy grids, verify_sparsity_condition on
+               CUDA u and r, and in 1D newton_1d on one member's (N+1,)
+               fields: every stage bit for bit the same chain from numpy
+               inputs; launches per run: rows 8 (a Newton solve) and 9 (M)
+               at 64 x 64, none in 1D (phase 10's per-step path);
   4sp profile — phase 4s's scan path likewise, its baseline march and one
                sweep (a run of no PGD iteration);
   2e-dev     — the operator applies and their torch.matmul forms once more,
@@ -5017,7 +5027,9 @@ def surface_pgd_case(torch, device, c3, iters=2):
     `vch_tpu_torch.control`): the solvers, the baseline march, the targets,
     and a ProximalGradientLoop over forward u -> phi_hist (row 1 at B = 1),
     adjoint phi_hist -> r (vch_tpu's contract: no adjoint_takes_u; the
-    per-step sweep on row 9) and the cost; `iters` iterations in the host
+    public `AdjointSolver2D.run` on the trajectory as the loop holds it on
+    the card, with simulate's t_hist: the per-step sweep on row 9) and the
+    cost; `iters` iterations in the host
     mode, then in the fused mode (whose forward takes no `active`, so every
     trial slot marches), launch counts set to 0 just before each of the
     three and read just after."""
@@ -5057,14 +5069,13 @@ def surface_pgd_case(torch, device, c3, iters=2):
     phi_T, phi_Q = (as_t(a) for a in build_targets_2d(
         x, y, t_hist, phi_hist[0].cpu().numpy(), float(cfg.Lx),
         float(cfg.Ly), float(cfg.T)))
-    xs, ys, ts, dts, phi0_d = (as_t(a) for a in (x, y, t_hist,
-                                                 np.diff(t_hist), phi0))
+    xs, ys, ts, phi0_d = (as_t(a) for a in (x, y, t_hist, phi0))
 
     def forward(u):
         return solver.march_fused_batch(u[None], phi0_d[None])[0][0]
 
     def adjoint(phi):
-        return adj._run_impl(phi, dts, opt.b1, opt.b2, phi_Q, phi_T)[2]
+        return adj.run(phi, t_hist, opt.b1, opt.b2, phi_Q, phi_T)[2]
 
     def cost(phi, u):
         return calculate_cost_2d(phi, u, phi_Q, phi_T, xs, ys, ts, opt.b1,
@@ -5229,6 +5240,201 @@ def surface_phase(device=None, name=None, smi=None, c3=None, prob=None):
               + [r["launches"] for r in p["calls"].values()]):
         for k, v in w.items():
             launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _chain_leaves(torch, out):
+    """The arrays of a chain's results, in order, on the host."""
+    if isinstance(out, dict):
+        return [a for k in sorted(out) for a in _chain_leaves(torch, out[k])]
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in _chain_leaves(torch, o)]
+    if torch.is_tensor(out):
+        return [out.detach().cpu().numpy()]
+    return [np.asarray(out)]
+
+
+def _chain_bits_equal(torch, a, b):
+    la, lb = _chain_leaves(torch, a), _chain_leaves(torch, b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        for x, y in zip(la, lb))
+
+
+def chain_case(torch, device, dim):
+    """Phase 16, one grid: vch_tpu's forward -> adjoint -> cost ->
+    sparsity chain through public entry points only, in float32, at config
+    3's 64 x 64 grid (dim 2) or config 1's N = 128 (dim 1; M = 100 in
+    both). Run twice, launch counts set to 0 just before each run and read
+    just after: from host numpy inputs (`simulate(control=<numpy>)`, `run`
+    on the history read to the host, the numpy targets and t_hist,
+    `verify_sparsity_condition` on numpy u and r) and from the card's
+    tensors (`simulate(control=<CUDA tensor>)`, its phi_hist straight into
+    `run` with a CUDA t_hist and CUDA targets, the targets built from
+    phi_hist[0] on the card, `verify_sparsity_condition` on CUDA u and r).
+    The cost takes numpy grids in both. In 1D, `newton_1d` on one member's
+    (N+1,) fields follows (the first frame, the dense Schur path with the
+    float32 exits), and against its batch of one. Returns the
+    figures and each stage's bit equality between the two runs."""
+    from vch_tpu_torch import ForwardSolverConfig1D
+    from vch_tpu_torch.config import DELTA_SEP, OptimizationConfig
+    from vch_tpu_torch.control import (build_targets_1d, build_targets_2d,
+                                       calculate_cost_1d, calculate_cost_2d)
+    from vch_tpu_torch.control.diagnostics import verify_sparsity_condition
+    from vch_tpu_torch.models import (AdjointSolver1D, AdjointSolver2D,
+                                      ForwardSolver1D, ForwardSolver2D)
+    from vch_tpu_torch.models.forward1d import newton_1d
+    from vch_tpu_torch.ops import march as km
+
+    if dim == 2:
+        cfg, opt = _config(64), OptimizationConfig.defaults_2d()
+        solver = ForwardSolver2D(cfg, device=device)
+        adj = AdjointSolver2D(cfg, device=device)
+        xx, yy = np.meshgrid(solver.x, solver.y, indexing="ij")
+        space = 0.3 * np.sin(2 * np.pi * xx) * np.cos(np.pi * yy)
+    else:
+        cfg = ForwardSolverConfig1D(dtype="float32")
+        opt = OptimizationConfig.defaults_1d()
+        solver = ForwardSolver1D(cfg, device=device)
+        adj = AdjointSolver1D(cfg, device=device)
+        space = 0.3 * np.sin(2 * np.pi * solver.x)
+    ramp = np.linspace(0.0, 1.0, solver.M + 1)
+    u_np = (ramp.reshape((-1,) + (1,) * space.ndim) * space).astype(
+        np.float32)
+    on_card = lambda a: torch.as_tensor(a).to(device)
+
+    def targets(x_grid, t_hist, phi_first):
+        if dim == 2:
+            return build_targets_2d(x_grid[0], x_grid[1], t_hist, phi_first,
+                                    float(cfg.Lx), float(cfg.Ly),
+                                    float(cfg.T))
+        return build_targets_1d(x_grid, t_hist, phi_first, float(cfg.Lx),
+                                float(cfg.T))
+
+    def cost(phi_hist, u, phi_Q, phi_T, x_grid, t_hist):
+        grids = tuple(x_grid) if dim == 2 else (x_grid,)
+        fn = calculate_cost_2d if dim == 2 else calculate_cost_1d
+        return fn(phi_hist, u, phi_Q, phi_T, *grids, t_hist, opt.b1, opt.b2,
+                  opt.b3, opt.kappa_sparsity)
+
+    def chain(form):
+        card = form == "card"
+        u = on_card(u_np) if card else u_np
+        phi_hist, x_grid, t_hist = solver.simulate(control=u)
+        newton = solver.last_stats.newton_solves
+        first = phi_hist[0] if card else phi_hist[0].cpu().numpy()
+        phi_T, phi_Q = targets(x_grid, t_hist, first)
+        t_in = on_card(t_hist) if card else t_hist
+        tgt = (on_card(phi_Q), on_card(phi_T)) if card else (phi_Q, phi_T)
+        hist_in = phi_hist if card else phi_hist.cpu().numpy()
+        p, q, r = adj.run(hist_in, t_in, opt.b1, opt.b2, *tgt)
+        J = cost(phi_hist, on_card(u_np), on_card(phi_Q).float(),
+                 on_card(phi_T).float(), x_grid, t_hist)
+        u_s, r_s = (on_card(u_np), r) if card else (u_np, r.cpu().numpy())
+        sparsity = verify_sparsity_condition(u_s, r_s, opt.kappa_sparsity,
+                                             verbose=False)
+        out = dict(phi_hist=phi_hist, newton_solves=newton, targets=(phi_T,
+                   phi_Q), adjoint=(p, q, r), cost=J, sparsity=sparsity)
+        if dim == 1:
+            w0 = torch.zeros_like(phi_hist[0])
+            mu0 = solver.initialize_mu(phi_hist[0] if card else
+                                       phi_hist[0].cpu().numpy(),
+                                       w0 if card else np.zeros(cfg.N + 1))
+            w1 = on_card(0.05 * u_np[1]) if card else torch.as_tensor(
+                0.05 * u_np[1], device=device)
+            kw = dict(tau=cfg.tau, c1=cfg.c1, c2=cfg.c2, kappa=cfg.kappa,
+                      delta_sep=DELTA_SEP, tol=cfg.newton_tol,
+                      max_iter=cfg.newton_max_iter, rtol=cfg.newton_rtol,
+                      stagnation_exit=True, record_history=True,
+                      return_iters=True)
+            out["newton_1d"] = newton_1d(solver.L, phi_hist[0], mu0, w0, w1,
+                                         cfg.dt_initial, **kw)
+            out["newton_1d_batch"] = newton_1d(
+                solver.L, phi_hist[0][None], mu0[None], w0[None], w1[None],
+                cfg.dt_initial, **kw)
+        return out
+
+    runs, out = {}, {}
+    for form in ("numpy", "card"):
+        torch.cuda.synchronize()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        out[form] = chain(form)
+        torch.cuda.synchronize()
+        runs[form] = dict(s=time.perf_counter() - t0, launches={
+            k: v for k, v in km.launch_counts().items() if v})
+    a, b = out["numpy"], out["card"]
+    equal = {k: _chain_bits_equal(torch, a[k], b[k]) for k in a
+             if k != "newton_1d_batch"}
+    res = dict(dim=dim, n=(cfg.Nx if dim == 2 else cfg.N), M=solver.M,
+               dtype=cfg.dtype, runs=runs, bits_equal=equal,
+               newton_solves=a["newton_solves"], cost=float(a["cost"]),
+               sparsity={k: float(v) for k, v in a["sparsity"].items()},
+               finite=bool(all(np.isfinite(x).all() for k in
+                               ("phi_hist", "adjoint", "cost")
+                               for x in _chain_leaves(torch, b[k]))),
+               devices=sorted({str(x.device) for x in
+                               (b["phi_hist"],) + tuple(b["adjoint"])}))
+    if dim == 1:
+        one, batch = b["newton_1d"], b["newton_1d_batch"]
+        res["newton_1d"] = dict(
+            max_iter=cfg.newton_max_iter, shapes=[list(x.shape) for x in one],
+            solves=int(one[3]),
+            equals_batch_of_one=bool(all(
+                torch.equal(torch.nan_to_num(x), torch.nan_to_num(y[0]))
+                for x, y in zip(one, batch))))
+    return res
+
+
+def check_chain(c):
+    """Phase 16 gates: every stage of the card run bit for bit the numpy
+    run's; finite, on the card; launches (the same in both runs): config
+    3's grid row 8 once a Newton solve and row 9 M times, nothing else;
+    config 1's grid none (the per-step marcher and sweep in PyTorch, as
+    phase 10); newton_1d's one-member form its batch of one, bit for bit,
+    with vch_tpu's shapes."""
+    fails = [f"{k} differs between numpy and card inputs"
+             for k, v in c["bits_equal"].items() if not v]
+    if not c["finite"]:
+        fails.append("not finite")
+    if any(not d.startswith("cuda") for d in c["devices"]):
+        fails.append(f"ran on {c['devices']}")
+    want = ({"bicgstab_schur_spectral": c["newton_solves"],
+             "bicgstab_adjoint_spectral": c["M"]} if c["dim"] == 2 else {})
+    for form, r in c["runs"].items():
+        if r["launches"] != want:
+            fails.append(f"{form}: launches {r['launches']}, expected "
+                         f"{want}")
+    if c["dim"] == 1:
+        nt = c["newton_1d"]
+        n = c["n"] + 1
+        if nt["shapes"] != [[n], [n], [nt["max_iter"] + 1], []] \
+                or not nt["equals_batch_of_one"] or nt["solves"] < 1:
+            fails.append(f"newton_1d one member: {nt}")
+    if fails:
+        raise RuntimeError("phase 16: " + "; ".join(fails) + f" | {c}")
+
+
+def chain_phase(device=None, name=None, smi=None):
+    """Phase 16: vch_tpu's chain through public entry points on the card's
+    own tensors (chain_case) at config 3's grid, then at config 1's; each
+    logged, then gated. Alone on the card (the build included): `python -c
+    "import chip_smoke; chip_smoke.chain_phase()"`. Returns the kernels'
+    launches of the card-input runs by entry."""
+    import torch
+    if device is None:
+        device, name, smi = (torch.device("cuda", 0),
+                             torch.cuda.get_device_name(0), _smi())
+    t0 = time.perf_counter()
+    launches = {}
+    for dim in (2, 1):
+        c = chain_case(torch, device, dim)
+        _log(16, json.dumps(c) + f" | {name} | {smi}")
+        check_chain(c)
+        for k, v in c["runs"]["card"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    _log(16, f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5703,6 +5909,7 @@ def main():
     fused14 = fused_phase(device, name, smi, prob=prob3, c3=c3)
     surface15 = surface_phase(device, name, smi, c3=c3, prob=prob3)
     del prob3
+    chain_phase(device, name, smi)
     # the scan path at config 4's width likewise: its baseline march and
     # one sweep under the profiler
     _log("4sp", json.dumps(device_share(

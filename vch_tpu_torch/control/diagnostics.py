@@ -15,13 +15,15 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from vch_tpu_torch.device import as_tensor, resolve_device, to_numpy
+
 
 def verify_sparsity_condition(u_optimal: np.ndarray, r_optimal: np.ndarray,
                               kappa: float, tol: float = 1e-6,
                               verbose: bool = True) -> dict:
     """Check u*(x,t)=0 <=> |r*(x,t)| <= kappa; returns overlap statistics."""
-    u = np.asarray(u_optimal)
-    r = np.asarray(r_optimal)
+    u = to_numpy(u_optimal)
+    r = to_numpy(r_optimal)
     is_u_zero = np.abs(u) < tol
     is_r_small = np.abs(r) <= kappa
     match = is_u_zero == is_r_small
@@ -59,6 +61,7 @@ def generate_critical_cone_direction(u_star, r_star, u_min, u_max, kappa, b3,
     kink, second_order_conditions.py:33-55); False the 2D one (bound
     activity only, second_order_conditions_2d.py:35-88).
     """
+    u_star, r_star = to_numpy(u_star), to_numpy(r_star)
     v = rng.standard_normal(size=u_star.shape)
     s_star = r_star + b3 * u_star
     lower = u_star <= (u_min + tol)
@@ -95,18 +98,19 @@ def approximate_second_order_condition(
     a direction; or forward_batch: u (D, ...) -> phi_hist (D, ...), all
     directions in one call. Exactly one of the two. cost: (phi_hist, u) ->
     J, over any leading axes when forward_batch is given. u_star, r_star,
-    phi_star are host arrays; the perturbed controls go to `device` in
+    phi_star are numpy arrays or tensors on any device; the directions are
+    drawn on the host (u_star, r_star copied there), and phi_star and the
+    perturbed controls go to `device` in
     `dtype` (the problem's; device None is the CUDA card, as every entry
     point resolves it). Positive values evidence coercivity (4.54).
     """
     if (forward is None) == (forward_batch is None):
         raise ValueError("give exactly one of forward and forward_batch")
-    from vch_tpu_torch.device import resolve_device
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
-    u_star = np.asarray(u_star)
-    r_star = np.asarray(r_star)
-    as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    u_star = to_numpy(u_star)
+    r_star = to_numpy(r_star)
+    as_t = lambda a: as_tensor(a, dtype, device)
     cost_star = float(cost(as_t(phi_star), as_t(u_star)))
     grad_star = r_star + b3 * u_star
     hs = np.stack([

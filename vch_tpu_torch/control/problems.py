@@ -26,7 +26,7 @@ from vch_tpu_torch.control.diagnostics import (
     approximate_second_order_condition, verify_sparsity_condition)
 from vch_tpu_torch.control.pgd import PGDResult, ProximalGradientLoop
 from vch_tpu_torch.control.targets import build_targets_1d, build_targets_2d
-from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.device import as_tensor, resolve_device, to_numpy
 from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.adjoint_exact1d import ExactAdjoint1D
@@ -90,10 +90,9 @@ class ControlProblem2D(_NewtonCounter):
         self.solver = ForwardSolver2D(self.fwd_config, device=device)
         self.adjoint = AdjointSolver2D(self.fwd_config, device=device)
         self.dtype = dtype = self.solver.dtype
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                         device=device)
+        as_t = lambda a: as_tensor(a, dtype, device)
         self.phi0 = (self.solver.default_initial_phi() if initial_phi is None
-                     else np.asarray(initial_phi, np.float64))
+                     else to_numpy(initial_phi).astype(np.float64))
         self._phi0_dev = as_t(self.phi0)
 
         phi_hist, (x, y), t_hist = self.solver.simulate(initial_phi=self.phi0)
@@ -252,10 +251,9 @@ class ControlProblem1D(_NewtonCounter):
         self.solver = ForwardSolver1D(cfg, device=device)
         self.adjoint = AdjointSolver1D(cfg, device=device)
         self.dtype = dtype = self.solver.dtype
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                         device=device)
+        as_t = lambda a: as_tensor(a, dtype, device)
         self.phi0 = (self.solver.default_initial_phi() if initial_phi is None
-                     else np.asarray(initial_phi, np.float64))
+                     else to_numpy(initial_phi).astype(np.float64))
         self._phi0_dev = as_t(self.phi0)
 
         # the uncontrolled baseline in reference layout

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import ForwardSolverConfig1D
-from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.device import as_tensor, resolve_device, to_numpy
 from vch_tpu_torch.ops.linsolve import (bicgstab_split, bicgstab_split_fixed,
                                         make_spectral_op_1d, member_dot_1d)
 from vch_tpu_torch.ops.potential import fpp_log
@@ -168,10 +168,9 @@ class AdjointSolver1D(nn.Module):
         in core layout (M+1 rows) or reference layout (duplicated t = 0
         row); the output has the input's layout. phi_Q and phi_T_target
         default to zero (vch_tpu/models/adjoint1d.py:145)."""
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.L.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.L.device)
         phi_hist = as_t(phi_hist)
-        dts = as_t(np.diff(np.asarray(t_hist, dtype=np.float64)))
+        dts = as_t(np.diff(to_numpy(t_hist).astype(np.float64)))
         phi_Q = (torch.zeros_like(phi_hist) if phi_Q is None
                  else as_t(phi_Q))
         phi_T_target = (torch.zeros_like(phi_hist[-1]) if phi_T_target is None

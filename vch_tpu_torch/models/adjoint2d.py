@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import ForwardSolverConfig2D
-from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.device import as_tensor, resolve_device, to_numpy
 from vch_tpu_torch.models.forward2d import fused_kernels_fit, torch_dtype
 from vch_tpu_torch.models.timegrid import build_dt_schedule
 from vch_tpu_torch.ops import march as km
@@ -213,10 +213,9 @@ class AdjointSolver2D(AdjointSweep2D, nn.Module):
         time stamps t_hist, with tracking target phi_Q (default 0) and
         terminal target phi_T_target (default 0)
         (vch_tpu/models/adjoint2d.py:205)."""
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.dts.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.dts.device)
         phi_hist = as_t(phi_hist)
-        dts = as_t(np.diff(np.asarray(t_hist, dtype=np.float64)))
+        dts = as_t(np.diff(to_numpy(t_hist).astype(np.float64)))
         phi_Q = (torch.zeros_like(phi_hist) if phi_Q is None
                  else as_t(phi_Q))
         phi_T_target = (torch.zeros_like(phi_hist[-1]) if phi_T_target is None

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig1D
+from vch_tpu_torch.device import as_tensor
 from vch_tpu_torch.models.forward1d import ForwardSolver1D
 from vch_tpu_torch.ops.grids import trapz_weights
 
@@ -160,10 +161,9 @@ class ExactAdjoint1D(nn.Module):
 
         Returns (grad_density (M+1, N+1) tensor, J_smooth float)."""
         s = self.solver
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.device)
-        phi0 = (s.default_initial_phi() if initial_phi is None
-                else np.asarray(initial_phi, np.float64))
+        as_t = lambda a: as_tensor(a, self.dtype, self.device)
+        phi0 = as_t(s.default_initial_phi() if initial_phi is None
+                    else initial_phi)
         u = as_t(u)
         shape = (s.M + 1, self.config.N + 1)
         if tuple(u.shape) != shape:
@@ -173,6 +173,6 @@ class ExactAdjoint1D(nn.Module):
                  if phi_Q is None else as_t(phi_Q))
         phi_T = (torch.zeros(shape[1], dtype=self.dtype, device=self.device)
                  if phi_T is None else as_t(phi_T))
-        g, J = self._grad(u, as_t(phi0), float(b1), float(b2), float(b3),
+        g, J = self._grad(u, phi0, float(b1), float(b2), float(b3),
                           phi_Q, phi_T)
         return g, float(J)

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
+from vch_tpu_torch.device import as_tensor
 from vch_tpu_torch.models.adjoint_exact1d import time_weights
 from vch_tpu_torch.models.forward2d import ForwardSolver2D
 from vch_tpu_torch.ops.grids import trapz_weights
@@ -171,11 +172,10 @@ class ExactAdjoint2D(nn.Module):
 
         Returns (grad_density (M+1, Nx+1, Ny+1) tensor, J_smooth float)."""
         s, cfg = self.solver, self.config
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.device)
         shape = (cfg.Nx + 1, cfg.Ny + 1)
-        phi0 = (s.default_initial_phi() if initial_phi is None
-                else np.asarray(initial_phi, np.float64))
+        phi0 = as_t(s.default_initial_phi() if initial_phi is None
+                    else initial_phi)
         u = as_t(u)
         if tuple(u.shape) != (s.M + 1,) + shape:
             raise ValueError(f"u must be (M+1, Nx+1, Ny+1) = "
@@ -185,6 +185,6 @@ class ExactAdjoint2D(nn.Module):
                  if phi_Q is None else as_t(phi_Q))
         phi_T = (torch.zeros(shape, dtype=self.dtype, device=self.device)
                  if phi_T is None else as_t(phi_T))
-        g, J = self._grad(u, as_t(phi0), float(b1), float(b2), float(b3),
+        g, J = self._grad(u, phi0, float(b1), float(b2), float(b3),
                           phi_Q, phi_T)
         return g, float(J)

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig1D
-from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.device import as_tensor, resolve_device
 from vch_tpu_torch.models.timegrid import build_dt_schedule, t_history
 from vch_tpu_torch.ops import march as km
 from vch_tpu_torch.ops.grids import grid_1d
@@ -117,8 +117,16 @@ def newton_1d(L, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
     on. `active` (B,) bool: the members that start; the others take no
     round and keep phi_old, mu_old. Returns (phi, mu), then with record_history the residual norms
     (B, max_iter + 1), NaN where a member ran no round, then with
-    return_iters the Newton solves per member (B,) int64."""
+    return_iters the Newton solves per member (B,) int64. Fields of one
+    member (N+1,), vch_tpu's call form, are solved as a batch of one and
+    returned without the batch axis: the norms (max_iter + 1,), the solves
+    a 0-d count."""
     eta = 1e-3
+    one = phi_old.dim() == 1
+    if one:
+        phi_old, mu_old, w_old, w_new = (
+            a[None] if torch.is_tensor(a) and a.dim() == 1 else a
+            for a in (phi_old, mu_old, w_old, w_new))
     msum = lambda a: torch.sum(a, dim=-1, keepdim=True)
 
     def resid(phi, mu):
@@ -194,7 +202,7 @@ def newton_1d(L, phi_old, mu_old, w_old, w_new, dt, tau, c1, c2, kappa,
         out = out + (hist,)
     if return_iters:
         out = out + (nsolve[:, 0],)
-    return out
+    return tuple(a[0] for a in out) if one else out
 
 
 class ForwardSolver1D(nn.Module):
@@ -250,8 +258,11 @@ class ForwardSolver1D(nn.Module):
         return init_phi_random_1d(self.config.N, DELTA_SEP, amp=0.01, seed=42)
 
     def initialize_mu(self, phi, w):
-        """mu = -kappa L phi + f'(phi) - w over fields [..., N+1]."""
+        """mu = -kappa L phi + f'(phi) - w over fields [..., N+1], numpy or
+        tensors, on this solver's device and dtype."""
         cfg = self.config
+        phi = as_tensor(phi, self.dtype, self.L.device)
+        w = as_tensor(w, self.dtype, self.L.device)
         return (-cfg.kappa * torch.matmul(phi, self.L.T)
                 + f_prime(phi, cfg.c1, cfg.c2, DELTA_SEP) - w)
 
@@ -356,10 +367,9 @@ class ForwardSolver1D(nn.Module):
         on a non-finite mass defect (vch_tpu/models/forward1d.py:324)."""
         n = self.config.N + 1
         dev = self.dts.device
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=dev)
-        phi0 = (self.default_initial_phi() if initial_phi is None
-                else np.asarray(initial_phi, dtype=np.float64))
+        as_t = lambda a: as_tensor(a, self.dtype, dev)
+        phi0 = as_t(self.default_initial_phi() if initial_phi is None
+                    else initial_phi)
         if control is None:
             u = torch.zeros((self.M + 1, n), dtype=self.dtype, device=dev)
         else:
@@ -369,7 +379,7 @@ class ForwardSolver1D(nn.Module):
             if tuple(u.shape) != (self.M + 1, n):
                 raise ValueError(f"control must be (M+1, N+1) = "
                                  f"({self.M + 1}, {n}); got {tuple(u.shape)}")
-        phi_hist, stats = self._march_impl(u, as_t(phi0))
+        phi_hist, stats = self._march_impl(u, phi0)
         self.last_stats = stats
         if stats.first_bad_step >= 0:
             raise RuntimeError(
@@ -385,8 +395,7 @@ class ForwardSolver1D(nn.Module):
     def energy_history(self, phi_hist, w_hist=None, eps=None):
         """Free energy of every frame (vch_tpu/models/forward1d.py:363)."""
         cfg = self.config
-        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
-                                         device=self.dts.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.dts.device)
         return free_energy_1d(as_t(phi_hist), cfg.kappa, cfg.c1, cfg.c2,
                               self.h,
                               w=None if w_hist is None else as_t(w_hist),
@@ -396,10 +405,9 @@ class ForwardSolver1D(nn.Module):
         """One Newton solve of a step from the given state; returns (phi,
         mu, [residual norm per iteration])
         (vch_tpu/models/forward1d.py:373)."""
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.dts.device)[None]
+        as_t = lambda a: as_tensor(a, self.dtype, self.dts.device)
         phi, mu, hist = newton_1d(self.L, as_t(phi_old), as_t(mu_old),
                                   as_t(w_old), as_t(w_new), dt,
                                   record_history=True, **self._newton_kw())
-        hist = hist[0].cpu().numpy()
-        return phi[0], mu[0], list(hist[~np.isnan(hist)])
+        hist = hist.cpu().numpy()
+        return phi, mu, list(hist[~np.isnan(hist)])

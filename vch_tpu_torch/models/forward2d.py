@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
-from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.device import as_tensor, resolve_device
 from vch_tpu_torch.models.forward1d import MarchStats, solve_w
 from vch_tpu_torch.models.timegrid import build_dt_schedule, t_history
 from vch_tpu_torch.ops import march as km
@@ -224,13 +224,16 @@ class ForwardStep2D:
     """The per-step 2D march, shared by ForwardSolver2D and the grid-sharded
     forward (parallel/spatial.py). It reads `config`, `grid` (the grid
     operations: ops.linsolve.LocalGrid, or the sharded solver itself),
-    `wts` (the trapezoid weights of the grid it holds), `M`, `dts` and
-    `_newton_kw(kernels)`."""
+    `wts` (the trapezoid weights of the grid it holds), `M`, `dts` (on its
+    device), `dtype` and `_newton_kw(kernels)`."""
 
-    def initialize_mu(self, phi: torch.Tensor, w: torch.Tensor):
-        """mu = -kappa L phi + f'(phi) - w, batched over leading axes
+    def initialize_mu(self, phi, w):
+        """mu = -kappa L phi + f'(phi) - w, batched over leading axes; phi
+        and w numpy or tensors, on this solver's device and dtype
         (vch_tpu/models/forward2d.py:220)."""
         cfg = self.config
+        phi = as_tensor(phi, self.dtype, self.dts.device)
+        w = as_tensor(w, self.dtype, self.dts.device)
         lap = self.grid.lap(phi)
         return (-cfg.kappa * lap + f_prime(phi, cfg.c1, cfg.c2, DELTA_SEP)
                 - w)
@@ -390,10 +393,9 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
         non-finite mass defect (vch_tpu/models/forward2d.py:288)."""
         cfg = self.config
         shape = (self.M + 1, cfg.Nx + 1, cfg.Ny + 1)
-        phi0 = (self.default_initial_phi() if initial_phi is None
-                else np.asarray(initial_phi, np.float64))
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.dts.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.dts.device)
+        phi0 = as_t(self.default_initial_phi() if initial_phi is None
+                    else initial_phi)
         if control is None:
             u = torch.zeros(shape, dtype=self.dtype, device=self.dts.device)
         else:
@@ -401,7 +403,7 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
             if tuple(u.shape) != shape:
                 raise ValueError(f"control must be (M+1, Nx+1, Ny+1) = "
                                  f"{shape}; got {tuple(u.shape)}")
-        phi_hist, stats = self._march_impl(u, as_t(phi0))
+        phi_hist, stats = self._march_impl(u, phi0)
         self.last_stats = stats
         if stats.first_bad_step >= 0:
             raise RuntimeError(
@@ -413,8 +415,7 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
     def energy_history(self, phi_hist, w_hist=None, eps=None):
         """Free energy of every frame (vch_tpu/models/forward2d.py:369)."""
         cfg = self.config
-        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
-                                         device=self.dts.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.dts.device)
         return free_energy_2d(as_t(phi_hist), cfg.kappa, cfg.c1, cfg.c2,
                               self.hx, self.hy,
                               w=None if w_hist is None else as_t(w_hist),
@@ -424,8 +425,7 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
         """One Newton solve of a step from the given state; returns (phi,
         mu, [residual norm per iteration])
         (vch_tpu/models/forward2d.py:381)."""
-        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                         device=self.dts.device)
+        as_t = lambda a: as_tensor(a, self.dtype, self.dts.device)
         phi_old, w_new = as_t(phi_old)[None], as_t(w_new)[None]
         mu_init = self.initialize_mu(phi_old, w_new)
         phi, mu, hist = newton_2d(

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from vch_tpu_torch.config import ForwardSolverConfig1D, ForwardSolverConfig2D
+from vch_tpu_torch.device import as_tensor
 from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.forward1d import ForwardSolver1D
@@ -254,10 +255,9 @@ def _one_member_r(pipe, u, initial_phi, b1, b2, phi_Q, phi_T_target):
     (vch_tpu/models/lowmem.py:481-498, :654-669)."""
     s = pipe.solver
     dev = s.dts.device
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=pipe.dtype,
-                                     device=dev)
+    as_t = lambda a: as_tensor(a, pipe.dtype, dev)
     phi0 = as_t(s.default_initial_phi() if initial_phi is None
-                else np.asarray(initial_phi, np.float64))
+                else initial_phi)
     u = as_t(u)
     if tuple(u.shape) != (s.M + 1,) + tuple(phi0.shape):
         raise ValueError(f"u must be (M+1, *space) = "

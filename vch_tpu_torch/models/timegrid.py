@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from vch_tpu_torch.device import to_numpy
+
 
 def build_dt_schedule(T: float, dt: float, time_tol: float = 1e-10) -> np.ndarray:
     """Per-step dt values the reference while-loop takes."""
@@ -21,5 +23,5 @@ def build_dt_schedule(T: float, dt: float, time_tol: float = 1e-10) -> np.ndarra
 
 def t_history(dts: np.ndarray, T: float) -> np.ndarray:
     """Time stamps [0, t1, ..., ~T] with the reference's min(t, T) clamp."""
-    t = np.concatenate([[0.0], np.cumsum(dts)])
+    t = np.concatenate([[0.0], np.cumsum(to_numpy(dts))])
     return np.minimum(t, T)

@@ -5,18 +5,21 @@ a = 2(c1 - c2) (ref: Forward_solver.py:48-55, Forward2_solver.py:53-83):
 
     lambda(k) = (-kappa q^2 - a q) / (1 + tau q),   q = k^2, k = pi n / Lx.
 
-A positive lambda marks an unstable (spinodal) mode. Host numpy only.
+A positive lambda marks an unstable (spinodal) mode. Host numpy only: a
+tensor k, on any device, is read to the host.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from vch_tpu_torch.device import to_numpy
 
 
 def dispersion_relation(c1: float, c2: float, kappa: float, tau: float,
                         k: np.ndarray) -> np.ndarray:
     """Growth rate lambda(k) for wavenumbers k."""
     a = 2.0 * (c1 - c2)
-    q = np.asarray(k) ** 2
+    q = to_numpy(k) ** 2
     return (-kappa * q ** 2 - a * q) / (1.0 + tau * q)
 
 

@@ -63,7 +63,7 @@ from vch_tpu_torch.config import (ForwardSolverConfig1D,
 from vch_tpu_torch.control.cost import calculate_cost_1d, calculate_cost_2d
 from vch_tpu_torch.control.prox import calculate_gradient, proximal_step
 from vch_tpu_torch.control.targets import build_targets_1d, build_targets_2d
-from vch_tpu_torch.device import resolve_device
+from vch_tpu_torch.device import resolve_device, to_numpy
 from vch_tpu_torch.models.adjoint1d import AdjointSolver1D
 from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
 from vch_tpu_torch.models.forward1d import ForwardSolver1D
@@ -1283,7 +1283,7 @@ def tile_batch(sc: ScenarioBatch, B: int) -> ScenarioBatch:
     """Repeat a sweep's members to exactly B (bench.py:112-118)."""
     reps = -(-B // sc.batch)
     tile = lambda a: (None if a is None else
-                      np.concatenate([np.asarray(a)] * reps, axis=0)[:B])
+                      np.concatenate([to_numpy(a)] * reps, axis=0)[:B])
     return dataclasses.replace(
         sc, phi0=tile(sc.phi0), phi_T=tile(sc.phi_T), phi_Q=tile(sc.phi_Q),
         b1=tile(sc.b1), b2=tile(sc.b2), b3=tile(sc.b3),

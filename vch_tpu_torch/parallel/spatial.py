@@ -50,6 +50,7 @@ from vch_tpu_torch.control.diagnostics import (
     approximate_second_order_condition, verify_sparsity_condition)
 from vch_tpu_torch.control.pgd import ProximalGradientLoop
 from vch_tpu_torch.control.targets import build_targets_2d
+from vch_tpu_torch.device import as_tensor, to_numpy
 from vch_tpu_torch.models.adjoint2d import AdjointSweep2D
 from vch_tpu_torch.models.forward1d import MarchStats
 from vch_tpu_torch.models.forward2d import ForwardStep2D, torch_dtype
@@ -245,8 +246,7 @@ class _GridSharded:
     def local(self, a, dim: int = -2):
         """This rank's row block of a whole field `a` (numpy or tensor)
         along `dim`, as a tensor of the solver's dtype on its device."""
-        t = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
-                            dtype=self.dtype, device=self.device)
+        t = as_tensor(a, self.dtype, self.device)
         idx = [slice(None)] * t.dim()
         idx[dim] = self.rows
         return t[tuple(idx)].contiguous()
@@ -376,8 +376,7 @@ class GridShardedAdjoint2D(AdjointSweep2D, _GridSharded):
         (M+1, rows, m), phi_T_target (rows, m), or with batch_axis each with
         a leading axis of this rank's members and b1, b2 (B,). dts: the
         step sizes (M,), host values. Returns (p, q, r) row blocks."""
-        dts = np.asarray(dts.cpu() if torch.is_tensor(dts) else dts,
-                         np.float64)
+        dts = to_numpy(dts).astype(np.float64)
         t = lambda a: torch.as_tensor(a, dtype=self.dtype,
                                       device=self.device)
         if self.batch_axis is not None:
@@ -398,7 +397,7 @@ class GridShardedAdjoint2D(AdjointSweep2D, _GridSharded):
                              "sweeps go through run_impl() with (B,)-shaped "
                              "b1/b2 (GridShardedBatchedProblem2D)")
         phi = self.local(phi_hist)
-        dts = np.diff(np.asarray(t_hist, np.float64))
+        dts = np.diff(to_numpy(t_hist).astype(np.float64))
         phi_Q = (torch.zeros_like(phi) if phi_Q is None
                  else self.local(phi_Q))
         phi_T = (torch.zeros_like(phi[0]) if phi_T_target is None
@@ -445,7 +444,7 @@ class GridShardedProblem2D:
         self.phi0 = (init_phi_random_2d(cfg.Nx, cfg.Ny, DELTA_SEP, amp=0.1,
                                         seed=42)
                      if initial_phi is None
-                     else np.asarray(initial_phi, np.float64))
+                     else to_numpy(initial_phi).astype(np.float64))
         self._phi0_l = fwd.local(self.phi0)
         x = np.linspace(0.0, cfg.Lx, cfg.Nx + 1)
         y = np.linspace(0.0, cfg.Ly, cfg.Ny + 1)

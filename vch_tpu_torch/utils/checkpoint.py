@@ -13,12 +13,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-
-def host_numpy(v) -> np.ndarray:
-    """A tensor (on any device) or array-like as a host numpy array."""
-    if hasattr(v, "detach"):           # a torch.Tensor
-        return v.detach().cpu().numpy()
-    return np.asarray(v)
+from vch_tpu_torch.device import to_numpy as host_numpy
 
 
 def save_checkpoint(path: str, state: Dict[str, Any],
