@@ -243,7 +243,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                and GridShardedAdjoint2D at 256 x 256, T = 0.25, float32,
                against their float64 twin and the unsharded solvers on the
                card (each no farther from float64 than twice the unsharded
-               one), no launch, collectives per Newton solve; (c)
+               one), no launch, collectives per Newton solve; then their
+               inner APIs, march and run_impl, at 32 x 32, T = 0.05 on host
+               numpy row blocks and on CUDA tensors, bit for bit; (c)
                GridShardedProblem2D at 128 x 128, T = 1, 2 iterations,
                against ControlProblem2D's plain path (trials equal, costs
                2e-4); (d) GridShardedBatchedProblem2D on the (1, 1) mesh,
@@ -288,9 +290,14 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                CUDA u and r, and in 1D newton_1d on one member's (N+1,)
                fields: every stage bit for bit the same chain from numpy
                inputs; launches per run: rows 8 (a Newton solve) and 9 (M)
-               at 64 x 64, none in 1D (phase 10's per-step path);
-  4sp profile — phase 4s's scan path likewise, its baseline march and one
-               sweep (a run of no PGD iteration);
+               at 64 x 64, none in 1D (phase 10's per-step path); 16c:
+               sweep_2d at 64 x 64 with b3 and kappa values as CUDA
+               tensors (B = 4) bit for bit the list-valued sweep, then 2
+               PGD iterations of BatchedProblem2D.run on each and on the
+               batch as CUDA tensors, bit for bit (costs, trials, alphas,
+               Newton solves, u) with the same launches;
+               trial_memory_analysis on both batches, prewarm on the
+               tensor batch;
   2e-dev     — the operator applies and their torch.matmul forms once more,
                one field at n = 65, 129, 257, and the cluster solves (rows
                8-11) and their one-CTA oracles at phase 2c's shapes (the
@@ -378,32 +385,6 @@ def _ptxas_named(log, kernel):
                 "registers")[0].strip() + f"r/{spill}s")
             name = None
     return " ".join(out)
-
-
-def device_share(torch, fn):
-    """One call of fn under torch.profiler: host wall seconds, the summed
-    device time of its kernels and copies, their ratio (the device's busy
-    share; the rest is idle while the host prepares the next launch), and the
-    five kernels with the most device time. A profiler that records no
-    device time gives None where a number would be."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    rows = [(e.key, dev_us(e) / 1e6) for e in prof.key_averages()
-            if dev_us(e) > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(t for _, t in rows)
-    if not rows:
-        return dict(wall_s=wall, device_s=None, busy_share=None, top=[])
-    return dict(wall_s=wall, device_s=busy, busy_share=busy / wall,
-                top=[(k[:60], t) for k, t in rows[:5]])
 
 
 def _host_ms(torch, fn):
@@ -4329,7 +4310,8 @@ def mesh_grid_solvers(torch, device):
     unsharded ForwardSolver2D / AdjointSolver2D on the card; the adjoint of
     all three on the float64 trajectory. Launches over the grid-sharded
     runs (none: plain PyTorch and collectives); collectives per Newton
-    solve (forward) and per step (adjoint)."""
+    solve (forward) and per step (adjoint). Then the inner APIs' call
+    forms on the same mesh (grid_call_forms)."""
     from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
     from vch_tpu_torch.models.forward2d import ForwardSolver2D
     from vch_tpu_torch.ops import march as km
@@ -4378,11 +4360,64 @@ def mesh_grid_solvers(torch, device):
                                       for k, v in fwd_counts.items()},
         collectives_per_adjoint_step={k: v / M
                                       for k, v in a32.comm.counts.items()},
-        launches_sharded=sharded_launches)
+        launches_sharded=sharded_launches,
+        call_forms=grid_call_forms(torch, mesh))
+
+
+def grid_call_forms(torch, mesh, n=31, T=0.05):
+    """13b's call forms: GridShardedForward2D.march and
+    GridShardedAdjoint2D.run_impl at 32 x 32 (Nx = Ny = 31), T = 0.05,
+    float32, on `mesh`'s "gx" dimension (world size 1: a row block is the
+    whole field), once on host numpy row blocks (the march's history read
+    to the host for the sweep, dts as numpy) and once on CUDA tensors (the
+    march's own history, dts a CUDA tensor). Returns the seconds, the
+    devices of the outputs and each output's bit equality."""
+    from vch_tpu_torch.config import DELTA_SEP
+    from vch_tpu_torch.ops.potential import init_phi_random_2d
+    from vch_tpu_torch.parallel.spatial import (GridShardedAdjoint2D,
+                                                GridShardedForward2D)
+    cfg = _config(n, T=T)
+    fwd = GridShardedForward2D(cfg, mesh=mesh)
+    adj = GridShardedAdjoint2D(cfg, mesh=mesh)
+    rng = np.random.default_rng(13)
+    shape = (fwd.M + 1, n + 1, n + 1)
+    f32 = lambda a: np.asarray(a, np.float32)
+    host = dict(u=f32(0.05 * rng.standard_normal(shape)),
+                phi0=f32(init_phi_random_2d(n, n, DELTA_SEP, amp=0.1,
+                                            seed=42)),
+                phi_Q=f32(0.3 * rng.standard_normal(shape)),
+                phi_T=f32(0.3 * rng.standard_normal(shape[1:])),
+                dts=np.asarray(fwd.dts_np, np.float64))
+    out, secs = {}, {}
+    for form in ("numpy", "card"):
+        a = ({k: torch.as_tensor(v).to(fwd.device) for k, v in host.items()}
+             if form == "card" else host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phi, ns, bad = fwd.march(a["u"], a["phi0"])
+        hist = phi if form == "card" else phi.cpu().numpy()
+        p, q, r = adj.run_impl(hist, a["dts"], 5.0, 10.0, a["phi_Q"],
+                               a["phi_T"])
+        torch.cuda.synchronize()
+        secs[form] = time.perf_counter() - t0
+        out[form] = dict(march=(phi, ns, bad), adjoint=(p, q, r))
+    numpy_out = out["numpy"]["march"] + out["numpy"]["adjoint"]
+    return dict(n=n + 1, M=fwd.M, T=T, s=secs,
+                newton_solves=int(out["card"]["march"][1]),
+                devices=sorted({str(t.device) for t in numpy_out}),
+                bits_equal={k: _chain_bits_equal(torch, out["numpy"][k],
+                                                 out["card"][k])
+                            for k in ("march", "adjoint")})
 
 
 def check_mesh_grid_solvers(c):
     fails = []
+    forms = c["call_forms"]
+    fails += [f"call forms: {k} differs between numpy and CUDA inputs"
+              for k, v in forms["bits_equal"].items() if not v]
+    if any(not d.startswith("cuda") for d in forms["devices"]) or \
+            forms["newton_solves"] <= 0:
+        fails.append(f"call forms: {forms}")
     if c["launches_sharded"]:
         fails.append(f"the grid-sharded runs launched {c['launches_sharded']}")
     if not c["max_abs_dphi_vs_f64"] <= (
@@ -5416,12 +5451,102 @@ def check_chain(c):
         raise RuntimeError("phase 16: " + "; ".join(fails) + f" | {c}")
 
 
+SWEEP_FIELDS = ("phi0", "phi_T", "phi_Q", "b1", "b2", "b3", "kappa_spar")
+
+
+def sweep_case(torch, device, iters=2):
+    """Phase 16c: sweep_2d at config 3's 64 x 64 grid with b3_values and
+    kappa_values as CUDA tensors of 2 values each (B = 4) against the same
+    sweep from lists, then `iters` PGD iterations of
+    BatchedProblem2D(...).run on each, and on the same batch with every
+    array a CUDA tensor; launch counts set to 0 just before each run and
+    read just after. Then trial_memory_analysis on the list batch and on
+    the tensor batch, and prewarm on the tensor batch (straggler_batch=2,
+    so that it has a bucket to run). Returns the figures and the bit
+    equalities with the list-valued run."""
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.parallel.batch import BatchedProblem2D, sweep_2d
+    cfg = _config(64)
+    values = dict(b3_values=[1e-4, 2e-4], kappa_values=[5e-5, 1e-4])
+    on_card = lambda v: torch.tensor(v, dtype=torch.float64, device=device)
+    batches = {"list": sweep_2d(cfg, **values),
+               "card_values": sweep_2d(cfg, **{k: on_card(v) for k, v in
+                                               values.items()})}
+    batches["card_batch"] = dataclasses.replace(batches["card_values"], **{
+        f: torch.as_tensor(getattr(batches["card_values"], f)).to(device)
+        for f in SWEEP_FIELDS})
+    fields = lambda sc: [getattr(sc, f) for f in SWEEP_FIELDS] + [
+        sc.u_min, sc.u_max]
+    prob = BatchedProblem2D(cfg, device=device)
+    runs, out = {}, {}
+    for form, sc in batches.items():
+        torch.cuda.synchronize()
+        km.reset_launches()
+        t0 = time.perf_counter()
+        o = prob.run(sc, max_iter=iters, verbose=False)
+        torch.cuda.synchronize()
+        runs[form] = dict(s=time.perf_counter() - t0, launches={
+            k: v for k, v in km.launch_counts().items() if v})
+        out[form] = {k: o[k] for k in ("cost_history", "ls_trials", "alpha",
+                                       "newton_solves", "u")}
+    memory = {form: prob.trial_memory_analysis(batches[form])
+              for form in ("list", "card_batch")}
+    warm = BatchedProblem2D(cfg, device=device, straggler_batch=2)
+    km.reset_launches()
+    t0 = time.perf_counter()
+    warm.prewarm(batches["card_batch"])
+    torch.cuda.synchronize()
+    prewarm = dict(s=time.perf_counter() - t0, launches={
+        k: v for k, v in km.launch_counts().items() if v})
+    base = out["list"]
+    return dict(
+        n=cfg.Nx, M=prob.solver.M, B=batches["list"].batch, iters=iters,
+        sweep_bits_equal=_chain_bits_equal(
+            torch, fields(batches["list"]), fields(batches["card_values"])),
+        run_bits_equal={form: {k: _chain_bits_equal(torch, base[k], o[k])
+                               for k in base}
+                        for form, o in out.items() if form != "list"},
+        runs=runs, newton_solves=int(base["newton_solves"]),
+        trials=np.asarray(base["ls_trials"]).tolist(),
+        cost=np.asarray(base["cost_history"])[-1].tolist(),
+        finite=bool(np.isfinite(base["cost_history"]).all()),
+        trial_memory=memory, prewarm=prewarm)
+
+
+def check_sweep_case(c):
+    """Phase 16c gates: the sweep from CUDA values the list sweep's bit for
+    bit; each run from them and from the CUDA batch the list run's bit for
+    bit (costs, trials, alphas, Newton solves, u), finite, with the same
+    kernels launched (some); the trial's argument and output bytes equal
+    on both batches; prewarm launched a kernel."""
+    fails = [] if c["sweep_bits_equal"] else ["sweep from CUDA values"]
+    fails += [f"{form}: {k} differs from the list run"
+              for form, eq in c["run_bits_equal"].items()
+              for k, v in eq.items() if not v]
+    if not c["finite"]:
+        fails.append("not finite")
+    launches = [r["launches"] for r in c["runs"].values()]
+    if not launches[0] or any(lc != launches[0] for lc in launches):
+        fails.append(f"launches {launches}")
+    mem = c["trial_memory"]
+    keys = ("argument_size_in_bytes", "output_size_in_bytes")
+    if any(m is None for m in mem.values()) or len(
+            {tuple(m[k] for k in keys) for m in mem.values()}) != 1:
+        fails.append(f"trial_memory_analysis {mem}")
+    if not c["prewarm"]["launches"]:
+        fails.append("prewarm launched nothing")
+    if fails:
+        raise RuntimeError("phase 16c: " + "; ".join(fails) + f" | {c}")
+
+
 def chain_phase(device=None, name=None, smi=None):
     """Phase 16: vch_tpu's chain through public entry points on the card's
-    own tensors (chain_case) at config 3's grid, then at config 1's; each
-    logged, then gated. Alone on the card (the build included): `python -c
-    "import chip_smoke; chip_smoke.chain_phase()"`. Returns the kernels'
-    launches of the card-input runs by entry."""
+    own tensors (chain_case) at config 3's grid, then at config 1's; then
+    sweep_2d and the batched run on the card's tensors
+    (sweep_case, 16c); each logged, then gated. Alone on the card (the
+    build included): `python -c "import chip_smoke;
+    chip_smoke.chain_phase()"`. Returns the kernels' launches of the
+    card-input runs by entry."""
     import torch
     if device is None:
         device, name, smi = (torch.device("cuda", 0),
@@ -5433,6 +5558,14 @@ def chain_phase(device=None, name=None, smi=None):
         _log(16, json.dumps(c) + f" | {name} | {smi}")
         check_chain(c)
         for k, v in c["runs"]["card"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    t1 = time.perf_counter()
+    c = sweep_case(torch, device)
+    _log("16c", json.dumps(c) + f" | {time.perf_counter() - t1:.1f} s | "
+         f"{name} | {smi}")
+    check_sweep_case(c)
+    for form in ("card_values", "card_batch"):
+        for k, v in c["runs"][form]["launches"].items():
             launches[k] = launches.get(k, 0) + v
     _log(16, f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -5910,12 +6043,9 @@ def main():
     surface15 = surface_phase(device, name, smi, c3=c3, prob=prob3)
     del prob3
     chain_phase(device, name, smi)
-    # the scan path at config 4's width likewise: its baseline march and
-    # one sweep under the profiler
-    _log("4sp", json.dumps(device_share(
-        torch, lambda: prob4s.run(sc4s, max_iter=0, verbose=False,
-                                  host_results=False)))
-        + f" | {name} | {smi}")
+    # phase 4s's problem lives to here, as when its profiler pass (4sp, cut
+    # to keep the run inside its time limit) ran here: the phases between
+    # keep their device-memory base
     del prob4s, sc4s
     # the applies on the device alone, last: see apply_device_times
     for c in apply_device_times(torch, device):

@@ -17,12 +17,16 @@ in float64 (N = 20 in 1D; 12 x 12 in 2D, a few steps).
     fed straight into the adjoint's run), and its results equal the
     numpy-input results bit for bit.
 (c) A coverage guard: every public function and method of vch_tpu's
-    models/, control/ and ops/ modules (the two Pallas modules excepted)
-    that has an array parameter is a case of (a) or an entry of ALLOWED
-    with its reason. Each parameter name is classed as an array or not in
-    ARRAY_PARAMS / OTHER_PARAMS (PARAM_OVERRIDES where a name is both); an
-    unclassed name, an entry that names no such callable or one without an
-    array parameter, and a class or override no signature uses all fail.
+    models/, control/, ops/, parallel/, utils/ and viz/ modules (the two
+    Pallas modules excepted) and of its top-level cli.py and config.py
+    that has an array parameter is a case of (a) here or in
+    tests/test_torch_call_forms_parallel.py (parallel/) and
+    tests/test_torch_call_forms_artifacts.py (utils/, viz/: the files
+    written), or an entry of ALLOWED with its reason. Each parameter
+    name is classed as an array or not in ARRAY_PARAMS / OTHER_PARAMS
+    (PARAM_OVERRIDES where a name is both); an unclassed name, an entry
+    that names no such callable or one without an array parameter, and a
+    class or override no signature uses all fail.
 """
 import ast
 import functools
@@ -454,7 +458,7 @@ def _leaves(out):
     return [np.asarray(out)]
 
 
-def _assert_close(got, ref):
+def _assert_close(got, ref, tol=TOL):
     g, r = _leaves(got), _leaves(ref)
     assert len(g) == len(r), (len(g), len(r))
     for i, (a, b) in enumerate(zip(g, r)):
@@ -468,7 +472,7 @@ def _assert_close(got, ref):
             continue
         a, b = a[~nan], b[~nan]
         err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
-        assert err <= TOL, (i, err)
+        assert err <= tol, (i, err)
 
 
 def _assert_same_bits(got, base):
@@ -547,7 +551,8 @@ def test_a_mismatched_shape_still_raises():
 
 ROOT = Path(vch_tpu.__file__).resolve().parent
 PALLAS_MODULES = {"ops/pallas_march.py", "ops/pallas_kernels.py"}
-GUARD_DIRS = ("models", "control", "ops")
+GUARD_DIRS = ("models", "control", "ops", "parallel", "utils", "viz")
+GUARD_FILES = ("cli.py", "config.py")
 METHODS = ("__init__", "__call__")
 
 ARRAY_PARAMS = {
@@ -558,7 +563,9 @@ ARRAY_PARAMS = {
     "mu_init", "phi_T_ref", "state", "u0", "phi0_hist", "x", "y",
     "phi_initial", "u_optimal", "r_optimal", "u_star", "r_star", "phi_star",
     "r", "grad_smooth", "v", "vhat", "rhs", "b", "x0", "op", "spectral_op",
-    "Rphi", "Rmu", "k"}
+    "Rphi", "Rmu", "k", "b3_values", "kappa_values", "scenarios", "tree",
+    "cost_history", "tracking_err_history", "terminal_err_history",
+    "phi_final", "phi_natural_final", "phi_controlled_final", "phi_target"}
 OTHER_PARAMS = {
     "config", "b1", "b2", "b3", "interpret", "batch", "ref_layout", "eps",
     "dt", "gamma", "tau", "c1", "c2", "kappa", "delta_sep", "tol",
@@ -573,7 +580,21 @@ OTHER_PARAMS = {
     "alpha", "threshold", "Lx", "Ly", "A_T", "k_tan", "n_nodes", "N", "Nx",
     "Ny", "h", "hx", "hy", "dtype", "apply_A", "apply_M", "n_iter",
     "dot_fn", "sync_pred", "apply_Phalf", "apply_Phalf_inv", "denom_of_lam",
-    "fixed_iters", "amp", "enforce_zero_mean", "Nmodes"}
+    "fixed_iters", "amp", "enforce_zero_mean", "Nmodes",
+    # parallel/
+    "fn", "mesh", "n_in", "n_out", "alpha_max", "use_mesh",
+    "straggler_batch", "speculative", "chunk_size", "fused_march",
+    "materialize_phi_Q", "materialized_phi_Q", "hbm_limit_bytes", "safety",
+    "n_devices", "devices", "coordinator_address", "num_processes",
+    "process_id", "axis_name", "axis", "batch_axis", "grid_axis",
+    "grid_shards",
+    # utils/, viz/
+    "path", "meta", "echo", "event", "logdir", "pgd_iters", "elapsed_s",
+    "newton_solves", "name", "seconds", "title", "cmap", "prefix", "skip",
+    "fps", "max_frames", "params",
+    # cli.py, config.py
+    "args", "argv", "c2_val", "info", "u_max_val", "iteration_count",
+    "filepath", "two_d", "prompt", "config_model", "previous_instance"}
 # (module, qualified name, parameter) -> True: an array where the name is
 # elsewhere a number
 PARAM_OVERRIDES = {
@@ -592,6 +613,20 @@ KERNEL = ("a whole-march or whole-sweep kernel entry: the batched problems "
           "held against vch_tpu's Pallas kernel in interpret mode by "
           "tests/test_torch_march.py, test_torch_blocked.py and "
           "test_torch_lowmem.py (ROADMAP C, 'tensor primitives')")
+ON_THE_CPU = ("tests/test_torch_batch_side_paths.py::"
+              "test_prewarm_and_trial_memory_analysis_on_the_cpu")
+PREWARM = ("on a CPU device it builds and runs nothing and returns None, "
+           "which " + ON_THE_CPU + " holds; on the card it places the batch "
+           "with run()'s own `_inputs`, which the BatchedProblem1D.run case "
+           "holds on every call form, and chip_smoke.py phase 16c runs it "
+           "on a batch of CUDA tensors (straggler_batch=2: one bucket)")
+TRIAL_MEMORY = ("on a CPU device it returns None (PyTorch keeps no allocator "
+                "statistics for host memory; vch_tpu's answer for a backend "
+                "with no analysis), which " + ON_THE_CPU + " holds; on the "
+                "card it places the batch with run()'s own `_inputs`, and "
+                "chip_smoke.py phase 16c runs it on the list-valued batch "
+                "and on a batch of CUDA tensors, their argument and output "
+                "bytes equal")
 LOOP = ("generic over the caller's forward, adjoint and cost, which fix the "
         "device and dtype: u0 and phi0_hist are those callables' tensors, "
         "as the problems pass them (ROADMAP C, 'tensor primitives')")
@@ -604,6 +639,9 @@ ALLOWED = {
     ("models/lowmem.py", "FusedLowMemBatch2D.forward"): KERNEL,
     ("models/lowmem.py", "FusedLowMemBatch2D.adjoint_r"): KERNEL,
     ("control/pgd.py", "ProximalGradientLoop.run"): LOOP,
+    ("parallel/batch.py", "BatchedProblem1D.prewarm"): PREWARM,
+    ("parallel/batch.py", "BatchedProblem1D.trial_memory_analysis"):
+        TRIAL_MEMORY,
     ("models/forward1d.py", "solve_w"): PRIMITIVE,
     ("models/forward1d.py", "mu_residual"): PRIMITIVE,
     ("models/forward1d.py", "phi_residual"): PRIMITIVE,
@@ -637,32 +675,38 @@ ALLOWED = {
 }
 
 
+def _guarded_modules(root=ROOT):
+    """The guarded modules' paths under `root`."""
+    paths = [root / f for f in GUARD_FILES]
+    for d in GUARD_DIRS:
+        paths += sorted((root / d).rglob("*.py"))
+    return [p for p in paths
+            if p.relative_to(root).as_posix() not in PALLAS_MODULES]
+
+
 def _public_callables(root=ROOT):
     """{(module, qualified name): [parameter, ...]} of the public functions
     and methods (and __init__ / __call__) of vch_tpu's guarded modules,
     `self` left out."""
     out = {}
-    for d in GUARD_DIRS:
-        for path in sorted((root / d).rglob("*.py")):
-            rel = path.relative_to(root).as_posix()
-            if rel in PALLAS_MODULES:
-                continue
-            for node in ast.parse(path.read_text()).body:
-                if (isinstance(node, ast.FunctionDef)
-                        and not node.name.startswith("_")):
-                    out[(rel, node.name)] = _params(node)
-                elif (isinstance(node, ast.ClassDef)
-                      and not node.name.startswith("_")):
-                    for m in node.body:
-                        if (isinstance(m, ast.FunctionDef)
-                                and (not m.name.startswith("_")
-                                     or m.name in METHODS)):
-                            static = any(getattr(dec, "id", None)
-                                         == "staticmethod"
-                                         for dec in m.decorator_list)
-                            params = _params(m)
-                            out[(rel, f"{node.name}.{m.name}")] = (
-                                params if static else params[1:])
+    for path in _guarded_modules(root):
+        rel = path.relative_to(root).as_posix()
+        for node in ast.parse(path.read_text()).body:
+            if (isinstance(node, ast.FunctionDef)
+                    and not node.name.startswith("_")):
+                out[(rel, node.name)] = _params(node)
+            elif (isinstance(node, ast.ClassDef)
+                  and not node.name.startswith("_")):
+                for m in node.body:
+                    if (isinstance(m, ast.FunctionDef)
+                            and (not m.name.startswith("_")
+                                 or m.name in METHODS)):
+                        static = any(getattr(dec, "id", None)
+                                     == "staticmethod"
+                                     for dec in m.decorator_list)
+                        params = _params(m)
+                        out[(rel, f"{node.name}.{m.name}")] = (
+                            params if static else params[1:])
     return out
 
 
@@ -712,23 +756,52 @@ def coverage_failures(callables, cases, allowed, arrays, others, overrides):
     return fails
 
 
+def _all_cases():
+    """CASES with those of the parallel/ and the file-writing cases."""
+    import test_torch_call_forms_artifacts as artifacts
+    import test_torch_call_forms_parallel as parallel
+    return {**CASES, **parallel.CASES, **artifacts.CASES}
+
+
 def test_every_array_entry_point_is_covered():
-    fails = coverage_failures(_public_callables(), CASES, ALLOWED,
+    fails = coverage_failures(_public_callables(), _all_cases(), ALLOWED,
                               ARRAY_PARAMS, OTHER_PARAMS, PARAM_OVERRIDES)
     assert not fails, "\n".join(fails)
 
 
-def test_the_guard_sees_an_uncovered_or_stale_entry():
-    callables = _public_callables()
+def test_the_guard_sees_an_uncovered_or_stale_entry(tmp_path):
+    callables, cases = _public_callables(), _all_cases()
+    assert ({rel.split("/")[0] for rel, _ in callables}
+            == set(GUARD_DIRS) | set(GUARD_FILES))
     new = dict(callables)
     new[("models/forward1d.py", "smooth")] = ["phi", "tau"]
-    fails = coverage_failures(new, CASES, ALLOWED, ARRAY_PARAMS,
+    fails = coverage_failures(new, cases, ALLOWED, ARRAY_PARAMS,
                               OTHER_PARAMS, PARAM_OVERRIDES)
     assert fails == [f"{('models/forward1d.py', 'smooth')}: an array "
                      "parameter and no case or allowlist entry"]
+    # an array-taking callable in each guarded folder and top-level file
+    # of a package laid out as vch_tpu, found by the walk itself
+    invented = {
+        "parallel/grid.py": "def sweep_3d(fwd_config, b3_values): pass",
+        "utils/stats.py": "class Summary:\n    def add(self, state): pass",
+        "viz/extra.py": "def plot_rate(cost_history, path): pass",
+        "cli.py": "def cmd_plot(args, phi_final): pass",
+        "config.py": "def load_field(filepath, phi0): pass"}
+    for rel, code in invented.items():
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_text(code + "\n")
+    found = _public_callables(tmp_path)
+    fails = coverage_failures({**callables, **found}, cases, ALLOWED,
+                              ARRAY_PARAMS, OTHER_PARAMS, PARAM_OVERRIDES)
+    assert sorted(fails) == sorted(
+        f"{key}: an array parameter and no case or allowlist entry"
+        for key in [("parallel/grid.py", "sweep_3d"),
+                    ("utils/stats.py", "Summary.add"),
+                    ("viz/extra.py", "plot_rate"), ("cli.py", "cmd_plot"),
+                    ("config.py", "load_field")])
     stale = {**ALLOWED, ("ops/grids.py", "grid_1d"): PRIMITIVE,
              ("ops/nowhere.py", "f"): PRIMITIVE}
-    fails = coverage_failures(callables, CASES, stale, ARRAY_PARAMS,
+    fails = coverage_failures(callables, cases, stale, ARRAY_PARAMS,
                               OTHER_PARAMS, PARAM_OVERRIDES)
     assert sorted(fails) == sorted([
         f"stale allowlist entry {('ops/grids.py', 'grid_1d')}: no array "
@@ -736,7 +809,7 @@ def test_the_guard_sees_an_uncovered_or_stale_entry():
         f"stale allowlist entry {('ops/nowhere.py', 'f')}: no such public "
         "callable"])
     new[("models/forward1d.py", "smooth")] = ["blob"]
-    fails = coverage_failures(new, CASES, ALLOWED, ARRAY_PARAMS,
+    fails = coverage_failures(new, cases, ALLOWED, ARRAY_PARAMS,
                               OTHER_PARAMS | {"unused"}, PARAM_OVERRIDES)
     assert sorted(fails) == sorted([
         f"{('models/forward1d.py', 'smooth')}: parameter 'blob' is "

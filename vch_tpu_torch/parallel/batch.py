@@ -103,10 +103,11 @@ class ScenarioBatch:
 
 
 def _sweep(opt, phi0, phi_T, phi_Q, b3_values, kappa_values, phi_Q_mode=None):
-    """The (b3, kappa_spar) grid over one IC and one pair of targets."""
-    b3s = np.asarray(b3_values if b3_values is not None else [opt.b3])
-    kss = np.asarray(kappa_values if kappa_values is not None
-                     else [opt.kappa_sparsity])
+    """The (b3, kappa_spar) grid over one IC and one pair of targets; the
+    values a sequence, a numpy array or a tensor on any device."""
+    b3s = to_numpy(b3_values if b3_values is not None else [opt.b3])
+    kss = to_numpy(kappa_values if kappa_values is not None
+                   else [opt.kappa_sparsity])
     g_b3, g_ks = np.meshgrid(b3s, kss, indexing="ij")
     B = g_b3.size
     rep = lambda a: np.broadcast_to(a, (B,) + a.shape).copy()

@@ -296,9 +296,12 @@ class GridShardedForward2D(ForwardStep2D, _GridSharded):
     def march(self, u, phi0):
         """The inner API on this rank's row blocks: u (M+1, rows, m) and
         phi0 (rows, m), or with batch_axis (B, M+1, rows, m) and (B, rows,
-        m) for this rank's members. Returns (phi_hist, newton_solves,
-        first_bad): the history's row block, the counts as 0-d tensors (per
-        member with batch_axis)."""
+        m) for this rank's members; host numpy or tensors on any device
+        (ones already in the solver's dtype on its device are not copied).
+        Returns (phi_hist, newton_solves, first_bad): the history's row
+        block, the counts as 0-d tensors (per member with batch_axis)."""
+        u = as_tensor(u, self.dtype, self.device)
+        phi0 = as_tensor(phi0, self.dtype, self.device)
         if self.batch_axis is not None:
             return self._march_batch(u, phi0)
         phi, ns, bad = self._march_batch(u[None], phi0[None])
@@ -374,11 +377,14 @@ class GridShardedAdjoint2D(AdjointSweep2D, _GridSharded):
     def run_impl(self, phi_hist, dts, b1, b2, phi_Q, phi_T_target):
         """The inner API on this rank's row blocks: phi_hist, phi_Q
         (M+1, rows, m), phi_T_target (rows, m), or with batch_axis each with
-        a leading axis of this rank's members and b1, b2 (B,). dts: the
-        step sizes (M,), host values. Returns (p, q, r) row blocks."""
+        a leading axis of this rank's members and b1, b2 (B,); host numpy
+        or tensors on any device (ones already in the solver's dtype on its
+        device are not copied). dts: the step sizes (M,), read to the host.
+        Returns (p, q, r) row blocks."""
         dts = to_numpy(dts).astype(np.float64)
-        t = lambda a: torch.as_tensor(a, dtype=self.dtype,
-                                      device=self.device)
+        t = lambda a: as_tensor(a, self.dtype, self.device)
+        phi_hist, phi_Q, phi_T_target = map(t, (phi_hist, phi_Q,
+                                                phi_T_target))
         if self.batch_axis is not None:
             return self._run_local(phi_hist, dts, t(b1), t(b2), phi_Q,
                                    phi_T_target)
