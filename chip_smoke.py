@@ -53,6 +53,19 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                cluster) against its one-CTA oracle, bit for bit, and both
                timed beside the blocked sweep at n = 65, B = 8, 64 and 512
                (the 64x64 routing arms);
+  2p kernels — the cluster march's bf16 forms (fused_solve_precision
+               "bf16x3", the default, and "default": the Krylov operator's
+               four products on bf16 mma.sync): <1, false> at n = 65, B = 1
+               and n = 129, B = 8, <8|4|2, false> at n = 65, B = 16 and
+               <1, true> at n = 257, K = 10, B = 2, each at "highest",
+               "bf16x3" and "default" against its plain version at the same
+               mode: max|dphi| within ten times the float32 gate of its
+               shape, first_bad equal, each member's Newton solves within
+               one, one launch of the bf16 form and not the float32 bits;
+               each mode's device ms per launch in turns and its bound
+               (the bf16 passes over the bf16 peak, the rest over FP32);
+               phases 2-2c, 4's march and sweep alone, 14c and every one-CTA
+               oracle's bit gate run at "highest", their inputs as before;
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
@@ -95,7 +108,11 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                against the full-memory one;
   3c control — ControlProblem2D at 32x32, T = 0.25 (the golden config's
                grid), float32, 3 PGD iterations, kernel path against plain
-               path, once with each pallas_variant;
+               path, once with each pallas_variant, its trials' march at
+               "highest" (its inputs and gates as before the bf16 forms);
+  3c16       — the same at the default "bf16x3", with a second plain path
+               on the CPU: costs and trials as 3c's gates, Newton solves
+               within 1% of either plain path's (check_control_slice16);
   2f probes  — the probe entry point vch_tpu_torch.probes.diag_kernel_cost
                (the raw Schur solve bicgstab_schur and its nodots and
                mmonly probes, all three one member per thread-block
@@ -139,12 +156,19 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                2 PGD iterations; the low-memory one's adjoint r gated
                against float64;
   4 config 4 — a main path: 128x128, T = 1 (M = 100), B = 128, float32,
-               one warm-up iteration, then 3 timed PGD iterations with the
-               kernel launch counters reset just before (per-member kernels);
-               then the march kernel alone at that shape, with its cluster
-               geometry and bound, and the one-member sweep alone on its
-               history, with its bound, and its one-CTA oracle in turns
-               with it, bit-gated;
+               the default fused_solve_precision "bf16x3", one warm-up
+               iteration, then 3 timed PGD iterations with the kernel launch
+               counters reset just before (per-member kernels, every march
+               launch on the bf16 form); then the march kernel alone at that
+               shape at "highest" and "bf16x3" in turns, with its cluster
+               geometry and bound at each, and the one-member sweep alone on
+               the float32 march's history, with its bound, and its one-CTA
+               oracle in turns with it, bit-gated;
+  4h         — phase 4's run once more at "highest" (the float32 march):
+               its rate and launches, and the default run's Newton-solve
+               ratio and largest relative cost difference against it
+               (recorded, not gated); likewise 5h after phase 5 and 6h after
+               phase 6;
   4s scan    — a main path: config 4's shape on the scan path
                (BatchedProblem2D(fused_march=False)), one warm-up and one
                timed PGD iteration, the spectral per-solve kernels at
@@ -152,7 +176,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                over S and the first iteration's cost against the fused run
                of phase 4;
   5 headline — bench.py's configuration: 64x64, T = 1, B = 512, float32,
-               one warm-up, then 3 timed PGD iterations (blocked kernels);
+               "bf16x3", one warm-up, then 3 timed PGD iterations (blocked
+               kernels, the march on its bf16 form);
                the blocked kernels' launches and CUDA-event milliseconds
                inside the timed window, by batch, beside phase 2b's
                one-CTA sweep at B = 512;
@@ -160,7 +185,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                ramp targets, routed by make_batched_problem_2d under the
                largest device-memory limit its full-memory estimate does
                not fit; one warm-up and one timed iteration (segment
-               kernels), whose peak must stay within that limit; the
+               kernels, the march on its bf16 form at "bf16x3"), whose
+               peak must stay within that limit; the
                segment kernels' launches and CUDA-event milliseconds inside
                the timed iteration, by batch, with their bounds at B = 32,
                beside phase 2b's segment sweep on its one-CTA oracle;
@@ -201,7 +227,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                first iterate's float32 gradient against float64 on the card
                (EXACT_F32_REL), PGD iterations/s and the backward and trial
                seconds;
-  10x exact  — config 1 likewise through ControlProblem1D, 3 timed
+  10x exact  — config 1 likewise through ControlProblem1D, 2 timed
                iterations, no launch;
   2x exact   — the float64 ExactAdjoint2D on the card at 12 x 12 against
                central finite differences at two entries (1e-4);
@@ -217,7 +243,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                (row 8 only), `optimize2d` at 32x32, T = 0.25, float32 on
                the card against --device cpu (2e-4); then `show-control`,
                `forward2d --n 128` and `optimize1d --max-iter 2` as
-               processes of their own, each to exit 0; one line per
+               processes of their own, all three at once, each to exit 0;
+               one line per
                command with its seconds, launches and rates;
   12 side    — the batch runner's side paths (vch_tpu/parallel/batch.py:
                168-1006), each run after `prewarm` with its launches
@@ -228,8 +255,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                straggler_batch=100 (its sub-batches on row 1) and
                chunk_size=128, each mode's trial counts equal to the
                plain search's and its cost history within 1e-6, each
-               counter above 0; (b) config 4 (128x128, B = 128):
-               checkpoint at 2, resume to 4 against an uninterrupted 4
+               counter above 0; (b) config 4's grid (128x128), B cut to
+               16: checkpoint at 2, resume to 4 against an uninterrupted 4
                with metrics (1e-6), and trial_memory_analysis's peak
                within the chooser's estimate; (c) the low-memory arm at
                256x256, K = 10, B = 8, resume likewise;
@@ -402,10 +429,12 @@ def _rel(a, b, ref):
             / max(ref.double().abs().max().item(), 1e-300))
 
 
-def _problem_inputs(torch, n, B, T, device, seed=0):
+def _problem_inputs(torch, n, B, T, device, seed=0, solve_prec="highest"):
     """Solvers in float32 and float64 (the float64 ones on the plain
-    versions, taking the float32 Newton exits) and seeded inputs, as tensors
-    of both dtypes."""
+    versions, taking the float32 Newton exits) at `solve_prec` (the fused
+    march's fused_solve_precision; "highest" keeps phases 2-2c on their
+    float32 bit gates' inputs) and seeded inputs, as tensors of both
+    dtypes."""
     from vch_tpu_torch.config import DELTA_SEP, ForwardSolverConfig2D
     from vch_tpu_torch.control.targets import build_targets_2d
     from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
@@ -416,7 +445,8 @@ def _problem_inputs(torch, n, B, T, device, seed=0):
     solvers = {}
     for dt in ("float32", "float64"):
         cfg = ForwardSolverConfig2D(Nx=n - 1, Ny=n - 1, T=T, dtype=dt,
-                                    newton_tol=2e-4)
+                                    newton_tol=2e-4,
+                                    fused_solve_precision=solve_prec)
         solvers[dt] = (ForwardSolver2D(cfg, device=device),
                        AdjointSolver2D(cfg, device=device))
     (fwd, _), (fwd64, adj64) = solvers["float32"], solvers["float64"]
@@ -645,6 +675,148 @@ def blocked_case(torch, n, B, T, device, plain_members, reps=3):
     out["adjoint_geometry"] = _geometry(km, torch, device, n, B, 8,
                                         kernel="sweep")
     return out
+
+
+# Phase 2p: the cluster march's bf16 forms (fused_solve_precision "bf16x3"
+# and "default": apply_S's four products on bf16 mma.sync). ROADMAP's
+# float32 gates of the march kernel against its plain version by n (the
+# first port's short marches); a bf16 form is held to ten times the float32 gate of its
+# shape: that, or the float32 pair's own max|dphi| on the same inputs in
+# this run where larger or where ROADMAP gives none.
+BF16_F32_GATE = {65: 5.9e-7, 129: 2.7e-6}
+BF16_MODES = ("bf16x3", "default")
+# (wrapper, n, B, T, block sizes): <1, false> at two shapes, <8|4|2, false>,
+# <1, true> (one K = 10 segment from phi0)
+BF16_FORMS = (("march_fused_2d", 65, 1, 0.1, None),
+              ("march_fused_2d", 129, 8, 0.05, None),
+              ("march_fused_2d_blocked", 65, 16, 0.1, (8, 4, 2)),
+              ("march_fused_2d_segment", 257, 2, 0.1, None))
+
+
+def _march_work16(n, B, M, newton, n_trips, passes, segment=False):
+    """(FP32 FLOPs, bf16 FLOPs, bytes) of a march launch whose Krylov
+    operator runs on the tensor cores: its apply_S products (8 n_trips a
+    Newton iteration, trips in full) `passes` times as bf16 FLOPs, the rest
+    as _march_work counts it."""
+    flops, nbytes = _march_work(n, B, M, newton, n_trips, segment)
+    krylov = 2.0 * n ** 3 * newton * 8 * n_trips
+    return flops - krylov, krylov * passes, nbytes
+
+
+def _bound16(f32_flops, bf16_flops, nbytes):
+    """(bound_ms, bound_by) of mixed work: the bf16 FLOPs over the dense
+    bf16 peak plus the FP32 FLOPs over the FP32 peak, or the bytes over the
+    memory rate, the larger."""
+    t_ops = (bf16_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bf16_form_case(torch, device, form, n, B, T, blocks=None, reps=3):
+    """Phase 2p at one form and shape: the kernel at "highest", "bf16x3"
+    and "default" against its plain version at the same mode on the same
+    seeded inputs (the segment form: one K = M segment from phi0; the
+    blocked form: each block size of `blocks`): max|dphi| (the history,
+    and the segment's phi, mu, w out), Newton solves and first_bad of both,
+    the launches of the bf16 form, whether its bits differ from the float32
+    kernel's, the launch geometry; then each mode's device ms per launch in
+    turns (highest, bf16x3, default, default, bf16x3, highest; CUDA
+    events) and its bound on its Newton total; the plain version's host
+    ms."""
+    from vch_tpu_torch.ops import march as km
+
+    solvers, x, _ = _problem_inputs(torch, n, B, T, device)
+    fwd = solvers["float32"][0]
+    phi0, segment = x["phi0"], form == "march_fused_2d_segment"
+    if segment:
+        w = torch.zeros_like(phi0)
+        args = (fwd.dts, phi0, fwd.initialize_mu(phi0, w), w,
+                torch.sum(fwd.wts * phi0, dim=(-2, -1)), x["u"]) + fwd._ops()
+    else:
+        args = (fwd.dts, phi0, x["u"]) + fwd._ops()
+    kernel, plain = getattr(km, form), getattr(km, form + "_plain")
+    variants = [dict(block_b=bb) for bb in blocks] if blocks else [{}]
+    nphi = 4 if segment else 1
+    trips = fwd.config.fused_krylov_fixed_iters
+    mkw = lambda mode: dict(fwd._march_kw(), solve_prec=mode)
+    out = dict(form=form, n=n, B=B, M=fwd.M, runs={})
+    f32 = {}
+    for mode in ("highest",) + BF16_MODES:
+        # per member: the same for every block size
+        plain_ms, p = _host_ms(torch, lambda: plain(*args, **variants[0],
+                                                    **mkw(mode)))
+        for v in variants:
+            tag = mode + (f" block {v['block_b']}" if v else "")
+            before = kernel.bf16_launches
+            k = kernel(*args, **v, **mkw(mode))
+            torch.cuda.synchronize()
+            if mode == "highest":
+                f32[tag] = k[0]
+            passes = km.solve_passes(mode)
+            g = km.launch_geometry(n, n, B, device,
+                                   members=v.get("block_b", 1),
+                                   segment=segment, solve_passes=passes)
+            out["runs"][tag] = dict(
+                max_abs_dphi=max((a - b).abs().max().item()
+                                 for a, b in zip(k[:nphi], p[:nphi])),
+                finite=all(bool(torch.isfinite(a).all()) for a in k[:nphi]),
+                newton_kernel=k[-2].cpu().tolist(),
+                newton_plain=p[-2].cpu().tolist(),
+                first_bad=k[-1].cpu().tolist(),
+                first_bad_equal=bool(torch.equal(k[-1], p[-1])),
+                plain_ms=plain_ms,
+                bf16_launches=kernel.bf16_launches - before,
+                bits_of_highest=bool(torch.equal(
+                    k[0], f32[tag.replace(mode, "highest", 1)])),
+                geometry=dict(cluster=g.cluster, kc=g.kc,
+                              smem_bytes=g.smem_bytes))
+            del k
+        del p
+    for v in variants:
+        fns = {mode: (lambda mode=mode: kernel(*args, **v, **mkw(mode)))
+               for mode in ("highest",) + BF16_MODES}
+        for mode in list(fns) + list(fns)[::-1]:
+            tag = mode + (f" block {v['block_b']}" if v else "")
+            out["runs"][tag].setdefault("ms", []).append(
+                time_ms(fns[mode], reps))
+    for tag, r in out["runs"].items():
+        passes = km.solve_passes(tag.split()[0])
+        work = _march_work16(n, B, fwd.M, sum(r["newton_kernel"]), trips,
+                             passes, segment)
+        r["bound_ms"], r["bound_by"] = _bound16(*work)
+    out["f32_max_abs_dphi"] = max(r["max_abs_dphi"] for t, r in
+                                  out["runs"].items()
+                                  if t.startswith("highest"))
+    out["gate"] = 10 * max(BF16_F32_GATE.get(n, 0.0), out["f32_max_abs_dphi"])
+    return out
+
+
+def check_bf16_form_case(c):
+    """Phase 2p gates, at each bf16 mode and block: max|dphi| within the
+    case's gate (ten times the float32 one), first_bad equal, each member's
+    Newton solves within one of the plain version's, one launch of the bf16
+    form and not the float32 kernel's bits; at "highest" no bf16 launch."""
+    fails = []
+    for tag, r in c["runs"].items():
+        if not (r["finite"] and r["first_bad_equal"]):
+            fails.append(f"{tag}: non-finite or first_bad differs")
+        if tag.startswith("highest"):
+            if r["bf16_launches"] != 0:
+                fails.append(f"{tag}: launched the bf16 form")
+            continue
+        if r["max_abs_dphi"] > c["gate"]:
+            fails.append(f"{tag}: max|dphi| {r['max_abs_dphi']} > "
+                         f"{c['gate']}")
+        if any(abs(a - b) > 1 for a, b in zip(r["newton_kernel"],
+                                              r["newton_plain"])):
+            fails.append(f"{tag}: Newton {r['newton_kernel']} vs plain "
+                         f"{r['newton_plain']}")
+        if r["bf16_launches"] != 1 or r["bits_of_highest"]:
+            fails.append(f"{tag}: {r['bf16_launches']} bf16 launches, bits "
+                         f"of the float32 kernel {r['bits_of_highest']}")
+    if fails:
+        raise RuntimeError(f"phase 2p {c['form']} n={c['n']} B={c['B']}: "
+                           + "; ".join(fails))
 
 
 def _geometry(km, torch, device, n, B, members, segment=False,
@@ -893,7 +1065,9 @@ def segment_timing(torch, device, n=257, B=32, K=10, reps=1, clusters=()):
     from vch_tpu_torch.ops import march as km
     from vch_tpu_torch.ops.potential import init_phi_random_2d
 
-    fwd = ForwardSolver2D(_config(n - 1, T=K * 0.01), device=device)
+    fwd = ForwardSolver2D(_config(n - 1, T=K * 0.01,
+                                  fused_solve_precision="highest"),
+                          device=device)
     if fwd.M != K:
         raise RuntimeError(f"segment timing: {fwd.M} steps, expected {K}")
     rng = np.random.default_rng(0)
@@ -1038,14 +1212,17 @@ def check_sweep_timing(c):
                            + "; ".join(fails))
 
 
-def _seeded_march(torch, device, n, B, T):
-    """A float32 forward solver at (n - 1, T) and seeded inputs of B
-    members: phi0 from init_phi_random_2d (seed 42 + i), u = 0.1 N(0, 1)."""
+def _seeded_march(torch, device, n, B, T, solve_prec="highest"):
+    """A float32 forward solver at (n - 1, T) and `solve_prec` (as
+    _problem_inputs) and seeded inputs of B members: phi0 from
+    init_phi_random_2d (seed 42 + i), u = 0.1 N(0, 1)."""
     from vch_tpu_torch.config import DELTA_SEP
     from vch_tpu_torch.models.forward2d import ForwardSolver2D
     from vch_tpu_torch.ops.potential import init_phi_random_2d
 
-    fwd = ForwardSolver2D(_config(n - 1, T=T), device=device)
+    fwd = ForwardSolver2D(_config(n - 1, T=T,
+                                  fused_solve_precision=solve_prec),
+                          device=device)
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     phi0 = f32(np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP,
@@ -2287,7 +2464,7 @@ def exact_phases(device=None, name=None, smi=None):
     c3x = exact_run(torch, device, "2d", iters=2)
     _log("8x", json.dumps(c3x) + f" | {name} | {smi}")
     check_exact_run(c3x)
-    c1x = exact_run(torch, device, "1d", iters=3)
+    c1x = exact_run(torch, device, "1d", iters=2)
     _log("10x", json.dumps(c1x) + " | no kernel on this path, as in "
          f"vch_tpu | {name} | {smi}")
     check_exact_run(c1x)
@@ -2305,19 +2482,29 @@ def _control_problem(device, cfg):
                             device=device)
 
 
-def control_slice(torch, device, variant, n=32, T=0.25, iters=3):
+def control_slice(torch, device, variant, n=32, T=0.25, iters=3,
+                  solve_prec="highest"):
     """Phase 3c: ControlProblem2D at the golden config's grid and horizon in
-    float32, kernel path against plain path, for one pallas_variant. The
-    kernel run counts launches from its constructor on (the baseline march
-    is where the Schur kernel runs); the plain run swaps the solvers'
-    entries to the plain versions and redoes the baseline on them."""
+    float32, kernel path against plain path, for one pallas_variant, its
+    trials' march at `solve_prec` ("highest"; 3c16: the default "bf16x3",
+    with a second plain path, on the CPU with the trials on the fused
+    route's plain march as on the card). The kernel run counts launches
+    from its constructor on (the baseline march is where the Schur kernel
+    runs); the plain run swaps the solvers' entries to the plain versions
+    and redoes the baseline on them."""
     from vch_tpu_torch.ops import march as km
 
-    cfg = _config(n, T=T, pallas_variant=variant)
+    cfg = _config(n, T=T, pallas_variant=variant,
+                  fused_solve_precision=solve_prec)
+    paths = ("kernel", "plain") + (("plain_cpu",)
+                                   if solve_prec != "highest" else ())
     runs = {}
-    for path in ("kernel", "plain"):
+    for path in paths:
         km.reset_launches()
-        prob = _control_problem(device, cfg)
+        prob = _control_problem(torch.device("cpu") if path == "plain_cpu"
+                                else device, cfg)
+        if path == "plain_cpu":
+            prob._fused = True       # the trials on the card's route
         if path == "plain":
             prob.solver.entries = prob.adjoint.entries = km.PLAIN
             prob.phi_hist0 = prob.solver.simulate(initial_phi=prob.phi0)[0]
@@ -2329,13 +2516,23 @@ def control_slice(torch, device, variant, n=32, T=0.25, iters=3):
                       km.launch_counts())
     (kr, kn, kt, kl), (pr, pn, pt, pl) = runs["kernel"], runs["plain"]
     c0, c1 = np.asarray(pr.cost_history), np.asarray(kr.cost_history)
-    return dict(variant=variant, n=n, M=prob.solver.M, iters=iters,
-                rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
-                cost_history=c1.tolist(), newton_kernel=kn, newton_plain=pn,
-                ls_trials_kernel=kr.ls_trials_per_iter,
-                ls_trials_plain=pr.ls_trials_per_iter,
-                kernel_s=kt, plain_s=pt, launches=kl, plain_launches=pl,
-                finite=bool(np.isfinite(c1).all()))
+    out = dict(variant=variant, n=n, M=prob.solver.M, iters=iters,
+               solve_precision=solve_prec,
+               rel_cost=float((np.abs(c1 - c0) / np.abs(c0)).max()),
+               cost_history=c1.tolist(), newton_kernel=kn, newton_plain=pn,
+               ls_trials_kernel=kr.ls_trials_per_iter,
+               ls_trials_plain=pr.ls_trials_per_iter,
+               kernel_s=kt, plain_s=pt, launches=kl, plain_launches=pl,
+               finite=bool(np.isfinite(c1).all()))
+    if "plain_cpu" in runs:
+        cr, cn, ct, cl = runs["plain_cpu"]
+        c2 = np.asarray(cr.cost_history)
+        out.update(newton_plain_cpu=cn, plain_cpu_s=ct,
+                   ls_trials_plain_cpu=cr.ls_trials_per_iter,
+                   rel_cost_plain_cpu=float((np.abs(c2 - c0)
+                                             / np.abs(c0)).max()),
+                   plain_cpu_launches=cl)
+    return out
 
 
 def check_control_slice(c):
@@ -2359,6 +2556,40 @@ def check_control_slice(c):
     if fails:
         raise RuntimeError(f"control slice {c['variant']}: " + "; ".join(fails)
                            + f" | {c}")
+
+
+def check_control_slice16(c):
+    """Phase 3c16 gates, 3c's at the default "bf16x3": costs finite, the
+    kernel path's cost history within 2e-4 relative of the plain path's,
+    trials equal, the launches of 3c, nothing launched on either plain
+    path; Newton solves within 1% of either plain path's, on the card or on
+    the CPU. At bf16x3 two float32 implementations split a field into bf16
+    (hi, lo) where their values differ in the last bits, so their Newton
+    totals spread wider than at "highest": at this shape the plain path on
+    the card and on the CPU took 135 and 137, the kernel 137 (spectral;
+    raw: 137, 137 and 136), where all three took 104 at "highest" (a
+    diagnostic run on an H100, PERF.md §6)."""
+    schur, adj = (("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
+                  if c["variant"] == "spectral"
+                  else ("bicgstab_schur", "bicgstab_adjoint"))
+    fails = [f"{k} never launched" for k in (schur, adj, "march_fused_2d")
+             if c["launches"][k] <= 0]
+    fails += [f"a plain path launched {k}" for k, v in
+              list(c["plain_launches"].items())
+              + list(c["plain_cpu_launches"].items()) if v]
+    if not c["finite"] or c["rel_cost"] > 2e-4:
+        fails.append(f"cost history vs plain {c['rel_cost']}")
+    if not (c["ls_trials_kernel"] == c["ls_trials_plain"]
+            == c["ls_trials_plain_cpu"]):
+        fails.append("trials differ")
+    if min(abs(c["newton_kernel"] - c[k]) / c[k]
+           for k in ("newton_plain", "newton_plain_cpu")) > 0.01:
+        fails.append(f"Newton solves {c['newton_kernel']} vs "
+                     f"{c['newton_plain']} (card) and "
+                     f"{c['newton_plain_cpu']} (CPU)")
+    if fails:
+        raise RuntimeError(f"control slice 3c16 {c['variant']}: "
+                           + "; ".join(fails) + f" | {c}")
 
 
 def config3_run(torch, device, iters=3):
@@ -3629,12 +3860,15 @@ class EntryTimer:
                     ms=sum(d["ms"] for d in by.values()), by_batch=by)
 
 
-def pgd_run(torch, device, prob, sc, iters, before_timed=None):
+def pgd_run(torch, device, prob, sc, iters, before_timed=None,
+            with_costs=False):
     """A main path: one warm-up PGD iteration, then `iters` timed ones with
     every kernel launch count reset to 0 just before and read just after
-    (before_timed, if given, runs just before too). The results stay on
-    the card (host_results=False, as bench.py times vch_tpu): the default
-    download of u, r and phi would add ~1 s at config 4's width."""
+    (before_timed, if given, runs just before too), the cluster march's
+    bf16-form launches among them apart. The results stay on the card
+    (host_results=False, as bench.py times vch_tpu): the default download
+    of u, r and phi would add ~1 s at config 4's width. with_costs: returns
+    (the dict, the (iters + 1, B) cost history) instead."""
     from vch_tpu_torch.ops import march as km
 
     t0 = time.perf_counter()
@@ -3648,11 +3882,11 @@ def pgd_run(torch, device, prob, sc, iters, before_timed=None):
     t0 = time.perf_counter()
     out = prob.run(sc, max_iter=iters, verbose=False, host_results=False)
     elapsed = time.perf_counter() - t0
-    launches = km.launch_counts()
+    launches, launches_bf16 = km.launch_counts(), km.bf16_launch_counts()
     B = sc.batch
     ch = out["cost_history"]
     cfg = prob.solver.config
-    return dict(B=B, n=cfg.Nx if hasattr(cfg, "Nx") else cfg.N,
+    res = dict(B=B, n=cfg.Nx if hasattr(cfg, "Nx") else cfg.N,
                 M=prob.solver.M, iters=iters,
                 problem=type(prob).__name__, elapsed_s=elapsed,
                 warmup_s=warm_s, scenario_iters_per_s=B * iters / elapsed,
@@ -3660,18 +3894,26 @@ def pgd_run(torch, device, prob, sc, iters, before_timed=None):
                 newton_solves_per_s=out["newton_solves"] / elapsed,
                 timers=out["timers"], straggler_rounds=prob.straggler_rounds,
                 peak_bytes=torch.cuda.max_memory_allocated(device),
-                launches=launches,
+                launches=launches, launches_bf16=launches_bf16,
+                solve_precision=getattr(cfg, "fused_solve_precision", None),
                 mean_cost_before=float(ch[0].mean()),
                 mean_cost_after=float(ch[-1].mean()),
                 mean_cost_history=ch.mean(axis=1).tolist(),
                 finite=bool(np.isfinite(ch).all()))
+    return (res, ch) if with_costs else res
 
 
-def check_main_path(res, launched, idle):
+def check_main_path(res, launched, idle, bf16=()):
     """Finite, falling mean cost; every kernel of the path launched, and
-    the kernels of the other paths not."""
+    the kernels of the other paths not; of the cluster march's wrappers in
+    `bf16`, the bf16 form launched each time."""
     fails = [f"{k} never launched" for k in launched
              if res["launches"][k] <= 0]
+    fails += [f"{k}: {res['launches_bf16'][k]} of {res['launches'][k]} "
+              f"launches on the bf16 form" for k in bf16
+              if res["launches_bf16"][k] != res["launches"][k]]
+    fails += [f"{k}: {v} launches of the bf16 form" for k, v in
+              res["launches_bf16"].items() if v and k not in bf16]
     fails += [f"{k} launched {res['launches'][k]} times" for k in idle
               if res["launches"][k] != 0]
     if not res["finite"] or not res["mean_cost_after"] < res["mean_cost_before"]:
@@ -3679,6 +3921,24 @@ def check_main_path(res, launched, idle):
     if fails:
         raise RuntimeError(f"{res['problem']} n={res['n']} B={res['B']}: "
                            + "; ".join(fails) + f" | {res}")
+
+
+def mode_comparison(torch, device, prob, sc, res, costs, iters):
+    """Phases 4h, 5h, 6h: a main path once more at fused_solve_precision
+    "highest" (the float32 march) in the same call, after the run at the
+    default "bf16x3" (`res`, its cost history `costs`): this run's own
+    numbers, and the default run's against them: the Newton-solve and
+    rate ratios and the largest relative cost difference, over all
+    iterates and at the last (recorded, not gated)."""
+    h, ch = pgd_run(torch, device, prob, sc, iters, with_costs=True)
+    rel = np.abs(costs - ch) / np.abs(ch)
+    h.update(newton_ratio=res["newton_solves"] / h["newton_solves"],
+             rate_ratio=res["scenario_iters_per_s"]
+             / h["scenario_iters_per_s"],
+             max_rel_cost=float(rel.max()),
+             max_rel_last_cost=float(rel[-1].max()),
+             mean_rel_last_cost=float(rel[-1].mean()))
+    return h
 
 
 def _config(n, T=1.0, **kw):
@@ -3947,25 +4207,36 @@ def cli_phase(device=None, name=None, smi=None):
                  "optimize1d": ["optimize1d", "--max-iter", "2",
                                 "--no-artifacts", "--out-prefix",
                                 os.path.join(tmp, "c1_")]}
-        for cmd, limit in CLI_SUBPROCESSES:
-            t0 = time.perf_counter()
-            p = subprocess.run([sys.executable, "-m", "vch_tpu_torch.cli"]
-                               + argvs[cmd], cwd=root, capture_output=True,
-                               text=True, timeout=limit)
-            lines = p.stdout.strip().splitlines()
-            cs = dict(command="python -m vch_tpu_torch.cli "
-                              + " ".join(a if not a.startswith(tmp) else
-                                         os.path.basename(a)
-                                         for a in argvs[cmd]),
-                      rc=p.returncode, wall_s=time.perf_counter() - t0,
-                      launches="not read (a process of its own)",
-                      first_line=lines[0] if lines else "",
-                      cost_lines=[ln for ln in lines
-                                  if ln.startswith("iter ")])
-            if p.returncode != 0:
-                fails.append(f"{cs['command']} exited {p.returncode}: "
-                             f"{p.stderr[-2000:]}")
-            _log(11, "cli " + json.dumps(cs) + f" | {name} | {smi}")
+        # all three at once (each its own interpreter; wall_s from the
+        # common start to the command's exit)
+        t0 = time.perf_counter()
+        procs = {cmd: subprocess.Popen(
+            [sys.executable, "-m", "vch_tpu_torch.cli"] + argvs[cmd],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for cmd, _ in CLI_SUBPROCESSES}
+        try:
+            for cmd, limit in CLI_SUBPROCESSES:
+                p = procs[cmd]
+                stdout, stderr = p.communicate(timeout=limit)
+                lines = stdout.strip().splitlines()
+                cs = dict(command="python -m vch_tpu_torch.cli "
+                                  + " ".join(a if not a.startswith(tmp) else
+                                             os.path.basename(a)
+                                             for a in argvs[cmd]),
+                          rc=p.returncode, wall_s=time.perf_counter() - t0,
+                          launches="not read (a process of its own)",
+                          first_line=lines[0] if lines else "",
+                          cost_lines=[ln for ln in lines
+                                      if ln.startswith("iter ")])
+                if p.returncode != 0:
+                    fails.append(f"{cs['command']} exited {p.returncode}: "
+                                 f"{stderr[-2000:]}")
+                _log(11, "cli " + json.dumps(cs) + f" | {name} | {smi}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     if fails:
         raise RuntimeError("phase 11 cli: " + "; ".join(fails))
 
@@ -4137,23 +4408,24 @@ def _resume_case(torch, prob, sc, tmp, tag, iters=4, at=2):
                                     res["phi"], tuple) else (res["phi"],))))
 
 
-def side_config4(torch, device, tmp):
-    """Phase 12b: config 4 (128x128, T = 1, B = 128, the one-member
-    kernels): checkpoint at 2, resume to 4, against an uninterrupted 4 with
-    metrics; then trial_memory_analysis on the host batch, its peak over S
-    and over the chooser's estimate."""
+def side_config4(torch, device, tmp, B=16):
+    """Phase 12b: config 4's grid (128x128, T = 1, the one-member kernels),
+    B cut from 128 to 16 (the checkpoint's write took 49-53 s at 128):
+    checkpoint at 2, resume to 4, against an uninterrupted 4 with metrics;
+    then trial_memory_analysis on the host batch, its peak over S and over
+    the chooser's estimate."""
     from vch_tpu_torch.parallel.batch import (BatchedProblem2D,
                                               full_memory_estimate_bytes)
     cfg = _config(128)
-    host = _bench_sweep(cfg, 128)
+    host = _bench_sweep(cfg, B)
     prob = BatchedProblem2D(cfg, device=device)
     c = _resume_case(torch, prob, _on_device(torch, device, host), tmp, "c4")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     tma = prob.trial_memory_analysis(host)
-    S = _traj_bytes(cfg, 128, prob.solver.M)
-    est = full_memory_estimate_bytes(cfg, 128)
+    S = _traj_bytes(cfg, B, prob.solver.M)
+    est = full_memory_estimate_bytes(cfg, B)
     c.update(trial_memory=tma, trial_memory_s=time.perf_counter() - t0,
              S_bytes=S, estimate_bytes=est,
              trial_peak_over_S=tma["peak_memory_in_bytes"] / S,
@@ -5605,6 +5877,9 @@ def main():
          + " | march2d_blocked.cu march_blocked_kernel<MB,SEG> (8, 4, 2: "
          "the blocked march; <1,0>: the whole march; <1,1>: the segment "
          "march): " + _ptxas_named(_build.ptxas_log, "march_blocked_kernel")
+         + ", march_bf16_kernel<MB,SEG> (the same at a bf16 "
+         "fused_solve_precision): "
+         + _ptxas_named(_build.ptxas_log, "march_bf16_kernel")
          + " | adjoint2d_cluster.cu adjoint_cluster_kernel<MB,SEG> (8, 4, "
          "2: the blocked sweep; <1,0>: the whole sweep; <1,1>: the segment "
          "sweep): " + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
@@ -5727,6 +6002,13 @@ def main():
             raise RuntimeError(f"segment march n={c['n']} B={c['B']}: the "
                                "cluster kernel differs from the one-CTA "
                                "oracle")
+    # the bf16 forms of rows 1, 3 and 5 at both bf16 modes against their
+    # plain versions
+    bf16 = [bf16_form_case(torch, device, *f) for f in BF16_FORMS]
+    for c in bf16:
+        _log("2p", json.dumps(c) + f" | {name} | {smi}")
+    for c in bf16:
+        check_bf16_form_case(c)
 
     solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
               for n in (65, 129, 257) for B in (None, 4)]
@@ -5809,6 +6091,12 @@ def main():
         _log("3c", json.dumps(c))
     for c in ctl.values():
         check_control_slice(c)
+    ctl16 = {v: control_slice(torch, device, v, solve_prec="bf16x3")
+             for v in ("spectral", "raw")}
+    for c in ctl16.values():
+        _log("3c16", json.dumps(c))
+    for c in ctl16.values():
+        check_control_slice16(c)
     sl1d = slice1d_case(torch, device)
     _log("3d", json.dumps(sl1d))
     check_slice1d(sl1d)
@@ -5834,27 +6122,45 @@ def main():
 
     cfg4 = _config(128)
     prob4, sc4 = BatchedProblem2D(cfg4, device=device), _bench_sweep(cfg4, 128)
-    c4 = pgd_run(torch, device, prob4, sc4, iters=3)
+    c4, ch4 = pgd_run(torch, device, prob4, sc4, iters=3, with_costs=True)
     # the march kernel alone at this shape, on the run's initial conditions
-    # and a seeded control, with its bound on the measured Newton total
+    # and a seeded control, at "highest" (the float32 march) and at the
+    # default "bf16x3" in turns, each with its bound on its Newton total
     x4 = {"phi0": torch.as_tensor(sc4.phi0, dtype=torch.float32,
                                   device=device),
           "u": 0.05 * torch.randn(
               (128, prob4.solver.M + 1, 129, 129), device=device,
               generator=torch.Generator(device).manual_seed(0))}
-    _, ns4, _ = prob4.solver.march_fused_batch(x4["u"], x4["phi0"])
-    c4["march_ms_full_shape"] = time_ms(
-        lambda: prob4.solver.march_fused_batch(x4["u"], x4["phi0"]), 1)
-    c4["march_newton_full_shape"] = int(ns4.sum())
+    s4 = prob4.solver
+    m4 = lambda mode: km.march_fused_2d(
+        s4.dts, x4["phi0"], x4["u"], *s4._ops(),
+        **dict(s4._march_kw(), solve_prec=mode))
+    ns4 = {mode: int(m4(mode)[1].sum()) for mode in ("highest", "bf16x3")}
+    t4 = {}
+    for mode in ("highest", "bf16x3", "bf16x3", "highest"):
+        t4.setdefault(mode, []).append(time_ms(lambda: m4(mode), 1))
+    c4["march_ms_full_shape_by_mode"] = t4
+    c4["march_ms_full_shape"] = float(np.mean(t4["highest"]))
+    c4["march_bf16x3_ms_full_shape"] = float(np.mean(t4["bf16x3"]))
+    c4["march_newton_full_shape"] = ns4["highest"]
+    c4["march_bf16x3_newton_full_shape"] = ns4["bf16x3"]
     c4["march_bound_ms_full_shape"], _ = _bound(*_march_work(
-        129, 128, prob4.solver.M, c4["march_newton_full_shape"], trips_fwd))
-    g4 = km.launch_geometry(129, 129, 128, device, members=1)
-    c4["march_geometry_full_shape"] = dict(
-        cluster=g4.cluster, resident_clusters=km.resident_clusters(
-            0, 129, 129, g4.cluster, g4.kc, g4.smem_bytes, 1))
-    # row 2, the one-member sweep, alone at this shape on the march's
-    # history, with its bound
-    h4, _, _ = prob4.solver.march_fused_batch(x4["u"], x4["phi0"])
+        129, 128, s4.M, ns4["highest"], trips_fwd))
+    c4["march_bf16x3_bound_ms_full_shape"], _ = _bound16(*_march_work16(
+        129, 128, s4.M, ns4["bf16x3"], trips_fwd, 3))
+    c4["march_geometry_full_shape"] = {}
+    for mode in ("highest", "bf16x3"):
+        p4 = km.solve_passes(mode)
+        g4 = km.launch_geometry(129, 129, 128, device, members=1,
+                                solve_passes=p4)
+        c4["march_geometry_full_shape"][mode] = dict(
+            cluster=g4.cluster, smem_bytes=g4.smem_bytes,
+            resident_clusters=km.resident_clusters(
+                0, 129, 129, g4.cluster, g4.kc, g4.smem_bytes, 1,
+                kernel="march16" if p4 else "march"))
+    # row 2, the one-member sweep, alone at this shape on the float32
+    # march's history, with its bound
+    h4 = m4("highest")[0]
     a4 = (h4, torch.linspace(0.3, 5.0, 128, device=device),
           torch.linspace(13.0, 10.0, 128, device=device),
           torch.zeros_like(h4), 0.1 * x4["phi0"])
@@ -5873,12 +6179,18 @@ def main():
     prob4.adj.entries = km.KERNELS
     c4["adjoint_ms_full_shape_again"] = time_ms(
         lambda: prob4.adj.adjoint_fused_batch(*a4), 1)
-    del prob4, x4, ns4, h4, a4, r4
+    del prob4, x4, h4, a4, r4
     _log(4, json.dumps(c4) + f" | {name} | {smi}")
-    check_main_path(c4, per_member, blocked + idle_segment + march_1d)
+    check_main_path(c4, per_member, blocked + idle_segment + march_1d,
+                    bf16=("march_fused_2d",))
     if not c4["adjoint_equals_one_cta_full_shape"]:
         raise RuntimeError("config 4: the cluster sweep differs from its "
                            "one-CTA oracle")
+    c4h = mode_comparison(torch, device, BatchedProblem2D(
+        _config(128, fused_solve_precision="highest"), device=device), sc4,
+        c4, ch4, iters=3)
+    _log("4h", json.dumps(c4h) + f" | {name} | {smi}")
+    check_main_path(c4h, per_member, blocked + idle_segment + march_1d)
 
     scan_solves = ("bicgstab_schur_spectral", "bicgstab_adjoint_spectral")
     prob4s, sc4s, c4s = scan_full_width(
@@ -5897,8 +6209,10 @@ def main():
     blk_a = EntryTimer(torch, prob5.adj.entries.adjoint_blocked)
     prob5.solver.entries = prob5.solver.entries._replace(march_blocked=blk_m)
     prob5.adj.entries = prob5.adj.entries._replace(adjoint_blocked=blk_a)
-    c5 = pgd_run(torch, device, prob5, _bench_sweep(cfg64, 512), iters=3,
-                 before_timed=lambda: (blk_m.clear(), blk_a.clear()))
+    sc5 = _bench_sweep(cfg64, 512)
+    c5, ch5 = pgd_run(torch, device, prob5, sc5, iters=3,
+                      before_timed=lambda: (blk_m.clear(), blk_a.clear()),
+                      with_costs=True)
     # beside row 4's launches, the one-member sweep at B = 512 on the
     # cluster kernel and on the one-CTA oracle (phase 2b)
     c5.update(blocked_march=blk_m.summary(), blocked_adjoint=blk_a.summary(),
@@ -5907,15 +6221,22 @@ def main():
               adjoint_cluster_ms_b512=blk512["adjoint_blocked_ms"],
               adjoint_bound_ms_b512=blk512["adjoint_bound_ms"])
     _log(5, json.dumps(c5) + f" | {name} | {smi}")
-    check_main_path(c5, blocked, per_member + idle_segment + march_1d)
+    check_main_path(c5, blocked, per_member + idle_segment + march_1d,
+                    bf16=("march_fused_2d_blocked",))
+    del prob5
+    c5h = mode_comparison(torch, device, BatchedProblem2D(
+        _config(64, fused_solve_precision="highest"), device=device), sc5,
+        c5, ch5, iters=3)
+    _log("5h", json.dumps(c5h) + f" | {name} | {smi}")
+    check_main_path(c5h, blocked, per_member + idle_segment + march_1d)
 
     # the largest limit under which the full-memory estimate does not fit
     # (est6 > 0.75 limit): the low-memory arm must run within it
     cfg256 = _config(256)
     est6 = full_memory_estimate_bytes(cfg256, 32, materialized_phi_Q=False)
     limit6 = int(0.99 * est6 / 0.75)
-    route6 = lambda limit: make_batched_problem_2d(
-        cfg256, batch=32, materialized_phi_Q=False, hbm_limit_bytes=limit,
+    route6 = lambda limit, cfg=cfg256: make_batched_problem_2d(
+        cfg, batch=32, materialized_phi_Q=False, hbm_limit_bytes=limit,
         K=10, device=device)
     if type(route6(int(est6 / 0.75) + 1)) is not BatchedProblem2D:
         raise RuntimeError("256x256 B=32 stays on low memory above its "
@@ -5928,9 +6249,10 @@ def main():
     seg_a = EntryTimer(torch, prob6.adj.entries.adjoint_segment)
     prob6.solver.entries = prob6.solver.entries._replace(march_segment=seg_m)
     prob6.adj.entries = prob6.adj.entries._replace(adjoint_segment=seg_a)
-    c6 = pgd_run(torch, device, prob6,
-                 _bench_sweep(cfg256, 32, materialize=False), iters=1,
-                 before_timed=lambda: (seg_m.clear(), seg_a.clear()))
+    sc6 = _bench_sweep(cfg256, 32, materialize=False)
+    c6, ch6 = pgd_run(torch, device, prob6, sc6, iters=1,
+                      before_timed=lambda: (seg_m.clear(), seg_a.clear()),
+                      with_costs=True)
     S6 = _traj_bytes(cfg256, 32, prob6.solver.M)
     K6 = prob6.pipe.K
     c6.update(K=K6, segments=prob6.pipe.S,
@@ -5951,11 +6273,15 @@ def main():
               segment_adjoint_geometry_b32=sweep32["geometry"])
     _log(6, json.dumps(c6) + f" | {name} | {smi}")
     check_main_path(c6, segment, per_member + blocked + march_1d
-                    + oracle)
+                    + oracle, bf16=("march_fused_2d_segment",))
     if c6["peak_bytes"] > limit6:
         raise RuntimeError(f"low-memory peak {c6['peak_bytes']} B exceeds "
                            f"the limit it was routed under, {limit6} B")
-    del prob5, prob6
+    del prob6
+    c6h = mode_comparison(torch, device, route6(limit6, dataclasses.replace(
+        cfg256, fused_solve_precision="highest")), sc6, c6, ch6, iters=1)
+    _log("6h", json.dumps(c6h) + f" | {name} | {smi}")
+    check_main_path(c6h, segment, per_member + blocked + march_1d + oracle)
 
     if lib.vch_workspace_fields(0) != MARCH_WORKSPACE_FIELDS:
         raise RuntimeError("MARCH_WORKSPACE_FIELDS differs from the march "
@@ -6068,7 +6394,8 @@ def main():
 
     def entry(fn, source, replaces, launches, err, ms, plain_ms, work,
               library_ms=None, shape=None):
-        bound_ms, bound_by = _bound(*work)
+        # work: (FLOPs, bytes), or (FP32 FLOPs, bf16 FLOPs, bytes)
+        bound_ms, bound_by = (_bound16 if len(work) == 3 else _bound)(*work)
         # library_ms: no single PyTorch call computes a whole march, sweep
         # or fixed-trip BiCGStab solve; the operator applies carry the time
         # of the same function as torch.matmul calls
@@ -6090,9 +6417,11 @@ def main():
     trips_1d = _config(64).krylov_fixed_iters    # the 1D march's trips
     full4 = "ms, bound_ms: config 4's n=129, B=128, M=100; max_abs_err, " \
         "plain_ms: n=129, B=8, M=100"
+    # rows 1, 3, 5 on the float32 march: their launches those of the main
+    # paths' reruns at "highest" (4h, 5h, 6h)
     kernels = [
         entry("march_fused_2d", cluster_cu, f"{pm}:393",
-              c4["launches"]["march_fused_2d"], long["max_abs_dphi"],
+              c4h["launches"]["march_fused_2d"], long["max_abs_dphi"],
               c4["march_ms_full_shape"], long["march_plain_ms"],
               _march_work(129, 128, c4["M"], c4["march_newton_full_shape"],
                           trips_fwd), shape=full4),
@@ -6101,7 +6430,7 @@ def main():
               c4["adjoint_ms_full_shape"], long["adjoint_plain_ms"],
               _adjoint_work(129, 128, c4["M"], trips_adj), shape=full4),
         entry("march_fused_2d_blocked", cluster_cu, f"{pm}:1649",
-              c5["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
+              c5h["launches"]["march_fused_2d_blocked"], blk8["max_abs_dphi"],
               mean(blk8["march_blocked_ms"]), blk8["march_plain_ms"],
               _march_work(blk8["n"], blk8["B"], blk8["M"],
                           blk8["newton_blocked_total"], trips_fwd)),
@@ -6112,7 +6441,7 @@ def main():
               shape="ms, bound_ms: the headline's n=65, B=512, M=100; "
                     "max_abs_err, plain_ms: n=65, B=8, M=10"),
         entry("march_fused_2d_segment", cluster_cu, f"{pm}:479",
-              c6["launches"]["march_fused_2d_segment"],
+              c6h["launches"]["march_fused_2d_segment"],
               seg257["max_abs_err_march"], seg257["march_ms"],
               seg257["march_plain_ms"],
               _march_work(seg257["n"], seg257["B"], seg257["K"], seg_newton,
@@ -6126,6 +6455,38 @@ def main():
               shape="ms, bound_ms: phase 6's n=257, B=32, K=10; "
                     "max_abs_err, plain_ms: n=257, B=2, K=10"),
     ]
+    # rows 1, 3, 5 on their bf16 forms (march_bf16_kernel<MB, SEG>) at the
+    # default "bf16x3": their launches those of the main paths (4, 5, 6),
+    # the rest phase 2p's, with its ms at every mode on the same inputs;
+    # row 1's ms and bound at config 4's shape (phase 4)
+    full16 = "ms, bound_ms: config 4's n=129, B=128, M=100; max_abs_err, " \
+        "plain_ms: n=129, B=8, M=5 (phase 2p)"
+    row16 = [("march_fused_2d", 393, "1, false", c4, bf16[1], "bf16x3",
+              full16),
+             ("march_fused_2d_blocked", 1649, "8, false", c5, bf16[2],
+              "bf16x3 block 8", "n=65, B=16, M=10 (phase 2p)"),
+             ("march_fused_2d_segment", 479, "1, true", c6, bf16[3],
+              "bf16x3", "n=257, B=2, K=10 (phase 2p)")]
+    for fn, line, form, main_run, case, tag, shape in row16:
+        r = case["runs"][tag]
+        if fn == "march_fused_2d":
+            ms = c4["march_bf16x3_ms_full_shape"]
+            work = _march_work16(129, 128, c4["M"],
+                                 c4["march_bf16x3_newton_full_shape"],
+                                 trips_fwd, 3)
+        else:
+            ms = mean(r["ms"])
+            work = _march_work16(case["n"], case["B"], case["M"],
+                                 sum(r["newton_kernel"]), trips_fwd, 3,
+                                 segment=fn.endswith("segment"))
+        e = entry(f"{fn}[bf16x3]", cluster_cu, f"{pm}:{line}",
+                  main_run["launches_bf16"][fn], r["max_abs_dphi"], ms,
+                  r["plain_ms"], work, shape=shape)
+        e.update(kernel=f"march_bf16_kernel<{form}>",
+                 solve_precision="bf16x3",
+                 ms_phase2p={t: mean(v["ms"])
+                             for t, v in case["runs"].items()})
+        kernels.append(e)
     # the per-solve kernels at config 3's shape (n = 65, one solve), their
     # launches on their paths: the Schur solves of config 3's constructor,
     # the adjoint solves of its timed run, and the same of the raw config-3
@@ -6199,21 +6560,29 @@ def main():
                  device_ms=dv["ms"], oracle_device_ms=dv["oracle_ms"])
         kernels.append(e)
     kernels += _chain_probe_entries(chains, chains_dev, entry)
+    # phases 12-15 run the default "bf16x3": their launches of rows 1, 3, 5
+    # go to the bf16 forms' entries, the float32 forms' get none there
+    march_rows = {fn for fn, *_ in row16}
+    by = {e["name"].removesuffix("[bf16x3]"): e for e in kernels
+          if e["name"] not in march_rows}
+    rows6 = [e["name"] for e in kernels[:6]]
     # rows 1-6: their launches in phase 12's runs beside their main paths';
     # every row's launches in phase 13's runs
-    for e in kernels[:6]:
-        e["launches_phase12"] = side.get(e["name"], 0)
-    for e in kernels:
-        e["launches_phase13"] = mesh.get(e["name"], 0)
+    for k in rows6:
+        if k in by:
+            by[k]["launches_phase12"] = side.get(k, 0)
+    for k, e in by.items():
+        e["launches_phase13"] = mesh.get(k, 0)
     # row 1: its launches in phase 14a's fused line search (11 a PGD
     # iteration at config 3, of which only the searching trials march)
-    kernels[0]["launches_phase14"] = fused14.get("march_fused_2d", 0)
+    by["march_fused_2d"]["launches_phase14"] = fused14.get("march_fused_2d",
+                                                           0)
     # rows 1, 8 and 9: their launches in phase 15b (config 3 through the
     # package namespaces: the constructor, the host and the fused mode) and
     # row 1's in 15c (the coercivity probe, one-control and batched)
-    for e in kernels:
-        if e["name"] in surface15:
-            e["launches_phase15"] = surface15[e["name"]]
+    for k, e in by.items():
+        if k in surface15:
+            e["launches_phase15"] = surface15[k]
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -188,7 +188,8 @@ def test_solvers_route_blocked_only_when_the_batch_divides(batch, expect):
     jcfg = JaxConfig2D(Nx=N, Ny=N, T=T, dtype="float32", newton_tol=2e-4,
                        fused_march_block=BB, fused_solve_precision="highest")
     cfg = ForwardSolverConfig2D(Nx=N, Ny=N, T=T, dtype="float32",
-                                newton_tol=2e-4, fused_march_block=BB)
+                                newton_tol=2e-4, fused_march_block=BB,
+                                fused_solve_precision="highest")
     _, _, dts, phi0, u = _inputs(batch=batch, useed=4)
     jfwd = JaxForward2D(jcfg)
     jh, jns, _ = jfwd.march_fused_batch(jnp.asarray(u, jnp.float32),

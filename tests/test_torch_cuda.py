@@ -14,7 +14,9 @@ same arithmetic as the per-member kernels, so those two agree exactly, as
 do the cluster marches (whole, blocked, segment), sweeps (whole, blocked,
 segment), solves (spectral and raw Schur, spectral and raw adjoint) and the raw
 Schur solve's two cost probes and their one-CTA oracles at every batch and
-cluster size. The one-member march's per-member flag: an active member bit for bit
+cluster size; so are the march's bf16 forms (fused_solve_precision
+"bf16x3", "default") among themselves, each within 1e-5 of its plain
+version at the same mode. The one-member march's per-member flag: an active member bit for bit
 the launch without it, an inactive one nsolve 0 and first_bad -1.
 The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
@@ -82,7 +84,8 @@ def test_cpu_tensors_run_the_plain_versions():
     r = adj.adjoint_fused_batch(hist, f32([1.0, 2.0]), f32([3.0, 4.0]),
                                 torch.zeros_like(hist), torch.zeros_like(phi0))
     assert (km.march_fused_2d.launches, km.adjoint_fused_2d.launches) == before
-    ref = km.march_fused_2d_plain(*_march_args(fwd, phi0, u), **_KW)
+    ref = km.march_fused_2d_plain(*_march_args(fwd, phi0, u),
+                                  **dict(_KW, solve_prec="bf16x3"))
     assert torch.equal(hist, ref[0]) and torch.equal(ns, ref[1])
     assert r.shape == hist.shape and bool(torch.isfinite(r).all())
 
@@ -291,6 +294,111 @@ def test_blocked_kernels_equal_the_per_member_kernels(cuda, n, m, B):
     kr = km.adjoint_fused_2d(*aargs, **adj._kw())
     torch.cuda.synchronize()
     assert torch.equal(br, kr)
+
+
+# the bf16 forms of the cluster march (fused_solve_precision "bf16x3" and
+# "default"): each against its plain version at the same mode
+_BF16_FORMS = {"one_member": dict(n=33, m=33, B=4),
+               "blocked_8": dict(n=33, m=29, B=16, block_b=8),
+               "blocked_4": dict(n=33, m=29, B=8, block_b=4),
+               "blocked_2": dict(n=33, m=29, B=8, block_b=2),
+               "segment": dict(n=65, m=65, B=2)}
+
+
+def _bf16_march(fwd, phi0, u, form, kw, plain=False):
+    """A form's kernel (or plain version) result at kw's solve_prec."""
+    args = _march_args(fwd, phi0, u)
+    if form.startswith("blocked"):
+        fn = (km.march_fused_2d_blocked_plain if plain
+              else km.march_fused_2d_blocked)
+        return fn(*args, block_b=_BF16_FORMS[form]["block_b"], **kw)
+    if form == "segment":
+        fn = (km.march_fused_2d_segment_plain if plain
+              else km.march_fused_2d_segment)
+        return fn(*_segment_args(fwd, phi0, u, fwd.M), **kw)
+    return (km.march_fused_2d_plain if plain else km.march_fused_2d)(*args,
+                                                                    **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16x3", "default"])
+@pytest.mark.parametrize("form", list(_BF16_FORMS))
+def test_bf16_march_matches_plain(cuda, form, mode):
+    """The bf16 forms (apply_S on mma.sync) against their plain versions at
+    the same mode: phi within 1e-5, Newton solves within one a member,
+    first_bad equal; one launch of the bf16 form beside the float32 one,
+    whose bits it does not give."""
+    shape = _BF16_FORMS[form]
+    fwd, _, phi0, u, _ = _problem(cuda, n=shape["n"], m=shape["m"],
+                                  B=shape["B"], T=0.05)
+    kw = dict(_KW, solve_prec=mode)
+    before = (km.launch_counts(), km.bf16_launch_counts())
+    kern = _bf16_march(fwd, phi0, u, form, kw)
+    f32 = _bf16_march(fwd, phi0, u, form, _KW)
+    plain = _bf16_march(fwd, phi0, u, form, kw, plain=True)
+    torch.cuda.synchronize()
+    after = (km.launch_counts(), km.bf16_launch_counts())
+    assert [sum(a.values()) - sum(b.values())
+            for a, b in zip(after, before)] == [2, 1]
+    phi_k, phi_p = (kern[0], plain[0])
+    assert (phi_k - phi_p).abs().max().item() <= 1e-5
+    ns_k, ns_p, bad_k, bad_p = kern[-2], plain[-2], kern[-1], plain[-1]
+    assert (ns_k - ns_p).abs().max().item() <= 1
+    assert torch.equal(bad_k, bad_p) and (bad_k == -1).all()
+    assert not torch.equal(phi_k, f32[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,delta", [("smem_bytes", 16), ("kc", -4)])
+def test_bf16_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
+                                                     field, delta):
+    """The bf16 march recomputes its staging from (n, m, cluster, kc,
+    passes) and refuses shared-memory bytes other than its own."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=8, T=0.02)
+
+    def bad(n, m, B, sms):
+        g = km.blocked_geometry(n, m, B, sms, solve_passes=3)
+        return g._replace(**{field: getattr(g, field) + delta})
+    _with_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        km.march_fused_2d_blocked(*_march_args(fwd, phi0, u),
+                                  **dict(_KW, solve_prec="bf16x3"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16x3", "default"])
+def test_bf16_blocked_march_equals_the_one_member_march(cuda, mode):
+    """The bf16 forms sum each product in the same k-tile order whatever
+    the block: the blocked march (8, 4, 2 members a cluster) gives each
+    member the one-member bf16 march's history, Newton count and first_bad
+    bit for bit."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=16, T=0.05)
+    args = _march_args(fwd, phi0, u)
+    kw = dict(_KW, solve_prec=mode)
+    ref = km.march_fused_2d(*args, **kw)
+    for bb in (8, 4, 2):
+        out = km.march_fused_2d_blocked(*args, block_b=bb, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), bb
+
+
+@pytest.mark.cuda
+def test_bf16_march_bits_do_not_depend_on_the_cluster_size(cuda,
+                                                          monkeypatch):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=2, T=0.03)
+    args = _march_args(fwd, phi0, u)
+    kw = dict(_KW, solve_prec="bf16x3")
+    ref = km.march_fused_2d(*args, **kw)
+    for C in range(1, 17):
+        _segment_geometry(monkeypatch, lambda n, m, B, sms, members:
+                          km.blocked_geometry(n, m, B, sms, cluster=C,
+                                              members=members,
+                                              solve_passes=3))
+        out = km.march_fused_2d(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), C
 
 
 def _with_geometry(monkeypatch, make):

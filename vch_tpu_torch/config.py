@@ -32,12 +32,18 @@ ops.solve_kernels.per_solve_kernels_fit; off elsewhere), `pallas_variant`
 in vch_tpu), and `krylov_tol`, `krylov_max_iter` (the adaptive float64
 Krylov solves).
 
+`fused_solve_precision` is honored as vch_tpu honors it: the fused 2D
+march's Krylov operator runs at "bf16x3" (the default: three bf16 passes on
+the (hi, lo) split; on the card bf16 mma.sync), "default" (one bf16 pass)
+or, for None, "highest" or any other string, full precision; every other
+product of the march stays full precision (ops.march `_make_mm`).
+
 Fields accepted for interchangeability but NOT honored by the port:
-  fused_solve_precision,   — the kernels compute every product in full
-  adjoint_solve_precision,   float32 FMA (vch_tpu's 'highest'), and the
-  forward_matmul_precision   plain versions compute in full float32 too
-                             (vch_tpu's float32 per-step march runs at
-                             matmul precision 'high').
+  adjoint_solve_precision,   — the kernels compute those products in full
+  forward_matmul_precision     float32 FMA (vch_tpu's 'highest'), and the
+                               plain versions in full float32 too
+                               (vch_tpu's float32 per-step march runs at
+                               matmul precision 'high').
 Both configs carry every knob, so either loads the other package's dump;
 the 1D solvers honor `linsolve_1d` ("dense": the exact Schur solve by
 `torch.linalg.solve`, "spectral": the cosine-preconditioned BiCGStab,

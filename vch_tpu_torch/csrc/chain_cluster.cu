@@ -9,8 +9,6 @@
 //   - chain_mma_kernel<RT>: the same chains with bf16 operands on the
 //     tensor cores through mma.sync, K members per CTA, x resident in
 //     shared memory across the links (row 21 "bf16").
-#include <cuda_bf16.h>
-
 #include "cluster.cuh"
 
 namespace vch {
@@ -121,46 +119,13 @@ int launch_cluster(const float* A, const float* X, float* out, float* work,
 //     link orders the links; only the last link's float32 accumulators go
 //     to out.
 // Shared memory: 2 K NP (NP + 8) bf16, 225,280 bytes at K = 8, n = 65.
-// Each output sums its k tiles in the order of the wmma kernel, whose
+// ldmatrix and mma.sync come from mma_bf16.cuh. Each output sums its k tiles in the order of the wmma kernel, whose
 // 16 x 16 x 16 step is two m16n8k16 steps on this card, and rounds each
 // link's float32 sum to bf16 once, as that kernel does.
 constexpr int MMA_MAX_RT = 5;         // row tiles of 16: n <= 80
 
-__host__ __device__ constexpr int mma_np(int n) { return (n + 15) / 16 * 16; }
-
 constexpr size_t mma_smem_bytes(int n, int K) {
   return (size_t)2 * K * mma_np(n) * (mma_np(n) + 8) * sizeof(__nv_bfloat16);
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// d += a b over one 16 x 8 x 16 tile, bf16 operands, float32 accumulators
-// (registers only: the compiler may schedule it among the loads)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int RT>
@@ -332,11 +297,11 @@ extern "C" int vch_matmul_chain_mma(const float* A, const float* X,
                                     void* stream) {
   using namespace vch::chain;
   if (!chain_args_ok(A, X, out, B, n, K, L) ||
-      vch::chain::mma_np(n) > 16 * MMA_MAX_RT ||
+      vch::mma_np(n) > 16 * MMA_MAX_RT ||
       mma_smem_bytes(n, K) > 232448)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (mma_np(n) / 16) {
+  switch (vch::mma_np(n) / 16) {
     case 1: return launch_mma<1>(A, X, out, B, n, K, L, s);
     case 2: return launch_mma<2>(A, X, out, B, n, K, L, s);
     case 3: return launch_mma<3>(A, X, out, B, n, K, L, s);

@@ -29,11 +29,15 @@
 // over every thread of the cluster with one. Whatever reads an element in
 // another layout than the one that wrote it, or in a peer's band, waits at
 // a cluster barrier first: every left product and every reduction starts
-// with one. Full float32 FMA: no tensor cores, no TF32.
+// with one. Full float32 FMA: no tensor cores, no TF32; but product16, the
+// march's Krylov operator at a bf16 fused_solve_precision, which stages the
+// field as bf16 (hi, lo) in the ring's shared memory and multiplies on
+// mma.sync with float32 accumulators.
 #pragma once
 
 #include <mutex>
 
+#include "mma_bf16.cuh"
 #include "tile4.cuh"
 
 namespace vch {
@@ -316,6 +320,163 @@ struct Block {
     });
   }
 
+  // ---- bf16 products on the tensor cores ---------------------------------
+  // The products of the march's Krylov operator at fused_solve_precision
+  // "bf16x3" (passes 3) or "default" (passes 1), vch_tpu's _make_mm
+  // (pallas_march.py:47-75): operand a = hi + lo, each half rounded to bf16
+  // (nearest even); out = d0 + (d1 + d2), d0 = hi hi, d1 = lo hi, d2 = hi
+  // lo, each a separate float32 accumulator over k ascending (passes 1: d0
+  // alone). The same LEFT / RIGHT outputs, epilogue and band as `product`,
+  // computed transposed or not so that the field is the mma A operand:
+  //   LEFT:  out_b^T[j, i] = sum_k X_b^T[j, k] Op^T[k, i]: M = the members'
+  //          columns stacked (q = b m + j), N = this band's rows;
+  //   RIGHT: out_b[i, j] = sum_k X_b[r0 + i, k] Op[k, j]: M = the members'
+  //          band rows stacked (q = b R + i), N = the columns.
+  // The field is split into (hi, lo) as it is staged into shared memory
+  // (bf16, its own layout, rows 8 elements apart from a multiple of 16 so
+  // that ldmatrix reads no bank twice), in slabs of jt 16-row M tiles with
+  // every k; a warp takes one M tile and up to four 8-column N tiles. Op is
+  // the operator's fragment copy (the wrapper's, made once per launch):
+  // (rows + 8, ceil(K / 16), 4) uint4, row r of Op (LEFT) or of Op^T
+  // (RIGHT), k tile kt, lane t%4 = {hi(k 2t, 2t+1), hi(2t+8, 2t+9), lo(..),
+  // lo(..)} of that tile, zero past K and past the rows: one 16-byte read a
+  // lane gives a B fragment's hi and lo.
+  template <bool LEFT, class Ld, class St>
+  __device__ __forceinline__ void product16(const uint4* __restrict__ Op,
+                                            const float* X, int passes,
+                                            int jt, Ld ld, St st) {
+    constexpr int TW = 4;                       // N tiles of a warp's item
+    const bool three = passes == 3;
+    const int K = LEFT ? n : m, KT = (K + 15) >> 4, KP = KT << 4;
+    const int QD = LEFT ? m : R;                // M rows of one member
+    const int Q = MB * QD, NN = LEFT ? R : m;   // M and N extents
+    const int MT = (Q + 15) >> 4, NTT = (NN + 7) >> 3;
+    const int NG = (NTT + TW - 1) / TW;         // N groups of an M tile
+    const int JW = jt << 4;
+    const int LS = LEFT ? JW + 8 : KP + 8;      // slab row stride (bf16)
+    __nv_bfloat16* const sh = reinterpret_cast<__nv_bfloat16*>(ringA);
+    __nv_bfloat16* const sl = sh + (LEFT ? KP : JW) * LS;
+    const int warp = tid >> 5, gr = lane >> 2, tc = lane & 3;
+    const int orow = LEFT ? r0 : 0;             // Op's row of N index 0
+    auto put = [&](int off, float v0, float v1) {
+      const __nv_bfloat16 h0 = __float2bfloat16_rn(v0);
+      const __nv_bfloat16 h1 = __float2bfloat16_rn(v1);
+      *reinterpret_cast<__nv_bfloat162*>(sh + off) = __halves2bfloat162(h0, h1);
+      if (three)
+        *reinterpret_cast<__nv_bfloat162*>(sl + off) = __floats2bfloat162_rn(
+            v0 - __bfloat162float(h0), v1 - __bfloat162float(h1));
+    };
+    for (int mt0 = 0; mt0 < MT; mt0 += jt) {
+      const int q0 = mt0 << 4;
+      if (mt0) __syncthreads();                 // the last slab is read
+      if constexpr (LEFT) {                     // slab[k][q - q0]
+        each_rc(KP, JW / 2, [&](int k, int p) {
+          const int q = q0 + 2 * p;
+          float v[2] = {0.f, 0.f};
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (k < K && q + h < Q) {
+              const int b = (q + h) / QD;
+              v[h] = X[b * FS + (size_t)k * m + (q + h - b * QD)];
+            }
+          put(k * LS + 2 * p, v[0], v[1]);
+        });
+      } else {                                  // slab[q - q0][k]
+        each_rc(JW, KP / 2, [&](int qq, int p) {
+          const int q = q0 + qq, k = 2 * p;
+          float v[2] = {0.f, 0.f};
+          if (q < Q) {
+            const int b = q / QD;
+            const float* xr = X + b * FS + (size_t)(r0 + q - b * QD) * m;
+            if (k < K) v[0] = xr[k];
+            if (k + 1 < K) v[1] = xr[k + 1];
+          }
+          put(qq * LS + k, v[0], v[1]);
+        });
+      }
+      __syncthreads();
+      const int items = min(jt, MT - mt0) * NG;
+      for (int item = warp; item < items; item += NWARP) {
+        const int mi = item / NG, ng = item - mi * NG;
+        const int n0 = ng * NTT / NG, cnt = (ng + 1) * NTT / NG - n0;
+        const int c0 = mi << 4;
+        // ldmatrix row addresses: LEFT the transposed 8 x 8 quarters of
+        // slab rows k (a0..a3: k +0/+0/+8/+8, q +0/+8/+0/+8); RIGHT slab
+        // rows q (q +0/+8/+0/+8, k +0/+0/+8/+8)
+        const int aoff = LEFT
+            ? ((lane & 7) + ((lane >> 4) << 3)) * LS + c0 +
+                  (((lane >> 3) & 1) << 3)
+            : (c0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LS +
+                  ((lane >> 4) << 3);
+        const int astep = LEFT ? 16 * LS : 16;
+        const uint4* ob = Op + ((size_t)(orow + 8 * n0 + gr) * KT) * 4 + tc;
+        float acc[TW][3][4];
+#pragma unroll
+        for (int j = 0; j < TW; ++j)
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[j][p][v] = 0.f;
+        for (int kt = 0; kt < KT; ++kt) {
+          unsigned ah[4], al[4];
+          if constexpr (LEFT) {
+            ldsm_x4_trans(ah, sh + aoff + kt * astep);
+            if (three) ldsm_x4_trans(al, sl + aoff + kt * astep);
+          } else {
+            ldsm_x4(ah, sh + aoff + kt * astep);
+            if (three) ldsm_x4(al, sl + aoff + kt * astep);
+          }
+#pragma unroll
+          for (int j = 0; j < TW; ++j) {
+            if (j >= cnt) continue;
+            const uint4 bv = __ldg(ob + ((size_t)(8 * j) * KT + kt) * 4);
+            mma_bf16(acc[j][0], ah, bv.x, bv.y);
+            if (three) {
+              mma_bf16(acc[j][1], al, bv.x, bv.y);
+              mma_bf16(acc[j][2], ah, bv.z, bv.w);
+            }
+          }
+        }
+        // accumulator v: M row gr (+8 for v >= 2), N column 2 tc (+1 odd v)
+#pragma unroll
+        for (int j = 0; j < TW; ++j) {
+          if (j >= cnt) continue;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int q = q0 + c0 + gr + ((v >> 1) << 3);
+            const int c = 8 * (n0 + j) + 2 * tc + (v & 1);
+            if (q >= Q || c >= NN) continue;
+            const float x = three ? acc[j][0][v] + (acc[j][1][v] + acc[j][2][v])
+                                  : acc[j][0][v];
+            const int b = q / QD, r = q - b * QD;
+            const int e = LEFT ? (r0 + c) * m + r : (r0 + r) * m + c;
+            st(b, e, x, ld(b, e));
+          }
+        }
+      }
+    }
+  }
+  // Op X_b on bf16 after a cluster barrier (gemm_l's)
+  template <class Ld, class St>
+  __device__ __forceinline__ void gemm16_l(const uint4* Op, const float* X,
+                                           int passes, int jt, Ld ld, St st) {
+    cluster.sync();
+    product16<true>(Op, X, passes, jt, ld, st);
+  }
+  // X_b Op on bf16 on this band's rows (gemm_r's barrier)
+  template <class Ld, class St>
+  __device__ __forceinline__ void gemm16_r(const float* X, const uint4* Op,
+                                           int passes, int jt, Ld ld, St st) {
+    __syncthreads();
+    product16<false>(Op, X, passes, jt, ld, st);
+  }
+  __device__ __forceinline__ void gemm16_l_to(const uint4* Op, const float* X,
+                                              float* D, int passes, int jt) {
+    const size_t fs = FS;
+    gemm16_l(Op, X, passes, jt, [](int, int) { return None{}; },
+             [=](int b, int e, float x, None) { D[b * fs + e] = x; });
+  }
+
   // ---- elementwise passes and reductions ----------------------------------
   // For every element of every member with on(b): with MB members, pair
   // (b, w) is owned by warp pw of the cluster, its lane l takes e = 32 w + l,
@@ -472,6 +633,67 @@ int check_geometry(int n, int m, int C, int kc, int smem_bytes, BGeom& g) {
   return 0;
 }
 
+// M tiles of a slab of product16's staging: `tiles` in the fewest slabs of
+// at most `most`, as even as they go
+inline int slab_tiles(int tiles, int most) {
+  const int slabs = (tiles + most - 1) / most;
+  return (tiles + slabs - 1) / slabs;
+}
+
+// product16's staging for a block of MB members on geometry g (ops/march.py
+// blocked_geometry computes it too): the M tiles of a LEFT and of a RIGHT
+// slab, and the bytes of the larger (the (hi, lo) arrays at passes 3, hi
+// alone at 1), each slab as wide as fits in SMEM_LIMIT. False where not even
+// one tile fits.
+template <int MB>
+bool staging16(const BGeom& g, int n, int m, int passes, int& jt_left,
+               int& jt_right, size_t& bytes) {
+  const long arr = passes == 3 ? 2 : 1;
+  const long kpn = mma_np(n), kpm = mma_np(m);
+  const long most_l = ((long)SMEM_LIMIT / (2 * arr * kpn) - 8) / 16;
+  const long most_r = (long)SMEM_LIMIT / (2 * arr * 16 * (kpm + 8));
+  if (most_l < 1 || most_r < 1) return false;
+  jt_left = slab_tiles((MB * m + 15) / 16, (int)most_l);
+  jt_right = slab_tiles((MB * g.band.rmax + 15) / 16, (int)most_r);
+  const size_t left = 2 * arr * kpn * (16 * jt_left + 8);
+  const size_t right = 2 * arr * 16 * jt_right * (kpm + 8);
+  bytes = left > right ? left : right;
+  return true;
+}
+
+// check_geometry for the bf16 march: its shared memory is the larger of the
+// ring and product16's staging.
+template <int MB>
+int check_geometry16(int n, int m, int C, int kc, int smem_bytes, int passes,
+                     BGeom& g, int& jt_left, int& jt_right) {
+  if (n <= 1 || m <= 1 || C < 1 || C > MAX_C || C > n || kc < 4 || kc % 4 ||
+      (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  g = make_bgeom<MB>(n, m, C, kc);
+  size_t smem = 0;
+  if (!staging16<MB>(g, n, m, passes, jt_left, jt_right, smem))
+    return (int)cudaErrorInvalidValue;
+  const size_t ring = blocked_smem_bytes<MB>(g);
+  if (ring > smem) smem = ring;
+  if (smem != (size_t)smem_bytes || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// cudaOccupancyMaxActiveClusters of `kernel` on clusters of C CTAs with
+// smem_bytes each; a negative CUDA error code on failure.
+inline int occupancy(const void* kernel, LaunchState (&state)[16], int C,
+                     int smem_bytes) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = configure(kernel, state, cfg, attr, 1, C, smem_bytes, 0);
+  if (err) return -err;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel,
+                                                       &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
 // How many clusters of C CTAs of `kernel` (MB members per cluster) can be
 // resident at once on the current card with this geometry
 // (cudaOccupancyMaxActiveClusters); a negative CUDA error code on failure.
@@ -479,16 +701,8 @@ template <int MB>
 int max_clusters(const void* kernel, LaunchState (&state)[16], int n, int m,
                  int C, int kc, int smem_bytes) {
   BGeom g;
-  int err = check_geometry<MB>(n, m, C, kc, smem_bytes, g);
-  if (err) return -err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  err = configure(kernel, state, cfg, attr, 1, C, smem_bytes, 0);
-  if (err) return -err;
-  int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel,
-                                                       &cfg);
-  return e == cudaSuccess ? clusters : -(int)e;
+  const int err = check_geometry<MB>(n, m, C, kc, smem_bytes, g);
+  return err ? -err : occupancy(kernel, state, C, smem_bytes);
 }
 
 }  // namespace cluster

@@ -39,6 +39,21 @@
 // the one-member march's order exactly, as cluster.cuh sets out, so a
 // member's bits depend neither on the cluster size nor on the batch. Full
 // float32 FMA: no tensor cores, no TF32.
+//
+// The bf16 forms, march_bf16_kernel<MB, SEG> (one object each, -DVCH_PREC=1):
+// the same march with the Krylov operator apply_S's four products on bf16
+// mma.sync, vch_tpu's fused_solve_precision (pallas_march.py:207-214): at
+// "bf16x3" (its default) three single passes on the (hi, lo) split summed
+// d0 + (d1 + d2) (pallas_march.py:47-75), at "default" the one pass hi hi
+// (cluster.cuh product16). Every other product (the right-hand side's
+// transform and Laplacian, from_s, the residuals, the Armijo trials) stays
+// full float32, as in vch_tpu. Each product sums its k tiles in ascending
+// order from zero whatever the tiling, so these forms too give a member the
+// same bits at every cluster size and block. The float32 kernels above are
+// left as they were: the bf16 path is its own kernel and Args16, and the
+// float32 objects keep their SASS.
+#include <type_traits>
+
 #include "cluster.cuh"
 
 namespace vch {
@@ -103,12 +118,24 @@ struct Args {
   const int* active;
 };
 
+// The bf16 march's arguments: apply_S's four operators as product16's
+// fragment copies (Vx, Vx_inv; Vy, Vy_inv: the transposes of VyT, VyiT),
+// the passes (3: "bf16x3", 1: "default") and product16's slab widths.
+struct Args16 : Args {
+  const uint4 *vx, *vxi, *vy, *vyi;
+  int passes, jt_left, jt_right;
+};
+
+template <bool BF16>
+using ArgsOf = std::conditional_t<BF16, Args16, Args>;
+
 
 // One CTA's view of its block of MB members; SEG: a segment with the
-// carry in and out, the history its K post-step states. Every method is
+// carry in and out, the history its K post-step states; BF16: apply_S's
+// four products on product16 (the rest as without). Every method is
 // force-inlined into the kernel, so the state below lives in registers; the
 // per-member scalars live in `ctl`, in shared memory.
-template <int MB, bool SEG>
+template <int MB, bool SEG, bool BF16 = false>
 struct March : Block<MB> {
   using Base = Block<MB>;
   using Base::tid;
@@ -123,12 +150,12 @@ struct March : Block<MB> {
   using Base::gemm_l_to;
   using Base::gemm_r;
   using Base::gemm_r_to;
-  const Args& a;
+  const ArgsOf<BF16>& a;
   const FwdConst& c;
   Ctl<MB>& ctl;
   size_t HS, US;
 
-  __device__ __forceinline__ March(const Args& args, Ctl<MB>& ctl_,
+  __device__ __forceinline__ March(const ArgsOf<BF16>& args, Ctl<MB>& ctl_,
                                    float* smem)
       : Base(args.g, args.n, args.m, F_COUNT, args.work, smem, ctl_.red),
         a(args), c(args.c), ctl(ctl_) {
@@ -229,19 +256,35 @@ struct March : Block<MB> {
       return v / (poly(l) - ctl.dbar[b] * l);
     };
     auto apply_S = [&](const float* Y, float* OUT) {
-      gemm_l_to(a.Vx, Y, T1);
-      gemm_r(T1, a.VyT, [&](int b, int e) {
-        return Vals<1>{{dfield[b * fs + e]}};
-      }, [&](int b, int e, float v, const Vals<1>& in) {
-        T2[b * fs + e] = in.v[0] * v;
-      });
-      gemm_l_to(a.Vxi, T2, T1);
-      gemm_r(T1, a.VyiT, [&](int b, int e) {
-        return Vals<2>{{lam[e], Y[b * fs + e]}};
-      }, [&](int b, int e, float v, const Vals<2>& in) {
-        const float l = in.v[0];
-        OUT[b * fs + e] = poly(l) * in.v[1] - l * v;
-      });
+      if constexpr (BF16) {
+        this->gemm16_l_to(a.vx, Y, T1, a.passes, a.jt_left);
+        this->gemm16_r(T1, a.vy, a.passes, a.jt_right, [&](int b, int e) {
+          return Vals<1>{{dfield[b * fs + e]}};
+        }, [&](int b, int e, float v, const Vals<1>& in) {
+          T2[b * fs + e] = in.v[0] * v;
+        });
+        this->gemm16_l_to(a.vxi, T2, T1, a.passes, a.jt_left);
+        this->gemm16_r(T1, a.vyi, a.passes, a.jt_right, [&](int b, int e) {
+          return Vals<2>{{lam[e], Y[b * fs + e]}};
+        }, [&](int b, int e, float v, const Vals<2>& in) {
+          const float l = in.v[0];
+          OUT[b * fs + e] = poly(l) * in.v[1] - l * v;
+        });
+      } else {
+        gemm_l_to(a.Vx, Y, T1);
+        gemm_r(T1, a.VyT, [&](int b, int e) {
+          return Vals<1>{{dfield[b * fs + e]}};
+        }, [&](int b, int e, float v, const Vals<1>& in) {
+          T2[b * fs + e] = in.v[0] * v;
+        });
+        gemm_l_to(a.Vxi, T2, T1);
+        gemm_r(T1, a.VyiT, [&](int b, int e) {
+          return Vals<2>{{lam[e], Y[b * fs + e]}};
+        }, [&](int b, int e, float v, const Vals<2>& in) {
+          const float l = in.v[0];
+          OUT[b * fs + e] = poly(l) * in.v[1] - l * v;
+        });
+      }
     };
     // b = to_s(L Rphi - Rmu); x0 = 0
     lap(rp, [&](int b, int e) { return Vals<1>{{rm[b * fs + e]}}; },
@@ -627,9 +670,29 @@ __global__ void __launch_bounds__(NT, 1) march_blocked_kernel(Args a) {
   March<MB, SEG>(a, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
-
-// Per device: the attributes set so far on march_blocked_kernel<MB, SEG>.
+// march_blocked_kernel with apply_S's products on bf16 mma.sync
+// (fused_solve_precision "bf16x3" or "default"); the same flag rule.
 template <int MB, bool SEG>
+__global__ void __launch_bounds__(NT, 1) march_bf16_kernel(Args16 a) {
+  extern __shared__ float4 smem4[];
+  __shared__ Ctl<MB> ctl;
+  if constexpr (MB == 1 && !SEG) {
+    const int b = blockIdx.x / a.g.band.C;
+    if (a.active != nullptr && a.active[b] == 0) {
+      if (cg::this_cluster().block_rank() == 0 && threadIdx.x == 0) {
+        a.nsolve[b] = 0;
+        a.bad[b] = -1;
+      }
+      return;
+    }
+  }
+  March<MB, SEG, true>(a, ctl, reinterpret_cast<float*>(smem4)).run();
+}
+
+
+// Per device: the attributes set so far on march_blocked_kernel<MB, SEG>
+// (BF16: on march_bf16_kernel<MB, SEG>).
+template <int MB, bool SEG, bool BF16 = false>
 LaunchState (&launch_state())[16] {
   static LaunchState state[16];
   return state;
@@ -668,46 +731,138 @@ int launch(Args a, int B, const float* consts, int nconst, int cluster,
   return (int)cudaGetLastError();
 }
 
+// max_clusters of march_bf16_kernel<MB, SEG>, whose smem_bytes are its
+// geometry's at three passes or at one.
+template <int MB, bool SEG>
+int max_clusters16(int n, int m, int C, int kc, int smem_bytes) {
+  BGeom g;
+  int jl, jr;
+  int err = check_geometry16<MB>(n, m, C, kc, smem_bytes, 3, g, jl, jr);
+  if (err) err = check_geometry16<MB>(n, m, C, kc, smem_bytes, 1, g, jl, jr);
+  return err ? -err
+             : occupancy((const void*)march_bf16_kernel<MB, SEG>,
+                         launch_state<MB, SEG, true>(), C, smem_bytes);
+}
+
+// launch on march_bf16_kernel<MB, SEG>: a.passes and the operators set by
+// the caller; the geometry checked against product16's staging.
+template <int MB, bool SEG>
+int launch16(Args16 a, int B, const float* consts, int nconst, int cluster,
+             int kc, int smem_bytes, void* stream) {
+  if (nconst != FWD_NCONST || B <= 0 || B % MB || a.M <= 0 || !a.vx)
+    return (int)cudaErrorInvalidValue;
+  int err = check_geometry16<MB>(a.n, a.m, cluster, kc, smem_bytes, a.passes,
+                                 a.g, a.jt_left, a.jt_right);
+  if (err) return err;
+  float* dst = reinterpret_cast<float*>(&a.c);
+  for (int i = 0; i < FWD_NCONST; ++i) dst[i] = consts[i];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = configure((const void*)march_bf16_kernel<MB, SEG>,
+                  launch_state<MB, SEG, true>(), cfg, attr, B / MB, cluster,
+                  smem_bytes, (cudaStream_t)stream);
+  if (err) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, march_bf16_kernel<MB, SEG>,
+                                           a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace blocked
 }  // namespace vch
 
 // Compiled once per instantiation, in parallel (ops/_build.py): the object
 // of -DVCH_BB=MB (-DVCH_SEG=1: the segment march) holds
-// march_blocked_kernel<MB, SEG> and its launch and occupancy functions;
-// the -DVCH_BB=8 object also holds the C entries, which dispatch to the
-// others by member count.
+// march_blocked_kernel<MB, SEG> and its launch and occupancy functions,
+// with -DVCH_PREC=1 march_bf16_kernel<MB, SEG> and its own instead; the
+// -DVCH_BB=8 float32 object also holds the C entries, which dispatch to the
+// others by member count and passes.
 #ifndef VCH_BB
 #define VCH_BB 8
 #endif
 #ifndef VCH_SEG
 #define VCH_SEG 0
 #endif
+#ifndef VCH_PREC
+#define VCH_PREC 0
+#endif
 
 namespace vch {
 namespace blocked {
+#if VCH_PREC
+template int launch16<VCH_BB, (VCH_SEG != 0)>(Args16, int, const float*, int,
+                                              int, int, int, void*);
+template int max_clusters16<VCH_BB, (VCH_SEG != 0)>(int, int, int, int,
+                                                    int);
+#else
 template int launch<VCH_BB, (VCH_SEG != 0)>(Args, int, const float*, int,
                                             int, int, int, void*);
 template int max_clusters<VCH_BB, (VCH_SEG != 0)>(int, int, int, int, int);
+#endif
 }  // namespace blocked
 }  // namespace vch
 
-#if VCH_BB == 8 && !VCH_SEG
+#if VCH_BB == 8 && !VCH_SEG && !VCH_PREC
 namespace vch {
 namespace blocked {
 #define VCH_EXTERN(MB, SEG)                                                  \
   extern template int launch<MB, SEG>(Args, int, const float*, int, int,     \
                                       int, int, void*);                      \
   extern template int max_clusters<MB, SEG>(int, int, int, int, int);
+#define VCH_EXTERN16(MB, SEG)                                                \
+  extern template int launch16<MB, SEG>(Args16, int, const float*, int, int, \
+                                        int, int, void*);                    \
+  extern template int max_clusters16<MB, SEG>(int, int, int, int, int);
 VCH_EXTERN(4, false)
 VCH_EXTERN(2, false)
 VCH_EXTERN(1, false)
 VCH_EXTERN(1, true)
+VCH_EXTERN16(8, false)
+VCH_EXTERN16(4, false)
+VCH_EXTERN16(2, false)
+VCH_EXTERN16(1, false)
+VCH_EXTERN16(1, true)
 #undef VCH_EXTERN
+#undef VCH_EXTERN16
 
-// The whole march of B members, `members` per cluster.
+// product16's fragment copies of apply_S's operators, one buffer in the
+// order Vx, Vx_inv (n + 8 rows of ceil(n / 16) k tiles), Vy, Vy_inv (m + 8
+// rows of ceil(m / 16)), each (row, k tile) four uint4 (ops/march.py
+// _bf16_operators makes it); passes 0: none (the float32 march).
+Args16 with_ops16(const Args& a, const void* ops16, int passes) {
+  Args16 a16;
+  static_cast<Args&>(a16) = a;
+  const uint4* p = static_cast<const uint4*>(ops16);
+  const size_t ln = (size_t)(a.n + 8) * ((a.n + 15) / 16) * 4;
+  const size_t lm = (size_t)(a.m + 8) * ((a.m + 15) / 16) * 4;
+  a16.vx = p;
+  a16.vxi = p ? p + ln : nullptr;
+  a16.vy = p ? p + 2 * ln : nullptr;
+  a16.vyi = p ? p + 2 * ln + lm : nullptr;
+  a16.passes = passes;
+  a16.jt_left = a16.jt_right = 0;
+  return a16;
+}
+
+// The whole march of B members, `members` per cluster; passes 1 or 3 on
+// the bf16 kernel.
 int launch_whole(int members, const Args& a, int B, const float* consts,
                  int nconst, int cluster, int kc, int smem_bytes,
-                 void* stream) {
+                 const void* ops16, int passes, void* stream) {
+  if (passes) {
+    const Args16 a16 = with_ops16(a, ops16, passes);
+    switch (members) {
+      case 8: return launch16<8, false>(a16, B, consts, nconst, cluster, kc,
+                                        smem_bytes, stream);
+      case 4: return launch16<4, false>(a16, B, consts, nconst, cluster, kc,
+                                        smem_bytes, stream);
+      case 2: return launch16<2, false>(a16, B, consts, nconst, cluster, kc,
+                                        smem_bytes, stream);
+      case 1: return launch16<1, false>(a16, B, consts, nconst, cluster, kc,
+                                        smem_bytes, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (members) {
     case 8: return launch<8, false>(a, B, consts, nconst, cluster, kc,
                                     smem_bytes, stream);
@@ -744,12 +899,33 @@ extern "C" int vch_march_blocked_max_clusters(int members, int segment,
   }
 }
 
+// The same for the bf16 march, whose shared memory is the larger of the
+// ring and product16's staging (at three passes or at one).
+extern "C" int vch_march16_max_clusters(int members, int segment, int n,
+                                        int m, int cluster, int kc,
+                                        int smem_bytes) {
+  using namespace vch::blocked;
+  if (segment)
+    return members == 1 ? max_clusters16<1, true>(n, m, cluster, kc,
+                                                  smem_bytes)
+                        : -(int)cudaErrorInvalidValue;
+  switch (members) {
+    case 8: return max_clusters16<8, false>(n, m, cluster, kc, smem_bytes);
+    case 4: return max_clusters16<4, false>(n, m, cluster, kc, smem_bytes);
+    case 2: return max_clusters16<2, false>(n, m, cluster, kc, smem_bytes);
+    case 1: return max_clusters16<1, false>(n, m, cluster, kc, smem_bytes);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 // The member-blocked march of B members (B % members == 0, members 8, 4 or
 // 2) on clusters of `cluster` CTAs, with ring stages of kc rows and
 // smem_bytes of dynamic shared memory per CTA: the geometry of
 // ops/march.py blocked_geometry, checked here against the kernel's own.
-// Arguments otherwise as vch_march_fused_2d (march2d.cu); hist is
-// (B, M+1, n, m) with phi0 first, work (B, 33, n, m).
+// passes 0: apply_S in full float32; 3 or 1 ("bf16x3", "default"): on
+// bf16 mma.sync from ops16, product16's fragment copies of its operators
+// (with_ops16). Arguments otherwise as vch_march_fused_2d (march2d.cu);
+// hist is (B, M+1, n, m) with phi0 first, work (B, 33, n, m).
 extern "C" int vch_march_fused_2d_blocked(
     const float* dts, const float* phi0, const float* u, const float* Lx,
     const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
@@ -757,7 +933,7 @@ extern "C" int vch_march_fused_2d_blocked(
     int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int max_iter, int n_trips,
     int stagnation, int members, int cluster, int kc, int smem_bytes,
-    void* stream) {
+    const void* ops16, int passes, void* stream) {
   using namespace vch::blocked;
   if (members == 1) return (int)cudaErrorInvalidValue;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
@@ -765,14 +941,14 @@ extern "C" int vch_march_fused_2d_blocked(
                nsolve, first_bad, work, M, n, m, max_iter, n_trips,
                stagnation, {}, {}};
   return launch_whole(members, a, B, consts, nconst, cluster, kc, smem_bytes,
-                      stream);
+                      ops16, passes, stream);
 }
 
 // The whole march with one member per cluster of `cluster` CTAs: what
-// vch_march_fused_2d (march2d.cu) computes, bit for bit; arguments as
-// vch_march_fused_2d_blocked's for one member. active: (B,) flags, or null
-// for all; an inactive member gets nsolve 0 and first_bad -1, and its hist
-// rows are left as they were.
+// vch_march_fused_2d (march2d.cu) computes, bit for bit (passes 0);
+// arguments as vch_march_fused_2d_blocked's for one member. active: (B,)
+// flags, or null for all; an inactive member gets nsolve 0 and first_bad
+// -1, and its hist rows are left as they were.
 extern "C" int vch_march_fused_2d_cluster(
     const float* dts, const float* phi0, const float* u, const float* Lx,
     const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
@@ -780,21 +956,21 @@ extern "C" int vch_march_fused_2d_cluster(
     int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int max_iter, int n_trips,
     int stagnation, int cluster, int kc, int smem_bytes, const int* active,
-    void* stream) {
+    const void* ops16, int passes, void* stream) {
   using namespace vch::blocked;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
                nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
                nsolve, first_bad, work, M, n, m, max_iter, n_trips,
                stagnation, {}, {}, active};
   return launch_whole(1, a, B, consts, nconst, cluster, kc, smem_bytes,
-                      stream);
+                      ops16, passes, stream);
 }
 
 // One K-step segment of B members, one member per cluster of `cluster`
 // CTAs, with the (mu0, w0, global m0) carry in and (phi_f, mu_f, w_f) out;
 // hist is (B, K, n, m), the post-step states only; u (B, K+1, n, m). The
-// geometry as vch_march_fused_2d_cluster's; arguments otherwise as
-// vch_march_fused_2d_segment (march2d.cu).
+// geometry, ops16 and passes as vch_march_fused_2d_cluster's; arguments
+// otherwise as vch_march_fused_2d_segment (march2d.cu).
 extern "C" int vch_march_fused_2d_segment_cluster(
     const float* dts, const float* phi0, const float* mu0, const float* w0,
     const float* m0, const float* u, const float* Lx, const float* LyT,
@@ -803,13 +979,16 @@ extern "C" int vch_march_fused_2d_segment_cluster(
     float* mu_f, float* w_f, int* nsolve, int* first_bad, float* work, int B,
     int K, int n, int m, const float* consts, int nconst, int max_iter,
     int n_trips, int stagnation, int cluster, int kc, int smem_bytes,
-    void* stream) {
+    const void* ops16, int passes, void* stream) {
   using namespace vch::blocked;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
                mu0, w0, m0, hist, phi_f, mu_f, w_f,
                nsolve, first_bad, work, K, n, m, max_iter, n_trips,
                stagnation, {}, {}};
+  if (passes)
+    return launch16<1, true>(with_ops16(a, ops16, passes), B, consts, nconst,
+                             cluster, kc, smem_bytes, stream);
   return launch<1, true>(a, B, consts, nconst, cluster, kc, smem_bytes,
                          stream);
 }
-#endif  // VCH_BB == 8 && !VCH_SEG
+#endif  // VCH_BB == 8 && !VCH_SEG && !VCH_PREC

@@ -29,9 +29,11 @@ runs the plain versions on any device). Trip counts and Newton exits resolve
 as vch_tpu's do (forward2d.py:178-194, :337): float32 clamps the Krylov
 tolerance to 1e-6, `newton_rtol` is 0 in float64, the stagnation exit is on
 only in float32, the per-step marcher takes `krylov_fixed_iters` and the
-fused march `fused_krylov_fixed_iters`. vch_tpu's float32 march runs its
-products at matmul precision "high"; the port computes every product in full
-float32 (`forward_matmul_precision` is accepted, not honored).
+fused march `fused_krylov_fixed_iters`. The fused march's Krylov operator
+runs at `fused_solve_precision` (default "bf16x3"), as vch_tpu's
+(forward2d.py:350, :361). vch_tpu's float32 per-step march runs its products
+at matmul precision "high"; the port computes those in full float32
+(`forward_matmul_precision` is accepted, not honored).
 """
 from __future__ import annotations
 
@@ -445,7 +447,8 @@ class ForwardSolver2D(ForwardStep2D, nn.Module):
                     gamma=cfg.gamma, delta_sep=DELTA_SEP, area=cfg.Lx * cfg.Ly,
                     newton_tol=cfg.newton_tol, newton_rtol=self.rtol,
                     newton_max_iter=cfg.newton_max_iter, n_trips=self.n_trips,
-                    stagnation_exit=self.stagnation)
+                    stagnation_exit=self.stagnation,
+                    solve_prec=cfg.fused_solve_precision or "highest")
 
     def march_fused_batch(self, u: torch.Tensor, phi0: torch.Tensor,
                           active: Optional[torch.Tensor] = None):

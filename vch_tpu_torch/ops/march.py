@@ -29,6 +29,14 @@ plain versions run the per-member ones: the blocked TPU kernels compute each
 member exactly as the per-member kernels do (masked lockstep,
 pallas_march.py:1292-1296), which the tests hold against them.
 
+The forward march's Krylov operator (apply_S's four products) runs at the
+`solve_prec` it is given (the config's `fused_solve_precision`), as
+pallas_march.py:207-214 does: "bf16x3" three single bf16 passes on the
+(hi, lo) split, "default" one, anything else full precision (`_make_mm`);
+on CUDA tensors the bf16 modes launch the kernel's bf16 form
+(`march_bf16_kernel`, its products on mma.sync), counted in the wrapper's
+`bf16_launches` too. Every other product is full precision in every mode.
+
 One exactness-preserving change to the fixed-trip BiCGStab: the Pallas body
 masks a trip whose residual is at the noise floor or non-finite, and such a
 trip repeats identically until the trip budget ends, so both the plain
@@ -62,6 +70,51 @@ def _eps_mach(dtype) -> float:
 
 def _dot(a, b):
     return torch.sum(a * b)
+
+
+# products per element of the Krylov solve's operator (apply_S) by
+# `fused_solve_precision`: three bf16 passes, one, or (0) full precision
+SOLVE_PASSES = {"bf16x3": 3, "default": 1}
+
+
+def solve_passes(solve_prec) -> int:
+    """bf16 passes of apply_S's products for a `fused_solve_precision`
+    (pallas_march.py:207-214): 3 for "bf16x3", 1 for "default", 0 (full
+    precision) for None, "highest" or any other string."""
+    return SOLVE_PASSES.get(solve_prec, 0)
+
+
+def _bf16_split(a):
+    """a's round-to-nearest-even bf16 (hi, lo) split, a - hi rounded,
+    both as a's dtype."""
+    hi = a.to(torch.bfloat16).to(a.dtype)
+    return hi, (a - hi).to(torch.bfloat16).to(a.dtype)
+
+
+def _make_mm(dtype, mode):
+    """The product of apply_S at `mode` (pallas_march.py:47-75 `_make_mm`):
+    "bf16x3" splits both operands into round-to-nearest-even bf16 (hi, lo)
+    and returns d0 + (d1 + d2) of the three single-pass products hi hi,
+    lo hi, hi lo, each accumulated in `dtype`; "default" the one pass
+    bf16(a) bf16(c); any other mode torch.matmul in `dtype`. A bf16 product
+    is exact in float32, so `dtype` products of bf16 values are the single
+    passes. An operand may come split already (`_bf16_split`'s pair): the
+    march splits its constant operators once."""
+    passes = solve_passes(mode)
+    if passes == 0:
+        return torch.matmul
+
+    def split(a):
+        return a if isinstance(a, tuple) else _bf16_split(a.to(dtype))
+
+    def mm(a, c):
+        a16, ar = split(a)
+        c16, cr = split(c)
+        d0 = torch.matmul(a16, c16)
+        if passes == 1:
+            return d0
+        return d0 + (torch.matmul(ar, c16) + torch.matmul(a16, cr))
+    return mm
 
 
 def _bicgstab_fixed(apply_A, prec, r0, x0, best_x0, floor2, n_trips):
@@ -109,6 +162,10 @@ def _march_member(dts, phi0, u, ops, k, carry=None):
     after the last step)."""
     Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts = ops
     mm = torch.matmul
+    mm_s = _make_mm(phi0.dtype, k.get("solve_prec", "highest"))
+    # apply_S's operators, split once where its products run in bf16
+    Sx, SyT, Sxi, SyiT = ((Vx, VyT, Vxi, VyiT) if mm_s is mm else
+                          (_bf16_split(o) for o in (Vx, VyT, Vxi, VyiT)))
     tau, c1, c2, kappa, gamma = k["tau"], k["c1"], k["c2"], k["kappa"], k["gamma"]
     delta_sep = k["delta_sep"]
     lo, hi = -1.0 + delta_sep, 1.0 - delta_sep
@@ -169,8 +226,8 @@ def _march_member(dts, phi0, u, ops, k, carry=None):
             denom = poly - dbar * lam
 
             def apply_S(yh):
-                return poly * yh - lam * mm(mm(Vxi, d * mm(mm(Vx, yh), VyT)),
-                                            VyiT)
+                return poly * yh - lam * mm_s(
+                    mm_s(Sxi, d * mm_s(mm_s(Sx, yh), SyT)), SyiT)
 
             bvec = to_s(lap(Rphi) - Rmu)
             floor2 = ((50.0 * eps_mach) ** 2
@@ -289,6 +346,15 @@ def _check_block(B: int, block_b: int):
                          f"(B={B}, block_b={block_b})")
 
 
+def _refuse_prec(name: str, k):
+    """The one-CTA oracles compute every product in full float32: any
+    other solve precision raises, never falls back."""
+    if k["solve_prec"] not in (None, "highest"):
+        raise ValueError(f"{name} computes apply_S in full float32 only "
+                         f"(solve_prec 'highest'), got "
+                         f"{k['solve_prec']!r}")
+
+
 def _refuse_active(name: str, active):
     """Only the one-member whole march skips members: every other march
     raises when given the flag, never ignores it."""
@@ -349,11 +415,51 @@ def _op_shapes(n, m, with_wts=True):
 
 
 def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
-              newton_rtol, newton_max_iter, n_trips, stagnation_exit=True):
+              newton_rtol, newton_max_iter, n_trips, stagnation_exit=True,
+              solve_prec="highest"):
     return dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
                 delta_sep=delta_sep, area=area, newton_tol=newton_tol,
                 newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
-                n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit))
+                n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit),
+                solve_prec=solve_prec)
+
+
+def _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T):
+    """apply_S's four operators as the bf16 march's fragment copies, one
+    buffer (csrc/march2d_blocked.cu `with_ops16`, cluster.cuh
+    `product16`): Vx and Vx_inv (the LEFT products' B operands, their rows)
+    then Vy and Vy_inv (the RIGHT products', the rows of VyT^T and
+    Vy_inv_T^T), each padded with zeros to rows + 8 and to whole k tiles of
+    16, split into round-to-nearest-even bf16 hi and lo, and laid out
+    (row, k tile, t, [hi, lo], k + 8 half, pair): lane t's 16 bytes of a
+    row and k tile hold hi(k 2t, 2t+1), hi(2t+8, 2t+9), lo(..), lo(..)."""
+    def frag(P):
+        rows, K = P.shape
+        KT = -(-K // 16)
+        Pp = P.new_zeros((rows + 8, 16 * KT))
+        Pp[:rows, :K] = P
+        hi = Pp.to(torch.bfloat16)
+        lo = (Pp - hi.float()).to(torch.bfloat16)
+        return (torch.stack((hi, lo)).view(2, rows + 8, KT, 2, 4, 2)
+                .permute(1, 2, 4, 0, 3, 5).reshape(-1))
+    return torch.cat([frag(Vx), frag(Vx_inv), frag(VyT.T),
+                      frag(Vy_inv_T.T)])
+
+
+def _solve_operands(k, ops):
+    """(the fragment buffer or None, the bf16 passes) of a cluster march
+    launch at k's solve precision; ops from Lx on. The caller holds the
+    buffer until the launch is enqueued (the caching allocator then reuses
+    it only in stream order)."""
+    passes = solve_passes(k["solve_prec"])
+    if not passes:
+        return None, 0
+    Vx_inv, Vy_inv_T, Vx, VyT = ops[2:6]
+    return _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T), passes
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_march(wrapper, args, k, members=None, active=None):
@@ -361,7 +467,9 @@ def _launch_march(wrapper, args, k, members=None, active=None):
     `members` members per cluster (1, or 2, 4, 8: the member-blocked march)
     on the geometry of `launch_geometry`, or (None) on the one-CTA kernel of
     csrc/march2d.cu, the bit oracle. `active`: the one-member march's
-    (B,) int32 flags on the device (the other wrappers refuse it)."""
+    (B,) int32 flags on the device (the other wrappers refuse it). At a
+    bf16 solve precision the cluster kernel's bf16 form takes apply_S's
+    operators as `_bf16_operators` makes them, once per launch."""
     dts, phi0, u, *ops = args
     B, n, m = phi0.shape
     M = dts.shape[0]
@@ -376,8 +484,10 @@ def _launch_march(wrapper, args, k, members=None, active=None):
             raise ValueError(f"active must be a contiguous ({B},) int32 "
                              f"tensor on {dev}, got {tuple(active.shape)} "
                              f"{active.dtype} on {active.device}")
+    ops16, passes = _solve_operands(k, ops)
     geo = (None if members is None
-           else launch_geometry(n, m, B, dev, members=members))
+           else launch_geometry(n, m, B, dev, members=members,
+                                solve_passes=passes))
     lib = _build.load()
     hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
     nsolve = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -396,11 +506,14 @@ def _launch_march(wrapper, args, k, members=None, active=None):
     elif members == 1:
         err = lib.vch_march_fused_2d_cluster(
             *common, geo.cluster, geo.kc, geo.smem_bytes,
-            None if active is None else active.data_ptr(), stream)
+            _ptr(active), _ptr(ops16), passes, stream)
     else:
         err = lib.vch_march_fused_2d_blocked(*common, members, geo.cluster,
-                                             geo.kc, geo.smem_bytes, stream)
+                                             geo.kc, geo.smem_bytes,
+                                             _ptr(ops16), passes, stream)
     wrapper.launches += 1
+    if passes:
+        wrapper.bf16_launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return hist, nsolve, first_bad
 
@@ -410,7 +523,8 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
                    gamma: float, delta_sep: float, area: float,
                    newton_tol: float, newton_rtol: float,
                    newton_max_iter: int, n_trips: int,
-                   stagnation_exit: bool = True, active=None):
+                   stagnation_exit: bool = True, solve_prec: str = "highest",
+                   active=None):
     """The whole batched 2D forward march (pallas_march.py:393). On CUDA
     tensors each member runs on a thread-block cluster (`launch_geometry`
     with one member per cluster), bit for bit what the one-CTA kernel
@@ -430,14 +544,15 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
     first_bad -1 and an unspecified history (zeros in the plain version).
     """
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
-                  newton_rtol, newton_max_iter, n_trips, stagnation_exit)
+                  newton_rtol, newton_max_iter, n_trips, stagnation_exit,
+                  solve_prec)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d", phi0):
         return march_fused_2d_plain(*args, active=active, **k)
     return _launch_march(march_fused_2d, args, k, members=1, active=active)
 
 
-march_fused_2d.launches = 0
+march_fused_2d.launches = march_fused_2d.bf16_launches = 0
 
 
 def _march_fused_2d_cta(*args, active=None, **kw):
@@ -448,6 +563,7 @@ def _march_fused_2d_cta(*args, active=None, **kw):
     calls it. Arguments and results as `march_fused_2d`, without the flag."""
     _refuse_active("_march_fused_2d_cta", active)
     k = _march_kw(**kw)
+    _refuse_prec("_march_fused_2d_cta", k)
     if not _build.on_cuda("_march_fused_2d_cta", args[1]):
         return march_fused_2d_plain(*args, **k)
     return _launch_march(_march_fused_2d_cta, args, k)
@@ -478,7 +594,10 @@ class BlockedGeometry(NamedTuple):
     are stored `rows_pad` rows of `m_pad` floats apart in the ring; a
     product of the block has `units` 4 x 4 output units, run in `passes` of
     at most 768; its operands stream through a two-stage ring of `kc` k
-    rows; `smem_bytes` is the dynamic shared memory of one CTA."""
+    rows; `smem_bytes` is the dynamic shared memory of one CTA, with
+    `solve_passes` (the march at "bf16x3": 3, "default": 1) the larger of
+    the ring and the bf16 staging of its Krylov operator's products
+    (`bf16_staging`)."""
     members: int
     cluster: int
     bands: tuple
@@ -489,6 +608,7 @@ class BlockedGeometry(NamedTuple):
     passes: int
     kc: int
     smem_bytes: int
+    solve_passes: int = 0
 
 
 def blocked_cluster_size(n: int, B: int, sms: int, max_cluster: int = 16,
@@ -511,7 +631,9 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
                 2: "the blocked sweep",
                 1: "the one-member sweep (whole or segment sweep)"}
 # the cluster kernels launch_geometry fits, each with its own register
-# count, so its own residency: the march (csrc/march2d_blocked.cu), the
+# count, so its own residency: the march (csrc/march2d_blocked.cu) and its
+# bf16 form (the march at a bf16 solve precision; its geometry is the
+# march's with solve_passes), the
 # sweep (csrc/adjoint2d_cluster.cu) and the four per-solve kernels of
 # csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
 # spectral and the raw Schur solve, and the raw Schur solve's two cost
@@ -520,6 +642,7 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
 # their names by members per cluster, and their occupancy queries
 CLUSTER_KERNELS = {
     "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
+    "march16": (_MARCH_NAMES, "vch_march16_max_clusters"),
     "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
     "solve": ({1: "the adjoint step solve"},
               "vch_solve_cluster_max_clusters"),
@@ -547,11 +670,41 @@ def _kernel_names(kernel: str) -> dict:
     return CLUSTER_KERNELS[kernel][0]
 
 
+def _slab_tiles(tiles: int, most: int) -> int:
+    slabs = -(-tiles // most)
+    return -(-tiles // slabs)
+
+
+def bf16_staging(n: int, m: int, members: int, rows_max: int,
+                 passes: int) -> tuple:
+    """The shared memory of the bf16 march's products (csrc/cluster.cuh
+    `staging16`, which the kernel checks): the field operand staged as
+    bf16 (hi, lo) at 3 passes, hi alone at 1, in slabs of 16-row M tiles
+    with every k (rows 8 elements longer than a multiple of 16): a LEFT slab
+    of jt_left tiles of the members' stacked columns, (16 jt_left + 8)
+    mma_np(n) elements an array, a RIGHT slab of jt_right tiles of their
+    stacked band rows, 16 jt_right (mma_np(m) + 8); each as wide as fits in
+    BLOCKED_SMEM_LIMIT, its tiles spread evenly over the slabs. Returns
+    (jt_left, jt_right, bytes of the larger), or None where not even one
+    tile fits (n past 2,378 or m past 3,560 at 3 passes)."""
+    arr = 2 if passes == 3 else 1
+    kpn, kpm = -(-n // 16) * 16, -(-m // 16) * 16
+    most_l = (BLOCKED_SMEM_LIMIT // (2 * arr * kpn) - 8) // 16
+    most_r = BLOCKED_SMEM_LIMIT // (2 * arr * 16 * (kpm + 8))
+    if most_l < 1 or most_r < 1:
+        return None
+    jl = _slab_tiles(-(-members * m // 16), most_l)
+    jr = _slab_tiles(-(-members * rows_max // 16), most_r)
+    return jl, jr, max(2 * arr * kpn * (16 * jl + 8),
+                       2 * arr * 16 * jr * (kpm + 8))
+
+
 @lru_cache(maxsize=64)
 def blocked_geometry(n: int, m: int, B: int, sms: int,
                      max_cluster: int = 16, cluster: int | None = None,
                      members: int = BLOCK_MEMBERS,
-                     kernel: str = "march") -> BlockedGeometry:
+                     kernel: str = "march",
+                     solve_passes: int = 0) -> BlockedGeometry:
     """The cluster geometry of a cluster kernel (`kernel`, one of
     CLUSTER_KERNELS, which split a block alike) for B members on an (n, m)
     grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
@@ -561,9 +714,11 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     probes of the raw Schur solve, 8, 4, 2 or 1
     for the float32 chain probe (`ops.probe_kernels.matmul_chain`) and the
     microbench probe (`ops.probe_kernels.blocked_microbench`, B = members:
-    one cluster) (`blocked_cluster_size`; `cluster` overrides it). Raises
+    one cluster) (`blocked_cluster_size`; `cluster` overrides it);
+    `solve_passes` (the march only; `solve_passes(fused_solve_precision)`)
+    adds the bf16 staging of its Krylov operator's products. Raises
     ValueError when B is not a positive multiple of `members`, or when no
-    ring fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
+    ring, or no bf16 staging, fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
     names = _kernel_names(kernel)
     if members not in names:
         raise ValueError(f"the cluster {kernel} is built for "
@@ -581,12 +736,27 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     rmax = q + (rem > 0)
     rpad, mpad = -(-rmax // 4) * 4, -(-m // 4) * 4
     units = members * (rpad // 4) * (mpad // 4)
+    staging = 0
+    if solve_passes:
+        if kernel != "march":
+            raise ValueError(f"only the cluster march takes solve passes, "
+                             f"not the {kernel}")
+        fit = bf16_staging(n, m, members, rmax, solve_passes)
+        if fit is None:
+            arr = 2 if solve_passes == 3 else 1
+            need = max(2 * arr * -(-n // 16) * 16 * 24,
+                       2 * arr * 16 * (-(-m // 16) * 16 + 8))
+            raise ValueError(
+                f"{what} at {solve_passes} bf16 pass(es) on an ({n}, {m}) "
+                f"grid needs {need} bytes of shared memory per CTA for one "
+                f"M tile of its staging (at most {BLOCKED_SMEM_LIMIT})")
+        staging = fit[2]
     for kc in _BLOCKED_KC:
         smem = 4 * 2 * kc * (members * (rpad + mpad) + 4)
         if smem <= BLOCKED_SMEM_LIMIT:
             return BlockedGeometry(members, C, bands, rmax, rpad, mpad,
                                    units, -(-units // _BLOCKED_UNITS), kc,
-                                   smem)
+                                   max(smem, staging), solve_passes)
     raise ValueError(
         f"{what} on an ({n}, {m}) grid in clusters of {C} needs {smem} bytes "
         f"of shared memory per CTA (at most {BLOCKED_SMEM_LIMIT})")
@@ -608,7 +778,8 @@ def resident_clusters(device_index, n, m, C, kc, smem,
 
 def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
                     members: int = BLOCK_MEMBERS,
-                    kernel: str = "march") -> BlockedGeometry:
+                    kernel: str = "march",
+                    solve_passes: int = 0) -> BlockedGeometry:
     """`blocked_geometry` on `sms` SMs, made smaller where the card cannot
     hold all B / members clusters at once (`resident(geo)`: how many
     clusters of that geometry it holds): eight members per cluster first
@@ -619,34 +790,40 @@ def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
     against 35.8 ms a segment); with eight members at 65 x 65, B = 128 it
     is 6 (161.7 against 97.5 ms a march), at B = 256 3 (224.3 against
     187.4; PERF.md)."""
-    geo = blocked_geometry(n, m, B, sms, members=members, kernel=kernel)
+    geo = blocked_geometry(n, m, B, sms, members=members, kernel=kernel,
+                           solve_passes=solve_passes)
     clusters = B // members
     if (members == BLOCK_MEMBERS and geo.cluster > 8
             and resident(geo) < clusters):
         geo = blocked_geometry(n, m, B, sms, max_cluster=8, members=members,
-                               kernel=kernel)
+                               kernel=kernel, solve_passes=solve_passes)
     while geo.cluster > 1 and resident(geo) < clusters:
         geo = blocked_geometry(n, m, B, sms, cluster=geo.cluster - 1,
-                               members=members, kernel=kernel)
+                               members=members, kernel=kernel,
+                               solve_passes=solve_passes)
     return geo
 
 
 def launch_geometry(n: int, m: int, B: int, device,
                     members: int = BLOCK_MEMBERS, segment: bool = False,
-                    kernel: str = "march") -> BlockedGeometry:
+                    kernel: str = "march",
+                    solve_passes: int = 0) -> BlockedGeometry:
     """The geometry the cluster march, sweep or solve (`kernel`; with
-    segment, the segment march or sweep) launches on this card for B
-    members, `members` per cluster: `fitted_geometry` on its SM count and
-    on cudaOccupancyMaxActiveClusters of that kernel (the kernels take
-    their own registers, so a geometry fitted to one would over-commit
-    another). Raises RuntimeError if no cluster of it fits on the card."""
+    segment, the segment march or sweep; the march with solve_passes, its
+    bf16 kernel) launches on this card for B members, `members` per
+    cluster: `fitted_geometry` on its SM count and on
+    cudaOccupancyMaxActiveClusters of that kernel (the kernels take their
+    own registers, so a geometry fitted to one would over-commit another).
+    Raises RuntimeError if no cluster of it fits on the card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    held = "march16" if solve_passes else kernel   # whose occupancy
     resident = lambda g: resident_clusters(idx, n, m, g.cluster, g.kc,
                                            g.smem_bytes, members, segment,
-                                           kernel)
-    geo = fitted_geometry(n, m, B, sms, resident, members, kernel)
+                                           held)
+    geo = fitted_geometry(n, m, B, sms, resident, members, kernel,
+                          solve_passes)
     fit = resident(geo)
     if fit <= 0:
         raise RuntimeError(
@@ -663,7 +840,8 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                            area: float, newton_tol: float,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
-                           block_b: int = 8, active=None):
+                           solve_prec: str = "highest", block_b: int = 8,
+                           active=None):
     """The member-blocked march: block_b members (8, 4 or 2 on CUDA
     tensors, BLOCK_SIZES) in masked lockstep (pallas_march.py:1649), each
     block on a thread-block cluster (`launch_geometry`). Same contract as
@@ -672,7 +850,8 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
     It takes no active flag (ValueError)."""
     _refuse_active("march_fused_2d_blocked", active)
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
-                  newton_rtol, newton_max_iter, n_trips, stagnation_exit)
+                  newton_rtol, newton_max_iter, n_trips, stagnation_exit,
+                  solve_prec)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d_blocked", phi0):
         return march_fused_2d_blocked_plain(*args, block_b=block_b, **k)
@@ -683,7 +862,7 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
     return _launch_march(march_fused_2d_blocked, args, k, members=block_b)
 
 
-march_fused_2d_blocked.launches = 0
+march_fused_2d_blocked.launches = march_fused_2d_blocked.bf16_launches = 0
 
 
 def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
@@ -692,7 +871,7 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
                            delta_sep: float, area: float, newton_tol: float,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
-                           active=None):
+                           solve_prec: str = "highest", active=None):
     """One K-step segment of the march with the (phi, mu, w) state carried
     explicitly (pallas_march.py:479): mu0, w0 are the segment-start values
     and m0 (B,) the GLOBAL initial mass that the mass correction targets.
@@ -708,7 +887,8 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
     """
     _refuse_active("march_fused_2d_segment", active)
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
-                  newton_rtol, newton_max_iter, n_trips, stagnation_exit)
+                  newton_rtol, newton_max_iter, n_trips, stagnation_exit,
+                  solve_prec)
     args = (dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
             lam, wts)
     if not _build.on_cuda("march_fused_2d_segment", phi0):
@@ -716,7 +896,7 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
     return _launch_segment(march_fused_2d_segment, args, k, cluster=True)
 
 
-march_fused_2d_segment.launches = 0
+march_fused_2d_segment.launches = march_fused_2d_segment.bf16_launches = 0
 
 
 def _march_fused_2d_segment_cta(*args, active=None, **kw):
@@ -726,6 +906,7 @@ def _march_fused_2d_segment_cta(*args, active=None, **kw):
     Arguments and results as `march_fused_2d_segment`."""
     _refuse_active("_march_fused_2d_segment_cta", active)
     k = _march_kw(**kw)
+    _refuse_prec("_march_fused_2d_segment_cta", k)
     if not _build.on_cuda("_march_fused_2d_segment_cta", args[1]):
         return march_fused_2d_segment_plain(*args, **k)
     return _launch_segment(_march_fused_2d_segment_cta, args, k,
@@ -748,8 +929,10 @@ def _launch_segment(wrapper, args, k, cluster: bool):
                        ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
                       + list(zip(names, args[6:], shapes)), phi0.device)
     dev = phi0.device
+    ops16, passes = _solve_operands(k, args[6:])
     geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS,
-                           segment=True) if cluster else None)
+                           segment=True, solve_passes=passes)
+           if cluster else None)
     lib = _build.load()
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     hist = out((B, K, n, m))
@@ -769,8 +952,11 @@ def _launch_segment(wrapper, args, k, cluster: bool):
         err = lib.vch_march_fused_2d_segment(*common, stream)
     else:
         err = lib.vch_march_fused_2d_segment_cluster(
-            *common, geo.cluster, geo.kc, geo.smem_bytes, stream)
+            *common, geo.cluster, geo.kc, geo.smem_bytes, _ptr(ops16),
+            passes, stream)
     wrapper.launches += 1
+    if passes:
+        wrapper.bf16_launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return hist, phi_f, mu_f, w_f, nsolve, first_bad
 
@@ -1508,10 +1694,24 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              pk._while_probe_cta)
 
 
+# the cluster march's wrappers: besides `launches` (every launch) each
+# counts in `bf16_launches` those of its bf16 form (march_bf16_kernel, the
+# Krylov operator at fused_solve_precision "bf16x3" or "default")
+BF16_WRAPPERS = (march_fused_2d, march_fused_2d_blocked,
+                 march_fused_2d_segment)
+
+
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in BF16_WRAPPERS:
+        fn.bf16_launches = 0
+
+
+def bf16_launch_counts() -> dict:
+    """The cluster march wrappers' launches of their bf16 form, by name."""
+    return {fn.__name__: fn.bf16_launches for fn in BF16_WRAPPERS}
 
 
 def launch_counts() -> dict:
