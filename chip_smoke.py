@@ -66,6 +66,23 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                (the bf16 passes over the bf16 peak, the rest over FP32);
                phases 2-2c, 4's march and sweep alone, 14c and every one-CTA
                oracle's bit gate run at "highest", their inputs as before;
+  2q kernels — the cluster sweep's bf16 forms (adjoint_solve_precision
+               "bf16x3": its Krylov operator's four products on bf16
+               mma.sync) at their main paths' shapes, <1, false> at config
+               4's n = 129, B = 128, M = 100, <8, false> at the headline's
+               n = 65, B = 512 (blocks 4 and 2 and the one-member form
+               bit-gated against it), <1, true> at low memory's n = 257,
+               B = 32, K = 10, from a seeded march's history: the bf16 r
+               held to the float64 sweep on the first members (within
+               twice the farther of the plain float32 bf16x3 sweeps on the
+               card and on the CPU, _adjoint_gate's rule, and within 5e-3
+               of the plain bf16x3 sweep or twice the two plain sweeps'
+               spread where larger), one launch of the bf16 form and not
+               the float32 bits, two other cluster sizes bit for bit; both
+               forms' device ms in turns and their bounds; the same forms
+               at n = 33, M = 4, where the gate must also fail a control,
+               the bf16 form at one pass (at the main shapes whether it
+               fails is recorded);
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
@@ -181,6 +198,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                the blocked kernels' launches and CUDA-event milliseconds
                inside the timed window, by batch, beside phase 2b's
                one-CTA sweep at B = 512;
+  5a         — phase 5's run at adjoint_solve_precision "bf16x3", one
+               warm-up and 2 timed iterations: every sweep launch on the
+               blocked sweep's bf16 form, the cost descending, its mean
+               after 2 iterations within 1% relative of phase 5's (the
+               per-member largest difference recorded, not gated: vch_tpu
+               records up to 1.7% a member after 20 iterations);
   6 low mem  — config 5's grid: 256x256, T = 1, B = 32, K = 10, procedural
                ramp targets, routed by make_batched_problem_2d under the
                largest device-memory limit its full-memory estimate does
@@ -820,19 +843,228 @@ def check_bf16_form_case(c):
 
 
 def _geometry(km, torch, device, n, B, members, segment=False,
-              kernel="march"):
-    """The launch geometry of a cluster kernel for B members of an (n, n)
-    grid, `members` per cluster: cluster, CTAs, band rows, units, passes,
-    ring rows, shared bytes and how many such clusters the card holds."""
+              kernel="march", solve_passes=0):
+    """The launch geometry of a cluster kernel (with solve_passes, its bf16
+    form) for B members of an (n, n) grid, `members` per cluster: cluster,
+    CTAs, band rows, units, passes, ring rows, shared bytes and how many
+    such clusters the card holds."""
     g = km.launch_geometry(n, n, B, device, members=members,
-                           segment=segment, kernel=kernel)
+                           segment=segment, kernel=kernel,
+                           solve_passes=solve_passes)
     idx = torch.device(device).index or 0
     return dict(cluster=g.cluster, ctas=B // members * g.cluster,
                 band_rows=[r for _, r in g.bands], units=g.units,
                 passes=g.passes, kc=g.kc, smem_bytes=g.smem_bytes,
                 resident_clusters=km.resident_clusters(
                     idx, n, n, g.cluster, g.kc, g.smem_bytes, members,
-                    segment, kernel))
+                    segment, kernel + "16" if solve_passes else kernel))
+
+
+# (wrapper, n, B, T, float64-gated members, other cluster sizes): the
+# sweep's bf16 forms at their main paths' shapes: <1, false> at config 4's
+# (n = 129, B = 128, M = 100), <8, false> at the headline's (n = 65,
+# B = 512, M = 100; blocks 4 and 2 and the one-member form bit-gated
+# against it), <1, true> at low memory's (n = 257, B = 32, one K = 10
+# segment)
+SWEEP16_FORMS = (("adjoint_fused_2d", 129, 128, 1.0, 4, (2, 4)),
+                 ("adjoint_fused_2d_blocked", 65, 512, 1.0, 8, (1, 4)),
+                 ("adjoint_fused_2d_segment", 257, 32, 0.1, 2, (4, 2)))
+# the same forms at n = 33, M = 4 (tests/test_torch_cuda.py's control
+# shapes), where a float32 sweep lies ~7e-5 from float64 and one pass of
+# At's products ~3-6e-4 (the plain sweeps on the CPU): there the gate must
+# fail the one-pass control; at the main shapes any two float32 sweeps
+# (5e-3 at n = 129, 2e-2 at n = 257) lie farther apart than one pass moves r
+SWEEP16_CONTROLS = (("adjoint_fused_2d", 33, 4, 0.04, 4, ()),
+                    ("adjoint_fused_2d_blocked", 33, 16, 0.04, 16, ()),
+                    ("adjoint_fused_2d_segment", 33, 4, 0.04, 4, ()))
+
+
+def _adjoint_work16(n, B, M, n_trips, segment=False):
+    """(FP32 FLOPs, bf16 FLOPs, bytes) of a sweep launch whose Krylov
+    operator runs on the tensor cores: apply_At's products (4 for r0's
+    apply and 8 a trip, trips in full) three times as bf16 FLOPs, the rest
+    as _adjoint_work counts it."""
+    flops, nbytes = _adjoint_work(n, B, M, n_trips, segment)
+    krylov = 2.0 * n ** 3 * B * M * (4 + 8 * n_trips)
+    return flops - krylov, 3 * krylov, nbytes
+
+
+def sweep16_case(torch, device, form, n, B, T, gate_members, clusters,
+                 reps=1):
+    """Phase 2q at one form and its main path's shape: the sweep at
+    "highest" and at "bf16x3" (adjoint_solve_precision) on the cluster
+    kernel, from a seeded march's history (seeded phi_Q, b1, b2 and
+    terminal targets; the segment form from the terminal carry); on the
+    first `gate_members` members the plain sweep in float32 at "bf16x3",
+    on the card and on the CPU, and in float64 at "highest": each kernel's
+    and each plain version's relative distance from float64 (r; the
+    segment's carry out too), the two plain float32 sweeps' distance, the
+    bf16 form's launches and whether it gives the float32 bits; the
+    control, the bf16 form at one pass (`sweep_passes` replaced: no mode
+    selects it), and whether the gate fails it; the blocked
+    form at blocks 4 and 2 and the one-member bf16 form, and `clusters`,
+    each bit-gated against the bf16 launch; both forms' device ms in turns
+    (highest, bf16x3, bf16x3, highest; CUDA events), geometry and bound
+    (trips in full); the plain version's host ms."""
+    from vch_tpu_torch.config import DELTA_SEP
+    from vch_tpu_torch.models.adjoint2d import AdjointSolver2D
+    from vch_tpu_torch.models.forward2d import ForwardSolver2D
+    from vch_tpu_torch.ops import march as km
+    from vch_tpu_torch.ops.potential import init_phi_random_2d
+
+    # _seeded_march's phi0, and u drawn on the card (the host's generator
+    # took ~4 s a form at these batches)
+    fwd = ForwardSolver2D(_config(n - 1, T=T), device=device)
+    gen = torch.Generator(device).manual_seed(0)
+    phi0 = torch.as_tensor(np.stack([
+        init_phi_random_2d(n - 1, n - 1, DELTA_SEP, amp=0.1, seed=42 + i)
+        for i in range(B)]), dtype=torch.float32, device=device)
+    u = 0.1 * torch.randn((B, fwd.M + 1, n, n), device=device, generator=gen)
+    hist = km.march_fused_2d(fwd.dts, phi0, u, *fwd._ops(),
+                             **fwd._march_kw())[0]
+    del u
+    adj = AdjointSolver2D(fwd.config, device=device)
+    M, g = fwd.M, gate_members
+    segment, blocked = form.endswith("segment"), form.endswith("blocked")
+    phiQ = 0.3 * torch.randn(tuple(hist.shape), device=device, generator=gen)
+    b1 = torch.linspace(0.3, 5.0, B, device=device)
+    b2 = torch.linspace(13.0, 10.0, B, device=device)
+    phiT = 0.1 * phi0
+    if segment:
+        member = (hist, phiQ) + adj.terminal(hist[:, M], phiT, b2) + (b1,)
+    else:
+        member = (hist, phiQ, phiT, b1, b2)
+    ops = adj._ops()
+    kernel = getattr(km, form)
+    plain = getattr(km, form + "_plain")
+    v = dict(block_b=8) if blocked else {}
+    kw = lambda prec: dict(adj._kw(), solve_prec=prec)
+    run = lambda prec, **o: kernel(adj.dts, *member, *ops, **(o or v),
+                                   **kw(prec))
+    outs = lambda x: x if segment else (x,)
+    before = kernel.bf16_launches
+    k16 = outs(run("bf16x3"))
+    launches16 = kernel.bf16_launches - before
+    k32 = outs(run("highest"))
+    torch.cuda.synchronize()
+    sub = tuple(t[:g] for t in member)
+    plain_ms, p16 = _host_ms(torch, lambda: outs(plain(
+        adj.dts, *sub, *ops, **v, **kw("bf16x3"))))
+    p64 = outs(plain(adj.dts.double(), *(t.double() for t in sub),
+                     *(o.double() for o in ops), **v, **kw("highest")))
+    pcpu = tuple(t.to(device) for t in outs(plain(
+        adj.dts.cpu(), *(t.cpu() for t in sub), *(o.cpu() for o in ops),
+        **v, **kw("bf16x3"))))
+    real_passes = km.sweep_passes
+    km.sweep_passes = lambda prec: 1 if prec == "bf16x3" else 0
+    try:
+        k1 = outs(run("bf16x3"))
+    finally:
+        km.sweep_passes = real_passes
+    dist = lambda a: max(_rel(x[:g], y, y) for x, y in zip(a, p64))
+    out = dict(form=form, n=n, B=B, M=M, gate_members=g,
+               bf16_launches=launches16,
+               bits_of_highest=all(torch.equal(a, b)
+                                   for a, b in zip(k16, k32)),
+               finite=all(bool(torch.isfinite(t).all()) for t in k16),
+               rel_r_kernel_vs_f64=dist(k16),
+               rel_r_f32_kernel_vs_f64=dist(k32),
+               rel_r_plain_vs_f64=dist(p16),
+               rel_r_plain_cpu_vs_f64=dist(pcpu),
+               rel_r_plain_vs_plain_cpu=max(_rel(x, y, y)
+                                            for x, y in zip(p16, pcpu)),
+               rel_dr=max(_rel(x[:g], y, y) for x, y in zip(k16, p16)),
+               max_abs_dr=max((x[:g] - y).abs().max().item()
+                              for x, y in zip(k16, p16)),
+               one_pass_rel_r_vs_f64=dist(k1),
+               one_pass_rel_dr=max(_rel(x[:g], y, y)
+                                   for x, y in zip(k1, p16)),
+               plain_ms=plain_ms)
+    out["one_pass_fails_gate"] = bool(_sweep16_fails(
+        out, out["one_pass_rel_r_vs_f64"], out["one_pass_rel_dr"]))
+    same = lambda a: all(torch.equal(x, y) for x, y in zip(outs(a), k16))
+    # the entry point alone, once per form: its launches (the solvers'
+    # paths reach rows 2 and 6's bf16 forms only by a direct call)
+    out["entry_launches"] = {}
+    for bb in ((8, 4, 2) if blocked else (None,)):
+        before = kernel.bf16_launches
+        run("bf16x3", **({"block_b": bb} if bb else {}))
+        out["entry_launches"][bb or 1] = kernel.bf16_launches - before
+    if blocked:
+        out["blocks_equal"] = {bb: same(run("bf16x3", block_b=bb))
+                               for bb in (4, 2)}
+        out["one_member_equal"] = same(km.adjoint_fused_2d(
+            adj.dts, *member, *ops, **kw("bf16x3")))
+    members = v.get("block_b", 1)
+    out["geometry"] = _geometry(km, torch, device, n, B, members, segment,
+                                kernel="sweep", solve_passes=3)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fitted, out["other_clusters"] = km.launch_geometry, []
+    try:
+        for C in clusters:
+            gc = km.blocked_geometry(n, n, B, sms, cluster=C,
+                                     members=members, kernel="sweep",
+                                     solve_passes=3)
+            km.launch_geometry = lambda *a, **k: gc
+            out["other_clusters"].append(dict(cluster=C,
+                                              equal=same(run("bf16x3"))))
+    finally:
+        km.launch_geometry = fitted
+    for prec in ("highest", "bf16x3", "bf16x3", "highest"):
+        out.setdefault(f"{prec}_ms", []).append(
+            time_ms(lambda: run(prec), reps))
+    if blocked:      # blocks 4 and 2 once each, after the turns
+        out["bf16x3_ms_by_block"] = {
+            bb: time_ms(lambda: run("bf16x3", block_b=bb), reps)
+            for bb in (4, 2)}
+    trips = fwd.config.adjoint_krylov_fixed_iters
+    out["bound_ms"], out["bound_by"] = _bound16(*_adjoint_work16(
+        n, B, M, trips, segment))
+    out["highest_bound_ms"], _ = _bound(*_adjoint_work(n, B, M, trips,
+                                                       segment))
+    del hist, phiQ, member, k16, k32, k1
+    return out
+
+
+def _sweep16_fails(c, rel_r_vs_f64, rel_dr):
+    """The accuracy gate of phase 2q for a bf16 sweep lying rel_r_vs_f64
+    from the float64 sweep and rel_dr from the plain bf16x3 sweep on the
+    card: _adjoint_gate's float64 clause (within twice the farther of the
+    plain float32 bf16x3 sweeps on the card and on the CPU, +1e-6), and
+    within 5e-3 of the plain sweep or within twice the two plain sweeps'
+    distance where that is larger (check_segment_case's rule: at n = 257
+    any two float32 sweeps lie ~2e-2 apart)."""
+    fails = _adjoint_gate(dict(
+        rel_r_kernel_vs_f64=rel_r_vs_f64,
+        rel_r_plain_vs_f64=c["rel_r_plain_vs_f64"],
+        rel_r_plain_cpu_vs_f64=c["rel_r_plain_cpu_vs_f64"], rel_dr=0.0))
+    ceiling = max(5e-3, 2 * c["rel_r_plain_vs_plain_cpu"])
+    if rel_dr > ceiling:
+        fails.append(f"bf16 kernel vs plain rel {rel_dr} > {ceiling}")
+    return fails
+
+
+def check_sweep16_case(c, control=False):
+    """Phase 2q gates: the bf16 form launched once, finite, not the float32
+    bits; `_sweep16_fails` empty; the blocked forms and the one-member form
+    give its bits, and so does every cluster size tried; at the control
+    shapes (control) the gate fails the one-pass form."""
+    fails = _sweep16_fails(c, c["rel_r_kernel_vs_f64"], c["rel_dr"])
+    if control and not c["one_pass_fails_gate"]:
+        fails.append(f"the gate passes the one-pass control "
+                     f"({c['one_pass_rel_r_vs_f64']} from float64)")
+    if (c["bf16_launches"] != 1 or c["bits_of_highest"] or not c["finite"]
+            or set(c["entry_launches"].values()) != {1}):
+        fails.append(f"{c['bf16_launches']} bf16 launches, the float32 "
+                     f"bits {c['bits_of_highest']}, finite {c['finite']}")
+    if not all(c.get("blocks_equal", {}).values()) \
+            or not c.get("one_member_equal", True):
+        fails.append("the blocked bf16 forms differ from the one-member one")
+    if not all(o["equal"] for o in c["other_clusters"]):
+        fails.append("the bf16 sweep's bits depend on its cluster size")
+    if fails:
+        raise RuntimeError(f"phase 2q {c['form']} n={c['n']} B={c['B']}: "
+                           + "; ".join(fails))
 
 
 def check_blocked_case(c, short: bool):
@@ -3896,6 +4128,8 @@ def pgd_run(torch, device, prob, sc, iters, before_timed=None,
                 peak_bytes=torch.cuda.max_memory_allocated(device),
                 launches=launches, launches_bf16=launches_bf16,
                 solve_precision=getattr(cfg, "fused_solve_precision", None),
+                adjoint_solve_precision=getattr(
+                    cfg, "adjoint_solve_precision", None),
                 mean_cost_before=float(ch[0].mean()),
                 mean_cost_after=float(ch[-1].mean()),
                 mean_cost_history=ch.mean(axis=1).tolist(),
@@ -3905,8 +4139,9 @@ def pgd_run(torch, device, prob, sc, iters, before_timed=None,
 
 def check_main_path(res, launched, idle, bf16=()):
     """Finite, falling mean cost; every kernel of the path launched, and
-    the kernels of the other paths not; of the cluster march's wrappers in
-    `bf16`, the bf16 form launched each time."""
+    the kernels of the other paths not; of the cluster march's and sweep's
+    wrappers in `bf16`, the bf16 form launched each time, and of the
+    others never."""
     fails = [f"{k} never launched" for k in launched
              if res["launches"][k] <= 0]
     fails += [f"{k}: {res['launches_bf16'][k]} of {res['launches'][k]} "
@@ -5883,6 +6118,9 @@ def main():
          + " | adjoint2d_cluster.cu adjoint_cluster_kernel<MB,SEG> (8, 4, "
          "2: the blocked sweep; <1,0>: the whole sweep; <1,1>: the segment "
          "sweep): " + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
+         + ", adjoint_bf16_kernel<MB,SEG> (the same at "
+         "adjoint_solve_precision \"bf16x3\"): "
+         + _ptxas_named(_build.ptxas_log, "adjoint_bf16_kernel")
          + " | solve2d_cluster.cu schur_solve_cluster_kernel (row 8): "
          + _ptxas_named(_build.ptxas_log, "schur_solve_cluster_kernel")
          + ", solve_cluster_kernel (row 9): "
@@ -6009,6 +6247,16 @@ def main():
         _log("2p", json.dumps(c) + f" | {name} | {smi}")
     for c in bf16:
         check_bf16_form_case(c)
+    # the sweep's bf16 forms (rows 2, 4, 6 at adjoint_solve_precision
+    # "bf16x3") at their main paths' shapes, then at the control shapes
+    sweep16 = [sweep16_case(torch, device, *f) for f in SWEEP16_FORMS]
+    controls16 = [sweep16_case(torch, device, *f) for f in SWEEP16_CONTROLS]
+    for c in sweep16 + controls16:
+        _log("2q", json.dumps(c) + f" | {name} | {smi}")
+    for c in sweep16:
+        check_sweep16_case(c)
+    for c in controls16:
+        check_sweep16_case(c, control=True)
 
     solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
               for n in (65, 129, 257) for B in (None, 4)]
@@ -6229,6 +6477,21 @@ def main():
         c5, ch5, iters=3)
     _log("5h", json.dumps(c5h) + f" | {name} | {smi}")
     check_main_path(c5h, blocked, per_member + idle_segment + march_1d)
+    # phase 5a: the headline with the blocked sweep on its bf16 form
+    c5a, ch5a = pgd_run(torch, device, BatchedProblem2D(
+        _config(64, adjoint_solve_precision="bf16x3"), device=device), sc5,
+        iters=2, with_costs=True)
+    rel5a = np.abs(ch5a[-1] - ch5[2]) / np.abs(ch5[2])
+    c5a.update(mean_last_cost_rel_vs_phase5=float(abs(
+        ch5a[-1].mean() - ch5[2].mean()) / abs(ch5[2].mean())),
+        max_member_rel_vs_phase5=float(rel5a.max()))
+    _log("5a", json.dumps(c5a) + f" | {name} | {smi}")
+    check_main_path(c5a, blocked, per_member + idle_segment + march_1d,
+                    bf16=blocked)
+    if not c5a["mean_last_cost_rel_vs_phase5"] <= 0.01:
+        raise RuntimeError(f"phase 5a: mean cost after 2 iterations "
+                           f"{c5a['mean_last_cost_rel_vs_phase5']} from "
+                           f"phase 5's (at most 0.01)")
 
     # the largest limit under which the full-memory estimate does not fit
     # (est6 > 0.75 limit): the low-memory arm must run within it
@@ -6583,6 +6846,39 @@ def main():
     for k, e in by.items():
         if k in surface15:
             e["launches_phase15"] = surface15[k]
+    # rows 2, 4, 6 on their bf16 forms (adjoint_bf16_kernel<MB, SEG>) at
+    # adjoint_solve_precision "bf16x3", at their main paths' shapes (phase
+    # 2q): <8, false>'s launches those of phase 5a's run, the other forms'
+    # their entry point's own call (no default path reaches them: the
+    # knob's default is None, and the low-memory path runs its segment
+    # sweep at "highest", as vch_tpu's)
+    for (fn, line, form, bb), c in zip(
+            (("adjoint_fused_2d", 751, "1, false", None),
+             ("adjoint_fused_2d_blocked", 1905, "8, false", 8),
+             ("adjoint_fused_2d_segment", 819, "1, true", None)), sweep16):
+        for b in ((8, 4, 2) if bb else (None,)):
+            main = b == 8
+            e = entry(
+                f"{fn}[bf16x3]" + (f"[block {b}]" if b in (4, 2) else ""),
+                sweep_cu, f"{pm}:{line}",
+                (c5a["launches_bf16"][fn] if main
+                 else c["entry_launches"][b or 1]),
+                c["max_abs_dr"],
+                (c["bf16x3_ms_by_block"][b] if b in (4, 2)
+                 else mean(c["bf16x3_ms"])), c["plain_ms"],
+                _adjoint_work16(c["n"], c["B"], c["M"], trips_adj,
+                                segment=fn.endswith("segment")),
+                shape=f"ms, bound_ms: n={c['n']}, B={c['B']}, M={c['M']} "
+                      f"(phase 2q); max_abs_err, plain_ms: its first "
+                      f"{c['gate_members']} members")
+            e.update(kernel="adjoint_bf16_kernel<"
+                            + (f"{b}, false>" if b else f"{form}>"),
+                     solve_precision="bf16x3",
+                     launches_from="phase 5a" if main
+                     else "the entry point's own call (phase 2q)",
+                     highest_ms=mean(c["highest_ms"]),
+                     highest_bound_ms=c["highest_bound_ms"])
+            kernels.append(e)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

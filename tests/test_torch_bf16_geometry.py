@@ -69,9 +69,13 @@ def test_a_grid_past_the_staging_raises_with_its_bytes(passes):
 
 
 def test_only_the_march_takes_solve_passes():
-    with pytest.raises(ValueError, match="only the cluster march"):
-        blocked_geometry(65, 65, 8, H100_SMS, members=1, kernel="sweep",
+    """The cluster march and, since the sweep's bf16 forms, the cluster
+    sweep take solve passes; every other cluster kernel raises."""
+    with pytest.raises(ValueError, match="only the cluster march and sweep"):
+        blocked_geometry(65, 65, 8, H100_SMS, members=1, kernel="solve",
                          solve_passes=3)
+    assert blocked_geometry(65, 65, 8, H100_SMS, members=1, kernel="sweep",
+                            solve_passes=3).solve_passes == 3
     assert [solve_passes(p) for p in ("bf16x3", "default", "highest",
                                       None)] == [3, 1, 0, 0]
 

@@ -16,7 +16,9 @@ segment), solves (spectral and raw Schur, spectral and raw adjoint) and the raw
 Schur solve's two cost probes and their one-CTA oracles at every batch and
 cluster size; so are the march's bf16 forms (fused_solve_precision
 "bf16x3", "default") among themselves, each within 1e-5 of its plain
-version at the same mode. The one-member march's per-member flag: an active member bit for bit
+version at the same mode, and the sweep's bf16 forms
+(adjoint_solve_precision "bf16x3"), each within 2e-3 relative of its plain
+version. The one-member march's per-member flag: an active member bit for bit
 the launch without it, an inactive one nsolve 0 and first_bad -1.
 The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
@@ -798,6 +800,168 @@ def test_one_member_sweep_c_entry_refuses_a_geometry_not_its_own(
     _sweep_geometry(monkeypatch, bad)
     with pytest.raises(RuntimeError, match="launch failed"):
         km.adjoint_fused_2d(*aargs, **adj._kw())
+
+
+# the bf16 forms of the cluster sweep (adjoint_solve_precision "bf16x3"):
+# each against its plain version at "bf16x3"
+_SWEEP16_FORMS = {"one_member": dict(n=33, B=4), "blocked_8": dict(n=33, B=16),
+                  "blocked_4": dict(n=33, B=8), "blocked_2": dict(n=33, B=8),
+                  "segment": dict(n=65, B=2)}
+
+
+def _bf16_sweep(adj, aargs, form, prec, plain=False, cast=list):
+    """A sweep form's kernel (or plain version) result at `prec`, on its
+    arguments passed through `cast` (the plain version's in float64 or on
+    the CPU)."""
+    kw = dict(adj._kw(), solve_prec=prec)
+    if form.startswith("blocked"):
+        fn = (km.adjoint_fused_2d_blocked_plain if plain
+              else km.adjoint_fused_2d_blocked)
+        return fn(*cast(aargs), block_b=int(form[-1]), **kw)
+    if form == "segment":      # the last K = M - 1 steps, the zero dt first
+        fn = (km.adjoint_fused_2d_segment_plain if plain
+              else km.adjoint_fused_2d_segment)
+        K = aargs[0].shape[0] - 1
+        return fn(*cast(_segment_sweep_args(adj, aargs, K)), **kw)[0]
+    return (km.adjoint_fused_2d_plain if plain
+            else km.adjoint_fused_2d)(*cast(aargs), **kw)
+
+
+def _f64_distances(adj, aargs, form, kern):
+    """(the kernel's, the farther plain float32 bf16x3 sweep's, on the card
+    or on the CPU) largest relative distance from the float64 plain sweep,
+    on the same inputs: chip_smoke's _adjoint_gate reference (one plain
+    sweep's distance is no stable reference at n = 65)."""
+    rel = lambda a, b: ((a.to(b).double() - b).abs().max()
+                        / b.abs().max()).item()
+    r64 = _bf16_sweep(adj, aargs, form, "highest", plain=True,
+                      cast=lambda a: [t.double() for t in a])
+    plains = (_bf16_sweep(adj, aargs, form, "bf16x3", plain=True),
+              _bf16_sweep(adj, aargs, form, "bf16x3", plain=True,
+                          cast=lambda a: [t.cpu() for t in a]))
+    return rel(kern, r64), max(rel(p, r64) for p in plains)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(_SWEEP16_FORMS))
+def test_bf16_sweep_matches_plain(cuda, form):
+    """The sweep's bf16 forms (apply_At on mma.sync) against their plain
+    versions at "bf16x3": r within test_adjoint_kernel_matches_plain's 2e-3
+    relative, and no farther from the float64 sweep than twice the farther
+    plain float32 one (+1e-6; chip_smoke's _adjoint_gate); the zero-dt
+    copy kept;
+    one launch of the bf16 form beside the float32 one, whose bits it does
+    not give."""
+    shape = _SWEEP16_FORMS[form]
+    adj, aargs = _sweep_inputs(cuda, shape["n"], shape["B"], T=0.04)
+    before = (km.launch_counts(), km.bf16_launch_counts())
+    kern = _bf16_sweep(adj, aargs, form, "bf16x3")
+    f32 = _bf16_sweep(adj, aargs, form, "highest")
+    plain = _bf16_sweep(adj, aargs, form, "bf16x3", plain=True)
+    torch.cuda.synchronize()
+    after = (km.launch_counts(), km.bf16_launch_counts())
+    assert [sum(a.values()) - sum(b.values())
+            for a, b in zip(after, before)] == [2, 1]
+    assert bool(torch.isfinite(kern).all())
+    zero = 0 if form == "segment" else 1             # the zero-dt copy
+    assert torch.equal(kern[:, zero], kern[:, zero + 1])
+    rel = (kern - plain).abs().max().item() / plain.abs().max().item()
+    assert rel <= 2e-3, rel
+    assert not torch.equal(kern, f32)
+    d_kern, d_plain = _f64_distances(adj, aargs, form, kern)
+    assert d_kern <= 2 * d_plain + 1e-6, (d_kern, d_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["one_member", "blocked_8", "segment"])
+def test_bf16_sweep_gate_fails_a_one_pass_sweep(cuda, monkeypatch, form):
+    """A control of the float64 clause of test_bf16_sweep_matches_plain
+    (and of chip_smoke's phase 2q): the bf16 sweep made to run At's
+    products at one pass (product16's hi x hi alone; no solve precision
+    selects it) lies farther from the float64 sweep than twice the farther
+    plain float32 bf16x3 sweep, where the three-pass form does not. At n = 33,
+    M = 4: where the float32 noise floor is low enough to see a pass."""
+    B = {"one_member": 4, "blocked_8": 16, "segment": 4}[form]
+    adj, aargs = _sweep_inputs(cuda, 33, B, T=0.04)
+    three = _bf16_sweep(adj, aargs, form, "bf16x3")
+    monkeypatch.setattr(km, "sweep_passes",
+                        lambda prec: 1 if prec == "bf16x3" else 0)
+    one = _bf16_sweep(adj, aargs, form, "bf16x3")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(one).all()) and not torch.equal(one, three)
+    d_three, d_plain = _f64_distances(adj, aargs, form, three)
+    d_one, _ = _f64_distances(adj, aargs, form, one)
+    assert d_three <= 2 * d_plain + 1e-6, (d_three, d_plain)
+    assert d_one > 2 * d_plain + 1e-6, (d_one, d_plain)
+
+
+def _sweep16_geometry(monkeypatch, make):
+    """Make the bf16 cluster sweep launch on make(n, m, B, sms, members)."""
+    def launch_geometry(n, m, B, device, members=km.BLOCK_MEMBERS, **kw):
+        assert kw.get("kernel") == "sweep" and kw.get("solve_passes") == 3
+        sms = torch.cuda.get_device_properties(
+            torch.device(device)).multi_processor_count
+        return make(n, m, B, sms, members)
+    monkeypatch.setattr(km, "launch_geometry", launch_geometry)
+
+
+@pytest.mark.cuda
+def test_bf16_blocked_sweep_equals_the_one_member_sweep(cuda):
+    """The bf16 forms sum each product in the same k-tile order whatever
+    the block: the blocked sweep (8, 4, 2 members a cluster) gives each
+    member the one-member bf16 sweep's r bit for bit."""
+    adj, aargs = _sweep_inputs(cuda, 33, 16, T=0.04)
+    kw = dict(adj._kw(), solve_prec="bf16x3")
+    ref = km.adjoint_fused_2d(*aargs, **kw)
+    for bb in (8, 4, 2):
+        out = km.adjoint_fused_2d_blocked(*aargs, block_b=bb, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), bb
+
+
+@pytest.mark.cuda
+def test_bf16_sweep_bits_do_not_depend_on_the_cluster_size(cuda,
+                                                           monkeypatch):
+    """The whole and the segment bf16 sweep on forced clusters of every
+    size 1-16, the blocked one on 1, 2, 4, 8 and 16: the bits of the
+    launch on its own geometry."""
+    adj, aargs = _sweep_inputs(cuda, 33, 8, T=0.04)
+    kw = dict(adj._kw(), solve_prec="bf16x3")
+    sargs = _segment_sweep_args(adj, aargs, 3)
+    ref = km.adjoint_fused_2d(*aargs, **kw)
+    sref = km.adjoint_fused_2d_segment(*sargs, **kw)
+    for C in range(1, 17):
+        _sweep16_geometry(monkeypatch, lambda n, m, B, sms, members:
+                          km.blocked_geometry(n, m, B, sms, cluster=C,
+                                              members=members, kernel="sweep",
+                                              solve_passes=3))
+        out = km.adjoint_fused_2d(*aargs, **kw)
+        seg = km.adjoint_fused_2d_segment(*sargs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), C
+        for a, b in zip(seg, sref):
+            assert torch.equal(a, b), C
+        if C & (C - 1) == 0:
+            br = km.adjoint_fused_2d_blocked(*aargs, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(br, ref), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["one_member", "blocked_8", "segment"])
+def test_bf16_sweep_c_entry_refuses_a_geometry_not_its_own(cuda, monkeypatch,
+                                                           form):
+    """The bf16 sweep recomputes its staging from (n, m, cluster, kc) at
+    three passes and refuses shared-memory bytes other than its own."""
+    adj, aargs = _sweep_inputs(cuda, 33, 8, T=0.03, zero_dt=False)
+
+    def bad(n, m, B, sms, members):
+        g = km.blocked_geometry(n, m, B, sms, members=members, kernel="sweep",
+                                solve_passes=3)
+        return g._replace(smem_bytes=g.smem_bytes + 16)
+    _sweep16_geometry(monkeypatch, bad)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _bf16_sweep(adj, aargs, form, "bf16x3")
 
 
 def _solve_inputs(device, dtype, n=65, B=4, seed=0):

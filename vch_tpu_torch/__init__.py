@@ -16,9 +16,10 @@ import torch as _torch
 
 # Full float32 products everywhere but where a config asks otherwise (the
 # fused march's Krylov operator at fused_solve_precision "bf16x3", the
-# default, or "default": bf16 passes, as in vch_tpu). The adjoint step
-# operator reaches condition ~1e6, and reduced-precision products (TF32
-# keeps ~10 mantissa bits) turn its Krylov solve into NaNs — the
+# default, or "default"; the fused sweep's at adjoint_solve_precision
+# "bf16x3": bf16 passes, as in vch_tpu). The adjoint step operator reaches
+# condition ~1e6, and reduced-precision products (TF32 keeps ~10 mantissa
+# bits) turn its Krylov solve into NaNs — the
 # counterpart of the jax_default_matmul_precision='highest' pin in
 # vch_tpu/__init__.py. Both flags are set explicitly: cuDNN's TF32 default
 # is on.

@@ -37,13 +37,19 @@ march's Krylov operator runs at "bf16x3" (the default: three bf16 passes on
 the (hi, lo) split; on the card bf16 mma.sync), "default" (one bf16 pass)
 or, for None, "highest" or any other string, full precision; every other
 product of the march stays full precision (ops.march `_make_mm`).
+`adjoint_solve_precision` is honored likewise: the fused 2D sweep's Krylov
+operator runs at "bf16x3" (three bf16 passes; on the card bf16 mma.sync)
+or, for None (the default) or any other string, full precision; every
+other product of the sweep, and the low-memory path's segment sweep (which
+vch_tpu runs at "highest"), stays full precision (ops.march
+`sweep_passes`).
 
-Fields accepted for interchangeability but NOT honored by the port:
-  adjoint_solve_precision,   — the kernels compute those products in full
-  forward_matmul_precision     float32 FMA (vch_tpu's 'highest'), and the
-                               plain versions in full float32 too
-                               (vch_tpu's float32 per-step march runs at
-                               matmul precision 'high').
+Field accepted for interchangeability but NOT honored by the port:
+  forward_matmul_precision   — vch_tpu sets it as jax's default matmul
+                               precision around its float32 per-step march
+                               ('high'), which only a TPU lowering reads;
+                               the port computes those products in full
+                               float32.
 Both configs carry every knob, so either loads the other package's dump;
 the 1D solvers honor `linsolve_1d` ("dense": the exact Schur solve by
 `torch.linalg.solve`, "spectral": the cosine-preconditioned BiCGStab,

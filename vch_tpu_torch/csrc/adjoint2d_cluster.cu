@@ -45,6 +45,20 @@
 // each elementwise expression, written here as there, rounds the same. So a
 // member's bits depend neither on the cluster size nor on the batch, and
 // equal the one-CTA sweep's. Full float32 FMA: no tensor cores, no TF32.
+//
+// The bf16 forms, adjoint_bf16_kernel<MB, SEG> (one object each,
+// -DVCH_PREC=1): the same sweep with the Krylov operator At's four products
+// on bf16 mma.sync at vch_tpu's adjoint_solve_precision "bf16x3"
+// (pallas_march.py:677-686): three single passes on the (hi, lo) split
+// summed d0 + (d1 + d2) (cluster.cuh product16). Every other product (bt,
+// y0, p_n, the Laplacians, the terminal solve) stays full float32, as in
+// vch_tpu. Each product sums its k tiles in ascending order from zero
+// whatever the tiling, so these forms too give a member the same bits at
+// every cluster size and block. The float32 kernels are left as they were:
+// the bf16 path is its own kernel and AdjArgs16, and the float32 objects
+// keep their SASS.
+#include <type_traits>
+
 #include "adjoint_solve.cuh"
 
 namespace vch {
@@ -59,13 +73,26 @@ struct SweepSlots {
          T2 = A_T2 };
 };
 
+// The bf16 sweep's arguments: At's four operators as product16's fragment
+// copies, the passes (3: "bf16x3"; 1: one pass, which no solve precision
+// selects, since vch_tpu offers no one-pass sweep: a control for the tests,
+// a deliberately coarser At) and product16's slab widths.
+struct AdjArgs16 : AdjArgs {
+  Ops16 ops16;
+  int passes, jt_left, jt_right;
+};
+
+template <bool BF16>
+using AdjArgsOf = std::conditional_t<BF16, AdjArgs16, AdjArgs>;
+
 // One CTA's view of its block of MB members; SEG: a segment with the
-// carry in and out. Every method is force-inlined into the kernel, so the
-// state below lives in registers; the per-member scalars live in `ctl`, in
+// carry in and out; BF16: the solve's At on product16 (the rest as
+// without). Every method is force-inlined into the kernel, so the state
+// below lives in registers; the per-member scalars live in `ctl`, in
 // shared memory.
-template <int MB, bool SEG>
-struct Sweep : adj::Solve<MB, AdjArgs, SweepSlots> {
-  using Base = adj::Solve<MB, AdjArgs, SweepSlots>;
+template <int MB, bool SEG, bool BF16 = false>
+struct Sweep : adj::Solve<MB, AdjArgsOf<BF16>, SweepSlots, false, BF16> {
+  using Base = adj::Solve<MB, AdjArgsOf<BF16>, SweepSlots, false, BF16>;
   using Base::nm;
   using Base::b0;
   using Base::FS;
@@ -81,7 +108,8 @@ struct Sweep : adj::Solve<MB, AdjArgs, SweepSlots> {
   using Base::ctl;
   size_t HS, RS;
 
-  __device__ __forceinline__ Sweep(const AdjArgs& args, const BGeom& g,
+  __device__ __forceinline__ Sweep(const AdjArgsOf<BF16>& args,
+                                   const BGeom& g,
                                    adj::Ctl<MB>& ctl_, float* smem)
       : Base(args, g, ctl_, smem, A_COUNT) {
     HS = (size_t)(a.M + 1) * nm;                // member stride of hist, phiQ
@@ -235,8 +263,19 @@ __global__ void __launch_bounds__(NT, 1)
   Sweep<MB, SEG>(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
-// Per device: the attributes set so far on adjoint_cluster_kernel<MB, SEG>.
+// adjoint_cluster_kernel with At's products on bf16 mma.sync
+// (adjoint_solve_precision "bf16x3").
 template <int MB, bool SEG>
+__global__ void __launch_bounds__(NT, 1)
+    adjoint_bf16_kernel(AdjArgs16 a, BGeom g) {
+  extern __shared__ float4 smem4[];
+  __shared__ adj::Ctl<MB> ctl;
+  Sweep<MB, SEG, true>(a, g, ctl, reinterpret_cast<float*>(smem4)).run();
+}
+
+// Per device: the attributes set so far on adjoint_cluster_kernel<MB, SEG>
+// (BF16: on adjoint_bf16_kernel<MB, SEG>).
+template <int MB, bool SEG, bool BF16 = false>
 LaunchState (&launch_state())[16] {
   static LaunchState state[16];
   return state;
@@ -274,42 +313,143 @@ int launch(AdjArgs a, int B, const float* consts, int nconst, int C, int kc,
   return (int)cudaGetLastError();
 }
 
+// max_clusters of adjoint_bf16_kernel<MB, SEG>, whose smem_bytes are its
+// geometry's at three passes or at one.
+template <int MB, bool SEG>
+int max_clusters16(int n, int m, int C, int kc, int smem_bytes) {
+  BGeom g;
+  int jl, jr;
+  int err = check_geometry16<MB>(n, m, C, kc, smem_bytes, 3, g, jl, jr);
+  if (err) err = check_geometry16<MB>(n, m, C, kc, smem_bytes, 1, g, jl, jr);
+  return err ? -err
+             : occupancy((const void*)adjoint_bf16_kernel<MB, SEG>,
+                         launch_state<MB, SEG, true>(), C, smem_bytes);
+}
+
+// launch on adjoint_bf16_kernel<MB, SEG>: a.ops16 and a.passes set by the
+// caller; the geometry checked against product16's staging at a.passes.
+template <int MB, bool SEG>
+int launch16(AdjArgs16 a, int B, const float* consts, int nconst, int C,
+             int kc, int smem_bytes, void* stream) {
+  if (!set_consts(a, consts, nconst) || B <= 0 || B % MB || a.M <= 0 ||
+      !a.ops16.vx)
+    return (int)cudaErrorInvalidValue;
+  BGeom g;
+  int err = check_geometry16<MB>(a.n, a.m, C, kc, smem_bytes, a.passes, g,
+                                 a.jt_left, a.jt_right);
+  if (err) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = configure((const void*)adjoint_bf16_kernel<MB, SEG>,
+                  launch_state<MB, SEG, true>(), cfg, attr, B / MB, C,
+                  smem_bytes, (cudaStream_t)stream);
+  if (err) return err;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, adjoint_bf16_kernel<MB, SEG>, a, g);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sweep
 }  // namespace vch
 
 // Compiled once per instantiation, in parallel (ops/_build.py): the object
 // of -DVCH_BB=MB (1: the whole one-member sweep; -DVCH_SEG=1: the segment
 // sweep) holds
-// adjoint_cluster_kernel<MB, SEG> and its launch and occupancy functions;
-// the -DVCH_BB=8 object also holds the C entries, which dispatch to the
-// others by member count.
+// adjoint_cluster_kernel<MB, SEG> and its launch and occupancy functions,
+// with -DVCH_PREC=1 adjoint_bf16_kernel<MB, SEG> and its own instead; the
+// -DVCH_BB=8 float32 object also holds the C entries, which dispatch to the
+// others by member count and passes.
 #ifndef VCH_BB
 #define VCH_BB 8
 #endif
 #ifndef VCH_SEG
 #define VCH_SEG 0
 #endif
+#ifndef VCH_PREC
+#define VCH_PREC 0
+#endif
 
 namespace vch {
 namespace sweep {
+#if VCH_PREC
+template int launch16<VCH_BB, (VCH_SEG != 0)>(AdjArgs16, int, const float*,
+                                              int, int, int, int, void*);
+template int max_clusters16<VCH_BB, (VCH_SEG != 0)>(int, int, int, int,
+                                                    int);
+#else
 template int launch<VCH_BB, (VCH_SEG != 0)>(AdjArgs, int, const float*, int,
                                             int, int, int, void*);
 template int max_clusters<VCH_BB, (VCH_SEG != 0)>(int, int, int, int, int);
+#endif
 }  // namespace sweep
 }  // namespace vch
 
-#if VCH_BB == 8 && !VCH_SEG
+#if VCH_BB == 8 && !VCH_SEG && !VCH_PREC
 namespace vch {
 namespace sweep {
 #define VCH_EXTERN(MB, SEG)                                                  \
   extern template int launch<MB, SEG>(AdjArgs, int, const float*, int, int,  \
                                       int, int, void*);                      \
   extern template int max_clusters<MB, SEG>(int, int, int, int, int);
+#define VCH_EXTERN16(MB, SEG)                                                \
+  extern template int launch16<MB, SEG>(AdjArgs16, int, const float*, int,   \
+                                        int, int, int, void*);               \
+  extern template int max_clusters16<MB, SEG>(int, int, int, int, int);
 VCH_EXTERN(4, false)
 VCH_EXTERN(2, false)
 VCH_EXTERN(1, false)
 VCH_EXTERN(1, true)
+VCH_EXTERN16(8, false)
+VCH_EXTERN16(4, false)
+VCH_EXTERN16(2, false)
+VCH_EXTERN16(1, false)
+VCH_EXTERN16(1, true)
 #undef VCH_EXTERN
+#undef VCH_EXTERN16
+
+// a with product16's fragment copies of At's operators (cluster.cuh
+// ops16_of) at `passes`
+AdjArgs16 with_ops16(const AdjArgs& a, const void* ops16, int passes) {
+  AdjArgs16 a16;
+  static_cast<AdjArgs&>(a16) = a;
+  a16.ops16 = ops16_of(ops16, a.n, a.m);
+  a16.passes = passes;
+  a16.jt_left = a16.jt_right = 0;
+  return a16;
+}
+
+// The sweep of B members, `members` per cluster, on the float32 kernel
+// (passes 0) or on the bf16 one (passes 3 or 1, At's operators from ops16).
+int launch_whole(int members, const AdjArgs& a, int B, const float* consts,
+                 int nconst, int C, int kc, int smem_bytes, const void* ops16,
+                 int passes, void* stream) {
+  if (passes) {
+    const AdjArgs16 a16 = with_ops16(a, ops16, passes);
+    switch (members) {
+      case 8: return launch16<8, false>(a16, B, consts, nconst, C, kc,
+                                        smem_bytes, stream);
+      case 4: return launch16<4, false>(a16, B, consts, nconst, C, kc,
+                                        smem_bytes, stream);
+      case 2: return launch16<2, false>(a16, B, consts, nconst, C, kc,
+                                        smem_bytes, stream);
+      case 1: return launch16<1, false>(a16, B, consts, nconst, C, kc,
+                                        smem_bytes, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (members) {
+    case 8: return launch<8, false>(a, B, consts, nconst, C, kc, smem_bytes,
+                                    stream);
+    case 4: return launch<4, false>(a, B, consts, nconst, C, kc, smem_bytes,
+                                    stream);
+    case 2: return launch<2, false>(a, B, consts, nconst, C, kc, smem_bytes,
+                                    stream);
+    case 1: return launch<1, false>(a, B, consts, nconst, C, kc, smem_bytes,
+                                    stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 }  // namespace sweep
 }  // namespace vch
 
@@ -333,10 +473,32 @@ extern "C" int vch_adjoint_cluster_max_clusters(int members, int segment,
   }
 }
 
+// The same for the bf16 sweep, whose shared memory is the larger of the
+// ring and product16's staging (at three passes or at one).
+extern "C" int vch_adjoint16_max_clusters(int members, int segment, int n,
+                                          int m, int cluster, int kc,
+                                          int smem_bytes) {
+  using namespace vch::sweep;
+  if (segment)
+    return members == 1 ? max_clusters16<1, true>(n, m, cluster, kc,
+                                                  smem_bytes)
+                        : -(int)cudaErrorInvalidValue;
+  switch (members) {
+    case 8: return max_clusters16<8, false>(n, m, cluster, kc, smem_bytes);
+    case 4: return max_clusters16<4, false>(n, m, cluster, kc, smem_bytes);
+    case 2: return max_clusters16<2, false>(n, m, cluster, kc, smem_bytes);
+    case 1: return max_clusters16<1, false>(n, m, cluster, kc, smem_bytes);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 // The member-blocked sweep of B members (B % members == 0, members 8, 4 or
 // 2) on clusters of `cluster` CTAs, with ring stages of kc rows and
 // smem_bytes of dynamic shared memory per CTA: the geometry of
 // ops/march.py blocked_geometry, checked here against the kernel's own.
+// passes 0: At in full float32; 3 ("bf16x3"; 1: the tests' one-pass
+// control, AdjArgs16): on bf16 mma.sync from ops16, product16's fragment
+// copies of its operators (cluster.cuh ops16_of).
 // Arguments otherwise as vch_adjoint_fused_2d (adjoint2d.cu); r is
 // (B, M+1, n, m) with r_T = 0 last, work (B, 20, n, m).
 extern "C" int vch_adjoint_fused_2d_blocked(
@@ -345,45 +507,41 @@ extern "C" int vch_adjoint_fused_2d_blocked(
     const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
     const float* lam, float* r, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int n_trips, int members, int cluster,
-    int kc, int smem_bytes, void* stream) {
+    int kc, int smem_bytes, const void* ops16, int passes, void* stream) {
   using namespace vch::sweep;
+  if (members == 1) return (int)cudaErrorInvalidValue;
   const vch::AdjArgs a{dts, hist, phiQ, phiT, b1, b2, Lx, LyT, Vxi, VyiT,
                        Vx, VyT, lam, nullptr, nullptr, nullptr, r, nullptr,
                        nullptr, nullptr, work, M, n, m, n_trips, {}};
-  switch (members) {
-    case 8: return launch<8, false>(a, B, consts, nconst, cluster, kc,
-                                    smem_bytes, stream);
-    case 4: return launch<4, false>(a, B, consts, nconst, cluster, kc,
-                                    smem_bytes, stream);
-    case 2: return launch<2, false>(a, B, consts, nconst, cluster, kc,
-                                    smem_bytes, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_whole(members, a, B, consts, nconst, cluster, kc, smem_bytes,
+                      ops16, passes, stream);
 }
 
 // The whole sweep of B members, one member per cluster of `cluster` CTAs:
-// what vch_adjoint_fused_2d (adjoint2d.cu) computes, bit for bit; the
-// geometry as vch_adjoint_fused_2d_blocked's, checked against the kernel's
-// own, arguments otherwise as vch_adjoint_fused_2d's.
+// what vch_adjoint_fused_2d (adjoint2d.cu) computes, bit for bit (passes
+// 0); the geometry, ops16 and passes as vch_adjoint_fused_2d_blocked's,
+// checked against the kernel's own, arguments otherwise as
+// vch_adjoint_fused_2d's.
 extern "C" int vch_adjoint_fused_2d_cluster(
     const float* dts, const float* hist, const float* phiQ, const float* phiT,
     const float* b1, const float* b2, const float* Lx, const float* LyT,
     const float* Vxi, const float* VyiT, const float* Vx, const float* VyT,
     const float* lam, float* r, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int n_trips, int cluster, int kc,
-    int smem_bytes, void* stream) {
+    int smem_bytes, const void* ops16, int passes, void* stream) {
   using namespace vch::sweep;
   const vch::AdjArgs a{dts, hist, phiQ, phiT, b1, b2, Lx, LyT, Vxi, VyiT,
                        Vx, VyT, lam, nullptr, nullptr, nullptr, r, nullptr,
                        nullptr, nullptr, work, M, n, m, n_trips, {}};
-  return launch<1, false>(a, B, consts, nconst, cluster, kc, smem_bytes,
-                          stream);
+  return launch_whole(1, a, B, consts, nconst, cluster, kc, smem_bytes,
+                      ops16, passes, stream);
 }
 
 // One K-step segment of B members, one member per cluster of `cluster`
 // CTAs: what vch_adjoint_fused_2d_segment (adjoint2d.cu) computes, bit for
-// bit; the geometry as vch_adjoint_fused_2d_blocked's, arguments otherwise
-// as vch_adjoint_fused_2d_segment's.
+// bit (passes 0); the geometry, ops16 and passes as
+// vch_adjoint_fused_2d_cluster's, arguments otherwise as
+// vch_adjoint_fused_2d_segment's.
 extern "C" int vch_adjoint_fused_2d_segment_cluster(
     const float* dts, const float* hist, const float* phiQ, const float* p0,
     const float* q0, const float* r0, const float* b1, const float* Lx,
@@ -391,12 +549,15 @@ extern "C" int vch_adjoint_fused_2d_segment_cluster(
     const float* VyT, const float* lam, float* r, float* p_f, float* q_f,
     float* r_f, float* work, int B, int K, int n, int m, const float* consts,
     int nconst, int n_trips, int cluster, int kc, int smem_bytes,
-    void* stream) {
+    const void* ops16, int passes, void* stream) {
   using namespace vch::sweep;
   const vch::AdjArgs a{dts, hist, phiQ, nullptr, b1, nullptr, Lx, LyT, Vxi,
                        VyiT, Vx, VyT, lam, p0, q0, r0, r, p_f, q_f, r_f,
                        work, K, n, m, n_trips, {}};
+  if (passes)
+    return launch16<1, true>(with_ops16(a, ops16, passes), B, consts, nconst,
+                             cluster, kc, smem_bytes, stream);
   return launch<1, true>(a, B, consts, nconst, cluster, kc, smem_bytes,
                          stream);
 }
-#endif  // VCH_BB == 8 && !VCH_SEG
+#endif  // VCH_BB == 8 && !VCH_SEG && !VCH_PREC

@@ -23,6 +23,13 @@
 // alike on both sides (ops/_build.py: the sweep and the spectral solve with
 // -fmad=false, the raw solve with nvcc's default contraction), a member's
 // bits are theirs, whatever the cluster size or the batch.
+//
+// BF16 (the cluster sweep's bf16 forms, adjoint_solve_precision "bf16x3";
+// never with RAW): At's four products on cluster.cuh's product16 at
+// Args::passes, three for vch_tpu's _make_mm (pallas_march.py:677-686; one
+// only as the tests' control, adjoint2d_cluster.cu); every other product
+// of the solve stays full float32. The float32 objects keep their SASS: the
+// flag is `if constexpr`, default off.
 #pragma once
 
 #include "adjoint.cuh"
@@ -50,9 +57,13 @@ static_assert(sizeof(Ctl<8>) <= CTL_BYTES, "Ctl outgrew its reserve");
 // AdjConst: floor_fac); Slots: the workspace slots of the fields ISD, FPP,
 // X, RR, PK, V, R0, BX, S, T, Z, T1, T2 (RAW: W and U too). Every method is
 // force-inlined into the kernel, so the state below lives in registers; the
-// per-member scalars live in `ctl`, in shared memory.
-template <int MB, class Args, class Slots, bool RAW = false>
+// per-member scalars live in `ctl`, in shared memory. BF16: Args also
+// holds `ops16` (cluster.cuh Ops16) and product16's slab widths `jt_left`,
+// `jt_right`.
+template <int MB, class Args, class Slots, bool RAW = false,
+          bool BF16 = false>
 struct Solve : Block<MB> {
+  static_assert(!(RAW && BF16), "the bf16 solve is the spectral one");
   using Base = Block<MB>;
   using Base::tid;
   using Base::FS;
@@ -83,9 +94,10 @@ struct Solve : Block<MB> {
   }
 
   // OUT_b = At_b Y_b in the cosine basis: isd (poly z - (dt/2)
-  // to_s(fpp_n from_s(lam z))), z = isd y. Y's elements are read in the
-  // elementwise layout: a Y whose last writer was a product's epilogue
-  // needs a cluster barrier first.
+  // to_s(fpp_n from_s(lam z))), z = isd y (BF16: its four products on
+  // product16 at a.passes). Y's elements are read in the elementwise
+  // layout: a Y whose last writer was a product's epilogue needs a cluster
+  // barrier first.
   __device__ __forceinline__ void apply_spectral(const float* Y, float* OUT,
                                                  float tau, float half_dt) {
     const float *ISD = F(Slots::ISD), *FPP = F(Slots::FPP), *lam = a.lam;
@@ -97,6 +109,25 @@ struct Solve : Block<MB> {
     }, [&](int b, int e, const Vals<3>& in) {
       Z[b * fs + e] = in.v[0] * (in.v[1] * in.v[2]);
     });
+    if constexpr (BF16) {
+      const Ops16& o = a.ops16;
+      this->gemm16_l_to(o.vx, Z, T1, a.passes, a.jt_left);
+      this->gemm16_r(T1, o.vy, a.passes, a.jt_right, [&](int b, int e) {
+        return Vals<1>{{FPP[b * fs + e]}};
+      }, [&](int b, int e, float v, const Vals<1>& in) {
+        T2[b * fs + e] = in.v[0] * v;
+      });
+      this->gemm16_l_to(o.vxi, T2, T1, a.passes, a.jt_left);
+      this->gemm16_r(T1, o.vyi, a.passes, a.jt_right, [&](int b, int e) {
+        const size_t i = b * fs + e;
+        return Vals<3>{{ISD[i], Y[i], lam[e]}};
+      }, [&](int b, int e, float v, const Vals<3>& in) {
+        const float s = in.v[0], l = in.v[2];
+        const float poly = (1.f - tau * l) + (half_dt * l) * l;
+        OUT[b * fs + e] = s * (poly * (s * in.v[1]) - half_dt * v);
+      });
+      return;
+    }
     gemm_l_to(a.Vx, Z, T1);
     gemm_r(T1, a.VyT, [&](int b, int e) {
       return Vals<1>{{FPP[b * fs + e]}};

@@ -680,6 +680,21 @@ int check_geometry16(int n, int m, int C, int kc, int smem_bytes, int passes,
   return 0;
 }
 
+// product16's fragment copies of a Krylov operator's four matrices, one
+// buffer in the order Vx, Vx_inv (n + 8 rows of ceil(n / 16) k tiles), Vy,
+// Vy_inv (m + 8 rows of ceil(m / 16)), each (row, k tile) four uint4
+// (ops/march.py _bf16_operators makes it); all null for a null buffer.
+struct Ops16 {
+  const uint4 *vx, *vxi, *vy, *vyi;
+};
+inline Ops16 ops16_of(const void* buf, int n, int m) {
+  const uint4* p = static_cast<const uint4*>(buf);
+  if (!p) return Ops16{nullptr, nullptr, nullptr, nullptr};
+  const size_t ln = (size_t)(n + 8) * ((n + 15) / 16) * 4;
+  const size_t lm = (size_t)(m + 8) * ((m + 15) / 16) * 4;
+  return Ops16{p, p + ln, p + 2 * ln, p + 2 * ln + lm};
+}
+
 // cudaOccupancyMaxActiveClusters of `kernel` on clusters of C CTAs with
 // smem_bytes each; a negative CUDA error code on failure.
 inline int occupancy(const void* kernel, LaunchState (&state)[16], int C,

@@ -825,20 +825,16 @@ VCH_EXTERN16(1, true)
 #undef VCH_EXTERN
 #undef VCH_EXTERN16
 
-// product16's fragment copies of apply_S's operators, one buffer in the
-// order Vx, Vx_inv (n + 8 rows of ceil(n / 16) k tiles), Vy, Vy_inv (m + 8
-// rows of ceil(m / 16)), each (row, k tile) four uint4 (ops/march.py
-// _bf16_operators makes it); passes 0: none (the float32 march).
+// a with product16's fragment copies of apply_S's operators (cluster.cuh
+// ops16_of); passes 0: none (the float32 march).
 Args16 with_ops16(const Args& a, const void* ops16, int passes) {
   Args16 a16;
   static_cast<Args&>(a16) = a;
-  const uint4* p = static_cast<const uint4*>(ops16);
-  const size_t ln = (size_t)(a.n + 8) * ((a.n + 15) / 16) * 4;
-  const size_t lm = (size_t)(a.m + 8) * ((a.m + 15) / 16) * 4;
-  a16.vx = p;
-  a16.vxi = p ? p + ln : nullptr;
-  a16.vy = p ? p + 2 * ln : nullptr;
-  a16.vyi = p ? p + 2 * ln + lm : nullptr;
+  const Ops16 o = ops16_of(ops16, a.n, a.m);
+  a16.vx = o.vx;
+  a16.vxi = o.vxi;
+  a16.vy = o.vy;
+  a16.vyi = o.vyi;
   a16.passes = passes;
   a16.jt_left = a16.jt_right = 0;
   return a16;

@@ -23,9 +23,11 @@ float64.
 `adjoint_krylov_fixed_iters` trips (5 by default; adjoint2d.py:48-50): the
 member-blocked kernel when the batch divides by
 `config.resolved_fused_block()`, else one member per CTA (adjoint2d.py:
-184-195). `adjoint_segment` runs a K-step segment from an explicit (p, q, r)
-carry for the low-memory path, and `terminal` the terminal solve it starts
-from.
+184-195), its Krylov operator at `adjoint_solve_precision` (None:
+"highest"; adjoint2d.py:195, :202). `adjoint_segment` runs a K-step segment
+from an explicit (p, q, r) carry for the low-memory path, and `terminal`
+the terminal solve it starts from; the segment runs at "highest", as
+vch_tpu's low-memory path passes no precision (lowmem.py:541).
 """
 from __future__ import annotations
 
@@ -238,10 +240,11 @@ class AdjointSolver2D(AdjointSweep2D, nn.Module):
         Returns r (B, M+1, ...) with r_T = 0."""
         bb = self.config.resolved_fused_block()
         args = (self.dts, phi_hist, phi_Q, phi_T, b1, b2) + self._ops()
+        kw = dict(self._kw(),
+                  solve_prec=self.config.adjoint_solve_precision or "highest")
         if bb and phi_T.shape[0] % bb == 0:
-            return self.entries.adjoint_blocked(*args, block_b=bb,
-                                                **self._kw())
-        return self.entries.adjoint(*args, **self._kw())
+            return self.entries.adjoint_blocked(*args, block_b=bb, **kw)
+        return self.entries.adjoint(*args, **kw)
 
     def adjoint_segment(self, start: int, length: int, phi_seg, phi_Q_seg, p,
                         q, r, b1):

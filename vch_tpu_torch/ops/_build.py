@@ -10,7 +10,9 @@ member-blocked march), `1` (the whole one-member march) and `1` with
 mma.sync, `fused_solve_precision` "bf16x3" or "default"), and the cluster
 sweep with `-DVCH_BB=8`,
 `4`, `2` (the member-blocked sweep), `1` (the whole one-member sweep) and
-`1` with `-DVCH_SEG=1` (the segment sweep), one kernel per object; the
+`1` with `-DVCH_SEG=1` (the segment sweep), each of the five once more with
+`-DVCH_PREC=1` (its Krylov operator's products on bf16 mma.sync,
+`adjoint_solve_precision` "bf16x3"), one kernel per object; the
 one-CTA per-solve kernels five times, the spectral and the raw Schur solve
 and the spectral adjoint solve (`-DVCH_VARIANT=0`, `1`, `2`: three cluster
 solves' bit oracles) each apart, the two cost probes (`-DVCH_VARIANT=4`:
@@ -26,7 +28,7 @@ the chain probes and of the cluster microbench) and the chain probes of
 chain_cluster.cu and the cluster microbench of micro_cluster.cu, each of
 the last three holding its own members-per-block templates, and the while
 probe of while_fused.cu (phi in registers; probes.cu's while kernel is its
-bit oracle), once each. 33 objects in all. The 1D march, both sweeps, both Schur and the
+bit oracle), once each. 38 objects in all. The 1D march, both sweeps, both Schur and the
 spectral adjoint cluster solves, the cluster probes and their oracles
 compile with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
@@ -72,9 +74,12 @@ SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            + (("-DVCH_BB=1", "-DVCH_SEG=1"),
               ("-DVCH_BB=1", "-DVCH_SEG=1", "-DVCH_PREC=1")),
            "adjoint2d.cu": (("-fmad=false",),),
-           "adjoint2d_cluster.cu": tuple((f"-DVCH_BB={bb}", "-fmad=false")
+           "adjoint2d_cluster.cu": tuple((f"-DVCH_BB={bb}",) + prec
+                                         + ("-fmad=false",)
+                                         for prec in ((), ("-DVCH_PREC=1",))
                                          for bb in (8, 4, 2, 1))
-           + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),),
+           + (("-DVCH_BB=1", "-DVCH_SEG=1", "-fmad=false"),
+              ("-DVCH_BB=1", "-DVCH_SEG=1", "-DVCH_PREC=1", "-fmad=false")),
            "solve2d.cu": ((),) + tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
                                        for v in (0, 1, 2, 4)),
            "solve2d_cluster.cu": tuple((f"-DVCH_VARIANT={v}", "-fmad=false")
@@ -222,20 +227,27 @@ def load():
                                                  + [_I] + [_P])
     # dts hist phiQ phiT b1 b2 Lx LyT Vxi VyiT Vx VyT lam | r work |
     # B M n m | consts nconst | n_trips | members cluster kc smem_bytes |
-    # stream
+    # ops16 passes | stream
     lib.vch_adjoint_fused_2d_blocked.argtypes = ([_P] * 13 + [_P] * 2
                                                  + [_I] * 4 + [_FP, _I]
-                                                 + [_I] + [_I] * 4 + [_P])
-    # the whole sweep's arguments | cluster kc smem_bytes | stream
+                                                 + [_I] + [_I] * 4
+                                                 + [_P, _I, _P])
+    # the whole sweep's arguments | cluster kc smem_bytes | ops16 passes |
+    # stream
     lib.vch_adjoint_fused_2d_cluster.argtypes = ([_P] * 13 + [_P] * 2
                                                  + [_I] * 4 + [_FP, _I]
-                                                 + [_I] + [_I] * 3 + [_P])
-    # the segment's arguments | cluster kc smem_bytes | stream
+                                                 + [_I] + [_I] * 3
+                                                 + [_P, _I, _P])
+    # the segment's arguments | cluster kc smem_bytes | ops16 passes |
+    # stream
     lib.vch_adjoint_fused_2d_segment_cluster.argtypes = (
-        [_P] * 14 + [_P] * 5 + [_I] * 4 + [_FP, _I] + [_I] + [_I] * 3 + [_P])
+        [_P] * 14 + [_P] * 5 + [_I] * 4 + [_FP, _I] + [_I] + [_I] * 3
+        + [_P, _I, _P])
     # members segment n m cluster kc smem_bytes
     lib.vch_adjoint_cluster_max_clusters.argtypes = [_I] * 7
     lib.vch_adjoint_cluster_max_clusters.restype = _I
+    lib.vch_adjoint16_max_clusters.argtypes = [_I] * 7
+    lib.vch_adjoint16_max_clusters.restype = _I
     # variant scal Lx LyT Vxi VyiT Vx VyT lam f1 f2 rhs x0 | out work |
     # B n m n_iter floor_fac | stream
     lib.vch_bicgstab_2d.argtypes = ([_I] + [_P] * 12 + [_P] * 2 + [_I] * 4

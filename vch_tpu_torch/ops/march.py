@@ -36,6 +36,13 @@ pallas_march.py:207-214 does: "bf16x3" three single bf16 passes on the
 on CUDA tensors the bf16 modes launch the kernel's bf16 form
 (`march_bf16_kernel`, its products on mma.sync), counted in the wrapper's
 `bf16_launches` too. Every other product is full precision in every mode.
+The adjoint sweep's Krylov operator (apply_At's four products) runs at the
+`solve_prec` it is given (the config's `adjoint_solve_precision`), as
+pallas_march.py:677 does: "bf16x3" the three passes, anything else full
+precision (`sweep_passes`: there is no one-pass sweep); on CUDA tensors
+"bf16x3" launches the sweep kernel's bf16 form (`adjoint_bf16_kernel`),
+counted in `bf16_launches` too. bt, y0, p_n, the Laplacians and the
+terminal solve stay full precision.
 
 One exactness-preserving change to the fixed-trip BiCGStab: the Pallas body
 masks a trip whose residual is at the noise floor or non-finite, and such a
@@ -82,6 +89,16 @@ def solve_passes(solve_prec) -> int:
     (pallas_march.py:207-214): 3 for "bf16x3", 1 for "default", 0 (full
     precision) for None, "highest" or any other string."""
     return SOLVE_PASSES.get(solve_prec, 0)
+
+
+def sweep_passes(solve_prec) -> int:
+    """bf16 passes of the adjoint sweep's apply_At products for an
+    `adjoint_solve_precision` (pallas_march.py:677): 3 for "bf16x3", 0
+    (full precision) for anything else, "default" included: vch_tpu offers
+    no one-pass sweep (its docstring, :581-589). The bf16 kernel also takes
+    one pass, which only a test reaches, by replacing this function: a
+    control that its accuracy gates must fail."""
+    return 3 if solve_prec == "bf16x3" else 0
 
 
 def _bf16_split(a):
@@ -347,11 +364,12 @@ def _check_block(B: int, block_b: int):
 
 
 def _refuse_prec(name: str, k):
-    """The one-CTA oracles compute every product in full float32: any
-    other solve precision raises, never falls back."""
+    """The one-CTA oracles of the march and the sweep compute every product
+    in full float32: any other solve precision raises, never falls
+    back."""
     if k["solve_prec"] not in (None, "highest"):
-        raise ValueError(f"{name} computes apply_S in full float32 only "
-                         f"(solve_prec 'highest'), got "
+        raise ValueError(f"{name} computes its Krylov operator in full "
+                         f"float32 only (solve_prec 'highest'), got "
                          f"{k['solve_prec']!r}")
 
 
@@ -446,12 +464,12 @@ def _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T):
                       frag(Vy_inv_T.T)])
 
 
-def _solve_operands(k, ops):
+def _solve_operands(passes, ops):
     """(the fragment buffer or None, the bf16 passes) of a cluster march
-    launch at k's solve precision; ops from Lx on. The caller holds the
-    buffer until the launch is enqueued (the caching allocator then reuses
-    it only in stream order)."""
-    passes = solve_passes(k["solve_prec"])
+    or sweep launch at `passes` (`solve_passes` or `sweep_passes` of its
+    solve precision); ops from Lx on. The caller holds the buffer until the
+    launch is enqueued (the caching allocator then reuses it only in stream
+    order)."""
     if not passes:
         return None, 0
     Vx_inv, Vy_inv_T, Vx, VyT = ops[2:6]
@@ -484,7 +502,7 @@ def _launch_march(wrapper, args, k, members=None, active=None):
             raise ValueError(f"active must be a contiguous ({B},) int32 "
                              f"tensor on {dev}, got {tuple(active.shape)} "
                              f"{active.dtype} on {active.device}")
-    ops16, passes = _solve_operands(k, ops)
+    ops16, passes = _solve_operands(solve_passes(k["solve_prec"]), ops)
     geo = (None if members is None
            else launch_geometry(n, m, B, dev, members=members,
                                 solve_passes=passes))
@@ -631,11 +649,11 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
                 2: "the blocked sweep",
                 1: "the one-member sweep (whole or segment sweep)"}
 # the cluster kernels launch_geometry fits, each with its own register
-# count, so its own residency: the march (csrc/march2d_blocked.cu) and its
-# bf16 form (the march at a bf16 solve precision; its geometry is the
-# march's with solve_passes), the
-# sweep (csrc/adjoint2d_cluster.cu) and the four per-solve kernels of
-# csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
+# count, so its own residency: the march (csrc/march2d_blocked.cu) and the
+# sweep (csrc/adjoint2d_cluster.cu), each with its bf16 form ("16": the
+# kernel at a bf16 solve precision, its geometry the float32 form's with
+# solve_passes), the four per-solve kernels of csrc/solve2d_cluster.cu
+# (the spectral and the raw adjoint step solve, the
 # spectral and the raw Schur solve, and the raw Schur solve's two cost
 # probes, which share one geometry), the float32 chain probe of
 # csrc/chain_cluster.cu and the microbench probe of csrc/micro_cluster.cu;
@@ -644,6 +662,7 @@ CLUSTER_KERNELS = {
     "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
     "march16": (_MARCH_NAMES, "vch_march16_max_clusters"),
     "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
+    "sweep16": (_SWEEP_NAMES, "vch_adjoint16_max_clusters"),
     "solve": ({1: "the adjoint step solve"},
               "vch_solve_cluster_max_clusters"),
     "raw_solve": ({1: "the raw adjoint step solve"},
@@ -715,8 +734,9 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     for the float32 chain probe (`ops.probe_kernels.matmul_chain`) and the
     microbench probe (`ops.probe_kernels.blocked_microbench`, B = members:
     one cluster) (`blocked_cluster_size`; `cluster` overrides it);
-    `solve_passes` (the march only; `solve_passes(fused_solve_precision)`)
-    adds the bf16 staging of its Krylov operator's products. Raises
+    `solve_passes` (the march: `solve_passes(fused_solve_precision)`; the
+    sweep: `sweep_passes(adjoint_solve_precision)`; no other kernel) adds
+    the bf16 staging of its Krylov operator's products. Raises
     ValueError when B is not a positive multiple of `members`, or when no
     ring, or no bf16 staging, fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
     names = _kernel_names(kernel)
@@ -738,9 +758,9 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     units = members * (rpad // 4) * (mpad // 4)
     staging = 0
     if solve_passes:
-        if kernel != "march":
-            raise ValueError(f"only the cluster march takes solve passes, "
-                             f"not the {kernel}")
+        if kernel + "16" not in CLUSTER_KERNELS:
+            raise ValueError(f"only the cluster march and sweep take solve "
+                             f"passes, not the {kernel}")
         fit = bf16_staging(n, m, members, rmax, solve_passes)
         if fit is None:
             arr = 2 if solve_passes == 3 else 1
@@ -809,16 +829,16 @@ def launch_geometry(n: int, m: int, B: int, device,
                     kernel: str = "march",
                     solve_passes: int = 0) -> BlockedGeometry:
     """The geometry the cluster march, sweep or solve (`kernel`; with
-    segment, the segment march or sweep; the march with solve_passes, its
-    bf16 kernel) launches on this card for B members, `members` per
-    cluster: `fitted_geometry` on its SM count and on
+    segment, the segment march or sweep; the march or sweep with
+    solve_passes, its bf16 kernel) launches on this card for B members,
+    `members` per cluster: `fitted_geometry` on its SM count and on
     cudaOccupancyMaxActiveClusters of that kernel (the kernels take their
     own registers, so a geometry fitted to one would over-commit another).
     Raises RuntimeError if no cluster of it fits on the card."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    held = "march16" if solve_passes else kernel   # whose occupancy
+    held = kernel + "16" if solve_passes else kernel   # whose occupancy
     resident = lambda g: resident_clusters(idx, n, m, g.cluster, g.kc,
                                            g.smem_bytes, members, segment,
                                            held)
@@ -929,7 +949,8 @@ def _launch_segment(wrapper, args, k, cluster: bool):
                        ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
                       + list(zip(names, args[6:], shapes)), phi0.device)
     dev = phi0.device
-    ops16, passes = _solve_operands(k, args[6:])
+    ops16, passes = _solve_operands(solve_passes(k["solve_prec"]),
+                                    args[6:])
     geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS,
                            segment=True, solve_passes=passes)
            if cluster else None)
@@ -981,6 +1002,11 @@ def _adjoint_member(dts, hist, phiQ, b1, carry, ops, k):
     len(dts) levels, in forward order; (p, q, r) at the first level)."""
     Lx, LyT, Vxi, VyiT, Vx, VyT, lam = ops
     mm = torch.matmul
+    # apply_At's products: "bf16x3" on its operators split once, else mm
+    mm_s = _make_mm(hist.dtype, "bf16x3" if sweep_passes(
+        k.get("solve_prec", "highest")) else "highest")
+    Sx, SyT, Sxi, SyiT = ((Vx, VyT, Vxi, VyiT) if mm_s is mm else
+                          (_bf16_split(o) for o in (Vx, VyT, Vxi, VyiT)))
     tau, gamma, c1, c2 = k["tau"], k["gamma"], k["c1"], k["c2"]
     eps_mach = _eps_mach(hist.dtype)
     M = dts.shape[0]
@@ -990,6 +1016,12 @@ def _adjoint_member(dts, hist, phiQ, b1, carry, ops, k):
 
     def from_s(vh):
         return mm(mm(Vx, vh), VyT)
+
+    def to_s_k(v):
+        return mm_s(mm_s(Sxi, v), SyiT)
+
+    def from_s_k(vh):
+        return mm_s(mm_s(Sx, vh), SyT)
 
     def lap(v):
         return apply_laplacian_2d_t(Lx, LyT, v)
@@ -1019,7 +1051,7 @@ def _adjoint_member(dts, hist, phiQ, b1, carry, ops, k):
 
         def apply_At(yh):
             z = isd * yh
-            w = to_s(fpp_n * from_s(lam * z))
+            w = to_s_k(fpp_n * from_s_k(lam * z))
             return isd * (poly * z - half_dt * w)
 
         bt = isd * to_s(rhs)
@@ -1089,15 +1121,19 @@ def _adj_consts(k):
     return (ctypes.c_float * len(vals))(*vals), len(vals)
 
 
-def _adjoint_kw(tau, gamma, c1, c2, n_trips):
-    return dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips))
+def _adjoint_kw(tau, gamma, c1, c2, n_trips, solve_prec="highest"):
+    return dict(tau=tau, gamma=gamma, c1=c1, c2=c2, n_trips=int(n_trips),
+                solve_prec=solve_prec)
+
 
 
 def _launch_adjoint(wrapper, args, k, members=None):
     """Check and launch the whole sweep: on the cluster kernel with
     `members` members per cluster (1, or 2, 4, 8: the member-blocked sweep)
     on the geometry of `launch_geometry`, or (None) on the one-CTA kernel of
-    csrc/adjoint2d.cu, the bit oracle."""
+    csrc/adjoint2d.cu, the bit oracle. At "bf16x3" the cluster kernel's
+    bf16 form takes apply_At's operators as `_bf16_operators` makes them,
+    once per launch."""
     dts, phi_hist, phi_Q, phi_T, b1, b2, *ops = args
     B, n, m = phi_T.shape
     M = dts.shape[0]
@@ -1109,9 +1145,10 @@ def _launch_adjoint(wrapper, args, k, members=None):
                        ("b2", b2, (B,))]
                       + list(zip(names, ops, shapes)), phi_T.device)
     dev = phi_T.device
+    ops16, passes = _solve_operands(sweep_passes(k["solve_prec"]), ops)
     geo = (None if members is None
            else launch_geometry(n, m, B, dev, members=members,
-                                kernel="sweep"))
+                                kernel="sweep", solve_passes=passes))
     lib = _build.load()
     r = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
     work = torch.empty((B, lib.vch_workspace_fields(1), n, m),
@@ -1125,28 +1162,34 @@ def _launch_adjoint(wrapper, args, k, members=None):
         err = lib.vch_adjoint_fused_2d(*common, stream)
     elif members == 1:
         err = lib.vch_adjoint_fused_2d_cluster(*common, geo.cluster, geo.kc,
-                                               geo.smem_bytes, stream)
+                                               geo.smem_bytes, _ptr(ops16),
+                                               passes, stream)
     else:
         err = lib.vch_adjoint_fused_2d_blocked(*common, members, geo.cluster,
-                                               geo.kc, geo.smem_bytes, stream)
+                                               geo.kc, geo.smem_bytes,
+                                               _ptr(ops16), passes, stream)
     wrapper.launches += 1
+    if passes:
+        wrapper.bf16_launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return r
 
 
 def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
                      Vy_inv_T, Vx, VyT, lam, *, tau: float, gamma: float,
-                     c1: float, c2: float, n_trips: int):
+                     c1: float, c2: float, n_trips: int,
+                     solve_prec: str = "highest"):
     """The whole batched 2D adjoint sweep (pallas_march.py:751). On CUDA
     tensors each member runs on a thread-block cluster (`launch_geometry`
     of the sweep with one member per cluster), bit for bit what the one-CTA
-    kernel `_adjoint_fused_2d_cta` computes.
+    kernel `_adjoint_fused_2d_cta` computes; at solve_prec "bf16x3" on the
+    bf16 form (apply_At on mma.sync; `sweep_passes`).
 
     Args: dts (M,); phi_hist, phi_Q (B, M+1, n, m); phi_T (B, n, m) terminal
     targets; b1, b2 (B,) weights; operators as `march_fused_2d`.
     Returns r (B, M+1, n, m), with r_T = 0 in the last frame.
     """
-    k = _adjoint_kw(tau, gamma, c1, c2, n_trips)
+    k = _adjoint_kw(tau, gamma, c1, c2, n_trips, solve_prec)
     args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
             Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d", phi_T):
@@ -1154,7 +1197,7 @@ def adjoint_fused_2d(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv,
     return _launch_adjoint(adjoint_fused_2d, args, k, members=1)
 
 
-adjoint_fused_2d.launches = 0
+adjoint_fused_2d.launches = adjoint_fused_2d.bf16_launches = 0
 
 
 def _adjoint_fused_2d_cta(*args, **kw):
@@ -1163,6 +1206,7 @@ def _adjoint_fused_2d_cta(*args, **kw):
     tests and chip_smoke.py hold the cluster kernel against; no solver
     calls it. Arguments and results as `adjoint_fused_2d`."""
     k = _adjoint_kw(**kw)
+    _refuse_prec("_adjoint_fused_2d_cta", k)
     if not _build.on_cuda("_adjoint_fused_2d_cta", args[3]):
         return adjoint_fused_2d_plain(*args, **k)
     return _launch_adjoint(_adjoint_fused_2d_cta, args, k)
@@ -1174,13 +1218,15 @@ _adjoint_fused_2d_cta.launches = 0
 def adjoint_fused_2d_blocked(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
                              Vx_inv, Vy_inv_T, Vx, VyT, lam, *, tau: float,
                              gamma: float, c1: float, c2: float,
-                             n_trips: int, block_b: int = 8):
+                             n_trips: int, solve_prec: str = "highest",
+                             block_b: int = 8):
     """The member-blocked sweep: block_b members (8, 4 or 2 on CUDA
     tensors, BLOCK_SIZES) in masked lockstep (pallas_march.py:1905), each
     block on a thread-block cluster (`launch_geometry` of the sweep). Same
     contract as `adjoint_fused_2d`, and each member's r is bit for bit the
-    one-CTA sweep's (`_adjoint_fused_2d_cta`); B must divide by block_b."""
-    k = _adjoint_kw(tau, gamma, c1, c2, n_trips)
+    one-CTA sweep's (`_adjoint_fused_2d_cta`; at "bf16x3" the one-member
+    bf16 form's); B must divide by block_b."""
+    k = _adjoint_kw(tau, gamma, c1, c2, n_trips, solve_prec)
     args = (dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT, Vx_inv, Vy_inv_T,
             Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d_blocked", phi_T):
@@ -1192,24 +1238,25 @@ def adjoint_fused_2d_blocked(dts, phi_hist, phi_Q, phi_T, b1, b2, Lx, LyT,
     return _launch_adjoint(adjoint_fused_2d_blocked, args, k, members=block_b)
 
 
-adjoint_fused_2d_blocked.launches = 0
+adjoint_fused_2d_blocked.launches = adjoint_fused_2d_blocked.bf16_launches = 0
 
 
 def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
                              LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, *,
                              tau: float, gamma: float, c1: float, c2: float,
-                             n_trips: int):
+                             n_trips: int, solve_prec: str = "highest"):
     """One K-step segment of the sweep with the (p, q, r) carry explicit
     (pallas_march.py:819): p0, q0, r0 are the adjoint state at the segment's
     LAST level, phi_seg / phi_Q_seg (B, K+1, n, m) its state and target
     frames. On CUDA tensors each member runs on a thread-block cluster
     (`launch_geometry` of the segment sweep), bit for bit what the one-CTA
-    kernel `_adjoint_fused_2d_segment_cta` computes.
+    kernel `_adjoint_fused_2d_segment_cta` computes; at solve_prec "bf16x3"
+    on the bf16 form.
 
     Returns (r (B, K, n, m), the segment's first K levels in forward order;
     p_f, q_f, r_f (B, n, m) at its first level).
     """
-    k = _adjoint_kw(tau, gamma, c1, c2, n_trips)
+    k = _adjoint_kw(tau, gamma, c1, c2, n_trips, solve_prec)
     args = (dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx, LyT, Vx_inv,
             Vy_inv_T, Vx, VyT, lam)
     if not _build.on_cuda("adjoint_fused_2d_segment", p0):
@@ -1218,7 +1265,7 @@ def adjoint_fused_2d_segment(dts, phi_seg, phi_Q_seg, p0, q0, r0, b1, Lx,
                                    cluster=True)
 
 
-adjoint_fused_2d_segment.launches = 0
+adjoint_fused_2d_segment.launches = adjoint_fused_2d_segment.bf16_launches = 0
 
 
 def _adjoint_fused_2d_segment_cta(*args, **kw):
@@ -1227,6 +1274,7 @@ def _adjoint_fused_2d_segment_cta(*args, **kw):
     chip_smoke.py hold the cluster kernel against; no solver calls it.
     Arguments and results as `adjoint_fused_2d_segment`."""
     k = _adjoint_kw(**kw)
+    _refuse_prec("_adjoint_fused_2d_segment_cta", k)
     if not _build.on_cuda("_adjoint_fused_2d_segment_cta", args[3]):
         return adjoint_fused_2d_segment_plain(*args, **k)
     return _launch_adjoint_segment(_adjoint_fused_2d_segment_cta, args, k,
@@ -1251,8 +1299,11 @@ def _launch_adjoint_segment(wrapper, args, k, cluster: bool):
                        ("r0", r0, (B, n, m)), ("b1", b1, (B,))]
                       + list(zip(names, args[7:], shapes)), p0.device)
     dev = p0.device
+    ops16, passes = _solve_operands(sweep_passes(k["solve_prec"]),
+                                    args[7:])
     geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS,
-                           segment=True, kernel="sweep") if cluster else None)
+                           segment=True, kernel="sweep", solve_passes=passes)
+           if cluster else None)
     lib = _build.load()
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     r = out((B, K, n, m))
@@ -1267,8 +1318,11 @@ def _launch_adjoint_segment(wrapper, args, k, cluster: bool):
         err = lib.vch_adjoint_fused_2d_segment(*common, stream)
     else:
         err = lib.vch_adjoint_fused_2d_segment_cluster(
-            *common, geo.cluster, geo.kc, geo.smem_bytes, stream)
+            *common, geo.cluster, geo.kc, geo.smem_bytes, _ptr(ops16),
+            passes, stream)
     wrapper.launches += 1
+    if passes:
+        wrapper.bf16_launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return r, p_f, q_f, r_f
 
@@ -1694,11 +1748,14 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
                              pk._while_probe_cta)
 
 
-# the cluster march's wrappers: besides `launches` (every launch) each
-# counts in `bf16_launches` those of its bf16 form (march_bf16_kernel, the
-# Krylov operator at fused_solve_precision "bf16x3" or "default")
+# the cluster march's and sweep's wrappers: besides `launches` (every
+# launch) each counts in `bf16_launches` those of its bf16 form
+# (march_bf16_kernel, the march's Krylov operator at fused_solve_precision
+# "bf16x3" or "default"; adjoint_bf16_kernel, the sweep's at
+# adjoint_solve_precision "bf16x3")
 BF16_WRAPPERS = (march_fused_2d, march_fused_2d_blocked,
-                 march_fused_2d_segment)
+                 march_fused_2d_segment, adjoint_fused_2d,
+                 adjoint_fused_2d_blocked, adjoint_fused_2d_segment)
 
 
 def reset_launches():
@@ -1710,7 +1767,8 @@ def reset_launches():
 
 
 def bf16_launch_counts() -> dict:
-    """The cluster march wrappers' launches of their bf16 form, by name."""
+    """The cluster march and sweep wrappers' launches of their bf16 form,
+    by name."""
     return {fn.__name__: fn.bf16_launches for fn in BF16_WRAPPERS}
 
 
