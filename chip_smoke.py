@@ -83,6 +83,19 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                at n = 33, M = 4, where the gate must also fail a control,
                the bf16 form at one pass (at the main shapes whether it
                fails is recorded);
+  2r kernels — the cluster march's fwd_mm forms (fwd_mm "bf16x3": every
+               product of the march on bf16 mma.sync, apply_S at the
+               default fused_solve_precision "bf16x3"), short marches at
+               their main paths' shapes: <1, false> at config 4's n = 129
+               (B = 8, M = 5), <8|4|2, false> at n = 65, B = 16, M = 10,
+               <1, true> at n = 257, B = 2, K = 10: max|dphi| from the plain
+               float64 march at the same modes within twice the farther of
+               the plain float32 ones on the card and on the CPU (+1e-6),
+               a control (the form at one pass: no fwd_mm selects it)
+               outside that gate, one launch of the fwd_mm form and not the
+               bf16 form's bits, blocks 8, 4, 2, the one-member form and
+               two other cluster sizes bit for bit; both forms' device ms
+               in turns and their bounds;
   2c kernels — the four per-solve kernels (spectral and raw Schur and
                adjoint solves) against their plain versions on inputs from a
                real step at n = 65, 129 and 257, one solve and a batch of 4,
@@ -311,9 +324,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
                exactly the searching trials march, the search alone free of
                host reads (set_sync_debug_mode("error")), the synchronizing
                calls of one iteration of each mode, both modes' rates in
-               turns; (b) config 1, 4 iterations, fused against host on the
-               card (trials, alphas, Newton solves equal, costs 1e-6, a
-               failed iteration keeps its worse iterate); (c) row 1 with the
+               turns; (b) config 1, 3 iterations (its third fails all its
+               trials), fused against host on the card (trials, alphas,
+               Newton solves equal, costs 1e-6, a failed iteration keeps its
+               worse iterate); (c) row 1 with the
                flag: n = 65, B = 4, flags [1, 0, 1, 0] and n = 129, B = 128,
                all ones, bit for bit the launch without a flag (within 2% of
                its time), an idle launch's cost at n = 65, B = 1;
@@ -843,21 +857,23 @@ def check_bf16_form_case(c):
 
 
 def _geometry(km, torch, device, n, B, members, segment=False,
-              kernel="march", solve_passes=0):
+              kernel="march", solve_passes=0, fwd_passes=0):
     """The launch geometry of a cluster kernel (with solve_passes, its bf16
-    form) for B members of an (n, n) grid, `members` per cluster: cluster,
-    CTAs, band rows, units, passes, ring rows, shared bytes and how many
-    such clusters the card holds."""
+    form; with fwd_passes too, the march's fwd_mm form) for B members of an
+    (n, n) grid, `members` per cluster: cluster, CTAs, band rows, units,
+    passes, ring rows, shared bytes and how many such clusters the card
+    holds."""
     g = km.launch_geometry(n, n, B, device, members=members,
                            segment=segment, kernel=kernel,
-                           solve_passes=solve_passes)
+                           solve_passes=solve_passes, fwd_passes=fwd_passes)
     idx = torch.device(device).index or 0
     return dict(cluster=g.cluster, ctas=B // members * g.cluster,
                 band_rows=[r for _, r in g.bands], units=g.units,
                 passes=g.passes, kc=g.kc, smem_bytes=g.smem_bytes,
                 resident_clusters=km.resident_clusters(
                     idx, n, n, g.cluster, g.kc, g.smem_bytes, members,
-                    segment, kernel + "16" if solve_passes else kernel))
+                    segment, kernel + ("16f" if fwd_passes else "16"
+                                       if solve_passes else "")))
 
 
 # (wrapper, n, B, T, float64-gated members, other cluster sizes): the
@@ -1064,6 +1080,187 @@ def check_sweep16_case(c, control=False):
         fails.append("the bf16 sweep's bits depend on its cluster size")
     if fails:
         raise RuntimeError(f"phase 2q {c['form']} n={c['n']} B={c['B']}: "
+                           + "; ".join(fails))
+
+
+# Phase 2r: the cluster march's fwd_mm forms (fwd_mm "bf16x3": every
+# product of the march on bf16 mma.sync, march_fwd16_kernel) at the default
+# fused_solve_precision "bf16x3", at a main path's shape with a short
+# march: (wrapper, n, B, T, block sizes, float64-gated members, other
+# cluster sizes): <1, false> at config 4's n = 129 (B = 8, M = 5), <8|4|2,
+# false> at n = 65, B = 16, M = 10, <1, true> at n = 257, B = 2, one K = 10
+# segment from phi0
+FWD16_FORMS = (("march_fused_2d", 129, 8, 0.05, None, 4, (4, 2)),
+               ("march_fused_2d_blocked", 65, 16, 0.1, (8, 4, 2), 8, (1, 4)),
+               ("march_fused_2d_segment", 257, 2, 0.1, None, 2, (4, 2)))
+
+
+def _march_work_fwd16(n, B, M, newton, n_trips, krylov_passes,
+                      segment=False):
+    """(FP32 FLOPs, bf16 FLOPs, bytes) of a launch of the fwd_mm march,
+    every product on the tensor cores: apply_S's (8 n_trips a Newton
+    iteration, trips in full) at `krylov_passes`, the rest at three, as
+    _march_work counts them (its elementwise work left out: no FP32
+    FLOPs)."""
+    flops, nbytes = _march_work(n, B, M, newton, n_trips, segment)
+    krylov = 2.0 * n ** 3 * newton * 8 * n_trips
+    return 0.0, krylov * krylov_passes + 3 * (flops - krylov), nbytes
+
+
+def fwd16_case(torch, device, form, n, B, T, blocks, gate_members, clusters,
+               reps=3):
+    """Phase 2r at one form and shape: the march at fwd_mm "bf16x3" and
+    fused_solve_precision "bf16x3" on the cluster kernel's fwd_mm form
+    (march_fwd16_kernel), on seeded inputs (the segment form: one K = M
+    segment from phi0); on the first `gate_members` members the plain march
+    at the same modes in float32 on the card and on the CPU and in float64:
+    each one's max|dphi| from float64 (the history; the segment's carry out
+    too), the kernel's and the plain float32 one's; the fwd_mm form's
+    launches (bf16_launches and fwd16_launches) and whether it gives the
+    bf16 form's bits (fwd_mm "highest"); the control, the fwd_mm form at
+    one pass (`fwd_passes` replaced: no fwd_mm selects it), and whether the
+    gate fails it; blocks 8, 4, 2 and the one-member form (blocked) and
+    `clusters` bit-gated against the launch; both forms' device ms in
+    turns (bf16, fwd_mm, fwd_mm, bf16; CUDA events), geometry and bound
+    (trips in full; the fwd_mm form's at its own Newton total); the plain
+    version's host ms."""
+    from vch_tpu_torch.ops import march as km
+
+    solvers, x, x64 = _problem_inputs(torch, n, B, T, device)
+    fwd, fwd64 = solvers["float32"][0], solvers["float64"][0]
+    segment, blocked = form.endswith("segment"), form.endswith("blocked")
+
+    def args_of(f, xs):
+        phi0 = xs["phi0"]
+        if segment:
+            w = torch.zeros_like(phi0)
+            return (f.dts, phi0, f.initialize_mu(phi0, w), w,
+                    torch.sum(f.wts * phi0, dim=(-2, -1)), xs["u"]) + f._ops()
+        return (f.dts, phi0, xs["u"]) + f._ops()
+    args, g = args_of(fwd, x), gate_members
+    # the first g members of the per-member arguments (phi0 and u; the
+    # segment's: phi0, its carry and u)
+    each = range(1, 6 if segment else 3)
+    sub = lambda a: tuple(t[:g] if i in each else t for i, t in enumerate(a))
+    args64 = sub(args_of(fwd64, x64))
+    kernel, plain = getattr(km, form), getattr(km, form + "_plain")
+    v = dict(block_b=8) if blocked else {}
+    members_of = lambda o: o.get("block_b", 1)
+    mkw = lambda fwd_mm: dict(fwd._march_kw(), solve_prec="bf16x3",
+                              fwd_mm=fwd_mm)
+    run = lambda fwd_mm="bf16x3", **o: kernel(*args, **(o or v), **mkw(fwd_mm))
+    nphi = 4 if segment else 1
+    before = (kernel.bf16_launches, kernel.fwd16_launches)
+    k16 = run()
+    launches = (kernel.bf16_launches - before[0],
+                kernel.fwd16_launches - before[1])
+    kb = run("highest")
+    torch.cuda.synchronize()
+    plain_ms, p32 = _host_ms(torch, lambda: plain(*sub(args), **v,
+                                                  **mkw("bf16x3")))
+    pcpu = plain(*(t.cpu() for t in sub(args)), **v, **mkw("bf16x3"))
+    p64 = plain(*args64, **v, **mkw("bf16x3"))
+    real_passes = km.fwd_passes
+    km.fwd_passes = lambda mode: 1 if mode == "bf16x3" else 0
+    try:
+        k1 = run()
+    finally:
+        km.fwd_passes = real_passes
+    dist = lambda out: max(
+        (a[:g].double().to(b.device) - b).abs().max().item()
+        for a, b in zip(out[:nphi], p64[:nphi]))
+    out = dict(form=form, n=n, B=B, M=fwd.M, gate_members=g,
+               bf16_launches=launches[0], fwd16_launches=launches[1],
+               bits_of_bf16_form=bool(torch.equal(k16[0], kb[0])),
+               finite=all(bool(torch.isfinite(t).all()) for t in k16[:nphi]),
+               first_bad=k16[-1].cpu().tolist(),
+               newton_kernel=k16[-2].cpu().tolist(),
+               newton_plain=p32[-2].cpu().tolist(),
+               newton_plain_cpu=pcpu[-2].tolist(),
+               newton_plain_f64=p64[-2].cpu().tolist(),
+               newton_bf16_form=kb[-2].cpu().tolist(),
+               max_abs_dphi_kernel_vs_f64=dist(k16),
+               max_abs_dphi_plain_vs_f64=dist(p32),
+               max_abs_dphi_plain_cpu_vs_f64=dist(pcpu),
+               max_abs_dphi_bf16_form_vs_f64=dist(kb),
+               max_abs_dphi_vs_plain=max(
+                   (a[:g] - b).abs().max().item()
+                   for a, b in zip(k16[:nphi], p32[:nphi])),
+               one_pass_max_abs_dphi_vs_f64=dist(k1),
+               one_pass_newton=k1[-2].cpu().tolist(),
+               plain_ms=plain_ms)
+    out["gate"] = 2 * max(out["max_abs_dphi_plain_vs_f64"],
+                          out["max_abs_dphi_plain_cpu_vs_f64"]) + 1e-6
+    out["one_pass_fails_gate"] = \
+        out["one_pass_max_abs_dphi_vs_f64"] > out["gate"]
+    same = lambda o: all(torch.equal(a, b) for a, b in zip(o, k16))
+    out["entry_launches"] = {members_of(v): launches[1]}
+    if blocked:
+        out["blocks_equal"] = {}
+        for bb in (4, 2):
+            before = kernel.fwd16_launches
+            out["blocks_equal"][bb] = same(run(block_b=bb))
+            out["entry_launches"][bb] = kernel.fwd16_launches - before
+        out["one_member_equal"] = same(km.march_fused_2d(*args,
+                                                         **mkw("bf16x3")))
+    members = v.get("block_b", 1)
+    out["geometry"] = _geometry(km, torch, device, n, B, members, segment,
+                                solve_passes=3, fwd_passes=3)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fitted, out["other_clusters"] = km.launch_geometry, []
+    try:
+        for C in clusters:
+            gc = km.blocked_geometry(n, n, B, sms, cluster=C,
+                                     members=members, solve_passes=3,
+                                     fwd_passes=3)
+            km.launch_geometry = lambda *a, **k: gc
+            out["other_clusters"].append(dict(cluster=C, equal=same(run())))
+    finally:
+        km.launch_geometry = fitted
+    for mode in ("highest", "bf16x3", "bf16x3", "highest"):
+        out.setdefault(f"fwd_{mode}_ms", []).append(
+            time_ms(lambda: run(mode), reps))
+    if blocked:      # blocks 4 and 2 once each, after the turns
+        out["fwd_bf16x3_ms_by_block"] = {
+            bb: time_ms(lambda: run(block_b=bb), reps) for bb in (4, 2)}
+    trips = fwd.config.fused_krylov_fixed_iters
+    out["bound_ms"], out["bound_by"] = _bound16(*_march_work_fwd16(
+        n, B, fwd.M, sum(out["newton_kernel"]), trips, 3, segment))
+    out["bf16_form_bound_ms"], _ = _bound16(*_march_work16(
+        n, B, fwd.M, sum(out["newton_bf16_form"]), trips, 3, segment))
+    del k16, kb, k1, p32, pcpu, p64
+    return out
+
+
+def check_fwd16_case(c):
+    """Phase 2r gates: the fwd_mm form launched once (in bf16_launches and
+    fwd16_launches), finite, first_bad -1, not the bf16 form's bits; its
+    max|dphi| from the plain float64 march within twice the farther plain
+    float32 march's (card or CPU) + 1e-6, and the one-pass control outside
+    that gate; the blocked forms and the one-member form give its bits, and
+    so does every cluster size tried."""
+    fails = []
+    if c["max_abs_dphi_kernel_vs_f64"] > c["gate"]:
+        fails.append(f"max|dphi| from float64 "
+                     f"{c['max_abs_dphi_kernel_vs_f64']} > {c['gate']}")
+    if not c["one_pass_fails_gate"]:
+        fails.append(f"the gate passes the one-pass control "
+                     f"({c['one_pass_max_abs_dphi_vs_f64']} from float64)")
+    if ((c["bf16_launches"], c["fwd16_launches"]) != (1, 1)
+            or set(c["entry_launches"].values()) != {1}
+            or c["bits_of_bf16_form"] or not c["finite"]
+            or set(c["first_bad"]) != {-1}):
+        fails.append(f"{c['fwd16_launches']} fwd_mm launches, the bf16 "
+                     f"form's bits {c['bits_of_bf16_form']}, finite "
+                     f"{c['finite']}, first_bad {c['first_bad']}")
+    if not all(c.get("blocks_equal", {}).values()) \
+            or not c.get("one_member_equal", True):
+        fails.append("the blocked fwd_mm forms differ from the one-member "
+                     "one")
+    if not all(o["equal"] for o in c["other_clusters"]):
+        fails.append("the fwd_mm march's bits depend on its cluster size")
+    if fails:
+        raise RuntimeError(f"phase 2r {c['form']} n={c['n']} B={c['B']}: "
                            + "; ".join(fails))
 
 
@@ -1302,12 +1499,11 @@ def segment_timing(torch, device, n=257, B=32, K=10, reps=1, clusters=()):
                           device=device)
     if fwd.M != K:
         raise RuntimeError(f"segment timing: {fwd.M} steps, expected {K}")
-    rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     phi0 = f32(np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP,
                                             amp=0.1, seed=42 + i)
                          for i in range(B)]))
-    u = f32(0.1 * rng.standard_normal((B, K + 1, n, n)))
+    u = _randn(torch, device, (B, K + 1, n, n), 0.1, 0)
     w = torch.zeros_like(phi0)
     args = (fwd.dts, phi0, fwd.initialize_mu(phi0, w), w,
             torch.sum(fwd.wts * phi0, dim=(-2, -1)), u) + fwd._ops()
@@ -1376,11 +1572,10 @@ def sweep_segment_timing(torch, device, n=257, B=32, K=10, reps=1,
         raise RuntimeError(f"sweep timing: {fwd.M} steps, expected {K}")
     hist = km.march_fused_2d(*margs, **fwd._march_kw())[0]
     adj = AdjointSolver2D(fwd.config, device=device)
-    rng = np.random.default_rng(2)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     b1, b2 = f32(np.linspace(0.3, 5.0, B)), f32(np.linspace(13.0, 10.0, B))
     p, q, r = adj.terminal(hist[:, K], 0.1 * margs[1], b2)
-    args = (adj.dts, hist, f32(0.3 * rng.standard_normal(tuple(hist.shape))),
+    args = (adj.dts, hist, _randn(torch, device, tuple(hist.shape), 0.3, 2),
             p, q, r, b1) + adj._ops()
     kw = adj._kw()
     zero = K // 2
@@ -1444,10 +1639,19 @@ def check_sweep_timing(c):
                            + "; ".join(fails))
 
 
+def _randn(torch, device, shape, scale, seed):
+    """scale N(0, 1) of `shape` in float32, drawn on the card from a
+    generator seeded with `seed` (the host's generator took ~30 s of
+    phases 2-2b at their largest batches)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return scale * torch.randn(shape, device=device, generator=gen)
+
+
 def _seeded_march(torch, device, n, B, T, solve_prec="highest"):
     """A float32 forward solver at (n - 1, T) and `solve_prec` (as
     _problem_inputs) and seeded inputs of B members: phi0 from
-    init_phi_random_2d (seed 42 + i), u = 0.1 N(0, 1)."""
+    init_phi_random_2d (seed 42 + i), u = 0.1 N(0, 1) (`_randn`, seed
+    0)."""
     from vch_tpu_torch.config import DELTA_SEP
     from vch_tpu_torch.models.forward2d import ForwardSolver2D
     from vch_tpu_torch.ops.potential import init_phi_random_2d
@@ -1455,12 +1659,11 @@ def _seeded_march(torch, device, n, B, T, solve_prec="highest"):
     fwd = ForwardSolver2D(_config(n - 1, T=T,
                                   fused_solve_precision=solve_prec),
                           device=device)
-    rng = np.random.default_rng(0)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     phi0 = f32(np.stack([init_phi_random_2d(n - 1, n - 1, DELTA_SEP,
                                             amp=0.1, seed=42 + i)
                          for i in range(B)]))
-    u = f32(0.1 * rng.standard_normal((B, fwd.M + 1, n, n)))
+    u = _randn(torch, device, (B, fwd.M + 1, n, n), 0.1, 0)
     return fwd, (fwd.dts, phi0, u) + fwd._ops()
 
 
@@ -1510,9 +1713,8 @@ def sweep_timing(torch, device, n, B, T=1.0, reps=1, clusters=()):
     fwd, margs = _seeded_march(torch, device, n, B, T)
     hist = km.march_fused_2d(*margs, **fwd._march_kw())[0]
     adj = AdjointSolver2D(fwd.config, device=device)
-    rng = np.random.default_rng(2)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    args = (adj.dts, hist, f32(0.3 * rng.standard_normal(tuple(hist.shape))),
+    args = (adj.dts, hist, _randn(torch, device, tuple(hist.shape), 0.3, 2),
             0.1 * margs[1], f32(np.linspace(0.3, 5.0, B)),
             f32(np.linspace(13.0, 10.0, B))) + adj._ops()
     kw = adj._kw()
@@ -5314,7 +5516,7 @@ def check_fused_config3(c):
         raise RuntimeError("phase 14a: " + "; ".join(fails) + f" | {c}")
 
 
-def fused_config1(torch, device, iters=4):
+def fused_config1(torch, device, iters=3):
     """Phase 14b: config 1 (ControlProblem1D, float32, N = 128, M = 100)
     on the card, `iters` iterations in the host mode, then in the fused
     mode, from one constructor (no kernel on this path: the per-step
@@ -6115,6 +6317,8 @@ def main():
          + ", march_bf16_kernel<MB,SEG> (the same at a bf16 "
          "fused_solve_precision): "
          + _ptxas_named(_build.ptxas_log, "march_bf16_kernel")
+         + ", march_fwd16_kernel<MB,SEG> (the same at fwd_mm \"bf16x3\"): "
+         + _ptxas_named(_build.ptxas_log, "march_fwd16_kernel")
          + " | adjoint2d_cluster.cu adjoint_cluster_kernel<MB,SEG> (8, 4, "
          "2: the blocked sweep; <1,0>: the whole sweep; <1,1>: the segment "
          "sweep): " + _ptxas_named(_build.ptxas_log, "adjoint_cluster_kernel")
@@ -6257,6 +6461,13 @@ def main():
         check_sweep16_case(c)
     for c in controls16:
         check_sweep16_case(c, control=True)
+    # the march's fwd_mm forms (rows 1, 3, 5 at fwd_mm "bf16x3") at their
+    # main paths' shapes, short marches
+    fwd16 = [fwd16_case(torch, device, *f) for f in FWD16_FORMS]
+    for c in fwd16:
+        _log("2r", json.dumps(c) + f" | {name} | {smi}")
+    for c in fwd16:
+        check_fwd16_case(c)
 
     solves = [solve_case(torch, device, n, B, reps=20 if n == 65 else 5)
               for n in (65, 129, 257) for B in (None, 4)]
@@ -6878,6 +7089,36 @@ def main():
                      else "the entry point's own call (phase 2q)",
                      highest_ms=mean(c["highest_ms"]),
                      highest_bound_ms=c["highest_bound_ms"])
+            kernels.append(e)
+    # rows 1, 3, 5 on their fwd_mm forms (march_fwd16_kernel<MB, SEG>) at
+    # fwd_mm "bf16x3" and the default fused_solve_precision "bf16x3", at
+    # phase 2r's shapes: no path sets fwd_mm (vch_tpu keeps it "highest"
+    # on every path), so each form's launches are its entry point's own
+    # call in phase 2r
+    for (fn, line, form), c in zip(
+            (("march_fused_2d", 393, "1, false"),
+             ("march_fused_2d_blocked", 1649, "8, false"),
+             ("march_fused_2d_segment", 479, "1, true")), fwd16):
+        for b in ((8, 4, 2) if c["form"].endswith("blocked") else (None,)):
+            e = entry(
+                f"{fn}[fwd_mm bf16x3]" + (f"[block {b}]" if b in (4, 2)
+                                          else ""),
+                cluster_cu, f"{pm}:{line}", c["entry_launches"][b or 1],
+                c["max_abs_dphi_vs_plain"],
+                (c["fwd_bf16x3_ms_by_block"][b] if b in (4, 2)
+                 else mean(c["fwd_bf16x3_ms"])), c["plain_ms"],
+                _march_work_fwd16(c["n"], c["B"], c["M"],
+                                  sum(c["newton_kernel"]), trips_fwd, 3,
+                                  segment=fn.endswith("segment")),
+                shape=f"ms, bound_ms: n={c['n']}, B={c['B']}, M={c['M']} "
+                      f"(phase 2r); max_abs_err, plain_ms: its first "
+                      f"{c['gate_members']} members")
+            e.update(kernel="march_fwd16_kernel<"
+                            + (f"{b}, false>" if b else f"{form}>"),
+                     solve_precision="bf16x3", fwd_mm="bf16x3",
+                     launches_from="the entry point's own call (phase 2r)",
+                     bf16_form_ms=mean(c["fwd_highest_ms"]),
+                     bf16_form_bound_ms=c["bf16_form_bound_ms"])
             kernels.append(e)
     _log("end", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

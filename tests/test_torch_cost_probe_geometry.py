@@ -248,15 +248,16 @@ def test_the_probes_build_as_their_oracles():
     """Both probe objects (the cluster kernels and the one-CTA oracles)
     compile with -fmad=false, as the raw Schur solve and its oracle; the
     raw adjoint oracle keeps nvcc's default contraction in the object
-    without a variant; 38 objects in all (the while probe's own,
-    while_fused.cu, with probes.cu's default contraction, and the cluster
-    march's and the cluster sweep's five bf16 forms each)."""
+    without a variant; 43 objects in all (the while probe's own,
+    while_fused.cu, with probes.cu's default contraction, the cluster
+    march's and the cluster sweep's five bf16 forms each, and the cluster
+    march's five fwd_mm forms)."""
     assert ("-DVCH_VARIANT=4", "-fmad=false") in _build.SOURCES["solve2d.cu"]
     assert ("-DVCH_VARIANT=4", "-fmad=false") in \
         _build.SOURCES["solve2d_cluster.cu"]
     assert ("-DVCH_VARIANT=1", "-fmad=false") in _build.SOURCES["solve2d.cu"]
     assert () in _build.SOURCES["solve2d.cu"]
-    assert sum(len(objs) for objs in _build.SOURCES.values()) == 38
+    assert sum(len(objs) for objs in _build.SOURCES.values()) == 43
     assert _build.SOURCES["while_fused.cu"] == _build.SOURCES["probes.cu"]
     assert sk._CLUSTER_SOLVES["schur_nodots"][0] == \
         sk._CLUSTER_SOLVES["schur_mmonly"][0] == "schur_probe"

@@ -18,7 +18,11 @@ cluster size; so are the march's bf16 forms (fused_solve_precision
 "bf16x3", "default") among themselves, each within 1e-5 of its plain
 version at the same mode, and the sweep's bf16 forms
 (adjoint_solve_precision "bf16x3"), each within 2e-3 relative of its plain
-version. The one-member march's per-member flag: an active member bit for bit
+version, and the march's fwd_mm forms (fwd_mm "bf16x3": every product
+on mma.sync) among themselves, each no farther from the plain float64
+march at its modes than twice the plain float32 ones on the card and on
+the CPU (+1e-6), a one-pass control farther. The one-member march's
+per-member flag: an active member bit for bit
 the launch without it, an inactive one nsolve 0 and first_bad -1.
 The 1D march: phi 1e-5 absolute on a
 short march, Newton counts and first_bad equal, and bit-equal results for
@@ -401,6 +405,189 @@ def test_bf16_march_bits_do_not_depend_on_the_cluster_size(cuda,
         torch.cuda.synchronize()
         for a, b in zip(out, ref):
             assert torch.equal(a, b), C
+
+
+# the fwd_mm forms of the cluster march (fwd_mm "bf16x3": every product of
+# the march on mma.sync, apply_S at fused_solve_precision "bf16x3" or
+# "default"): each against the plain float64 march at the same modes
+_FWD16_FORMS = {"one_member": dict(n=33, m=33, B=4),
+                "blocked_8": dict(n=33, m=29, B=16, block_b=8),
+                "blocked_4": dict(n=33, m=29, B=8, block_b=4),
+                "blocked_2": dict(n=33, m=29, B=8, block_b=2),
+                "segment": dict(n=33, m=33, B=4)}
+
+
+def _fwd16_case(cuda, form, T=0.04):
+    shape = _FWD16_FORMS[form]
+    fwd, _, phi0, u, _ = _problem(cuda, n=shape["n"], m=shape["m"],
+                                  B=shape["B"], T=T)
+    return fwd, phi0, u
+
+
+def _fwd16_f64_distances(fwd, phi0, u, form, kw, kern):
+    """(the kernel's max|dphi| from the plain float64 march at kw's modes,
+    the farther of the plain float32 marches' on the card and on the
+    CPU): chip_smoke's phase 2r gate holds the first within twice the
+    second."""
+    f64 = lambda t: t.double()
+    plain64 = _fwd16_plain(form, [f64(a) for a in _fwd16_args(fwd, phi0, u,
+                                                                form)], kw)
+    plains = [_fwd16_plain(form, _fwd16_args(fwd, phi0, u, form), kw),
+              _fwd16_plain(form, [a.cpu() for a in _fwd16_args(
+                  fwd, phi0, u, form)], kw)]
+    dist = lambda out: (out[0].double().to(plain64[0].device)
+                        - plain64[0]).abs().max().item()
+    return dist(kern), max(dist(p) for p in plains)
+
+
+def _fwd16_args(fwd, phi0, u, form):
+    if form == "segment":
+        return list(_segment_args(fwd, phi0, u, fwd.M))
+    return list(_march_args(fwd, phi0, u))
+
+
+def _fwd16_plain(form, args, kw):
+    if form.startswith("blocked"):
+        return km.march_fused_2d_blocked_plain(
+            *args, block_b=_FWD16_FORMS[form]["block_b"], **kw)
+    if form == "segment":
+        return km.march_fused_2d_segment_plain(*args, **kw)
+    return km.march_fused_2d_plain(*args, **kw)
+
+
+def _fwd16_march(fwd, phi0, u, form, kw):
+    args = _fwd16_args(fwd, phi0, u, form)
+    if form.startswith("blocked"):
+        return km.march_fused_2d_blocked(
+            *args, block_b=_FWD16_FORMS[form]["block_b"], **kw)
+    if form == "segment":
+        return km.march_fused_2d_segment(*args, **kw)
+    return km.march_fused_2d(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve_prec", ["bf16x3", "default"])
+@pytest.mark.parametrize("form", list(_FWD16_FORMS))
+def test_fwd_mm_march_matches_plain(cuda, form, solve_prec):
+    """The fwd_mm forms at fwd_mm "bf16x3": no farther from the plain
+    float64 march at the same modes than twice the farther plain float32
+    one (+1e-6; chip_smoke's phase 2r gate); first_bad -1; one launch of
+    the fwd_mm form (counted in bf16_launches and fwd16_launches), whose
+    bits are not the bf16 form's (fwd_mm "highest")."""
+    fwd, phi0, u = _fwd16_case(cuda, form)
+    kw = dict(_KW, solve_prec=solve_prec, fwd_mm="bf16x3")
+    counts = lambda: (sum(km.launch_counts().values()),
+                      sum(km.bf16_launch_counts().values()),
+                      sum(km.fwd16_launch_counts().values()))
+    before = counts()
+    kern = _fwd16_march(fwd, phi0, u, form, kw)
+    bf16 = _fwd16_march(fwd, phi0, u, form, dict(kw, fwd_mm="highest"))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [2, 2, 1]
+    assert bool(torch.isfinite(kern[0]).all()) and (kern[-1] == -1).all()
+    assert not torch.equal(kern[0], bf16[0])
+    d_kern, d_plain = _fwd16_f64_distances(fwd, phi0, u, form, kw, kern)
+    assert d_kern <= 2 * d_plain + 1e-6, (d_kern, d_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["one_member", "blocked_8", "segment"])
+def test_fwd_mm_gate_fails_a_one_pass_march(cuda, monkeypatch, form):
+    """A control of test_fwd_mm_march_matches_plain's gate (and of
+    chip_smoke's phase 2r): the fwd_mm form made to run the march's other
+    products at one pass (no fwd_mm selects it; apply_S stays at
+    "bf16x3"'s three) lies farther from the float64 march than twice the
+    farther plain float32 fwd_mm march, where the three-pass form does
+    not."""
+    fwd, phi0, u = _fwd16_case(cuda, form)
+    kw = dict(_KW, solve_prec="bf16x3", fwd_mm="bf16x3")
+    three = _fwd16_march(fwd, phi0, u, form, kw)
+    d_three, d_plain = _fwd16_f64_distances(fwd, phi0, u, form, kw, three)
+    monkeypatch.setattr(km, "fwd_passes",
+                        lambda mode: 1 if mode == "bf16x3" else 0)
+    before = sum(km.fwd16_launch_counts().values())
+    one = _fwd16_march(fwd, phi0, u, form, kw)
+    torch.cuda.synchronize()
+    assert sum(km.fwd16_launch_counts().values()) == before + 1
+    assert bool(torch.isfinite(one[0]).all())
+    assert not torch.equal(one[0], three[0])
+    monkeypatch.undo()
+    d_one, _ = _fwd16_f64_distances(fwd, phi0, u, form, kw, one)
+    assert d_three <= 2 * d_plain + 1e-6, (d_three, d_plain)
+    assert d_one > 2 * d_plain + 1e-6, (d_one, d_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve_prec", ["bf16x3", "default"])
+def test_fwd_mm_blocked_march_equals_the_one_member_march(cuda, solve_prec):
+    """The fwd_mm forms sum each product in the same k-tile order whatever
+    the block: the blocked march (8, 4, 2 members a cluster) gives each
+    member the one-member fwd_mm march's history, Newton count and
+    first_bad bit for bit."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=16, T=0.04)
+    args = _march_args(fwd, phi0, u)
+    kw = dict(_KW, solve_prec=solve_prec, fwd_mm="bf16x3")
+    ref = km.march_fused_2d(*args, **kw)
+    for bb in (8, 4, 2):
+        out = km.march_fused_2d_blocked(*args, block_b=bb, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), bb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["one_member", "segment"])
+def test_fwd_mm_march_bits_do_not_depend_on_the_cluster_size(cuda,
+                                                             monkeypatch,
+                                                             form):
+    fwd, _, phi0, u, _ = _problem(cuda, n=33, m=29, B=2, T=0.03)
+    kw = dict(_KW, solve_prec="default", fwd_mm="bf16x3")
+    args = (_segment_args(fwd, phi0, u, fwd.M) if form == "segment"
+            else _march_args(fwd, phi0, u))
+    fn = (km.march_fused_2d_segment if form == "segment"
+          else km.march_fused_2d)
+    ref = fn(*args, **kw)
+    for C in (1, 2, 3, 4, 8, 16):
+        _segment_geometry(monkeypatch, lambda n, m, B, sms, members:
+                          km.blocked_geometry(n, m, B, sms, cluster=C,
+                                              members=members,
+                                              solve_passes=1, fwd_passes=3))
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oracle", ["_march_fused_2d_cta",
+                                    "_march_fused_2d_segment_cta"])
+def test_fwd_mm_oracles_refuse_on_the_card(cuda, oracle):
+    """The one-CTA oracles compute full float32 only: fwd_mm "bf16x3"
+    raises on CUDA tensors before a launch."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=17, B=1, T=0.02)
+    args = (_segment_args(fwd, phi0, u, fwd.M) if "segment" in oracle
+            else _march_args(fwd, phi0, u))
+    fn = getattr(km, oracle)
+    before = fn.launches
+    with pytest.raises(ValueError, match="full float32"):
+        fn(*args, **dict(_KW, fwd_mm="bf16x3"))
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_fwd_mm_c_entry_refuses_one_pass_staging(cuda, monkeypatch):
+    """At solve_prec "default" with fwd_mm "bf16x3" apply_S runs one pass
+    and every other product three: the fwd_mm march refuses a geometry
+    whose staging is sized for apply_S's one pass (at n = 129, one member
+    a cluster of 16: 43,776 bytes against the 87,552 of three passes,
+    both above the ring's 37,888)."""
+    fwd, _, phi0, u, _ = _problem(cuda, n=129, B=1, T=0.01)
+    _segment_geometry(monkeypatch, lambda n, m, B, sms, members:
+                      km.blocked_geometry(n, m, B, sms, members=members,
+                                          solve_passes=1))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        km.march_fused_2d(*_march_args(fwd, phi0, u),
+                          **dict(_KW, solve_prec="default", fwd_mm="bf16x3"))
 
 
 def _with_geometry(monkeypatch, make):

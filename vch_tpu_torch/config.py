@@ -36,7 +36,9 @@ Krylov solves).
 march's Krylov operator runs at "bf16x3" (the default: three bf16 passes on
 the (hi, lo) split; on the card bf16 mma.sync), "default" (one bf16 pass)
 or, for None, "highest" or any other string, full precision; every other
-product of the march stays full precision (ops.march `_make_mm`).
+product of the march stays full precision (ops.march `_make_mm`): only the
+march entries' own `fwd_mm` argument, vch_tpu's, which no config field or
+path sets, runs them at "bf16x3" (ops.march `fwd_passes`).
 `adjoint_solve_precision` is honored likewise: the fused 2D sweep's Krylov
 operator runs at "bf16x3" (three bf16 passes; on the card bf16 mma.sync)
 or, for None (the default) or any other string, full precision; every

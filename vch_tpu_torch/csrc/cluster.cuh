@@ -30,9 +30,10 @@
 // another layout than the one that wrote it, or in a peer's band, waits at
 // a cluster barrier first: every left product and every reduction starts
 // with one. Full float32 FMA: no tensor cores, no TF32; but product16, the
-// march's Krylov operator at a bf16 fused_solve_precision, which stages the
-// field as bf16 (hi, lo) in the ring's shared memory and multiplies on
-// mma.sync with float32 accumulators.
+// march's Krylov operator at a bf16 fused_solve_precision (and every product
+// of the march at fwd_mm "bf16x3"), which stages the field as bf16 (hi, lo)
+// in the ring's shared memory and multiplies on mma.sync with float32
+// accumulators.
 #pragma once
 
 #include <mutex>
@@ -322,7 +323,8 @@ struct Block {
 
   // ---- bf16 products on the tensor cores ---------------------------------
   // The products of the march's Krylov operator at fused_solve_precision
-  // "bf16x3" (passes 3) or "default" (passes 1), vch_tpu's _make_mm
+  // "bf16x3" (passes 3) or "default" (passes 1), and at fwd_mm "bf16x3"
+  // every other product of the march (passes 3), vch_tpu's _make_mm
   // (pallas_march.py:47-75): operand a = hi + lo, each half rounded to bf16
   // (nearest even); out = d0 + (d1 + d2), d0 = hi hi, d1 = lo hi, d2 = hi
   // lo, each a separate float32 accumulator over k ascending (passes 1: d0
@@ -693,6 +695,21 @@ inline Ops16 ops16_of(const void* buf, int n, int m) {
   const size_t ln = (size_t)(n + 8) * ((n + 15) / 16) * 4;
   const size_t lm = (size_t)(m + 8) * ((m + 15) / 16) * 4;
   return Ops16{p, p + ln, p + 2 * ln, p + 2 * ln + lm};
+}
+
+// The fwd_mm march's two further fragment copies, after ops16_of's four in
+// the same buffer: Lx (n + 8 rows of ceil(n / 16) k tiles) and Ly = LyT^T
+// (m + 8 rows of ceil(m / 16)); all null for a null buffer. (Ops16 stays as
+// it was: the sweep's kernel arguments hold one.)
+struct FwdOps16 {
+  const uint4 *lx, *ly;
+};
+inline FwdOps16 fwd_ops16_of(const void* buf, int n, int m) {
+  const uint4* p = static_cast<const uint4*>(buf);
+  if (!p) return FwdOps16{nullptr, nullptr};
+  const size_t ln = (size_t)(n + 8) * ((n + 15) / 16) * 4;
+  const size_t lm = (size_t)(m + 8) * ((m + 15) / 16) * 4;
+  return FwdOps16{p + 2 * ln + 2 * lm, p + 3 * ln + 2 * lm};
 }
 
 // cudaOccupancyMaxActiveClusters of `kernel` on clusters of C CTAs with

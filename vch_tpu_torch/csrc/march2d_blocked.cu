@@ -52,6 +52,19 @@
 // same bits at every cluster size and block. The float32 kernels above are
 // left as they were: the bf16 path is its own kernel and Args16, and the
 // float32 objects keep their SASS.
+//
+// The fwd_mm forms, march_fwd16_kernel<MB, SEG> (one object each,
+// -DVCH_PREC=2): vch_tpu's march at fwd_mm "bf16x3" (pallas_march.py:132,
+// :1318), whose `mm` computes every product of the march: besides apply_S
+// (at its own passes: 3, or 1 at fused_solve_precision "default"), the
+// Laplacians (mu0, lap_mu_old, lap_phi_old, both of every residual, Kpp
+// dphi: Lx V and V LyT each rounded, then added, as Base::lap), the
+// right-hand side's transform to_s and dphi's transform back from_s, all on
+// product16 at the launch's fwd passes: three (one only in a test's
+// control, which vch_tpu has no mode for). Its staging is sized for the
+// larger of the two pass counts (check_geometry16 at 3 wherever either is
+// 3). A compile-time flag, not a run-time branch: the bf16 and float32
+// forms keep their SASS.
 #include <type_traits>
 
 #include "cluster.cuh"
@@ -126,17 +139,29 @@ struct Args16 : Args {
   int passes, jt_left, jt_right;
 };
 
-template <bool BF16>
-using ArgsOf = std::conditional_t<BF16, Args16, Args>;
+// The fwd_mm march's arguments: besides Args16's, product16's fragment
+// copies of Lx (the LEFT product's) and of Ly = LyT^T (the RIGHT
+// product's), and the passes of every product but apply_S's (3; 1 only as
+// a test's control).
+struct ArgsF16 : Args16 {
+  const uint4 *lx, *ly;
+  int fwd;
+};
+
+template <bool BF16, bool FWD16 = false>
+using ArgsOf = std::conditional_t<
+    FWD16, ArgsF16, std::conditional_t<BF16, Args16, Args>>;
 
 
 // One CTA's view of its block of MB members; SEG: a segment with the
 // carry in and out, the history its K post-step states; BF16: apply_S's
-// four products on product16 (the rest as without). Every method is
+// four products on product16 (the rest as without); FWD16 (with BF16): the
+// Laplacians, to_s and from_s too, at the fwd passes. Every method is
 // force-inlined into the kernel, so the state below lives in registers; the
 // per-member scalars live in `ctl`, in shared memory.
-template <int MB, bool SEG, bool BF16 = false>
+template <int MB, bool SEG, bool BF16 = false, bool FWD16 = false>
 struct March : Block<MB> {
+  static_assert(BF16 || !FWD16, "the fwd_mm form is a bf16 form");
   using Base = Block<MB>;
   using Base::tid;
   using Base::nm;
@@ -150,12 +175,13 @@ struct March : Block<MB> {
   using Base::gemm_l_to;
   using Base::gemm_r;
   using Base::gemm_r_to;
-  const ArgsOf<BF16>& a;
+  const ArgsOf<BF16, FWD16>& a;
   const FwdConst& c;
   Ctl<MB>& ctl;
   size_t HS, US;
 
-  __device__ __forceinline__ March(const ArgsOf<BF16>& args, Ctl<MB>& ctl_,
+  __device__ __forceinline__ March(const ArgsOf<BF16, FWD16>& args,
+                                   Ctl<MB>& ctl_,
                                    float* smem)
       : Base(args.g, args.n, args.m, F_COUNT, args.work, smem, ctl_.red),
         a(args), c(args.c), ctl(ctl_) {
@@ -167,10 +193,22 @@ struct March : Block<MB> {
     return F(F_QUAD + 4 * q + f);           // f: 0 phi, 1 mu, 2 Rphi, 3 Rmu
   }
 
-  // the Laplacian through the T2 field, free at every Laplacian
+  // the Laplacian through the T2 field, free at every Laplacian; FWD16:
+  // both products on product16 at the fwd passes, Base::lap's T + x
   template <class Ld, class St>
   __device__ __forceinline__ void lap(const float* V, Ld ld, St st) {
-    Base::lap(a.Lx, a.LyT, V, F(F_T2), ld, st);
+    if constexpr (FWD16) {
+      float* T = F(F_T2);
+      const size_t fs = FS;
+      this->gemm16_l_to(a.lx, V, T, a.fwd, a.jt_left);
+      this->gemm16_r(V, a.ly, a.fwd, a.jt_right, [&](int b, int e) {
+        return WithT<decltype(ld(b, e))>{T[b * fs + e], ld(b, e)};
+      }, [&](int b, int e, float x, const auto& in) {
+        st(b, e, in.t + x, in.in);
+      });
+    } else {
+      Base::lap(a.Lx, a.LyT, V, F(F_T2), ld, st);
+    }
   }
 
   // copy buffer set `from` into set `to` for the members flagged in which
@@ -291,17 +329,32 @@ struct March : Block<MB> {
         [&](int b, int e, float l, const Vals<1>& in) {
           T1[b * fs + e] = l - in.v[0];
         });
-    gemm_l_to(a.Vxi, T1, T2);
-    gemm_r(T2, a.VyiT, [](int, int) { return None{}; },
-           [&](int b, int e, float v, None) {
-             const size_t i = b * fs + e;
-             R0[i] = v;
-             Rr[i] = v;
-             X[i] = 0.f;
-             BX[i] = 0.f;
-             P[i] = 0.f;
-             V[i] = 0.f;
-           });
+    if constexpr (FWD16) {
+      this->gemm16_l_to(a.vxi, T1, T2, a.fwd, a.jt_left);
+      this->gemm16_r(T2, a.vyi, a.fwd, a.jt_right,
+                     [](int, int) { return None{}; },
+                     [&](int b, int e, float v, None) {
+                       const size_t i = b * fs + e;
+                       R0[i] = v;
+                       Rr[i] = v;
+                       X[i] = 0.f;
+                       BX[i] = 0.f;
+                       P[i] = 0.f;
+                       V[i] = 0.f;
+                     });
+    } else {
+      gemm_l_to(a.Vxi, T1, T2);
+      gemm_r(T2, a.VyiT, [](int, int) { return None{}; },
+             [&](int b, int e, float v, None) {
+               const size_t i = b * fs + e;
+               R0[i] = v;
+               Rr[i] = v;
+               X[i] = 0.f;
+               BX[i] = 0.f;
+               P[i] = 0.f;
+               V[i] = 0.f;
+             });
+    }
     this->template reduce<1, false>(0.f, all, [&](int b, int e) {
       return Vals<1>{{R0[b * fs + e]}};
     }, [](int, int, const Vals<1>& in, float (&p)[1]) {
@@ -400,8 +453,17 @@ struct March : Block<MB> {
                   });
     }
     // dphi = from_s(best x); dmu = 2 (Kpp dphi + Rphi)
-    gemm_l_to(a.Vx, BX, T1);
-    gemm_r_to(T1, a.VyT, dphi);
+    if constexpr (FWD16) {
+      this->gemm16_l_to(a.vx, BX, T1, a.fwd, a.jt_left);
+      this->gemm16_r(T1, a.vy, a.fwd, a.jt_right,
+                     [](int, int) { return None{}; },
+                     [&](int b, int e, float v, None) {
+                       dphi[b * fs + e] = v;
+                     });
+    } else {
+      gemm_l_to(a.Vx, BX, T1);
+      gemm_r_to(T1, a.VyT, dphi);
+    }
     lap(dphi, [&](int b, int e) {
       const size_t i = b * fs + e;
       return Vals<3>{{dfield[i], dphi[i], rp[i]}};
@@ -689,10 +751,29 @@ __global__ void __launch_bounds__(NT, 1) march_bf16_kernel(Args16 a) {
   March<MB, SEG, true>(a, ctl, reinterpret_cast<float*>(smem4)).run();
 }
 
+// march_bf16_kernel with every product of the march on bf16 mma.sync
+// (fwd_mm "bf16x3"); the same flag rule.
+template <int MB, bool SEG>
+__global__ void __launch_bounds__(NT, 1) march_fwd16_kernel(ArgsF16 a) {
+  extern __shared__ float4 smem4[];
+  __shared__ Ctl<MB> ctl;
+  if constexpr (MB == 1 && !SEG) {
+    const int b = blockIdx.x / a.g.band.C;
+    if (a.active != nullptr && a.active[b] == 0) {
+      if (cg::this_cluster().block_rank() == 0 && threadIdx.x == 0) {
+        a.nsolve[b] = 0;
+        a.bad[b] = -1;
+      }
+      return;
+    }
+  }
+  March<MB, SEG, true, true>(a, ctl, reinterpret_cast<float*>(smem4)).run();
+}
+
 
 // Per device: the attributes set so far on march_blocked_kernel<MB, SEG>
-// (BF16: on march_bf16_kernel<MB, SEG>).
-template <int MB, bool SEG, bool BF16 = false>
+// (BF16: on march_bf16_kernel<MB, SEG>; FWD16: on march_fwd16_kernel).
+template <int MB, bool SEG, bool BF16 = false, bool FWD16 = false>
 LaunchState (&launch_state())[16] {
   static LaunchState state[16];
   return state;
@@ -768,15 +849,57 @@ int launch16(Args16 a, int B, const float* consts, int nconst, int cluster,
   return (int)cudaGetLastError();
 }
 
+// max_clusters of march_fwd16_kernel<MB, SEG>, whose smem_bytes are its
+// geometry's at three passes or (the control) at one.
+template <int MB, bool SEG>
+int max_clusters_fwd16(int n, int m, int C, int kc, int smem_bytes) {
+  BGeom g;
+  int jl, jr;
+  int err = check_geometry16<MB>(n, m, C, kc, smem_bytes, 3, g, jl, jr);
+  if (err) err = check_geometry16<MB>(n, m, C, kc, smem_bytes, 1, g, jl, jr);
+  return err ? -err
+             : occupancy((const void*)march_fwd16_kernel<MB, SEG>,
+                         launch_state<MB, SEG, true, true>(), C, smem_bytes);
+}
+
+// launch on march_fwd16_kernel<MB, SEG>: a.passes (apply_S's) and a.fwd
+// (the other products'), each 3 or 1, and the six operators set by the
+// caller; the geometry checked against product16's staging at the larger.
+template <int MB, bool SEG>
+int launch_fwd16(ArgsF16 a, int B, const float* consts, int nconst,
+                 int cluster, int kc, int smem_bytes, void* stream) {
+  if (nconst != FWD_NCONST || B <= 0 || B % MB || a.M <= 0 || !a.vx ||
+      !a.lx || (a.passes != 1 && a.passes != 3) ||
+      (a.fwd != 1 && a.fwd != 3))
+    return (int)cudaErrorInvalidValue;
+  const int staged = a.passes == 3 || a.fwd == 3 ? 3 : 1;
+  int err = check_geometry16<MB>(a.n, a.m, cluster, kc, smem_bytes, staged,
+                                 a.g, a.jt_left, a.jt_right);
+  if (err) return err;
+  float* dst = reinterpret_cast<float*>(&a.c);
+  for (int i = 0; i < FWD_NCONST; ++i) dst[i] = consts[i];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = configure((const void*)march_fwd16_kernel<MB, SEG>,
+                  launch_state<MB, SEG, true, true>(), cfg, attr, B / MB,
+                  cluster, smem_bytes, (cudaStream_t)stream);
+  if (err) return err;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, march_fwd16_kernel<MB, SEG>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace blocked
 }  // namespace vch
 
 // Compiled once per instantiation, in parallel (ops/_build.py): the object
 // of -DVCH_BB=MB (-DVCH_SEG=1: the segment march) holds
 // march_blocked_kernel<MB, SEG> and its launch and occupancy functions,
-// with -DVCH_PREC=1 march_bf16_kernel<MB, SEG> and its own instead; the
-// -DVCH_BB=8 float32 object also holds the C entries, which dispatch to the
-// others by member count and passes.
+// with -DVCH_PREC=1 march_bf16_kernel<MB, SEG> and its own instead, with
+// -DVCH_PREC=2 march_fwd16_kernel<MB, SEG> and its own; the -DVCH_BB=8
+// float32 object also holds the C entries, which dispatch to the others by
+// member count and passes.
 #ifndef VCH_BB
 #define VCH_BB 8
 #endif
@@ -789,7 +912,12 @@ int launch16(Args16 a, int B, const float* consts, int nconst, int cluster,
 
 namespace vch {
 namespace blocked {
-#if VCH_PREC
+#if VCH_PREC == 2
+template int launch_fwd16<VCH_BB, (VCH_SEG != 0)>(ArgsF16, int, const float*,
+                                                  int, int, int, int, void*);
+template int max_clusters_fwd16<VCH_BB, (VCH_SEG != 0)>(int, int, int, int,
+                                                        int);
+#elif VCH_PREC
 template int launch16<VCH_BB, (VCH_SEG != 0)>(Args16, int, const float*, int,
                                               int, int, int, void*);
 template int max_clusters16<VCH_BB, (VCH_SEG != 0)>(int, int, int, int,
@@ -817,13 +945,23 @@ VCH_EXTERN(4, false)
 VCH_EXTERN(2, false)
 VCH_EXTERN(1, false)
 VCH_EXTERN(1, true)
+#define VCH_EXTERN_FWD16(MB, SEG)                                            \
+  extern template int launch_fwd16<MB, SEG>(ArgsF16, int, const float*, int, \
+                                            int, int, int, void*);           \
+  extern template int max_clusters_fwd16<MB, SEG>(int, int, int, int, int);
 VCH_EXTERN16(8, false)
 VCH_EXTERN16(4, false)
 VCH_EXTERN16(2, false)
 VCH_EXTERN16(1, false)
 VCH_EXTERN16(1, true)
+VCH_EXTERN_FWD16(8, false)
+VCH_EXTERN_FWD16(4, false)
+VCH_EXTERN_FWD16(2, false)
+VCH_EXTERN_FWD16(1, false)
+VCH_EXTERN_FWD16(1, true)
 #undef VCH_EXTERN
 #undef VCH_EXTERN16
+#undef VCH_EXTERN_FWD16
 
 // a with product16's fragment copies of apply_S's operators (cluster.cuh
 // ops16_of); passes 0: none (the float32 march).
@@ -840,11 +978,39 @@ Args16 with_ops16(const Args& a, const void* ops16, int passes) {
   return a16;
 }
 
+// a with the fwd_mm march's six fragment copies (cluster.cuh
+// fwd_ops16_of): apply_S's four at `passes`, Lx's and Ly's, the other
+// products at `fwd`.
+ArgsF16 with_fwd_ops16(const Args& a, const void* ops16, int passes,
+                       int fwd) {
+  ArgsF16 f;
+  static_cast<Args16&>(f) = with_ops16(a, ops16, passes);
+  const FwdOps16 o = fwd_ops16_of(ops16, a.n, a.m);
+  f.lx = o.lx;
+  f.ly = o.ly;
+  f.fwd = fwd;
+  return f;
+}
+
 // The whole march of B members, `members` per cluster; passes 1 or 3 on
-// the bf16 kernel.
+// the bf16 kernel, and with fwd 3 (or 1) on the fwd_mm kernel.
 int launch_whole(int members, const Args& a, int B, const float* consts,
                  int nconst, int cluster, int kc, int smem_bytes,
-                 const void* ops16, int passes, void* stream) {
+                 const void* ops16, int passes, int fwd, void* stream) {
+  if (fwd) {
+    const ArgsF16 f = with_fwd_ops16(a, ops16, passes, fwd);
+    switch (members) {
+      case 8: return launch_fwd16<8, false>(f, B, consts, nconst, cluster,
+                                            kc, smem_bytes, stream);
+      case 4: return launch_fwd16<4, false>(f, B, consts, nconst, cluster,
+                                            kc, smem_bytes, stream);
+      case 2: return launch_fwd16<2, false>(f, B, consts, nconst, cluster,
+                                            kc, smem_bytes, stream);
+      case 1: return launch_fwd16<1, false>(f, B, consts, nconst, cluster,
+                                            kc, smem_bytes, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (passes) {
     const Args16 a16 = with_ops16(a, ops16, passes);
     switch (members) {
@@ -895,6 +1061,29 @@ extern "C" int vch_march_blocked_max_clusters(int members, int segment,
   }
 }
 
+// The same for the fwd_mm march, whose staging is at three passes (or at
+// one: the control).
+extern "C" int vch_march16f_max_clusters(int members, int segment, int n,
+                                         int m, int cluster, int kc,
+                                         int smem_bytes) {
+  using namespace vch::blocked;
+  if (segment)
+    return members == 1 ? max_clusters_fwd16<1, true>(n, m, cluster, kc,
+                                                      smem_bytes)
+                        : -(int)cudaErrorInvalidValue;
+  switch (members) {
+    case 8: return max_clusters_fwd16<8, false>(n, m, cluster, kc,
+                                                smem_bytes);
+    case 4: return max_clusters_fwd16<4, false>(n, m, cluster, kc,
+                                                smem_bytes);
+    case 2: return max_clusters_fwd16<2, false>(n, m, cluster, kc,
+                                                smem_bytes);
+    case 1: return max_clusters_fwd16<1, false>(n, m, cluster, kc,
+                                                smem_bytes);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 // The same for the bf16 march, whose shared memory is the larger of the
 // ring and product16's staging (at three passes or at one).
 extern "C" int vch_march16_max_clusters(int members, int segment, int n,
@@ -920,8 +1109,12 @@ extern "C" int vch_march16_max_clusters(int members, int segment, int n,
 // ops/march.py blocked_geometry, checked here against the kernel's own.
 // passes 0: apply_S in full float32; 3 or 1 ("bf16x3", "default"): on
 // bf16 mma.sync from ops16, product16's fragment copies of its operators
-// (with_ops16). Arguments otherwise as vch_march_fused_2d (march2d.cu);
-// hist is (B, M+1, n, m) with phi0 first, work (B, 33, n, m).
+// (with_ops16); fwd 3 (fwd_mm "bf16x3", passes then 3 or 1; fwd 1: a
+// test's control): every other product of the march on bf16 mma.sync too,
+// ops16 holding Lx's and Ly's copies after the four (with_fwd_ops16); fwd
+// 0: full float32. Arguments
+// otherwise as vch_march_fused_2d (march2d.cu); hist is (B, M+1, n, m)
+// with phi0 first, work (B, 33, n, m).
 extern "C" int vch_march_fused_2d_blocked(
     const float* dts, const float* phi0, const float* u, const float* Lx,
     const float* LyT, const float* Vxi, const float* VyiT, const float* Vx,
@@ -929,7 +1122,7 @@ extern "C" int vch_march_fused_2d_blocked(
     int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int max_iter, int n_trips,
     int stagnation, int members, int cluster, int kc, int smem_bytes,
-    const void* ops16, int passes, void* stream) {
+    const void* ops16, int passes, int fwd, void* stream) {
   using namespace vch::blocked;
   if (members == 1) return (int)cudaErrorInvalidValue;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
@@ -937,7 +1130,7 @@ extern "C" int vch_march_fused_2d_blocked(
                nsolve, first_bad, work, M, n, m, max_iter, n_trips,
                stagnation, {}, {}};
   return launch_whole(members, a, B, consts, nconst, cluster, kc, smem_bytes,
-                      ops16, passes, stream);
+                      ops16, passes, fwd, stream);
 }
 
 // The whole march with one member per cluster of `cluster` CTAs: what
@@ -952,21 +1145,21 @@ extern "C" int vch_march_fused_2d_cluster(
     int* nsolve, int* first_bad, float* work, int B, int M, int n, int m,
     const float* consts, int nconst, int max_iter, int n_trips,
     int stagnation, int cluster, int kc, int smem_bytes, const int* active,
-    const void* ops16, int passes, void* stream) {
+    const void* ops16, int passes, int fwd, void* stream) {
   using namespace vch::blocked;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
                nullptr, nullptr, nullptr, hist, nullptr, nullptr, nullptr,
                nsolve, first_bad, work, M, n, m, max_iter, n_trips,
                stagnation, {}, {}, active};
   return launch_whole(1, a, B, consts, nconst, cluster, kc, smem_bytes,
-                      ops16, passes, stream);
+                      ops16, passes, fwd, stream);
 }
 
 // One K-step segment of B members, one member per cluster of `cluster`
 // CTAs, with the (mu0, w0, global m0) carry in and (phi_f, mu_f, w_f) out;
 // hist is (B, K, n, m), the post-step states only; u (B, K+1, n, m). The
-// geometry, ops16 and passes as vch_march_fused_2d_cluster's; arguments
-// otherwise as vch_march_fused_2d_segment (march2d.cu).
+// geometry, ops16, passes and fwd as vch_march_fused_2d_cluster's;
+// arguments otherwise as vch_march_fused_2d_segment (march2d.cu).
 extern "C" int vch_march_fused_2d_segment_cluster(
     const float* dts, const float* phi0, const float* mu0, const float* w0,
     const float* m0, const float* u, const float* Lx, const float* LyT,
@@ -975,12 +1168,16 @@ extern "C" int vch_march_fused_2d_segment_cluster(
     float* mu_f, float* w_f, int* nsolve, int* first_bad, float* work, int B,
     int K, int n, int m, const float* consts, int nconst, int max_iter,
     int n_trips, int stagnation, int cluster, int kc, int smem_bytes,
-    const void* ops16, int passes, void* stream) {
+    const void* ops16, int passes, int fwd, void* stream) {
   using namespace vch::blocked;
   const Args a{dts, phi0, u, Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts,
                mu0, w0, m0, hist, phi_f, mu_f, w_f,
                nsolve, first_bad, work, K, n, m, max_iter, n_trips,
                stagnation, {}, {}};
+  if (fwd)
+    return launch_fwd16<1, true>(with_fwd_ops16(a, ops16, passes, fwd), B,
+                                 consts, nconst, cluster, kc, smem_bytes,
+                                 stream);
   if (passes)
     return launch16<1, true>(with_ops16(a, ops16, passes), B, consts, nconst,
                              cluster, kc, smem_bytes, stream);

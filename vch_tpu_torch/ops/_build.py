@@ -7,8 +7,9 @@ march with `-DVCH_BB=8`, `4`, `2` (members per thread-block cluster of the
 member-blocked march), `1` (the whole one-member march) and `1` with
 `-DVCH_SEG=1` (the segment march), each of the five once more with
 `-DVCH_PREC=1` (the same march with its Krylov operator's products on bf16
-mma.sync, `fused_solve_precision` "bf16x3" or "default"), and the cluster
-sweep with `-DVCH_BB=8`,
+mma.sync, `fused_solve_precision` "bf16x3" or "default") and once more with
+`-DVCH_PREC=2` (every product of the march on bf16 mma.sync, `fwd_mm`
+"bf16x3"), and the cluster sweep with `-DVCH_BB=8`,
 `4`, `2` (the member-blocked sweep), `1` (the whole one-member sweep) and
 `1` with `-DVCH_SEG=1` (the segment sweep), each of the five once more with
 `-DVCH_PREC=1` (its Krylov operator's products on bf16 mma.sync,
@@ -28,7 +29,7 @@ the chain probes and of the cluster microbench) and the chain probes of
 chain_cluster.cu and the cluster microbench of micro_cluster.cu, each of
 the last three holding its own members-per-block templates, and the while
 probe of while_fused.cu (phi in registers; probes.cu's while kernel is its
-bit oracle), once each. 38 objects in all. The 1D march, both sweeps, both Schur and the
+bit oracle), once each. 43 objects in all. The 1D march, both sweeps, both Schur and the
 spectral adjoint cluster solves, the cluster probes and their oracles
 compile with `-fmad=false`: their only FMAs are the explicit ones of their
 products, so that no copy of an elementwise expression that the compiler
@@ -69,10 +70,12 @@ BUILD_DIR = _PKG / "_build"
 # each source and its objects, each object's own flags
 SOURCES = {"march2d.cu": (("-DVCH_BB=1",),),
            "march2d_blocked.cu": tuple((f"-DVCH_BB={bb}",) + prec
-                                       for prec in ((), ("-DVCH_PREC=1",))
+                                       for prec in ((), ("-DVCH_PREC=1",),
+                                                    ("-DVCH_PREC=2",))
                                        for bb in (8, 4, 2, 1))
            + (("-DVCH_BB=1", "-DVCH_SEG=1"),
-              ("-DVCH_BB=1", "-DVCH_SEG=1", "-DVCH_PREC=1")),
+              ("-DVCH_BB=1", "-DVCH_SEG=1", "-DVCH_PREC=1"),
+              ("-DVCH_BB=1", "-DVCH_SEG=1", "-DVCH_PREC=2")),
            "adjoint2d.cu": (("-fmad=false",),),
            "adjoint2d_cluster.cu": tuple((f"-DVCH_BB={bb}",) + prec
                                          + ("-fmad=false",)
@@ -191,31 +194,33 @@ def load():
                                        + [_FP, _I] + [_I] * 4 + [_P])
     # dts phi0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist nsolve bad work |
     # B M n m | consts nconst | max_iter n_trips stagnation | cluster kc
-    # smem_bytes | active | ops16 passes | stream
+    # smem_bytes | active | ops16 passes fwd | stream
     lib.vch_march_fused_2d_cluster.argtypes = ([_P] * 11 + [_P] * 4
                                                + [_I] * 4 + [_FP, _I]
                                                + [_I] * 3 + [_I] * 3
-                                               + [_P, _P, _I, _P])
+                                               + [_P, _P, _I, _I, _P])
     # the same with members before cluster and no active
     lib.vch_march_fused_2d_blocked.argtypes = ([_P] * 11 + [_P] * 4
                                                + [_I] * 4 + [_FP, _I]
                                                + [_I] * 3 + [_I] * 4
-                                               + [_P, _I, _P])
+                                               + [_P, _I, _I, _P])
     # members segment n m cluster kc smem_bytes
     lib.vch_march_blocked_max_clusters.argtypes = [_I] * 7
     lib.vch_march_blocked_max_clusters.restype = _I
     lib.vch_march16_max_clusters.argtypes = [_I] * 7
     lib.vch_march16_max_clusters.restype = _I
+    lib.vch_march16f_max_clusters.argtypes = [_I] * 7
+    lib.vch_march16f_max_clusters.restype = _I
     # dts phi0 mu0 w0 m0 u Lx LyT Vxi VyiT Vx VyT lam wts | hist phi_f mu_f
     # w_f nsolve bad work | B K n m | consts nconst | max_iter n_trips
     # stagnation | stream
     lib.vch_march_fused_2d_segment.argtypes = ([_P] * 14 + [_P] * 7
                                                + [_I] * 4 + [_FP, _I]
                                                + [_I] * 3 + [_P])
-    # the same | cluster kc smem_bytes | ops16 passes | stream
+    # the same | cluster kc smem_bytes | ops16 passes fwd | stream
     lib.vch_march_fused_2d_segment_cluster.argtypes = (
         [_P] * 14 + [_P] * 7 + [_I] * 4 + [_FP, _I] + [_I] * 3 + [_I] * 3
-        + [_P, _I, _P])
+        + [_P, _I, _I, _P])
     # dts hist phiQ phiT b1 b2 Lx LyT Vxi VyiT Vx VyT lam | r work |
     # B M n m | consts nconst | n_trips | stream
     lib.vch_adjoint_fused_2d.argtypes = ([_P] * 13 + [_P] * 2 + [_I] * 4

@@ -35,7 +35,15 @@ pallas_march.py:207-214 does: "bf16x3" three single bf16 passes on the
 (hi, lo) split, "default" one, anything else full precision (`_make_mm`);
 on CUDA tensors the bf16 modes launch the kernel's bf16 form
 (`march_bf16_kernel`, its products on mma.sync), counted in the wrapper's
-`bf16_launches` too. Every other product is full precision in every mode.
+`bf16_launches` too. Every other product of the march (the Laplacians,
+the right-hand side's transform to_s and dphi's from_s) runs at the
+`fwd_mm` it is given, as pallas_march.py:132 `mm = _make_mm(dt_, fwd_mm)`
+does: "bf16x3" the three passes, anything else ("default" included) full
+precision (`fwd_passes`); at "bf16x3" apply_S inherits the three passes
+where its own solve precision has none (`krylov_passes`). No vch_tpu path
+sets fwd_mm, so no solver passes it. On CUDA tensors "bf16x3" launches the
+kernel's fwd_mm form (`march_fwd16_kernel`, every product on mma.sync),
+counted in `bf16_launches` and `fwd16_launches`.
 The adjoint sweep's Krylov operator (apply_At's four products) runs at the
 `solve_prec` it is given (the config's `adjoint_solve_precision`), as
 pallas_march.py:677 does: "bf16x3" the three passes, anything else full
@@ -91,6 +99,25 @@ def solve_passes(solve_prec) -> int:
     return SOLVE_PASSES.get(solve_prec, 0)
 
 
+def fwd_passes(fwd_mm) -> int:
+    """bf16 passes of the march's other products (the Laplacians, the
+    right-hand side's transform and its inverse) for a `fwd_mm`
+    (pallas_march.py:54 `_make_mm`): 3 for "bf16x3", 0 (full precision)
+    for anything else, "default" and None included: vch_tpu's `_make_mm`
+    knows no one-pass product. The plain march and the fwd_mm kernel also
+    take one pass, which only a test reaches, by replacing this function: a
+    control that their accuracy gates must fail."""
+    return 3 if fwd_mm == "bf16x3" else 0
+
+
+def krylov_passes(solve_prec, fwd_mm) -> int:
+    """bf16 passes of apply_S's products: `solve_passes(solve_prec)`, or
+    where that is 0 the march's own (`fwd_passes(fwd_mm)`), as
+    pallas_march.py:207-214 sets `mm_s = mm` for any other solve
+    precision."""
+    return solve_passes(solve_prec) or fwd_passes(fwd_mm)
+
+
 def sweep_passes(solve_prec) -> int:
     """bf16 passes of the adjoint sweep's apply_At products for an
     `adjoint_solve_precision` (pallas_march.py:677): 3 for "bf16x3", 0
@@ -113,11 +140,15 @@ def _make_mm(dtype, mode):
     "bf16x3" splits both operands into round-to-nearest-even bf16 (hi, lo)
     and returns d0 + (d1 + d2) of the three single-pass products hi hi,
     lo hi, hi lo, each accumulated in `dtype`; "default" the one pass
-    bf16(a) bf16(c); any other mode torch.matmul in `dtype`. A bf16 product
-    is exact in float32, so `dtype` products of bf16 values are the single
+    bf16(a) bf16(c); any other mode torch.matmul in `dtype`."""
+    return _passes_mm(dtype, solve_passes(mode))
+
+
+def _passes_mm(dtype, passes):
+    """`_make_mm`'s product at 3, 1 or 0 bf16 passes. A bf16 product is
+    exact in float32, so `dtype` products of bf16 values are the single
     passes. An operand may come split already (`_bf16_split`'s pair): the
     march splits its constant operators once."""
-    passes = solve_passes(mode)
     if passes == 0:
         return torch.matmul
 
@@ -178,11 +209,15 @@ def _march_member(dts, phi0, u, ops, k, carry=None):
     its mass). Returns (post-step frames, nsolve, first_bad, (phi, mu, w)
     after the last step)."""
     Lx, LyT, Vxi, VyiT, Vx, VyT, lam, wts = ops
-    mm = torch.matmul
-    mm_s = _make_mm(phi0.dtype, k.get("solve_prec", "highest"))
-    # apply_S's operators, split once where its products run in bf16
-    Sx, SyT, Sxi, SyiT = ((Vx, VyT, Vxi, VyiT) if mm_s is mm else
-                          (_bf16_split(o) for o in (Vx, VyT, Vxi, VyiT)))
+    fwd = fwd_passes(k.get("fwd_mm", "highest"))
+    krylov = krylov_passes(k.get("solve_prec", "highest"),
+                           k.get("fwd_mm", "highest"))
+    mm, mm_s = _passes_mm(phi0.dtype, fwd), _passes_mm(phi0.dtype, krylov)
+    # the constant operators, split once where their products run in bf16
+    cut = lambda o, passes: _bf16_split(o) if passes else o
+    Sx, SyT, Sxi, SyiT = (cut(o, krylov) for o in (Vx, VyT, Vxi, VyiT))
+    Fx, FyT, Fxi, FyiT, FLx, FLyT = (cut(o, fwd) for o in (
+        Vx, VyT, Vxi, VyiT, Lx, LyT))
     tau, c1, c2, kappa, gamma = k["tau"], k["c1"], k["c2"], k["kappa"], k["gamma"]
     delta_sep = k["delta_sep"]
     lo, hi = -1.0 + delta_sep, 1.0 - delta_sep
@@ -190,12 +225,16 @@ def _march_member(dts, phi0, u, ops, k, carry=None):
     eps_mach = _eps_mach(phi0.dtype)
 
     def to_s(v):
-        return mm(mm(Vxi, v), VyiT)
+        return mm(mm(Fxi, v), FyiT)
 
     def from_s(vh):
-        return mm(mm(Vx, vh), VyT)
+        return mm(mm(Fx, vh), FyT)
 
     def lap(v):
+        # at fwd_mm "bf16x3" each product rounded, then added
+        # (pallas_march.py:140-144)
+        if fwd:
+            return mm(FLx, v) + mm(v, FLyT)
         return apply_laplacian_2d_t(Lx, LyT, v)
 
     def f_log(phi):
@@ -365,12 +404,16 @@ def _check_block(B: int, block_b: int):
 
 def _refuse_prec(name: str, k):
     """The one-CTA oracles of the march and the sweep compute every product
-    in full float32: any other solve precision raises, never falls
-    back."""
+    in full float32: any other solve precision, and any fwd_mm with bf16
+    passes, raises, never falls back."""
     if k["solve_prec"] not in (None, "highest"):
         raise ValueError(f"{name} computes its Krylov operator in full "
                          f"float32 only (solve_prec 'highest'), got "
                          f"{k['solve_prec']!r}")
+    if fwd_passes(k.get("fwd_mm")):
+        raise ValueError(f"{name} computes the march's products in full "
+                         f"float32 only (fwd_mm 'highest'), got "
+                         f"{k['fwd_mm']!r}")
 
 
 def _refuse_active(name: str, active):
@@ -434,20 +477,22 @@ def _op_shapes(n, m, with_wts=True):
 
 def _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
               newton_rtol, newton_max_iter, n_trips, stagnation_exit=True,
-              solve_prec="highest"):
+              solve_prec="highest", fwd_mm="highest"):
     return dict(tau=tau, c1=c1, c2=c2, kappa=kappa, gamma=gamma,
                 delta_sep=delta_sep, area=area, newton_tol=newton_tol,
                 newton_rtol=newton_rtol, newton_max_iter=int(newton_max_iter),
                 n_trips=int(n_trips), stagnation_exit=bool(stagnation_exit),
-                solve_prec=solve_prec)
+                solve_prec=solve_prec, fwd_mm=fwd_mm)
 
 
-def _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T):
+def _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T, Lx=None, LyT=None):
     """apply_S's four operators as the bf16 march's fragment copies, one
     buffer (csrc/march2d_blocked.cu `with_ops16`, cluster.cuh
     `product16`): Vx and Vx_inv (the LEFT products' B operands, their rows)
     then Vy and Vy_inv (the RIGHT products', the rows of VyT^T and
-    Vy_inv_T^T), each padded with zeros to rows + 8 and to whole k tiles of
+    Vy_inv_T^T); with Lx and LyT (the march at fwd_mm "bf16x3") then Lx
+    and Ly = LyT^T, after the four so that the sweep's offsets stay; each
+    padded with zeros to rows + 8 and to whole k tiles of
     16, split into round-to-nearest-even bf16 hi and lo, and laid out
     (row, k tile, t, [hi, lo], k + 8 half, pair): lane t's 16 bytes of a
     row and k tile hold hi(k 2t, 2t+1), hi(2t+8, 2t+9), lo(..), lo(..)."""
@@ -460,20 +505,23 @@ def _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T):
         lo = (Pp - hi.float()).to(torch.bfloat16)
         return (torch.stack((hi, lo)).view(2, rows + 8, KT, 2, 4, 2)
                 .permute(1, 2, 4, 0, 3, 5).reshape(-1))
-    return torch.cat([frag(Vx), frag(Vx_inv), frag(VyT.T),
-                      frag(Vy_inv_T.T)])
+    laps = () if Lx is None else (frag(Lx), frag(LyT.T))
+    return torch.cat((frag(Vx), frag(Vx_inv), frag(VyT.T),
+                      frag(Vy_inv_T.T)) + laps)
 
 
-def _solve_operands(passes, ops):
+def _solve_operands(passes, ops, fwd=0):
     """(the fragment buffer or None, the bf16 passes) of a cluster march
-    or sweep launch at `passes` (`solve_passes` or `sweep_passes` of its
-    solve precision); ops from Lx on. The caller holds the buffer until the
+    or sweep launch at `passes` (`krylov_passes` or `sweep_passes` of its
+    precisions); ops from Lx on; fwd: the march's `fwd_passes`, whose
+    products take Lx and LyT too. The caller holds the buffer until the
     launch is enqueued (the caching allocator then reuses it only in stream
     order)."""
     if not passes:
         return None, 0
-    Vx_inv, Vy_inv_T, Vx, VyT = ops[2:6]
-    return _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T), passes
+    Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT = ops[:6]
+    laps = (Lx, LyT) if fwd else ()
+    return _bf16_operators(Vx, Vx_inv, VyT, Vy_inv_T, *laps), passes
 
 
 def _ptr(t):
@@ -502,10 +550,12 @@ def _launch_march(wrapper, args, k, members=None, active=None):
             raise ValueError(f"active must be a contiguous ({B},) int32 "
                              f"tensor on {dev}, got {tuple(active.shape)} "
                              f"{active.dtype} on {active.device}")
-    ops16, passes = _solve_operands(solve_passes(k["solve_prec"]), ops)
+    fwd = fwd_passes(k["fwd_mm"])
+    ops16, passes = _solve_operands(
+        krylov_passes(k["solve_prec"], k["fwd_mm"]), ops, fwd)
     geo = (None if members is None
            else launch_geometry(n, m, B, dev, members=members,
-                                solve_passes=passes))
+                                solve_passes=passes, fwd_passes=fwd))
     lib = _build.load()
     hist = torch.empty((B, M + 1, n, m), dtype=torch.float32, device=dev)
     nsolve = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -524,14 +574,17 @@ def _launch_march(wrapper, args, k, members=None, active=None):
     elif members == 1:
         err = lib.vch_march_fused_2d_cluster(
             *common, geo.cluster, geo.kc, geo.smem_bytes,
-            _ptr(active), _ptr(ops16), passes, stream)
+            _ptr(active), _ptr(ops16), passes, fwd, stream)
     else:
         err = lib.vch_march_fused_2d_blocked(*common, members, geo.cluster,
                                              geo.kc, geo.smem_bytes,
-                                             _ptr(ops16), passes, stream)
+                                             _ptr(ops16), passes, fwd,
+                                             stream)
     wrapper.launches += 1
     if passes:
         wrapper.bf16_launches += 1
+    if fwd:
+        wrapper.fwd16_launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return hist, nsolve, first_bad
 
@@ -542,7 +595,7 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
                    newton_tol: float, newton_rtol: float,
                    newton_max_iter: int, n_trips: int,
                    stagnation_exit: bool = True, solve_prec: str = "highest",
-                   active=None):
+                   fwd_mm: str = "highest", active=None):
     """The whole batched 2D forward march (pallas_march.py:393). On CUDA
     tensors each member runs on a thread-block cluster (`launch_geometry`
     with one member per cluster), bit for bit what the one-CTA kernel
@@ -553,6 +606,8 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
       (Ly transposed); Vx_inv, Vy_inv_T, Vx, VyT: cosine transforms;
       lam (n, m) eigenvalue grid; wts (n, m) quadrature weights * hx * hy;
       area = Lx * Ly (uniform mass-fix fallback).
+      solve_prec: apply_S's precision (`solve_passes`); fwd_mm: every other
+      product's (`fwd_passes`), vch_tpu's names and defaults.
       active: None (every member marches) or a (B,) int32 tensor on the
       members' device: a member whose flag is 0 is skipped, its cluster
       leaving at once (the line search's idle trial slots).
@@ -563,7 +618,7 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
     """
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit,
-                  solve_prec)
+                  solve_prec, fwd_mm)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d", phi0):
         return march_fused_2d_plain(*args, active=active, **k)
@@ -571,6 +626,7 @@ def march_fused_2d(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam,
 
 
 march_fused_2d.launches = march_fused_2d.bf16_launches = 0
+march_fused_2d.fwd16_launches = 0
 
 
 def _march_fused_2d_cta(*args, active=None, **kw):
@@ -615,7 +671,8 @@ class BlockedGeometry(NamedTuple):
     rows; `smem_bytes` is the dynamic shared memory of one CTA, with
     `solve_passes` (the march at "bf16x3": 3, "default": 1) the larger of
     the ring and the bf16 staging of its Krylov operator's products
-    (`bf16_staging`)."""
+    (`bf16_staging`), at the larger pass count where `fwd_passes` (the
+    march at fwd_mm "bf16x3": 3) runs its other products on bf16 too."""
     members: int
     cluster: int
     bands: tuple
@@ -627,6 +684,7 @@ class BlockedGeometry(NamedTuple):
     kc: int
     smem_bytes: int
     solve_passes: int = 0
+    fwd_passes: int = 0
 
 
 def blocked_cluster_size(n: int, B: int, sms: int, max_cluster: int = 16,
@@ -652,8 +710,9 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
 # count, so its own residency: the march (csrc/march2d_blocked.cu) and the
 # sweep (csrc/adjoint2d_cluster.cu), each with its bf16 form ("16": the
 # kernel at a bf16 solve precision, its geometry the float32 form's with
-# solve_passes), the four per-solve kernels of csrc/solve2d_cluster.cu
-# (the spectral and the raw adjoint step solve, the
+# solve_passes), the march also with its fwd_mm form ("16f": every product
+# on bf16, its geometry with fwd_passes too), the four per-solve kernels of
+# csrc/solve2d_cluster.cu (the spectral and the raw adjoint step solve, the
 # spectral and the raw Schur solve, and the raw Schur solve's two cost
 # probes, which share one geometry), the float32 chain probe of
 # csrc/chain_cluster.cu and the microbench probe of csrc/micro_cluster.cu;
@@ -661,6 +720,7 @@ _SWEEP_NAMES = {8: "the blocked sweep", 4: "the blocked sweep",
 CLUSTER_KERNELS = {
     "march": (_MARCH_NAMES, "vch_march_blocked_max_clusters"),
     "march16": (_MARCH_NAMES, "vch_march16_max_clusters"),
+    "march16f": (_MARCH_NAMES, "vch_march16f_max_clusters"),
     "sweep": (_SWEEP_NAMES, "vch_adjoint_cluster_max_clusters"),
     "sweep16": (_SWEEP_NAMES, "vch_adjoint16_max_clusters"),
     "solve": ({1: "the adjoint step solve"},
@@ -723,7 +783,8 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
                      max_cluster: int = 16, cluster: int | None = None,
                      members: int = BLOCK_MEMBERS,
                      kernel: str = "march",
-                     solve_passes: int = 0) -> BlockedGeometry:
+                     solve_passes: int = 0,
+                     fwd_passes: int = 0) -> BlockedGeometry:
     """The cluster geometry of a cluster kernel (`kernel`, one of
     CLUSTER_KERNELS, which split a block alike) for B members on an (n, m)
     grid on a card of `sms` SMs, `members` per cluster: 8, 4 or 2 for
@@ -736,9 +797,12 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     one cluster) (`blocked_cluster_size`; `cluster` overrides it);
     `solve_passes` (the march: `solve_passes(fused_solve_precision)`; the
     sweep: `sweep_passes(adjoint_solve_precision)`; no other kernel) adds
-    the bf16 staging of its Krylov operator's products. Raises
-    ValueError when B is not a positive multiple of `members`, or when no
-    ring, or no bf16 staging, fits in BLOCKED_SMEM_LIMIT bytes per CTA."""
+    the bf16 staging of its Krylov operator's products; `fwd_passes` (the
+    march only: `fwd_passes(fwd_mm)`, 3) sizes that staging for the larger
+    of apply_S's passes and the march's other products'.
+    Raises ValueError when B is not a positive multiple of `members`, or
+    when no ring, or no bf16 staging, fits in BLOCKED_SMEM_LIMIT bytes per
+    CTA."""
     names = _kernel_names(kernel)
     if members not in names:
         raise ValueError(f"the cluster {kernel} is built for "
@@ -757,17 +821,21 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
     rpad, mpad = -(-rmax // 4) * 4, -(-m // 4) * 4
     units = members * (rpad // 4) * (mpad // 4)
     staging = 0
-    if solve_passes:
+    if fwd_passes and (kernel != "march" or fwd_passes not in (1, 3)):
+        raise ValueError(f"only the cluster march takes fwd passes, 3 or "
+                         f"1, not the {kernel} at {fwd_passes}")
+    staged = max(solve_passes, fwd_passes)
+    if staged:
         if kernel + "16" not in CLUSTER_KERNELS:
             raise ValueError(f"only the cluster march and sweep take solve "
                              f"passes, not the {kernel}")
-        fit = bf16_staging(n, m, members, rmax, solve_passes)
+        fit = bf16_staging(n, m, members, rmax, staged)
         if fit is None:
-            arr = 2 if solve_passes == 3 else 1
+            arr = 2 if staged == 3 else 1
             need = max(2 * arr * -(-n // 16) * 16 * 24,
                        2 * arr * 16 * (-(-m // 16) * 16 + 8))
             raise ValueError(
-                f"{what} at {solve_passes} bf16 pass(es) on an ({n}, {m}) "
+                f"{what} at {staged} bf16 pass(es) on an ({n}, {m}) "
                 f"grid needs {need} bytes of shared memory per CTA for one "
                 f"M tile of its staging (at most {BLOCKED_SMEM_LIMIT})")
         staging = fit[2]
@@ -776,7 +844,8 @@ def blocked_geometry(n: int, m: int, B: int, sms: int,
         if smem <= BLOCKED_SMEM_LIMIT:
             return BlockedGeometry(members, C, bands, rmax, rpad, mpad,
                                    units, -(-units // _BLOCKED_UNITS), kc,
-                                   max(smem, staging), solve_passes)
+                                   max(smem, staging), solve_passes,
+                                   fwd_passes)
     raise ValueError(
         f"{what} on an ({n}, {m}) grid in clusters of {C} needs {smem} bytes "
         f"of shared memory per CTA (at most {BLOCKED_SMEM_LIMIT})")
@@ -799,7 +868,8 @@ def resident_clusters(device_index, n, m, C, kc, smem,
 def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
                     members: int = BLOCK_MEMBERS,
                     kernel: str = "march",
-                    solve_passes: int = 0) -> BlockedGeometry:
+                    solve_passes: int = 0,
+                    fwd_passes: int = 0) -> BlockedGeometry:
     """`blocked_geometry` on `sms` SMs, made smaller where the card cannot
     hold all B / members clusters at once (`resident(geo)`: how many
     clusters of that geometry it holds): eight members per cluster first
@@ -810,27 +880,28 @@ def fitted_geometry(n: int, m: int, B: int, sms: int, resident,
     against 35.8 ms a segment); with eight members at 65 x 65, B = 128 it
     is 6 (161.7 against 97.5 ms a march), at B = 256 3 (224.3 against
     187.4; PERF.md)."""
-    geo = blocked_geometry(n, m, B, sms, members=members, kernel=kernel,
-                           solve_passes=solve_passes)
+    passes = dict(kernel=kernel, solve_passes=solve_passes,
+                  fwd_passes=fwd_passes)
+    geo = blocked_geometry(n, m, B, sms, members=members, **passes)
     clusters = B // members
     if (members == BLOCK_MEMBERS and geo.cluster > 8
             and resident(geo) < clusters):
         geo = blocked_geometry(n, m, B, sms, max_cluster=8, members=members,
-                               kernel=kernel, solve_passes=solve_passes)
+                               **passes)
     while geo.cluster > 1 and resident(geo) < clusters:
         geo = blocked_geometry(n, m, B, sms, cluster=geo.cluster - 1,
-                               members=members, kernel=kernel,
-                               solve_passes=solve_passes)
+                               members=members, **passes)
     return geo
 
 
 def launch_geometry(n: int, m: int, B: int, device,
                     members: int = BLOCK_MEMBERS, segment: bool = False,
-                    kernel: str = "march",
-                    solve_passes: int = 0) -> BlockedGeometry:
+                    kernel: str = "march", solve_passes: int = 0,
+                    fwd_passes: int = 0) -> BlockedGeometry:
     """The geometry the cluster march, sweep or solve (`kernel`; with
     segment, the segment march or sweep; the march or sweep with
-    solve_passes, its bf16 kernel) launches on this card for B members,
+    solve_passes, its bf16 kernel; the march with fwd_passes too, its
+    fwd_mm kernel) launches on this card for B members,
     `members` per cluster: `fitted_geometry` on its SM count and on
     cudaOccupancyMaxActiveClusters of that kernel (the kernels take their
     own registers, so a geometry fitted to one would over-commit another).
@@ -838,12 +909,13 @@ def launch_geometry(n: int, m: int, B: int, device,
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    held = kernel + "16" if solve_passes else kernel   # whose occupancy
+    # whose occupancy
+    held = kernel + ("16f" if fwd_passes else "16" if solve_passes else "")
     resident = lambda g: resident_clusters(idx, n, m, g.cluster, g.kc,
                                            g.smem_bytes, members, segment,
                                            held)
     geo = fitted_geometry(n, m, B, sms, resident, members, kernel,
-                          solve_passes)
+                          solve_passes, fwd_passes)
     fit = resident(geo)
     if fit <= 0:
         raise RuntimeError(
@@ -861,7 +933,7 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
                            solve_prec: str = "highest", block_b: int = 8,
-                           active=None):
+                           fwd_mm: str = "highest", active=None):
     """The member-blocked march: block_b members (8, 4 or 2 on CUDA
     tensors, BLOCK_SIZES) in masked lockstep (pallas_march.py:1649), each
     block on a thread-block cluster (`launch_geometry`). Same contract as
@@ -871,7 +943,7 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
     _refuse_active("march_fused_2d_blocked", active)
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit,
-                  solve_prec)
+                  solve_prec, fwd_mm)
     args = (dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT, lam, wts)
     if not _build.on_cuda("march_fused_2d_blocked", phi0):
         return march_fused_2d_blocked_plain(*args, block_b=block_b, **k)
@@ -883,6 +955,7 @@ def march_fused_2d_blocked(dts, phi0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
 
 
 march_fused_2d_blocked.launches = march_fused_2d_blocked.bf16_launches = 0
+march_fused_2d_blocked.fwd16_launches = 0
 
 
 def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
@@ -891,7 +964,8 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
                            delta_sep: float, area: float, newton_tol: float,
                            newton_rtol: float, newton_max_iter: int,
                            n_trips: int, stagnation_exit: bool = True,
-                           solve_prec: str = "highest", active=None):
+                           solve_prec: str = "highest",
+                           fwd_mm: str = "highest", active=None):
     """One K-step segment of the march with the (phi, mu, w) state carried
     explicitly (pallas_march.py:479): mu0, w0 are the segment-start values
     and m0 (B,) the GLOBAL initial mass that the mass correction targets.
@@ -908,7 +982,7 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
     _refuse_active("march_fused_2d_segment", active)
     k = _march_kw(tau, c1, c2, kappa, gamma, delta_sep, area, newton_tol,
                   newton_rtol, newton_max_iter, n_trips, stagnation_exit,
-                  solve_prec)
+                  solve_prec, fwd_mm)
     args = (dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv, Vy_inv_T, Vx, VyT,
             lam, wts)
     if not _build.on_cuda("march_fused_2d_segment", phi0):
@@ -917,6 +991,7 @@ def march_fused_2d_segment(dts, phi0, mu0, w0, m0, u, Lx, LyT, Vx_inv,
 
 
 march_fused_2d_segment.launches = march_fused_2d_segment.bf16_launches = 0
+march_fused_2d_segment.fwd16_launches = 0
 
 
 def _march_fused_2d_segment_cta(*args, active=None, **kw):
@@ -949,10 +1024,12 @@ def _launch_segment(wrapper, args, k, cluster: bool):
                        ("m0", m0, (B,)), ("u", u, (B, K + 1, n, m))]
                       + list(zip(names, args[6:], shapes)), phi0.device)
     dev = phi0.device
-    ops16, passes = _solve_operands(solve_passes(k["solve_prec"]),
-                                    args[6:])
+    fwd = fwd_passes(k["fwd_mm"])
+    ops16, passes = _solve_operands(
+        krylov_passes(k["solve_prec"], k["fwd_mm"]), args[6:], fwd)
     geo = (launch_geometry(n, m, B, dev, members=SEGMENT_MEMBERS,
-                           segment=True, solve_passes=passes)
+                           segment=True, solve_passes=passes,
+                           fwd_passes=fwd)
            if cluster else None)
     lib = _build.load()
     out = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -974,10 +1051,12 @@ def _launch_segment(wrapper, args, k, cluster: bool):
     else:
         err = lib.vch_march_fused_2d_segment_cluster(
             *common, geo.cluster, geo.kc, geo.smem_bytes, _ptr(ops16),
-            passes, stream)
+            passes, fwd, stream)
     wrapper.launches += 1
     if passes:
         wrapper.bf16_launches += 1
+    if fwd:
+        wrapper.fwd16_launches += 1
     _build.raise_on(lib, err, wrapper.__name__)
     return hist, phi_f, mu_f, w_f, nsolve, first_bad
 
@@ -1749,13 +1828,16 @@ WRAPPERS = tuple(KERNELS) + (_march_fused_2d_cta, _march_fused_2d_segment_cta,
 
 
 # the cluster march's and sweep's wrappers: besides `launches` (every
-# launch) each counts in `bf16_launches` those of its bf16 form
+# launch) each counts in `bf16_launches` those of its bf16 forms
 # (march_bf16_kernel, the march's Krylov operator at fused_solve_precision
-# "bf16x3" or "default"; adjoint_bf16_kernel, the sweep's at
-# adjoint_solve_precision "bf16x3")
+# "bf16x3" or "default"; march_fwd16_kernel, every product of the march at
+# fwd_mm "bf16x3"; adjoint_bf16_kernel, the sweep's at
+# adjoint_solve_precision "bf16x3"), and the march's in `fwd16_launches`
+# those of march_fwd16_kernel
 BF16_WRAPPERS = (march_fused_2d, march_fused_2d_blocked,
                  march_fused_2d_segment, adjoint_fused_2d,
                  adjoint_fused_2d_blocked, adjoint_fused_2d_segment)
+FWD16_WRAPPERS = BF16_WRAPPERS[:3]
 
 
 def reset_launches():
@@ -1764,6 +1846,14 @@ def reset_launches():
         fn.launches = 0
     for fn in BF16_WRAPPERS:
         fn.bf16_launches = 0
+    for fn in FWD16_WRAPPERS:
+        fn.fwd16_launches = 0
+
+
+def fwd16_launch_counts() -> dict:
+    """The cluster march wrappers' launches of their fwd_mm form, by
+    name."""
+    return {fn.__name__: fn.fwd16_launches for fn in FWD16_WRAPPERS}
 
 
 def bf16_launch_counts() -> dict:
